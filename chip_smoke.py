@@ -1,0 +1,380 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
+each against its plain PyTorch version, then trains the canonical
+Heterogeneous Health-MNIST D4 config at full width for 20 steps.
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure exits non-zero):
+  1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel.
+  2. kernels each kernel against its plain version at the main path's
+             shapes (random SPD and a float32-indefinite input), residuals,
+             and CUDA-event times of kernel, plain version and the library
+             call (torch.linalg.cholesky + solve_triangular).
+  3. reference  four toy-width train steps on the card against the same
+             steps on the CPU (plain versions), same weights and noise.
+  4. slice   generated D4 data (P=200, T=20, 25% missing) -> CSVs ->
+             hlax_torch.cli.main.run with the canonical config, 2 epochs of
+             10 steps on the card; launch counters must show every Cholesky
+             went through the kernels.
+  5. profile steps/s of the canonical step, and device time by kernel.
+The line before the last is the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(ROOT, "configs", "hlvae_config_file.txt")
+
+# H100 SXM data sheet peaks (dense, no sparsity)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+# kernel vs plain version: the kernels are built with --fmad=false and do
+# the same float32 operations in the same order as the plain versions, so
+# they should agree exactly; the bound allows for a compiler reordering.
+REL_TOL = 1e-5
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
+        f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_spd(batch, n, gen):
+    x = torch.randn(batch + (n, n), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    a = x @ x.mT / n + 0.5 * torch.eye(n, device="cuda", dtype=torch.float64)
+    return a.float().contiguous()
+
+
+def indefinite_spd(batch, n, gen):
+    """Symmetric matrices whose logspace(0, -10) spectrum float32 rounding
+    makes numerically indefinite: the pivot guard's regime."""
+    q, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, device="cuda",
+                                       dtype=torch.float64))
+    ev = torch.logspace(0.0, -10.0, n, device="cuda", dtype=torch.float64)
+    a = (q * ev) @ q.T
+    return a.float().expand(batch + (n, n)).contiguous(), a
+
+
+def phase_build() -> None:
+    from hlax_torch.ops import cuda_build
+    t0 = time.time()
+    logs = cuda_build.build_all(["chol_inv_small", "chol_inv_mid"])
+    print(f"[build] nvcc sm_90a, 2 libraries in {time.time() - t0:.1f} s",
+          flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def _bound_ms(batch: int, n: int):
+    nbytes = 3 * batch * n * n * 4            # A read once, L and L^-1 written
+    flops = batch * 2 * n ** 3 / 3            # potrf n^3/3 + trtri n^3/3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _library(a):
+    l = torch.linalg.cholesky(a)
+    eye = torch.eye(a.shape[-1], device=a.device, dtype=a.dtype)
+    return l, torch.linalg.solve_triangular(l, eye.expand_as(l), upper=False)
+
+
+def phase_kernels():
+    """Each kernel against its plain version; returns the table rows."""
+    from hlax_torch.ops import linalg_small as ls
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = {
+        "chol_inv_small_cuda": dict(
+            fn=ls.chol_inv_small_cuda, source="hlax_torch/csrc/chol_inv_small.cu",
+            replaces="hlax/ops/linalg_small.py:112",
+            shapes=[((32, 20), 20)]),
+        "chol_inv_mid_cuda": dict(
+            fn=ls.chol_inv_mid_cuda, source="hlax_torch/csrc/chol_inv_mid.cu",
+            replaces="hlax/ops/linalg_small.py:472",
+            shapes=[((64,), 120), ((32,), 120)]),
+    }
+    rows = []
+    for name, k in kernels.items():
+        for batch, n in k["shapes"]:
+            b = 1
+            for d in batch:
+                b *= d
+            tag = f"{name} [{','.join(map(str, batch + (n, n)))}]"
+            worst = 0.0
+            for kind in ("spd", "indefinite"):
+                if kind == "spd":
+                    a = random_spd(batch, n, gen)
+                    a64 = a.double()
+                else:
+                    a, a64 = indefinite_spd(batch, n, gen)
+                l, il = k["fn"](a)
+                torch.cuda.synchronize()
+                lp, ilp = ls._chol_inv_plain(a)
+                for got, want, what in ((l, lp, "L"), (il, ilp, "L^-1")):
+                    if not torch.isfinite(got).all():
+                        fail(f"{tag} {kind}: non-finite {what}")
+                    err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    worst = max(worst, err)
+                    if err > REL_TOL * scale:
+                        fail(f"{tag} {kind}: {what} differs from the plain "
+                             f"version by {err:.3e} (scale {scale:.3e})")
+                if torch.triu(l, 1).abs().max().item() != 0.0:
+                    fail(f"{tag} {kind}: L has entries above the diagonal")
+                l64, il64 = l.double(), il.double()
+                eye = torch.eye(n, device="cuda", dtype=torch.float64)
+                rec = ((l64 @ l64.mT - a64).norm(dim=(-2, -1))
+                       / a64.norm(dim=(-2, -1))).max().item()
+                inv = (il64 @ l64 - eye).abs().max().item()
+                print(f"[kernels] {tag} {kind}: max|kernel-plain| L "
+                      f"{(l - lp).abs().max().item():.3e} L^-1 "
+                      f"{(il - ilp).abs().max().item():.3e}; "
+                      f"|LL^T-A|/|A| {rec:.3e}; |L^-1 L - I| {inv:.3e}",
+                      flush=True)
+                # residual bounds: float32 rounding for the SPD inputs; for
+                # the indefinite one, the guard's modification (pivots below
+                # 1e-6 max diag A are floored), so |LL^T-A| stays ~1e-6
+                if kind == "spd" and (rec > 1e-5 or inv > 1e-3):
+                    fail(f"{tag}: residuals too large")
+                if kind == "indefinite" and rec > 1e-4:
+                    fail(f"{tag} indefinite: |LL^T-A|/|A| = {rec:.3e}")
+            a = random_spd(batch, n, gen)
+            before = dict(ls.LAUNCHES)
+            ms = time_ms(lambda: k["fn"](a))
+            plain_ms = time_ms(lambda: ls._chol_inv_plain(a), reps=10)
+            lib_ms = time_ms(lambda: _library(a))
+            ls.LAUNCHES.update(before)
+            bound, by = _bound_ms(b, n)
+            print(f"[kernels] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                  f" ms, library {lib_ms:.4f} ms, bound {bound:.5f} ms "
+                  f"({by})", flush=True)
+            if (batch, n) == k["shapes"][0]:   # the table row: first shape
+                rows.append(dict(name=name, shape=list(batch + (n, n)),
+                                 route="cuda", source=k["source"],
+                                 replaces=k["replaces"], launches=0,
+                                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by,
+                                 library_ms=lib_ms))
+    return rows
+
+
+def write_canonical_data(dest: str) -> None:
+    """Generated Health-MNIST D4 (200 subjects x 20 timepoints, 25%
+    missing) under the canonical config's file names."""
+    from hlax_torch.data import generate as gen
+    t0 = time.time()
+    out = gen.generate(num_3=100, num_6=100, missing=25.0,
+                       datatype_config="D4", seed=100)
+    gen.write_csvs(out, dest, "D4", prefix="prediction_")
+    os.replace(os.path.join(dest, "prediction_data.csv"),
+               os.path.join(dest, "prediction_data_D4.csv"))
+    os.replace(os.path.join(dest, "prediction_labels.csv"),
+               os.path.join(dest, "prediction_label.csv"))
+    print(f"[slice] generated {out['data'].shape[0]} rows of D4 data in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+
+def phase_reference(tmp: str) -> None:
+    """The same four train steps (toy widths: z=8, hidden 50, M=30 for the
+    mid kernel, T=20 for the small one) from identical weights and noise on
+    the card and with the plain versions on the CPU.  Both float32; the
+    losses must agree to 1e-3 relative (the two devices sum in different
+    orders, and the GP terms invert matrices of condition ~1e4)."""
+    import copy
+
+    from hlax_torch.config import ModelArgs
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.data import generate as gen
+    from hlax_torch.gp.kernels import build_kernel_specs
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.train import step as tstep
+
+    d = os.path.join(tmp, "ref")
+    gen.write_csvs(gen.generate(num_3=2, num_6=2, datatype_config="D4",
+                                seed=7), d, "D4")
+    data = ds.load_dataset(d, "data.csv", "labels.csv", "mask.csv",
+                           "data_types_D4.csv")
+    opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+    spec0, spec1 = build_kernel_specs(
+        opt["cat_kernel"], opt["bin_kernel"], opt["sqexp_kernel"],
+        opt["cat_int_kernel"], opt["bin_int_kernel"],
+        opt["covariate_missing_val"], opt["id_covariate"])
+    cfg = tstep.TrainConfig(latent_dim=8, M=30, P_tot=float(data.P),
+                            N_tot=float(len(data)), id_covariate=2)
+    model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,)),
+                  torch.Generator().manual_seed(0), "cpu")
+    cpu = tstep.init_train_state(model, spec0, spec1,
+                                 next(ds.subject_batches(data, 2)), cfg)
+    to = lambda t: t.detach().to("cuda")
+    gpu = tstep.TrainState(
+        vae=copy.deepcopy(model).to("cuda"),
+        k0=[{k: to(v) for k, v in p.items()} for p in cpu.k0],
+        k1=[{k: to(v) for k, v in p.items()} for p in cpu.k1],
+        raw_noise=to(cpu.raw_noise), zt=to(cpu.zt), m=to(cpu.m),
+        H=to(cpu.H), optimizer=None, generator=torch.Generator("cuda"))
+    gpu.optimizer = tstep.make_optimizer(gpu, cfg)
+    noise = torch.Generator().manual_seed(1)
+    worst = 0.0
+    staged = {dev: ds.stage_dataset(data, torch.float32, dev)
+              for dev in ("cpu", "cuda")}
+    steps = {dev: tstep.make_train_step(st.vae, spec0, spec1, cfg)
+             for dev, st in (("cpu", cpu), ("cuda", gpu))}
+    for i, idx in enumerate([[0, 1], [2, 3], [3, 0], [1, 2]]):
+        eps = torch.randn((2 * data.T_max, 8), generator=noise)
+        losses = {}
+        for dev, state in (("cpu", cpu), ("cuda", gpu)):
+            batch = ds.gather_batch(staged[dev],
+                                    torch.tensor(idx, device=dev))
+            losses[dev] = steps[dev](state, batch, eps=eps.to(dev))[
+                "loss"].item()
+        rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        worst = max(worst, rel)
+        print(f"[reference] step {i}: loss cuda {losses['cuda']:.6f} cpu "
+              f"{losses['cpu']:.6f} rel {rel:.2e}", flush=True)
+    if not worst <= 1e-3:
+        fail(f"card and CPU disagree on the toy train steps: rel {worst:.2e}")
+
+
+def phase_slice(tmp: str):
+    from hlax_torch.cli import main as cli
+    from hlax_torch.config import ModelArgs
+    from hlax_torch.ops import linalg_small as ls
+
+    data_dir = os.path.join(tmp, "data")
+    write_canonical_data(data_dir)
+    opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+    opt.update(data_source_path=data_dir, save_path=os.path.join(tmp, "run"),
+               epochs=2, run_validation=False, run_tests=False,
+               generate_images=False, device="cuda")
+    ls.reset_counters()
+    out = cli.run(opt)
+    torch.cuda.synchronize()
+    launches = dict(ls.LAUNCHES)
+    plain = dict(ls.PLAIN_CUDA_CALLS)
+    losses = out["loss_arrs"]["net"]
+    steps = out["steps"]
+    print(f"[slice] losses per epoch {losses}; launches {launches}; plain "
+          f"versions on CUDA tensors {plain}", flush=True)
+    if steps != 20:
+        fail(f"expected 20 train steps, ran {steps}")
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+        fail(f"non-finite loss {losses}")
+    if launches["chol_inv_small_cuda"] < 20:
+        fail("small Cholesky kernel launched fewer than 20 times")
+    if launches["chol_inv_mid_cuda"] < 40:
+        fail("mid Cholesky kernel launched fewer than 40 times")
+    if any(plain.values()):
+        fail("a plain Cholesky version ran on CUDA tensors on the main path")
+    ep = out["epoch_seconds"]
+    print(f"[slice] epoch seconds {ep}; steps/s after warm-up "
+          f"{10 / ep[-1]:.3f} on {card_line()}", flush=True)
+    return launches, out
+
+
+def phase_profile(out, n_steps: int = 10) -> None:
+    """Steps/s of the canonical step over ``n_steps`` more steps, then a
+    torch.profiler pass over 5 steps: device time by kernel, and the
+    device's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hlax_torch.data.dataset import gather_batch
+
+    state, staged, step = out["state"], out["staged"], out["train_step"]
+    idx = torch.arange(20, device="cuda")
+    step(state, gather_batch(staged, idx))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step(state, gather_batch(staged, idx))
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / n_steps
+    print(f"[profile] {n_steps} steps: {per_step * 1e3:.3f} ms/step, "
+          f"{1 / per_step:.3f} steps/s on {card_line()}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(state, gather_batch(staged, idx))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        # device-side kernels only: user annotations (e.g. the optimizer's
+        # step range) span kernels already counted
+        if str(e.device_type).endswith("CUDA") and not getattr(
+                e, "is_user_annotation", False):
+            t = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + t
+    busy = sum(by_name.values())
+    if not busy:
+        print("[profile] the profiler recorded no device time", flush=True)
+        return
+    print(f"[profile] 5 steps under the profiler: wall {wall_us / 5e3:.3f} "
+          f"ms/step, device busy {busy / 5e3:.3f} ms/step, idle share "
+          f"{1 - busy / wall_us:.3f}", flush=True)
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"[profile] {t / 5e3:8.4f} ms/step {t / busy:6.1%}  "
+              f"{name[:90]}", flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False: this smoke run "
+              "needs an NVIDIA GPU", flush=True)
+        sys.exit(2)
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    phase_build()
+    rows = phase_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_reference(tmp)
+        launches, out = phase_slice(tmp)
+        phase_profile(out)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": rows}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,29 @@
+"""hlax_torch — the PyTorch/CUDA port of hlax (heterogeneous longitudinal VAE).
+
+The JAX package ``hlax`` is the reference; this package mirrors its module
+layout and is held against it on identical inputs and weights
+(``tests/test_torch_*.py``).  It imports ``torch`` and never ``jax``.
+
+Every float32 matmul and convolution runs in full float32: hlax computes all
+GP math at "highest" precision (``hlax/gp/elbo.py``), and cuDNN would
+otherwise run the convolutions in TF32.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks for
+    another.  Raises when CUDA is asked for and missing — the port never
+    falls back to the CPU on its own."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "hlax_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev

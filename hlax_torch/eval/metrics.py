@@ -1,0 +1,157 @@
+"""Reconstruction statistics and errors (port of part of
+``hlax/eval/metrics.py``): ``discrete_transform``, ``statistics``,
+``get_norm_terms`` and ``error_computation``, which the train step's
+recon metric needs.  All functions work in grouped column order
+(``hlax_torch.types``).  The rest of the metrics kit belongs to the eval path
+and is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from hlax_torch.types import TypeLayout
+
+
+def discrete_transform(data, layout: TypeLayout):
+    """Expanded data -> raw-space values [B, n_raw]: cat -> argmax code,
+    ordinal -> level (sum of thermometer - 1), others passthrough."""
+    blocks = []
+    for g in layout.groups:
+        d = data[:, g.exp_slice[0]:g.exp_slice[1]]
+        if g.kind == "cat":
+            blocks.append(torch.argmax(
+                d.reshape(d.shape[0], g.n_vars, g.nclass), dim=2).to(d.dtype))
+        elif g.kind == "ordinal":
+            blocks.append(
+                d.reshape(d.shape[0], g.n_vars, g.nclass).sum(dim=2) - 1.0)
+        else:
+            blocks.append(d)
+    return torch.cat(blocks, dim=1)
+
+
+def statistics(params_list, layout: TypeLayout, conv: bool,
+               beta_eq_mode_value: float = 0.5):
+    """Per-type point estimates from likelihood params (the per-group
+    ``params`` output of ``HLVAE.loglik``).  Returns (mean, mode), each
+    [B, n_raw].  The beta mode at alpha == beta == 1 is a fixed value, as in
+    hlax."""
+    means, modes = [], []
+    for g, p in zip(layout.groups, params_list):
+        if g.kind == "real":
+            est_mean, _ = p
+            means.append(est_mean)
+            modes.append(est_mean)
+        elif g.kind == "pos":
+            mu, var = p
+            means.append(torch.exp(mu + 0.5 * var) - 1.0)
+            modes.append(torch.exp(mu - var) - 1.0)
+        elif g.kind == "count":
+            means.append(p)
+            modes.append(torch.floor(p))
+        elif g.kind in ("cat", "ordinal"):
+            am = torch.argmax(p, dim=2).to(p.dtype)
+            means.append(am)
+            modes.append(am)
+        else:   # beta
+            alpha, beta = p
+            ranges = np.asarray(layout.beta_ranges)
+            dmin = torch.as_tensor(ranges[:, 0], dtype=alpha.dtype,
+                                   device=alpha.device)
+            dmax = torch.as_tensor(ranges[:, 1], dtype=alpha.dtype,
+                                   device=alpha.device)
+            means.append(alpha / (alpha + beta) * (dmax - dmin) + dmin)
+            one = torch.ones_like(alpha)
+            mode = torch.where(
+                (alpha > 1) & (beta > 1),
+                (alpha - 1) / (alpha + beta - 2).clamp(min=1e-12),
+                torch.where((alpha > 1) & (beta <= 1), one,
+                            torch.where((alpha == 1) & (beta == 1),
+                                        beta_eq_mode_value * one, 0.0 * one)))
+            modes.append(mode * (dmax - dmin) + dmin)
+    return torch.cat(means, dim=1), torch.cat(modes, dim=1)
+
+
+def get_norm_terms(x, true_mask):
+    """Observed range per column."""
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    big = torch.where(true_mask > 0, x, -inf)
+    small = torch.where(true_mask > 0, x, inf)
+    return big.amax(dim=0) - small.amin(dim=0)
+
+
+def error_computation(
+    x_true, x_hat, layout: TypeLayout, mask,
+    conv: bool, use_ranges: bool = False,
+    true_mask=None, mean_imp_error: bool = False, dim: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
+    """Per-variable normalized errors split observed/missing/all.  Inputs in
+    grouped raw space [B, n_raw].  Returns (error_observed [n_raw],
+    error_missing [n_raw], partial dict by type)."""
+    if true_mask is None:
+        true_mask = torch.ones_like(mask)
+    err_blocks = []
+    for g in layout.groups:
+        sl = slice(g.raw_slice[0], g.raw_slice[1])
+        xt, xh = x_true[:, sl], x_hat[:, sl]
+        tm = true_mask[:, sl]
+        if g.kind == "cat":
+            err = (xt != xh).to(xt.dtype)
+        elif g.kind == "ordinal":
+            err = (xt - xh).abs() / g.nclass
+        else:
+            if g.kind == "beta":
+                if conv:
+                    norm = 255.0
+                elif use_ranges:
+                    r = np.asarray(layout.beta_ranges)
+                    norm = torch.as_tensor(r[:, 1] - r[:, 0], dtype=xt.dtype,
+                                           device=xt.device)
+                else:
+                    norm = 1.0
+            else:
+                if conv:
+                    norm = 1.0
+                    xt = xt / 255.0
+                    if mean_imp_error or g.kind in ("pos", "count"):
+                        xh = xh / 255.0
+                else:
+                    norm = get_norm_terms(xt, tm)
+                    norm = torch.where(norm == 0, torch.ones_like(norm), norm)
+            err = ((xh - xt) ** 2) / norm ** 2
+        err_blocks.append(err)
+    all_error = torch.cat(err_blocks, dim=1)
+
+    known_missing = true_mask * (1.0 - mask)
+
+    def _avg(w):
+        s = w.sum(dim=dim)
+        return (all_error * w).sum(dim=dim) / torch.where(
+            s == 0, torch.ones_like(s), s)
+
+    error_observed = _avg(mask)
+    error_missing = _avg(known_missing)
+    error_all = _avg(true_mask)
+
+    # RMSE for non-discrete variables
+    kinds = layout.var_kinds_grouped()
+    sq = torch.as_tensor(~np.isin(kinds, ("cat", "ordinal")),
+                         device=all_error.device)
+    rt = lambda e: torch.where(sq, torch.sqrt(e), e)
+    error_observed, error_missing, error_all = (
+        rt(error_observed), rt(error_missing), rt(error_all))
+
+    partial: Dict[str, Dict[str, list]] = {}
+    for g in layout.groups:
+        sl = slice(g.raw_slice[0], g.raw_slice[1])
+        d = partial.setdefault(g.kind, {"error_missing": [],
+                                        "error_observed": [], "error_all": []})
+        d["error_missing"].append(error_missing[sl])
+        d["error_observed"].append(error_observed[sl])
+        d["error_all"].append(error_all[sl])
+    out = {k: {kk: torch.cat(v) for kk, v in d.items()}
+           for k, d in partial.items()}
+    return error_observed, error_missing, out

@@ -1,0 +1,357 @@
+"""HLVAE: heterogeneous-likelihood VAE, conv encoder/decoder path (port of
+``hlax/models/hlvae.py``).
+
+Public layouts are hlax's: grouped data [B, n_exp], mask [B, n_raw], theta
+mask [B, n_theta], decoder features y [B, n_raw, y_dim] in grouped order.
+The image stack inside runs NCHW with torch's weight layouts;
+``hlax_torch.convert`` maps hlax's flax parameters onto this module.
+
+  * Representation_One_Hot: every cat/ordinal one-hot block is scalarized
+    to one channel per raw variable before the conv stack.
+  * Theta routing: each head is evaluated once and its gradient gated by
+    the theta mask, ``theta = h.detach() + mask * (h - h.detach())``.
+  * ``_max_pool_2x2``: its backward sends the cotangent to every tied
+    element of a window, as hlax's custom VJP does (``nn.MaxPool2d`` picks
+    one winner).
+
+The MLP (non-conv) path, ``compute_dtype`` and the fused conv lowering are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hlax_torch import resolve_device
+from hlax_torch.ops import convfuse as cf
+from hlax_torch.ops import likelihoods as lik
+from hlax_torch.ops.normalization import NormParams, batch_normalization
+from hlax_torch.types import TypeLayout
+
+_INIT_STD = 0.05   # normal(0.05) init of dense layers and heads
+
+
+@dataclasses.dataclass(frozen=True)
+class HLVAEConfig:
+    layout: TypeLayout
+    z_dim: int = 32
+    h_dims: Tuple[int, ...] = (500,)
+    y_dim: int = 5
+    conv: bool = True
+    logvar_network: bool = False
+    vy_init_real: float = 1.0
+    vy_init_pos: float = 0.5
+    vy_fixed: bool = False
+    image_side: int = 36
+
+    @property
+    def n_raw(self) -> int:
+        return self.layout.n_raw
+
+    @property
+    def n_exp(self) -> int:
+        return self.layout.n_exp
+
+
+def _log_vy_init(vy: float) -> float:
+    # log(vy - exp(min_log_vy))
+    return math.log(vy - math.exp(lik.MIN_LOG_VY))
+
+
+class _MaxPool2x2(torch.autograd.Function):
+    """2x2 stride-2 max pool over NCHW whose backward gives the cotangent to
+    every element equal to its window's maximum."""
+
+    @staticmethod
+    def forward(ctx, h):
+        B, C, H, W = h.shape
+        hr = h.reshape(B, C, H // 2, 2, W // 2, 2)
+        o = hr.amax(dim=(3, 5))
+        ctx.save_for_backward(h, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        h, o = ctx.saved_tensors
+        B, C, H, W = h.shape
+        hr = h.reshape(B, C, H // 2, 2, W // 2, 2)
+        tied = hr == o[:, :, :, None, :, None]
+        gb = torch.where(tied, g[:, :, :, None, :, None],
+                         torch.zeros((), dtype=g.dtype, device=g.device))
+        return gb.reshape(h.shape)
+
+
+def max_pool_2x2(h: torch.Tensor) -> torch.Tensor:
+    return _MaxPool2x2.apply(h)
+
+
+def _normal(shape, gen, device, std=_INIT_STD):
+    return nn.Parameter(torch.randn(shape, generator=gen, device=device) * std)
+
+
+def _dense(n_in, n_out, gen, device) -> nn.Linear:
+    layer = nn.Linear(n_in, n_out, device=device)
+    with torch.no_grad():
+        layer.weight.normal_(0.0, _INIT_STD, generator=gen)
+        layer.bias.normal_(0.0, _INIT_STD, generator=gen)
+    return layer
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen) -> None:
+    # flax lecun_normal: truncated normal (+-2 sd) with variance 1/fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+class HLVAE(nn.Module):
+    """Parameters are drawn from ``generator`` (flax's init distributions),
+    which must live on ``device`` (CUDA unless the caller asks for the CPU);
+    ``hlax_torch.convert`` overwrites them with hlax's when needed."""
+
+    def __init__(self, cfg: HLVAEConfig, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        if not cfg.conv:
+            raise NotImplementedError(
+                "HLVAE: the MLP (conv=False) path is not ported yet "
+                "(ROADMAP queue 1)")
+        self.cfg = cfg
+        lay = cfg.layout
+        gen, dev = generator, device
+        self._beta_ranges = np.array(lay.beta_ranges)
+
+        # --- encoder ---------------------------------------------------
+        self.rep_w = nn.ParameterDict()
+        self.rep_b = nn.ParameterDict()
+        for gi, g in enumerate(lay.groups):
+            if g.kind in ("cat", "ordinal"):
+                self.rep_w[str(gi)] = _normal((g.n_vars, g.nclass), gen, dev)
+                self.rep_b[str(gi)] = _normal((g.n_vars,), gen, dev)
+        self.conv1 = nn.Conv2d(1, 16, 3, padding=1, device=dev)
+        self.conv2 = nn.Conv2d(16, 32, 3, padding=1, device=dev)
+        feat = cfg.image_side // 4   # 36 -> 9 after two stride-2 pools
+        dims = (32 * feat * feat,) + tuple(cfg.h_dims)
+        self.enc_mlp = nn.ModuleList(
+            _dense(a, b, gen, dev) for a, b in zip(dims[:-1], dims[1:]))
+        self.mean_layer = _dense(dims[-1], cfg.z_dim, gen, dev)
+        self.log_var_layer = _dense(dims[-1], cfg.z_dim, gen, dev)
+
+        # --- decoder ---------------------------------------------------
+        ddims = (cfg.z_dim,) + tuple(reversed(cfg.h_dims))
+        self.dec_mlp = nn.ModuleList(
+            _dense(a, b, gen, dev) for a, b in zip(ddims[:-1], ddims[1:]))
+        self.y_layer = _dense(ddims[-1], 32 * feat * feat, gen, dev)
+        self.deconv1 = nn.ConvTranspose2d(32, 16, 4, stride=2, padding=1,
+                                          device=dev)
+        self.deconv2 = nn.ConvTranspose2d(16, cfg.y_dim, 4, stride=2,
+                                          padding=1, device=dev)
+        for conv, fan_in in ((self.conv1, 9), (self.conv2, 9 * 16),
+                             (self.deconv1, 16 * 32), (self.deconv2, 16 * 16)):
+            _lecun_normal_(conv.weight, fan_in, gen)
+            nn.init.zeros_(conv.bias)
+
+        # --- observation heads -----------------------------------------
+        self.obs = nn.ParameterDict()
+        for gi, g in enumerate(lay.groups):
+            d = g.n_vars
+            ncol = g.nclass - 1 if g.kind == "cat" else 1
+            self.obs[f"w_{gi}"] = _normal((d, cfg.y_dim, ncol), gen, dev)
+            self.obs[f"b_{gi}"] = _normal((d, ncol), gen, dev)
+            if cfg.logvar_network and g.kind in ("real", "pos"):
+                self.obs[f"wv_{gi}"] = _normal((d, cfg.y_dim, 1), gen, dev)
+                self.obs[f"bv_{gi}"] = _normal((d, 1), gen, dev)
+            if g.kind == "ordinal":
+                self.obs[f"th_{gi}"] = nn.Parameter(
+                    torch.ones((d, g.nclass - 1), device=dev))
+
+        # --- global observation-noise parameters -----------------------
+        d_real = sum(g.n_vars for g in lay.groups if g.kind == "real")
+        d_pos = sum(g.n_vars for g in lay.groups if g.kind == "pos")
+        self.log_vy_real = self.log_vy_pos = None
+        if not cfg.logvar_network:
+            if d_real:
+                self.log_vy_real = nn.Parameter(torch.full(
+                    (d_real,), _log_vy_init(cfg.vy_init_real), device=dev))
+            if d_pos:
+                self.log_vy_pos = nn.Parameter(torch.full(
+                    (d_pos,), _log_vy_init(cfg.vy_init_pos), device=dev))
+        self.disp_param = nn.Parameter(torch.ones((1,), device=dev))
+        self.register_buffer("raw_inv", torch.as_tensor(
+            lay.raw_inv, device=dev), persistent=False)
+        self.register_buffer("raw_perm", torch.as_tensor(
+            lay.raw_perm, device=dev), persistent=False)
+
+    # ------------------------------------------------------------------
+    # encoder
+    # ------------------------------------------------------------------
+
+    def encode(self, data, mask, norm_data=None):
+        """data [B, n_exp] grouped, mask [B, n_raw] grouped -> (mu, log_var)."""
+        cfg = self.cfg
+        lay = cfg.layout
+        if norm_data is None:
+            norm_data, _ = batch_normalization(data, mask, lay, cfg.conv)
+        # scalarize to one channel per raw variable
+        blocks = []
+        for gi, g in enumerate(lay.groups):
+            x_g = norm_data[:, g.exp_slice[0]:g.exp_slice[1]]
+            m_g = mask[:, g.raw_slice[0]:g.raw_slice[1]]
+            if g.kind in ("cat", "ordinal"):
+                x3 = x_g.reshape(x_g.shape[0], g.n_vars, g.nclass)
+                rep = torch.einsum("bdc,dc->bd", x3, self.rep_w[str(gi)])
+                rep = rep + self.rep_b[str(gi)]
+            else:
+                rep = x_g
+            blocks.append(rep * m_g)
+        one_to_one = torch.cat(blocks, dim=1)            # [B, n_raw] grouped
+        # un-permute to pixel order for the spatial conv
+        s = cfg.image_side
+        img = one_to_one[:, self.raw_inv].reshape(-1, 1, s, s)
+        h = max_pool_2x2(F.relu(cf.conv3x3_same(
+            img, self.conv1.weight, self.conv1.bias)))
+        h = max_pool_2x2(F.relu(cf.conv3x3_same(
+            h, self.conv2.weight, self.conv2.bias)))
+        hidden = h.reshape(h.shape[0], -1)
+        for layer in self.enc_mlp:
+            hidden = F.relu(layer(hidden))
+        mu = self.mean_layer(hidden)
+        log_var = torch.clamp(self.log_var_layer(hidden), -15.0, 15.0)
+        return mu, log_var
+
+    # ------------------------------------------------------------------
+    # decoder
+    # ------------------------------------------------------------------
+
+    def decode_y(self, z):
+        """z [B, z_dim] -> per-variable features y [B, n_raw, y_dim]
+        (grouped order)."""
+        cfg = self.cfg
+        h = z
+        for layer in self.dec_mlp:
+            h = F.relu(layer(h))
+        feat = cfg.image_side // 4
+        y = self.y_layer(h).reshape(-1, 32, feat, feat)
+        y = F.relu(cf.conv_transpose4x4_s2(y, self.deconv1.weight,
+                                           self.deconv1.bias))
+        y = cf.conv_transpose4x4_s2(y, self.deconv2.weight, self.deconv2.bias)
+        # [B, y, 36, 36] -> [B, pixels, y] in pixel order -> grouped order
+        y = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, cfg.y_dim)
+        return y[:, self.raw_perm, :]
+
+    def _head(self, gi, g, y_g):
+        """Observation head of group ``gi`` on y_g [B, d, y_dim]."""
+        obs = self.obs
+        if g.kind == "cat":
+            th = torch.einsum("bdy,dyc->bdc", y_g, obs[f"w_{gi}"]) \
+                + obs[f"b_{gi}"]
+            th = F.pad(th, (1, 0))                      # pin class 0
+            return th.reshape(th.shape[0], -1)
+        mean = torch.einsum("bdy,dya->bda", y_g, obs[f"w_{gi}"]) \
+            + obs[f"b_{gi}"]
+        if g.kind == "ordinal":
+            thr = obs[f"th_{gi}"].expand((y_g.shape[0],)
+                                         + obs[f"th_{gi}"].shape)
+            th = torch.cat([thr, mean], dim=-1)         # [B, d, c]
+            return th.reshape(th.shape[0], -1)
+        # count / real / pos / beta: mean head [B, d]
+        mean = mean[..., 0]
+        if g.kind == "real":
+            mean = torch.sigmoid(mean)   # conv-real sigmoid
+        if self.cfg.logvar_network and g.kind in ("real", "pos"):
+            logv = (torch.einsum("bdy,dya->bda", y_g, obs[f"wv_{gi}"])
+                    + obs[f"bv_{gi}"])[..., 0]
+            return torch.cat([mean, logv], dim=-1)      # [means, logvars]
+        return mean
+
+    def theta_estimation(self, y, theta_mask):
+        """Route features through the heads; the merged theta equals the
+        reference's two-pass (observed with gradients, missing without)
+        evaluation: one head pass with its gradient gated by the mask."""
+        blocks = []
+        for gi, g in enumerate(self.cfg.layout.groups):
+            h = self._head(gi, g, y[:, g.raw_slice[0]:g.raw_slice[1], :])
+            hs = h.detach()
+            pm = theta_mask[:, g.theta_slice[0]:g.theta_slice[1]]
+            blocks.append(hs + pm * (h - hs))
+        return torch.cat(blocks, dim=1)   # [B, n_theta] grouped
+
+    def loglik(self, theta, data, mask, norm_params: NormParams):
+        """Per-type likelihoods. Returns (log_p_x [B,n_raw],
+        log_p_x_missing [B,n_raw], params list)."""
+        cfg = self.cfg
+        lp_blocks, lpm_blocks, params = [], [], []
+        for g in cfg.layout.groups:
+            d_blk = data[:, g.exp_slice[0]:g.exp_slice[1]]
+            m_blk = mask[:, g.raw_slice[0]:g.raw_slice[1]]
+            t_blk = theta[:, g.theta_slice[0]:g.theta_slice[1]]
+            if g.kind == "real":
+                extra = self.log_vy_real
+                if extra is not None and cfg.vy_fixed:
+                    extra = extra.detach()
+                out = lik.loglik_real(d_blk / 255.0, m_blk, t_blk,
+                                      norm_params.real_mean,
+                                      norm_params.real_var, extra, cfg.conv)
+            elif g.kind == "pos":
+                extra = self.log_vy_pos
+                if extra is not None and cfg.vy_fixed:
+                    extra = extra.detach()
+                out = lik.loglik_pos(d_blk, m_blk, t_blk,
+                                     norm_params.pos_mean_log,
+                                     norm_params.pos_var_log, extra)
+            elif g.kind == "cat":
+                out = lik.loglik_cat(d_blk, m_blk, t_blk, g.nclass)
+            elif g.kind == "ordinal":
+                out = lik.loglik_ordinal(d_blk, m_blk, t_blk, g.nclass)
+            elif g.kind == "count":
+                out = lik.loglik_count(d_blk, m_blk, t_blk)
+            else:   # beta
+                ranges = torch.as_tensor(self._beta_ranges,
+                                         dtype=theta.dtype,
+                                         device=theta.device)
+                out = lik.loglik_beta(d_blk, m_blk, t_blk, ranges,
+                                      self.disp_param)
+            lp_blocks.append(out["log_p_x"])
+            lpm_blocks.append(out["log_p_x_missing"])
+            params.append(out["params"])
+        return (torch.cat(lp_blocks, dim=1), torch.cat(lpm_blocks, dim=1),
+                params)
+
+    def forward(self, data, mask, theta_mask,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                sample: bool = True):
+        """Full forward pass.  The reparameterization noise is ``eps`` when
+        given, else drawn from ``generator``."""
+        norm_data, norm_params = batch_normalization(
+            data, mask, self.cfg.layout, self.cfg.conv)
+        mu, log_var = self.encode(data, mask, norm_data)
+        if sample:
+            if eps is None:
+                eps = torch.randn(mu.shape, generator=generator,
+                                  dtype=mu.dtype, device=mu.device)
+            z = mu + eps * torch.exp(0.5 * log_var)
+        else:
+            z = mu
+        y = self.decode_y(z)
+        theta = self.theta_estimation(y, theta_mask)
+        log_p_x, log_p_x_missing, params = self.loglik(
+            theta, data, mask, norm_params)
+        return {
+            "mu": mu, "log_var": log_var, "z": z,
+            "log_p_x": log_p_x, "log_p_x_missing": log_p_x_missing,
+            "params": params, "theta": theta,
+        }
+
+
+def nll_from_log_p(log_p_x):
+    """-sum over columns."""
+    return -torch.sum(log_p_x, dim=1)

@@ -1,0 +1,56 @@
+"""Checkpoint: the whole train state as one ``torch.save``d dict (port of
+``hlax/train/checkpoint.py``, which saves one orbax pytree).
+
+``<path>/final.pt`` holds the VAE's state dict, the kernel parameters, the
+noise, zt, m, H, the Adam state, the step count and the generator state.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from hlax_torch.train.step import TrainState
+
+FINAL_NAME = "final"
+
+
+def state_dict(state: TrainState) -> dict:
+    cpu = lambda t: t.detach().cpu()
+    return {
+        "vae": {k: cpu(v) for k, v in state.vae.state_dict().items()},
+        "k0": [{k: cpu(v) for k, v in p.items()} for p in state.k0],
+        "k1": [{k: cpu(v) for k, v in p.items()} for p in state.k1],
+        "raw_noise": cpu(state.raw_noise), "zt": cpu(state.zt),
+        "m": cpu(state.m), "H": cpu(state.H),
+        "optimizer": state.optimizer.state_dict(),
+        "generator": state.generator.get_state(),
+        "step": state.step,
+    }
+
+
+def save(path: str, state: TrainState, name: str = FINAL_NAME) -> str:
+    target = os.path.join(os.path.abspath(path), f"{name}.pt")
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    torch.save(state_dict(state), target)
+    return target
+
+
+def restore(path: str, state: TrainState, name: str = FINAL_NAME) -> bool:
+    """Load ``<path>/<name>.pt`` into ``state`` in place; False if absent."""
+    target = os.path.join(os.path.abspath(path), f"{name}.pt")
+    if not os.path.isfile(target):
+        return False
+    sd = torch.load(target, map_location="cpu", weights_only=False)
+    with torch.no_grad():
+        state.vae.load_state_dict(sd["vae"])
+        for dst, src in zip(state.k0 + state.k1, sd["k0"] + sd["k1"]):
+            for k in dst:
+                dst[k].copy_(src[k])
+        for k in ("raw_noise", "zt", "m", "H"):
+            getattr(state, k).copy_(sd[k])
+    state.optimizer.load_state_dict(sd["optimizer"])
+    state.generator.set_state(sd["generator"])
+    state.step = sd["step"]
+    return True

@@ -1,0 +1,175 @@
+"""Port's Cholesky-plus-inverse (``hlax_torch.ops.linalg_small``) against
+hlax's Pallas kernels, run in interpret mode on the CPU.
+
+The port's plain versions are what its CUDA kernels compute (the kernels
+agree with them bit for bit on the card, ``chip_smoke.py``); here the plain
+versions are held against hlax ``chol_inv_small`` (``_kernel``) and
+``_chol_inv_mid_batched`` (``_mid_kernel``), with gradients against hlax's
+custom VJPs.  float64 unless noted; the pivot-guard case is float32, the
+dtype in which the input is indefinite.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hlax.ops import linalg_small as ls
+from hlax_torch.ops import linalg_small as tls
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _force_pallas():
+    """Run hlax's Pallas kernels in interpret mode, and restore the flag."""
+    old = ls.FORCE_PALLAS
+    ls.FORCE_PALLAS = True
+    try:
+        yield
+    finally:
+        ls.FORCE_PALLAS = old
+
+
+def _spd(rng, shape, n):
+    a = rng.normal(size=shape + (n, n))
+    return a @ np.swapaxes(a, -1, -2) / n + 0.5 * np.eye(n)
+
+
+def _indefinite_f32(rng, n, batch=3):
+    q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    a64 = (q * np.logspace(0.0, -10.0, n)) @ q.T
+    a32 = np.broadcast_to(a64, (batch, n, n)).astype(np.float32)
+    assert np.linalg.eigvalsh(a32[0].astype(np.float64)).min() < 0
+    return a64, a32
+
+
+def _hlax_fact(n):
+    return ls.chol_inv_small if n <= ls.MAX_DIAG_BLOCK else \
+        ls._chol_inv_mid_batched
+
+
+@pytest.mark.parametrize("n,shape", [(20, (2, 3)), (56, (2,)), (120, (2,))])
+def test_forward_matches_hlax_kernels(n, shape):
+    """T=20 through the small kernel, M=56/120 through the mid kernel."""
+    a = _spd(np.random.default_rng(n), shape, n)
+    lj, ilj = _hlax_fact(n)(jnp.asarray(a))
+    lt, ilt = tls.chol_inv_blocked(torch.tensor(a))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(ilt.numpy(), np.asarray(ilj), rtol=1e-9,
+                               atol=1e-11)
+    # exact zeros above the diagonal, in L and in L^-1
+    iu = np.triu_indices(n, 1)
+    assert not lt.numpy()[..., iu[0], iu[1]].any()
+    assert not ilt.numpy()[..., iu[0], iu[1]].any()
+
+
+def _pinned(l, floor):
+    """Columns the guard pinned to sqrt(floor) * e_j."""
+    below = np.tril(l, -1)
+    return [j for j in range(l.shape[-1])
+            if abs(l[j, j] - np.sqrt(floor)) < 1e-7 and not below[:, j].any()]
+
+
+@pytest.mark.parametrize("n", [20, 56])
+def test_pivot_guard_matches_hlax(n):
+    """On a float32-indefinite input (logspace(0, -10) spectrum) both guarded
+    factorizations are finite and factor a nearby matrix, and the port's L
+    is exactly lower-triangular.  Which trailing pivots fall below the floor
+    is decided by float32 rounding (hlax refines an rsqrt, the port divides
+    by a sqrt), and so are the columns with tiny pivots; L is compared on
+    the columns whose pivot is at least 1e-3 (the leading, well-determined
+    ones), and the pinned sets must match exactly at T=20.  hlax's mid
+    kernel leaves entries above the diagonal of L after a pinned pivot
+    (ROADMAP queue 3); only its lower triangle is compared."""
+    a64, a32 = _indefinite_f32(np.random.default_rng(11), n)
+    lj, ilj = _hlax_fact(n)(jnp.asarray(a32))
+    lt, ilt = tls.chol_inv_blocked(torch.tensor(a32))
+    lt, ilt = lt.numpy(), ilt.numpy()
+    assert np.isfinite(lt).all() and np.isfinite(ilt).all()
+    assert np.isfinite(np.asarray(ilj)).all()
+    iu = np.triu_indices(n, 1)
+    assert not lt[..., iu[0], iu[1]].any()
+    lj = np.tril(np.asarray(lj))
+    for l in (lt[0], lj[0]):
+        l = l.astype(np.float64)
+        assert np.abs(l @ l.T - a64).max() < 1e-5
+    floor = 1e-6 * np.diag(a32[0]).max()
+    pin_t, pin_j = _pinned(lt[0], floor), _pinned(lj[0], floor)
+    assert pin_t and pin_j
+    if n == 20:
+        assert pin_t == pin_j
+    k = int(np.argmax(np.diagonal(lj[0]) ** 2 < 1e-3))
+    assert k > 0
+    np.testing.assert_allclose(lt[:, :, :k], lj[:, :, :k], rtol=1e-4,
+                               atol=1e-5)
+
+
+def _loss_weights(rng, shape, n):
+    return rng.normal(size=shape + (n, n)), rng.normal(size=shape + (n, n))
+
+
+def _sym(g):
+    return g + np.swapaxes(g, -1, -2)
+
+
+@pytest.mark.parametrize("n", [8, 20, 56])
+def test_gradients_match_hlax_vjps(n):
+    """n=8 reaches hlax's Pallas backward kernel (``_bwd_kernel``), n=20
+    its ``_bwd_reference``, n=56 the mid kernel's VJP; the port runs
+    ``_bwd_reference`` for all three.  hlax's backward kernel returns the
+    transpose of ``_bwd_reference``'s lower-triangular convention (ROADMAP
+    queue 3), so at n=8 the symmetrized gradients are compared; at n=20 and
+    n=56 the gradients themselves."""
+    rng = np.random.default_rng(100 + n)
+    a = _spd(rng, (3,), n)
+    wl, wi = _loss_weights(rng, (3,), n)
+    jfact = ls.chol_inv_small if n <= ls.MAX_DIAG_BLOCK else ls._chol_inv_mid
+
+    def f_j(x):
+        l, il = jfact(x)
+        return jnp.sum(l * wl) + jnp.sum(il * wi) \
+            + jnp.sum(ls.logdet_from_chol(l))
+
+    gj = np.asarray(jax.grad(f_j)(jnp.asarray(a)))
+    at = torch.tensor(a, requires_grad=True)
+    l, il = tls.chol_inv_blocked(at)
+    f = (l * torch.tensor(wl)).sum() + (il * torch.tensor(wi)).sum() \
+        + 2 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum()
+    f.backward()
+    gt = at.grad.numpy()
+    if n <= 16:
+        gt, gj = _sym(gt), _sym(gj)
+    np.testing.assert_allclose(gt, gj, rtol=1e-8,
+                               atol=1e-10 * np.abs(gj).max())
+
+
+def test_gradient_with_one_output_unused():
+    """A loss that reads only L (or only L^-1) gets a zero cotangent for the
+    other output (symmetrized: n=6 reaches hlax's backward kernel)."""
+    rng = np.random.default_rng(5)
+    a = _spd(rng, (2,), 6)
+    for pick in (0, 1):
+        at = torch.tensor(a, requires_grad=True)
+        tls.chol_inv_small(at)[pick].sum().backward()
+        gj = jax.grad(lambda x: jnp.sum(ls.chol_inv_small(x)[pick]))(
+            jnp.asarray(a))
+        np.testing.assert_allclose(_sym(at.grad.numpy()),
+                                   _sym(np.asarray(gj)), rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """The CUDA wrappers check device, dtype, shape and contiguity and
+    raise; the autograd Functions use the plain version only on the CPU."""
+    a = torch.eye(20).expand(2, 20, 20).contiguous()
+    with pytest.raises(ValueError, match="CUDA"):
+        tls.chol_inv_small_cuda(a)
+    with pytest.raises(ValueError, match="CUDA"):
+        tls.chol_inv_mid_cuda(torch.eye(120)[None].contiguous())
+    tls.reset_counters()
+    tls.chol_inv_blocked(a)
+    assert tls.LAUNCHES == {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0}
+    assert tls.PLAIN_CUDA_CALLS["chol_inv_plain"] == 0
