@@ -1,34 +1,48 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
-each against its plain PyTorch version, then trains the canonical
-Heterogeneous Health-MNIST D4 config at full width for 20 steps.
+each against its plain PyTorch version, trains the canonical Heterogeneous
+Health-MNIST D4 config at full width for 30 steps with validation and the
+test battery, then imputes with the trained model.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel.
   2. kernels each kernel against its plain version at the main path's
-             shapes (random SPD and a float32-indefinite input), residuals,
-             and CUDA-event times of kernel, plain version and the library
-             call (torch.linalg.cholesky + solve_triangular).
+             shapes (the forward kernels on random SPD and float32-indefinite
+             inputs, with residuals; the backward kernel on random, L_bar = 0
+             and L^-1_bar = 0 cotangents, against float64), and CUDA-event
+             times of kernel, plain version, the library call where one
+             exists (torch.linalg.cholesky + solve_triangular) and the bound.
   3. reference  four toy-width train steps on the card against the same
              steps on the CPU (plain versions), same weights and noise.
-  4. slice   generated D4 data (P=200, T=20, 25% missing) -> CSVs ->
-             hlax_torch.cli.main.run with the canonical config, 2 epochs of
-             10 steps on the card; launch counters must show every Cholesky
-             went through the kernels.
-  5. profile steps/s of the canonical step, and device time by kernel.
+  4. slice   generated D4 splits (prediction = training, test, validation;
+             P=200, T=20, 25% missing) -> hlax_torch.cli.main.run with the
+             canonical config, 3 epochs of 10 steps on the card, then the
+             final validation and the test battery; launch counters must
+             show every Cholesky and every small backward went through the
+             kernels.
+  5. impute  hlax_torch.cli.impute over the test split with the trained
+             model, encoder mode and GP mode: rows/s.
+  6. eval    imputation-eval samples/s (bench.py's protocol: forward with
+             the q(z) mean over the training set in 500-row chunks).
+  7. profile steps/s of the canonical step, and device time by kernel.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 import torch
 
@@ -39,10 +53,21 @@ CONFIG = os.path.join(ROOT, "configs", "hlvae_config_file.txt")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-# kernel vs plain version: the kernels are built with --fmad=false and do
-# the same float32 operations in the same order as the plain versions, so
-# they should agree exactly; the bound allows for a compiler reordering.
+# kernel vs plain version: the forward kernels are built with --fmad=false
+# and do the same float32 operations in the same order as the plain
+# versions, so they should agree exactly; the bound allows for a compiler
+# reordering.
 REL_TOL = 1e-5
+# backward kernel: it sums its products in another order than the plain
+# version's cuBLAS matmuls, so both are held against float64 on the same
+# float32 inputs: its error may be at most BWD_ERR_FACTOR times the plain
+# version's plus BWD_ERR_ABS * max|A_bar| (a few float32 roundings of the
+# largest entry)
+BWD_ERR_FACTOR, BWD_ERR_ABS = 4.0, 1e-6
+# the train step launches the mid kernel twice (K0zz stacked with H, and the
+# natural-gradient inverse), the small kernel and its backward once each
+MID_PER_STEP = 2
+EVAL_CHUNK = 500    # bench.py's imputation-eval chunk
 
 
 def fail(msg: str) -> None:
@@ -92,8 +117,9 @@ def indefinite_spd(batch, n, gen):
 def phase_build() -> None:
     from hlax_torch.ops import cuda_build
     t0 = time.time()
-    logs = cuda_build.build_all(["chol_inv_small", "chol_inv_mid"])
-    print(f"[build] nvcc sm_90a, 2 libraries in {time.time() - t0:.1f} s",
+    logs = cuda_build.build_all(["chol_inv_small", "chol_inv_mid",
+                                 "chol_inv_bwd"])
+    print(f"[build] nvcc sm_90a, 3 libraries in {time.time() - t0:.1f} s",
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -128,7 +154,7 @@ def phase_kernels():
         "chol_inv_mid_cuda": dict(
             fn=ls.chol_inv_mid_cuda, source="hlax_torch/csrc/chol_inv_mid.cu",
             replaces="hlax/ops/linalg_small.py:472",
-            shapes=[((64,), 120), ((32,), 120)]),
+            shapes=[((64,), 120), ((32,), 120), ((32, 256), 32)]),
     }
     rows = []
     for name, k in kernels.items():
@@ -192,22 +218,85 @@ def phase_kernels():
                                  max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound, bound_by=by,
                                  library_ms=lib_ms))
+    rows.append(phase_bwd_kernel(gen))
     return rows
 
 
+def _bwd_bound_ms(batch: int, n: int):
+    nbytes = 5 * batch * n * n * 4            # L, L^-1, both cotangents, A_bar
+    flops = 10 * batch * n ** 3               # five n x n products
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bwd_kernel(gen):
+    """The backward kernel at the training B blocks' shape and at T=16 (in
+    the range where hlax launches its own), on (L, L^-1) from the small
+    kernel and three kinds of cotangents; returns its table row."""
+    from hlax_torch.ops import linalg_small as ls
+
+    worst = 0.0
+    for batch, n in (((32, 20), 20), ((32, 20), 16)):
+        tag = f"chol_inv_bwd_cuda [{','.join(map(str, batch + (n, n)))}]"
+        l, il = ls.chol_inv_small_cuda(random_spd(batch, n, gen))
+        for kind in ("random", "L^-1_bar = 0", "L_bar = 0"):
+            lb = torch.randn(l.shape, generator=gen, device="cuda")
+            ilb = torch.randn(l.shape, generator=gen, device="cuda")
+            if kind == "L^-1_bar = 0":
+                ilb.zero_()
+            elif kind == "L_bar = 0":
+                lb.zero_()
+            got = ls.chol_inv_bwd_cuda(l, il, lb, ilb)
+            torch.cuda.synchronize()
+            plain = ls._chol_inv_bwd_plain(l, il, lb, ilb)
+            want = ls._bwd_reference(l.double(), il.double(), lb.double(),
+                                     ilb.double())
+            if not torch.isfinite(got).all():
+                fail(f"{tag} {kind}: non-finite A_bar")
+            err = (got.double() - want).abs().max().item()
+            err_plain = (plain.double() - want).abs().max().item()
+            scale = want.abs().max().item()
+            worst = max(worst, err)
+            print(f"[kernels] {tag} {kind}: max|kernel-f64| {err:.3e}, "
+                  f"max|plain-f64| {err_plain:.3e}, max|A_bar| {scale:.3e}",
+                  flush=True)
+            if err > BWD_ERR_FACTOR * err_plain + BWD_ERR_ABS * scale:
+                fail(f"{tag} {kind}: kernel error {err:.3e} exceeds "
+                     f"{BWD_ERR_FACTOR} x plain {err_plain:.3e} + "
+                     f"{BWD_ERR_ABS} x {scale:.3e}")
+            if torch.triu(got, 1).abs().max().item() != 0.0:
+                fail(f"{tag} {kind}: A_bar has entries above the diagonal")
+        lb = torch.randn(l.shape, generator=gen, device="cuda")
+        ilb = torch.randn(l.shape, generator=gen, device="cuda")
+        before = dict(ls.LAUNCHES)
+        ms = time_ms(lambda: ls.chol_inv_bwd_cuda(l, il, lb, ilb))
+        plain_ms = time_ms(lambda: ls._chol_inv_bwd_plain(l, il, lb, ilb))
+        ls.LAUNCHES.update(before)
+        bound, by = _bwd_bound_ms(l.numel() // (n * n), n)
+        print(f"[kernels] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" library none, bound {bound:.5f} ms ({by})", flush=True)
+        if n == 20:   # the table row: the training shape
+            row = dict(name="chol_inv_bwd_cuda", shape=list(batch + (n, n)),
+                       route="cuda", source="hlax_torch/csrc/chol_inv_bwd.cu",
+                       replaces="hlax/ops/linalg_small.py:328", launches=0,
+                       max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, library_ms=None)
+    row["max_abs_err"] = worst
+    return row
+
+
 def write_canonical_data(dest: str) -> None:
-    """Generated Health-MNIST D4 (200 subjects x 20 timepoints, 25%
-    missing) under the canonical config's file names."""
-    from hlax_torch.data import generate as gen
+    """Generated Health-MNIST D4 splits (200 subjects x 20 timepoints, 25%
+    missing, seeds 100, 101, 102) under the canonical config's file names,
+    by the port's generator CLI."""
+    from hlax_torch.cli import generate as gen_cli
     t0 = time.time()
-    out = gen.generate(num_3=100, num_6=100, missing=25.0,
-                       datatype_config="D4", seed=100)
-    gen.write_csvs(out, dest, "D4", prefix="prediction_")
-    os.replace(os.path.join(dest, "prediction_data.csv"),
-               os.path.join(dest, "prediction_data_D4.csv"))
-    os.replace(os.path.join(dest, "prediction_labels.csv"),
-               os.path.join(dest, "prediction_label.csv"))
-    print(f"[slice] generated {out['data'].shape[0]} rows of D4 data in "
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen_cli.main(["--destination", dest, "--num_3", "100", "--num_6",
+                      "100", "--missing", "25", "--datatype_config", "D4",
+                      "--splits", "prediction,test,validation"])
+    print(f"[slice] generated 3 splits of 4000 rows of D4 data in "
           f"{time.time() - t0:.1f} s", flush=True)
 
 
@@ -256,6 +345,8 @@ def phase_reference(tmp: str) -> None:
               for dev in ("cpu", "cuda")}
     steps = {dev: tstep.make_train_step(st.vae, spec0, spec1, cfg)
              for dev, st in (("cpu", cpu), ("cuda", gpu))}
+    from hlax_torch.ops import linalg_small as ls
+    ls.reset_counters()
     for i, idx in enumerate([[0, 1], [2, 3], [3, 0], [1, 2]]):
         eps = torch.randn((2 * data.T_max, 8), generator=noise)
         losses = {}
@@ -270,19 +361,26 @@ def phase_reference(tmp: str) -> None:
               f"{losses['cpu']:.6f} rel {rel:.2e}", flush=True)
     if not worst <= 1e-3:
         fail(f"card and CPU disagree on the toy train steps: rel {worst:.2e}")
+    print(f"[reference] launches on the card {dict(ls.LAUNCHES)}; plain "
+          f"versions on CUDA tensors {dict(ls.PLAIN_CUDA_CALLS)}", flush=True)
+    if ls.LAUNCHES["chol_inv_bwd_cuda"] < 4 or any(
+            ls.PLAIN_CUDA_CALLS.values()):
+        fail("the card's T=20 steps did not go through the backward kernel")
 
 
 def phase_slice(tmp: str):
     from hlax_torch.cli import main as cli
     from hlax_torch.config import ModelArgs
+    from hlax_torch.eval.validate import VALIDATION_ROWS
     from hlax_torch.ops import linalg_small as ls
 
     data_dir = os.path.join(tmp, "data")
     write_canonical_data(data_dir)
+    save = os.path.join(tmp, "run")
     opt = ModelArgs().parse_options([f"--f={CONFIG}"])
-    opt.update(data_source_path=data_dir, save_path=os.path.join(tmp, "run"),
-               epochs=2, run_validation=False, run_tests=False,
-               generate_images=False, device="cuda")
+    opt.update(data_source_path=data_dir, save_path=save, epochs=3,
+               run_validation=True, run_tests=True, generate_images=False,
+               device="cuda")
     ls.reset_counters()
     out = cli.run(opt)
     torch.cuda.synchronize()
@@ -292,20 +390,115 @@ def phase_slice(tmp: str):
     steps = out["steps"]
     print(f"[slice] losses per epoch {losses}; launches {launches}; plain "
           f"versions on CUDA tensors {plain}", flush=True)
-    if steps != 20:
-        fail(f"expected 20 train steps, ran {steps}")
-    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+    if steps != 30:
+        fail(f"expected 30 train steps, ran {steps}")
+    if not all(map(np.isfinite, losses)):
         fail(f"non-finite loss {losses}")
-    if launches["chol_inv_small_cuda"] < 20:
-        fail("small Cholesky kernel launched fewer than 20 times")
-    if launches["chol_inv_mid_cuda"] < 40:
-        fail("mid Cholesky kernel launched fewer than 40 times")
+    if launches["chol_inv_small_cuda"] < steps:
+        fail(f"small Cholesky kernel launched fewer than {steps} times")
+    if launches["chol_inv_bwd_cuda"] < steps:
+        fail(f"backward kernel launched fewer than {steps} times")
+    eval_mid = launches["chol_inv_mid_cuda"] - MID_PER_STEP * steps
+    if eval_mid <= 0:
+        fail("the mid Cholesky kernel was not launched in validation/tests")
     if any(plain.values()):
         fail("a plain Cholesky version ran on CUDA tensors on the main path")
-    ep = out["epoch_seconds"]
+    results = out["results_path"]
+    with open(os.path.join(results, "validation_results.csv")) as f:
+        rows = [line.rstrip("\n").split(",") for line in f]
+    if [r[0] for r in rows] != list(VALIDATION_ROWS) or not all(
+            np.isfinite(float(r[1])) for r in rows):
+        fail(f"validation_results.csv is not 10 finite rows: {rows}")
+    for path in (os.path.join(results, "result_error_final.csv"),
+                 *(os.path.join(save, n) for n in (
+                     "arguments.pkl", "plot_values.pkl", "diagnostics.pkl",
+                     "final.pt"))):
+        if not os.path.isfile(path):
+            fail(f"{path} was not written")
+    with open(os.path.join(results, "result_error_final.csv")) as f:
+        print(f"[slice] validation rows {dict(rows)}; result_error_final "
+              f"{f.read().split()}", flush=True)
+    ep, ev = out["epoch_seconds"], out["eval_seconds"]
+    print(f"[slice] mid launches: {MID_PER_STEP * steps} in training, "
+          f"{eval_mid} in validation and tests", flush=True)
     print(f"[slice] epoch seconds {ep}; steps/s after warm-up "
           f"{10 / ep[-1]:.3f} on {card_line()}", flush=True)
-    return launches, out
+    print(f"[slice] final validation {ev['validation']:.3f} s, tests "
+          f"{ev['tests']:.3f} s on {card_line()}", flush=True)
+    return launches, out, data_dir, save
+
+
+def phase_impute(data_dir: str, save: str) -> None:
+    """The imputation CLI over the test split, encoder and GP modes: fills
+    exactly the cells the mask marks missing, leaves the observed ones."""
+    from hlax_torch.cli import impute
+    from hlax_torch.ops import linalg_small as ls
+
+    raw = np.loadtxt(os.path.join(data_dir, "test_data_D4.csv"),
+                     delimiter=",")
+    mask = np.loadtxt(os.path.join(data_dir, "test_mask.csv"), delimiter=",")
+    for mode, extra in (("encoder", []),
+                        ("gp", ["--use_gp", "--label_csv",
+                                os.path.join(data_dir, "test_label.csv")])):
+        out_csv = os.path.join(save, f"imputed_{mode}.csv")
+        ls.reset_counters()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            imp = impute.main([
+                "--model_dir", save,
+                "--data_csv", os.path.join(data_dir, "test_data_D4.csv"),
+                "--mask_csv", os.path.join(data_dir, "test_mask.csv"),
+                "--out_csv", out_csv, "--device", "cuda", *extra])
+        seconds = time.perf_counter() - t0
+        m = re.search(r"Imputed (\d+) missing cells", printed.getvalue())
+        filled = int(m.group(1)) if m else -1
+        if filled != int((mask == 0).sum()):
+            fail(f"[impute] {mode}: filled {filled} cells, the mask has "
+                 f"{int((mask == 0).sum())} missing")
+        if imp.shape != raw.shape or not np.isfinite(imp).all():
+            fail(f"[impute] {mode}: output not finite or of another shape")
+        if not np.array_equal(imp[mask == 1], raw[mask == 1]):
+            fail(f"[impute] {mode}: observed cells changed")
+        if mode == "gp" and ls.LAUNCHES["chol_inv_mid_cuda"] == 0:
+            fail("[impute] gp: the GP prediction launched no mid kernel")
+        print(f"[impute] {mode}: {filled} cells filled over {len(raw)} rows, "
+              f"{len(raw) / seconds:.1f} rows/s ({seconds:.3f} s, the whole "
+              f"CLI call) on {card_line()}; launches {dict(ls.LAUNCHES)}",
+              flush=True)
+
+
+def phase_eval(out) -> None:
+    """bench.py's imputation-eval protocol: forward with the q(z) mean over
+    the training set in 500-row chunks (zero-padded), summed log_p_x, one
+    sync a pass; one warm-up pass, then 10 timed."""
+    from hlax_torch.eval.validate import device_het
+
+    model, ds = out["model"], out["dataset"]
+    data, mask, tmask = device_het(ds, torch.float32, "cuda")
+    n = data.shape[0]
+    pad = -n % EVAL_CHUNK
+    chunks = [torch.nn.functional.pad(a, (0, 0, 0, pad)).split(EVAL_CHUNK)
+              for a in (data, mask, tmask)]
+
+    def one_pass():
+        with torch.inference_mode():
+            tot = torch.zeros((), device="cuda")
+            for d, m, tm in zip(*chunks):
+                tot = tot + model(d, m, tm, sample=False)["log_p_x"].sum()
+            return tot.item()
+
+    total = one_pass()
+    if not np.isfinite(total):
+        fail(f"[eval] non-finite summed log-likelihood {total}")
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one_pass()
+    dt = time.perf_counter() - t0
+    print(f"[eval] imputation-eval {reps * n / dt:.1f} samples/s ({n} rows, "
+          f"{-(-n // EVAL_CHUNK)} chunks of {EVAL_CHUNK}, {reps} passes, "
+          f"sum log p(x) {total:.1f}) on {card_line()}", flush=True)
 
 
 def phase_profile(out, n_steps: int = 10) -> None:
@@ -365,7 +558,9 @@ def main() -> None:
     rows = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         phase_reference(tmp)
-        launches, out = phase_slice(tmp)
+        launches, out, data_dir, save = phase_slice(tmp)
+        phase_impute(data_dir, save)
+        phase_eval(out)
         phase_profile(out)
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -1,20 +1,29 @@
-"""Training driver: config -> datasets -> model + GP -> train -> checkpoint
-(port of the training part of ``hlax/cli/main.py``).
+"""End-to-end entry point: config -> datasets -> model + GP -> train -> eval
+(port of ``hlax/cli/main.py``).
 
-    python -m hlax_torch.cli.main --f=configs/hlvae_config_file.txt
+    python -m hlax_torch.cli.main --f=configs/hlvae_config_file.txt \
+        --generate_images=False
 
-Same config flags and the same per-epoch console lines as hlax.  Runs on
-CUDA unless ``--device=cpu``.  Ends with ``<save_path>/final.pt``, one
-``torch.save``d state dict.  Validation, tests and image generation belong
-to the eval path, not ported yet: a config that asks for them is refused.
+Same config flags, artifact names and console lines as hlax.  Runs on CUDA
+unless ``--device=cpu``.  Validates every 5 epochs and at each save
+interval when ``--run_validation``, runs the test battery at the end when
+``--run_tests``.  ``<save_path>/final.pt`` (one ``torch.save``d state dict),
+``diagnostics.pkl`` and ``plot_values.pkl`` are written when ``epochs > 2``
+and early stopping is off, ``arguments.pkl`` when ``epochs`` is not 0, 1 or
+2 and early stopping is off; a run with ``epochs`` in {0, 1, 2} or early
+stopping reloads the saved ``arguments.pkl`` and overrides only the
+run-control flags (an eval-only rerun of a trained model).  Image
+generation and the training-curve plots are not ported yet.
 """
 
 from __future__ import annotations
 
 import ast
 import os
+import pickle
 import sys
 import time
+import traceback
 from timeit import default_timer as timer
 
 import numpy as np
@@ -28,18 +37,20 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # run-control flags whose feature the port has not reached, with the value
 # that keeps hlax's behaviour the same as the port's
 _NOT_PORTED = {
-    "run_validation": (False, "the eval path (ROADMAP queue 1 item 9)"),
-    "run_tests": (False, "the eval path (ROADMAP queue 1 item 9)"),
-    "generate_images": (False, "the eval path (ROADMAP queue 1 item 9)"),
-    "early_stopping": (False, "early stopping needs validation "
-                              "(ROADMAP queue 1 item 9)"),
-    "compute_dtype": ("", "compute_dtype (ROADMAP queue 1 item 4)"),
-    "fused_conv": (False, "the fused conv path (ROADMAP queue 1 item 12)"),
+    "generate_images": (False, "image generation (ROADMAP queue 1 item 9)"),
+    "compute_dtype": ("", "compute_dtype (ROADMAP queue 1 item 13)"),
+    "fused_conv": (False, "the fused conv path (ROADMAP queue 1 item 14)"),
     "nat_grad_f64": (False, "the float64 natural-gradient chain "
-                            "(ROADMAP queue 1 item 7)"),
-    "data_parallel": (0, "data parallelism (ROADMAP queue 1 item 11)"),
-    "latent_parallel": (1, "latent parallelism (ROADMAP queue 1 item 11)"),
+                            "(ROADMAP queue 1 item 11)"),
+    "data_parallel": (0, "data parallelism (ROADMAP queue 1 item 16)"),
+    "latent_parallel": (1, "latent parallelism (ROADMAP queue 1 item 16)"),
 }
+
+# flags an eval-only rerun takes from its own command line; every other
+# option comes from the training run's arguments.pkl
+_RUN_CONTROL = ("early_stopping", "epochs", "save_interval", "results_path",
+                "save_path", "gp_model_folder", "generate_images",
+                "memory_dbg", "run_tests", "run_validation", "eval_gp_f64")
 
 
 def _check_ported(opt: dict) -> None:
@@ -51,24 +62,72 @@ def _check_ported(opt: dict) -> None:
     if not opt.get("conv_hivae"):
         raise NotImplementedError(
             "--conv_hivae=False: the MLP model is not ported to hlax_torch "
-            "yet (ROADMAP queue 1 item 4)")
+            "yet (ROADMAP queue 1 item 12)")
     for key in ("model_dtype", "gp_dtype"):
         if opt.get(key, "float32") not in _DTYPES:
             raise NotImplementedError(f"--{key}={opt[key]} is not ported")
 
 
+def warm_start_candidates(gp_folder: str, save_path: str) -> list:
+    """Checkpoint locations to probe for a warm start, in order: an absolute
+    ``gp_model_folder`` as it is, then the reference's concatenation
+    ``save_path + gp_model_folder`` (the canonical '/' means save_path)."""
+    gp_folder = gp_folder or "/"
+    cands = []
+    if gp_folder != "/" and os.path.isabs(gp_folder):
+        cands.append(gp_folder)
+    cands.append(save_path + gp_folder)
+    return cands
+
+
+def _arguments_round_trip(opt: dict) -> dict:
+    """Write ``arguments.pkl`` for a training run, or merge the saved one
+    under this run's run-control flags for an eval-only rerun."""
+    args_pkl = os.path.join(opt["save_path"], "arguments.pkl")
+    if opt.get("epochs", 0) not in (0, 1, 2) and not opt.get("early_stopping"):
+        with open(args_pkl, "wb") as f:
+            pickle.dump(opt, f)
+    elif os.path.isfile(args_pkl):
+        with open(args_pkl, "rb") as f:
+            saved = pickle.load(f)
+        for k in _RUN_CONTROL:
+            if k in opt:
+                saved[k] = opt[k]
+        return saved
+    return opt
+
+
+def _memory_dbg(enabled: bool, phase: str, device) -> None:
+    """Peak device memory since the previous phase."""
+    if not enabled or device.type != "cuda":
+        return
+    print(f"Max memory allocated after {phase} on {device}: "
+          f"{torch.cuda.max_memory_allocated(device) / 1024 ** 2:.2f} MBs")
+    torch.cuda.reset_peak_memory_stats(device)
+
+
 def run(opt: dict) -> dict:
     from hlax_torch.data.dataset import (epoch_subject_batches, load_dataset,
                                          stage_dataset, subject_batches)
-    from hlax_torch.gp.kernels import build_kernel_specs
+    from hlax_torch.eval import testing as tst
+    from hlax_torch.eval import validate as val
+    from hlax_torch.gp.kernels import build_kernel_specs, noise_value
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
     from hlax_torch.train import checkpoint as ckpt
     from hlax_torch.train import step as tstep
 
+    save_path = opt["save_path"]
+    results_path = save_path + (opt.get("results_path") or "/results")
+    os.makedirs(save_path, exist_ok=True)
+    os.makedirs(results_path, exist_ok=True)
+    opt = _arguments_round_trip(opt)
     _check_ported(opt)
     device = resolve_device(opt.get("device") or None)
-    save_path = opt["save_path"]
-    os.makedirs(save_path, exist_ok=True)
+    eval_gp_f64 = bool(opt.get("eval_gp_f64", False))
+    if eval_gp_f64 and device.type == "cuda":
+        raise NotImplementedError(
+            "--eval_gp_f64=True: float64 kernels on the card are not ported "
+            "yet (ROADMAP queue 1 item 11); use --device=cpu")
 
     for key in sorted(opt):
         print(f"{key}: {opt[key]}")
@@ -78,16 +137,34 @@ def run(opt: dict) -> dict:
     id_covariate = opt["id_covariate"]
     latent_dim = opt["latent_dim"]
 
-    dataset = load_dataset(
-        opt["data_source_path"], opt["csv_file_data"], opt["csv_file_label"],
-        opt.get("mask_file"), opt["csv_types_file"],
-        opt.get("true_mask_file") or None, opt.get("csv_range_file"),
-        id_covariate, opt.get("logvar_network", False), True,
-        opt.get("use_ranges", False))
+    def mk_ds(data_key, label_key, mask_key, true_key):
+        return load_dataset(
+            opt["data_source_path"], opt[data_key], opt[label_key],
+            opt.get(mask_key), opt["csv_types_file"],
+            opt.get(true_key) or None, opt.get("csv_range_file"),
+            id_covariate, opt.get("logvar_network", False), True,
+            opt.get("use_ranges", False))
+
+    dataset = mk_ds("csv_file_data", "csv_file_label", "mask_file",
+                    "true_mask_file")
     print(f"Length of dataset:  {len(dataset)}")
     if not len(dataset):
         print("ERROR: Dataset is empty")
         sys.exit(1)
+    test_dataset = (mk_ds("csv_file_test_data", "csv_file_test_label",
+                          "test_mask_file", "true_test_mask_file")
+                    if opt.get("csv_file_test_data") else None)
+    prediction_dataset = (mk_ds("csv_file_prediction_data",
+                                "csv_file_prediction_label",
+                                "prediction_mask_file",
+                                "true_prediction_mask_file")
+                          if opt.get("run_tests")
+                          and opt.get("csv_file_prediction_data") else None)
+    validation_dataset = (mk_ds("csv_file_validation_data",
+                                "csv_file_validation_label",
+                                "validation_mask_file",
+                                "true_validation_mask_file")
+                          if opt.get("run_validation") else None)
 
     hidden_layers = opt.get("hidden_layers") or "[500]"
     if isinstance(hidden_layers, str):
@@ -124,14 +201,46 @@ def run(opt: dict) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Total Parameter Number is: {n_params}")
 
+    # warm start; the canonical config's '/' means save_path itself
+    name = ckpt.EARLY_BEST_NAME if opt.get("early_stopping") else \
+        ckpt.FINAL_NAME
+    if any(ckpt.restore(base, state, name=name) for base in
+           warm_start_candidates(opt.get("gp_model_folder"), save_path)):
+        print("Loaded pre-trained values.")
+    else:
+        print("Did not load pre-trained values.")
+
     staged = stage_dataset(dataset, model_dtype, device)
     step = tstep.make_train_step(model, spec0, spec1, cfg)
     epochs = opt.get("epochs", 0)
+    validation_interval = 5
+    save_interval = opt.get("save_interval", 100)
     rng = np.random.default_rng(seed)
     loss_arrs = {k: [] for k in ("net", "nll", "kld", "recon")}
+    validation_curve = []
+    val_arrs = {k: [] for k in ("net", "recon", "gp", "vae_error", "gp_error")}
+    last_val = None
+    best_value, best_epoch = np.inf, 0
+    best_epoch_missing_imp_error = -1.0
     epoch_seconds = []
     miss_recon_loss = 0.0
+    type_KL = opt.get("type_KL") or "GPapprox_closed"
+    noise_fn = lambda s: noise_value(s.raw_noise, cfg.constrain_scales)
 
+    def encode_train():
+        mu, _ = val.encode_dataset(model, dataset)
+        return mu, dataset.labels
+
+    def validate():
+        train_mu, train_x = encode_train()
+        return val.validate(
+            model, spec0, state.k0, spec1, state.k1, noise_fn(state),
+            state.zt, validation_dataset, train_mu, train_x, id_covariate,
+            results_path, type_KL=type_KL,
+            num_samples=opt.get("num_samples", 1), seed=seed,
+            eval_gp_f64=eval_gp_f64)
+
+    _memory_dbg(opt.get("memory_dbg"), "initialisation", device)
     start = timer()
     for epoch in range(1, epochs + 1):
         t0 = time.time()
@@ -153,14 +262,123 @@ def run(opt: dict) -> dict:
         print(f"Error for Training: "
               f"{recon_sum2 / (len(dataset) * dataset.het.mask.shape[1])}")
 
+        run_val = (validation_dataset is not None
+                   and (epoch % validation_interval == 0
+                        or epoch % save_interval == 0))
+        if run_val:
+            tv = time.time()
+            try:
+                rows = validate()
+                rows["best_epoch"] = float(best_epoch)
+                rows["best_epoch_missing_imp_error"] = \
+                    best_epoch_missing_imp_error
+                rows["missing_imp_error"] = miss_recon_loss
+                last_val = rows
+                validation_curve.append(rows["net_loss"])
+                for k, row in (("net", "net_loss"), ("recon", "nll_loss"),
+                               ("gp", "GP_loss"), ("vae_error", "vae_error"),
+                               ("gp_error", "GP_error")):
+                    val_arrs[k].append(rows[row])
+            except Exception:   # a failed validation must not end the run
+                print("Validation failed (continuing):\n"
+                      + traceback.format_exc())
+            print(f"Validation Duration: {time.time() - tv}")
+
+        if epoch % save_interval == 0:
+            print("Training-curve plots are not ported to hlax_torch yet "
+                  "(ROADMAP queue 1 item 9)")
+            if last_val is not None and epochs > 50:
+                # validation_df.pkl holds the rows as a dict (hlax pickles a
+                # pandas frame; the port has no pandas)
+                with open(os.path.join(save_path, "validation_df.pkl"),
+                          "wb") as f:
+                    pickle.dump(last_val, f)
+                val.write_rows_csv(os.path.join(save_path,
+                                                "validation_df.csv"),
+                                   last_val, header=True)
+                with open(os.path.join(save_path, "validation_values.pkl"),
+                          "wb") as f:
+                    pickle.dump([np.asarray(val_arrs[k]) for k in
+                                 ("net", "recon", "gp", "vae_error",
+                                  "gp_error")], f)
+            try:
+                res = tst.hlvae_test(model, dataset, test=False,
+                                     id_covariate=id_covariate, prnt=False)
+                with open(os.path.join(results_path,
+                                       "partial_metrics_training_VAE.pickle"),
+                          "wb") as f:
+                    pickle.dump(res["partial_LL"], f)
+            except Exception:   # a failed extra must not end the run
+                print("Save-interval eval failed (continuing):\n"
+                      + traceback.format_exc())
+
+        if run_val and epoch > 100 and validation_curve:
+            if validation_curve[-1] < best_value:
+                best_value, best_epoch = validation_curve[-1], epoch
+                best_epoch_missing_imp_error = miss_recon_loss
+                ckpt.save(save_path, state, name=ckpt.EARLY_BEST_NAME)
+
     print("Duration of training: {:.2f} seconds".format(timer() - start))
+    print(f"Best epoch is {best_epoch}")
+    print(f"Best epoch imputation error is {best_epoch_missing_imp_error}")
     print(f"Imputation error is {miss_recon_loss}")
-    target = ckpt.save(save_path, state)
-    print(f"Saved {target}")
+    _memory_dbg(opt.get("memory_dbg"), "training", device)
+
+    if epochs > 2 and not opt.get("early_stopping"):
+        print("Saving")
+        # [penalty, net, nll, recon, kld]: the reference's order; the
+        # penalty term is per-epoch zeros
+        with open(os.path.join(save_path, "diagnostics.pkl"), "wb") as f:
+            pickle.dump([np.zeros(len(loss_arrs["net"]))]
+                        + [np.asarray(loss_arrs[k])
+                           for k in ("net", "nll", "recon", "kld")], f)
+        # plot_values.pkl: [train_x, mu, log_var, z_sample, row_idx]
+        pv_mu, pv_lv = val.encode_dataset(model, dataset)
+        pv_z = pv_mu + np.exp(0.5 * pv_lv) * np.random.default_rng(
+            seed).standard_normal(pv_mu.shape)
+        with open(os.path.join(save_path, "plot_values.pkl"), "wb") as f:
+            pickle.dump([dataset.labels, pv_mu, pv_lv, pv_z,
+                         np.arange(len(dataset))], f)
+        print(f"Saved {ckpt.save(save_path, state)}")
+    _memory_dbg(opt.get("memory_dbg"), "saving", device)
+
+    eval_seconds = {}
+    if opt.get("run_validation") and validation_dataset is not None:
+        t0 = time.time()
+        validate()
+        eval_seconds["validation"] = time.time() - t0
+
+    if test_dataset is not None:
+        t0 = time.time()
+        pred_mu = None
+        if prediction_dataset is not None:
+            pred_mu, _ = val.encode_dataset(model, prediction_dataset)
+        res = tst.hlvae_test(model, test_dataset, test=True,
+                             id_covariate=id_covariate,
+                             training_indexes=dataset.labels[:, -1])
+        with open(os.path.join(results_path,
+                               "partial_metrics_test_VAE.pickle"), "wb") as f:
+            pickle.dump(res["partial_LL"], f)
+        if opt.get("run_tests") and pred_mu is not None:
+            test_type = "early_stopping" if opt.get("early_stopping") \
+                else "final"
+            tst.mse_test_gp(model, spec0, state.k0, spec1, state.k1,
+                            noise_fn(state), state.zt, test_dataset,
+                            prediction_dataset.labels, pred_mu, id_covariate,
+                            results_path, test_type=test_type,
+                            training_indexes=dataset.labels[:, -1],
+                            eval_gp_f64=eval_gp_f64)
+        eval_seconds["tests"] = time.time() - t0
+    _memory_dbg(opt.get("memory_dbg"), "tests", device)
+
     return {"state": state, "model": model, "loss_arrs": loss_arrs,
             "spec0": spec0, "spec1": spec1, "dataset": dataset,
+            "datasets": {"train": dataset, "validation": validation_dataset,
+                         "test": test_dataset,
+                         "prediction": prediction_dataset},
             "staged": staged, "train_step": step, "steps": state.step,
-            "epoch_seconds": epoch_seconds}
+            "epoch_seconds": epoch_seconds, "eval_seconds": eval_seconds,
+            "last_validation": last_val, "results_path": results_path}
 
 
 def main(argv=None):

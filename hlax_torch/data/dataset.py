@@ -39,6 +39,10 @@ class LongitudinalDataset:
     subject_start: np.ndarray = dataclasses.field(init=False)
     subject_end: np.ndarray = dataclasses.field(init=False)
     T_max: int = dataclasses.field(init=False)
+    # device copies of (data, mask, theta_mask) by (dtype, device), made by
+    # ``hlax_torch.eval.validate.device_het`` and kept with the dataset
+    staged: dict = dataclasses.field(init=False, repr=False,
+                                     default_factory=dict)
 
     def __post_init__(self):
         ids = self.labels[:, self.id_covariate]
@@ -149,6 +153,16 @@ def subject_batches(
             chunk = np.concatenate(
                 [chunk, -np.ones(subjects_per_batch - len(chunk), np.int64)])
         yield _pad_rows(ds, chunk, ds.T_max)
+
+
+def full_padded(ds: LongitudinalDataset, t_max: Optional[int] = None
+                ) -> Dict[str, np.ndarray]:
+    """Whole dataset as one padded subject-major batch."""
+    return _pad_rows(ds, np.arange(ds.P), t_max or ds.T_max)
+
+
+def n_batches(ds: LongitudinalDataset, subjects_per_batch: int) -> int:
+    return (ds.P + subjects_per_batch - 1) // subjects_per_batch
 
 
 def epoch_subject_batches(P: int, subjects_per_batch: int,

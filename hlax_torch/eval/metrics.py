@@ -1,9 +1,7 @@
-"""Reconstruction statistics and errors (port of part of
-``hlax/eval/metrics.py``): ``discrete_transform``, ``statistics``,
-``get_norm_terms`` and ``error_computation``, which the train step's
-recon metric needs.  All functions work in grouped column order
-(``hlax_torch.types``).  The rest of the metrics kit belongs to the eval path
-and is not ported yet.
+"""Metrics kit: reconstructions, errors, partial log-likelihoods (port of
+``hlax/eval/metrics.py``).  All functions work in grouped column order
+(``hlax_torch.types``); ``layout.raw_inv`` maps back to original variable
+order.
 """
 
 from __future__ import annotations
@@ -73,6 +71,34 @@ def statistics(params_list, layout: TypeLayout, conv: bool,
                                         beta_eq_mode_value * one, 0.0 * one)))
             modes.append(mode * (dmax - dmin) + dmin)
     return torch.cat(means, dim=1), torch.cat(modes, dim=1)
+
+
+def sampled_reconstruction(params_list, layout: TypeLayout,
+                           gen: torch.Generator, conv: bool):
+    """Raw-space sampled reconstruction [B, n_raw] from likelihood params:
+    one draw per cell from the ``sample_*`` companions, reported like
+    ``statistics`` (cat/ordinal as 0-based class codes, numeric types in data
+    units)."""
+    from hlax_torch.ops import likelihoods as lik
+
+    blocks = []
+    for g, p in zip(layout.groups, params_list):
+        if g.kind == "real":
+            blocks.append(lik.sample_real(p, gen))
+        elif g.kind == "pos":
+            blocks.append(lik.sample_pos(p, gen))
+        elif g.kind == "count":
+            blocks.append(lik.sample_count(p, gen))
+        elif g.kind == "cat":
+            blocks.append(torch.argmax(lik.sample_cat(p, gen), dim=2).to(
+                p.dtype))
+        elif g.kind == "ordinal":
+            blocks.append(lik.sample_ordinal(p, gen).sum(dim=2) - 1.0)
+        else:   # beta
+            ranges = torch.as_tensor(np.asarray(layout.beta_ranges),
+                                     dtype=p[0].dtype, device=p[0].device)
+            blocks.append(lik.sample_beta(p, gen, ranges))
+    return torch.cat(blocks, dim=1)
 
 
 def get_norm_terms(x, true_mask):
@@ -155,3 +181,51 @@ def error_computation(
     out = {k: {kk: torch.cat(v) for kk, v in d.items()}
            for k, d in partial.items()}
     return error_observed, error_missing, out
+
+
+def partial_loglikelihood(log_p_x, log_p_x_missing, layout: TypeLayout,
+                          mask, true_mask=None, dim: int = 0
+                          ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-type observed/missing/all mean log-likelihoods per variable."""
+    if true_mask is None:
+        true_mask = torch.ones_like(mask)
+    known_missing = true_mask * (1.0 - mask)
+    ms = mask.sum(dim=dim)
+    ms = torch.where(ms == 0, torch.ones_like(ms), ms)
+    kms = known_missing.sum(dim=dim)
+    kms = torch.where(kms == 0, torch.ones_like(kms), kms)
+    ll_obs = (log_p_x * mask).sum(dim=dim) / ms
+    ll_mis = (log_p_x_missing * known_missing).sum(dim=dim) / kms
+    ll_all = (log_p_x + log_p_x_missing).mean(dim=dim)
+
+    out: Dict[str, Dict[str, list]] = {}
+    for g in layout.groups:
+        sl = slice(g.raw_slice[0], g.raw_slice[1])
+        d = out.setdefault(g.kind, {"LL_missing": [], "LL_observed": [],
+                                    "LL_all": []})
+        d["LL_missing"].append(ll_mis[sl])
+        d["LL_observed"].append(ll_obs[sl])
+        d["LL_all"].append(ll_all[sl])
+    return {k: {kk: torch.cat(v) for kk, v in d.items()}
+            for k, d in out.items()}
+
+
+def mean_imputation(x_true, mask, layout: TypeLayout) -> np.ndarray:
+    """Observed-mode (discrete) / observed-mean (numeric) imputation
+    baseline.  Host-side numpy; grouped raw space."""
+    x_true = np.asarray(x_true)
+    mask = np.asarray(mask)
+    out = x_true.copy()
+    kinds = layout.var_kinds_grouped()
+    for j in range(x_true.shape[1]):
+        obs = x_true[mask[:, j] == 1, j]
+        if kinds[j] in ("cat", "ordinal"):
+            if obs.size:
+                vals, counts = np.unique(obs, return_counts=True)
+                fill = vals[np.argmax(counts)]
+            else:
+                fill = 0.0
+        else:
+            fill = obs.mean() if obs.size else 0.0
+        out[:, j] = x_true[:, j] * mask[:, j] + fill * (1 - mask[:, j])
+    return out

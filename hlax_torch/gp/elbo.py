@@ -1,5 +1,7 @@
-"""Sparse-GP KL-divergence bound of the training step, padded-batched over
-subjects and latents (port of ``hlax/gp/elbo.py``).
+"""Sparse-GP bounds, padded-batched over subjects and latents (port of
+``hlax/gp/elbo.py``): the KL-divergence bound of the training step and its
+natural-gradient update, and the eval bounds ``deviance_upper_bound`` (DUBO)
+and ``sample_elbo`` over the whitened factorization ``whitened_w_factor``.
 
 Subjects are padded to a common T_max and every per-subject solve runs as
 one batched factorization of shape [latent, S, T_max, T_max].  Padding
@@ -10,13 +12,11 @@ All factorizations go through ``hlax_torch.ops.linalg_small.chol_inv_blocked``
 (the CUDA Cholesky kernels on the card).  Float32 matmuls run in full
 float32: ``hlax_torch`` turns TF32 off at import, as hlax runs its GP math
 at "highest" precision.
-
-The eval bounds (``whitened_w_factor``, ``deviance_upper_bound``,
-``sample_elbo``) are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -48,13 +48,15 @@ class SubjectBlocks(NamedTuple):
 
 
 def subject_blocks(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
-                   noise, z, x_st, valid, eps, extra_spd=None):
-    """Build the kernel blocks shared by the bounds.
+                   noise, z, x_st, valid, eps, extra_spd=None,
+                   with_K0st: bool = True):
+    """Build the kernel blocks shared by the bounds and the predictor.
 
     x_st [S, T, Q] padded covariates, valid [S, T] 0/1, z [L, M, Q],
     noise [L] GP observation noise.  ``extra_spd`` [L, M, M] (the bound's
     H) is factorized stacked with K0zz in one kernel launch; when given,
-    returns ``(SubjectBlocks, (L_extra, iL_extra))``.
+    returns ``(SubjectBlocks, (L_extra, iL_extra))``.  ``with_K0st=False``
+    (the predictor) leaves K0_st empty.
     """
     L = z.shape[0]
     M = z.shape[1]
@@ -84,7 +86,10 @@ def subject_blocks(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
     LB, iLB = chol_inv_blocked(B_st)
     iB = torch.einsum("lskt,lsku->lstu", iLB, iLB)
 
-    K0_st = kernel_matrix(spec0, params0, x_st, x_st) * vo[None]
+    if with_K0st:
+        K0_st = kernel_matrix(spec0, params0, x_st, x_st) * vo[None]
+    else:
+        K0_st = torch.zeros((L, 0, 0, 0), dtype=dt, device=dev)
     blocks = SubjectBlocks(K0xz, K0zz, LK0zz, iK0zz, K0_st, LB, iB, iLB, iLK)
     return blocks if extra_spd is None else (blocks, extra_fact)
 
@@ -171,6 +176,91 @@ def kld_upper_bound(
         + torch.einsum("lmn,lno->lmo", B_mat, m)
     grad_H = 0.5 * (-iH + B_mat)
     return kld_total, grad_m, grad_H, iH
+
+
+def whitened_w_factor(iLK, K0xz, iLB):
+    """Stable factorization of W = K0zz + Kzx iB Kxz without factoring W.
+
+    Whitening by the K0zz factor: W = LK (I + C) LK^T with
+    C = sum_st G^T G, G = iLB K0xz iLK^T, an explicit Gram sum, so I + C is
+    symmetric positive definite in floating point and its float32
+    factorization is stable where W's is not (trained kernels make K0zz
+    near-singular).  Args from ``subject_blocks``: iLK [L,M,M], K0xz
+    [L,S,T,M] (masked), iLB [L,S,T,T].  Returns (iLK, LWi, iLWi):
+    logdet W = logdet K0zz + 2 sum log diag LWi, and
+    inv(W) = iLK^T iLWi^T iLWi iLK."""
+    M = iLK.shape[-1]
+    A = torch.einsum("lstm,lnm->lstn", K0xz, iLK)      # K0xz iLK^T
+    G = torch.einsum("lstu,lsun->lstn", iLB, A)        # [L,S,T,M]
+    C = torch.einsum("lstm,lstn->lmn", G, G)           # Gram sum: PSD
+    Wi = C + torch.eye(M, dtype=C.dtype, device=C.device)
+    LWi, iLWi = chol_inv_blocked(Wi)
+    return iLK, LWi, iLWi
+
+
+def _whitened_quadratic(blk, y_m):
+    """Shared terms of the eval bounds for values y_m [L,S,T] (0 on padding):
+    (logdet Sigma - logdet K0zz cancelled, y^T inv(Sigma) y, the trace term,
+    iB K0xz, iLK, iLWi), with Sigma = B + Kxz iK0zz Kzx."""
+    iB_K0xz = torch.einsum("lstu,lsum->lstm", blk.iB, blk.K0xz)
+    KziBK = torch.einsum("lstm,lstn->lmn", blk.K0xz, iB_K0xz)
+    iLK, LWi, iLWi = whitened_w_factor(blk.iLK, blk.K0xz, blk.iLB)
+    # logdet Sigma = -logdet K0zz + logdet B + logdet W and
+    # logdet W = logdet K0zz + logdet(I + C): the K0zz terms cancel
+    logdet = _logdet_from_chol(blk.LB).sum(-1) + _logdet_from_chol(LWi)
+    iB_y = torch.einsum("lstu,lsu->lst", blk.iB, y_m)
+    qf1 = torch.einsum("lst,lst->l", y_m, iB_y)
+    p = torch.einsum("lstm,lst->lm", blk.K0xz, iB_y)
+    sol = torch.einsum("lmn,ln->lm", iLWi,
+                       torch.einsum("lmn,ln->lm", iLK, p))   # solve(LW, p)
+    qf = qf1 - (sol ** 2).sum(-1)
+    tr = ((blk.iB * blk.K0_st).sum(dim=(-1, -2, -3))
+          - (KziBK * blk.iK0zz).sum(dim=(-1, -2)))
+    return logdet, qf, tr, iB_K0xz, iLK, iLWi
+
+
+def deviance_upper_bound(spec0: KernelSpec, params0, spec1: KernelSpec,
+                         params1, noise, z, x_st, valid, mu_st, log_v_st,
+                         eps: float) -> torch.Tensor:
+    """Closed-form DUBO over a full set, padded-batched and summed over
+    latent dimensions."""
+    blk = subject_blocks(spec0, params0, spec1, params1, noise, z, x_st,
+                         valid, eps)
+    v_mask = valid[:, :, None]
+    mu_m = (mu_st * v_mask).permute(2, 0, 1)              # [L, S, T]
+    v_m = (torch.exp(log_v_st) * v_mask).permute(2, 0, 1)
+    N_valid = valid.sum()
+    logDetSigma, qF, tr, iB_K0xz, iLK, iLWi = _whitened_quadratic(blk, mu_m)
+
+    zero = torch.zeros((), dtype=log_v_st.dtype, device=log_v_st.device)
+    logDetD = torch.where(valid[None] > 0, log_v_st.permute(2, 0, 1),
+                          zero).sum(dim=(-1, -2))
+    diag_iB = torch.diagonal(blk.iB, dim1=-2, dim2=-1)
+    tr_iB_D = torch.einsum("lst,lst->l", diag_iB, v_m)
+    G = iB_K0xz * torch.sqrt(v_m)[:, :, :, None]
+    KziBDiBK = torch.einsum("lstm,lstn->lmn", G, G)
+    # tr(iW K) with iW = iLW^T iLW and iLW = iLWi iLK
+    Kw = torch.einsum("lmn,lno,lpo->lmp", iLK, KziBDiBK, iLK)
+    tr_W = torch.einsum("lmn,lno,lmo->l", iLWi, Kw, iLWi)
+    tr_iSigma_D = tr_iB_D - tr_W
+
+    dubo = 0.5 * (tr_iSigma_D + qF - N_valid + logDetSigma - logDetD + tr)
+    return dubo.sum()
+
+
+def sample_elbo(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
+                noise, z, x_st, valid, y_st, eps: float) -> torch.Tensor:
+    """Sample-based sparse-GP marginal-likelihood lower bound, batched over
+    latent dims and padded subjects.  y_st [S, T, L]: a latent sample (0 on
+    padding).  Returns the bound summed over latent dimensions."""
+    blk = subject_blocks(spec0, params0, spec1, params1, noise, z, x_st,
+                         valid, eps)
+    y_m = (y_st * valid[:, :, None]).permute(2, 0, 1)     # [L, S, T]
+    N_valid = valid.sum()
+    logDet, qF, tr, _, _, _ = _whitened_quadratic(blk, y_m)
+    const = -0.5 * N_valid * math.log(2.0 * math.pi)
+    el = const - 0.5 * (logDet + qF) - 0.5 * tr
+    return el.sum()
 
 
 def natural_gradient_update(m, H, grad_m, grad_H, lr: float, iH=None,

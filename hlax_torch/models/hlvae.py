@@ -123,7 +123,7 @@ class HLVAE(nn.Module):
         if not cfg.conv:
             raise NotImplementedError(
                 "HLVAE: the MLP (conv=False) path is not ported yet "
-                "(ROADMAP queue 1)")
+                "(ROADMAP queue 1 item 12)")
         self.cfg = cfg
         lay = cfg.layout
         gen, dev = generator, device
@@ -325,6 +325,15 @@ class HLVAE(nn.Module):
         return (torch.cat(lp_blocks, dim=1), torch.cat(lpm_blocks, dim=1),
                 params)
 
+    def decode(self, z, data, mask, theta_mask, norm_params: NormParams):
+        """z [B, z_dim] -> (log_p_x, log_p_x_missing, params, theta) of the
+        rows ``data``/``mask`` under the batch statistics ``norm_params``."""
+        y = self.decode_y(z)
+        theta = self.theta_estimation(y, theta_mask)
+        log_p_x, log_p_x_missing, params = self.loglik(
+            theta, data, mask, norm_params)
+        return log_p_x, log_p_x_missing, params, theta
+
     def forward(self, data, mask, theta_mask,
                 eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -341,10 +350,8 @@ class HLVAE(nn.Module):
             z = mu + eps * torch.exp(0.5 * log_var)
         else:
             z = mu
-        y = self.decode_y(z)
-        theta = self.theta_estimation(y, theta_mask)
-        log_p_x, log_p_x_missing, params = self.loglik(
-            theta, data, mask, norm_params)
+        log_p_x, log_p_x_missing, params, theta = self.decode(
+            z, data, mask, theta_mask, norm_params)
         return {
             "mu": mu, "log_var": log_var, "z": z,
             "log_p_x": log_p_x, "log_p_x_missing": log_p_x_missing,

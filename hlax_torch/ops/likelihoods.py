@@ -14,8 +14,10 @@ Math parity with the reference heads (HL_VAE/loglik.py:27-256):
 
 Every head returns a dict with keys ``log_p_x`` [B, d] (mask-weighted),
 ``log_p_x_missing`` [B, d] ((1-mask)-weighted) and ``params`` (per-type
-point-estimate parameters for the metrics kit).  The ``sample_*`` samplers
-are not on the training path and are not ported yet.
+point-estimate parameters for the metrics kit).  The ``sample_*``
+companions draw one sample per cell from the head's ``params``, from an
+explicit ``torch.Generator`` (hlax's take a PRNG key; the two give different
+draws of the same distributions).
 """
 
 from __future__ import annotations
@@ -164,3 +166,61 @@ def loglik_beta(data, mask, theta, ranges, extra_disp):
         "log_p_x_missing": log_p * (1.0 - mask),
         "params": (alpha, beta),
     }
+
+
+# ---------------------------------------------------------------------------
+# samplers
+# ---------------------------------------------------------------------------
+
+def _randn(like, gen):
+    return torch.randn(like.shape, generator=gen, dtype=like.dtype,
+                       device=like.device)
+
+
+def _categorical(logits, gen):
+    """Class codes [..] drawn from ``logits`` [.., c] by the Gumbel-max
+    trick, as ``jax.random.categorical`` draws them."""
+    u = torch.rand(logits.shape, generator=gen, dtype=logits.dtype,
+                   device=logits.device)
+    tiny = torch.finfo(logits.dtype).tiny
+    gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+def sample_real(params, gen):
+    mean, var = params
+    return mean + torch.sqrt(var) * _randn(mean, gen)
+
+
+def sample_pos(params, gen):
+    mean, var = params
+    z = mean + torch.sqrt(var) * _randn(mean, gen)
+    return (torch.exp(z) - 1.0).clamp(0.0, 1e20)
+
+
+def sample_cat(params, gen):
+    log_pi = params
+    codes = _categorical(log_pi, gen)
+    return F.one_hot(codes, log_pi.shape[-1]).to(log_pi.dtype)
+
+
+def sample_ordinal(params, gen):
+    probs = params
+    nclass = probs.shape[-1]
+    codes = 1 + _categorical(torch.log(probs.clamp(1e-6, 1e20)), gen)
+    # thermometer encoding of the sampled level
+    ar = torch.arange(1, nclass + 1, device=probs.device)
+    return (ar <= codes[..., None]).to(probs.dtype)
+
+
+def sample_count(params, gen):
+    return torch.poisson(params, generator=gen)
+
+
+def sample_beta(params, gen, ranges):
+    alpha, beta = params
+    # Beta(a, b) = Ga(a) / (Ga(a) + Ga(b))
+    ga = torch._standard_gamma(alpha, generator=gen)
+    gb = torch._standard_gamma(beta, generator=gen)
+    s = ga / (ga + gb)
+    return s * (ranges[:, 1] - ranges[:, 0]) + ranges[:, 0]

@@ -11,16 +11,22 @@ M ~ 120.  Two hand-written CUDA kernels compute them:
     block per matrix; replaces the TPU kernel ``_mid_kernel``.  As in hlax,
     one Newton step ``_refine_tri_inverse`` follows it.
 
-Both keep hlax's degenerate-pivot guard: a pivot below 1e-6 * max(diag A)
+  * ``chol_inv_bwd_cuda`` (``csrc/chol_inv_bwd.cu``, n <= 48): one warp
+    per matrix; the backward of the small factorization, replaces the TPU
+    kernel ``_bwd_kernel``.
+
+The two forward kernels keep hlax's degenerate-pivot guard: a pivot below 1e-6 * max(diag A)
 is floored and its column pinned to sqrt(floor) * e_j, so a matrix that
 float32 rounding makes indefinite still factorizes to a finite nearby one.
 Both read only the lower triangle of A.
 
-``_chol_inv_plain`` is the plain PyTorch version of both kernels (the
-guarded column loop as tensor ops).  The autograd Functions use it for a
-CPU tensor only; for a CUDA tensor they launch the kernel or raise.  The
-backward of both is ``_bwd_reference``, the matmul-only Cholesky-plus-inverse
-pullback, which is what hlax runs at T = 20 and M = 120.
+``_chol_inv_plain`` is the plain PyTorch version of both forward kernels
+(the guarded column loop as tensor ops), ``_chol_inv_bwd_plain`` that of the
+backward kernel (``_bwd_reference``, the matmul-only Cholesky-plus-inverse
+pullback).  The autograd Functions use the plain versions for a CPU tensor
+only; for a CUDA tensor they launch the kernel or raise.  The mid
+factorization's backward is ``_bwd_reference`` on every device, as hlax's
+``_mid_bwd`` is plain matmuls outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -39,8 +45,9 @@ MAX_MID_M = 128
 
 # Kernel launches and plain-version calls on CUDA tensors since the last
 # ``reset_counters``: a run reads them to show which path it took.
-LAUNCHES = {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0}
-PLAIN_CUDA_CALLS = {"chol_inv_plain": 0}
+LAUNCHES = {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
+            "chol_inv_bwd_cuda": 0}
+PLAIN_CUDA_CALLS = {"chol_inv_plain": 0, "chol_inv_bwd_plain": 0}
 
 
 def reset_counters() -> None:
@@ -128,7 +135,8 @@ def chol_inv_mid_cuda(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if a.is_cuda and a.shape[-1] > MAX_MID_M:
         raise NotImplementedError(
             "chol_inv_mid_cuda: n > 128 needs the blocked composition of "
-            "hlax's chol_inv_blocked, not ported yet (ROADMAP queue 2)")
+            "hlax's chol_inv_blocked, not ported yet "
+            "(ROADMAP queue 1 item 10)")
     _check(a, MAX_DIAG_BLOCK, MAX_MID_M, "chol_inv_mid_cuda")
     return _launch("chol_inv_mid", "chol_inv_mid_launch", a)
 
@@ -157,6 +165,43 @@ def _bwd_reference(l, il, l_bar, il_bar):
     return _phi(x + x.mT)
 
 
+def _chol_inv_bwd_plain(l, il, l_bar, il_bar):
+    """Plain PyTorch version of the backward kernel: ``_bwd_reference``."""
+    if l.is_cuda:
+        PLAIN_CUDA_CALLS["chol_inv_bwd_plain"] += 1
+    return _bwd_reference(l, il, l_bar, il_bar)
+
+
+def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
+                      il_bar: torch.Tensor) -> torch.Tensor:
+    """A_bar of (L, L^{-1}) = chol_inv(A) from the saved factors and the
+    cotangents of both outputs, float32 CUDA [..., n, n], n <= 48, by the
+    one-warp-per-matrix kernel; ``_bwd_reference``'s lower convention.  The
+    cotangents may be strided or expanded (autograd hands them over so);
+    they are made contiguous first."""
+    l_bar, il_bar = l_bar.contiguous(), il_bar.contiguous()
+    for t in (l, il, l_bar, il_bar):
+        _check(t, 0, MAX_SMALL_T, "chol_inv_bwd_cuda")
+    if not l.shape == il.shape == l_bar.shape == il_bar.shape:
+        raise ValueError("chol_inv_bwd_cuda: needs four equal shapes, got "
+                         f"{[tuple(t.shape) for t in (l, il, l_bar, il_bar)]}")
+    n = l.shape[-1]
+    a_bar = torch.empty_like(l)
+    batch = l.numel() // (n * n)
+    if batch == 0:
+        return a_bar
+    lib = load_library("chol_inv_bwd")
+    fn = lib.chol_inv_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(l.device).cuda_stream
+    code = fn(l.data_ptr(), il.data_ptr(), l_bar.data_ptr(), il_bar.data_ptr(),
+              a_bar.data_ptr(), batch, n, stream)
+    check_launch(lib, "chol_inv_bwd_launch", code)
+    LAUNCHES["chol_inv_bwd_cuda"] += 1
+    return a_bar
+
+
 class _CholInvSmall(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a):
@@ -168,7 +213,10 @@ class _CholInvSmall(torch.autograd.Function):
     def backward(ctx, l_bar, il_bar):
         # an output the loss does not use arrives as zeros (autograd
         # materializes undefined gradients)
-        return _bwd_reference(*ctx.saved_tensors, l_bar, il_bar)
+        l, il = ctx.saved_tensors
+        if l.is_cuda:
+            return chol_inv_bwd_cuda(l, il, l_bar, il_bar)
+        return _chol_inv_bwd_plain(l, il, l_bar, il_bar)
 
 
 class _CholInvMid(torch.autograd.Function):

@@ -1,8 +1,10 @@
 """Checkpoint: the whole train state as one ``torch.save``d dict (port of
 ``hlax/train/checkpoint.py``, which saves one orbax pytree).
 
-``<path>/final.pt`` holds the VAE's state dict, the kernel parameters, the
+``<path>/<name>.pt`` holds the VAE's state dict, the kernel parameters, the
 noise, zt, m, H, the Adam state, the step count and the generator state.
+``final`` is the end of a run, ``early_best`` the best validation epoch
+under early stopping.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from hlax_torch.train.step import TrainState
 
 FINAL_NAME = "final"
+EARLY_BEST_NAME = "early_best"
 
 
 def state_dict(state: TrainState) -> dict:
@@ -37,12 +40,20 @@ def save(path: str, state: TrainState, name: str = FINAL_NAME) -> str:
     return target
 
 
-def restore(path: str, state: TrainState, name: str = FINAL_NAME) -> bool:
-    """Load ``<path>/<name>.pt`` into ``state`` in place; False if absent."""
+def load(path: str, name: str = FINAL_NAME):
+    """The saved dict of ``<path>/<name>.pt`` (tensors on the CPU), or None
+    if absent."""
     target = os.path.join(os.path.abspath(path), f"{name}.pt")
     if not os.path.isfile(target):
+        return None
+    return torch.load(target, map_location="cpu", weights_only=False)
+
+
+def restore(path: str, state: TrainState, name: str = FINAL_NAME) -> bool:
+    """Load ``<path>/<name>.pt`` into ``state`` in place; False if absent."""
+    sd = load(path, name)
+    if sd is None:
         return False
-    sd = torch.load(target, map_location="cpu", weights_only=False)
     with torch.no_grad():
         state.vae.load_state_dict(sd["vae"])
         for dst, src in zip(state.k0 + state.k1, sd["k0"] + sd["k1"]):

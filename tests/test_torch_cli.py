@@ -1,14 +1,18 @@
-"""The port's training CLI, train-only, on a tiny generated dataset (CPU)."""
+"""The port's training CLI on a tiny generated dataset (CPU): train-only,
+with validation and the test battery, the eval-only rerun from
+``arguments.pkl``, and the early-best checkpoint."""
 import math
 import os
+import pickle
 
 import pytest
 import torch
 
 from hlax_torch import resolve_device
+from hlax_torch.cli import generate as gen_cli
 from hlax_torch.cli import main as cli
 from hlax_torch.config import ModelArgs
-from hlax_torch.data import generate as gen
+from hlax_torch.eval.validate import VALIDATION_ROWS
 from hlax_torch.ops import linalg_small as ls
 
 torch.set_num_threads(1)
@@ -19,20 +23,18 @@ CONFIG = os.path.join(ROOT, "configs", "hlvae_config_file.txt")
 
 @pytest.fixture(scope="module")
 def data_dir(tmp_path_factory):
+    """The canonical config's prediction (training), test and validation
+    files: 4 subjects x 20 time points each."""
     d = str(tmp_path_factory.mktemp("data"))
-    out = gen.generate(num_3=2, num_6=2, missing=25.0,
-                       datatype_config="D4", seed=3)
-    gen.write_csvs(out, d, "D4", prefix="prediction_")
-    os.replace(os.path.join(d, "prediction_data.csv"),
-               os.path.join(d, "prediction_data_D4.csv"))
-    os.replace(os.path.join(d, "prediction_labels.csv"),
-               os.path.join(d, "prediction_label.csv"))
+    gen_cli.main(["--destination", d, "--num_3", "2", "--num_6", "2",
+                  "--datatype_config", "D4", "--seed", "3",
+                  "--splits", "prediction,test,validation"])
     return d
 
 
 def _argv(data_dir, save, *extra):
     return [f"--f={CONFIG}", f"--data_source_path={data_dir}",
-            f"--save_path={save}", "--epochs=2", "--run_validation=False",
+            f"--save_path={save}", "--epochs=3", "--run_validation=False",
             "--run_tests=False", "--generate_images=False", "--device=cpu",
             "--latent_dim=4", "--M=30", "--hidden_layers=[20]",
             "--subjects_per_batch=3", *extra]
@@ -40,33 +42,112 @@ def _argv(data_dir, save, *extra):
 
 def test_two_epoch_train_only_run(data_dir, tmp_path, capsys):
     """Canonical config at toy width: 4 subjects, 3 a batch -> 2 steps an
-    epoch (the second batch padded); M=30 takes the mid Cholesky path."""
+    epoch (the second batch padded); M=30 takes the mid Cholesky path.
+    Three epochs: a run of more than 2 writes the final checkpoint,
+    diagnostics.pkl, plot_values.pkl and arguments.pkl (hlax's rule)."""
     ls.reset_counters()
     out = cli.main(_argv(data_dir, tmp_path / "run"))
     printed = capsys.readouterr().out
-    assert "Iter 1/2 - Time:" in printed and "Iter 2/2 - Time:" in printed
-    assert out["steps"] == 4
+    assert all(f"Iter {e}/3 - Time:" in printed for e in (1, 2, 3))
+    assert out["steps"] == 6
     assert all(math.isfinite(v) for v in out["loss_arrs"]["net"])
-    assert os.path.isfile(tmp_path / "run" / "final.pt")
-    sd = torch.load(tmp_path / "run" / "final.pt", weights_only=False)
-    assert sd["step"] == 4 and sd["H"].shape == (4, 30, 30)
+    run = tmp_path / "run"
+    for name in ("final.pt", "arguments.pkl", "diagnostics.pkl",
+                 "plot_values.pkl"):
+        assert os.path.isfile(run / name), name
+    sd = torch.load(run / "final.pt", weights_only=False)
+    assert sd["step"] == 6 and sd["H"].shape == (4, 30, 30)
+    with open(run / "plot_values.pkl", "rb") as f:
+        train_x, mu = pickle.load(f)[:2]
+    assert train_x.shape == (80, 6) and mu.shape == (80, 4)
+    assert not os.path.isfile(run / "results" / "validation_results.csv")
     # on the CPU the plain versions run, and nothing counts as a launch
-    assert ls.LAUNCHES == {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0}
+    assert ls.LAUNCHES == {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
+                           "chol_inv_bwd_cuda": 0}
+
+
+def test_two_epoch_run_writes_no_final_checkpoint(data_dir, tmp_path):
+    """hlax saves the final checkpoint, diagnostics and plot values only
+    for epochs > 2, and arguments.pkl only for epochs not in {0, 1, 2}."""
+    cli.main(_argv(data_dir, tmp_path / "run", "--epochs=2"))
+    for name in ("final.pt", "arguments.pkl", "diagnostics.pkl",
+                 "plot_values.pkl"):
+        assert not os.path.isfile(tmp_path / "run" / name), name
+
+
+def _read_rows(path):
+    with open(path) as f:
+        return {k: float(v) for k, v in (line.split(",") for line in f)}
 
 
 @pytest.mark.parametrize("flag", ["--run_validation=True",
                                   "--run_tests=True",
                                   "--generate_images=True"])
 def test_eval_flags_are_refused(data_dir, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(_argv(data_dir, tmp_path / "run", flag))
+    """Validation and the test battery run (toy runs that write their
+    CSVs); image generation is still refused."""
+    if flag == "--generate_images=True":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(_argv(data_dir, tmp_path / "run", flag))
+        return
+    out = cli.main(_argv(data_dir, tmp_path / "run", flag))
+    results = tmp_path / "run" / "results"
+    if flag == "--run_validation=True":
+        rows = _read_rows(results / "validation_results.csv")
+        assert tuple(rows) == VALIDATION_ROWS
+        assert all(math.isfinite(v) for v in rows.values())
+        assert set(out["eval_seconds"]) == {"validation", "tests"}
+    else:
+        rows = _read_rows(results / "result_error_final.csv")
+        assert list(rows) == ["mean_GP_recon_loss", "miss_recon_loss_GP",
+                              "all_rows_fallback"]
+        assert all(math.isfinite(v) for v in rows.values())
+        assert os.path.isfile(results / "partial_metrics_test_future.pickle")
 
 
 def test_config_file_alone_is_refused_until_eval_is_ported():
-    """The canonical config asks for validation, tests and images."""
+    """The canonical config asks for images, which are not ported yet."""
     opt = ModelArgs().parse_options([f"--f={CONFIG}"])
-    with pytest.raises(NotImplementedError, match="run_validation"):
+    with pytest.raises(NotImplementedError, match="generate_images"):
         cli.run(opt)
+
+
+def test_eval_only_rerun_reloads_arguments_and_weights(data_dir, tmp_path,
+                                                       capsys):
+    """A 3-epoch run saves arguments.pkl and final.pt; a rerun with
+    --epochs=0 takes the model options from arguments.pkl (not from its own
+    command line), warm-starts from final.pt and only evaluates."""
+    save = tmp_path / "run"
+    trained = cli.main(_argv(data_dir, save))
+    capsys.readouterr()
+    out = cli.main([f"--f={CONFIG}", f"--data_source_path={data_dir}",
+                    f"--save_path={save}", "--epochs=0", "--device=cpu",
+                    "--run_validation=True", "--run_tests=False",
+                    "--generate_images=False"])
+    assert "Loaded pre-trained values." in capsys.readouterr().out
+    assert out["steps"] == 6 and out["model"].cfg.z_dim == 4
+    torch.testing.assert_close(out["state"].zt, trained["state"].zt,
+                               rtol=0, atol=0)
+    assert os.path.isfile(save / "results" / "validation_results.csv")
+
+
+def test_early_stopping_saves_the_early_best_checkpoint(data_dir, tmp_path,
+                                                        capsys):
+    """Under early stopping, validation after epoch 100 that improves saves
+    early_best.pt, and no final checkpoint; a rerun with early stopping
+    warm-starts from early_best.pt."""
+    save = tmp_path / "run"
+    cli.main(_argv(data_dir, save, "--epochs=105", "--subjects_per_batch=4",
+                   "--early_stopping=True", "--run_validation=True"))
+    printed = capsys.readouterr().out
+    assert "Best epoch is 105" in printed
+    assert os.path.isfile(save / "early_best.pt")
+    assert not os.path.isfile(save / "final.pt")
+    assert not os.path.isfile(save / "arguments.pkl")
+    out = cli.main(_argv(data_dir, save, "--epochs=0", "--subjects_per_batch=4",
+                         "--early_stopping=True"))
+    assert "Loaded pre-trained values." in capsys.readouterr().out
+    assert out["steps"] == 105
 
 
 def test_entry_points_never_fall_back_to_the_cpu():

@@ -127,3 +127,36 @@ def test_dataset_and_batches_match_hlax(generated):
     gb = tds.gather_batch(st, torch.as_tensor(idx))
     for k in ga:
         np.testing.assert_array_equal(np.asarray(ga[k]), gb[k].numpy(), k)
+
+
+def test_full_padded_and_n_batches_match_hlax(generated):
+    d, _, _ = generated
+    args = (str(d / "t"), "data.csv", "labels.csv", "mask.csv",
+            "data_types_D4.csv")
+    a, b = jds.load_dataset(*args), tds.load_dataset(*args)
+    for t_max in (None, a.T_max + 3):
+        fa, fb = jds.full_padded(a, t_max), tds.full_padded(b, t_max)
+        assert fa.keys() == fb.keys()
+        for k in fa:
+            np.testing.assert_array_equal(fa[k], fb[k], k)
+    for spb in (1, 3, 4, 20):
+        assert jds.n_batches(a, spb) == tds.n_batches(b, spb)
+
+
+def test_generate_cli_splits_match_hlax(tmp_path):
+    """``--splits`` writes the canonical config's files, byte for byte as
+    hlax's generator CLI does (seed + i for the i-th split)."""
+    from hlax.cli import generate as jgen_cli
+    from hlax_torch.cli import generate as tgen_cli
+
+    argv = ["--num_3", "1", "--num_6", "1", "--datatype_config", "D4",
+            "--seed", "9", "--splits", "prediction,test,validation"]
+    jgen_cli.main(["--destination", str(tmp_path / "j"), *argv])
+    tgen_cli.main(["--destination", str(tmp_path / "t"), *argv])
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert names == sorted(os.listdir(tmp_path / "t"))
+    assert {"prediction_data_D4.csv", "test_label.csv", "validation_mask.csv",
+            "data_types_D4.csv"} <= set(names)
+    for name in names:
+        assert (tmp_path / "j" / name).read_bytes() == \
+            (tmp_path / "t" / name).read_bytes(), name

@@ -115,14 +115,16 @@ def _sym(g):
     return g + np.swapaxes(g, -1, -2)
 
 
-@pytest.mark.parametrize("n", [8, 20, 56])
+@pytest.mark.parametrize("n", [8, 16, 18, 20, 56])
 def test_gradients_match_hlax_vjps(n):
-    """n=8 reaches hlax's Pallas backward kernel (``_bwd_kernel``), n=20
-    its ``_bwd_reference``, n=56 the mid kernel's VJP; the port runs
-    ``_bwd_reference`` for all three.  hlax's backward kernel returns the
-    transpose of ``_bwd_reference``'s lower-triangular convention (ROADMAP
-    queue 3), so at n=8 the symmetrized gradients are compared; at n=20 and
-    n=56 the gradients themselves."""
+    """n=8, 16 and 18 reach hlax's Pallas backward kernel (``_bwd_kernel``,
+    in interpret mode; hlax launches it for T <= 18), n=20 its
+    ``_bwd_reference``, n=56 the mid kernel's VJP.  On the CPU the port runs
+    its backward kernel's plain version, ``_bwd_reference``, for all of
+    them.  hlax's backward kernel returns the transpose of
+    ``_bwd_reference``'s lower-triangular convention (ROADMAP queue 3), so
+    up to n=18 the symmetrized gradients are compared; at n=20 and n=56 the
+    gradients themselves."""
     rng = np.random.default_rng(100 + n)
     a = _spd(rng, (3,), n)
     wl, wi = _loss_weights(rng, (3,), n)
@@ -140,7 +142,7 @@ def test_gradients_match_hlax_vjps(n):
         + 2 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum()
     f.backward()
     gt = at.grad.numpy()
-    if n <= 16:
+    if n <= 18:
         gt, gj = _sym(gt), _sym(gj)
     np.testing.assert_allclose(gt, gj, rtol=1e-8,
                                atol=1e-10 * np.abs(gj).max())
@@ -169,7 +171,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tls.chol_inv_small_cuda(a)
     with pytest.raises(ValueError, match="CUDA"):
         tls.chol_inv_mid_cuda(torch.eye(120)[None].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        tls.chol_inv_bwd_cuda(a, a, a, a)
     tls.reset_counters()
-    tls.chol_inv_blocked(a)
-    assert tls.LAUNCHES == {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0}
-    assert tls.PLAIN_CUDA_CALLS["chol_inv_plain"] == 0
+    a.requires_grad_(True)
+    l, il = tls.chol_inv_blocked(a)
+    (l.sum() + il.sum()).backward()
+    assert tls.LAUNCHES == {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
+                            "chol_inv_bwd_cuda": 0}
+    assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
+                                    "chol_inv_bwd_plain": 0}

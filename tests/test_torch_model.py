@@ -229,3 +229,76 @@ def test_likelihood_heads_match_hlax(kind):
     gj = jax.grad(f)(jargs[2])
     np.testing.assert_allclose(theta.grad.numpy(), np.asarray(gj),
                                rtol=1e-9, atol=1e-12)
+
+
+def test_decode_matches_hlax(model_setup):
+    """``HLVAE.decode`` of given latents under given batch statistics, the
+    entry point of the eval path's GP reconstruction."""
+    s = model_setup
+    z = np.random.default_rng(8).standard_normal((s["data"].shape[0], Z))
+    _, np_j = jnorm.batch_normalization(s["data"], s["mask"], s["het"].layout,
+                                        True)
+    out_j = s["model"].apply(
+        s["params"], jnp.asarray(z), s["data"], s["mask"], s["tmask"], np_j,
+        method=lambda m, *a: m.decode(*a))
+    het = s["t_het"]
+    data, mask = _t(het.data), _t(het.mask)
+    _, np_t = tnorm.batch_normalization(data, mask, het.layout, True)
+    with torch.inference_mode():
+        out_t = s["tmodel"].decode(_t(z), data, mask, _t(het.theta_mask),
+                                   np_t)
+    for got, want in ((out_t[0], out_j[0]), (out_t[1], out_j[1]),
+                      (out_t[3], out_j[3])):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-9,
+                                   atol=1e-9 * np.abs(want).max())
+
+
+N_DRAWS = 40000
+
+
+def _sampler_params(kind, rng):
+    """Head parameters of 3 variables, as the loglik heads emit them."""
+    if kind in ("real", "pos"):
+        return (rng.normal(0, 1, (1, 3)), rng.uniform(0.2, 1.0, (1, 3)))
+    if kind == "cat":
+        return np.log(np.array([[[0.2, 0.5, 0.3], [0.6, 0.3, 0.1],
+                                 [0.1, 0.1, 0.8]]]))
+    if kind == "ordinal":
+        return np.array([[[0.1, 0.4, 0.3, 0.2], [0.5, 0.2, 0.2, 0.1],
+                          [0.25, 0.25, 0.25, 0.25]]])
+    if kind == "count":
+        return rng.uniform(0.5, 6.0, (1, 3))
+    return (rng.uniform(1.0, 4.0, (1, 3)), rng.uniform(1.0, 4.0, (1, 3)))
+
+
+@pytest.mark.parametrize("kind", ["real", "pos", "cat", "ordinal", "count",
+                                  "beta"])
+def test_samplers_match_hlax_in_distribution(kind):
+    """The ``sample_*`` companions draw from another generator than hlax's,
+    so the two are compared in distribution: shapes, and the mean of
+    40,000 draws of each cell within 6 standard errors of hlax's."""
+    p = _sampler_params(kind, np.random.default_rng(3))
+    tile = lambda a: np.repeat(a, N_DRAWS, axis=0)
+    pj = tuple(map(tile, p)) if isinstance(p, tuple) else tile(p)
+    key = jax.random.PRNGKey(5)
+    gen = torch.Generator().manual_seed(5)
+    ranges = np.array([[0.0, 2.0], [-1.0, 1.0], [0.0, 10.0]])
+    if kind == "beta":
+        sj = jlik.sample_beta(tuple(map(jnp.asarray, pj)), key,
+                              jnp.asarray(ranges))
+        st = tlik.sample_beta(tuple(map(_t, pj)), gen, _t(ranges))
+    else:
+        jfn, tfn = getattr(jlik, f"sample_{kind}"), getattr(tlik,
+                                                            f"sample_{kind}")
+        if isinstance(pj, tuple):
+            sj, st = jfn(tuple(map(jnp.asarray, pj)), key), \
+                tfn(tuple(map(_t, pj)), gen)
+        else:
+            sj, st = jfn(jnp.asarray(pj), key), tfn(_t(pj), gen)
+    sj, st = np.asarray(sj), st.numpy()
+    assert sj.shape == st.shape and st.dtype == np.float64
+    if kind == "pos":   # heavy-tailed: compare the log1p of the draws
+        sj, st = np.log1p(sj), np.log1p(st)
+    se = np.sqrt((sj.var(axis=0) + st.var(axis=0)) / N_DRAWS) + 1e-12
+    assert (np.abs(sj.mean(axis=0) - st.mean(axis=0)) < 6 * se).all()
