@@ -8,19 +8,24 @@ test battery, then imputes with the trained model.
 Phases (each prints its own lines; any failure exits non-zero):
   1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel.
   2. kernels each kernel against its plain version at the main path's
-             shapes (the forward kernels on random SPD and float32-indefinite
-             inputs, with residuals; the backward kernel on random, L_bar = 0
-             and L^-1_bar = 0 cotangents, against float64), and CUDA-event
-             times of kernel, plain version, the library call where one
-             exists (torch.linalg.cholesky + solve_triangular) and the bound.
+             shapes: the small kernel bit for bit on random SPD and
+             float32-indefinite inputs; the mid kernel against float64 at
+             five shapes on SPD, ill-conditioned (M = 120) and indefinite
+             inputs, its n <= 32 path also bit for bit; the backward kernel
+             on random, L_bar = 0 and L^-1_bar = 0 cotangents, against
+             float64.  Device times (CUDA events, the launches queued
+             ahead) of kernel, plain version, the library call where one
+             exists (torch.linalg.cholesky + solve_triangular), the bound,
+             and the kernel's wall time a call on the host.
   3. reference  four toy-width train steps on the card against the same
-             steps on the CPU (plain versions), same weights and noise.
+             steps on the CPU (plain versions), same weights and noise; the
+             toy M = 30 takes the mid kernel's n <= 32 path.
   4. slice   generated D4 splits (prediction = training, test, validation;
              P=200, T=20, 25% missing) -> hlax_torch.cli.main.run with the
              canonical config, 3 epochs of 10 steps on the card, then the
              final validation and the test battery; launch counters must
              show every Cholesky and every small backward went through the
-             kernels.
+             kernels, and each row of the kernel table's shape was launched.
   5. impute  hlax_torch.cli.impute over the test split with the trained
              model, encoder mode and GP mode: rows/s.
   6. eval    imputation-eval samples/s (bench.py's protocol: forward with
@@ -52,18 +57,24 @@ CONFIG = os.path.join(ROOT, "configs", "hlvae_config_file.txt")
 # H100 SXM data sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# H100 SXM boost clock: sizes the spin kernel that time_ms queues first
+SPIN_CYCLES_PER_S = 1.98e9
 
-# kernel vs plain version: the forward kernels are built with --fmad=false
-# and do the same float32 operations in the same order as the plain
-# versions, so they should agree exactly; the bound allows for a compiler
-# reordering.
+# small kernel vs plain version: built with --fmad=false, it does the same
+# float32 operations in the same order as the plain version, so they should
+# agree exactly; the bound allows for a compiler reordering.
 REL_TOL = 1e-5
-# backward kernel: it sums its products in another order than the plain
-# version's cuBLAS matmuls, so both are held against float64 on the same
-# float32 inputs: its error may be at most BWD_ERR_FACTOR times the plain
-# version's plus BWD_ERR_ABS * max|A_bar| (a few float32 roundings of the
-# largest entry)
-BWD_ERR_FACTOR, BWD_ERR_ABS = 4.0, 1e-6
+# the mid and backward kernels sum in another order than their plain
+# versions, so both are held against float64 on the same float32 inputs:
+# a kernel's error may be at most ERR_FACTOR times the plain version's plus
+# ERR_ABS times the largest entry (a few float32 roundings of it)
+ERR_FACTOR, ERR_ABS = 4.0, 1e-6
+# the mid kernel's shapes: the training path's two, the eval buckets', the
+# largest n it takes and one in the blocked path's low range; the first
+# three are the main path's and get rows in the kernel table
+MID_SHAPES = [((64,), 120), ((32,), 120), ((32, 256), 32), ((8,), 128),
+              ((64,), 40)]
+MID_MAIN = 3
 # the train step launches the mid kernel twice (K0zz stacked with H, and the
 # natural-gradient inverse), the small kernel and its backward once each
 MID_PER_STEP = 2
@@ -83,18 +94,28 @@ def card_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+def time_ms(fn, reps: int = 50, warmup: int = 5):
+    """(device ms, wall ms) a call.  Device: CUDA events around ``reps``
+    calls queued behind a spin kernel that outlasts their enqueueing, so the
+    host's cost per call is not in it.  Wall: the host clock around ``reps``
+    calls and a synchronise, the cost a caller sees."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * reps * wall * 1e-3 * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, wall
 
 
 def random_spd(batch, n, gen):
@@ -112,6 +133,15 @@ def indefinite_spd(batch, n, gen):
     ev = torch.logspace(0.0, -10.0, n, device="cuda", dtype=torch.float64)
     a = (q * ev) @ q.T
     return a.float().expand(batch + (n, n)).contiguous(), a
+
+
+def ill_conditioned(batch, n, gen):
+    """Symmetric matrices with a logspace(0, -6) spectrum: the canonical
+    K0zz and H conditioning (>= 1e6), where the pivot guard does not fire."""
+    q, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, device="cuda",
+                                       dtype=torch.float64))
+    ev = torch.logspace(0.0, -6.0, n, device="cuda", dtype=torch.float64)
+    return ((q * ev) @ q.T).float().expand(batch + (n, n)).contiguous()
 
 
 def phase_build() -> None:
@@ -143,82 +173,186 @@ def _library(a):
 
 def phase_kernels():
     """Each kernel against its plain version; returns the table rows."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return [phase_small_kernel(gen), *phase_mid_kernel(gen),
+            phase_bwd_kernel(gen)]
+
+
+def phase_small_kernel(gen):
+    """The small kernel at the training B blocks' shape, bit for bit against
+    its plain version on SPD and float32-indefinite inputs; returns its
+    table row."""
     from hlax_torch.ops import linalg_small as ls
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = {
-        "chol_inv_small_cuda": dict(
-            fn=ls.chol_inv_small_cuda, source="hlax_torch/csrc/chol_inv_small.cu",
-            replaces="hlax/ops/linalg_small.py:112",
-            shapes=[((32, 20), 20)]),
-        "chol_inv_mid_cuda": dict(
-            fn=ls.chol_inv_mid_cuda, source="hlax_torch/csrc/chol_inv_mid.cu",
-            replaces="hlax/ops/linalg_small.py:472",
-            shapes=[((64,), 120), ((32,), 120), ((32, 256), 32)]),
-    }
+    batch, n = (32, 20), 20
+    tag = "chol_inv_small_cuda [32,20,20,20]"
+    worst = 0.0
+    for kind in ("spd", "indefinite"):
+        if kind == "spd":
+            a = random_spd(batch, n, gen)
+            a64 = a.double()
+        else:
+            a, a64 = indefinite_spd(batch, n, gen)
+        l, il = ls.chol_inv_small_cuda(a)
+        torch.cuda.synchronize()
+        lp, ilp = ls._chol_inv_plain(a)
+        for got, want, what in ((l, lp, "L"), (il, ilp, "L^-1")):
+            if not torch.isfinite(got).all():
+                fail(f"{tag} {kind}: non-finite {what}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            worst = max(worst, err)
+            if err > REL_TOL * scale:
+                fail(f"{tag} {kind}: {what} differs from the plain "
+                     f"version by {err:.3e} (scale {scale:.3e})")
+        if torch.triu(l, 1).abs().max().item() != 0.0:
+            fail(f"{tag} {kind}: L has entries above the diagonal")
+        l64, il64 = l.double(), il.double()
+        eye = torch.eye(n, device="cuda", dtype=torch.float64)
+        rec = ((l64 @ l64.mT - a64).norm(dim=(-2, -1))
+               / a64.norm(dim=(-2, -1))).max().item()
+        inv = (il64 @ l64 - eye).abs().max().item()
+        print(f"[kernels] {tag} {kind}: max|kernel-plain| L "
+              f"{(l - lp).abs().max().item():.3e} L^-1 "
+              f"{(il - ilp).abs().max().item():.3e}; "
+              f"|LL^T-A|/|A| {rec:.3e}; |L^-1 L - I| {inv:.3e}", flush=True)
+        # residual bounds: float32 rounding for the SPD inputs; for the
+        # indefinite one, the guard's modification (pivots below 1e-6 max
+        # diag A are floored), so |LL^T-A| stays ~1e-6
+        if kind == "spd" and (rec > 1e-5 or inv > 1e-3):
+            fail(f"{tag}: residuals too large")
+        if kind == "indefinite" and rec > 1e-4:
+            fail(f"{tag} indefinite: |LL^T-A|/|A| = {rec:.3e}")
+    a = random_spd(batch, n, gen)
+    before = dict(ls.LAUNCHES)
+    ms, wall = time_ms(lambda: ls.chol_inv_small_cuda(a))
+    plain_ms, _ = time_ms(lambda: ls._chol_inv_plain(a), reps=10)
+    lib_ms, _ = time_ms(lambda: _library(a))
+    ls.LAUNCHES.update(before)
+    bound, by = _bound_ms(a.numel() // (n * n), n)
+    print(f"[kernels] {tag}: kernel {ms:.4f} ms ({wall:.4f} ms a call on the "
+          f"host clock), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"bound {bound:.5f} ms ({by})", flush=True)
+    return dict(name="chol_inv_small_cuda", shape=list(batch + (n, n)),
+                route="cuda", source="hlax_torch/csrc/chol_inv_small.cu",
+                replaces="hlax/ops/linalg_small.py:112", launches=0,
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+
+
+def _f64_errors(a, l, il):
+    """Max errors of L, raw L^-1 and refined L^-1 against float64
+    torch.linalg on the same float32 input, and the largest entries."""
+    from hlax_torch.ops import linalg_small as ls
+    l64, il64 = _library(a.double())
+    got = (l, il, ls._refine_tri_inverse(l, il))
+    want = (l64, il64, il64)
+    return ([(g.double() - w).abs().max().item() for g, w in zip(got, want)],
+            [w.abs().max().item() for w in want])
+
+
+def _inv_residual(l, il):
+    """max |L^-1 L - I| in float64."""
+    eye = torch.eye(l.shape[-1], device=l.device, dtype=torch.float64)
+    return (il.double() @ l.double() - eye).abs().max().item()
+
+
+def phase_mid_kernel(gen):
+    """The mid kernel at MID_SHAPES against float64 (its blocked path sums
+    in blocked order with fused multiply-adds): on SPD inputs, and the
+    ill-conditioned one at M = 120, its L, raw L^-1 and refined L^-1 may
+    each err at most ERR_FACTOR times the plain version's plus ERR_ABS
+    times the largest entry, and its raw |L^-1 L - I| likewise; on the
+    indefinite input it must be finite and factor a nearby matrix.  Exact
+    zeros above the diagonal throughout; the warp path (n <= 32) equal to
+    the plain version bit for bit.  Returns the table rows of the main
+    path's shapes."""
+    from hlax_torch.ops import linalg_small as ls
+
     rows = []
-    for name, k in kernels.items():
-        for batch, n in k["shapes"]:
-            b = 1
-            for d in batch:
-                b *= d
-            tag = f"{name} [{','.join(map(str, batch + (n, n)))}]"
-            worst = 0.0
-            for kind in ("spd", "indefinite"):
-                if kind == "spd":
-                    a = random_spd(batch, n, gen)
-                    a64 = a.double()
-                else:
-                    a, a64 = indefinite_spd(batch, n, gen)
-                l, il = k["fn"](a)
-                torch.cuda.synchronize()
-                lp, ilp = ls._chol_inv_plain(a)
-                for got, want, what in ((l, lp, "L"), (il, ilp, "L^-1")):
-                    if not torch.isfinite(got).all():
-                        fail(f"{tag} {kind}: non-finite {what}")
-                    err = (got - want).abs().max().item()
-                    scale = want.abs().max().item()
-                    worst = max(worst, err)
-                    if err > REL_TOL * scale:
-                        fail(f"{tag} {kind}: {what} differs from the plain "
-                             f"version by {err:.3e} (scale {scale:.3e})")
-                if torch.triu(l, 1).abs().max().item() != 0.0:
-                    fail(f"{tag} {kind}: L has entries above the diagonal")
-                l64, il64 = l.double(), il.double()
-                eye = torch.eye(n, device="cuda", dtype=torch.float64)
+    for batch, n in MID_SHAPES:
+        tag = f"chol_inv_mid_cuda [{','.join(map(str, batch + (n, n)))}]"
+        kinds = ("spd", "ill", "indefinite") if n == 120 else \
+            ("spd", "indefinite")
+        worst = 0.0
+        for kind in kinds:
+            if kind == "spd":
+                a = random_spd(batch, n, gen)
+            elif kind == "ill":
+                a = ill_conditioned(batch, n, gen)
+            else:
+                a, _ = indefinite_spd(batch, n, gen)
+            l, il = ls.chol_inv_mid_cuda(a)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(l).all() and torch.isfinite(il).all()):
+                fail(f"{tag} {kind}: non-finite L or L^-1")
+            if torch.triu(l, 1).any() or torch.triu(il, 1).any():
+                fail(f"{tag} {kind}: entries above the diagonal")
+            lp, ilp = ls._chol_inv_plain(a)
+            if ls.mid_launch_plan(n, 1).path == "warp":
+                # the warp path rounds as the plain version does
+                if not (torch.equal(l, lp) and torch.equal(il, ilp)):
+                    fail(f"{tag} {kind}: the warp path differs from the "
+                         f"plain version by {(l - lp).abs().max().item():.3e}"
+                         f" (L), {(il - ilp).abs().max().item():.3e} (L^-1)")
+                print(f"[kernels] {tag} {kind}: equal to the plain version "
+                      "bit for bit", flush=True)
+            if kind == "indefinite":
+                l64, a64 = l.double(), a.double()
                 rec = ((l64 @ l64.mT - a64).norm(dim=(-2, -1))
                        / a64.norm(dim=(-2, -1))).max().item()
-                inv = (il64 @ l64 - eye).abs().max().item()
-                print(f"[kernels] {tag} {kind}: max|kernel-plain| L "
-                      f"{(l - lp).abs().max().item():.3e} L^-1 "
-                      f"{(il - ilp).abs().max().item():.3e}; "
-                      f"|LL^T-A|/|A| {rec:.3e}; |L^-1 L - I| {inv:.3e}",
+                print(f"[kernels] {tag} indefinite: |LL^T-A|/|A| {rec:.3e}",
                       flush=True)
-                # residual bounds: float32 rounding for the SPD inputs; for
-                # the indefinite one, the guard's modification (pivots below
-                # 1e-6 max diag A are floored), so |LL^T-A| stays ~1e-6
-                if kind == "spd" and (rec > 1e-5 or inv > 1e-3):
-                    fail(f"{tag}: residuals too large")
-                if kind == "indefinite" and rec > 1e-4:
+                # the guard's modification: pivots below 1e-6 max diag A
+                # are floored, so |LL^T-A| stays ~1e-6
+                if rec > 1e-4:
                     fail(f"{tag} indefinite: |LL^T-A|/|A| = {rec:.3e}")
-            a = random_spd(batch, n, gen)
-            before = dict(ls.LAUNCHES)
-            ms = time_ms(lambda: k["fn"](a))
-            plain_ms = time_ms(lambda: ls._chol_inv_plain(a), reps=10)
-            lib_ms = time_ms(lambda: _library(a))
-            ls.LAUNCHES.update(before)
-            bound, by = _bound_ms(b, n)
-            print(f"[kernels] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-                  f" ms, library {lib_ms:.4f} ms, bound {bound:.5f} ms "
-                  f"({by})", flush=True)
-            if (batch, n) == k["shapes"][0]:   # the table row: first shape
-                rows.append(dict(name=name, shape=list(batch + (n, n)),
-                                 route="cuda", source=k["source"],
-                                 replaces=k["replaces"], launches=0,
-                                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound, bound_by=by,
-                                 library_ms=lib_ms))
-    rows.append(phase_bwd_kernel(gen))
+                continue
+            errs, scales = _f64_errors(a, l, il)
+            plain_errs, _ = _f64_errors(a, lp, ilp)
+            res = [_inv_residual(l, il),
+                   _inv_residual(l, ls._refine_tri_inverse(l, il))]
+            res_p = [_inv_residual(lp, ilp),
+                     _inv_residual(lp, ls._refine_tri_inverse(lp, ilp))]
+            print(f"[kernels] {tag} {kind}: max|x-f64| kernel / plain: L "
+                  f"{errs[0]:.3e} / {plain_errs[0]:.3e}, L^-1 {errs[1]:.3e} / "
+                  f"{plain_errs[1]:.3e}, refined L^-1 {errs[2]:.3e} / "
+                  f"{plain_errs[2]:.3e} (max|L| {scales[0]:.3e}, max|L^-1| "
+                  f"{scales[1]:.3e}); |L^-1 L - I| kernel {res[0]:.3e} -> "
+                  f"{res[1]:.3e} refined, plain {res_p[0]:.3e} -> "
+                  f"{res_p[1]:.3e}", flush=True)
+            for what, err, plain, scale in zip(
+                    ("L", "L^-1", "refined L^-1"), errs, plain_errs, scales):
+                if err > ERR_FACTOR * plain + ERR_ABS * scale:
+                    fail(f"{tag} {kind}: {what} error {err:.3e} exceeds "
+                         f"{ERR_FACTOR} x plain {plain:.3e} + {ERR_ABS} x "
+                         f"{scale:.3e}")
+            if res[0] > ERR_FACTOR * res_p[0] + ERR_ABS:
+                fail(f"{tag} {kind}: |L^-1 L - I| {res[0]:.3e} exceeds "
+                     f"{ERR_FACTOR} x plain {res_p[0]:.3e} + {ERR_ABS}")
+            if kind == "spd":
+                worst = max(worst, errs[0], errs[1])
+        a = random_spd(batch, n, gen)
+        before = dict(ls.LAUNCHES)
+        ms, wall = time_ms(lambda: ls.chol_inv_mid_cuda(a))
+        plain_ms, _ = time_ms(lambda: ls._chol_inv_plain(a), reps=10)
+        lib_ms, _ = time_ms(lambda: _library(a))
+        ls.LAUNCHES.update(before)
+        b = a.numel() // (n * n)
+        bound, by = _bound_ms(b, n)
+        plan = ls.mid_launch_plan(n, b)
+        print(f"[kernels] {tag}: {plan.path} path, kernel {ms:.4f} ms "
+              f"({wall:.4f} ms a call on the host clock), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by})", flush=True)
+        if len(rows) < MID_MAIN:
+            rows.append(dict(name="chol_inv_mid_cuda",
+                             shape=list(batch + (n, n)), route="cuda",
+                             source="hlax_torch/csrc/chol_inv_mid.cu",
+                             replaces="hlax/ops/linalg_small.py:472",
+                             launches=0, max_abs_err=worst, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             library_ms=lib_ms))
     return rows
 
 
@@ -261,21 +395,22 @@ def phase_bwd_kernel(gen):
             print(f"[kernels] {tag} {kind}: max|kernel-f64| {err:.3e}, "
                   f"max|plain-f64| {err_plain:.3e}, max|A_bar| {scale:.3e}",
                   flush=True)
-            if err > BWD_ERR_FACTOR * err_plain + BWD_ERR_ABS * scale:
+            if err > ERR_FACTOR * err_plain + ERR_ABS * scale:
                 fail(f"{tag} {kind}: kernel error {err:.3e} exceeds "
-                     f"{BWD_ERR_FACTOR} x plain {err_plain:.3e} + "
-                     f"{BWD_ERR_ABS} x {scale:.3e}")
+                     f"{ERR_FACTOR} x plain {err_plain:.3e} + "
+                     f"{ERR_ABS} x {scale:.3e}")
             if torch.triu(got, 1).abs().max().item() != 0.0:
                 fail(f"{tag} {kind}: A_bar has entries above the diagonal")
         lb = torch.randn(l.shape, generator=gen, device="cuda")
         ilb = torch.randn(l.shape, generator=gen, device="cuda")
         before = dict(ls.LAUNCHES)
-        ms = time_ms(lambda: ls.chol_inv_bwd_cuda(l, il, lb, ilb))
-        plain_ms = time_ms(lambda: ls._chol_inv_bwd_plain(l, il, lb, ilb))
+        ms, wall = time_ms(lambda: ls.chol_inv_bwd_cuda(l, il, lb, ilb))
+        plain_ms, _ = time_ms(lambda: ls._chol_inv_bwd_plain(l, il, lb, ilb))
         ls.LAUNCHES.update(before)
         bound, by = _bwd_bound_ms(l.numel() // (n * n), n)
-        print(f"[kernels] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-              f" library none, bound {bound:.5f} ms ({by})", flush=True)
+        print(f"[kernels] {tag}: kernel {ms:.4f} ms ({wall:.4f} ms a call on "
+              f"the host clock), plain {plain_ms:.4f} ms, library none, bound"
+              f" {bound:.5f} ms ({by})", flush=True)
         if n == 20:   # the table row: the training shape
             row = dict(name="chol_inv_bwd_cuda", shape=list(batch + (n, n)),
                        route="cuda", source="hlax_torch/csrc/chol_inv_bwd.cu",
@@ -366,6 +501,10 @@ def phase_reference(tmp: str) -> None:
     if ls.LAUNCHES["chol_inv_bwd_cuda"] < 4 or any(
             ls.PLAIN_CUDA_CALLS.values()):
         fail("the card's T=20 steps did not go through the backward kernel")
+    if not any(name == "chol_inv_mid_cuda" and ls.mid_launch_plan(
+            shape[-1], 1).path == "warp" for name, shape in
+               ls.LAUNCHES_BY_SHAPE):
+        fail("the card's M=30 steps did not take the mid kernel's warp path")
 
 
 def phase_slice(tmp: str):
@@ -385,6 +524,7 @@ def phase_slice(tmp: str):
     out = cli.run(opt)
     torch.cuda.synchronize()
     launches = dict(ls.LAUNCHES)
+    by_shape = dict(ls.LAUNCHES_BY_SHAPE)
     plain = dict(ls.PLAIN_CUDA_CALLS)
     losses = out["loss_arrs"]["net"]
     steps = out["steps"]
@@ -420,12 +560,14 @@ def phase_slice(tmp: str):
               f"{f.read().split()}", flush=True)
     ep, ev = out["epoch_seconds"], out["eval_seconds"]
     print(f"[slice] mid launches: {MID_PER_STEP * steps} in training, "
-          f"{eval_mid} in validation and tests", flush=True)
+          f"{eval_mid} in validation and tests; launches by shape "
+          f"{ {f'{k}{list(sh)}': v for (k, sh), v in by_shape.items()} }",
+          flush=True)
     print(f"[slice] epoch seconds {ep}; steps/s after warm-up "
           f"{10 / ep[-1]:.3f} on {card_line()}", flush=True)
     print(f"[slice] final validation {ev['validation']:.3f} s, tests "
           f"{ev['tests']:.3f} s on {card_line()}", flush=True)
-    return launches, out, data_dir, save
+    return by_shape, out, data_dir, save
 
 
 def phase_impute(data_dir: str, save: str) -> None:
@@ -558,12 +700,15 @@ def main() -> None:
     rows = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         phase_reference(tmp)
-        launches, out, data_dir, save = phase_slice(tmp)
+        by_shape, out, data_dir, save = phase_slice(tmp)
         phase_impute(data_dir, save)
         phase_eval(out)
         phase_profile(out)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = by_shape.get((r["name"], tuple(r["shape"])), 0)
+        if not r["launches"]:
+            fail(f"{r['name']} was not launched at {r['shape']} on the main "
+                 "path")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Guarded right-looking Cholesky plus triangular inverse of ONE matrix that a
-// group of threads (a warp or a whole block) holds in shared memory.
+// warp holds in shared memory (the small kernel).
 //
 // On entry A holds the SPD input (only its lower triangle is read) and iL
 // the identity.  On exit A holds L (exact zeros above the diagonal) and iL
@@ -14,8 +14,8 @@
 //      the rows of iL below j take iL[i] -= L[i][j] * iL[j] (the
 //      elementary-factor inverse update of the TPU kernels, with row j
 //      already scaled).
-// Each phase is split over the group's threads by flat element index, so
-// neighbouring threads touch neighbouring addresses; `sync` separates them.
+// Each phase is split over the warp's lanes by flat element index, so
+// neighbouring lanes touch neighbouring addresses; __syncwarp separates them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,17 +28,7 @@ extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-struct WarpSync {
-  __device__ void operator()() const { __syncwarp(); }
-};
-
-struct BlockSync {
-  __device__ void operator()() const { __syncthreads(); }
-};
-
-template <typename Sync>
-__device__ void chol_inv_smem(float* A, float* iL, int n, int tid, int nthr,
-                              Sync sync) {
+__device__ inline void chol_inv_smem(float* A, float* iL, int n, int lane) {
   float dmax = 0.f;
   for (int i = 0; i < n; ++i) dmax = fmaxf(dmax, A[i * n + i]);
   const float floor = HLAX_PIVOT_FLOOR_REL * dmax;
@@ -48,28 +38,28 @@ __device__ void chol_inv_smem(float* A, float* iL, int n, int tid, int nthr,
     const bool good = d >= floor;
     const float dc = good ? d : floor;
     const float inv = 1.0f / sqrtf(dc);
-    sync();  // every thread has read the pivot before column j is rewritten
+    __syncwarp();  // every lane has read the pivot before column j is rewritten
 
-    for (int i = tid; i < n; i += nthr) {
+    for (int i = lane; i < n; i += 32) {
       float v;
       if (i < j) v = 0.f;
       else if (i == j) v = dc * inv;
       else v = good ? A[i * n + j] * inv : 0.f;
       A[i * n + j] = v;
     }
-    for (int c = tid; c <= j; c += nthr) iL[j * n + c] *= inv;
-    sync();
+    for (int c = lane; c <= j; c += 32) iL[j * n + c] *= inv;
+    __syncwarp();
 
     const int r = n - j - 1;
-    for (int e = tid; e < r * r; e += nthr) {
+    for (int e = lane; e < r * r; e += 32) {
       const int i = j + 1 + e / r, k = j + 1 + e % r;
       if (k <= i) A[i * n + k] -= A[i * n + j] * A[k * n + j];
     }
     const int w = j + 1;
-    for (int e = tid; e < r * w; e += nthr) {
+    for (int e = lane; e < r * w; e += 32) {
       const int i = j + 1 + e / w, c = e % w;
       iL[i * n + c] -= A[i * n + j] * iL[j * n + c];
     }
-    sync();
+    __syncwarp();
   }
 }

@@ -36,7 +36,7 @@ __global__ void chol_inv_small_kernel(const float* __restrict__ a,
     iL[e] = (e / n == e % n) ? 1.f : 0.f;
   }
   __syncwarp();
-  chol_inv_smem(A, iL, n, lane, 32, WarpSync{});
+  chol_inv_smem(A, iL, n, lane);
   for (int e = lane; e < n * n; e += 32) {
     l[off + e] = A[e];
     il[off + e] = iL[e];

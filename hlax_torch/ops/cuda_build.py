@@ -3,7 +3,8 @@
 Each ``<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>.so`` at the repository
 root, on first use, and loaded with ``ctypes``.  A library newer than its
-sources is reused.  ``build_all`` starts one ``nvcc`` per source at once.
+sources and built with the same flags (``lib<name>.flags`` beside it) is
+reused.  ``build_all`` starts one ``nvcc`` per source at once.
 Nothing here runs at import: the CPU tests import every module, and there is
 no ``nvcc`` without the CUDA toolkit.
 """
@@ -16,18 +17,21 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-# --fmad=false: no contraction of a*b+c into one rounding, so a kernel does
-# the same float32 operations as its plain PyTorch version and the two agree
-# to the last bit.  The Cholesky kernels are bound by their sequential
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Libraries built with contraction of a*b+c into one fused multiply-add.
+# The mid kernel sums in blocked order, unlike its plain version, and is
+# held to a float64 reference.  Every other library is built with
+# --fmad=false: the small kernel then does the same float32 operations as
+# its plain PyTorch version and the two agree to the last bit; the backward
+# kernel keeps the flag too.  Those kernels are bound by their sequential
 # column steps, not by arithmetic (PERF.md), so the unfused multiply-adds
 # cost them little.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+FMA_CONTRACTED = frozenset({"chol_inv_mid"})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,13 +49,23 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_flags(name: str) -> List[str]:
+    return NVCC_FLAGS + ([] if name in FMA_CONTRACTED else ["--fmad=false"])
+
+
 def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _flags_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.flags"
+
+
 def _stale(name: str) -> bool:
-    lib = _lib_path(name)
-    if not lib.is_file():
+    lib, stamp = _lib_path(name), _flags_path(name)
+    if not lib.is_file() or not stamp.is_file():
+        return True
+    if stamp.read_text() != " ".join(nvcc_flags(name)):
         return True
     newest = max(p.stat().st_mtime for p in
                  [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
@@ -70,7 +84,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
     procs = {}
     for n in todo:
         tmp = BUILD_DIR / f"lib{n}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *nvcc_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
@@ -81,6 +95,7 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
             failed.append(n)
         else:
             os.replace(tmp, _lib_path(n))
+            _flags_path(n).write_text(" ".join(nvcc_flags(n)))
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))

@@ -7,9 +7,11 @@ M ~ 120.  Two hand-written CUDA kernels compute them:
 
   * ``chol_inv_small_cuda`` (``csrc/chol_inv_small.cu``, n <= 48): one warp
     per matrix; replaces the TPU kernel ``_kernel``.
-  * ``chol_inv_mid_cuda`` (``csrc/chol_inv_mid.cu``, 24 < n <= 128): one
-    block per matrix; replaces the TPU kernel ``_mid_kernel``.  As in hlax,
-    one Newton step ``_refine_tri_inverse`` follows it.
+  * ``chol_inv_mid_cuda`` (``csrc/chol_inv_mid.cu``, 24 < n <= 128):
+    replaces the TPU kernel ``_mid_kernel``.  For n <= 32 one warp a matrix
+    with the rows in registers; above, one block a matrix, blocked in panels
+    of 8 columns (the plan is ``mid_launch_plan``).  As in hlax, one Newton
+    step ``_refine_tri_inverse`` follows it.
 
   * ``chol_inv_bwd_cuda`` (``csrc/chol_inv_bwd.cu``, n <= 48): one warp
     per matrix; the backward of the small factorization, replaces the TPU
@@ -23,8 +25,12 @@ Both read only the lower triangle of A.
 ``_chol_inv_plain`` is the plain PyTorch version of both forward kernels
 (the guarded column loop as tensor ops), ``_chol_inv_bwd_plain`` that of the
 backward kernel (``_bwd_reference``, the matmul-only Cholesky-plus-inverse
-pullback).  The autograd Functions use the plain versions for a CPU tensor
-only; for a CUDA tensor they launch the kernel or raise.  The mid
+pullback).  The small kernel and the mid kernel's one-warp path do the
+plain version's float32 operations in its order and agree with it bit for
+bit; the mid kernel's blocked path sums in blocked order with fused
+multiply-adds and is held to a float64 reference instead.  The autograd
+Functions use the plain versions for a CPU tensor only; for a CUDA tensor
+they launch the kernel or raise.  The mid
 factorization's backward is ``_bwd_reference`` on every device, as hlax's
 ``_mid_bwd`` is plain matmuls outside any Pallas kernel.
 """
@@ -32,7 +38,7 @@ factorization's backward is ``_bwd_reference`` on every device, as hlax's
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -42,11 +48,17 @@ PIVOT_FLOOR_REL = 1e-6
 MAX_SMALL_T = 48      # largest n the small (one-warp) kernel takes
 MAX_DIAG_BLOCK = 24   # chol_inv_blocked: n <= 24 -> small, else mid (hlax's)
 MAX_MID_M = 128
+MAX_MID_WARP_N = 32   # the mid kernel's one-warp-a-matrix path
+MID_WARPS_PER_BLOCK = 4
+MID_BLOCK_THREADS = 512  # must match BLOCK_THREADS in csrc/chol_inv_mid.cu
+MID_PANEL = 8         # must match NB there
 
 # Kernel launches and plain-version calls on CUDA tensors since the last
 # ``reset_counters``: a run reads them to show which path it took.
 LAUNCHES = {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
             "chol_inv_bwd_cuda": 0}
+# the same launches by input shape: {(kernel, shape): launches}
+LAUNCHES_BY_SHAPE: Dict[Tuple[str, Tuple[int, ...]], int] = {}
 PLAIN_CUDA_CALLS = {"chol_inv_plain": 0, "chol_inv_bwd_plain": 0}
 
 
@@ -54,11 +66,44 @@ def reset_counters() -> None:
     for d in (LAUNCHES, PLAIN_CUDA_CALLS):
         for k in d:
             d[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def _count_launch(name: str, shape) -> None:
+    LAUNCHES[name] += 1
+    key = (name, tuple(shape))
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+
+
+class MidPlan(NamedTuple):
+    """Launch of the mid kernel for ``batch`` matrices of n x n."""
+    path: str      # "warp": one warp a matrix; "blocked": one block a matrix
+    grid: int      # blocks
+    threads: int   # threads a block
+    panel: int     # panel width of the blocked path (0 on the warp path)
+    smem: int      # dynamic shared memory a block, bytes
+    per_block: int  # matrices a block
+
+
+def mid_launch_plan(n: int, batch: int) -> MidPlan:
+    """The plan ``chol_inv_mid_launch`` (``csrc/chol_inv_mid.cu``) takes:
+    for n <= 32 four warps a block, each staging its identity-padded 32 x 32
+    matrix in a 33-float-stride tile; above, 512 threads a matrix with A and
+    L^{-1} identity-padded to a multiple of the panel width in shared
+    memory, plus the panel's L21 transposed and its diagonal block."""
+    if n <= MAX_MID_WARP_N:
+        w = MID_WARPS_PER_BLOCK
+        return MidPlan("warp", -(-batch // w), 32 * w, 0, w * 32 * 33 * 4, w)
+    np_ = -(-n // MID_PANEL) * MID_PANEL
+    return MidPlan("blocked", batch, MID_BLOCK_THREADS, MID_PANEL,
+                   4 * (2 * np_ * np_ + MID_PANEL * (np_ + MID_PANEL)), 1)
 
 
 def _chol_inv_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of both kernels: guarded right-looking column
-    loop over [..., n, n], same arithmetic as ``csrc/chol_inv_common.cuh``.
+    loop over [..., n, n], the small kernel's arithmetic
+    (``csrc/chol_inv_common.cuh``); the mid kernel computes the same
+    function in blocked order.
 
     Note: hlax's mid kernel takes its pivot floor over the identity-padded
     matrix (M rounded up to a multiple of 8), so for such M with
@@ -104,7 +149,9 @@ def _check(a: torch.Tensor, lo: int, hi: int, what: str) -> None:
         raise ValueError(f"{what}: needs a contiguous tensor")
 
 
-def _launch(name: str, entry: str, a: torch.Tensor):
+def _launch(name: str, entry: str, a: torch.Tensor, *plan: int):
+    """(L, L^{-1}) from the C entry ``entry(a, l, il, batch, n, *plan,
+    stream)`` of ``lib<name>.so``."""
     n = a.shape[-1]
     l, il = torch.empty_like(a), torch.empty_like(a)
     batch = a.numel() // (n * n)
@@ -112,12 +159,14 @@ def _launch(name: str, entry: str, a: torch.Tensor):
         return l, il
     lib = load_library(name)
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (2 + len(plan))
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = fn(a.data_ptr(), l.data_ptr(), il.data_ptr(), batch, n, stream)
+    code = fn(a.data_ptr(), l.data_ptr(), il.data_ptr(), batch, n, *plan,
+              stream)
     check_launch(lib, entry, code)
-    LAUNCHES[f"{name}_cuda"] += 1
+    _count_launch(f"{name}_cuda", a.shape)
     return l, il
 
 
@@ -130,15 +179,20 @@ def chol_inv_small_cuda(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def chol_inv_mid_cuda(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(L, L^{-1}) of contiguous float32 CUDA [..., n, n], 24 < n <= 128, by
-    the one-block-per-matrix kernel (without the Newton refinement).  hlax
-    sends 24 < n <= 48 to its mid kernel too (``chol_inv_blocked``)."""
+    the mid kernel on the plan of ``mid_launch_plan`` (without the Newton
+    refinement).  hlax sends 24 < n <= 48 to its mid kernel too
+    (``chol_inv_blocked``)."""
     if a.is_cuda and a.shape[-1] > MAX_MID_M:
         raise NotImplementedError(
             "chol_inv_mid_cuda: n > 128 needs the blocked composition of "
             "hlax's chol_inv_blocked, not ported yet "
             "(ROADMAP queue 1 item 10)")
     _check(a, MAX_DIAG_BLOCK, MAX_MID_M, "chol_inv_mid_cuda")
-    return _launch("chol_inv_mid", "chol_inv_mid_launch", a)
+    n = a.shape[-1]
+    plan = mid_launch_plan(n, a.numel() // (n * n))
+    return _launch("chol_inv_mid", "chol_inv_mid_launch", a,
+                   {"warp": 0, "blocked": 1}[plan.path], plan.grid,
+                   plan.threads, plan.panel, plan.smem)
 
 
 def _refine_tri_inverse(l, il):
@@ -198,7 +252,7 @@ def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
     code = fn(l.data_ptr(), il.data_ptr(), l_bar.data_ptr(), il_bar.data_ptr(),
               a_bar.data_ptr(), batch, n, stream)
     check_launch(lib, "chol_inv_bwd_launch", code)
-    LAUNCHES["chol_inv_bwd_cuda"] += 1
+    _count_launch("chol_inv_bwd_cuda", l.shape)
     return a_bar
 
 

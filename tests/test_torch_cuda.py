@@ -39,23 +39,67 @@ def _indefinite(shape, gen):
 
 
 @pytest.mark.parametrize("kind", ["spd", "indefinite"])
-@pytest.mark.parametrize("shape", [(32, 20, 20, 20), (64, 120, 120),
-                                   (3, 40, 40)])
+@pytest.mark.parametrize("shape", [(32, 20, 20, 20)])
 def test_kernel_equals_plain_version(gen, shape, kind):
-    """Built with --fmad=false, the kernels do the plain versions' float32
-    operations in the same order: the results are equal, bit for bit."""
+    """Built with --fmad=false, the small kernel does its plain version's
+    float32 operations in the same order: the results are equal, bit for
+    bit."""
     a = (_spd if kind == "spd" else _indefinite)(shape, gen)
-    fn = tls.chol_inv_small_cuda if shape[-1] <= tls.MAX_DIAG_BLOCK else \
-        tls.chol_inv_mid_cuda
-    before = tls.LAUNCHES[fn.__name__]
-    l, il = fn(a)
+    before = tls.LAUNCHES["chol_inv_small_cuda"]
+    l, il = tls.chol_inv_small_cuda(a)
     torch.cuda.synchronize()
-    assert tls.LAUNCHES[fn.__name__] == before + 1
+    assert tls.LAUNCHES["chol_inv_small_cuda"] == before + 1
     lp, ilp = tls._chol_inv_plain(a)
     torch.testing.assert_close(l, lp, rtol=0, atol=0)
     torch.testing.assert_close(il, ilp, rtol=0, atol=0)
     assert torch.isfinite(il).all()
     assert not torch.triu(l, 1).any()
+
+
+def _f64_errors(a, l, il):
+    """Max errors of L, raw L^-1 and refined L^-1 against float64
+    ``torch.linalg`` on the same float32 input, and their scales."""
+    l64 = torch.linalg.cholesky(a.double())
+    eye = torch.eye(a.shape[-1], device=a.device, dtype=torch.float64)
+    il64 = torch.linalg.solve_triangular(l64, eye.expand_as(l64), upper=False)
+    got = (l, il, tls._refine_tri_inverse(l, il))
+    want = (l64, il64, il64)
+    return ([(g.double() - w).abs().max().item() for g, w in zip(got, want)],
+            [w.abs().max().item() for w in want])
+
+
+@pytest.mark.parametrize("kind", ["spd", "indefinite"])
+@pytest.mark.parametrize("shape", [(64, 120, 120), (3, 40, 40), (8, 32, 32),
+                                   (5, 30, 30), (2, 56, 56), (2, 128, 128)])
+def test_mid_kernel_against_float64(gen, shape, kind):
+    """The mid kernel's blocked path (n > 32) sums in blocked order with
+    fused multiply-adds, so on SPD inputs its L, raw L^-1 and refined L^-1
+    are each held against float64 on the same float32 input: its error may
+    be at most 4x the plain version's plus 1e-6 of the largest entry.  On
+    the float32-indefinite input the guard pins pivots that rounding
+    decides: it must stay finite and factor a nearby matrix.  Above the
+    diagonal it writes exact zeros.  The warp path (n <= 32) rounds as the
+    plain version does: equal bit for bit."""
+    a = (_spd if kind == "spd" else _indefinite)(shape, gen)
+    before = tls.LAUNCHES["chol_inv_mid_cuda"]
+    l, il = tls.chol_inv_mid_cuda(a)
+    torch.cuda.synchronize()
+    assert tls.LAUNCHES["chol_inv_mid_cuda"] == before + 1
+    assert torch.isfinite(l).all() and torch.isfinite(il).all()
+    assert not torch.triu(l, 1).any() and not torch.triu(il, 1).any()
+    lp, ilp = tls._chol_inv_plain(a)
+    if tls.mid_launch_plan(shape[-1], 1).path == "warp":
+        torch.testing.assert_close(l, lp, rtol=0, atol=0)
+        torch.testing.assert_close(il, ilp, rtol=0, atol=0)
+    if kind == "spd":
+        errs, scales = _f64_errors(a, l, il)
+        plain_errs, _ = _f64_errors(a, lp, ilp)
+        for err, plain, scale in zip(errs, plain_errs, scales):
+            assert err <= 4 * plain + 1e-6 * scale
+    else:
+        l64, a64 = l.double(), a.double()
+        rec = (l64 @ l64.mT - a64).norm(dim=(-2, -1)) / a64.norm(dim=(-2, -1))
+        assert rec.max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("cotangents", ["both", "l_bar only", "il_bar only"])
@@ -102,12 +146,12 @@ def test_autograd_path_launches_the_kernels(gen):
     """``chol_inv_blocked`` on CUDA goes through the kernels, never the
     plain versions, and the small factorization's backward is its kernel."""
     tls.reset_counters()
-    for n in (20, 120):
+    for n in (20, 30, 120):   # n = 30 takes the mid kernel's one-warp path
         a = _spd((4, n, n), gen).requires_grad_(True)
         l, il = tls.chol_inv_blocked(a)
         (l.sum() + il.sum()).backward()
         assert torch.isfinite(a.grad).all()
-    assert tls.LAUNCHES == {"chol_inv_small_cuda": 1, "chol_inv_mid_cuda": 1,
+    assert tls.LAUNCHES == {"chol_inv_small_cuda": 1, "chol_inv_mid_cuda": 2,
                             "chol_inv_bwd_cuda": 1}
     assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
                                     "chol_inv_bwd_plain": 0}

@@ -1,9 +1,11 @@
 """Port's Cholesky-plus-inverse (``hlax_torch.ops.linalg_small``) against
 hlax's Pallas kernels, run in interpret mode on the CPU.
 
-The port's plain versions are what its CUDA kernels compute (the kernels
-agree with them bit for bit on the card, ``chip_smoke.py``); here the plain
-versions are held against hlax ``chol_inv_small`` (``_kernel``) and
+The port's plain versions are what its CUDA kernels compute (on the card
+the small kernel and the mid kernel's n <= 32 path agree with them bit for
+bit, the mid kernel's blocked path within float32 rounding against a
+float64 reference, ``chip_smoke.py``); here the plain versions are held
+against hlax ``chol_inv_small`` (``_kernel``) and
 ``_chol_inv_mid_batched`` (``_mid_kernel``), with gradients against hlax's
 custom VJPs.  float64 unless noted; the pivot-guard case is float32, the
 dtype in which the input is indefinite.
@@ -181,3 +183,47 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                             "chol_inv_bwd_cuda": 0}
     assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
                                     "chol_inv_bwd_plain": 0}
+
+
+@pytest.mark.parametrize("batch", [1, 32, 64, 8192])
+def test_mid_launch_plan(batch):
+    """Every n the mid kernel takes gets a plan within a block's 227 KB of
+    shared memory whose grid covers the batch; n <= 32 takes the one-warp
+    path, the rest the blocked one with 8-column panels."""
+    for n in range(tls.MAX_DIAG_BLOCK + 1, tls.MAX_MID_M + 1):
+        plan = tls.mid_launch_plan(n, batch)
+        assert plan.smem <= 232_448
+        assert plan.grid * plan.per_block >= batch
+        assert (plan.grid - 1) * plan.per_block < batch
+        assert plan.threads % 32 == 0
+        if n <= 32:
+            assert plan.path == "warp" and plan.per_block == plan.threads // 32
+            assert plan.smem >= plan.per_block * 32 * 33 * 4
+        else:
+            np_ = -(-n // 8) * 8
+            assert plan.path == "blocked" and plan.panel == 8
+            assert plan.per_block == 1 and plan.threads == 512
+            assert plan.smem >= 4 * 2 * np_ * np_
+
+
+def test_kernel_build_flags(tmp_path, monkeypatch):
+    """Only the mid kernel's library is built with FMA contraction, and a
+    library built with other flags than its current ones is rebuilt."""
+    from hlax_torch.ops import cuda_build
+
+    assert "--fmad=false" not in cuda_build.nvcc_flags("chol_inv_mid")
+    for name in ("chol_inv_small", "chol_inv_bwd"):
+        assert "--fmad=false" in cuda_build.nvcc_flags(name)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    for name in ("chol_inv_small", "chol_inv_mid"):
+        assert cuda_build._stale(name)           # never built
+        (tmp_path / f"lib{name}.so").write_bytes(b"")
+        assert cuda_build._stale(name)           # built, no flags stamp
+        (tmp_path / f"lib{name}.flags").write_text(
+            " ".join(cuda_build.nvcc_flags("chol_inv_small"
+                                           if name == "chol_inv_mid"
+                                           else "chol_inv_mid")))
+        assert cuda_build._stale(name)           # built with other flags
+        (tmp_path / f"lib{name}.flags").write_text(
+            " ".join(cuda_build.nvcc_flags(name)))
+        assert not cuda_build._stale(name)       # newer than its sources
