@@ -7,16 +7,18 @@ test battery, then imputes with the trained model.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel.
-  2. kernels each kernel against its plain version at the main path's
-             shapes: the small kernel bit for bit on random SPD and
-             float32-indefinite inputs; the mid kernel against float64 at
-             five shapes on SPD, ill-conditioned (M = 120) and indefinite
-             inputs, its n <= 32 path also bit for bit; the backward kernel
-             on random, L_bar = 0 and L^-1_bar = 0 cotangents, against
-             float64.  Device times (CUDA events, the launches queued
+  2. kernels each kernel against its plain version, with the launch plan
+             each shape took: the small kernel bit for bit at eleven shapes
+             (both compiled sizes, padded and odd n, n up to 48) on random
+             SPD and float32-indefinite inputs; the mid kernel against
+             float64 at five shapes on SPD, ill-conditioned (M = 120) and
+             indefinite inputs, its n <= 32 path also bit for bit; the
+             backward kernel at eight shapes on random, L_bar = 0 and
+             L^-1_bar = 0 cotangents, against float64.  Device times (CUDA events, the launches queued
              ahead) of kernel, plain version, the library call where one
              exists (torch.linalg.cholesky + solve_triangular), the bound,
-             and the kernel's wall time a call on the host.
+             the kernel's wall time a call on the host, and for the small
+             and backward kernels the time of one matrix alone.
   3. reference  four toy-width train steps on the card against the same
              steps on the CPU (plain versions), same weights and noise; the
              toy M = 30 takes the mid kernel's n <= 32 path.
@@ -31,8 +33,8 @@ Phases (each prints its own lines; any failure exits non-zero):
   6. eval    imputation-eval samples/s (bench.py's protocol: forward with
              the q(z) mean over the training set in 500-row chunks).
   7. profile steps/s of the canonical step, and device time by kernel.
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
+The line before the card's line is the kernel table as JSON; the last
+line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
 """
 
 from __future__ import annotations
@@ -60,10 +62,18 @@ PEAK_F32_FLOPS = 67e12
 # H100 SXM boost clock: sizes the spin kernel that time_ms queues first
 SPIN_CYCLES_PER_S = 1.98e9
 
-# small kernel vs plain version: built with --fmad=false, it does the same
-# float32 operations in the same order as the plain version, so they should
-# agree exactly; the bound allows for a compiler reordering.
-REL_TOL = 1e-5
+# the small kernel's shapes (tests/test_torch_cuda.py): the training B
+# blocks first (the kernel table's row), both compiled sizes of the register
+# path and sizes padded to them, an odd n (scalar copies), the shared-memory
+# path (n > 32), and batches that are not a multiple of the warps a block
+SMALL_SHAPES = [((32, 20), 20), ((1001,), 20), ((64,), 4), ((64,), 8),
+                ((64,), 16), ((1001,), 18), ((33,), 19), ((64,), 24),
+                ((1001,), 32), ((64,), 40), ((1001,), 48)]
+# the backward kernel's shapes: the training B blocks first (the table's
+# row), then T = 16, where hlax launches its own, and the rest of its range;
+# the first two are timed
+BWD_SHAPES = [((32, 20), 20), ((32, 20), 16), ((3,), 48), ((65,), 8),
+              ((1001,), 20), ((17,), 32), ((9,), 40), ((33,), 19)]
 # the mid and backward kernels sum in another order than their plain
 # versions, so both are held against float64 on the same float32 inputs:
 # a kernel's error may be at most ERR_FACTOR times the plain version's plus
@@ -152,9 +162,33 @@ def phase_build() -> None:
     print(f"[build] nvcc sm_90a, 3 libraries in {time.time() - t0:.1f} s",
           flush=True)
     for name, log in logs.items():
+        kernel, spill = "?", ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel = _kernel_name(m.group(1))
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                print(f"[build] {name} {kernel}: "
+                      f"{regs.group(1) if regs else line.strip()} "
+                      f"registers; {spill}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel name with integer template
+    arguments, e.g. _Z19chol_inv_bwd_kernelILi20EEv... ->
+    chol_inv_bwd_kernel<20>."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    end = m.end() + int(m.group(1))
+    name, rest = mangled[m.end():end], mangled[end:]
+    if rest.startswith("I"):
+        args = re.findall(r"Li(\d+)E", rest.split("EE")[0] + "E")
+        name += f"<{','.join(args)}>"
+    return name
 
 
 def _bound_ms(batch: int, n: int):
@@ -178,65 +212,78 @@ def phase_kernels():
             phase_bwd_kernel(gen)]
 
 
+def _tag(name, batch, n):
+    return f"{name} [{','.join(map(str, batch + (n, n)))}]"
+
+
 def phase_small_kernel(gen):
-    """The small kernel at the training B blocks' shape, bit for bit against
-    its plain version on SPD and float32-indefinite inputs; returns its
-    table row."""
+    """The small kernel at SMALL_SHAPES, bit for bit against its plain
+    version on SPD and float32-indefinite inputs, with exact zeros above the
+    diagonal and residuals of a (nearby) factorization; timed at the
+    training B blocks' shape.  Returns its table row."""
     from hlax_torch.ops import linalg_small as ls
 
-    batch, n = (32, 20), 20
-    tag = "chol_inv_small_cuda [32,20,20,20]"
-    worst = 0.0
-    for kind in ("spd", "indefinite"):
-        if kind == "spd":
-            a = random_spd(batch, n, gen)
-            a64 = a.double()
-        else:
-            a, a64 = indefinite_spd(batch, n, gen)
-        l, il = ls.chol_inv_small_cuda(a)
-        torch.cuda.synchronize()
-        lp, ilp = ls._chol_inv_plain(a)
-        for got, want, what in ((l, lp, "L"), (il, ilp, "L^-1")):
-            if not torch.isfinite(got).all():
-                fail(f"{tag} {kind}: non-finite {what}")
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            worst = max(worst, err)
-            if err > REL_TOL * scale:
-                fail(f"{tag} {kind}: {what} differs from the plain "
-                     f"version by {err:.3e} (scale {scale:.3e})")
-        if torch.triu(l, 1).abs().max().item() != 0.0:
-            fail(f"{tag} {kind}: L has entries above the diagonal")
-        l64, il64 = l.double(), il.double()
-        eye = torch.eye(n, device="cuda", dtype=torch.float64)
-        rec = ((l64 @ l64.mT - a64).norm(dim=(-2, -1))
-               / a64.norm(dim=(-2, -1))).max().item()
-        inv = (il64 @ l64 - eye).abs().max().item()
-        print(f"[kernels] {tag} {kind}: max|kernel-plain| L "
-              f"{(l - lp).abs().max().item():.3e} L^-1 "
-              f"{(il - ilp).abs().max().item():.3e}; "
-              f"|LL^T-A|/|A| {rec:.3e}; |L^-1 L - I| {inv:.3e}", flush=True)
-        # residual bounds: float32 rounding for the SPD inputs; for the
-        # indefinite one, the guard's modification (pivots below 1e-6 max
-        # diag A are floored), so |LL^T-A| stays ~1e-6
-        if kind == "spd" and (rec > 1e-5 or inv > 1e-3):
-            fail(f"{tag}: residuals too large")
-        if kind == "indefinite" and rec > 1e-4:
-            fail(f"{tag} indefinite: |LL^T-A|/|A| = {rec:.3e}")
+    diff = 0.0   # the largest |kernel - plain version| over every check
+    for batch, n in SMALL_SHAPES:
+        tag = _tag("chol_inv_small_cuda", batch, n)
+        plan = ls.small_launch_plan(n, int(np.prod(batch)), ls._sms(0))
+        worst = []
+        for kind in ("spd", "indefinite"):
+            if kind == "spd":
+                a = random_spd(batch, n, gen)
+                a64 = a.double()
+            else:
+                a, a64 = indefinite_spd(batch, n, gen)
+            l, il = ls.chol_inv_small_cuda(a)
+            torch.cuda.synchronize()
+            lp, ilp = ls._chol_inv_plain(a)
+            if not (torch.isfinite(l).all() and torch.isfinite(il).all()):
+                fail(f"{tag} {kind}: non-finite L or L^-1")
+            dl = (l - lp).abs().max().item()
+            dil = (il - ilp).abs().max().item()
+            diff = max(diff, dl, dil)
+            if not (torch.equal(l, lp) and torch.equal(il, ilp)):
+                fail(f"{tag} {kind}: differs from the plain version by "
+                     f"{dl:.3e} (L), {dil:.3e} (L^-1)")
+            if torch.triu(l, 1).any() or torch.triu(il, 1).any():
+                fail(f"{tag} {kind}: entries above the diagonal")
+            l64, il64 = l.double(), il.double()
+            eye = torch.eye(n, device="cuda", dtype=torch.float64)
+            rec = ((l64 @ l64.mT - a64).norm(dim=(-2, -1))
+                   / a64.norm(dim=(-2, -1))).max().item()
+            inv = (il64 @ l64 - eye).abs().max().item()
+            worst.append(f"{kind} |LL^T-A|/|A| {rec:.3e} |L^-1 L - I| "
+                         f"{inv:.3e}")
+            # residual bounds: float32 rounding for the SPD inputs; for the
+            # indefinite one, the guard's modification (pivots below 1e-6
+            # max diag A are floored), so |LL^T-A| stays ~1e-6
+            if kind == "spd" and (rec > 1e-5 or inv > 1e-3):
+                fail(f"{tag}: residuals too large: {worst[-1]}")
+            if kind == "indefinite" and rec > 1e-4:
+                fail(f"{tag} indefinite: |LL^T-A|/|A| = {rec:.3e}")
+        print(f"[kernels] {tag}: {plan.path} path, np {plan.np}, "
+              f"{plan.per_block} warps a block x {plan.grid} blocks; equal "
+              f"to the plain version bit for bit; {'; '.join(worst)}",
+              flush=True)
+    batch, n = SMALL_SHAPES[0]
+    tag = _tag("chol_inv_small_cuda", batch, n)
     a = random_spd(batch, n, gen)
     before = dict(ls.LAUNCHES)
     ms, wall = time_ms(lambda: ls.chol_inv_small_cuda(a))
     plain_ms, _ = time_ms(lambda: ls._chol_inv_plain(a), reps=10)
     lib_ms, _ = time_ms(lambda: _library(a))
+    one = a[0, :1].contiguous()
+    one_ms, _ = time_ms(lambda: ls.chol_inv_small_cuda(one))
     ls.LAUNCHES.update(before)
     bound, by = _bound_ms(a.numel() // (n * n), n)
     print(f"[kernels] {tag}: kernel {ms:.4f} ms ({wall:.4f} ms a call on the "
-          f"host clock), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-          f"bound {bound:.5f} ms ({by})", flush=True)
+          f"host clock; one matrix alone {one_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound:.5f} ms "
+          f"({by})", flush=True)
     return dict(name="chol_inv_small_cuda", shape=list(batch + (n, n)),
                 route="cuda", source="hlax_torch/csrc/chol_inv_small.cu",
                 replaces="hlax/ops/linalg_small.py:112", launches=0,
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                max_abs_err=diff, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms)
 
 
@@ -271,7 +318,7 @@ def phase_mid_kernel(gen):
 
     rows = []
     for batch, n in MID_SHAPES:
-        tag = f"chol_inv_mid_cuda [{','.join(map(str, batch + (n, n)))}]"
+        tag = _tag("chol_inv_mid_cuda", batch, n)
         kinds = ("spd", "ill", "indefinite") if n == 120 else \
             ("spd", "indefinite")
         worst = 0.0
@@ -365,14 +412,16 @@ def _bwd_bound_ms(batch: int, n: int):
 
 
 def phase_bwd_kernel(gen):
-    """The backward kernel at the training B blocks' shape and at T=16 (in
-    the range where hlax launches its own), on (L, L^-1) from the small
-    kernel and three kinds of cotangents; returns its table row."""
+    """The backward kernel at BWD_SHAPES, on (L, L^-1) from the small kernel
+    and three kinds of cotangents, against float64; timed at the first two
+    shapes.  Returns its table row."""
     from hlax_torch.ops import linalg_small as ls
 
-    worst = 0.0
-    for batch, n in (((32, 20), 20), ((32, 20), 16)):
-        tag = f"chol_inv_bwd_cuda [{','.join(map(str, batch + (n, n)))}]"
+    worst, row = 0.0, None
+    for s, (batch, n) in enumerate(BWD_SHAPES):
+        tag = _tag("chol_inv_bwd_cuda", batch, n)
+        b = int(np.prod(batch))
+        plan = ls.bwd_launch_plan(n, b, ls._sms(0))
         l, il = ls.chol_inv_small_cuda(random_spd(batch, n, gen))
         for kind in ("random", "L^-1_bar = 0", "L_bar = 0"):
             lb = torch.randn(l.shape, generator=gen, device="cuda")
@@ -397,21 +446,28 @@ def phase_bwd_kernel(gen):
                   flush=True)
             if err > ERR_FACTOR * err_plain + ERR_ABS * scale:
                 fail(f"{tag} {kind}: kernel error {err:.3e} exceeds "
-                     f"{ERR_FACTOR} x plain {err_plain:.3e} + "
-                     f"{ERR_ABS} x {scale:.3e}")
-            if torch.triu(got, 1).abs().max().item() != 0.0:
+                     f"{ERR_FACTOR} x plain {err_plain:.3e} + {ERR_ABS} x "
+                     f"{scale:.3e}")
+            if torch.triu(got, 1).any():
                 fail(f"{tag} {kind}: A_bar has entries above the diagonal")
+        print(f"[kernels] {tag}: np {plan.np}, {plan.per_block} warps a "
+              f"block x {plan.grid} blocks", flush=True)
+        if s >= 2:
+            continue
         lb = torch.randn(l.shape, generator=gen, device="cuda")
         ilb = torch.randn(l.shape, generator=gen, device="cuda")
         before = dict(ls.LAUNCHES)
         ms, wall = time_ms(lambda: ls.chol_inv_bwd_cuda(l, il, lb, ilb))
         plain_ms, _ = time_ms(lambda: ls._chol_inv_bwd_plain(l, il, lb, ilb))
+        one = [t.reshape(-1, n, n)[:1].contiguous() for t in (l, il, lb, ilb)]
+        one_ms, _ = time_ms(lambda: ls.chol_inv_bwd_cuda(*one))
         ls.LAUNCHES.update(before)
-        bound, by = _bwd_bound_ms(l.numel() // (n * n), n)
+        bound, by = _bwd_bound_ms(b, n)
         print(f"[kernels] {tag}: kernel {ms:.4f} ms ({wall:.4f} ms a call on "
-              f"the host clock), plain {plain_ms:.4f} ms, library none, bound"
-              f" {bound:.5f} ms ({by})", flush=True)
-        if n == 20:   # the table row: the training shape
+              f"the host clock; one matrix alone {one_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library none, bound {bound:.5f} ms ({by})",
+              flush=True)
+        if s == 0:   # the table row: the training shape
             row = dict(name="chol_inv_bwd_cuda", shape=list(batch + (n, n)),
                        route="cuda", source="hlax_torch/csrc/chol_inv_bwd.cu",
                        replaces="hlax/ops/linalg_small.py:328", launches=0,

@@ -4,10 +4,12 @@
 // Replaces the Pallas TPU kernel `_bwd_kernel` (hlax/ops/linalg_small.py:
 // 328-364, launched by `_chol_bwd_tpu` through `_pallas_bwd_batched`).  From
 // the saved factors L, L^{-1} and the cotangents Lb, iLb of both outputs it
-// computes
-//   Lb2  = Lb + tril(-L^{-T} iLb L^{-T})     (fold d(L^{-1}) into dL)
-//   P    = Phi(L^T Lb2)
-//   X    = L^{-T} P L^{-1}
+// computes, in five products,
+//   S    = L^{-T} iLb                      (1)
+//   Lb2  = Lb - tril(S L^{-T})             (2)  fold d(L^{-1}) into dL
+//   P    = Phi(L^T Lb2)                    (3)
+//   Y    = P L^{-1}                        (4)
+//   X    = L^{-T} Y                        (5)
 //   Abar = Phi(X + X^T)
 // where Phi keeps the lower triangle and halves the diagonal.  Abar follows
 // `_bwd_reference`'s lower convention: exact zeros above the diagonal.  hlax
@@ -17,123 +19,309 @@
 // launch a train step.
 //
 // What bounds it on an H100: 4 inputs and 1 output of 640 x 1.6 KB (5.1 MB,
-// about 1.5 us at 3.35 TB/s) against five n x n products, ~10 n^3 flops a
-// matrix (51 MFLOP for the batch at n = 20, 0.76 us at 67 TFLOP/s float32):
-// the bound is memory, and in practice latency, as for the forward kernel.  The design follows the
-// forward kernel: one warp a matrix, with L, L^{-1}, Lb, iLb and one scratch
-// tile in shared memory (5 x 1.6 KB at n = 20); each product is a lane-
-// strided loop over output elements whose inner sum runs only where the
-// triangular factors are nonzero; __syncwarp separates the products.  The
-// TPU kernel's batch-on-lanes layout and its unrolled rank-1 sums are gone.
-// A simple first version: no tensor cores, no asynchronous copies.
+// 1.53 us at 3.35 TB/s) against five n x n products, ~10 n^3 flops a matrix
+// (0.76 us at 67 TFLOP/s float32 for the batch at n = 20): the bound is
+// memory, and in practice the latency of five dependent products a matrix.
+// The launch plan is `bwd_launch_plan` in hlax_torch/ops/linalg_small.py,
+// checked here.  The design:
+//   * One warp a matrix, the matrix zero-padded to a compile-time NP in
+//     {20, 32, 48} (exactly 20 for the canonical T = 20).  All four inputs
+//     go to shared memory by cp.async (16-byte copies where n is a multiple
+//     of 4 and the pointers are aligned, 4-byte otherwise), every copy in
+//     flight before the one wait.
+//   * Each lane owns fixed 4 x 4 subtiles of the NP x NP result, worked out
+//     once a product from its index with no division by a runtime value:
+//     at NP = 20, 25 subtiles, one a lane.  Each product is an
+//     outer-product loop over k into 16 independent fused multiply-adds,
+//     fed by one float4 read of each operand at row k.  An operand read by
+//     columns is stored transposed (L^{-T} once at the start; S and P by the
+//     epilogue of the product that makes them), so every read is a row
+//     read: lanes that share a row of subtiles read the same address, the
+//     rest neighbouring ones.
+//   * The zeros are skipped: the k-range of each subtile is cut, in chunks
+//     of 4, to where the triangular factors are nonzero, and the products
+//     whose result is lower-triangular (2, 3, 4) skip the subtiles above the
+//     diagonal.  Phi and the symmetrisation are the epilogues of products 3
+//     and 5; the final one is fused into the store of Abar.
+//   * Six NP x NP buffers a matrix (9.6 KB at n = 20), one __syncwarp
+//     between products.  Two warps a matrix (2 x 4 subtiles a lane, a named
+//     barrier between products) measured slower on the H100 (PERF.md):
+//     they halve each lane's multiply-adds but not its chain of k-steps.
+// No tensor cores: TF32 keeps ~3 digits and fails the float64 check, and
+// the five products are ~1,250 fused multiply-adds a lane at n = 20, which
+// the FP32 pipes do in well under a microsecond; 3xTF32 mma.sync is not
+// needed at this size.  Built with FMA contraction
+// (hlax_torch/ops/cuda_build.py): it sums in another order than the plain
+// version (`_bwd_reference`, batched cuBLAS products) and is held to a
+// float64 reference (chip_smoke.py, tests/test_torch_cuda.py).
+#include <cstdint>
+
 #include "chol_inv_common.cuh"
 
-#define BWD_WARPS_PER_BLOCK 4
-#define BWD_TILES 5
+#define BWD_BUFS 6  // NP x NP buffers a matrix
 
-__global__ void chol_inv_bwd_kernel(const float* __restrict__ l,
-                                    const float* __restrict__ il,
-                                    const float* __restrict__ lb,
-                                    const float* __restrict__ ilb,
-                                    float* __restrict__ abar, int batch,
-                                    int n) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x * BWD_WARPS_PER_BLOCK + warp;
-  if (b >= batch) return;  // whole warps leave; no block barrier follows
-  const int nn = n * n;
-  float* L = smem + warp * BWD_TILES * nn;
-  float* iL = L + nn;
-  float* Lb = iL + nn;   // Lb, then Lb2 (step 2), then X (step 5)
-  float* iLb = Lb + nn;  // iLb, then P (step 3)
-  float* S = iLb + nn;   // iL^T iLb (step 1), then iL^T P (step 4)
-  const size_t off = (size_t)b * nn;
-  for (int e = lane; e < nn; e += 32) {
-    L[e] = l[off + e];
-    iL[e] = il[off + e];
-    Lb[e] = lb[off + e];
-    iLb[e] = ilb[off + e];
-  }
-  __syncwarp();
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(g));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-  // 1. S = L^{-T} iLb: S[i][j] = sum_{k >= i} iL[k][i] iLb[k][j]
-  for (int e = lane; e < nn; e += 32) {
-    const int i = e / n, j = e % n;
-    float s = 0.f;
-    for (int k = i; k < n; ++k) s += iL[k * n + i] * iLb[k * n + j];
-    S[e] = s;
-  }
-  __syncwarp();
+// the 4 floats at p (16-byte aligned)
+__device__ __forceinline__ void ld4(const float* p, float (&u)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  u[0] = v.x, u[1] = v.y, u[2] = v.z, u[3] = v.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&u)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(u[0], u[1], u[2], u[3]);
+}
 
-  // 2. Lb2 = Lb - tril(S L^{-T}): (S L^{-T})[i][j] = sum_{k <= j} S[i][k]
-  //    iL[j][k]; the upper triangle of Lb passes through
-  for (int e = lane; e < nn; e += 32) {
-    const int i = e / n, j = e % n;
-    if (j > i) continue;
-    float s = 0.f;
-    for (int k = 0; k <= j; ++k) s += S[i * n + k] * iL[j * n + k];
-    Lb[e] -= s;
-  }
-  __syncwarp();
-
-  // 3. P = Phi(L^T Lb2) into iLb: (L^T Lb2)[i][j] = sum_{k >= i} L[k][i]
-  //    Lb2[k][j], lower triangle only
-  for (int e = lane; e < nn; e += 32) {
-    const int i = e / n, j = e % n;
-    float s = 0.f;
-    if (j <= i) {
-      for (int k = i; k < n; ++k) s += L[k * n + i] * Lb[k * n + j];
-      if (i == j) s *= 0.5f;
+// acc[r][c] = sum_k U[k][i0 + r] V[k][j0 + c] over the k-chunks [lo, hi) of
+// 4; U and V are NP x NP, row-major.
+template <int NP>
+__device__ __forceinline__ void tile_product(const float* U, const float* V,
+                                             int i0, int j0, int lo, int hi,
+                                             float (&acc)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < NP / 4; ++kc) {
+    if (kc < lo || kc >= hi) continue;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 4 * kc + kk;
+      float u[4], v[4];
+      ld4(U + k * NP + i0, u);
+      ld4(V + k * NP + j0, v);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] += u[r] * v[c];
     }
-    iLb[e] = s;
-  }
-  __syncwarp();
-
-  // 4. S = L^{-T} P: S[i][j] = sum_{k >= max(i, j)} iL[k][i] P[k][j]
-  for (int e = lane; e < nn; e += 32) {
-    const int i = e / n, j = e % n;
-    float s = 0.f;
-    for (int k = i > j ? i : j; k < n; ++k) s += iL[k * n + i] * iLb[k * n + j];
-    S[e] = s;
-  }
-  __syncwarp();
-
-  // 5. X = S L^{-1} into Lb: X[i][j] = sum_{k >= j} S[i][k] iL[k][j]
-  for (int e = lane; e < nn; e += 32) {
-    const int i = e / n, j = e % n;
-    float s = 0.f;
-    for (int k = j; k < n; ++k) s += S[i * n + k] * iL[k * n + j];
-    Lb[e] = s;
-  }
-  __syncwarp();
-
-  // 6. Abar = Phi(X + X^T): both halves below, X[i][i] on the diagonal
-  //    (0.5 * (x + x) is exact), zeros above
-  for (int e = lane; e < nn; e += 32) {
-    const int i = e / n, j = e % n;
-    float v = 0.f;
-    if (i > j) v = Lb[e] + Lb[j * n + i];
-    else if (i == j) v = Lb[e];
-    abar[off + e] = v;
   }
 }
 
-// Plain C entry for ctypes.  Returns cudaGetLastError() after the launch.
+// acc transposed into D at rows [j0, j0 + 4), columns [i0, i0 + 4)
+template <int NP>
+__device__ __forceinline__ void store_transposed(float* D, int i0, int j0,
+                                                 const float (&acc)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float u[4] = {acc[0][c], acc[1][c], acc[2][c], acc[3][c]};
+    st4(D + (j0 + c) * NP + i0, u);
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(128)
+chol_inv_bwd_kernel(const float* __restrict__ l, const float* __restrict__ il,
+                    const float* __restrict__ lb,
+                    const float* __restrict__ ilb, float* __restrict__ abar,
+                    int batch, int n, int vec) {
+  constexpr int NTC = NP / 4;     // subtiles along a row; also k-chunks
+  constexpr int NTILES = NTC * NTC;
+  constexpr int NN = NP * NP;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;  // whole warps leave; no block barrier follows
+  float* const B0 = smem + warp * BWD_BUFS * NN;  // L, then X
+  float* const B1 = B0 + NN;                      // L^{-1}
+  float* const B2 = B1 + NN;                      // L^{-T}
+  float* const B3 = B2 + NN;                      // Lb, then Lb2
+  float* const B4 = B3 + NN;                      // iLb, then P^T
+  float* const B5 = B4 + NN;                      // S^T, then Y
+  const int nn = n * n;
+  const size_t off = (size_t)b * nn;
+
+  // the four inputs in, zero-padded to NP: every copy in flight, one wait
+  if (vec) {  // n % 4 == 0: a 16-byte copy stays inside a row
+    const int qr = n / 4;
+    const float rq = 1.f / qr;
+    for (int q = lane; q < nn / 4; q += 32) {
+      const int i = (int)((q + 0.5f) * rq), c = 4 * (q - i * qr);
+      const size_t g = off + 4 * (size_t)q;
+      cp_async16(B0 + i * NP + c, l + g);
+      cp_async16(B1 + i * NP + c, il + g);
+      cp_async16(B3 + i * NP + c, lb + g);
+      cp_async16(B4 + i * NP + c, ilb + g);
+    }
+  } else {
+    const float rn = 1.f / n;
+    for (int e = lane; e < nn; e += 32) {
+      const int i = (int)((e + 0.5f) * rn), c = e - i * n;
+      cp_async4(B0 + i * NP + c, l + off + e);
+      cp_async4(B1 + i * NP + c, il + off + e);
+      cp_async4(B3 + i * NP + c, lb + off + e);
+      cp_async4(B4 + i * NP + c, ilb + off + e);
+    }
+  }
+  if (n < NP)
+    for (int e = lane; e < NN; e += 32) {
+      const int i = e / NP, c = e % NP;
+      if (i >= n || c >= n) B0[e] = B1[e] = B3[e] = B4[e] = 0.f;
+    }
+  cp_async_wait_all();
+  __syncwarp();
+
+  float acc[4][4];
+  // (1) S = L^{-T} iLb, k >= i, stored transposed; L^{-1} transposed beside
+#pragma unroll 1
+  for (int t = lane; t < NTILES; t += 32) {
+    const int i0 = 4 * (t / NTC), j0 = 4 * (t % NTC);
+    tile_product<NP>(B1, B4, i0, j0, i0 / 4, NTC, acc);
+    store_transposed<NP>(B5, i0, j0, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) ld4(B1 + (i0 + r) * NP + j0, acc[r]);
+    store_transposed<NP>(B2, i0, j0, acc);
+  }
+  __syncwarp();
+
+  // (2) Lb2 = Lb - tril(S L^{-T}): (S L^{-T})[i][j] = sum_{k <= j} S[i][k]
+  //     L^{-1}[j][k]; lower subtiles, in place on this lane's own entries
+#pragma unroll 1
+  for (int t = lane; t < NTILES; t += 32) {
+    const int i0 = 4 * (t / NTC), j0 = 4 * (t % NTC);
+    if (i0 < j0) continue;
+    tile_product<NP>(B5, B2, i0, j0, 0, j0 / 4 + 1, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float v[4];
+      ld4(B3 + (i0 + r) * NP + j0, v);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (j0 + c <= i0 + r) v[c] -= acc[r][c];
+      st4(B3 + (i0 + r) * NP + j0, v);
+    }
+  }
+  __syncwarp();
+
+  // (3) P = Phi(L^T Lb2), k >= i, stored transposed (zeros above the
+  //     diagonal of P, below that of P^T)
+#pragma unroll 1
+  for (int t = lane; t < NTILES; t += 32) {
+    const int i0 = 4 * (t / NTC), j0 = 4 * (t % NTC);
+    if (i0 < j0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    } else {
+      tile_product<NP>(B0, B3, i0, j0, i0 / 4, NTC, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = i0 + r, j = j0 + c;
+          acc[r][c] = i > j ? acc[r][c] : (i == j ? 0.5f * acc[r][c] : 0.f);
+        }
+    }
+    store_transposed<NP>(B4, i0, j0, acc);
+  }
+  __syncwarp();
+
+  // (4) Y = P L^{-1}: j <= k <= i; lower subtiles (exact zeros above)
+#pragma unroll 1
+  for (int t = lane; t < NTILES; t += 32) {
+    const int i0 = 4 * (t / NTC), j0 = 4 * (t % NTC);
+    if (i0 < j0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    } else {
+      tile_product<NP>(B4, B1, i0, j0, j0 / 4, i0 / 4 + 1, acc);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) st4(B5 + (i0 + r) * NP + j0, acc[r]);
+  }
+  __syncwarp();
+
+  // (5) X = L^{-T} Y: k >= max(i, j)
+#pragma unroll 1
+  for (int t = lane; t < NTILES; t += 32) {
+    const int i0 = 4 * (t / NTC), j0 = 4 * (t % NTC);
+    tile_product<NP>(B1, B5, i0, j0, (i0 > j0 ? i0 : j0) / 4, NTC, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) st4(B0 + (i0 + r) * NP + j0, acc[r]);
+  }
+  __syncwarp();
+
+  // Abar = Phi(X + X^T) out: X[i][j] + X[j][i] below the diagonal, X[i][i]
+  // on it (0.5 (x + x) is exact), zeros above
+  if (vec) {
+    const int qr = n / 4;
+    const float rq = 1.f / qr;
+    float4* dst = reinterpret_cast<float4*>(abar + off);
+    for (int q = lane; q < nn / 4; q += 32) {
+      const int i = (int)((q + 0.5f) * rq), c = 4 * (q - i * qr);
+      float u[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = c + k;
+        u[k] = i > j ? B0[i * NP + j] + B0[j * NP + i]
+                     : (i == j ? B0[i * NP + i] : 0.f);
+      }
+      dst[q] = make_float4(u[0], u[1], u[2], u[3]);
+    }
+  } else {
+    const float rn = 1.f / n;
+    for (int e = lane; e < nn; e += 32) {
+      const int i = (int)((e + 0.5f) * rn), j = e - i * n;
+      abar[off + e] = i > j ? B0[i * NP + j] + B0[j * NP + i]
+                            : (i == j ? B0[i * NP + i] : 0.f);
+    }
+  }
+}
+
+template <int NP>
+static cudaError_t launch(const float* l, const float* il, const float* lb,
+                          const float* ilb, float* abar, int batch, int n,
+                          int vec, int grid, int threads, int smem,
+                          cudaStream_t s) {
+  if ((threads / 32) * BWD_BUFS * NP * NP * (int)sizeof(float) > smem)
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // above the default limit only (NP = 48)
+    const cudaError_t err = cudaFuncSetAttribute(
+        chol_inv_bwd_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
+  chol_inv_bwd_kernel<NP><<<grid, threads, smem, s>>>(l, il, lb, ilb, abar,
+                                                      batch, n, vec);
+  return cudaGetLastError();
+}
+
+// Plain C entry for ctypes: launches the plan that `bwd_launch_plan` made
+// (padded size np, one warp a matrix).  Returns cudaErrorInvalidValue for a
+// plan the kernel does not take, else cudaGetLastError() after the launch.
 extern "C" int chol_inv_bwd_launch(const float* l, const float* il,
                                    const float* lb, const float* ilb,
-                                   float* abar, int batch, int n,
+                                   float* abar, int batch, int n, int np,
+                                   int grid, int threads, int smem,
                                    void* stream) {
-  const int smem =
-      BWD_WARPS_PER_BLOCK * BWD_TILES * n * n * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        chol_inv_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
+  if (n < 1 || n > np || threads % 32 || threads < 32 || threads > 128 ||
+      (long long)grid * (threads / 32) < batch)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t ptrs = (uintptr_t)l | (uintptr_t)il | (uintptr_t)lb |
+                         (uintptr_t)ilb | (uintptr_t)abar;
+  const int vec = n % 4 == 0 && (ptrs & 15) == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (np) {
+    case 20: return (int)launch<20>(l, il, lb, ilb, abar, batch, n, vec, grid,
+                                    threads, smem, s);
+    case 32: return (int)launch<32>(l, il, lb, ilb, abar, batch, n, vec, grid,
+                                    threads, smem, s);
+    case 48: return (int)launch<48>(l, il, lb, ilb, abar, batch, n, vec, grid,
+                                    threads, smem, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const int grid = (batch + BWD_WARPS_PER_BLOCK - 1) / BWD_WARPS_PER_BLOCK;
-  chol_inv_bwd_kernel<<<grid, BWD_WARPS_PER_BLOCK * 32, smem,
-                        (cudaStream_t)stream>>>(l, il, lb, ilb, abar, batch,
-                                                n);
-  return (int)cudaGetLastError();
 }

@@ -21,16 +21,15 @@
 // Python, `mid_launch_plan` in hlax_torch/ops/linalg_small.py, and checked
 // here.  Two paths:
 //
-// * n <= 32 (the eval buckets): one warp a matrix, four a block.  Lane i
-//   holds row i of A and of L^{-1} in registers (identity-padded to 32),
-//   every loop is unrolled, column j is broadcast with __shfl_sync; shared
-//   memory only stages the coalesced loads and stores, and no block barrier
-//   is taken.  It is the plain version's column loop, with its roundings
-//   spelled out (__fmul_rn and __fsub_rn are never fused, the pivot is an
-//   IEEE sqrt and division), so it agrees with the plain version bit for
-//   bit: on an ill-conditioned K0zz the GP bound's loss moves visibly with
-//   one rounding's change in the factorization, and the card's toy train
-//   steps (M = 30) are held to the CPU's (chip_smoke.py).
+// * n <= 32 (the eval buckets): one warp a matrix, four a block, the body
+//   shared with the small kernel (chol_inv_warp_rows<32>,
+//   chol_inv_common.cuh): lane i holds row i of A and of L^{-1} in
+//   registers (identity-padded to 32), column j is broadcast with
+//   __shfl_sync; shared memory only stages the coalesced loads and stores,
+//   and no block barrier is taken.  It agrees with the plain version bit
+//   for bit: on an ill-conditioned K0zz the GP bound's loss moves visibly
+//   with one rounding's change in the factorization, and the card's toy
+//   train steps (M = 30) are held to the CPU's (chip_smoke.py).
 // * 32 < n <= 128: one block of 512 threads a matrix, A and L^{-1} resident
 //   in dynamic shared memory (identity-padded to np = ceil8(n); 2 x 57.6 KB
 //   at n = 120, 131 KB at n = 128), with the panel's L21 transposed beside
@@ -61,8 +60,6 @@
 // (chip_smoke.py, tests/test_torch_cuda.py).
 #include "chol_inv_common.cuh"
 
-#define FULL_MASK 0xffffffffu
-
 // ---- n <= 32: one warp a matrix ------------------------------------------
 
 #define WARP_LD 33  // staging row stride: a lane's row read is conflict-free
@@ -83,51 +80,16 @@ chol_inv_mid_warp_kernel(const float* __restrict__ a, float* __restrict__ l,
                                                 : (i == lane ? 1.f : 0.f);
   __syncwarp();
   float r[32], x[32];  // row `lane` of A (then L) and of L^{-1}
-#pragma unroll
-  for (int c = 0; c < 32; ++c) {
-    r[c] = S[lane * WARP_LD + c];
-    x[c] = c == lane ? 1.f : 0.f;
-  }
-  float dmax = lane < n ? S[lane * WARP_LD + lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o; o >>= 1)
-    dmax = fmaxf(dmax, __shfl_xor_sync(FULL_MASK, dmax, o));
-  const float floor = HLAX_PIVOT_FLOOR_REL * fmaxf(dmax, 0.f);
-
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const float d = __shfl_sync(FULL_MASK, r[j], j);
-    const bool good = d >= floor;
-    const float dc = good ? d : floor;
-    const float inv = __fdiv_rn(1.f, __fsqrt_rn(dc));
-    const float lij = lane > j ? (good ? __fmul_rn(r[j], inv) : 0.f)
-                               : (lane == j ? __fmul_rn(dc, inv) : 0.f);
-    r[j] = lij;
-#pragma unroll
-    for (int k = j + 1; k < 32; ++k)
-      r[k] = __fsub_rn(r[k], __fmul_rn(lij, __shfl_sync(FULL_MASK, lij, k)));
-    // L^{-1}: row j scales by 1/sqrt(d), the rows below subtract L[i][j]
-    // times it (the elementary-factor update)
-    const float s = lane == j ? inv : 1.f;
-    const float below = lane > j ? lij : 0.f;
-#pragma unroll
-    for (int c = 0; c <= j; ++c) {
-      x[c] = __fmul_rn(x[c], s);
-      x[c] = __fsub_rn(x[c],
-                       __fmul_rn(below, __shfl_sync(FULL_MASK, x[c], j)));
-    }
-  }
+  chol_inv_warp_rows<32>(S, WARP_LD, n, lane, r, x);
 
   // rows out through the staging tile, coalesced; exact zeros above the
   // diagonal
-#pragma unroll
-  for (int c = 0; c < 32; ++c) S[lane * WARP_LD + c] = c <= lane ? r[c] : 0.f;
+  store_lower_row<32>(S, WARP_LD, lane, r);
   __syncwarp();
   for (int i = 0; i < n; ++i)
     if (lane < n) l[off + i * n + lane] = S[i * WARP_LD + lane];
   __syncwarp();
-#pragma unroll
-  for (int c = 0; c < 32; ++c) S[lane * WARP_LD + c] = c <= lane ? x[c] : 0.f;
+  store_lower_row<32>(S, WARP_LD, lane, x);
   __syncwarp();
   for (int i = 0; i < n; ++i)
     if (lane < n) il[off + i * n + lane] = S[i * WARP_LD + lane];

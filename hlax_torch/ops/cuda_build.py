@@ -24,14 +24,15 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Libraries built with contraction of a*b+c into one fused multiply-add.
-# The mid kernel sums in blocked order, unlike its plain version, and is
-# held to a float64 reference.  Every other library is built with
-# --fmad=false: the small kernel then does the same float32 operations as
-# its plain PyTorch version and the two agree to the last bit; the backward
-# kernel keeps the flag too.  Those kernels are bound by their sequential
-# column steps, not by arithmetic (PERF.md), so the unfused multiply-adds
-# cost them little.
-FMA_CONTRACTED = frozenset({"chol_inv_mid"})
+# The mid kernel's blocked path and the backward kernel sum in another order
+# than their plain versions (blocked panels; register subtiles) and are held
+# to a float64 reference; the backward's five products are chains of
+# multiply-adds, which fusing halves.  The small kernel's library is built
+# with --fmad=false: its shared-memory path (n > 32) then does the same
+# float32 operations as its plain PyTorch version and the two agree to the
+# last bit.  The one-warp body both forward libraries share spells its
+# roundings out (__fmul_rn, __fsub_rn), so it is bit-equal under either flag.
+FMA_CONTRACTED = frozenset({"chol_inv_mid", "chol_inv_bwd"})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -3,41 +3,49 @@
 Port of ``hlax/ops/linalg_small.py``.  The GP bounds need ``(L, L^{-1})``
 of many small SPD matrices per train step: the per-subject B blocks
 [L, S, T, T] with T ~ 20, and the inducing-point matrices [*, M, M] with
-M ~ 120.  Two hand-written CUDA kernels compute them:
+M ~ 120.  Three hand-written CUDA kernels compute them and the small
+factorization's backward, each on a launch plan worked out here and checked
+by its C entry:
 
-  * ``chol_inv_small_cuda`` (``csrc/chol_inv_small.cu``, n <= 48): one warp
-    per matrix; replaces the TPU kernel ``_kernel``.
+  * ``chol_inv_small_cuda`` (``csrc/chol_inv_small.cu``, n <= 48): replaces
+    the TPU kernel ``_kernel``.  For n <= 32 one warp a matrix with the
+    rows in registers, identity-padded to a compiled size (20 for the
+    canonical T = 20), the warps a block chosen to spread the batch evenly
+    over the SMs; above, one warp a matrix in shared memory
+    (``small_launch_plan``).
   * ``chol_inv_mid_cuda`` (``csrc/chol_inv_mid.cu``, 24 < n <= 128):
-    replaces the TPU kernel ``_mid_kernel``.  For n <= 32 one warp a matrix
-    with the rows in registers; above, one block a matrix, blocked in panels
-    of 8 columns (the plan is ``mid_launch_plan``).  As in hlax, one Newton
+    replaces the TPU kernel ``_mid_kernel``.  For n <= 32 the small
+    kernel's one-warp body at size 32; above, one block a matrix, blocked in
+    panels of 8 columns (``mid_launch_plan``).  As in hlax, one Newton
     step ``_refine_tri_inverse`` follows it.
+  * ``chol_inv_bwd_cuda`` (``csrc/chol_inv_bwd.cu``, n <= 48): the backward
+    of the small factorization, replaces the TPU kernel ``_bwd_kernel``.
+    One warp a matrix, zero-padded to a compiled size (20 for T = 20); each
+    of its five products is a loop of fused multiply-adds on register
+    subtiles of 4 x 4 a lane (``bwd_launch_plan``).
 
-  * ``chol_inv_bwd_cuda`` (``csrc/chol_inv_bwd.cu``, n <= 48): one warp
-    per matrix; the backward of the small factorization, replaces the TPU
-    kernel ``_bwd_kernel``.
-
-The two forward kernels keep hlax's degenerate-pivot guard: a pivot below 1e-6 * max(diag A)
-is floored and its column pinned to sqrt(floor) * e_j, so a matrix that
-float32 rounding makes indefinite still factorizes to a finite nearby one.
-Both read only the lower triangle of A.
+The two forward kernels keep hlax's degenerate-pivot guard: a pivot below
+1e-6 * max(diag A) is floored and its column pinned to sqrt(floor) * e_j, so
+a matrix that float32 rounding makes indefinite still factorizes to a
+finite nearby one.  Both read only the lower triangle of A.
 
 ``_chol_inv_plain`` is the plain PyTorch version of both forward kernels
 (the guarded column loop as tensor ops), ``_chol_inv_bwd_plain`` that of the
 backward kernel (``_bwd_reference``, the matmul-only Cholesky-plus-inverse
 pullback).  The small kernel and the mid kernel's one-warp path do the
 plain version's float32 operations in its order and agree with it bit for
-bit; the mid kernel's blocked path sums in blocked order with fused
-multiply-adds and is held to a float64 reference instead.  The autograd
-Functions use the plain versions for a CPU tensor only; for a CUDA tensor
-they launch the kernel or raise.  The mid
-factorization's backward is ``_bwd_reference`` on every device, as hlax's
-``_mid_bwd`` is plain matmuls outside any Pallas kernel.
+bit; the mid kernel's blocked path and the backward kernel sum in another
+order with fused multiply-adds and are held to a float64 reference instead.
+The autograd Functions use the plain versions for a CPU tensor only; for a
+CUDA tensor they launch the kernel or raise.  The mid factorization's
+backward is ``_bwd_reference`` on every device, as hlax's ``_mid_bwd`` is
+plain matmuls outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -48,10 +56,20 @@ PIVOT_FLOOR_REL = 1e-6
 MAX_SMALL_T = 48      # largest n the small (one-warp) kernel takes
 MAX_DIAG_BLOCK = 24   # chol_inv_blocked: n <= 24 -> small, else mid (hlax's)
 MAX_MID_M = 128
-MAX_MID_WARP_N = 32   # the mid kernel's one-warp-a-matrix path
+MAX_WARP_ROWS = 32    # one warp a matrix, a row a lane: the small kernel's
+                      # register path and the mid kernel's n <= 32 path
 MID_WARPS_PER_BLOCK = 4
 MID_BLOCK_THREADS = 512  # must match BLOCK_THREADS in csrc/chol_inv_mid.cu
 MID_PANEL = 8         # must match NB there
+# compiled sizes of the small kernel's register path (n <= 32) and of the
+# backward kernel: the canonical T = 20 and the largest n of each range,
+# every other n padded up; must match the instantiations in
+# csrc/chol_inv_small.cu and csrc/chol_inv_bwd.cu
+SMALL_SIZES = (20, 32)
+BWD_SIZES = (20, 32, 48)
+BWD_BUFS = 6          # NP x NP buffers a matrix, BWD_BUFS in chol_inv_bwd.cu
+H100_SMS = 132
+SMEM_PER_BLOCK = 232_448  # an H100 block's dynamic shared memory, bytes
 
 # Kernel launches and plain-version calls on CUDA tensors since the last
 # ``reset_counters``: a run reads them to show which path it took.
@@ -91,12 +109,73 @@ def mid_launch_plan(n: int, batch: int) -> MidPlan:
     matrix in a 33-float-stride tile; above, 512 threads a matrix with A and
     L^{-1} identity-padded to a multiple of the panel width in shared
     memory, plus the panel's L21 transposed and its diagonal block."""
-    if n <= MAX_MID_WARP_N:
+    if n <= MAX_WARP_ROWS:
         w = MID_WARPS_PER_BLOCK
         return MidPlan("warp", -(-batch // w), 32 * w, 0, w * 32 * 33 * 4, w)
     np_ = -(-n // MID_PANEL) * MID_PANEL
     return MidPlan("blocked", batch, MID_BLOCK_THREADS, MID_PANEL,
                    4 * (2 * np_ * np_ + MID_PANEL * (np_ + MID_PANEL)), 1)
+
+
+def _per_block(batch: int, sms: int, smem_per_matrix: int) -> int:
+    """Matrices a block, one warp each (1, 2 or 4, within a block's shared
+    memory), that spread ``batch`` most evenly over ``sms`` SMs: the fewest
+    warps on the busiest SM, then the fewest blocks."""
+    def busiest(m):
+        return m * -(-(-(-batch // m)) // sms)
+    fits = [m for m in (4, 2, 1) if m * smem_per_matrix <= SMEM_PER_BLOCK]
+    return min(fits, key=lambda m: (busiest(m), -m))
+
+
+class SmallPlan(NamedTuple):
+    """Launch of the small kernel for ``batch`` matrices of n x n."""
+    path: str      # "warp": rows in registers; "smem": in shared memory
+    np: int        # compiled size the matrix is padded to (n on "smem")
+    grid: int      # blocks
+    threads: int   # threads a block, one warp a matrix
+    smem: int      # dynamic shared memory a block, bytes
+    per_block: int  # matrices a block
+
+
+@functools.lru_cache(maxsize=256)
+def small_launch_plan(n: int, batch: int, sms: int = H100_SMS) -> SmallPlan:
+    """The plan ``chol_inv_small_launch`` (``csrc/chol_inv_small.cu``)
+    takes: for n <= 32 the smallest compiled size np >= n, each warp staging
+    its matrix in and out through two np x (np + 1) tiles; above, A and
+    L^{-1} in shared memory, n x n each.  The warps a block spread the batch
+    over the ``sms`` SMs (``_per_block``)."""
+    if n <= MAX_WARP_ROWS:
+        np_ = next(s for s in SMALL_SIZES if s >= n)
+        path, per_matrix = "warp", 4 * 2 * np_ * (np_ + 1)
+    else:
+        np_, path, per_matrix = n, "smem", 4 * 2 * n * n
+    w = _per_block(batch, sms, per_matrix)
+    return SmallPlan(path, np_, -(-batch // w), 32 * w, w * per_matrix, w)
+
+
+class BwdPlan(NamedTuple):
+    """Launch of the backward kernel for ``batch`` matrices of n x n."""
+    np: int        # compiled size the matrix is zero-padded to
+    grid: int      # blocks
+    threads: int   # threads a block, one warp a matrix
+    smem: int      # dynamic shared memory a block, bytes
+    per_block: int  # matrices a block
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_launch_plan(n: int, batch: int, sms: int = H100_SMS) -> BwdPlan:
+    """The plan ``chol_inv_bwd_launch`` (``csrc/chol_inv_bwd.cu``) takes:
+    the smallest compiled size np >= n, BWD_BUFS np x np buffers a matrix,
+    and the warps a block that spread the batch over the SMs."""
+    np_ = next(s for s in BWD_SIZES if s >= n)
+    per_matrix = 4 * BWD_BUFS * np_ * np_
+    m = _per_block(batch, sms, per_matrix)
+    return BwdPlan(np_, -(-batch // m), 32 * m, m * per_matrix, m)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _chol_inv_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,9 +251,14 @@ def _launch(name: str, entry: str, a: torch.Tensor, *plan: int):
 
 def chol_inv_small_cuda(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(L, L^{-1}) of contiguous float32 CUDA [..., n, n], n <= 48, by the
-    one-warp-per-matrix kernel."""
+    one-warp-per-matrix kernel on the plan of ``small_launch_plan``."""
     _check(a, 0, MAX_SMALL_T, "chol_inv_small_cuda")
-    return _launch("chol_inv_small", "chol_inv_small_launch", a)
+    n = a.shape[-1]
+    plan = small_launch_plan(n, max(a.numel() // (n * n), 1),
+                             _sms(a.device.index or 0))
+    return _launch("chol_inv_small", "chol_inv_small_launch", a,
+                   {"warp": 0, "smem": 1}[plan.path], plan.np, plan.grid,
+                   plan.threads, plan.smem)
 
 
 def chol_inv_mid_cuda(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -230,9 +314,10 @@ def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
                       il_bar: torch.Tensor) -> torch.Tensor:
     """A_bar of (L, L^{-1}) = chol_inv(A) from the saved factors and the
     cotangents of both outputs, float32 CUDA [..., n, n], n <= 48, by the
-    one-warp-per-matrix kernel; ``_bwd_reference``'s lower convention.  The
-    cotangents may be strided or expanded (autograd hands them over so);
-    they are made contiguous first."""
+    kernel on the plan of ``bwd_launch_plan``; ``_bwd_reference``'s lower
+    convention.  L and L^{-1} must be lower-triangular, as the forward
+    kernel leaves them.  The cotangents may be strided or expanded
+    (autograd hands them over so); they are made contiguous first."""
     l_bar, il_bar = l_bar.contiguous(), il_bar.contiguous()
     for t in (l, il, l_bar, il_bar):
         _check(t, 0, MAX_SMALL_T, "chol_inv_bwd_cuda")
@@ -244,13 +329,16 @@ def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
     batch = l.numel() // (n * n)
     if batch == 0:
         return a_bar
+    plan = bwd_launch_plan(n, batch, _sms(l.device.index or 0))
     lib = load_library("chol_inv_bwd")
     fn = lib.chol_inv_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(l.device).cuda_stream
     code = fn(l.data_ptr(), il.data_ptr(), l_bar.data_ptr(), il_bar.data_ptr(),
-              a_bar.data_ptr(), batch, n, stream)
+              a_bar.data_ptr(), batch, n, plan.np, plan.grid, plan.threads,
+              plan.smem, stream)
     check_launch(lib, "chol_inv_bwd_launch", code)
     _count_launch("chol_inv_bwd_cuda", l.shape)
     return a_bar

@@ -38,12 +38,21 @@ def _indefinite(shape, gen):
     return a.float().expand(shape).contiguous()
 
 
+# the canonical B blocks, both compiled sizes of the register path and sizes
+# padded to them, an odd n (scalar copies), the shared-memory path (n > 32),
+# and batches that are not a multiple of the warps a block
+SMALL_SHAPES = [(32, 20, 20, 20), (1001, 20, 20), (64, 4, 4), (64, 8, 8),
+                (64, 16, 16), (1001, 18, 18), (33, 19, 19), (64, 24, 24),
+                (1001, 32, 32), (64, 40, 40), (1001, 48, 48)]
+
+
 @pytest.mark.parametrize("kind", ["spd", "indefinite"])
-@pytest.mark.parametrize("shape", [(32, 20, 20, 20)])
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
 def test_kernel_equals_plain_version(gen, shape, kind):
-    """Built with --fmad=false, the small kernel does its plain version's
-    float32 operations in the same order: the results are equal, bit for
-    bit."""
+    """The small kernel does its plain version's float32 operations in the
+    same order (the register path with its roundings spelled out, the
+    shared-memory path built with --fmad=false): the results are equal, bit
+    for bit, with exact zeros above the diagonal."""
     a = (_spd if kind == "spd" else _indefinite)(shape, gen)
     before = tls.LAUNCHES["chol_inv_small_cuda"]
     l, il = tls.chol_inv_small_cuda(a)
@@ -53,7 +62,30 @@ def test_kernel_equals_plain_version(gen, shape, kind):
     torch.testing.assert_close(l, lp, rtol=0, atol=0)
     torch.testing.assert_close(il, ilp, rtol=0, atol=0)
     assert torch.isfinite(il).all()
-    assert not torch.triu(l, 1).any()
+    assert not torch.triu(l, 1).any() and not torch.triu(il, 1).any()
+
+
+@pytest.mark.parametrize("n", [18, 20])
+def test_kernels_take_misaligned_tensors(gen, n):
+    """A contiguous view that starts 4 bytes past a 16-byte boundary takes
+    the kernels' scalar copies: the same results as an aligned tensor."""
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device="cuda")
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    a = _spd((33, n, n), gen)
+    l, il = tls.chol_inv_small_cuda(a)
+    lm, ilm = tls.chol_inv_small_cuda(shifted(a))
+    torch.testing.assert_close(lm, l, rtol=0, atol=0)
+    torch.testing.assert_close(ilm, il, rtol=0, atol=0)
+    lb = torch.randn(a.shape, generator=gen, device="cuda")
+    ilb = torch.randn(a.shape, generator=gen, device="cuda")
+    want = tls.chol_inv_bwd_cuda(l, il, lb, ilb)
+    got = tls.chol_inv_bwd_cuda(shifted(l), shifted(il), shifted(lb),
+                                shifted(ilb))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def _f64_errors(a, l, il):
@@ -104,13 +136,14 @@ def test_mid_kernel_against_float64(gen, shape, kind):
 
 @pytest.mark.parametrize("cotangents", ["both", "l_bar only", "il_bar only"])
 @pytest.mark.parametrize("shape", [(32, 20, 20, 20), (32, 20, 16, 16),
-                                   (3, 48, 48)])
+                                   (3, 48, 48), (65, 8, 8), (1001, 20, 20),
+                                   (17, 32, 32), (9, 40, 40), (33, 19, 19)])
 def test_bwd_kernel_against_plain_version(gen, shape, cotangents):
     """The backward kernel and its plain version (``_bwd_reference``), both
     float32 on the card, are each held against ``_bwd_reference`` in float64
-    on the same float32 inputs: the kernel sums in another order, so its
-    error may be at most 4x the plain version's plus 1e-6 max|A_bar|.  Above
-    the diagonal it writes exact zeros."""
+    on the same float32 inputs: the kernel sums in another order with fused
+    multiply-adds, so its error may be at most 4x the plain version's plus
+    1e-6 max|A_bar|.  Above the diagonal it writes exact zeros."""
     l, il = tls.chol_inv_small_cuda(_spd(shape, gen))
     lb = torch.randn(shape, generator=gen, device="cuda")
     ilb = torch.randn(shape, generator=gen, device="cuda")

@@ -206,14 +206,81 @@ def test_mid_launch_plan(batch):
             assert plan.smem >= 4 * 2 * np_ * np_
 
 
+@pytest.mark.parametrize("batch", [1, 32, 640, 1001, 8192])
+def test_small_launch_plan(batch):
+    """Every n the small kernel takes gets a plan within a block's 227 KB of
+    shared memory whose grid covers the batch: n <= 32 on the register path
+    at the smallest compiled size np >= n (exactly 20 for the canonical
+    T = 20), the rest in shared memory; one warp a matrix, the warps a block
+    spreading the batch over the 132 SMs no worse than four a block."""
+    for n in range(1, tls.MAX_SMALL_T + 1):
+        plan = tls.small_launch_plan(n, batch)
+        assert plan.smem <= 232_448
+        assert plan.threads == 32 * plan.per_block
+        assert plan.per_block in (1, 2, 4)
+        assert plan.grid * plan.per_block >= batch
+        assert (plan.grid - 1) * plan.per_block < batch
+        busiest = plan.per_block * -(-plan.grid // 132)
+        assert busiest <= 4 * -(-(-(-batch // 4)) // 132)
+        if n <= 32:
+            assert plan.path == "warp" and plan.np in tls.SMALL_SIZES
+            assert plan.np >= n and not any(n <= s < plan.np
+                                            for s in tls.SMALL_SIZES)
+            assert plan.smem >= plan.per_block * 2 * plan.np * (plan.np + 1) * 4
+        else:
+            assert plan.path == "smem" and plan.np == n
+            assert plan.smem >= plan.per_block * 2 * n * n * 4
+    assert tls.small_launch_plan(20, batch).np == 20
+
+
+@pytest.mark.parametrize("batch", [1, 32, 640, 1001, 8192])
+@pytest.mark.parametrize("sms", [132, 114])   # H100 SXM, H100 PCIe
+def test_bwd_launch_plan(batch, sms):
+    """Every n the backward kernel takes gets a plan within a block's 227 KB
+    of shared memory and 128 threads whose grid covers the batch, at the
+    smallest compiled size np >= n (a multiple of 4), with six np x np
+    buffers a matrix, one warp each, spreading the batch over the SMs no
+    worse than four a block."""
+    for n in range(1, tls.MAX_SMALL_T + 1):
+        plan = tls.bwd_launch_plan(n, batch, sms)
+        assert plan.np in tls.BWD_SIZES and plan.np % 4 == 0
+        assert plan.np >= n and not any(n <= s < plan.np
+                                        for s in tls.BWD_SIZES)
+        assert plan.per_block in (1, 2, 4)
+        assert plan.threads == 32 * plan.per_block
+        assert plan.smem == plan.per_block * 6 * plan.np ** 2 * 4 <= 232_448
+        assert plan.grid * plan.per_block >= batch
+        assert (plan.grid - 1) * plan.per_block < batch
+        busiest = plan.per_block * -(-plan.grid // sms)
+        assert busiest <= 4 * -(-(-(-batch // 4)) // sms)
+    assert tls.bwd_launch_plan(20, batch, sms).np == 20
+
+
+def test_kernel_row_col_arithmetic():
+    """The small and backward kernels split a flat index e (or a float4
+    index q) into row and column without an integer division: row =
+    (int)((e + 0.5f) * (1.0f / n)) in float32 arithmetic.  It must equal
+    e // n for every index of every n <= 48 they take."""
+    for n in range(1, tls.MAX_SMALL_T + 1):
+        for width, count in ((n, n * n), (n // 4, n * n // 4)):
+            if width == 0 or (width != n and n % 4):
+                continue
+            e = np.arange(count)
+            rn = np.float32(1) / np.float32(width)
+            rows = ((e.astype(np.float32) + np.float32(0.5)) * rn).astype(
+                np.int64)
+            np.testing.assert_array_equal(rows, e // width)
+
+
 def test_kernel_build_flags(tmp_path, monkeypatch):
-    """Only the mid kernel's library is built with FMA contraction, and a
-    library built with other flags than its current ones is rebuilt."""
+    """The mid and backward kernels' libraries are built with FMA
+    contraction, the small kernel's without, and a library built with other
+    flags than its current ones is rebuilt."""
     from hlax_torch.ops import cuda_build
 
-    assert "--fmad=false" not in cuda_build.nvcc_flags("chol_inv_mid")
-    for name in ("chol_inv_small", "chol_inv_bwd"):
-        assert "--fmad=false" in cuda_build.nvcc_flags(name)
+    for name in ("chol_inv_mid", "chol_inv_bwd"):
+        assert "--fmad=false" not in cuda_build.nvcc_flags(name)
+    assert "--fmad=false" in cuda_build.nvcc_flags("chol_inv_small")
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
     for name in ("chol_inv_small", "chol_inv_mid"):
         assert cuda_build._stale(name)           # never built
