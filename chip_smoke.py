@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
-each against its plain PyTorch version, trains the canonical Heterogeneous
-Health-MNIST D4 config at full width for 30 steps with validation and the
-test battery, then imputes with the trained model.
+each against its plain PyTorch version in float32 and float64, trains the
+canonical Heterogeneous Health-MNIST D4 config at full width for 30 steps
+with validation and the test battery, then imputes with the trained model;
+then the same config in float64 and with the float64 natural-gradient
+chain, sequences of T = 200 and 500, and the MLP model.
 
     python3 chip_smoke.py
 
@@ -11,17 +13,24 @@ Phases (each prints its own lines; any failure exits non-zero):
              each shape took: the small kernel bit for bit at eleven shapes
              (both compiled sizes, padded and odd n, n up to 48) on random
              SPD and float32-indefinite inputs; the mid kernel against
-             float64 at five shapes on SPD, ill-conditioned (M = 120) and
-             indefinite inputs, its n <= 32 path also bit for bit; the
-             backward kernel at eight shapes on random, L_bar = 0 and
-             L^-1_bar = 0 cotangents, against float64.  Device times (CUDA events, the launches queued
-             ahead) of kernel, plain version, the library call where one
-             exists (torch.linalg.cholesky + solve_triangular), the bound,
-             the kernel's wall time a call on the host, and for the small
-             and backward kernels the time of one matrix alone.
+             float64 at nine shapes (the long sequences' diagonal blocks
+             among them) on SPD, ill-conditioned (M = 120) and indefinite
+             inputs, its n <= 32 path also bit for bit; the backward kernel
+             at eight shapes on random, L_bar = 0 and L^-1_bar = 0
+             cotangents, against float64.  Then the float64 instantiations:
+             the small kernel and the mid kernel's n <= 32 path bit for bit,
+             the mid kernel's blocked path (L^-1 in shared memory and in
+             its device workspace) and the backward kernel within 4x their
+             plain versions' own error plus 1e-12.  Device times (CUDA
+             events, the launches queued ahead) of kernel, plain version,
+             the library call where one exists (torch.linalg.cholesky +
+             solve_triangular, in the kernel's dtype), the bound, the
+             kernel's wall time a call on the host, and for the small and
+             backward kernels the time of one matrix alone.
   3. reference  four toy-width train steps on the card against the same
-             steps on the CPU (plain versions), same weights and noise; the
-             toy M = 30 takes the mid kernel's n <= 32 path.
+             steps on the CPU (plain versions), same weights and noise, in
+             float32 and in float64; the toy M = 30 takes the mid kernel's
+             n <= 32 path.
   4. slice   generated D4 splits (prediction = training, test, validation;
              P=200, T=20, 25% missing) -> hlax_torch.cli.main.run with the
              canonical config, 3 epochs of 10 steps on the card, then the
@@ -33,7 +42,22 @@ Phases (each prints its own lines; any failure exits non-zero):
   6. eval    imputation-eval samples/s (bench.py's protocol: forward with
              the q(z) mean over the training set in 500-row chunks).
   7. profile steps/s of the canonical step, and device time by kernel.
-The line before the card's line is the kernel table as JSON; the last
+  8. f64     the canonical config with --gp_dtype=float64
+             --model_dtype=float64, and in float32 with --nat_grad_f64=True,
+             10 steps each and the final validation with
+             --eval_gp_f64=True: launches by kernel, shape and dtype, no
+             plain version on the card.
+  9. longT   sequences of T = 200 (40 subjects, 4 a batch) and T = 500 (20,
+             2 a batch) on synthetic D4-shaped data, L = 32, M = 120, conv,
+             float32: 5 steps after a warm-up one, then the DUBO and the
+             predictor over the n = 256 and 512 buckets, all through the
+             blocked composition on the mid kernel.
+ 10. mlp     the canonical data with --conv_hivae=False (hidden [500],
+             y_dim 5): 3 epochs, the final validation, the test battery,
+             imputation in encoder and GP mode.
+Every main path (slice, f64, longT, mlp) runs with the launch counters set
+to 0 just before it and read just after.  The line before the card's line
+is the kernel table as JSON, one row a kernel, shape and dtype; the last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
 """
 
@@ -56,9 +80,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "hlvae_config_file.txt")
 
-# H100 SXM data sheet peaks (dense, no sparsity)
+# H100 SXM data sheet peaks (dense, no sparsity; float64 outside the
+# tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # H100 SXM boost clock: sizes the spin kernel that time_ms queues first
 SPIN_CYCLES_PER_S = 1.98e9
 
@@ -83,8 +108,28 @@ ERR_FACTOR, ERR_ABS = 4.0, 1e-6
 # largest n it takes and one in the blocked path's low range; the first
 # three are the main path's and get rows in the kernel table
 MID_SHAPES = [((64,), 120), ((32,), 120), ((32, 256), 32), ((8,), 128),
-              ((64,), 40)]
-MID_MAIN = 3
+              ((64,), 40), ((32, 4), 100), ((32, 2), 125), ((32, 64), 128),
+              ((32, 32), 128)]
+# the shapes that get rows in the kernel table: the canonical training and
+# eval shapes, and the long sequences' diagonal blocks (T = 200 and T = 500
+# in training; the 256 and 512 eval buckets of their 40 and 20 subjects)
+LONG_T_MID_ROWS = {((32, 4), 100), ((32, 2), 125), ((32, 64), 128),
+                   ((32, 32), 128)}
+MID_ROWS = {((64,), 120), ((32,), 120), ((32, 256), 32)} | LONG_T_MID_ROWS
+# float64: the small kernel's shapes (the B blocks first), the mid
+# kernel's (the training shapes and the eval buckets first; n = 40 keeps
+# L^-1 in shared memory, n = 113 and 128 in the workspace), the
+# backward's; every first shape of a list, and the mid kernel's first
+# three, get rows in the kernel table
+F64_SMALL_SHAPES = [((32, 20), 20), ((1001,), 20), ((33,), 19),
+                    ((1001,), 32), ((64,), 40)]
+F64_MID_SHAPES = [((64,), 120), ((32,), 120), ((32, 256), 32), ((8,), 128),
+                  ((64,), 40), ((5,), 113)]
+F64_MID_MAIN = 3
+F64_BWD_SHAPES = [((32, 20), 20), ((3,), 48), ((33,), 19), ((17,), 32)]
+# the float64 blocked path and backward are held to their plain versions:
+# at most F64_FACTOR times the plain version's own error plus F64_ABS
+F64_FACTOR, F64_ABS = 4.0, 1e-12
 # the train step launches the mid kernel twice (K0zz stacked with H, and the
 # natural-gradient inverse), the small kernel and its backward once each
 MID_PER_STEP = 2
@@ -177,25 +222,31 @@ def phase_build() -> None:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``name<args>`` of a mangled kernel name with integer template
-    arguments, e.g. _Z19chol_inv_bwd_kernelILi20EEv... ->
-    chol_inv_bwd_kernel<20>."""
+    """``name<args>`` of a mangled kernel name with float, double, integer
+    and bool template arguments, e.g. _Z19chol_inv_bwd_kernelIdLi20EEv... ->
+    chol_inv_bwd_kernel<double,20>."""
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
     end = m.end() + int(m.group(1))
     name, rest = mangled[m.end():end], mangled[end:]
     if rest.startswith("I"):
-        args = re.findall(r"Li(\d+)E", rest.split("EE")[0] + "E")
+        args = []
+        for tok in re.finditer(r"Li(\d+)E|Lb([01])E|f|d|(E)", rest[1:]):
+            if tok.group(3):   # the E that closes the argument list
+                break
+            args.append(tok.group(1) or {"0": "false", "1": "true"}.get(
+                tok.group(2)) or {"f": "float", "d": "double"}[tok.group(0)])
         name += f"<{','.join(args)}>"
     return name
 
 
-def _bound_ms(batch: int, n: int):
-    nbytes = 3 * batch * n * n * 4            # A read once, L and L^-1 written
+def _bound_ms(batch: int, n: int, dtype=torch.float32):
+    size = torch.finfo(dtype).bits // 8
+    nbytes = 3 * batch * n * n * size         # A read once, L and L^-1 written
     flops = batch * 2 * n ** 3 / 3            # potrf n^3/3 + trtri n^3/3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -206,10 +257,12 @@ def _library(a):
 
 
 def phase_kernels():
-    """Each kernel against its plain version; returns the table rows."""
+    """Each kernel against its plain version, float32 then float64; returns
+    the table rows."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     return [phase_small_kernel(gen), *phase_mid_kernel(gen),
-            phase_bwd_kernel(gen)]
+            phase_bwd_kernel(gen), phase_small_kernel_f64(gen),
+            *phase_mid_kernel_f64(gen), phase_bwd_kernel_f64(gen)]
 
 
 def _tag(name, batch, n):
@@ -281,7 +334,8 @@ def phase_small_kernel(gen):
           f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound:.5f} ms "
           f"({by})", flush=True)
     return dict(name="chol_inv_small_cuda", shape=list(batch + (n, n)),
-                route="cuda", source="hlax_torch/csrc/chol_inv_small.cu",
+                dtype="float32", route="cuda",
+                source="hlax_torch/csrc/chol_inv_small.cu",
                 replaces="hlax/ops/linalg_small.py:112", launches=0,
                 max_abs_err=diff, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms)
@@ -392,9 +446,10 @@ def phase_mid_kernel(gen):
               f"({wall:.4f} ms a call on the host clock), plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{bound:.5f} ms ({by})", flush=True)
-        if len(rows) < MID_MAIN:
+        if (batch, n) in MID_ROWS:
             rows.append(dict(name="chol_inv_mid_cuda",
-                             shape=list(batch + (n, n)), route="cuda",
+                             shape=list(batch + (n, n)), dtype="float32",
+                             route="cuda",
                              source="hlax_torch/csrc/chol_inv_mid.cu",
                              replaces="hlax/ops/linalg_small.py:472",
                              launches=0, max_abs_err=worst, ms=ms,
@@ -403,11 +458,12 @@ def phase_mid_kernel(gen):
     return rows
 
 
-def _bwd_bound_ms(batch: int, n: int):
-    nbytes = 5 * batch * n * n * 4            # L, L^-1, both cotangents, A_bar
+def _bwd_bound_ms(batch: int, n: int, dtype=torch.float32):
+    size = torch.finfo(dtype).bits // 8
+    nbytes = 5 * batch * n * n * size         # L, L^-1, both cotangents, A_bar
     flops = 10 * batch * n ** 3               # five n x n products
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -469,12 +525,209 @@ def phase_bwd_kernel(gen):
               flush=True)
         if s == 0:   # the table row: the training shape
             row = dict(name="chol_inv_bwd_cuda", shape=list(batch + (n, n)),
-                       route="cuda", source="hlax_torch/csrc/chol_inv_bwd.cu",
+                       dtype="float32", route="cuda",
+                       source="hlax_torch/csrc/chol_inv_bwd.cu",
                        replaces="hlax/ops/linalg_small.py:328", launches=0,
                        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=None)
     row["max_abs_err"] = worst
     return row
+
+
+def _residuals(a, l, il):
+    """(max over the batch of |LL^T - A| / |A| in Frobenius norm,
+    max |L^-1 L - I|), in the inputs' dtype."""
+    eye = torch.eye(a.shape[-1], device=a.device, dtype=a.dtype)
+    rec = ((l @ l.mT - a).norm(dim=(-2, -1)) / a.norm(dim=(-2, -1))).max()
+    return rec.item(), (il @ l - eye).abs().max().item()
+
+
+def _time_row(name, source, replaces, batch, n, dtype, fn, plain, library,
+              err, bound):
+    """Device times of the kernel call ``fn``, its plain version and the
+    library call, and the table row; the launches the timing makes are not
+    counted."""
+    from hlax_torch.ops import linalg_small as ls
+    before = dict(ls.LAUNCHES), dict(ls.LAUNCHES_BY_SHAPE)
+    ms, wall = time_ms(fn)
+    plain_ms, _ = time_ms(plain, reps=10)
+    lib_ms = time_ms(library)[0] if library is not None else None
+    ls.LAUNCHES.update(before[0])
+    ls.LAUNCHES_BY_SHAPE.clear()
+    ls.LAUNCHES_BY_SHAPE.update(before[1])
+    t_bound, by = bound
+    print(f"[kernels] {_tag(name, batch, n)} {dtype}: kernel {ms:.4f} ms "
+          f"({wall:.4f} ms a call on the host clock), plain {plain_ms:.4f} "
+          f"ms, library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+          f"{t_bound:.5f} ms ({by})", flush=True)
+    return dict(name=name, shape=list(batch + (n, n)),
+                dtype=str(dtype).removeprefix("torch."), route="cuda",
+                source=source, replaces=replaces, launches=0,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
+                bound_by=by, library_ms=lib_ms)
+
+
+def phase_small_kernel_f64(gen):
+    """The float64 small kernel at F64_SMALL_SHAPES, bit for bit against its
+    plain version on SPD inputs and on the logspace(0, -10) spectrum, whose
+    trailing pivots fall below the guard's floor in float64 too; timed at
+    the training B blocks' shape.  Returns its table row."""
+    from hlax_torch.ops import linalg_small as ls
+
+    f64 = torch.float64
+    for batch, n in F64_SMALL_SHAPES:
+        tag = _tag("chol_inv_small_cuda", batch, n)
+        plan = ls.small_launch_plan(n, int(np.prod(batch)), ls._sms(0), 8)
+        for kind in ("spd", "guard"):
+            a = (random_spd(batch, n, gen).double() if kind == "spd"
+                 else indefinite_spd(batch, n, gen)[1].expand(
+                     batch + (n, n)).contiguous())
+            l, il = ls.chol_inv_small_cuda(a)
+            torch.cuda.synchronize()
+            lp, ilp = ls._chol_inv_plain(a)
+            if not (torch.isfinite(l).all() and torch.isfinite(il).all()):
+                fail(f"{tag} float64 {kind}: non-finite L or L^-1")
+            if not (torch.equal(l, lp) and torch.equal(il, ilp)):
+                fail(f"{tag} float64 {kind}: differs from the plain version "
+                     f"by {(l - lp).abs().max().item():.3e} (L), "
+                     f"{(il - ilp).abs().max().item():.3e} (L^-1)")
+            if torch.triu(l, 1).any() or torch.triu(il, 1).any():
+                fail(f"{tag} float64 {kind}: entries above the diagonal")
+        print(f"[kernels] {tag} float64: {plan.path} path, np {plan.np}, "
+              f"{plan.per_block} warps a block x {plan.grid} blocks; equal "
+              f"to the plain version bit for bit (SPD and guard inputs); "
+              f"|LL^T-A|/|A|, |L^-1 L - I| {_residuals(a, l, il)}",
+              flush=True)
+    batch, n = F64_SMALL_SHAPES[0]
+    a = random_spd(batch, n, gen).double()
+    return _time_row("chol_inv_small_cuda",
+                     "hlax_torch/csrc/chol_inv_small.cu",
+                     "hlax/ops/linalg_small.py:112", batch, n, f64,
+                     lambda: ls.chol_inv_small_cuda(a),
+                     lambda: ls._chol_inv_plain(a), lambda: _library(a), 0.0,
+                     _bound_ms(a.numel() // (n * n), n, f64))
+
+
+def phase_mid_kernel_f64(gen):
+    """The float64 mid kernel at F64_MID_SHAPES on SPD, ill-conditioned
+    (logspace(0, -6)) and guard (logspace(0, -10)) inputs: the n <= 32 path
+    bit for bit; the blocked path's residuals |LL^T - A| / |A| and
+    |L^-1 L - I| at most F64_FACTOR times the plain version's plus F64_ABS
+    (SPD and ill-conditioned), finite and factoring a nearby matrix on the
+    guard input; exact zeros above the diagonal.  Returns the table rows of
+    the first F64_MID_MAIN shapes."""
+    from hlax_torch.ops import linalg_small as ls
+
+    f64 = torch.float64
+    rows = []
+    for s, (batch, n) in enumerate(F64_MID_SHAPES):
+        tag = _tag("chol_inv_mid_cuda", batch, n)
+        plan = ls.mid_launch_plan(n, int(np.prod(batch)), 8)
+        worst = 0.0
+        for kind in ("spd", "ill", "guard"):
+            if kind == "spd":
+                a = random_spd(batch, n, gen).double()
+            else:
+                q, _ = torch.linalg.qr(torch.randn(
+                    (n, n), generator=gen, device="cuda", dtype=f64))
+                ev = torch.logspace(0.0, -6.0 if kind == "ill" else -10.0, n,
+                                    device="cuda", dtype=f64)
+                a = (q * ev) @ q.T
+                a = (0.5 * (a + a.T)).expand(batch + (n, n)).contiguous()
+            l, il = ls.chol_inv_mid_cuda(a)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(l).all() and torch.isfinite(il).all()):
+                fail(f"{tag} float64 {kind}: non-finite L or L^-1")
+            if torch.triu(l, 1).any() or torch.triu(il, 1).any():
+                fail(f"{tag} float64 {kind}: entries above the diagonal")
+            lp, ilp = ls._chol_inv_plain(a)
+            got, want = _residuals(a, l, il), _residuals(a, lp, ilp)
+            if plan.path == "warp":
+                if not (torch.equal(l, lp) and torch.equal(il, ilp)):
+                    fail(f"{tag} float64 {kind}: the warp path differs from "
+                         f"the plain version by "
+                         f"{(l - lp).abs().max().item():.3e}")
+                note = "equal to the plain version bit for bit"
+            elif kind == "guard":
+                note = "guard input"
+                if got[0] > 1e-4:
+                    fail(f"{tag} float64 guard: |LL^T-A|/|A| = {got[0]:.3e}")
+            else:
+                note = f"plain {want[0]:.3e}, {want[1]:.3e}"
+                for g, w in zip(got, want):
+                    if g > F64_FACTOR * w + F64_ABS:
+                        fail(f"{tag} float64 {kind}: residuals {got} exceed "
+                             f"{F64_FACTOR} x the plain version's {want} + "
+                             f"{F64_ABS}")
+                worst = max(worst, (l - lp).abs().max().item(),
+                            (il - ilp).abs().max().item()) \
+                    if kind == "spd" else worst
+            print(f"[kernels] {tag} float64 {kind}: {plan.path} path"
+                  f"{', L^-1 in the device workspace' if plan.work else ''}"
+                  f"; |LL^T-A|/|A| {got[0]:.3e}, |L^-1 L - I| {got[1]:.3e}"
+                  f" ({note})", flush=True)
+        if s >= F64_MID_MAIN:
+            continue
+        a = random_spd(batch, n, gen).double()
+        rows.append(_time_row(
+            "chol_inv_mid_cuda", "hlax_torch/csrc/chol_inv_mid.cu",
+            "hlax/ops/linalg_small.py:472", batch, n, f64,
+            lambda: ls.chol_inv_mid_cuda(a), lambda: ls._chol_inv_plain(a),
+            lambda: _library(a), worst,
+            _bound_ms(a.numel() // (n * n), n, f64)))
+    return rows
+
+
+def phase_bwd_kernel_f64(gen):
+    """The float64 backward kernel at F64_BWD_SHAPES, on (L, L^-1) from the
+    float64 small kernel and three kinds of cotangents: its distance to the
+    plain version on the card at most F64_FACTOR times the distance between
+    the plain version on the card and on the CPU (two summation orders of
+    the same products) plus F64_ABS of max|A_bar|.  Returns its table
+    row."""
+    from hlax_torch.ops import linalg_small as ls
+
+    f64 = torch.float64
+    worst = 0.0
+    for batch, n in F64_BWD_SHAPES:
+        tag = _tag("chol_inv_bwd_cuda", batch, n)
+        l, il = ls.chol_inv_small_cuda(random_spd(batch, n, gen).double())
+        for kind in ("random", "L^-1_bar = 0", "L_bar = 0"):
+            lb = torch.randn(l.shape, generator=gen, device="cuda", dtype=f64)
+            ilb = torch.randn(l.shape, generator=gen, device="cuda",
+                              dtype=f64)
+            if kind == "L^-1_bar = 0":
+                ilb.zero_()
+            elif kind == "L_bar = 0":
+                lb.zero_()
+            got = ls.chol_inv_bwd_cuda(l, il, lb, ilb)
+            torch.cuda.synchronize()
+            plain = ls._chol_inv_bwd_plain(l, il, lb, ilb)
+            plain_cpu = ls._bwd_reference(l.cpu(), il.cpu(), lb.cpu(),
+                                          ilb.cpu())
+            err = (got - plain).abs().max().item()
+            spread = (plain.cpu() - plain_cpu).abs().max().item()
+            scale = plain.abs().max().item()
+            worst = max(worst, err)
+            print(f"[kernels] {tag} float64 {kind}: max|kernel-plain| "
+                  f"{err:.3e}, max|plain on the card - plain on the CPU| "
+                  f"{spread:.3e}, max|A_bar| {scale:.3e}", flush=True)
+            if not torch.isfinite(got).all() or torch.triu(got, 1).any():
+                fail(f"{tag} float64 {kind}: non-finite A_bar or entries "
+                     "above the diagonal")
+            if err > F64_FACTOR * spread + F64_ABS * scale:
+                fail(f"{tag} float64 {kind}: {err:.3e} exceeds {F64_FACTOR}"
+                     f" x {spread:.3e} + {F64_ABS} x {scale:.3e}")
+    batch, n = F64_BWD_SHAPES[0]
+    l, il = ls.chol_inv_small_cuda(random_spd(batch, n, gen).double())
+    lb = torch.randn(l.shape, generator=gen, device="cuda", dtype=f64)
+    ilb = torch.randn(l.shape, generator=gen, device="cuda", dtype=f64)
+    return _time_row("chol_inv_bwd_cuda", "hlax_torch/csrc/chol_inv_bwd.cu",
+                     "hlax/ops/linalg_small.py:328", batch, n, f64,
+                     lambda: ls.chol_inv_bwd_cuda(l, il, lb, ilb),
+                     lambda: ls._chol_inv_bwd_plain(l, il, lb, ilb), None,
+                     worst, _bwd_bound_ms(int(np.prod(batch)), n, f64))
 
 
 def write_canonical_data(dest: str) -> None:
@@ -491,12 +744,17 @@ def write_canonical_data(dest: str) -> None:
           f"{time.time() - t0:.1f} s", flush=True)
 
 
-def phase_reference(tmp: str) -> None:
+# the card's toy steps against the CPU's, relative: float32 sums in other
+# orders on the two devices, and the GP terms invert matrices of condition
+# ~1e4; float64 rounds ~1e9 times finer
+REFERENCE_BOUND = {torch.float32: 1e-3, torch.float64: 1e-8}
+
+
+def phase_reference(tmp: str, dtype=torch.float32) -> None:
     """The same four train steps (toy widths: z=8, hidden 50, M=30 for the
     mid kernel, T=20 for the small one) from identical weights and noise on
-    the card and with the plain versions on the CPU.  Both float32; the
-    losses must agree to 1e-3 relative (the two devices sum in different
-    orders, and the GP terms invert matrices of condition ~1e4)."""
+    the card and with the plain versions on the CPU, both in ``dtype`` (the
+    model and the GP); the losses must agree to REFERENCE_BOUND."""
     import copy
 
     from hlax_torch.config import ModelArgs
@@ -517,9 +775,10 @@ def phase_reference(tmp: str) -> None:
         opt["cat_int_kernel"], opt["bin_int_kernel"],
         opt["covariate_missing_val"], opt["id_covariate"])
     cfg = tstep.TrainConfig(latent_dim=8, M=30, P_tot=float(data.P),
-                            N_tot=float(len(data)), id_covariate=2)
+                            N_tot=float(len(data)), id_covariate=2,
+                            gp_dtype=dtype)
     model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,)),
-                  torch.Generator().manual_seed(0), "cpu")
+                  torch.Generator().manual_seed(0), "cpu").to(dtype)
     cpu = tstep.init_train_state(model, spec0, spec1,
                                  next(ds.subject_batches(data, 2)), cfg)
     to = lambda t: t.detach().to("cuda")
@@ -532,14 +791,14 @@ def phase_reference(tmp: str) -> None:
     gpu.optimizer = tstep.make_optimizer(gpu, cfg)
     noise = torch.Generator().manual_seed(1)
     worst = 0.0
-    staged = {dev: ds.stage_dataset(data, torch.float32, dev)
+    staged = {dev: ds.stage_dataset(data, dtype, dev)
               for dev in ("cpu", "cuda")}
     steps = {dev: tstep.make_train_step(st.vae, spec0, spec1, cfg)
              for dev, st in (("cpu", cpu), ("cuda", gpu))}
     from hlax_torch.ops import linalg_small as ls
     ls.reset_counters()
     for i, idx in enumerate([[0, 1], [2, 3], [3, 0], [1, 2]]):
-        eps = torch.randn((2 * data.T_max, 8), generator=noise)
+        eps = torch.randn((2 * data.T_max, 8), generator=noise, dtype=dtype)
         losses = {}
         for dev, state in (("cpu", cpu), ("cuda", gpu)):
             batch = ds.gather_batch(staged[dev],
@@ -548,17 +807,25 @@ def phase_reference(tmp: str) -> None:
                 "loss"].item()
         rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
         worst = max(worst, rel)
-        print(f"[reference] step {i}: loss cuda {losses['cuda']:.6f} cpu "
-              f"{losses['cpu']:.6f} rel {rel:.2e}", flush=True)
-    if not worst <= 1e-3:
-        fail(f"card and CPU disagree on the toy train steps: rel {worst:.2e}")
+        print(f"[reference] {dtype} step {i}: loss cuda "
+              f"{losses['cuda']:.12g} cpu {losses['cpu']:.12g} rel "
+              f"{rel:.2e}", flush=True)
+    bound = REFERENCE_BOUND[dtype]
+    print(f"[reference] {dtype}: worst rel {worst:.3e}, bound {bound:g}",
+          flush=True)
+    if not worst <= bound:
+        fail(f"card and CPU disagree on the toy {dtype} train steps: rel "
+             f"{worst:.2e}")
     print(f"[reference] launches on the card {dict(ls.LAUNCHES)}; plain "
           f"versions on CUDA tensors {dict(ls.PLAIN_CUDA_CALLS)}", flush=True)
+    want = str(dtype).removeprefix("torch.")
     if ls.LAUNCHES["chol_inv_bwd_cuda"] < 4 or any(
-            ls.PLAIN_CUDA_CALLS.values()):
-        fail("the card's T=20 steps did not go through the backward kernel")
+            ls.PLAIN_CUDA_CALLS.values()) or any(
+            dt != want for _, _, dt in ls.LAUNCHES_BY_SHAPE):
+        fail(f"the card's T=20 {dtype} steps did not go through the "
+             "backward kernel in that dtype")
     if not any(name == "chol_inv_mid_cuda" and ls.mid_launch_plan(
-            shape[-1], 1).path == "warp" for name, shape in
+            shape[-1], 1).path == "warp" for name, shape, _ in
                ls.LAUNCHES_BY_SHAPE):
         fail("the card's M=30 steps did not take the mid kernel's warp path")
 
@@ -617,8 +884,7 @@ def phase_slice(tmp: str):
     ep, ev = out["epoch_seconds"], out["eval_seconds"]
     print(f"[slice] mid launches: {MID_PER_STEP * steps} in training, "
           f"{eval_mid} in validation and tests; launches by shape "
-          f"{ {f'{k}{list(sh)}': v for (k, sh), v in by_shape.items()} }",
-          flush=True)
+          f"{_by_shape_str(by_shape)}", flush=True)
     print(f"[slice] epoch seconds {ep}; steps/s after warm-up "
           f"{10 / ep[-1]:.3f} on {card_line()}", flush=True)
     print(f"[slice] final validation {ev['validation']:.3f} s, tests "
@@ -626,7 +892,12 @@ def phase_slice(tmp: str):
     return by_shape, out, data_dir, save
 
 
-def phase_impute(data_dir: str, save: str) -> None:
+def _by_shape_str(by_shape) -> str:
+    return str({f"{k}{list(sh)} {dt}": v for (k, sh, dt), v in
+                by_shape.items()})
+
+
+def phase_impute(data_dir: str, save: str, tag: str = "impute") -> None:
     """The imputation CLI over the test split, encoder and GP modes: fills
     exactly the cells the mask marks missing, leaves the observed ones."""
     from hlax_torch.cli import impute
@@ -652,15 +923,16 @@ def phase_impute(data_dir: str, save: str) -> None:
         m = re.search(r"Imputed (\d+) missing cells", printed.getvalue())
         filled = int(m.group(1)) if m else -1
         if filled != int((mask == 0).sum()):
-            fail(f"[impute] {mode}: filled {filled} cells, the mask has "
+            fail(f"[{tag}] {mode}: filled {filled} cells, the mask has "
                  f"{int((mask == 0).sum())} missing")
         if imp.shape != raw.shape or not np.isfinite(imp).all():
-            fail(f"[impute] {mode}: output not finite or of another shape")
+            fail(f"[{tag}] {mode}: output not finite or of another shape")
         if not np.array_equal(imp[mask == 1], raw[mask == 1]):
-            fail(f"[impute] {mode}: observed cells changed")
+            fail(f"[{tag}] {mode}: observed cells changed")
         if mode == "gp" and ls.LAUNCHES["chol_inv_mid_cuda"] == 0:
-            fail("[impute] gp: the GP prediction launched no mid kernel")
-        print(f"[impute] {mode}: {filled} cells filled over {len(raw)} rows, "
+            fail(f"[{tag}] gp: the GP prediction launched no mid kernel")
+        print(f"[{tag}] impute {mode}: {filled} cells filled over {len(raw)} "
+              f"rows, "
               f"{len(raw) / seconds:.1f} rows/s ({seconds:.3f} s, the whole "
               f"CLI call) on {card_line()}; launches {dict(ls.LAUNCHES)}",
               flush=True)
@@ -745,6 +1017,288 @@ def phase_profile(out, n_steps: int = 10) -> None:
               f"{name[:90]}", flush=True)
 
 
+def _run_cli(opt: dict, log: str):
+    """The training CLI on ``opt`` with its console output kept in ``log``
+    (the option dump and the per-epoch lines); the launch counters set to 0
+    just before and read just after.  Returns (out, launches, by_shape,
+    plain-version calls)."""
+    from hlax_torch.cli import main as cli
+    from hlax_torch.ops import linalg_small as ls
+
+    ls.reset_counters()
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        out = cli.run(opt)
+    torch.cuda.synchronize()
+    return (out, dict(ls.LAUNCHES), dict(ls.LAUNCHES_BY_SHAPE),
+            dict(ls.PLAIN_CUDA_CALLS))
+
+
+def _check_run(tag: str, out, steps: int, plain, validation: bool = True):
+    """A CLI run's common checks: the steps it took, finite losses, no
+    plain version on the card, and 10 finite validation rows."""
+    from hlax_torch.eval.validate import VALIDATION_ROWS
+
+    losses = out["loss_arrs"]["net"]
+    if out["steps"] != steps:
+        fail(f"[{tag}] expected {steps} train steps, ran {out['steps']}")
+    if not all(map(np.isfinite, losses)):
+        fail(f"[{tag}] non-finite loss {losses}")
+    if any(plain.values()):
+        fail(f"[{tag}] a plain Cholesky version ran on CUDA tensors: {plain}")
+    if validation:
+        with open(os.path.join(out["results_path"],
+                               "validation_results.csv")) as f:
+            rows = [line.rstrip("\n").split(",") for line in f]
+        if [r[0] for r in rows] != list(VALIDATION_ROWS) or not all(
+                np.isfinite(float(r[1])) for r in rows):
+            fail(f"[{tag}] validation_results.csv is not 10 finite rows: "
+                 f"{rows}")
+        return dict((r[0], float(r[1])) for r in rows)
+    return None
+
+
+def _steps_per_s(out, subjects: int, n_steps: int = 5) -> float:
+    """Steps/s of ``n_steps`` more steps of a run's train step on a fixed
+    batch of its first subjects, after one warm-up step."""
+    from hlax_torch.data.dataset import gather_batch
+
+    state, staged, step = out["state"], out["staged"], out["train_step"]
+    idx = torch.arange(subjects, device="cuda")
+    step(state, gather_batch(staged, idx))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step(state, gather_batch(staged, idx))
+    torch.cuda.synchronize()
+    return n_steps / (time.perf_counter() - t0)
+
+
+def _need(tag: str, by_shape, want) -> None:
+    """Fail unless every (kernel, shape, dtype) of ``want`` was launched
+    at least its count of times."""
+    for key, least in want.items():
+        if by_shape.get(key, 0) < least:
+            fail(f"[{tag}] {key[0]} {list(key[1])} {key[2]} launched "
+                 f"{by_shape.get(key, 0)} times, expected at least {least}")
+
+
+def phase_f64(data_dir: str, tmp: str):
+    """The canonical config in the reference's own dtype
+    (--gp_dtype=float64 --model_dtype=float64) and in float32 with the
+    float64 natural-gradient chain (--nat_grad_f64=True): one epoch of 10
+    steps each and the final validation with --eval_gp_f64=True.  Returns
+    the launches by (kernel, shape, dtype) of both runs."""
+    from hlax_torch.config import ModelArgs
+
+    b, m = (32, 20, 20, 20), (32, 120, 120)
+    k2 = (64, 120, 120)
+    variants = [
+        ("float64", dict(gp_dtype="float64", model_dtype="float64"),
+         {("chol_inv_small_cuda", b, "float64"): 10,
+          ("chol_inv_bwd_cuda", b, "float64"): 10,
+          ("chol_inv_mid_cuda", k2, "float64"): 10,
+          ("chol_inv_mid_cuda", m, "float64"): 10,
+          ("chol_inv_mid_cuda", (32, 256, 32, 32), "float64"): 1}),
+        ("nat_grad_f64", dict(nat_grad_f64=True),
+         {("chol_inv_small_cuda", b, "float32"): 10,
+          ("chol_inv_bwd_cuda", b, "float32"): 10,
+          ("chol_inv_mid_cuda", k2, "float32"): 10,
+          ("chol_inv_mid_cuda", k2, "float64"): 10,
+          ("chol_inv_mid_cuda", m, "float64"): 10}),
+    ]
+    counts = {}
+    for name, over, want in variants:
+        opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+        opt.update(data_source_path=data_dir,
+                   save_path=os.path.join(tmp, f"run_{name}"), epochs=1,
+                   run_validation=True, run_tests=False,
+                   generate_images=False, device="cuda", eval_gp_f64=True,
+                   **over)
+        t0 = time.perf_counter()
+        out, launches, by_shape, plain = _run_cli(
+            opt, os.path.join(tmp, f"{name}.log"))
+        seconds = time.perf_counter() - t0
+        rows = _check_run(f"f64 {name}", out, 10, plain)
+        _need(f"f64 {name}", by_shape, want)
+        if name == "float64" and any(dt != "float64"
+                                     for _, _, dt in by_shape):
+            fail("[f64] float64: a float32 kernel ran in the float64 run")
+        for key, v in by_shape.items():
+            counts[key] = counts.get(key, 0) + v
+        sps = _steps_per_s(out, 20)
+        print(f"[f64] {name}: losses {out['loss_arrs']['net']}; final "
+              f"validation (eval_gp_f64) {out['eval_seconds']['validation']:.3f}"
+              f" s, GP_loss {rows['GP_loss']:.6g}, net_loss "
+              f"{rows['net_loss']:.6g}; run {seconds:.1f} s; launches "
+              f"{launches}; by shape {_by_shape_str(by_shape)}; plain "
+              f"versions on CUDA tensors {plain}", flush=True)
+        print(f"[f64] {name}: {sps:.3f} steps/s (5 steps after a warm-up "
+              f"one, 20 subjects a batch) on {card_line()}", flush=True)
+        del out
+        torch.cuda.empty_cache()
+    return counts
+
+
+# the long sequences of baselines/t_scaling.py: (T, subjects, a batch)
+LONG_T = [(200, 40, 4), (500, 20, 2)]
+
+
+def long_t_dataset(T: int, P: int, seed: int = 0):
+    """Synthetic D4-shaped data stretched to T time points a subject (the
+    generator of baselines/t_scaling.py:42-57): 324 real pixels in
+    [0, 255) and 972 cat(5) pixels, 25 % missing, the canonical six
+    covariates."""
+    from hlax_torch.data.dataset import LongitudinalDataset
+    from hlax_torch.data.reader import encode_raw
+
+    rng = np.random.default_rng(seed)
+    n = P * T
+    types = ([{"type": "real", "dim": 1, "nclass": 1}] * 324
+             + [{"type": "cat", "dim": 1, "nclass": 5}] * 972)
+    raw = np.column_stack([rng.random((n, 324)) * 255,
+                           rng.integers(0, 5, (n, 972)).astype(float)])
+    het = encode_raw(raw, types,
+                     miss_mask=(rng.random((n, 1296)) > 0.25).astype(float))
+    labels = np.zeros((n, 6))
+    labels[:, 0] = np.tile(np.arange(T), P)
+    labels[:, 1] = np.repeat(rng.integers(-9, 11, P), T)
+    labels[:, 2] = np.repeat(np.arange(P), T)
+    labels[:, 3] = np.repeat(rng.integers(0, 2, P), T)
+    labels[:, 4] = np.repeat(rng.integers(0, 2, P), T)
+    return LongitudinalDataset(het=het, labels=labels, id_covariate=2,
+                               conv=True)
+
+
+def phase_long_t():
+    """T = 200 and T = 500 at L = 32, M = 120, conv, float32: a warm-up
+    step and 5 timed steps, whose B blocks [32, S, T, T] go through the
+    blocked composition (2 x 100 and 4 x 125 on the mid kernel), then the
+    DUBO and the predictor over the whole set (the n = 256 and 512 buckets,
+    diagonal blocks of 128).  Returns the launches by (kernel, shape,
+    dtype)."""
+    from hlax_torch.data.dataset import (epoch_subject_batches, gather_batch,
+                                         stage_dataset, subject_batches)
+    from hlax_torch.eval import validate as val
+    from hlax_torch.gp.kernels import build_kernel_specs, noise_value
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.ops import linalg_small as ls
+    from hlax_torch.train import step as tstep
+
+    spec0, spec1 = build_kernel_specs(
+        [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2},
+                       {"cont_covariate": 0, "cat_covariate": 3},
+                       {"cont_covariate": 1, "cat_covariate": 4}], [], [], 2)
+    counts = {}
+    for T, P, S in LONG_T:
+        t0 = time.perf_counter()
+        ds = long_t_dataset(T, P)
+        made = time.perf_counter() - t0
+        cfg = tstep.TrainConfig(latent_dim=32, M=120, P_tot=float(P),
+                                N_tot=float(len(ds)), id_covariate=2,
+                                natural_gradient=True, constrain_scales=True)
+        model = HLVAE(HLVAEConfig(layout=ds.layout, z_dim=32, h_dims=(500,),
+                                  y_dim=5, conv=True),
+                      torch.Generator(device="cuda").manual_seed(0), "cuda")
+        state = tstep.init_train_state(model, spec0, spec1,
+                                       next(subject_batches(ds, S)), cfg)
+        staged = stage_dataset(ds, torch.float32, "cuda")
+        step = tstep.make_train_step(model, spec0, spec1, cfg)
+        batches = [torch.as_tensor(b, device="cuda") for b in
+                   epoch_subject_batches(P, S, np.random.default_rng(0))][:6]
+        torch.cuda.reset_peak_memory_stats()
+        ls.reset_counters()
+        losses = [step(state, gather_batch(staged, batches[0]))["loss"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            losses.append(step(state, gather_batch(staged, b))["loss"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        losses = [x.item() for x in losses]
+        t0 = time.perf_counter()
+        mu, lv = val.encode_dataset(model, ds)
+        noise = noise_value(state.raw_noise, cfg.constrain_scales)
+        dubo = val.gp_loss_dubo(spec0, state.k0, spec1, state.k1, noise,
+                                state.zt, ds, mu, lv)
+        dubo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        z = val.gp_predict_dataset(spec0, state.k0, spec1, state.k1, noise,
+                                   state.zt, ds.labels, mu, ds.labels[:, 2],
+                                   ds.labels, ds.labels[:, 2])
+        pred_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        by_shape = dict(ls.LAUNCHES_BY_SHAPE)
+        plain = dict(ls.PLAIN_CUDA_CALLS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sizes = ls._block_sizes(T)
+        nb, sb = 1 << (T - 1).bit_length(), 1 << (P - 1).bit_length()
+        tag = f"longT T={T}"
+        if not all(map(np.isfinite, losses)) or not np.isfinite(dubo):
+            fail(f"[{tag}] non-finite loss {losses} or DUBO {dubo}")
+        if z.shape != (len(ds), 32) or not np.isfinite(z).all():
+            fail(f"[{tag}] predictor gave {z.shape}, finite "
+                 f"{np.isfinite(z).all()}")
+        if any(plain.values()):
+            fail(f"[{tag}] a plain Cholesky version ran on the card: {plain}")
+        _need(tag, by_shape, {
+            ("chol_inv_mid_cuda", (32, S, sizes[0], sizes[0]), "float32"):
+                6 * len(sizes),
+            ("chol_inv_mid_cuda", (32, sb, 128, 128), "float32"):
+                2 * nb // 128})
+        for key, v in by_shape.items():
+            counts[key] = counts.get(key, 0) + v
+        print(f"[{tag}] {P} subjects, {S} a batch: data made in {made:.1f} "
+              f"s; losses {losses}; {5 / train_s:.3f} steps/s, "
+              f"{5 * S * T / train_s:.1f} rows/s (5 steps after a warm-up "
+              f"one); B blocks [32, {S}, {T}, {T}] in diagonal blocks of "
+              f"{sizes}; DUBO {dubo:.6g} over the n = {nb} bucket "
+              f"(encoder + bound {dubo_s:.3f} s); predictor {pred_s:.3f} s; "
+              f"peak device memory {peak:.2f} GiB; launches by shape "
+              f"{_by_shape_str(by_shape)} on {card_line()}", flush=True)
+        del model, state, staged, step
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mlp(data_dir: str, tmp: str):
+    """The MLP model (--conv_hivae=False, hidden [500], y_dim 5) on the
+    canonical data: 3 epochs (the fewest after which the CLI writes the
+    checkpoint the imputation CLI reads), the final validation, the test
+    battery, then imputation in encoder and GP mode.  Returns the training
+    run's launches by (kernel, shape, dtype)."""
+    from hlax_torch.config import ModelArgs
+
+    save = os.path.join(tmp, "run_mlp")
+    opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+    opt.update(data_source_path=data_dir, save_path=save, epochs=3,
+               run_validation=True, run_tests=True, generate_images=False,
+               device="cuda", conv_hivae=False, hidden_layers="[500]",
+               y_dim=5)
+    out, launches, by_shape, plain = _run_cli(opt, os.path.join(tmp,
+                                                                "mlp.log"))
+    if out["model"].cfg.conv or out["model"].conv1 is not None:
+        fail("[mlp] the run did not build the MLP model")
+    rows = _check_run("mlp", out, 30, plain)
+    with open(os.path.join(out["results_path"],
+                           "result_error_final.csv")) as f:
+        err = f.read().split()
+    _need("mlp", by_shape, {
+        ("chol_inv_small_cuda", (32, 20, 20, 20), "float32"): 30,
+        ("chol_inv_bwd_cuda", (32, 20, 20, 20), "float32"): 30,
+        ("chol_inv_mid_cuda", (64, 120, 120), "float32"): 30})
+    ep, ev = out["epoch_seconds"], out["eval_seconds"]
+    sps = _steps_per_s(out, 20)
+    print(f"[mlp] losses per epoch {out['loss_arrs']['net']}; validation "
+          f"rows {rows}; result_error_final {err}; launches {launches}; "
+          f"plain versions on CUDA tensors {plain}", flush=True)
+    print(f"[mlp] epoch seconds {ep}; {sps:.3f} steps/s (5 steps after a "
+          f"warm-up one); final validation {ev['validation']:.3f} s, tests "
+          f"{ev['tests']:.3f} s on {card_line()}", flush=True)
+    del out
+    phase_impute(data_dir, save, tag="mlp")
+    return by_shape
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this smoke run "
@@ -754,17 +1308,31 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
     phase_build()
     rows = phase_kernels()
+    counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         phase_reference(tmp)
-        by_shape, out, data_dir, save = phase_slice(tmp)
+        phase_reference(tmp, torch.float64)
+        counts["slice"], out, data_dir, save = phase_slice(tmp)
         phase_impute(data_dir, save)
         phase_eval(out)
         phase_profile(out)
+        del out
+        torch.cuda.empty_cache()
+        counts["f64"] = phase_f64(data_dir, tmp)
+        counts["longT"] = phase_long_t()
+        counts["mlp"] = phase_mlp(data_dir, tmp)
+    # each row's launches come from the run of the path it belongs to: the
+    # float64 rows from [f64], the long sequences' blocks from [longT], the
+    # rest from [slice]
+    long_shapes = {batch + (n, n) for batch, n in LONG_T_MID_ROWS}
     for r in rows:
-        r["launches"] = by_shape.get((r["name"], tuple(r["shape"])), 0)
+        path = ("f64" if r["dtype"] == "float64" else
+                "longT" if tuple(r["shape"]) in long_shapes else "slice")
+        r["launches"] = counts[path].get(
+            (r["name"], tuple(r["shape"]), r["dtype"]), 0)
         if not r["launches"]:
-            fail(f"{r['name']} was not launched at {r['shape']} on the main "
-                 "path")
+            fail(f"{r['name']} {r['dtype']} was not launched at "
+                 f"{r['shape']} on the {path} path")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

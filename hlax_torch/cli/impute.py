@@ -141,13 +141,10 @@ def run_impute(model_dir: str, data_csv: str, out_csv: str,
     hidden_layers = opt.get("hidden_layers") or "[500]"
     if isinstance(hidden_layers, str):
         hidden_layers = ast.literal_eval(hidden_layers)
-    if not opt.get("conv_hivae", False):
-        raise NotImplementedError(
-            "the run trained the MLP model, which is not ported to "
-            "hlax_torch yet (ROADMAP queue 1 item 12)")
     mcfg = HLVAEConfig(
         layout=het.layout, z_dim=opt["latent_dim"],
-        h_dims=tuple(hidden_layers), y_dim=opt.get("y_dim") or 5, conv=True,
+        h_dims=tuple(hidden_layers), y_dim=opt.get("y_dim") or 5,
+        conv=bool(opt.get("conv_hivae", False)),
         logvar_network=opt.get("logvar_network", False),
         vy_init_real=opt.get("vy_init_real", 1.0),
         vy_init_pos=opt.get("vy_init_pos", 0.5))

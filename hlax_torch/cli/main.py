@@ -40,8 +40,6 @@ _NOT_PORTED = {
     "generate_images": (False, "image generation (ROADMAP queue 1 item 9)"),
     "compute_dtype": ("", "compute_dtype (ROADMAP queue 1 item 13)"),
     "fused_conv": (False, "the fused conv path (ROADMAP queue 1 item 14)"),
-    "nat_grad_f64": (False, "the float64 natural-gradient chain "
-                            "(ROADMAP queue 1 item 11)"),
     "data_parallel": (0, "data parallelism (ROADMAP queue 1 item 16)"),
     "latent_parallel": (1, "latent parallelism (ROADMAP queue 1 item 16)"),
 }
@@ -50,7 +48,8 @@ _NOT_PORTED = {
 # option comes from the training run's arguments.pkl
 _RUN_CONTROL = ("early_stopping", "epochs", "save_interval", "results_path",
                 "save_path", "gp_model_folder", "generate_images",
-                "memory_dbg", "run_tests", "run_validation", "eval_gp_f64")
+                "memory_dbg", "run_tests", "run_validation", "eval_gp_f64",
+                "device")
 
 
 def _check_ported(opt: dict) -> None:
@@ -59,13 +58,11 @@ def _check_ported(opt: dict) -> None:
             raise NotImplementedError(
                 f"--{key}={opt[key]}: {what} is not ported to hlax_torch "
                 f"yet; set --{key}={ok}")
-    if not opt.get("conv_hivae"):
-        raise NotImplementedError(
-            "--conv_hivae=False: the MLP model is not ported to hlax_torch "
-            "yet (ROADMAP queue 1 item 12)")
     for key in ("model_dtype", "gp_dtype"):
         if opt.get(key, "float32") not in _DTYPES:
-            raise NotImplementedError(f"--{key}={opt[key]} is not ported")
+            raise NotImplementedError(
+                f"--{key}={opt[key]} is not ported to hlax_torch (float32 "
+                "and float64 are; bf16 stacks: ROADMAP queue 1 item 13)")
 
 
 def warm_start_candidates(gp_folder: str, save_path: str) -> list:
@@ -124,10 +121,6 @@ def run(opt: dict) -> dict:
     _check_ported(opt)
     device = resolve_device(opt.get("device") or None)
     eval_gp_f64 = bool(opt.get("eval_gp_f64", False))
-    if eval_gp_f64 and device.type == "cuda":
-        raise NotImplementedError(
-            "--eval_gp_f64=True: float64 kernels on the card are not ported "
-            "yet (ROADMAP queue 1 item 11); use --device=cpu")
 
     for key in sorted(opt):
         print(f"{key}: {opt[key]}")
@@ -142,8 +135,8 @@ def run(opt: dict) -> dict:
             opt["data_source_path"], opt[data_key], opt[label_key],
             opt.get(mask_key), opt["csv_types_file"],
             opt.get(true_key) or None, opt.get("csv_range_file"),
-            id_covariate, opt.get("logvar_network", False), True,
-            opt.get("use_ranges", False))
+            id_covariate, opt.get("logvar_network", False),
+            bool(opt.get("conv_hivae")), opt.get("use_ranges", False))
 
     dataset = mk_ds("csv_file_data", "csv_file_label", "mask_file",
                     "true_mask_file")
@@ -172,7 +165,7 @@ def run(opt: dict) -> dict:
     seed = opt.get("seed", 0)
     mcfg = HLVAEConfig(
         layout=dataset.layout, z_dim=latent_dim, h_dims=tuple(hidden_layers),
-        y_dim=opt.get("y_dim") or 5, conv=True,
+        y_dim=opt.get("y_dim") or 5, conv=bool(opt.get("conv_hivae")),
         logvar_network=opt.get("logvar_network", False),
         vy_init_real=opt.get("vy_init_real", 1.0),
         vy_init_pos=opt.get("vy_init_pos", 0.5))
@@ -192,7 +185,8 @@ def run(opt: dict) -> dict:
         natural_gradient_lr=opt.get("natural_gradient_lr", 0.01),
         constrain_scales=opt.get("constrain_scales", False),
         eps=opt.get("eps"), gp_dtype=gp_dtype,
-        nat_grad_jitter=opt.get("nat_grad_jitter", 0.0))
+        nat_grad_jitter=opt.get("nat_grad_jitter", 0.0),
+        nat_grad_f64=bool(opt.get("nat_grad_f64", False)))
 
     subjects_per_batch = opt.get("subjects_per_batch", 20)
     state = tstep.init_train_state(

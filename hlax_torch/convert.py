@@ -7,7 +7,9 @@ Weight mapping (flax -> torch):
     ``transpose(2, 3, 0, 1)``.
   * flax flattens conv features NHWC as (h, w, c), torch NCHW as (c, h, w):
     the dense layers on either side of the flatten (``enc_mlp.Dense_0`` and
-    ``y_layer``) absorb the permutation.
+    ``y_layer``) absorb the permutation.  The MLP model (``conv=False``) has
+    no conv layers, no representation layer and no flatten: its dense
+    layers map as they are.
   * Dense kernel [in, out] -> Linear weight ``.T``.
 Takes plain numpy arrays, so it needs neither JAX nor hlax.
 """
@@ -45,17 +47,18 @@ def load_hlax_vae(model: HLVAE, vae_params) -> None:
         for gi, w in model.rep_w.items():
             put(w, _np(p[f"rep_w_{gi}"]))
             put(model.rep_b[gi], _np(p[f"rep_b_{gi}"]))
-        for name in ("conv1", "conv2"):
-            put(getattr(model, name).weight,
-                _np(p[name]["kernel"]).transpose(3, 2, 0, 1))
-            put(getattr(model, name).bias, _np(p[name]["bias"]))
-        for name in ("deconv1", "deconv2"):
-            put(getattr(model, name).weight,
-                _np(p[name]["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
-            put(getattr(model, name).bias, _np(p[name]["bias"]))
+        if cfg.conv:
+            for name in ("conv1", "conv2"):
+                put(getattr(model, name).weight,
+                    _np(p[name]["kernel"]).transpose(3, 2, 0, 1))
+                put(getattr(model, name).bias, _np(p[name]["bias"]))
+            for name in ("deconv1", "deconv2"):
+                put(getattr(model, name).weight,
+                    _np(p[name]["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+                put(getattr(model, name).bias, _np(p[name]["bias"]))
         for i, layer in enumerate(model.enc_mlp):
             k = _np(p["enc_mlp"][f"Dense_{i}"]["kernel"])
-            if i == 0:   # input (h, w, c) -> (c, h, w)
+            if i == 0 and cfg.conv:   # input (h, w, c) -> (c, h, w)
                 k = k.reshape(feat, feat, 32, -1).transpose(3, 2, 0, 1)
                 put(layer.weight, k.reshape(k.shape[0], -1))
             else:
@@ -67,12 +70,13 @@ def load_hlax_vae(model: HLVAE, vae_params) -> None:
         for name in ("mean_layer", "log_var_layer"):
             put(getattr(model, name).weight, _np(p[name]["kernel"]).T)
             put(getattr(model, name).bias, _np(p[name]["bias"]))
-        # y_layer: output (h, w, c) -> (c, h, w)
-        k = _np(p["y_layer"]["kernel"])
-        k = k.reshape(k.shape[0], feat, feat, 32).transpose(3, 1, 2, 0)
-        put(model.y_layer.weight, k.reshape(-1, k.shape[-1]))
-        b = _np(p["y_layer"]["bias"]).reshape(feat, feat, 32)
-        put(model.y_layer.bias, b.transpose(2, 0, 1).reshape(-1))
+        k, b = _np(p["y_layer"]["kernel"]), _np(p["y_layer"]["bias"])
+        if cfg.conv:   # output (h, w, c) -> (c, h, w)
+            k = k.reshape(k.shape[0], feat, feat, 32).transpose(3, 1, 2, 0)
+            k = k.reshape(-1, k.shape[-1]).T
+            b = b.reshape(feat, feat, 32).transpose(2, 0, 1).reshape(-1)
+        put(model.y_layer.weight, k.T)
+        put(model.y_layer.bias, b)
         for key, w in model.obs.items():
             put(w, _np(p[f"obs_{key}"]))
         for name in ("log_vy_real", "log_vy_pos", "disp_param"):

@@ -1,13 +1,15 @@
-// What the Cholesky kernels share: the pivot guard's constant, the error
-// message entry, and the one-warp guarded Cholesky plus triangular inverse
-// of one matrix whose rows sit in the lanes' registers.
+// What the Cholesky kernels share: the pivot guard's constant, the
+// IEEE-rounded scalar operations in float and double, the error message
+// entry, and the one-warp guarded Cholesky plus triangular inverse of one
+// matrix whose rows sit in the lanes' registers.
 //
-// chol_inv_warp_rows<NP> is the body of the small kernel (NP = 20, 32,
+// chol_inv_warp_rows<Real, NP> is the body of the small kernel (NP = 20, 32,
 // csrc/chol_inv_small.cu) and of the mid kernel's n <= 32 path (NP = 32,
-// csrc/chol_inv_mid.cu).  Lane i holds row i of A (then L) and of L^{-1},
-// identity-padded from n to the compile-time NP; every loop is unrolled and
-// column j is broadcast with __shfl_sync, so no value goes through shared
-// memory and no barrier is taken.  Column step j:
+// csrc/chol_inv_mid.cu), in float and in double.  Lane i holds row i of A
+// (then L) and of L^{-1}, identity-padded from n to the compile-time NP;
+// every loop is unrolled and column j is broadcast with __shfl_sync (a
+// double as two 32-bit halves), so no value goes through shared memory and
+// no barrier is taken.  Column step j:
 //   1. pivot d = A[j][j]; the degenerate-pivot guard of hlax
 //      (hlax/ops/linalg_small.py:43-63): a pivot below floor =
 //      1e-6 * max(diag A, 0), taken over the first n diagonal entries, is
@@ -16,10 +18,10 @@
 //   3. the trailing rows take the rank-1 update A -= l l^T, row j of L^{-1}
 //      scales by 1/sqrt(d) and the rows below take L^{-1}[i] -= L[i][j] *
 //      L^{-1}[j] (the elementary-factor inverse update of the TPU kernels).
-// These are the plain version's float32 operations in its order, with its
-// roundings spelled out (__fmul_rn and __fsub_rn are never fused, the pivot
-// is an IEEE sqrt and division), so the result equals
-// `_chol_inv_plain` (hlax_torch/ops/linalg_small.py) bit for bit in a
+// These are the plain version's operations in its order, with its roundings
+// spelled out (mul_rn and sub_rn are never fused, the pivot is an IEEE sqrt
+// and division), so the result equals `_chol_inv_plain`
+// (hlax_torch/ops/linalg_small.py) bit for bit, in either dtype, in a
 // library built with or without FMA contraction.  The identity padding is
 // bit-neutral: a padded row's column entries are zero, so its updates
 // subtract exact zeros from the real rows, and a padded pivot that falls
@@ -28,8 +30,84 @@
 
 #include <cuda_runtime.h>
 
-#define HLAX_PIVOT_FLOOR_REL 1e-6f
 #define FULL_MASK 0xffffffffu
+
+// hlax's PIVOT_FLOOR_REL, 1e-6 in both dtypes (the plain version multiplies
+// by the float32 or float64 nearest to it)
+__device__ __forceinline__ float pivot_floor_rel(float) { return 1e-6f; }
+__device__ __forceinline__ double pivot_floor_rel(double) { return 1e-6; }
+
+// round-to-nearest operations that FMA contraction leaves alone
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double vmax(double a, double b) {
+  return fmax(a, b);
+}
+
+// The kernel's dynamic shared memory, typed (one array a type: two extern
+// arrays of one name and two types do not link).
+template <typename Real>
+__device__ __forceinline__ Real* dynamic_smem();
+template <>
+__device__ __forceinline__ float* dynamic_smem<float>() {
+  extern __shared__ __align__(16) float smem_f[];
+  return smem_f;
+}
+template <>
+__device__ __forceinline__ double* dynamic_smem<double>() {
+  extern __shared__ __align__(16) double smem_d[];
+  return smem_d;
+}
+
+// 16 bytes of values at p (16-byte aligned, in shared or device memory): a
+// float4, or a double2.  Typed: the same copies through a union of uint4
+// and values measured slower in the backward kernel (PERF.md).
+__device__ __forceinline__ void ld16(const float* p, float* u) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  u[0] = v.x, u[1] = v.y, u[2] = v.z, u[3] = v.w;
+}
+__device__ __forceinline__ void ld16(const double* p, double* u) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  u[0] = v.x, u[1] = v.y;
+}
+__device__ __forceinline__ void st16(float* p, const float* u) {
+  *reinterpret_cast<float4*>(p) = make_float4(u[0], u[1], u[2], u[3]);
+}
+__device__ __forceinline__ void st16(double* p, const double* u) {
+  *reinterpret_cast<double2*>(p) = make_double2(u[0], u[1]);
+}
+
+// 4 values at p (16-byte aligned): one 16-byte copy of floats, two of
+// doubles
+template <typename Real>
+__device__ __forceinline__ void ld4(const Real* p, Real (&u)[4]) {
+#pragma unroll
+  for (int h = 0; h < 4; h += 16 / sizeof(Real)) ld16(p + h, u + h);
+}
+template <typename Real>
+__device__ __forceinline__ void st4(Real* p, const Real (&u)[4]) {
+#pragma unroll
+  for (int h = 0; h < 4; h += 16 / sizeof(Real)) st16(p + h, u + h);
+}
 
 // Message of a CUDA error code, for the Python wrapper's exception.  Each
 // kernel library is built from one .cu file and carries its own copy.
@@ -42,54 +120,53 @@ extern "C" const char* cuda_error_string(int code) {
 // sets x to the identity row, and factors: on return r holds row `lane` of
 // L and x that of L^{-1}, both with garbage above the diagonal
 // (store_lower_row masks it).  A lane >= NP reads nothing.
-template <int NP>
-__device__ __forceinline__ void chol_inv_warp_rows(const float* S, int ld,
+template <typename Real, int NP>
+__device__ __forceinline__ void chol_inv_warp_rows(const Real* S, int ld,
                                                    int n, int lane,
-                                                   float (&r)[NP],
-                                                   float (&x)[NP]) {
+                                                   Real (&r)[NP],
+                                                   Real (&x)[NP]) {
   const bool row = NP == 32 || lane < NP;
 #pragma unroll
   for (int c = 0; c < NP; ++c) {
-    r[c] = row ? S[lane * ld + c] : 0.f;
-    x[c] = c == lane ? 1.f : 0.f;
+    r[c] = row ? S[lane * ld + c] : Real(0);
+    x[c] = c == lane ? Real(1) : Real(0);
   }
-  float dmax = lane < n ? S[lane * ld + lane] : 0.f;
+  Real dmax = lane < n ? S[lane * ld + lane] : Real(0);
 #pragma unroll
   for (int o = 16; o; o >>= 1)
-    dmax = fmaxf(dmax, __shfl_xor_sync(FULL_MASK, dmax, o));
-  const float floor = HLAX_PIVOT_FLOOR_REL * fmaxf(dmax, 0.f);
+    dmax = vmax(dmax, __shfl_xor_sync(FULL_MASK, dmax, o));
+  const Real floor = mul_rn(pivot_floor_rel(Real(0)), vmax(dmax, Real(0)));
 
 #pragma unroll
   for (int j = 0; j < NP; ++j) {
-    const float d = __shfl_sync(FULL_MASK, r[j], j);
+    const Real d = __shfl_sync(FULL_MASK, r[j], j);
     const bool good = d >= floor;
-    const float dc = good ? d : floor;
-    const float inv = __fdiv_rn(1.f, __fsqrt_rn(dc));
-    const float lij = lane > j ? (good ? __fmul_rn(r[j], inv) : 0.f)
-                               : (lane == j ? __fmul_rn(dc, inv) : 0.f);
+    const Real dc = good ? d : floor;
+    const Real inv = div_rn(Real(1), sqrt_rn(dc));
+    const Real lij = lane > j ? (good ? mul_rn(r[j], inv) : Real(0))
+                              : (lane == j ? mul_rn(dc, inv) : Real(0));
     r[j] = lij;
 #pragma unroll
     for (int k = j + 1; k < NP; ++k)
-      r[k] = __fsub_rn(r[k], __fmul_rn(lij, __shfl_sync(FULL_MASK, lij, k)));
+      r[k] = sub_rn(r[k], mul_rn(lij, __shfl_sync(FULL_MASK, lij, k)));
     // L^{-1}: row j scales by 1/sqrt(d), the rows below subtract L[i][j]
     // times it
-    const float s = lane == j ? inv : 1.f;
-    const float below = lane > j ? lij : 0.f;
+    const Real s = lane == j ? inv : Real(1);
+    const Real below = lane > j ? lij : Real(0);
 #pragma unroll
     for (int c = 0; c <= j; ++c) {
-      x[c] = __fmul_rn(x[c], s);
-      x[c] = __fsub_rn(x[c],
-                       __fmul_rn(below, __shfl_sync(FULL_MASK, x[c], j)));
+      x[c] = mul_rn(x[c], s);
+      x[c] = sub_rn(x[c], mul_rn(below, __shfl_sync(FULL_MASK, x[c], j)));
     }
   }
 }
 
 // Row `lane` of a lower-triangular result into S (row stride ld), exact
 // zeros above the diagonal; lanes >= NP store nothing.
-template <int NP>
-__device__ __forceinline__ void store_lower_row(float* S, int ld, int lane,
-                                                const float (&v)[NP]) {
+template <typename Real, int NP>
+__device__ __forceinline__ void store_lower_row(Real* S, int ld, int lane,
+                                                const Real (&v)[NP]) {
   if (lane >= NP) return;
 #pragma unroll
-  for (int c = 0; c < NP; ++c) S[lane * ld + c] = c <= lane ? v[c] : 0.f;
+  for (int c = 0; c < NP; ++c) S[lane * ld + c] = c <= lane ? v[c] : Real(0);
 }

@@ -1,40 +1,54 @@
 // chol_inv_mid: batched Cholesky L and triangular inverse L^{-1} of SPD
-// float32 matrices [batch, n, n] with 24 < n <= 128, row-major in and out.
+// float32 or float64 matrices [batch, n, n] with 24 < n <= 128, row-major in
+// and out.
 //
 // Replaces the Pallas TPU kernel `_mid_kernel` (hlax/ops/linalg_small.py:
 // 472-565, launched by `_chol_inv_mid_batched`).  On the training path it
-// factorizes K0zz stacked with H, [64, 120, 120] float32, and the SPD
-// inverse of the natural-gradient update, [32, 120, 120]: two launches a
-// train step.  Validation, the test battery and GP imputation send it the
-// bucketed B blocks, [32, 256, 32, 32].  As in hlax, the Newton refinement of
+// factorizes K0zz stacked with H, [64, 120, 120], and the SPD inverse of the
+// natural-gradient update, [32, 120, 120]: two launches a train step, in
+// float32 or float64 (--gp_dtype=float64, or the float64 natural-gradient
+// chain of --nat_grad_f64, which adds a third launch; hlax sends float64 to
+// XLA's library Cholesky, the port keeps its kernel and the guard).
+// Validation, the test battery and GP imputation send it the bucketed B
+// blocks, [32, 256, 32, 32]; sequences longer than 128 send it the diagonal
+// blocks of `chol_inv_blocked`'s composition (hlax_torch/ops/linalg_small.py:
+// [32, 4, 100, 100] at T = 200, [32, 2, 125, 125] at T = 500, 128 x 128 for
+// the eval buckets n = 256 and 512).  As in hlax, the Newton refinement of
 // L^{-1} (`_refine_tri_inverse`) runs after the kernel, as two matmuls in the
 // Python wrapper.  Only the lower triangle of A is read; L and L^{-1} get
 // exact zeros above the diagonal.  The degenerate-pivot guard is hlax's: the
 // floor is 1e-6 * max(diag A, 0) over the input's diagonal, and a pivot below
 // it is floored with its column pinned to sqrt(floor) * e_j.
 //
-// What bounds it on an H100: at [64, 120, 120] it reads 3.7 MB and writes
-// 7.4 MB (3.3 us at 3.35 TB/s) against ~2n^3/3 = 1.15 MFLOP a matrix (1.1 us
-// at 67 TFLOP/s float32), so the bound is memory.  In practice the time is
-// latency and instruction count: n dependent pivots a matrix.  The launch
-// plan (path, grid, threads, panel width, shared memory) is worked out in
-// Python, `mid_launch_plan` in hlax_torch/ops/linalg_small.py, and checked
-// here.  Two paths:
+// What bounds it on an H100: at [64, 120, 120] float32 it reads 3.7 MB and
+// writes 7.4 MB (3.3 us at 3.35 TB/s) against ~2n^3/3 = 1.15 MFLOP a matrix
+// (1.1 us at 67 TFLOP/s float32), so the bound is memory; in float64 twice
+// the bytes (6.6 us) against 2.2 us at 34 TFLOP/s, memory again.  In
+// practice the time is latency and instruction count: n dependent pivots a
+// matrix.  The launch plan (path, grid, threads, panel width, shared memory,
+// device workspace) is worked out in Python, `mid_launch_plan` in
+// hlax_torch/ops/linalg_small.py, and checked here.  Two paths:
 //
 // * n <= 32 (the eval buckets): one warp a matrix, four a block, the body
-//   shared with the small kernel (chol_inv_warp_rows<32>,
+//   shared with the small kernel (chol_inv_warp_rows<Real, 32>,
 //   chol_inv_common.cuh): lane i holds row i of A and of L^{-1} in
 //   registers (identity-padded to 32), column j is broadcast with
 //   __shfl_sync; shared memory only stages the coalesced loads and stores,
 //   and no block barrier is taken.  It agrees with the plain version bit
-//   for bit: on an ill-conditioned K0zz the GP bound's loss moves visibly
-//   with one rounding's change in the factorization, and the card's toy
-//   train steps (M = 30) are held to the CPU's (chip_smoke.py).
-// * 32 < n <= 128: one block of 512 threads a matrix, A and L^{-1} resident
-//   in dynamic shared memory (identity-padded to np = ceil8(n); 2 x 57.6 KB
-//   at n = 120, 131 KB at n = 128), with the panel's L21 transposed beside
-//   them.  Right-looking in panels of NB = 8 columns, two block barriers a
-//   panel (31 a matrix at n = 120, against the unblocked loop's 360):
+//   for bit in both dtypes: on an ill-conditioned K0zz the GP bound's loss
+//   moves visibly with one rounding's change in the factorization, and the
+//   card's toy train steps (M = 30) are held to the CPU's (chip_smoke.py).
+// * 32 < n <= 128: one block of 512 threads a matrix, A resident in dynamic
+//   shared memory (identity-padded to np = ceil8(n)), with the panel's L21
+//   transposed beside it.  L^{-1} (np x np) sits beside A in shared memory
+//   where both fit, which is always in float32 (2 x 57.6 KB at n = 120,
+//   131 KB at n = 128); in float64 only up to np = 112, so above it L^{-1}
+//   lives in a device workspace of np x np a matrix that the wrapper
+//   allocates (A alone is 115 KB at n = 120; L2 holds the 64 workspaces of
+//   the training shape, 7.4 MB).  The block barriers make each thread's
+//   writes to it visible to the others, as they do for shared memory.
+//   Right-looking in panels of NB = 8 columns, two block barriers a panel
+//   (31 a matrix at n = 120, against the unblocked loop's 360):
 //     (a) every thread that needs the 8 x 8 diagonal block factors it in its
 //         own registers, pivot by pivot under the guard (hlax's refined
 //         rsqrt), with no shuffle and no barrier; then one thread a row
@@ -46,50 +60,53 @@
 //         L21[i] L^{-1}[panel, :t2].  Each thread owns fixed 4 x 4 subtiles
 //         of A and of L^{-1}, worked out once before the panel loop (no
 //         division per element), and does an 8-deep FMA loop on each from
-//         float4 shared-memory reads that are broadcasts or conflict-free:
-//         each element is loaded and stored once a panel, not once a column.
+//         16-byte reads that are broadcasts or conflict-free: each element
+//         is loaded and stored once a panel, not once a column.
 //   One block a matrix keeps 64 (or 32) of the 132 SMs busy; with the
 //   blocking the kernel is well below the library call, so a thread-block
 //   cluster a matrix was not built (PERF.md).
 // No tensor cores: the canonical K0zz and H have condition >= 1e6, and TF32
-// keeps ~3 digits; the flops are tiny, so FP32 FMA on the CUDA cores does,
-// and wgmma and TMA buy nothing at these sizes.  Built with FMA contraction
+// keeps ~3 digits; the flops are tiny, so FMA on the CUDA cores does, and
+// wgmma and TMA buy nothing at these sizes.  Built with FMA contraction
 // (hlax_torch/ops/cuda_build.py): the blocked path sums in another order
 // than the plain version, with fused multiply-adds and hlax's refined
-// rsqrt pivots, and both paths are held to a float64 reference
-// (chip_smoke.py, tests/test_torch_cuda.py).
+// rsqrt pivots; on float32 inputs it is held to a float64 reference, on
+// float64 inputs to the plain version's own error bar (chip_smoke.py,
+// tests/test_torch_cuda.py).
 #include "chol_inv_common.cuh"
 
 // ---- n <= 32: one warp a matrix ------------------------------------------
 
 #define WARP_LD 33  // staging row stride: a lane's row read is conflict-free
 
+template <typename Real>
 __global__ void __launch_bounds__(128)
-chol_inv_mid_warp_kernel(const float* __restrict__ a, float* __restrict__ l,
-                         float* __restrict__ il, int batch, int n) {
-  extern __shared__ float smem[];
+chol_inv_mid_warp_kernel(const Real* __restrict__ a, Real* __restrict__ l,
+                         Real* __restrict__ il, int batch, int n) {
+  Real* smem = dynamic_smem<Real>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= batch) return;  // whole warps leave; no block barrier follows
-  float* S = smem + warp * 32 * WARP_LD;
+  Real* S = smem + warp * 32 * WARP_LD;
   const size_t off = (size_t)b * n * n;
 
 #pragma unroll
   for (int i = 0; i < 32; ++i)
-    S[i * WARP_LD + lane] = (i < n && lane < n) ? a[off + i * n + lane]
-                                                : (i == lane ? 1.f : 0.f);
+    S[i * WARP_LD + lane] = (i < n && lane < n)
+                                ? a[off + i * n + lane]
+                                : (i == lane ? Real(1) : Real(0));
   __syncwarp();
-  float r[32], x[32];  // row `lane` of A (then L) and of L^{-1}
-  chol_inv_warp_rows<32>(S, WARP_LD, n, lane, r, x);
+  Real r[32], x[32];  // row `lane` of A (then L) and of L^{-1}
+  chol_inv_warp_rows<Real, 32>(S, WARP_LD, n, lane, r, x);
 
   // rows out through the staging tile, coalesced; exact zeros above the
   // diagonal
-  store_lower_row<32>(S, WARP_LD, lane, r);
+  store_lower_row<Real, 32>(S, WARP_LD, lane, r);
   __syncwarp();
   for (int i = 0; i < n; ++i)
     if (lane < n) l[off + i * n + lane] = S[i * WARP_LD + lane];
   __syncwarp();
-  store_lower_row<32>(S, WARP_LD, lane, x);
+  store_lower_row<Real, 32>(S, WARP_LD, lane, x);
   __syncwarp();
   for (int i = 0; i < n; ++i)
     if (lane < n) il[off + i * n + lane] = S[i * WARP_LD + lane];
@@ -108,15 +125,9 @@ __device__ __forceinline__ float pivot_rsqrt(float x) {
   const float y = rsqrtf(x);
   return y * (1.5f - 0.5f * x * y * y);
 }
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ float at(float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+__device__ __forceinline__ double pivot_rsqrt(double x) {
+  const double y = rsqrt(x);
+  return y * (1.5 - 0.5 * x * y * y);
 }
 
 // Subtiles of the trailing update: kind 0 is a 4 x 4 subtile of A's lower
@@ -131,27 +142,30 @@ __host__ __device__ inline int blocked_tasks(int np) {
 // one thread's registers: L11's lower triangle in r, 1/sqrt(pivot) in inv,
 // whether the pivot stood above the floor in good.  Each thread that needs
 // L11 computes it: no shuffles, no barrier.
-__device__ __forceinline__ void factor_diag(const float* A, int np, int t,
-                                            float floor, float (&r)[NB][NB],
-                                            float (&inv)[NB],
+template <typename Real>
+__device__ __forceinline__ void factor_diag(const Real* A, int np, int t,
+                                            Real floor, Real (&r)[NB][NB],
+                                            Real (&inv)[NB],
                                             bool (&good)[NB]) {
 #pragma unroll
   for (int q = 0; q < NB; ++q) {
-    const float* row = A + (t + q) * np + t;
-    const float4 u0 = ld4(row), u1 = ld4(row + 4);
-    r[q][0] = u0.x, r[q][1] = u0.y, r[q][2] = u0.z, r[q][3] = u0.w;
-    r[q][4] = u1.x, r[q][5] = u1.y, r[q][6] = u1.z, r[q][7] = u1.w;
+    const Real* row = A + (t + q) * np + t;
+    Real u0[4], u1[4];
+    ld4(row, u0);
+    ld4(row + 4, u1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) r[q][c] = u0[c], r[q][4 + c] = u1[c];
   }
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
-    const float d = r[j][j];
+    const Real d = r[j][j];
     good[j] = d >= floor;
-    const float dc = good[j] ? d : floor;
+    const Real dc = good[j] ? d : floor;
     inv[j] = pivot_rsqrt(dc);
     r[j][j] = dc * inv[j];
 #pragma unroll
     for (int i = j + 1; i < NB; ++i)
-      r[i][j] = good[j] ? r[i][j] * inv[j] : 0.f;
+      r[i][j] = good[j] ? r[i][j] * inv[j] : Real(0);
 #pragma unroll
     for (int k = j + 1; k < NB; ++k)
 #pragma unroll
@@ -160,15 +174,16 @@ __device__ __forceinline__ void factor_diag(const float* A, int np, int t,
 }
 
 // L11^{-1} (lower) from factor_diag's result, by forward substitution.
-__device__ __forceinline__ void invert_diag(const float (&r)[NB][NB],
-                                            const float (&inv)[NB],
-                                            float (&x)[NB][NB]) {
+template <typename Real>
+__device__ __forceinline__ void invert_diag(const Real (&r)[NB][NB],
+                                            const Real (&inv)[NB],
+                                            Real (&x)[NB][NB]) {
 #pragma unroll
   for (int c = 0; c < NB; ++c) {
     x[c][c] = inv[c];
 #pragma unroll
     for (int q = c + 1; q < NB; ++q) {
-      float v = 0.f;
+      Real v = 0;
 #pragma unroll
       for (int p = c; p < q; ++p) v += r[q][p] * x[p][c];
       x[q][c] = -v * inv[q];
@@ -178,28 +193,40 @@ __device__ __forceinline__ void invert_diag(const float (&r)[NB][NB],
 
 // Row q of an NB x NB lower-triangular register tile into dst, exact zeros
 // above the diagonal.
-__device__ __forceinline__ void store_lower(float* dst, int np,
-                                            const float (&r)[NB][NB]) {
+template <typename Real>
+__device__ __forceinline__ void store_lower(Real* dst, int np,
+                                            const Real (&r)[NB][NB]) {
 #pragma unroll
   for (int q = 0; q < NB; ++q) {
-    float v[NB];
+    Real v0[4], v1[4];
 #pragma unroll
-    for (int c = 0; c < NB; ++c) v[c] = c <= q ? r[q][c] : 0.f;
-    st4(dst + q * np, make_float4(v[0], v[1], v[2], v[3]));
-    st4(dst + q * np + 4, make_float4(v[4], v[5], v[6], v[7]));
+    for (int c = 0; c < 4; ++c) {
+      v0[c] = c <= q ? r[q][c] : Real(0);
+      v1[c] = 4 + c <= q ? r[q][4 + c] : Real(0);
+    }
+    st4(dst + q * np, v0);
+    st4(dst + q * np + 4, v1);
   }
 }
 
+// X_SMEM: L^{-1} in shared memory beside A (a compile-time choice, so every
+// shared-memory access compiles to one); else in `work`, a device workspace
+// of np x np values a matrix, which is not __restrict__: its threads read
+// what others wrote across block barriers.
+template <typename Real, bool X_SMEM>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-chol_inv_mid_blocked_kernel(const float* __restrict__ a, float* __restrict__ l,
-                            float* __restrict__ il, int batch, int n, int np) {
-  extern __shared__ __align__(16) float smem[];
+chol_inv_mid_blocked_kernel(const Real* __restrict__ a, Real* __restrict__ l,
+                            Real* __restrict__ il, Real* work, int batch,
+                            int n, int np) {
   if (blockIdx.x >= batch) return;  // the whole block leaves
-  float* A = smem;                  // np x np: A, then L
-  float* X = A + np * np;           // np x np: L^{-1}
-  float* T = X + np * np;           // NB x np: the panel's L21, transposed
-  float* D = T + NB * np;           // NB x NB: L11, until it replaces the
-                                    // diagonal block that (a) reads
+  Real* A = dynamic_smem<Real>();  // np x np: A, then L
+  Real* X = X_SMEM ? A + np * np                  // np x np: L^{-1}
+                   : work + (size_t)blockIdx.x * np * np;
+  Real* Pt = (X_SMEM ? X : A) + np * np;  // NB x np: the panel's L21,
+                                          // transposed
+  Real* D = Pt + NB * np;                 // NB x NB: L11, until it replaces
+                                          // the diagonal block that (a)
+                                          // reads
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int writer = BLOCK_THREADS - 1;  // stores L11 and L11^{-1}
@@ -209,34 +236,34 @@ chol_inv_mid_blocked_kernel(const float* __restrict__ a, float* __restrict__ l,
   // its lanes columns lane + 32m; every load is in flight before the first
   // store
   {
-    float v[BLOCK_ROWS][4];
+    Real v[BLOCK_ROWS][4];
 #pragma unroll
     for (int k = 0; k < BLOCK_ROWS; ++k)
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         const int i = warp + BLOCK_WARPS * k, c = lane + 32 * m;
         v[k][m] = (i < n && c < n) ? a[off + i * n + c]
-                                   : (i == c ? 1.f : 0.f);
+                                   : (i == c ? Real(1) : Real(0));
       }
 #pragma unroll
     for (int k = 0; k < BLOCK_ROWS; ++k)
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
         const int i = warp + BLOCK_WARPS * k, c = lane + 32 * m;
-        if (i < np && c < np) A[i * np + c] = v[k][m], X[i * np + c] = 0.f;
+        if (i < np && c < np) A[i * np + c] = v[k][m], X[i * np + c] = 0;
       }
   }
   // the pivot floor over the input's diagonal, in every warp
-  float dmax = 0.f;
+  Real dmax = 0;
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     const int i = lane + 32 * m;
-    if (i < n) dmax = fmaxf(dmax, a[off + i * n + i]);
+    if (i < n) dmax = vmax(dmax, a[off + i * n + i]);
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1)
-    dmax = fmaxf(dmax, __shfl_xor_sync(FULL_MASK, dmax, o));
-  const float floor = HLAX_PIVOT_FLOOR_REL * dmax;
+    dmax = vmax(dmax, __shfl_xor_sync(FULL_MASK, dmax, o));
+  const Real floor = pivot_floor_rel(Real(0)) * dmax;
   // my subtiles, once: kind (-1 none), top-left row and column.  Both
   // kinds run row by row, so neighbouring threads share a row and take
   // neighbouring columns: their reads are broadcasts or hit distinct banks.
@@ -267,48 +294,56 @@ chol_inv_mid_blocked_kernel(const float* __restrict__ a, float* __restrict__ l,
   }
   __syncthreads();
 
-  float r[NB][NB], inv[NB];  // L11, 1/sqrt(pivots) of the current panel
+  Real r[NB][NB], inv[NB];  // L11, 1/sqrt(pivots) of the current panel
   bool good[NB];
   for (int t = 0; t < np; t += NB) {
     const int t2 = t + NB;
     // (a) L21 by forward substitution against L11, one thread a row (warps
-    // 0-3), into A and transposed into T, a floored pivot's column left
+    // 0-3), into A and transposed into Pt, a floored pivot's column left
     // zero; the panel rows of L^{-1} times L11^{-1}, one thread a column
     // (warps 4-7); the writer stores L11 into D and L11^{-1} into place.
     // Each of them first factors the diagonal block itself.
     const bool row_thread = tid < np - t2;
     const bool col_thread = tid >= 128 && tid - 128 < t;
     if (row_thread || col_thread || tid == writer)
-      factor_diag(A, np, t, floor, r, inv, good);
+      factor_diag<Real>(A, np, t, floor, r, inv, good);
     if (row_thread) {
-      float* row = A + (t2 + tid) * np + t;
-      const float4 u0 = ld4(row), u1 = ld4(row + 4);
-      float x[NB] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+      Real* row = A + (t2 + tid) * np + t;
+      Real x[NB];
+      {
+        Real u0[4], u1[4];
+        ld4(row, u0);
+        ld4(row + 4, u1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) x[c] = u0[c], x[4 + c] = u1[c];
+      }
 #pragma unroll
       for (int q = 0; q < NB; ++q) {
-        float v = x[q];
+        Real v = x[q];
 #pragma unroll
         for (int p = 0; p < q; ++p) v -= x[p] * r[q][p];
-        x[q] = good[q] ? v * inv[q] : 0.f;
+        x[q] = good[q] ? v * inv[q] : Real(0);
       }
-      st4(row, make_float4(x[0], x[1], x[2], x[3]));
-      st4(row + 4, make_float4(x[4], x[5], x[6], x[7]));
+      const Real x0[4] = {x[0], x[1], x[2], x[3]};
+      const Real x1[4] = {x[4], x[5], x[6], x[7]};
+      st4(row, x0);
+      st4(row + 4, x1);
 #pragma unroll
-      for (int q = 0; q < NB; ++q) T[q * np + t2 + tid] = x[q];
+      for (int q = 0; q < NB; ++q) Pt[q * np + t2 + tid] = x[q];
     } else if (col_thread || tid == writer) {
-      float x[NB][NB];
-      invert_diag(r, inv, x);
+      Real x[NB][NB];
+      invert_diag<Real>(r, inv, x);
       if (tid == writer) {
-        store_lower(D, NB, r);
-        store_lower(X + t * np + t, np, x);
+        store_lower<Real>(D, NB, r);
+        store_lower<Real>(X + t * np + t, np, x);
       } else {
         const int c = tid - 128;
-        float y[NB];
+        Real y[NB];
 #pragma unroll
         for (int q = 0; q < NB; ++q) y[q] = X[(t + q) * np + c];
 #pragma unroll
         for (int q = 0; q < NB; ++q) {
-          float v = 0.f;
+          Real v = 0;
 #pragma unroll
           for (int p = 0; p <= q; ++p) v += x[q][p] * y[p];
           X[(t + q) * np + c] = v;
@@ -319,7 +354,9 @@ chol_inv_mid_blocked_kernel(const float* __restrict__ a, float* __restrict__ l,
     // every thread has read the diagonal block: L11 replaces it
     if (tid < 2 * NB) {
       const int q = tid >> 1, h = 4 * (tid & 1);
-      st4(A + (t + q) * np + t + h, ld4(D + q * NB + h));
+      Real u[4];
+      ld4(D + q * NB + h, u);
+      st4(A + (t + q) * np + t + h, u);
     }
     if (t2 == np) break;
 
@@ -329,29 +366,24 @@ chol_inv_mid_blocked_kernel(const float* __restrict__ a, float* __restrict__ l,
       const bool on_a = kind[m] == 0 && c0[m] >= t2;
       const bool on_x = kind[m] == 1 && r0[m] >= t2 && c0[m] < t2;
       if (!on_a && !on_x) continue;
-      float* dst = (on_a ? A : X) + r0[m] * np + c0[m];
-      float acc[4][4];
+      Real* dst = (on_a ? A : X) + r0[m] * np + c0[m];
+      Real acc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = ld4(dst + i * np);
-        acc[i][0] = v.x, acc[i][1] = v.y, acc[i][2] = v.z, acc[i][3] = v.w;
-      }
+      for (int i = 0; i < 4; ++i) ld4(dst + i * np, acc[i]);
       // acc[i][k] -= sum_q L21[r0 + i][q] * (L21[c0 + k][q] on A, or
-      // L^{-1}[t + q][c0 + k] on L^{-1}): float4 reads along i and along k
+      // L^{-1}[t + q][c0 + k] on L^{-1}): 16-byte reads along i and along k
 #pragma unroll
       for (int q = 0; q < NB; ++q) {
-        const float4 li = ld4(T + q * np + r0[m]);
-        const float4 rk = on_a ? ld4(T + q * np + c0[m])
-                               : ld4(X + (t + q) * np + c0[m]);
+        Real li[4], rk[4];
+        ld4(Pt + q * np + r0[m], li);
+        ld4(on_a ? Pt + q * np + c0[m] : X + (t + q) * np + c0[m], rk);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) acc[i][k] -= at(li, i) * at(rk, k);
+          for (int k = 0; k < 4; ++k) acc[i][k] -= li[i] * rk[k];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        st4(dst + i * np, make_float4(acc[i][0], acc[i][1], acc[i][2],
-                                      acc[i][3]));
+      for (int i = 0; i < 4; ++i) st4(dst + i * np, acc[i]);
     }
     __syncthreads();
   }
@@ -364,47 +396,73 @@ chol_inv_mid_blocked_kernel(const float* __restrict__ a, float* __restrict__ l,
     for (int m = 0; m < 4; ++m) {
       const int i = warp + BLOCK_WARPS * k, c = lane + 32 * m;
       if (i < n && c < n) {
-        l[off + i * n + c] = c <= i ? A[i * np + c] : 0.f;
-        il[off + i * n + c] = c <= i ? X[i * np + c] : 0.f;
+        l[off + i * n + c] = c <= i ? A[i * np + c] : Real(0);
+        il[off + i * n + c] = c <= i ? X[i * np + c] : Real(0);
       }
     }
 }
 
-// Plain C entry for ctypes: launches the plan that `mid_launch_plan` made
-// (path 0: one warp a matrix; path 1: blocked, one block a matrix).  Returns
-// cudaErrorInvalidValue for a plan the kernels do not take, else
-// cudaGetLastError() after the launch.
-extern "C" int chol_inv_mid_launch(const float* a, float* l, float* il,
-                                   int batch, int n, int path, int grid,
-                                   int threads, int panel, int smem,
-                                   void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
+template <typename Real>
+static cudaError_t launch(const void* a_, void* l_, void* il_, void* work_,
+                          int batch, int n, int path, int grid, int threads,
+                          int panel, int smem, cudaStream_t s) {
+  const Real* a = (const Real*)a_;
+  Real *l = (Real*)l_, *il = (Real*)il_, *work = (Real*)work_;
+  const int sz = (int)sizeof(Real);
   cudaError_t err;
   if (path == 0) {
     const int warps = threads / 32;
-    if (n > 32 || threads % 32 || threads > 128 || panel != 0 ||
-        (long long)grid * warps < batch ||
-        smem < warps * 32 * WARP_LD * (int)sizeof(float))
-      return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(chol_inv_mid_warp_kernel,
+    if (n > 32 || threads % 32 || threads > 128 || panel != 0 || work ||
+        (long long)grid * warps < batch || smem < warps * 32 * WARP_LD * sz)
+      return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(chol_inv_mid_warp_kernel<Real>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
-    if (err != cudaSuccess) return (int)err;
-    chol_inv_mid_warp_kernel<<<grid, threads, smem, s>>>(a, l, il, batch, n);
+    if (err != cudaSuccess) return err;
+    chol_inv_mid_warp_kernel<Real><<<grid, threads, smem, s>>>(a, l, il,
+                                                               batch, n);
   } else if (path == 1) {
     const int np = (n + NB - 1) / NB * NB;
+    // A, the transposed panel, L11, and L^{-1} unless it has a workspace
+    const int tiles = (work ? 1 : 2) * np * np + NB * np + NB * NB;
     if (n <= 32 || np > 128 || threads != BLOCK_THREADS || panel != NB ||
         grid < batch || BLOCK_THREADS * MAX_TASKS < blocked_tasks(np) ||
-        smem < (2 * np * np + NB * np + NB * NB) * (int)sizeof(float))
-      return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(chol_inv_mid_blocked_kernel,
+        smem < tiles * sz)
+      return cudaErrorInvalidValue;
+    // float32's L^{-1} always fits beside A: one instantiation
+    auto kernel = chol_inv_mid_blocked_kernel<Real, true>;
+    if constexpr (sizeof(Real) == 8) {
+      if (work) kernel = chol_inv_mid_blocked_kernel<Real, false>;
+    } else if (work) {
+      return cudaErrorInvalidValue;
+    }
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
-    if (err != cudaSuccess) return (int)err;
-    chol_inv_mid_blocked_kernel<<<grid, threads, smem, s>>>(a, l, il, batch,
-                                                            n, np);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, smem, s>>>(a, l, il, work, batch, n, np);
   } else {
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// Plain C entry for ctypes: launches the plan that `mid_launch_plan` made
+// (path 0: one warp a matrix; path 1: blocked, one block a matrix, with
+// `work` the device workspace for L^{-1} of np x np values a matrix, or
+// null when it stays in shared memory) on matrices of `itemsize`-byte
+// values (4: float32, 8: float64).  Returns cudaErrorInvalidValue for a plan
+// the kernels do not take, else cudaGetLastError() after the launch.
+extern "C" int chol_inv_mid_launch(const void* a, void* l, void* il,
+                                   int batch, int n, int itemsize, int path,
+                                   int grid, int threads, int panel, int smem,
+                                   void* work, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (itemsize == 4)
+    return (int)launch<float>(a, l, il, work, batch, n, path, grid, threads,
+                              panel, smem, s);
+  if (itemsize == 8)
+    return (int)launch<double>(a, l, il, work, batch, n, path, grid, threads,
+                               panel, smem, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -18,7 +18,9 @@ Each equal-length group is padded to power-of-two (S, T) buckets, as in
 hlax; padding contributes exactly zero.  On the card T = 20 becomes a 32 x 32
 B block, which goes to the mid Cholesky kernel.  The GP math runs in the
 checkpoint's dtype (float32) by default; ``eval_gp_f64=True`` runs it in
-float64, on the CPU only (the kernels take float32).
+float64 (the float64 kernels on the card).  Sequences longer than 128 pad
+to buckets of 256, 512, ..., whose B blocks go through hlax's blocked
+composition (``chol_inv_blocked``).
 """
 
 from __future__ import annotations
@@ -114,13 +116,9 @@ def _bucket(n: int) -> int:
 
 
 def _gp_inputs(k0, k1, noise, zt, eps, eval_gp_f64: bool):
-    """The GP state in the eval dtype: float64 with ``eval_gp_f64`` (CPU
-    only), else zt's.  Returns (k0, k1, noise, zt, eps, dtype, device)."""
+    """The GP state in the eval dtype: float64 with ``eval_gp_f64``, else
+    zt's.  Returns (k0, k1, noise, zt, eps, dtype, device)."""
     dev = zt.device
-    if eval_gp_f64 and dev.type == "cuda":
-        raise NotImplementedError(
-            "--eval_gp_f64=True: the Cholesky kernels take float32; float64 "
-            "kernels on the card are not ported yet (ROADMAP queue 1 item 11)")
     gdt = torch.float64 if eval_gp_f64 else zt.dtype
     cast = lambda ps: [{k: v.detach().to(gdt) for k, v in p.items()}
                        for p in ps]

@@ -108,6 +108,7 @@ def kld_upper_bound(
     N_tot,                    # total number of rows in the dataset
     eps: float,
     natural_gradient: bool = False,
+    nat_grad_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
            Optional[torch.Tensor]]:
     """Unbiased mini-batched KLD upper bound.
@@ -115,8 +116,13 @@ def kld_upper_bound(
     Returns (kld_total, grad_m, grad_H, iH); the gradients are the
     closed-form natural-gradient quantities and iH the inverse of H for
     reuse by ``natural_gradient_update`` (all None unless
-    ``natural_gradient``).  The natural-gradient chain runs in the input
-    dtype, in hlax's whitened-Gram form (no explicit iK Kz iK product).
+    ``natural_gradient``).  The natural-gradient chain runs in
+    ``nat_grad_dtype`` (default: the input dtype), in hlax's whitened-Gram
+    form (no explicit iK Kz iK product), outside the autograd graph: the
+    loss does not read it.  In another dtype than the input's, K0zz and H
+    are factorized again in that dtype, stacked in one ``chol_inv_blocked``
+    (the float64 kernels on the card), and the returned quantities are in
+    that dtype.
     """
     Ldim = z.shape[0]
     M = z.shape[1]
@@ -162,20 +168,30 @@ def kld_upper_bound(
 
     if not natural_gradient:
         return kld_total, None, None, None
-    iB_mu = torch.einsum("lstu,sul->lst", blk.iB, mu_m)
-    ng_P1 = torch.einsum("lstm,lst->lm", blk.K0xz, iB_mu)[:, :, None]
-    # B_mat = iK KziBK iK + iK in whitened-Gram form:
-    #   = iLK^T (I + C) iLK,  C = sum_st G^T G,  G = iLB K0xz iLK^T
-    Gw = torch.einsum("lstu,lsun->lstn", blk.iLB,
-                      torch.einsum("lstm,lnm->lstn", blk.K0xz, blk.iLK))
-    C_w = torch.einsum("lstm,lstn->lmn", Gw, Gw)              # PSD Gram sum
-    IpC = C_w + torch.eye(C_w.shape[-1], dtype=C_w.dtype, device=C_w.device)
-    B_mat = torch.einsum("lpm,lpq,lqn->lmn", blk.iLK, IpC, blk.iLK)
-    B_mat = 0.5 * (B_mat + B_mat.mT)
-    grad_m = -torch.einsum("lmn,lno->lmo", blk.iK0zz, ng_P1) \
-        + torch.einsum("lmn,lno->lmo", B_mat, m)
-    grad_H = 0.5 * (-iH + B_mat)
-    return kld_total, grad_m, grad_H, iH
+    with torch.no_grad():
+        cdt = nat_grad_dtype or x_st.dtype
+        iB_mu = torch.einsum("lstu,sul->lst", blk.iB, mu_m)
+        ng_P1 = torch.einsum("lstm,lst->lm", blk.K0xz,
+                             iB_mu)[:, :, None].to(cdt)
+        if cdt == blk.LK0zz.dtype:
+            iLK_c, iK_c, iH_c = blk.iLK, blk.iK0zz, iH
+        else:
+            iLs = chol_inv_blocked(torch.cat([blk.K0zz, H]).to(cdt))[1]
+            iLK_c = iLs[:Ldim]
+            iK_c, iH_c = _gram(iLK_c), _gram(iLs[Ldim:])
+        # B_mat = iK KziBK iK + iK in whitened-Gram form:
+        #   = iLK^T (I + C) iLK,  C = sum_st G^T G,  G = iLB K0xz iLK^T
+        Gw = torch.einsum("lstu,lsun->lstn", blk.iLB.to(cdt),
+                          torch.einsum("lstm,lnm->lstn", blk.K0xz.to(cdt),
+                                       iLK_c))
+        C_w = torch.einsum("lstm,lstn->lmn", Gw, Gw)          # PSD Gram sum
+        IpC = C_w + torch.eye(M, dtype=cdt, device=C_w.device)
+        B_mat = torch.einsum("lpm,lpq,lqn->lmn", iLK_c, IpC, iLK_c)
+        B_mat = 0.5 * (B_mat + B_mat.mT)
+        grad_m = -torch.einsum("lmn,lno->lmo", iK_c, ng_P1) \
+            + torch.einsum("lmn,lno->lmo", B_mat, m.to(cdt))
+        grad_H = 0.5 * (-iH_c + B_mat)
+    return kld_total, grad_m, grad_H, iH_c
 
 
 def whitened_w_factor(iLK, K0xz, iLB):
@@ -268,20 +284,24 @@ def natural_gradient_update(m, H, grad_m, grad_H, lr: float, iH=None,
     """Closed-form natural-gradient step on (m, H).
 
     Pass the ``iH`` returned by ``kld_upper_bound`` to skip refactorizing H.
-    ``jitter``: relative diagonal ridge on iH_new before its factorization
-    (scaled by the mean diagonal).  Called under ``torch.no_grad()`` by the
-    train step."""
+    The arithmetic runs in the gradients' dtype (float64 after
+    ``kld_upper_bound(..., nat_grad_dtype=torch.float64)``) and the result
+    is cast back to the dtype of (m, H).  ``jitter``: relative diagonal
+    ridge on iH_new before its factorization (scaled by the mean diagonal).
+    Called under ``torch.no_grad()`` by the train step."""
+    cdt = grad_H.dtype
+    m_c, H_c = m.to(cdt), H.to(cdt)
     if iH is None:
-        iH = _gram(chol_inv_blocked(H)[1])
+        iH = _gram(chol_inv_blocked(H_c)[1])
     iH_new = iH + lr * (grad_H + grad_H.mT)
     if jitter:
         mean_diag = torch.diagonal(iH_new, dim1=-2, dim2=-1).mean(
             -1)[:, None, None]
         iH_new = iH_new + jitter * mean_diag * torch.eye(
-            H.shape[-1], dtype=H.dtype, device=H.device)
+            H.shape[-1], dtype=cdt, device=H.device)
     H_new = _gram(chol_inv_blocked(iH_new)[1])
     m_new = torch.einsum(
         "lmn,lno->lmo", H_new,
-        torch.einsum("lmn,lno->lmo", iH, m)
-        - lr * (grad_m - 2.0 * torch.einsum("lmn,lno->lmo", grad_H, m)))
-    return m_new, H_new
+        torch.einsum("lmn,lno->lmo", iH, m_c)
+        - lr * (grad_m - 2.0 * torch.einsum("lmn,lno->lmo", grad_H, m_c)))
+    return m_new.to(m.dtype), H_new.to(H.dtype)

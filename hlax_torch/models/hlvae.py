@@ -1,5 +1,5 @@
-"""HLVAE: heterogeneous-likelihood VAE, conv encoder/decoder path (port of
-``hlax/models/hlvae.py``).
+"""HLVAE: heterogeneous-likelihood VAE, conv and MLP encoder/decoder paths
+(port of ``hlax/models/hlvae.py``).
 
 Public layouts are hlax's: grouped data [B, n_exp], mask [B, n_raw], theta
 mask [B, n_theta], decoder features y [B, n_raw, y_dim] in grouped order.
@@ -14,8 +14,11 @@ The image stack inside runs NCHW with torch's weight layouts;
     element of a window, as hlax's custom VJP does (``nn.MaxPool2d`` picks
     one winner).
 
-The MLP (non-conv) path, ``compute_dtype`` and the fused conv lowering are
-not ported yet.
+The MLP path (``conv=False``, the tabular panels) reads the normalized
+grouped data [B, n_exp] straight into the encoder MLP, and ``y_layer``
+emits n_raw * y_dim features reshaped straight to grouped order: no
+representation layer, no sigmoid on real means and no division by 255.
+``compute_dtype`` and the fused conv lowering are not ported yet.
 """
 
 from __future__ import annotations
@@ -120,10 +123,6 @@ class HLVAE(nn.Module):
                  device=None):
         super().__init__()
         device = resolve_device(device)
-        if not cfg.conv:
-            raise NotImplementedError(
-                "HLVAE: the MLP (conv=False) path is not ported yet "
-                "(ROADMAP queue 1 item 12)")
         self.cfg = cfg
         lay = cfg.layout
         gen, dev = generator, device
@@ -132,14 +131,19 @@ class HLVAE(nn.Module):
         # --- encoder ---------------------------------------------------
         self.rep_w = nn.ParameterDict()
         self.rep_b = nn.ParameterDict()
-        for gi, g in enumerate(lay.groups):
-            if g.kind in ("cat", "ordinal"):
-                self.rep_w[str(gi)] = _normal((g.n_vars, g.nclass), gen, dev)
-                self.rep_b[str(gi)] = _normal((g.n_vars,), gen, dev)
-        self.conv1 = nn.Conv2d(1, 16, 3, padding=1, device=dev)
-        self.conv2 = nn.Conv2d(16, 32, 3, padding=1, device=dev)
+        self.conv1 = self.conv2 = self.deconv1 = self.deconv2 = None
         feat = cfg.image_side // 4   # 36 -> 9 after two stride-2 pools
-        dims = (32 * feat * feat,) + tuple(cfg.h_dims)
+        if cfg.conv:
+            for gi, g in enumerate(lay.groups):
+                if g.kind in ("cat", "ordinal"):
+                    self.rep_w[str(gi)] = _normal((g.n_vars, g.nclass), gen,
+                                                  dev)
+                    self.rep_b[str(gi)] = _normal((g.n_vars,), gen, dev)
+            self.conv1 = nn.Conv2d(1, 16, 3, padding=1, device=dev)
+            self.conv2 = nn.Conv2d(16, 32, 3, padding=1, device=dev)
+            dims = (32 * feat * feat,) + tuple(cfg.h_dims)
+        else:
+            dims = (lay.n_exp,) + tuple(cfg.h_dims)
         self.enc_mlp = nn.ModuleList(
             _dense(a, b, gen, dev) for a, b in zip(dims[:-1], dims[1:]))
         self.mean_layer = _dense(dims[-1], cfg.z_dim, gen, dev)
@@ -149,15 +153,18 @@ class HLVAE(nn.Module):
         ddims = (cfg.z_dim,) + tuple(reversed(cfg.h_dims))
         self.dec_mlp = nn.ModuleList(
             _dense(a, b, gen, dev) for a, b in zip(ddims[:-1], ddims[1:]))
-        self.y_layer = _dense(ddims[-1], 32 * feat * feat, gen, dev)
-        self.deconv1 = nn.ConvTranspose2d(32, 16, 4, stride=2, padding=1,
-                                          device=dev)
-        self.deconv2 = nn.ConvTranspose2d(16, cfg.y_dim, 4, stride=2,
-                                          padding=1, device=dev)
-        for conv, fan_in in ((self.conv1, 9), (self.conv2, 9 * 16),
-                             (self.deconv1, 16 * 32), (self.deconv2, 16 * 16)):
-            _lecun_normal_(conv.weight, fan_in, gen)
-            nn.init.zeros_(conv.bias)
+        self.y_layer = _dense(ddims[-1], 32 * feat * feat if cfg.conv
+                              else lay.n_raw * cfg.y_dim, gen, dev)
+        if cfg.conv:
+            self.deconv1 = nn.ConvTranspose2d(32, 16, 4, stride=2, padding=1,
+                                              device=dev)
+            self.deconv2 = nn.ConvTranspose2d(16, cfg.y_dim, 4, stride=2,
+                                              padding=1, device=dev)
+            for conv, fan_in in ((self.conv1, 9), (self.conv2, 9 * 16),
+                                 (self.deconv1, 16 * 32),
+                                 (self.deconv2, 16 * 16)):
+                _lecun_normal_(conv.weight, fan_in, gen)
+                nn.init.zeros_(conv.bias)
 
         # --- observation heads -----------------------------------------
         self.obs = nn.ParameterDict()
@@ -200,6 +207,18 @@ class HLVAE(nn.Module):
         lay = cfg.layout
         if norm_data is None:
             norm_data, _ = batch_normalization(data, mask, lay, cfg.conv)
+        hidden = self._conv_features(norm_data, mask) if cfg.conv \
+            else norm_data
+        for layer in self.enc_mlp:
+            hidden = F.relu(layer(hidden))
+        mu = self.mean_layer(hidden)
+        log_var = torch.clamp(self.log_var_layer(hidden), -15.0, 15.0)
+        return mu, log_var
+
+    def _conv_features(self, norm_data, mask):
+        """The conv encoder's flattened features of the normalized rows."""
+        cfg = self.cfg
+        lay = cfg.layout
         # scalarize to one channel per raw variable
         blocks = []
         for gi, g in enumerate(lay.groups):
@@ -220,12 +239,7 @@ class HLVAE(nn.Module):
             img, self.conv1.weight, self.conv1.bias)))
         h = max_pool_2x2(F.relu(cf.conv3x3_same(
             h, self.conv2.weight, self.conv2.bias)))
-        hidden = h.reshape(h.shape[0], -1)
-        for layer in self.enc_mlp:
-            hidden = F.relu(layer(hidden))
-        mu = self.mean_layer(hidden)
-        log_var = torch.clamp(self.log_var_layer(hidden), -15.0, 15.0)
-        return mu, log_var
+        return h.reshape(h.shape[0], -1)
 
     # ------------------------------------------------------------------
     # decoder
@@ -238,6 +252,8 @@ class HLVAE(nn.Module):
         h = z
         for layer in self.dec_mlp:
             h = F.relu(layer(h))
+        if not cfg.conv:
+            return self.y_layer(h).reshape(-1, cfg.n_raw, cfg.y_dim)
         feat = cfg.image_side // 4
         y = self.y_layer(h).reshape(-1, 32, feat, feat)
         y = F.relu(cf.conv_transpose4x4_s2(y, self.deconv1.weight,
@@ -264,7 +280,7 @@ class HLVAE(nn.Module):
             return th.reshape(th.shape[0], -1)
         # count / real / pos / beta: mean head [B, d]
         mean = mean[..., 0]
-        if g.kind == "real":
+        if g.kind == "real" and self.cfg.conv:
             mean = torch.sigmoid(mean)   # conv-real sigmoid
         if self.cfg.logvar_network and g.kind in ("real", "pos"):
             logv = (torch.einsum("bdy,dya->bda", y_g, obs[f"wv_{gi}"])
@@ -297,7 +313,9 @@ class HLVAE(nn.Module):
                 extra = self.log_vy_real
                 if extra is not None and cfg.vy_fixed:
                     extra = extra.detach()
-                out = lik.loglik_real(d_blk / 255.0, m_blk, t_blk,
+                if cfg.conv:
+                    d_blk = d_blk / 255.0
+                out = lik.loglik_real(d_blk, m_blk, t_blk,
                                       norm_params.real_mean,
                                       norm_params.real_var, extra, cfg.conv)
             elif g.kind == "pos":

@@ -4,8 +4,8 @@ Port of ``hlax/ops/linalg_small.py``.  The GP bounds need ``(L, L^{-1})``
 of many small SPD matrices per train step: the per-subject B blocks
 [L, S, T, T] with T ~ 20, and the inducing-point matrices [*, M, M] with
 M ~ 120.  Three hand-written CUDA kernels compute them and the small
-factorization's backward, each on a launch plan worked out here and checked
-by its C entry:
+factorization's backward, in float32 and float64, each on a launch plan
+worked out here and checked by its C entry:
 
   * ``chol_inv_small_cuda`` (``csrc/chol_inv_small.cu``, n <= 48): replaces
     the TPU kernel ``_kernel``.  For n <= 32 one warp a matrix with the
@@ -16,30 +16,40 @@ by its C entry:
   * ``chol_inv_mid_cuda`` (``csrc/chol_inv_mid.cu``, 24 < n <= 128):
     replaces the TPU kernel ``_mid_kernel``.  For n <= 32 the small
     kernel's one-warp body at size 32; above, one block a matrix, blocked in
-    panels of 8 columns (``mid_launch_plan``).  As in hlax, one Newton
-    step ``_refine_tri_inverse`` follows it.
+    panels of 8 columns, with L^{-1} in a device workspace where it does not
+    fit in shared memory beside A (float64 above np = 112;
+    ``mid_launch_plan``).  As in hlax, one Newton step
+    ``_refine_tri_inverse`` follows it.
   * ``chol_inv_bwd_cuda`` (``csrc/chol_inv_bwd.cu``, n <= 48): the backward
     of the small factorization, replaces the TPU kernel ``_bwd_kernel``.
     One warp a matrix, zero-padded to a compiled size (20 for T = 20); each
     of its five products is a loop of fused multiply-adds on register
     subtiles of 4 x 4 a lane (``bwd_launch_plan``).
 
+``chol_inv_blocked`` is hlax's dispatcher: the small kernel for n <= 24,
+the mid kernel up to 128, and above that hlax's blocked composition, with
+the diagonal blocks through the mid kernel and the panels, Schur updates
+and inverse assembly as ``torch.matmul`` (TF32 stays off).  hlax sends
+float64 to XLA's library Cholesky and falls back to it when n has no
+divisor in [8, 128]; the port keeps its kernels in both dtypes, and for
+such n makes the trailing diagonal block shorter.
+
 The two forward kernels keep hlax's degenerate-pivot guard: a pivot below
 1e-6 * max(diag A) is floored and its column pinned to sqrt(floor) * e_j, so
-a matrix that float32 rounding makes indefinite still factorizes to a
-finite nearby one.  Both read only the lower triangle of A.
+a matrix that rounding makes indefinite still factorizes to a finite
+nearby one.  Both read only the lower triangle of A.
 
 ``_chol_inv_plain`` is the plain PyTorch version of both forward kernels
 (the guarded column loop as tensor ops), ``_chol_inv_bwd_plain`` that of the
 backward kernel (``_bwd_reference``, the matmul-only Cholesky-plus-inverse
 pullback).  The small kernel and the mid kernel's one-warp path do the
-plain version's float32 operations in its order and agree with it bit for
-bit; the mid kernel's blocked path and the backward kernel sum in another
-order with fused multiply-adds and are held to a float64 reference instead.
-The autograd Functions use the plain versions for a CPU tensor only; for a
-CUDA tensor they launch the kernel or raise.  The mid factorization's
-backward is ``_bwd_reference`` on every device, as hlax's ``_mid_bwd`` is
-plain matmuls outside any Pallas kernel.
+plain version's operations in its order and agree with it bit for bit, in
+either dtype; the mid kernel's blocked path and the backward kernel sum in
+another order with fused multiply-adds and are held to an error bar
+instead.  The autograd Functions use the plain versions for a CPU tensor
+only; for a CUDA tensor they launch the kernel or raise.  The mid
+factorization's backward is ``_bwd_reference`` on every device, as hlax's
+``_mid_bwd`` is plain matmuls outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -70,13 +80,15 @@ BWD_SIZES = (20, 32, 48)
 BWD_BUFS = 6          # NP x NP buffers a matrix, BWD_BUFS in chol_inv_bwd.cu
 H100_SMS = 132
 SMEM_PER_BLOCK = 232_448  # an H100 block's dynamic shared memory, bytes
+DTYPES = (torch.float32, torch.float64)  # what the kernels take
 
 # Kernel launches and plain-version calls on CUDA tensors since the last
 # ``reset_counters``: a run reads them to show which path it took.
 LAUNCHES = {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
             "chol_inv_bwd_cuda": 0}
-# the same launches by input shape: {(kernel, shape): launches}
-LAUNCHES_BY_SHAPE: Dict[Tuple[str, Tuple[int, ...]], int] = {}
+# the same launches by input shape and dtype:
+# {(kernel, shape, "float32" or "float64"): launches}
+LAUNCHES_BY_SHAPE: Dict[Tuple[str, Tuple[int, ...], str], int] = {}
 PLAIN_CUDA_CALLS = {"chol_inv_plain": 0, "chol_inv_bwd_plain": 0}
 
 
@@ -87,9 +99,9 @@ def reset_counters() -> None:
     LAUNCHES_BY_SHAPE.clear()
 
 
-def _count_launch(name: str, shape) -> None:
+def _count_launch(name: str, t: torch.Tensor) -> None:
     LAUNCHES[name] += 1
-    key = (name, tuple(shape))
+    key = (name, tuple(t.shape), str(t.dtype).removeprefix("torch."))
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
@@ -101,20 +113,28 @@ class MidPlan(NamedTuple):
     panel: int     # panel width of the blocked path (0 on the warp path)
     smem: int      # dynamic shared memory a block, bytes
     per_block: int  # matrices a block
+    work: int      # device workspace for L^{-1}, bytes (0: in shared memory)
 
 
-def mid_launch_plan(n: int, batch: int) -> MidPlan:
-    """The plan ``chol_inv_mid_launch`` (``csrc/chol_inv_mid.cu``) takes:
-    for n <= 32 four warps a block, each staging its identity-padded 32 x 32
-    matrix in a 33-float-stride tile; above, 512 threads a matrix with A and
-    L^{-1} identity-padded to a multiple of the panel width in shared
-    memory, plus the panel's L21 transposed and its diagonal block."""
+def mid_launch_plan(n: int, batch: int, itemsize: int = 4) -> MidPlan:
+    """The plan ``chol_inv_mid_launch`` (``csrc/chol_inv_mid.cu``) takes for
+    values of ``itemsize`` bytes: for n <= 32 four warps a block, each
+    staging its identity-padded 32 x 32 matrix in a 33-value-stride tile;
+    above, 512 threads a matrix with A identity-padded to a multiple of the
+    panel width in shared memory, plus the panel's L21 transposed and its
+    diagonal block, and L^{-1} beside A where it fits (always in float32,
+    up to np = 112 in float64), else in a device workspace."""
     if n <= MAX_WARP_ROWS:
         w = MID_WARPS_PER_BLOCK
-        return MidPlan("warp", -(-batch // w), 32 * w, 0, w * 32 * 33 * 4, w)
+        return MidPlan("warp", -(-batch // w), 32 * w, 0,
+                       w * 32 * 33 * itemsize, w, 0)
     np_ = -(-n // MID_PANEL) * MID_PANEL
+    tile = itemsize * np_ * np_
+    panel = itemsize * MID_PANEL * (np_ + MID_PANEL)
+    x_in_smem = 2 * tile + panel <= SMEM_PER_BLOCK
     return MidPlan("blocked", batch, MID_BLOCK_THREADS, MID_PANEL,
-                   4 * (2 * np_ * np_ + MID_PANEL * (np_ + MID_PANEL)), 1)
+                   (2 if x_in_smem else 1) * tile + panel, 1,
+                   0 if x_in_smem else batch * tile)
 
 
 def _per_block(batch: int, sms: int, smem_per_matrix: int) -> int:
@@ -138,17 +158,19 @@ class SmallPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def small_launch_plan(n: int, batch: int, sms: int = H100_SMS) -> SmallPlan:
+def small_launch_plan(n: int, batch: int, sms: int = H100_SMS,
+                      itemsize: int = 4) -> SmallPlan:
     """The plan ``chol_inv_small_launch`` (``csrc/chol_inv_small.cu``)
-    takes: for n <= 32 the smallest compiled size np >= n, each warp staging
-    its matrix in and out through two np x (np + 1) tiles; above, A and
-    L^{-1} in shared memory, n x n each.  The warps a block spread the batch
-    over the ``sms`` SMs (``_per_block``)."""
+    takes for values of ``itemsize`` bytes: for n <= 32 the smallest
+    compiled size np >= n, each warp staging its matrix in and out through
+    two np x (np + 1) tiles; above, A and L^{-1} in shared memory, n x n
+    each.  The warps a block spread the batch over the ``sms`` SMs
+    (``_per_block``)."""
     if n <= MAX_WARP_ROWS:
         np_ = next(s for s in SMALL_SIZES if s >= n)
-        path, per_matrix = "warp", 4 * 2 * np_ * (np_ + 1)
+        path, per_matrix = "warp", itemsize * 2 * np_ * (np_ + 1)
     else:
-        np_, path, per_matrix = n, "smem", 4 * 2 * n * n
+        np_, path, per_matrix = n, "smem", itemsize * 2 * n * n
     w = _per_block(batch, sms, per_matrix)
     return SmallPlan(path, np_, -(-batch // w), 32 * w, w * per_matrix, w)
 
@@ -163,12 +185,14 @@ class BwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_launch_plan(n: int, batch: int, sms: int = H100_SMS) -> BwdPlan:
-    """The plan ``chol_inv_bwd_launch`` (``csrc/chol_inv_bwd.cu``) takes:
-    the smallest compiled size np >= n, BWD_BUFS np x np buffers a matrix,
-    and the warps a block that spread the batch over the SMs."""
+def bwd_launch_plan(n: int, batch: int, sms: int = H100_SMS,
+                    itemsize: int = 4) -> BwdPlan:
+    """The plan ``chol_inv_bwd_launch`` (``csrc/chol_inv_bwd.cu``) takes for
+    values of ``itemsize`` bytes: the smallest compiled size np >= n,
+    BWD_BUFS np x np buffers a matrix, and the warps a block that spread the
+    batch over the SMs."""
     np_ = next(s for s in BWD_SIZES if s >= n)
-    per_matrix = 4 * BWD_BUFS * np_ * np_
+    per_matrix = itemsize * BWD_BUFS * np_ * np_
     m = _per_block(batch, sms, per_matrix)
     return BwdPlan(np_, -(-batch // m), 32 * m, m * per_matrix, m)
 
@@ -217,8 +241,8 @@ def _chol_inv_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _check(a: torch.Tensor, lo: int, hi: int, what: str) -> None:
     if not a.is_cuda:
         raise ValueError(f"{what}: needs a CUDA tensor, got {a.device}")
-    if a.dtype != torch.float32:
-        raise ValueError(f"{what}: needs float32, got {a.dtype}")
+    if a.dtype not in DTYPES:
+        raise ValueError(f"{what}: needs float32 or float64, got {a.dtype}")
     if a.dim() < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"{what}: needs [..., n, n], got {tuple(a.shape)}")
     if not lo < a.shape[-1] <= hi:
@@ -228,9 +252,10 @@ def _check(a: torch.Tensor, lo: int, hi: int, what: str) -> None:
         raise ValueError(f"{what}: needs a contiguous tensor")
 
 
-def _launch(name: str, entry: str, a: torch.Tensor, *plan: int):
-    """(L, L^{-1}) from the C entry ``entry(a, l, il, batch, n, *plan,
-    stream)`` of ``lib<name>.so``."""
+def _launch(name: str, entry: str, a: torch.Tensor, plan, work=()):
+    """(L, L^{-1}) from the C entry ``entry(a, l, il, batch, n, itemsize,
+    *plan, *work, stream)`` of ``lib<name>.so``: ``plan`` ints, ``work``
+    device pointers."""
     n = a.shape[-1]
     l, il = torch.empty_like(a), torch.empty_like(a)
     batch = a.numel() // (n * n)
@@ -238,45 +263,46 @@ def _launch(name: str, entry: str, a: torch.Tensor, *plan: int):
         return l, il
     lib = load_library(name)
     fn = getattr(lib, entry)
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (2 + len(plan))
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + len(plan))
+                   + [ctypes.c_void_p] * (len(work) + 1))
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = fn(a.data_ptr(), l.data_ptr(), il.data_ptr(), batch, n, *plan,
-              stream)
+    code = fn(a.data_ptr(), l.data_ptr(), il.data_ptr(), batch, n,
+              a.element_size(), *plan, *work, stream)
     check_launch(lib, entry, code)
-    _count_launch(f"{name}_cuda", a.shape)
+    _count_launch(f"{name}_cuda", a)
     return l, il
 
 
 def chol_inv_small_cuda(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(L, L^{-1}) of contiguous float32 CUDA [..., n, n], n <= 48, by the
-    one-warp-per-matrix kernel on the plan of ``small_launch_plan``."""
+    """(L, L^{-1}) of contiguous float32 or float64 CUDA [..., n, n],
+    n <= 48, by the one-warp-per-matrix kernel on the plan of
+    ``small_launch_plan``."""
     _check(a, 0, MAX_SMALL_T, "chol_inv_small_cuda")
     n = a.shape[-1]
     plan = small_launch_plan(n, max(a.numel() // (n * n), 1),
-                             _sms(a.device.index or 0))
+                             _sms(a.device.index or 0), a.element_size())
     return _launch("chol_inv_small", "chol_inv_small_launch", a,
-                   {"warp": 0, "smem": 1}[plan.path], plan.np, plan.grid,
-                   plan.threads, plan.smem)
+                   ({"warp": 0, "smem": 1}[plan.path], plan.np, plan.grid,
+                    plan.threads, plan.smem))
 
 
 def chol_inv_mid_cuda(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(L, L^{-1}) of contiguous float32 CUDA [..., n, n], 24 < n <= 128, by
-    the mid kernel on the plan of ``mid_launch_plan`` (without the Newton
-    refinement).  hlax sends 24 < n <= 48 to its mid kernel too
-    (``chol_inv_blocked``)."""
-    if a.is_cuda and a.shape[-1] > MAX_MID_M:
-        raise NotImplementedError(
-            "chol_inv_mid_cuda: n > 128 needs the blocked composition of "
-            "hlax's chol_inv_blocked, not ported yet "
-            "(ROADMAP queue 1 item 10)")
+    """(L, L^{-1}) of contiguous float32 or float64 CUDA [..., n, n],
+    24 < n <= 128, by the mid kernel on the plan of ``mid_launch_plan``
+    (without the Newton refinement).  hlax sends 24 < n <= 48 to its mid
+    kernel too (``chol_inv_blocked``)."""
     _check(a, MAX_DIAG_BLOCK, MAX_MID_M, "chol_inv_mid_cuda")
     n = a.shape[-1]
-    plan = mid_launch_plan(n, a.numel() // (n * n))
+    plan = mid_launch_plan(n, a.numel() // (n * n), a.element_size())
+    work = None
+    if plan.work:
+        work = torch.empty(plan.work // a.element_size(), dtype=a.dtype,
+                           device=a.device)
     return _launch("chol_inv_mid", "chol_inv_mid_launch", a,
-                   {"warp": 0, "blocked": 1}[plan.path], plan.grid,
-                   plan.threads, plan.panel, plan.smem)
+                   ({"warp": 0, "blocked": 1}[plan.path], plan.grid,
+                    plan.threads, plan.panel, plan.smem),
+                   (work.data_ptr() if work is not None else None,))
 
 
 def _refine_tri_inverse(l, il):
@@ -313,7 +339,8 @@ def _chol_inv_bwd_plain(l, il, l_bar, il_bar):
 def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
                       il_bar: torch.Tensor) -> torch.Tensor:
     """A_bar of (L, L^{-1}) = chol_inv(A) from the saved factors and the
-    cotangents of both outputs, float32 CUDA [..., n, n], n <= 48, by the
+    cotangents of both outputs, float32 or float64 CUDA [..., n, n] of one
+    dtype, n <= 48, by the
     kernel on the plan of ``bwd_launch_plan``; ``_bwd_reference``'s lower
     convention.  L and L^{-1} must be lower-triangular, as the forward
     kernel leaves them.  The cotangents may be strided or expanded
@@ -324,23 +351,27 @@ def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
     if not l.shape == il.shape == l_bar.shape == il_bar.shape:
         raise ValueError("chol_inv_bwd_cuda: needs four equal shapes, got "
                          f"{[tuple(t.shape) for t in (l, il, l_bar, il_bar)]}")
+    if len({t.dtype for t in (l, il, l_bar, il_bar)}) != 1:
+        raise ValueError("chol_inv_bwd_cuda: needs one dtype, got "
+                         f"{[t.dtype for t in (l, il, l_bar, il_bar)]}")
     n = l.shape[-1]
     a_bar = torch.empty_like(l)
     batch = l.numel() // (n * n)
     if batch == 0:
         return a_bar
-    plan = bwd_launch_plan(n, batch, _sms(l.device.index or 0))
+    plan = bwd_launch_plan(n, batch, _sms(l.device.index or 0),
+                           l.element_size())
     lib = load_library("chol_inv_bwd")
     fn = lib.chol_inv_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(l.device).cuda_stream
     code = fn(l.data_ptr(), il.data_ptr(), l_bar.data_ptr(), il_bar.data_ptr(),
-              a_bar.data_ptr(), batch, n, plan.np, plan.grid, plan.threads,
-              plan.smem, stream)
+              a_bar.data_ptr(), batch, n, l.element_size(), plan.np,
+              plan.grid, plan.threads, plan.smem, stream)
     check_launch(lib, "chol_inv_bwd_launch", code)
-    _count_launch("chol_inv_bwd_cuda", l.shape)
+    _count_launch("chol_inv_bwd_cuda", l)
     return a_bar
 
 
@@ -387,11 +418,76 @@ def chol_inv_mid(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _CholInvMid.apply(a.contiguous())
 
 
+def _largest_block(m: int, cap: int) -> int:
+    """Largest divisor of m that is <= cap and >= 8 (0 if none), as hlax's."""
+    for cand in range(min(cap, m), 7, -1):
+        if m % cand == 0:
+            return cand
+    return 0
+
+
+def _block_sizes(n: int):
+    """Diagonal block sizes of the composition for n > 128: hlax's
+    ``_largest_block(n, 128)`` repeated; for n with no divisor in [8, 128]
+    (where hlax falls back to XLA's Cholesky) the fewest blocks of at most
+    128, equal but for a shorter trailing one, which the mid kernel pads
+    with the identity to its panel width."""
+    b = _largest_block(n, MAX_MID_M)
+    if b:
+        return [b] * (n // b)
+    nb = -(-n // MAX_MID_M)
+    b = -(-n // nb)
+    return [b] * (nb - 1) + [n - b * (nb - 1)]
+
+
+def _chol_inv_composed(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hlax's right-looking block factorization of ``chol_inv_blocked``
+    (``hlax/ops/linalg_small.py:729-762``): each diagonal block, at most
+    128, goes through ``chol_inv_blocked`` (the kernels on the card, their
+    plain versions on the CPU), the off-diagonal panels and Schur updates are matmuls, and
+    the inverse is assembled by the block forward-substitution identity
+        iL[i,k] = -iL[i,i] (sum_{k<=j<i} L[i,j] iL[j,k]).
+    Differentiable: autograd runs through the matmuls and the diagonal
+    blocks' custom backward.  ``a`` is split into block views once, so the
+    backward forms one full-size gradient of ``a``, not one a block."""
+    sizes = _block_sizes(a.shape[-1])
+    nb = len(sizes)
+    blk = [row.split(sizes, dim=-1) for row in a.split(sizes, dim=-2)]
+    L = [[None] * nb for _ in range(nb)]
+    iL = [[None] * nb for _ in range(nb)]
+    for k in range(nb):
+        s = blk[k][k]
+        for j in range(k):
+            s = s - torch.matmul(L[k][j], L[k][j].mT)
+        L[k][k], iL[k][k] = chol_inv_blocked(s)
+        for i in range(k + 1, nb):
+            p = blk[i][k]
+            for j in range(k):
+                p = p - torch.matmul(L[i][j], L[k][j].mT)
+            L[i][k] = torch.matmul(p, iL[k][k].mT)
+    for k in range(nb):
+        for i in range(k + 1, nb):
+            acc = torch.matmul(L[i][k], iL[k][k])
+            for j in range(k + 1, i):
+                acc = acc + torch.matmul(L[i][j], iL[j][k])
+            iL[i][k] = -torch.matmul(iL[i][i], acc)
+
+    def rows(B):
+        return torch.cat([torch.cat(
+            [B[i][j] if j <= i else a.new_zeros(a.shape[:-2]
+                                                + (sizes[i], sizes[j]))
+             for j in range(nb)], dim=-1) for i in range(nb)], dim=-2)
+    return rows(L), rows(iL)
+
+
 def chol_inv_blocked(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatcher of hlax's ``chol_inv_blocked``: the small kernel for
-    n <= 24, the mid kernel (plus refinement) above.  On CUDA, n > 128
-    raises NotImplementedError (hlax's blocked composition, not ported
-    yet); the plain version on the CPU takes any n."""
-    if a.shape[-1] <= MAX_DIAG_BLOCK:
+    n <= 24, the mid kernel (plus refinement) up to 128, hlax's blocked
+    composition above (``_chol_inv_composed``), on the card and on the
+    CPU alike."""
+    n = a.shape[-1]
+    if n <= MAX_DIAG_BLOCK:
         return chol_inv_small(a)
-    return chol_inv_mid(a)
+    if n <= MAX_MID_M:
+        return chol_inv_mid(a)
+    return _chol_inv_composed(a)

@@ -6,7 +6,8 @@
     torch's Adam update rule is optax.adam's (eps outside the square root,
     bias correction on).
   * with natural_gradient, (m, H) leave Adam and take the closed-form
-    natural-gradient update after each step, under ``torch.no_grad()``.
+    natural-gradient update after each step, under ``torch.no_grad()``;
+    ``nat_grad_f64`` runs that chain in float64 whatever the GP dtype.
 
 The step runs eagerly, one batch at a time; ``train_epoch`` loops it over
 batches gathered on the device by ``hlax_torch.data.dataset.gather_batch``.
@@ -42,6 +43,10 @@ class TrainConfig:
     gp_dtype: torch.dtype = torch.float32
     # relative diagonal ridge on iH_new before its factorization
     nat_grad_jitter: float = 0.0
+    # float64 for the closed-form natural-gradient chain (the [L,M,M]
+    # iK/B_mat/iH compositions and the (m, H) update); no effect when
+    # gp_dtype is already float64
+    nat_grad_f64: bool = False
 
     def __post_init__(self):
         if self.eps is None:
@@ -167,7 +172,8 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig):
         kld, gm, gH, iH = gp_elbo.kld_upper_bound(
             spec0, state.k0, spec1, state.k1, noise, state.m, H, state.zt,
             x_st, valid.to(gdt), mu_st, log_v_st, cfg.P_tot, cfg.N_tot,
-            cfg.eps, natural_gradient=cfg.natural_gradient)
+            cfg.eps, natural_gradient=cfg.natural_gradient,
+            nat_grad_dtype=torch.float64 if cfg.nat_grad_f64 else None)
 
         P_batch = (valid.sum(dim=1) > 0).to(nll.dtype).sum()
         nll_scaled = nll * cfg.P_tot / P_batch

@@ -192,21 +192,151 @@ def test_autograd_path_launches_the_kernels(gen):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     a = _spd((2, 20, 20), gen)
-    with pytest.raises(ValueError, match="float32"):
-        tls.chol_inv_small_cuda(a.double())
+    with pytest.raises(ValueError, match="float32 or float64"):
+        tls.chol_inv_small_cuda(a.half())
     with pytest.raises(ValueError, match="contiguous"):
         tls.chol_inv_small_cuda(a.mT)
     with pytest.raises(ValueError, match="n <="):
         tls.chol_inv_small_cuda(_spd((2, 50, 50), gen))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="n <= 128"):
         tls.chol_inv_mid_cuda(_spd((2, 130, 130), gen))
     l, il = tls.chol_inv_small_cuda(a)
     with pytest.raises(ValueError, match="equal shapes"):
         tls.chol_inv_bwd_cuda(l, il, l[:1], il)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="one dtype"):
         tls.chol_inv_bwd_cuda(l, il, l.double(), il)
     with pytest.raises(ValueError, match="CUDA"):
         tls.chol_inv_bwd_cuda(l, il, l.cpu(), il)
     big = _spd((2, 50, 50), gen)
     with pytest.raises(ValueError, match="n <="):
         tls.chol_inv_bwd_cuda(big, big, big, big)
+
+
+# ---- float64 -----------------------------------------------------------------
+
+def _residuals(a, l, il):
+    """(max |LL^T - A| / |A| over the batch, Frobenius; max |L^-1 L - I|),
+    in the inputs' dtype."""
+    eye = torch.eye(a.shape[-1], device=a.device, dtype=a.dtype)
+    rec = ((l @ l.mT - a).norm(dim=(-2, -1)) / a.norm(dim=(-2, -1))).max()
+    return rec.item(), (il @ l - eye).abs().max().item()
+
+
+F64_SMALL_SHAPES = [(32, 20, 20, 20), (1001, 20, 20), (33, 19, 19),
+                    (64, 24, 24), (1001, 32, 32), (64, 40, 40), (17, 48, 48)]
+
+
+@pytest.mark.parametrize("kind", ["spd", "indefinite"])
+@pytest.mark.parametrize("shape", F64_SMALL_SHAPES)
+def test_float64_small_kernel_equals_plain_version(gen, shape, kind):
+    """In float64 the small kernel also does its plain version's operations
+    in the same order: equal bit for bit, exact zeros above the diagonal."""
+    a = (_spd if kind == "spd" else _indefinite)(shape, gen).double()
+    before = tls.LAUNCHES["chol_inv_small_cuda"]
+    l, il = tls.chol_inv_small_cuda(a)
+    torch.cuda.synchronize()
+    assert tls.LAUNCHES["chol_inv_small_cuda"] == before + 1
+    assert l.dtype == il.dtype == torch.float64
+    lp, ilp = tls._chol_inv_plain(a)
+    torch.testing.assert_close(l, lp, rtol=0, atol=0)
+    torch.testing.assert_close(il, ilp, rtol=0, atol=0)
+    assert not torch.triu(l, 1).any() and not torch.triu(il, 1).any()
+
+
+@pytest.mark.parametrize("shape", [(64, 120, 120), (32, 120, 120),
+                                   (8, 32, 32), (32, 256, 32, 32),
+                                   (3, 40, 40), (2, 112, 112), (5, 113, 113),
+                                   (2, 128, 128)])
+def test_float64_mid_kernel_against_plain_version(gen, shape):
+    """The float64 mid kernel: its one-warp path (n <= 32) bit-equal to the
+    plain version; its blocked path, with L^-1 in shared memory (n <= 112)
+    or in the device workspace (n > 112), has residuals |LL^T - A| / |A|
+    and |L^-1 L - I| within 4x the plain version's plus 1e-12, on SPD and
+    on ill-conditioned (logspace(0, -6) spectrum) inputs."""
+    n = shape[-1]
+    for a in (_spd(shape, gen).double(),
+              _ill(shape, gen)):
+        l, il = tls.chol_inv_mid_cuda(a)
+        torch.cuda.synchronize()
+        assert torch.isfinite(l).all() and torch.isfinite(il).all()
+        assert not torch.triu(l, 1).any() and not torch.triu(il, 1).any()
+        lp, ilp = tls._chol_inv_plain(a)
+        if tls.mid_launch_plan(n, 1, 8).path == "warp":
+            torch.testing.assert_close(l, lp, rtol=0, atol=0)
+            torch.testing.assert_close(il, ilp, rtol=0, atol=0)
+            continue
+        got, want = _residuals(a, l, il), _residuals(a, lp, ilp)
+        for g, w in zip(got, want):
+            assert g <= 4 * w + 1e-12, (got, want)
+
+
+def _ill(shape, gen):
+    n = shape[-1]
+    q, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, device="cuda",
+                                       dtype=torch.float64))
+    a = (q * torch.logspace(0.0, -6.0, n, device="cuda",
+                            dtype=torch.float64)) @ q.T
+    return (0.5 * (a + a.T)).expand(shape).contiguous()
+
+
+@pytest.mark.parametrize("shape", [(32, 20, 20, 20), (3, 48, 48),
+                                   (33, 19, 19), (17, 32, 32)])
+def test_float64_bwd_kernel_against_plain_version(gen, shape):
+    """The float64 backward kernel sums in another order than its plain
+    version: its distance to the plain version on the card may be at most
+    4x the distance between the plain version on the card and on the CPU
+    (two orders of the same products), plus 1e-12 max|A_bar|."""
+    l, il = tls.chol_inv_small_cuda(_spd(shape, gen).double())
+    lb = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float64)
+    ilb = torch.randn(shape, generator=gen, device="cuda",
+                      dtype=torch.float64)
+    before = tls.LAUNCHES["chol_inv_bwd_cuda"]
+    got = tls.chol_inv_bwd_cuda(l, il, lb, ilb)
+    torch.cuda.synchronize()
+    assert tls.LAUNCHES["chol_inv_bwd_cuda"] == before + 1
+    plain = tls._chol_inv_bwd_plain(l, il, lb, ilb)
+    plain_cpu = tls._bwd_reference(l.cpu(), il.cpu(), lb.cpu(), ilb.cpu())
+    err = (got - plain).abs().max().item()
+    spread = (plain.cpu() - plain_cpu).abs().max().item()
+    assert err <= 4 * spread + 1e-12 * plain.abs().max().item()
+    assert not torch.triu(got, 1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_composition_goes_through_the_kernels(gen, dtype):
+    """n > 128 (sequences of T = 200 and the eval buckets of 256) runs
+    hlax's blocked composition with the diagonal blocks on the mid kernel,
+    forward and backward, in both dtypes; no plain version runs, and L and
+    L^-1 match float64 torch.linalg on the same input."""
+    tls.reset_counters()
+    for n in (200, 256, 131):
+        a = _spd((3, n, n), gen).to(dtype).requires_grad_(True)
+        l, il = tls.chol_inv_blocked(a)
+        (l.sum() + il.sum()).backward()
+        assert torch.isfinite(a.grad).all()
+        l64 = torch.linalg.cholesky(a.detach().double())
+        tol = 1e-4 if dtype == torch.float32 else 1e-12
+        assert (l.double() - l64).abs().max().item() <= tol
+        eye = torch.eye(n, device="cuda", dtype=torch.float64)
+        assert (il.double() @ l64 - eye).abs().max().item() <= 10 * tol
+    assert tls.LAUNCHES["chol_inv_mid_cuda"] == 6
+    assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
+                                    "chol_inv_bwd_plain": 0}
+    assert all(dt == str(dtype).removeprefix("torch.") and sh[-1] <= 128
+               for (_, sh, dt) in tls.LAUNCHES_BY_SHAPE)
+
+
+def test_float64_autograd_path_launches_the_kernels(gen):
+    """float64 on CUDA launches the float64 kernels, never a plain
+    version."""
+    tls.reset_counters()
+    for n in (20, 30, 120):
+        a = _spd((4, n, n), gen).double().requires_grad_(True)
+        l, il = tls.chol_inv_blocked(a)
+        (l.sum() + il.sum()).backward()
+        assert torch.isfinite(a.grad).all()
+    assert tls.LAUNCHES == {"chol_inv_small_cuda": 1, "chol_inv_mid_cuda": 2,
+                            "chol_inv_bwd_cuda": 1}
+    assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
+                                    "chol_inv_bwd_plain": 0}
+    assert {dt for (_, _, dt) in tls.LAUNCHES_BY_SHAPE} == {"float64"}

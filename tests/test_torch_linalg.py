@@ -294,3 +294,38 @@ def test_kernel_build_flags(tmp_path, monkeypatch):
         (tmp_path / f"lib{name}.flags").write_text(
             " ".join(cuda_build.nvcc_flags(name)))
         assert not cuda_build._stale(name)       # newer than its sources
+
+
+@pytest.mark.parametrize("batch", [1, 32, 64, 640, 8192])
+def test_launch_plans_in_float64(batch):
+    """The three plans count 8 bytes a value.  The small and backward
+    kernels' shared memory doubles and still fits a block (the backward's
+    six 48 x 48 buffers, 110,592 bytes, one matrix a block); the mid
+    kernel's blocked path keeps L^-1 beside A up to np = 112 and moves it
+    to a device workspace of np x np a matrix above, so the canonical
+    M = 120 comes to 123,392 bytes of shared memory."""
+    for n in range(1, tls.MAX_MID_M + 1):
+        if n <= tls.MAX_SMALL_T:
+            for plan_of in (tls.small_launch_plan, tls.bwd_launch_plan):
+                p32, p64 = plan_of(n, batch), plan_of(n, batch, 132, 8)
+                assert p64.np == p32.np
+                assert p64.smem == 2 * p32.smem // p32.per_block \
+                    * p64.per_block <= tls.SMEM_PER_BLOCK
+                assert p64.grid * p64.per_block >= batch
+        if n <= tls.MAX_DIAG_BLOCK:
+            continue
+        p32, p64 = tls.mid_launch_plan(n, batch), tls.mid_launch_plan(
+            n, batch, 8)
+        assert p64.smem <= tls.SMEM_PER_BLOCK and p32.work == 0
+        assert (p64.path, p64.grid, p64.threads) == \
+            (p32.path, p32.grid, p32.threads)
+        np_ = -(-n // 8) * 8
+        if n <= 32:
+            assert p64.smem == 2 * p32.smem and p64.work == 0
+        elif np_ <= 112:
+            assert p64.smem == 2 * p32.smem and p64.work == 0
+        else:
+            assert p64.smem == 8 * (np_ * np_ + 8 * (np_ + 8))
+            assert p64.work == batch * np_ * np_ * 8
+    assert tls.bwd_launch_plan(48, 1, 132, 8).smem == 110_592
+    assert tls.mid_launch_plan(120, batch, 8).smem == 123_392 <= 232_448
