@@ -3,7 +3,10 @@ each against its plain PyTorch version in float32 and float64, trains the
 canonical Heterogeneous Health-MNIST D4 config at full width for 30 steps
 with validation and the test battery, then imputes with the trained model;
 then the same config in float64 and with the float64 natural-gradient
-chain, sequences of T = 200 and 500, and the MLP model.
+chain, sequences of T = 200 and 500, and the MLP model; holds the train
+step's CUDA graphs against its eager steps; and trains the canonical config
+for its full 300 epochs.  The CLI runs ([slice], [f64], [mlp], [full])
+train through ``make_train_epoch``'s CUDA graphs, the CLI's path.
 
     python3 chip_smoke.py
 
@@ -33,7 +36,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              n <= 32 path.
   4. slice   generated D4 splits (prediction = training, test, validation;
              P=200, T=20, 25% missing) -> hlax_torch.cli.main.run with the
-             canonical config, 3 epochs of 10 steps on the card, then the
+             canonical config, 3 epochs of 10 steps on the card (through
+             the CUDA graphs, as every CLI run here, with a torch.profiler
+             trace of epoch 2 by --profile_dir), then the
              final validation and the test battery; launch counters must
              show every Cholesky and every small backward went through the
              kernels, and each row of the kernel table's shape was launched.
@@ -41,10 +46,11 @@ Phases (each prints its own lines; any failure exits non-zero):
              model, encoder mode and GP mode: rows/s.
   6. eval    imputation-eval samples/s (bench.py's protocol: forward with
              the q(z) mean over the training set in 500-row chunks).
-  7. profile steps/s of the canonical step, and device time by kernel.
+  7. profile steps/s of the canonical step, eager, and device time by
+             kernel.
   8. f64     the canonical config with --gp_dtype=float64
              --model_dtype=float64, and in float32 with --nat_grad_f64=True,
-             10 steps each and the final validation with
+             20 steps each and the final validation with
              --eval_gp_f64=True: launches by kernel, shape and dtype, no
              plain version on the card.
   9. longT   sequences of T = 200 (40 subjects, 4 a batch) and T = 500 (20,
@@ -55,8 +61,26 @@ Phases (each prints its own lines; any failure exits non-zero):
  10. mlp     the canonical data with --conv_hivae=False (hidden [500],
              y_dim 5): 3 epochs, the final validation, the test battery,
              imputation in encoder and GP mode.
-Every main path (slice, f64, longT, mlp) runs with the launch counters set
-to 0 just before it and read just after.  The line before the card's line
+ 11. graph   from two canonical states made from one seed, 10 eager steps
+             and 10 steps through make_train_epoch's CUDA graphs on the same
+             batches, in float64 and float32, with the noise injected
+             (1 step a graph) and drawn from the generator (3 steps a graph
+             and the remainder's), both with cuDNN's deterministic
+             algorithms (beside them, the spread of two eager runs with its
+             default ones): loss trajectory, m, H and the VAE's
+             parameters within 1e-10 (float64) and 1e-5 (float32), equal
+             launch counts, equal generator states; a checkpoint of the
+             graph state restored into a third state takes the same next 10
+             steps.  Then steps/s of the eager path and the graph path
+             (--scan_unroll 1 and 10, and 10 pregathered) in alternating
+             rounds, and the graph path's device time and idle share under
+             torch.profiler.
+ 12. full    the canonical config's 300 epochs through the CLI on the graph
+             path (--epochs_per_dispatch=5 --scan_unroll=10), validation
+             every 5 epochs, the test battery: the final net loss, the last
+             point of the validation curve, the run's seconds.
+Every main path (slice, f64, longT, mlp, full) runs with the launch
+counters set to 0 just before it and read just after.  The line before the card's line
 is the kernel table as JSON, one row a kernel, shape and dtype; the last
 line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
 """
@@ -568,11 +592,26 @@ def _time_row(name, source, replaces, batch, n, dtype, fn, plain, library,
                 bound_by=by, library_ms=lib_ms)
 
 
+# the spectrum of the float64 guard inputs, logspace(0, -F64_GUARD_DECADES):
+# float64 rounding makes it indefinite, so trailing pivots fall below the
+# float64 floor of 2e-15 max diag A
+F64_GUARD_DECADES = 20.0
+
+
+def guard_f64(batch, n, gen):
+    q, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, device="cuda",
+                                       dtype=torch.float64))
+    ev = torch.logspace(0.0, -F64_GUARD_DECADES, n, device="cuda",
+                        dtype=torch.float64)
+    a = (q * ev) @ q.T
+    return (0.5 * (a + a.T)).expand(batch + (n, n)).contiguous()
+
+
 def phase_small_kernel_f64(gen):
     """The float64 small kernel at F64_SMALL_SHAPES, bit for bit against its
-    plain version on SPD inputs and on the logspace(0, -10) spectrum, whose
-    trailing pivots fall below the guard's floor in float64 too; timed at
-    the training B blocks' shape.  Returns its table row."""
+    plain version on SPD inputs and on guard inputs (``guard_f64``), whose
+    trailing pivots fall below the float64 floor; timed at the training B
+    blocks' shape.  Returns its table row."""
     from hlax_torch.ops import linalg_small as ls
 
     f64 = torch.float64
@@ -581,8 +620,7 @@ def phase_small_kernel_f64(gen):
         plan = ls.small_launch_plan(n, int(np.prod(batch)), ls._sms(0), 8)
         for kind in ("spd", "guard"):
             a = (random_spd(batch, n, gen).double() if kind == "spd"
-                 else indefinite_spd(batch, n, gen)[1].expand(
-                     batch + (n, n)).contiguous())
+                 else guard_f64(batch, n, gen))
             l, il = ls.chol_inv_small_cuda(a)
             torch.cuda.synchronize()
             lp, ilp = ls._chol_inv_plain(a)
@@ -611,7 +649,7 @@ def phase_small_kernel_f64(gen):
 
 def phase_mid_kernel_f64(gen):
     """The float64 mid kernel at F64_MID_SHAPES on SPD, ill-conditioned
-    (logspace(0, -6)) and guard (logspace(0, -10)) inputs: the n <= 32 path
+    (logspace(0, -6)) and guard (``guard_f64``) inputs: the n <= 32 path
     bit for bit; the blocked path's residuals |LL^T - A| / |A| and
     |L^-1 L - I| at most F64_FACTOR times the plain version's plus F64_ABS
     (SPD and ill-conditioned), finite and factoring a nearby matrix on the
@@ -628,11 +666,12 @@ def phase_mid_kernel_f64(gen):
         for kind in ("spd", "ill", "guard"):
             if kind == "spd":
                 a = random_spd(batch, n, gen).double()
+            elif kind == "guard":
+                a = guard_f64(batch, n, gen)
             else:
                 q, _ = torch.linalg.qr(torch.randn(
                     (n, n), generator=gen, device="cuda", dtype=f64))
-                ev = torch.logspace(0.0, -6.0 if kind == "ill" else -10.0, n,
-                                    device="cuda", dtype=f64)
+                ev = torch.logspace(0.0, -6.0, n, device="cuda", dtype=f64)
                 a = (q * ev) @ q.T
                 a = (0.5 * (a + a.T)).expand(batch + (n, n)).contiguous()
             l, il = ls.chol_inv_mid_cuda(a)
@@ -840,9 +879,10 @@ def phase_slice(tmp: str):
     write_canonical_data(data_dir)
     save = os.path.join(tmp, "run")
     opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+    prof_dir = os.path.join(tmp, "profile")
     opt.update(data_source_path=data_dir, save_path=save, epochs=3,
                run_validation=True, run_tests=True, generate_images=False,
-               device="cuda")
+               device="cuda", profile_dir=prof_dir)
     ls.reset_counters()
     out = cli.run(opt)
     torch.cuda.synchronize()
@@ -881,6 +921,16 @@ def phase_slice(tmp: str):
     with open(os.path.join(results, "result_error_final.csv")) as f:
         print(f"[slice] validation rows {dict(rows)}; result_error_final "
               f"{f.read().split()}", flush=True)
+    trace = os.path.join(prof_dir, "epochs_2-2.pt.trace.json")
+    if not os.path.isfile(trace):
+        fail(f"--profile_dir wrote no trace of epoch 2: {trace}")
+    with open(trace) as f:
+        kernels = sum(e.get("cat") == "kernel"
+                      for e in json.load(f).get("traceEvents", []))
+    print(f"[slice] --profile_dir: {trace}, {os.path.getsize(trace)} bytes, "
+          f"{kernels} device kernel events", flush=True)
+    if not kernels:
+        fail("the trace of epoch 2 holds no device kernel")
     ep, ev = out["epoch_seconds"], out["eval_seconds"]
     print(f"[slice] mid launches: {MID_PER_STEP * steps} in training, "
           f"{eval_mid} in validation and tests; launches by shape "
@@ -972,11 +1022,9 @@ def phase_eval(out) -> None:
 
 
 def phase_profile(out, n_steps: int = 10) -> None:
-    """Steps/s of the canonical step over ``n_steps`` more steps, then a
-    torch.profiler pass over 5 steps: device time by kernel, and the
+    """Steps/s of the canonical step, eager, over ``n_steps`` more steps,
+    then a torch.profiler pass over 5 steps: device time by kernel, and the
     device's idle share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from hlax_torch.data.dataset import gather_batch
 
     state, staged, step = out["state"], out["staged"], out["train_step"]
@@ -990,11 +1038,21 @@ def phase_profile(out, n_steps: int = 10) -> None:
     per_step = (time.perf_counter() - t0) / n_steps
     print(f"[profile] {n_steps} steps: {per_step * 1e3:.3f} ms/step, "
           f"{1 / per_step:.3f} steps/s on {card_line()}", flush=True)
+    _profile_steps("profile", lambda: step(state, gather_batch(staged,
+                                                                idx)), 5)
+
+
+def _profile_steps(tag: str, run, steps: int, calls: int = 5) -> None:
+    """``run`` ``calls`` times (``steps`` train steps in all) under
+    torch.profiler: wall and device-busy ms a step, the device's idle share
+    of the wall time, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
-            step(state, gather_batch(staged, idx))
+        for _ in range(calls):
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -1007,13 +1065,15 @@ def phase_profile(out, n_steps: int = 10) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + t
     busy = sum(by_name.values())
     if not busy:
-        print("[profile] the profiler recorded no device time", flush=True)
+        print(f"[{tag}] the profiler recorded no device time: device busy "
+              "and idle share not measured", flush=True)
         return
-    print(f"[profile] 5 steps under the profiler: wall {wall_us / 5e3:.3f} "
-          f"ms/step, device busy {busy / 5e3:.3f} ms/step, idle share "
-          f"{1 - busy / wall_us:.3f}", flush=True)
+    print(f"[{tag}] {steps} steps under the profiler: wall "
+          f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
+          f"{busy / steps / 1e3:.3f} ms/step, idle share "
+          f"{1 - busy / wall_us:.3f} on {card_line()}", flush=True)
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"[profile] {t / 5e3:8.4f} ms/step {t / busy:6.1%}  "
+        print(f"[{tag}] {t / steps / 1e3:8.4f} ms/step {t / busy:6.1%}  "
               f"{name[:90]}", flush=True)
 
 
@@ -1085,9 +1145,11 @@ def _need(tag: str, by_shape, want) -> None:
 def phase_f64(data_dir: str, tmp: str):
     """The canonical config in the reference's own dtype
     (--gp_dtype=float64 --model_dtype=float64) and in float32 with the
-    float64 natural-gradient chain (--nat_grad_f64=True): one epoch of 10
-    steps each and the final validation with --eval_gp_f64=True.  Returns
-    the launches by (kernel, shape, dtype) of both runs."""
+    float64 natural-gradient chain (--nat_grad_f64=True): two epochs of 10
+    steps each through the graphs (the second's time is the graph path's
+    steps/s) and the final validation with --eval_gp_f64=True; then the
+    eager step's steps/s.  Returns the launches by (kernel, shape, dtype)
+    of both runs."""
     from hlax_torch.config import ModelArgs
 
     b, m = (32, 20, 20, 20), (32, 120, 120)
@@ -1110,7 +1172,7 @@ def phase_f64(data_dir: str, tmp: str):
     for name, over, want in variants:
         opt = ModelArgs().parse_options([f"--f={CONFIG}"])
         opt.update(data_source_path=data_dir,
-                   save_path=os.path.join(tmp, f"run_{name}"), epochs=1,
+                   save_path=os.path.join(tmp, f"run_{name}"), epochs=2,
                    run_validation=True, run_tests=False,
                    generate_images=False, device="cuda", eval_gp_f64=True,
                    **over)
@@ -1118,7 +1180,7 @@ def phase_f64(data_dir: str, tmp: str):
         out, launches, by_shape, plain = _run_cli(
             opt, os.path.join(tmp, f"{name}.log"))
         seconds = time.perf_counter() - t0
-        rows = _check_run(f"f64 {name}", out, 10, plain)
+        rows = _check_run(f"f64 {name}", out, 20, plain)
         _need(f"f64 {name}", by_shape, want)
         if name == "float64" and any(dt != "float64"
                                      for _, _, dt in by_shape):
@@ -1132,8 +1194,10 @@ def phase_f64(data_dir: str, tmp: str):
               f"{rows['net_loss']:.6g}; run {seconds:.1f} s; launches "
               f"{launches}; by shape {_by_shape_str(by_shape)}; plain "
               f"versions on CUDA tensors {plain}", flush=True)
-        print(f"[f64] {name}: {sps:.3f} steps/s (5 steps after a warm-up "
-              f"one, 20 subjects a batch) on {card_line()}", flush=True)
+        print(f"[f64] {name}: graph path {10 / out['epoch_seconds'][-1]:.3f}"
+              f" steps/s (the second epoch), eager {sps:.3f} steps/s (5 "
+              f"steps after a warm-up one, 20 subjects a batch) on "
+              f"{card_line()}", flush=True)
         del out
         torch.cuda.empty_cache()
     return counts
@@ -1299,6 +1363,275 @@ def phase_mlp(data_dir: str, tmp: str):
     return by_shape
 
 
+# graph steps against eager steps: the largest relative difference allowed.
+# Both run with cuDNN's deterministic algorithms: its default weight
+# gradient (wgrad algorithm 0) sums with atomics, in another order from run
+# to run, and the GP's conditioning (K0zz ~1e8 at the float64 jitter of
+# 1e-6) carries a last-bit difference to ~1e-8 of m and H in 10 steps.
+GRAPH_BOUND = {torch.float32: 1e-5, torch.float64: 1e-10}
+GRAPH_STEPS = 10         # one canonical epoch
+FULL_EPOCHS = 300        # the canonical config's
+
+
+def canonical_setup(data_dir: str):
+    """The canonical training split and kernel structure."""
+    from hlax_torch.config import ModelArgs
+    from hlax_torch.data.dataset import load_dataset
+    from hlax_torch.gp.kernels import build_kernel_specs
+
+    opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+    ds = load_dataset(data_dir, opt["csv_file_data"], opt["csv_file_label"],
+                      opt["mask_file"], opt["csv_types_file"], None, None,
+                      opt["id_covariate"], False, True, False)
+    spec0, spec1 = build_kernel_specs(
+        opt["cat_kernel"], opt["bin_kernel"], opt["sqexp_kernel"],
+        opt["cat_int_kernel"], opt["bin_int_kernel"],
+        opt["covariate_missing_val"], opt["id_covariate"])
+    return ds, spec0, spec1
+
+
+def canonical_state(ds, spec0, spec1, dtype, seed: int = 0):
+    """The canonical model and train state (conv, hidden [500], L = 32,
+    M = 120, natural gradients, constrained scales) in ``dtype`` (model and
+    GP), made on the card from ``seed`` as the CLI makes it."""
+    from hlax_torch.data.dataset import subject_batches
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.train import step as tstep
+
+    cfg = tstep.TrainConfig(latent_dim=32, M=120, P_tot=float(ds.P),
+                            N_tot=float(len(ds)), id_covariate=2,
+                            natural_gradient=True, constrain_scales=True,
+                            gp_dtype=dtype)
+    model = HLVAE(HLVAEConfig(layout=ds.layout, z_dim=32, h_dims=(500,),
+                              y_dim=5, conv=True),
+                  torch.Generator(device="cuda").manual_seed(seed),
+                  "cuda").to(dtype)
+    return tstep.init_train_state(model, spec0, spec1,
+                                  next(subject_batches(ds, 20)), cfg,
+                                  seed=seed), cfg
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max |b|."""
+    a, b = a.detach().double(), b.detach().double()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _state_diff(a, b, loss_a, loss_b):
+    """The largest relative differences of two runs: the loss trajectory,
+    m, H, and the VAE's parameters."""
+    la, lb = np.asarray(loss_a, np.float64), np.asarray(loss_b, np.float64)
+    return {"loss": float((np.abs(la - lb) / np.abs(lb)).max()),
+            "m": _rel(a.m, b.m), "H": _rel(a.H, b.H),
+            "vae": max(_rel(p, q) for p, q in zip(a.vae.parameters(),
+                                                   b.vae.parameters()))}
+
+
+def _eager_spread(ds, spec0, spec1, dtype, staged, idx, eps) -> dict:
+    """Two runs of the same eager steps from one seed with cuDNN's default
+    algorithms: their largest relative differences, the run-to-run spread
+    that the graph check's deterministic algorithms take away."""
+    from hlax_torch.data.dataset import gather_batch
+    from hlax_torch.train import step as tstep
+
+    runs = []
+    for _ in range(2):
+        st, cfg = canonical_state(ds, spec0, spec1, dtype)
+        step = tstep.make_train_step(st.vae, spec0, spec1, cfg)
+        losses = [step(st, gather_batch(staged, i), eps=eps[j])["loss"]
+                  for j, i in enumerate(torch.as_tensor(idx, device="cuda"))]
+        runs.append((st, [x.item() for x in losses]))
+    return _state_diff(runs[1][0], runs[0][0], runs[1][1], runs[0][1])
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _graph_check(tag, ds, spec0, spec1, dtype, staged, idx, eps, unroll,
+                 tmp):
+    """From two states made from one seed, GRAPH_STEPS eager steps and the
+    same steps through ``make_train_epoch``'s graphs (``unroll`` steps a
+    graph), with the noise ``eps`` injected or, where it is None, drawn
+    from each state's generator; the results, the launch counts and (with
+    the generator) the generators' states must agree.  With the generator,
+    the graph state is then saved, restored into a third state, and both
+    take another epoch through graphs: they must agree too.  Returns the
+    eager state, the graph state and their TrainConfig."""
+    from hlax_torch.data.dataset import gather_batch
+    from hlax_torch.ops import linalg_small as ls
+    from hlax_torch.train import checkpoint as ckpt
+    from hlax_torch.train import step as tstep
+
+    bound = GRAPH_BOUND[dtype]
+    a, cfg = canonical_state(ds, spec0, spec1, dtype)
+    b, _ = canonical_state(ds, spec0, spec1, dtype)
+    if _state_diff(a, b, [1.0], [1.0])["vae"] or not torch.equal(a.H, b.H):
+        fail(f"[graph] {tag}: two states made from one seed differ")
+    step = tstep.make_train_step(a.vae, spec0, spec1, cfg)
+    epoch = tstep.make_train_epoch(b.vae, spec0, spec1, cfg, unroll=unroll)
+    idx_t = torch.as_tensor(idx, device="cuda")
+    ls.reset_counters()
+    eager = [step(a, gather_batch(staged, i),
+                  eps=None if eps is None else eps[j])["loss"]
+             for j, i in enumerate(idx_t)]
+    eager = [x.item() for x in eager]
+    counts_eager = dict(ls.LAUNCHES_BY_SHAPE)
+    ls.reset_counters()
+    graph = epoch(b, staged, idx, eps=eps)["loss"]
+    torch.cuda.synchronize()
+    counts_graph = dict(ls.LAUNCHES_BY_SHAPE)
+    d = _state_diff(b, a, graph, eager)
+    noise = "generator" if eps is None else "injected"
+    print(f"[graph] {tag}, {noise} noise, unroll {unroll}: "
+          f"{GRAPH_STEPS} eager steps vs {GRAPH_STEPS} graph steps, max "
+          f"relative difference: loss {d['loss']:.3e}, m {d['m']:.3e}, H "
+          f"{d['H']:.3e}, VAE parameters {d['vae']:.3e} (bound {bound:g}); "
+          f"losses {graph.tolist()}; steps {a.step} and {b.step}; launches "
+          f"by shape {_by_shape_str(counts_graph)}", flush=True)
+    if not max(d.values()) <= bound:
+        fail(f"[graph] {tag} {noise}: graph steps differ from eager steps "
+             f"by {d}")
+    if a.step != b.step or counts_graph != counts_eager:
+        fail(f"[graph] {tag} {noise}: steps {a.step} vs {b.step}, launches "
+             f"{counts_eager} vs {counts_graph}")
+    if eps is not None:
+        return a, b, cfg
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        fail(f"[graph] {tag}: the generators' states differ after the "
+             "steps")
+    path = os.path.join(tmp, f"graph_{tag}")
+    ckpt.save(path, b)
+    c, _ = canonical_state(ds, spec0, spec1, dtype, seed=1)
+    if not ckpt.restore(path, c):
+        fail(f"[graph] {tag}: no checkpoint at {path}")
+    epoch_c = tstep.make_train_epoch(c.vae, spec0, spec1, cfg, unroll=unroll)
+    loss_b = epoch(b, staged, idx)["loss"]
+    loss_c = epoch_c(c, staged, idx)["loss"]
+    d = _state_diff(c, b, loss_c, loss_b)
+    print(f"[graph] {tag}: a restored checkpoint's next {GRAPH_STEPS} graph "
+          f"steps against the saved state's: {d}", flush=True)
+    if not max(d.values()) <= bound or not torch.equal(
+            b.generator.get_state(), c.generator.get_state()):
+        fail(f"[graph] {tag}: the restored state's steps differ by {d}")
+    del c, epoch_c
+    return a, b, cfg
+
+
+def _time_epochs(run, epochs: int) -> float:
+    """Steps/s of ``epochs`` calls of ``run`` (one epoch each), host clock
+    to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        run()
+    torch.cuda.synchronize()
+    return epochs * GRAPH_STEPS / (time.perf_counter() - t0)
+
+
+def phase_graph(data_dir: str, tmp: str) -> None:
+    """The CUDA graphs of ``make_train_epoch`` against the eager steps on
+    the canonical config (``_graph_check``), in float64 and float32 with
+    the noise injected and drawn from the generator, both sides with
+    cuDNN's deterministic algorithms (beside them, two eager runs with its
+    default ones, whose weight gradients sum with atomics); then, in float32,
+    steps/s of the eager path and of the graph path (unroll 1 and 10, and
+    10 with the epoch pregathered), in alternating rounds of 3 epochs each,
+    and the graph path's device time and idle share under the profiler."""
+    from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
+    from hlax_torch.train import step as tstep
+
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    idx = np.stack(list(epoch_subject_batches(ds.P, 20,
+                                              np.random.default_rng(0))))
+    if len(idx) != GRAPH_STEPS:
+        fail(f"[graph] the canonical epoch has {len(idx)} batches")
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).removeprefix("torch.")
+        staged = stage_dataset(ds, dtype, "cuda")
+        eps = torch.randn((GRAPH_STEPS, 20 * ds.T_max, 32), dtype=dtype,
+                          device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(1))
+        spread = _eager_spread(ds, spec0, spec1, dtype, staged, idx, eps)
+        print(f"[graph] {tag}: eager against eager, cuDNN's default "
+              f"algorithms, {GRAPH_STEPS} steps: {spread}", flush=True)
+        with cudnn_deterministic():
+            _graph_check(tag, ds, spec0, spec1, dtype, staged, idx, eps, 1,
+                         tmp)
+            a, b, cfg = _graph_check(tag, ds, spec0, spec1, dtype, staged,
+                                     idx, None, 3, tmp)
+        if dtype == torch.float64:
+            del a, b
+            torch.cuda.empty_cache()
+    step = tstep.make_train_step(a.vae, spec0, spec1, cfg)
+    paths = {"eager": lambda: tstep.train_epoch(step, a, staged, idx)}
+    for name, unroll, pre in (("graph unroll 1", 1, False),
+                              ("graph unroll 10", 10, False),
+                              ("graph unroll 10 pregather", 10, True)):
+        fn = tstep.make_train_epoch(b.vae, spec0, spec1, cfg, unroll=unroll,
+                                    pregather=pre)
+        fn(b, staged, idx)      # warm-up steps and the first captures
+        fn(b, staged, idx)
+        paths[name] = (lambda fn: lambda: fn(b, staged, idx))(fn)
+    rates = {name: [] for name in paths}
+    for _ in range(3):
+        for name, run in paths.items():
+            rates[name].append(_time_epochs(run, 3))
+    for name, r in rates.items():
+        print(f"[graph] {name}: steps/s {', '.join(f'{x:.2f}' for x in r)} "
+              f"(3 rounds of 3 epochs of {GRAPH_STEPS} steps, alternating) "
+              f"on {card_line()}", flush=True)
+    for name in ("graph unroll 1", "graph unroll 10"):
+        _profile_steps(name, paths[name], 3 * GRAPH_STEPS, calls=3)
+
+
+def phase_full(data_dir: str, tmp: str) -> None:
+    """The canonical config's full run through the CLI on the graph path:
+    FULL_EPOCHS epochs of 10 steps in bursts of up to 5 epochs
+    (--epochs_per_dispatch=5), 10 steps a graph (--scan_unroll=10),
+    validation every 5 epochs, the save-interval evaluations, the final
+    validation and the test battery."""
+    from hlax_torch.config import ModelArgs
+
+    opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+    opt.update(data_source_path=data_dir,
+               save_path=os.path.join(tmp, "run_full"), epochs=FULL_EPOCHS,
+               run_validation=True, run_tests=True, generate_images=False,
+               device="cuda", epochs_per_dispatch=5, scan_unroll=10)
+    log = os.path.join(tmp, "full.log")
+    t0 = time.perf_counter()
+    out, launches, by_shape, plain = _run_cli(opt, log)
+    seconds = time.perf_counter() - t0
+    steps = 10 * FULL_EPOCHS
+    rows = _check_run("full", out, steps, plain)
+    _need("full", by_shape, {
+        ("chol_inv_small_cuda", (32, 20, 20, 20), "float32"): steps,
+        ("chol_inv_bwd_cuda", (32, 20, 20, 20), "float32"): steps,
+        ("chol_inv_mid_cuda", (64, 120, 120), "float32"): steps})
+    with open(log) as f:
+        text = f.read()
+    validations = text.count("Validation Duration")
+    train_s = float(re.search(r"Duration of training: ([\d.]+)",
+                              text).group(1))
+    if validations != FULL_EPOCHS // 5:
+        fail(f"[full] {validations} validations in {FULL_EPOCHS} epochs")
+    net = out["loss_arrs"]["net"]
+    print(f"[full] {FULL_EPOCHS} epochs ({steps} steps): net loss first "
+          f"{net[0]:.6g}, final {net[-1]:.6g}; validation curve "
+          f"({validations} points) last net_loss "
+          f"{out['last_validation']['net_loss']:.6g}; final validation "
+          f"GP_loss {rows['GP_loss']:.6g}, net_loss {rows['net_loss']:.6g}; "
+          f"training {train_s:.1f} s ({steps / train_s:.2f} steps/s with "
+          f"validation), run {seconds:.1f} s; launches {launches} on "
+          f"{card_line()}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this smoke run "
@@ -1321,6 +1654,8 @@ def main() -> None:
         counts["f64"] = phase_f64(data_dir, tmp)
         counts["longT"] = phase_long_t()
         counts["mlp"] = phase_mlp(data_dir, tmp)
+        phase_graph(data_dir, tmp)
+        phase_full(data_dir, tmp)
     # each row's launches come from the run of the path it belongs to: the
     # float64 rows from [f64], the long sequences' blocks from [longT], the
     # rest from [slice]

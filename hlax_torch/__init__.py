@@ -27,3 +27,21 @@ def resolve_device(device=None) -> torch.device:
             "hlax_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``values`` (array-like) as a tensor on ``device``, uploaded once and
+    kept: the train step's host-side constants go through here, because a
+    CUDA graph's capture cannot copy from the host.  Treat it as
+    read-only."""
+    import numpy as np
+
+    a = np.ascontiguousarray(values)
+    key = (a.dtype.str, a.shape, a.tobytes(), dtype, str(torch.device(device)))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(a, dtype=dtype, device=device)
+    return t

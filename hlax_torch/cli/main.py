@@ -5,7 +5,11 @@
         --generate_images=False
 
 Same config flags, artifact names and console lines as hlax.  Runs on CUDA
-unless ``--device=cpu``.  Validates every 5 epochs and at each save
+unless ``--device=cpu``.  Trains through ``make_train_epoch`` (CUDA graphs
+of the step on the card, ``--scan_unroll`` steps a graph) in bursts of up
+to ``--epochs_per_dispatch`` epochs that never cross a validation or save
+epoch; ``--profile_dir`` gets a torch.profiler trace of the burst that
+holds epoch 2.  Validates every 5 epochs and at each save
 interval when ``--run_validation``, runs the test battery at the end when
 ``--run_tests``.  ``<save_path>/final.pt`` (one ``torch.save``d state dict),
 ``diagnostics.pkl`` and ``plot_values.pkl`` are written when ``epochs > 2``
@@ -101,6 +105,37 @@ def _memory_dbg(enabled: bool, phase: str, device) -> None:
     print(f"Max memory allocated after {phase} on {device}: "
           f"{torch.cuda.max_memory_allocated(device) / 1024 ** 2:.2f} MBs")
     torch.cuda.reset_peak_memory_stats(device)
+
+
+def _start_profile(device):
+    """A started torch.profiler session (device kernels too on CUDA), or
+    None if the profiler fails: profiling never ends a run."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+    except Exception:
+        print("Profiler failed to start (continuing):\n"
+              + traceback.format_exc())
+        return None
+
+
+def _stop_profile(prof, profile_dir: str, first: int, last: int) -> None:
+    """Stop ``prof`` and write its Chrome trace of epochs first..last into
+    ``profile_dir``; a failure is reported, not raised."""
+    try:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir,
+                            f"epochs_{first}-{last}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"Wrote a profiler trace of epochs {first}-{last} to {path}")
+    except Exception:
+        print("Profiler failed (continuing):\n" + traceback.format_exc())
 
 
 def run(opt: dict) -> dict:
@@ -205,7 +240,10 @@ def run(opt: dict) -> dict:
         print("Did not load pre-trained values.")
 
     staged = stage_dataset(dataset, model_dtype, device)
-    step = tstep.make_train_step(model, spec0, spec1, cfg)
+    # the whole epoch (a burst of epochs) at a time: CUDA graphs of the step
+    # on the card, the eager steps on the CPU
+    epoch_fn = tstep.make_train_epoch(
+        model, spec0, spec1, cfg, unroll=max(1, opt.get("scan_unroll") or 1))
     epochs = opt.get("epochs", 0)
     validation_interval = 5
     save_interval = opt.get("save_interval", 100)
@@ -234,27 +272,55 @@ def run(opt: dict) -> dict:
             num_samples=opt.get("num_samples", 1), seed=seed,
             eval_gp_f64=eval_gp_f64)
 
+    profile_dir = opt.get("profile_dir") or ""
+    # bursts of up to epochs_per_dispatch epochs in one call of the epoch
+    # function, never across a validation or save boundary (those read the
+    # state); the per-epoch lines come from the returned metrics, the Time
+    # column is the burst's time split evenly
+    epochs_per_dispatch = max(1, opt.get("epochs_per_dispatch") or 1)
+
+    def boundary(e):
+        return (e % save_interval == 0
+                or (validation_dataset is not None
+                    and e % validation_interval == 0))
+
     _memory_dbg(opt.get("memory_dbg"), "initialisation", device)
     start = timer()
-    for epoch in range(1, epochs + 1):
+    epoch = 1
+    while epoch <= epochs:
+        burst = 1
+        while (burst < epochs_per_dispatch and epoch + burst <= epochs
+               and not boundary(epoch + burst - 1)):
+            burst += 1
         t0 = time.time()
-        idx = np.stack(list(epoch_subject_batches(dataset.P,
-                                                  subjects_per_batch, rng)))
-        ms = tstep.train_epoch(step, state, staged, idx)
-        epoch_seconds.append(time.time() - t0)
-        sums = {"net": float(ms["loss"].mean()), "nll": float(ms["nll"].mean()),
-                "kld": float(ms["kld"].mean()),
-                "recon": float(ms["recon"].mean())}
-        recon_sum2 = float(ms["recon"].sum())
-        print("Iter %d/%d - Time: %.3f  - Loss: %.3f  - GP loss: %.3f  "
-              "- NLL Loss: %.3f  - Recon Loss: %.3f"
-              % (epoch, epochs, epoch_seconds[-1], sums["net"], sums["kld"],
-                 sums["nll"], recon_sum2), flush=True)
-        for k in loss_arrs:
-            loss_arrs[k].append(sums[k])
-        miss_recon_loss = float(ms["miss_recon"].sum()) / len(dataset)
-        print(f"Error for Training: "
-              f"{recon_sum2 / (len(dataset) * dataset.het.mask.shape[1])}")
+        prof = (_start_profile(device)
+                if profile_dir and epoch <= 2 <= epoch + burst - 1 else None)
+        idx = np.concatenate([np.stack(list(epoch_subject_batches(
+            dataset.P, subjects_per_batch, rng))) for _ in range(burst)])
+        ms_all = epoch_fn(state, staged, idx)
+        if prof is not None:
+            _stop_profile(prof, profile_dir, epoch, epoch + burst - 1)
+        t_per = (time.time() - t0) / burst
+        nb = len(ms_all["loss"]) // burst
+        for j in range(burst):
+            ms = {k: v[j * nb:(j + 1) * nb] for k, v in ms_all.items()}
+            epoch_seconds.append(t_per)
+            sums = {"net": float(ms["loss"].mean()),
+                    "nll": float(ms["nll"].mean()),
+                    "kld": float(ms["kld"].mean()),
+                    "recon": float(ms["recon"].mean())}
+            recon_sum2 = float(ms["recon"].sum())
+            print("Iter %d/%d - Time: %.3f  - Loss: %.3f  - GP loss: %.3f  "
+                  "- NLL Loss: %.3f  - Recon Loss: %.3f"
+                  % (epoch + j, epochs, t_per, sums["net"], sums["kld"],
+                     sums["nll"], recon_sum2), flush=True)
+            for k in loss_arrs:
+                loss_arrs[k].append(sums[k])
+            miss_recon_loss = float(ms["miss_recon"].sum()) / len(dataset)
+            print(f"Error for Training: "
+                  f"{recon_sum2 / (len(dataset) * dataset.het.mask.shape[1])}")
+        # only the burst's last epoch can be a boundary
+        epoch += burst - 1
 
         run_val = (validation_dataset is not None
                    and (epoch % validation_interval == 0
@@ -311,6 +377,7 @@ def run(opt: dict) -> dict:
                 best_value, best_epoch = validation_curve[-1], epoch
                 best_epoch_missing_imp_error = miss_recon_loss
                 ckpt.save(save_path, state, name=ckpt.EARLY_BEST_NAME)
+        epoch += 1
 
     print("Duration of training: {:.2f} seconds".format(timer() - start))
     print(f"Best epoch is {best_epoch}")
@@ -370,7 +437,9 @@ def run(opt: dict) -> dict:
             "datasets": {"train": dataset, "validation": validation_dataset,
                          "test": test_dataset,
                          "prediction": prediction_dataset},
-            "staged": staged, "train_step": step, "steps": state.step,
+            "staged": staged,
+            "train_step": tstep.make_train_step(model, spec0, spec1, cfg),
+            "steps": state.step,
             "epoch_seconds": epoch_seconds, "eval_seconds": eval_seconds,
             "last_validation": last_val, "results_path": results_path}
 

@@ -294,12 +294,10 @@ static cudaError_t launch_np(const Real* l, const Real* il, const Real* lb,
                              cudaStream_t s) {
   if ((threads / 32) * BWD_BUFS * NP * NP * (int)sizeof(Real) > smem)
     return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {  // above the default limit only (NP = 48, float64)
-    const cudaError_t err = cudaFuncSetAttribute(
-        chol_inv_bwd_kernel<Real, NP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  static int allowed = 48 * 1024;
+  const cudaError_t err =
+      allow_smem(chol_inv_bwd_kernel<Real, NP>, smem, allowed);
+  if (err != cudaSuccess) return err;
   chol_inv_bwd_kernel<Real, NP><<<grid, threads, smem, s>>>(
       l, il, lb, ilb, abar, batch, n, vec);
   return cudaGetLastError();

@@ -12,8 +12,9 @@
 // no barrier is taken.  Column step j:
 //   1. pivot d = A[j][j]; the degenerate-pivot guard of hlax
 //      (hlax/ops/linalg_small.py:43-63): a pivot below floor =
-//      1e-6 * max(diag A, 0), taken over the first n diagonal entries, is
-//      replaced by floor and column j of L is pinned to sqrt(floor) * e_j;
+//      pivot_floor_rel * max(diag A, 0), taken over the first n diagonal
+//      entries, is replaced by floor and column j of L is pinned to
+//      sqrt(floor) * e_j;
 //   2. column j of L = A[:, j] / sqrt(d) below the diagonal;
 //   3. the trailing rows take the rank-1 update A -= l l^T, row j of L^{-1}
 //      scales by 1/sqrt(d) and the rows below take L^{-1}[i] -= L[i][j] *
@@ -32,10 +33,28 @@
 
 #define FULL_MASK 0xffffffffu
 
-// hlax's PIVOT_FLOOR_REL, 1e-6 in both dtypes (the plain version multiplies
-// by the float32 or float64 nearest to it)
+// The guard's floor relative to max(diag A), PIVOT_FLOOR_REL of
+// hlax_torch/ops/linalg_small.py (the plain version multiplies by the float32
+// or float64 nearest to it): hlax's 1e-6 in float32; in float64, which hlax
+// factorizes unguarded, 2e-15, about the multiple of machine epsilon that
+// 1e-6 is of float32's, below every pivot of an SPD matrix with a jitter of
+// 1e-6.
 __device__ __forceinline__ float pivot_floor_rel(float) { return 1e-6f; }
-__device__ __forceinline__ double pivot_floor_rel(double) { return 1e-6; }
+__device__ __forceinline__ double pivot_floor_rel(double) { return 2e-15; }
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory.  `allowed` is
+// the limit this instantiation has (48 KB, the default, until raised):
+// cudaFuncSetAttribute runs only when a launch needs more than that, so a
+// launch that a CUDA graph captures after the same launch ran once makes no
+// attribute call.
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel kernel, int smem, int& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) allowed = smem;
+  return err;
+}
 
 // round-to-nearest operations that FMA contraction leaves alone
 __device__ __forceinline__ float mul_rn(float a, float b) {

@@ -17,8 +17,9 @@
 // L^{-1} (`_refine_tri_inverse`) runs after the kernel, as two matmuls in the
 // Python wrapper.  Only the lower triangle of A is read; L and L^{-1} get
 // exact zeros above the diagonal.  The degenerate-pivot guard is hlax's: the
-// floor is 1e-6 * max(diag A, 0) over the input's diagonal, and a pivot below
-// it is floored with its column pinned to sqrt(floor) * e_j.
+// floor is pivot_floor_rel * max(diag A, 0) over the input's diagonal
+// (csrc/chol_inv_common.cuh: 1e-6 in float32, 2e-15 in float64), and a pivot
+// below it is floored with its column pinned to sqrt(floor) * e_j.
 //
 // What bounds it on an H100: at [64, 120, 120] float32 it reads 3.7 MB and
 // writes 7.4 MB (3.3 us at 3.35 TB/s) against ~2n^3/3 = 1.15 MFLOP a matrix
@@ -415,9 +416,8 @@ static cudaError_t launch(const void* a_, void* l_, void* il_, void* work_,
     if (n > 32 || threads % 32 || threads > 128 || panel != 0 || work ||
         (long long)grid * warps < batch || smem < warps * 32 * WARP_LD * sz)
       return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(chol_inv_mid_warp_kernel<Real>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    static int allowed = 48 * 1024;
+    err = allow_smem(chol_inv_mid_warp_kernel<Real>, smem, allowed);
     if (err != cudaSuccess) return err;
     chol_inv_mid_warp_kernel<Real><<<grid, threads, smem, s>>>(a, l, il,
                                                                batch, n);
@@ -436,9 +436,9 @@ static cudaError_t launch(const void* a_, void* l_, void* il_, void* work_,
     } else if (work) {
       return cudaErrorInvalidValue;
     }
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    // one limit for each of the two instantiations
+    static int allowed[2] = {48 * 1024, 48 * 1024};
+    err = allow_smem(kernel, smem, allowed[work ? 1 : 0]);
     if (err != cudaSuccess) return err;
     kernel<<<grid, threads, smem, s>>>(a, l, il, work, batch, n, np);
   } else {

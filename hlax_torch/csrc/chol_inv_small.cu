@@ -228,12 +228,10 @@ static cudaError_t launch_warp(const Real* a, Real* l, Real* il, int batch,
                                int smem, cudaStream_t s) {
   if ((threads / 32) * 2 * NP * (NP + 1) * (int)sizeof(Real) > smem)
     return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {  // above the default limit only
-    const cudaError_t err = cudaFuncSetAttribute(
-        chol_inv_small_warp_kernel<Real, NP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  static int allowed = 48 * 1024;
+  const cudaError_t err =
+      allow_smem(chol_inv_small_warp_kernel<Real, NP>, smem, allowed);
+  if (err != cudaSuccess) return err;
   chol_inv_small_warp_kernel<Real, NP><<<grid, threads, smem, s>>>(
       a, l, il, batch, n, vec);
   return cudaGetLastError();
@@ -259,12 +257,10 @@ static cudaError_t launch(const Real* a, Real* l, Real* il, int batch, int n,
   if (path != 1 || np != n || n > 48 ||
       smem < warps * 2 * n * n * (int)sizeof(Real))
     return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        chol_inv_small_smem_kernel<Real>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  static int allowed = 48 * 1024;
+  const cudaError_t err =
+      allow_smem(chol_inv_small_smem_kernel<Real>, smem, allowed);
+  if (err != cudaSuccess) return err;
   chol_inv_small_smem_kernel<Real><<<grid, threads, smem, s>>>(a, l, il,
                                                                batch, n);
   return cudaGetLastError();

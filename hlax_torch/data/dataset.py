@@ -7,8 +7,9 @@ mask.  For Health-MNIST (n_variables == 1296) the label CSV columns
 are reordered to [time_age, disease_time, subject, gender, disease,
 location] so id_covariate=2 is the subject.
 
-``stage_dataset`` uploads the padded dataset once as device tensors and
-``gather_batch`` builds each batch on the device from a subject-index tensor.
+``stage_dataset`` uploads the padded dataset once as device tensors,
+``gather_batch`` builds each batch on the device from a subject-index tensor
+and ``gather_epoch`` all of an epoch's batches at once.
 """
 
 from __future__ import annotations
@@ -207,4 +208,18 @@ def gather_batch(staged: Dict[str, torch.Tensor],
         v = staged[k][safe] * alive[:, :, None]
         out[k] = v.reshape(S * T, -1)
     out["valid"] = staged["valid"][safe] * alive
+    return out
+
+
+def gather_epoch(staged: Dict[str, torch.Tensor],
+                 idx_batches: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """All of an epoch's batches in one gather (hlax's ``gather_epoch``):
+    idx_batches [nb, S] -> the dict ``gather_batch`` builds, with a leading
+    nb axis ([nb, S*T, ...], valid [nb, S, T])."""
+    nb, S = idx_batches.shape
+    T = staged["valid"].shape[1]
+    flat = gather_batch(staged, idx_batches.reshape(-1))
+    out = {k: v.reshape(nb, S * T, -1) for k, v in flat.items()
+           if k != "valid"}
+    out["valid"] = flat["valid"].reshape(nb, S, T)
     return out

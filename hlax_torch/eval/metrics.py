@@ -6,11 +6,13 @@ order.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from hlax_torch import device_constant
 from hlax_torch.types import TypeLayout
 
 
@@ -57,10 +59,8 @@ def statistics(params_list, layout: TypeLayout, conv: bool,
         else:   # beta
             alpha, beta = p
             ranges = np.asarray(layout.beta_ranges)
-            dmin = torch.as_tensor(ranges[:, 0], dtype=alpha.dtype,
-                                   device=alpha.device)
-            dmax = torch.as_tensor(ranges[:, 1], dtype=alpha.dtype,
-                                   device=alpha.device)
+            dmin = device_constant(ranges[:, 0], alpha.dtype, alpha.device)
+            dmax = device_constant(ranges[:, 1], alpha.dtype, alpha.device)
             means.append(alpha / (alpha + beta) * (dmax - dmin) + dmin)
             one = torch.ones_like(alpha)
             mode = torch.where(
@@ -103,9 +103,8 @@ def sampled_reconstruction(params_list, layout: TypeLayout,
 
 def get_norm_terms(x, true_mask):
     """Observed range per column."""
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
-    big = torch.where(true_mask > 0, x, -inf)
-    small = torch.where(true_mask > 0, x, inf)
+    big = torch.where(true_mask > 0, x, -math.inf)
+    small = torch.where(true_mask > 0, x, math.inf)
     return big.amax(dim=0) - small.amin(dim=0)
 
 
@@ -164,8 +163,8 @@ def error_computation(
 
     # RMSE for non-discrete variables
     kinds = layout.var_kinds_grouped()
-    sq = torch.as_tensor(~np.isin(kinds, ("cat", "ordinal")),
-                         device=all_error.device)
+    sq = device_constant(~np.isin(kinds, ("cat", "ordinal")), torch.bool,
+                         all_error.device)
     rt = lambda e: torch.where(sq, torch.sqrt(e), e)
     error_observed, error_missing, error_all = (
         rt(error_observed), rt(error_missing), rt(error_all))

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hlax_torch import resolve_device
+from hlax_torch import device_constant, resolve_device
 from hlax_torch.ops import convfuse as cf
 from hlax_torch.ops import likelihoods as lik
 from hlax_torch.ops.normalization import NormParams, batch_normalization
@@ -332,9 +332,8 @@ class HLVAE(nn.Module):
             elif g.kind == "count":
                 out = lik.loglik_count(d_blk, m_blk, t_blk)
             else:   # beta
-                ranges = torch.as_tensor(self._beta_ranges,
-                                         dtype=theta.dtype,
-                                         device=theta.device)
+                ranges = device_constant(self._beta_ranges, theta.dtype,
+                                         theta.device)
                 out = lik.loglik_beta(d_blk, m_blk, t_blk, ranges,
                                       self.disp_param)
             lp_blocks.append(out["log_p_x"])

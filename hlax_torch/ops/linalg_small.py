@@ -35,9 +35,13 @@ divisor in [8, 128]; the port keeps its kernels in both dtypes, and for
 such n makes the trailing diagonal block shorter.
 
 The two forward kernels keep hlax's degenerate-pivot guard: a pivot below
-1e-6 * max(diag A) is floored and its column pinned to sqrt(floor) * e_j, so
-a matrix that rounding makes indefinite still factorizes to a finite
-nearby one.  Both read only the lower triangle of A.
+``pivot_floor_rel(dtype) * max(diag A)`` is floored and its column pinned
+to sqrt(floor) * e_j, so a matrix that rounding makes indefinite still
+factorizes to a finite nearby one.  The floor is hlax's 1e-6 in float32;
+hlax factorizes float64 unguarded (XLA's Cholesky), and the port's float64
+floor is 2e-15, about the multiple of machine epsilon that 1e-6 is of
+float32's, so no pivot of an SPD matrix with a jitter of 1e-6 reaches it.
+Both read only the lower triangle of A.
 
 ``_chol_inv_plain`` is the plain PyTorch version of both forward kernels
 (the guarded column loop as tensor ops), ``_chol_inv_bwd_plain`` that of the
@@ -62,7 +66,9 @@ import torch
 
 from hlax_torch.ops.cuda_build import check_launch, load_library
 
-PIVOT_FLOOR_REL = 1e-6
+# the guard's floor relative to max(diag A), by dtype; must match
+# pivot_floor_rel in csrc/chol_inv_common.cuh
+PIVOT_FLOOR_REL = {torch.float32: 1e-6, torch.float64: 2e-15}
 MAX_SMALL_T = 48      # largest n the small (one-warp) kernel takes
 MAX_DIAG_BLOCK = 24   # chol_inv_blocked: n <= 24 -> small, else mid (hlax's)
 MAX_MID_M = 128
@@ -83,7 +89,10 @@ SMEM_PER_BLOCK = 232_448  # an H100 block's dynamic shared memory, bytes
 DTYPES = (torch.float32, torch.float64)  # what the kernels take
 
 # Kernel launches and plain-version calls on CUDA tensors since the last
-# ``reset_counters``: a run reads them to show which path it took.
+# ``reset_counters``: a run reads them to show which path it took.  A wrapper
+# counts when it launches; under a CUDA graph that is once, at capture, and
+# the graph's runner adds the captured counts at each replay
+# (``take_counts_since``, ``add_counts``).
 LAUNCHES = {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
             "chol_inv_bwd_cuda": 0}
 # the same launches by input shape and dtype:
@@ -97,6 +106,31 @@ def reset_counters() -> None:
         for k in d:
             d[k] = 0
     LAUNCHES_BY_SHAPE.clear()
+
+
+def counts_snapshot():
+    """The three counters as they stand, for ``take_counts_since``."""
+    return dict(LAUNCHES), dict(LAUNCHES_BY_SHAPE), dict(PLAIN_CUDA_CALLS)
+
+
+def take_counts_since(before):
+    """What the counters gained since the snapshot ``before``, taken back
+    out of them: the launches a CUDA graph's capture recorded, which ran
+    nothing.  ``add_counts`` adds them back for each replay."""
+    gained = tuple({k: v - b.get(k, 0) for k, v in now.items()
+                    if v != b.get(k, 0)}
+                   for now, b in zip(counts_snapshot(), before))
+    for d, b in zip((LAUNCHES, LAUNCHES_BY_SHAPE, PLAIN_CUDA_CALLS), before):
+        d.clear()
+        d.update(b)
+    return gained
+
+
+def add_counts(gained, times: int = 1) -> None:
+    """Add ``times`` times the counts ``take_counts_since`` returned."""
+    for d, g in zip((LAUNCHES, LAUNCHES_BY_SHAPE, PLAIN_CUDA_CALLS), gained):
+        for k, v in g.items():
+            d[k] = d.get(k, 0) + v * times
 
 
 def _count_launch(name: str, t: torch.Tensor) -> None:
@@ -202,23 +236,28 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def pivot_floor_rel(dtype: torch.dtype) -> float:
+    """The guard's pivot floor relative to max(diag A) in ``dtype``."""
+    return PIVOT_FLOOR_REL.get(dtype, PIVOT_FLOOR_REL[torch.float32])
+
+
 def _chol_inv_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of both kernels: guarded right-looking column
     loop over [..., n, n], the small kernel's arithmetic
     (``csrc/chol_inv_common.cuh``); the mid kernel computes the same
     function in blocked order.
 
-    Note: hlax's mid kernel takes its pivot floor over the identity-padded
-    matrix (M rounded up to a multiple of 8), so for such M with
-    max(diag A) < 1 its floor is 1e-6 where this one is 1e-6 * max(diag A).
-    The main path's M = 120 has no padding."""
+    Note: hlax's float32 mid kernel takes its pivot floor over the
+    identity-padded matrix (M rounded up to a multiple of 8), so for such M
+    with max(diag A) < 1 its floor is 1e-6 where this one is
+    1e-6 * max(diag A).  The main path's M = 120 has no padding."""
     if a.is_cuda:
         PLAIN_CUDA_CALLS["chol_inv_plain"] += 1
     n = a.shape[-1]
     A = a.clone()
     idx = torch.arange(n, device=a.device)
     zero = torch.zeros((), dtype=a.dtype, device=a.device)
-    floor = PIVOT_FLOOR_REL * torch.diagonal(A, dim1=-2, dim2=-1).amax(
+    floor = pivot_floor_rel(a.dtype) * torch.diagonal(A, dim1=-2, dim2=-1).amax(
         dim=-1).clamp(min=0.0)
     L = torch.zeros_like(A)
     iL = torch.eye(n, dtype=a.dtype, device=a.device).expand_as(A).clone()

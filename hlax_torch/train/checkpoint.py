@@ -2,7 +2,10 @@
 ``hlax/train/checkpoint.py``, which saves one orbax pytree).
 
 ``<path>/<name>.pt`` holds the VAE's state dict, the kernel parameters, the
-noise, zt, m, H, the Adam state, the step count and the generator state.
+noise, zt, m, H, the Adam state (on CUDA the capturable one, step counts
+included), the step count and the generator state, so a restored state
+takes the same next step.  ``restore`` replaces Adam's state tensors: a
+CUDA graph captured before it no longer fits the state (restore first).
 ``final`` is the end of a run, ``early_best`` the best validation epoch
 under early stopping.
 """
@@ -13,7 +16,7 @@ import os
 
 import torch
 
-from hlax_torch.train.step import TrainState
+from hlax_torch.train.step import TrainState, place_adam_steps
 
 FINAL_NAME = "final"
 EARLY_BEST_NAME = "early_best"
@@ -61,7 +64,13 @@ def restore(path: str, state: TrainState, name: str = FINAL_NAME) -> bool:
                 dst[k].copy_(src[k])
         for k in ("raw_noise", "zt", "m", "H"):
             getattr(state, k).copy_(sd[k])
+    # the saved param groups carry the saving run's capturable flag; this
+    # optimizer keeps its own (a CUDA run's checkpoint restores on the CPU)
+    caps = [g["capturable"] for g in state.optimizer.param_groups]
     state.optimizer.load_state_dict(sd["optimizer"])
+    for g, cap in zip(state.optimizer.param_groups, caps):
+        g["capturable"] = cap
+    place_adam_steps(state.optimizer)
     state.generator.set_state(sd["generator"])
     state.step = sd["step"]
     return True

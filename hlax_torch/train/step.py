@@ -9,14 +9,17 @@
     natural-gradient update after each step, under ``torch.no_grad()``;
     ``nat_grad_f64`` runs that chain in float64 whatever the GP dtype.
 
-The step runs eagerly, one batch at a time; ``train_epoch`` loops it over
-batches gathered on the device by ``hlax_torch.data.dataset.gather_batch``.
+The step updates the state in place: every tensor of the state (parameters,
+their ``.grad``, Adam's moments and step count, m, H) keeps its storage from
+step to step, which is what lets ``make_train_epoch`` capture the step in a
+CUDA graph (hlax's one-dispatch epoch, ``hlax/train/step.py:297-332``).
+``train_epoch`` runs the same steps eagerly, one batch at a time.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -81,9 +84,38 @@ def trainable(state: TrainState, cfg: TrainConfig) -> List[torch.Tensor]:
 
 
 def make_optimizer(state: TrainState, cfg: TrainConfig) -> torch.optim.Adam:
-    for t in trainable(state, cfg):
+    """Adam over ``trainable``.  On CUDA it is ``capturable`` (its step
+    count and bias corrections stay on the device, so a CUDA graph can
+    capture the update) and its state is made here, before any step, at
+    fixed addresses (``place_adam_steps``)."""
+    params = trainable(state, cfg)
+    for t in params:
         t.requires_grad_(True)
-    return torch.optim.Adam(trainable(state, cfg), lr=cfg.lr)
+    opt = torch.optim.Adam(params, lr=cfg.lr, capturable=params[0].is_cuda)
+    if params[0].is_cuda:
+        for p in params:
+            opt.state[p] = {"step": torch.zeros((), device=p.device),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.zeros_like(p)}
+        place_adam_steps(opt)
+    return opt
+
+
+def place_adam_steps(opt: torch.optim.Adam) -> None:
+    """Each Adam step count where its mode keeps it: capturable, on the
+    parameter's device, in float64 for a float64 parameter (Adam's own
+    float32 would round that parameter's bias corrections to float32),
+    else float32; not capturable, on the CPU as Adam makes it."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if not st or "step" not in st:
+                continue
+            cap = group["capturable"]
+            st["step"] = st["step"].to(
+                device=p.device if cap else "cpu",
+                dtype=torch.float64 if cap and p.dtype == torch.float64
+                else torch.float32)
 
 
 def _rbf_dims(spec0, spec1):
@@ -133,7 +165,8 @@ def init_train_state(model: HLVAE, spec0, spec1,
 
 def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig):
     """Returns ``step(state, batch, eps=None) -> metrics``; it updates
-    ``state`` in place.  ``batch`` holds S*T_max flat rows (data, mask,
+    ``state`` in place, every tensor at its storage (``.grad`` is zeroed,
+    not dropped; the natural-gradient (m, H) are copied into m and H).  ``batch`` holds S*T_max flat rows (data, mask,
     theta_mask, labels) and valid [S, T_max]; ``eps`` [S*T_max, z_dim]
     injects the reparameterization noise (else drawn from
     ``state.generator``).  Metrics are 0-dim tensors, left on the device."""
@@ -156,7 +189,7 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig):
 
     def step(state: TrainState, batch, eps: Optional[torch.Tensor] = None):
         opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad(set_to_none=False)
         out = state.vae(batch["data"], batch["mask"], batch["theta_mask"],
                         eps=eps, generator=state.generator)
         nll = nll_from_log_p(out["log_p_x"]).sum()
@@ -188,10 +221,12 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig):
             recon, miss = recon_metric(params, batch["data"], batch["mask"],
                                        row_valid)
             if cfg.natural_gradient:
-                state.m, state.H = gp_elbo.natural_gradient_update(
+                m_new, H_new = gp_elbo.natural_gradient_update(
                     state.m, state.H, gm.detach(), gH.detach(),
                     cfg.natural_gradient_lr, iH=iH.detach(),
                     jitter=cfg.nat_grad_jitter)
+                state.m.copy_(m_new)
+                state.H.copy_(H_new)
         state.step += 1
         return {"loss": loss.detach(), "nll": nll_scaled.detach(),
                 "kld": kld.detach(), "recon": recon, "miss_recon": miss}
@@ -199,11 +234,17 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig):
     return step
 
 
+METRICS = ("loss", "nll", "kld", "recon", "miss_recon")
+# eager steps before the first capture: the first step creates .grad and
+# Adam's state, the second runs the step as every later one runs
+GRAPH_WARMUP = 2
+
+
 def train_epoch(step, state: TrainState, staged, idx_batches: np.ndarray
                 ) -> Dict[str, np.ndarray]:
-    """One epoch: ``step`` over the batches of subject indices
+    """One epoch, eagerly: ``step`` over the batches of subject indices
     ``idx_batches`` [nb, S] (-1 = padding subject), each gathered on the
-    device.  Returns the metrics stacked [nb] as numpy (one sync a
+    device.  Returns the metrics stacked [nb] as numpy (one sync an
     epoch)."""
     from hlax_torch.data.dataset import gather_batch
 
@@ -212,3 +253,166 @@ def train_epoch(step, state: TrainState, staged, idx_batches: np.ndarray
     ms = [step(state, gather_batch(staged, i)) for i in idx]
     return {k: torch.stack([m[k] for m in ms]).cpu().numpy()
             for k in ms[0]}
+
+
+def _step_inputs(staged, feed, j: int):
+    """Step j's batch and noise from ``feed``: [n, ...] tensors of subject
+    indices ("idx") or pregathered batches, and of noise ("eps")."""
+    from hlax_torch.data.dataset import gather_batch
+
+    if "idx" in feed:
+        batch = gather_batch(staged, feed["idx"][j])
+    else:
+        batch = {k: feed[k][j] for k in
+                 ("data", "mask", "theta_mask", "labels", "valid")}
+    return batch, (feed["eps"][j] if "eps" in feed else None)
+
+
+def _metrics_column(ms) -> torch.Tensor:
+    """A step's metrics as one float64 [len(METRICS)] tensor."""
+    return torch.stack([ms[m].to(torch.float64) for m in METRICS])
+
+
+class _Replay(NamedTuple):
+    """One captured graph of k consecutive train steps: the static inputs
+    it reads ([k, ...]: subject indices or pregathered batches, and the
+    noise when it is injected), the metrics it writes ([len(METRICS), k],
+    float64) and the kernel launches it makes each replay."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Dict[str, torch.Tensor]
+    out: torch.Tensor
+    counts: tuple
+
+
+def _state_tensors(state: TrainState, staged) -> List[torch.Tensor]:
+    """Every tensor a captured step reads or writes in place."""
+    ts = list(state.vae.parameters()) + list(state.vae.buffers())
+    ts += [p.grad for p in state.optimizer.param_groups[0]["params"]
+           if p.grad is not None]
+    ts += [v for p in state.k0 + state.k1 for v in p.values()]
+    ts += [state.raw_noise, state.zt, state.m, state.H]
+    ts += [v for st in state.optimizer.state.values() for v in st.values()
+           if torch.is_tensor(v)]
+    return ts + list(staged.values())
+
+
+class _EpochGraphs:
+    """The CUDA side of ``make_train_epoch``: warm-up steps, one graph for
+    each number of steps a replay takes (``unroll``, and the remainder of a
+    call), replays."""
+
+    def __init__(self, step, unroll: int):
+        self.step, self.unroll = step, unroll
+        self.warm_left = GRAPH_WARMUP
+        self.replays: Dict[tuple, _Replay] = {}
+        self.stream = None
+        self.ptrs = None
+
+    def _capture(self, state, staged, feed, k: int) -> _Replay:
+        from hlax_torch.ops import linalg_small as ls
+
+        inputs = {name: torch.empty_like(v[:k]) for name, v in feed.items()}
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        step_count, before = state.step, ls.counts_snapshot()
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.graph(graph, stream=self.stream):
+            out = torch.stack([_metrics_column(self.step(
+                state, *_step_inputs(staged, inputs, u))) for u in range(k)],
+                dim=1)
+        state.step = step_count
+        return _Replay(graph, inputs, out, ls.take_counts_since(before))
+
+    def __call__(self, state, staged, feed, nb: int, out: torch.Tensor):
+        from hlax_torch.ops import linalg_small as ls
+
+        if self.stream is None:
+            self.stream = torch.cuda.Stream()
+        j = 0
+        if self.warm_left:
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                while j < nb and self.warm_left:
+                    out[:, j] = _metrics_column(self.step(
+                        state, *_step_inputs(staged, feed, j)))
+                    j += 1
+                    self.warm_left -= 1
+            torch.cuda.current_stream().wait_stream(self.stream)
+        if j == nb:
+            return
+        ptrs = [t.data_ptr() for t in _state_tensors(state, staged)]
+        if self.ptrs is not None and ptrs != self.ptrs:
+            raise RuntimeError(
+                "make_train_epoch: the train state's or the staged data's "
+                "tensors moved since the step was captured (a checkpoint "
+                "restored after the first epoch?); make a new epoch "
+                "function for them")
+        self.ptrs = ptrs
+        while j < nb:
+            k = min(self.unroll, nb - j)
+            key = (k, "eps" in feed)
+            rep = self.replays.get(key)
+            if rep is None:
+                rep = self.replays[key] = self._capture(state, staged, feed,
+                                                        k)
+            for name, buf in rep.inputs.items():
+                buf.copy_(feed[name][j:j + k])
+            rep.graph.replay()
+            out[:, j:j + k].copy_(rep.out)
+            ls.add_counts(rep.counts)
+            state.step += k
+            j += k
+
+
+def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
+                     unroll: int = 1, pregather: bool = False):
+    """Returns ``epoch(state, staged, idx_batches, eps=None) -> metrics``,
+    the counterpart of hlax's one-dispatch epoch (``make_train_epoch``,
+    ``hlax/train/step.py:297-332``): the train step over the batches of
+    subject indices ``idx_batches`` [nb, S] (-1 = padding subject), each
+    gathered on the device from ``staged``, or with ``pregather`` all of
+    them first in one gather (``gather_epoch``).  ``eps`` [nb, S*T, z]
+    injects each step's reparameterization noise (else drawn from
+    ``state.generator``).  Returns each metric of ``METRICS`` as numpy [nb],
+    read from the device once a call; it updates ``state`` in place.
+
+    On CUDA the steps run as CUDA graphs.  The first ``GRAPH_WARMUP`` steps
+    of the first call run eagerly on the capture's side stream; then the
+    step is captured, ``unroll`` consecutive steps to a graph (hlax's
+    ``--scan_unroll``; the remainder of a call gets a graph of its own),
+    reading its batch from static buffers that are filled before each
+    replay, and drawing its noise from ``state.generator``, registered with
+    the graph.  So no step runs twice and none is lost: the step count and
+    the trajectory are the eager ones.  Capture records each kernel launch
+    once, and each replay adds those counts to ``linalg_small``'s counters.
+    The graphs hold the addresses of the state's tensors: restore a
+    checkpoint before the first call, not after (a later call raises if
+    they moved).  On the CPU the same steps run eagerly."""
+    step = make_train_step(model, spec0, spec1, cfg)
+    graphs = _EpochGraphs(step, max(1, int(unroll)))
+    model_dt = str(next(model.parameters()).dtype).removeprefix("torch.")
+    dtypes = {m: model_dt for m in METRICS}     # the eager step's dtypes
+    dtypes["kld"] = str(cfg.gp_dtype).removeprefix("torch.")
+
+    def epoch(state: TrainState, staged, idx_batches, eps=None
+              ) -> Dict[str, np.ndarray]:
+        from hlax_torch.data.dataset import gather_epoch
+
+        dev = staged["valid"].device
+        idx = torch.as_tensor(np.asarray(idx_batches), device=dev)
+        nb = idx.shape[0]
+        feed = gather_epoch(staged, idx) if pregather else {"idx": idx}
+        if eps is not None:
+            feed["eps"] = torch.as_tensor(eps, device=dev)
+        out = torch.empty((len(METRICS), nb), dtype=torch.float64,
+                          device=dev)
+        if dev.type == "cuda":
+            graphs(state, staged, feed, nb, out)
+        else:
+            for j in range(nb):
+                out[:, j] = _metrics_column(step(
+                    state, *_step_inputs(staged, feed, j)))
+        host = out.cpu().numpy()
+        return {m: host[i].astype(dtypes[m]) for i, m in enumerate(METRICS)}
+
+    return epoch

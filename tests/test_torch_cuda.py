@@ -226,12 +226,25 @@ F64_SMALL_SHAPES = [(32, 20, 20, 20), (1001, 20, 20), (33, 19, 19),
                     (64, 24, 24), (1001, 32, 32), (64, 40, 40), (17, 48, 48)]
 
 
-@pytest.mark.parametrize("kind", ["spd", "indefinite"])
+def _guard64(shape, gen):
+    """logspace(0, -20) spectrum: indefinite after rounding to float64, so
+    trailing pivots fall below the float64 floor of 2e-15 max diag A."""
+    n = shape[-1]
+    q, _ = torch.linalg.qr(torch.randn((n, n), generator=gen, device="cuda",
+                                       dtype=torch.float64))
+    a = (q * torch.logspace(0.0, -20.0, n, device="cuda",
+                            dtype=torch.float64)) @ q.T
+    return (0.5 * (a + a.T)).expand(shape).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["spd", "indefinite", "guard"])
 @pytest.mark.parametrize("shape", F64_SMALL_SHAPES)
 def test_float64_small_kernel_equals_plain_version(gen, shape, kind):
     """In float64 the small kernel also does its plain version's operations
-    in the same order: equal bit for bit, exact zeros above the diagonal."""
-    a = (_spd if kind == "spd" else _indefinite)(shape, gen).double()
+    in the same order: equal bit for bit, exact zeros above the diagonal;
+    on the guard input some pivot is floored."""
+    a = (_guard64(shape, gen) if kind == "guard" else
+         (_spd if kind == "spd" else _indefinite)(shape, gen).double())
     before = tls.LAUNCHES["chol_inv_small_cuda"]
     l, il = tls.chol_inv_small_cuda(a)
     torch.cuda.synchronize()
@@ -241,6 +254,11 @@ def test_float64_small_kernel_equals_plain_version(gen, shape, kind):
     torch.testing.assert_close(l, lp, rtol=0, atol=0)
     torch.testing.assert_close(il, ilp, rtol=0, atol=0)
     assert not torch.triu(l, 1).any() and not torch.triu(il, 1).any()
+    if kind == "guard":
+        floor = tls.pivot_floor_rel(torch.float64) * torch.diagonal(
+            a, dim1=-2, dim2=-1).amax(-1, keepdim=True)
+        d2 = torch.diagonal(l, dim1=-2, dim2=-1) ** 2
+        assert ((d2 - floor).abs() < 1e-6 * floor).any()
 
 
 @pytest.mark.parametrize("shape", [(64, 120, 120), (32, 120, 120),
@@ -340,3 +358,78 @@ def test_float64_autograd_path_launches_the_kernels(gen):
     assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
                                     "chol_inv_bwd_plain": 0}
     assert {dt for (_, _, dt) in tls.LAUNCHES_BY_SHAPE} == {"float64"}
+
+
+# ---- the train step as CUDA graphs ------------------------------------------
+
+@pytest.fixture
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms: its default weight gradient sums
+    with atomics, in another order from run to run."""
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("noise", ["injected", "generator"])
+def test_train_epoch_graphs_equal_eager_steps(gen, cudnn_deterministic,
+                                              noise):
+    """``make_train_epoch``'s graphs (2 steps a graph, and the remainder's)
+    against the same steps run eagerly, toy widths in float64 from one
+    seed, both with cuDNN's deterministic algorithms: the losses, m, H and
+    the VAE's parameters, the step count, the kernel launches counted and
+    the generator's state."""
+    import numpy as np
+
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.data import generate as dgen
+    from hlax_torch.data.reader import encode_raw
+    from hlax_torch.gp.kernels import build_kernel_specs
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.train import step as tstep
+
+    out = dgen.generate(num_3=3, num_6=3, datatype_config="D4", seed=2)
+    labels = np.nan_to_num(out["labels"][:, ds.HEALTH_MNIST_LABEL_ORDER])
+    het = encode_raw(out["data"], dgen.types_table("D4"),
+                     miss_mask=out["mask"])
+    data = ds.LongitudinalDataset(het=het, labels=labels, id_covariate=2)
+    spec0, spec1 = build_kernel_specs(
+        [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2},
+                       {"cont_covariate": 0, "cat_covariate": 3},
+                       {"cont_covariate": 1, "cat_covariate": 4}], [], [], 2)
+    cfg = tstep.TrainConfig(latent_dim=8, M=30, P_tot=float(data.P),
+                            N_tot=float(len(data)), id_covariate=2,
+                            constrain_scales=True, gp_dtype=torch.float64)
+
+    def state():
+        model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,)),
+                      torch.Generator("cuda").manual_seed(0),
+                      "cuda").double()
+        return tstep.init_train_state(model, spec0, spec1,
+                                      next(ds.subject_batches(data, 2)), cfg)
+
+    staged = ds.stage_dataset(data, torch.float64, "cuda")
+    rng = np.random.default_rng(0)
+    idx = [np.stack(list(ds.epoch_subject_batches(data.P, 2, rng)))
+           for _ in range(2)]
+    eps = [torch.randn((3, 2 * data.T_max, 8), generator=gen, device="cuda",
+                       dtype=torch.float64) if noise == "injected" else None
+           for _ in idx]
+    a, b = state(), state()
+    step = tstep.make_train_step(a.vae, spec0, spec1, cfg)
+    epoch = tstep.make_train_epoch(b.vae, spec0, spec1, cfg, unroll=2)
+    tls.reset_counters()
+    want = [step(a, ds.gather_batch(staged, torch.as_tensor(i, device="cuda")),
+                 eps=None if e is None else e[j])["loss"].item()
+            for ib, e in zip(idx, eps) for j, i in enumerate(ib)]
+    launches = dict(tls.LAUNCHES_BY_SHAPE)
+    tls.reset_counters()
+    got = np.concatenate([epoch(b, staged, ib, eps=e)["loss"]
+                          for ib, e in zip(idx, eps)])
+    assert dict(tls.LAUNCHES_BY_SHAPE) == launches and launches
+    assert a.step == b.step == 6
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    for x, y in [(a.m, b.m), (a.H, b.H)] + list(zip(a.vae.parameters(),
+                                                    b.vae.parameters())):
+        torch.testing.assert_close(y, x, rtol=1e-10, atol=1e-12)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
