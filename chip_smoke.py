@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
 each against its plain PyTorch version in float32 and float64, trains the
 canonical Heterogeneous Health-MNIST D4 config at full width for 30 steps
-with validation and the test battery, then imputes with the trained model;
-then the same config in float64 and with the float64 natural-gradient
-chain, sequences of T = 200 and 500, and the MLP model; holds the train
-step's CUDA graphs against its eager steps; and trains the canonical config
-for its full 300 epochs.  The CLI runs ([slice], [f64], [mlp], [full])
-train through ``make_train_epoch``'s CUDA graphs, the CLI's path.
+with validation, the test battery and the reconstruction images, then
+imputes with the trained model; then the same config in float64 and with
+the float64 natural-gradient chain, sequences of T = 200 and 500, the MLP
+model, bfloat16 (--compute_dtype and --model_dtype) and the fused conv
+stack; holds the train step's CUDA graphs against its eager steps; and
+trains the canonical config for its full 300 epochs.  The CLI runs
+([slice], [f64], [mlp], [bf16], [fused], [full]) train through
+``make_train_epoch``'s CUDA graphs, the CLI's path.
 
     python3 chip_smoke.py
 
@@ -36,14 +38,22 @@ Phases (each prints its own lines; any failure exits non-zero):
              n <= 32 path.
   4. slice   generated D4 splits (prediction = training, test, validation;
              P=200, T=20, 25% missing) -> hlax_torch.cli.main.run with the
-             canonical config, 3 epochs of 10 steps on the card (through
-             the CUDA graphs, as every CLI run here, with a torch.profiler
-             trace of epoch 2 by --profile_dir), then the
-             final validation and the test battery; launch counters must
-             show every Cholesky and every small backward went through the
-             kernels, and each row of the kernel table's shape was launched.
+             canonical config file as it is (--generate_images=True), 3
+             epochs of 10 steps on the card (through the CUDA graphs, as
+             every CLI run here, with a torch.profiler trace of epoch 2 by
+             --profile_dir) and a save interval at the third, then the
+             final validation, the test battery and the reconstruction grid
+             of the generation split; launch counters must show every
+             Cholesky and every small backward went through the kernels,
+             and each row of the kernel table's shape was launched.  Without
+             matplotlib (the card's machine has none) the grid must be a
+             finite [160, 1296] recon_complete.npz whose reconstruction is
+             pixels in [0, 255], and training_curves.npz must hold every
+             curve.
   5. impute  hlax_torch.cli.impute over the test split with the trained
-             model, encoder mode and GP mode: rows/s.
+             model, encoder mode and GP mode: rows/s; every CSV file read
+             by the native parser (build/libfastcsv.so, g++ at first use),
+             whose parse time beside the plain-Python one is printed.
   6. eval    imputation-eval samples/s (bench.py's protocol: forward with
              the q(z) mean over the training set in 500-row chunks).
   7. profile steps/s of the canonical step, eager, and device time by
@@ -79,10 +89,22 @@ Phases (each prints its own lines; any failure exits non-zero):
              path (--epochs_per_dispatch=5 --scan_unroll=10), validation
              every 5 epochs, the test battery: the final net loss, the last
              point of the validation curve, the run's seconds.
-Every main path (slice, f64, longT, mlp, full) runs with the launch
-counters set to 0 just before it and read just after.  The line before the card's line
-is the kernel table as JSON, one row a kernel, shape and dtype; the last
-line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
+ 13. bf16 / fused (through the CLI)  the canonical config in float32 (2
+             epochs), with --compute_dtype=bfloat16 (3 epochs, the final
+             validation and the test battery), --model_dtype=bfloat16 (2
+             epochs) and --fused_conv=True (3 epochs): finite losses, all
+             three kernels launched on each path (the GP in float32), then
+             every run's graph path steps/s in alternating rounds and its
+             device time under the profiler.
+ 14. fused   (directly) the fused conv stack against cuDNN's at the
+             canonical shapes (400 rows, 36x36, float32): outputs within
+             1e-4 and gradients within 1e-3 of their norm, and the VAE
+             forward + backward time of each.
+Phases 13 and 14 run after [mlp], before [graph].
+Every main path (slice, f64, longT, mlp, bf16, fused, full) runs with the
+launch counters set to 0 just before it and read just after.  The line
+before the card's line is the kernel table as JSON, one row a kernel, shape
+and dtype; the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
 """
 
 from __future__ import annotations
@@ -880,9 +902,15 @@ def phase_slice(tmp: str):
     save = os.path.join(tmp, "run")
     opt = ModelArgs().parse_options([f"--f={CONFIG}"])
     prof_dir = os.path.join(tmp, "profile")
+    # the config file as it is (images too), cut to 3 epochs with a save
+    # interval at the third: the training curves, a validation and the
+    # save-interval battery there, the reconstruction grid after training
     opt.update(data_source_path=data_dir, save_path=save, epochs=3,
-               run_validation=True, run_tests=True, generate_images=False,
-               device="cuda", profile_dir=prof_dir)
+               save_interval=3, device="cuda", profile_dir=prof_dir)
+    if not (opt["generate_images"] and opt["run_validation"]
+            and opt["run_tests"]):
+        fail("[slice] the canonical config no longer asks for images, "
+             "validation and tests")
     ls.reset_counters()
     out = cli.run(opt)
     torch.cuda.synchronize()
@@ -938,8 +966,64 @@ def phase_slice(tmp: str):
     print(f"[slice] epoch seconds {ep}; steps/s after warm-up "
           f"{10 / ep[-1]:.3f} on {card_line()}", flush=True)
     print(f"[slice] final validation {ev['validation']:.3f} s, tests "
-          f"{ev['tests']:.3f} s on {card_line()}", flush=True)
+          f"{ev['tests']:.3f} s, images {ev['images']:.3f} s on "
+          f"{card_line()}", flush=True)
+    check_images(out, save)
     return by_shape, out, data_dir, save
+
+
+def check_images(out, save: str) -> None:
+    """The reconstruction grid of the generation split (its first 160
+    rows: 8 subjects of 20 frames) and the training curves: where
+    matplotlib is missing, recon_complete.npz with a finite [160, 1296]
+    grid whose reconstruction is pixels in [0, 255], and
+    training_curves.npz with every curve hlax plots; where it is
+    installed, the PDF and the PNGs."""
+    results = out["results_path"]
+    npz = os.path.join(results, "recon_complete.npz")
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    if have_mpl:
+        for path in (os.path.join(results, "recon_complete.pdf"),
+                     os.path.join(save, "training_net_loss.png")):
+            if not os.path.isfile(path):
+                fail(f"[slice] {path} was not written")
+        print("[slice] images: matplotlib is installed; the PDF and PNGs "
+              "were written", flush=True)
+        return
+    if not os.path.isfile(npz):
+        fail(f"[slice] {npz} was not written")
+    with np.load(npz) as z:
+        X, R = z["X"], z["recon_X"]
+        sets, length = int(z["num_sets"]), int(z["seq_length"])
+    if X.shape != (160, 1296) or R.shape != (160, 1296) or (sets, length) \
+            != (8, 20):
+        fail(f"[slice] recon_complete.npz holds {X.shape}, {R.shape}, "
+             f"{sets} sets of {length}")
+    # the reconstruction is pixels (sigmoid means x 255, 5-level codes x
+    # 50); the truth is the generated data, whose rotated glyphs overshoot
+    # [0, 255] (cubic splines)
+    if not np.isfinite(X).all() or not np.isfinite(R).all() \
+            or R.min() < 0 or R.max() > 255:
+        fail(f"[slice] recon_complete.npz: truth x mask or reconstruction "
+             f"not finite, or reconstruction pixels outside [0, 255] "
+             f"({R.min()} .. {R.max()})")
+    curves = os.path.join(save, "training_curves.npz")
+    if not os.path.isfile(curves):
+        fail(f"[slice] {curves} was not written")
+    with np.load(curves) as z:
+        lens = {k: len(z[k]) for k in z.files}
+    want = {"net_loss": 3, "nll": 3, "kld": 3, "vae_error": 1,
+            "gp_error": 1, "validation_loss": 1}
+    if lens != want:
+        fail(f"[slice] training_curves.npz holds {lens}, expected {want}")
+    print(f"[slice] images (no matplotlib on this machine): "
+          f"recon_complete.npz grid {X.shape}, truth x mask in "
+          f"[{X.min():g}, {X.max():g}], recon in [{R.min():g}, {R.max():g}]"
+          f"; training_curves.npz {lens}", flush=True)
 
 
 def _by_shape_str(by_shape) -> str:
@@ -951,16 +1035,32 @@ def phase_impute(data_dir: str, save: str, tag: str = "impute") -> None:
     """The imputation CLI over the test split, encoder and GP modes: fills
     exactly the cells the mask marks missing, leaves the observed ones."""
     from hlax_torch.cli import impute
+    from hlax_torch.native import io as nio
     from hlax_torch.ops import linalg_small as ls
 
     raw = np.loadtxt(os.path.join(data_dir, "test_data_D4.csv"),
                      delimiter=",")
+    if not nio.native_available():
+        fail(f"[{tag}] the native CSV parser did not build")
+    path = os.path.join(data_dir, "test_data_D4.csv")
+    t0 = time.perf_counter()
+    parsed = nio.read_csv_matrix(path)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nio.python_fallback(path)
+    t_python = time.perf_counter() - t0
+    if not np.array_equal(parsed, raw):
+        fail(f"[{tag}] the native parser read another matrix than numpy's")
+    print(f"[{tag}] {raw.shape[0]} x {raw.shape[1]} CSV: native parser "
+          f"{t_native:.3f} s, plain-Python parser {t_python:.3f} s (host)",
+          flush=True)
     mask = np.loadtxt(os.path.join(data_dir, "test_mask.csv"), delimiter=",")
     for mode, extra in (("encoder", []),
                         ("gp", ["--use_gp", "--label_csv",
                                 os.path.join(data_dir, "test_label.csv")])):
         out_csv = os.path.join(save, f"imputed_{mode}.csv")
         ls.reset_counters()
+        nio.reset_parses()
         printed = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
@@ -981,11 +1081,15 @@ def phase_impute(data_dir: str, save: str, tag: str = "impute") -> None:
             fail(f"[{tag}] {mode}: observed cells changed")
         if mode == "gp" and ls.LAUNCHES["chol_inv_mid_cuda"] == 0:
             fail(f"[{tag}] gp: the GP prediction launched no mid kernel")
+        if nio.PARSES["native"] < 2 or nio.PARSES["fallback"]:
+            fail(f"[{tag}] {mode}: CSV files read {nio.PARSES}; every one "
+                 "should go through the native parser")
         print(f"[{tag}] impute {mode}: {filled} cells filled over {len(raw)} "
               f"rows, "
               f"{len(raw) / seconds:.1f} rows/s ({seconds:.3f} s, the whole "
-              f"CLI call) on {card_line()}; launches {dict(ls.LAUNCHES)}",
-              flush=True)
+              f"CLI call; 525-536 rows/s with the plain-Python parser "
+              f"before it) on {card_line()}; launches {dict(ls.LAUNCHES)}; CSV "
+              f"files read {nio.PARSES}", flush=True)
 
 
 def phase_eval(out) -> None:
@@ -1591,6 +1695,182 @@ def phase_graph(data_dir: str, tmp: str) -> None:
         _profile_steps(name, paths[name], 3 * GRAPH_STEPS, calls=3)
 
 
+# the options of hlax's model on the canonical config through the CLI:
+# (tag, name, flags, epochs, final validation and tests)
+OPTION_RUNS = [
+    ("bf16", "float32", {}, 2, False),
+    ("bf16", "compute_dtype=bfloat16", {"compute_dtype": "bfloat16"}, 3,
+     True),
+    ("bf16", "model_dtype=bfloat16", {"model_dtype": "bfloat16"}, 2, False),
+    ("fused", "fused_conv", {"fused_conv": True}, 3, False),
+]
+
+
+def phase_options(data_dir: str, tmp: str) -> dict:
+    """[bf16] and [fused] through the CLI on the graph path: the canonical
+    config in float32, with --compute_dtype=bfloat16 (3 epochs, the final
+    validation and the test battery), with --model_dtype=bfloat16 (2
+    epochs) and with --fused_conv=True (3 epochs).  Each run: its steps,
+    finite losses, the model built as asked, no plain version on the card,
+    and all three kernels launched on its path (the GP stays in float32).
+    Then steps/s of every run's own graphs in alternating rounds of 3
+    epochs, and each one's device time under the profiler.  Returns the
+    launches by (kernel, shape, dtype) of each run."""
+    from hlax_torch.config import ModelArgs
+    from hlax_torch.data.dataset import epoch_subject_batches
+
+    b, k2, m = (32, 20, 20, 20), (64, 120, 120), (32, 120, 120)
+    outs, counts = {}, {}
+    for tag, name, over, epochs, ev in OPTION_RUNS:
+        opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+        opt.update(data_source_path=data_dir,
+                   save_path=os.path.join(tmp, f"run_{name}"), epochs=epochs,
+                   run_validation=ev, run_tests=ev, generate_images=False,
+                   device="cuda", **over)
+        t0 = time.perf_counter()
+        out, launches, by_shape, plain = _run_cli(
+            opt, os.path.join(tmp, f"{name}.log"))
+        seconds = time.perf_counter() - t0
+        steps = 10 * epochs
+        rows = _check_run(f"{tag} {name}", out, steps, plain, validation=ev)
+        want = {("chol_inv_small_cuda", b, "float32"): steps,
+                ("chol_inv_bwd_cuda", b, "float32"): steps,
+                ("chol_inv_mid_cuda", k2, "float32"): steps,
+                ("chol_inv_mid_cuda", m, "float32"): steps}
+        if ev:
+            want[("chol_inv_mid_cuda", (32, 256, 32, 32), "float32")] = 1
+        _need(f"{tag} {name}", by_shape, want)
+        model = out["model"]
+        dtypes = {p.dtype for p in model.parameters()}
+        built = {"float32": dtypes == {torch.float32}
+                 and model.cfg.compute_dtype is None
+                 and not model.cfg.fused_conv,
+                 "compute_dtype=bfloat16": dtypes == {torch.float32}
+                 and model.cfg.compute_dtype == torch.bfloat16,
+                 "model_dtype=bfloat16": dtypes == {torch.bfloat16},
+                 "fused_conv": model.cfg.fused_conv}[name]
+        if not built or out["state"].zt.dtype != torch.float32:
+            fail(f"[{tag}] {name}: the model was not built as asked "
+                 f"({dtypes}, {model.cfg.compute_dtype}, "
+                 f"fused {model.cfg.fused_conv}, GP {out['state'].zt.dtype})")
+        ev_s = out["eval_seconds"]
+        print(f"[{tag}] {name}: losses per epoch {out['loss_arrs']['net']}; "
+              f"run {seconds:.1f} s; launches {launches}; plain versions on "
+              f"CUDA tensors {plain}" + (
+                  f"; final validation {ev_s['validation']:.3f} s (rows "
+                  f"{rows}), tests {ev_s['tests']:.3f} s" if ev else ""),
+              flush=True)
+        outs[name], counts[name] = out, by_shape
+    idx = np.stack(list(epoch_subject_batches(200, 20,
+                                              np.random.default_rng(0))))
+    paths = {name: (lambda o: lambda: o["train_epoch"](
+        o["state"], o["staged"], idx))(o) for name, o in outs.items()}
+    rates = {name: [] for name in paths}
+    for _ in range(3):
+        for name, run in paths.items():
+            rates[name].append(_time_epochs(run, 3))
+    for tag, name, *_ in OPTION_RUNS:
+        if not torch.isfinite(outs[name]["state"].m).all():
+            fail(f"[{tag}] {name}: m is not finite after the timed epochs")
+        print(f"[{tag}] {name}: graph path steps/s "
+              f"{', '.join(f'{x:.2f}' for x in rates[name])} (3 rounds of 3 "
+              f"epochs of {GRAPH_STEPS} steps, alternating with "
+              f"{', '.join(n for n in paths if n != name)}) on {card_line()}",
+              flush=True)
+    for tag, name, *_ in OPTION_RUNS:
+        _profile_steps(f"{tag} {name}", paths[name], 3 * GRAPH_STEPS,
+                       calls=3)
+    return counts
+
+
+# the fused stack against cuDNN's at the canonical shapes, relative to each
+# tensor's norm: float32 with TF32 off, two summation orders of the same
+# products.  A bias gradient sums 400 x 36 x 36 terms that cancel (2e-5
+# apart on the CPU), so gradients get hlax's own bar for its fused model
+# against its unfused one (tests/test_convfuse.py, 1e-3)
+FUSED_BOUND = {"outputs": 1e-4, "gradients": 1e-3}
+
+
+def phase_fused_stack(data_dir: str) -> None:
+    """[fused] directly, at the canonical shapes: 400 rows (20 subjects of
+    20 frames, a batch), 36x36 images, the canonical widths, float32.  The
+    fused stack (hlax's patch matmuls) and cuDNN's convolutions from one
+    set of weights: mu, log_var, log_p_x and every parameter's gradient of
+    the summed NLL within FUSED_BOUND; then each one's VAE forward +
+    backward time, in turns cuDNN, fused, fused, cuDNN: device time by CUDA
+    events over 20 replays of a CUDA graph of it, as the train step runs it
+    (an eager forward + backward is hundreds of launches, more than the
+    launch queue holds ahead of ``time_ms``'s spin kernel, so its events
+    would time the host)."""
+    import dataclasses
+
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig, nll_from_log_p
+
+    ds, _, _ = canonical_setup(data_dir)
+    rows = 400
+    t = lambda a: torch.as_tensor(a[:rows], dtype=torch.float32,
+                                  device="cuda")
+    x, mask, tmask = t(ds.het.data), t(ds.het.mask), t(ds.het.theta_mask)
+    eps = torch.randn((rows, 32), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(3))
+    cfg = HLVAEConfig(layout=ds.layout, z_dim=32, h_dims=(500,), y_dim=5,
+                      conv=True)
+    models = {}
+    for fused in (False, True):
+        models[fused] = HLVAE(dataclasses.replace(cfg, fused_conv=fused),
+                              torch.Generator("cuda").manual_seed(0), "cuda")
+    models[True].load_state_dict(models[False].state_dict())
+
+    def fwd_bwd(model):
+        model.zero_grad(set_to_none=False)
+        out = model(x, mask, tmask, eps=eps)
+        nll_from_log_p(out["log_p_x"]).sum().backward()
+        return out
+
+    outs = {f: fwd_bwd(m) for f, m in models.items()}
+    rel = lambda u, v: ((u - v).norm() / v.norm().clamp_min(1e-30)).item()
+    worst = {}
+    for k in ("mu", "log_var", "log_p_x"):
+        worst[k] = rel(outs[True][k], outs[False][k])
+    grads = dict(models[False].named_parameters())
+    for k, p in models[True].named_parameters():
+        if grads[k].grad is not None:
+            worst[f"grad {k}"] = rel(p.grad, grads[k].grad)
+    bad = {k: v for k, v in worst.items() if not v <= FUSED_BOUND[
+        "gradients" if k.startswith("grad") else "outputs"]}
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[fused] fused against cuDNN at [{rows}, 36, 36] float32: "
+          f"mu {worst['mu']:.3g}, log_var {worst['log_var']:.3g}, log_p_x "
+          f"{worst['log_p_x']:.3g}; largest {top} (bounds {FUSED_BOUND})",
+          flush=True)
+    if bad:
+        fail(f"[fused] the fused stack disagrees with cuDNN's: {bad}")
+    # the autograd graphs of the eager calls above hold each parameter's
+    # gradient accumulator, made on the default stream; drop them, so that
+    # the warm-up on the capture's stream makes them there
+    del outs
+    graphs, side = {}, torch.cuda.Stream()
+    for fused, model in models.items():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fwd_bwd(model)
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[fused] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[fused], stream=side):
+            fwd_bwd(model)
+    times = {False: [], True: []}
+    for fused in (False, True, True, False):
+        times[fused].append(time_ms(graphs[fused].replay, reps=20,
+                                    warmup=3)[0])
+    print(f"[fused] VAE forward + backward of {rows} rows: cuDNN "
+          f"{', '.join(f'{v:.4f}' for v in times[False])} ms, fused "
+          f"{', '.join(f'{v:.4f}' for v in times[True])} ms (device, CUDA "
+          f"events over graph replays; turns cuDNN, fused, fused, cuDNN) on "
+          f"{card_line()}",
+          flush=True)
+
+
 def phase_full(data_dir: str, tmp: str) -> None:
     """The canonical config's full run through the CLI on the graph path:
     FULL_EPOCHS epochs of 10 steps in bursts of up to 5 epochs
@@ -1654,6 +1934,8 @@ def main() -> None:
         counts["f64"] = phase_f64(data_dir, tmp)
         counts["longT"] = phase_long_t()
         counts["mlp"] = phase_mlp(data_dir, tmp)
+        counts["options"] = phase_options(data_dir, tmp)
+        phase_fused_stack(data_dir)
         phase_graph(data_dir, tmp)
         phase_full(data_dir, tmp)
     # each row's launches come from the run of the path it belongs to: the

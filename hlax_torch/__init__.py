@@ -29,6 +29,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def to_numpy(t: torch.Tensor):
+    """``t`` as a numpy array on the host; bfloat16, which numpy lacks,
+    comes back as float32 (every bfloat16 value is a float32 value)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 _CONSTANTS: dict = {}
 
 

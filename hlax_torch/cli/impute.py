@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hlax_torch import resolve_device
+from hlax_torch import resolve_device, to_numpy
 
 
 def _load_arguments(model_dir: str) -> dict:
@@ -176,9 +176,9 @@ def run_impute(model_dir: str, data_csv: str, out_csv: str,
             mean_rec, mode_rec = mx.statistics(out["params"], het.layout,
                                                mcfg.conv)
             est_grouped = mean_rec if estimator == "mean" else mode_rec
-        est = est_grouped.cpu().numpy()[:, het.layout.raw_inv]  # original order
-        lp = out["log_p_x"].cpu().numpy()
-        lpm = out["log_p_x_missing"].cpu().numpy()
+        est = to_numpy(est_grouped)[:, het.layout.raw_inv]  # original order
+        lp = to_numpy(out["log_p_x"])
+        lpm = to_numpy(out["log_p_x_missing"])
 
     layout = het.layout
     imputed = np.array(raw, dtype=np.float64)

@@ -16,8 +16,14 @@ interval when ``--run_validation``, runs the test battery at the end when
 and early stopping is off, ``arguments.pkl`` when ``epochs`` is not 0, 1 or
 2 and early stopping is off; a run with ``epochs`` in {0, 1, 2} or early
 stopping reloads the saved ``arguments.pkl`` and overrides only the
-run-control flags (an eval-only rerun of a trained model).  Image
-generation and the training-curve plots are not ported yet.
+run-control flags (an eval-only rerun of a trained model).  At each save
+interval the training curves are plotted (``eval/images.py``) and, with
+``--generate_images``, the reconstruction grid of the generation split; the
+final grid is drawn after training.  Where matplotlib is missing these
+write ``.npz`` files instead (hlax's CLI raises there), and a failed plot
+never ends the run.  ``--compute_dtype=bfloat16``,
+``--model_dtype=bfloat16`` and ``--fused_conv`` are hlax's options; only
+mesh parallelism (``--data_parallel``, ``--latent_parallel``) is refused.
 """
 
 from __future__ import annotations
@@ -36,14 +42,14 @@ import torch
 from hlax_torch import resolve_device
 from hlax_torch.config import ModelArgs
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# model_dtype takes all three, gp_dtype float32 and float64 (the parser's
+# choices, as in hlax)
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 
 # run-control flags whose feature the port has not reached, with the value
 # that keeps hlax's behaviour the same as the port's
 _NOT_PORTED = {
-    "generate_images": (False, "image generation (ROADMAP queue 1 item 9)"),
-    "compute_dtype": ("", "compute_dtype (ROADMAP queue 1 item 13)"),
-    "fused_conv": (False, "the fused conv path (ROADMAP queue 1 item 14)"),
     "data_parallel": (0, "data parallelism (ROADMAP queue 1 item 16)"),
     "latent_parallel": (1, "latent parallelism (ROADMAP queue 1 item 16)"),
 }
@@ -65,8 +71,8 @@ def _check_ported(opt: dict) -> None:
     for key in ("model_dtype", "gp_dtype"):
         if opt.get(key, "float32") not in _DTYPES:
             raise NotImplementedError(
-                f"--{key}={opt[key]} is not ported to hlax_torch (float32 "
-                "and float64 are; bf16 stacks: ROADMAP queue 1 item 13)")
+                f"--{key}={opt[key]}: hlax_torch takes "
+                f"{', '.join(_DTYPES)}")
 
 
 def warm_start_candidates(gp_folder: str, save_path: str) -> list:
@@ -141,6 +147,7 @@ def _stop_profile(prof, profile_dir: str, first: int, last: int) -> None:
 def run(opt: dict) -> dict:
     from hlax_torch.data.dataset import (epoch_subject_batches, load_dataset,
                                          stage_dataset, subject_batches)
+    from hlax_torch.eval import images as im
     from hlax_torch.eval import testing as tst
     from hlax_torch.eval import validate as val
     from hlax_torch.gp.kernels import build_kernel_specs, noise_value
@@ -186,8 +193,14 @@ def run(opt: dict) -> dict:
                                 "csv_file_prediction_label",
                                 "prediction_mask_file",
                                 "true_prediction_mask_file")
-                          if opt.get("run_tests")
+                          if (opt.get("run_tests")
+                              or opt.get("generate_images"))
                           and opt.get("csv_file_prediction_data") else None)
+    generation_dataset = (mk_ds("csv_file_generation_data",
+                                "csv_file_generation_label",
+                                "generation_mask_file",
+                                "true_generation_mask_file")
+                          if opt.get("generate_images") else None)
     validation_dataset = (mk_ds("csv_file_validation_data",
                                 "csv_file_validation_label",
                                 "validation_mask_file",
@@ -203,7 +216,10 @@ def run(opt: dict) -> dict:
         y_dim=opt.get("y_dim") or 5, conv=bool(opt.get("conv_hivae")),
         logvar_network=opt.get("logvar_network", False),
         vy_init_real=opt.get("vy_init_real", 1.0),
-        vy_init_pos=opt.get("vy_init_pos", 0.5))
+        vy_init_pos=opt.get("vy_init_pos", 0.5),
+        fused_conv=bool(opt.get("fused_conv", False)),
+        compute_dtype=(_DTYPES[opt["compute_dtype"]]
+                       if opt.get("compute_dtype") else None))
     model = HLVAE(mcfg, torch.Generator(device=device).manual_seed(seed),
                   device=device).to(model_dtype)
 
@@ -255,6 +271,7 @@ def run(opt: dict) -> dict:
     best_value, best_epoch = np.inf, 0
     best_epoch_missing_imp_error = -1.0
     epoch_seconds = []
+    curves_plotted = False
     miss_recon_loss = 0.0
     type_KL = opt.get("type_KL") or "GPapprox_closed"
     noise_fn = lambda s: noise_value(s.raw_noise, cfg.constrain_scales)
@@ -262,6 +279,13 @@ def run(opt: dict) -> dict:
     def encode_train():
         mu, _ = val.encode_dataset(model, dataset)
         return mu, dataset.labels
+
+    def draw_recon(epoch=-1):
+        pred_mu, _ = val.encode_dataset(model, prediction_dataset)
+        im.recon_complete_gen(
+            model, spec0, state.k0, spec1, state.k1, noise_fn(state),
+            state.zt, generation_dataset, prediction_dataset.labels, pred_mu,
+            id_covariate, results_path, epoch=epoch, eval_gp_f64=eval_gp_f64)
 
     def validate():
         train_mu, train_x = encode_train()
@@ -345,8 +369,17 @@ def run(opt: dict) -> dict:
             print(f"Validation Duration: {time.time() - tv}")
 
         if epoch % save_interval == 0:
-            print("Training-curve plots are not ported to hlax_torch yet "
-                  "(ROADMAP queue 1 item 9)")
+            try:   # a failed plot must not end the run
+                im.plot_training_info(
+                    save_path, warn=not curves_plotted,
+                    net_loss=loss_arrs["net"], nll=loss_arrs["nll"],
+                    kld=loss_arrs["kld"], vae_error=val_arrs["vae_error"],
+                    gp_error=val_arrs["gp_error"],
+                    validation_loss=validation_curve)
+                curves_plotted = True
+            except Exception:
+                print("Training-curve plot failed (continuing):\n"
+                      + traceback.format_exc())
             if last_val is not None and epochs > 50:
                 # validation_df.pkl holds the rows as a dict (hlax pickles a
                 # pandas frame; the port has no pandas)
@@ -368,8 +401,12 @@ def run(opt: dict) -> dict:
                                        "partial_metrics_training_VAE.pickle"),
                           "wb") as f:
                     pickle.dump(res["partial_LL"], f)
+                if generation_dataset is not None \
+                        and prediction_dataset is not None \
+                        and epoch != epochs:
+                    draw_recon(epoch)
             except Exception:   # a failed extra must not end the run
-                print("Save-interval eval failed (continuing):\n"
+                print("Save-interval eval/image-gen failed (continuing):\n"
                       + traceback.format_exc())
 
         if run_val and epoch > 100 and validation_curve:
@@ -432,13 +469,24 @@ def run(opt: dict) -> dict:
         eval_seconds["tests"] = time.time() - t0
     _memory_dbg(opt.get("memory_dbg"), "tests", device)
 
+    if generation_dataset is not None and prediction_dataset is not None:
+        t0 = time.time()
+        try:   # a failed plot must not end the run
+            draw_recon()
+        except Exception:
+            print("Image generation failed (continuing):\n"
+                  + traceback.format_exc())
+        eval_seconds["images"] = time.time() - t0
+
     return {"state": state, "model": model, "loss_arrs": loss_arrs,
             "spec0": spec0, "spec1": spec1, "dataset": dataset,
             "datasets": {"train": dataset, "validation": validation_dataset,
                          "test": test_dataset,
-                         "prediction": prediction_dataset},
+                         "prediction": prediction_dataset,
+                         "generation": generation_dataset},
             "staged": staged,
             "train_step": tstep.make_train_step(model, spec0, spec1, cfg),
+            "train_epoch": epoch_fn,
             "steps": state.step,
             "epoch_seconds": epoch_seconds, "eval_seconds": eval_seconds,
             "last_validation": last_val, "results_path": results_path}

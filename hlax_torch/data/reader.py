@@ -17,8 +17,8 @@ Unlike the reference, the encoded arrays are returned in *type-major grouped
 column order* (see hlax_torch.types), so all downstream device code uses static
 slices.  ``TypeLayout.exp_inv`` etc. map back to original order.
 
-CSV parsing is the plain-Python path of ``hlax/native/io.py``; the C++
-parser hlax prefers is host code and is not ported yet.
+CSV files are read by the port's copy of hlax's C++ parser
+(``hlax_torch/native``), as hlax reads them.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hlax_torch.native.io import read_csv_matrix
 from hlax_torch.types import TypeLayout, compile_layout
 
 
@@ -48,19 +49,10 @@ class HeterogeneousData:
 
 
 def _read_csv_matrix(path: str) -> np.ndarray:
-    """Float matrix; blank/empty fields -> NaN; a header row is skipped
-    (``hlax/native/io.py::_numpy_fallback``)."""
-    rows = []
-    with open(path, "r") as f:
-        for rec in csv.reader(f):
-            try:
-                rows.append([float(x) if x not in (None, "") else np.nan
-                             for x in rec])
-            except ValueError:
-                if not rows:
-                    continue   # header
-                raise
-    return np.asarray(rows, dtype=np.float64)
+    """Float matrix; blank/empty fields -> NaN; a header row is skipped.
+    The native C++ parser (``hlax_torch.native.io``) when it builds, with
+    hlax's plain-Python fallback."""
+    return read_csv_matrix(path)
 
 
 def _read_mask(path: Optional[str], shape: Tuple[int, int]) -> np.ndarray:

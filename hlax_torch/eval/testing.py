@@ -12,6 +12,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from hlax_torch import to_numpy
 from hlax_torch.data.dataset import LongitudinalDataset
 from hlax_torch.eval import metrics as mx
 from hlax_torch.eval.validate import (_model_device_dtype, device_het,
@@ -53,7 +54,7 @@ def _unseen_rows(ds: LongitudinalDataset, conv: bool,
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
-    return tree.cpu().numpy()
+    return to_numpy(tree)
 
 
 def _metric_battery(ds, data, mask, log_p_x, log_p_x_missing, params,
@@ -78,7 +79,7 @@ def _metric_battery(ds, data, mask, log_p_x, log_p_x_missing, params,
     partial_mode = err(sub(mode_rec))
     partial_sample = err(sub(samp_rec))
     imputed = torch.as_tensor(mx.mean_imputation(
-        sub(truth).cpu().numpy(), sub(mask).cpu().numpy(), lay),
+        to_numpy(sub(truth)), to_numpy(sub(mask)), lay),
         dtype=data.dtype, device=dev)
     partial_imp = err(imputed, mean_imp_error=True)
     partial_ll = mx.partial_loglikelihood(
@@ -109,9 +110,9 @@ def hlvae_test(model, ds: LongitudinalDataset, test: bool = False,
         out = model(data, mask, tmask, sample=False)
         res = _metric_battery(ds, data, mask, out["log_p_x"],
                               out["log_p_x_missing"], out["params"], rows)
-        m_np = mask.cpu().numpy()[rows]
-        lp = out["log_p_x"].cpu().numpy()[rows]
-        lpm = out["log_p_x_missing"].cpu().numpy()[rows]
+        m_np = to_numpy(mask)[rows]
+        lp = to_numpy(out["log_p_x"])[rows]
+        lpm = to_numpy(out["log_p_x_missing"])[rows]
     obs_density = lp[m_np == 1].mean() if (m_np == 1).any() else 0.0
     mis_density = lpm[m_np == 0].mean() if (m_np == 0).any() else 0.0
     if prnt:

@@ -31,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from hlax_torch import to_numpy
 from hlax_torch.data.dataset import LongitudinalDataset
 from hlax_torch.eval import metrics as mx
 from hlax_torch.gp import elbo as gp_elbo
@@ -83,7 +84,7 @@ def encode_dataset(model, ds: LongitudinalDataset, chunk: int = 1000):
             mu, lv = model.encode(data_d[i:i + chunk], mask_d[i:i + chunk])
             mus.append(mu)
             lvs.append(lv)
-        return (torch.cat(mus).cpu().numpy(), torch.cat(lvs).cpu().numpy())
+        return to_numpy(torch.cat(mus)), to_numpy(torch.cat(lvs))
 
 
 def forward_metrics(model, ds: LongitudinalDataset, eps=None, seed: int = 0):
@@ -105,8 +106,8 @@ def forward_metrics(model, ds: LongitudinalDataset, eps=None, seed: int = 0):
             use_ranges=ds.use_ranges)
         return {"nll": nll, "recon_loss": rec_obs.sum().item(),
                 "miss_recon_loss": rec_mis.sum().item(),
-                "mu": out["mu"].cpu().numpy(),
-                "log_var": out["log_var"].cpu().numpy()}
+                "mu": to_numpy(out["mu"]),
+                "log_var": to_numpy(out["log_var"])}
 
 
 def _bucket(n: int) -> int:
@@ -239,12 +240,14 @@ def gp_predict_dataset(spec0, k0, spec1, k1, noise, zt,
         return z.cpu().numpy()
 
 
-def decode_latents(model, ds: LongitudinalDataset, z_pred: np.ndarray):
-    """Decode the GP-predicted latents at the rows of ``ds``.  Returns the
-    decoder output (log_p_x, log_p_x_missing, params, theta) and the staged
-    (data, mask, theta_mask)."""
+def decode_latents(model, ds: LongitudinalDataset, z_pred: np.ndarray,
+                   rows: slice = slice(None)):
+    """Decode the GP-predicted latents at the rows ``rows`` of ``ds``, under
+    those rows' normalization statistics.  Returns the decoder output
+    (log_p_x, log_p_x_missing, params, theta) and the staged (data, mask,
+    theta_mask) of those rows."""
     dev, dt = _model_device_dtype(model)
-    data, mask, tmask = device_het(ds, dt, dev)
+    data, mask, tmask = (a[rows] for a in device_het(ds, dt, dev))
     with torch.inference_mode():
         _, norm_params = batch_normalization(data, mask, ds.layout, ds.conv)
         out = model.decode(torch.as_tensor(z_pred, dtype=dt, device=dev),

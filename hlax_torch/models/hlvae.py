@@ -18,7 +18,20 @@ The MLP path (``conv=False``, the tabular panels) reads the normalized
 grouped data [B, n_exp] straight into the encoder MLP, and ``y_layer``
 emits n_raw * y_dim features reshaped straight to grouped order: no
 representation layer, no sigmoid on real means and no division by 255.
-``compute_dtype`` and the fused conv lowering are not ported yet.
+
+Options, as in hlax:
+
+  * ``fused_conv``: the image stack as hlax's pool-fused patch matmuls
+    (``ops.convfuse.conv_pool_fused``/``conv_transpose_fused``, NHWC inside,
+    converted at the stack's two ends) instead of cuDNN's convolutions; the
+    same parameters.
+  * ``compute_dtype`` (e.g. ``torch.bfloat16``): only the conv stack, the
+    encoder and decoder MLPs and ``y_layer`` compute in it, each parameter
+    cast at its use; the mean and log-variance layers take the hidden
+    activations back up to the parameters' dtype, and the heads, the
+    likelihoods and the GP stay in the model's and the GP's dtypes.
+  * The all-bfloat16 model is ``model.to(torch.bfloat16)``: parameters, and
+    with them everything the model computes, in bfloat16.
 """
 
 from __future__ import annotations
@@ -53,6 +66,12 @@ class HLVAEConfig:
     vy_init_pos: float = 0.5
     vy_fixed: bool = False
     image_side: int = 36
+    # the image stack as patch matmuls (``ops.convfuse``) instead of cuDNN's
+    # convolutions; off by default, as in hlax
+    fused_conv: bool = False
+    # dtype of the conv stack, the encoder/decoder MLPs and y_layer; None =
+    # the parameters' dtype
+    compute_dtype: Optional[torch.dtype] = None
 
     @property
     def n_raw(self) -> int:
@@ -93,6 +112,13 @@ class _MaxPool2x2(torch.autograd.Function):
 
 def max_pool_2x2(h: torch.Tensor) -> torch.Tensor:
     return _MaxPool2x2.apply(h)
+
+
+def _linear(x, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype``: input and parameters cast to it
+    (flax's ``Dense(dtype=...)``); no cast when all are in it already."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype),
+                    layer.bias.to(dtype))
 
 
 def _normal(shape, gen, device, std=_INIT_STD):
@@ -207,16 +233,25 @@ class HLVAE(nn.Module):
         lay = cfg.layout
         if norm_data is None:
             norm_data, _ = batch_normalization(data, mask, lay, cfg.conv)
-        hidden = self._conv_features(norm_data, mask) if cfg.conv \
+        dt, cdt = self._dtypes()
+        hidden = self._conv_features(norm_data, mask, cdt) if cfg.conv \
             else norm_data
         for layer in self.enc_mlp:
-            hidden = F.relu(layer(hidden))
+            hidden = F.relu(_linear(hidden, layer, cdt))
+        # the reparameterization layers in the parameters' dtype
+        hidden = hidden.to(dt)
         mu = self.mean_layer(hidden)
         log_var = torch.clamp(self.log_var_layer(hidden), -15.0, 15.0)
         return mu, log_var
 
-    def _conv_features(self, norm_data, mask):
-        """The conv encoder's flattened features of the normalized rows."""
+    def _dtypes(self):
+        """(the parameters' dtype, the compute dtype of the stacks)."""
+        dt = self.mean_layer.weight.dtype
+        return dt, self.cfg.compute_dtype or dt
+
+    def _conv_features(self, norm_data, mask, cdt):
+        """The conv encoder's flattened features of the normalized rows,
+        computed in ``cdt``."""
         cfg = self.cfg
         lay = cfg.layout
         # scalarize to one channel per raw variable
@@ -234,11 +269,17 @@ class HLVAE(nn.Module):
         one_to_one = torch.cat(blocks, dim=1)            # [B, n_raw] grouped
         # un-permute to pixel order for the spatial conv
         s = cfg.image_side
-        img = one_to_one[:, self.raw_inv].reshape(-1, 1, s, s)
-        h = max_pool_2x2(F.relu(cf.conv3x3_same(
-            img, self.conv1.weight, self.conv1.bias)))
-        h = max_pool_2x2(F.relu(cf.conv3x3_same(
-            h, self.conv2.weight, self.conv2.bias)))
+        img = one_to_one[:, self.raw_inv].reshape(-1, 1, s, s).to(cdt)
+        (w1, b1), (w2, b2) = ((c.weight.to(cdt), c.bias.to(cdt))
+                              for c in (self.conv1, self.conv2))
+        if cfg.fused_conv:
+            h = img.permute(0, 2, 3, 1)                       # NHWC
+            h = cf.conv_pool_fused(h, cf.conv_kernel_hwio(w1), b1)
+            h = cf.conv_pool_fused(h, cf.conv_kernel_hwio(w2), b2)
+            h = h.permute(0, 3, 1, 2)                         # NCHW
+        else:
+            h = max_pool_2x2(F.relu(cf.conv3x3_same(img, w1, b1)))
+            h = max_pool_2x2(F.relu(cf.conv3x3_same(h, w2, b2)))
         return h.reshape(h.shape[0], -1)
 
     # ------------------------------------------------------------------
@@ -249,18 +290,30 @@ class HLVAE(nn.Module):
         """z [B, z_dim] -> per-variable features y [B, n_raw, y_dim]
         (grouped order)."""
         cfg = self.cfg
+        dt, cdt = self._dtypes()
         h = z
         for layer in self.dec_mlp:
-            h = F.relu(layer(h))
+            h = F.relu(_linear(h, layer, cdt))
+        y = _linear(h, self.y_layer, cdt)
+        # the heads and the likelihoods in the parameters' dtype
         if not cfg.conv:
-            return self.y_layer(h).reshape(-1, cfg.n_raw, cfg.y_dim)
+            return y.to(dt).reshape(-1, cfg.n_raw, cfg.y_dim)
         feat = cfg.image_side // 4
-        y = self.y_layer(h).reshape(-1, 32, feat, feat)
-        y = F.relu(cf.conv_transpose4x4_s2(y, self.deconv1.weight,
-                                           self.deconv1.bias))
-        y = cf.conv_transpose4x4_s2(y, self.deconv2.weight, self.deconv2.bias)
-        # [B, y, 36, 36] -> [B, pixels, y] in pixel order -> grouped order
-        y = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, cfg.y_dim)
+        y = y.reshape(-1, 32, feat, feat)
+        (w1, b1), (w2, b2) = ((c.weight.to(cdt), c.bias.to(cdt))
+                              for c in (self.deconv1, self.deconv2))
+        if cfg.fused_conv:
+            y = y.permute(0, 2, 3, 1)                         # NHWC
+            y = F.relu(cf.conv_transpose_fused(
+                y, cf.conv_transpose_kernel_hwio(w1), b1))
+            y = cf.conv_transpose_fused(
+                y, cf.conv_transpose_kernel_hwio(w2), b2)     # [B,36,36,y]
+        else:
+            y = F.relu(cf.conv_transpose4x4_s2(y, w1, b1))
+            y = cf.conv_transpose4x4_s2(y, w2, b2)            # [B,y,36,36]
+            y = y.permute(0, 2, 3, 1)
+        # [B, 36, 36, y] -> [B, pixels, y] in pixel order -> grouped order
+        y = y.to(dt).reshape(y.shape[0], -1, cfg.y_dim)
         return y[:, self.raw_perm, :]
 
     def _head(self, gi, g, y_g):

@@ -391,7 +391,9 @@ def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
     step = make_train_step(model, spec0, spec1, cfg)
     graphs = _EpochGraphs(step, max(1, int(unroll)))
     model_dt = str(next(model.parameters()).dtype).removeprefix("torch.")
-    dtypes = {m: model_dt for m in METRICS}     # the eager step's dtypes
+    # the eager step's dtypes (bfloat16, which numpy lacks, as float32)
+    model_dt = {"bfloat16": "float32"}.get(model_dt, model_dt)
+    dtypes = {m: model_dt for m in METRICS}
     dtypes["kld"] = str(cfg.gp_dtype).removeprefix("torch.")
 
     def epoch(state: TrainState, staged, idx_batches, eps=None

@@ -84,32 +84,78 @@ def _read_rows(path):
                                   "--run_tests=True",
                                   "--generate_images=True"])
 def test_eval_flags_are_refused(data_dir, tmp_path, flag):
-    """Validation and the test battery run (toy runs that write their
-    CSVs); image generation is still refused."""
-    if flag == "--generate_images=True":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(_argv(data_dir, tmp_path / "run", flag))
-        return
-    out = cli.main(_argv(data_dir, tmp_path / "run", flag))
+    """Validation, the test battery and image generation each run (toy
+    runs that write their CSVs, or the reconstruction grids and the
+    training curves); no eval flag is refused any more."""
+    extra = ("--save_interval=2",) if flag == "--generate_images=True" \
+        else ()
+    out = cli.main(_argv(data_dir, tmp_path / "run", flag, *extra))
     results = tmp_path / "run" / "results"
     if flag == "--run_validation=True":
         rows = _read_rows(results / "validation_results.csv")
         assert tuple(rows) == VALIDATION_ROWS
         assert all(math.isfinite(v) for v in rows.values())
         assert set(out["eval_seconds"]) == {"validation", "tests"}
-    else:
+    elif flag == "--run_tests=True":
         rows = _read_rows(results / "result_error_final.csv")
         assert list(rows) == ["mean_GP_recon_loss", "miss_recon_loss_GP",
                               "all_rows_fallback"]
         assert all(math.isfinite(v) for v in rows.values())
         assert os.path.isfile(results / "partial_metrics_test_future.pickle")
+    else:
+        # the grid after training and at the save interval (epoch 2, not
+        # the last), the curves at the save interval, as hlax draws them
+        assert out["datasets"]["generation"] is not None
+        assert "images" in out["eval_seconds"]
+        for name in ("recon_complete.pdf", "recon_complete_2.pdf"):
+            assert os.path.getsize(results / name) > 0, name
+        for name in ("training_net_loss.png", "training_kl_ll.png"):
+            assert os.path.getsize(tmp_path / "run" / name) > 0, name
 
 
 def test_config_file_alone_is_refused_until_eval_is_ported():
-    """The canonical config asks for images, which are not ported yet."""
+    """The canonical config file, images and all, passes the port's check
+    unmodified; mesh parallelism is the one thing still refused."""
     opt = ModelArgs().parse_options([f"--f={CONFIG}"])
-    with pytest.raises(NotImplementedError, match="generate_images"):
-        cli.run(opt)
+    assert opt["generate_images"] is True
+    cli._check_ported(opt)
+    for flag in ("--data_parallel=2", "--latent_parallel=2"):
+        opt = ModelArgs().parse_options([f"--f={CONFIG}", flag])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli._check_ported(opt)
+    assert set(cli._NOT_PORTED) == {"data_parallel", "latent_parallel"}
+
+
+@pytest.mark.parametrize("flag", ["--compute_dtype=bfloat16",
+                                  "--model_dtype=bfloat16",
+                                  "--fused_conv=True"])
+def test_toy_run_with_a_model_option(data_dir, tmp_path, flag):
+    """hlax's model options run through the CLI: finite losses, the model
+    built with the option, the eval-only rerun from arguments.pkl rebuilds
+    it the same way."""
+    save = tmp_path / "run"
+    out = cli.main(_argv(data_dir, save, flag, "--run_validation=True"))
+    assert all(math.isfinite(v) for v in out["loss_arrs"]["net"])
+    model = out["model"]
+    if flag == "--compute_dtype=bfloat16":
+        assert model.cfg.compute_dtype == torch.bfloat16
+        assert model.mean_layer.weight.dtype == torch.float32
+    elif flag == "--model_dtype=bfloat16":
+        assert model.cfg.compute_dtype is None
+        assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+        assert out["state"].zt.dtype == torch.float32
+    else:
+        assert model.cfg.fused_conv
+    rows = _read_rows(save / "results" / "validation_results.csv")
+    assert all(math.isfinite(v) for v in rows.values())
+    again = cli.main([f"--f={CONFIG}", f"--data_source_path={data_dir}",
+                      f"--save_path={save}", "--epochs=0", "--device=cpu",
+                      "--run_validation=False", "--run_tests=False",
+                      "--generate_images=False"])
+    for key in ("compute_dtype", "fused_conv", "conv", "z_dim"):
+        assert getattr(again["model"].cfg, key) == getattr(model.cfg, key)
+    assert next(again["model"].parameters()).dtype == \
+        next(model.parameters()).dtype
 
 
 def test_eval_only_rerun_reloads_arguments_and_weights(data_dir, tmp_path,

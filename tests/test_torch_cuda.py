@@ -433,3 +433,114 @@ def test_train_epoch_graphs_equal_eager_steps(gen, cudnn_deterministic,
                                                     b.vae.parameters())):
         torch.testing.assert_close(y, x, rtol=1e-10, atol=1e-12)
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+# ---- the fused conv stack and bfloat16 ---------------------------------------
+
+def _toy_d4(n_3=3, n_6=3):
+    import numpy as np
+
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.data import generate as dgen
+    from hlax_torch.data.reader import encode_raw
+
+    out = dgen.generate(num_3=n_3, num_6=n_6, datatype_config="D4", seed=2)
+    labels = np.nan_to_num(out["labels"][:, ds.HEALTH_MNIST_LABEL_ORDER])
+    het = encode_raw(out["data"], dgen.types_table("D4"),
+                     miss_mask=out["mask"])
+    return ds.LongitudinalDataset(het=het, labels=labels, id_covariate=2)
+
+
+def test_fused_stack_against_cudnn(gen, cudnn_deterministic):
+    """The fused conv stack (patch matmuls) and cuDNN's convolutions, one
+    set of float32 weights, 120 D4 rows: mu, log_var and log_p_x, and every
+    parameter's gradient within 1e-4 and 1e-3 of their norm (two float32
+    summation orders of the same products, TF32 off; a bias gradient sums
+    every pixel of every row, with cancellation)."""
+    import dataclasses
+
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+
+    data = _toy_d4()
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    het = data.het
+    x, m, tm = t(het.data), t(het.mask), t(het.theta_mask)
+    eps = torch.randn((len(data), 8), generator=gen, device="cuda")
+    cfg = HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,))
+    outs = {}
+    for fused in (False, True):
+        model = HLVAE(dataclasses.replace(cfg, fused_conv=fused),
+                      torch.Generator("cuda").manual_seed(0), "cuda")
+        out = model(x, m, tm, eps=eps)
+        (out["log_p_x"].sum() + out["mu"].sum()).backward()
+        outs[fused] = (out, {k: p.grad for k, p in model.named_parameters()
+                             if p.grad is not None})
+    (a, ga), (b, gb) = outs[False], outs[True]
+    rel = lambda u, v: ((u - v).norm() / v.norm().clamp_min(1e-30)).item()
+    for k in ("mu", "log_var", "log_p_x"):
+        assert rel(b[k], a[k]) <= 1e-4, k
+    assert ga.keys() == gb.keys()
+    for k in ga:
+        assert rel(gb[k], ga[k]) <= 1e-3, k
+
+
+@pytest.mark.parametrize("mode", ["compute_dtype", "model_dtype"])
+def test_bfloat16_graph_epoch_equals_eager_epoch(gen, cudnn_deterministic,
+                                                 mode):
+    """bfloat16 (the stacks with ``compute_dtype``, or the whole model) with
+    the GP in float32: ``make_train_epoch``'s graphs against the same steps
+    run eagerly from one seed, with injected noise.  Both run the same
+    kernels in the same order: the losses within 2^-8 relative (bfloat16's
+    unit roundoff), m and H within 1e-3 of their norm, the same launches
+    and step counts, and finite losses throughout."""
+    import numpy as np
+
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.gp.kernels import build_kernel_specs
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.train import step as tstep
+
+    data = _toy_d4()
+    spec0, spec1 = build_kernel_specs(
+        [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2},
+                       {"cont_covariate": 0, "cat_covariate": 3},
+                       {"cont_covariate": 1, "cat_covariate": 4}], [], [], 2)
+    cfg = tstep.TrainConfig(latent_dim=8, M=30, P_tot=float(data.P),
+                            N_tot=float(len(data)), id_covariate=2,
+                            constrain_scales=True)
+    mdt = torch.bfloat16 if mode == "model_dtype" else torch.float32
+    mcfg = HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,),
+                       compute_dtype=torch.bfloat16
+                       if mode == "compute_dtype" else None)
+
+    def state():
+        model = HLVAE(mcfg, torch.Generator("cuda").manual_seed(0),
+                      "cuda").to(mdt)
+        return tstep.init_train_state(model, spec0, spec1,
+                                      next(ds.subject_batches(data, 2)), cfg)
+
+    staged = ds.stage_dataset(data, mdt, "cuda")
+    rng = np.random.default_rng(0)
+    idx = [np.stack(list(ds.epoch_subject_batches(data.P, 2, rng)))
+           for _ in range(2)]
+    eps = [torch.randn((3, 2 * data.T_max, 8), generator=gen, device="cuda",
+                       dtype=mdt) for _ in idx]
+    a, b = state(), state()
+    step = tstep.make_train_step(a.vae, spec0, spec1, cfg)
+    epoch = tstep.make_train_epoch(b.vae, spec0, spec1, cfg, unroll=2)
+    tls.reset_counters()
+    want = [step(a, ds.gather_batch(staged, torch.as_tensor(i, device="cuda")),
+                 eps=e[j])["loss"].float().item()
+            for ib, e in zip(idx, eps) for j, i in enumerate(ib)]
+    launches = dict(tls.LAUNCHES_BY_SHAPE)
+    tls.reset_counters()
+    got = np.concatenate([epoch(b, staged, ib, eps=e)["loss"]
+                          for ib, e in zip(idx, eps)])
+    assert dict(tls.LAUNCHES_BY_SHAPE) == launches and launches
+    assert {dt for (_, _, dt) in launches} == {"float32"}
+    assert a.step == b.step == 6
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -8)
+    for x, y in ((a.m, b.m), (a.H, b.H)):
+        assert ((y - x).norm() / x.norm()).item() <= 1e-3
+    assert all(p.dtype == mdt for p in b.vae.parameters())
