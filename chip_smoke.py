@@ -6,11 +6,15 @@ imputes with the trained model; then the same config in float64 and with
 the float64 natural-gradient chain, sequences of T = 200 and 500, the MLP
 model, bfloat16 (--compute_dtype and --model_dtype) and the fused conv
 stack; holds the train step's CUDA graphs against its eager steps; and
-trains the canonical config for its full 300 epochs.  The CLI runs
-([slice], [f64], [mlp], [bf16], [fused], [full]) train through
-``make_train_epoch``'s CUDA graphs, the CLI's path.
+trains the canonical config for its full 300 epochs; then mesh training
+(--data_parallel x --latent_parallel): a 2 x 2 mesh of gloo ranks on the
+one card against the single process, and with more cards, NCCL meshes
+through the CLI.  The single-card CLI runs ([slice], [f64], [mlp], [bf16],
+[fused], [full]) train through ``make_train_epoch``'s CUDA graphs, the
+CLI's path; mesh steps run eagerly.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, one card
+    python3 chip_smoke.py mesh     # the build, [mesh] and [mesh4] only
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel.
@@ -100,9 +104,27 @@ Phases (each prints its own lines; any failure exits non-zero):
              canonical shapes (400 rows, 36x36, float32): outputs within
              1e-4 and gradients within 1e-3 of their norm, and the VAE
              forward + backward time of each.
-Phases 13 and 14 run after [mlp], before [graph].
-Every main path (slice, f64, longT, mlp, bf16, fused, full) runs with the
-launch counters set to 0 just before it and read just after.  The line
+ 15. mesh    the three kernels at the 2 x 2 mesh's local shapes ([16,10,20,20]
+             small and backward, [16,120,120] mid; timed, in the kernel
+             table); 4 gloo ranks (2 data x 2 latent) sharing the card, the
+             canonical state from one seed, 10 eager steps against the
+             single process's on the same global batches and noise (cuDNN's
+             deterministic algorithms on both): in float64 losses within
+             1e-4, GP state and VAE parameters within 1e-3; in float32 (ill-
+             conditioned: see MESH_BOUND) the first loss within 5e-2; every
+             rank launching all three kernels at its local shapes; then
+             dryrun_multichip(4) (4 CPU processes over gloo on one card).
+ 16. mesh4   with two cards or more, one rank a card over NCCL through the
+             CLI (mesh steps run eagerly): 2 x 2 and 4 x 1 (2 x 1 and 1 x 2 on two
+             or three cards), 3 epochs, the final validation and tests,
+             every rank's launches, final.pt restored in one process and
+             read by the imputation CLI, rank 0's NCCL kernel time under
+             the profiler; steps/s against the one-card CLI in 2 alternating
+             rounds.  With one card it prints that it did not run.
+Phases 13 and 14 run after [mlp], before [graph]; 15 and 16 after [full].
+Every main path (slice, f64, longT, mlp, bf16, fused, full, and each rank
+of mesh and mesh4) runs with the launch counters set to 0 just before it
+and read just after.  The line
 before the card's line is the kernel table as JSON, one row a kernel, shape
 and dtype; the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
 """
@@ -1912,41 +1934,507 @@ def phase_full(data_dir: str, tmp: str) -> None:
           f"{card_line()}", flush=True)
 
 
+# the [mesh] phase: a 2 x 2 mesh of gloo processes sharing cuda:0 (NCCL
+# refuses two ranks on one card) against the single process on the same
+# card, MESH_STEPS eager steps over the same global batches and noise, both
+# with cuDNN's deterministic algorithms.  The two sum in other orders (a
+# rank's 10 subjects, the all-reduces).  In float64 the losses must agree
+# within 1e-4 and the GP state and the VAE's parameters within 1e-3 after
+# the steps (measured: 3e-9 and 3e-6).  In float32 the canonical bound's
+# first step is ill-conditioned: the single process moves it by ~1e-3
+# when it only reverses the order of its 20 subjects and is ~2e-3 off the
+# float64 value of the same state (``_first_step_spread`` prints both), its
+# kernel-parameter gradients far more; so float32 is held only coarsely,
+# within 5e-2 on the first step's loss, where a dropped or doubled share of
+# the loss (the NLL is a quarter of it) is out of range, and its later
+# differences are reported
+MESH_STEPS = 10
+MESH_DTYPES = (torch.float64, torch.float32)
+MESH_BOUND = {torch.float32: {"loss": 5e-2},
+              torch.float64: {"loss": 1e-4, "state": 1e-3}}
+# the local shapes of the 2 x 2 mesh (16 latents, 10 subjects a rank) that
+# no single-card path launches, and get rows in the kernel table
+MESH_ROWS = [("chol_inv_small_cuda", (16, 10), 20),
+             ("chol_inv_bwd_cuda", (16, 10), 20),
+             ("chol_inv_mid_cuda", (16,), 120)]
+# what every rank of a mesh launches at least once a step, by (data ranks,
+# latent ranks): the B blocks and their backward [L_loc, S_loc, 20, 20],
+# K0zz stacked with H [2 L_loc, 120, 120], the natural-gradient inverse
+# [L_loc, 120, 120]
+def _mesh_launches(n_data: int, n_latent: int):
+    L, S = 32 // n_latent, 20 // n_data
+    return {("chol_inv_small_cuda", (L, S, 20, 20), "float32"),
+            ("chol_inv_bwd_cuda", (L, S, 20, 20), "float32"),
+            ("chol_inv_mid_cuda", (2 * L, 120, 120), "float32"),
+            ("chol_inv_mid_cuda", (L, 120, 120), "float32")}
+
+
+@contextlib.contextmanager
+def _fd_stdout(path: str):
+    """File descriptor 1 (this process's and its children's standard
+    output) into ``path`` inside the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "a") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+
+
+def _gp_and_vae(state) -> dict:
+    """The state's GP tensors and VAE parameters by name, on the host."""
+    ts = {"m": state.m, "H": state.H, "zt": state.zt}
+    for i, p in enumerate(state.k0 + state.k1):
+        ts.update({f"kernel{i}.{k}": v for k, v in p.items()})
+    ts.update({f"vae.{k}": v for k, v in state.vae.named_parameters()})
+    return {k: v.detach().cpu() for k, v in ts.items()}
+
+
+def _mesh_rank(rank: int, world: int, init: str, data_dir: str,
+               idx_mesh: np.ndarray, eps: torch.Tensor) -> dict:
+    """A rank of [mesh]: gloo on cuda:0; in each of MESH_DTYPES, the
+    canonical state made from the seed and sharded, MESH_STEPS eager mesh
+    steps.  Returns by dtype its losses, its gradients of the first step,
+    its launches and (rank 0) the whole state after the steps."""
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    import torch.distributed as dist
+    from hlax_torch.data.dataset import gather_batch, stage_dataset_mesh
+    from hlax_torch.ops import linalg_small as ls
+    from hlax_torch.parallel import distributed as pdist
+    from hlax_torch.parallel import mesh as pmesh
+    from hlax_torch.train import step as tstep
+
+    pdist.initialize("gloo", init, world, rank)
+    try:
+        mesh = pmesh.make_mesh(2, 2)
+        ds, spec0, spec1 = canonical_setup(data_dir)
+        rows = idx_mesh.shape[-1] * ds.T_max
+        idx = torch.as_tensor(idx_mesh[:, mesh.d], device="cuda")
+        outs = {}
+        for dtype in MESH_DTYPES:
+            whole, cfg = canonical_state(ds, spec0, spec1, dtype)
+            state = pmesh.shard_state(whole, mesh, cfg)
+            del whole
+            staged = stage_dataset_mesh(ds, dtype, "cuda", 2, mesh.d)
+            step = tstep.make_train_step(state.vae, spec0, spec1, cfg,
+                                         mesh=mesh)
+            e = eps[:, mesh.d * rows:(mesh.d + 1) * rows].to("cuda", dtype)
+            ls.reset_counters()
+            t0 = time.perf_counter()
+            loss = []
+            for j in range(MESH_STEPS):
+                loss.append(step(state, gather_batch(staged, idx[j]),
+                                 eps=e[j])["loss"])
+                if j == 0:
+                    grads = [None if p.grad is None
+                             else p.grad.detach().cpu()
+                             for p in tstep.trainable(state, cfg)]
+            loss = [x.item() for x in loss]
+            out = outs[dtype] = {
+                "loss": np.asarray(loss), "grads": grads,
+                "slice": mesh.latent_slice(cfg.latent_dim),
+                "n_vae": len(list(state.vae.parameters())),
+                "seconds": time.perf_counter() - t0,
+                "launches": dict(ls.LAUNCHES_BY_SHAPE),
+                "plain": dict(ls.PLAIN_CUDA_CALLS)}
+            whole = pmesh.gather_state(state, mesh, cfg)
+            if rank == 0:
+                out["state"] = _gp_and_vae(whole)
+            del state, whole, staged
+        return outs
+    finally:
+        dist.destroy_process_group()
+
+
+def _first_step_spread(ds, spec0, spec1, idx, eps) -> dict:
+    """The float32 canonical state's first step on the global batch ``idx``
+    with noise ``eps``, three ways from one seed: as it is, with the
+    batch's subjects (and their noise) in reverse order, and in float64;
+    returns the three losses and the largest relative difference of the
+    first two's gradients from the float64 ones."""
+    import dataclasses
+
+    from hlax_torch.data.dataset import gather_batch, stage_dataset
+    from hlax_torch.train import step as tstep
+
+    rev = np.arange(len(idx))[::-1].copy()
+    T = ds.T_max
+    out, grads = {}, {}
+    for tag, dtype, order in (("float32", torch.float32, None),
+                              ("reversed", torch.float32, rev),
+                              ("float64", torch.float64, None)):
+        st, cfg = canonical_state(ds, spec0, spec1, torch.float32)
+        if dtype == torch.float64:
+            cfg = dataclasses.replace(cfg, gp_dtype=dtype)
+            st.vae.double()
+            st.k0, st.k1 = ([{k: v.detach().double() for k, v in p.items()}
+                             for p in ks] for ks in (st.k0, st.k1))
+            st.raw_noise, st.zt, st.m, st.H = (
+                t.detach().double() for t in (st.raw_noise, st.zt, st.m,
+                                               st.H))
+            st.optimizer = tstep.make_optimizer(st, cfg)
+        e = eps.reshape(len(idx), T, -1)
+        i, e = (idx, e) if order is None else (idx[order], e[order])
+        step = tstep.make_train_step(st.vae, spec0, spec1, cfg)
+        out[tag] = step(st, gather_batch(stage_dataset(ds, dtype, "cuda"),
+                                         torch.as_tensor(i, device="cuda")),
+                        eps=e.reshape(len(idx) * T, -1).to("cuda", dtype)
+                        )["loss"].item()
+        grads[tag] = [p.grad.detach().double() for p in
+                      tstep.trainable(st, cfg) if p.grad is not None]
+    for tag in ("float32", "reversed"):
+        out[f"{tag} gradients"] = max(
+            ((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(grads[tag], grads["float64"]) if w.any())
+    return out
+
+
+def _mesh_against_single(ds, spec0, spec1, ranks, idx, eps, spawn_s,
+                         dtype):
+    """[mesh] in ``dtype``: the ranks' results (``_mesh_rank``) against
+    the single process over the same global batches ``idx`` and noise
+    ``eps``; held at MESH_BOUND[dtype]."""
+    from hlax_torch.data.dataset import gather_batch, stage_dataset
+    from hlax_torch.train import step as tstep
+
+    tag = str(dtype).removeprefix("torch.")
+    bound = MESH_BOUND[dtype]
+    ranks = [r[dtype] for r in ranks]
+    with cudnn_deterministic():
+        st, cfg = canonical_state(ds, spec0, spec1, dtype)
+        step = tstep.make_train_step(st.vae, spec0, spec1, cfg)
+        staged = stage_dataset(ds, dtype, "cuda")
+        eps = eps.to("cuda", dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = []
+        for j, i in enumerate(idx):
+            loss.append(step(st, gather_batch(staged, torch.as_tensor(
+                i, device="cuda")), eps=eps[j])["loss"])
+            if j == 0:
+                grads = [None if p.grad is None else p.grad.detach().cpu()
+                         for p in tstep.trainable(st, cfg)]
+        loss = np.asarray([x.item() for x in loss])
+        single_s = time.perf_counter() - t0
+    d_loss = np.max([np.abs(r["loss"] - loss) / np.abs(loss) for r in ranks],
+                    axis=0)
+    d_grad = 0.0
+    for r in ranks:
+        if len(r["grads"]) != len(grads):
+            fail(f"[mesh] {tag}: a rank has gradients of {len(r['grads'])} "
+                 f"tensors, the single process of {len(grads)}")
+        for i, (g, w) in enumerate(zip(r["grads"], grads)):
+            if w is None or g is None:
+                if (w is None) != (g is None or not g.any()):
+                    fail(f"[mesh] {tag}: parameter {i} has a gradient on "
+                         "one side only")
+                continue
+            w = w[r["slice"]] if i >= r["n_vae"] else w
+            d = (g - w).abs().max().item()
+            d_grad = max(d_grad, d / w.abs().max().item() if w.any() else d)
+    want = _gp_and_vae(st)
+    got = ranks[0]["state"]
+    d_state = {k: _rel(got[k], want[k]) for k in want}
+    worst = max(d_state, key=d_state.get)
+    print(f"[mesh] {tag}: 2 x 2 gloo ranks on cuda:0 against the single "
+          f"process, {MESH_STEPS} eager steps: relative loss difference by "
+          f"step {[float(f'{x:.3e}') for x in d_loss]}; first step's "
+          f"gradients {d_grad:.3e}; after {MESH_STEPS} steps m "
+          f"{d_state['m']:.3e}, H {d_state['H']:.3e}, largest "
+          f"{d_state[worst]:.3e} ({worst}); losses {loss.tolist()}",
+          flush=True)
+    print(f"[mesh] {tag}, {MESH_STEPS} steps: ranks "
+          f"{[round(r['seconds'], 3) for r in ranks]} s (gloo through the "
+          f"host, 4 ranks on one card), single process {single_s:.3f} s; "
+          f"spawn and set-up {spawn_s:.1f} s on {card_line()}", flush=True)
+    if "state" in bound:
+        bad = d_loss.max() > bound["loss"] or d_state[worst] > bound["state"]
+    else:
+        with cudnn_deterministic():
+            ref = _first_step_spread(ds, spec0, spec1, idx[0], eps[0].cpu())
+        f64 = ref["float64"]
+        print(f"[mesh] float32's own first step: reversing the batch's "
+              f"subjects moves the loss by "
+              f"{abs(ref['reversed'] - ref['float32']) / f64:.3e}; against "
+              f"the same state in float64, the loss is off by "
+              f"{abs(ref['float32'] - f64) / f64:.3e} (reversed "
+              f"{abs(ref['reversed'] - f64) / f64:.3e}, the mesh "
+              f"{abs(ranks[0]['loss'][0] - f64) / f64:.3e}) and the "
+              f"gradients by {ref['float32 gradients']:.3e} (reversed "
+              f"{ref['reversed gradients']:.3e}), largest relative",
+              flush=True)
+        bad = d_loss[0] > bound["loss"] or not all(
+            np.isfinite(r["loss"]).all() for r in ranks)
+    if bad:
+        fail(f"[mesh] {tag}: the mesh's steps differ from the single "
+             f"process's beyond {bound}")
+    for r, out in enumerate(ranks):
+        if any(out["plain"].values()):
+            fail(f"[mesh] rank {r} ran a plain version: {out['plain']}")
+        for name, shape, _ in _mesh_launches(2, 2):
+            key = (name, shape, tag)
+            if out["launches"].get(key, 0) < MESH_STEPS:
+                fail(f"[mesh] rank {r} launched {key} "
+                     f"{out['launches'].get(key, 0)} times")
+        print(f"[mesh] {tag} rank {r} launches by shape "
+              f"{_by_shape_str(out['launches'])}", flush=True)
+    return ranks
+
+
+def phase_mesh(data_dir: str):
+    """[mesh] on one card: the 2 x 2 mesh of gloo ranks on cuda:0 against
+    the single process, canonical states from one seed, the same global
+    batches and injected noise, MESH_STEPS eager steps each, in each of
+    MESH_DTYPES (MESH_BOUND); every rank launching all three kernels at its
+    local shapes and no plain version.  Then dryrun_multichip(4).  Returns
+    the float32 launches by shape, summed over the ranks."""
+    from hlax_torch.data.dataset import epoch_subject_batches_mesh
+    from hlax_torch.parallel import distributed as pdist
+    from hlax_torch.parallel.dryrun import dryrun_multichip
+
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    idx_mesh = epoch_subject_batches_mesh(ds.P, 2, 20,
+                                          np.random.default_rng(0))
+    if len(idx_mesh) != MESH_STEPS:
+        fail(f"[mesh] the canonical epoch has {len(idx_mesh)} batches")
+    P_loc = -(-ds.P // 2)
+    idx = np.where(idx_mesh >= 0, idx_mesh + (np.arange(2) * P_loc)[
+        None, :, None], -1).reshape(MESH_STEPS, -1)
+    eps = torch.randn((MESH_STEPS, 20 * ds.T_max, 32), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    ranks = pdist.spawn(_mesh_rank, 4, (data_dir, idx_mesh, eps),
+                        timeout=600)
+    spawn_s = time.perf_counter() - t0
+    total = {}
+    for dtype in MESH_DTYPES:
+        for out in _mesh_against_single(ds, spec0, spec1, ranks, idx, eps,
+                                        spawn_s, dtype):
+            if dtype == torch.float32:
+                for key, v in out["launches"].items():
+                    total[key] = total.get(key, 0) + v
+    dryrun_multichip(4)
+    return total
+
+
+def phase_mesh_kernels(gen):
+    """The three kernels at the [mesh] ranks' local shapes (MESH_ROWS):
+    the small kernel bit for bit against its plain version, the mid and
+    backward kernels against float64 as in [kernels]; timed.  Returns their
+    table rows."""
+    from hlax_torch.ops import linalg_small as ls
+
+    rows = []
+    for name, batch, n in MESH_ROWS:
+        a = random_spd(batch, n, gen)
+        if name == "chol_inv_bwd_cuda":
+            l, il = ls.chol_inv_small_cuda(a)
+            lb, ilb = (torch.randn(l.shape, generator=gen, device="cuda")
+                       for _ in range(2))
+            fn = lambda: ls.chol_inv_bwd_cuda(l, il, lb, ilb)
+            plain = lambda: ls._chol_inv_bwd_plain(l, il, lb, ilb)
+            want = ls._bwd_reference(l.double(), il.double(), lb.double(),
+                                     ilb.double())
+            err = (fn().double() - want).abs().max().item()
+            err_plain = (plain().double() - want).abs().max().item()
+            if err > ERR_FACTOR * err_plain + ERR_ABS * want.abs().max():
+                fail(f"[mesh] {_tag(name, batch, n)}: error {err:.3e}, "
+                     f"plain {err_plain:.3e}")
+            bound, library = _bwd_bound_ms(a.numel() // (n * n), n), None
+        else:
+            fn = lambda: getattr(ls, name)(a)
+            plain = lambda: ls._chol_inv_plain(a)
+            (l, il), (lp, ilp) = fn(), plain()
+            if name == "chol_inv_small_cuda":
+                if not (torch.equal(l, lp) and torch.equal(il, ilp)):
+                    fail(f"[mesh] {_tag(name, batch, n)}: differs from the "
+                         "plain version")
+                err = 0.0
+            else:
+                errs, _ = _f64_errors(a, l, il)
+                plain_errs, scales = _f64_errors(a, lp, ilp)
+                if any(e > ERR_FACTOR * p + ERR_ABS * s for e, p, s in
+                       zip(errs, plain_errs, scales)):
+                    fail(f"[mesh] {_tag(name, batch, n)}: errors {errs}, "
+                         f"plain {plain_errs}")
+                err = max(errs[:2])
+            bound, library = _bound_ms(a.numel() // (n * n), n), \
+                (lambda: _library(a))
+        src = name.removesuffix("_cuda")
+        rows.append(_time_row(
+            name, f"hlax_torch/csrc/{src}.cu",
+            "hlax/ops/linalg_small.py:" + {"chol_inv_small": "112",
+                                           "chol_inv_mid": "472",
+                                           "chol_inv_bwd": "328"}[src],
+            batch, n, torch.float32, fn, plain, library, err, bound))
+    return rows
+
+
+def _nccl_share(trace: str, steps: int) -> str:
+    """NCCL kernels' device ms a step and share of all kernels' in a
+    torch.profiler Chrome trace of ``steps`` train steps."""
+    with open(trace) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("cat") == "kernel"]
+    total = sum(e.get("dur", 0) for e in events)
+    nccl = sum(e.get("dur", 0) for e in events
+               if "nccl" in e.get("name", "").lower())
+    if not total:
+        return "no device kernels in the trace: not measured"
+    return (f"NCCL kernels {nccl / steps / 1e3:.4f} ms a step of "
+            f"{total / steps / 1e3:.4f} ms of kernels ({nccl / total:.1%}), "
+            f"{sum('nccl' in e.get('name', '').lower() for e in events)} "
+            f"NCCL kernel events")
+
+
+def _mesh_cli(data_dir: str, tmp: str, tag: str, n_data: int, n_latent: int,
+              epochs: int, evaluate: bool, profile: bool = False) -> dict:
+    """The training CLI on the canonical config with ``--data_parallel``
+    and ``--latent_parallel`` (1 x 1: one card, in this process, on the
+    graph path); its console output goes to a log.  Returns rank 0's
+    summary (every rank's under "ranks"), or the run's output."""
+    from hlax_torch.cli import main as cli
+    from hlax_torch.config import ModelArgs
+    from hlax_torch.ops import linalg_small as ls
+
+    opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+    save = os.path.join(tmp, f"run_{tag}")
+    opt.update(data_source_path=data_dir, save_path=save, epochs=epochs,
+               run_validation=evaluate, run_tests=evaluate,
+               generate_images=False, device="cuda", data_parallel=n_data,
+               latent_parallel=n_latent,
+               profile_dir=os.path.join(save, "profile") if profile else "")
+    ls.reset_counters()
+    with _fd_stdout(os.path.join(tmp, f"{tag}.log")):
+        out = cli.launch(opt)
+    torch.cuda.synchronize()
+    if n_data * n_latent == 1:
+        out = {**out, "ranks": [{"launches_by_shape":
+                                 dict(ls.LAUNCHES_BY_SHAPE),
+                                 "plain_calls": dict(ls.PLAIN_CUDA_CALLS),
+                                 "steps": out["steps"]}]}
+    out["save"] = save
+    return out
+
+
+def phase_mesh4(data_dir: str, tmp: str) -> None:
+    """[mesh4], with two cards or more: one rank a card over NCCL, through
+    the CLI (mesh steps run eagerly).  2 x 2 and 4 x 1 (2 x 1 and 1 x 2 with two
+    or three cards): 3 epochs with the final validation and tests, every
+    rank's launches at its local shapes, the checkpoint restored into a
+    single-process state and read by the imputation CLI; rank 0's
+    torch.profiler trace of epoch 2 for the NCCL kernels' time.  Then
+    steps/s of each mesh against the one-card CLI in 2 alternating rounds
+    of 4 epochs (epochs 2-4 of each run)."""
+    from hlax_torch.train import checkpoint as ckpt
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[mesh4] did not run: {cards} card visible; NCCL takes one "
+              "card a rank (run `python3 chip_smoke.py mesh` on four)",
+              flush=True)
+        return
+    shapes = [(2, 2), (4, 1)] if cards >= 4 else [(2, 1), (1, 2)]
+    for nd, nl in shapes:
+        tag = f"mesh{nd}x{nl}"
+        t0 = time.perf_counter()
+        out = _mesh_cli(data_dir, tmp, tag, nd, nl, 3, True, profile=True)
+        seconds = time.perf_counter() - t0
+        rows = _check_run(tag, out, 30, {})
+        for r, rank in enumerate(out["ranks"]):
+            if rank["steps"] != 30 or any(rank["plain_calls"].values()):
+                fail(f"[{tag}] rank {r}: {rank['steps']} steps, plain "
+                     f"versions {rank['plain_calls']}")
+            _need(f"{tag} rank {r}", rank["launches_by_shape"],
+                  {k: 30 for k in _mesh_launches(nd, nl)})
+        sd = ckpt.load(out["save"])
+        if sd is None or sd["H"].shape != (32, 120, 120) or sd["step"] != 30:
+            fail(f"[{tag}] final.pt is missing or not the whole state")
+        ds, spec0, spec1 = canonical_setup(data_dir)
+        st, _ = canonical_state(ds, spec0, spec1, torch.float32, seed=1)
+        if not ckpt.restore(out["save"], st) or st.step != 30:
+            fail(f"[{tag}] final.pt does not restore in one process")
+        del st
+        trace = os.path.join(out["save"], "profile",
+                             "epochs_2-2.pt.trace.json")
+        nccl = (_nccl_share(trace, 10) if os.path.isfile(trace)
+                else "no trace written: not measured")
+        print(f"[{tag}] {nd} x {nl} ranks over NCCL, 3 epochs: losses "
+              f"{out['loss_arrs']['net']}; final validation net_loss "
+              f"{rows['net_loss']:.6g}, GP_loss {rows['GP_loss']:.6g}; "
+              f"epoch seconds {[round(x, 4) for x in out['epoch_seconds']]}; "
+              f"run {seconds:.1f} s; rank 0 epoch 2 under the profiler: "
+              f"{nccl}; rank 0 launches "
+              f"{_by_shape_str(out['ranks'][0]['launches_by_shape'])} on "
+              f"{card_line()} x {cards}", flush=True)
+        phase_impute(data_dir, out["save"], tag=tag)
+    rates = {(1, 1): [], **{s: [] for s in shapes}}
+    for _ in range(2):
+        for nd, nl in rates:
+            out = _mesh_cli(data_dir, tmp, f"rate{nd}x{nl}", nd, nl, 4, False)
+            rates[(nd, nl)].append(10 / float(np.median(
+                out["epoch_seconds"][1:])))
+    for (nd, nl), r in rates.items():
+        print(f"[mesh4] {nd} x {nl} ({nd * nl} card{'s' if nd * nl > 1 else ''}"
+              f"): steps/s {', '.join(f'{x:.2f}' for x in r)} through the "
+              f"CLI (mesh eager, one card on the graph path; median of "
+              f"epochs 2-4, 2 alternating rounds; "
+              f"a step is 20 subjects) on {card_line()}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this smoke run "
               "needs an NVIDIA GPU", flush=True)
         sys.exit(2)
+    mesh_only = sys.argv[1:] == ["mesh"]
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+          f"cuda {torch.version.cuda}; {torch.cuda.device_count()} card(s)",
+          flush=True)
     phase_build()
-    rows = phase_kernels()
+    rows = [] if mesh_only else phase_kernels()
+    rows += phase_mesh_kernels(torch.Generator(device="cuda").manual_seed(3))
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        phase_reference(tmp)
-        phase_reference(tmp, torch.float64)
-        counts["slice"], out, data_dir, save = phase_slice(tmp)
-        phase_impute(data_dir, save)
-        phase_eval(out)
-        phase_profile(out)
-        del out
-        torch.cuda.empty_cache()
-        counts["f64"] = phase_f64(data_dir, tmp)
-        counts["longT"] = phase_long_t()
-        counts["mlp"] = phase_mlp(data_dir, tmp)
-        counts["options"] = phase_options(data_dir, tmp)
-        phase_fused_stack(data_dir)
-        phase_graph(data_dir, tmp)
-        phase_full(data_dir, tmp)
+        if mesh_only:
+            data_dir = os.path.join(tmp, "data")
+            write_canonical_data(data_dir)
+        else:
+            phase_reference(tmp)
+            phase_reference(tmp, torch.float64)
+            counts["slice"], out, data_dir, save = phase_slice(tmp)
+            phase_impute(data_dir, save)
+            phase_eval(out)
+            phase_profile(out)
+            del out
+            torch.cuda.empty_cache()
+            counts["f64"] = phase_f64(data_dir, tmp)
+            counts["longT"] = phase_long_t()
+            counts["mlp"] = phase_mlp(data_dir, tmp)
+            counts["options"] = phase_options(data_dir, tmp)
+            phase_fused_stack(data_dir)
+            phase_graph(data_dir, tmp)
+            phase_full(data_dir, tmp)
+            torch.cuda.empty_cache()
+        counts["mesh"] = phase_mesh(data_dir)
+        phase_mesh4(data_dir, tmp)
     # each row's launches come from the run of the path it belongs to: the
     # float64 rows from [f64], the long sequences' blocks from [longT], the
+    # mesh ranks' local shapes from [mesh] (summed over its ranks), the
     # rest from [slice]
     long_shapes = {batch + (n, n) for batch, n in LONG_T_MID_ROWS}
+    mesh_shapes = {batch + (n, n) for _, batch, n in MESH_ROWS}
     for r in rows:
+        shape = tuple(r["shape"])
         path = ("f64" if r["dtype"] == "float64" else
-                "longT" if tuple(r["shape"]) in long_shapes else "slice")
-        r["launches"] = counts[path].get(
-            (r["name"], tuple(r["shape"]), r["dtype"]), 0)
+                "longT" if shape in long_shapes else
+                "mesh" if shape in mesh_shapes else "slice")
+        r["launches"] = counts[path].get((r["name"], shape, r["dtype"]), 0)
         if not r["launches"]:
             fail(f"{r['name']} {r['dtype']} was not launched at "
                  f"{r['shape']} on the {path} path")
@@ -1955,7 +2443,6 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

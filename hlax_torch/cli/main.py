@@ -22,13 +22,24 @@ interval the training curves are plotted (``eval/images.py``) and, with
 final grid is drawn after training.  Where matplotlib is missing these
 write ``.npz`` files instead (hlax's CLI raises there), and a failed plot
 never ends the run.  ``--compute_dtype=bfloat16``,
-``--model_dtype=bfloat16`` and ``--fused_conv`` are hlax's options; only
-mesh parallelism (``--data_parallel``, ``--latent_parallel``) is refused.
+``--model_dtype=bfloat16`` and ``--fused_conv`` are hlax's options.
+
+``--data_parallel=D --latent_parallel=N`` (D x N > 1) trains on a mesh of
+D x N processes (``hlax_torch/parallel``): subjects sharded over D, the GP
+state over N.  The CLI joins a ``torchrun``-style environment
+(``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) when one is
+set, else starts the processes itself; rank r runs on ``cuda:r`` over NCCL
+(it refuses more ranks than visible cards), or with ``--device=cpu`` on the
+CPU over gloo; mesh steps run eagerly (``make_train_epoch``).  At a validation or save epoch the GP state is gathered and
+rank 0 validates, tests, draws and saves (``final.pt`` as a single process
+writes it) while the others wait; only rank 0 prints.  A warm start loads
+the whole checkpoint and shards it.
 """
 
 from __future__ import annotations
 
 import ast
+import contextlib
 import os
 import pickle
 import sys
@@ -38,6 +49,7 @@ from timeit import default_timer as timer
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hlax_torch import resolve_device
 from hlax_torch.config import ModelArgs
@@ -48,18 +60,15 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
 
 # run-control flags whose feature the port has not reached, with the value
-# that keeps hlax's behaviour the same as the port's
-_NOT_PORTED = {
-    "data_parallel": (0, "data parallelism (ROADMAP queue 1 item 16)"),
-    "latent_parallel": (1, "latent parallelism (ROADMAP queue 1 item 16)"),
-}
+# that keeps hlax's behaviour the same as the port's: none is left
+_NOT_PORTED: dict = {}
 
 # flags an eval-only rerun takes from its own command line; every other
 # option comes from the training run's arguments.pkl
 _RUN_CONTROL = ("early_stopping", "epochs", "save_interval", "results_path",
                 "save_path", "gp_model_folder", "generate_images",
                 "memory_dbg", "run_tests", "run_validation", "eval_gp_f64",
-                "device")
+                "device", "data_parallel", "latent_parallel")
 
 
 def _check_ported(opt: dict) -> None:
@@ -87,13 +96,15 @@ def warm_start_candidates(gp_folder: str, save_path: str) -> list:
     return cands
 
 
-def _arguments_round_trip(opt: dict) -> dict:
-    """Write ``arguments.pkl`` for a training run, or merge the saved one
-    under this run's run-control flags for an eval-only rerun."""
+def _arguments_round_trip(opt: dict, write: bool = True) -> dict:
+    """Write ``arguments.pkl`` for a training run (where ``write``: rank 0
+    of a mesh), or merge the saved one under this run's run-control flags
+    for an eval-only rerun."""
     args_pkl = os.path.join(opt["save_path"], "arguments.pkl")
     if opt.get("epochs", 0) not in (0, 1, 2) and not opt.get("early_stopping"):
-        with open(args_pkl, "wb") as f:
-            pickle.dump(opt, f)
+        if write:
+            with open(args_pkl, "wb") as f:
+                pickle.dump(opt, f)
     elif os.path.isfile(args_pkl):
         with open(args_pkl, "rb") as f:
             saved = pickle.load(f)
@@ -144,22 +155,39 @@ def _stop_profile(prof, profile_dir: str, first: int, last: int) -> None:
         print("Profiler failed (continuing):\n" + traceback.format_exc())
 
 
+def _mesh_shape(opt: dict):
+    """(data ranks, latent ranks) the flags ask for."""
+    return (max(opt.get("data_parallel") or 0, 1),
+            max(opt.get("latent_parallel") or 0, 1))
+
+
 def run(opt: dict) -> dict:
-    from hlax_torch.data.dataset import (epoch_subject_batches, load_dataset,
-                                         stage_dataset, subject_batches)
+    """One process's run: the whole run, or one rank's part of a mesh run
+    when a process group of more than one rank is initialized
+    (``launch``)."""
+    from hlax_torch.data.dataset import (epoch_subject_batches,
+                                         epoch_subject_batches_mesh,
+                                         load_dataset, stage_dataset,
+                                         stage_dataset_mesh, subject_batches)
     from hlax_torch.eval import images as im
     from hlax_torch.eval import testing as tst
     from hlax_torch.eval import validate as val
     from hlax_torch.gp.kernels import build_kernel_specs, noise_value
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.parallel import mesh as pmesh
     from hlax_torch.train import checkpoint as ckpt
     from hlax_torch.train import step as tstep
 
+    mesh = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = pmesh.make_mesh(*_mesh_shape(opt))
+    # rank 0 of a mesh prints, validates, tests, draws and saves
+    lead = mesh is None or mesh.rank == 0
     save_path = opt["save_path"]
     results_path = save_path + (opt.get("results_path") or "/results")
     os.makedirs(save_path, exist_ok=True)
     os.makedirs(results_path, exist_ok=True)
-    opt = _arguments_round_trip(opt)
+    opt = _arguments_round_trip(opt, write=lead)
     _check_ported(opt)
     device = resolve_device(opt.get("device") or None)
     eval_gp_f64 = bool(opt.get("eval_gp_f64", False))
@@ -246,7 +274,8 @@ def run(opt: dict) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Total Parameter Number is: {n_params}")
 
-    # warm start; the canonical config's '/' means save_path itself
+    # warm start (into the whole state, sharded below on a mesh); the
+    # canonical config's '/' means save_path itself
     name = ckpt.EARLY_BEST_NAME if opt.get("early_stopping") else \
         ckpt.FINAL_NAME
     if any(ckpt.restore(base, state, name=name) for base in
@@ -255,11 +284,32 @@ def run(opt: dict) -> dict:
     else:
         print("Did not load pre-trained values.")
 
-    staged = stage_dataset(dataset, model_dtype, device)
     # the whole epoch (a burst of epochs) at a time: CUDA graphs of the step
     # on the card, the eager steps on the CPU
-    epoch_fn = tstep.make_train_epoch(
-        model, spec0, spec1, cfg, unroll=max(1, opt.get("scan_unroll") or 1))
+    unroll = max(1, opt.get("scan_unroll") or 1)
+    if mesh is None:
+        staged = stage_dataset(dataset, model_dtype, device)
+        epoch_fn = tstep.make_train_epoch(model, spec0, spec1, cfg,
+                                          unroll=unroll)
+        epoch_idx = lambda rng: np.stack(list(epoch_subject_batches(
+            dataset.P, subjects_per_batch, rng)))
+    else:
+        print(f"Running on a ({mesh.n_data} data x {mesh.n_latent} latent) "
+              f"mesh of processes over {mesh.backend}")
+        state = pmesh.shard_state(state, mesh, cfg)
+        staged = stage_dataset_mesh(dataset, model_dtype, device,
+                                    mesh.n_data, mesh.d)
+        epoch_fn = tstep.make_train_epoch_mesh(model, spec0, spec1, cfg,
+                                               mesh, unroll=unroll)
+        epoch_idx = lambda rng: epoch_subject_batches_mesh(
+            dataset.P, mesh.n_data, subjects_per_batch, rng)
+
+    def whole_state():
+        """The whole train state: on a mesh gathered from every rank (all
+        ranks call it)."""
+        return state if mesh is None else pmesh.gather_state(state, mesh,
+                                                             cfg)
+
     epochs = opt.get("epochs", 0)
     validation_interval = 5
     save_interval = opt.get("save_interval", 100)
@@ -280,18 +330,18 @@ def run(opt: dict) -> dict:
         mu, _ = val.encode_dataset(model, dataset)
         return mu, dataset.labels
 
-    def draw_recon(epoch=-1):
+    def draw_recon(st, epoch=-1):
         pred_mu, _ = val.encode_dataset(model, prediction_dataset)
         im.recon_complete_gen(
-            model, spec0, state.k0, spec1, state.k1, noise_fn(state),
-            state.zt, generation_dataset, prediction_dataset.labels, pred_mu,
+            model, spec0, st.k0, spec1, st.k1, noise_fn(st), st.zt,
+            generation_dataset, prediction_dataset.labels, pred_mu,
             id_covariate, results_path, epoch=epoch, eval_gp_f64=eval_gp_f64)
 
-    def validate():
+    def validate(st):
         train_mu, train_x = encode_train()
         return val.validate(
-            model, spec0, state.k0, spec1, state.k1, noise_fn(state),
-            state.zt, validation_dataset, train_mu, train_x, id_covariate,
+            model, spec0, st.k0, spec1, st.k1, noise_fn(st), st.zt,
+            validation_dataset, train_mu, train_x, id_covariate,
             results_path, type_KL=type_KL,
             num_samples=opt.get("num_samples", 1), seed=seed,
             eval_gp_f64=eval_gp_f64)
@@ -317,10 +367,9 @@ def run(opt: dict) -> dict:
                and not boundary(epoch + burst - 1)):
             burst += 1
         t0 = time.time()
-        prof = (_start_profile(device)
-                if profile_dir and epoch <= 2 <= epoch + burst - 1 else None)
-        idx = np.concatenate([np.stack(list(epoch_subject_batches(
-            dataset.P, subjects_per_batch, rng))) for _ in range(burst)])
+        prof = (_start_profile(device) if lead and profile_dir
+                and epoch <= 2 <= epoch + burst - 1 else None)
+        idx = np.concatenate([epoch_idx(rng) for _ in range(burst)])
         ms_all = epoch_fn(state, staged, idx)
         if prof is not None:
             _stop_profile(prof, profile_dir, epoch, epoch + burst - 1)
@@ -349,10 +398,18 @@ def run(opt: dict) -> dict:
         run_val = (validation_dataset is not None
                    and (epoch % validation_interval == 0
                         or epoch % save_interval == 0))
+        if not (run_val or epoch % save_interval == 0):
+            epoch += 1
+            continue
+        st = whole_state()
+        if not lead:          # rank 0 validates, draws and saves
+            dist.barrier()
+            epoch += 1
+            continue
         if run_val:
             tv = time.time()
             try:
-                rows = validate()
+                rows = validate(st)
                 rows["best_epoch"] = float(best_epoch)
                 rows["best_epoch_missing_imp_error"] = \
                     best_epoch_missing_imp_error
@@ -404,7 +461,7 @@ def run(opt: dict) -> dict:
                 if generation_dataset is not None \
                         and prediction_dataset is not None \
                         and epoch != epochs:
-                    draw_recon(epoch)
+                    draw_recon(st, epoch)
             except Exception:   # a failed extra must not end the run
                 print("Save-interval eval/image-gen failed (continuing):\n"
                       + traceback.format_exc())
@@ -413,7 +470,9 @@ def run(opt: dict) -> dict:
             if validation_curve[-1] < best_value:
                 best_value, best_epoch = validation_curve[-1], epoch
                 best_epoch_missing_imp_error = miss_recon_loss
-                ckpt.save(save_path, state, name=ckpt.EARLY_BEST_NAME)
+                ckpt.save(save_path, st, name=ckpt.EARLY_BEST_NAME)
+        if mesh is not None:
+            dist.barrier()
         epoch += 1
 
     print("Duration of training: {:.2f} seconds".format(timer() - start))
@@ -421,6 +480,29 @@ def run(opt: dict) -> dict:
     print(f"Best epoch imputation error is {best_epoch_missing_imp_error}")
     print(f"Imputation error is {miss_recon_loss}")
     _memory_dbg(opt.get("memory_dbg"), "training", device)
+
+    eval_seconds = {}
+
+    def result():
+        return {"state": state, "model": model, "loss_arrs": loss_arrs,
+                "spec0": spec0, "spec1": spec1, "dataset": dataset,
+                "datasets": {"train": dataset,
+                             "validation": validation_dataset,
+                             "test": test_dataset,
+                             "prediction": prediction_dataset,
+                             "generation": generation_dataset},
+                "staged": staged,
+                "train_step": tstep.make_train_step(model, spec0, spec1, cfg,
+                                                    mesh=mesh),
+                "train_epoch": epoch_fn,
+                "steps": state.step,
+                "epoch_seconds": epoch_seconds, "eval_seconds": eval_seconds,
+                "last_validation": last_val, "results_path": results_path}
+
+    final = whole_state()
+    if not lead:              # rank 0 saves, validates, tests and draws
+        dist.barrier()
+        return result()
 
     if epochs > 2 and not opt.get("early_stopping"):
         print("Saving")
@@ -437,13 +519,12 @@ def run(opt: dict) -> dict:
         with open(os.path.join(save_path, "plot_values.pkl"), "wb") as f:
             pickle.dump([dataset.labels, pv_mu, pv_lv, pv_z,
                          np.arange(len(dataset))], f)
-        print(f"Saved {ckpt.save(save_path, state)}")
+        print(f"Saved {ckpt.save(save_path, final)}")
     _memory_dbg(opt.get("memory_dbg"), "saving", device)
 
-    eval_seconds = {}
     if opt.get("run_validation") and validation_dataset is not None:
         t0 = time.time()
-        validate()
+        validate(final)
         eval_seconds["validation"] = time.time() - t0
 
     if test_dataset is not None:
@@ -460,8 +541,8 @@ def run(opt: dict) -> dict:
         if opt.get("run_tests") and pred_mu is not None:
             test_type = "early_stopping" if opt.get("early_stopping") \
                 else "final"
-            tst.mse_test_gp(model, spec0, state.k0, spec1, state.k1,
-                            noise_fn(state), state.zt, test_dataset,
+            tst.mse_test_gp(model, spec0, final.k0, spec1, final.k1,
+                            noise_fn(final), final.zt, test_dataset,
                             prediction_dataset.labels, pred_mu, id_covariate,
                             results_path, test_type=test_type,
                             training_indexes=dataset.labels[:, -1],
@@ -472,29 +553,83 @@ def run(opt: dict) -> dict:
     if generation_dataset is not None and prediction_dataset is not None:
         t0 = time.time()
         try:   # a failed plot must not end the run
-            draw_recon()
+            draw_recon(final)
         except Exception:
             print("Image generation failed (continuing):\n"
                   + traceback.format_exc())
         eval_seconds["images"] = time.time() - t0
+    if mesh is not None:
+        dist.barrier()
+    return result()
 
-    return {"state": state, "model": model, "loss_arrs": loss_arrs,
-            "spec0": spec0, "spec1": spec1, "dataset": dataset,
-            "datasets": {"train": dataset, "validation": validation_dataset,
-                         "test": test_dataset,
-                         "prediction": prediction_dataset,
-                         "generation": generation_dataset},
-            "staged": staged,
-            "train_step": tstep.make_train_step(model, spec0, spec1, cfg),
-            "train_epoch": epoch_fn,
-            "steps": state.step,
-            "epoch_seconds": epoch_seconds, "eval_seconds": eval_seconds,
-            "last_validation": last_val, "results_path": results_path}
+
+def _summary(out: dict, rank: int) -> dict:
+    """What a mesh rank's run sends back: its curves, evaluations, step
+    count and kernel launches (the counters of its own process)."""
+    from hlax_torch.ops import linalg_small as ls
+
+    keep = ("loss_arrs", "steps", "epoch_seconds", "eval_seconds",
+            "last_validation", "results_path")
+    return {**{k: out[k] for k in keep}, "rank": rank,
+            "launches": dict(ls.LAUNCHES),
+            "launches_by_shape": dict(ls.LAUNCHES_BY_SHAPE),
+            "plain_calls": dict(ls.PLAIN_CUDA_CALLS)}
+
+
+def _run_rank(rank: int, world_size: int, init_method, opt: dict) -> dict:
+    """Rank ``rank`` of a mesh run: its device (``cuda:<local rank>``, set
+    before the process group is made), the group, ``run``; only rank 0
+    prints.  Returns ``_summary``."""
+    from hlax_torch.parallel import distributed as pdist
+
+    opt = dict(opt)
+    if resolve_device(opt.get("device") or None).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local)
+        opt["device"] = f"cuda:{local}"
+    else:   # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    pdist.initialize(init_method=init_method, world_size=world_size,
+                     rank=rank, device=opt.get("device") or None)
+    try:
+        with open(os.devnull, "w") as null, (
+                contextlib.redirect_stdout(null) if rank
+                else contextlib.nullcontext()):
+            return _summary(run(opt), rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(opt: dict) -> dict:
+    """Run the CLI on ``opt``: ``run`` in this process, or with a mesh of
+    ``--data_parallel`` x ``--latent_parallel`` > 1 ranks, this process as
+    one rank of a ``torchrun``-style environment (``WORLD_SIZE`` set), or
+    that many processes started here.  A mesh run returns rank 0's
+    ``_summary`` with every rank's under ``"ranks"``."""
+    from hlax_torch.parallel import distributed as pdist
+
+    world = int(np.prod(_mesh_shape(opt)))
+    if world == 1:
+        return run(opt)
+    if "WORLD_SIZE" in os.environ:
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise RuntimeError(
+                f"a {' x '.join(map(str, _mesh_shape(opt)))} mesh needs "
+                f"{world} processes; WORLD_SIZE is "
+                f"{os.environ['WORLD_SIZE']}")
+        return _run_rank(int(os.environ["RANK"]), world, None, opt)
+    if resolve_device(opt.get("device") or None).type == "cuda" \
+            and torch.cuda.device_count() < world:
+        raise RuntimeError(
+            f"a {' x '.join(map(str, _mesh_shape(opt)))} mesh takes one card "
+            f"a rank, {world} cards; {torch.cuda.device_count()} are visible")
+    ranks = pdist.spawn(_run_rank, world, (opt,))
+    return {**ranks[0], "ranks": ranks}
 
 
 def main(argv=None):
     opt = ModelArgs().parse_options(argv)
-    return run(opt)
+    return launch(opt)
 
 
 if __name__ == "__main__":

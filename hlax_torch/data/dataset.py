@@ -9,7 +9,9 @@ location] so id_covariate=2 is the subject.
 
 ``stage_dataset`` uploads the padded dataset once as device tensors,
 ``gather_batch`` builds each batch on the device from a subject-index tensor
-and ``gather_epoch`` all of an epoch's batches at once.
+and ``gather_epoch`` all of an epoch's batches at once.  On a mesh a rank
+stages only its own block of subjects (``stage_dataset_mesh``) and gathers
+its batches from it by local indices (``epoch_subject_batches_mesh``).
 """
 
 from __future__ import annotations
@@ -180,11 +182,12 @@ def epoch_subject_batches(P: int, subjects_per_batch: int,
         yield chunk
 
 
-def stage_dataset(ds: LongitudinalDataset, dtype: torch.dtype,
-                  device) -> Dict[str, torch.Tensor]:
-    """Upload the whole dataset as padded [P, T_max, ...] device tensors."""
-    full = _pad_rows(ds, np.arange(ds.P), ds.T_max)
-    P, T = ds.P, ds.T_max
+def _stage(ds: LongitudinalDataset, subj_idx: np.ndarray, dtype: torch.dtype,
+           device) -> Dict[str, torch.Tensor]:
+    """The subjects ``subj_idx`` (-1 = empty subject) as padded
+    [len(subj_idx), T_max, ...] device tensors."""
+    full = _pad_rows(ds, subj_idx, ds.T_max)
+    P, T = len(subj_idx), ds.T_max
     put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     return {
         "data": put(full["data"].reshape(P, T, -1)),
@@ -193,6 +196,49 @@ def stage_dataset(ds: LongitudinalDataset, dtype: torch.dtype,
         "labels": put(full["labels"].reshape(P, T, -1)),
         "valid": put(full["valid"]),
     }
+
+
+def stage_dataset(ds: LongitudinalDataset, dtype: torch.dtype,
+                  device) -> Dict[str, torch.Tensor]:
+    """Upload the whole dataset as padded [P, T_max, ...] device tensors."""
+    return _stage(ds, np.arange(ds.P), dtype, device)
+
+
+def stage_dataset_mesh(ds: LongitudinalDataset, dtype: torch.dtype, device,
+                       n_data: int, d: int) -> Dict[str, torch.Tensor]:
+    """Data rank ``d``'s block of a dataset sharded over ``n_data`` ranks:
+    subjects are dealt in contiguous blocks of P_loc = ceil(P / n_data),
+    the last blocks padded with empty subjects (hlax's
+    ``stage_dataset_mesh`` holds all blocks as [n_data, P_loc, ...]; a
+    rank uploads only its own, [P_loc, T_max, ...]).  ``gather_batch``
+    takes the block's local subject indices."""
+    P_loc = -(-ds.P // n_data)
+    idx = np.arange(d * P_loc, (d + 1) * P_loc)
+    return _stage(ds, np.where(idx < ds.P, idx, -1), dtype, device)
+
+
+def epoch_subject_batches_mesh(P: int, n_data: int, subjects_per_batch: int,
+                               rng: Optional[np.random.Generator] = None
+                               ) -> np.ndarray:
+    """One epoch of LOCAL per-shard subject indices [nb, n_data, S_loc]
+    (-1 = padding), drawing from ``rng`` as hlax's
+    ``epoch_subject_batches_mesh`` does: each shard shuffles its own real
+    subjects of its P_loc = ceil(P / n_data) slots, S_loc =
+    ceil(subjects_per_batch / n_data), and every real subject appears once
+    an epoch."""
+    P_loc = -(-P // n_data)
+    S_loc = -(-subjects_per_batch // n_data)
+    nb = -(-P_loc // S_loc)
+    out = -np.ones((nb, n_data, S_loc), np.int64)
+    for d in range(n_data):
+        n_real = min(P_loc, max(0, P - d * P_loc))
+        order = np.arange(n_real)
+        if rng is not None:
+            rng.shuffle(order)
+        for b in range(nb):
+            chunk = order[b * S_loc:(b + 1) * S_loc]
+            out[b, d, :len(chunk)] = chunk
+    return out
 
 
 def gather_batch(staged: Dict[str, torch.Tensor],

@@ -101,21 +101,27 @@ def sampled_reconstruction(params_list, layout: TypeLayout,
     return torch.cat(blocks, dim=1)
 
 
-def get_norm_terms(x, true_mask):
-    """Observed range per column."""
-    big = torch.where(true_mask > 0, x, -math.inf)
-    small = torch.where(true_mask > 0, x, math.inf)
-    return big.amax(dim=0) - small.amin(dim=0)
+def get_norm_terms(x, true_mask, sums=None):
+    """Observed range per column (of the global batch on a mesh)."""
+    big = torch.where(true_mask > 0, x, -math.inf).amax(dim=0)
+    small = torch.where(true_mask > 0, x, math.inf).amin(dim=0)
+    if sums is not None:
+        big, small = sums.subjects_max(torch.stack([big, -small])).unbind()
+        small = -small
+    return big - small
 
 
 def error_computation(
     x_true, x_hat, layout: TypeLayout, mask,
     conv: bool, use_ranges: bool = False,
     true_mask=None, mean_imp_error: bool = False, dim: int = 0,
+    sums=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Dict[str, torch.Tensor]]]:
     """Per-variable normalized errors split observed/missing/all.  Inputs in
     grouped raw space [B, n_raw].  Returns (error_observed [n_raw],
-    error_missing [n_raw], partial dict by type)."""
+    error_missing [n_raw], partial dict by type).  On a mesh (``sums``,
+    rows along ``dim`` = 0) the ranges and averages are the global
+    batch's."""
     if true_mask is None:
         true_mask = torch.ones_like(mask)
     err_blocks = []
@@ -144,7 +150,7 @@ def error_computation(
                     if mean_imp_error or g.kind in ("pos", "count"):
                         xh = xh / 255.0
                 else:
-                    norm = get_norm_terms(xt, tm)
+                    norm = get_norm_terms(xt, tm, sums)
                     norm = torch.where(norm == 0, torch.ones_like(norm), norm)
             err = ((xh - xt) ** 2) / norm ** 2
         err_blocks.append(err)
@@ -153,9 +159,10 @@ def error_computation(
     known_missing = true_mask * (1.0 - mask)
 
     def _avg(w):
-        s = w.sum(dim=dim)
-        return (all_error * w).sum(dim=dim) / torch.where(
-            s == 0, torch.ones_like(s), s)
+        s, tot = w.sum(dim=dim), (all_error * w).sum(dim=dim)
+        if sums is not None:
+            s, tot = sums.subjects(torch.stack([s, tot])).unbind()
+        return tot / torch.where(s == 0, torch.ones_like(s), s)
 
     error_observed = _avg(mask)
     error_missing = _avg(known_missing)

@@ -109,6 +109,7 @@ def kld_upper_bound(
     eps: float,
     natural_gradient: bool = False,
     nat_grad_dtype: Optional[torch.dtype] = None,
+    sums=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
            Optional[torch.Tensor]]:
     """Unbiased mini-batched KLD upper bound.
@@ -123,6 +124,13 @@ def kld_upper_bound(
     are factorized again in that dtype, stacked in one ``chol_inv_blocked``
     (the float64 kernels on the card), and the returned quantities are in
     that dtype.
+
+    On a mesh (``sums``, ``hlax_torch.parallel.mesh.MeshSums``) the inputs
+    are this rank's: its subjects, and its latents of the GP (``mu_st``,
+    ``log_v_st`` and the GP tensors sliced alike).  ``P_batch``, the sums
+    A..F over subjects and latents, the per-latent KL of the inducing
+    points and the natural-gradient accumulators ``ng_P1`` and ``C_w`` are
+    then global; grad_m, grad_H and iH stay this rank's latents'.
     """
     Ldim = z.shape[0]
     M = z.shape[1]
@@ -133,6 +141,8 @@ def kld_upper_bound(
 
     # number of real subjects in the batch (all-padding subjects don't count)
     P_batch = (valid > 0).any(dim=1).to(x_st.dtype).sum()
+    if sums is not None:
+        P_batch = sums.subjects(P_batch)
 
     v_mask = valid[:, :, None]
     mu_m = mu_st * v_mask                                # [S, T, L]
@@ -163,8 +173,13 @@ def kld_upper_bound(
     logdetH = _logdet_from_chol(LH).sum()
     kld_qu_pu = 0.5 * (tr1 + qf1 - Ldim * M + logdetK - logdetH)
 
+    L_tot = Ldim
+    if sums is not None:
+        A, Bt, C, D, E, F = sums.blocks(torch.stack([A, Bt, C, D, E, F]))
+        kld_qu_pu = sums.latents(kld_qu_pu)
+        L_tot = sums.L
     kld_total = (P_tot / P_batch * 0.5 * (A + Bt + C + D + E - F)
-                 + kld_qu_pu - Ldim * N_tot / 2.0)
+                 + kld_qu_pu - L_tot * N_tot / 2.0)
 
     if not natural_gradient:
         return kld_total, None, None, None
@@ -173,6 +188,8 @@ def kld_upper_bound(
         iB_mu = torch.einsum("lstu,sul->lst", blk.iB, mu_m)
         ng_P1 = torch.einsum("lstm,lst->lm", blk.K0xz,
                              iB_mu)[:, :, None].to(cdt)
+        if sums is not None:
+            ng_P1 = sums.subjects(ng_P1)
         if cdt == blk.LK0zz.dtype:
             iLK_c, iK_c, iH_c = blk.iLK, blk.iK0zz, iH
         else:
@@ -185,6 +202,8 @@ def kld_upper_bound(
                           torch.einsum("lstm,lnm->lstn", blk.K0xz.to(cdt),
                                        iLK_c))
         C_w = torch.einsum("lstm,lstn->lmn", Gw, Gw)          # PSD Gram sum
+        if sums is not None:
+            C_w = sums.subjects(C_w)
         IpC = C_w + torch.eye(M, dtype=cdt, device=C_w.device)
         B_mat = torch.einsum("lpm,lpq,lqn->lmn", iLK_c, IpC, iLK_c)
         B_mat = 0.5 * (B_mat + B_mat.mT)

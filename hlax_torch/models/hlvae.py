@@ -407,11 +407,13 @@ class HLVAE(nn.Module):
     def forward(self, data, mask, theta_mask,
                 eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                sample: bool = True):
+                sample: bool = True, sums=None):
         """Full forward pass.  The reparameterization noise is ``eps`` when
-        given, else drawn from ``generator``."""
+        given, else drawn from ``generator``.  On a mesh, ``sums``
+        (``hlax_torch.parallel.mesh.MeshSums``) makes the normalization's
+        moments the global batch's."""
         norm_data, norm_params = batch_normalization(
-            data, mask, self.cfg.layout, self.cfg.conv)
+            data, mask, self.cfg.layout, self.cfg.conv, sums)
         mu, log_var = self.encode(data, mask, norm_data)
         if sample:
             if eps is None:

@@ -10,6 +10,10 @@ Semantics follow the reference ``batch_normalization`` (HL_VAE/utils.py:88-143):
   * cat/ordinal/beta: masked passthrough.
 
 Division guards use a tiny epsilon on mask counts, as in hlax.
+
+On a mesh (``sums``, ``hlax_torch.parallel.mesh.MeshSums``) the moments
+are the global batch's: the counts and sums, then the squared deviations
+about the global mean, summed over the data group.
 """
 
 from __future__ import annotations
@@ -35,8 +39,22 @@ def batch_normalization(
     mask: torch.Tensor,          # [B, n_raw] grouped
     layout: TypeLayout,
     conv: bool,
+    sums=None,
 ) -> tuple[torch.Tensor, NormParams]:
     out_blocks = []
+
+    def moments(x, m):
+        """Masked mean and variance of x's columns over the batch."""
+        cnt, tot = m.sum(dim=0), (x * m).sum(dim=0)
+        if sums is not None:
+            cnt, tot = sums.subjects(torch.stack([cnt, tot])).unbind()
+        cnt = cnt.clamp(min=1e-12)
+        mean = tot / cnt
+        sq = (((x - mean) * m) ** 2).sum(dim=0)
+        if sums is not None:
+            sq = sums.subjects(sq)
+        return mean, sq / cnt
+
     real_mean = real_var = pos_mean_log = pos_var_log = None
 
     for g in layout.groups:
@@ -47,17 +65,13 @@ def batch_normalization(
             if conv:
                 blk = obs / 255.0
             else:
-                cnt = m.sum(dim=0).clamp(min=1e-12)
-                mean = obs.sum(dim=0) / cnt
-                var = (((obs - mean) * m) ** 2).sum(dim=0) / cnt
+                mean, var = moments(obs, m)
                 blk = (obs - mean[None, :]) / torch.sqrt(var + 1e-5) * m
                 real_mean, real_var = mean, var
         elif g.kind == "pos":
             obs = d * m
             obs_log = torch.log1p(obs)
-            cnt = m.sum(dim=0).clamp(min=1e-12)
-            mean_log = (obs_log * m).sum(dim=0) / cnt
-            var_log = (((obs_log - mean_log) * m) ** 2).sum(dim=0) / cnt
+            mean_log, var_log = moments(obs_log, m)
             var_log = var_log.clamp(1e-6, 1e20)
             blk = (obs_log - mean_log[None, :]) / torch.sqrt(var_log + 1e-5) * m
             pos_mean_log, pos_var_log = mean_log, var_log

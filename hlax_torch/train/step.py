@@ -14,6 +14,11 @@ their ``.grad``, Adam's moments and step count, m, H) keeps its storage from
 step to step, which is what lets ``make_train_epoch`` capture the step in a
 CUDA graph (hlax's one-dispatch epoch, ``hlax/train/step.py:297-332``).
 ``train_epoch`` runs the same steps eagerly, one batch at a time.
+
+On a (data x latent) mesh (``hlax_torch.parallel.mesh``) the step takes
+this rank's subjects and its latents of the GP (``shard_state``) and gives
+the single-process step's loss and update of the global batch:
+``make_train_step(..., mesh=...)`` and ``make_train_epoch_mesh``.
 """
 
 from __future__ import annotations
@@ -163,13 +168,28 @@ def init_train_state(model: HLVAE, spec0, spec1,
     return state
 
 
-def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig):
+def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
+                    mesh=None):
     """Returns ``step(state, batch, eps=None) -> metrics``; it updates
     ``state`` in place, every tensor at its storage (``.grad`` is zeroed,
     not dropped; the natural-gradient (m, H) are copied into m and H).  ``batch`` holds S*T_max flat rows (data, mask,
     theta_mask, labels) and valid [S, T_max]; ``eps`` [S*T_max, z_dim]
     injects the reparameterization noise (else drawn from
-    ``state.generator``).  Metrics are 0-dim tensors, left on the device."""
+    ``state.generator``).  Metrics are 0-dim tensors, left on the device.
+
+    With a ``mesh`` (``hlax_torch.parallel.mesh.Mesh``) ``state`` is this
+    rank's share (``shard_state``) and ``batch`` its subjects; the metrics
+    are the global batch's.  The noise drawn from the generator is the
+    global batch's [n_data * S * T_max, z_dim], of which the rank takes its
+    own rows; an injected ``eps`` is this rank's rows.  After the backward
+    pass the gradients are summed over the mesh (``make_gradient_reducer``;
+    its first step must run eagerly)."""
+    sums = lat = None
+    reducers = {}
+    if mesh is not None:
+        from hlax_torch.parallel.mesh import MeshSums
+        sums = MeshSums(mesh, cfg.latent_dim)
+        lat = mesh.latent_slice(cfg.latent_dim)
     layout = model.cfg.layout
     # The reference's per-batch recon metric overwrites its value once per
     # type, so only the type whose first raw-order occurrence is LAST
@@ -183,16 +203,37 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig):
         true_mask = row_valid[:, None] * torch.ones_like(mask)
         _, err_missing, partial = mx.error_computation(
             truth, mean_rec, layout, mask * row_valid[:, None],
-            conv=model.cfg.conv, true_mask=true_mask)
-        recon = partial[last_kind]["error_all"].sum() * row_valid.sum()
+            conv=model.cfg.conv, true_mask=true_mask, sums=sums)
+        n_rows = row_valid.sum()
+        if sums is not None:
+            n_rows = sums.subjects(n_rows)
+        recon = partial[last_kind]["error_all"].sum() * n_rows
         return recon, err_missing.sum()
+
+    def reducer(state):
+        from hlax_torch.parallel.mesh import make_gradient_reducer
+        red = reducers.get(id(state.optimizer))
+        if red is None:
+            vae = list(state.vae.parameters())
+            red = reducers[id(state.optimizer)] = make_gradient_reducer(
+                mesh, cfg.latent_dim, vae, trainable(state, cfg)[len(vae):])
+        return red
 
     def step(state: TrainState, batch, eps: Optional[torch.Tensor] = None):
         opt = state.optimizer
         opt.zero_grad(set_to_none=False)
+        if mesh is not None and eps is None:
+            rows = batch["data"].shape[0]
+            w = state.vae.mean_layer.weight
+            eps = torch.randn((mesh.n_data * rows, cfg.latent_dim),
+                              generator=state.generator, dtype=w.dtype,
+                              device=w.device)[mesh.d * rows:
+                                               (mesh.d + 1) * rows]
         out = state.vae(batch["data"], batch["mask"], batch["theta_mask"],
-                        eps=eps, generator=state.generator)
+                        eps=eps, generator=state.generator, sums=sums)
         nll = nll_from_log_p(out["log_p_x"]).sum()
+        if sums is not None:
+            nll = sums.subjects(nll)
 
         valid = batch["valid"]
         S, T = valid.shape
@@ -200,18 +241,26 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig):
         x_st = batch["labels"].reshape(S, T, -1).to(gdt)
         mu_st = out["mu"].reshape(S, T, -1).to(gdt)
         log_v_st = out["log_var"].reshape(S, T, -1).to(gdt)
+        if lat is not None:
+            mu_st, log_v_st = mu_st[..., lat], log_v_st[..., lat]
         H = state.H if cfg.natural_gradient else state.H @ state.H.mT
         noise = gp_kernels.noise_value(state.raw_noise, cfg.constrain_scales)
         kld, gm, gH, iH = gp_elbo.kld_upper_bound(
             spec0, state.k0, spec1, state.k1, noise, state.m, H, state.zt,
             x_st, valid.to(gdt), mu_st, log_v_st, cfg.P_tot, cfg.N_tot,
             cfg.eps, natural_gradient=cfg.natural_gradient,
-            nat_grad_dtype=torch.float64 if cfg.nat_grad_f64 else None)
+            nat_grad_dtype=torch.float64 if cfg.nat_grad_f64 else None,
+            sums=sums)
 
         P_batch = (valid.sum(dim=1) > 0).to(nll.dtype).sum()
+        if sums is not None:
+            P_batch = sums.subjects(P_batch)
         nll_scaled = nll * cfg.P_tot / P_batch
         loss = nll_scaled + kld.to(nll.dtype)
-        loss.backward()
+        if loss.requires_grad:   # not on a replica of a replicated GP
+            loss.backward()
+        if mesh is not None:
+            reducer(state)()
         opt.step()
 
         with torch.no_grad():
@@ -365,7 +414,7 @@ class _EpochGraphs:
 
 
 def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
-                     unroll: int = 1, pregather: bool = False):
+                     unroll: int = 1, pregather: bool = False, mesh=None):
     """Returns ``epoch(state, staged, idx_batches, eps=None) -> metrics``,
     the counterpart of hlax's one-dispatch epoch (``make_train_epoch``,
     ``hlax/train/step.py:297-332``): the train step over the batches of
@@ -387,9 +436,16 @@ def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
     once, and each replay adds those counts to ``linalg_small``'s counters.
     The graphs hold the addresses of the state's tensors: restore a
     checkpoint before the first call, not after (a later call raises if
-    they moved).  On the CPU the same steps run eagerly."""
-    step = make_train_step(model, spec0, spec1, cfg)
+    they moved).  On the CPU the same steps run eagerly.
+
+    With a ``mesh``, the steps are the mesh step's on this rank's share of
+    the state and its block of the data (``make_train_epoch_mesh`` takes
+    the mesh's index batches), and they run eagerly on every backend:
+    gloo's collectives cannot be captured in a CUDA graph, and NCCL's
+    capture has not been shown to work on the card."""
+    step = make_train_step(model, spec0, spec1, cfg, mesh=mesh)
     graphs = _EpochGraphs(step, max(1, int(unroll)))
+    use_graphs = mesh is None
     model_dt = str(next(model.parameters()).dtype).removeprefix("torch.")
     # the eager step's dtypes (bfloat16, which numpy lacks, as float32)
     model_dt = {"bfloat16": "float32"}.get(model_dt, model_dt)
@@ -408,7 +464,7 @@ def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
             feed["eps"] = torch.as_tensor(eps, device=dev)
         out = torch.empty((len(METRICS), nb), dtype=torch.float64,
                           device=dev)
-        if dev.type == "cuda":
+        if dev.type == "cuda" and use_graphs:
             graphs(state, staged, feed, nb, out)
         else:
             for j in range(nb):
@@ -418,3 +474,29 @@ def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
         return {m: host[i].astype(dtypes[m]) for i, m in enumerate(METRICS)}
 
     return epoch
+
+
+def make_train_epoch_mesh(model: HLVAE, spec0, spec1, cfg: TrainConfig, mesh,
+                          unroll: int = 1):
+    """Returns ``epoch(state, staged, idx_batches, eps=None) -> metrics``,
+    the counterpart of hlax's ``make_train_epoch_mesh``
+    (``hlax/train/step.py:335-363``) on one rank of ``mesh``: ``state`` is
+    the rank's share (``shard_state``), ``staged`` its block of subjects
+    (``stage_dataset_mesh``), ``idx_batches`` the mesh's local indices
+    [nb, n_data, S_loc] (``epoch_subject_batches_mesh``, the same on every
+    rank), of which the rank takes its data shard's; ``eps`` [nb,
+    n_data * S_loc * T, z] injects the global batches' noise, of which it
+    takes its rows.  The metrics are the global batches'; the steps are
+    ``make_train_epoch``'s with the mesh, which run eagerly."""
+    epoch = make_train_epoch(model, spec0, spec1, cfg, unroll=unroll,
+                             mesh=mesh)
+
+    def epoch_mesh(state: TrainState, staged, idx_batches, eps=None
+                   ) -> Dict[str, np.ndarray]:
+        idx = np.asarray(idx_batches)[:, mesh.d]
+        if eps is not None:
+            rows = idx.shape[1] * staged["valid"].shape[1]
+            eps = eps[:, mesh.d * rows:(mesh.d + 1) * rows]
+        return epoch(state, staged, idx, eps)
+
+    return epoch_mesh

@@ -1,10 +1,14 @@
 """The port's training CLI on a tiny generated dataset (CPU): train-only,
 with validation and the test battery, the eval-only rerun from
-``arguments.pkl``, and the early-best checkpoint."""
+``arguments.pkl``, the early-best checkpoint, and a 2 x 2 mesh run."""
 import math
 import os
 import pickle
+import signal
+import subprocess
+import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -115,15 +119,64 @@ def test_eval_flags_are_refused(data_dir, tmp_path, flag):
 
 def test_config_file_alone_is_refused_until_eval_is_ported():
     """The canonical config file, images and all, passes the port's check
-    unmodified; mesh parallelism is the one thing still refused."""
+    unmodified, and so does it with the mesh flags: nothing is refused."""
     opt = ModelArgs().parse_options([f"--f={CONFIG}"])
     assert opt["generate_images"] is True
     cli._check_ported(opt)
     for flag in ("--data_parallel=2", "--latent_parallel=2"):
-        opt = ModelArgs().parse_options([f"--f={CONFIG}", flag])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli._check_ported(opt)
-    assert set(cli._NOT_PORTED) == {"data_parallel", "latent_parallel"}
+        cli._check_ported(ModelArgs().parse_options([f"--f={CONFIG}", flag]))
+    assert cli._NOT_PORTED == {}
+
+
+def test_toy_mesh_run_restores_in_one_process(data_dir, tmp_path, capsys):
+    """``--device=cpu --data_parallel=2 --latent_parallel=2`` (hlax's
+    ``test_cli_data_parallel_smoke``) as a user runs it, ``python -m
+    hlax_torch.cli.main``: four gloo processes, rank 0 alone printing one
+    Iter line an epoch; validation, the test battery and final.pt (one
+    step an epoch: 2 subjects a shard, 2 a batch).  A single-process
+    eval-only rerun warm-starts from final.pt, whose state is the whole
+    GP's, and the imputation CLI reads it."""
+    from hlax_torch.cli import impute
+
+    save = tmp_path / "run"
+    argv = _argv(data_dir, save, "--data_parallel=2", "--latent_parallel=2",
+                 "--run_validation=True", "--run_tests=True")
+    # its own session, so that a timeout kills the CLI and every rank
+    proc = subprocess.Popen([sys.executable, "-m", "hlax_torch.cli.main",
+                             *argv], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        printed, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    assert "Running on a (2 data x 2 latent) mesh of processes over gloo" \
+        in printed
+    for e in (1, 2, 3):
+        assert printed.count(f"Iter {e}/3 - Time:") == 1
+    assert printed.count("Total Parameter Number") == 1
+    rows = _read_rows(save / "results" / "validation_results.csv")
+    assert list(rows) == list(VALIDATION_ROWS)
+    assert all(math.isfinite(v) for v in rows.values())
+    assert os.path.isfile(save / "results" / "result_error_final.csv")
+    sd = torch.load(save / "final.pt", weights_only=False)
+    assert sd["step"] == 3 and sd["H"].shape == (4, 30, 30)
+    out = cli.main(_argv(data_dir, save, "--epochs=0",
+                         "--run_validation=True"))
+    assert "Loaded pre-trained values." in capsys.readouterr().out
+    assert out["steps"] == 3
+    for k in ("zt", "m", "H"):
+        torch.testing.assert_close(getattr(out["state"], k), sd[k], rtol=0,
+                                   atol=0)
+    imp = impute.main(["--model_dir", str(save), "--data_csv",
+                       os.path.join(data_dir, "test_data_D4.csv"),
+                       "--mask_csv", os.path.join(data_dir, "test_mask.csv"),
+                       "--out_csv", str(tmp_path / "imputed.csv"),
+                       "--device", "cpu"])
+    assert imp.shape == (80, 1296) and np.isfinite(imp).all()
 
 
 @pytest.mark.parametrize("flag", ["--compute_dtype=bfloat16",

@@ -544,3 +544,124 @@ def test_bfloat16_graph_epoch_equals_eager_epoch(gen, cudnn_deterministic,
     for x, y in ((a.m, b.m), (a.H, b.H)):
         assert ((y - x).norm() / x.norm()).item() <= 1e-3
     assert all(p.dtype == mdt for p in b.vae.parameters())
+
+
+# ---- mesh training (hlax_torch/parallel) ------------------------------------
+
+def _mesh_problem(device):
+    """Toy D4 problem in float64 (6 subjects, L = 8, M = 30, the GP jitter
+    of the CPU parity tests, 1e-4) and its whole train state, made from one
+    seed on ``device``."""
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.gp.kernels import build_kernel_specs
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.train import step as tstep
+
+    data = _toy_d4()
+    spec0, spec1 = build_kernel_specs(
+        [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 3}], [], [], 2)
+    cfg = tstep.TrainConfig(latent_dim=8, M=30, P_tot=float(data.P),
+                            N_tot=float(len(data)), id_covariate=2,
+                            constrain_scales=True, gp_dtype=torch.float64,
+                            eps=1e-4)
+    model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,)),
+                  torch.Generator(device).manual_seed(0), device).double()
+    state = tstep.init_train_state(model, spec0, spec1,
+                                   next(ds.subject_batches(data, 2)), cfg)
+    return data, spec0, spec1, cfg, state
+
+
+def _mesh_idx(data, n_data):
+    """One epoch of 2 subjects a batch: the mesh's local indices and the
+    same batches' global indices."""
+    import numpy as np
+
+    from hlax_torch.data import dataset as ds
+
+    idx = ds.epoch_subject_batches_mesh(data.P, n_data, 2,
+                                        np.random.default_rng(0))
+    P_loc = -(-data.P // n_data)
+    glob = np.where(idx >= 0, idx + (np.arange(n_data) * P_loc)[
+        None, :, None], -1).reshape(len(idx), -1)
+    return idx, glob
+
+
+def _state_tensors(state):
+    return [state.m, state.H] + list(state.vae.parameters())
+
+
+def _mesh_rank(rank, world, init, backend, n_data, n_latent):
+    """A mesh rank (gloo: on cuda:0; NCCL: on cuda:<rank>): one epoch of
+    mesh steps; the losses and the gathered state's m, H and VAE
+    parameters."""
+    import torch.distributed as dist
+
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.parallel import distributed as pdist
+    from hlax_torch.parallel import mesh as pmesh
+    from hlax_torch.train import step as tstep
+
+    device = f"cuda:{rank if backend == 'nccl' else 0}"
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.deterministic = True
+    pdist.initialize(backend, init, world, rank, device=device)
+    try:
+        mesh = pmesh.make_mesh(n_data, n_latent)
+        data, spec0, spec1, cfg, whole = _mesh_problem(device)
+        state = pmesh.shard_state(whole, mesh, cfg)
+        staged = ds.stage_dataset_mesh(data, torch.float64, device, n_data,
+                                       mesh.d)
+        epoch = tstep.make_train_epoch_mesh(state.vae, spec0, spec1, cfg,
+                                            mesh)
+        loss = epoch(state, staged, _mesh_idx(data, n_data)[0])["loss"]
+        whole = pmesh.gather_state(state, mesh, cfg)
+        return loss, [t.detach().cpu() for t in _state_tensors(whole)]
+    finally:
+        dist.destroy_process_group()
+
+
+def _against_single_process(ranks, n_data):
+    """Each rank's losses and gathered state against the single process's
+    epoch on the same global batches, float64 (noise from the generator)."""
+    import numpy as np
+
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.train import step as tstep
+
+    data, spec0, spec1, cfg, state = _mesh_problem("cuda")
+    step = tstep.make_train_step(state.vae, spec0, spec1, cfg)
+    staged = ds.stage_dataset(data, torch.float64, "cuda")
+    want = [step(state, ds.gather_batch(staged, torch.as_tensor(
+        i, device="cuda")))["loss"].item()
+        for i in _mesh_idx(data, n_data)[1]]
+    for loss, tensors in ranks:
+        np.testing.assert_allclose(loss, want, rtol=1e-9)
+        for a, b in zip(tensors, _state_tensors(state)):
+            torch.testing.assert_close(a, b.detach().cpu(), rtol=1e-7,
+                                       atol=1e-9)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_gloo_mesh_on_one_card_equals_single_process(gen,
+                                                     cudnn_deterministic,
+                                                     shape):
+    """Two gloo ranks sharing the card (data or latent parallel) take the
+    single process's steps on the same global batches: losses, m, H and
+    the VAE's parameters, float64."""
+    from hlax_torch.parallel import distributed as pdist
+
+    _against_single_process(
+        pdist.spawn(_mesh_rank, 2, ("gloo",) + shape, timeout=600),
+        shape[0])
+
+
+def test_nccl_mesh_on_two_cards_equals_single_process(gen,
+                                                      cudnn_deterministic):
+    """Two NCCL ranks, one a card (data parallel), take the single
+    process's steps on the same global batches, float64."""
+    from hlax_torch.parallel import distributed as pdist
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL takes one a rank)")
+    _against_single_process(
+        pdist.spawn(_mesh_rank, 2, ("nccl", 2, 1), timeout=600), 2)

@@ -185,7 +185,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                                     "chol_inv_bwd_plain": 0}
 
 
-@pytest.mark.parametrize("batch", [1, 32, 64, 8192])
+# the mesh ranks' local batches: [16, 120, 120] (L_loc = 16 on 2 latent
+# ranks) and B blocks of [16, 10] and [32, 5] (2 x 2 and 4 x 1 meshes of the
+# canonical 32 latents and 20 subjects a batch), 160 matrices
+@pytest.mark.parametrize("batch", [1, 16, 32, 64, 8192])
 def test_mid_launch_plan(batch):
     """Every n the mid kernel takes gets a plan within a block's 227 KB of
     shared memory whose grid covers the batch; n <= 32 takes the one-warp
@@ -206,7 +209,7 @@ def test_mid_launch_plan(batch):
             assert plan.smem >= 4 * 2 * np_ * np_
 
 
-@pytest.mark.parametrize("batch", [1, 32, 640, 1001, 8192])
+@pytest.mark.parametrize("batch", [1, 32, 160, 640, 1001, 8192])
 def test_small_launch_plan(batch):
     """Every n the small kernel takes gets a plan within a block's 227 KB of
     shared memory whose grid covers the batch: n <= 32 on the register path
@@ -233,7 +236,7 @@ def test_small_launch_plan(batch):
     assert tls.small_launch_plan(20, batch).np == 20
 
 
-@pytest.mark.parametrize("batch", [1, 32, 640, 1001, 8192])
+@pytest.mark.parametrize("batch", [1, 32, 160, 640, 1001, 8192])
 @pytest.mark.parametrize("sms", [132, 114])   # H100 SXM, H100 PCIe
 def test_bwd_launch_plan(batch, sms):
     """Every n the backward kernel takes gets a plan within a block's 227 KB
@@ -296,7 +299,7 @@ def test_kernel_build_flags(tmp_path, monkeypatch):
         assert not cuda_build._stale(name)       # newer than its sources
 
 
-@pytest.mark.parametrize("batch", [1, 32, 64, 640, 8192])
+@pytest.mark.parametrize("batch", [1, 16, 32, 64, 160, 640, 8192])
 def test_launch_plans_in_float64(batch):
     """The three plans count 8 bytes a value.  The small and backward
     kernels' shared memory doubles and still fits a block (the backward's
