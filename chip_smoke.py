@@ -11,7 +11,8 @@ trains the canonical config for its full 300 epochs; then mesh training
 one card against the single process, and with more cards, NCCL meshes
 through the CLI.  The single-card CLI runs ([slice], [f64], [mlp], [bf16],
 [fused], [full]) train through ``make_train_epoch``'s CUDA graphs, the
-CLI's path; mesh steps run eagerly.
+CLI's path, and so do the NCCL meshes of [mesh4]; [mesh]'s gloo steps
+run eagerly.
 
     python3 chip_smoke.py          # every phase, one card
     python3 chip_smoke.py mesh     # the build, [mesh] and [mesh4] only
@@ -115,12 +116,20 @@ Phases (each prints its own lines; any failure exits non-zero):
              rank launching all three kernels at its local shapes; then
              dryrun_multichip(4) (4 CPU processes over gloo on one card).
  16. mesh4   with two cards or more, one rank a card over NCCL through the
-             CLI (mesh steps run eagerly): 2 x 2 and 4 x 1 (2 x 1 and 1 x 2 on two
-             or three cards), 3 epochs, the final validation and tests,
-             every rank's launches, final.pt restored in one process and
-             read by the imputation CLI, rank 0's NCCL kernel time under
-             the profiler; steps/s against the one-card CLI in 2 alternating
-             rounds.  With one card it prints that it did not run.
+             CLI on the graph path (the collectives captured in the CUDA
+             graphs): 2 x 2 and 4 x 1 (2 x 1 and 1 x 2 on two or three
+             cards), in float32 and float64, 3 epochs, the final validation
+             and tests, each run bounded by MESH_CLI_LIMIT; each epoch's
+             loss against the single process on one card over the same
+             global batches (float64 at [mesh]'s bounds, with final.pt's
+             state; float32 at its first-loss rule), every rank's launches
+             at its local shapes (the 4 x 1 rank's [32,5,20,20] small and
+             backward kernels get rows in the kernel table), final.pt
+             restored in one process and read by the imputation CLI, rank
+             0's NCCL share of its device time under the profiler; then
+             steps/s of the graph mesh, the eager mesh and one card (graph
+             and eager) in 3 alternating rounds, at 20 and at 200 subjects
+             a step.  With one card it prints that it did not run.
 Phases 13 and 14 run after [mlp], before [graph]; 15 and 16 after [full].
 Every main path (slice, f64, longT, mlp, bf16, fused, full, and each rank
 of mesh and mesh4) runs with the launch counters set to 0 just before it
@@ -136,6 +145,7 @@ import io
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1650,15 +1660,15 @@ def _graph_check(tag, ds, spec0, spec1, dtype, staged, idx, eps, unroll,
     return a, b, cfg
 
 
-def _time_epochs(run, epochs: int) -> float:
-    """Steps/s of ``epochs`` calls of ``run`` (one epoch each), host clock
-    to a synchronise."""
+def _time_epochs(run, epochs: int, steps: int = GRAPH_STEPS) -> float:
+    """Steps/s of ``epochs`` calls of ``run`` (one epoch of ``steps`` steps
+    each), host clock to a synchronise."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(epochs):
         run()
     torch.cuda.synchronize()
-    return epochs * GRAPH_STEPS / (time.perf_counter() - t0)
+    return epochs * steps / (time.perf_counter() - t0)
 
 
 def phase_graph(data_dir: str, tmp: str) -> None:
@@ -1961,12 +1971,12 @@ MESH_ROWS = [("chol_inv_small_cuda", (16, 10), 20),
 # latent ranks): the B blocks and their backward [L_loc, S_loc, 20, 20],
 # K0zz stacked with H [2 L_loc, 120, 120], the natural-gradient inverse
 # [L_loc, 120, 120]
-def _mesh_launches(n_data: int, n_latent: int):
+def _mesh_launches(n_data: int, n_latent: int, dtype: str = "float32"):
     L, S = 32 // n_latent, 20 // n_data
-    return {("chol_inv_small_cuda", (L, S, 20, 20), "float32"),
-            ("chol_inv_bwd_cuda", (L, S, 20, 20), "float32"),
-            ("chol_inv_mid_cuda", (2 * L, 120, 120), "float32"),
-            ("chol_inv_mid_cuda", (L, 120, 120), "float32")}
+    return {("chol_inv_small_cuda", (L, S, 20, 20), dtype),
+            ("chol_inv_bwd_cuda", (L, S, 20, 20), dtype),
+            ("chol_inv_mid_cuda", (2 * L, 120, 120), dtype),
+            ("chol_inv_mid_cuda", (L, 120, 120), dtype)}
 
 
 @contextlib.contextmanager
@@ -2002,7 +2012,6 @@ def _mesh_rank(rank: int, world: int, init: str, data_dir: str,
     its launches and (rank 0) the whole state after the steps."""
     torch.cuda.set_device(0)
     torch.backends.cudnn.deterministic = True
-    import torch.distributed as dist
     from hlax_torch.data.dataset import gather_batch, stage_dataset_mesh
     from hlax_torch.ops import linalg_small as ls
     from hlax_torch.parallel import distributed as pdist
@@ -2048,7 +2057,7 @@ def _mesh_rank(rank: int, world: int, init: str, data_dir: str,
             del state, whole, staged
         return outs
     finally:
-        dist.destroy_process_group()
+        pdist.destroy()
 
 
 def _first_step_spread(ds, spec0, spec1, idx, eps) -> dict:
@@ -2209,7 +2218,7 @@ def phase_mesh(data_dir: str):
                       generator=torch.Generator().manual_seed(1))
     t0 = time.perf_counter()
     ranks = pdist.spawn(_mesh_rank, 4, (data_dir, idx_mesh, eps),
-                        timeout=600)
+                        timeout=300)
     spawn_s = time.perf_counter() - t0
     total = {}
     for dtype in MESH_DTYPES:
@@ -2222,15 +2231,15 @@ def phase_mesh(data_dir: str):
     return total
 
 
-def phase_mesh_kernels(gen):
-    """The three kernels at the [mesh] ranks' local shapes (MESH_ROWS):
-    the small kernel bit for bit against its plain version, the mid and
-    backward kernels against float64 as in [kernels]; timed.  Returns their
-    table rows."""
+def phase_mesh_kernels(gen, shapes=MESH_ROWS):
+    """The kernels at a mesh's local shapes (``shapes``: MESH_ROWS, the
+    [mesh] ranks'; MESH4_ROWS, a 4 x 1 rank's): the small kernel bit for
+    bit against its plain version, the mid and backward kernels against
+    float64 as in [kernels]; timed.  Returns their table rows."""
     from hlax_torch.ops import linalg_small as ls
 
     rows = []
-    for name, batch, n in MESH_ROWS:
+    for name, batch, n in shapes:
         a = random_spd(batch, n, gen)
         if name == "chol_inv_bwd_cuda":
             l, il = ls.chol_inv_small_cuda(a)
@@ -2293,44 +2302,191 @@ def _nccl_share(trace: str, steps: int) -> str:
 
 
 def _mesh_cli(data_dir: str, tmp: str, tag: str, n_data: int, n_latent: int,
-              epochs: int, evaluate: bool, profile: bool = False) -> dict:
+              profile: bool, dtype: str) -> dict:
     """The training CLI on the canonical config with ``--data_parallel``
-    and ``--latent_parallel`` (1 x 1: one card, in this process, on the
-    graph path); its console output goes to a log.  Returns rank 0's
-    summary (every rank's under "ranks"), or the run's output."""
+    and ``--latent_parallel``, model and GP in ``dtype``, MESH4_EPOCHS
+    epochs with the final validation and tests, its console output in
+    ``<tmp>/<tag>.log``, killed after MESH_CLI_LIMIT seconds.  Returns rank
+    0's summary, every rank's under "ranks"."""
     from hlax_torch.cli import main as cli
     from hlax_torch.config import ModelArgs
-    from hlax_torch.ops import linalg_small as ls
 
     opt = ModelArgs().parse_options([f"--f={CONFIG}"])
     save = os.path.join(tmp, f"run_{tag}")
-    opt.update(data_source_path=data_dir, save_path=save, epochs=epochs,
-               run_validation=evaluate, run_tests=evaluate,
+    opt.update(data_source_path=data_dir, save_path=save,
+               epochs=MESH4_EPOCHS, run_validation=True, run_tests=True,
                generate_images=False, device="cuda", data_parallel=n_data,
-               latent_parallel=n_latent,
+               latent_parallel=n_latent, gp_dtype=dtype, model_dtype=dtype,
                profile_dir=os.path.join(save, "profile") if profile else "")
-    ls.reset_counters()
-    with _fd_stdout(os.path.join(tmp, f"{tag}.log")):
-        out = cli.launch(opt)
-    torch.cuda.synchronize()
-    if n_data * n_latent == 1:
-        out = {**out, "ranks": [{"launches_by_shape":
-                                 dict(ls.LAUNCHES_BY_SHAPE),
-                                 "plain_calls": dict(ls.PLAIN_CUDA_CALLS),
-                                 "steps": out["steps"]}]}
-    out["save"] = save
-    return out
+
+    def limit(signum, frame):
+        raise TimeoutError(f"[{tag}] the mesh CLI run took more than "
+                           f"{MESH_CLI_LIMIT} s")
+
+    saved = signal.signal(signal.SIGALRM, limit)
+    signal.alarm(MESH_CLI_LIMIT)       # spawn kills its ranks as it unwinds
+    try:
+        with _fd_stdout(os.path.join(tmp, f"{tag}.log")):
+            out = cli.launch(opt)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, saved)
+    return {**out, "save": save, "log": os.path.join(tmp, f"{tag}.log")}
 
 
-def phase_mesh4(data_dir: str, tmp: str) -> None:
+# [mesh4]: NCCL meshes through the CLI, one rank a card, on the graph path,
+# MESH4_EPOCHS epochs in each of MESH4_DTYPES.  Each epoch's loss is held
+# against the single process on one card (make_train_epoch's graphs, the
+# one-card CLI's path) taking the same global batches from the same
+# initial state and generator: the CLI's rng (seed 0) draws the mesh's
+# local batches, and their subjects, in the mesh's order, are the single
+# process's batches (the one-card CLI draws other batches from that seed,
+# so its losses are another trajectory).  Float64 at MESH_BOUND (each
+# epoch's loss; the GP state and the VAE of final.pt); float32 at [mesh]'s
+# first-loss rule, on the first epoch's loss, the later ones reported
+MESH4_EPOCHS = 3
+# seconds a mesh run of the CLI may take (it starts its ranks with no
+# limit of its own)
+MESH_CLI_LIMIT = 300
+MESH4_DTYPES = (torch.float32, torch.float64)
+# rounds of the steps/s comparison, 20 steps a path a round, at the
+# canonical 20 subjects a step (every path) and at all 200 subjects a step
+# (the graph paths), to see whether a larger step gains on several cards
+MESH4_ROUNDS = 3
+MESH4_PATHS = ("one card graph", "graph mesh", "eager mesh", "one card eager")
+MESH4_SUBJECTS = (20, 200)
+# the 4 x 1 rank's B blocks and their backward, a shape that no other path
+# launches, in the kernel table when [mesh4] runs 4 x 1
+MESH4_ROWS = [("chol_inv_small_cuda", (32, 5), 20),
+              ("chol_inv_bwd_cuda", (32, 5), 20)]
+
+
+def _global_batches(ds, n_data: int, rng) -> np.ndarray:
+    """One epoch of the mesh's local batches drawn from ``rng`` as the
+    CLI draws them, as global subject indices [nb, n_data * S_loc] in the
+    mesh's order."""
+    from hlax_torch.data.dataset import epoch_subject_batches_mesh
+
+    idx = epoch_subject_batches_mesh(ds.P, n_data, 20, rng)
+    P_loc = -(-ds.P // n_data)
+    return np.where(idx >= 0, idx + (np.arange(n_data) * P_loc)[
+        None, :, None], -1).reshape(len(idx), -1)
+
+
+def _mesh_reference(ds, spec0, spec1, n_data: int, dtype):
+    """The single process on cuda:0 through ``make_train_epoch``'s graphs
+    over the batches of an ``n_data`` mesh's CLI run: each epoch's loss
+    (the CLI's mean of its steps') and the state after them."""
+    from hlax_torch.data.dataset import stage_dataset
+    from hlax_torch.train import step as tstep
+
+    rng = np.random.default_rng(0)
+    st, cfg = canonical_state(ds, spec0, spec1, dtype)
+    epoch = tstep.make_train_epoch(st.vae, spec0, spec1, cfg)
+    staged = stage_dataset(ds, dtype, "cuda")
+    losses = [float(epoch(st, staged, _global_batches(ds, n_data, rng))[
+        "loss"].mean()) for _ in range(MESH4_EPOCHS)]
+    return np.asarray(losses), st
+
+
+def _mesh_rate_rank(rank: int, world: int, init: str, data_dir: str,
+                    n_data: int, n_latent: int) -> dict:
+    """A rank of [mesh4]'s steps/s rounds, float32, cuda:<rank> over NCCL:
+    for each of MESH4_SUBJECTS a step, the canonical state from the seed,
+    sharded, through ``make_train_epoch_mesh``'s graphs ("graph mesh") and
+    (20 subjects) through eager mesh steps ("eager mesh"); rank 0 also
+    times the single process on its card ("one card graph", and with 20
+    subjects "one card eager") while the other ranks wait.  Every path is
+    warmed up (a turn of 20 steps: the graphs are captured), then
+    MESH4_ROUNDS rounds of 20 steps a path in MESH4_PATHS' order, each
+    turn between two barriers.  Returns rank 0's steps/s by (path,
+    subjects)."""
+    torch.cuda.set_device(rank)
+    import torch.distributed as dist
+    from hlax_torch.data.dataset import (epoch_subject_batches,
+                                         epoch_subject_batches_mesh,
+                                         stage_dataset, stage_dataset_mesh)
+    from hlax_torch.parallel import distributed as pdist
+    from hlax_torch.parallel import mesh as pmesh
+    from hlax_torch.train import step as tstep
+
+    pdist.initialize("nccl", init, world, rank, device=f"cuda:{rank}")
+    try:
+        mesh = pmesh.make_mesh(n_data, n_latent)
+        ds, spec0, spec1 = canonical_setup(data_dir)
+        f32 = torch.float32
+        staged = stage_dataset_mesh(ds, f32, "cuda", n_data, mesh.d)
+        whole = stage_dataset(ds, f32, "cuda") if rank == 0 else None
+        _, cfg = canonical_state(ds, spec0, spec1, f32)
+        paths = {}          # (path, subjects) -> (run an epoch, its steps)
+        for spb in MESH4_SUBJECTS:
+            local = epoch_subject_batches_mesh(ds.P, n_data, spb,
+                                               np.random.default_rng(0))
+            g = pmesh.shard_state(canonical_state(ds, spec0, spec1, f32)[0],
+                                  mesh, cfg)
+            graph = tstep.make_train_epoch_mesh(g.vae, spec0, spec1, cfg,
+                                                mesh)
+            paths["graph mesh", spb] = (
+                lambda graph=graph, g=g, local=local: graph(g, staged,
+                                                            local),
+                len(local))
+            if spb == 20:
+                e = pmesh.shard_state(canonical_state(
+                    ds, spec0, spec1, f32)[0], mesh, cfg)
+                step = tstep.make_train_step(e.vae, spec0, spec1, cfg,
+                                             mesh=mesh)
+                paths["eager mesh", spb] = (
+                    lambda step=step, e=e, local=local: tstep.train_epoch(
+                        step, e, staged, local[:, mesh.d]), len(local))
+            if rank:
+                continue
+            idx = np.stack(list(epoch_subject_batches(
+                ds.P, spb, np.random.default_rng(0))))
+            one, _ = canonical_state(ds, spec0, spec1, f32)
+            epoch = tstep.make_train_epoch(one.vae, spec0, spec1, cfg)
+            paths["one card graph", spb] = (
+                lambda epoch=epoch, one=one, idx=idx: epoch(one, whole, idx),
+                len(idx))
+            if spb == 20:
+                one_e, _ = canonical_state(ds, spec0, spec1, f32)
+                step1 = tstep.make_train_step(one_e.vae, spec0, spec1, cfg)
+                paths["one card eager", spb] = (
+                    lambda step1=step1, one_e=one_e, idx=idx:
+                    tstep.train_epoch(step1, one_e, whole, idx), len(idx))
+        rates = {}
+        for turn in range(MESH4_ROUNDS + 1):     # the first: the warm-up
+            for spb in MESH4_SUBJECTS:
+                for name in MESH4_PATHS:
+                    # every rank takes the same turns: the mesh's paths
+                    # exist on every rank, one card's on rank 0 only
+                    if spb != 20 and "eager" in name:
+                        continue
+                    dist.barrier()
+                    if (name, spb) in paths:
+                        run, nb = paths[name, spb]
+                        r = _time_epochs(run, 20 // nb, nb)
+                        if turn:
+                            rates.setdefault((name, spb), []).append(r)
+                    dist.barrier()
+        return rates
+    finally:
+        pdist.destroy()
+
+
+def phase_mesh4(data_dir: str, tmp: str) -> dict:
     """[mesh4], with two cards or more: one rank a card over NCCL, through
-    the CLI (mesh steps run eagerly).  2 x 2 and 4 x 1 (2 x 1 and 1 x 2 with two
-    or three cards): 3 epochs with the final validation and tests, every
-    rank's launches at its local shapes, the checkpoint restored into a
-    single-process state and read by the imputation CLI; rank 0's
-    torch.profiler trace of epoch 2 for the NCCL kernels' time.  Then
-    steps/s of each mesh against the one-card CLI in 2 alternating rounds
-    of 4 epochs (epochs 2-4 of each run)."""
+    the CLI on the graph path.  2 x 2 and 4 x 1 (2 x 1 and 1 x 2 with two
+    or three cards), in each of MESH4_DTYPES: MESH4_EPOCHS epochs with the
+    final validation and tests; each epoch's loss against the single
+    process on the same batches (``_mesh_reference``), every rank's
+    launches at its local shapes in the run's dtype; in float64 final.pt
+    against the single process's state, in float32 final.pt restored into
+    a single-process state and read by the imputation CLI, and rank 0's
+    torch.profiler trace of epoch 2 for the NCCL kernels' share.  Then
+    steps/s of the graph mesh, the eager mesh and one card in alternating
+    rounds (``_mesh_rate_rank``).  Returns the float32 launches by shape of
+    the 4 x 1 run, summed over its ranks (none without it)."""
+    from hlax_torch.parallel import distributed as pdist
     from hlax_torch.train import checkpoint as ckpt
 
     cards = torch.cuda.device_count()
@@ -2338,53 +2494,90 @@ def phase_mesh4(data_dir: str, tmp: str) -> None:
         print(f"[mesh4] did not run: {cards} card visible; NCCL takes one "
               "card a rank (run `python3 chip_smoke.py mesh` on four)",
               flush=True)
-        return
+        return {}
     shapes = [(2, 2), (4, 1)] if cards >= 4 else [(2, 1), (1, 2)]
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    total = {}
+    for dtype in MESH4_DTYPES:
+        dtag = str(dtype).removeprefix("torch.")
+        bound = MESH_BOUND[dtype]
+        for nd, nl in shapes:
+            tag = f"mesh{nd}x{nl} {dtag}"
+            t0 = time.perf_counter()
+            out = _mesh_cli(data_dir, tmp, f"mesh{nd}x{nl}_{dtag}", nd, nl,
+                            dtype == torch.float32, dtag)
+            seconds = time.perf_counter() - t0
+            steps = 10 * MESH4_EPOCHS
+            rows = _check_run(tag, out, steps, {})
+            with open(out["log"]) as f:
+                if "its steps run as CUDA graphs" not in f.read():
+                    fail(f"[{tag}] the CLI did not run the mesh steps as "
+                         "CUDA graphs")
+            for r, rank in enumerate(out["ranks"]):
+                if rank["steps"] != steps or any(rank["plain_calls"].values()):
+                    fail(f"[{tag}] rank {r}: {rank['steps']} steps, plain "
+                         f"versions {rank['plain_calls']}")
+                _need(f"{tag} rank {r}", rank["launches_by_shape"],
+                      {k: steps for k in _mesh_launches(nd, nl, dtag)})
+                print(f"[{tag}] rank {r} launches by shape "
+                      f"{_by_shape_str(rank['launches_by_shape'])}",
+                      flush=True)
+                if (nd, nl) == (4, 1) and dtype == torch.float32:
+                    for k, v in rank["launches_by_shape"].items():
+                        total[k] = total.get(k, 0) + v
+            ref, ref_state = _mesh_reference(ds, spec0, spec1, nd, dtype)
+            got = np.asarray(out["loss_arrs"]["net"])
+            d_loss = np.abs(got - ref) / np.abs(ref)
+            sd = ckpt.load(out["save"])
+            if sd is None or sd["H"].shape != (32, 120, 120) \
+                    or sd["step"] != steps:
+                fail(f"[{tag}] final.pt is missing or not the whole state")
+            st, _ = canonical_state(ds, spec0, spec1, dtype, seed=1)
+            if not ckpt.restore(out["save"], st) or st.step != steps:
+                fail(f"[{tag}] final.pt does not restore in one process")
+            want, have = _gp_and_vae(ref_state), _gp_and_vae(st)
+            d_state = {k: _rel(have[k], want[k]) for k in want}
+            worst = max(d_state, key=d_state.get)
+            del st, ref_state
+            trace = os.path.join(out["save"], "profile",
+                                 "epochs_2-2.pt.trace.json")
+            nccl = (_nccl_share(trace, 10) if os.path.isfile(trace)
+                    else "not profiled")
+            print(f"[{tag}] {nd} x {nl} ranks over NCCL, CUDA graphs, "
+                  f"{MESH4_EPOCHS} epochs: losses {got.tolist()}; the single "
+                  f"process on the same batches {ref.tolist()}; relative "
+                  f"difference by epoch {[float(f'{x:.3e}') for x in d_loss]}"
+                  f"; final.pt against its state: m {d_state['m']:.3e}, H "
+                  f"{d_state['H']:.3e}, largest {d_state[worst]:.3e} "
+                  f"({worst}); final validation net_loss "
+                  f"{rows['net_loss']:.6g}, GP_loss {rows['GP_loss']:.6g}; "
+                  f"epoch seconds "
+                  f"{[round(x, 4) for x in out['epoch_seconds']]}; run "
+                  f"{seconds:.1f} s; rank 0 epoch 2 under the profiler: "
+                  f"{nccl} on {card_line()} x {cards}", flush=True)
+            if "state" in bound:
+                bad = d_loss.max() > bound["loss"] \
+                    or d_state[worst] > bound["state"]
+            else:
+                bad = d_loss[0] > bound["loss"] or not np.isfinite(got).all()
+            if bad:
+                fail(f"[{tag}] the mesh's epochs differ from the single "
+                     f"process's beyond {bound}")
+            if dtype == torch.float32:
+                phase_impute(data_dir, out["save"], tag=f"mesh{nd}x{nl}")
     for nd, nl in shapes:
-        tag = f"mesh{nd}x{nl}"
         t0 = time.perf_counter()
-        out = _mesh_cli(data_dir, tmp, tag, nd, nl, 3, True, profile=True)
-        seconds = time.perf_counter() - t0
-        rows = _check_run(tag, out, 30, {})
-        for r, rank in enumerate(out["ranks"]):
-            if rank["steps"] != 30 or any(rank["plain_calls"].values()):
-                fail(f"[{tag}] rank {r}: {rank['steps']} steps, plain "
-                     f"versions {rank['plain_calls']}")
-            _need(f"{tag} rank {r}", rank["launches_by_shape"],
-                  {k: 30 for k in _mesh_launches(nd, nl)})
-        sd = ckpt.load(out["save"])
-        if sd is None or sd["H"].shape != (32, 120, 120) or sd["step"] != 30:
-            fail(f"[{tag}] final.pt is missing or not the whole state")
-        ds, spec0, spec1 = canonical_setup(data_dir)
-        st, _ = canonical_state(ds, spec0, spec1, torch.float32, seed=1)
-        if not ckpt.restore(out["save"], st) or st.step != 30:
-            fail(f"[{tag}] final.pt does not restore in one process")
-        del st
-        trace = os.path.join(out["save"], "profile",
-                             "epochs_2-2.pt.trace.json")
-        nccl = (_nccl_share(trace, 10) if os.path.isfile(trace)
-                else "no trace written: not measured")
-        print(f"[{tag}] {nd} x {nl} ranks over NCCL, 3 epochs: losses "
-              f"{out['loss_arrs']['net']}; final validation net_loss "
-              f"{rows['net_loss']:.6g}, GP_loss {rows['GP_loss']:.6g}; "
-              f"epoch seconds {[round(x, 4) for x in out['epoch_seconds']]}; "
-              f"run {seconds:.1f} s; rank 0 epoch 2 under the profiler: "
-              f"{nccl}; rank 0 launches "
-              f"{_by_shape_str(out['ranks'][0]['launches_by_shape'])} on "
-              f"{card_line()} x {cards}", flush=True)
-        phase_impute(data_dir, out["save"], tag=tag)
-    rates = {(1, 1): [], **{s: [] for s in shapes}}
-    for _ in range(2):
-        for nd, nl in rates:
-            out = _mesh_cli(data_dir, tmp, f"rate{nd}x{nl}", nd, nl, 4, False)
-            rates[(nd, nl)].append(10 / float(np.median(
-                out["epoch_seconds"][1:])))
-    for (nd, nl), r in rates.items():
-        print(f"[mesh4] {nd} x {nl} ({nd * nl} card{'s' if nd * nl > 1 else ''}"
-              f"): steps/s {', '.join(f'{x:.2f}' for x in r)} through the "
-              f"CLI (mesh eager, one card on the graph path; median of "
-              f"epochs 2-4, 2 alternating rounds; "
-              f"a step is 20 subjects) on {card_line()}", flush=True)
+        rates = pdist.spawn(_mesh_rate_rank, nd * nl,
+                            (data_dir, nd, nl), timeout=300)[0]
+        spawn_s = time.perf_counter() - t0
+        for (name, spb), r in rates.items():
+            print(f"[mesh4] {nd} x {nl} ({nd * nl} cards) {name}, {spb} "
+                  f"subjects a step: steps/s "
+                  f"{', '.join(f'{x:.2f}' for x in r)} ({MESH4_ROUNDS} "
+                  f"alternating rounds of 20 steps, rank 0's clock; the "
+                  f"spawn {spawn_s:.1f} s) on {card_line()} x {cards}",
+                  flush=True)
+    return total
 
 
 def main() -> None:
@@ -2398,7 +2591,10 @@ def main() -> None:
           flush=True)
     phase_build()
     rows = [] if mesh_only else phase_kernels()
-    rows += phase_mesh_kernels(torch.Generator(device="cuda").manual_seed(3))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows += phase_mesh_kernels(gen)
+    if torch.cuda.device_count() >= 4:        # [mesh4] runs 4 x 1
+        rows += phase_mesh_kernels(gen, MESH4_ROWS)
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         if mesh_only:
@@ -2422,18 +2618,20 @@ def main() -> None:
             phase_full(data_dir, tmp)
             torch.cuda.empty_cache()
         counts["mesh"] = phase_mesh(data_dir)
-        phase_mesh4(data_dir, tmp)
+        counts["mesh4"] = phase_mesh4(data_dir, tmp)
     # each row's launches come from the run of the path it belongs to: the
     # float64 rows from [f64], the long sequences' blocks from [longT], the
-    # mesh ranks' local shapes from [mesh] (summed over its ranks), the
-    # rest from [slice]
+    # mesh ranks' local shapes from [mesh] and the 4 x 1 rank's from
+    # [mesh4] (each summed over its ranks), the rest from [slice]
     long_shapes = {batch + (n, n) for batch, n in LONG_T_MID_ROWS}
     mesh_shapes = {batch + (n, n) for _, batch, n in MESH_ROWS}
+    mesh4_shapes = {batch + (n, n) for _, batch, n in MESH4_ROWS}
     for r in rows:
         shape = tuple(r["shape"])
         path = ("f64" if r["dtype"] == "float64" else
                 "longT" if shape in long_shapes else
-                "mesh" if shape in mesh_shapes else "slice")
+                "mesh" if shape in mesh_shapes else
+                "mesh4" if shape in mesh4_shapes else "slice")
         r["launches"] = counts[path].get((r["name"], shape, r["dtype"]), 0)
         if not r["launches"]:
             fail(f"{r['name']} {r['dtype']} was not launched at "

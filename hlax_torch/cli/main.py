@@ -30,10 +30,11 @@ state over N.  The CLI joins a ``torchrun``-style environment
 (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) when one is
 set, else starts the processes itself; rank r runs on ``cuda:r`` over NCCL
 (it refuses more ranks than visible cards), or with ``--device=cpu`` on the
-CPU over gloo; mesh steps run eagerly (``make_train_epoch``).  At a validation or save epoch the GP state is gathered and
-rank 0 validates, tests, draws and saves (``final.pt`` as a single process
-writes it) while the others wait; only rank 0 prints.  A warm start loads
-the whole checkpoint and shards it.
+CPU over gloo; mesh steps run as CUDA graphs over NCCL and eagerly over
+gloo (``make_train_epoch``).  At a validation or save epoch the GP state
+is gathered and rank 0 validates, tests, draws and saves (``final.pt`` as
+a single process writes it) while the others wait; only rank 0 prints.  A
+warm start loads the whole checkpoint and shards it.
 """
 
 from __future__ import annotations
@@ -295,7 +296,9 @@ def run(opt: dict) -> dict:
             dataset.P, subjects_per_batch, rng)))
     else:
         print(f"Running on a ({mesh.n_data} data x {mesh.n_latent} latent) "
-              f"mesh of processes over {mesh.backend}")
+              f"mesh of processes over {mesh.backend}; its steps run "
+              + ("as CUDA graphs" if tstep.uses_graphs(device, mesh)
+                 else "eagerly"))
         state = pmesh.shard_state(state, mesh, cfg)
         staged = stage_dataset_mesh(dataset, model_dtype, device,
                                     mesh.n_data, mesh.d)
@@ -597,7 +600,7 @@ def _run_rank(rank: int, world_size: int, init_method, opt: dict) -> dict:
                 else contextlib.nullcontext()):
             return _summary(run(opt), rank)
     finally:
-        dist.destroy_process_group()
+        pdist.destroy()
 
 
 def launch(opt: dict) -> dict:

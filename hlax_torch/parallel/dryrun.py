@@ -61,8 +61,6 @@ def _tiny(n_data: int, n_latent: int, device):
 def _rank(rank: int, world_size: int, init_method: str, n_data: int,
           n_latent: int, on_cards: bool) -> float:
     """One rank of the dry run: its loss."""
-    import torch.distributed as dist
-
     from hlax_torch.data.dataset import (epoch_subject_batches_mesh,
                                          gather_batch, stage_dataset_mesh)
     from hlax_torch.parallel import distributed as pdist
@@ -88,7 +86,7 @@ def _rank(rank: int, world_size: int, init_method: str, n_data: int,
             staged, torch.as_tensor(idx[0, mesh.d], device=device)))
         return float(m["loss"])
     finally:
-        dist.destroy_process_group()
+        pdist.destroy()
 
 
 def dryrun_multichip(n: int) -> float:
@@ -102,7 +100,7 @@ def dryrun_multichip(n: int) -> float:
     n_data = n // n_latent
     on_cards = torch.cuda.is_available() and torch.cuda.device_count() >= n
     losses = pdist.spawn(_rank, n, (n_data, n_latent, on_cards),
-                         timeout=600)
+                         timeout=180)
     if not np.isfinite(losses).all() or len(set(losses)) != 1:
         raise RuntimeError(f"dryrun_multichip({n}): losses by rank {losses}")
     where = (f"{n} cards over NCCL" if on_cards

@@ -86,6 +86,16 @@ def make_mesh(n_data: Optional[int] = None, n_latent: int = 1) -> Mesh:
         g = dist.new_group([d * n_latent + l for l in range(n_latent)])
         if rank // n_latent == d:
             latent_group = g
+    # one all-reduce on each group the step uses, so that every NCCL
+    # communicator exists and has connected its rings (NCCL connects them
+    # at a communicator's first collective) before a CUDA graph captures
+    # the step; doing either inside a capture would allocate and
+    # synchronize there
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    for g in (None, data_group, latent_group):
+        if _group_size(g) > 1:
+            dist.all_reduce(torch.zeros(1, device=dev), group=g)
     return Mesh(n_data, n_latent, rank, data_group, latent_group,
                 dist.get_backend())
 
@@ -181,11 +191,14 @@ def make_gradient_reducer(mesh: Mesh, L: int, vae_params, gp_params
     the VAE's over every rank, the GP's over the ranks that hold the same
     latents (the data group, or every rank where the GP is replicated).
 
-    Its first call, which must be eager, agrees over the ranks on which
-    parameters have a gradient: a rank whose share of the loss reads no
-    parameter (a replica of a replicated GP) then gets zeros where the
-    others have gradients, so every later call all-reduces the same
-    tensors on every rank, in the same order."""
+    Its first call, which must be eager (it reads the agreement on the
+    host), agrees over the ranks on which parameters have a gradient: a
+    rank whose share of the loss reads no parameter (a replica of a
+    replicated GP) then gets zeros where the others have gradients, so
+    every later call all-reduces the same tensors on every rank, in the
+    same order.  ``reduce.agreed()`` says whether that first call has
+    run: after it a call makes no host sync, and a CUDA graph may capture
+    it."""
     vae_params, gp_params = list(vae_params), list(gp_params)
     params = vae_params + gp_params
     gp_group = mesh.data_group if mesh.shards_latents(L) else None
@@ -205,6 +218,7 @@ def make_gradient_reducer(mesh: Mesh, L: int, vae_params, gp_params
         _all_reduce_flat([p.grad for p in chosen[0]], None)
         _all_reduce_flat([p.grad for p in chosen[1]], gp_group)
 
+    reduce.agreed = lambda: bool(chosen)
     return reduce
 
 

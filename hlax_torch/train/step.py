@@ -18,12 +18,15 @@ CUDA graph (hlax's one-dispatch epoch, ``hlax/train/step.py:297-332``).
 On a (data x latent) mesh (``hlax_torch.parallel.mesh``) the step takes
 this rank's subjects and its latents of the GP (``shard_state``) and gives
 the single-process step's loss and update of the global batch:
-``make_train_step(..., mesh=...)`` and ``make_train_epoch_mesh``.
+``make_train_step(..., mesh=...)`` and ``make_train_epoch_mesh``, whose
+steps are captured as CUDA graphs over NCCL (hlax's one-dispatch mesh
+epoch, ``hlax/train/step.py:335-363``) and run eagerly over gloo.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -183,7 +186,11 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
     global batch's [n_data * S * T_max, z_dim], of which the rank takes its
     own rows; an injected ``eps`` is this rank's rows.  After the backward
     pass the gradients are summed over the mesh (``make_gradient_reducer``;
-    its first step must run eagerly)."""
+    its first step must run eagerly).
+
+    ``step.capturable(state)`` says whether a step on ``state`` may be
+    captured in a CUDA graph: always without a mesh, and on a mesh once the
+    gradient reducer's first call (a host sync) has run."""
     sums = lat = None
     reducers = {}
     if mesh is not None:
@@ -280,6 +287,11 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
         return {"loss": loss.detach(), "nll": nll_scaled.detach(),
                 "kld": kld.detach(), "recon": recon, "miss_recon": miss}
 
+    def capturable(state: TrainState) -> bool:
+        red = reducers.get(id(state.optimizer))
+        return mesh is None or (red is not None and red.agreed())
+
+    step.capturable = capturable
     return step
 
 
@@ -350,22 +362,30 @@ class _EpochGraphs:
     each number of steps a replay takes (``unroll``, and the remainder of a
     call), replays."""
 
-    def __init__(self, step, unroll: int):
+    def __init__(self, step, unroll: int, capture_error_mode: str):
         self.step, self.unroll = step, unroll
+        self.capture_error_mode = capture_error_mode
         self.warm_left = GRAPH_WARMUP
         self.replays: Dict[tuple, _Replay] = {}
         self.stream = None
         self.ptrs = None
+        _ALL_GRAPHS.add(self)
 
     def _capture(self, state, staged, feed, k: int) -> _Replay:
         from hlax_torch.ops import linalg_small as ls
 
+        if not self.step.capturable(state):
+            raise RuntimeError(
+                "make_train_epoch: the mesh step's gradient reducer has not "
+                "made its first, eager, call; it would sync with the host "
+                "inside the capture")
         inputs = {name: torch.empty_like(v[:k]) for name, v in feed.items()}
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
         step_count, before = state.step, ls.counts_snapshot()
         self.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.graph(graph, stream=self.stream):
+        with torch.cuda.graph(graph, stream=self.stream,
+                              capture_error_mode=self.capture_error_mode):
             out = torch.stack([_metrics_column(self.step(
                 state, *_step_inputs(staged, inputs, u))) for u in range(k)],
                 dim=1)
@@ -413,6 +433,42 @@ class _EpochGraphs:
             j += k
 
 
+# every _EpochGraphs of this process, for release_graphs
+_ALL_GRAPHS: "weakref.WeakSet[_EpochGraphs]" = weakref.WeakSet()
+
+
+def release_graphs() -> None:
+    """Destroy every CUDA graph ``make_train_epoch`` has captured in this
+    process (an epoch function called again captures anew).  NCCL destroys
+    a communicator only after every graph that captured one of its
+    collectives is gone, and waits for them without a limit, so a mesh
+    rank calls this (``hlax_torch.parallel.distributed.destroy``) before it
+    leaves the process group."""
+    if any(g.replays for g in _ALL_GRAPHS):
+        torch.cuda.synchronize()
+        for g in _ALL_GRAPHS:
+            g.replays.clear()
+
+
+def uses_graphs(device, mesh=None) -> bool:
+    """Whether ``make_train_epoch`` captures the step on ``device``: on CUDA,
+    alone or on an NCCL mesh; never on the CPU, and never over gloo, whose
+    collectives go through the host and cannot be captured."""
+    return torch.device(device).type == "cuda" and (
+        mesh is None or mesh.backend == "nccl")
+
+
+def capture_error_mode(mesh=None) -> str:
+    """The ``cudaStreamCaptureMode`` of ``make_train_epoch``'s captures.
+    Alone, "global": no thread may make an unsafe CUDA call while the step
+    is captured.  On an NCCL mesh, "thread_local": ProcessGroupNCCL's
+    watchdog thread queries the CUDA events of earlier collectives at any
+    time, and under "global" such a query during a capture invalidates it;
+    this thread's own calls stay checked.  (On the H100s a lone captured
+    all-reduce ran in either mode; the mesh step was run in this one.)"""
+    return "global" if mesh is None else "thread_local"
+
+
 def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
                      unroll: int = 1, pregather: bool = False, mesh=None):
     """Returns ``epoch(state, staged, idx_batches, eps=None) -> metrics``,
@@ -440,12 +496,15 @@ def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
 
     With a ``mesh``, the steps are the mesh step's on this rank's share of
     the state and its block of the data (``make_train_epoch_mesh`` takes
-    the mesh's index batches), and they run eagerly on every backend:
-    gloo's collectives cannot be captured in a CUDA graph, and NCCL's
-    capture has not been shown to work on the card."""
+    the mesh's index batches).  Over NCCL they are captured as above, the
+    collectives in the graphs: every rank captures at the same step (the
+    warm-up and ``unroll`` are the same on every rank, as is the number of
+    batches) and issues the same collectives in the same order each step,
+    and the gradient reducer's host sync runs in the warm-up.  Over gloo
+    they run eagerly (``uses_graphs``)."""
     step = make_train_step(model, spec0, spec1, cfg, mesh=mesh)
-    graphs = _EpochGraphs(step, max(1, int(unroll)))
-    use_graphs = mesh is None
+    graphs = _EpochGraphs(step, max(1, int(unroll)),
+                          capture_error_mode(mesh))
     model_dt = str(next(model.parameters()).dtype).removeprefix("torch.")
     # the eager step's dtypes (bfloat16, which numpy lacks, as float32)
     model_dt = {"bfloat16": "float32"}.get(model_dt, model_dt)
@@ -464,7 +523,7 @@ def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
             feed["eps"] = torch.as_tensor(eps, device=dev)
         out = torch.empty((len(METRICS), nb), dtype=torch.float64,
                           device=dev)
-        if dev.type == "cuda" and use_graphs:
+        if uses_graphs(dev, mesh):
             graphs(state, staged, feed, nb, out)
         else:
             for j in range(nb):
@@ -487,7 +546,8 @@ def make_train_epoch_mesh(model: HLVAE, spec0, spec1, cfg: TrainConfig, mesh,
     rank), of which the rank takes its data shard's; ``eps`` [nb,
     n_data * S_loc * T, z] injects the global batches' noise, of which it
     takes its rows.  The metrics are the global batches'; the steps are
-    ``make_train_epoch``'s with the mesh, which run eagerly."""
+    ``make_train_epoch``'s with the mesh: CUDA graphs over NCCL, eager
+    over gloo."""
     epoch = make_train_epoch(model, spec0, spec1, cfg, unroll=unroll,
                              mesh=mesh)
 

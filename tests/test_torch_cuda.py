@@ -548,10 +548,17 @@ def test_bfloat16_graph_epoch_equals_eager_epoch(gen, cudnn_deterministic,
 
 # ---- mesh training (hlax_torch/parallel) ------------------------------------
 
-def _mesh_problem(device):
-    """Toy D4 problem in float64 (6 subjects, L = 8, M = 30, the GP jitter
-    of the CPU parity tests, 1e-4) and its whole train state, made from one
-    seed on ``device``."""
+# seconds a spawned mesh of these tests may take before its ranks are killed
+MESH_LIMIT = 180
+# graph steps against eager mesh steps, by dtype (those of the one-card
+# graph test in float64, with cuDNN's deterministic algorithms)
+MESH_GRAPH_BOUND = {torch.float64: 1e-10, torch.float32: 1e-5}
+
+
+def _mesh_problem(device, dtype=torch.float64):
+    """Toy D4 problem (6 subjects, L = 8, M = 30, the GP jitter of the CPU
+    parity tests, 1e-4) and its whole train state in ``dtype``, made from
+    one seed on ``device``."""
     from hlax_torch.data import dataset as ds
     from hlax_torch.gp.kernels import build_kernel_specs
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
@@ -562,27 +569,28 @@ def _mesh_problem(device):
         [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 3}], [], [], 2)
     cfg = tstep.TrainConfig(latent_dim=8, M=30, P_tot=float(data.P),
                             N_tot=float(len(data)), id_covariate=2,
-                            constrain_scales=True, gp_dtype=torch.float64,
-                            eps=1e-4)
+                            constrain_scales=True, gp_dtype=dtype, eps=1e-4)
     model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,)),
-                  torch.Generator(device).manual_seed(0), device).double()
+                  torch.Generator(device).manual_seed(0), device).to(dtype)
     state = tstep.init_train_state(model, spec0, spec1,
                                    next(ds.subject_batches(data, 2)), cfg)
     return data, spec0, spec1, cfg, state
 
 
-def _mesh_idx(data, n_data):
-    """One epoch of 2 subjects a batch: the mesh's local indices and the
-    same batches' global indices."""
+def _mesh_idx(data, n_data, epochs=1):
+    """``epochs`` epochs of 2 subjects a batch: the mesh's local indices
+    [epochs, nb, n_data, S_loc] and the same batches' global indices
+    [epochs, nb, 2]."""
     import numpy as np
 
     from hlax_torch.data import dataset as ds
 
-    idx = ds.epoch_subject_batches_mesh(data.P, n_data, 2,
-                                        np.random.default_rng(0))
+    rng = np.random.default_rng(0)
+    idx = np.stack([ds.epoch_subject_batches_mesh(data.P, n_data, 2, rng)
+                    for _ in range(epochs)])
     P_loc = -(-data.P // n_data)
     glob = np.where(idx >= 0, idx + (np.arange(n_data) * P_loc)[
-        None, :, None], -1).reshape(len(idx), -1)
+        None, None, :, None], -1).reshape(idx.shape[:2] + (-1,))
     return idx, glob
 
 
@@ -590,11 +598,16 @@ def _state_tensors(state):
     return [state.m, state.H] + list(state.vae.parameters())
 
 
-def _mesh_rank(rank, world, init, backend, n_data, n_latent):
-    """A mesh rank (gloo: on cuda:0; NCCL: on cuda:<rank>): one epoch of
-    mesh steps; the losses and the gathered state's m, H and VAE
-    parameters."""
-    import torch.distributed as dist
+def _mesh_rank(rank, world, init, backend, n_data, n_latent,
+               modes=("epoch",), dtype=torch.float64, epochs=1):
+    """A mesh rank (gloo: on cuda:0; NCCL: on cuda:<rank>), cuDNN's
+    deterministic algorithms: for each of ``modes``, from the state made
+    from the seed, ``epochs`` epochs of mesh steps, noise from the
+    generator: "epoch" through ``make_train_epoch_mesh`` (CUDA graphs over
+    NCCL, 2 steps a graph and the remainder's; eager over gloo), "eager"
+    the same steps one by one (``train_epoch``).  Returns by mode the
+    losses and the gathered state's m, H and VAE parameters."""
+    import numpy as np
 
     from hlax_torch.data import dataset as ds
     from hlax_torch.parallel import distributed as pdist
@@ -604,25 +617,37 @@ def _mesh_rank(rank, world, init, backend, n_data, n_latent):
     device = f"cuda:{rank if backend == 'nccl' else 0}"
     torch.cuda.set_device(device)
     torch.backends.cudnn.deterministic = True
-    pdist.initialize(backend, init, world, rank, device=device)
+    pdist.initialize(backend, init, world, rank, device=device, timeout=120)
     try:
         mesh = pmesh.make_mesh(n_data, n_latent)
-        data, spec0, spec1, cfg, whole = _mesh_problem(device)
-        state = pmesh.shard_state(whole, mesh, cfg)
-        staged = ds.stage_dataset_mesh(data, torch.float64, device, n_data,
-                                       mesh.d)
-        epoch = tstep.make_train_epoch_mesh(state.vae, spec0, spec1, cfg,
-                                            mesh)
-        loss = epoch(state, staged, _mesh_idx(data, n_data)[0])["loss"]
-        whole = pmesh.gather_state(state, mesh, cfg)
-        return loss, [t.detach().cpu() for t in _state_tensors(whole)]
+        data, spec0, spec1, cfg, _ = _mesh_problem(device, dtype)
+        staged = ds.stage_dataset_mesh(data, dtype, device, n_data, mesh.d)
+        idx = _mesh_idx(data, n_data, epochs)[0]
+        out = {}
+        for mode in modes:
+            state = pmesh.shard_state(_mesh_problem(device, dtype)[-1], mesh,
+                                      cfg)
+            if mode == "epoch":
+                epoch = tstep.make_train_epoch_mesh(state.vae, spec0, spec1,
+                                                    cfg, mesh, unroll=2)
+                loss = [epoch(state, staged, i)["loss"] for i in idx]
+            else:
+                step = tstep.make_train_step(state.vae, spec0, spec1, cfg,
+                                             mesh=mesh)
+                loss = [tstep.train_epoch(step, state, staged,
+                                          i[:, mesh.d])["loss"] for i in idx]
+            whole = pmesh.gather_state(state, mesh, cfg)
+            out[mode] = (np.concatenate(loss), [
+                t.detach().cpu() for t in _state_tensors(whole)])
+        return out
     finally:
-        dist.destroy_process_group()
+        pdist.destroy()
 
 
-def _against_single_process(ranks, n_data):
-    """Each rank's losses and gathered state against the single process's
-    epoch on the same global batches, float64 (noise from the generator)."""
+def _against_single_process(ranks, mode, n_data, epochs=1):
+    """Each rank's losses and gathered state of ``mode`` against the single
+    process's steps on the same global batches, float64 (noise from the
+    generator)."""
     import numpy as np
 
     from hlax_torch.data import dataset as ds
@@ -633,12 +658,18 @@ def _against_single_process(ranks, n_data):
     staged = ds.stage_dataset(data, torch.float64, "cuda")
     want = [step(state, ds.gather_batch(staged, torch.as_tensor(
         i, device="cuda")))["loss"].item()
-        for i in _mesh_idx(data, n_data)[1]]
-    for loss, tensors in ranks:
+        for ib in _mesh_idx(data, n_data, epochs)[1] for i in ib]
+    for r in ranks:
+        loss, tensors = r[mode]
         np.testing.assert_allclose(loss, want, rtol=1e-9)
         for a, b in zip(tensors, _state_tensors(state)):
             torch.testing.assert_close(a, b.detach().cpu(), rtol=1e-7,
                                        atol=1e-9)
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL takes one a rank)")
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
@@ -647,21 +678,51 @@ def test_gloo_mesh_on_one_card_equals_single_process(gen,
                                                      shape):
     """Two gloo ranks sharing the card (data or latent parallel) take the
     single process's steps on the same global batches: losses, m, H and
-    the VAE's parameters, float64."""
+    the VAE's parameters, float64; ``make_train_epoch_mesh`` runs them
+    eagerly over gloo."""
     from hlax_torch.parallel import distributed as pdist
 
     _against_single_process(
-        pdist.spawn(_mesh_rank, 2, ("gloo",) + shape, timeout=600),
-        shape[0])
+        pdist.spawn(_mesh_rank, 2, ("gloo",) + shape, timeout=MESH_LIMIT),
+        "epoch", shape[0])
 
 
 def test_nccl_mesh_on_two_cards_equals_single_process(gen,
                                                       cudnn_deterministic):
     """Two NCCL ranks, one a card (data parallel), take the single
-    process's steps on the same global batches, float64."""
+    process's steps on the same global batches, eagerly, float64."""
     from hlax_torch.parallel import distributed as pdist
 
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA devices (NCCL takes one a rank)")
+    _two_cards()
     _against_single_process(
-        pdist.spawn(_mesh_rank, 2, ("nccl", 2, 1), timeout=600), 2)
+        pdist.spawn(_mesh_rank, 2, ("nccl", 2, 1, ("eager",)),
+                    timeout=MESH_LIMIT), "eager", 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_nccl_graph_mesh_epoch_equals_eager_mesh_epoch(gen,
+                                                       cudnn_deterministic,
+                                                       dtype):
+    """Two NCCL ranks, one a card (data parallel): two epochs through
+    ``make_train_epoch_mesh``'s CUDA graphs (the collectives captured; 2
+    eager warm-up steps, then graphs of 2 steps and of the remainder)
+    equal the same steps run eagerly from the same seed (MESH_GRAPH_BOUND:
+    losses, m, H and the VAE's parameters); in float64 both equal the
+    single process's steps."""
+    import numpy as np
+
+    from hlax_torch.parallel import distributed as pdist
+
+    _two_cards()
+    ranks = pdist.spawn(_mesh_rank, 2, ("nccl", 2, 1, ("eager", "epoch"),
+                                        dtype, 2), timeout=MESH_LIMIT)
+    bound = MESH_GRAPH_BOUND[dtype]
+    for r in ranks:
+        (want, a), (got, b) = r["eager"], r["epoch"]
+        assert len(got) == len(want) == 6 and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=bound)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(y, x, rtol=bound, atol=bound * 1e-2)
+    if dtype == torch.float64:
+        for mode in ("eager", "epoch"):
+            _against_single_process(ranks, mode, 2, epochs=2)

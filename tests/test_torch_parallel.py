@@ -11,8 +11,9 @@ replicated).  The same data, initial state (hlax's, through
 chain, injected into the port) go through hlax's ``make_train_epoch_mesh``
 (``jit_train_epoch``) and the port's ``make_train_epoch_mesh``; each rank
 also returns its gradients of the first batch, held against the
-single-process port step's.  Every rank process is killed when one fails
-(``hlax_torch.parallel.distributed.spawn``).
+single-process port step's, and what a CUDA graph of each of its steps
+would capture (``torch_mesh_ranks.StepTrace``).  Every rank process is
+killed when one fails (``hlax_torch.parallel.distributed.spawn``).
 """
 import numpy as np
 import pytest
@@ -215,6 +216,54 @@ def test_adam_moments_and_state_round_trip(case):
         assert r["round_trip"]
         for shape in r["zt_moments"].values():
             assert shape[0] == local
+
+
+def test_mesh_steps_issue_the_same_collectives_after_warm_up(case):
+    """What lets a CUDA graph capture the mesh step over NCCL, on the 2 x 2
+    gloo mesh (conv: the GP sharded; MLP: L = 5, the GP replicated, so the
+    latent ranks 1 skip the backward pass): after GRAPH_WARMUP steps every
+    step issues the same collectives (op, group, reduce op, shape, dtype)
+    in the same order as the step before it, the ranks of each group issue
+    the same sequence on it at every step, the reducer's host read of its
+    agreement happens in the first step only, and the step says it is
+    capturable from then on."""
+    _, _, got = case
+    warm = tstep.GRAPH_WARMUP
+    for r in got:
+        steps = r["trace"]
+        assert len(steps) > warm + 1
+        assert not steps[0]["capturable"] and steps[0]["host_reads"] > 0
+        assert any(c[2].endswith("MAX") and len(c[1]) == len(got)
+                   for c in steps[0]["calls"])       # the agreement
+        for j in range(1, len(steps)):
+            assert steps[j]["capturable"] and steps[j]["host_reads"] == 0, j
+        for j in range(warm, len(steps)):
+            assert steps[j]["calls"] == steps[j - 1]["calls"], j
+        assert steps[-1]["calls"]
+    groups = {c[1] for r in got for s in r["trace"] for c in s["calls"]}
+    assert len(groups) > 2          # the world, data and latent groups
+    for g in groups:
+        for j in range(len(got[0]["trace"])):
+            seqs = [[c for c in got[r]["trace"][j]["calls"] if c[1] == g]
+                    for r in g]
+            assert all(q == seqs[0] for q in seqs), (g, j)
+
+
+@pytest.mark.parametrize("device,backend,graphs,mode", [
+    ("cuda", None, True, "global"), ("cuda", "nccl", True, "thread_local"),
+    ("cuda", "gloo", False, "thread_local"), ("cpu", None, False, "global"),
+    ("cpu", "gloo", False, "thread_local"),
+    ("cpu", "nccl", False, "thread_local")])
+def test_train_epoch_captures_only_on_cuda_alone_or_over_nccl(
+        device, backend, graphs, mode):
+    """``make_train_epoch`` captures the step exactly when the device is
+    CUDA and there is no mesh or the mesh's backend is NCCL; never over
+    gloo; an NCCL mesh captures with the thread-local capture mode."""
+    mesh = None if backend is None else pmesh.Mesh(2, 1, 0, None, None,
+                                                   backend)
+    assert tstep.uses_graphs(torch.device(device), mesh) is graphs
+    assert tstep.uses_graphs(device, mesh) is graphs
+    assert tstep.capture_error_mode(mesh) == mode
 
 
 def test_initialize_joins_once_and_is_idempotent(case, monkeypatch):
