@@ -18,7 +18,9 @@ run eagerly.
     python3 chip_smoke.py mesh     # the build, [mesh] and [mesh4] only
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel.
+  1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel, and
+             prints each kernel's registers and spill; a spill in the
+             float64 blocked mid kernel fails the run.
   2. kernels each kernel against its plain version, with the launch plan
              each shape took: the small kernel bit for bit at eleven shapes
              (both compiled sizes, padded and odd n, n up to 48) on random
@@ -29,9 +31,13 @@ Phases (each prints its own lines; any failure exits non-zero):
              at eight shapes on random, L_bar = 0 and L^-1_bar = 0
              cotangents, against float64.  Then the float64 instantiations:
              the small kernel and the mid kernel's n <= 32 path bit for bit,
-             the mid kernel's blocked path (L^-1 in shared memory and in
-             its device workspace) and the backward kernel within 4x their
-             plain versions' own error plus 1e-12.  Device times (CUDA
+             the mid kernel's blocked path (its float64 kernel, with its
+             plan: threads, shared memory) and the backward kernel within
+             4x their plain versions' own error plus 1e-12.  With the
+             kernel sources of an earlier commit unpacked under parent/
+             (PARENT_CSRC), its mid kernel is built beside the current one
+             and both are timed in turns (parent, change, change, parent),
+             float32 results held equal bit for bit.  Device times (CUDA
              events, the launches queued ahead) of kernel, plain version,
              the library call where one exists (torch.linalg.cholesky +
              solve_triangular, in the kernel's dtype), the bound, the
@@ -67,7 +73,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              --model_dtype=float64, and in float32 with --nat_grad_f64=True,
              20 steps each and the final validation with
              --eval_gp_f64=True: launches by kernel, shape and dtype, no
-             plain version on the card.
+             plain version on the card; each run's graph path steps/s and
+             its device time by kernel and idle share under the profiler.
   9. longT   sequences of T = 200 (40 subjects, 4 a batch) and T = 500 (20,
              2 a batch) on synthetic D4-shaped data, L = 32, M = 120, conv,
              float32: 5 steps after a warm-up one, then the DUBO and the
@@ -195,14 +202,16 @@ LONG_T_MID_ROWS = {((32, 4), 100), ((32, 2), 125), ((32, 64), 128),
                    ((32, 32), 128)}
 MID_ROWS = {((64,), 120), ((32,), 120), ((32, 256), 32)} | LONG_T_MID_ROWS
 # float64: the small kernel's shapes (the B blocks first), the mid
-# kernel's (the training shapes and the eval buckets first; n = 40 keeps
-# L^-1 in shared memory, n = 113 and 128 in the workspace), the
+# kernel's (the training shapes and the eval buckets first; then the
+# blocked path's ends, n = 33 and 128, an odd n at either end of its
+# largest shared-memory size, a single matrix and an odd batch), the
 # backward's; every first shape of a list, and the mid kernel's first
 # three, get rows in the kernel table
 F64_SMALL_SHAPES = [((32, 20), 20), ((1001,), 20), ((33,), 19),
                     ((1001,), 32), ((64,), 40)]
 F64_MID_SHAPES = [((64,), 120), ((32,), 120), ((32, 256), 32), ((8,), 128),
-                  ((64,), 40), ((5,), 113)]
+                  ((64,), 40), ((5,), 113), ((1,), 33), ((1,), 120),
+                  ((3,), 127), ((65,), 120)]
 F64_MID_MAIN = 3
 F64_BWD_SHAPES = [((32, 20), 20), ((3,), 48), ((33,), 19), ((17,), 32)]
 # the float64 blocked path and backward are held to their plain versions:
@@ -277,6 +286,30 @@ def ill_conditioned(batch, n, gen):
     return ((q * ev) @ q.T).float().expand(batch + (n, n)).contiguous()
 
 
+# the kernel that must not spill: the float64 blocked mid kernel
+NO_SPILL = ("chol_inv_mid", "chol_inv_mid_blocked64_kernel")
+
+
+def _ptxas_report(tag: str, name: str, log: str) -> dict:
+    """Prints each kernel's registers and spill from a ``ptxas -v`` log;
+    returns {kernel: spilled bytes, stores and loads}."""
+    kernel, spill, spilled = "?", "", {}
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+            spilled[kernel] = sum(map(int, re.findall(
+                r"(\d+) bytes spill", line)))
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            print(f"[{tag}] {name} {kernel}: "
+                  f"{regs.group(1) if regs else line.strip()} "
+                  f"registers; {spill}")
+    return spilled
+
+
 def phase_build() -> None:
     from hlax_torch.ops import cuda_build
     t0 = time.time()
@@ -285,18 +318,16 @@ def phase_build() -> None:
     print(f"[build] nvcc sm_90a, 3 libraries in {time.time() - t0:.1f} s",
           flush=True)
     for name, log in logs.items():
-        kernel, spill = "?", ""
-        for line in log.splitlines():
-            m = re.search(r"Function properties for (\S+)", line)
-            if m:
-                kernel = _kernel_name(m.group(1))
-            elif "spill" in line:
-                spill = line.strip()
-            elif "registers" in line:
-                regs = re.search(r"Used (\d+) registers", line)
-                print(f"[build] {name} {kernel}: "
-                      f"{regs.group(1) if regs else line.strip()} "
-                      f"registers; {spill}")
+        spilled = _ptxas_report("build", name, log)
+        if name == NO_SPILL[0]:
+            if NO_SPILL[1] not in spilled:
+                fail(f"[build] no ptxas report of {NO_SPILL[1]}")
+            if spilled[NO_SPILL[1]]:
+                fail(f"[build] {NO_SPILL[1]} spills "
+                     f"{spilled[NO_SPILL[1]]} bytes (stores and loads)")
+    if NO_SPILL[0] not in logs:
+        print(f"[build] lib{NO_SPILL[0]}.so was up to date: its spill was "
+              "checked when it was built", flush=True)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -338,9 +369,11 @@ def phase_kernels():
     """Each kernel against its plain version, float32 then float64; returns
     the table rows."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return [phase_small_kernel(gen), *phase_mid_kernel(gen),
+    rows = [phase_small_kernel(gen), *phase_mid_kernel(gen),
             phase_bwd_kernel(gen), phase_small_kernel_f64(gen),
             *phase_mid_kernel_f64(gen), phase_bwd_kernel_f64(gen)]
+    phase_mid_parent(gen)
+    return rows
 
 
 def _tag(name, batch, n):
@@ -716,6 +749,10 @@ def phase_mid_kernel_f64(gen):
     for s, (batch, n) in enumerate(F64_MID_SHAPES):
         tag = _tag("chol_inv_mid_cuda", batch, n)
         plan = ls.mid_launch_plan(n, int(np.prod(batch)), 8)
+        print(f"[kernels] {tag} float64 plan: {plan.path} path, "
+              f"{plan.grid} blocks of {plan.threads} threads, "
+              f"{plan.smem} bytes of shared memory a block, no cluster",
+              flush=True)
         worst = 0.0
         for kind in ("spd", "ill", "guard"):
             if kind == "spd":
@@ -756,9 +793,8 @@ def phase_mid_kernel_f64(gen):
                 worst = max(worst, (l - lp).abs().max().item(),
                             (il - ilp).abs().max().item()) \
                     if kind == "spd" else worst
-            print(f"[kernels] {tag} float64 {kind}: {plan.path} path"
-                  f"{', L^-1 in the device workspace' if plan.work else ''}"
-                  f"; |LL^T-A|/|A| {got[0]:.3e}, |L^-1 L - I| {got[1]:.3e}"
+            print(f"[kernels] {tag} float64 {kind}: {plan.path} path; "
+                  f"|LL^T-A|/|A| {got[0]:.3e}, |L^-1 L - I| {got[1]:.3e}"
                   f" ({note})", flush=True)
         if s >= F64_MID_MAIN:
             continue
@@ -770,6 +806,117 @@ def phase_mid_kernel_f64(gen):
             lambda: _library(a), worst,
             _bound_ms(a.numel() // (n * n), n, f64)))
     return rows
+
+
+# The mid kernel of an earlier commit, for a parent-against-change timing
+# in one call: before the run, unpack that commit's kernel sources under
+# parent/ (listed in .gitignore),
+#   mkdir -p parent && git archive <commit> hlax_torch/csrc | tar -xC parent
+# and [kernels] builds its chol_inv_mid.cu into build/parent and times it
+# against the current kernel at PARENT_ROWS.  The parent's C entry and plan
+# are those before the float64 redesign (L^-1 in a device workspace above
+# np = 112, 512 threads; `_parent_plan`).  Without parent/ the phase says
+# so and moves on.
+PARENT_CSRC = os.path.join(ROOT, "parent", "hlax_torch", "csrc")
+PARENT_ROWS = [((64,), 120, torch.float64), ((32,), 120, torch.float64),
+               ((32, 256), 32, torch.float64), ((64,), 120, torch.float32),
+               ((32,), 120, torch.float32), ((32, 256), 32, torch.float32)]
+
+
+def _parent_plan(n: int, batch: int, itemsize: int):
+    """The parent's launch plan: (path, grid, threads, panel, smem,
+    workspace bytes)."""
+    if n <= 32:
+        return 0, -(-batch // 4), 128, 0, 4 * 32 * 33 * itemsize, 0
+    np_ = -(-n // 8) * 8
+    tile, panel = itemsize * np_ * np_, itemsize * 8 * (np_ + 8)
+    fits = 2 * tile + panel <= 232_448
+    return (1, batch, 512, 8, (2 if fits else 1) * tile + panel,
+            0 if fits else batch * tile)
+
+
+def phase_mid_parent(gen) -> None:
+    """The parent's mid kernel against the current one at PARENT_ROWS, on
+    one SPD input a row: float32 results equal bit for bit, float64 both
+    within the residual bars of ``phase_mid_kernel_f64``; device times in
+    turns, parent, change, change, parent.  Each parent call allocates its
+    workspace, as the parent's wrapper did."""
+    import ctypes
+
+    from hlax_torch.ops import cuda_build
+    from hlax_torch.ops import linalg_small as ls
+
+    src = os.path.join(PARENT_CSRC, "chol_inv_mid.cu")
+    if not os.path.isfile(src):
+        print(f"[kernels] parent against change: not measured (no {src})",
+              flush=True)
+        return
+    out = os.path.join(cuda_build.BUILD_DIR, "parent", "libchol_inv_mid.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.time()
+    res = subprocess.run([cuda_build._nvcc(),
+                          *cuda_build.nvcc_flags("chol_inv_mid"), "-o", out,
+                          src], capture_output=True, text=True)
+    if res.returncode:
+        fail(f"[kernels] the parent's chol_inv_mid.cu did not build:\n"
+             f"{res.stdout}{res.stderr}")
+    print(f"[kernels] parent's chol_inv_mid.cu built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    _ptxas_report("kernels", "parent's chol_inv_mid", res.stdout + res.stderr)
+    fn = ctypes.CDLL(out).chol_inv_mid_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+
+    def parent(a):
+        n = a.shape[-1]
+        batch = a.numel() // (n * n)
+        *plan, work = _parent_plan(n, batch, a.element_size())
+        l, il = torch.empty_like(a), torch.empty_like(a)
+        ws = torch.empty(work // a.element_size(), dtype=a.dtype,
+                         device=a.device) if work else None
+        code = fn(a.data_ptr(), l.data_ptr(), il.data_ptr(), batch, n,
+                  a.element_size(), *plan,
+                  ws.data_ptr() if ws is not None else None,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"[kernels] the parent's chol_inv_mid_launch: CUDA error "
+                 f"{code}")
+        return l, il
+
+    before = ls.counts_snapshot()
+    for batch, n, dtype in PARENT_ROWS:
+        tag = f"{_tag('chol_inv_mid_cuda', batch, n)} " \
+              f"{str(dtype).removeprefix('torch.')}"
+        a = random_spd(batch, n, gen).to(dtype)
+        got, want = ls.chol_inv_mid_cuda(a), parent(a)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            if not all(map(torch.equal, got, want)):
+                fail(f"[kernels] {tag}: differs from the parent's kernel by "
+                     f"{(got[0] - want[0]).abs().max().item():.3e} (L)")
+            note = "equal to the parent's bit for bit"
+        else:
+            res_c, res_p = _residuals(a, *got), _residuals(a, *want)
+            res_0 = _residuals(a, *ls._chol_inv_plain(a))
+            for r in (res_c, res_p):
+                if any(g > F64_FACTOR * w + F64_ABS
+                       for g, w in zip(r, res_0)):
+                    fail(f"[kernels] {tag}: residuals {r} exceed "
+                         f"{F64_FACTOR} x the plain version's {res_0}")
+            note = (f"|LL^T-A|/|A|, |L^-1 L - I| change {res_c[0]:.3e}, "
+                    f"{res_c[1]:.3e}, parent {res_p[0]:.3e}, {res_p[1]:.3e}")
+        ms = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            call = (lambda: parent(a)) if who == "parent" else \
+                (lambda: ls.chol_inv_mid_cuda(a))
+            ms[who].append(time_ms(call)[0])
+        print(f"[kernels] parent against change {tag}: parent "
+              f"{ms['parent'][0]:.5f}, change {ms['change'][0]:.5f}, change "
+              f"{ms['change'][1]:.5f}, parent {ms['parent'][1]:.5f} ms "
+              f"(parent / change {sum(ms['parent']) / sum(ms['change']):.2f}x)"
+              f"; {note}; on {card_line()}", flush=True)
+    ls.take_counts_since(before)
 
 
 def phase_bwd_kernel_f64(gen):
@@ -1178,10 +1325,12 @@ def phase_profile(out, n_steps: int = 10) -> None:
                                                                 idx)), 5)
 
 
-def _profile_steps(tag: str, run, steps: int, calls: int = 5) -> None:
+def _profile_steps(tag: str, run, steps: int, calls: int = 5,
+                   focus: str = "") -> None:
     """``run`` ``calls`` times (``steps`` train steps in all) under
     torch.profiler: wall and device-busy ms a step, the device's idle share
-    of the wall time, and the kernels that take the most device time."""
+    of the wall time, and the kernels that take the most device time; then
+    every kernel whose name holds ``focus``, if given."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1211,6 +1360,11 @@ def _profile_steps(tag: str, run, steps: int, calls: int = 5) -> None:
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"[{tag}] {t / steps / 1e3:8.4f} ms/step {t / busy:6.1%}  "
               f"{name[:90]}", flush=True)
+    for name, t in sorted(by_name.items()):
+        if focus and focus in name:
+            print(f"[{tag}] {focus}: {t / steps / 1e3:.5f} ms/step, "
+                  f"{t / busy:.2%} of the device time: {name[:90]}",
+                  flush=True)
 
 
 def _run_cli(opt: dict, log: str):
@@ -1284,9 +1438,12 @@ def phase_f64(data_dir: str, tmp: str):
     float64 natural-gradient chain (--nat_grad_f64=True): two epochs of 10
     steps each through the graphs (the second's time is the graph path's
     steps/s) and the final validation with --eval_gp_f64=True; then the
-    eager step's steps/s.  Returns the launches by (kernel, shape, dtype)
-    of both runs."""
+    eager step's steps/s, the graph path's over 3 more epochs, and the
+    graph path under the profiler: device ms a step by kernel (each
+    Cholesky kernel's share) and the idle share.  Returns the launches by
+    (kernel, shape, dtype) of both runs."""
     from hlax_torch.config import ModelArgs
+    from hlax_torch.data.dataset import epoch_subject_batches
 
     b, m = (32, 20, 20, 20), (32, 120, 120)
     k2 = (64, 120, 120)
@@ -1330,10 +1487,18 @@ def phase_f64(data_dir: str, tmp: str):
               f"{rows['net_loss']:.6g}; run {seconds:.1f} s; launches "
               f"{launches}; by shape {_by_shape_str(by_shape)}; plain "
               f"versions on CUDA tensors {plain}", flush=True)
+        idx = np.stack(list(epoch_subject_batches(
+            200, 20, np.random.default_rng(0))))
+
+        def epoch():
+            out["train_epoch"](out["state"], out["staged"], idx)
+        graph = _time_epochs(epoch, 3)
         print(f"[f64] {name}: graph path {10 / out['epoch_seconds'][-1]:.3f}"
-              f" steps/s (the second epoch), eager {sps:.3f} steps/s (5 "
-              f"steps after a warm-up one, 20 subjects a batch) on "
-              f"{card_line()}", flush=True)
+              f" steps/s (the second epoch), {graph:.3f} steps/s (3 more "
+              f"epochs), eager {sps:.3f} steps/s (5 steps after a warm-up "
+              f"one, 20 subjects a batch) on {card_line()}", flush=True)
+        _profile_steps(f"f64 {name}", epoch, 3 * GRAPH_STEPS, calls=3,
+                       focus="chol_inv")
         del out
         torch.cuda.empty_cache()
     return counts

@@ -26,9 +26,9 @@
 // (1.1 us at 67 TFLOP/s float32), so the bound is memory; in float64 twice
 // the bytes (6.6 us) against 2.2 us at 34 TFLOP/s, memory again.  In
 // practice the time is latency and instruction count: n dependent pivots a
-// matrix.  The launch plan (path, grid, threads, panel width, shared memory,
-// device workspace) is worked out in Python, `mid_launch_plan` in
-// hlax_torch/ops/linalg_small.py, and checked here.  Two paths:
+// matrix.  The launch plan (path, grid, threads, panel width, shared
+// memory) is worked out in Python, `mid_launch_plan` in
+// hlax_torch/ops/linalg_small.py, and checked here.  Three paths:
 //
 // * n <= 32 (the eval buckets): one warp a matrix, four a block, the body
 //   shared with the small kernel (chol_inv_warp_rows<Real, 32>,
@@ -39,17 +39,12 @@
 //   for bit in both dtypes: on an ill-conditioned K0zz the GP bound's loss
 //   moves visibly with one rounding's change in the factorization, and the
 //   card's toy train steps (M = 30) are held to the CPU's (chip_smoke.py).
-// * 32 < n <= 128: one block of 512 threads a matrix, A resident in dynamic
-//   shared memory (identity-padded to np = ceil8(n)), with the panel's L21
-//   transposed beside it.  L^{-1} (np x np) sits beside A in shared memory
-//   where both fit, which is always in float32 (2 x 57.6 KB at n = 120,
-//   131 KB at n = 128); in float64 only up to np = 112, so above it L^{-1}
-//   lives in a device workspace of np x np a matrix that the wrapper
-//   allocates (A alone is 115 KB at n = 120; L2 holds the 64 workspaces of
-//   the training shape, 7.4 MB).  The block barriers make each thread's
-//   writes to it visible to the others, as they do for shared memory.
-//   Right-looking in panels of NB = 8 columns, two block barriers a panel
-//   (31 a matrix at n = 120, against the unblocked loop's 360):
+// * 32 < n <= 128, float32: one block of 512 threads a matrix, A and
+//   L^{-1} resident in dynamic shared memory (np x np each, identity-padded
+//   to np = ceil8(n): 2 x 57.6 KB at n = 120, 131 KB at n = 128), with the
+//   panel's L21 transposed beside them.  Right-looking in panels of NB = 8
+//   columns, two block barriers a panel (31 a matrix at n = 120, against
+//   the unblocked loop's 360):
 //     (a) every thread that needs the 8 x 8 diagonal block factors it in its
 //         own registers, pivot by pivot under the guard (hlax's refined
 //         rsqrt), with no shuffle and no barrier; then one thread a row
@@ -66,13 +61,29 @@
 //   One block a matrix keeps 64 (or 32) of the 132 SMs busy; with the
 //   blocking the kernel is well below the library call, so a thread-block
 //   cluster a matrix was not built (PERF.md).
+// * 32 < n <= 128, float64: the same panels and steps (a) and (b) in a
+//   kernel of its own, laid out for 8-byte values.  A and L^{-1} no longer
+//   fit as two np x np arrays (230 KB at n = 120), so L^{-1} keeps only its
+//   lower triangle, row by row, each row as long as the 8-column tiles it
+//   reaches (8, 16, ... values; 61 KB at n = 120): both stay in shared
+//   memory, 185 KB at n = 120 and 209 KB at n = 128.  256 threads a block,
+//   so each may hold 255 registers: the 8 x 8 diagonal factor, its inverse
+//   and the update's accumulators stay in registers without a spill.  In
+//   step (b) a 16-byte copy carries 2 values, not 4, and shared-memory
+//   traffic bounds it; each task is an 8 x 4 subtile (one 16-byte read of
+//   the transposed panel serves 8 rows, not 4), and the tasks active in a
+//   panel are dealt out afresh to consecutive threads, one task a thread up
+//   to n = 120.  The pivots take the library's double rsqrt without a
+//   further Newton step.  On the H100 a column swizzle against bank
+//   conflicts and a row stride of np + 2 each measured about 1 % slower,
+//   and neither was kept (PERF.md).
 // No tensor cores: the canonical K0zz and H have condition >= 1e6, and TF32
 // keeps ~3 digits; the flops are tiny, so FMA on the CUDA cores does, and
 // wgmma and TMA buy nothing at these sizes.  Built with FMA contraction
-// (hlax_torch/ops/cuda_build.py): the blocked path sums in another order
-// than the plain version, with fused multiply-adds and hlax's refined
-// rsqrt pivots; on float32 inputs it is held to a float64 reference, on
-// float64 inputs to the plain version's own error bar (chip_smoke.py,
+// (hlax_torch/ops/cuda_build.py): the blocked paths sum in another order
+// than the plain version, with fused multiply-adds and rsqrt pivots; on
+// float32 inputs they are held to a float64 reference, on float64 inputs
+// to the plain version's own error bar (chip_smoke.py,
 // tests/test_torch_cuda.py).
 #include "chol_inv_common.cuh"
 
@@ -121,15 +132,14 @@ chol_inv_mid_warp_kernel(const Real* __restrict__ a, Real* __restrict__ l,
 #define BLOCK_ROWS (128 / BLOCK_WARPS)  // rows a warp loads and stores
 #define MAX_TASKS 2        // 4 x 4 subtiles a thread: 1008 at np = 128
 
-// 1/sqrt(x): rsqrt and one Newton step, as hlax's `_rsqrt1`
+// 1/sqrt(x): in float32 rsqrt and one Newton step, as hlax's `_rsqrt1`; in
+// float64 the library's rsqrt (within 1 ulp), whose own Newton steps a
+// further one would only lengthen the pivot chain
 __device__ __forceinline__ float pivot_rsqrt(float x) {
   const float y = rsqrtf(x);
   return y * (1.5f - 0.5f * x * y * y);
 }
-__device__ __forceinline__ double pivot_rsqrt(double x) {
-  const double y = rsqrt(x);
-  return y * (1.5 - 0.5 * x * y * y);
-}
+__device__ __forceinline__ double pivot_rsqrt(double x) { return rsqrt(x); }
 
 // Subtiles of the trailing update: kind 0 is a 4 x 4 subtile of A's lower
 // triangle, kind 1 one of L^{-1} strictly below the diagonal NB x NB
@@ -139,24 +149,13 @@ __host__ __device__ inline int blocked_tasks(int np) {
   return ns * (ns + 1) / 2 + 2 * nt * (nt - 1);
 }
 
-// The guarded Cholesky of the panel's NB x NB diagonal block at (t, t), in
-// one thread's registers: L11's lower triangle in r, 1/sqrt(pivot) in inv,
-// whether the pivot stood above the floor in good.  Each thread that needs
-// L11 computes it: no shuffles, no barrier.
+// The guarded Cholesky of an NB x NB diagonal block held in one thread's
+// registers (its lower triangle in r): L11's lower triangle into r,
+// 1/sqrt(pivot) into inv, whether the pivot stood above the floor into good.
 template <typename Real>
-__device__ __forceinline__ void factor_diag(const Real* A, int np, int t,
-                                            Real floor, Real (&r)[NB][NB],
+__device__ __forceinline__ void factor_regs(Real floor, Real (&r)[NB][NB],
                                             Real (&inv)[NB],
                                             bool (&good)[NB]) {
-#pragma unroll
-  for (int q = 0; q < NB; ++q) {
-    const Real* row = A + (t + q) * np + t;
-    Real u0[4], u1[4];
-    ld4(row, u0);
-    ld4(row + 4, u1);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) r[q][c] = u0[c], r[q][4 + c] = u1[c];
-  }
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
     const Real d = r[j][j];
@@ -172,6 +171,26 @@ __device__ __forceinline__ void factor_diag(const Real* A, int np, int t,
 #pragma unroll
       for (int i = k; i < NB; ++i) r[i][k] -= r[i][j] * r[k][j];
   }
+}
+
+// The panel's NB x NB diagonal block at (t, t) of A (row stride np),
+// factored by factor_regs.  Each thread that needs L11 computes it: no
+// shuffles, no barrier.
+template <typename Real>
+__device__ __forceinline__ void factor_diag(const Real* A, int np, int t,
+                                            Real floor, Real (&r)[NB][NB],
+                                            Real (&inv)[NB],
+                                            bool (&good)[NB]) {
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const Real* row = A + (t + q) * np + t;
+    Real u0[4], u1[4];
+    ld4(row, u0);
+    ld4(row + 4, u1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) r[q][c] = u0[c], r[q][4 + c] = u1[c];
+  }
+  factor_regs<Real>(floor, r, inv, good);
 }
 
 // L11^{-1} (lower) from factor_diag's result, by forward substitution.
@@ -210,24 +229,18 @@ __device__ __forceinline__ void store_lower(Real* dst, int np,
   }
 }
 
-// X_SMEM: L^{-1} in shared memory beside A (a compile-time choice, so every
-// shared-memory access compiles to one); else in `work`, a device workspace
-// of np x np values a matrix, which is not __restrict__: its threads read
-// what others wrote across block barriers.
-template <typename Real, bool X_SMEM>
+// float32 only: float64 has its own kernel below.
+template <typename Real>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 chol_inv_mid_blocked_kernel(const Real* __restrict__ a, Real* __restrict__ l,
-                            Real* __restrict__ il, Real* work, int batch,
-                            int n, int np) {
+                            Real* __restrict__ il, int batch, int n,
+                            int np) {
   if (blockIdx.x >= batch) return;  // the whole block leaves
-  Real* A = dynamic_smem<Real>();  // np x np: A, then L
-  Real* X = X_SMEM ? A + np * np                  // np x np: L^{-1}
-                   : work + (size_t)blockIdx.x * np * np;
-  Real* Pt = (X_SMEM ? X : A) + np * np;  // NB x np: the panel's L21,
-                                          // transposed
-  Real* D = Pt + NB * np;                 // NB x NB: L11, until it replaces
-                                          // the diagonal block that (a)
-                                          // reads
+  Real* A = dynamic_smem<Real>();   // np x np: A, then L
+  Real* X = A + np * np;            // np x np: L^{-1}
+  Real* Pt = X + np * np;           // NB x np: the panel's L21, transposed
+  Real* D = Pt + NB * np;           // NB x NB: L11, until it replaces the
+                                    // diagonal block that (a) reads
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int writer = BLOCK_THREADS - 1;  // stores L11 and L11^{-1}
@@ -403,17 +416,235 @@ chol_inv_mid_blocked_kernel(const Real* __restrict__ a, Real* __restrict__ l,
     }
 }
 
+// ---- 32 < n <= 128, float64: L^{-1} packed beside A ------------------------
+
+#define F64_THREADS 256     // a matrix: up to 255 registers a thread
+#define F64_ROW_THREADS 128  // (a): threads below it take the panel's rows,
+                             // the rest the columns of L^{-1}
+
+// Offset of row r of the packed L^{-1}: the rows of 8-row tile R are
+// 8 (R + 1) values long, through their diagonal tile.
+__host__ __device__ __forceinline__ int xrow(int r) {
+  const int R = r >> 3;
+  return NB * (R + 1) * (4 * R + (r & 7));
+}
+
+// Values of shared memory at np: A, the packed L^{-1}, the transposed panel
+// and L11.
+__host__ __device__ inline int f64_smem_values(int np) {
+  return np * np + xrow(np) + NB * np + NB * NB;
+}
+
+__global__ void __launch_bounds__(F64_THREADS, 1)
+chol_inv_mid_blocked64_kernel(const double* __restrict__ a,
+                              double* __restrict__ l,
+                              double* __restrict__ il, int batch, int n,
+                              int np) {
+  if (blockIdx.x >= batch) return;  // the whole block leaves
+  const int nt = np / NB;
+  double* A = dynamic_smem<double>();  // np x np: A, then L
+  double* X = A + np * np;             // packed rows of L^{-1}
+  double* Pt = X + xrow(np);           // NB x np: the panel's L21,
+                                       // transposed
+  double* D = Pt + NB * np;            // NB x NB: L11
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int writer = F64_THREADS - 1;  // stores L11 and L11^{-1}
+  const size_t off = (size_t)blockIdx.x * n * n;
+
+  // A in, identity-padded: warp w takes rows w + 8k, its lanes columns
+  // lane + 32m, in two rounds of eight rows (one round of sixteen spills)
+#pragma unroll
+  for (int k0 = 0; k0 < 128 / 8; k0 += 8) {
+    double v[8][4];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int i = warp + 8 * (k0 + k), c = lane + 32 * m;
+        v[k][m] = (i < n && c < n) ? a[off + i * n + c]
+                                   : (i == c ? 1.0 : 0.0);
+      }
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int i = warp + 8 * (k0 + k), c = lane + 32 * m;
+        if (i < np && c < np) A[i * np + c] = v[k][m];
+      }
+  }
+  for (int e = tid; e < xrow(np); e += F64_THREADS) X[e] = 0;
+  __syncthreads();
+  // the pivot floor over A's diagonal, in every warp, from shared memory
+  double dmax = 0;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int i = lane + 32 * m;
+    if (i < n) dmax = fmax(dmax, A[i * np + i]);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    dmax = fmax(dmax, __shfl_xor_sync(FULL_MASK, dmax, o));
+  const double floor = pivot_floor_rel(0.0) * dmax;
+
+  double r[NB][NB], inv[NB];  // L11, 1/sqrt(pivots) of the current panel
+  bool good[NB];
+  for (int t = 0; t < np; t += NB) {
+    const int t2 = t + NB, T = t / NB;
+    double* Xp = X + xrow(t);    // the panel's rows of L^{-1},
+    const int xs = NB * (T + 1);  // xs values apart
+    // (a) as in the float32 kernel: L21 one thread a row, the panel rows of
+    // L^{-1} times L11^{-1} one thread a column, L11 and L11^{-1} by the
+    // writer; each first factors the diagonal block itself
+    const bool row_thread = tid < np - t2;
+    const bool col_thread =
+        tid >= F64_ROW_THREADS && tid - F64_ROW_THREADS < t;
+    if (row_thread || col_thread || tid == writer) {
+#pragma unroll
+      for (int q = 0; q < NB; ++q) {
+        double u0[4], u1[4];
+        ld4(A + (t + q) * np + t, u0);
+        ld4(A + (t + q) * np + t + 4, u1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) r[q][c] = u0[c], r[q][4 + c] = u1[c];
+      }
+      factor_regs<double>(floor, r, inv, good);
+    }
+    if (row_thread) {
+      double* row = A + (t2 + tid) * np;
+      double x[NB];
+      {
+        double u0[4], u1[4];
+        ld4(row + t, u0);
+        ld4(row + t + 4, u1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) x[c] = u0[c], x[4 + c] = u1[c];
+      }
+#pragma unroll
+      for (int q = 0; q < NB; ++q) {
+        double v = x[q];
+#pragma unroll
+        for (int p = 0; p < q; ++p) v -= x[p] * r[q][p];
+        x[q] = good[q] ? v * inv[q] : 0.0;
+      }
+      const double x0[4] = {x[0], x[1], x[2], x[3]};
+      const double x1[4] = {x[4], x[5], x[6], x[7]};
+      st4(row + t, x0);
+      st4(row + t + 4, x1);
+#pragma unroll
+      for (int q = 0; q < NB; ++q) Pt[q * np + t2 + tid] = x[q];
+    } else if (col_thread || tid == writer) {
+      double x[NB][NB];
+      invert_diag<double>(r, inv, x);
+      if (tid == writer) {
+        store_lower<double>(D, NB, r);
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+          double v0[4], v1[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            v0[c] = c <= q ? x[q][c] : 0.0;
+            v1[c] = 4 + c <= q ? x[q][4 + c] : 0.0;
+          }
+          st4(Xp + q * xs + t, v0);
+          st4(Xp + q * xs + t + 4, v1);
+        }
+      } else {
+        const int c = tid - F64_ROW_THREADS;
+        double y[NB];
+#pragma unroll
+        for (int q = 0; q < NB; ++q) y[q] = Xp[q * xs + c];
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+          double v = 0;
+#pragma unroll
+          for (int p = 0; p <= q; ++p) v += x[q][p] * y[p];
+          Xp[q * xs + c] = v;
+        }
+      }
+    }
+    __syncthreads();
+    // every thread has read the diagonal block: L11 replaces it
+    if (tid < 2 * NB) {
+      const int q = tid >> 1, h = 4 * (tid & 1);
+      double u[4];
+      ld4(D + q * NB + h, u);
+      st4(A + (t + q) * np + t + h, u);
+    }
+    if (t2 == np) break;
+
+    // (b) the rank-NB updates below the panel in NB x 4 tasks, dealt out to
+    // consecutive threads: first A's trailing lower triangle (tile row R of
+    // it holds 2 (R + 1) tasks), then L^{-1}'s rows below the panel left of
+    // t2 (2 (T + 1) tasks a tile row)
+    const int mt = nt - T - 1;  // tile rows below the panel
+    const int nA = mt * (mt + 1), w = 2 * (T + 1);
+    for (int k = tid; k < nA + mt * w; k += F64_THREADS) {
+      int r0, c0, ds, rs;
+      double* dst;
+      const double* rb;  // the right factor's rows, rs values apart
+      if (k < nA) {
+        int R = (int)((sqrtf(4.0f * k + 1.0f) - 1.0f) * 0.5f);
+        R += (R + 1) * (R + 2) <= k;
+        R -= R * (R + 1) > k;
+        r0 = t2 + NB * R, c0 = t2 + 4 * (k - R * (R + 1));
+        dst = A + r0 * np, ds = np, rb = Pt, rs = np;
+      } else {
+        const int kx = k - nA, R = kx / w;
+        r0 = t2 + NB * R, c0 = 4 * (kx - R * w);
+        dst = X + xrow(r0), ds = NB * (T + 2 + R), rb = Xp, rs = xs;
+      }
+      double acc[NB][4];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) ld4(dst + i * ds + c0, acc[i]);
+      // acc[i][c] -= sum_q L21[r0 + i][q] * (L21[c0 + c][q] on A, or
+      // L^{-1}[t + q][c0 + c] on L^{-1})
+#pragma unroll
+      for (int q = 0; q < NB; ++q) {
+        double l0[4], l1[4], rk[4];
+        ld4(Pt + q * np + r0, l0);
+        ld4(Pt + q * np + r0 + 4, l1);
+        ld4(rb + q * rs + c0, rk);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][c] -= l0[i] * rk[c];
+            acc[4 + i][c] -= l1[i] * rk[c];
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) st4(dst + i * ds + c0, acc[i]);
+    }
+    __syncthreads();
+  }
+  __syncthreads();  // the last L11
+
+  // L and L^{-1} out, exact zeros above the diagonal
+#pragma unroll
+  for (int k = 0; k < 128 / 8; ++k)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int i = warp + 8 * k, c = lane + 32 * m;
+      if (i < n && c < n) {
+        const bool lower = c <= i;
+        l[off + i * n + c] = lower ? A[i * np + c] : 0.0;
+        il[off + i * n + c] = lower ? X[xrow(i) + c] : 0.0;
+      }
+    }
+}
+
 template <typename Real>
-static cudaError_t launch(const void* a_, void* l_, void* il_, void* work_,
-                          int batch, int n, int path, int grid, int threads,
-                          int panel, int smem, cudaStream_t s) {
+static cudaError_t launch(const void* a_, void* l_, void* il_, int batch,
+                          int n, int path, int grid, int threads, int panel,
+                          int smem, cudaStream_t s) {
   const Real* a = (const Real*)a_;
-  Real *l = (Real*)l_, *il = (Real*)il_, *work = (Real*)work_;
+  Real *l = (Real*)l_, *il = (Real*)il_;
   const int sz = (int)sizeof(Real);
   cudaError_t err;
   if (path == 0) {
     const int warps = threads / 32;
-    if (n > 32 || threads % 32 || threads > 128 || panel != 0 || work ||
+    if (n > 32 || threads % 32 || threads > 128 || panel != 0 ||
         (long long)grid * warps < batch || smem < warps * 32 * WARP_LD * sz)
       return cudaErrorInvalidValue;
     static int allowed = 48 * 1024;
@@ -423,24 +654,27 @@ static cudaError_t launch(const void* a_, void* l_, void* il_, void* work_,
                                                                batch, n);
   } else if (path == 1) {
     const int np = (n + NB - 1) / NB * NB;
-    // A, the transposed panel, L11, and L^{-1} unless it has a workspace
-    const int tiles = (work ? 1 : 2) * np * np + NB * np + NB * NB;
-    if (n <= 32 || np > 128 || threads != BLOCK_THREADS || panel != NB ||
-        grid < batch || BLOCK_THREADS * MAX_TASKS < blocked_tasks(np) ||
-        smem < tiles * sz)
+    if (n <= 32 || np > 128 || panel != NB || grid < batch)
       return cudaErrorInvalidValue;
-    // float32's L^{-1} always fits beside A: one instantiation
-    auto kernel = chol_inv_mid_blocked_kernel<Real, true>;
-    if constexpr (sizeof(Real) == 8) {
-      if (work) kernel = chol_inv_mid_blocked_kernel<Real, false>;
-    } else if (work) {
-      return cudaErrorInvalidValue;
+    static int allowed = 48 * 1024;
+    if constexpr (sizeof(Real) == 4) {
+      // A, L^{-1}, the transposed panel and L11
+      if (threads != BLOCK_THREADS ||
+          BLOCK_THREADS * MAX_TASKS < blocked_tasks(np) ||
+          smem < (2 * np * np + NB * np + NB * NB) * sz)
+        return cudaErrorInvalidValue;
+      err = allow_smem(chol_inv_mid_blocked_kernel<Real>, smem, allowed);
+      if (err != cudaSuccess) return err;
+      chol_inv_mid_blocked_kernel<Real><<<grid, threads, smem, s>>>(
+          a, l, il, batch, n, np);
+    } else {
+      if (threads != F64_THREADS || smem < f64_smem_values(np) * sz)
+        return cudaErrorInvalidValue;
+      err = allow_smem(chol_inv_mid_blocked64_kernel, smem, allowed);
+      if (err != cudaSuccess) return err;
+      chol_inv_mid_blocked64_kernel<<<grid, threads, smem, s>>>(
+          a, l, il, batch, n, np);
     }
-    // one limit for each of the two instantiations
-    static int allowed[2] = {48 * 1024, 48 * 1024};
-    err = allow_smem(kernel, smem, allowed[work ? 1 : 0]);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, threads, smem, s>>>(a, l, il, work, batch, n, np);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -448,21 +682,20 @@ static cudaError_t launch(const void* a_, void* l_, void* il_, void* work_,
 }
 
 // Plain C entry for ctypes: launches the plan that `mid_launch_plan` made
-// (path 0: one warp a matrix; path 1: blocked, one block a matrix, with
-// `work` the device workspace for L^{-1} of np x np values a matrix, or
-// null when it stays in shared memory) on matrices of `itemsize`-byte
-// values (4: float32, 8: float64).  Returns cudaErrorInvalidValue for a plan
-// the kernels do not take, else cudaGetLastError() after the launch.
+// (path 0: one warp a matrix; path 1: blocked, one block a matrix) on
+// matrices of `itemsize`-byte values (4: float32, 8: float64).  Returns
+// cudaErrorInvalidValue for a plan the kernels do not take, else
+// cudaGetLastError() after the launch.
 extern "C" int chol_inv_mid_launch(const void* a, void* l, void* il,
                                    int batch, int n, int itemsize, int path,
                                    int grid, int threads, int panel, int smem,
-                                   void* work, void* stream) {
+                                   void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (itemsize == 4)
-    return (int)launch<float>(a, l, il, work, batch, n, path, grid, threads,
-                              panel, smem, s);
+    return (int)launch<float>(a, l, il, batch, n, path, grid, threads, panel,
+                              smem, s);
   if (itemsize == 8)
-    return (int)launch<double>(a, l, il, work, batch, n, path, grid, threads,
+    return (int)launch<double>(a, l, il, batch, n, path, grid, threads,
                                panel, smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,10 +16,10 @@ worked out here and checked by its C entry:
   * ``chol_inv_mid_cuda`` (``csrc/chol_inv_mid.cu``, 24 < n <= 128):
     replaces the TPU kernel ``_mid_kernel``.  For n <= 32 the small
     kernel's one-warp body at size 32; above, one block a matrix, blocked in
-    panels of 8 columns, with L^{-1} in a device workspace where it does not
-    fit in shared memory beside A (float64 above np = 112;
-    ``mid_launch_plan``).  As in hlax, one Newton step
-    ``_refine_tri_inverse`` follows it.
+    panels of 8 columns, A and L^{-1} both in shared memory: in float32 as
+    two full arrays, in float64 in a kernel of its own with L^{-1} packed
+    to its lower triangle (``mid_launch_plan``).  As in hlax, one Newton
+    step ``_refine_tri_inverse`` follows it.
   * ``chol_inv_bwd_cuda`` (``csrc/chol_inv_bwd.cu``, n <= 48): the backward
     of the small factorization, replaces the TPU kernel ``_bwd_kernel``.
     One warp a matrix, zero-padded to a compiled size (20 for T = 20); each
@@ -76,6 +76,7 @@ MAX_WARP_ROWS = 32    # one warp a matrix, a row a lane: the small kernel's
                       # register path and the mid kernel's n <= 32 path
 MID_WARPS_PER_BLOCK = 4
 MID_BLOCK_THREADS = 512  # must match BLOCK_THREADS in csrc/chol_inv_mid.cu
+MID64_BLOCK_THREADS = 256  # float64: must match F64_THREADS there
 MID_PANEL = 8         # must match NB there
 # compiled sizes of the small kernel's register path (n <= 32) and of the
 # backward kernel: the canonical T = 20 and the largest n of each range,
@@ -147,28 +148,31 @@ class MidPlan(NamedTuple):
     panel: int     # panel width of the blocked path (0 on the warp path)
     smem: int      # dynamic shared memory a block, bytes
     per_block: int  # matrices a block
-    work: int      # device workspace for L^{-1}, bytes (0: in shared memory)
 
 
 def mid_launch_plan(n: int, batch: int, itemsize: int = 4) -> MidPlan:
     """The plan ``chol_inv_mid_launch`` (``csrc/chol_inv_mid.cu``) takes for
     values of ``itemsize`` bytes: for n <= 32 four warps a block, each
     staging its identity-padded 32 x 32 matrix in a 33-value-stride tile;
-    above, 512 threads a matrix with A identity-padded to a multiple of the
-    panel width in shared memory, plus the panel's L21 transposed and its
-    diagonal block, and L^{-1} beside A where it fits (always in float32,
-    up to np = 112 in float64), else in a device workspace."""
+    above, one block a matrix with A identity-padded to np, a multiple of
+    the panel width, in shared memory beside L^{-1}, the panel's L21
+    transposed and its diagonal block.  In float32, 512 threads and L^{-1}
+    as a full np x np array; in float64, 256 threads and L^{-1} packed to
+    the rows of its lower 8 x 8 tiles (``xrow`` there): 184,832 bytes at
+    n = 120, 209,408 at n = 128."""
     if n <= MAX_WARP_ROWS:
         w = MID_WARPS_PER_BLOCK
         return MidPlan("warp", -(-batch // w), 32 * w, 0,
-                       w * 32 * 33 * itemsize, w, 0)
+                       w * 32 * 33 * itemsize, w)
     np_ = -(-n // MID_PANEL) * MID_PANEL
-    tile = itemsize * np_ * np_
-    panel = itemsize * MID_PANEL * (np_ + MID_PANEL)
-    x_in_smem = 2 * tile + panel <= SMEM_PER_BLOCK
-    return MidPlan("blocked", batch, MID_BLOCK_THREADS, MID_PANEL,
-                   (2 if x_in_smem else 1) * tile + panel, 1,
-                   0 if x_in_smem else batch * tile)
+    panel = MID_PANEL * (np_ + MID_PANEL)
+    if itemsize == 4:
+        return MidPlan("blocked", batch, MID_BLOCK_THREADS, MID_PANEL,
+                       4 * (2 * np_ * np_ + panel), 1)
+    nt = np_ // MID_PANEL
+    x_packed = 4 * MID_PANEL * nt * (nt + 1)
+    return MidPlan("blocked", batch, MID64_BLOCK_THREADS, MID_PANEL,
+                   itemsize * (np_ * np_ + x_packed + panel), 1)
 
 
 def _per_block(batch: int, sms: int, smem_per_matrix: int) -> int:
@@ -291,10 +295,9 @@ def _check(a: torch.Tensor, lo: int, hi: int, what: str) -> None:
         raise ValueError(f"{what}: needs a contiguous tensor")
 
 
-def _launch(name: str, entry: str, a: torch.Tensor, plan, work=()):
+def _launch(name: str, entry: str, a: torch.Tensor, plan):
     """(L, L^{-1}) from the C entry ``entry(a, l, il, batch, n, itemsize,
-    *plan, *work, stream)`` of ``lib<name>.so``: ``plan`` ints, ``work``
-    device pointers."""
+    *plan, stream)`` of ``lib<name>.so``: ``plan`` ints."""
     n = a.shape[-1]
     l, il = torch.empty_like(a), torch.empty_like(a)
     batch = a.numel() // (n * n)
@@ -303,11 +306,11 @@ def _launch(name: str, entry: str, a: torch.Tensor, plan, work=()):
     lib = load_library(name)
     fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + len(plan))
-                   + [ctypes.c_void_p] * (len(work) + 1))
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(a.data_ptr(), l.data_ptr(), il.data_ptr(), batch, n,
-              a.element_size(), *plan, *work, stream)
+              a.element_size(), *plan, stream)
     check_launch(lib, entry, code)
     _count_launch(f"{name}_cuda", a)
     return l, il
@@ -334,14 +337,9 @@ def chol_inv_mid_cuda(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(a, MAX_DIAG_BLOCK, MAX_MID_M, "chol_inv_mid_cuda")
     n = a.shape[-1]
     plan = mid_launch_plan(n, a.numel() // (n * n), a.element_size())
-    work = None
-    if plan.work:
-        work = torch.empty(plan.work // a.element_size(), dtype=a.dtype,
-                           device=a.device)
     return _launch("chol_inv_mid", "chol_inv_mid_launch", a,
                    ({"warp": 0, "blocked": 1}[plan.path], plan.grid,
-                    plan.threads, plan.panel, plan.smem),
-                   (work.data_ptr() if work is not None else None,))
+                    plan.threads, plan.panel, plan.smem))
 
 
 def _refine_tri_inverse(l, il):

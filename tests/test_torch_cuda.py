@@ -264,28 +264,40 @@ def test_float64_small_kernel_equals_plain_version(gen, shape, kind):
 @pytest.mark.parametrize("shape", [(64, 120, 120), (32, 120, 120),
                                    (8, 32, 32), (32, 256, 32, 32),
                                    (3, 40, 40), (2, 112, 112), (5, 113, 113),
-                                   (2, 128, 128)])
+                                   (2, 128, 128), (1, 33, 33), (1, 120, 120),
+                                   (3, 127, 127), (65, 120, 120)])
 def test_float64_mid_kernel_against_plain_version(gen, shape):
     """The float64 mid kernel: its one-warp path (n <= 32) bit-equal to the
-    plain version; its blocked path, with L^-1 in shared memory (n <= 112)
-    or in the device workspace (n > 112), has residuals |LL^T - A| / |A|
-    and |L^-1 L - I| within 4x the plain version's plus 1e-12, on SPD and
-    on ill-conditioned (logspace(0, -6) spectrum) inputs."""
+    plain version; its blocked path (its own kernel, L^-1 packed beside A
+    in shared memory) has residuals |LL^T - A| / |A| and |L^-1 L - I|
+    within 4x the plain version's plus 1e-12, on SPD and on
+    ill-conditioned (logspace(0, -6) spectrum) inputs.  On the guard input
+    (logspace(0, -20), indefinite after rounding) some pivot sits on the
+    float64 floor, 2e-15 max diag A, and L still factors a nearby matrix."""
     n = shape[-1]
-    for a in (_spd(shape, gen).double(),
-              _ill(shape, gen)):
+    warp = tls.mid_launch_plan(n, 1, 8).path == "warp"
+    for kind, a in (("spd", _spd(shape, gen).double()),
+                    ("ill", _ill(shape, gen)),
+                    ("guard", _guard64(shape, gen))):
         l, il = tls.chol_inv_mid_cuda(a)
         torch.cuda.synchronize()
         assert torch.isfinite(l).all() and torch.isfinite(il).all()
         assert not torch.triu(l, 1).any() and not torch.triu(il, 1).any()
         lp, ilp = tls._chol_inv_plain(a)
-        if tls.mid_launch_plan(n, 1, 8).path == "warp":
+        if warp:
             torch.testing.assert_close(l, lp, rtol=0, atol=0)
             torch.testing.assert_close(il, ilp, rtol=0, atol=0)
             continue
         got, want = _residuals(a, l, il), _residuals(a, lp, ilp)
+        if kind == "guard":
+            floor = tls.pivot_floor_rel(torch.float64) * torch.diagonal(
+                a, dim1=-2, dim2=-1).amax(-1, keepdim=True)
+            d2 = torch.diagonal(l, dim1=-2, dim2=-1) ** 2
+            assert ((d2 - floor).abs() < 1e-6 * floor).any()
+            assert got[0] <= 1e-4, got
+            continue
         for g, w in zip(got, want):
-            assert g <= 4 * w + 1e-12, (got, want)
+            assert g <= 4 * w + 1e-12, (kind, got, want)
 
 
 def _ill(shape, gen):

@@ -303,10 +303,12 @@ def test_kernel_build_flags(tmp_path, monkeypatch):
 def test_launch_plans_in_float64(batch):
     """The three plans count 8 bytes a value.  The small and backward
     kernels' shared memory doubles and still fits a block (the backward's
-    six 48 x 48 buffers, 110,592 bytes, one matrix a block); the mid
-    kernel's blocked path keeps L^-1 beside A up to np = 112 and moves it
-    to a device workspace of np x np a matrix above, so the canonical
-    M = 120 comes to 123,392 bytes of shared memory."""
+    six 48 x 48 buffers, 110,592 bytes, one matrix a block).  The mid
+    kernel's float64 blocked path has no device workspace: A, L^-1 packed
+    to the rows of its lower 8 x 8 tiles, the transposed panel and L11 all
+    fit one block's shared memory for every
+    n in 33..128, with 256 threads and one block a matrix; its warp path
+    (n <= 32) doubles float32's."""
     for n in range(1, tls.MAX_MID_M + 1):
         if n <= tls.MAX_SMALL_T:
             for plan_of in (tls.small_launch_plan, tls.bwd_launch_plan):
@@ -319,16 +321,33 @@ def test_launch_plans_in_float64(batch):
             continue
         p32, p64 = tls.mid_launch_plan(n, batch), tls.mid_launch_plan(
             n, batch, 8)
-        assert p64.smem <= tls.SMEM_PER_BLOCK and p32.work == 0
-        assert (p64.path, p64.grid, p64.threads) == \
-            (p32.path, p32.grid, p32.threads)
-        np_ = -(-n // 8) * 8
+        assert p64.smem <= tls.SMEM_PER_BLOCK
+        assert p64.grid * p64.per_block >= batch
+        assert (p64.grid - 1) * p64.per_block < batch
         if n <= 32:
-            assert p64.smem == 2 * p32.smem and p64.work == 0
-        elif np_ <= 112:
-            assert p64.smem == 2 * p32.smem and p64.work == 0
-        else:
-            assert p64.smem == 8 * (np_ * np_ + 8 * (np_ + 8))
-            assert p64.work == batch * np_ * np_ * 8
+            assert p64 == p32._replace(smem=2 * p32.smem)
+            continue
+        np_, nt = -(-n // 8) * 8, -(-n // 8)
+        packed = 32 * nt * (nt + 1)          # lower 8 x 8 tiles' rows
+        assert p64 == ("blocked", batch, 256, 8,
+                       8 * (np_ * np_ + packed + 8 * np_ + 64), 1)
+    assert "work" not in tls.MidPlan._fields
     assert tls.bwd_launch_plan(48, 1, 132, 8).smem == 110_592
-    assert tls.mid_launch_plan(120, batch, 8).smem == 123_392 <= 232_448
+    assert tls.mid_launch_plan(120, batch, 8).smem == 184_832
+    assert tls.mid_launch_plan(128, batch, 8).smem == 209_408 <= 232_448
+
+
+@pytest.mark.parametrize("batch", [1, 16, 32, 64, 160, 640, 8192])
+def test_mid_launch_plan_in_float32_unchanged(batch):
+    """The float32 plan is the one the float32 kernel was designed for, for
+    every n the mid kernel takes: four warps a block of 33-value-stride
+    tiles for n <= 32; above, 512 threads a matrix with A and L^-1 as two
+    full np x np arrays beside the transposed panel and L11."""
+    for n in range(tls.MAX_DIAG_BLOCK + 1, tls.MAX_MID_M + 1):
+        np_ = -(-n // 8) * 8
+        want = (("warp", -(-batch // 4), 128, 0, 4 * 32 * 33 * 4, 4)
+                if n <= 32 else
+                ("blocked", batch, 512, 8, 4 * (2 * np_ * np_ + 8 * np_ + 64),
+                 1))
+        assert tls.mid_launch_plan(n, batch) == want
+        assert tls.mid_launch_plan(n, batch, 4) == want
