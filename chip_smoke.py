@@ -16,6 +16,8 @@ run eagerly.
 
     python3 chip_smoke.py          # every phase, one card
     python3 chip_smoke.py mesh     # the build, [mesh] and [mesh4] only
+    python3 chip_smoke.py fusion   # the build, [fusion], [graph], [parent]
+    python3 chip_smoke.py rate <tree> <data_dir>   # [parent]'s own runs
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel, and
@@ -56,7 +58,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              final validation, the test battery and the reconstruction grid
              of the generation split; launch counters must show every
              Cholesky and every small backward went through the kernels,
-             and each row of the kernel table's shape was launched.  Without
+             every fused kernel launched at least once a step with no
+             plain version on the card, and each row of the kernel table's
+             shape was launched.  Without
              matplotlib (the card's machine has none) the grid must be a
              finite [160, 1296] recon_complete.npz whose reconstruction is
              pixels in [0, 255], and training_curves.npz must hold every
@@ -68,7 +72,23 @@ Phases (each prints its own lines; any failure exits non-zero):
   6. eval    imputation-eval samples/s (bench.py's protocol: forward with
              the q(z) mean over the training set in 500-row chunks).
   7. profile steps/s of the canonical step, eager, and device time by
-             kernel.
+             kernel (full names) and kernels and device ms a step by
+             source region (hlax_torch/profiling.py's ranges: each kernel
+             to the region whose host operation launched it, a backward
+             kernel to the forward region it differentiates).
+ 7b. fusion  the fused step ops (hlax_torch/ops/fusion.py, csrc/fusion.cu:
+             the heads and likelihoods, the encoder's representation, the
+             recon metric, the GP kernel matrices K0xz, K0zz, K1_st, K0_st)
+             at the canonical shapes in float32 and float64: results and
+             gradients against their plain versions (float64 within 1e-10
+             of the largest entry; float32 within 4x the plain version's
+             own error against float64 plus 1e-6), each kernel timed alone
+             by CUDA events beside the op's plain chain and its bound; the
+             MLP's heads and metric and the metric's mesh path held to
+             their plain versions too; then
+             --use_pallas_chol=False on the graph path: float64 graph steps
+             against eager steps, a canonical float32 epoch, no Cholesky
+             kernel launched.
   8. f64     the canonical config with --gp_dtype=float64
              --model_dtype=float64, and in float32 with --nat_grad_f64=True,
              20 steps each and the final validation with
@@ -79,10 +99,15 @@ Phases (each prints its own lines; any failure exits non-zero):
              2 a batch) on synthetic D4-shaped data, L = 32, M = 120, conv,
              float32: 5 steps after a warm-up one, then the DUBO and the
              predictor over the n = 256 and 512 buckets, all through the
-             blocked composition on the mid kernel.
+             blocked composition on the mid kernel; at T = 200 graph steps
+             against eager steps (float64, [graph]'s bound) and both
+             steps/s.
  10. mlp     the canonical data with --conv_hivae=False (hidden [500],
-             y_dim 5): 3 epochs, the final validation, the test battery,
-             imputation in encoder and GP mode.
+             y_dim 5): 3 epochs through the fused heads and metric, no
+             plain version on the card, the final validation, the test
+             battery, imputation in encoder and GP mode; graph steps
+             against eager steps (float64, [graph]'s bound) and both
+             steps/s.
  11. graph   from two canonical states made from one seed, 10 eager steps
              and 10 steps through make_train_epoch's CUDA graphs on the same
              batches, in float64 and float32, with the noise injected
@@ -96,7 +121,13 @@ Phases (each prints its own lines; any failure exits non-zero):
              steps.  Then steps/s of the eager path and the graph path
              (--scan_unroll 1 and 10, and 10 pregathered) in alternating
              rounds, and the graph path's device time and idle share under
-             torch.profiler.
+             torch.profiler, by region as the eager steps' profile splits
+             each kernel name.
+ 11b. parent with an earlier commit's tree unpacked under parent/
+             (git-ignored), both trees' canonical graph steps (float32,
+             float64, --nat_grad_f64) in processes of their own, in turns
+             parent, change, change, parent: steps/s, device ms and kernels
+             a step, idle share.
  12. full    the canonical config's 300 epochs through the CLI on the graph
              path (--epochs_per_dispatch=5 --scan_unroll=10), validation
              every 5 epochs, the test battery: the final net loss, the last
@@ -120,7 +151,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              deterministic algorithms on both): in float64 losses within
              1e-4, GP state and VAE parameters within 1e-3; in float32 (ill-
              conditioned: see MESH_BOUND) the first loss within 5e-2; every
-             rank launching all three kernels at its local shapes; then
+             rank launching all three kernels and the fused ops' forward
+             kernels (the metric's through the mesh's sums) at its local
+             shapes, no plain version; then
              dryrun_multichip(4) (4 CPU processes over gloo on one card).
  16. mesh4   with two cards or more, one rank a card over NCCL through the
              CLI on the graph path (the collectives captured in the CUDA
@@ -130,14 +163,16 @@ Phases (each prints its own lines; any failure exits non-zero):
              loss against the single process on one card over the same
              global batches (float64 at [mesh]'s bounds, with final.pt's
              state; float32 at its first-loss rule), every rank's launches
-             at its local shapes (the 4 x 1 rank's [32,5,20,20] small and
+             at its local shapes and no plain version (the 4 x 1 rank's
+             [32,5,20,20] small and
              backward kernels get rows in the kernel table), final.pt
              restored in one process and read by the imputation CLI, rank
              0's NCCL share of its device time under the profiler; then
              steps/s of the graph mesh, the eager mesh and one card (graph
              and eager) in 3 alternating rounds, at 20 and at 200 subjects
              a step.  With one card it prints that it did not run.
-Phases 13 and 14 run after [mlp], before [graph]; 15 and 16 after [full].
+Phase 7b runs after [profile]; 13 and 14 after [mlp], before [graph]; 11b
+after [graph]; 15 and 16 after [full].
 Every main path (slice, f64, longT, mlp, bf16, fused, full, and each rank
 of mesh and mesh4) runs with the launch counters set to 0 just before it
 and read just after.  The line
@@ -148,6 +183,7 @@ and dtype; the last line is {"ok": true, "device": {...}}.  Imports nothing of J
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -164,6 +200,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "hlvae_config_file.txt")
+# the canonical D4 layout's expanded columns: 324 real variables and 972
+# cat(5) ones (``hlax_torch.data.generate.quantized_regions("D4")``)
+CANONICAL_N_EXP = 324 + 5 * 972
 
 # H100 SXM data sheet peaks (dense, no sparsity; float64 outside the
 # tensor cores)
@@ -286,6 +325,15 @@ def ill_conditioned(batch, n, gen):
     return ((q * ev) @ q.T).float().expand(batch + (n, n)).contiguous()
 
 
+# the fused step ops' kernels (hlax_torch.ops.fusion): each is launched at
+# least once a canonical train step
+FUSED_KERNELS = ("heads_cat_fwd_cuda", "heads_cat_bwd_cuda",
+                 "heads_real_fwd_cuda", "heads_real_bwd_cuda",
+                 "rep_image_fwd_cuda", "rep_image_bwd_cuda",
+                 "recon_metric_cuda", "recon_metric_finish_cuda",
+                 "gp_kernel_fwd_cuda", "gp_kernel_bwd_cuda")
+# every kernel library, one nvcc each, all started together
+LIBRARIES = ("chol_inv_small", "chol_inv_mid", "chol_inv_bwd", "fusion")
 # the kernel that must not spill: the float64 blocked mid kernel
 NO_SPILL = ("chol_inv_mid", "chol_inv_mid_blocked64_kernel")
 
@@ -313,10 +361,9 @@ def _ptxas_report(tag: str, name: str, log: str) -> dict:
 def phase_build() -> None:
     from hlax_torch.ops import cuda_build
     t0 = time.time()
-    logs = cuda_build.build_all(["chol_inv_small", "chol_inv_mid",
-                                 "chol_inv_bwd"])
-    print(f"[build] nvcc sm_90a, 3 libraries in {time.time() - t0:.1f} s",
-          flush=True)
+    logs = cuda_build.build_all(LIBRARIES)
+    print(f"[build] nvcc sm_90a, {len(LIBRARIES)} libraries in "
+          f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         spilled = _ptxas_report("build", name, log)
         if name == NO_SPILL[0]:
@@ -813,34 +860,23 @@ def phase_mid_kernel_f64(gen):
 # parent/ (listed in .gitignore),
 #   mkdir -p parent && git archive <commit> hlax_torch/csrc | tar -xC parent
 # and [kernels] builds its chol_inv_mid.cu into build/parent and times it
-# against the current kernel at PARENT_ROWS.  The parent's C entry and plan
-# are those before the float64 redesign (L^-1 in a device workspace above
-# np = 112, 512 threads; `_parent_plan`).  Without parent/ the phase says
-# so and moves on.
+# against the current kernel at PARENT_ROWS, through the current C entry
+# and launch plan (those since the float64 redesign).  Without parent/ the
+# phase says so and moves on.
 PARENT_CSRC = os.path.join(ROOT, "parent", "hlax_torch", "csrc")
 PARENT_ROWS = [((64,), 120, torch.float64), ((32,), 120, torch.float64),
                ((32, 256), 32, torch.float64), ((64,), 120, torch.float32),
                ((32,), 120, torch.float32), ((32, 256), 32, torch.float32)]
 
 
-def _parent_plan(n: int, batch: int, itemsize: int):
-    """The parent's launch plan: (path, grid, threads, panel, smem,
-    workspace bytes)."""
-    if n <= 32:
-        return 0, -(-batch // 4), 128, 0, 4 * 32 * 33 * itemsize, 0
-    np_ = -(-n // 8) * 8
-    tile, panel = itemsize * np_ * np_, itemsize * 8 * (np_ + 8)
-    fits = 2 * tile + panel <= 232_448
-    return (1, batch, 512, 8, (2 if fits else 1) * tile + panel,
-            0 if fits else batch * tile)
-
-
 def phase_mid_parent(gen) -> None:
     """The parent's mid kernel against the current one at PARENT_ROWS, on
     one SPD input a row: float32 results equal bit for bit, float64 both
     within the residual bars of ``phase_mid_kernel_f64``; device times in
-    turns, parent, change, change, parent.  Each parent call allocates its
-    workspace, as the parent's wrapper did."""
+    turns, parent, change, change, parent.  The parent's kernel is called
+    through the current C entry on the current launch plan
+    (``mid_launch_plan``), the interface since the float64 redesign; a
+    parent from before it needs its own."""
     import ctypes
 
     from hlax_torch.ops import cuda_build
@@ -865,26 +901,24 @@ def phase_mid_parent(gen) -> None:
     _ptxas_report("kernels", "parent's chol_inv_mid", res.stdout + res.stderr)
     fn = ctypes.CDLL(out).chol_inv_mid_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p] * 2
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def parent(a):
         n = a.shape[-1]
         batch = a.numel() // (n * n)
-        *plan, work = _parent_plan(n, batch, a.element_size())
+        plan = ls.mid_launch_plan(n, batch, a.element_size())
         l, il = torch.empty_like(a), torch.empty_like(a)
-        ws = torch.empty(work // a.element_size(), dtype=a.dtype,
-                         device=a.device) if work else None
         code = fn(a.data_ptr(), l.data_ptr(), il.data_ptr(), batch, n,
-                  a.element_size(), *plan,
-                  ws.data_ptr() if ws is not None else None,
+                  a.element_size(), {"warp": 0, "blocked": 1}[plan.path],
+                  plan.grid, plan.threads, plan.panel, plan.smem,
                   torch.cuda.current_stream().cuda_stream)
         if code:
             fail(f"[kernels] the parent's chol_inv_mid_launch: CUDA error "
                  f"{code}")
         return l, il
 
-    before = ls.counts_snapshot()
+    before = ls._COUNTERS.snapshot()
     for batch, n, dtype in PARENT_ROWS:
         tag = f"{_tag('chol_inv_mid_cuda', batch, n)} " \
               f"{str(dtype).removeprefix('torch.')}"
@@ -916,7 +950,7 @@ def phase_mid_parent(gen) -> None:
               f"{ms['change'][1]:.5f}, parent {ms['parent'][1]:.5f} ms "
               f"(parent / change {sum(ms['parent']) / sum(ms['change']):.2f}x)"
               f"; {note}; on {card_line()}", flush=True)
-    ls.take_counts_since(before)
+    ls._COUNTERS.take_since(before)
 
 
 def phase_bwd_kernel_f64(gen):
@@ -1074,7 +1108,6 @@ def phase_slice(tmp: str):
     from hlax_torch.cli import main as cli
     from hlax_torch.config import ModelArgs
     from hlax_torch.eval.validate import VALIDATION_ROWS
-    from hlax_torch.ops import linalg_small as ls
 
     data_dir = os.path.join(tmp, "data")
     write_canonical_data(data_dir)
@@ -1090,12 +1123,10 @@ def phase_slice(tmp: str):
             and opt["run_tests"]):
         fail("[slice] the canonical config no longer asks for images, "
              "validation and tests")
-    ls.reset_counters()
+    reset_all_counters()
     out = cli.run(opt)
     torch.cuda.synchronize()
-    launches = dict(ls.LAUNCHES)
-    by_shape = dict(ls.LAUNCHES_BY_SHAPE)
-    plain = dict(ls.PLAIN_CUDA_CALLS)
+    launches, by_shape, plain = read_all_counters()
     losses = out["loss_arrs"]["net"]
     steps = out["steps"]
     print(f"[slice] losses per epoch {losses}; launches {launches}; plain "
@@ -1112,7 +1143,11 @@ def phase_slice(tmp: str):
     if eval_mid <= 0:
         fail("the mid Cholesky kernel was not launched in validation/tests")
     if any(plain.values()):
-        fail("a plain Cholesky version ran on CUDA tensors on the main path")
+        fail("a plain Cholesky version or a fused op's plain version ran on "
+             "CUDA tensors on the main path")
+    for name in FUSED_KERNELS:
+        if launches[name] < steps:
+            fail(f"{name} launched {launches[name]} times in {steps} steps")
     results = out["results_path"]
     with open(os.path.join(results, "validation_results.csv")) as f:
         rows = [line.rstrip("\n").split(",") for line in f]
@@ -1325,12 +1360,90 @@ def phase_profile(out, n_steps: int = 10) -> None:
                                                                 idx)), 5)
 
 
+def _region_of(e, seq_region) -> str:
+    """The train-step region (``hlax_torch.profiling.REGIONS``) of a profiled
+    host event: its innermost enclosing range; in the backward pass, the
+    forward region of the operation the autograd node differentiates
+    (``seq_region``: autograd sequence number -> forward region), else
+    "other"."""
+    from hlax_torch.profiling import REGIONS
+
+    a = e
+    while a is not None:
+        if a.name in REGIONS:
+            return a.name
+        if a.name.startswith("autograd::engine::evaluate_function"):
+            r = seq_region.get(a.sequence_nr)
+            return f"backward of {r}" if r else "backward"
+        a = a.cpu_parent
+    return "other"
+
+
+def region_table(prof) -> dict:
+    """{kernel name: {region: [launches, device us]}} of a profile of eager
+    steps: each kernel goes to the region of the host operation that
+    launched it (``_region_of``); {} for a tree without the regions (an
+    earlier commit's, ``rate`` mode)."""
+    try:
+        from hlax_torch.profiling import REGIONS
+    except ImportError:
+        return {}
+
+    events = prof.events()
+    seq_region = {}
+    for e in events:
+        if e.sequence_nr is None or e.sequence_nr < 0:
+            continue
+        a = e.cpu_parent
+        while a is not None and a.name not in REGIONS:
+            a = a.cpu_parent
+        if a is not None and a.name not in ("backward", "adam"):
+            seq_region.setdefault(e.sequence_nr, a.name)
+    table = {}
+    for e in events:
+        for k in getattr(e, "kernels", ()):
+            r = table.setdefault(k.name, {}).setdefault(
+                _region_of(e, seq_region), [0, 0.0])
+            r[0] += 1
+            r[1] += k.duration
+    return table
+
+
+def _print_regions(tag: str, by_name: dict, steps: int, table: dict,
+                   how: str) -> dict:
+    """Kernels and device ms a step by region for the kernels ``by_name``
+    ({name: [launches, us]}), each kernel name's launches and time split
+    over the regions as ``table`` (``region_table``) splits them."""
+    regions, busy = {}, sum(t for _, t in by_name.values())
+    for name, (n, t) in by_name.items():
+        split = table.get(name)
+        if not split:
+            split = {"unattributed": [n, t]}
+        tot_n = sum(v[0] for v in split.values())
+        tot_t = sum(v[1] for v in split.values()) or 1.0
+        for r, (rn, rt) in split.items():
+            acc = regions.setdefault(r, [0.0, 0.0])
+            acc[0] += n * rn / tot_n
+            acc[1] += t * rt / tot_t
+    print(f"[{tag}] by source region ({how}): kernels a step, device ms a "
+          "step, share", flush=True)
+    for r, (n, t) in sorted(regions.items(), key=lambda kv: -kv[1][1]):
+        print(f"[{tag}]   {r:34s} {n / steps:7.1f} {t / steps / 1e3:8.4f} "
+              f"{t / busy:6.1%}", flush=True)
+    return {r: (n / steps, t / steps / 1e3) for r, (n, t) in regions.items()}
+
+
 def _profile_steps(tag: str, run, steps: int, calls: int = 5,
-                   focus: str = "") -> None:
+                   focus: str = "", table: dict = None, top: int = 15):
     """``run`` ``calls`` times (``steps`` train steps in all) under
-    torch.profiler: wall and device-busy ms a step, the device's idle share
-    of the wall time, and the kernels that take the most device time; then
-    every kernel whose name holds ``focus``, if given."""
+    torch.profiler: wall and device-busy ms a step, kernels a step, the
+    device's idle share of the wall time, and the kernels that take the most
+    device time (full names); then every kernel whose name holds ``focus``,
+    if given; then kernels and device ms a step by source region: from this
+    profile's own host events when ``table`` is None (eager steps), else
+    split by kernel name as ``table`` (an eager profile's ``region_table``)
+    splits them (graph replays launch no host operations).  Returns
+    (summary dict, this profile's region table)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1346,46 +1459,82 @@ def _profile_steps(tag: str, run, steps: int, calls: int = 5,
         # step range) span kernels already counted
         if str(e.device_type).endswith("CUDA") and not getattr(
                 e, "is_user_annotation", False):
-            t = e.time_range.elapsed_us()
-            by_name[e.name] = by_name.get(e.name, 0.0) + t
-    busy = sum(by_name.values())
+            acc = by_name.setdefault(e.name, [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.time_range.elapsed_us()
+    busy = sum(t for _, t in by_name.values())
     if not busy:
         print(f"[{tag}] the profiler recorded no device time: device busy "
               "and idle share not measured", flush=True)
-        return
+        return None, {}
+    n_kernels = sum(n for n, _ in by_name.values())
     print(f"[{tag}] {steps} steps under the profiler: wall "
           f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
-          f"{busy / steps / 1e3:.3f} ms/step, idle share "
-          f"{1 - busy / wall_us:.3f} on {card_line()}", flush=True)
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"[{tag}] {t / steps / 1e3:8.4f} ms/step {t / busy:6.1%}  "
-              f"{name[:90]}", flush=True)
-    for name, t in sorted(by_name.items()):
+          f"{busy / steps / 1e3:.3f} ms/step, {n_kernels / steps:.1f} "
+          f"kernels/step, idle share {1 - busy / wall_us:.3f} on "
+          f"{card_line()}", flush=True)
+    for name, (n, t) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][1])[:top]:
+        print(f"[{tag}] {t / steps / 1e3:8.4f} ms/step {t / busy:6.1%} "
+              f"{n / steps:5.1f}/step  {name}", flush=True)
+    for name, (_, t) in sorted(by_name.items()):
         if focus and focus in name:
             print(f"[{tag}] {focus}: {t / steps / 1e3:.5f} ms/step, "
-                  f"{t / busy:.2%} of the device time: {name[:90]}",
-                  flush=True)
+                  f"{t / busy:.2%} of the device time: {name}", flush=True)
+    own = region_table(prof)
+    regions = None
+    # graph replays launch no host operations: a profile of them alone
+    # reads its regions from an eager profile's table, or prints none
+    own_us = sum(t for r in own.values() for _, t in r.values())
+    if table or own_us >= 0.5 * busy:
+        regions = _print_regions(
+            tag, by_name, steps, own if table is None else table,
+            "this profile's host events" if table is None else
+            "each kernel name split as in the eager steps' profile")
+    return {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
+            "kernels": n_kernels / steps, "idle": 1 - busy / wall_us,
+            "regions": regions}, own
+
+
+def reset_all_counters() -> None:
+    """The launch counters of every kernel module set to 0."""
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops import linalg_small as ls
+
+    ls.reset_counters()
+    fusion.reset_counters()
+
+
+def read_all_counters():
+    """(launches, launches by shape, plain-version calls on CUDA tensors)
+    of every kernel module, each one dict."""
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops import linalg_small as ls
+
+    return ({**ls.LAUNCHES, **fusion.LAUNCHES},
+            {**ls.LAUNCHES_BY_SHAPE, **fusion.LAUNCHES_BY_SHAPE},
+            {**ls.PLAIN_CUDA_CALLS, **fusion.PLAIN_CUDA_CALLS})
 
 
 def _run_cli(opt: dict, log: str):
     """The training CLI on ``opt`` with its console output kept in ``log``
-    (the option dump and the per-epoch lines); the launch counters set to 0
-    just before and read just after.  Returns (out, launches, by_shape,
+    (the option dump and the per-epoch lines); every launch counter set to
+    0 just before and read just after.  Returns (out, launches, by_shape,
     plain-version calls)."""
     from hlax_torch.cli import main as cli
-    from hlax_torch.ops import linalg_small as ls
 
-    ls.reset_counters()
+    reset_all_counters()
     with open(log, "w") as f, contextlib.redirect_stdout(f):
         out = cli.run(opt)
     torch.cuda.synchronize()
-    return (out, dict(ls.LAUNCHES), dict(ls.LAUNCHES_BY_SHAPE),
-            dict(ls.PLAIN_CUDA_CALLS))
+    return (out, *read_all_counters())
 
 
-def _check_run(tag: str, out, steps: int, plain, validation: bool = True):
+def _check_run(tag: str, out, steps: int, plain, validation: bool = True,
+               allowed=frozenset()):
     """A CLI run's common checks: the steps it took, finite losses, no
-    plain version on the card, and 10 finite validation rows."""
+    plain version on the card but those ``allowed``, and 10 finite
+    validation rows."""
     from hlax_torch.eval.validate import VALIDATION_ROWS
 
     losses = out["loss_arrs"]["net"]
@@ -1393,8 +1542,9 @@ def _check_run(tag: str, out, steps: int, plain, validation: bool = True):
         fail(f"[{tag}] expected {steps} train steps, ran {out['steps']}")
     if not all(map(np.isfinite, losses)):
         fail(f"[{tag}] non-finite loss {losses}")
-    if any(plain.values()):
-        fail(f"[{tag}] a plain Cholesky version ran on CUDA tensors: {plain}")
+    ran = {k: v for k, v in plain.items() if v and k not in allowed}
+    if ran:
+        fail(f"[{tag}] a plain version ran on CUDA tensors: {ran}")
     if validation:
         with open(os.path.join(out["results_path"],
                                "validation_results.csv")) as f:
@@ -1534,13 +1684,14 @@ def long_t_dataset(T: int, P: int, seed: int = 0):
                                conv=True)
 
 
-def phase_long_t():
+def phase_long_t(tmp: str):
     """T = 200 and T = 500 at L = 32, M = 120, conv, float32: a warm-up
     step and 5 timed steps, whose B blocks [32, S, T, T] go through the
     blocked composition (2 x 100 and 4 x 125 on the mid kernel), then the
     DUBO and the predictor over the whole set (the n = 256 and 512 buckets,
-    diagonal blocks of 128).  Returns the launches by (kernel, shape,
-    dtype)."""
+    diagonal blocks of 128); then at T = 200 the graph steps against the
+    eager steps and both steps/s (``_graph_beside_eager``).  Returns the
+    launches by (kernel, shape, dtype)."""
     from hlax_torch.data.dataset import (epoch_subject_batches, gather_batch,
                                          stage_dataset, subject_batches)
     from hlax_torch.eval import validate as val
@@ -1571,7 +1722,7 @@ def phase_long_t():
         batches = [torch.as_tensor(b, device="cuda") for b in
                    epoch_subject_batches(P, S, np.random.default_rng(0))][:6]
         torch.cuda.reset_peak_memory_stats()
-        ls.reset_counters()
+        reset_all_counters()
         losses = [step(state, gather_batch(staged, batches[0]))["loss"]]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1592,8 +1743,7 @@ def phase_long_t():
                                    ds.labels, ds.labels[:, 2])
         pred_s = time.perf_counter() - t0
         torch.cuda.synchronize()
-        by_shape = dict(ls.LAUNCHES_BY_SHAPE)
-        plain = dict(ls.PLAIN_CUDA_CALLS)
+        _, by_shape, plain = read_all_counters()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         sizes = ls._block_sizes(T)
         nb, sb = 1 << (T - 1).bit_length(), 1 << (P - 1).bit_length()
@@ -1604,7 +1754,7 @@ def phase_long_t():
             fail(f"[{tag}] predictor gave {z.shape}, finite "
                  f"{np.isfinite(z).all()}")
         if any(plain.values()):
-            fail(f"[{tag}] a plain Cholesky version ran on the card: {plain}")
+            fail(f"[{tag}] a plain version ran on the card: {plain}")
         _need(tag, by_shape, {
             ("chol_inv_mid_cuda", (32, S, sizes[0], sizes[0]), "float32"):
                 6 * len(sizes),
@@ -1622,15 +1772,64 @@ def phase_long_t():
               f"{_by_shape_str(by_shape)} on {card_line()}", flush=True)
         del model, state, staged, step
         torch.cuda.empty_cache()
+    T, P, S = LONG_T[0]
+    _graph_beside_eager(f"longT T={T}", long_t_dataset(T, P), spec0, spec1,
+                        S, True, 5, tmp)
     return counts
+
+
+def _graph_beside_eager(tag, ds, spec0, spec1, subjects, conv, n_batches,
+                        tmp) -> None:
+    """The first ``n_batches`` batches of ``subjects`` (L = 32, M = 120,
+    the conv or the MLP model) through ``make_train_epoch``'s graphs against
+    the same steps run eagerly, in float64 with cuDNN's deterministic
+    algorithms and the noise injected, at [graph]'s bound
+    (``_graph_check``); then float32 steps/s of the eager path and the
+    graph path in 2 alternating rounds."""
+    from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
+    from hlax_torch.train import step as tstep
+
+    idx = np.stack(list(epoch_subject_batches(
+        ds.P, subjects, np.random.default_rng(0))))[:n_batches]
+    staged = stage_dataset(ds, torch.float64, "cuda")
+    eps = torch.randn((len(idx), subjects * ds.T_max, 32),
+                      dtype=torch.float64, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    with cudnn_deterministic():
+        _graph_check(f"{tag} float64", ds, spec0, spec1, torch.float64,
+                     staged, idx, eps, 1, tmp, subjects=subjects, conv=conv)
+    del staged, eps
+    torch.cuda.empty_cache()
+    staged = stage_dataset(ds, torch.float32, "cuda")
+    kw = dict(subjects=subjects, conv=conv)
+    a, cfg = canonical_state(ds, spec0, spec1, torch.float32, **kw)
+    b, _ = canonical_state(ds, spec0, spec1, torch.float32, **kw)
+    step = tstep.make_train_step(a.vae, spec0, spec1, cfg)
+    epoch = tstep.make_train_epoch(b.vae, spec0, spec1, cfg)
+    runs = {"eager": lambda: tstep.train_epoch(step, a, staged, idx),
+            "graph": lambda: epoch(b, staged, idx)}
+    for run in runs.values():
+        run()
+    rates = {name: [] for name in runs}
+    for _ in range(2):
+        for name, run in runs.items():
+            rates[name].append(_time_epochs(run, 1, steps=len(idx)))
+    print(f"[{tag.split()[0]}] {tag}: steps/s eager "
+          f"{', '.join(f'{x:.2f}' for x in rates['eager'])}, graph "
+          f"{', '.join(f'{x:.2f}' for x in rates['graph'])} (2 alternating "
+          f"rounds of {len(idx)} steps, float32, {subjects} subjects a "
+          f"step) on {card_line()}", flush=True)
+    del a, b, step, epoch, staged
+    torch.cuda.empty_cache()
 
 
 def phase_mlp(data_dir: str, tmp: str):
     """The MLP model (--conv_hivae=False, hidden [500], y_dim 5) on the
     canonical data: 3 epochs (the fewest after which the CLI writes the
     checkpoint the imputation CLI reads), the final validation, the test
-    battery, then imputation in encoder and GP mode.  Returns the training
-    run's launches by (kernel, shape, dtype)."""
+    battery, then imputation in encoder and GP mode; then its graph steps
+    against its eager steps and both steps/s (``_graph_beside_eager``).
+    Returns the training run's launches by (kernel, shape, dtype)."""
     from hlax_torch.config import ModelArgs
 
     save = os.path.join(tmp, "run_mlp")
@@ -1647,10 +1846,15 @@ def phase_mlp(data_dir: str, tmp: str):
     with open(os.path.join(out["results_path"],
                            "result_error_final.csv")) as f:
         err = f.read().split()
+    rows_mlp = (400, CANONICAL_N_EXP)
     _need("mlp", by_shape, {
         ("chol_inv_small_cuda", (32, 20, 20, 20), "float32"): 30,
         ("chol_inv_bwd_cuda", (32, 20, 20, 20), "float32"): 30,
-        ("chol_inv_mid_cuda", (64, 120, 120), "float32"): 30})
+        ("chol_inv_mid_cuda", (64, 120, 120), "float32"): 30,
+        ("heads_cat_fwd_cuda", (400, 1296, 5), "float32"): 30,
+        ("heads_real_bwd_cuda", (400, 1296, 5), "float32"): 30,
+        ("recon_metric_cuda", rows_mlp, "float32"): 60,
+        ("recon_metric_finish_cuda", rows_mlp, "float32"): 30})
     ep, ev = out["epoch_seconds"], out["eval_seconds"]
     sps = _steps_per_s(out, 20)
     print(f"[mlp] losses per epoch {out['loss_arrs']['net']}; validation "
@@ -1661,6 +1865,9 @@ def phase_mlp(data_dir: str, tmp: str):
           f"{ev['tests']:.3f} s on {card_line()}", flush=True)
     del out
     phase_impute(data_dir, save, tag="mlp")
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    _graph_beside_eager("mlp", ds, spec0, spec1, 20, False, GRAPH_STEPS,
+                        tmp)
     return by_shape
 
 
@@ -1691,10 +1898,14 @@ def canonical_setup(data_dir: str):
     return ds, spec0, spec1
 
 
-def canonical_state(ds, spec0, spec1, dtype, seed: int = 0):
+def canonical_state(ds, spec0, spec1, dtype, seed: int = 0,
+                    subjects: int = 20, conv: bool = True, **cfg_kw):
     """The canonical model and train state (conv, hidden [500], L = 32,
     M = 120, natural gradients, constrained scales) in ``dtype`` (model and
-    GP), made on the card from ``seed`` as the CLI makes it."""
+    GP), made on the card from ``seed`` as the CLI makes it, the inducing
+    points from a first batch of ``subjects``; ``conv=False`` the MLP
+    model; ``cfg_kw`` sets more fields of the TrainConfig
+    (``use_pallas_chol``, ``nat_grad_f64``)."""
     from hlax_torch.data.dataset import subject_batches
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
     from hlax_torch.train import step as tstep
@@ -1702,13 +1913,13 @@ def canonical_state(ds, spec0, spec1, dtype, seed: int = 0):
     cfg = tstep.TrainConfig(latent_dim=32, M=120, P_tot=float(ds.P),
                             N_tot=float(len(ds)), id_covariate=2,
                             natural_gradient=True, constrain_scales=True,
-                            gp_dtype=dtype)
+                            gp_dtype=dtype, **cfg_kw)
     model = HLVAE(HLVAEConfig(layout=ds.layout, z_dim=32, h_dims=(500,),
-                              y_dim=5, conv=True),
+                              y_dim=5, conv=conv),
                   torch.Generator(device="cuda").manual_seed(seed),
                   "cuda").to(dtype)
     return tstep.init_train_state(model, spec0, spec1,
-                                  next(subject_batches(ds, 20)), cfg,
+                                  next(subject_batches(ds, subjects)), cfg,
                                   seed=seed), cfg
 
 
@@ -1756,42 +1967,42 @@ def cudnn_deterministic():
 
 
 def _graph_check(tag, ds, spec0, spec1, dtype, staged, idx, eps, unroll,
-                 tmp):
+                 tmp, **state_kw):
     """From two states made from one seed, GRAPH_STEPS eager steps and the
     same steps through ``make_train_epoch``'s graphs (``unroll`` steps a
     graph), with the noise ``eps`` injected or, where it is None, drawn
     from each state's generator; the results, the launch counts and (with
     the generator) the generators' states must agree.  With the generator,
     the graph state is then saved, restored into a third state, and both
-    take another epoch through graphs: they must agree too.  Returns the
-    eager state, the graph state and their TrainConfig."""
+    take another epoch through graphs: they must agree too.  ``state_kw``
+    goes to ``canonical_state``.  Returns the eager state, the graph state
+    and their TrainConfig."""
     from hlax_torch.data.dataset import gather_batch
-    from hlax_torch.ops import linalg_small as ls
     from hlax_torch.train import checkpoint as ckpt
     from hlax_torch.train import step as tstep
 
     bound = GRAPH_BOUND[dtype]
-    a, cfg = canonical_state(ds, spec0, spec1, dtype)
-    b, _ = canonical_state(ds, spec0, spec1, dtype)
+    a, cfg = canonical_state(ds, spec0, spec1, dtype, **state_kw)
+    b, _ = canonical_state(ds, spec0, spec1, dtype, **state_kw)
     if _state_diff(a, b, [1.0], [1.0])["vae"] or not torch.equal(a.H, b.H):
         fail(f"[graph] {tag}: two states made from one seed differ")
     step = tstep.make_train_step(a.vae, spec0, spec1, cfg)
     epoch = tstep.make_train_epoch(b.vae, spec0, spec1, cfg, unroll=unroll)
     idx_t = torch.as_tensor(idx, device="cuda")
-    ls.reset_counters()
+    reset_all_counters()
     eager = [step(a, gather_batch(staged, i),
                   eps=None if eps is None else eps[j])["loss"]
              for j, i in enumerate(idx_t)]
     eager = [x.item() for x in eager]
-    counts_eager = dict(ls.LAUNCHES_BY_SHAPE)
-    ls.reset_counters()
+    counts_eager = read_all_counters()[1]
+    reset_all_counters()
     graph = epoch(b, staged, idx, eps=eps)["loss"]
     torch.cuda.synchronize()
-    counts_graph = dict(ls.LAUNCHES_BY_SHAPE)
+    counts_graph = read_all_counters()[1]
     d = _state_diff(b, a, graph, eager)
     noise = "generator" if eps is None else "injected"
     print(f"[graph] {tag}, {noise} noise, unroll {unroll}: "
-          f"{GRAPH_STEPS} eager steps vs {GRAPH_STEPS} graph steps, max "
+          f"{len(idx)} eager steps vs {len(idx)} graph steps, max "
           f"relative difference: loss {d['loss']:.3e}, m {d['m']:.3e}, H "
           f"{d['H']:.3e}, VAE parameters {d['vae']:.3e} (bound {bound:g}); "
           f"losses {graph.tolist()}; steps {a.step} and {b.step}; launches "
@@ -1809,14 +2020,14 @@ def _graph_check(tag, ds, spec0, spec1, dtype, staged, idx, eps, unroll,
              "steps")
     path = os.path.join(tmp, f"graph_{tag}")
     ckpt.save(path, b)
-    c, _ = canonical_state(ds, spec0, spec1, dtype, seed=1)
+    c, _ = canonical_state(ds, spec0, spec1, dtype, seed=1, **state_kw)
     if not ckpt.restore(path, c):
         fail(f"[graph] {tag}: no checkpoint at {path}")
     epoch_c = tstep.make_train_epoch(c.vae, spec0, spec1, cfg, unroll=unroll)
     loss_b = epoch(b, staged, idx)["loss"]
     loss_c = epoch_c(c, staged, idx)["loss"]
     d = _state_diff(c, b, loss_c, loss_b)
-    print(f"[graph] {tag}: a restored checkpoint's next {GRAPH_STEPS} graph "
+    print(f"[graph] {tag}: a restored checkpoint's next {len(idx)} graph "
           f"steps against the saved state's: {d}", flush=True)
     if not max(d.values()) <= bound or not torch.equal(
             b.generator.get_state(), c.generator.get_state()):
@@ -1834,6 +2045,520 @@ def _time_epochs(run, epochs: int, steps: int = GRAPH_STEPS) -> float:
         run()
     torch.cuda.synchronize()
     return epochs * steps / (time.perf_counter() - t0)
+
+
+def phase_pallas_chol_false(data_dir: str, tmp: str) -> None:
+    """--use_pallas_chol=False on the graph path: the library's Cholesky
+    (``gp.elbo.library_chol_inv``) captured in the CUDA graphs.  In float64
+    the graph steps against the eager steps at [graph]'s bound, with the
+    noise injected; then one canonical float32 epoch through the graphs
+    with the noise from the generator: finite losses.  Neither may launch a
+    Cholesky kernel."""
+    from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
+    from hlax_torch.ops import linalg_small as ls
+    from hlax_torch.train import step as tstep
+
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    idx = np.stack(list(epoch_subject_batches(ds.P, 20,
+                                              np.random.default_rng(0))))
+    staged = stage_dataset(ds, torch.float64, "cuda")
+    eps = torch.randn((GRAPH_STEPS, 20 * ds.T_max, 32), dtype=torch.float64,
+                      device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    ls.reset_counters()
+    with cudnn_deterministic():
+        _graph_check("float64 use_pallas_chol=False", ds, spec0, spec1,
+                     torch.float64, staged, idx, eps, 1, tmp,
+                     use_pallas_chol=False)
+    st, cfg = canonical_state(ds, spec0, spec1, torch.float32,
+                              use_pallas_chol=False)
+    staged = stage_dataset(ds, torch.float32, "cuda")
+    epoch = tstep.make_train_epoch(st.vae, spec0, spec1, cfg)
+    losses = epoch(st, staged, idx)["loss"]
+    torch.cuda.synchronize()
+    print(f"[fusion] use_pallas_chol=False: a canonical float32 epoch on "
+          f"the graph path: losses {losses.tolist()}; Cholesky kernel "
+          f"launches {dict(ls.LAUNCHES)}", flush=True)
+    if not np.isfinite(losses).all():
+        fail(f"[fusion] use_pallas_chol=False: non-finite loss {losses}")
+    if any(ls.LAUNCHES.values()) or any(ls.PLAIN_CUDA_CALLS.values()):
+        fail(f"[fusion] use_pallas_chol=False launched a Cholesky kernel "
+             f"or its plain version: {ls.LAUNCHES} {ls.PLAIN_CUDA_CALLS}")
+
+
+# [fusion]: a float64 kernel's results against its plain version's,
+# relative to the largest entry (two summation orders in double); a float32
+# kernel's error against the plain version in float64 on the same inputs
+# at most 4x the float32 plain version's own, plus 1e-6 of the largest entry
+FUSION_F64_REL = 1e-10
+FUSION_F32_FACTOR, FUSION_F32_ABS = 4.0, 1e-6
+# the hlax function each fused kernel stands for
+FUSION_REPLACES = {
+    "heads_cat": "hlax/ops/likelihoods.py:122 loglik_cat with "
+                 "hlax/models/hlvae.py:327-375 _head, theta_estimation "
+                 "(XLA fusion)",
+    "heads_real": "hlax/ops/likelihoods.py:47 loglik_real with "
+                  "hlax/models/hlvae.py:327-375 _head, theta_estimation "
+                  "(XLA fusion)",
+    "rep_image": "hlax/models/hlvae.py:251 encode with "
+                 "hlax/ops/normalization.py:41 batch_normalization "
+                 "(XLA fusion)",
+    "recon_metric": "hlax/train/step.py:210 recon_metric (XLA fusion)",
+    "gp_kernel": "hlax/gp/kernels.py:152 kernel_matrix (XLA fusion)",
+}
+# operations an element (a variable of a row, an entry of a kernel
+# matrix) of each kernel, counted from its source: multiply-adds as two,
+# exp, log and divisions as one
+FUSION_OPS = {"heads_cat_fwd": 70, "heads_cat_bwd": 175,
+              "heads_real_fwd": 30, "heads_real_bwd": 50,
+              "rep_image_fwd": 8, "rep_image_bwd": 12, "recon_metric": 20,
+              "recon_metric_finish": 10,
+              "gp_kernel_fwd": 40, "gp_kernel_bwd": 100}
+
+
+def _fusion_case(ds, spec0, spec1, dtype):
+    """The canonical state in ``dtype``, its first batch of 20 subjects and
+    the decoder features of the batch's encoder means; the same of an MLP
+    model, with the batch's moments."""
+    from hlax_torch.data.dataset import gather_batch, stage_dataset
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.ops.normalization import batch_normalization
+
+    st, _ = canonical_state(ds, spec0, spec1, dtype)
+    staged = stage_dataset(ds, dtype, "cuda")
+    batch = gather_batch(staged, torch.arange(20, device="cuda"))
+    # the MLP model ([mlp]'s, hidden [500]) on the same batch, and the
+    # batch normalization's moments its real head de-normalizes by
+    mlp = HLVAE(HLVAEConfig(layout=ds.layout, z_dim=32, h_dims=(500,),
+                            y_dim=5, conv=False),
+                torch.Generator(device="cuda").manual_seed(1),
+                "cuda").to(dtype)
+    with torch.no_grad():
+        mu, _ = st.vae.encode(batch["data"], batch["mask"])
+        y = st.vae.decode_y(mu)
+        y_mlp = mlp.decode_y(mlp.encode(batch["data"], batch["mask"])[0])
+    _, norm = batch_normalization(batch["data"], batch["mask"], ds.layout,
+                                  False)
+    return dict(vae=st.vae, k0=st.k0, k1=st.k1, zt=st.zt, batch=batch, y=y,
+                specs=(spec0, spec1), mlp=mlp, y_mlp=y_mlp,
+                norm_mlp=norm)
+
+
+def _case_in_float64(c):
+    import copy
+
+    d = lambda t: None if t is None else t.detach().double()
+    return dict(vae=copy.deepcopy(c["vae"]).double(),
+                k0=[{k: d(v) for k, v in p.items()} for p in c["k0"]],
+                k1=[{k: d(v) for k, v in p.items()} for p in c["k1"]],
+                zt=d(c["zt"]), y=d(c["y"]),
+                batch={k: d(v) for k, v in c["batch"].items()},
+                specs=c["specs"], mlp=copy.deepcopy(c["mlp"]).double(),
+                y_mlp=d(c["y_mlp"]),
+                norm_mlp=type(c["norm_mlp"])(*map(d, c["norm_mlp"])))
+
+
+def _cotangent(shape, dtype):
+    return torch.randn(shape, generator=torch.Generator("cuda").manual_seed(
+        9), device="cuda", dtype=torch.float64).to(dtype)
+
+
+def _op_heads(c, plain, grads=True, mlp=False):
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops.normalization import NormParams
+
+    m, b = c["mlp" if mlp else "vae"], c["batch"]
+    y = c["y_mlp" if mlp else "y"].detach().clone().requires_grad_(grads)
+    norm = c["norm_mlp"] if mlp else NormParams(None, None, None, None)
+    fn = fusion.heads_loglik_plain if plain else fusion.heads_loglik
+    with torch.set_grad_enabled(grads):
+        lp, lpm, par, theta = fn(m, y, b["theta_mask"], b["data"],
+                                 b["mask"], norm)
+        outs = [lp, lpm, theta] + [t for p in par for t in (
+            p if isinstance(p, tuple) else (p,))]
+        if not grads:
+            return outs, []
+        # the train step's cotangent: the row sums of the nll
+        return outs, list(torch.autograd.grad(
+            -lp.sum(dim=1).sum(),
+            [y] + list(m.obs.values()) + [m.log_vy_real]))
+
+
+def _op_rep(c, plain, grads=True):
+    from hlax_torch.ops import fusion
+
+    m, b = c["vae"], c["batch"]
+    fn = fusion.rep_image_plain if plain else fusion.rep_image
+    with torch.set_grad_enabled(grads):
+        img = fn(m, b["data"], b["mask"])
+        if not grads:
+            return [img], []
+        ps = list(m.rep_w.values()) + list(m.rep_b.values())
+        return [img], list(torch.autograd.grad(
+            (img * _cotangent(img.shape, img.dtype)).sum(), ps))
+
+
+class _OneRankSums:
+    """A mesh's sums (``MeshSums``) on a mesh of one rank: the recon
+    metric's mesh path, its column sums taken out between its passes."""
+
+    def subjects(self, x):
+        return x.clone()
+
+    def subjects_max(self, x):
+        return x.clone()
+
+
+def _op_recon(c, plain, grads=True, mlp=False, sums=None):
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops.normalization import NormParams
+
+    m, b = c["mlp" if mlp else "vae"], c["batch"]
+    lay = m.cfg.layout
+    key = "params_mlp" if mlp else "params"
+    if key not in c:
+        with torch.no_grad():
+            c[key] = fusion.heads_loglik_plain(
+                m, c["y_mlp" if mlp else "y"], b["theta_mask"], b["data"],
+                b["mask"], c["norm_mlp"] if mlp else
+                NormParams(None, None, None, None))[2]
+    kinds_raw = lay.var_kinds_grouped()[np.asarray(lay.raw_inv)]
+    last = list(dict.fromkeys(kinds_raw))[-1]
+    rv = b["valid"].reshape(-1).to(b["mask"].dtype)
+    fn = fusion.recon_metric_plain if plain else fusion.recon_metric
+    return list(fn(lay, not mlp, c[key], b["data"], b["mask"], rv, last,
+                   sums)), []
+
+
+def _op_gp(which):
+    def run(c, plain, grads=True):
+        from hlax_torch.ops import fusion
+
+        spec0, spec1 = c["specs"]
+        b = c["batch"]
+        valid = b["valid"]
+        S, T = valid.shape
+        x = b["labels"].reshape(S, T, -1)
+        spec, ps = (spec1, c["k1"]) if which == "K1_st" else (spec0, c["k0"])
+        ps = [{k: v.detach().clone().requires_grad_(grads)
+               for k, v in p.items()} for p in ps]
+        z = c["zt"].detach().clone().requires_grad_(grads)
+        fn = fusion.gp_kernel_matrix_plain if plain else \
+            fusion.gp_kernel_matrix
+        with torch.set_grad_enabled(grads):
+            if which == "K0xz":
+                out = fn(spec, ps, x, z, x2_batched=True, row_mask=valid)
+            elif which == "K0zz":
+                out = fn(spec, ps, z, z, x1_batched=True, x2_batched=True)
+            else:
+                out = fn(spec, ps, x, x, row_mask=valid, col_mask=valid)
+            if not grads:
+                return [out], []
+            leaves = [v for p in ps for v in p.values()]
+            inputs = leaves + ([z] if which in ("K0xz", "K0zz") else [])
+            return [out], list(torch.autograd.grad(
+                (out * _cotangent(out.shape, out.dtype)).sum(), inputs))
+    return run
+
+
+FUSION_OPS_RUN = {"heads": _op_heads, "rep_image": _op_rep,
+                  "recon_metric": _op_recon,
+                  **{f"gp {w}": _op_gp(w) for w in
+                     ("K0xz", "K0zz", "K1_st", "K0_st")}}
+# the same kernels on the other main paths' inputs, held to their plain
+# versions but not timed again: the MLP's heads (the real head
+# de-normalized by the batch's moments) and metric, and the metric's mesh
+# path (its column sums handed to the mesh between its passes)
+FUSION_OPS_HELD = {
+    "heads mlp": functools.partial(_op_heads, mlp=True),
+    "recon_metric mlp": functools.partial(_op_recon, mlp=True),
+    "recon_metric mesh": functools.partial(_op_recon, sums=_OneRankSums()),
+    "recon_metric mlp mesh": functools.partial(_op_recon, mlp=True,
+                                               sums=_OneRankSums())}
+
+
+def _fusion_error(tag, got, plain, ref):
+    """The largest error of the kernel's results ``got``: against the
+    plain version's in float64 (``ref`` None), else against ``ref``; fails
+    past the bars."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, plain)):
+        r = b if ref is None else ref[i]
+        scale = r.abs().max().item() or 1.0
+        err = (a.double() - r.double()).abs().max().item()
+        worst = max(worst, err)
+        if ref is None:
+            if not err <= FUSION_F64_REL * scale:
+                fail(f"[fusion] {tag} result {i}: float64 kernel differs "
+                     f"from its plain version by {err:.3e} (largest entry "
+                     f"{scale:.3e})")
+        else:
+            own = (b.double() - r.double()).abs().max().item()
+            if not err <= FUSION_F32_FACTOR * own + FUSION_F32_ABS * scale:
+                fail(f"[fusion] {tag} result {i}: float32 kernel's error "
+                     f"{err:.3e} against float64 exceeds 4x its plain "
+                     f"version's {own:.3e} + 1e-6 x {scale:.3e}")
+    return worst
+
+
+def _fusion_shape(entry, like, args):
+    """(elements, bytes) of one launch of a fused kernel, each input read
+    once and each output written once: the heads, the representation and
+    the metric by their group's columns (they take the full-width arrays;
+    d, Y and C from the group's weights or its column arguments), the
+    others by every array they are handed but their scratch (the GP
+    kernel matrix an element an entry, the metric's finish a column)."""
+    z = like.element_size()
+    # the nll's cotangent of lp: one value a row, broadcast over the columns
+    g_row = any(torch.is_tensor(a) and a.dim() == 2 and a.stride(1) == 0
+                for a in args)
+    B = like.shape[0]
+    if entry.startswith("heads_"):
+        d, Y, k = args[2].shape           # the group's head weights
+        cat = entry.startswith("heads_cat")
+        C = k + 1 if cat else 1
+        # y, the weights, the data, the mask (the real head: its log_vy)
+        n = B * d * Y + d * Y * k + d * k + B * d * C + B * d + (0 if cat
+                                                                 else d)
+        if entry.endswith("fwd"):   # lp, lpm, theta, log_pi or mean (, var)
+            n += 2 * B * d + (2 * B * d * C if cat else 2 * B * d + d)
+        else:   # the theta mask, the cotangent, dy and the weights' grads
+            n += (B * d * C + (B if g_row else B * d) + B * d * Y + d * Y * k
+                  + d * k + (0 if cat else d))
+        return B * d, n * z
+    if entry == "rep_image_fwd":      # data, mask, w, b, perm; the image
+        d, C = args[8], args[13]
+        return B * d, (B * d * max(C, 1) + 2 * B * d + d * C + d) * z + 8 * d
+    if entry == "rep_image_bwd":      # data, mask, perm, the image's grad
+        d, C = args[10], args[15]
+        return B * d, (B * d * C + 2 * B * d + d * C + d) * z + 8 * d
+    if entry == "recon_metric":       # data, mask, log_pi or mean, rows;
+        d, C = args[10], args[16]     # its columns' sums (double)
+        return B * d, (2 * B * d * max(C, 1) + B * d + B) * z + 40 * d
+    n = sum(a.numel() * a.element_size() for a in args
+            if torch.is_tensor(a) and not getattr(a, "_scratch", False))
+    return (like.numel() if entry.startswith("gp") else args[-1]), n
+
+
+def _time_fused(name, op, c, dtype, errs):
+    """Device times of every kernel ``op`` launches (forward and backward,
+    one call recorded, each launch timed alone, its counters put back;
+    a kernel launched once a group summed over its launches), of the op's
+    plain version (forward; forward and backward), and the table rows; the
+    launches the timing makes are not counted."""
+    from hlax_torch.ops import fusion
+
+    calls, orig = [], fusion._launch
+
+    def record(entry, like, *args):
+        calls.append((entry, like, args))
+        orig(entry, like, *args)
+
+    before = fusion._COUNTERS.snapshot()
+    fusion._launch = record
+    try:
+        op(c, False)
+    finally:
+        fusion._launch = orig
+    fwd_ms = time_ms(lambda: op(c, True, grads=False), reps=10)[0]
+    both_ms = time_ms(lambda: op(c, True), reps=10)[0]
+    rows, by_entry = [], {}
+    for entry, like, args in calls:
+        by_entry.setdefault((entry, tuple(like.shape)), []).append(
+            (like, args))
+    for (entry, shape), launches in by_entry.items():
+        ms = wall = elems = n = 0.0
+        for like, args in launches:
+            t, w = time_ms(lambda: orig(entry, like, *args))
+            e, b = _fusion_shape(entry, like, args)
+            ms, wall, elems, n = ms + t, wall + w, elems + e, n + b
+        nbytes = n
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = FUSION_OPS[entry] * elems / PEAK_FLOPS[dtype] * 1e3
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops else
+                     (t_ops, "operations"))
+        bwd = entry.endswith("bwd")
+        plain = max(both_ms - fwd_ms, 0.0) if bwd else fwd_ms
+        family = entry.rsplit("_", 1)[0] if entry[-3:] in ("fwd", "bwd") \
+            else "recon_metric" if entry.startswith("recon") else entry
+        rows.append(dict(
+            name=f"{entry}_cuda", shape=list(shape),
+            dtype=str(dtype).removeprefix("torch."), route="cuda",
+            source="hlax_torch/csrc/fusion.cu",
+            replaces=FUSION_REPLACES[family], launches=0,
+            max_abs_err=errs[1 if bwd else 0], ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=None))
+        print(f"[fusion] {entry} {list(shape)} {rows[-1]['dtype']} "
+              f"({name}, {len(launches)} launch(es)): kernel {ms:.4f} ms ({wall:.4f} ms a call on the host "
+              f"clock), the op's plain chain "
+              f"{'backward' if bwd else 'forward'} {plain:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB)", flush=True)
+    fusion._COUNTERS.take_since(before)
+    return rows
+
+
+def phase_fusion(data_dir: str, tmp: str):
+    """[fusion]: the fused step ops' kernels (hlax_torch.ops.fusion) at the
+    canonical shapes (400 rows of D4 data; the GP's [32, 20, 20, 120],
+    [32, 120, 120] and [32, 20, 20, 20] kernel matrices) in float32 and
+    float64, each op's results and gradients against its plain version
+    (FUSION_F64_REL, FUSION_F32_FACTOR), every kernel timed alone by CUDA
+    events beside the plain chain and its bound; then --use_pallas_chol=
+    False on the graph path (``phase_pallas_chol_false``).  Returns the
+    kernel table's rows."""
+    from hlax_torch.ops import fusion
+
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        c = _fusion_case(ds, spec0, spec1, dtype)
+        c64 = _case_in_float64(c) if dtype == torch.float32 else None
+        for name, op in {**FUSION_OPS_RUN, **FUSION_OPS_HELD}.items():
+            got, g_got = op(c, False)
+            plain, g_plain = op(c, True)
+            ref = g_ref = None
+            if c64 is not None:
+                ref, g_ref = op(c64, True)
+            tag = f"{name} {str(dtype).removeprefix('torch.')}"
+            errs = (_fusion_error(tag, got, plain, ref),
+                    _fusion_error(f"{tag} gradients", g_got, g_plain, g_ref))
+            print(f"[fusion] {tag}: largest error of the kernels' results "
+                  f"{errs[0]:.3e}, of their gradients {errs[1]:.3e} "
+                  f"(against {'float64' if ref is not None else 'the plain version'})",
+                  flush=True)
+            if name in FUSION_OPS_RUN:
+                rows += _time_fused(name, op, c, dtype, errs)
+        del c, c64
+        torch.cuda.empty_cache()
+    phase_pallas_chol_false(data_dir, tmp)
+    return rows
+
+
+# the configurations the parent comparison times on the graph path:
+# (name, dtype of the model and GP, TrainConfig fields)
+RATE_CONFIGS = [("float32", torch.float32, {}),
+                ("float64", torch.float64, {}),
+                ("nat_grad_f64", torch.float32, {"nat_grad_f64": True})]
+PARENT_ROOT = os.path.join(ROOT, "parent")
+
+
+def rate_run(tree: str, data_dir: str, what: str = "rate") -> None:
+    """``python3 chip_smoke.py rate <tree> <data_dir> [full]``: the train
+    step of the tree at ``tree`` (this one, or an earlier commit's unpacked
+    under parent/) on the canonical config for each of RATE_CONFIGS,
+    through ``make_train_epoch``'s graphs (unroll 1): steps/s of 2 rounds
+    of 3 epochs after 2 warm-up epochs, then device ms, kernels a step and
+    the idle share under the profiler; one JSON line.  With ``full``:
+    [full]'s 300 canonical epochs through that tree's CLI, the final
+    training net loss and the last validation's."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import hlax_torch
+    from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
+    from hlax_torch.train import step as tstep
+
+    if not hlax_torch.__file__.startswith(os.path.abspath(tree)):
+        fail(f"[rate] imported {hlax_torch.__file__}, not {tree}'s")
+    if what == "full":
+        from hlax_torch.cli import main as cli
+        from hlax_torch.config import ModelArgs
+
+        opt = ModelArgs().parse_options([f"--f={CONFIG}"])
+        with tempfile.TemporaryDirectory() as tmp:
+            opt.update(data_source_path=data_dir, save_path=tmp,
+                       epochs=FULL_EPOCHS, run_validation=True,
+                       run_tests=False, generate_images=False,
+                       device="cuda", epochs_per_dispatch=5, scan_unroll=10)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = cli.run(opt)
+            seconds = time.perf_counter() - t0
+        print("FULL " + json.dumps({
+            "final": float(out["loss_arrs"]["net"][-1]),
+            "validation": float(out["last_validation"]["net_loss"]),
+            "seconds": seconds}), flush=True)
+        return
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    idx = np.stack(list(epoch_subject_batches(ds.P, 20,
+                                              np.random.default_rng(0))))
+    out = {}
+    for name, dtype, kw in RATE_CONFIGS:
+        st, cfg = canonical_state(ds, spec0, spec1, dtype, **kw)
+        staged = stage_dataset(ds, dtype, "cuda")
+        epoch = tstep.make_train_epoch(st.vae, spec0, spec1, cfg)
+
+        def run():
+            epoch(st, staged, idx)
+        run()
+        run()
+        rates = [_time_epochs(run, 3) for _ in range(2)]
+        prof, _ = _profile_steps(f"rate {name}", run, 3 * GRAPH_STEPS,
+                                 calls=3, top=0)
+        if not torch.isfinite(st.m).all():
+            fail(f"[rate] {name}: m is not finite")
+        out[name] = {"steps_per_s": rates, **{k: prof[k] for k in (
+            "busy_ms", "kernels", "idle")}}
+        del st, staged, epoch
+        torch.cuda.empty_cache()
+    print("RATE " + json.dumps(out), flush=True)
+
+
+def phase_parent(data_dir: str) -> None:
+    """The parent commit's tree (unpacked under parent/, git-ignored)
+    against this one on the graph path, each in processes of its own
+    (``rate_run``), in turns: parent, change, change, parent.  Prints each
+    configuration's steps/s, device ms and kernels a step of both trees,
+    then, in turns again, each tree's [full] final net loss (the spread of
+    the float32 trajectory over 3000 steps); prints that it did not run
+    without parent/."""
+    if not os.path.isfile(os.path.join(PARENT_ROOT, "hlax_torch",
+                                       "__init__.py")):
+        print("[parent] no parent/ tree: the comparison did not run",
+              flush=True)
+        return
+    runs = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        tree = PARENT_ROOT if who == "parent" else ROOT
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "rate", tree,
+             data_dir], capture_output=True, text=True, timeout=600)
+        line = [x for x in proc.stdout.splitlines()
+                if x.startswith("RATE ")]
+        if proc.returncode != 0 or not line:
+            fail(f"[parent] {who}'s rate run failed ({proc.returncode}): "
+                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        runs[who].append(json.loads(line[0][5:]))
+    fulls = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        tree = PARENT_ROOT if who == "parent" else ROOT
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "rate", tree,
+             data_dir, "full"], capture_output=True, text=True, timeout=600)
+        line = [x for x in proc.stdout.splitlines()
+                if x.startswith("FULL ")]
+        if proc.returncode != 0 or not line:
+            fail(f"[parent] {who}'s full run failed ({proc.returncode}): "
+                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        fulls[who].append(json.loads(line[0][5:]))
+    for who, r in fulls.items():
+        print(f"[parent] {who}: {FULL_EPOCHS} canonical epochs through the "
+              f"CLI, final net loss "
+              f"{', '.join(f'{x['final']:.6g}' for x in r)}; last "
+              f"validation net_loss "
+              f"{', '.join(f'{x['validation']:.6g}' for x in r)}; "
+              f"{', '.join(f'{x['seconds']:.1f}' for x in r)} s (turns "
+              f"parent, change, change, parent) on {card_line()}",
+              flush=True)
+    for name, *_ in RATE_CONFIGS:
+        for who in ("parent", "change"):
+            r = [x[name] for x in runs[who]]
+            print(f"[parent] {name} {who}: graph steps/s "
+                  f"{', '.join(f'{v:.2f}' for x in r for v in x['steps_per_s'])}"
+                  f"; device busy {', '.join(f'{x['busy_ms']:.3f}' for x in r)}"
+                  f" ms/step; kernels/step "
+                  f"{', '.join(f'{x['kernels']:.1f}' for x in r)}; idle share "
+                  f"{', '.join(f'{x['idle']:.3f}' for x in r)} (processes "
+                  f"in turns parent, change, change, parent: {who}'s two, 2 "
+                  f"rounds of 3 epochs each) on {card_line()}", flush=True)
 
 
 def phase_graph(data_dir: str, tmp: str) -> None:
@@ -1888,12 +2613,19 @@ def phase_graph(data_dir: str, tmp: str) -> None:
         print(f"[graph] {name}: steps/s {', '.join(f'{x:.2f}' for x in r)} "
               f"(3 rounds of 3 epochs of {GRAPH_STEPS} steps, alternating) "
               f"on {card_line()}", flush=True)
+    _, table = _profile_steps("graph eager", paths["eager"],
+                              3 * GRAPH_STEPS, calls=3, top=40)
     for name in ("graph unroll 1", "graph unroll 10"):
-        _profile_steps(name, paths[name], 3 * GRAPH_STEPS, calls=3)
+        _profile_steps(name, paths[name], 3 * GRAPH_STEPS, calls=3,
+                       table=table, top=40)
 
 
 # the options of hlax's model on the canonical config through the CLI:
 # (tag, name, flags, epochs, final validation and tests)
+# the fused VAE ops the all-bfloat16 model runs in their plain versions
+# (the kernels take float32 and float64); its GP stays in float32
+BF16_PLAIN = frozenset({"heads_loglik_plain", "rep_image_plain",
+                        "recon_metric_plain"})
 OPTION_RUNS = [
     ("bf16", "float32", {}, 2, False),
     ("bf16", "compute_dtype=bfloat16", {"compute_dtype": "bfloat16"}, 3,
@@ -1929,7 +2661,9 @@ def phase_options(data_dir: str, tmp: str) -> dict:
             opt, os.path.join(tmp, f"{name}.log"))
         seconds = time.perf_counter() - t0
         steps = 10 * epochs
-        rows = _check_run(f"{tag} {name}", out, steps, plain, validation=ev)
+        rows = _check_run(f"{tag} {name}", out, steps, plain, validation=ev,
+                          allowed=BF16_PLAIN if "model_dtype" in over
+                          else frozenset())
         want = {("chol_inv_small_cuda", b, "float32"): steps,
                 ("chol_inv_bwd_cuda", b, "float32"): steps,
                 ("chol_inv_mid_cuda", k2, "float32"): steps,
@@ -2137,11 +2871,22 @@ MESH_ROWS = [("chol_inv_small_cuda", (16, 10), 20),
 # K0zz stacked with H [2 L_loc, 120, 120], the natural-gradient inverse
 # [L_loc, 120, 120]
 def _mesh_launches(n_data: int, n_latent: int, dtype: str = "float32"):
+    """What a rank of an n_data x n_latent mesh launches each step: the
+    Cholesky kernels at its latents and subjects, and the fused kernels'
+    forward at its rows (the recon metric's column sums once a group; a
+    rank of latent rank > 0 takes no gradient of the VAE)."""
     L, S = 32 // n_latent, 20 // n_data
-    return {("chol_inv_small_cuda", (L, S, 20, 20), dtype),
-            ("chol_inv_bwd_cuda", (L, S, 20, 20), dtype),
-            ("chol_inv_mid_cuda", (2 * L, 120, 120), dtype),
-            ("chol_inv_mid_cuda", (L, 120, 120), dtype)}
+    rows = (S * 20, CANONICAL_N_EXP)
+    return {("chol_inv_small_cuda", (L, S, 20, 20), dtype): 1,
+            ("chol_inv_bwd_cuda", (L, S, 20, 20), dtype): 1,
+            ("chol_inv_mid_cuda", (2 * L, 120, 120), dtype): 1,
+            ("chol_inv_mid_cuda", (L, 120, 120), dtype): 1,
+            ("heads_cat_fwd_cuda", (S * 20, 1296, 5), dtype): 1,
+            ("heads_real_fwd_cuda", (S * 20, 1296, 5), dtype): 1,
+            ("rep_image_fwd_cuda", rows, dtype): 2,
+            ("recon_metric_cuda", rows, dtype): 2,
+            ("recon_metric_finish_cuda", rows, dtype): 1,
+            ("gp_kernel_fwd_cuda", (L, S, 20, 120), dtype): 1}
 
 
 @contextlib.contextmanager
@@ -2198,7 +2943,7 @@ def _mesh_rank(rank: int, world: int, init: str, data_dir: str,
             step = tstep.make_train_step(state.vae, spec0, spec1, cfg,
                                          mesh=mesh)
             e = eps[:, mesh.d * rows:(mesh.d + 1) * rows].to("cuda", dtype)
-            ls.reset_counters()
+            reset_all_counters()
             t0 = time.perf_counter()
             loss = []
             for j in range(MESH_STEPS):
@@ -2214,8 +2959,7 @@ def _mesh_rank(rank: int, world: int, init: str, data_dir: str,
                 "slice": mesh.latent_slice(cfg.latent_dim),
                 "n_vae": len(list(state.vae.parameters())),
                 "seconds": time.perf_counter() - t0,
-                "launches": dict(ls.LAUNCHES_BY_SHAPE),
-                "plain": dict(ls.PLAIN_CUDA_CALLS)}
+                **dict(zip(("launches", "plain"), read_all_counters()[1:]))}
             whole = pmesh.gather_state(state, mesh, cfg)
             if rank == 0:
                 out["state"] = _gp_and_vae(whole)
@@ -2350,9 +3094,9 @@ def _mesh_against_single(ds, spec0, spec1, ranks, idx, eps, spawn_s,
     for r, out in enumerate(ranks):
         if any(out["plain"].values()):
             fail(f"[mesh] rank {r} ran a plain version: {out['plain']}")
-        for name, shape, _ in _mesh_launches(2, 2):
+        for (name, shape, _), per in _mesh_launches(2, 2).items():
             key = (name, shape, tag)
-            if out["launches"].get(key, 0) < MESH_STEPS:
+            if out["launches"].get(key, 0) < per * MESH_STEPS:
                 fail(f"[mesh] rank {r} launched {key} "
                      f"{out['launches'].get(key, 0)} times")
         print(f"[mesh] {tag} rank {r} launches by shape "
@@ -2683,7 +3427,8 @@ def phase_mesh4(data_dir: str, tmp: str) -> dict:
                     fail(f"[{tag}] rank {r}: {rank['steps']} steps, plain "
                          f"versions {rank['plain_calls']}")
                 _need(f"{tag} rank {r}", rank["launches_by_shape"],
-                      {k: steps for k in _mesh_launches(nd, nl, dtag)})
+                      {k: steps * per for k, per in
+                       _mesh_launches(nd, nl, dtag).items()})
                 print(f"[{tag}] rank {r} launches by shape "
                       f"{_by_shape_str(rank['launches_by_shape'])}",
                       flush=True)
@@ -2745,12 +3490,55 @@ def phase_mesh4(data_dir: str, tmp: str) -> dict:
     return total
 
 
+def _count_canonical_epochs(data_dir: str) -> dict:
+    """{(kernel, shape, dtype): launches} of one canonical epoch on the
+    graph path in float32 and one in float64, every counter set to 0 just
+    before each and read just after."""
+    from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
+    from hlax_torch.train import step as tstep
+
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    idx = np.stack(list(epoch_subject_batches(ds.P, 20,
+                                              np.random.default_rng(0))))
+    counts = {}
+    for dtype in (torch.float32, torch.float64):
+        st, cfg = canonical_state(ds, spec0, spec1, dtype)
+        staged = stage_dataset(ds, dtype, "cuda")
+        epoch = tstep.make_train_epoch(st.vae, spec0, spec1, cfg)
+        reset_all_counters()
+        epoch(st, staged, idx)
+        torch.cuda.synchronize()
+        counts.update(read_all_counters()[1])
+        del st, staged, epoch
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this smoke run "
               "needs an NVIDIA GPU", flush=True)
         sys.exit(2)
+    if sys.argv[1:2] == ["rate"]:
+        rate_run(*sys.argv[2:5])
+        return
     mesh_only = sys.argv[1:] == ["mesh"]
+    if sys.argv[1:] == ["fusion"]:
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            data_dir = os.path.join(tmp, "data")
+            write_canonical_data(data_dir)
+            rows = phase_fusion(data_dir, tmp)
+            counts = _count_canonical_epochs(data_dir)
+            for r in rows:
+                r["launches"] = counts.get(
+                    (r["name"], tuple(r["shape"]), r["dtype"]), 0)
+                if not r["launches"]:
+                    fail(f"{r['name']} {r['dtype']} was not launched at "
+                         f"{r['shape']} on the canonical graph epoch")
+            print(json.dumps({"kernels": rows}))
+            phase_graph(data_dir, tmp)
+            phase_parent(data_dir)
+        return
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}; {torch.cuda.device_count()} card(s)",
           flush=True)
@@ -2774,12 +3562,14 @@ def main() -> None:
             phase_profile(out)
             del out
             torch.cuda.empty_cache()
+            rows += phase_fusion(data_dir, tmp)
             counts["f64"] = phase_f64(data_dir, tmp)
-            counts["longT"] = phase_long_t()
+            counts["longT"] = phase_long_t(tmp)
             counts["mlp"] = phase_mlp(data_dir, tmp)
             counts["options"] = phase_options(data_dir, tmp)
             phase_fused_stack(data_dir)
             phase_graph(data_dir, tmp)
+            phase_parent(data_dir)
             phase_full(data_dir, tmp)
             torch.cuda.empty_cache()
         counts["mesh"] = phase_mesh(data_dir)

@@ -266,7 +266,8 @@ def run(opt: dict) -> dict:
         constrain_scales=opt.get("constrain_scales", False),
         eps=opt.get("eps"), gp_dtype=gp_dtype,
         nat_grad_jitter=opt.get("nat_grad_jitter", 0.0),
-        nat_grad_f64=bool(opt.get("nat_grad_f64", False)))
+        nat_grad_f64=bool(opt.get("nat_grad_f64", False)),
+        use_pallas_chol=bool(opt.get("use_pallas_chol", True)))
 
     subjects_per_batch = opt.get("subjects_per_batch", 20)
     state = tstep.init_train_state(
@@ -569,14 +570,17 @@ def run(opt: dict) -> dict:
 def _summary(out: dict, rank: int) -> dict:
     """What a mesh rank's run sends back: its curves, evaluations, step
     count and kernel launches (the counters of its own process)."""
+    from hlax_torch.ops import fusion
     from hlax_torch.ops import linalg_small as ls
 
     keep = ("loss_arrs", "steps", "epoch_seconds", "eval_seconds",
             "last_validation", "results_path")
     return {**{k: out[k] for k in keep}, "rank": rank,
-            "launches": dict(ls.LAUNCHES),
-            "launches_by_shape": dict(ls.LAUNCHES_BY_SHAPE),
-            "plain_calls": dict(ls.PLAIN_CUDA_CALLS)}
+            "launches": {**ls.LAUNCHES, **fusion.LAUNCHES},
+            "launches_by_shape": {**ls.LAUNCHES_BY_SHAPE,
+                                  **fusion.LAUNCHES_BY_SHAPE},
+            "plain_calls": {**ls.PLAIN_CUDA_CALLS,
+                            **fusion.PLAIN_CUDA_CALLS}}
 
 
 def _run_rank(rank: int, world_size: int, init_method, opt: dict) -> dict:

@@ -139,8 +139,9 @@ class ModelArgs:
                  "natural-gradient update")
         add("--fused_conv", type=str2bool, default=False)
         add("--use_pallas_chol", type=str2bool, default=True,
-            help="kept for config compatibility; the port always factorizes "
-                 "through its Cholesky kernels")
+            help="the Cholesky kernels (floored pivots) in the training "
+                 "bound and the natural-gradient update; False: the "
+                 "library's unguarded Cholesky, as hlax's XLA path")
         add("--eval_gp_f64", type=str2bool, default=False)
 
     def parse_options(self, argv=None):

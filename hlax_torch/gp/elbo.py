@@ -8,10 +8,13 @@ one batched factorization of shape [latent, S, T_max, T_max].  Padding
 contributes exactly zero to every term: B blocks are identity on padded
 rows/cols, and K matrices, mu and log_v are masked to zero there.
 
-All factorizations go through ``hlax_torch.ops.linalg_small.chol_inv_blocked``
-(the CUDA Cholesky kernels on the card).  Float32 matmuls run in full
-float32: ``hlax_torch`` turns TF32 off at import, as hlax runs its GP math
-at "highest" precision.
+Factorizations go through ``hlax_torch.ops.linalg_small.chol_inv_blocked``
+(the CUDA Cholesky kernels on the card, with their pivot floor) wherever
+hlax takes its Pallas path (``use_pallas_chol``, hlax's defaults call by
+call); with ``use_pallas_chol=False`` the bound and the natural-gradient
+update take hlax's library path instead, ``library_chol_inv``.  Float32
+matmuls run in full float32: ``hlax_torch`` turns TF32 off at import, as
+hlax runs its GP math at "highest" precision.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from hlax_torch.gp.kernels import KernelSpec, kernel_matrix
+from hlax_torch.gp.kernels import KernelSpec
+from hlax_torch.ops.fusion import gp_kernel_matrix
 from hlax_torch.ops.linalg_small import chol_inv_blocked
 
 
@@ -32,6 +36,31 @@ def _logdet_from_chol(L):
 def _gram(iL):
     """iL^T iL: the inverse of A from the inverse Cholesky factor of A."""
     return torch.einsum("lkm,lkn->lmn", iL, iL)
+
+
+def library_chol_inv(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, L^{-1}) of SPD [..., n, n] by the library, unguarded: hlax's
+    ``use_pallas_chol=False`` path (``jnp.linalg.cholesky`` and
+    ``solve_triangular``, ``hlax/gp/elbo.py:115-142``).  Where a matrix
+    does not factorize (a pivot <= 0), hlax's Cholesky gives NaN on and
+    below the diagonal and zeros above, not the partial factor LAPACK
+    leaves, and its inverse factor is NaN throughout; so does this.  The
+    failure flag stays on the device (no host sync, so a CUDA graph
+    captures it) and selects the NaN factor.  Differentiable through
+    PyTorch's own Cholesky and triangular-solve backward, as hlax's is
+    through XLA's."""
+    n = a.shape[-1]
+    L, info = torch.linalg.cholesky_ex(a)
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    failed = torch.full((n, n), math.nan, dtype=a.dtype,
+                        device=a.device).tril()
+    L = torch.where((info == 0)[..., None, None], L, failed)
+    return L, torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+
+def _chol_inv(a: torch.Tensor, use_pallas_chol: bool):
+    """(L, L^{-1}): the kernels (``chol_inv_blocked``) or the library."""
+    return chol_inv_blocked(a) if use_pallas_chol else library_chol_inv(a)
 
 
 class SubjectBlocks(NamedTuple):
@@ -49,14 +78,18 @@ class SubjectBlocks(NamedTuple):
 
 def subject_blocks(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
                    noise, z, x_st, valid, eps, extra_spd=None,
-                   with_K0st: bool = True):
+                   with_K0st: bool = True, use_pallas_chol: bool = False):
     """Build the kernel blocks shared by the bounds and the predictor.
 
     x_st [S, T, Q] padded covariates, valid [S, T] 0/1, z [L, M, Q],
     noise [L] GP observation noise.  ``extra_spd`` [L, M, M] (the bound's
     H) is factorized stacked with K0zz in one kernel launch; when given,
     returns ``(SubjectBlocks, (L_extra, iL_extra))``.  ``with_K0st=False``
-    (the predictor) leaves K0_st empty.
+    (the predictor) leaves K0_st empty.  ``use_pallas_chol`` (False by
+    default, as hlax's): the kernels when True, else the library
+    (``library_chol_inv``; iK0zz from the inverse factor in both, where
+    hlax's library path solves against the identity: the same matrix to
+    rounding).
     """
     L = z.shape[0]
     M = z.shape[1]
@@ -65,29 +98,36 @@ def subject_blocks(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
 
     vo = valid[:, :, None] * valid[:, None, :]          # [S, T, T]
 
-    K0xz = kernel_matrix(spec0, params0, x_st, z, x2_batched=True)  # [L,S,T,M]
-    K0xz = K0xz * valid[None, :, :, None]
-    K0zz = kernel_matrix(spec0, params0, z, z, x1_batched=True, x2_batched=True)
+    # the kernel matrices and their padding masks: one fused kernel each
+    # on the card (``ops.fusion.gp_kernel_matrix``)
+    K0xz = gp_kernel_matrix(spec0, params0, x_st, z, x2_batched=True,
+                            row_mask=valid)                      # [L,S,T,M]
+    K0zz = gp_kernel_matrix(spec0, params0, z, z, x1_batched=True,
+                            x2_batched=True)
     K0zz = K0zz + eps * torch.eye(M, dtype=dt, device=dev)
     extra_fact = None
-    if extra_spd is not None:
+    if extra_spd is not None and use_pallas_chol:
         Ls, iLs = chol_inv_blocked(torch.cat([K0zz, extra_spd.to(dt)], dim=0))
         LK0zz, iLK = Ls[:L], iLs[:L]
         extra_fact = (Ls[L:], iLs[L:])
     else:
-        LK0zz, iLK = chol_inv_blocked(K0zz)
+        LK0zz, iLK = _chol_inv(K0zz, use_pallas_chol)
+        if extra_spd is not None:
+            extra_fact = library_chol_inv(extra_spd.to(dt))
     iK0zz = _gram(iLK)
 
-    K1_st = kernel_matrix(spec1, params1, x_st, x_st) * vo[None]
+    K1_st = gp_kernel_matrix(spec1, params1, x_st, x_st, row_mask=valid,
+                             col_mask=valid)
     eyeT = torch.eye(T, dtype=dt, device=dev)
     diag_fill = (noise[:, None, None, None] * valid[None, :, :, None]
                  + (1.0 - valid)[None, :, :, None])
     B_st = K1_st * vo[None] + eyeT * diag_fill
-    LB, iLB = chol_inv_blocked(B_st)
+    LB, iLB = _chol_inv(B_st, use_pallas_chol)
     iB = torch.einsum("lskt,lsku->lstu", iLB, iLB)
 
     if with_K0st:
-        K0_st = kernel_matrix(spec0, params0, x_st, x_st) * vo[None]
+        K0_st = gp_kernel_matrix(spec0, params0, x_st, x_st,
+                                 row_mask=valid, col_mask=valid)
     else:
         K0_st = torch.zeros((L, 0, 0, 0), dtype=dt, device=dev)
     blocks = SubjectBlocks(K0xz, K0zz, LK0zz, iK0zz, K0_st, LB, iB, iLB, iLK)
@@ -110,6 +150,7 @@ def kld_upper_bound(
     natural_gradient: bool = False,
     nat_grad_dtype: Optional[torch.dtype] = None,
     sums=None,
+    use_pallas_chol: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
            Optional[torch.Tensor]]:
     """Unbiased mini-batched KLD upper bound.
@@ -123,7 +164,9 @@ def kld_upper_bound(
     loss does not read it.  In another dtype than the input's, K0zz and H
     are factorized again in that dtype, stacked in one ``chol_inv_blocked``
     (the float64 kernels on the card), and the returned quantities are in
-    that dtype.
+    that dtype.  ``use_pallas_chol`` (False by default, as hlax's) chooses
+    the kernels or the library for every factorization here, as
+    ``subject_blocks``.
 
     On a mesh (``sums``, ``hlax_torch.parallel.mesh.MeshSums``) the inputs
     are this rank's: its subjects, and its latents of the GP (``mu_st``,
@@ -136,7 +179,8 @@ def kld_upper_bound(
     M = z.shape[1]
 
     blk, (LH, iLH) = subject_blocks(spec0, params0, spec1, params1, noise,
-                                    z, x_st, valid, eps, extra_spd=H)
+                                    z, x_st, valid, eps, extra_spd=H,
+                                    use_pallas_chol=use_pallas_chol)
     iH = _gram(iLH)
 
     # number of real subjects in the batch (all-padding subjects don't count)
@@ -192,10 +236,13 @@ def kld_upper_bound(
             ng_P1 = sums.subjects(ng_P1)
         if cdt == blk.LK0zz.dtype:
             iLK_c, iK_c, iH_c = blk.iLK, blk.iK0zz, iH
-        else:
+        elif use_pallas_chol:
             iLs = chol_inv_blocked(torch.cat([blk.K0zz, H]).to(cdt))[1]
             iLK_c = iLs[:Ldim]
             iK_c, iH_c = _gram(iLK_c), _gram(iLs[Ldim:])
+        else:
+            iLK_c = library_chol_inv(blk.K0zz.to(cdt))[1]
+            iK_c, iH_c = _gram(iLK_c), _gram(library_chol_inv(H.to(cdt))[1])
         # B_mat = iK KziBK iK + iK in whitened-Gram form:
         #   = iLK^T (I + C) iLK,  C = sum_st G^T G,  G = iLB K0xz iLK^T
         Gw = torch.einsum("lstu,lsun->lstn", blk.iLB.to(cdt),
@@ -260,7 +307,7 @@ def deviance_upper_bound(spec0: KernelSpec, params0, spec1: KernelSpec,
     """Closed-form DUBO over a full set, padded-batched and summed over
     latent dimensions."""
     blk = subject_blocks(spec0, params0, spec1, params1, noise, z, x_st,
-                         valid, eps)
+                         valid, eps, use_pallas_chol=True)
     v_mask = valid[:, :, None]
     mu_m = (mu_st * v_mask).permute(2, 0, 1)              # [L, S, T]
     v_m = (torch.exp(log_v_st) * v_mask).permute(2, 0, 1)
@@ -289,7 +336,7 @@ def sample_elbo(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
     latent dims and padded subjects.  y_st [S, T, L]: a latent sample (0 on
     padding).  Returns the bound summed over latent dimensions."""
     blk = subject_blocks(spec0, params0, spec1, params1, noise, z, x_st,
-                         valid, eps)
+                         valid, eps, use_pallas_chol=True)
     y_m = (y_st * valid[:, :, None]).permute(2, 0, 1)     # [L, S, T]
     N_valid = valid.sum()
     logDet, qF, tr, _, _, _ = _whitened_quadratic(blk, y_m)
@@ -299,7 +346,7 @@ def sample_elbo(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
 
 
 def natural_gradient_update(m, H, grad_m, grad_H, lr: float, iH=None,
-                            jitter: float = 0.0):
+                            jitter: float = 0.0, use_pallas_chol: bool = True):
     """Closed-form natural-gradient step on (m, H).
 
     Pass the ``iH`` returned by ``kld_upper_bound`` to skip refactorizing H.
@@ -307,18 +354,19 @@ def natural_gradient_update(m, H, grad_m, grad_H, lr: float, iH=None,
     ``kld_upper_bound(..., nat_grad_dtype=torch.float64)``) and the result
     is cast back to the dtype of (m, H).  ``jitter``: relative diagonal
     ridge on iH_new before its factorization (scaled by the mean diagonal).
-    Called under ``torch.no_grad()`` by the train step."""
+    ``use_pallas_chol`` (True by default, as hlax's): the kernels for the
+    SPD inverses, else the library.  Called under ``torch.no_grad()`` by the train step."""
     cdt = grad_H.dtype
     m_c, H_c = m.to(cdt), H.to(cdt)
     if iH is None:
-        iH = _gram(chol_inv_blocked(H_c)[1])
+        iH = _gram(_chol_inv(H_c, use_pallas_chol)[1])
     iH_new = iH + lr * (grad_H + grad_H.mT)
     if jitter:
         mean_diag = torch.diagonal(iH_new, dim1=-2, dim2=-1).mean(
             -1)[:, None, None]
         iH_new = iH_new + jitter * mean_diag * torch.eye(
             H.shape[-1], dtype=cdt, device=H.device)
-    H_new = _gram(chol_inv_blocked(iH_new)[1])
+    H_new = _gram(_chol_inv(iH_new, use_pallas_chol)[1])
     m_new = torch.einsum(
         "lmn,lno->lmo", H_new,
         torch.einsum("lmn,lno->lmo", iH, m_c)

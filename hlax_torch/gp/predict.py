@@ -61,7 +61,8 @@ def batch_predict(
                                 device=dev)
 
     blk = subject_blocks(spec0, params0, spec1, params1, noise, z,
-                         pred_x_st, pred_valid, eps, with_K0st=False)
+                         pred_x_st, pred_valid, eps, with_K0st=False,
+                         use_pallas_chol=True)
 
     mu_m = (mu_st * pred_valid[:, :, None]).permute(2, 0, 1)       # [L,Sp,Tp]
     iB_mu = torch.einsum("lstu,lsu->lst", blk.iB, mu_m)

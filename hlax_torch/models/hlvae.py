@@ -47,8 +47,10 @@ from torch import nn
 
 from hlax_torch import device_constant, resolve_device
 from hlax_torch.ops import convfuse as cf
+from hlax_torch.ops import fusion
 from hlax_torch.ops import likelihoods as lik
 from hlax_torch.ops.normalization import NormParams, batch_normalization
+from hlax_torch.profiling import region
 from hlax_torch.types import TypeLayout
 
 _INIT_STD = 0.05   # normal(0.05) init of dense layers and heads
@@ -112,6 +114,29 @@ class _MaxPool2x2(torch.autograd.Function):
 
 def max_pool_2x2(h: torch.Tensor) -> torch.Tensor:
     return _MaxPool2x2.apply(h)
+
+
+class _PermuteColumns(torch.autograd.Function):
+    """x[:, perm] for a permutation ``perm`` of x's columns, whose backward
+    is the gather by the inverse permutation ``inv``: the same values as
+    the index's backward (each column receives one cotangent), without its
+    sort and atomic adds."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(inv)
+        return x.index_select(1, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        return g.index_select(1, inv), None, None
+
+
+def permute_columns(x: torch.Tensor, perm: torch.Tensor,
+                    inv: torch.Tensor) -> torch.Tensor:
+    """``x[:, perm]`` for the permutation ``perm`` (inverse ``inv``)."""
+    return _PermuteColumns.apply(x, perm, inv)
 
 
 def _linear(x, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -228,14 +253,18 @@ class HLVAE(nn.Module):
     # ------------------------------------------------------------------
 
     def encode(self, data, mask, norm_data=None):
-        """data [B, n_exp] grouped, mask [B, n_raw] grouped -> (mu, log_var)."""
+        """data [B, n_exp] grouped, mask [B, n_raw] grouped -> (mu, log_var).
+        ``norm_data``: the batch normalization's output, made here when
+        None (the conv model's kernel, ``fusion.rep_image``, needs none)."""
         cfg = self.cfg
-        lay = cfg.layout
-        if norm_data is None:
-            norm_data, _ = batch_normalization(data, mask, lay, cfg.conv)
         dt, cdt = self._dtypes()
-        hidden = self._conv_features(norm_data, mask, cdt) if cfg.conv \
-            else norm_data
+        if cfg.conv:
+            hidden = self._conv_features(data, mask, norm_data, cdt)
+        else:
+            if norm_data is None:
+                norm_data, _ = batch_normalization(data, mask, cfg.layout,
+                                                   cfg.conv)
+            hidden = norm_data
         for layer in self.enc_mlp:
             hidden = F.relu(_linear(hidden, layer, cdt))
         # the reparameterization layers in the parameters' dtype
@@ -249,27 +278,12 @@ class HLVAE(nn.Module):
         dt = self.mean_layer.weight.dtype
         return dt, self.cfg.compute_dtype or dt
 
-    def _conv_features(self, norm_data, mask, cdt):
-        """The conv encoder's flattened features of the normalized rows,
-        computed in ``cdt``."""
+    def _conv_features(self, data, mask, norm_data, cdt):
+        """The conv encoder's flattened features of the rows, computed in
+        ``cdt``: each variable scalarized to one channel, in pixel order
+        (``fusion.rep_image``), through the conv stack."""
         cfg = self.cfg
-        lay = cfg.layout
-        # scalarize to one channel per raw variable
-        blocks = []
-        for gi, g in enumerate(lay.groups):
-            x_g = norm_data[:, g.exp_slice[0]:g.exp_slice[1]]
-            m_g = mask[:, g.raw_slice[0]:g.raw_slice[1]]
-            if g.kind in ("cat", "ordinal"):
-                x3 = x_g.reshape(x_g.shape[0], g.n_vars, g.nclass)
-                rep = torch.einsum("bdc,dc->bd", x3, self.rep_w[str(gi)])
-                rep = rep + self.rep_b[str(gi)]
-            else:
-                rep = x_g
-            blocks.append(rep * m_g)
-        one_to_one = torch.cat(blocks, dim=1)            # [B, n_raw] grouped
-        # un-permute to pixel order for the spatial conv
-        s = cfg.image_side
-        img = one_to_one[:, self.raw_inv].reshape(-1, 1, s, s).to(cdt)
+        img = fusion.rep_image(self, data, mask, norm_data).to(cdt)
         (w1, b1), (w2, b2) = ((c.weight.to(cdt), c.bias.to(cdt))
                               for c in (self.conv1, self.conv2))
         if cfg.fused_conv:
@@ -314,7 +328,7 @@ class HLVAE(nn.Module):
             y = y.permute(0, 2, 3, 1)
         # [B, 36, 36, y] -> [B, pixels, y] in pixel order -> grouped order
         y = y.to(dt).reshape(y.shape[0], -1, cfg.y_dim)
-        return y[:, self.raw_perm, :]
+        return permute_columns(y, self.raw_perm, self.raw_inv)
 
     def _head(self, gi, g, y_g):
         """Observation head of group ``gi`` on y_g [B, d, y_dim]."""
@@ -398,11 +412,11 @@ class HLVAE(nn.Module):
     def decode(self, z, data, mask, theta_mask, norm_params: NormParams):
         """z [B, z_dim] -> (log_p_x, log_p_x_missing, params, theta) of the
         rows ``data``/``mask`` under the batch statistics ``norm_params``."""
-        y = self.decode_y(z)
-        theta = self.theta_estimation(y, theta_mask)
-        log_p_x, log_p_x_missing, params = self.loglik(
-            theta, data, mask, norm_params)
-        return log_p_x, log_p_x_missing, params, theta
+        with region("decoder"):
+            y = self.decode_y(z)
+        with region("heads_likelihoods"):
+            return fusion.heads_loglik(self, y, theta_mask, data, mask,
+                                       norm_params)
 
     def forward(self, data, mask, theta_mask,
                 eps: Optional[torch.Tensor] = None,
@@ -412,16 +426,25 @@ class HLVAE(nn.Module):
         given, else drawn from ``generator``.  On a mesh, ``sums``
         (``hlax_torch.parallel.mesh.MeshSums``) makes the normalization's
         moments the global batch's."""
-        norm_data, norm_params = batch_normalization(
-            data, mask, self.cfg.layout, self.cfg.conv, sums)
-        mu, log_var = self.encode(data, mask, norm_data)
-        if sample:
-            if eps is None:
-                eps = torch.randn(mu.shape, generator=generator,
-                                  dtype=mu.dtype, device=mu.device)
-            z = mu + eps * torch.exp(0.5 * log_var)
-        else:
-            z = mu
+        with region("normalization"):
+            if self.cfg.conv and not any(g.kind == "pos" for g in
+                                         self.cfg.layout.groups):
+                # conv mode takes no moments but a pos group's: the encoder
+                # (``fusion.rep_image``) normalizes its own input
+                norm_data, norm_params = None, NormParams(None, None, None,
+                                                          None)
+            else:
+                norm_data, norm_params = batch_normalization(
+                    data, mask, self.cfg.layout, self.cfg.conv, sums)
+        with region("encoder"):
+            mu, log_var = self.encode(data, mask, norm_data)
+            if sample:
+                if eps is None:
+                    eps = torch.randn(mu.shape, generator=generator,
+                                      dtype=mu.dtype, device=mu.device)
+                z = mu + eps * torch.exp(0.5 * log_var)
+            else:
+                z = mu
         log_p_x, log_p_x_missing, params, theta = self.decode(
             z, data, mask, theta_mask, norm_params)
         return {

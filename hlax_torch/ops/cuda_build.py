@@ -24,15 +24,16 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Libraries built with contraction of a*b+c into one fused multiply-add.
-# The mid kernel's blocked path and the backward kernel sum in another order
-# than their plain versions (blocked panels; register subtiles) and are held
-# to a float64 reference; the backward's five products are chains of
-# multiply-adds, which fusing halves.  The small kernel's library is built
+# The mid kernel's blocked path, the backward kernel and the fused step ops
+# (``fusion``) sum in another order than their plain versions (blocked
+# panels; register subtiles; a row at a time) and are held to a float64
+# reference; the backward's five products are chains of multiply-adds,
+# which fusing halves.  The small kernel's library is built
 # with --fmad=false: its shared-memory path (n > 32) then does the same
 # float32 operations as its plain PyTorch version and the two agree to the
 # last bit.  The one-warp body both forward libraries share spells its
 # roundings out (__fmul_rn, __fsub_rn), so it is bit-equal under either flag.
-FMA_CONTRACTED = frozenset({"chol_inv_mid", "chol_inv_bwd"})
+FMA_CONTRACTED = frozenset({"chol_inv_mid", "chol_inv_bwd", "fusion"})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

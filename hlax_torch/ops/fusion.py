@@ -1,0 +1,780 @@
+"""Hand-written CUDA kernels for XLA's fusions of the train step.
+
+hlax jits the whole epoch (``hlax/cli/main.py:254``) and XLA fuses the
+step's elementwise chains and reductions into a few kernels; the port runs
+one kernel an op unless a kernel here takes a chain (``csrc/fusion.cu``,
+built by ``ops/cuda_build.py``).  Four fused ops, each with its plain
+PyTorch version (the port's op-by-op code, which the CPU runs and the
+parity tests hold to hlax), a launch counter, and on the card the kernel:
+
+  * ``heads_loglik``: the decoder's observation heads, the theta routing
+    and the likelihoods (``HLVAE.theta_estimation`` + ``HLVAE.loglik``),
+    forward and backward (``heads_cat_*``, ``heads_real_*``): XLA's fusion
+    of ``hlax/models/hlvae.py:327-415`` and ``hlax/ops/likelihoods.py:47-134``.
+  * ``rep_image``: the conv model's batch normalization (a passthrough in
+    conv mode), the one-hot representation and the gather into the image,
+    forward and backward (``rep_image_*``): XLA's fusion of
+    ``hlax/ops/normalization.py:76-135`` and ``hlax/models/hlvae.py:251-290``.
+  * ``recon_metric``: the train step's recon and missing-imputation errors
+    (``recon_metric``, ``recon_metric_finish``): XLA's fusion of
+    ``hlax/train/step.py:210-227`` over ``hlax/eval/metrics.py``.
+  * ``gp_kernel_matrix``: the bound's GP kernel matrices with their padding
+    masks, forward and backward (``gp_kernel_*``): XLA's fusion of
+    ``hlax/gp/kernels.py:117-171`` and ``hlax/gp/elbo.py:96-146``.
+
+The first three take any layout of cat groups (any classes) and at most
+one real group, the conv and the MLP model, any y_dim, the logvar network
+and a mesh; the GP kernel matrix any spec the kernel builder makes, in as
+many launches as its components need.  All float32 and float64.  On a
+CUDA tensor of another dtype (bfloat16), or a layout with a group of
+another type (pos, count, ordinal, beta), the op takes its plain version,
+counted in ``PLAIN_CUDA_CALLS``; a CPU tensor always takes it.  A failed
+build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+
+from hlax_torch.ops.counters import Counters
+from hlax_torch.ops.cuda_build import check_launch, load_library
+
+KERNEL_DTYPES = (torch.float32, torch.float64)
+# the sizes csrc/fusion.cu compiles with every per-class value in registers
+# (HLAX_Y, HLAX_C); other sizes take its run-time kernels, whose column
+# sums go ANY_NV a block along the grid's z
+HEAD_Y, NCLASS, ANY_NV = 5, 5, 8
+# must match TILE and ROWS in csrc/fusion.cu
+TILE, ROWS = 32, 16
+# the GP kernel matrix's limits a launch: components, factors a component,
+# raw parameters, distinct rbf dims (MAX_COMP, MAX_FACT, MAX_PARAM,
+# MAX_SLOT in csrc/fusion.cu), and rows a block of its backward (GP_ROWS)
+GP_MAX = {"components": 4, "factors": 4, "params": 8, "slots": 4}
+GP_ROWS = 64
+GP_NV = GP_MAX["slots"] + GP_MAX["params"]
+GP_KINDS = {"cat": 0, "bin": 1, "rbf": 2, "catmod": 3}
+# the metric's kinds of group (M_CAT, M_REAL_CONV, M_REAL in fusion.cu),
+# its column sums (METRIC_NV) and the groups its finish takes
+METRIC_KIND = {"cat": 0, "real_conv": 1, "real": 2}
+METRIC_NV, METRIC_GROUPS = 5, 32
+
+_COUNTERS = Counters(("heads_cat_fwd_cuda", "heads_cat_bwd_cuda",
+                      "heads_real_fwd_cuda", "heads_real_bwd_cuda",
+                      "rep_image_fwd_cuda", "rep_image_bwd_cuda",
+                      "recon_metric_cuda", "recon_metric_finish_cuda",
+                      "gp_kernel_fwd_cuda", "gp_kernel_bwd_cuda"),
+                     ("heads_loglik_plain", "rep_image_plain",
+                      "recon_metric_plain", "gp_kernel_plain"))
+LAUNCHES = _COUNTERS.launches
+LAUNCHES_BY_SHAPE = _COUNTERS.by_shape
+PLAIN_CUDA_CALLS = _COUNTERS.plain
+reset_counters = _COUNTERS.reset
+
+
+class Group(NamedTuple):
+    """A group's place: its index in the layout, variables, first column
+    in the raw, expanded and theta arrays, and classes (0: real)."""
+    gi: int
+    d: int
+    r0: int
+    e0: int
+    t0: int
+    nclass: int
+
+
+class Geometry(NamedTuple):
+    n_raw: int
+    n_exp: int
+    n_theta: int
+    cats: Tuple[Group, ...]
+    real: Optional[Group]
+
+
+def geometry(layout) -> Optional[Geometry]:
+    """The kernels' view of ``layout``: its cat groups and its real group,
+    or None where a group is of another type (or a second real group,
+    which the model's one log_vy and one set of moments do not take)."""
+    cats, real = [], None
+    for gi, g in enumerate(layout.groups):
+        if g.kind not in ("cat", "real") or (g.kind == "real" and real):
+            return None
+        grp = Group(gi, g.n_vars, g.raw_slice[0], g.exp_slice[0],
+                    g.theta_slice[0], g.nclass if g.kind == "cat" else 0)
+        if g.kind == "cat":
+            cats.append(grp)
+        else:
+            real = grp
+    return Geometry(layout.n_raw, layout.n_exp, layout.n_theta, tuple(cats),
+                    real)
+
+
+def _uses_kernel(takes: bool, t: torch.Tensor, plain_name: str,
+                 *others) -> bool:
+    """Whether the kernel takes tensor ``t`` and the tensors ``others``
+    (None skipped): on CUDA, in a kernel dtype, all of one dtype and
+    device, where it ``takes`` the layout; a CUDA call that does not is
+    counted."""
+    if not t.is_cuda:
+        return False
+    if takes and t.dtype in KERNEL_DTYPES and all(
+            o.dtype == t.dtype and o.device == t.device
+            for o in others if o is not None):
+        return True
+    PLAIN_CUDA_CALLS[plain_name] += 1
+    return False
+
+
+def _check_shapes(what: str, **shapes) -> None:
+    """Raise unless each named tensor has its expected shape (before any
+    pointer reaches a kernel)."""
+    for name, (t, want) in shapes.items():
+        if t is not None and tuple(t.shape) != tuple(want):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(want)}")
+
+
+class _LongLong(int):
+    """An argument the C entry takes as ``long long`` (a stride)."""
+
+
+def _launch(entry: str, like: torch.Tensor, *args) -> None:
+    """Call C entry ``entry`` of libfusion.so: tensors (or None) and host
+    int arrays as pointers, floats as ``double``, ints as ``int``
+    (``_LongLong`` as ``long long``), then the current stream; count the
+    launch under ``like``'s shape and dtype."""
+    lib = load_library("fusion")
+    fn = getattr(lib, entry)
+    types, vals = [], []
+    for a in args:
+        if a is None or torch.is_tensor(a):
+            types.append(ctypes.c_void_p)
+            vals.append(None if a is None else a.data_ptr())
+        elif isinstance(a, ctypes.Array):    # a host array of ints
+            types.append(ctypes.c_void_p)
+            vals.append(ctypes.cast(a, ctypes.c_void_p))
+        elif isinstance(a, float):
+            types.append(ctypes.c_double)
+            vals.append(a)
+        elif isinstance(a, _LongLong):
+            types.append(ctypes.c_longlong)
+            vals.append(int(a))
+        else:
+            types.append(ctypes.c_int)
+            vals.append(int(a))
+    fn.argtypes = types + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(*vals, torch.cuda.current_stream(like.device).cuda_stream)
+    check_launch(lib, entry, code)
+    _COUNTERS.count(f"{entry}_cuda", like)
+
+
+def _scratch(*tensors):
+    for t in tensors:
+        t._scratch = True   # not data: for byte counts
+    return tensors
+
+
+def _reduction_scratch(nv: int, d: int, rows: int, device, fixed: bool):
+    """(partials, counters) of a column reduction of ``nv`` sums a column
+    over ``d`` columns of ``rows`` rows: in one block (``fixed``, the
+    compiled sizes) or ANY_NV a block along z; one double partial a chunk,
+    column and sum, one zeroed counter a column tile and z-slice."""
+    na, z = (nv, 1) if fixed else (ANY_NV, -(-nv // ANY_NV))
+    chunks, tiles = -(-rows // ROWS), -(-d // TILE)
+    return _scratch(
+        torch.empty(z * chunks * tiles * TILE * na, dtype=torch.float64,
+                    device=device),
+        torch.zeros(z * tiles, dtype=torch.int32, device=device))
+
+
+def _cols(g: Group, geo: Geometry):
+    return (g.d, g.r0, g.e0, g.t0, geo.n_raw, geo.n_exp, geo.n_theta)
+
+
+def _strides(g: Optional[torch.Tensor]):
+    return ((_LongLong(0), _LongLong(0)) if g is None else
+            (_LongLong(g.stride(0)), _LongLong(g.stride(1))))
+
+
+# ---------------------------------------------------------------- heads
+
+
+def heads_loglik_plain(model, y, theta_mask, data, mask, norm_params):
+    """The plain version: the model's heads, routing and likelihoods op by
+    op.  Returns (log_p_x, log_p_x_missing, params, theta)."""
+    theta = model.theta_estimation(y, theta_mask)
+    lp, lpm, params = model.loglik(theta, data, mask, norm_params)
+    return lp, lpm, params, theta
+
+
+class _HeadsCfg(NamedTuple):
+    geo: Geometry
+    Y: int
+    conv: bool
+    logvar: bool
+
+
+def _head_params(model, geo: Geometry):
+    """The heads' parameters in ``_Heads``'s order: each cat group's W, b,
+    then the real group's w, b and either its logvar head's w', b' or the
+    shared log_vy (detached when fixed)."""
+    obs, out = model.obs, []
+    for g in geo.cats:
+        out += [obs[f"w_{g.gi}"], obs[f"b_{g.gi}"]]
+    if geo.real is not None:
+        gi = geo.real.gi
+        out += [obs[f"w_{gi}"], obs[f"b_{gi}"]]
+        if model.cfg.logvar_network:
+            out += [obs[f"wv_{gi}"], obs[f"bv_{gi}"]]
+        else:
+            lv = model.log_vy_real
+            out.append(lv.detach() if model.cfg.vy_fixed else lv)
+    return out
+
+
+class _Heads(torch.autograd.Function):
+    """lp and lpm differentiable in y and the heads' parameters; theta and
+    the likelihoods' parameters (outputs 3 on) are returned without a
+    gradient, as every caller reads them (the metrics, the images) under
+    ``no_grad`` or detached."""
+
+    @staticmethod
+    def forward(ctx, y, data, mask, tmask, nmean, nvar, hc, *params):
+        geo, Y = hc.geo, hc.Y
+        B = y.shape[0]
+        dt, dev = y.dtype, y.device
+        lp = torch.empty((B, geo.n_raw), dtype=dt, device=dev)
+        lpm = torch.empty_like(lp)
+        theta = torch.empty((B, geo.n_theta), dtype=dt, device=dev)
+        logpis = []
+        for k, g in enumerate(geo.cats):
+            w, b = params[2 * k:2 * k + 2]
+            logpis.append(torch.empty((B, g.d, g.nclass), dtype=dt,
+                                      device=dev))
+            _launch("heads_cat_fwd", y, y.element_size(), y, w, b, data,
+                    mask, lp, lpm, logpis[-1], theta, B, *_cols(g, geo), Y,
+                    g.nclass)
+        mean = var = None
+        if geo.real is not None:
+            w, b, *rest = params[2 * len(geo.cats):]
+            wv, bv, logvy = (*rest, None) if hc.logvar else (None, None,
+                                                            rest[0])
+            g = geo.real
+            mean = torch.empty((B, g.d), dtype=dt, device=dev)
+            var = torch.empty((B, g.d) if hc.logvar else (g.d,), dtype=dt,
+                              device=dev)
+            _launch("heads_real_fwd", y, y.element_size(), y, w, b, wv, bv,
+                    logvy, nmean, nvar, data, mask, lp, lpm, mean, var,
+                    theta, B, *_cols(g, geo), Y, int(hc.logvar),
+                    int(hc.conv))
+        ctx.hc = hc
+        ctx.save_for_backward(y, data, mask, tmask, nmean, nvar, *params)
+        ctx.set_materialize_grads(False)
+        outs = [t for t in (theta, *logpis, mean, var) if t is not None]
+        ctx.mark_non_differentiable(*outs)
+        return (lp, lpm, theta, *logpis, mean, var)
+
+    @staticmethod
+    def backward(ctx, g_lp, g_lpm, *_):
+        y, data, mask, tmask, nmean, nvar, *params = ctx.saved_tensors
+        hc = ctx.hc
+        geo, Y = hc.geo, hc.Y
+        none = (None,) * 7
+        if g_lp is None and g_lpm is None:
+            return none + (None,) * len(params)
+        B = y.shape[0]
+        dy = torch.empty_like(y)
+        dparams = [torch.empty_like(p) for p in params]
+        strides = (*_strides(g_lp), *_strides(g_lpm))
+        for k, g in enumerate(geo.cats):
+            w, b = params[2 * k:2 * k + 2]
+            dw, db = dparams[2 * k:2 * k + 2]
+            nv = (Y + 1) * (g.nclass - 1)
+            part, cnt = _reduction_scratch(
+                nv, g.d, B, y.device, Y == HEAD_Y and g.nclass == NCLASS)
+            _launch("heads_cat_bwd", y, y.element_size(), y, w, b, data,
+                    mask, tmask, g_lp, g_lpm, *strides, dy, dw, db, part,
+                    cnt, B, *_cols(g, geo), Y, g.nclass)
+        if geo.real is not None:
+            n0 = 2 * len(geo.cats)
+            w, b, *rest = params[n0:]
+            dw, db, *drest = dparams[n0:]
+            if hc.logvar:
+                (wv, bv), (dwv, dbv), logvy, dlv = rest, drest, None, None
+            else:
+                wv = bv = dwv = dbv = None
+                logvy, dlv = rest[0], drest[0]
+            g = geo.real
+            part, cnt = _reduction_scratch(
+                (2 * Y + 2) if hc.logvar else (Y + 2), g.d, B, y.device,
+                Y == HEAD_Y)
+            _launch("heads_real_bwd", y, y.element_size(), y, w, b, wv, bv,
+                    logvy, nmean, nvar, data, mask, tmask, g_lp, g_lpm,
+                    *strides, dy, dw, db, dwv, dbv, dlv, part, cnt, B,
+                    *_cols(g, geo), Y, int(hc.logvar), int(hc.conv))
+        return (dy,) + (None,) * 6 + tuple(dparams)
+
+
+def heads_loglik(model, y, theta_mask, data, mask, norm_params):
+    """``HLVAE``'s heads, routing and likelihoods of the decoder features
+    y [B, n_raw, y_dim] (grouped order): (log_p_x [B, n_raw],
+    log_p_x_missing [B, n_raw], params (one a group, as ``HLVAE.loglik``),
+    theta [B, n_theta]).  The kernels on CUDA where they take the layout
+    and dtype, else the plain version."""
+    cfg = model.cfg
+    geo = geometry(cfg.layout)
+    params = _head_params(model, geo) if geo is not None else []
+    nmean, nvar = norm_params.real_mean, norm_params.real_var
+    if not _uses_kernel(geo is not None, y, "heads_loglik_plain",
+                        theta_mask, data, mask, nmean, nvar, *params):
+        return heads_loglik_plain(model, y, theta_mask, data, mask,
+                                  norm_params)
+    B, Y = y.shape[0], cfg.y_dim
+    d_real = geo.real.d if geo.real is not None else 0
+    _check_shapes("heads_loglik", y=(y, (B, geo.n_raw, Y)),
+                  theta_mask=(theta_mask, (B, geo.n_theta)),
+                  data=(data, (B, geo.n_exp)), mask=(mask, (B, geo.n_raw)),
+                  real_mean=(nmean, (d_real,)), real_var=(nvar, (d_real,)))
+    if (nmean is None) != (nvar is None):
+        raise ValueError("heads_loglik: the real group's batch mean and "
+                         "variance come together")
+    cont = lambda t: t.contiguous() if t is not None else None
+    hc = _HeadsCfg(geo, Y, bool(cfg.conv), bool(cfg.logvar_network))
+    outs = _Heads.apply(y.contiguous(), data.contiguous(), mask.contiguous(),
+                        theta_mask.contiguous(), cont(nmean), cont(nvar), hc,
+                        *params)
+    lp, lpm, theta = outs[:3]
+    logpis, (mean, var) = outs[3:3 + len(geo.cats)], outs[-2:]
+    out = [None] * len(cfg.layout.groups)
+    for g, lpi in zip(geo.cats, logpis):
+        out[g.gi] = lpi
+    if geo.real is not None:
+        out[geo.real.gi] = (mean, var.expand_as(mean))
+    return lp, lpm, out, theta
+
+
+# ------------------------------------------------------- representation
+
+
+def rep_image_plain(model, data, mask, norm_data=None):
+    """The plain version: the batch normalization (unless ``norm_data`` is
+    given), each variable scalarized to one channel (the one-hot
+    representation of cat and ordinal groups), masked, and gathered into
+    pixel order: [B, 1, side, side]."""
+    from hlax_torch.models.hlvae import permute_columns
+    from hlax_torch.ops.normalization import batch_normalization
+
+    lay = model.cfg.layout
+    if norm_data is None:
+        norm_data, _ = batch_normalization(data, mask, lay, True)
+    blocks = []
+    for gi, g in enumerate(lay.groups):
+        x_g = norm_data[:, g.exp_slice[0]:g.exp_slice[1]]
+        m_g = mask[:, g.raw_slice[0]:g.raw_slice[1]]
+        if g.kind in ("cat", "ordinal"):
+            x3 = x_g.reshape(x_g.shape[0], g.n_vars, g.nclass)
+            rep = torch.einsum("bdc,dc->bd", x3, model.rep_w[str(gi)])
+            rep = rep + model.rep_b[str(gi)]
+        else:
+            rep = x_g
+        blocks.append(rep * m_g)
+    one_to_one = torch.cat(blocks, dim=1)            # [B, n_raw] grouped
+    s = model.cfg.image_side
+    img = permute_columns(one_to_one, model.raw_inv, model.raw_perm)
+    return img.reshape(-1, 1, s, s)
+
+
+def _rep_params(model, geo: Geometry):
+    out = []
+    for g in geo.cats:
+        out += [model.rep_w[str(g.gi)], model.rep_b[str(g.gi)]]
+    return out
+
+
+class _RepImage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, mask, perm, geo, *params):
+        B = data.shape[0]
+        img = torch.empty((B, geo.n_raw), dtype=data.dtype,
+                          device=data.device)
+        groups = [(g, params[2 * k:2 * k + 2]) for k, g in
+                  enumerate(geo.cats)]
+        if geo.real is not None:
+            groups.append((geo.real, (None, None)))
+        for g, (w, b) in groups:
+            _launch("rep_image_fwd", data, data.element_size(), data, mask,
+                    w, b, perm, img, B, g.d, g.r0, g.e0, geo.n_raw,
+                    geo.n_exp, g.nclass)
+        ctx.geo = geo
+        ctx.save_for_backward(data, mask, perm)
+        return img
+
+    @staticmethod
+    def backward(ctx, g_img):
+        geo = ctx.geo
+        data, mask, perm = ctx.saved_tensors
+        B = data.shape[0]
+        g_img = g_img.contiguous()
+        grads = []
+        for k, g in enumerate(geo.cats):
+            if not any(ctx.needs_input_grad[4 + 2 * k:6 + 2 * k]):
+                grads += [None, None]
+                continue
+            dw = torch.empty((g.d, g.nclass), dtype=data.dtype,
+                             device=data.device)
+            db = torch.empty((g.d,), dtype=data.dtype, device=data.device)
+            part, cnt = _reduction_scratch(g.nclass + 1, g.d, B, data.device,
+                                           g.nclass == NCLASS)
+            _launch("rep_image_bwd", data, data.element_size(), data, mask,
+                    perm, g_img, dw, db, part, cnt, B, g.d, g.r0, g.e0,
+                    geo.n_raw, geo.n_exp, g.nclass)
+            grads += [dw, db]
+        return (None,) * 4 + tuple(grads)
+
+
+def rep_image(model, data, mask, norm_data=None):
+    """The conv encoder's input image [B, 1, side, side] of the grouped
+    rows ``data`` [B, n_exp], ``mask`` [B, n_raw]: normalized (conv mode),
+    scalarized, masked, in pixel order.  The kernel on CUDA where it takes
+    the layout and dtype (it normalizes itself and ignores ``norm_data``),
+    else the plain version (which normalizes when ``norm_data`` is
+    None)."""
+    geo = geometry(model.cfg.layout)
+    params = _rep_params(model, geo) if geo is not None else []
+    if not _uses_kernel(geo is not None, data, "rep_image_plain", mask,
+                        *params):
+        return rep_image_plain(model, data, mask, norm_data)
+    _check_shapes("rep_image", data=(data, (data.shape[0], geo.n_exp)),
+                  mask=(mask, (data.shape[0], geo.n_raw)))
+    s = model.cfg.image_side
+    img = _RepImage.apply(data.contiguous(), mask.contiguous(),
+                          model.raw_perm, geo, *params)
+    return img.reshape(-1, 1, s, s)
+
+
+# ---------------------------------------------------------- recon metric
+
+
+def recon_metric_plain(layout, conv, params, data, mask, row_valid,
+                       last_kind, sums=None):
+    """The plain version: ``statistics``, ``discrete_transform`` and
+    ``error_computation`` over the valid rows, then the recon error of the
+    type ``last_kind`` times the valid rows and the summed
+    missing-imputation error (0-dim tensors)."""
+    from hlax_torch.eval import metrics as mx
+
+    mean_rec, _ = mx.statistics(params, layout, conv)
+    truth = mx.discrete_transform(data, layout)
+    true_mask = row_valid[:, None] * torch.ones_like(mask)
+    _, err_missing, partial = mx.error_computation(
+        truth, mean_rec, layout, mask * row_valid[:, None], conv=conv,
+        true_mask=true_mask, sums=sums)
+    n_rows = row_valid.sum()
+    if sums is not None:
+        n_rows = sums.subjects(n_rows)
+    return partial[last_kind]["error_all"].sum() * n_rows, err_missing.sum()
+
+
+def recon_metric(layout, conv, params, data, mask, row_valid, last_kind,
+                 sums=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train step's recon and missing-imputation errors of the
+    likelihoods' ``params`` (``HLVAE.loglik``'s) against the rows ``data``,
+    ``mask`` whose ``row_valid`` [B] is 1; on a mesh (``sums``) the global
+    batch's.  The kernels on CUDA where they take the layout and dtype,
+    else the plain version."""
+    geo = geometry(layout)
+    groups = []
+    if geo is not None:
+        real = (geo.real, params[geo.real.gi][0]) if geo.real else None
+        groups = [(g, params[g.gi]) for g in geo.cats] + ([real] if real
+                                                          else [])
+    if not _uses_kernel(geo is not None, data, "recon_metric_plain", mask,
+                        row_valid, *(p for _, p in groups)):
+        return recon_metric_plain(layout, conv, params, data, mask,
+                                  row_valid, last_kind, sums)
+    if len(groups) > METRIC_GROUPS:
+        raise ValueError(f"recon_metric: {len(groups)} groups, the kernel "
+                         f"takes {METRIC_GROUPS}")
+    B = data.shape[0]
+    _check_shapes("recon_metric", data=(data, (B, geo.n_exp)),
+                  mask=(mask, (B, geo.n_raw)), row_valid=(row_valid, (B,)),
+                  **{f"params_{g.gi}": (p, (B, g.d, g.nclass) if g.nclass
+                                        else (B, g.d)) for g, p in groups})
+    data, mask = data.contiguous(), mask.contiguous()
+    row_valid = row_valid.contiguous()
+    # each column's sums, every column written by its group's launch
+    cs = torch.empty((METRIC_NV, geo.n_raw), dtype=torch.float64,
+                     device=data.device)
+    table = []
+    for g, p in groups:
+        kind = (METRIC_KIND["cat"] if g.nclass else
+                METRIC_KIND["real_conv" if conv else "real"])
+        part, cnt = _reduction_scratch(METRIC_NV, g.d, B, data.device, True)
+        p = p.contiguous()
+        _launch("recon_metric", data, data.element_size(),
+                p if g.nclass else None, None if g.nclass else p, data, mask,
+                row_valid, part, cnt, cs, B, g.d, g.r0, g.e0, geo.n_raw,
+                geo.n_exp, kind, g.nclass)
+        kind_name = "cat" if g.nclass else "real"
+        table += [g.r0, g.d, kind, int(kind_name == last_kind)]
+    n_rows = None
+    if sums is not None:
+        # the ranks' column sums and extremes, then the global valid rows
+        cs = torch.cat([sums.subjects(cs[:3]), sums.subjects_max(cs[3:])])
+        n_rows = sums.subjects(row_valid.sum(dtype=torch.float64))
+        n_rows = n_rows.reshape(1)
+    out = torch.empty(2, dtype=data.dtype, device=data.device)
+    _launch("recon_metric_finish", data, data.element_size(), cs,
+            row_valid, n_rows, out, (ctypes.c_int * len(table))(*table),
+            len(groups), B, geo.n_raw)
+    return out[0], out[1]
+
+
+# ------------------------------------------------------ GP kernel matrix
+
+
+def gp_kernel_matrix_plain(spec, params, x1, x2, x1_batched=False,
+                           x2_batched=False, row_mask=None, col_mask=None):
+    """The plain version: ``kernel_matrix`` times the padding masks as the
+    bounds apply them (``row_mask`` [S, N1] over the rows, ``col_mask``
+    [S, N2] over the columns, both as their outer product)."""
+    from hlax_torch.gp.kernels import kernel_matrix
+
+    k = kernel_matrix(spec, params, x1, x2, x1_batched=x1_batched,
+                      x2_batched=x2_batched)
+    if row_mask is not None and col_mask is not None:
+        return k * (row_mask[:, :, None] * col_mask[:, None, :])[None]
+    if row_mask is not None:
+        return k * row_mask[None, :, :, None]
+    if col_mask is not None:
+        return k * col_mask[None, :, None, :]
+    return k
+
+
+class _GpChunk(NamedTuple):
+    flat: Tuple[int, ...]    # the launch's spec, flat (spec_from)
+    p0: int                  # its first row of theta
+    rows: Tuple[Tuple[int, str], ...]   # its theta rows: (component, key)
+
+
+def _gp_chunks(spec) -> List[_GpChunk]:
+    """The spec's components split into launches within the compiled
+    limits, each with its rows of theta (outputscales, then lengthscales):
+    together the rows of the stacked raw parameters."""
+    comps = spec.components
+    for comp in comps:
+        if len(comp.factors) > GP_MAX["factors"] or any(
+                f.kind not in GP_KINDS for f in comp.factors):
+            raise ValueError(f"gp_kernel_matrix: a component of "
+                             f"{[f.kind for f in comp.factors]}; the kernel "
+                             f"takes at most {GP_MAX['factors']} factors "
+                             f"of {sorted(GP_KINDS)}")
+
+    def counts(cs):
+        rbf = [f for c in cs for f in comps[c].factors if f.kind == "rbf"]
+        return (len(cs), len(cs) + len(rbf), len({f.dim for f in rbf}))
+
+    groups, cur = [], []
+    for c in range(len(comps)):
+        n_c, n_p, n_s = counts(cur + [c])
+        if cur and (n_c > GP_MAX["components"] or n_p > GP_MAX["params"]
+                    or n_s > GP_MAX["slots"]):
+            groups.append(cur)
+            cur = []
+        cur.append(c)
+    if cur:
+        groups.append(cur)
+    chunks, p0 = [], 0
+    for cs in groups:
+        rows = [(c, "raw_os") for c in cs]
+        slots, table = [], []
+        for c in cs:
+            facs = []
+            for i, f in enumerate(comps[c].factors):
+                par = slot = -1
+                if f.kind == "rbf":
+                    par = len(rows)
+                    rows.append((c, f"raw_ls_{i}"))
+                    if f.dim not in slots:
+                        slots.append(f.dim)
+                    slot = slots.index(f.dim)
+                facs.append((GP_KINDS[f.kind], f.dim, f.num, par, slot))
+            table.append(facs)
+        flat = [len(cs), len(rows), len(slots)]
+        flat += slots + [0] * (GP_MAX["slots"] - len(slots))
+        for k in range(GP_MAX["components"]):
+            facs = table[k] if k < len(table) else []
+            flat.append(len(facs))
+            for f in range(GP_MAX["factors"]):
+                flat += list(facs[f]) if f < len(facs) else [0, 0, 0, -1, -1]
+        chunks.append(_GpChunk(tuple(flat), p0, tuple(rows)))
+        p0 += len(rows)
+    return chunks
+
+
+class _GpGeo(NamedTuple):
+    L: int
+    S: int
+    N1: int
+    N2: int
+    Q: int
+    x1l: int
+    x1s: int
+    x2l: int
+    x2s: int
+    masks: int               # 0 none, 1 rows, 2 both, 3 columns
+    shape: Tuple[int, ...]   # the output's
+
+    def transposed(self) -> "_GpGeo":
+        """The view of the transposed matrix: x1 and x2, and the row and
+        column masks, swapped."""
+        return self._replace(N1=self.N2, N2=self.N1, x1l=self.x2l,
+                             x1s=self.x2s, x2l=self.x1l, x2s=self.x1s,
+                             masks=(0, 3, 2, 1)[self.masks],
+                             shape=self.shape[:-2] + (self.N2, self.N1))
+
+
+def _gp_geometry(L, x1, x2, x1_batched, x2_batched, row_mask, col_mask):
+    """The kernel's view of the operands: each [N, Q] or [S, N, Q], behind
+    the latents [L] when batched."""
+    def view(x, batched):
+        core = x.shape[1:] if batched else x.shape
+        if len(core) not in (2, 3) or (batched and x.shape[0] != L):
+            raise ValueError(f"gp_kernel_matrix: an operand of shape "
+                             f"{tuple(x.shape)} (batched {batched}); the "
+                             f"kernel takes [L,] [S,] N, Q with L = {L}")
+        n, q = core[-2], core[-1]
+        s = core[0] if len(core) == 3 else 1
+        return (n * q * s if batched else 0), n * q, s, n, q, len(core) == 3
+    v1, v2 = view(x1, x1_batched), view(x2, x2_batched)
+    S = max(v1[2], v2[2])
+    if v1[4] != v2[4] or v1[2] not in (1, S) or v2[2] not in (1, S):
+        raise ValueError(f"gp_kernel_matrix: operands {tuple(x1.shape)} and "
+                         f"{tuple(x2.shape)} do not broadcast")
+    N1, N2 = v1[3], v2[3]
+    for m, n in ((row_mask, N1), (col_mask, N2)):
+        if m is not None and tuple(m.shape) != (S, n):
+            raise ValueError(f"gp_kernel_matrix: a mask of shape "
+                             f"{tuple(m.shape)}, expected {(S, n)}")
+    batch = (S,) if v1[5] or v2[5] else ()
+    masks = (0 if row_mask is None and col_mask is None else
+             3 if row_mask is None else 1 if col_mask is None else 2)
+    return _GpGeo(L, S, N1, N2, v1[4], v1[0], v1[1] if v1[2] > 1 else 0,
+                  v2[0], v2[1] if v2[2] > 1 else 0, masks,
+                  (L,) + batch + (N1, N2))
+
+
+def _geo_args(g: _GpGeo):
+    return (g.L, g.S, g.N1, g.N2, g.Q, _LongLong(g.x1l), _LongLong(g.x1s),
+            _LongLong(g.x2l), _LongLong(g.x2s), g.masks)
+
+
+def _spec_array(flat):
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def _gp_backward(G, theta, x1, x2, rm, cm, chunks, geo: _GpGeo, dtheta,
+                 x2_like, pscale=1.0):
+    """The launches of one side's backward: into ``dtheta`` (when given)
+    the raw parameters' gradient times ``pscale``, and x2's (returned,
+    shaped like ``x2_like``, when given).  A batched x2's gradient takes a
+    launch of its own, with the batch folded into the latents."""
+    dev, dt = theta.device, theta.dtype
+    fold = geo.S if x2_like is not None and geo.x2s else 1
+    plan = [(1, dtheta, x2_like is not None and fold == 1)]
+    if fold > 1:
+        plan.append((fold, None, True))
+    dx = None
+    for f, dth, want_dx in plan:
+        if dth is None and not want_dx:
+            continue
+        g = geo._replace(S=1) if f > 1 else geo
+        Lz = geo.L * f
+        tiles, chunks_r = -(-g.N2 // TILE), -(-(g.S * g.N1) // GP_ROWS)
+        part, tile_part, cnt = _scratch(
+            torch.empty(Lz * chunks_r * tiles * TILE * GP_NV,
+                        dtype=torch.float64, device=dev),
+            torch.empty(Lz * tiles * GP_MAX["params"], dtype=torch.float64,
+                        device=dev),
+            torch.zeros(Lz * tiles + Lz, dtype=torch.int32, device=dev))
+        dx = (torch.empty((Lz, g.N2, g.Q), dtype=dt, device=dev) if want_dx
+              else None)
+        for k, ch in enumerate(chunks):
+            rows = slice(ch.p0, ch.p0 + len(ch.rows))
+            _launch("gp_kernel_bwd", G, theta.element_size(),
+                    _spec_array(ch.flat), theta[rows], x1, x2, rm, cm, G,
+                    None if dth is None else dth[rows], dx, pscale, part,
+                    tile_part, cnt, *_geo_args(g), f, int(k > 0))
+    if x2_like is None:
+        return None
+    dx = dx.reshape((geo.L, fold, geo.N2, geo.Q) if fold > 1 else
+                    (geo.L, geo.N2, geo.Q))
+    if not geo.x2l:      # not batched over the latents: their sum
+        dx = dx.sum(dim=0)
+    return dx.reshape(x2_like.shape)
+
+
+class _GpKernel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, theta, x1, x2, rm, cm, chunks, geo):
+        out = torch.empty(geo.shape, dtype=theta.dtype, device=theta.device)
+        for k, ch in enumerate(chunks):
+            _launch("gp_kernel_fwd", out, theta.element_size(),
+                    _spec_array(ch.flat), theta[ch.p0:ch.p0 + len(ch.rows)],
+                    x1, x2, rm, cm, out, *_geo_args(geo), int(k > 0))
+        ctx.chunks, ctx.geo = chunks, geo
+        # one matrix of x against itself under symmetric masks
+        ctx.symmetric = x1 is x2 and rm is cm
+        ctx.save_for_backward(theta, x1, x2, rm, cm)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        theta, x1, x2, rm, cm = ctx.saved_tensors
+        geo, chunks = ctx.geo, ctx.chunks
+        need_t, need_x1, need_x2 = ctx.needs_input_grad[:3]
+        g = g.contiguous()
+        dtheta = torch.empty_like(theta) if need_t else None
+        if need_x1 and ctx.symmetric:
+            # x's gradient is one column reduction of G + G^T, the
+            # parameters' half of its
+            dx = _gp_backward(g + g.mT, theta, x1, x2, rm, cm, chunks, geo,
+                              dtheta, x2, pscale=0.5)
+            return dtheta, None, dx, None, None, None, None
+        dx2 = _gp_backward(g, theta, x1, x2, rm, cm, chunks, geo, dtheta,
+                           x2 if need_x2 else None)
+        dx1 = None
+        if need_x1:
+            # x1's gradient is x2's of the transposed matrix
+            dx1 = _gp_backward(g.mT.contiguous(), theta, x2, x1, cm, rm,
+                               chunks, geo.transposed(), None, x1)
+        return dtheta, dx1, dx2, None, None, None, None
+
+
+def gp_kernel_matrix(spec, params, x1, x2, x1_batched: bool = False,
+                     x2_batched: bool = False, row_mask=None,
+                     col_mask=None):
+    """The latent-batched kernel matrix ``kernel_matrix(spec, params, x1,
+    x2, ...)`` [L, *, N1, N2] times the padding masks (``row_mask``
+    [S, N1] over the rows, ``col_mask`` [S, N2] over the columns).  The
+    kernel on CUDA where it takes the dtype (operands [L,] [S,] N, Q), in
+    one launch a few components, else the plain version."""
+    leaves = [v for p in params for v in p.values()]
+    if not spec.components:     # zeros, as the plain version gives them
+        return gp_kernel_matrix_plain(spec, params, x1, x2, x1_batched,
+                                      x2_batched, row_mask, col_mask)
+    if not _uses_kernel(True, x1, "gp_kernel_plain", x2, row_mask,
+                        col_mask, *leaves):
+        return gp_kernel_matrix_plain(spec, params, x1, x2, x1_batched,
+                                      x2_batched, row_mask, col_mask)
+    geo = _gp_geometry(leaves[0].shape[0], x1, x2, x1_batched, x2_batched,
+                       row_mask, col_mask)
+    chunks = _gp_chunks(spec)
+    theta = torch.stack([params[c][k] for ch in chunks for c, k in ch.rows])
+    masks = [m.contiguous() if m is not None else None
+             for m in (row_mask, col_mask)]
+    return _GpKernel.apply(theta, x1.contiguous(), x2.contiguous(), *masks,
+                           tuple(chunks), geo)

@@ -60,10 +60,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from hlax_torch.ops.counters import Counters
 from hlax_torch.ops.cuda_build import check_launch, load_library
 
 # the guard's floor relative to max(diag A), by dtype; must match
@@ -90,54 +91,16 @@ SMEM_PER_BLOCK = 232_448  # an H100 block's dynamic shared memory, bytes
 DTYPES = (torch.float32, torch.float64)  # what the kernels take
 
 # Kernel launches and plain-version calls on CUDA tensors since the last
-# ``reset_counters``: a run reads them to show which path it took.  A wrapper
-# counts when it launches; under a CUDA graph that is once, at capture, and
-# the graph's runner adds the captured counts at each replay
-# (``take_counts_since``, ``add_counts``).
-LAUNCHES = {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
-            "chol_inv_bwd_cuda": 0}
-# the same launches by input shape and dtype:
-# {(kernel, shape, "float32" or "float64"): launches}
-LAUNCHES_BY_SHAPE: Dict[Tuple[str, Tuple[int, ...], str], int] = {}
-PLAIN_CUDA_CALLS = {"chol_inv_plain": 0, "chol_inv_bwd_plain": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_CUDA_CALLS):
-        for k in d:
-            d[k] = 0
-    LAUNCHES_BY_SHAPE.clear()
-
-
-def counts_snapshot():
-    """The three counters as they stand, for ``take_counts_since``."""
-    return dict(LAUNCHES), dict(LAUNCHES_BY_SHAPE), dict(PLAIN_CUDA_CALLS)
-
-
-def take_counts_since(before):
-    """What the counters gained since the snapshot ``before``, taken back
-    out of them: the launches a CUDA graph's capture recorded, which ran
-    nothing.  ``add_counts`` adds them back for each replay."""
-    gained = tuple({k: v - b.get(k, 0) for k, v in now.items()
-                    if v != b.get(k, 0)}
-                   for now, b in zip(counts_snapshot(), before))
-    for d, b in zip((LAUNCHES, LAUNCHES_BY_SHAPE, PLAIN_CUDA_CALLS), before):
-        d.clear()
-        d.update(b)
-    return gained
-
-
-def add_counts(gained, times: int = 1) -> None:
-    """Add ``times`` times the counts ``take_counts_since`` returned."""
-    for d, g in zip((LAUNCHES, LAUNCHES_BY_SHAPE, PLAIN_CUDA_CALLS), gained):
-        for k, v in g.items():
-            d[k] = d.get(k, 0) + v * times
-
-
-def _count_launch(name: str, t: torch.Tensor) -> None:
-    LAUNCHES[name] += 1
-    key = (name, tuple(t.shape), str(t.dtype).removeprefix("torch."))
-    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+# ``reset_counters``, and the launches by input shape and dtype
+# {(kernel, shape, "float32" or "float64"): launches}: a run reads them to
+# show which path it took (``hlax_torch.ops.counters``).
+_COUNTERS = Counters(("chol_inv_small_cuda", "chol_inv_mid_cuda",
+                      "chol_inv_bwd_cuda"),
+                     ("chol_inv_plain", "chol_inv_bwd_plain"))
+LAUNCHES = _COUNTERS.launches
+LAUNCHES_BY_SHAPE = _COUNTERS.by_shape
+PLAIN_CUDA_CALLS = _COUNTERS.plain
+reset_counters = _COUNTERS.reset
 
 
 class MidPlan(NamedTuple):
@@ -312,7 +275,7 @@ def _launch(name: str, entry: str, a: torch.Tensor, plan):
     code = fn(a.data_ptr(), l.data_ptr(), il.data_ptr(), batch, n,
               a.element_size(), *plan, stream)
     check_launch(lib, entry, code)
-    _count_launch(f"{name}_cuda", a)
+    _COUNTERS.count(f"{name}_cuda", a)
     return l, il
 
 
@@ -408,7 +371,7 @@ def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
               a_bar.data_ptr(), batch, n, l.element_size(), plan.np,
               plan.grid, plan.threads, plan.smem, stream)
     check_launch(lib, "chol_inv_bwd_launch", code)
-    _count_launch("chol_inv_bwd_cuda", l)
+    _COUNTERS.count("chol_inv_bwd_cuda", l)
     return a_bar
 
 

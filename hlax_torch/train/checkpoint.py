@@ -64,12 +64,14 @@ def restore(path: str, state: TrainState, name: str = FINAL_NAME) -> bool:
                 dst[k].copy_(src[k])
         for k in ("raw_noise", "zt", "m", "H"):
             getattr(state, k).copy_(sd[k])
-    # the saved param groups carry the saving run's capturable flag; this
-    # optimizer keeps its own (a CUDA run's checkpoint restores on the CPU)
-    caps = [g["capturable"] for g in state.optimizer.param_groups]
+    # the saved param groups carry the saving run's capturable and fused
+    # flags; this optimizer keeps its own (a CUDA run's checkpoint restores
+    # on the CPU)
+    flags = [{k: g.get(k) for k in ("capturable", "fused")}
+             for g in state.optimizer.param_groups]
     state.optimizer.load_state_dict(sd["optimizer"])
-    for g, cap in zip(state.optimizer.param_groups, caps):
-        g["capturable"] = cap
+    for g, own in zip(state.optimizer.param_groups, flags):
+        g.update(own)
     place_adam_steps(state.optimizer)
     state.generator.set_state(sd["generator"])
     state.step = sd["step"]

@@ -10,10 +10,15 @@
     ``nat_grad_f64`` runs that chain in float64 whatever the GP dtype.
 
 The step updates the state in place: every tensor of the state (parameters,
-their ``.grad``, Adam's moments and step count, m, H) keeps its storage from
-step to step, which is what lets ``make_train_epoch`` capture the step in a
-CUDA graph (hlax's one-dispatch epoch, ``hlax/train/step.py:297-332``).
-``train_epoch`` runs the same steps eagerly, one batch at a time.
+Adam's moments and step count, m, H) keeps its storage from step to step,
+which is what lets ``make_train_epoch`` capture the step in a CUDA graph
+(hlax's one-dispatch epoch, ``hlax/train/step.py:297-332``).  The gradients
+are not state: the backward pass writes each one once into a tensor of its
+own (``write_grads``), as hlax's ``jax.grad`` returns fresh gradients, and
+Adam reads it from ``.grad``; under a graph that tensor lies in the graph's
+memory pool, at the same address every replay.  On CUDA Adam is PyTorch's
+fused, capturable one.  ``train_epoch`` runs the same steps eagerly, one
+batch at a time.
 
 On a (data x latent) mesh (``hlax_torch.parallel.mesh``) the step takes
 this rank's subjects and its latents of the GP (``shard_state``) and gives
@@ -32,10 +37,11 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from hlax_torch.eval import metrics as mx
 from hlax_torch.gp import elbo as gp_elbo
 from hlax_torch.gp import kernels as gp_kernels
 from hlax_torch.models.hlvae import HLVAE, nll_from_log_p
+from hlax_torch.ops import fusion
+from hlax_torch.profiling import region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +64,10 @@ class TrainConfig:
     # iK/B_mat/iH compositions and the (m, H) update); no effect when
     # gp_dtype is already float64
     nat_grad_f64: bool = False
+    # the bound's and the natural-gradient update's factorizations through
+    # the Cholesky kernels (floored pivots), as hlax's Pallas path; False:
+    # the library's unguarded Cholesky (gp.elbo.library_chol_inv)
+    use_pallas_chol: bool = True
 
     def __post_init__(self):
         if self.eps is None:
@@ -92,15 +102,20 @@ def trainable(state: TrainState, cfg: TrainConfig) -> List[torch.Tensor]:
 
 
 def make_optimizer(state: TrainState, cfg: TrainConfig) -> torch.optim.Adam:
-    """Adam over ``trainable``.  On CUDA it is ``capturable`` (its step
-    count and bias corrections stay on the device, so a CUDA graph can
-    capture the update) and its state is made here, before any step, at
-    fixed addresses (``place_adam_steps``)."""
+    """Adam over ``trainable``.  On CUDA it is ``fused`` (one multi-tensor
+    kernel for every parameter: hlax's optax update is one XLA fusion) and
+    ``capturable`` (its step count and bias corrections stay on the device,
+    so a CUDA graph can capture the update), and its state is made here,
+    before any step, at fixed addresses (``place_adam_steps``).  On the CPU
+    it is PyTorch's default Adam, whose arithmetic the parity tests hold to
+    hlax's."""
     params = trainable(state, cfg)
     for t in params:
         t.requires_grad_(True)
-    opt = torch.optim.Adam(params, lr=cfg.lr, capturable=params[0].is_cuda)
-    if params[0].is_cuda:
+    cuda = params[0].is_cuda
+    opt = torch.optim.Adam(params, lr=cfg.lr, capturable=cuda,
+                           fused=True if cuda else None)
+    if cuda:
         for p in params:
             opt.state[p] = {"step": torch.zeros((), device=p.device),
                             "exp_avg": torch.zeros_like(p),
@@ -112,8 +127,11 @@ def make_optimizer(state: TrainState, cfg: TrainConfig) -> torch.optim.Adam:
 def place_adam_steps(opt: torch.optim.Adam) -> None:
     """Each Adam step count where its mode keeps it: capturable, on the
     parameter's device, in float64 for a float64 parameter (Adam's own
-    float32 would round that parameter's bias corrections to float32),
-    else float32; not capturable, on the CPU as Adam makes it."""
+    float32 would round that parameter's bias corrections to float32)
+    unless fused (the fused kernel reads a float32 count, exact for every
+    step count below 2**24, and forms the bias corrections in the
+    parameter's dtype), else float32; not capturable, on the CPU as Adam
+    makes it."""
     for group in opt.param_groups:
         for p in group["params"]:
             st = opt.state.get(p)
@@ -123,7 +141,28 @@ def place_adam_steps(opt: torch.optim.Adam) -> None:
             st["step"] = st["step"].to(
                 device=p.device if cap else "cpu",
                 dtype=torch.float64 if cap and p.dtype == torch.float64
-                else torch.float32)
+                and not group.get("fused") else torch.float32)
+
+
+def write_grads(loss: torch.Tensor, params: List[torch.Tensor]) -> None:
+    """Each parameter's gradient of ``loss`` into its ``.grad``, written
+    once: the backward pass's own tensors (``torch.autograd.grad``), not
+    added into zeroed ones, as hlax's ``jax.grad`` returns fresh gradients.
+    Zeros for a parameter the loss does not reach (every parameter on a
+    replica of a replicated GP, whose loss needs no gradient).  A gradient
+    whose strides are not its parameter's (the fused conv's kernels come
+    back permuted) is copied to them, as backward's accumulation does: the
+    fused Adam takes only matching layouts."""
+    if loss.requires_grad:
+        grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                    materialize_grads=True)
+    else:
+        grads = [torch.zeros_like(p) for p in params]
+    for p, g in zip(params, grads):
+        if g.stride() != p.stride():
+            g = torch.empty_strided(p.shape, p.stride(), dtype=g.dtype,
+                                    device=g.device).copy_(g)
+        p.grad = g
 
 
 def _rbf_dims(spec0, spec1):
@@ -174,8 +213,9 @@ def init_train_state(model: HLVAE, spec0, spec1,
 def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
                     mesh=None):
     """Returns ``step(state, batch, eps=None) -> metrics``; it updates
-    ``state`` in place, every tensor at its storage (``.grad`` is zeroed,
-    not dropped; the natural-gradient (m, H) are copied into m and H).  ``batch`` holds S*T_max flat rows (data, mask,
+    ``state`` in place, every tensor at its storage (the natural-gradient
+    (m, H) are copied into m and H; ``.grad`` is written anew,
+    ``write_grads``).  ``batch`` holds S*T_max flat rows (data, mask,
     theta_mask, labels) and valid [S, T_max]; ``eps`` [S*T_max, z_dim]
     injects the reparameterization noise (else drawn from
     ``state.generator``).  Metrics are 0-dim tensors, left on the device.
@@ -205,17 +245,8 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
     last_kind = list(dict.fromkeys(kinds_raw))[-1]
 
     def recon_metric(params, data, mask, row_valid):
-        mean_rec, _ = mx.statistics(params, layout, model.cfg.conv)
-        truth = mx.discrete_transform(data, layout)
-        true_mask = row_valid[:, None] * torch.ones_like(mask)
-        _, err_missing, partial = mx.error_computation(
-            truth, mean_rec, layout, mask * row_valid[:, None],
-            conv=model.cfg.conv, true_mask=true_mask, sums=sums)
-        n_rows = row_valid.sum()
-        if sums is not None:
-            n_rows = sums.subjects(n_rows)
-        recon = partial[last_kind]["error_all"].sum() * n_rows
-        return recon, err_missing.sum()
+        return fusion.recon_metric(layout, model.cfg.conv, params, data,
+                                   mask, row_valid, last_kind, sums)
 
     def reducer(state):
         from hlax_torch.parallel.mesh import make_gradient_reducer
@@ -228,7 +259,6 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
 
     def step(state: TrainState, batch, eps: Optional[torch.Tensor] = None):
         opt = state.optimizer
-        opt.zero_grad(set_to_none=False)
         if mesh is not None and eps is None:
             rows = batch["data"].shape[0]
             w = state.vae.mean_layer.weight
@@ -238,51 +268,58 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
                                                (mesh.d + 1) * rows]
         out = state.vae(batch["data"], batch["mask"], batch["theta_mask"],
                         eps=eps, generator=state.generator, sums=sums)
-        nll = nll_from_log_p(out["log_p_x"]).sum()
+        with region("nll"):
+            nll = nll_from_log_p(out["log_p_x"]).sum()
         if sums is not None:
             nll = sums.subjects(nll)
 
         valid = batch["valid"]
         S, T = valid.shape
         gdt = cfg.gp_dtype
-        x_st = batch["labels"].reshape(S, T, -1).to(gdt)
-        mu_st = out["mu"].reshape(S, T, -1).to(gdt)
-        log_v_st = out["log_var"].reshape(S, T, -1).to(gdt)
-        if lat is not None:
-            mu_st, log_v_st = mu_st[..., lat], log_v_st[..., lat]
-        H = state.H if cfg.natural_gradient else state.H @ state.H.mT
-        noise = gp_kernels.noise_value(state.raw_noise, cfg.constrain_scales)
-        kld, gm, gH, iH = gp_elbo.kld_upper_bound(
-            spec0, state.k0, spec1, state.k1, noise, state.m, H, state.zt,
-            x_st, valid.to(gdt), mu_st, log_v_st, cfg.P_tot, cfg.N_tot,
-            cfg.eps, natural_gradient=cfg.natural_gradient,
-            nat_grad_dtype=torch.float64 if cfg.nat_grad_f64 else None,
-            sums=sums)
+        with region("gp_bound"):
+            x_st = batch["labels"].reshape(S, T, -1).to(gdt)
+            mu_st = out["mu"].reshape(S, T, -1).to(gdt)
+            log_v_st = out["log_var"].reshape(S, T, -1).to(gdt)
+            if lat is not None:
+                mu_st, log_v_st = mu_st[..., lat], log_v_st[..., lat]
+            H = state.H if cfg.natural_gradient else state.H @ state.H.mT
+            noise = gp_kernels.noise_value(state.raw_noise,
+                                           cfg.constrain_scales)
+            kld, gm, gH, iH = gp_elbo.kld_upper_bound(
+                spec0, state.k0, spec1, state.k1, noise, state.m, H,
+                state.zt, x_st, valid.to(gdt), mu_st, log_v_st, cfg.P_tot,
+                cfg.N_tot, cfg.eps, natural_gradient=cfg.natural_gradient,
+                nat_grad_dtype=torch.float64 if cfg.nat_grad_f64 else None,
+                sums=sums, use_pallas_chol=cfg.use_pallas_chol)
 
         P_batch = (valid.sum(dim=1) > 0).to(nll.dtype).sum()
         if sums is not None:
             P_batch = sums.subjects(P_batch)
         nll_scaled = nll * cfg.P_tot / P_batch
         loss = nll_scaled + kld.to(nll.dtype)
-        if loss.requires_grad:   # not on a replica of a replicated GP
-            loss.backward()
-        if mesh is not None:
-            reducer(state)()
-        opt.step()
+        with region("backward"):
+            write_grads(loss, opt.param_groups[0]["params"])
+            if mesh is not None:
+                reducer(state)()
+        with region("adam"):
+            opt.step()
 
         with torch.no_grad():
-            row_valid = valid.reshape(-1).to(batch["mask"].dtype)
-            params = [tuple(t.detach() for t in p) if isinstance(p, tuple)
-                      else p.detach() for p in out["params"]]
-            recon, miss = recon_metric(params, batch["data"], batch["mask"],
-                                       row_valid)
+            with region("recon_metric"):
+                row_valid = valid.reshape(-1).to(batch["mask"].dtype)
+                params = [tuple(t.detach() for t in p) if isinstance(p, tuple)
+                          else p.detach() for p in out["params"]]
+                recon, miss = recon_metric(params, batch["data"],
+                                           batch["mask"], row_valid)
             if cfg.natural_gradient:
-                m_new, H_new = gp_elbo.natural_gradient_update(
-                    state.m, state.H, gm.detach(), gH.detach(),
-                    cfg.natural_gradient_lr, iH=iH.detach(),
-                    jitter=cfg.nat_grad_jitter)
-                state.m.copy_(m_new)
-                state.H.copy_(H_new)
+                with region("natural_gradient"):
+                    m_new, H_new = gp_elbo.natural_gradient_update(
+                        state.m, state.H, gm.detach(), gH.detach(),
+                        cfg.natural_gradient_lr, iH=iH.detach(),
+                        jitter=cfg.nat_grad_jitter,
+                        use_pallas_chol=cfg.use_pallas_chol)
+                    state.m.copy_(m_new)
+                    state.H.copy_(H_new)
         state.step += 1
         return {"loss": loss.detach(), "nll": nll_scaled.detach(),
                 "kld": kld.detach(), "recon": recon, "miss_recon": miss}
@@ -296,8 +333,9 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
 
 
 METRICS = ("loss", "nll", "kld", "recon", "miss_recon")
-# eager steps before the first capture: the first step creates .grad and
-# Adam's state, the second runs the step as every later one runs
+# eager steps before the first capture: the first makes the libraries'
+# handles and workspaces (cuBLAS, cuDNN, cuSOLVER) outside the capture, the
+# second runs the step as every later one runs
 GRAPH_WARMUP = 2
 
 
@@ -346,10 +384,9 @@ class _Replay(NamedTuple):
 
 
 def _state_tensors(state: TrainState, staged) -> List[torch.Tensor]:
-    """Every tensor a captured step reads or writes in place."""
+    """Every tensor a captured step reads or writes in place (not the
+    gradients: the graph writes them into its own pool)."""
     ts = list(state.vae.parameters()) + list(state.vae.buffers())
-    ts += [p.grad for p in state.optimizer.param_groups[0]["params"]
-           if p.grad is not None]
     ts += [v for p in state.k0 + state.k1 for v in p.values()]
     ts += [state.raw_noise, state.zt, state.m, state.H]
     ts += [v for st in state.optimizer.state.values() for v in st.values()
@@ -372,7 +409,7 @@ class _EpochGraphs:
         _ALL_GRAPHS.add(self)
 
     def _capture(self, state, staged, feed, k: int) -> _Replay:
-        from hlax_torch.ops import linalg_small as ls
+        from hlax_torch.ops import counters
 
         if not self.step.capturable(state):
             raise RuntimeError(
@@ -382,7 +419,7 @@ class _EpochGraphs:
         inputs = {name: torch.empty_like(v[:k]) for name, v in feed.items()}
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
-        step_count, before = state.step, ls.counts_snapshot()
+        step_count, before = state.step, counters.snapshot_all()
         self.stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.graph(graph, stream=self.stream,
                               capture_error_mode=self.capture_error_mode):
@@ -390,10 +427,10 @@ class _EpochGraphs:
                 state, *_step_inputs(staged, inputs, u))) for u in range(k)],
                 dim=1)
         state.step = step_count
-        return _Replay(graph, inputs, out, ls.take_counts_since(before))
+        return _Replay(graph, inputs, out, counters.take_all_since(before))
 
     def __call__(self, state, staged, feed, nb: int, out: torch.Tensor):
-        from hlax_torch.ops import linalg_small as ls
+        from hlax_torch.ops import counters
 
         if self.stream is None:
             self.stream = torch.cuda.Stream()
@@ -428,7 +465,7 @@ class _EpochGraphs:
                 buf.copy_(feed[name][j:j + k])
             rep.graph.replay()
             out[:, j:j + k].copy_(rep.out)
-            ls.add_counts(rep.counts)
+            counters.add_all(rep.counts)
             state.step += k
             j += k
 
@@ -489,7 +526,8 @@ def make_train_epoch(model: HLVAE, spec0, spec1, cfg: TrainConfig,
     replay, and drawing its noise from ``state.generator``, registered with
     the graph.  So no step runs twice and none is lost: the step count and
     the trajectory are the eager ones.  Capture records each kernel launch
-    once, and each replay adds those counts to ``linalg_small``'s counters.
+    once, and each replay adds those counts to the kernels' counters
+    (``hlax_torch.ops.counters``).
     The graphs hold the addresses of the state's tensors: restore a
     checkpoint before the first call, not after (a later call raises if
     they moved).  On the CPU the same steps run eagerly.

@@ -195,3 +195,50 @@ def test_all_negative_window_grad_is_zero():
     y = jnp.asarray(wins)[:, None, None, :, :, None]
     g = jax.grad(lambda y: jnp.sum(jcf._relu_max_uv(y)))(y)
     np.testing.assert_array_equal(got, np.asarray(g)[:, 0, 0, :, :, 0])
+
+
+def test_written_gradients_take_their_parameters_strides():
+    """The fused conv's kernel gradients come back from the backward pass
+    permuted; the train step writes each gradient with its parameter's
+    strides (the fused Adam on the card takes only matching layouts), the
+    same values."""
+    from hlax_torch.data import dataset as tds
+    from hlax_torch.data import generate as tgen
+    from hlax_torch.gp.kernels import build_kernel_specs
+    from hlax_torch.train import step as tstep
+
+    out = tgen.generate(num_3=2, num_6=2, datatype_config="D4", seed=2)
+    labels = np.nan_to_num(out["labels"][:, tds.HEALTH_MNIST_LABEL_ORDER])
+    het = t_encode_raw(out["data"], tgen.types_table("D4"),
+                       miss_mask=out["mask"])
+    data = tds.LongitudinalDataset(het=het, labels=labels, id_covariate=2)
+    spec0, spec1 = build_kernel_specs(
+        [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2}], [], [], 2)
+    cfg = tstep.TrainConfig(latent_dim=4, M=12, P_tot=float(data.P),
+                            N_tot=float(len(data)), id_covariate=2)
+    model = thlvae.HLVAE(thlvae.HLVAEConfig(layout=data.layout, z_dim=4,
+                                            h_dims=(8,), fused_conv=True),
+                         torch.Generator().manual_seed(0), "cpu")
+    state = tstep.init_train_state(model, spec0, spec1,
+                                   next(tds.subject_batches(data, 2)), cfg)
+    batch = tds.gather_batch(tds.stage_dataset(data, torch.float32, "cpu"),
+                             torch.arange(2))
+    params = state.optimizer.param_groups[0]["params"]
+    raw = {}
+
+    def spy(loss, ps):
+        gs = torch.autograd.grad(loss, ps, allow_unused=True,
+                                 materialize_grads=True, retain_graph=True)
+        raw.update({id(p): g for p, g in zip(ps, gs)})
+        write(loss, ps)
+
+    write, tstep.write_grads = tstep.write_grads, spy
+    try:
+        tstep.make_train_step(model, spec0, spec1, cfg)(state, batch)
+    finally:
+        tstep.write_grads = write
+    permuted = [p for p in params if raw[id(p)].stride() != p.stride()]
+    assert len(permuted) == 4          # the four conv kernels
+    for p in params:
+        assert p.grad.stride() == p.stride()
+        assert torch.equal(p.grad, raw[id(p)])

@@ -383,68 +383,135 @@ def cudnn_deterministic():
     torch.backends.cudnn.deterministic = False
 
 
-@pytest.mark.parametrize("noise", ["injected", "generator"])
-def test_train_epoch_graphs_equal_eager_steps(gen, cudnn_deterministic,
-                                              noise):
+def _graphs_against_eager(gen, noise, data=None, conv=True, subjects=2,
+                          **cfg_kw):
     """``make_train_epoch``'s graphs (2 steps a graph, and the remainder's)
     against the same steps run eagerly, toy widths in float64 from one
-    seed, both with cuDNN's deterministic algorithms: the losses, m, H and
-    the VAE's parameters, the step count, the kernel launches counted and
-    the generator's state."""
+    seed on ``data`` (toy D4 by default): the losses, m, H and the VAE's
+    parameters at 1e-10, the step count, the kernel launches counted (the
+    Cholesky kernels' and the fused ops') and the generator's state.
+    ``cfg_kw`` sets more fields of the TrainConfig."""
     import numpy as np
 
     from hlax_torch.data import dataset as ds
-    from hlax_torch.data import generate as dgen
-    from hlax_torch.data.reader import encode_raw
     from hlax_torch.gp.kernels import build_kernel_specs
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+    from hlax_torch.ops import fusion
     from hlax_torch.train import step as tstep
 
-    out = dgen.generate(num_3=3, num_6=3, datatype_config="D4", seed=2)
-    labels = np.nan_to_num(out["labels"][:, ds.HEALTH_MNIST_LABEL_ORDER])
-    het = encode_raw(out["data"], dgen.types_table("D4"),
-                     miss_mask=out["mask"])
-    data = ds.LongitudinalDataset(het=het, labels=labels, id_covariate=2)
+    data = _toy_d4() if data is None else data
     spec0, spec1 = build_kernel_specs(
         [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2},
                        {"cont_covariate": 0, "cat_covariate": 3},
                        {"cont_covariate": 1, "cat_covariate": 4}], [], [], 2)
     cfg = tstep.TrainConfig(latent_dim=8, M=30, P_tot=float(data.P),
                             N_tot=float(len(data)), id_covariate=2,
-                            constrain_scales=True, gp_dtype=torch.float64)
+                            constrain_scales=True, gp_dtype=torch.float64,
+                            **cfg_kw)
 
     def state():
-        model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,)),
+        model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,),
+                                  conv=conv),
                       torch.Generator("cuda").manual_seed(0),
                       "cuda").double()
-        return tstep.init_train_state(model, spec0, spec1,
-                                      next(ds.subject_batches(data, 2)), cfg)
+        return tstep.init_train_state(
+            model, spec0, spec1, next(ds.subject_batches(data, subjects)),
+            cfg)
+
+    def launches():
+        return dict(tls.LAUNCHES_BY_SHAPE), dict(fusion.LAUNCHES_BY_SHAPE)
 
     staged = ds.stage_dataset(data, torch.float64, "cuda")
     rng = np.random.default_rng(0)
-    idx = [np.stack(list(ds.epoch_subject_batches(data.P, 2, rng)))
+    idx = [np.stack(list(ds.epoch_subject_batches(data.P, subjects, rng)))
            for _ in range(2)]
-    eps = [torch.randn((3, 2 * data.T_max, 8), generator=gen, device="cuda",
-                       dtype=torch.float64) if noise == "injected" else None
-           for _ in idx]
+    nb = len(idx[0])
+    eps = [torch.randn((nb, subjects * data.T_max, 8), generator=gen,
+                       device="cuda", dtype=torch.float64)
+           if noise == "injected" else None for _ in idx]
     a, b = state(), state()
     step = tstep.make_train_step(a.vae, spec0, spec1, cfg)
     epoch = tstep.make_train_epoch(b.vae, spec0, spec1, cfg, unroll=2)
     tls.reset_counters()
+    fusion.reset_counters()
     want = [step(a, ds.gather_batch(staged, torch.as_tensor(i, device="cuda")),
                  eps=None if e is None else e[j])["loss"].item()
             for ib, e in zip(idx, eps) for j, i in enumerate(ib)]
-    launches = dict(tls.LAUNCHES_BY_SHAPE)
+    eager = launches()
     tls.reset_counters()
+    fusion.reset_counters()
     got = np.concatenate([epoch(b, staged, ib, eps=e)["loss"]
                           for ib, e in zip(idx, eps)])
-    assert dict(tls.LAUNCHES_BY_SHAPE) == launches and launches
-    assert a.step == b.step == 6
+    assert launches() == eager
+    assert a.step == b.step == 2 * nb
     np.testing.assert_allclose(got, want, rtol=1e-10)
     for x, y in [(a.m, b.m), (a.H, b.H)] + list(zip(a.vae.parameters(),
                                                     b.vae.parameters())):
         torch.testing.assert_close(y, x, rtol=1e-10, atol=1e-12)
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    return eager
+
+
+@pytest.mark.parametrize("noise", ["injected", "generator"])
+def test_train_epoch_graphs_equal_eager_steps(gen, cudnn_deterministic,
+                                              noise):
+    """The toy conv model's graph steps equal its eager steps; both go
+    through the Cholesky kernels and the fused ops."""
+    chol, fused = _graphs_against_eager(gen, noise)
+    assert chol and {k[0] for k in fused} >= {
+        "heads_cat_fwd_cuda", "heads_cat_bwd_cuda", "heads_real_fwd_cuda",
+        "heads_real_bwd_cuda", "rep_image_fwd_cuda", "rep_image_bwd_cuda",
+        "recon_metric_cuda", "recon_metric_finish_cuda"}
+
+
+def test_graphs_equal_eager_steps_without_pallas_chol(gen,
+                                                      cudnn_deterministic):
+    """--use_pallas_chol=False: the library's Cholesky captured in the
+    graphs, no Cholesky kernel launched."""
+    chol, _ = _graphs_against_eager(gen, "generator", use_pallas_chol=False)
+    assert not chol
+
+
+def test_mlp_graphs_equal_eager_steps(gen, cudnn_deterministic):
+    """The MLP model (--conv_hivae=False): its heads (the real head
+    de-normalized by the batch's moments), its metric and its GP go
+    through the fused kernels; it has no representation image."""
+    chol, fused = _graphs_against_eager(gen, "generator", conv=False)
+    names = {k[0] for k in fused}
+    assert chol and names == {
+        "heads_cat_fwd_cuda", "heads_cat_bwd_cuda", "heads_real_fwd_cuda",
+        "heads_real_bwd_cuda", "recon_metric_cuda",
+        "recon_metric_finish_cuda", "gp_kernel_fwd_cuda",
+        "gp_kernel_bwd_cuda"}
+
+
+def test_long_sequence_graphs_equal_eager_steps(gen, cudnn_deterministic):
+    """T = 200 (4 subjects, 2 a batch): the B blocks [8, 2, 200, 200] go
+    through the blocked composition on the mid kernel, captured."""
+    import numpy as np
+
+    from hlax_torch.data.dataset import LongitudinalDataset
+    from hlax_torch.data.reader import encode_raw
+
+    rng = np.random.default_rng(0)
+    T, P = 200, 4
+    n = T * P
+    types = ([{"type": "real", "dim": 1, "nclass": 1}] * 324
+             + [{"type": "cat", "dim": 1, "nclass": 5}] * 972)
+    raw = np.column_stack([rng.random((n, 324)) * 255,
+                           rng.integers(0, 5, (n, 972)).astype(float)])
+    het = encode_raw(raw, types,
+                     miss_mask=(rng.random((n, 1296)) > 0.25).astype(float))
+    labels = np.zeros((n, 6))
+    labels[:, 0] = np.tile(np.arange(T), P)
+    labels[:, 1] = np.repeat(rng.integers(-9, 11, P), T)
+    labels[:, 2] = np.repeat(np.arange(P), T)
+    labels[:, 3] = np.repeat(rng.integers(0, 2, P), T)
+    labels[:, 4] = np.repeat(rng.integers(0, 2, P), T)
+    data = LongitudinalDataset(het=het, labels=labels, id_covariate=2,
+                               conv=True)
+    chol, _ = _graphs_against_eager(gen, "generator", data=data)
+    assert any(k[1][-1] == 100 for k in chol)
 
 
 # ---- the fused conv stack and bfloat16 ---------------------------------------
@@ -738,3 +805,522 @@ def test_nccl_graph_mesh_epoch_equals_eager_mesh_epoch(gen,
     if dtype == torch.float64:
         for mode in ("eager", "epoch"):
             _against_single_process(ranks, mode, 2, epochs=2)
+
+
+# ---- the fused ops of the train step (hlax_torch.ops.fusion) ----------------
+
+# the canonical batch (20 subjects x 20) and an odd, ragged one
+FUSION_ROWS = [400, 37]
+
+
+def _fusion_case(rows, dtype, gen):
+    """A D4 conv model (z 8, hidden 16) in ``dtype`` with its head
+    parameters and log_vy drawn away from their inits, and ``rows`` rows of
+    D4 data (25 % missing) with decoder features y [rows, 1296, 5]."""
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+
+    data = _toy_d4(n_3=10, n_6=10)
+    model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(16,)),
+                  torch.Generator("cuda").manual_seed(0), "cuda").to(dtype)
+    with torch.no_grad():
+        for p in list(model.obs.values()) + list(model.rep_w.values()) \
+                + list(model.rep_b.values()) + [model.log_vy_real]:
+            p.add_(torch.randn(p.shape, generator=gen, device="cuda",
+                               dtype=dtype) * 0.5)
+    t = lambda a: torch.as_tensor(a[:rows], dtype=dtype, device="cuda")
+    het = data.het
+    y = torch.randn((rows, het.layout.n_raw, 5), generator=gen,
+                    device="cuda", dtype=dtype)
+    return model, y, t(het.data), t(het.mask), t(het.theta_mask)
+
+
+def _hold(name, got, plain, ref=None):
+    """float64: the kernel's result against its plain version's; float32:
+    the kernel's error against ``ref`` (the plain version in float64 on the
+    same inputs) within 4x the plain version's own plus 1e-6 of the
+    largest entry."""
+    scale = ref.abs().max().item() if ref is not None else \
+        plain.abs().max().item()
+    if ref is None:
+        torch.testing.assert_close(got, plain, rtol=1e-10,
+                                   atol=1e-12 * max(scale, 1e-30), msg=name)
+        return
+    err = (got.double() - ref).abs().max().item()
+    err_plain = (plain.double() - ref).abs().max().item()
+    assert err <= 4 * err_plain + 1e-6 * scale, (name, err, err_plain)
+
+
+def _heads_grads(model, out, cot):
+    lp, lpm = out[0], out[1]
+    if cot == "row sums":      # the train step's -sum(lp, dim=1).sum()
+        loss = -lp.sum(dim=1).sum()
+    else:
+        g = torch.Generator("cuda").manual_seed(5)
+        w1, w2 = (torch.randn(lp.shape, generator=g, device="cuda",
+                              dtype=lp.dtype) for _ in range(2))
+        loss = (lp * w1).sum() + (lpm * w2).sum()
+    params = list(model.obs.values()) + [model.log_vy_real]
+    return torch.autograd.grad(loss, params + [out[-1]], allow_unused=True)
+
+
+def _heads_run(model, y, data, mask, tmask, plain, cot):
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops.normalization import NormParams
+
+    y = y.detach().clone().requires_grad_(True)
+    fn = fusion.heads_loglik_plain if plain else fusion.heads_loglik
+    lp, lpm, params, theta = fn(model, y, tmask, data, mask,
+                                NormParams(None, None, None, None))
+    grads = _heads_grads(model, (lp, lpm, y), cot)
+    flat = [lp, lpm, theta, params[0], params[1][0], params[1][1]]
+    return [t.detach() for t in flat], [g for g in grads if g is not None]
+
+
+@pytest.mark.parametrize("cot", ["row sums", "random"])
+@pytest.mark.parametrize("rows", FUSION_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_heads_against_plain_version(gen, dtype, rows, cot):
+    """The heads, routing and likelihoods kernels (forward: lp, lpm,
+    theta, log_pi, the real means and variances; backward: y, every head
+    weight and bias, log_vy) against the plain version, float64 to 1e-10,
+    float32 within 4x the plain version's own error against float64."""
+    from hlax_torch.ops import fusion
+
+    model, y, data, mask, tmask = _fusion_case(rows, dtype, gen)
+    before = dict(fusion.LAUNCHES)
+    outs, grads = _heads_run(model, y, data, mask, tmask, False, cot)
+    torch.cuda.synchronize()
+    assert all(fusion.LAUNCHES[k] == before[k] + 1 for k in (
+        "heads_cat_fwd_cuda", "heads_cat_bwd_cuda", "heads_real_fwd_cuda",
+        "heads_real_bwd_cuda"))
+    p_outs, p_grads = _heads_run(model, y, data, mask, tmask, True, cot)
+    assert len(grads) == len(p_grads)
+    if dtype == torch.float64:
+        for i, (a, b) in enumerate(zip(outs + grads, p_outs + p_grads)):
+            _hold(f"output {i}", a, b)
+        return
+    m64 = _fusion_case(rows, torch.float64, gen)[0]
+    m64.load_state_dict({k: v.double() for k, v in
+                         model.state_dict().items()})
+    r_outs, r_grads = _heads_run(m64, y.double(), data.double(),
+                                 mask.double(), tmask.double(), True, cot)
+    for i, (a, b, r) in enumerate(zip(outs + grads, p_outs + p_grads,
+                                      r_outs + r_grads)):
+        _hold(f"output {i}", a, b, r)
+
+
+@pytest.mark.parametrize("rows", FUSION_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_rep_image_against_plain_version(gen, dtype, rows):
+    """The encoder's input image (normalization, one-hot representation,
+    pixel order) and its backward to the representation's weights, against
+    the plain version."""
+    from hlax_torch.ops import fusion
+
+    model, _, data, mask, _ = _fusion_case(rows, dtype, gen)
+    params = list(model.rep_w.values()) + list(model.rep_b.values())
+    g = torch.randn((rows, 1, 36, 36), generator=gen, device="cuda",
+                    dtype=dtype)
+
+    def run(m, fn, d, mk, gg):
+        img = fn(m, d, mk)
+        ps = list(m.rep_w.values()) + list(m.rep_b.values())
+        return [img.detach()] + list(torch.autograd.grad((img * gg).sum(),
+                                                         ps))
+
+    got = run(model, fusion.rep_image, data, mask, g)
+    assert fusion.LAUNCHES["rep_image_fwd_cuda"] and \
+        fusion.LAUNCHES["rep_image_bwd_cuda"]
+    plain = run(model, fusion.rep_image_plain, data, mask, g)
+    assert len(params) == 2
+    if dtype == torch.float64:
+        for i, (a, b) in enumerate(zip(got, plain)):
+            _hold(f"output {i}", a, b)
+        return
+    m64 = _fusion_case(rows, torch.float64, gen)[0]
+    m64.load_state_dict({k: v.double() for k, v in
+                         model.state_dict().items()})
+    ref = run(m64, fusion.rep_image_plain, data.double(), mask.double(),
+              g.double())
+    for i, (a, b, r) in enumerate(zip(got, plain, ref)):
+        _hold(f"output {i}", a, b, r)
+
+
+@pytest.mark.parametrize("rows", FUSION_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_recon_metric_against_plain_version(gen, dtype, rows):
+    """The recon and missing-imputation errors from the heads' parameters,
+    with the last rows padding (row_valid 0), against the plain version,
+    for either surviving type."""
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops.normalization import NormParams
+
+    model, y, data, mask, tmask = _fusion_case(rows, dtype, gen)
+    with torch.no_grad():
+        params = fusion.heads_loglik_plain(
+            model, y, tmask, data, mask, NormParams(None, None, None,
+                                                    None))[2]
+    rv = torch.ones(rows, dtype=dtype, device="cuda")
+    rv[-(rows // 5):] = 0.0
+    lay = model.cfg.layout
+    for last in ("cat", "real"):
+        before = dict(fusion.LAUNCHES)
+        got = fusion.recon_metric(lay, True, params, data, mask, rv, last)
+        # the column sums a launch a group, then the finish
+        assert fusion.LAUNCHES["recon_metric_cuda"] == \
+            before["recon_metric_cuda"] + 2
+        assert fusion.LAUNCHES["recon_metric_finish_cuda"] == \
+            before["recon_metric_finish_cuda"] + 1
+        plain = fusion.recon_metric_plain(lay, True, params, data, mask, rv,
+                                          last)
+        if dtype == torch.float64:
+            for a, b in zip(got, plain):
+                _hold(f"recon {last}", a, b)
+            continue
+        p64 = [params[0].double(), tuple(t.double() for t in params[1])]
+        ref = fusion.recon_metric_plain(lay, True, p64, data.double(),
+                                        mask.double(), rv.double(), last)
+        for a, b, r in zip(got, plain, ref):
+            _hold(f"recon {last}", a, b, r)
+
+
+def test_fused_ops_refuse_nothing_silently(gen):
+    """bfloat16 takes the plain versions on the card and is counted; a
+    kernel that is handed it is never launched."""
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops.normalization import NormParams
+
+    model, y, data, mask, tmask = _fusion_case(37, torch.float32, gen)
+    fusion.reset_counters()
+    model16 = model.to(torch.bfloat16)
+    fusion.heads_loglik(model16, y.bfloat16(), tmask.bfloat16(),
+                        data.bfloat16(), mask.bfloat16(),
+                        NormParams(None, None, None, None))
+    assert fusion.PLAIN_CUDA_CALLS["heads_loglik_plain"] == 1
+    assert not any(fusion.LAUNCHES.values())
+
+
+def _gp_case(L, S, T, M, dtype, gen):
+    """The canonical kernel structure's parameters drawn away from their
+    inits, padded covariates x [S, T, 6] (the last subject ragged),
+    inducing points z [L, M, 6] and the valid mask."""
+    from hlax_torch.gp import kernels as gk
+
+    spec0, spec1 = gk.build_kernel_specs(
+        [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2},
+                       {"cont_covariate": 0, "cat_covariate": 3},
+                       {"cont_covariate": 1, "cat_covariate": 4}], [], [], 2)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda",
+                                     dtype=torch.float64)
+    params = [[{k: (v + 0.3 * rnd(*v.shape)).to(dtype) for k, v in p.items()}
+               for p in gk.init_kernel_params(sp, L, torch.float64, "cuda")]
+              for sp in (spec0, spec1)]
+    x = torch.zeros((S, T, 6), device="cuda", dtype=torch.float64)
+    x[:, :, 0] = torch.arange(T, device="cuda")
+    x[:, :, 1] = torch.randint(-9, 11, (S, 1), generator=gen, device="cuda")
+    x[:, :, 2] = torch.arange(S, device="cuda")[:, None]
+    x[:, :, 3:5] = torch.randint(0, 2, (S, 1, 2), generator=gen,
+                                 device="cuda")
+    valid = torch.ones((S, T), device="cuda", dtype=torch.float64)
+    valid[-1, T // 2:] = 0.0
+    x = x * valid[:, :, None]
+    rows = x.reshape(-1, 6)[valid.reshape(-1) > 0]
+    pick = torch.randint(0, len(rows), (L, M), generator=gen, device="cuda")
+    z = rows[pick] + torch.cat([0.5 * rnd(L, M, 2),
+                                torch.zeros((L, M, 4), device="cuda",
+                                            dtype=torch.float64)], dim=-1)
+    return (spec0, spec1), params, x.to(dtype), z.to(dtype), valid.to(dtype)
+
+
+def _gp_run(fn, case, which):
+    (spec0, spec1), params, x, z, valid = case
+    params = [[{k: v.detach().clone().requires_grad_(True)
+                for k, v in p.items()} for p in ps] for ps in params]
+    z = z.detach().clone().requires_grad_(True)
+    if which == "K0xz":
+        out = fn(spec0, params[0], x, z, x2_batched=True, row_mask=valid)
+    elif which == "K0zz":
+        out = fn(spec0, params[0], z, z, x1_batched=True, x2_batched=True)
+    else:
+        out = fn(spec1, params[1], x, x, row_mask=valid, col_mask=valid)
+    w = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(
+        9), device="cuda", dtype=torch.float64).to(out.dtype)
+    leaves = [v for p in params[0 if which != "K1_st" else 1]
+              for v in p.values()]
+    inputs = leaves + ([z] if which != "K1_st" else [])
+    grads = torch.autograd.grad((out * w).sum(), inputs)
+    return [out.detach()] + list(grads)
+
+
+@pytest.mark.parametrize("which", ["K0xz", "K0zz", "K1_st"])
+@pytest.mark.parametrize("shape", [(32, 20, 20, 120), (3, 7, 13, 37)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_gp_kernel_matrix_against_plain_version(gen, dtype, shape,
+                                                      which):
+    """The GP kernel matrix with its masks (the bound's K0xz, K0zz and
+    K1_st) and its gradients to the raw outputscales and lengthscales and
+    to z, at the canonical [L, S, T, M] and a ragged shape, against the
+    plain version."""
+    from hlax_torch.ops import fusion
+
+    case = _gp_case(*shape, dtype, gen)
+    before = dict(fusion.LAUNCHES)
+    got = _gp_run(fusion.gp_kernel_matrix, case, which)
+    torch.cuda.synchronize()
+    assert fusion.LAUNCHES["gp_kernel_fwd_cuda"] == \
+        before["gp_kernel_fwd_cuda"] + 1
+    assert fusion.LAUNCHES["gp_kernel_bwd_cuda"] == \
+        before["gp_kernel_bwd_cuda"] + 1
+    plain = _gp_run(fusion.gp_kernel_matrix_plain, case, which)
+    if dtype == torch.float64:
+        for i, (a, b) in enumerate(zip(got, plain)):
+            _hold(f"{which} output {i}", a, b)
+        return
+    case64 = tuple(c if i == 0 else
+                   ([[{k: v.double() for k, v in p.items()} for p in ps]
+                     for ps in c] if i == 1 else c.double())
+                   for i, c in enumerate(case))
+    ref = _gp_run(fusion.gp_kernel_matrix_plain, case64, which)
+    for i, (a, b, r) in enumerate(zip(got, plain, ref)):
+        _hold(f"{which} output {i}", a, b, r)
+
+
+# ---- the fused ops beyond the canonical sizes --------------------------------
+
+def _layout_case(types, rows, conv, y_dim, logvar, seed):
+    """A float64 model on the layout ``types`` (heads and log_vy drawn
+    away from their inits) and ``rows`` rows of its data (25 % missing)
+    with decoder features y [rows, n_raw, y_dim]."""
+    import numpy as np
+
+    from hlax_torch.data.reader import encode_raw
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+
+    rng = np.random.default_rng(seed)
+    raw = np.column_stack([rng.integers(0, t["nclass"], rows).astype(float)
+                           if t["type"] == "cat" else rng.random(rows) * 255
+                           for t in types])
+    miss = (rng.random(raw.shape) > 0.25).astype(float)
+    het = encode_raw(raw, types, miss_mask=miss, logvar_network=logvar)
+    g = torch.Generator("cuda").manual_seed(seed)
+    model = HLVAE(HLVAEConfig(layout=het.layout, z_dim=4, h_dims=(8,),
+                              y_dim=y_dim, conv=conv,
+                              logvar_network=logvar), g, "cuda").double()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device="cuda",
+                               dtype=p.dtype) * 0.5)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                  device="cuda")
+    y = torch.randn((rows, het.layout.n_raw, y_dim), generator=g,
+                    device="cuda", dtype=torch.float64)
+    return model, y, t(het.data), t(het.mask), t(het.theta_mask)
+
+
+def _cat(n, c):
+    return [{"type": "cat", "dim": 1, "nclass": c}] * n
+
+
+def _real(n):
+    return [{"type": "real", "dim": 1, "nclass": 1}] * n
+
+
+def _mixed(n_raw, seed):
+    """cat(3), cat(7) and real variables, interleaved."""
+    import numpy as np
+
+    k = n_raw // 3
+    types = _cat(k, 3) + _real(n_raw - 2 * k) + _cat(k, 7)
+    return [types[i] for i in np.random.default_rng(seed).permutation(
+        len(types))]
+
+
+def _moments(model, data, mask):
+    from hlax_torch.ops.normalization import NormParams, batch_normalization
+
+    if model.cfg.conv:
+        return NormParams(None, None, None, None)
+    return batch_normalization(data, mask, model.cfg.layout, False)[1]
+
+
+@pytest.mark.parametrize("logvar", [False, True])
+@pytest.mark.parametrize("y_dim", [5, 3])
+@pytest.mark.parametrize("conv", [True, False])
+def test_fused_heads_take_any_layout(gen, conv, y_dim, logvar):
+    """The heads kernels on cat groups of 3 and 7 classes beside the real
+    group, at y_dim 5 (compiled) and 3 (at run time), with and without the
+    logvar network, in the conv and the MLP model (the real head
+    de-normalized by the batch's moments): float64 against the plain
+    version to 1e-10, a launch a group each way."""
+    from hlax_torch.ops import fusion
+
+    n_raw = 1296 if conv else 97
+    model, y, data, mask, tmask = _layout_case(_mixed(n_raw, 1), 37, conv,
+                                               y_dim, logvar, 4)
+    norm = _moments(model, data, mask)
+    params = list(model.parameters())
+    res = []
+    for fn in (fusion.heads_loglik, fusion.heads_loglik_plain):
+        before = dict(fusion.LAUNCHES)
+        yy = y.clone().requires_grad_(True)
+        lp, lpm, par, theta = fn(model, yy, tmask, data, mask, norm)
+        w = torch.randn(lp.shape, generator=torch.Generator(
+            "cuda").manual_seed(5), device="cuda", dtype=lp.dtype)
+        grads = torch.autograd.grad((lp * w).sum() + (lpm * w).sum()
+                                    - lp.sum(dim=1).sum(), [yy] + params,
+                                    allow_unused=True)
+        outs = [lp, lpm, theta] + [t for p in par for t in (
+            p if isinstance(p, tuple) else (p,))]
+        res.append((outs, grads))
+        if fn is fusion.heads_loglik:
+            for k, n in (("heads_cat_fwd_cuda", 2), ("heads_cat_bwd_cuda", 2),
+                         ("heads_real_fwd_cuda", 1),
+                         ("heads_real_bwd_cuda", 1)):
+                assert fusion.LAUNCHES[k] == before[k] + n, k
+    (o, g), (po, pg) = res
+    for i, (a, b) in enumerate(zip(o, po)):
+        _hold(f"output {i}", a.detach(), b.detach())
+    for i, (a, b) in enumerate(zip(g, pg)):
+        assert (a is None) == (b is None), i
+        if a is not None:
+            _hold(f"gradient {i}", a, b)
+
+
+def test_fused_rep_image_takes_any_layout(gen):
+    """The representation kernels on cat groups of 3 and 7 classes beside
+    the real group: float64 against the plain version to 1e-10."""
+    from hlax_torch.ops import fusion
+
+    model, _, data, mask, _ = _layout_case(_mixed(1296, 2), 37, True, 5,
+                                           False, 6)
+    params = list(model.rep_w.values()) + list(model.rep_b.values())
+    g = torch.randn((37, 1, 36, 36), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    res = []
+    for fn in (fusion.rep_image, fusion.rep_image_plain):
+        img = fn(model, data, mask)
+        res.append([img.detach()] + list(torch.autograd.grad(
+            (img * g).sum(), params)))
+    assert len(params) == 4
+    for i, (a, b) in enumerate(zip(*res)):
+        _hold(f"output {i}", a, b)
+
+
+class _OneRankSums:
+    """``MeshSums`` of a mesh of one rank: the metric's mesh path."""
+
+    def subjects(self, x):
+        return x.clone()
+
+    def subjects_max(self, x):
+        return x.clone()
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+@pytest.mark.parametrize("conv", [True, False])
+def test_fused_recon_metric_takes_any_layout(gen, conv, mesh):
+    """The recon metric's kernels on cat groups of 3 and 7 classes beside
+    the real group, in the conv and the MLP model (its real error
+    normalized by the valid rows' range), alone and on the mesh path (the
+    column sums handed to the mesh's sums between the passes), the last
+    rows padding: float64 against the plain version to 1e-10."""
+    from hlax_torch.ops import fusion
+
+    n_raw = 1296 if conv else 97
+    model, y, data, mask, tmask = _layout_case(_mixed(n_raw, 3), 37, conv,
+                                               3, False, 8)
+    with torch.no_grad():
+        params = fusion.heads_loglik_plain(model, y, tmask, data, mask,
+                                           _moments(model, data, mask))[2]
+    rv = torch.ones(37, dtype=torch.float64, device="cuda")
+    rv[-7:] = 0.0
+    sums = _OneRankSums() if mesh else None
+    lay = model.cfg.layout
+    for last in ("cat", "real"):
+        before = fusion.LAUNCHES["recon_metric_finish_cuda"]
+        got = fusion.recon_metric(lay, conv, params, data, mask, rv, last,
+                                  sums)
+        assert fusion.LAUNCHES["recon_metric_finish_cuda"] == before + 1
+        want = fusion.recon_metric_plain(lay, conv, params, data, mask, rv,
+                                         last, sums)
+        for a, b in zip(got, want):
+            _hold(f"recon {last}", a, b)
+
+
+def _gp_grads(fn, spec, params, x1, x2, kw, wrt):
+    params = [{k: v.detach().clone().requires_grad_(True)
+               for k, v in p.items()} for p in params]
+    a = x1.detach().clone().requires_grad_("x1" in wrt)
+    b = a if kw.pop("same", False) else \
+        x2.detach().clone().requires_grad_("x2" in wrt)
+    out = fn(spec, params, a, b, **kw)
+    w = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(
+        9), device="cuda", dtype=out.dtype)
+    ins = [v for p in params for v in p.values()] + [
+        t for t, n in ((a, "x1"), (b, "x2"))
+        if n in wrt and not (n == "x2" and b is a)]
+    return [out.detach()] + list(torch.autograd.grad((out * w).sum(), ins))
+
+
+@pytest.mark.parametrize("which", ["beyond one launch", "x1 gradient",
+                                   "same x, masks differ",
+                                   "x2 [L, S, N, Q] gradient",
+                                   "x2 [S, N, Q] gradient",
+                                   "x2 [N, Q] gradient"])
+def test_fused_gp_kernel_matrix_beyond_the_bound(gen, which):
+    """The GP kernel matrix where the bound does not take it: a spec of 7
+    components (three launches that add up), the gradient to x1 (x2's of
+    the transposed matrix), x1 is x2 under different row and column masks,
+    and gradients to an x2 batched over the subjects (the batch folded
+    into the latents) or not over the latents (summed over them): float64
+    against the plain version to 1e-10."""
+    from hlax_torch.gp import kernels as gk
+    from hlax_torch.ops import fusion
+
+    (spec0, _), params, x, z, valid = _gp_case(3, 5, 7, 11, torch.float64,
+                                               gen)
+    params = params[0]
+    valid2 = torch.ones_like(valid)
+    valid2[0, 2:] = 0.0
+    spec = spec0
+    if which == "beyond one launch":
+        spec, _ = gk.build_kernel_specs(
+            [3, 4], [3], [0, 1, 5],
+            [{"cont_covariate": 0, "cat_covariate": 2},
+             {"cont_covariate": 5, "cat_covariate": 3},
+             {"cont_covariate": 1, "cat_covariate": 4}],
+            [{"cont_covariate": 5, "bin_covariate": 4}],
+            [{"covariate": 5, "mask": 4}], 2)
+        assert len(fusion._gp_chunks(spec)) > 1
+        params = [{k: v + 0.3 * torch.randn(v.shape, generator=gen,
+                                            device="cuda",
+                                            dtype=torch.float64)
+                   for k, v in p.items()}
+                  for p in gk.init_kernel_params(spec, 3, torch.float64,
+                                                 "cuda")]
+        case = (z, z, dict(x1_batched=True, x2_batched=True, same=True),
+                ["x1"])
+    elif which == "x1 gradient":
+        case = (z, x, dict(x1_batched=True, col_mask=valid), ["x1"])
+    elif which == "same x, masks differ":
+        case = (x, x, dict(row_mask=valid, col_mask=valid2, same=True),
+                ["x1"])
+    elif which == "x2 [L, S, N, Q] gradient":
+        xs = x[None].repeat(3, 1, 1, 1) + 0.1 * torch.randn(
+            (3,) + x.shape, generator=gen, device="cuda",
+            dtype=torch.float64)
+        case = (x, xs, dict(x2_batched=True, row_mask=valid,
+                            col_mask=valid2), ["x2"])
+    elif which == "x2 [S, N, Q] gradient":
+        case = (z, x, dict(x1_batched=True, col_mask=valid2), ["x1", "x2"])
+    else:
+        case = (x, z[0], dict(row_mask=valid), ["x1", "x2"])
+    x1, x2, kw, wrt = case
+    before = fusion.LAUNCHES["gp_kernel_bwd_cuda"]
+    got = _gp_grads(fusion.gp_kernel_matrix, spec, params, x1, x2, dict(kw),
+                    wrt)
+    assert fusion.LAUNCHES["gp_kernel_bwd_cuda"] > before
+    want = _gp_grads(fusion.gp_kernel_matrix_plain, spec, params, x1, x2,
+                     dict(kw), wrt)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _hold(f"{which} output {i}", a, b)

@@ -170,17 +170,20 @@ def _tensors(state):
     ts = {"m": state.m, "H": state.H}
     for i, p in enumerate(state.optimizer.param_groups[0]["params"]):
         ts[f"param{i}"] = p
-        if p.grad is not None:   # a parameter the loss does not read
-            ts[f"grad{i}"] = p.grad
         for k, v in state.optimizer.state[p].items():
             ts[f"adam{i}.{k}"] = v
     return ts
 
 
+def _grads(state):
+    return [p.grad for p in state.optimizer.param_groups[0]["params"]]
+
+
 def test_step_updates_the_state_in_place(setup):
-    """After the first step (which makes .grad and Adam's state), every
-    tensor of the state keeps its storage: m, H, each parameter, its
-    gradient and its Adam moments."""
+    """After the first step (which makes Adam's state), every tensor of the
+    state keeps its storage: m, H, each parameter and its Adam moments.
+    The gradients are not state: each step writes every one of them once,
+    into a tensor of its own (a CUDA graph keeps them in its pool)."""
     state = setup["port_state"]()
     step = tstep.make_train_step(state.vae, *setup["tspec"], setup["tcfg"])
     batches = [tds.gather_batch(setup["staged_t"], torch.as_tensor(i))
@@ -188,11 +191,52 @@ def test_step_updates_the_state_in_place(setup):
     m0, H0 = state.m.clone(), state.H.clone()
     step(state, batches[0])
     ptrs = {k: t.data_ptr() for k, t in _tensors(state).items()}
-    assert sum(k.startswith("grad") for k in ptrs) > 10
+    assert sum(k.startswith("adam") for k in ptrs) > 10
     for b in batches[1:]:
+        before = _grads(state)
         step(state, b)
+        assert all(g is not None and g is not g0
+                   for g, g0 in zip(_grads(state), before))
     assert {k: t.data_ptr() for k, t in _tensors(state).items()} == ptrs
     assert not torch.equal(state.m, m0) and not torch.equal(state.H, H0)
+
+
+def test_gradients_written_once_equal_zero_then_add(setup, monkeypatch):
+    """The steps with each gradient written once (``write_grads``) equal,
+    bit for bit, the steps that zero a persistent ``.grad`` and let the
+    backward pass add into it (the step before gradients were written
+    once): metrics, parameters, Adam's moments, m and H over three steps."""
+    batches = [tds.gather_batch(setup["staged_t"], torch.as_tensor(i))
+               for i in setup["epochs"][0]]
+    eps = torch.as_tensor(setup["noise"][:len(batches)])
+
+    def run():
+        state = setup["port_state"]()
+        step = tstep.make_train_step(state.vae, *setup["tspec"],
+                                     setup["tcfg"])
+        ms = [step(state, b, eps=e) for b, e in zip(batches, eps)]
+        return state, ms
+
+    def zero_then_add(loss, params):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.zero_()
+        if loss.requires_grad:
+            loss.backward()
+
+    once, m_once = run()
+    monkeypatch.setattr(tstep, "write_grads", zero_then_add)
+    added, m_added = run()
+    for a, b in zip(m_once, m_added):
+        assert all(torch.equal(a[k], b[k]) for k in tstep.METRICS)
+    ta, tb = _tensors(once), _tensors(added)
+    assert ta.keys() == tb.keys()
+    for k in ta:
+        assert torch.equal(ta[k], tb[k]), k
+    for ga, gb in zip(_grads(once), _grads(added)):
+        assert torch.equal(ga, gb)
 
 
 def test_restored_checkpoint_takes_the_same_next_step(setup, tmp_path):
@@ -222,14 +266,14 @@ def test_launch_counts_taken_and_added():
     replay adds it again."""
     tls.reset_counters()
     tls.LAUNCHES["chol_inv_mid_cuda"] = 3
-    before = tls.counts_snapshot()
+    before = tls._COUNTERS.snapshot()
     key = ("chol_inv_small_cuda", (2, 20, 20), "float32")
     tls.LAUNCHES["chol_inv_small_cuda"] += 2
     tls.LAUNCHES_BY_SHAPE[key] = 2
-    gained = tls.take_counts_since(before)
+    gained = tls._COUNTERS.take_since(before)
     assert tls.LAUNCHES["chol_inv_small_cuda"] == 0
     assert tls.LAUNCHES["chol_inv_mid_cuda"] == 3 and not tls.LAUNCHES_BY_SHAPE
-    tls.add_counts(gained, times=5)
+    tls._COUNTERS.add(gained, times=5)
     assert tls.LAUNCHES["chol_inv_small_cuda"] == 10
     assert tls.LAUNCHES_BY_SHAPE == {key: 10}
     tls.reset_counters()

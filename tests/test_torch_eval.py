@@ -125,7 +125,8 @@ def test_whitened_w_factor_matches_hlax(M):
     sj, st = _jgp(s), _tgp(s)
     bj = jelbo.subject_blocks(*sj, jnp.asarray(x), jnp.asarray(valid), EPS,
                               with_K0st=False, use_pallas_chol=True)
-    bt = telbo.subject_blocks(*st, _t(x), _t(valid), EPS, with_K0st=False)
+    bt = telbo.subject_blocks(*st, _t(x), _t(valid), EPS, with_K0st=False,
+                              use_pallas_chol=True)
     outs_j = jelbo.whitened_w_factor(bj.iLK, bj.K0xz, bj.iLB)
     outs_t = telbo.whitened_w_factor(bt.iLK, bt.K0xz, bt.iLB)
     for got, want in zip(outs_t, outs_j):

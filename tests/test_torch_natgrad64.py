@@ -78,7 +78,7 @@ def _bound(s, port, nat_dtype):
             t0, tp(s["k0"]), t1, tp(s["k1"]), t(s["noise"]), t(s["m"]),
             t(s["H"]), t(s["zt"]), t(s["x"]), t(s["valid"]), t(s["mu"]),
             t(s["logv"]), P_TOT, N_TOT, EPS, natural_gradient=True,
-            nat_grad_dtype=nat_dtype)
+            nat_grad_dtype=nat_dtype, use_pallas_chol=True)
     j = jnp.asarray
     jp = lambda ps: [{k: j(v) for k, v in p.items()} for p in ps]
     return jelbo.kld_upper_bound(

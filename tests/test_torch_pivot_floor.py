@@ -88,7 +88,7 @@ def _port(s, what):
         return telbo.kld_upper_bound(
             *gp, t(s["m"]), t(s["H"]), t(s["zt"]), t(s["x"]), t(s["valid"]),
             t(s["mu"]), t(s["logv"]), s["cfg"].P_tot, s["cfg"].N_tot,
-            s["cfg"].eps, natural_gradient=True)[:3]
+            s["cfg"].eps, natural_gradient=True, use_pallas_chol=True)[:3]
     return telbo.deviance_upper_bound(*gp, t(s["zt"]), t(s["x"]),
                                       t(s["valid"]), t(s["mu"]),
                                       t(s["logv"]), s["cfg"].eps)

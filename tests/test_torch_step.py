@@ -42,8 +42,10 @@ def _t(x):
     return torch.tensor(np.asarray(x, np.float64))
 
 
-@pytest.fixture(scope="module")
-def trajectories():
+def run_trajectories(use_pallas_chol: bool = True):
+    """hlax's and the port's N_STEPS steps from the same weights and noise,
+    both with ``use_pallas_chol`` (hlax on the CPU takes XLA's Cholesky
+    either way)."""
     rng = np.random.default_rng(7)
     n = S * T
     raw = np.column_stack([rng.random((n, N_REAL)) * 255,
@@ -91,7 +93,7 @@ def trajectories():
     jcfg = jstep.TrainConfig(latent_dim=L, M=M, P_tot=P_TOT, N_tot=N_TOT,
                              id_covariate=2, natural_gradient=True,
                              constrain_scales=True, gp_dtype=jnp.float64,
-                             eps=EPS)
+                             eps=EPS, use_pallas_chol=use_pallas_chol)
     state = jstep.TrainState(
         vae=vae, k0=k0, k1=k1, raw_noise=raw_noise, zt=jnp.asarray(zt),
         m=jnp.asarray(m), H=jnp.asarray(H), opt_state=None,
@@ -104,7 +106,7 @@ def trajectories():
     tcfg = tstep.TrainConfig(latent_dim=L, M=M, P_tot=P_TOT, N_tot=N_TOT,
                              id_covariate=2, natural_gradient=True,
                              constrain_scales=True, gp_dtype=torch.float64,
-                             eps=EPS)
+                             eps=EPS, use_pallas_chol=use_pallas_chol)
     tmodel = thlvae.HLVAE(thlvae.HLVAEConfig(
         layout=t_het.layout, z_dim=L, h_dims=(HID,), y_dim=5, conv=True),
         torch.Generator().manual_seed(0), "cpu").double()
@@ -131,6 +133,11 @@ def trajectories():
         out_t.append({k: v.item() for k, v in mt.items()})
     return dict(out_j=out_j, out_t=out_t, state=state, tstate=tstate,
                 tmodel=tmodel, tcfg=tcfg)
+
+
+@pytest.fixture(scope="module")
+def trajectories():
+    return run_trajectories()
 
 
 @pytest.mark.parametrize("metric", ["loss", "nll", "kld", "recon",

@@ -242,9 +242,17 @@ def unjoined_collective(rank: int, world: int, init: str, tmp: str,
 def sleep_forever(rank: int, world: int, init: str, tmp: str,
                   fail_rank: int = -1) -> None:
     """Writes this rank's pid into ``tmp``, then sleeps for an hour; rank
-    ``fail_rank`` raises instead."""
-    with open(os.path.join(tmp, f"pid{rank}"), "w") as f:
+    ``fail_rank`` raises instead, once every rank has written its pid (so
+    the others are alive when it fails)."""
+    path = os.path.join(tmp, f"pid{rank}")
+    with open(path + ".part", "w") as f:
         f.write(str(os.getpid()))
+    os.replace(path + ".part", path)
     if rank == fail_rank:
+        end = time.monotonic() + 60
+        while time.monotonic() < end and not all(
+                os.path.isfile(os.path.join(tmp, f"pid{r}"))
+                for r in range(world)):
+            time.sleep(0.05)
         raise ValueError(f"rank {rank} fails on purpose")
     time.sleep(3600)
