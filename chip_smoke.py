@@ -21,8 +21,10 @@ run eagerly.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel, and
-             prints each kernel's registers and spill; a spill in the
-             float64 blocked mid kernel fails the run.
+             prints each kernel's registers, stack frame and spill; a
+             spill in the float64 blocked mid kernel, or a spill or a stack
+             frame in any of the GP kernel matrix's instantiations
+             (GP_INSTANCES), fails the run.
   2. kernels each kernel against its plain version, with the launch plan
              each shape took: the small kernel bit for bit at eleven shapes
              (both compiled sizes, padded and odd n, n up to 48) on random
@@ -85,10 +87,19 @@ Phases (each prints its own lines; any failure exits non-zero):
              own error against float64 plus 1e-6), each kernel timed alone
              by CUDA events beside the op's plain chain and its bound; the
              MLP's heads and metric and the metric's mesh path held to
-             their plain versions too; then
-             --use_pallas_chol=False on the graph path: float64 graph steps
-             against eager steps, a canonical float32 epoch, no Cholesky
-             kernel launched.
+             their plain versions too; with the parent tree under parent/,
+             its fusion.cu built into build/parent/ (its GP kernels'
+             registers, stack frame and spill printed) and its GP ops, on
+             its own wrapper, held to the same bars and timed against the
+             current ones in turns (parent, change, change, parent; a
+             backward with the G + G^T and counters' memset where the
+             parent's wrapper launches them besides its kernels), and
+             the GP kernels' device ms of one canonical step of both; with
+             or without it, the canonical specs' compiled GP shapes against
+             the table kernel (gp_compiled_shapes) the same way, in turns
+             shapes, table, table, shapes; then --use_pallas_chol=False on
+             the graph path: float64 graph steps against eager steps, a
+             canonical float32 epoch, no Cholesky kernel launched.
   8. f64     the canonical config with --gp_dtype=float64
              --model_dtype=float64, and in float32 with --nat_grad_f64=True,
              20 steps each and the final validation with
@@ -334,13 +345,32 @@ FUSED_KERNELS = ("heads_cat_fwd_cuda", "heads_cat_bwd_cuda",
                  "gp_kernel_fwd_cuda", "gp_kernel_bwd_cuda")
 # every kernel library, one nvcc each, all started together
 LIBRARIES = ("chol_inv_small", "chol_inv_mid", "chol_inv_bwd", "fusion")
-# the kernel that must not spill: the float64 blocked mid kernel
-NO_SPILL = ("chol_inv_mid", "chol_inv_mid_blocked64_kernel")
+# every instantiation of the GP kernel matrix's kernels (csrc/fusion.cu):
+# by scalar, vector width (the flat kernels), rbf factors a component may
+# have (the backwards) and compiled shape (0 any spec, 1 and 2 the
+# canonical spec0 and spec1, at the vector width)
+_GP_VEC = (("float", 4), ("double", 2))
+GP_INSTANCES = tuple(
+    [f"gp_fwd_kernel<{t},{v},{sh}>" for t, v in _GP_VEC for sh in (0, 1, 2)]
+    + [f"gp_fwd_kernel<{t},1,0>" for t, _ in _GP_VEC]
+    + [f"gp_bwd_flat_kernel<{t},{v},1,{sh}>" for t, v in _GP_VEC
+       for sh in (1, 2)]
+    + [f"gp_bwd_flat_kernel<{t},{v},{nr},0>" for t, v in _GP_VEC
+       for v in (v, 1) for nr in (1, 4)]
+    + [f"gp_bwd_cols_kernel<{t},1,{sh}>" for t, _ in _GP_VEC
+       for sh in (0, 1, 2)]
+    + [f"gp_bwd_cols_kernel<{t},4,0>" for t, _ in _GP_VEC])
+# the kernels that must not spill, by library, and whether a stack frame
+# fails them too: the float64 blocked mid kernel, every GP kernel
+NO_SPILL = ([("chol_inv_mid", "chol_inv_mid_blocked64_kernel", False)]
+            + [("fusion", k, True) for k in GP_INSTANCES])
 
 
-def _ptxas_report(tag: str, name: str, log: str) -> dict:
-    """Prints each kernel's registers and spill from a ``ptxas -v`` log;
-    returns {kernel: spilled bytes, stores and loads}."""
+def _ptxas_report(tag: str, name: str, log: str, only: str = "") -> dict:
+    """Prints each kernel's registers, stack frame and spill from a
+    ``ptxas -v`` log (the kernels whose name starts with ``only``);
+    returns {kernel: (stack frame bytes, spilled bytes, stores and
+    loads)}."""
     kernel, spill, spilled = "?", "", {}
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -348,9 +378,11 @@ def _ptxas_report(tag: str, name: str, log: str) -> dict:
             kernel = _kernel_name(m.group(1))
         elif "spill" in line:
             spill = line.strip()
-            spilled[kernel] = sum(map(int, re.findall(
-                r"(\d+) bytes spill", line)))
-        elif "registers" in line:
+            stack = re.search(r"(\d+) bytes stack frame", line)
+            spilled[kernel] = (int(stack.group(1)) if stack else 0,
+                               sum(map(int, re.findall(
+                                   r"(\d+) bytes spill", line))))
+        elif "registers" in line and kernel.startswith(only):
             regs = re.search(r"Used (\d+) registers", line)
             print(f"[{tag}] {name} {kernel}: "
                   f"{regs.group(1) if regs else line.strip()} "
@@ -364,28 +396,42 @@ def phase_build() -> None:
     logs = cuda_build.build_all(LIBRARIES)
     print(f"[build] nvcc sm_90a, {len(LIBRARIES)} libraries in "
           f"{time.time() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        spilled = _ptxas_report("build", name, log)
-        if name == NO_SPILL[0]:
-            if NO_SPILL[1] not in spilled:
-                fail(f"[build] no ptxas report of {NO_SPILL[1]}")
-            if spilled[NO_SPILL[1]]:
-                fail(f"[build] {NO_SPILL[1]} spills "
-                     f"{spilled[NO_SPILL[1]]} bytes (stores and loads)")
-    if NO_SPILL[0] not in logs:
-        print(f"[build] lib{NO_SPILL[0]}.so was up to date: its spill was "
+    reports = {name: _ptxas_report("build", name, log)
+               for name, log in logs.items()}
+    for lib in sorted({lib for lib, *_ in NO_SPILL} - set(reports)):
+        print(f"[build] lib{lib}.so was up to date: its kernels' spill was "
               "checked when it was built", flush=True)
+    for lib, kernel, no_stack in NO_SPILL:
+        if lib not in reports:
+            continue
+        if kernel not in reports[lib]:
+            fail(f"[build] no ptxas report of {kernel}")
+        stack, spill = reports[lib][kernel]
+        if spill or (no_stack and stack):
+            fail(f"[build] {kernel}: {stack} bytes stack frame, {spill} "
+                 "bytes spill (stores and loads)")
+    print(f"[build] no spill in {len(NO_SPILL)} kernels, no stack frame in "
+          f"the {len(GP_INSTANCES)} GP kernels", flush=True)
 
 
 def _kernel_name(mangled: str) -> str:
-    """``name<args>`` of a mangled kernel name with float, double, integer
-    and bool template arguments, e.g. _Z19chol_inv_bwd_kernelIdLi20EEv... ->
-    chol_inv_bwd_kernel<double,20>."""
-    m = re.match(r"_Z(\d+)", mangled)
-    if not m:
+    """``name<args>`` of a mangled kernel name, in a namespace or not, with
+    float, double, integer and bool template arguments, e.g.
+    _Z19chol_inv_bwd_kernelIdLi20EEv... -> chol_inv_bwd_kernel<double,20>,
+    _ZN12_GLOBAL__N_113gp_fwd_kernelIfLi4EEEv... -> gp_fwd_kernel<float,4>."""
+    m = re.match(r"_Z(N?)", mangled)
+    pos, name = (m.end(), None) if m else (0, None)
+    while m:    # a nested name's parts: the last is the kernel's
+        part = re.match(r"\d+", mangled[pos:])
+        if not part:
+            break
+        end = pos + part.end() + int(part.group(0))
+        name, pos = mangled[pos + part.end():end], end
+        if not m.group(1):
+            break
+    if name is None:
         return mangled
-    end = m.end() + int(m.group(1))
-    name, rest = mangled[m.end():end], mangled[end:]
+    rest = mangled[pos:]
     if rest.startswith("I"):
         args = []
         for tok in re.finditer(r"Li(\d+)E|Lb([01])E|f|d|(E)", rest[1:]):
@@ -2108,12 +2154,18 @@ FUSION_REPLACES = {
 }
 # operations an element (a variable of a row, an entry of a kernel
 # matrix) of each kernel, counted from its source: multiply-adds as two,
-# exp, log and divisions as one
+# exp, log and divisions as one.  The GP kernels' at the canonical spec0
+# (3 rbf factors, 2 cat), in float: forward 10 an rbf factor (a - b, the
+# quotient by ls from its reciprocal and two multiply-adds, the square,
+# the half, exp, the product), 3 a cat (compare, select, product), 1 a
+# component, 2 for the masks; the backward with x2's gradient (the column
+# kernel) the same factors, G times its mask (2), 2 a component (G k and
+# its sum) and 4 an rbf factor (G k d, two sums, d times it)
 FUSION_OPS = {"heads_cat_fwd": 70, "heads_cat_bwd": 175,
               "heads_real_fwd": 30, "heads_real_bwd": 50,
               "rep_image_fwd": 8, "rep_image_bwd": 12, "recon_metric": 20,
               "recon_metric_finish": 10,
-              "gp_kernel_fwd": 40, "gp_kernel_bwd": 100}
+              "gp_kernel_fwd": 41, "gp_kernel_bwd": 56}
 
 
 def _fusion_case(ds, spec0, spec1, dtype):
@@ -2231,8 +2283,11 @@ def _op_recon(c, plain, grads=True, mlp=False, sums=None):
 
 
 def _op_gp(which):
-    def run(c, plain, grads=True):
-        from hlax_torch.ops import fusion
+    def run(c, plain, grads=True, fusion=None):
+        """``fusion``: the module whose op runs (the parent tree's in
+        ``_gp_against_parent``), else hlax_torch.ops.fusion."""
+        if fusion is None:
+            from hlax_torch.ops import fusion
 
         spec0, spec1 = c["specs"]
         b = c["batch"]
@@ -2397,6 +2452,193 @@ def _time_fused(name, op, c, dtype, errs):
     return rows
 
 
+# the GP ops of one canonical train step, a forward and a backward each
+GP_STEP = ("K0xz", "K0zz", "K1_st", "K0_st")
+
+
+def _parent_fusion():
+    """The parent tree's fused ops (parent/hlax_torch/ops/fusion.py) on its
+    own kernels: its csrc/fusion.cu built into build/parent/libfusion.so
+    with the current flags, its wrapper loaded as a module of its own that
+    takes that library (its launches counted in counters of its own, not
+    the change's).  None, saying so, without parent/."""
+    import ctypes
+    import importlib.util
+
+    from hlax_torch.ops import cuda_build
+
+    src = os.path.join(PARENT_CSRC, "fusion.cu")
+    py = os.path.join(PARENT_ROOT, "hlax_torch", "ops", "fusion.py")
+    if not (os.path.isfile(src) and os.path.isfile(py)):
+        print(f"[fusion] parent against change: not measured (no {src})",
+              flush=True)
+        return None
+    out = os.path.join(cuda_build.BUILD_DIR, "parent", "libfusion.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.time()
+    res = subprocess.run([cuda_build._nvcc(),
+                          *cuda_build.nvcc_flags("fusion"), "-o", out, src],
+                         capture_output=True, text=True)
+    if res.returncode:
+        fail(f"[fusion] the parent's fusion.cu did not build:\n"
+             f"{res.stdout}{res.stderr}")
+    print(f"[fusion] parent's fusion.cu built in {time.time() - t0:.1f} s; "
+          "its GP kernels:", flush=True)
+    _ptxas_report("fusion", "parent's fusion", res.stdout + res.stderr,
+                  only="gp_")
+    lib = ctypes.CDLL(out)
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    spec = importlib.util.spec_from_file_location("parent_fusion", py)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.load_library = lambda name: lib
+    return mod
+
+
+def _gp_launches(mod, which, c):
+    """The launches (entry, like, args) one forward and backward of the GP
+    op ``which`` makes through ``mod``'s wrapper, and the op's results."""
+    calls, orig = [], mod._launch
+
+    def record(entry, like, *args):
+        calls.append((entry, like, args))
+        orig(entry, like, *args)
+
+    mod._launch = record
+    try:
+        res = _op_gp(which)(c, False, fusion=mod)
+    finally:
+        mod._launch = orig
+    return calls, res
+
+
+def _gp_against_parent(pf, c, c64, dtype) -> None:
+    """The parent's GP kernels against the change's at the canonical
+    shapes: the parent's results and gradients held to the change's bars;
+    each op's launches timed alone (CUDA events), forward and backward, in
+    turns parent, change, change, parent.  Where the parent's wrapper
+    launches more than its kernels (one that keeps no counters of its own,
+    ``_gp_counters``, forms K0zz's G + G^T in PyTorch and zeroes fresh
+    counters for each backward launch), its backward counts them.  Prints each op's times
+    and the GP kernels' device ms of one canonical step (GP_STEP) for
+    both."""
+    from hlax_torch.ops import fusion
+
+    tag = str(dtype).removeprefix("torch.")
+    legacy = not hasattr(pf, "_gp_counters")
+    before = {m: m._COUNTERS.snapshot() for m in (pf, fusion)}
+    extra = {"memset": lambda: torch.zeros(1024, dtype=torch.int32,
+                                           device="cuda")}
+    step = {"parent": [0.0, 0.0], "change": [0.0, 0.0]}
+    for which in GP_STEP:
+        plain = _op_gp(which)(c, True)
+        ref = _op_gp(which)(c64, True) if c64 is not None else (None, None)
+        runs = {}
+        for who, mod in (("parent", pf), ("change", fusion)):
+            runs[who], (got, g_got) = _gp_launches(mod, which, c)
+            _fusion_error(f"gp {which} {tag} ({who})", got, plain[0],
+                          ref[0])
+            _fusion_error(f"gp {which} {tag} gradients ({who})", g_got,
+                          plain[1], ref[1])
+        if which == "K0zz":
+            g = _cotangent(c["zt"].shape[:1] + (c["zt"].shape[1],) * 2,
+                           dtype)
+            extra["G + G^T"] = lambda: g + g.mT
+        ms = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            mod = pf if who == "parent" else fusion
+            t = {"fwd": 0.0, "bwd": 0.0}
+            for entry, like, args in runs[who]:
+                d = "bwd" if entry.endswith("bwd") else "fwd"
+                t[d] += time_ms(lambda: mod._launch(entry, like, *args))[0]
+                if legacy and who == "parent" and d == "bwd":
+                    t[d] += time_ms(extra["memset"])[0]
+            if legacy and who == "parent" and which == "K0zz":
+                t["bwd"] += time_ms(extra["G + G^T"])[0]
+            ms[who].append(t)
+        for who in ms:
+            for i, d in enumerate(("fwd", "bwd")):
+                step[who][i] += sum(t[d] for t in ms[who]) / 2
+        with_extra = (f" (the parent's with "
+                      f"{'G + G^T and ' if which == 'K0zz' else ''}its "
+                      f"counters' memset)" if legacy else "")
+        print(f"[fusion] parent against change gp {which} {tag}: forward "
+              f"parent {ms['parent'][0]['fwd']:.5f}, change "
+              f"{ms['change'][0]['fwd']:.5f}, change "
+              f"{ms['change'][1]['fwd']:.5f}, parent "
+              f"{ms['parent'][1]['fwd']:.5f} ms; backward parent "
+              f"{ms['parent'][0]['bwd']:.5f}, change "
+              f"{ms['change'][0]['bwd']:.5f}, change "
+              f"{ms['change'][1]['bwd']:.5f}, parent "
+              f"{ms['parent'][1]['bwd']:.5f} ms{with_extra}; both within "
+              f"the bars", flush=True)
+    for m, b in before.items():
+        m._COUNTERS.take_since(b)
+    p, ch = sum(step["parent"]), sum(step["change"])
+    print(f"[fusion] GP kernels of one canonical step, {tag}: parent "
+          f"{p:.5f} ms (forward {step['parent'][0]:.5f}, backward "
+          f"{step['parent'][1]:.5f}), change {ch:.5f} ms (forward "
+          f"{step['change'][0]:.5f}, backward {step['change'][1]:.5f}): "
+          f"parent / change {p / ch:.2f}x on {card_line()}", flush=True)
+
+
+def _gp_shapes_against_table(c, c64, dtype) -> None:
+    """The canonical specs' compiled shapes (GP_SPEC0, GP_SPEC1 in
+    csrc/fusion.cu) against the table kernel that takes any spec
+    (``gp_compiled_shapes(0)``) at the canonical shapes: both held to the
+    bars; each op's launches timed alone (CUDA events), forward and
+    backward, in turns shapes, table, table, shapes.  Prints each op's
+    times and the GP kernels' device ms of one canonical step for both."""
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops.cuda_build import load_library
+
+    lib = load_library("fusion")
+    tag = str(dtype).removeprefix("torch.")
+    before = fusion._COUNTERS.snapshot()
+    step = {"shapes": [0.0, 0.0], "table": [0.0, 0.0]}
+    try:
+        for which in GP_STEP:
+            plain = _op_gp(which)(c, True)
+            ref = _op_gp(which)(c64, True) if c64 is not None else (None,
+                                                                    None)
+            for who in ("table", "shapes"):
+                lib.gp_compiled_shapes(int(who == "shapes"))
+                runs, (got, g_got) = _gp_launches(fusion, which, c)
+                _fusion_error(f"gp {which} {tag} ({who})", got, plain[0],
+                              ref[0])
+                _fusion_error(f"gp {which} {tag} gradients ({who})", g_got,
+                              plain[1], ref[1])
+            ms = {"shapes": [], "table": []}
+            for who in ("shapes", "table", "table", "shapes"):
+                lib.gp_compiled_shapes(int(who == "shapes"))
+                t = {"fwd": 0.0, "bwd": 0.0}
+                for entry, like, args in runs:
+                    d = "bwd" if entry.endswith("bwd") else "fwd"
+                    t[d] += time_ms(
+                        lambda: fusion._launch(entry, like, *args))[0]
+                ms[who].append(t)
+            for who in ms:
+                for i, d in enumerate(("fwd", "bwd")):
+                    step[who][i] += sum(t[d] for t in ms[who]) / 2
+            print(f"[fusion] compiled shapes against the table kernel gp "
+                  f"{which} {tag}: "
+                  + "; ".join(f"{w} shapes {ms['shapes'][0][d]:.5f}, table "
+                              f"{ms['table'][0][d]:.5f}, table "
+                              f"{ms['table'][1][d]:.5f}, shapes "
+                              f"{ms['shapes'][1][d]:.5f} ms"
+                              for w, d in (("forward", "fwd"),
+                                           ("backward", "bwd")))
+                  + "; both within the bars", flush=True)
+    finally:
+        lib.gp_compiled_shapes(1)
+    fusion._COUNTERS.take_since(before)
+    sh, tb = sum(step["shapes"]), sum(step["table"])
+    print(f"[fusion] GP kernels of one canonical step, {tag}: compiled "
+          f"shapes {sh:.5f} ms, the table kernel {tb:.5f} ms: table / "
+          f"shapes {tb / sh:.2f}x on {card_line()}", flush=True)
+
+
 def phase_fusion(data_dir: str, tmp: str):
     """[fusion]: the fused step ops' kernels (hlax_torch.ops.fusion) at the
     canonical shapes (400 rows of D4 data; the GP's [32, 20, 20, 120],
@@ -2410,6 +2652,7 @@ def phase_fusion(data_dir: str, tmp: str):
 
     ds, spec0, spec1 = canonical_setup(data_dir)
     rows = []
+    parent = _parent_fusion()
     for dtype in (torch.float32, torch.float64):
         c = _fusion_case(ds, spec0, spec1, dtype)
         c64 = _case_in_float64(c) if dtype == torch.float32 else None
@@ -2428,6 +2671,9 @@ def phase_fusion(data_dir: str, tmp: str):
                   flush=True)
             if name in FUSION_OPS_RUN:
                 rows += _time_fused(name, op, c, dtype, errs)
+        _gp_shapes_against_table(c, c64, dtype)
+        if parent is not None:
+            _gp_against_parent(parent, c, c64, dtype)
         del c, c64
         torch.cuda.empty_cache()
     phase_pallas_chol_false(data_dir, tmp)

@@ -35,7 +35,8 @@ build or launch raises.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,11 +52,18 @@ HEAD_Y, NCLASS, ANY_NV = 5, 5, 8
 TILE, ROWS = 32, 16
 # the GP kernel matrix's limits a launch: components, factors a component,
 # raw parameters, distinct rbf dims (MAX_COMP, MAX_FACT, MAX_PARAM,
-# MAX_SLOT in csrc/fusion.cu), and rows a block of its backward (GP_ROWS)
+# MAX_SLOT in csrc/fusion.cu); its kernels' threads a block (GP_THREADS; the
+# column kernel GP_TX x GP_TY), columns a flat tile at most (GP_COLS),
+# dynamic shared bytes at most (GP_SMEM)
 GP_MAX = {"components": 4, "factors": 4, "params": 8, "slots": 4}
-GP_ROWS = 64
-GP_NV = GP_MAX["slots"] + GP_MAX["params"]
+GP_MAX_DIM = GP_MAX["components"] * GP_MAX["factors"]
+GP_THREADS, GP_TX, GP_TY = 256, 32, 8
+GP_COLS, GP_SMEM = 1024, 20 * 1024
 GP_KINDS = {"cat": 0, "bin": 1, "rbf": 2, "catmod": 3}
+# the plans aim at two blocks an SM of the H100's (the wrapper reads the
+# card's own count): more, smaller blocks measured slower, each paying its
+# staging again
+GP_SMS = 132
 # the metric's kinds of group (M_CAT, M_REAL_CONV, M_REAL in fusion.cu),
 # its column sums (METRIC_NV) and the groups its finish takes
 METRIC_KIND = {"cat": 0, "real_conv": 1, "real": 2}
@@ -558,12 +566,17 @@ class _GpChunk(NamedTuple):
     flat: Tuple[int, ...]    # the launch's spec, flat (spec_from)
     p0: int                  # its first row of theta
     rows: Tuple[Tuple[int, str], ...]   # its theta rows: (component, key)
+    nr: int                  # rbf factors a component may have: 1 or
+                             # MAX_FACT (the backward's sums a component)
 
 
 def _gp_chunks(spec) -> List[_GpChunk]:
     """The spec's components split into launches within the compiled
     limits, each with its rows of theta (outputscales, then lengthscales):
-    together the rows of the stacked raw parameters."""
+    together the rows of the stacked raw parameters.  The table puts a
+    component's rbf factors first (the backward keeps each one's sums in
+    registers by its place) and gives each factor its covariate's index
+    among the launch's staged dims."""
     comps = spec.components
     for comp in comps:
         if len(comp.factors) > GP_MAX["factors"] or any(
@@ -590,10 +603,15 @@ def _gp_chunks(spec) -> List[_GpChunk]:
     chunks, p0 = [], 0
     for cs in groups:
         rows = [(c, "raw_os") for c in cs]
-        slots, table = [], []
+        slots, dims, table = [], [], []
         for c in cs:
             facs = []
-            for i, f in enumerate(comps[c].factors):
+            factors = comps[c].factors
+            for i in sorted(range(len(factors)),
+                            key=lambda i: factors[i].kind != "rbf"):
+                f = factors[i]
+                if f.dim not in dims:
+                    dims.append(f.dim)
                 par = slot = -1
                 if f.kind == "rbf":
                     par = len(rows)
@@ -601,16 +619,22 @@ def _gp_chunks(spec) -> List[_GpChunk]:
                     if f.dim not in slots:
                         slots.append(f.dim)
                     slot = slots.index(f.dim)
-                facs.append((GP_KINDS[f.kind], f.dim, f.num, par, slot))
+                facs.append((GP_KINDS[f.kind], f.dim, dims.index(f.dim),
+                             f.num, par, slot))
             table.append(facs)
-        flat = [len(cs), len(rows), len(slots)]
+        most_rbf = max(sum(f[0] == GP_KINDS["rbf"] for f in facs)
+                       for facs in table)
+        flat = [len(cs), len(rows), len(slots), len(dims)]
+        flat += dims + [0] * (GP_MAX_DIM - len(dims))
         flat += slots + [0] * (GP_MAX["slots"] - len(slots))
         for k in range(GP_MAX["components"]):
             facs = table[k] if k < len(table) else []
             flat.append(len(facs))
             for f in range(GP_MAX["factors"]):
-                flat += list(facs[f]) if f < len(facs) else [0, 0, 0, -1, -1]
-        chunks.append(_GpChunk(tuple(flat), p0, tuple(rows)))
+                flat += (list(facs[f]) if f < len(facs)
+                         else [0, 0, 0, 0, -1, -1])
+        chunks.append(_GpChunk(tuple(flat), p0, tuple(rows),
+                               1 if most_rbf <= 1 else GP_MAX["factors"]))
         p0 += len(rows)
     return chunks
 
@@ -667,9 +691,125 @@ def _gp_geometry(L, x1, x2, x1_batched, x2_batched, row_mask, col_mask):
                   (L,) + batch + (N1, N2))
 
 
+class _GpPlan(NamedTuple):
+    """A launch's tiles and scratch: gp_fwd_kernel's and
+    gp_bwd_flat_kernel's blocks of ``rows`` whole rows by ``cols`` columns,
+    ``vec`` entries a load and store; gp_bwd_cols_kernel's GP_TX columns by
+    a chunk of ``rows`` rows (vec 1).  ``part``, ``tpart``: doubles of x2's
+    partials (the chunks') and of the parameters' (the blocks');
+    ``counters``: ints the launch's counters take."""
+    grid: Tuple[int, int, int]
+    rows: int
+    cols: int
+    vec: int
+    part: int
+    tpart: int
+    counters: int
+
+
+def _gp_smem(itemsize, ndim, rows, cols, nsub, sym=False) -> int:
+    """A block's shared bytes, as gp_smem (csrc/fusion.cu) lays them out:
+    the rows' dims and row mask, nsub subjects' column dims and column
+    mask, each row's subject, the transposed tile of G (sym), each region
+    16-byte aligned.  The plans fit their tiles within GP_SMEM by it; the
+    C entries work the bytes out themselves and refuse a tile beyond."""
+    a16 = lambda b: -(-b // 16) * 16
+    return (a16((ndim + 1) * rows * itemsize)
+            + a16(nsub * (ndim + 1) * cols * itemsize) + a16(rows * 4)
+            + (GP_TX * (rows + 1) * itemsize if sym else 0))
+
+
+def _gp_nsub(geo: _GpGeo, rows: int) -> int:
+    """The subjects whose columns a flat block of ``rows`` rows stages:
+    every subject it can touch where x2 or the column mask differs by
+    subject, else one (flat_tile, csrc/fusion.cu)."""
+    if geo.S > 1 and (geo.x2s != 0 or geo.masks >= 2):
+        return min(geo.S, (rows + geo.N1 - 2) // geo.N1 + 1)
+    return 1
+
+
+def gp_flat_plan(geo: _GpGeo, ndim: int, itemsize: int, sms: int = GP_SMS,
+                 vectors: bool = True) -> _GpPlan:
+    """The flat kernels' tiles (the forward; the backward without x2's
+    gradient): whole rows of at most GP_COLS columns; 16-byte vectors where
+    N2 holds whole ones (and ``vectors``, the arrays' alignment, allows);
+    two to eight vectors a thread, fewer blocks than two an SM only where
+    two vectors a thread leave them; the shared bytes within GP_SMEM."""
+    R = geo.S * geo.N1
+    vec = 16 // itemsize
+    vec = vec if vectors and geo.N2 % vec == 0 else 1
+    cols = min(geo.N2, GP_COLS)
+    per = geo.L * R * geo.N2 // vec // (GP_THREADS * 2 * sms)
+    per = min(max(per, 2), 8)
+    rows = min(max(-(-GP_THREADS * vec * per // cols), 1), R)
+    while _gp_smem(itemsize, ndim, rows, cols,
+                   _gp_nsub(geo, rows)) > GP_SMEM:
+        if cols > 64:
+            cols = cols // 2 // vec * vec
+        elif rows > 1:
+            rows //= 2
+        else:
+            raise ValueError(f"gp_kernel_matrix: no tile of {geo} fits "
+                             f"{GP_SMEM} bytes")
+    grid = (-(-R // rows), -(-geo.N2 // cols), geo.L)
+    return _GpPlan(grid, rows, cols, vec, 0,
+                   grid[0] * grid[1] * geo.L * GP_MAX["params"], geo.L)
+
+
+def gp_cols_plan(geo: _GpGeo, ndim: int, itemsize: int, fold: int = 1,
+                 sym: bool = False, dtheta: bool = True,
+                 sms: int = GP_SMS) -> _GpPlan:
+    """The column kernel's chunks (the backward with x2's gradient; ``geo``
+    with S = 1 where the batch is folded): rows split into as many chunks,
+    each a multiple of GP_TY rows, as two blocks an SM take in one wave;
+    x2's partials only over several chunks; a counter a grid z."""
+    R, Lz = geo.S * geo.N1, geo.L * fold
+    tiles = -(-geo.N2 // GP_TX)
+    nchunks = min(max(2 * sms // (Lz * tiles), 1), -(-R // GP_TY))
+    rows = -(-(-(-R // nchunks)) // GP_TY) * GP_TY
+    while _gp_smem(itemsize, ndim, rows, GP_TX, 1, sym) > GP_SMEM:
+        if rows == GP_TY:
+            raise ValueError(f"gp_kernel_matrix: no chunk of {geo} fits "
+                             f"{GP_SMEM} bytes")
+        rows = max(GP_TY, rows // 2 // GP_TY * GP_TY)
+    nchunks = -(-R // rows)
+    part = Lz * nchunks * tiles * GP_TX * GP_MAX["slots"] if nchunks > 1 \
+        else 0
+    return _GpPlan((tiles, nchunks, Lz), rows, GP_TX, 1, part,
+                   Lz * tiles * nchunks * GP_MAX["params"] if dtheta else 0,
+                   Lz)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The backward's counters, a buffer a (device, stream): zero between
+# launches (a launch's last blocks zero the ones it took), so the launches
+# of one stream, which run in its order, share one, and no launch needs a
+# memset.  A buffer outgrown stays alive: a captured CUDA graph keeps its
+# address.
+_GP_COUNTERS: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+
+
+def _gp_counters(device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters for launches on ``stream`` (its
+    ``cuda_stream`` handle) of ``device``."""
+    bufs = _GP_COUNTERS.setdefault((device.index, stream), [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
+
 def _geo_args(g: _GpGeo):
     return (g.L, g.S, g.N1, g.N2, g.Q, _LongLong(g.x1l), _LongLong(g.x1s),
             _LongLong(g.x2l), _LongLong(g.x2s), g.masks)
+
+
+def _tile_args(p: _GpPlan):
+    return (p.rows, p.cols, p.vec)
 
 
 def _spec_array(flat):
@@ -677,37 +817,47 @@ def _spec_array(flat):
 
 
 def _gp_backward(G, theta, x1, x2, rm, cm, chunks, geo: _GpGeo, dtheta,
-                 x2_like, pscale=1.0):
+                 x2_like, sym=False):
     """The launches of one side's backward: into ``dtheta`` (when given)
-    the raw parameters' gradient times ``pscale``, and x2's (returned,
-    shaped like ``x2_like``, when given).  A batched x2's gradient takes a
-    launch of its own, with the batch folded into the latents."""
-    dev, dt = theta.device, theta.dtype
+    the raw parameters' gradient, and x2's (returned, shaped like
+    ``x2_like``, when given).  Without x2's gradient the flat kernel takes
+    the parameters'; with it the column kernel takes both, but a batched
+    x2's, whose launch folds the batch into the latents, leaves the
+    parameters' to a flat launch.  ``sym``: x1 is x2 under symmetric masks,
+    and x2's gradient is one column reduction of G + G^T (whose parameter
+    sums are twice G's)."""
+    dev, dt, z = theta.device, theta.dtype, theta.element_size()
+    sms = _sm_count(dev.index)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     fold = geo.S if x2_like is not None and geo.x2s else 1
-    plan = [(1, dtheta, x2_like is not None and fold == 1)]
-    if fold > 1:
-        plan.append((fold, None, True))
+    passes = []
+    if dtheta is not None and (x2_like is None or fold > 1):
+        passes.append((geo, 1, dtheta, False))
+    if x2_like is not None:
+        passes.append((geo._replace(S=1) if fold > 1 else geo, fold,
+                       dtheta if fold == 1 else None, True))
+    vectors = G.data_ptr() % 16 == 0
     dx = None
-    for f, dth, want_dx in plan:
-        if dth is None and not want_dx:
-            continue
-        g = geo._replace(S=1) if f > 1 else geo
+    for g, f, dth, want_dx in passes:
         Lz = geo.L * f
-        tiles, chunks_r = -(-g.N2 // TILE), -(-(g.S * g.N1) // GP_ROWS)
-        part, tile_part, cnt = _scratch(
-            torch.empty(Lz * chunks_r * tiles * TILE * GP_NV,
-                        dtype=torch.float64, device=dev),
-            torch.empty(Lz * tiles * GP_MAX["params"], dtype=torch.float64,
-                        device=dev),
-            torch.zeros(Lz * tiles + Lz, dtype=torch.int32, device=dev))
         dx = (torch.empty((Lz, g.N2, g.Q), dtype=dt, device=dev) if want_dx
               else None)
         for k, ch in enumerate(chunks):
+            ndim = ch.flat[3]
+            plan = (gp_cols_plan(g, ndim, z, f, sym, dth is not None, sms)
+                    if want_dx else
+                    gp_flat_plan(g, ndim, z, sms, vectors))
+            part, tpart = _scratch(
+                torch.empty(plan.part, dtype=torch.float64, device=dev),
+                torch.empty(plan.tpart, dtype=torch.float64, device=dev))
             rows = slice(ch.p0, ch.p0 + len(ch.rows))
-            _launch("gp_kernel_bwd", G, theta.element_size(),
-                    _spec_array(ch.flat), theta[rows], x1, x2, rm, cm, G,
-                    None if dth is None else dth[rows], dx, pscale, part,
-                    tile_part, cnt, *_geo_args(g), f, int(k > 0))
+            _launch("gp_kernel_bwd", G, z, _spec_array(ch.flat), ch.nr,
+                    theta[rows], x1, x2, rm, cm, G,
+                    None if dth is None else dth[rows], dx,
+                    0.5 if sym and want_dx else 1.0, part, tpart,
+                    _scratch(_gp_counters(dev, stream, plan.counters))[0],
+                    *_geo_args(g), f, int(sym and want_dx),
+                    *_tile_args(plan), int(k > 0))
     if x2_like is None:
         return None
     dx = dx.reshape((geo.L, fold, geo.N2, geo.Q) if fold > 1 else
@@ -721,10 +871,13 @@ class _GpKernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, theta, x1, x2, rm, cm, chunks, geo):
         out = torch.empty(geo.shape, dtype=theta.dtype, device=theta.device)
+        z = theta.element_size()
         for k, ch in enumerate(chunks):
-            _launch("gp_kernel_fwd", out, theta.element_size(),
-                    _spec_array(ch.flat), theta[ch.p0:ch.p0 + len(ch.rows)],
-                    x1, x2, rm, cm, out, *_geo_args(geo), int(k > 0))
+            plan = gp_flat_plan(geo, ch.flat[3], z,
+                                _sm_count(theta.device.index))
+            _launch("gp_kernel_fwd", out, z, _spec_array(ch.flat), ch.nr,
+                    theta[ch.p0:ch.p0 + len(ch.rows)], x1, x2, rm, cm, out,
+                    *_geo_args(geo), *_tile_args(plan), int(k > 0))
         ctx.chunks, ctx.geo = chunks, geo
         # one matrix of x against itself under symmetric masks
         ctx.symmetric = x1 is x2 and rm is cm
@@ -739,10 +892,10 @@ class _GpKernel(torch.autograd.Function):
         g = g.contiguous()
         dtheta = torch.empty_like(theta) if need_t else None
         if need_x1 and ctx.symmetric:
-            # x's gradient is one column reduction of G + G^T, the
-            # parameters' half of its
-            dx = _gp_backward(g + g.mT, theta, x1, x2, rm, cm, chunks, geo,
-                              dtheta, x2, pscale=0.5)
+            # x's gradient is one column reduction of G + G^T, read in the
+            # kernel (the transposed tile staged)
+            dx = _gp_backward(g, theta, x1, x2, rm, cm, chunks, geo, dtheta,
+                              x2, sym=True)
             return dtheta, None, dx, None, None, None, None
         dx2 = _gp_backward(g, theta, x1, x2, rm, cm, chunks, geo, dtheta,
                            x2 if need_x2 else None)

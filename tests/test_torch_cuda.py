@@ -1032,7 +1032,14 @@ def _gp_case(L, S, T, M, dtype, gen):
     return (spec0, spec1), params, x.to(dtype), z.to(dtype), valid.to(dtype)
 
 
-def _gp_run(fn, case, which):
+def _gp_cotangent(shape, dtype):
+    return torch.randn(shape, generator=torch.Generator("cuda").manual_seed(
+        9), device="cuda", dtype=torch.float64).to(dtype)
+
+
+def _gp_run(fn, case, which, w=None):
+    """The bound's matrix ``which`` and its gradients to the raw parameters
+    and (K0xz, K0zz) to z, under the cotangent ``w`` (a seeded normal)."""
     (spec0, spec1), params, x, z, valid = case
     params = [[{k: v.detach().clone().requires_grad_(True)
                 for k, v in p.items()} for p in ps] for ps in params]
@@ -1042,24 +1049,33 @@ def _gp_run(fn, case, which):
     elif which == "K0zz":
         out = fn(spec0, params[0], z, z, x1_batched=True, x2_batched=True)
     else:
-        out = fn(spec1, params[1], x, x, row_mask=valid, col_mask=valid)
-    w = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(
-        9), device="cuda", dtype=torch.float64).to(out.dtype)
-    leaves = [v for p in params[0 if which != "K1_st" else 1]
+        spec, ps = (spec1, params[1]) if which == "K1_st" else \
+            (spec0, params[0])
+        out = fn(spec, ps, x, x, row_mask=valid, col_mask=valid)
+    w = _gp_cotangent(out.shape, out.dtype) if w is None else w
+    leaves = [v for p in params[1 if which == "K1_st" else 0]
               for v in p.values()]
-    inputs = leaves + ([z] if which != "K1_st" else [])
+    inputs = leaves + ([z] if which in ("K0xz", "K0zz") else [])
     grads = torch.autograd.grad((out * w).sum(), inputs)
     return [out.detach()] + list(grads)
 
 
-@pytest.mark.parametrize("which", ["K0xz", "K0zz", "K1_st"])
-@pytest.mark.parametrize("shape", [(32, 20, 20, 120), (3, 7, 13, 37)])
+GP_WHICH = ["K0xz", "K0zz", "K1_st", "K0_st"]
+
+
+# [L, S, T, M]: the canonical shape (N2 = 120 and 20: 16-byte vectors), a
+# ragged one (M = 37, T = 13: neither takes them) and T = 37 with M = 20
+# (N2 below a warp's 32 lanes for K0xz and K0zz, N2 = 37 for the subject
+# blocks)
+@pytest.mark.parametrize("which", GP_WHICH)
+@pytest.mark.parametrize("shape", [(32, 20, 20, 120), (3, 7, 13, 37),
+                                   (4, 6, 37, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_fused_gp_kernel_matrix_against_plain_version(gen, dtype, shape,
                                                       which):
-    """The GP kernel matrix with its masks (the bound's K0xz, K0zz and
-    K1_st) and its gradients to the raw outputscales and lengthscales and
-    to z, at the canonical [L, S, T, M] and a ragged shape, against the
+    """The GP kernel matrix with its masks (the bound's K0xz, K0zz, K1_st
+    and K0_st) and its gradients to the raw outputscales and lengthscales
+    and to z, at the canonical [L, S, T, M] and ragged shapes, against the
     plain version."""
     from hlax_torch.ops import fusion
 
@@ -1083,6 +1099,34 @@ def test_fused_gp_kernel_matrix_against_plain_version(gen, dtype, shape,
     ref = _gp_run(fusion.gp_kernel_matrix_plain, case64, which)
     for i, (a, b, r) in enumerate(zip(got, plain, ref)):
         _hold(f"{which} output {i}", a, b, r)
+
+
+@pytest.mark.parametrize("which", GP_WHICH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_gp_kernel_matrix_graph_replays_eager_call(gen, dtype, which):
+    """Forward and backward of each of the bound's GP matrices at the
+    canonical shape, captured in a CUDA graph and replayed twice: equal to
+    the eager call bit for bit (the backward's sums in a fixed order, its
+    counters zero again after every launch)."""
+    from hlax_torch.ops import fusion
+
+    case = _gp_case(32, 20, 20, 120, dtype, gen)
+    eager = _gp_run(fusion.gp_kernel_matrix, case, which)
+    w = _gp_cotangent(eager[0].shape, dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _gp_run(fusion.gp_kernel_matrix, case, which, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _gp_run(fusion.gp_kernel_matrix, case, which, w)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(captured, eager)):
+            assert torch.equal(a, b), (which, i,
+                                       (a - b).abs().max().item())
 
 
 # ---- the fused ops beyond the canonical sizes --------------------------------
