@@ -17,7 +17,12 @@ run eagerly.
     python3 chip_smoke.py          # every phase, one card
     python3 chip_smoke.py mesh     # the build, [mesh] and [mesh4] only
     python3 chip_smoke.py fusion   # the build, [fusion], [graph], [parent]
-    python3 chip_smoke.py rate <tree> <data_dir>   # [parent]'s own runs
+    python3 chip_smoke.py precision   # the build, [precision] and its A/B
+    python3 chip_smoke.py rate <tree> <data_dir> [ab | full [seed]]
+                                   # [parent]'s and the A/B's own runs
+
+The VAE's float32 precision comes from JAX_DEFAULT_MATMUL_PRECISION, as the
+CLI's does (unset: "default", TF32 in the VAE, the GP in full float32).
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel, and
@@ -72,7 +77,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              by the native parser (build/libfastcsv.so, g++ at first use),
              whose parse time beside the plain-Python one is printed.
   6. eval    imputation-eval samples/s (bench.py's protocol: forward with
-             the q(z) mean over the training set in 500-row chunks).
+             the q(z) mean over the training set in 500-row chunks) and a
+             pass's device busy ms and kernels under the profiler.
   7. profile steps/s of the canonical step, eager, and device time by
              kernel (full names) and kernels and device ms a step by
              source region (hlax_torch/profiling.py's ranges: each kernel
@@ -134,6 +140,20 @@ Phases (each prints its own lines; any failure exits non-zero):
              rounds, and the graph path's device time and idle share under
              torch.profiler, by region as the eager steps' profile splits
              each kernel name.
+ 11a. precision  hlax's split on the canonical float32 step: each
+             convolution's and matmul's kernels by layer (operation and
+             input shapes) and region in an eager step, marked TF32 where
+             the name says so, then the graph replay's kernels by region
+             with and without the mark; fails on a TF32 kernel in a GP
+             region, or on none in a VAE region under a TF32 precision.
+             With ``precision``: "highest" against "default" in processes
+             in turns (highest, default, default, highest), graph steps/s,
+             device busy ms, kernels, idle share and ms by region of the
+             canonical step, --nat_grad_f64, the MLP and --fused_conv, the
+             imputation eval; then [full] for seeds 0, 1, 2 in each arm,
+             the final training and validation net losses against the
+             quality gate (the TF32 mean within the larger of 1 % and the
+             float32 arm's range of the float32 mean).
  11b. parent with an earlier commit's tree unpacked under parent/
              (git-ignored), both trees' canonical graph steps (float32,
              float64, --nat_grad_f64) in processes of their own, in turns
@@ -151,9 +171,10 @@ Phases (each prints its own lines; any failure exits non-zero):
              every run's graph path steps/s in alternating rounds and its
              device time under the profiler.
  14. fused   (directly) the fused conv stack against cuDNN's at the
-             canonical shapes (400 rows, 36x36, float32): outputs within
-             1e-4 and gradients within 1e-3 of their norm, and the VAE
-             forward + backward time of each.
+             canonical shapes (400 rows, 36x36, float32, full float32):
+             outputs within 1e-4 and gradients within 1e-3 of their norm
+             (under TF32 printed, not held), and the VAE forward + backward
+             time of each in both precisions.
  15. mesh    the three kernels at the 2 x 2 mesh's local shapes ([16,10,20,20]
              small and backward, [16,120,120] mid; timed, in the kernel
              table); 4 gloo ranks (2 data x 2 latent) sharing the card, the
@@ -182,8 +203,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              steps/s of the graph mesh, the eager mesh and one card (graph
              and eager) in 3 alternating rounds, at 20 and at 200 subjects
              a step.  With one card it prints that it did not run.
-Phase 7b runs after [profile]; 13 and 14 after [mlp], before [graph]; 11b
-after [graph]; 15 and 16 after [full].
+Phase 7b runs after [profile]; 13 and 14 after [mlp], before [graph]; 11a
+and 11b after [graph]; 15 and 16 after [full].
 Every main path (slice, f64, longT, mlp, bf16, fused, full, and each rank
 of mesh and mesh4) runs with the launch counters set to 0 just before it
 and read just after.  The line
@@ -1352,13 +1373,16 @@ def phase_impute(data_dir: str, save: str, tag: str = "impute") -> None:
               f"files read {nio.PARSES}", flush=True)
 
 
-def phase_eval(out) -> None:
+def eval_rate(model, ds, reps: int = 10):
     """bench.py's imputation-eval protocol: forward with the q(z) mean over
-    the training set in 500-row chunks (zero-padded), summed log_p_x, one
-    sync a pass; one warm-up pass, then 10 timed."""
+    the training set ``ds`` in 500-row chunks (zero-padded), summed
+    log_p_x, one sync a pass; one warm-up pass, then ``reps`` timed, then
+    one under the profiler.  Returns (samples/s, summed log p(x), device
+    busy ms of a pass, kernels a pass)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from hlax_torch.eval.validate import device_het
 
-    model, ds = out["model"], out["dataset"]
     data, mask, tmask = device_het(ds, torch.float32, "cuda")
     n = data.shape[0]
     pad = -n % EVAL_CHUNK
@@ -1375,14 +1399,26 @@ def phase_eval(out) -> None:
     total = one_pass()
     if not np.isfinite(total):
         fail(f"[eval] non-finite summed log-likelihood {total}")
-    reps = 10
     t0 = time.perf_counter()
     for _ in range(reps):
         one_pass()
     dt = time.perf_counter() - t0
-    print(f"[eval] imputation-eval {reps * n / dt:.1f} samples/s ({n} rows, "
-          f"{-(-n // EVAL_CHUNK)} chunks of {EVAL_CHUNK}, {reps} passes, "
-          f"sum log p(x) {total:.1f}) on {card_line()}", flush=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_pass()
+    kernels = [e for e in prof.events() if str(e.device_type).endswith(
+        "CUDA") and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return reps * n / dt, total, busy, len(kernels)
+
+
+def phase_eval(out) -> None:
+    """[eval] ``eval_rate`` of the trained canonical model."""
+    n = len(out["dataset"])
+    rate, total, busy, kernels = eval_rate(out["model"], out["dataset"])
+    print(f"[eval] imputation-eval {rate:.1f} samples/s ({n} rows, "
+          f"{-(-n // EVAL_CHUNK)} chunks of {EVAL_CHUNK}, 10 passes, "
+          f"sum log p(x) {total:.1f}; a pass {busy:.3f} ms device busy in "
+          f"{kernels} kernels) on {card_line()}", flush=True)
 
 
 def phase_profile(out, n_steps: int = 10) -> None:
@@ -1945,13 +1981,17 @@ def canonical_setup(data_dir: str):
 
 
 def canonical_state(ds, spec0, spec1, dtype, seed: int = 0,
-                    subjects: int = 20, conv: bool = True, **cfg_kw):
+                    subjects: int = 20, conv: bool = True,
+                    fused_conv: bool = False, **cfg_kw):
     """The canonical model and train state (conv, hidden [500], L = 32,
     M = 120, natural gradients, constrained scales) in ``dtype`` (model and
-    GP), made on the card from ``seed`` as the CLI makes it, the inducing
-    points from a first batch of ``subjects``; ``conv=False`` the MLP
-    model; ``cfg_kw`` sets more fields of the TrainConfig
-    (``use_pallas_chol``, ``nat_grad_f64``)."""
+    GP), made on the card from ``seed`` as the CLI makes it (the VAE's
+    precision from JAX_DEFAULT_MATMUL_PRECISION), the inducing points from a
+    first batch of ``subjects``; ``conv=False`` the MLP model,
+    ``fused_conv`` the fused conv stack; ``cfg_kw`` sets more fields of the
+    TrainConfig (``use_pallas_chol``, ``nat_grad_f64``)."""
+    import dataclasses
+
     from hlax_torch.data.dataset import subject_batches
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
     from hlax_torch.train import step as tstep
@@ -1960,8 +2000,13 @@ def canonical_state(ds, spec0, spec1, dtype, seed: int = 0,
                             N_tot=float(len(ds)), id_covariate=2,
                             natural_gradient=True, constrain_scales=True,
                             gp_dtype=dtype, **cfg_kw)
+    model_kw = {"fused_conv": True} if fused_conv else {}
+    # an earlier commit's tree ([parent]) has no precision policy
+    if "precision" in {f.name for f in dataclasses.fields(HLVAEConfig)}:
+        from hlax_torch import precision
+        model_kw["precision"] = precision.from_env()
     model = HLVAE(HLVAEConfig(layout=ds.layout, z_dim=32, h_dims=(500,),
-                              y_dim=5, conv=conv),
+                              y_dim=5, conv=conv, **model_kw),
                   torch.Generator(device="cuda").manual_seed(seed),
                   "cuda").to(dtype)
     return tstep.init_train_state(model, spec0, spec1,
@@ -2685,18 +2730,29 @@ def phase_fusion(data_dir: str, tmp: str):
 RATE_CONFIGS = [("float32", torch.float32, {}),
                 ("float64", torch.float64, {}),
                 ("nat_grad_f64", torch.float32, {"nat_grad_f64": True})]
+# [precision]'s A/B of "highest" against "default": the canonical float32
+# step, the float64 natural-gradient chain, the MLP and the fused conv stack
+PRECISION_CONFIGS = [("float32", torch.float32, {}),
+                     ("nat_grad_f64", torch.float32, {"nat_grad_f64": True}),
+                     ("mlp", torch.float32, {"conv": False}),
+                     ("fused_conv", torch.float32, {"fused_conv": True})]
 PARENT_ROOT = os.path.join(ROOT, "parent")
 
 
-def rate_run(tree: str, data_dir: str, what: str = "rate") -> None:
-    """``python3 chip_smoke.py rate <tree> <data_dir> [full]``: the train
-    step of the tree at ``tree`` (this one, or an earlier commit's unpacked
-    under parent/) on the canonical config for each of RATE_CONFIGS,
-    through ``make_train_epoch``'s graphs (unroll 1): steps/s of 2 rounds
-    of 3 epochs after 2 warm-up epochs, then device ms, kernels a step and
-    the idle share under the profiler; one JSON line.  With ``full``:
-    [full]'s 300 canonical epochs through that tree's CLI, the final
-    training net loss and the last validation's."""
+def rate_run(tree: str, data_dir: str, what: str = "rate",
+             seed: str = "0") -> None:
+    """``python3 chip_smoke.py rate <tree> <data_dir> [ab | full [seed]]``:
+    the train step of the tree at ``tree`` (this one, or an earlier
+    commit's unpacked under parent/) on the canonical config for each of
+    RATE_CONFIGS (PRECISION_CONFIGS with ``ab``), through
+    ``make_train_epoch``'s graphs (unroll 1): steps/s of 2 rounds of 3
+    epochs after 2 warm-up epochs, then device ms, kernels a step and the
+    idle share under the profiler (with ``ab`` also device ms a step by
+    source region, each kernel name split as an eager epoch's profile
+    splits it); one JSON line.  With ``full``: [full]'s 300 canonical
+    epochs through that tree's CLI from ``seed``, the final training net
+    loss and the last validation's.  The VAE's precision comes from
+    JAX_DEFAULT_MATMUL_PRECISION, as the CLI's does."""
     sys.path.insert(0, os.path.abspath(tree))
     import hlax_torch
     from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
@@ -2713,7 +2769,8 @@ def rate_run(tree: str, data_dir: str, what: str = "rate") -> None:
             opt.update(data_source_path=data_dir, save_path=tmp,
                        epochs=FULL_EPOCHS, run_validation=True,
                        run_tests=False, generate_images=False,
-                       device="cuda", epochs_per_dispatch=5, scan_unroll=10)
+                       device="cuda", epochs_per_dispatch=5, scan_unroll=10,
+                       seed=int(seed))
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 out = cli.run(opt)
@@ -2727,7 +2784,8 @@ def rate_run(tree: str, data_dir: str, what: str = "rate") -> None:
     idx = np.stack(list(epoch_subject_batches(ds.P, 20,
                                               np.random.default_rng(0))))
     out = {}
-    for name, dtype, kw in RATE_CONFIGS:
+    for name, dtype, kw in (PRECISION_CONFIGS if what == "ab"
+                            else RATE_CONFIGS):
         st, cfg = canonical_state(ds, spec0, spec1, dtype, **kw)
         staged = stage_dataset(ds, dtype, "cuda")
         epoch = tstep.make_train_epoch(st.vae, spec0, spec1, cfg)
@@ -2737,12 +2795,21 @@ def rate_run(tree: str, data_dir: str, what: str = "rate") -> None:
         run()
         run()
         rates = [_time_epochs(run, 3) for _ in range(2)]
+        table = None
+        if what == "ab":
+            step = tstep.make_train_step(st.vae, spec0, spec1, cfg)
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, table = _profile_steps(
+                    "eager", lambda: tstep.train_epoch(step, st, staged, idx),
+                    GRAPH_STEPS, calls=1, top=0)
         prof, _ = _profile_steps(f"rate {name}", run, 3 * GRAPH_STEPS,
-                                 calls=3, top=0)
+                                 calls=3, top=0, table=table)
         if not torch.isfinite(st.m).all():
             fail(f"[rate] {name}: m is not finite")
         out[name] = {"steps_per_s": rates, **{k: prof[k] for k in (
-            "busy_ms", "kernels", "idle")}}
+            "busy_ms", "kernels", "idle", "regions")}}
+        if what == "ab" and name == "float32":
+            out[name]["eval"] = eval_rate(st.vae, ds)
         del st, staged, epoch
         torch.cuda.empty_cache()
     print("RATE " + json.dumps(out), flush=True)
@@ -2764,27 +2831,13 @@ def phase_parent(data_dir: str) -> None:
     runs = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         tree = PARENT_ROOT if who == "parent" else ROOT
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "rate", tree,
-             data_dir], capture_output=True, text=True, timeout=600)
-        line = [x for x in proc.stdout.splitlines()
-                if x.startswith("RATE ")]
-        if proc.returncode != 0 or not line:
-            fail(f"[parent] {who}'s rate run failed ({proc.returncode}): "
-                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-        runs[who].append(json.loads(line[0][5:]))
+        runs[who].append(_subprocess_json(["rate", tree, data_dir], "RATE ",
+                                          {}, "parent"))
     fulls = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         tree = PARENT_ROOT if who == "parent" else ROOT
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "rate", tree,
-             data_dir, "full"], capture_output=True, text=True, timeout=600)
-        line = [x for x in proc.stdout.splitlines()
-                if x.startswith("FULL ")]
-        if proc.returncode != 0 or not line:
-            fail(f"[parent] {who}'s full run failed ({proc.returncode}): "
-                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-        fulls[who].append(json.loads(line[0][5:]))
+        fulls[who].append(_subprocess_json(["rate", tree, data_dir, "full"],
+                                           "FULL ", {}, "parent"))
     for who, r in fulls.items():
         print(f"[parent] {who}: {FULL_EPOCHS} canonical epochs through the "
               f"CLI, final net loss "
@@ -2864,6 +2917,226 @@ def phase_graph(data_dir: str, tmp: str) -> None:
     for name in ("graph unroll 1", "graph unroll 10"):
         _profile_steps(name, paths[name], 3 * GRAPH_STEPS, calls=3,
                        table=table, top=40)
+
+
+# a cuBLAS or cuDNN kernel that takes TF32 says so in its name: "tf32"
+# (sm80/sm90 xmma kernels, e.g. ..._tf32f32_tf32f32_f32_...), CUTLASS's
+# "tensorop_s" / "s1688" / "s16816" float32-on-tensor-core gemms, or the
+# element type "tfloat32_t" in cuDNN's mangled CUTLASS convolutions
+TF32_MARK = re.compile(r"tf32|tfloat32|tensorop_s|s1688|s16816", re.I)
+# the train step's regions (``_region_of``) that run the VAE's convolutions
+# and dense layers, and those that run the GP
+VAE_REGIONS = ("encoder", "decoder", "backward of encoder",
+               "backward of decoder")
+GP_REGIONS = ("gp_bound", "backward of gp_bound", "natural_gradient")
+# the launching operations of [precision]'s per-layer list
+LAYER_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
+             "aten::convolution_backward", "aten::addmm", "aten::mm",
+             "aten::bmm")
+
+
+def _launching_op(e):
+    a = e
+    while a is not None and a.name not in LAYER_OPS:
+        a = a.cpu_parent
+    return a
+
+
+def phase_precision(data_dir: str) -> None:
+    """[precision] hlax's split on the canonical float32 step under the
+    precision of JAX_DEFAULT_MATMUL_PRECISION (unset: "default", TF32 in
+    the VAE): an eager step under the profiler with shapes, every
+    convolution and matmul's kernels by layer (its operation and input
+    shapes) and region, marked TF32 where the name says so; then the graph
+    replay of 30 steps under the profiler, each region's kernels (names
+    split as the eager profile splits them) with and without the TF32
+    mark.  Fails if a GP region runs a TF32 kernel, or, under a TF32
+    precision, if a VAE region runs none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hlax_torch import precision
+    from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
+    from hlax_torch.profiling import REGIONS
+    from hlax_torch.train import step as tstep
+
+    name = precision.from_env()
+    ds, spec0, spec1 = canonical_setup(data_dir)
+    idx = np.stack(list(epoch_subject_batches(ds.P, 20,
+                                              np.random.default_rng(0))))
+    st, cfg = canonical_state(ds, spec0, spec1, torch.float32)
+    staged = stage_dataset(ds, torch.float32, "cuda")
+    step = tstep.make_train_step(st.vae, spec0, spec1, cfg)
+    tstep.train_epoch(step, st, staged, idx[:2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        tstep.train_epoch(step, st, staged, idx[:1])
+        torch.cuda.synchronize()
+    events = prof.events()
+    seq_region = {}
+    for e in events:
+        if e.sequence_nr is None or e.sequence_nr < 0:
+            continue
+        a = e.cpu_parent
+        while a is not None and a.name not in REGIONS:
+            a = a.cpu_parent
+        if a is not None and a.name not in ("backward", "adam"):
+            seq_region.setdefault(e.sequence_nr, a.name)
+    layers = {}
+    for e in events:
+        for k in getattr(e, "kernels", ()):
+            op = _launching_op(e)
+            if op is None:
+                continue
+            key = (_region_of(e, seq_region), op.name,
+                   str([list(x) for x in op.input_shapes if x][:2]), k.name)
+            acc = layers.setdefault(key, [0, 0.0])
+            acc[0] += 1
+            acc[1] += k.duration
+    print(f"[precision] JAX_DEFAULT_MATMUL_PRECISION={name!r} (TF32 in the "
+          f"VAE: {precision.uses_tf32(name)}); one eager canonical float32 "
+          "step, each convolution and matmul's kernels by region, "
+          "operation and input shapes: launches, device us, TF32 mark",
+          flush=True)
+    for (region, op, shapes, kname), (n, us) in sorted(layers.items()):
+        mark = "TF32" if TF32_MARK.search(kname) else "fp32"
+        print(f"[precision]   {region:22s} {op:34s} {shapes:32s} {n:3d} "
+              f"{us:8.1f} {mark} {kname}", flush=True)
+    table = region_table(prof)
+    epoch = tstep.make_train_epoch(st.vae, spec0, spec1, cfg)
+    epoch(st, staged, idx)
+    epoch(st, staged, idx)
+    summary, _ = _profile_steps(
+        "precision graph", lambda: epoch(st, staged, idx), 3 * GRAPH_STEPS,
+        calls=3, table=table, top=0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        epoch(st, staged, idx)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA") and not getattr(
+                e, "is_user_annotation", False):
+            by_name[e.name] = by_name.get(e.name, 0) + 1
+    regions = {}
+    for kname, n in by_name.items():
+        split = table.get(kname) or {"unattributed": [n, 0.0]}
+        tot = sum(v[0] for v in split.values())
+        for r, (rn, _) in split.items():
+            regions.setdefault(r, {})[kname] = n * rn / tot / GRAPH_STEPS
+    print("[precision] the graph replay's kernels a step by region, with and "
+          "without the TF32 mark:", flush=True)
+    bad, missing = [], []
+    for r in sorted(regions):
+        tf = {k: v for k, v in regions[r].items() if TF32_MARK.search(k)}
+        other = {k: v for k, v in regions[r].items() if k not in tf}
+        print(f"[precision]   {r}: TF32 {sum(tf.values()):.1f} "
+              f"({', '.join(f'{v:.1f} {k[:110]}' for k, v in sorted(tf.items()))}); "
+              f"others {sum(other.values()):.1f}", flush=True)
+        if r in GP_REGIONS and tf:
+            bad.append(r)
+        if r in VAE_REGIONS and not tf:
+            missing.append(r)
+    if bad:
+        fail(f"[precision] GP regions ran TF32 kernels: {bad}")
+    if precision.uses_tf32(name) and missing:
+        fail(f"[precision] VAE regions ran no TF32 kernel: {missing}")
+    if not precision.uses_tf32(name) and any(
+            TF32_MARK.search(k) for k in by_name):
+        fail("[precision] a TF32 kernel ran under a full float32 precision")
+    if not torch.isfinite(st.m).all():
+        fail("[precision] m is not finite")
+    del st, staged, epoch, step
+    torch.cuda.empty_cache()
+
+
+def _print_ab(tag: str, runs: dict, configs) -> None:
+    """Each configuration's steps/s, busy ms, kernels, idle share and ms by
+    region of each arm's runs (``rate_run`` JSON), and the region table
+    side by side."""
+    for name, *_ in configs:
+        for arm, rs in runs.items():
+            r = [x[name] for x in rs]
+            print(f"[{tag}] {name} {arm}: graph steps/s "
+                  f"{', '.join(f'{v:.2f}' for x in r for v in x['steps_per_s'])}"
+                  f"; device busy {', '.join(f'{x['busy_ms']:.3f}' for x in r)}"
+                  f" ms/step; kernels/step "
+                  f"{', '.join(f'{x['kernels']:.1f}' for x in r)}; idle "
+                  f"{', '.join(f'{x['idle']:.3f}' for x in r)} on "
+                  f"{card_line()}", flush=True)
+            if "eval" in r[0]:
+                print(f"[{tag}] {name} {arm}: imputation-eval samples/s "
+                      f"{', '.join(f'{x['eval'][0]:.1f}' for x in r)}; a "
+                      f"pass {', '.join(f'{x['eval'][2]:.3f}' for x in r)} "
+                      f"ms device busy in "
+                      f"{', '.join(str(x['eval'][3]) for x in r)} kernels",
+                      flush=True)
+        names = sorted({g for rs in runs.values() for x in rs
+                        for g in (x[name]["regions"] or {})},
+                       key=lambda g: -max((x[name]["regions"] or {}).get(
+                           g, (0, 0))[1] for rs in runs.values()
+                           for x in rs))
+        for g in names:
+            cells = "; ".join(
+                f"{arm} " + ", ".join(
+                    f"{(x[name]['regions'] or {}).get(g, (0, 0))[1]:.3f}"
+                    for x in rs) for arm, rs in runs.items())
+            print(f"[{tag}]   {name} {g:34s} ms/step: {cells}", flush=True)
+
+
+def _subprocess_json(args, prefix: str, env: dict, tag: str,
+                     timeout: int = 600) -> dict:
+    """``python3 chip_smoke.py <args>`` in a process of its own with ``env``
+    added: the JSON of its output line that starts with ``prefix``."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__)] + args,
+                          capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, **env})
+    line = [x for x in proc.stdout.splitlines() if x.startswith(prefix)]
+    if proc.returncode != 0 or not line:
+        fail(f"[{tag}] {' '.join(args)} failed ({proc.returncode}): "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return json.loads(line[0][len(prefix):])
+
+
+def phase_precision_ab(data_dir: str) -> None:
+    """``python3 chip_smoke.py precision``: "highest" against "default"
+    (JAX_DEFAULT_MATMUL_PRECISION) in processes of their own, in turns
+    highest, default, default, highest: each of PRECISION_CONFIGS' graph
+    steps/s, device busy ms, kernels, idle share and ms by region
+    (``rate_run`` ab); then [full]'s 300 canonical epochs through the CLI
+    for seeds 0, 1, 2 in each arm (turns highest, default; default,
+    highest; highest, default): the final training net loss and the last
+    validation net loss, each arm's mean, min and max, and the quality
+    gate: the TF32 arm's mean within the larger of 1 % of the float32
+    arm's mean and its min-max range."""
+    env = lambda arm: {"JAX_DEFAULT_MATMUL_PRECISION": arm}
+    runs = {"highest": [], "default": []}
+    for arm in ("highest", "default", "default", "highest"):
+        runs[arm].append(_subprocess_json(["rate", ROOT, data_dir, "ab"],
+                                          "RATE ", env(arm), "precision"))
+    _print_ab("precision", runs, PRECISION_CONFIGS)
+    fulls = {"highest": [], "default": []}
+    for seed, arms in ((0, ("highest", "default")), (1, ("default",
+                                                         "highest")),
+                       (2, ("highest", "default"))):
+        for arm in arms:
+            fulls[arm].append(_subprocess_json(
+                ["rate", ROOT, data_dir, "full", str(seed)], "FULL ",
+                env(arm), "precision"))
+    for key in ("final", "validation"):
+        f32 = np.array([x[key] for x in fulls["highest"]])
+        tf32 = np.array([x[key] for x in fulls["default"]])
+        band = max(0.01 * abs(f32.mean()), f32.max() - f32.min())
+        held = abs(tf32.mean() - f32.mean()) <= band
+        print(f"[precision] [full] {FULL_EPOCHS} epochs, seeds 0, 1, 2, "
+              f"{key} net loss: highest {', '.join(f'{v:.6g}' for v in f32)}"
+              f" (mean {f32.mean():.6g}, range {f32.max() - f32.min():.6g});"
+              f" default {', '.join(f'{v:.6g}' for v in tf32)} (mean "
+              f"{tf32.mean():.6g}); |difference of means| "
+              f"{abs(tf32.mean() - f32.mean()):.6g} against "
+              f"{band:.6g}: gate {'holds' if held else 'FAILS'}; seconds "
+              f"{', '.join(f'{x['seconds']:.1f}' for x in fulls['highest'])}"
+              f" / {', '.join(f'{x['seconds']:.1f}' for x in fulls['default'])}"
+              f" on {card_line()}", flush=True)
 
 
 # the options of hlax's model on the canonical config through the CLI:
@@ -2961,10 +3234,10 @@ def phase_options(data_dir: str, tmp: str) -> dict:
 
 
 # the fused stack against cuDNN's at the canonical shapes, relative to each
-# tensor's norm: float32 with TF32 off, two summation orders of the same
-# products.  A bias gradient sums 400 x 36 x 36 terms that cancel (2e-5
-# apart on the CPU), so gradients get hlax's own bar for its fused model
-# against its unfused one (tests/test_convfuse.py, 1e-3)
+# tensor's norm: float32 with TF32 off (precision "highest"), two summation
+# orders of the same products.  A bias gradient sums 400 x 36 x 36 terms
+# that cancel (2e-5 apart on the CPU), so gradients get hlax's own bar for
+# its fused model against its unfused one (tests/test_convfuse.py, 1e-3)
 FUSED_BOUND = {"outputs": 1e-4, "gradients": 1e-3}
 
 
@@ -2972,13 +3245,15 @@ def phase_fused_stack(data_dir: str) -> None:
     """[fused] directly, at the canonical shapes: 400 rows (20 subjects of
     20 frames, a batch), 36x36 images, the canonical widths, float32.  The
     fused stack (hlax's patch matmuls) and cuDNN's convolutions from one
-    set of weights: mu, log_var, log_p_x and every parameter's gradient of
-    the summed NLL within FUSED_BOUND; then each one's VAE forward +
-    backward time, in turns cuDNN, fused, fused, cuDNN: device time by CUDA
-    events over 20 replays of a CUDA graph of it, as the train step runs it
-    (an eager forward + backward is hundreds of launches, more than the
-    launch queue holds ahead of ``time_ms``'s spin kernel, so its events
-    would time the host)."""
+    set of weights, both in full float32 (precision "highest"): mu,
+    log_var, log_p_x and every parameter's gradient of the summed NLL
+    within FUSED_BOUND; beside them the same under TF32 (precision
+    "default"), printed.  Then each one's VAE forward + backward time in
+    both precisions, in turns cuDNN, fused, fused, cuDNN: device time by
+    CUDA events over 20 replays of a CUDA graph of it, as the train step
+    runs it (an eager forward + backward is hundreds of launches, more than
+    the launch queue holds ahead of ``time_ms``'s spin kernel, so its
+    events would time the host)."""
     import dataclasses
 
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig, nll_from_log_p
@@ -2993,10 +3268,13 @@ def phase_fused_stack(data_dir: str) -> None:
     cfg = HLVAEConfig(layout=ds.layout, z_dim=32, h_dims=(500,), y_dim=5,
                       conv=True)
     models = {}
-    for fused in (False, True):
-        models[fused] = HLVAE(dataclasses.replace(cfg, fused_conv=fused),
-                              torch.Generator("cuda").manual_seed(0), "cuda")
-    models[True].load_state_dict(models[False].state_dict())
+    for prec in ("highest", "default"):
+        for fused in (False, True):
+            models[fused, prec] = HLVAE(
+                dataclasses.replace(cfg, fused_conv=fused, precision=prec),
+                torch.Generator("cuda").manual_seed(0), "cuda")
+            models[fused, prec].load_state_dict(
+                models[False, "highest"].state_dict())
 
     def fwd_bwd(model):
         model.zero_grad(set_to_none=False)
@@ -3004,48 +3282,51 @@ def phase_fused_stack(data_dir: str) -> None:
         nll_from_log_p(out["log_p_x"]).sum().backward()
         return out
 
-    outs = {f: fwd_bwd(m) for f, m in models.items()}
+    outs = {k: fwd_bwd(m) for k, m in models.items()}
     rel = lambda u, v: ((u - v).norm() / v.norm().clamp_min(1e-30)).item()
-    worst = {}
-    for k in ("mu", "log_var", "log_p_x"):
-        worst[k] = rel(outs[True][k], outs[False][k])
-    grads = dict(models[False].named_parameters())
-    for k, p in models[True].named_parameters():
-        if grads[k].grad is not None:
-            worst[f"grad {k}"] = rel(p.grad, grads[k].grad)
-    bad = {k: v for k, v in worst.items() if not v <= FUSED_BOUND[
-        "gradients" if k.startswith("grad") else "outputs"]}
-    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[fused] fused against cuDNN at [{rows}, 36, 36] float32: "
-          f"mu {worst['mu']:.3g}, log_var {worst['log_var']:.3g}, log_p_x "
-          f"{worst['log_p_x']:.3g}; largest {top} (bounds {FUSED_BOUND})",
-          flush=True)
-    if bad:
-        fail(f"[fused] the fused stack disagrees with cuDNN's: {bad}")
+    for prec in ("highest", "default"):
+        worst = {}
+        for k in ("mu", "log_var", "log_p_x"):
+            worst[k] = rel(outs[True, prec][k], outs[False, prec][k])
+        grads = dict(models[False, prec].named_parameters())
+        for k, p in models[True, prec].named_parameters():
+            if grads[k].grad is not None:
+                worst[f"grad {k}"] = rel(p.grad, grads[k].grad)
+        top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[fused] fused against cuDNN at [{rows}, 36, 36] float32, "
+              f"precision {prec}: mu {worst['mu']:.3g}, log_var "
+              f"{worst['log_var']:.3g}, log_p_x {worst['log_p_x']:.3g}; "
+              f"largest {top}" + (f" (bounds {FUSED_BOUND})" if prec ==
+                                  "highest" else " (TF32: not held)"),
+              flush=True)
+        bad = {k: v for k, v in worst.items() if not v <= FUSED_BOUND[
+            "gradients" if k.startswith("grad") else "outputs"]}
+        if bad and prec == "highest":
+            fail(f"[fused] the fused stack disagrees with cuDNN's: {bad}")
     # the autograd graphs of the eager calls above hold each parameter's
     # gradient accumulator, made on the default stream; drop them, so that
     # the warm-up on the capture's stream makes them there
     del outs
     graphs, side = {}, torch.cuda.Stream()
-    for fused, model in models.items():
+    for key, model in models.items():
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(2):
                 fwd_bwd(model)
         torch.cuda.current_stream().wait_stream(side)
-        graphs[fused] = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graphs[fused], stream=side):
+        graphs[key] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[key], stream=side):
             fwd_bwd(model)
-    times = {False: [], True: []}
-    for fused in (False, True, True, False):
-        times[fused].append(time_ms(graphs[fused].replay, reps=20,
-                                    warmup=3)[0])
-    print(f"[fused] VAE forward + backward of {rows} rows: cuDNN "
-          f"{', '.join(f'{v:.4f}' for v in times[False])} ms, fused "
-          f"{', '.join(f'{v:.4f}' for v in times[True])} ms (device, CUDA "
-          f"events over graph replays; turns cuDNN, fused, fused, cuDNN) on "
-          f"{card_line()}",
-          flush=True)
+    for prec in ("highest", "default"):
+        times = {False: [], True: []}
+        for fused in (False, True, True, False):
+            times[fused].append(time_ms(graphs[fused, prec].replay, reps=20,
+                                        warmup=3)[0])
+        print(f"[fused] VAE forward + backward of {rows} rows, precision "
+              f"{prec}: cuDNN {', '.join(f'{v:.4f}' for v in times[False])} "
+              f"ms, fused {', '.join(f'{v:.4f}' for v in times[True])} ms "
+              f"(device, CUDA events over graph replays; turns cuDNN, fused, "
+              f"fused, cuDNN) on {card_line()}", flush=True)
 
 
 def phase_full(data_dir: str, tmp: str) -> None:
@@ -3765,7 +4046,15 @@ def main() -> None:
               "needs an NVIDIA GPU", flush=True)
         sys.exit(2)
     if sys.argv[1:2] == ["rate"]:
-        rate_run(*sys.argv[2:5])
+        rate_run(*sys.argv[2:6])
+        return
+    if sys.argv[1:] == ["precision"]:
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            data_dir = os.path.join(tmp, "data")
+            write_canonical_data(data_dir)
+            phase_precision(data_dir)
+            phase_precision_ab(data_dir)
         return
     mesh_only = sys.argv[1:] == ["mesh"]
     if sys.argv[1:] == ["fusion"]:
@@ -3815,6 +4104,7 @@ def main() -> None:
             counts["options"] = phase_options(data_dir, tmp)
             phase_fused_stack(data_dir)
             phase_graph(data_dir, tmp)
+            phase_precision(data_dir)
             phase_parent(data_dir)
             phase_full(data_dir, tmp)
             torch.cuda.empty_cache()

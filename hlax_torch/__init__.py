@@ -4,9 +4,12 @@ The JAX package ``hlax`` is the reference; this package mirrors its module
 layout and is held against it on identical inputs and weights
 (``tests/test_torch_*.py``).  It imports ``torch`` and never ``jax``.
 
-Every float32 matmul and convolution runs in full float32: hlax computes all
-GP math at "highest" precision (``hlax/gp/elbo.py``), and cuDNN would
-otherwise run the convolutions in TF32.
+TF32 is off for cuBLAS and cuDNN after import, and stays off between calls.
+hlax splits float32 precision in two (``hlax/gp/elbo.py:31-43``): the GP at
+"highest", the VAE at JAX's default, TF32 on an H100.  The port does the
+same per operation, never globally: ``hlax_torch.precision`` switches TF32
+on around the VAE's own convolutions and matmuls, forward and backward
+(``HLVAEConfig.precision``), and the GP runs in full float32.
 """
 
 import torch

@@ -23,7 +23,8 @@ training run's encoded rows (``plot_values.pkl``), so rows the encoder never
 saw -- future time points, fully missing rows -- are imputed too.  Without
 ``--mask_csv`` the NaN cells are the missing ones.  ``--ll_csv`` also writes
 per-row observed/missing log-density sums.  Runs on CUDA unless
-``--device=cpu``.
+``--device=cpu``; the VAE's precision comes from
+``JAX_DEFAULT_MATMUL_PRECISION``, as in the training CLI.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hlax_torch import resolve_device, to_numpy
+from hlax_torch import precision, resolve_device, to_numpy
 
 
 def _load_arguments(model_dir: str) -> dict:
@@ -147,7 +148,8 @@ def run_impute(model_dir: str, data_csv: str, out_csv: str,
         conv=bool(opt.get("conv_hivae", False)),
         logvar_network=opt.get("logvar_network", False),
         vy_init_real=opt.get("vy_init_real", 1.0),
-        vy_init_pos=opt.get("vy_init_pos", 0.5))
+        vy_init_pos=opt.get("vy_init_pos", 0.5),
+        precision=precision.from_env())
     dt = _DTYPES[opt.get("model_dtype", "float32")]
     model = HLVAE(mcfg, torch.Generator(device=dev).manual_seed(0),
                   device=dev).to(dt)

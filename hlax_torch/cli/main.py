@@ -22,7 +22,11 @@ interval the training curves are plotted (``eval/images.py``) and, with
 final grid is drawn after training.  Where matplotlib is missing these
 write ``.npz`` files instead (hlax's CLI raises there), and a failed plot
 never ends the run.  ``--compute_dtype=bfloat16``,
-``--model_dtype=bfloat16`` and ``--fused_conv`` are hlax's options.
+``--model_dtype=bfloat16`` and ``--fused_conv`` are hlax's options.  The
+VAE's float32 matmul precision comes from ``JAX_DEFAULT_MATMUL_PRECISION``,
+with JAX's names, as hlax's does (``hlax_torch.precision``: unset or
+"default" is TF32 on the card, "highest" full float32); the GP runs in full
+float32 either way.
 
 ``--data_parallel=D --latent_parallel=N`` (D x N > 1) trains on a mesh of
 D x N processes (``hlax_torch/parallel``): subjects sharded over D, the GP
@@ -52,7 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from hlax_torch import resolve_device
+from hlax_torch import precision, resolve_device
 from hlax_torch.config import ModelArgs
 
 # model_dtype takes all three, gp_dtype float32 and float64 (the parser's
@@ -248,7 +252,8 @@ def run(opt: dict) -> dict:
         vy_init_pos=opt.get("vy_init_pos", 0.5),
         fused_conv=bool(opt.get("fused_conv", False)),
         compute_dtype=(_DTYPES[opt["compute_dtype"]]
-                       if opt.get("compute_dtype") else None))
+                       if opt.get("compute_dtype") else None),
+        precision=precision.from_env())
     model = HLVAE(mcfg, torch.Generator(device=device).manual_seed(seed),
                   device=device).to(model_dtype)
 

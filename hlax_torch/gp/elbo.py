@@ -12,9 +12,14 @@ Factorizations go through ``hlax_torch.ops.linalg_small.chol_inv_blocked``
 (the CUDA Cholesky kernels on the card, with their pivot floor) wherever
 hlax takes its Pallas path (``use_pallas_chol``, hlax's defaults call by
 call); with ``use_pallas_chol=False`` the bound and the natural-gradient
-update take hlax's library path instead, ``library_chol_inv``.  Float32
-matmuls run in full float32: ``hlax_torch`` turns TF32 off at import, as
-hlax runs its GP math at "highest" precision.
+update take hlax's library path instead, ``library_chol_inv``.
+
+hlax's precision split (``hlax/gp/elbo.py:31-43``): the VAE may run in TF32
+(``hlax_torch.precision``), the GP never.  The bound's, the predictor's and
+the natural-gradient update's entry points run under
+``precision.highest``, as hlax wraps the same functions in
+``_highest_precision``, and the train step's backward pass runs the GP's
+gradients in full float32 too (``train.step.write_grads``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from hlax_torch.gp.kernels import KernelSpec
 from hlax_torch.ops.fusion import gp_kernel_matrix
 from hlax_torch.ops.linalg_small import chol_inv_blocked
+from hlax_torch.precision import highest
 
 
 def _logdet_from_chol(L):
@@ -76,6 +82,7 @@ class SubjectBlocks(NamedTuple):
     iLK: torch.Tensor         # [L, M, M]      inverse Cholesky factor of K0zz
 
 
+@highest
 def subject_blocks(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
                    noise, z, x_st, valid, eps, extra_spd=None,
                    with_K0st: bool = True, use_pallas_chol: bool = False):
@@ -134,6 +141,7 @@ def subject_blocks(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
     return blocks if extra_spd is None else (blocks, extra_fact)
 
 
+@highest
 def kld_upper_bound(
     spec0: KernelSpec, params0, spec1: KernelSpec, params1,
     noise,                    # [L] GP noise
@@ -301,6 +309,7 @@ def _whitened_quadratic(blk, y_m):
     return logdet, qf, tr, iB_K0xz, iLK, iLWi
 
 
+@highest
 def deviance_upper_bound(spec0: KernelSpec, params0, spec1: KernelSpec,
                          params1, noise, z, x_st, valid, mu_st, log_v_st,
                          eps: float) -> torch.Tensor:
@@ -330,6 +339,7 @@ def deviance_upper_bound(spec0: KernelSpec, params0, spec1: KernelSpec,
     return dubo.sum()
 
 
+@highest
 def sample_elbo(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
                 noise, z, x_st, valid, y_st, eps: float) -> torch.Tensor:
     """Sample-based sparse-GP marginal-likelihood lower bound, batched over
@@ -345,6 +355,7 @@ def sample_elbo(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
     return el.sum()
 
 
+@highest
 def natural_gradient_update(m, H, grad_m, grad_H, lr: float, iH=None,
                             jitter: float = 0.0, use_pallas_chol: bool = True):
     """Closed-form natural-gradient step on (m, H).

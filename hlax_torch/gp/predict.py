@@ -7,7 +7,8 @@
 where the K1 (subject-level) term couples test rows only to prediction rows
 of the same subject (every kernel1 component involves the id covariate).
 The prediction rows come padded subject-major; each test row gathers its
-subject's prediction rows through a host-built index map.
+subject's prediction rows through a host-built index map.  In full float32,
+as hlax's (``precision.highest``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from hlax_torch.gp.elbo import subject_blocks, whitened_w_factor
 from hlax_torch.gp.kernels import KernelSpec, kernel_matrix
+from hlax_torch.precision import highest
 
 
 def build_test_pred_map(pred_subj_ids, test_subj_ids, pred_T_max=None):
@@ -38,6 +40,7 @@ def build_test_pred_map(pred_subj_ids, test_subj_ids, pred_T_max=None):
     return idx, val
 
 
+@highest
 def batch_predict(
     spec0: KernelSpec, params0, spec1: KernelSpec, params1,
     noise,                 # [L]

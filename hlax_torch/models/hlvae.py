@@ -32,6 +32,15 @@ Options, as in hlax:
     likelihoods and the GP stay in the model's and the GP's dtypes.
   * The all-bfloat16 model is ``model.to(torch.bfloat16)``: parameters, and
     with them everything the model computes, in bfloat16.
+  * ``precision`` (JAX's names, ``hlax_torch.precision``): hlax's split
+    (``hlax/gp/elbo.py:31-43``).  Its default, "default", runs the float32
+    convolutions, the fused stack's patch matmuls and the dense layers
+    (the MLPs, ``y_layer``, the mean and log-variance layers) in TF32,
+    forward and backward, as JAX's default precision does on an H100;
+    "highest" runs them in full float32.  Only where the stacks compute in
+    float32: float64 and both bfloat16 options are untouched.  The GP runs
+    in full float32 either way.  The observation heads (``fusion``'s
+    kernels) keep their 5-wide products in full float32.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hlax_torch import device_constant, resolve_device
+from hlax_torch import precision as prec
 from hlax_torch.ops import convfuse as cf
 from hlax_torch.ops import fusion
 from hlax_torch.ops import likelihoods as lik
@@ -74,6 +84,12 @@ class HLVAEConfig:
     # dtype of the conv stack, the encoder/decoder MLPs and y_layer; None =
     # the parameters' dtype
     compute_dtype: Optional[torch.dtype] = None
+    # JAX's matmul precision of the VAE's float32 operations
+    # (``hlax_torch.precision``): "default" = TF32 on the card
+    precision: str = prec.DEFAULT
+
+    def __post_init__(self):
+        prec.uses_tf32(self.precision)    # a known name
 
     @property
     def n_raw(self) -> int:
@@ -139,11 +155,13 @@ def permute_columns(x: torch.Tensor, perm: torch.Tensor,
     return _PermuteColumns.apply(x, perm, inv)
 
 
-def _linear(x, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+def _linear(x, layer: nn.Linear, dtype: torch.dtype,
+            tf32: bool) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype``: input and parameters cast to it
-    (flax's ``Dense(dtype=...)``); no cast when all are in it already."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype))
+    (flax's ``Dense(dtype=...)``); no cast when all are in it already.  In
+    TF32 when ``tf32``."""
+    args = x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype)
+    return prec.linear(*args) if tf32 else F.linear(*args)
 
 
 def _normal(shape, gen, device, std=_INIT_STD):
@@ -258,19 +276,21 @@ class HLVAE(nn.Module):
         None (the conv model's kernel, ``fusion.rep_image``, needs none)."""
         cfg = self.cfg
         dt, cdt = self._dtypes()
+        tf32 = self._tf32(cdt)
         if cfg.conv:
-            hidden = self._conv_features(data, mask, norm_data, cdt)
+            hidden = self._conv_features(data, mask, norm_data, cdt, tf32)
         else:
             if norm_data is None:
                 norm_data, _ = batch_normalization(data, mask, cfg.layout,
                                                    cfg.conv)
             hidden = norm_data
         for layer in self.enc_mlp:
-            hidden = F.relu(_linear(hidden, layer, cdt))
+            hidden = F.relu(_linear(hidden, layer, cdt, tf32))
         # the reparameterization layers in the parameters' dtype
         hidden = hidden.to(dt)
-        mu = self.mean_layer(hidden)
-        log_var = torch.clamp(self.log_var_layer(hidden), -15.0, 15.0)
+        mu = _linear(hidden, self.mean_layer, dt, tf32)
+        log_var = torch.clamp(_linear(hidden, self.log_var_layer, dt, tf32),
+                              -15.0, 15.0)
         return mu, log_var
 
     def _dtypes(self):
@@ -278,22 +298,29 @@ class HLVAE(nn.Module):
         dt = self.mean_layer.weight.dtype
         return dt, self.cfg.compute_dtype or dt
 
-    def _conv_features(self, data, mask, norm_data, cdt):
+    def _tf32(self, cdt) -> bool:
+        """Whether the VAE's operations run in TF32: under a TF32 precision
+        where the parameters and the stacks are float32."""
+        return (cdt == torch.float32 == self.mean_layer.weight.dtype
+                and prec.uses_tf32(self.cfg.precision))
+
+    def _conv_features(self, data, mask, norm_data, cdt, tf32):
         """The conv encoder's flattened features of the rows, computed in
-        ``cdt``: each variable scalarized to one channel, in pixel order
-        (``fusion.rep_image``), through the conv stack."""
+        ``cdt`` (in TF32 when ``tf32``): each variable scalarized to one
+        channel, in pixel order (``fusion.rep_image``), through the conv
+        stack."""
         cfg = self.cfg
         img = fusion.rep_image(self, data, mask, norm_data).to(cdt)
         (w1, b1), (w2, b2) = ((c.weight.to(cdt), c.bias.to(cdt))
                               for c in (self.conv1, self.conv2))
         if cfg.fused_conv:
             h = img.permute(0, 2, 3, 1)                       # NHWC
-            h = cf.conv_pool_fused(h, cf.conv_kernel_hwio(w1), b1)
-            h = cf.conv_pool_fused(h, cf.conv_kernel_hwio(w2), b2)
+            h = cf.conv_pool_fused(h, cf.conv_kernel_hwio(w1), b1, tf32)
+            h = cf.conv_pool_fused(h, cf.conv_kernel_hwio(w2), b2, tf32)
             h = h.permute(0, 3, 1, 2)                         # NCHW
         else:
-            h = max_pool_2x2(F.relu(cf.conv3x3_same(img, w1, b1)))
-            h = max_pool_2x2(F.relu(cf.conv3x3_same(h, w2, b2)))
+            h = max_pool_2x2(F.relu(cf.conv3x3_same(img, w1, b1, tf32)))
+            h = max_pool_2x2(F.relu(cf.conv3x3_same(h, w2, b2, tf32)))
         return h.reshape(h.shape[0], -1)
 
     # ------------------------------------------------------------------
@@ -305,10 +332,11 @@ class HLVAE(nn.Module):
         (grouped order)."""
         cfg = self.cfg
         dt, cdt = self._dtypes()
+        tf32 = self._tf32(cdt)
         h = z
         for layer in self.dec_mlp:
-            h = F.relu(_linear(h, layer, cdt))
-        y = _linear(h, self.y_layer, cdt)
+            h = F.relu(_linear(h, layer, cdt, tf32))
+        y = _linear(h, self.y_layer, cdt, tf32)
         # the heads and the likelihoods in the parameters' dtype
         if not cfg.conv:
             return y.to(dt).reshape(-1, cfg.n_raw, cfg.y_dim)
@@ -319,12 +347,12 @@ class HLVAE(nn.Module):
         if cfg.fused_conv:
             y = y.permute(0, 2, 3, 1)                         # NHWC
             y = F.relu(cf.conv_transpose_fused(
-                y, cf.conv_transpose_kernel_hwio(w1), b1))
+                y, cf.conv_transpose_kernel_hwio(w1), b1, tf32))
             y = cf.conv_transpose_fused(
-                y, cf.conv_transpose_kernel_hwio(w2), b2)     # [B,36,36,y]
+                y, cf.conv_transpose_kernel_hwio(w2), b2, tf32)  # [B,36,36,y]
         else:
-            y = F.relu(cf.conv_transpose4x4_s2(y, w1, b1))
-            y = cf.conv_transpose4x4_s2(y, w2, b2)            # [B,y,36,36]
+            y = F.relu(cf.conv_transpose4x4_s2(y, w1, b1, tf32))
+            y = cf.conv_transpose4x4_s2(y, w2, b2, tf32)      # [B,y,36,36]
             y = y.permute(0, 2, 3, 1)
         # [B, 36, 36, y] -> [B, pixels, y] in pixel order -> grouped order
         y = y.to(dt).reshape(y.shape[0], -1, cfg.y_dim)

@@ -23,6 +23,9 @@ Two lowerings of the same stack, with the same parameters:
     fused stack's two ends (``conv_kernel_hwio``,
     ``conv_transpose_kernel_hwio``, and one permute of the activations).
     hlax computes them outside any Pallas kernel, and so does the port.
+
+Each takes ``tf32``: the convolutions, or the patch matmul, in TF32 forward
+and backward (``hlax_torch.precision``; the model's precision policy).
 """
 
 from __future__ import annotations
@@ -30,19 +33,27 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from hlax_torch import precision
 
-def conv3x3_same(x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
+
+def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 tf32: bool = False) -> torch.Tensor:
     """``flax.linen.Conv(O, (3, 3), SAME)``: x [B, C, H, W], weight
     [O, C, 3, 3] (flax kernel ``transpose(3, 2, 0, 1)``)."""
+    if tf32:
+        return precision.conv2d(x, weight, bias, padding=1)
     return F.conv2d(x, weight, bias, padding=1)
 
 
 def conv_transpose4x4_s2(x: torch.Tensor, weight: torch.Tensor,
-                         bias: torch.Tensor) -> torch.Tensor:
+                         bias: torch.Tensor, tf32: bool = False
+                         ) -> torch.Tensor:
     """``flax.linen.ConvTranspose(O, (4, 4), (2, 2), SAME)``: x [B, C, H, W]
     -> [B, O, 2H, 2W], weight [C, O, 4, 4] (flax kernel spatially flipped,
     then ``transpose(2, 3, 0, 1)``)."""
+    if tf32:
+        return precision.conv_transpose2d(x, weight, bias, stride=2,
+                                          padding=1)
     return F.conv_transpose2d(x, weight, bias, stride=2, padding=1)
 
 
@@ -77,6 +88,10 @@ class _ReluMaxUV(torch.autograd.Function):
                            torch.zeros((), dtype=g.dtype, device=g.device))
 
 
+def _matmul(a: torch.Tensor, b: torch.Tensor, tf32: bool) -> torch.Tensor:
+    return precision.mm(a, b) if tf32 else a @ b
+
+
 def _patches(xp: torch.Tensor, offs: int, size: int,
              stride: int) -> torch.Tensor:
     """[B, Hp, Wp, C] padded input -> [B, size, size, offs*offs*C]: channel
@@ -88,7 +103,7 @@ def _patches(xp: torch.Tensor, offs: int, size: int,
 
 
 def conv_pool_fused(x: torch.Tensor, kernel: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
+                    bias: torch.Tensor, tf32: bool = False) -> torch.Tensor:
     """relu(conv3x3_same(x, k, b)) -> 2x2/2 max pool, as one patch matmul.
 
     x [B, S, S, C] (S even), kernel [3, 3, C, O] -> [B, S//2, S//2, O]."""
@@ -102,13 +117,14 @@ def conv_pool_fused(x: torch.Tensor, kernel: torch.Tensor,
     w = torch.stack([F.pad(k, (v, 1 - v, u, 1 - u)).permute(2, 3, 0, 1)
                      for u in (0, 1) for v in (0, 1)], dim=-2)
     w = w.reshape(16 * C, 4 * O)                             # [4,4,C,4,O]
-    y = p.reshape(B * half * half, 16 * C) @ w
+    y = _matmul(p.reshape(B * half * half, 16 * C), w, tf32)
     y = y.reshape(B, half, half, 2, 2, O) + bias
     return _ReluMaxUV.apply(y)
 
 
 def conv_transpose_fused(x: torch.Tensor, kernel: torch.Tensor,
-                         bias: torch.Tensor) -> torch.Tensor:
+                         bias: torch.Tensor, tf32: bool = False
+                         ) -> torch.Tensor:
     """ConvTranspose 4x4 stride-2 SAME + bias as patch matmul +
     depth-to-space.
 
@@ -128,6 +144,6 @@ def conv_transpose_fused(x: torch.Tensor, kernel: torch.Tensor,
     kext[1:5, 1:5] = kernel
     w = torch.stack([kext[1 - u:6 - u:2, 1 - v:6 - v:2] for u in (0, 1)
                      for v in (0, 1)], dim=-2).reshape(9 * C, 4 * O)
-    y = p.reshape(B * H * W, 9 * C) @ w
+    y = _matmul(p.reshape(B * H * W, 9 * C), w, tf32)
     y = y.reshape(B, H, W, 2, 2, O) + bias                   # [.., u, v, O]
     return y.transpose(2, 3).reshape(B, 2 * H, 2 * W, O)

@@ -37,6 +37,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from hlax_torch import precision
 from hlax_torch.gp import elbo as gp_elbo
 from hlax_torch.gp import kernels as gp_kernels
 from hlax_torch.models.hlvae import HLVAE, nll_from_log_p
@@ -154,8 +155,12 @@ def write_grads(loss: torch.Tensor, params: List[torch.Tensor]) -> None:
     back permuted) is copied to them, as backward's accumulation does: the
     fused Adam takes only matching layouts."""
     if loss.requires_grad:
-        grads = torch.autograd.grad(loss, params, allow_unused=True,
-                                    materialize_grads=True)
+        # the GP's gradients in full float32, as its forward
+        # (``precision.highest``); the VAE's TF32 Functions switch TF32 on
+        # around their own backward operations
+        with precision.tf32(False):
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
     else:
         grads = [torch.zeros_like(p) for p in params]
     for p, g in zip(params, grads):

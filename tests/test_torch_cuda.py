@@ -545,7 +545,8 @@ def test_fused_stack_against_cudnn(gen, cudnn_deterministic):
     het = data.het
     x, m, tm = t(het.data), t(het.mask), t(het.theta_mask)
     eps = torch.randn((len(data), 8), generator=gen, device="cuda")
-    cfg = HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,))
+    cfg = HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,),
+                      precision="highest")
     outs = {}
     for fused in (False, True):
         model = HLVAE(dataclasses.replace(cfg, fused_conv=fused),
@@ -1368,3 +1369,149 @@ def test_fused_gp_kernel_matrix_beyond_the_bound(gen, which):
                      dict(kw), wrt)
     for i, (a, b) in enumerate(zip(got, want)):
         _hold(f"{which} output {i}", a, b)
+
+
+# ---- hlax's precision split: the VAE in TF32, the GP in full float32 --------
+
+def _tf32_off():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == (False, False)
+
+
+def test_gp_bits_do_not_depend_on_the_precision(gen):
+    """On the same VAE outputs and GP state, the bound, its gradients (the
+    train step's backward, ``write_grads``) and the natural-gradient update
+    give the same bits plainly, inside an ambient TF32 block, and after a
+    TF32 forward and backward of the VAE: the GP runs in full float32."""
+    from hlax_torch import precision
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.gp import elbo as gp_elbo
+    from hlax_torch.gp import kernels as gk
+    from hlax_torch.train import step as tstep
+
+    data, spec0, spec1, cfg, state = _mesh_problem("cuda", torch.float32)
+    assert state.vae.cfg.precision == "default"
+    staged = ds.stage_dataset(data, torch.float32, "cuda")
+    batch = ds.gather_batch(staged, torch.arange(2, device="cuda"))
+    out = state.vae(batch["data"], batch["mask"], batch["theta_mask"],
+                    generator=gen)
+    S, T = batch["valid"].shape
+    mu0 = out["mu"].detach().reshape(S, T, -1)
+    lv0 = out["log_var"].detach().reshape(S, T, -1)
+
+    def gp(ambient):
+        mu, lv = mu0.clone().requires_grad_(), lv0.clone().requires_grad_()
+        params = [mu, lv, state.zt] + [v for p in state.k0 + state.k1
+                                       for v in p.values()]
+        with precision.tf32(ambient):
+            kld, gm, gH, iH = gp_elbo.kld_upper_bound(
+                spec0, state.k0, spec1, state.k1,
+                gk.noise_value(state.raw_noise, True), state.m, state.H,
+                state.zt, batch["labels"].reshape(S, T, -1), batch["valid"],
+                mu, lv, cfg.P_tot, cfg.N_tot, cfg.eps, natural_gradient=True)
+            tstep.write_grads(kld, params)
+            with torch.no_grad():
+                m, H = gp_elbo.natural_gradient_update(
+                    state.m, state.H, gm.detach(), gH.detach(), 0.01,
+                    iH=iH.detach())
+        return [kld, m, H] + [p.grad for p in params]
+
+    plain = gp(False)
+    inside = gp(True)
+    (out["log_p_x"].sum() + out["mu"].sum()).backward()   # the VAE in TF32
+    after = gp(False)
+    assert _tf32_off()
+    for a, b, c in zip(plain, inside, after):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _rel(u, v):
+    return ((u - v).norm() / v.norm()).item()
+
+
+# the VAE's TF32 operations against full float32, relative to the result's
+# norm: TF32 keeps 10 of float32's 23 mantissa bits, so a product is off by
+# up to 2^-10 of itself; sums of products from random data come out a few
+# such units off in norm.  A float32 result by another summation order is
+# ~1e-7 off: above TF32_LOW, TF32 was taken
+TF32_LOW, TF32_HIGH = 1e-5, 1e-2
+
+
+@pytest.mark.parametrize("layer", ["conv2", "deconv1", "dense", "mean"])
+def test_vae_layers_take_tf32(gen, layer):
+    """The canonical layers' shapes (400 rows): conv2 (16 -> 32 channels at
+    18 x 18), deconv1 (32 -> 16, 9 -> 18), the encoder's dense layer (2592
+    -> 500) and the mean layer (500 -> 32) through ``hlax_torch.precision``
+    against the plain float32 operations: output and gradients within
+    TF32_HIGH of their norm, and TF32 taken (above TF32_LOW) by every
+    cuBLAS product and by at least one of each convolution's three; TF32
+    off afterwards.  TF32 allows cuDNN its TF32 engines; its heuristics
+    pick among them and the float32 ones by shape (conv2's forward at this
+    shape stays on an FFMA kernel with the card's cuDNN: [precision] in
+    chip_smoke.py lists each layer's kernels)."""
+    import torch.nn.functional as F
+
+    from hlax_torch import precision
+
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    fns = {
+        "conv2": ((r(400, 16, 18, 18), r(32, 16, 3, 3) / 12, r(32)),
+                  lambda x, w, b: precision.conv2d(x, w, b, padding=1),
+                  lambda x, w, b: F.conv2d(x, w, b, padding=1)),
+        "deconv1": ((r(400, 32, 9, 9), r(32, 16, 4, 4) / 22, r(16)),
+                    lambda x, w, b: precision.conv_transpose2d(
+                        x, w, b, stride=2, padding=1),
+                    lambda x, w, b: F.conv_transpose2d(x, w, b, stride=2,
+                                                       padding=1)),
+        "dense": ((r(400, 2592), r(500, 2592) / 51, r(500)),
+                  precision.linear, F.linear),
+        "mean": ((r(400, 500), r(32, 500) / 22, r(32)), precision.linear,
+                 F.linear)}
+    args, tf32_fn, plain_fn = fns[layer]
+    results = []
+    for fn in (tf32_fn, plain_fn):
+        xs = [a.clone().requires_grad_() for a in args]
+        y = fn(*xs)
+        y.backward(torch.ones_like(y) + 0.1 * y.detach())
+        results.append([y.detach()] + [x.grad for x in xs[:2]])
+    assert _tf32_off()
+    rel = {name: _rel(a, b) for name, a, b in zip(
+        ("output", "input gradient", "weight gradient"), *results)}
+    assert all(v < TF32_HIGH for v in rel.values()), rel
+    if layer in ("dense", "mean"):
+        assert all(v > TF32_LOW for v in rel.values()), rel
+    else:
+        assert max(rel.values()) > TF32_LOW, rel
+
+
+def test_tf32_graph_steps_equal_eager_steps(gen, cudnn_deterministic):
+    """The toy conv model under the default precision (TF32 in the VAE),
+    float32: ``make_train_epoch``'s graphs (2 steps a graph and the
+    remainder's) against the same steps run eagerly, with the noise
+    injected: losses, m, H and the VAE's parameters within 1e-5
+    (chip_smoke.py's [graph] float32 bar); TF32 off afterwards."""
+    import numpy as np
+
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.train import step as tstep
+
+    data, spec0, spec1, cfg, a = _mesh_problem("cuda", torch.float32)
+    b = _mesh_problem("cuda", torch.float32)[-1]
+    assert a.vae.cfg.precision == "default"
+    staged = ds.stage_dataset(data, torch.float32, "cuda")
+    idx = np.stack(list(ds.epoch_subject_batches(
+        data.P, 2, np.random.default_rng(0))))
+    eps = torch.randn((len(idx), 2 * data.T_max, 8), generator=gen,
+                      device="cuda")
+    step = tstep.make_train_step(a.vae, spec0, spec1, cfg)
+    want = [step(a, ds.gather_batch(staged, torch.as_tensor(
+        i, device="cuda")), eps=eps[j])["loss"].item()
+        for j, i in enumerate(idx)]
+    epoch = tstep.make_train_epoch(b.vae, spec0, spec1, cfg, unroll=2)
+    got = epoch(b, staged, idx, eps=eps)["loss"]
+    torch.cuda.synchronize()
+    assert _tf32_off()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for x, y in [(a.m, b.m), (a.H, b.H)] + list(zip(a.vae.parameters(),
+                                                    b.vae.parameters())):
+        assert _rel(y, x) <= 1e-5
