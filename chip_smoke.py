@@ -29,7 +29,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              prints each kernel's registers, stack frame and spill; a
              spill in the float64 blocked mid kernel, or a spill or a stack
              frame in any of the GP kernel matrix's instantiations
-             (GP_INSTANCES), fails the run.
+             (GP_INSTANCES) or the staged reductions' (STAGED_INSTANCES:
+             the cat head's backward and the one-launch recon metric),
+             fails the run.
   2. kernels each kernel against its plain version, with the launch plan
              each shape took: the small kernel bit for bit at eleven shapes
              (both compiled sizes, padded and odd n, n up to 48) on random
@@ -83,7 +85,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              kernel (full names) and kernels and device ms a step by
              source region (hlax_torch/profiling.py's ranges: each kernel
              to the region whose host operation launched it, a backward
-             kernel to the forward region it differentiates).
+             kernel to the forward region it differentiates, a kernel
+             launched outside any operation (the metric's ctypes launch)
+             to the range that holds its launch call).
  7b. fusion  the fused step ops (hlax_torch/ops/fusion.py, csrc/fusion.cu:
              the heads and likelihoods, the encoder's representation, the
              recon metric, the GP kernel matrices K0xz, K0zz, K1_st, K0_st)
@@ -91,16 +95,21 @@ Phases (each prints its own lines; any failure exits non-zero):
              gradients against their plain versions (float64 within 1e-10
              of the largest entry; float32 within 4x the plain version's
              own error against float64 plus 1e-6), each kernel timed alone
-             by CUDA events beside the op's plain chain and its bound; the
-             MLP's heads and metric and the metric's mesh path held to
-             their plain versions too; with the parent tree under parent/,
-             its fusion.cu built into build/parent/ (its GP kernels'
-             registers, stack frame and spill printed) and its GP ops, on
-             its own wrapper, held to the same bars and timed against the
-             current ones in turns (parent, change, change, parent; a
-             backward with the G + G^T and counters' memset where the
-             parent's wrapper launches them besides its kernels), and
-             the GP kernels' device ms of one canonical step of both; with
+             by CUDA events beside the op's plain chain and its bound (the
+             staged reductions and the mesh's finish also with the L2 cold,
+             COLD_BYTES written between launches); the metric's mesh path
+             (column sums, then the finish) at a [mesh] rank's 200 rows;
+             the MLP's heads and metric held to their plain versions too;
+             with the parent tree under parent/, its fusion.cu built into
+             build/parent/ (its GP kernels' registers, stack frame and
+             spill printed) and its GP ops, on its own wrapper, held to
+             the same bars and timed against the current ones in turns
+             (parent, change, change, parent; a backward with the G + G^T
+             and counters' memset where the parent's wrapper launches them
+             besides its kernels), and the GP kernels' device ms of one
+             canonical step of both; the same turns, warm and L2-cold, for
+             the cat head's backward and the recon metric (the parent's
+             column sums a group and its finish against one launch); with
              or without it, the canonical specs' compiled GP shapes against
              the table kernel (gp_compiled_shapes) the same way, in turns
              shapes, table, table, shapes; then --use_pallas_chol=False on
@@ -139,7 +148,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              (--scan_unroll 1 and 10, and 10 pregathered) in alternating
              rounds, and the graph path's device time and idle share under
              torch.profiler, by region as the eager steps' profile splits
-             each kernel name.
+             each kernel name; the eager profile prints each fused
+             kernel's device ms and launches a step (FUSED_FOCUS).
  11a. precision  hlax's split on the canonical float32 step: each
              convolution's and matmul's kernels by layer (operation and
              input shapes) and region in an eager step, marked TF32 where
@@ -331,6 +341,39 @@ def time_ms(fn, reps: int = 50, warmup: int = 5):
     return start.elapsed_time(end) / reps, wall
 
 
+# bytes written between the launches of an L2-cold time: more than the
+# H100's 50 MB L2
+COLD_BYTES = 64 << 20
+
+
+def time_cold_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of ``fn`` with the L2 cold: COLD_BYTES written
+    before each call, outside its pair of CUDA events; the calls and their
+    writes queued behind a spin kernel that outlasts their enqueueing, so
+    no event waits on the host."""
+    flush = torch.empty(COLD_BYTES // 4, dtype=torch.float32, device="cuda")
+    rounds = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for _ in range(3):
+        flush.fill_(1.0)
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        flush.fill_(1.0)
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3
+    torch.cuda._sleep(int(2 * reps * wall * SPIN_CYCLES_PER_S))
+    for start, end in rounds:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in rounds) / reps
+
+
 def random_spd(batch, n, gen):
     x = torch.randn(batch + (n, n), generator=gen, device="cuda",
                     dtype=torch.float64)
@@ -358,12 +401,14 @@ def ill_conditioned(batch, n, gen):
 
 
 # the fused step ops' kernels (hlax_torch.ops.fusion): each is launched at
-# least once a canonical train step
+# least once a canonical train step on one process (the metric's finish
+# runs inside its one launch there; a mesh launches recon_metric_finish
+# after its ranks' sums, [mesh])
 FUSED_KERNELS = ("heads_cat_fwd_cuda", "heads_cat_bwd_cuda",
                  "heads_real_fwd_cuda", "heads_real_bwd_cuda",
                  "rep_image_fwd_cuda", "rep_image_bwd_cuda",
-                 "recon_metric_cuda", "recon_metric_finish_cuda",
-                 "gp_kernel_fwd_cuda", "gp_kernel_bwd_cuda")
+                 "recon_metric_cuda", "gp_kernel_fwd_cuda",
+                 "gp_kernel_bwd_cuda")
 # every kernel library, one nvcc each, all started together
 LIBRARIES = ("chol_inv_small", "chol_inv_mid", "chol_inv_bwd", "fusion")
 # every instantiation of the GP kernel matrix's kernels (csrc/fusion.cu):
@@ -381,10 +426,16 @@ GP_INSTANCES = tuple(
     + [f"gp_bwd_cols_kernel<{t},1,{sh}>" for t, _ in _GP_VEC
        for sh in (0, 1, 2)]
     + [f"gp_bwd_cols_kernel<{t},4,0>" for t, _ in _GP_VEC])
+# the staged reductions' instantiations (csrc/fusion.cu): the cat head's
+# backward and the one-launch metric at the compiled sizes
+STAGED_INSTANCES = tuple(
+    [f"heads_cat_bwd_kernel<{t},5,5>" for t in ("float", "double")]
+    + [f"recon_metric_kernel<{t},5>" for t in ("float", "double")])
 # the kernels that must not spill, by library, and whether a stack frame
-# fails them too: the float64 blocked mid kernel, every GP kernel
+# fails them too: the float64 blocked mid kernel, every GP kernel, the
+# staged reductions
 NO_SPILL = ([("chol_inv_mid", "chol_inv_mid_blocked64_kernel", False)]
-            + [("fusion", k, True) for k in GP_INSTANCES])
+            + [("fusion", k, True) for k in GP_INSTANCES + STAGED_INSTANCES])
 
 
 def _ptxas_report(tag: str, name: str, log: str, only: str = "") -> dict:
@@ -432,7 +483,8 @@ def phase_build() -> None:
             fail(f"[build] {kernel}: {stack} bytes stack frame, {spill} "
                  "bytes spill (stores and loads)")
     print(f"[build] no spill in {len(NO_SPILL)} kernels, no stack frame in "
-          f"the {len(GP_INSTANCES)} GP kernels", flush=True)
+          f"the {len(GP_INSTANCES)} GP kernels and the "
+          f"{len(STAGED_INSTANCES)} staged reductions", flush=True)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1464,7 +1516,10 @@ def _region_of(e, seq_region) -> str:
 def region_table(prof) -> dict:
     """{kernel name: {region: [launches, device us]}} of a profile of eager
     steps: each kernel goes to the region of the host operation that
-    launched it (``_region_of``); {} for a tree without the regions (an
+    launched it (``_region_of``); a kernel launched with no operation
+    around it (a ctypes launch outside an autograd Function: the recon
+    metric's) to the innermost region whose range holds its runtime
+    launch call on the host clock; {} for a tree without the regions (an
     earlier commit's, ``rate`` mode)."""
     try:
         from hlax_torch.profiling import REGIONS
@@ -1482,12 +1537,40 @@ def region_table(prof) -> dict:
         if a is not None and a.name not in ("backward", "adam"):
             seq_region.setdefault(e.sequence_nr, a.name)
     table = {}
+
+    def add(name, region, us):
+        r = table.setdefault(name, {}).setdefault(region, [0, 0.0])
+        r[0] += 1
+        r[1] += us
+
+    linked = set()
     for e in events:
         for k in getattr(e, "kernels", ()):
-            r = table.setdefault(k.name, {}).setdefault(
-                _region_of(e, seq_region), [0, 0.0])
-            r[0] += 1
-            r[1] += k.duration
+            add(k.name, _region_of(e, seq_region), k.duration)
+        if getattr(e, "kernels", ()):
+            linked.add(e.id)
+    # the rest: device kernels whose linked host operation is none of the
+    # profile's, through the runtime call (same correlation id) that
+    # launched them
+    cpu = [e for e in events if str(e.device_type).endswith("CPU")]
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in cpu if e.name in REGIONS
+                    and e.name not in ("backward", "adam"))
+    runtime = {e.id: e for e in cpu if e.name.startswith("cuda")
+               and "Launch" in e.name}
+    for e in events:
+        if not str(e.device_type).endswith("CUDA") or getattr(
+                e, "is_user_annotation", False):
+            continue
+        if getattr(e, "linked_correlation_id", 0) in linked:
+            continue
+        call = runtime.get(e.id)
+        if call is None:
+            continue
+        t = call.time_range.start
+        inner = [r for r in ranges if r[0] <= t <= r[1]]
+        if inner:     # the innermost: the latest to start
+            add(e.name, max(inner)[2], e.time_range.elapsed_us())
     return table
 
 
@@ -1520,8 +1603,8 @@ def _profile_steps(tag: str, run, steps: int, calls: int = 5,
     """``run`` ``calls`` times (``steps`` train steps in all) under
     torch.profiler: wall and device-busy ms a step, kernels a step, the
     device's idle share of the wall time, and the kernels that take the most
-    device time (full names); then every kernel whose name holds ``focus``,
-    if given; then kernels and device ms a step by source region: from this
+    device time (full names); then every kernel whose name ``focus`` (a
+    regular expression) finds, if given, with its launches a step; then kernels and device ms a step by source region: from this
     profile's own host events when ``table`` is None (eager steps), else
     split by kernel name as ``table`` (an eager profile's ``region_table``)
     splits them (graph replays launch no host operations).  Returns
@@ -1559,9 +1642,11 @@ def _profile_steps(tag: str, run, steps: int, calls: int = 5,
                                key=lambda kv: -kv[1][1])[:top]:
         print(f"[{tag}] {t / steps / 1e3:8.4f} ms/step {t / busy:6.1%} "
               f"{n / steps:5.1f}/step  {name}", flush=True)
-    for name, (_, t) in sorted(by_name.items()):
-        if focus and focus in name:
-            print(f"[{tag}] {focus}: {t / steps / 1e3:.5f} ms/step, "
+    for name, (n, t) in sorted(by_name.items()):
+        hit = re.search(focus, name) if focus else None
+        if hit:
+            print(f"[{tag}] {hit.group(0)}: {t / steps / 1e3:.5f} ms/step, "
+                  f"{n / steps:.1f} launches/step, "
                   f"{t / busy:.2%} of the device time: {name}", flush=True)
     own = region_table(prof)
     regions = None
@@ -1935,8 +2020,7 @@ def phase_mlp(data_dir: str, tmp: str):
         ("chol_inv_mid_cuda", (64, 120, 120), "float32"): 30,
         ("heads_cat_fwd_cuda", (400, 1296, 5), "float32"): 30,
         ("heads_real_bwd_cuda", (400, 1296, 5), "float32"): 30,
-        ("recon_metric_cuda", rows_mlp, "float32"): 60,
-        ("recon_metric_finish_cuda", rows_mlp, "float32"): 30})
+        ("recon_metric_cuda", rows_mlp, "float32"): 30})
     ep, ev = out["epoch_seconds"], out["eval_seconds"]
     sps = _steps_per_s(out, 20)
     print(f"[mlp] losses per epoch {out['loss_arrs']['net']}; validation "
@@ -2260,8 +2344,11 @@ def _cotangent(shape, dtype):
         9), device="cuda", dtype=torch.float64).to(dtype)
 
 
-def _op_heads(c, plain, grads=True, mlp=False):
-    from hlax_torch.ops import fusion
+def _op_heads(c, plain, grads=True, mlp=False, fusion=None):
+    """``fusion``: the module whose op runs (the parent tree's in
+    ``_staged_against_parent``), else hlax_torch.ops.fusion."""
+    if fusion is None:
+        from hlax_torch.ops import fusion
     from hlax_torch.ops.normalization import NormParams
 
     m, b = c["mlp" if mlp else "vae"], c["batch"]
@@ -2306,8 +2393,12 @@ class _OneRankSums:
         return x.clone()
 
 
-def _op_recon(c, plain, grads=True, mlp=False, sums=None):
-    from hlax_torch.ops import fusion
+def _op_recon(c, plain, grads=True, mlp=False, sums=None, rows=None,
+              fusion=None):
+    """The metric of the case's batch, or of its first ``rows`` rows (a
+    mesh rank's batch); ``fusion`` as ``_op_heads``'s."""
+    if fusion is None:
+        from hlax_torch.ops import fusion
     from hlax_torch.ops.normalization import NormParams
 
     m, b = c["mlp" if mlp else "vae"], c["batch"]
@@ -2322,9 +2413,14 @@ def _op_recon(c, plain, grads=True, mlp=False, sums=None):
     kinds_raw = lay.var_kinds_grouped()[np.asarray(lay.raw_inv)]
     last = list(dict.fromkeys(kinds_raw))[-1]
     rv = b["valid"].reshape(-1).to(b["mask"].dtype)
+    params, data, mask = c[key], b["data"], b["mask"]
+    if rows is not None:
+        cut = lambda t: t[:rows]
+        params = [tuple(map(cut, p)) if isinstance(p, tuple) else cut(p)
+                  for p in params]
+        rv, data, mask = rv[:rows], data[:rows], mask[:rows]
     fn = fusion.recon_metric_plain if plain else fusion.recon_metric
-    return list(fn(lay, not mlp, c[key], b["data"], b["mask"], rv, last,
-                   sums)), []
+    return list(fn(lay, not mlp, params, data, mask, rv, last, sums)), []
 
 
 def _op_gp(which):
@@ -2361,20 +2457,30 @@ def _op_gp(which):
     return run
 
 
+# a rank's rows on [mesh]'s 2 x 2 mesh: 10 subjects of 20
+MESH_RANK_ROWS = 200
 FUSION_OPS_RUN = {"heads": _op_heads, "rep_image": _op_rep,
                   "recon_metric": _op_recon,
+                  # the metric's mesh path (its column sums handed to the
+                  # mesh between its launches) at a [mesh] rank's rows
+                  "recon_metric mesh": functools.partial(
+                      _op_recon, sums=_OneRankSums(), rows=MESH_RANK_ROWS),
                   **{f"gp {w}": _op_gp(w) for w in
                      ("K0xz", "K0zz", "K1_st", "K0_st")}}
 # the same kernels on the other main paths' inputs, held to their plain
 # versions but not timed again: the MLP's heads (the real head
-# de-normalized by the batch's moments) and metric, and the metric's mesh
-# path (its column sums handed to the mesh between its passes)
+# de-normalized by the batch's moments) and metric, alone and on the mesh
+# path, and the conv model's metric's mesh path over the whole batch
 FUSION_OPS_HELD = {
     "heads mlp": functools.partial(_op_heads, mlp=True),
     "recon_metric mlp": functools.partial(_op_recon, mlp=True),
-    "recon_metric mesh": functools.partial(_op_recon, sums=_OneRankSums()),
+    "recon_metric mesh 400": functools.partial(_op_recon,
+                                               sums=_OneRankSums()),
     "recon_metric mlp mesh": functools.partial(_op_recon, mlp=True,
                                                sums=_OneRankSums())}
+# the kernels [fusion] also times with the L2 cold (COLD_BYTES written
+# between launches): the staged reductions and the mesh's finish
+COLD_ENTRIES = ("heads_cat_bwd", "recon_metric", "recon_metric_finish")
 
 
 def _fusion_error(tag, got, plain, ref):
@@ -2432,9 +2538,15 @@ def _fusion_shape(entry, like, args):
     if entry == "rep_image_bwd":      # data, mask, perm, the image's grad
         d, C = args[10], args[15]
         return B * d, (B * d * C + 2 * B * d + d * C + d) * z + 8 * d
-    if entry == "recon_metric":       # data, mask, log_pi or mean, rows;
-        d, C = args[10], args[16]     # its columns' sums (double)
-        return B * d, (2 * B * d * max(C, 1) + B * d + B) * z + 40 * d
+    if entry == "recon_metric":       # every group: data, mask, log_pi or
+        table = list(args[1])         # mean; the rows; the column sums
+        n_cols = n = 0                # (double) where they are its output
+        for k in range(args[3]):
+            d, C = table[7 * k + 2], table[7 * k + 4]
+            n_cols += d
+            n += (2 * B * d * max(C, 1) + B * d) * z
+        n += B * z + (40 * n_cols if args[10] is None else 2 * z)
+        return B * n_cols, n
     n = sum(a.numel() * a.element_size() for a in args
             if torch.is_tensor(a) and not getattr(a, "_scratch", False))
     return (like.numel() if entry.startswith("gp") else args[-1]), n
@@ -2468,10 +2580,13 @@ def _time_fused(name, op, c, dtype, errs):
             (like, args))
     for (entry, shape), launches in by_entry.items():
         ms = wall = elems = n = 0.0
+        cold = 0.0 if entry in COLD_ENTRIES else None
         for like, args in launches:
             t, w = time_ms(lambda: orig(entry, like, *args))
             e, b = _fusion_shape(entry, like, args)
             ms, wall, elems, n = ms + t, wall + w, elems + e, n + b
+            if cold is not None:
+                cold += time_cold_ms(lambda: orig(entry, like, *args))
         nbytes = n
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = FUSION_OPS[entry] * elems / PEAK_FLOPS[dtype] * 1e3
@@ -2488,8 +2603,12 @@ def _time_fused(name, op, c, dtype, errs):
             replaces=FUSION_REPLACES[family], launches=0,
             max_abs_err=errs[1 if bwd else 0], ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=None))
+        cold_txt = (f", L2-cold {cold:.4f} ms ({COLD_BYTES >> 20} MB "
+                    f"written between launches)" if cold is not None
+                    else "")
         print(f"[fusion] {entry} {list(shape)} {rows[-1]['dtype']} "
-              f"({name}, {len(launches)} launch(es)): kernel {ms:.4f} ms ({wall:.4f} ms a call on the host "
+              f"({name}, {len(launches)} launch(es)): kernel {ms:.4f} ms"
+              f"{cold_txt} ({wall:.4f} ms a call on the host "
               f"clock), the op's plain chain "
               f"{'backward' if bwd else 'forward'} {plain:.4f} ms, bound "
               f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB)", flush=True)
@@ -2571,7 +2690,8 @@ def _gp_against_parent(pf, c, c64, dtype) -> None:
     from hlax_torch.ops import fusion
 
     tag = str(dtype).removeprefix("torch.")
-    legacy = not hasattr(pf, "_gp_counters")
+    legacy = not (hasattr(pf, "_gp_counters")
+                  or hasattr(pf, "_stream_counters"))
     before = {m: m._COUNTERS.snapshot() for m in (pf, fusion)}
     extra = {"memset": lambda: torch.zeros(1024, dtype=torch.int32,
                                            device="cuda")}
@@ -2626,6 +2746,76 @@ def _gp_against_parent(pf, c, c64, dtype) -> None:
           f"{step['parent'][1]:.5f}), change {ch:.5f} ms (forward "
           f"{step['change'][0]:.5f}, backward {step['change'][1]:.5f}): "
           f"parent / change {p / ch:.2f}x on {card_line()}", flush=True)
+
+
+# the staged reductions' parent-against-change turns: each op and the
+# entries of its launches that are timed (the metric: every launch, the
+# parent's column sums a group and its finish against one)
+STAGED_OPS = (("heads", ("heads_cat_bwd",)),
+              ("recon_metric", ("recon_metric", "recon_metric_finish")))
+
+
+def _staged_against_parent(pf, c, c64, dtype) -> None:
+    """The parent's cat-head backward and recon metric against the
+    change's at the canonical shapes: the parent's results and gradients
+    held to the change's bars; each op's timed launches together, with the
+    L2 warm and cold (time_ms, time_cold_ms), in turns parent, change,
+    change, parent.  A parent whose wrapper zeroes fresh counters for each
+    launch (``_reduction_scratch``'s fills, before the stream's buffer) has
+    their time printed beside its own."""
+    from hlax_torch.ops import fusion
+
+    tag = str(dtype).removeprefix("torch.")
+    before = {m: m._COUNTERS.snapshot() for m in (pf, fusion)}
+    fill = time_ms(lambda: torch.zeros(64, dtype=torch.int32,
+                                       device="cuda"))[0]
+    fills_apart = not hasattr(pf, "_stream_counters")
+    for name, entries in STAGED_OPS:
+        op = FUSION_OPS_RUN[name]
+        plain = op(c, True)
+        ref = op(c64, True) if c64 is not None else (None, None)
+        runs = {}
+        for who, mod in (("parent", pf), ("change", fusion)):
+            calls, orig = [], mod._launch
+
+            def record(entry, like, *args, orig=orig, calls=calls):
+                calls.append((entry, like, args))
+                orig(entry, like, *args)
+
+            mod._launch = record
+            try:
+                got, g_got = op(c, False, fusion=mod)
+            finally:
+                mod._launch = orig
+            _fusion_error(f"{name} {tag} ({who})", got, plain[0], ref[0])
+            if g_got:
+                _fusion_error(f"{name} {tag} gradients ({who})", g_got,
+                              plain[1], ref[1])
+            runs[who] = [call for call in calls if call[0] in entries]
+        ms = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            mod = pf if who == "parent" else fusion
+
+            def seq(mod=mod, calls=runs[who]):
+                for entry, like, args in calls:
+                    mod._launch(entry, like, *args)
+
+            ms[who].append((time_ms(seq)[0], time_cold_ms(seq)))
+        n_fill = sum(e != "recon_metric_finish" for e, _, _ in
+                     runs["parent"]) if fills_apart else 0
+        print(f"[fusion] parent against change {name} {tag} "
+              f"({'+'.join(e for e, _, _ in runs['parent'])} against "
+              f"{'+'.join(e for e, _, _ in runs['change'])}): warm parent "
+              f"{ms['parent'][0][0]:.5f}, change {ms['change'][0][0]:.5f}, "
+              f"change {ms['change'][1][0]:.5f}, parent "
+              f"{ms['parent'][1][0]:.5f} ms; L2-cold parent "
+              f"{ms['parent'][0][1]:.5f}, change {ms['change'][0][1]:.5f}, "
+              f"change {ms['change'][1][1]:.5f}, parent "
+              f"{ms['parent'][1][1]:.5f} ms; the parent's wrapper adds "
+              f"{n_fill} counter fill(s) of {fill:.5f} ms; both within the "
+              f"bars on {card_line()}", flush=True)
+    for m, b in before.items():
+        m._COUNTERS.take_since(b)
 
 
 def _gp_shapes_against_table(c, c64, dtype) -> None:
@@ -2719,6 +2909,7 @@ def phase_fusion(data_dir: str, tmp: str):
         _gp_shapes_against_table(c, c64, dtype)
         if parent is not None:
             _gp_against_parent(parent, c, c64, dtype)
+            _staged_against_parent(parent, c, c64, dtype)
         del c, c64
         torch.cuda.empty_cache()
     phase_pallas_chol_false(data_dir, tmp)
@@ -2913,12 +3104,18 @@ def phase_graph(data_dir: str, tmp: str) -> None:
               f"(3 rounds of 3 epochs of {GRAPH_STEPS} steps, alternating) "
               f"on {card_line()}", flush=True)
     _, table = _profile_steps("graph eager", paths["eager"],
-                              3 * GRAPH_STEPS, calls=3, top=40)
+                              3 * GRAPH_STEPS, calls=3, top=40,
+                              focus=FUSED_FOCUS)
     for name in ("graph unroll 1", "graph unroll 10"):
         _profile_steps(name, paths[name], 3 * GRAPH_STEPS, calls=3,
                        table=table, top=40)
 
 
+# the fused step ops' kernels by name (csrc/fusion.cu), each printed with
+# its in-step device time by [graph]'s eager profile
+FUSED_FOCUS = (r"heads_cat_fwd|heads_cat_bwd|heads_real_fwd|heads_real_bwd|"
+               r"rep_image_fwd|rep_image_bwd|recon_metric_finish|"
+               r"recon_metric|gp_fwd|gp_bwd_flat|gp_bwd_cols")
 # a cuBLAS or cuDNN kernel that takes TF32 says so in its name: "tf32"
 # (sm80/sm90 xmma kernels, e.g. ..._tf32f32_tf32f32_f32_...), CUTLASS's
 # "tensorop_s" / "s1688" / "s16816" float32-on-tensor-core gemms, or the
@@ -3400,8 +3597,9 @@ MESH_ROWS = [("chol_inv_small_cuda", (16, 10), 20),
 def _mesh_launches(n_data: int, n_latent: int, dtype: str = "float32"):
     """What a rank of an n_data x n_latent mesh launches each step: the
     Cholesky kernels at its latents and subjects, and the fused kernels'
-    forward at its rows (the recon metric's column sums once a group; a
-    rank of latent rank > 0 takes no gradient of the VAE)."""
+    forward at its rows (the recon metric's column sums in one launch, then
+    its finish after the ranks' sums; a rank of latent rank > 0 takes no
+    gradient of the VAE)."""
     L, S = 32 // n_latent, 20 // n_data
     rows = (S * 20, CANONICAL_N_EXP)
     return {("chol_inv_small_cuda", (L, S, 20, 20), dtype): 1,
@@ -3411,7 +3609,7 @@ def _mesh_launches(n_data: int, n_latent: int, dtype: str = "float32"):
             ("heads_cat_fwd_cuda", (S * 20, 1296, 5), dtype): 1,
             ("heads_real_fwd_cuda", (S * 20, 1296, 5), dtype): 1,
             ("rep_image_fwd_cuda", rows, dtype): 2,
-            ("recon_metric_cuda", rows, dtype): 2,
+            ("recon_metric_cuda", rows, dtype): 1,
             ("recon_metric_finish_cuda", rows, dtype): 1,
             ("gp_kernel_fwd_cuda", (L, S, 20, 120), dtype): 1}
 
@@ -3637,7 +3835,7 @@ def phase_mesh(data_dir: str):
     batches and injected noise, MESH_STEPS eager steps each, in each of
     MESH_DTYPES (MESH_BOUND); every rank launching all three kernels at its
     local shapes and no plain version.  Then dryrun_multichip(4).  Returns
-    the float32 launches by shape, summed over the ranks."""
+    the launches by shape and dtype, summed over the ranks."""
     from hlax_torch.data.dataset import epoch_subject_batches_mesh
     from hlax_torch.parallel import distributed as pdist
     from hlax_torch.parallel.dryrun import dryrun_multichip
@@ -3660,9 +3858,8 @@ def phase_mesh(data_dir: str):
     for dtype in MESH_DTYPES:
         for out in _mesh_against_single(ds, spec0, spec1, ranks, idx, eps,
                                         spawn_s, dtype):
-            if dtype == torch.float32:
-                for key, v in out["launches"].items():
-                    total[key] = total.get(key, 0) + v
+            for key, v in out["launches"].items():
+                total[key] = total.get(key, 0) + v
     dryrun_multichip(4)
     return total
 
@@ -4040,6 +4237,21 @@ def _count_canonical_epochs(data_dir: str) -> dict:
     return counts
 
 
+LONG_SHAPES = {batch + (n, n) for batch, n in LONG_T_MID_ROWS}
+MESH_SHAPES = ({batch + (n, n) for _, batch, n in MESH_ROWS}
+               | {(MESH_RANK_ROWS, CANONICAL_N_EXP)})
+
+
+def _row_path(r) -> str:
+    """The main path whose launches a kernel table row reports."""
+    shape = tuple(r["shape"])
+    mesh4 = {batch + (n, n) for _, batch, n in MESH4_ROWS}
+    return ("mesh" if shape in MESH_SHAPES else
+            "mesh4" if shape in mesh4 else
+            "f64" if r["dtype"] == "float64" else
+            "longT" if shape in LONG_SHAPES else "slice")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this smoke run "
@@ -4067,7 +4279,11 @@ def main() -> None:
             for r in rows:
                 r["launches"] = counts.get(
                     (r["name"], tuple(r["shape"]), r["dtype"]), 0)
-                if not r["launches"]:
+                if _row_path(r) == "mesh":
+                    print(f"[fusion] {r['name']} {r['dtype']} "
+                          f"{r['shape']}: a [mesh] rank's row, its launches "
+                          "not measured in this mode", flush=True)
+                elif not r["launches"]:
                     fail(f"{r['name']} {r['dtype']} was not launched at "
                          f"{r['shape']} on the canonical graph epoch")
             print(json.dumps({"kernels": rows}))
@@ -4111,19 +4327,14 @@ def main() -> None:
         counts["mesh"] = phase_mesh(data_dir)
         counts["mesh4"] = phase_mesh4(data_dir, tmp)
     # each row's launches come from the run of the path it belongs to: the
-    # float64 rows from [f64], the long sequences' blocks from [longT], the
-    # mesh ranks' local shapes from [mesh] and the 4 x 1 rank's from
-    # [mesh4] (each summed over its ranks), the rest from [slice]
-    long_shapes = {batch + (n, n) for batch, n in LONG_T_MID_ROWS}
-    mesh_shapes = {batch + (n, n) for _, batch, n in MESH_ROWS}
-    mesh4_shapes = {batch + (n, n) for _, batch, n in MESH4_ROWS}
+    # mesh ranks' local shapes from [mesh] (the metric's rows in both
+    # dtypes) and the 4 x 1 rank's from [mesh4] (each summed over its
+    # ranks), the float64 rows from [f64], the long sequences' blocks from
+    # [longT], the rest from [slice]
     for r in rows:
-        shape = tuple(r["shape"])
-        path = ("f64" if r["dtype"] == "float64" else
-                "longT" if shape in long_shapes else
-                "mesh" if shape in mesh_shapes else
-                "mesh4" if shape in mesh4_shapes else "slice")
-        r["launches"] = counts[path].get((r["name"], shape, r["dtype"]), 0)
+        path = _row_path(r)
+        r["launches"] = counts[path].get(
+            (r["name"], tuple(r["shape"]), r["dtype"]), 0)
         if not r["launches"]:
             fail(f"{r['name']} {r['dtype']} was not launched at "
                  f"{r['shape']} on the {path} path")

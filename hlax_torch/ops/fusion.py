@@ -16,7 +16,8 @@ parity tests hold to hlax), a launch counter, and on the card the kernel:
     forward and backward (``rep_image_*``): XLA's fusion of
     ``hlax/ops/normalization.py:76-135`` and ``hlax/models/hlvae.py:251-290``.
   * ``recon_metric``: the train step's recon and missing-imputation errors
-    (``recon_metric``, ``recon_metric_finish``): XLA's fusion of
+    (``recon_metric``, one launch; on a mesh its column sums, the ranks'
+    sums of them, then ``recon_metric_finish``): XLA's fusion of
     ``hlax/train/step.py:210-227`` over ``hlax/eval/metrics.py``.
   * ``gp_kernel_matrix``: the bound's GP kernel matrices with their padding
     masks, forward and backward (``gp_kernel_*``): XLA's fusion of
@@ -48,8 +49,18 @@ KERNEL_DTYPES = (torch.float32, torch.float64)
 # (HLAX_Y, HLAX_C); other sizes take its run-time kernels, whose column
 # sums go ANY_NV a block along the grid's z
 HEAD_Y, NCLASS, ANY_NV = 5, 5, 8
-# must match TILE and ROWS in csrc/fusion.cu
-TILE, ROWS = 32, 16
+# must match TILE, WARPS, ROWS and MAX_CHUNKS in csrc/fusion.cu: a block's
+# columns and warps, the rows a block of the kernels not redesigned takes,
+# the row chunks of a staged reduction (heads_cat_bwd at the compiled
+# sizes, recon_metric) at most
+TILE, WARPS, ROWS, MAX_CHUNKS = 32, 8, 16, 16
+# blocks an SM the staged reductions' plans aim at, as many as their
+# launch bounds give them: the heads' backward two in float and one in
+# double (cat_bwd_blocks: 24 double sums a thread in registers), the
+# metric two; a second wave measured slower than fewer, longer chunks.
+# The wrapper reads the card's SM count
+CAT_BWD_PER_SM = {4: 2, 8: 1}
+METRIC_PER_SM = 2
 # the GP kernel matrix's limits a launch: components, factors a component,
 # raw parameters, distinct rbf dims (MAX_COMP, MAX_FACT, MAX_PARAM,
 # MAX_SLOT in csrc/fusion.cu); its kernels' threads a block (GP_THREADS; the
@@ -65,7 +76,7 @@ GP_KINDS = {"cat": 0, "bin": 1, "rbf": 2, "catmod": 3}
 # staging again
 GP_SMS = 132
 # the metric's kinds of group (M_CAT, M_REAL_CONV, M_REAL in fusion.cu),
-# its column sums (METRIC_NV) and the groups its finish takes
+# its column sums (METRIC_NV) and the groups a launch takes
 METRIC_KIND = {"cat": 0, "real_conv": 1, "real": 2}
 METRIC_NV, METRIC_GROUPS = 5, 32
 
@@ -185,17 +196,117 @@ def _scratch(*tensors):
     return tensors
 
 
-def _reduction_scratch(nv: int, d: int, rows: int, device, fixed: bool):
-    """(partials, counters) of a column reduction of ``nv`` sums a column
-    over ``d`` columns of ``rows`` rows: in one block (``fixed``, the
-    compiled sizes) or ANY_NV a block along z; one double partial a chunk,
-    column and sum, one zeroed counter a column tile and z-slice."""
+def _reduction_scratch(nv: int, d: int, rows: int, like: torch.Tensor,
+                       fixed: bool):
+    """(partials, counters) of a column reduction of the kernels not
+    redesigned: ``nv`` sums a column over ``d`` columns of ``rows`` rows,
+    in one block (``fixed``, the compiled sizes) or ANY_NV a block along z;
+    one double partial a chunk, column and sum, one counter a column tile
+    and z-slice, from the stream's counter buffer."""
     na, z = (nv, 1) if fixed else (ANY_NV, -(-nv // ANY_NV))
     chunks, tiles = -(-rows // ROWS), -(-d // TILE)
-    return _scratch(
-        torch.empty(z * chunks * tiles * TILE * na, dtype=torch.float64,
-                    device=device),
-        torch.zeros(z * tiles, dtype=torch.int32, device=device))
+    return (_scratch(torch.empty(z * chunks * tiles * TILE * na,
+                                 dtype=torch.float64, device=like.device))[0],
+            _counters(like, z * tiles))
+
+
+class ReductionPlan(NamedTuple):
+    """A staged column reduction's grid and scratch: ``tiles`` column tiles
+    of TILE columns by ``chunks`` row chunks of ``rows`` rows (the last one
+    may be shorter), warp w of a block taking rows w, w + WARPS, ... of its
+    chunk; ``part`` doubles of the chunks' partials (none for one chunk),
+    ``counters`` ints of the stream's counter buffer, ``smem`` shared bytes
+    a block; for the metric, each group's first tile (``tile0``) and the
+    entries the wrapper launches."""
+    tiles: int
+    chunks: int
+    rows: int
+    part: int
+    counters: int
+    smem: int
+    tile0: Tuple[int, ...] = ()
+    launches: Tuple[str, ...] = ()
+
+
+def row_chunks(B: int, tiles: int, per_sm: int, sms: int) -> Tuple[int, int]:
+    """(chunks, rows a chunk) of ``B`` rows for a grid of ``tiles`` column
+    tiles: as many chunks as ``per_sm`` blocks an SM of ``sms`` take in one
+    wave, at most MAX_CHUNKS and no more than leave each warp a row, then
+    the rows spread evenly over them."""
+    n = max(1, min(per_sm * sms // tiles, MAX_CHUNKS, -(-B // WARPS)))
+    rows = -(-B // n)
+    return -(-B // rows), rows
+
+
+# stages a warp of the staged reductions' row pipelines (NST in
+# CatBwdSmem and MetricSmem, csrc/fusion.cu)
+CAT_BWD_STAGES, METRIC_STAGES = 3, 4
+
+
+def _cat_bwd_smem(itemsize: int, Y: int, C: int) -> int:
+    """heads_cat_bwd_kernel's shared bytes (CatBwdSmem, csrc/fusion.cu):
+    each warp's CAT_BWD_STAGES stages of a row's runs of y, the data, the
+    theta mask and the mask, each with a 16-byte shift, and its lanes' two
+    cotangents, then the tile's weights and biases; or after the rows the
+    warps' (Y + 1)(C - 1) double sums a column (one spare a column)."""
+    v, nv = 16 // itemsize, (Y + 1) * (C - 1)
+    stage = (TILE * Y + v) + 2 * (TILE * C + v) + (TILE + v) + 2 * TILE
+    return max(WARPS * CAT_BWD_STAGES * stage * itemsize
+               + nv * TILE * itemsize, WARPS * TILE * (nv + 1) * 8)
+
+
+def _metric_smem(itemsize: int, C: int = NCLASS) -> int:
+    """recon_metric_kernel's shared bytes (MetricSmem, dynamic, and its
+    static tile totals): each warp's METRIC_STAGES stages of a row's runs
+    of the data, log_pi or the means and the mask and its valid weight, or
+    the warps' METRIC_NV sums a column and valid rows."""
+    v = 16 // itemsize
+    stage = 2 * (TILE * C + v) + TILE + v + v
+    return (max(WARPS * METRIC_STAGES * stage * itemsize,
+                WARPS * TILE * (METRIC_NV + 1) * 8)
+            + TILE * (METRIC_NV + 1) * 8)
+
+
+def heads_cat_bwd_plan(B: int, d: int, Y: int, C: int, itemsize: int,
+                       sms: int) -> ReductionPlan:
+    """The cat head's backward over ``B`` rows of a group of ``d``
+    variables: at the compiled sizes (Y = HEAD_Y, C = NCLASS) the staged
+    kernel's chunks (CAT_BWD_PER_SM blocks an SM), the (Y + 1)(C - 1) sums a
+    variable's partials over several chunks and a counter a tile; else the
+    run-time kernel's ROWS-row chunks and ANY_NV sums a z-slice."""
+    tiles, nv = -(-d // TILE), (Y + 1) * (C - 1)
+    if (Y, C) != (HEAD_Y, NCLASS):
+        z = -(-nv // ANY_NV)
+        chunks = -(-B // ROWS)
+        return ReductionPlan(tiles, chunks, ROWS,
+                             z * chunks * tiles * TILE * ANY_NV, z * tiles, 0)
+    chunks, rows = row_chunks(B, tiles, CAT_BWD_PER_SM[itemsize], sms)
+    many = chunks > 1
+    return ReductionPlan(tiles, chunks, rows, chunks * d * nv if many else 0,
+                         tiles if many else 0, _cat_bwd_smem(itemsize, Y, C))
+
+
+def metric_plan(B: int, n_raw: int, ds, itemsize: int, sms: int,
+                mesh: bool) -> ReductionPlan:
+    """The recon metric over ``B`` rows of groups of ``ds`` variables (in
+    the table's order) in ``n_raw`` raw columns: one grid over every
+    group's tiles (METRIC_PER_SM blocks an SM); over several chunks the
+    partials of each raw column's sums and each tile's valid rows, a
+    chunk each; on one process each tile's pair of finish terms after
+    them; a counter a tile and one over the tiles.  On one process one
+    launch, the finish in it; on a mesh the column sums, which its ranks
+    sum, then the finish."""
+    tile0, tiles = [], 0
+    for d in ds:
+        tile0.append(tiles)
+        tiles += -(-d // TILE)
+    chunks, rows = row_chunks(B, tiles, METRIC_PER_SM, sms)
+    part = chunks * (n_raw * METRIC_NV + tiles) if chunks > 1 else 0
+    return ReductionPlan(
+        tiles, chunks, rows, part + (0 if mesh else 2 * tiles), tiles + 1,
+        _metric_smem(itemsize), tuple(tile0),
+        ("recon_metric", "recon_metric_finish") if mesh else
+        ("recon_metric",))
 
 
 def _cols(g: Group, geo: Geometry):
@@ -297,15 +408,18 @@ class _Heads(torch.autograd.Function):
         dy = torch.empty_like(y)
         dparams = [torch.empty_like(p) for p in params]
         strides = (*_strides(g_lp), *_strides(g_lpm))
+        sms = _sm_count(y.device.index)
         for k, g in enumerate(geo.cats):
             w, b = params[2 * k:2 * k + 2]
             dw, db = dparams[2 * k:2 * k + 2]
-            nv = (Y + 1) * (g.nclass - 1)
-            part, cnt = _reduction_scratch(
-                nv, g.d, B, y.device, Y == HEAD_Y and g.nclass == NCLASS)
+            plan = heads_cat_bwd_plan(B, g.d, Y, g.nclass, y.element_size(),
+                                      sms)
+            part = _scratch(torch.empty(plan.part, dtype=torch.float64,
+                                        device=y.device))[0]
             _launch("heads_cat_bwd", y, y.element_size(), y, w, b, data,
                     mask, tmask, g_lp, g_lpm, *strides, dy, dw, db, part,
-                    cnt, B, *_cols(g, geo), Y, g.nclass)
+                    _counters(y, plan.counters), B, *_cols(g, geo), Y,
+                    g.nclass, plan.rows)
         if geo.real is not None:
             n0 = 2 * len(geo.cats)
             w, b, *rest = params[n0:]
@@ -317,7 +431,7 @@ class _Heads(torch.autograd.Function):
                 logvy, dlv = rest[0], drest[0]
             g = geo.real
             part, cnt = _reduction_scratch(
-                (2 * Y + 2) if hc.logvar else (Y + 2), g.d, B, y.device,
+                (2 * Y + 2) if hc.logvar else (Y + 2), g.d, B, y,
                 Y == HEAD_Y)
             _launch("heads_real_bwd", y, y.element_size(), y, w, b, wv, bv,
                     logvy, nmean, nvar, data, mask, tmask, g_lp, g_lpm,
@@ -434,7 +548,7 @@ class _RepImage(torch.autograd.Function):
             dw = torch.empty((g.d, g.nclass), dtype=data.dtype,
                              device=data.device)
             db = torch.empty((g.d,), dtype=data.dtype, device=data.device)
-            part, cnt = _reduction_scratch(g.nclass + 1, g.d, B, data.device,
+            part, cnt = _reduction_scratch(g.nclass + 1, g.d, B, data,
                                            g.nclass == NCLASS)
             _launch("rep_image_bwd", data, data.element_size(), data, mask,
                     perm, g_img, dw, db, part, cnt, B, g.d, g.r0, g.e0,
@@ -491,8 +605,9 @@ def recon_metric(layout, conv, params, data, mask, row_valid, last_kind,
     """The train step's recon and missing-imputation errors of the
     likelihoods' ``params`` (``HLVAE.loglik``'s) against the rows ``data``,
     ``mask`` whose ``row_valid`` [B] is 1; on a mesh (``sums``) the global
-    batch's.  The kernels on CUDA where they take the layout and dtype,
-    else the plain version."""
+    batch's.  The kernel on CUDA where it takes the layout and dtype (one
+    launch on one process; on a mesh the column sums, the ranks' sums of
+    them, then the finish), else the plain version."""
     geo = geometry(layout)
     groups = []
     if geo is not None:
@@ -513,31 +628,36 @@ def recon_metric(layout, conv, params, data, mask, row_valid, last_kind,
                                         else (B, g.d)) for g, p in groups})
     data, mask = data.contiguous(), mask.contiguous()
     row_valid = row_valid.contiguous()
-    # each column's sums, every column written by its group's launch
-    cs = torch.empty((METRIC_NV, geo.n_raw), dtype=torch.float64,
-                     device=data.device)
-    table = []
-    for g, p in groups:
+    dev, z = data.device, data.element_size()
+    plan = metric_plan(B, geo.n_raw, [g.d for g, _ in groups], z,
+                       _sm_count(dev.index), sums is not None)
+    finish_apart = "recon_metric_finish" in plan.launches
+    srcs, table = [], []
+    for (g, p), t0 in zip(groups, plan.tile0):
+        srcs.append(p.contiguous())
         kind = (METRIC_KIND["cat"] if g.nclass else
                 METRIC_KIND["real_conv" if conv else "real"])
-        part, cnt = _reduction_scratch(METRIC_NV, g.d, B, data.device, True)
-        p = p.contiguous()
-        _launch("recon_metric", data, data.element_size(),
-                p if g.nclass else None, None if g.nclass else p, data, mask,
-                row_valid, part, cnt, cs, B, g.d, g.r0, g.e0, geo.n_raw,
-                geo.n_exp, kind, g.nclass)
-        kind_name = "cat" if g.nclass else "real"
-        table += [g.r0, g.d, kind, int(kind_name == last_kind)]
-    n_rows = None
-    if sums is not None:
+        take = int(("cat" if g.nclass else "real") == last_kind)
+        table += [g.r0, g.e0, g.d, kind, g.nclass, take, t0]
+    table = (ctypes.c_int * len(table))(*table)
+    # a mesh's column sums [METRIC_NV, n_raw], every group's columns
+    # written
+    cs = (torch.empty((METRIC_NV, geo.n_raw), dtype=torch.float64,
+                      device=dev) if finish_apart else None)
+    out = torch.empty(2, dtype=data.dtype, device=dev)
+    _launch("recon_metric", data, z, table,
+            (ctypes.c_void_p * len(srcs))(*(p.data_ptr() for p in srcs)),
+            len(groups), data, mask, row_valid,
+            _scratch(torch.empty(plan.part, dtype=torch.float64,
+                                 device=dev))[0],
+            _counters(data, plan.counters), cs, None if finish_apart else out,
+            B, geo.n_raw, geo.n_exp, plan.rows)
+    if finish_apart:
         # the ranks' column sums and extremes, then the global valid rows
         cs = torch.cat([sums.subjects(cs[:3]), sums.subjects_max(cs[3:])])
         n_rows = sums.subjects(row_valid.sum(dtype=torch.float64))
-        n_rows = n_rows.reshape(1)
-    out = torch.empty(2, dtype=data.dtype, device=data.device)
-    _launch("recon_metric_finish", data, data.element_size(), cs,
-            row_valid, n_rows, out, (ctypes.c_int * len(table))(*table),
-            len(groups), B, geo.n_raw)
+        _launch("recon_metric_finish", data, z, table, len(groups), cs,
+                row_valid, n_rows.reshape(1), out, B, geo.n_raw)
     return out[0], out[1]
 
 
@@ -785,22 +905,30 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# The backward's counters, a buffer a (device, stream): zero between
-# launches (a launch's last blocks zero the ones it took), so the launches
-# of one stream, which run in its order, share one, and no launch needs a
-# memset.  A buffer outgrown stays alive: a captured CUDA graph keeps its
-# address.
-_GP_COUNTERS: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+# The column reductions' counters, a buffer a (device, stream): zero
+# between launches (a launch's last blocks zero the ones it took), so the
+# launches of one stream, which run in its order, share one, and no launch
+# needs a fill.  A buffer outgrown stays alive: a captured CUDA graph keeps
+# its address.
+_STREAM_COUNTERS: Dict[Tuple[int, int], List[torch.Tensor]] = {}
 
 
-def _gp_counters(device, stream: int, n: int) -> torch.Tensor:
+def _stream_counters(device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` zeroed counters for launches on ``stream`` (its
     ``cuda_stream`` handle) of ``device``."""
-    bufs = _GP_COUNTERS.setdefault((device.index, stream), [])
+    bufs = _STREAM_COUNTERS.setdefault((device.index, stream), [])
     if not bufs or bufs[-1].numel() < n:
         bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
                                 device=device))
     return bufs[-1]
+
+
+def _counters(like: torch.Tensor, n: int) -> torch.Tensor:
+    """The counter buffer of the current stream on ``like``'s device,
+    marked as scratch."""
+    dev = like.device
+    return _scratch(_stream_counters(
+        dev, torch.cuda.current_stream(dev).cuda_stream, n))[0]
 
 
 def _geo_args(g: _GpGeo):
@@ -828,7 +956,6 @@ def _gp_backward(G, theta, x1, x2, rm, cm, chunks, geo: _GpGeo, dtheta,
     sums are twice G's)."""
     dev, dt, z = theta.device, theta.dtype, theta.element_size()
     sms = _sm_count(dev.index)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     fold = geo.S if x2_like is not None and geo.x2s else 1
     passes = []
     if dtheta is not None and (x2_like is None or fold > 1):
@@ -855,7 +982,7 @@ def _gp_backward(G, theta, x1, x2, rm, cm, chunks, geo: _GpGeo, dtheta,
                     theta[rows], x1, x2, rm, cm, G,
                     None if dth is None else dth[rows], dx,
                     0.5 if sym and want_dx else 1.0, part, tpart,
-                    _scratch(_gp_counters(dev, stream, plan.counters))[0],
+                    _counters(G, plan.counters),
                     *_geo_args(g), f, int(sym and want_dx),
                     *_tile_args(plan), int(k > 0))
     if x2_like is None:

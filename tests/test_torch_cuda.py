@@ -461,7 +461,7 @@ def test_train_epoch_graphs_equal_eager_steps(gen, cudnn_deterministic,
     assert chol and {k[0] for k in fused} >= {
         "heads_cat_fwd_cuda", "heads_cat_bwd_cuda", "heads_real_fwd_cuda",
         "heads_real_bwd_cuda", "rep_image_fwd_cuda", "rep_image_bwd_cuda",
-        "recon_metric_cuda", "recon_metric_finish_cuda"}
+        "recon_metric_cuda"}
 
 
 def test_graphs_equal_eager_steps_without_pallas_chol(gen,
@@ -480,8 +480,7 @@ def test_mlp_graphs_equal_eager_steps(gen, cudnn_deterministic):
     names = {k[0] for k in fused}
     assert chol and names == {
         "heads_cat_fwd_cuda", "heads_cat_bwd_cuda", "heads_real_fwd_cuda",
-        "heads_real_bwd_cuda", "recon_metric_cuda",
-        "recon_metric_finish_cuda", "gp_kernel_fwd_cuda",
+        "heads_real_bwd_cuda", "recon_metric_cuda", "gp_kernel_fwd_cuda",
         "gp_kernel_bwd_cuda"}
 
 
@@ -820,7 +819,7 @@ def _fusion_case(rows, dtype, gen):
     D4 data (25 % missing) with decoder features y [rows, 1296, 5]."""
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
 
-    data = _toy_d4(n_3=10, n_6=10)
+    data = _toy_d4(n_3=10 + (rows > 400), n_6=10)
     model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(16,)),
                   torch.Generator("cuda").manual_seed(0), "cuda").to(dtype)
     with torch.no_grad():
@@ -967,11 +966,11 @@ def test_fused_recon_metric_against_plain_version(gen, dtype, rows):
     for last in ("cat", "real"):
         before = dict(fusion.LAUNCHES)
         got = fusion.recon_metric(lay, True, params, data, mask, rv, last)
-        # the column sums a launch a group, then the finish
+        # one launch over both groups, the finish in it
         assert fusion.LAUNCHES["recon_metric_cuda"] == \
-            before["recon_metric_cuda"] + 2
+            before["recon_metric_cuda"] + 1
         assert fusion.LAUNCHES["recon_metric_finish_cuda"] == \
-            before["recon_metric_finish_cuda"] + 1
+            before["recon_metric_finish_cuda"]
         plain = fusion.recon_metric_plain(lay, True, params, data, mask, rv,
                                           last)
         if dtype == torch.float64:
@@ -1282,14 +1281,281 @@ def test_fused_recon_metric_takes_any_layout(gen, conv, mesh):
     sums = _OneRankSums() if mesh else None
     lay = model.cfg.layout
     for last in ("cat", "real"):
-        before = fusion.LAUNCHES["recon_metric_finish_cuda"]
+        before = dict(fusion.LAUNCHES)
         got = fusion.recon_metric(lay, conv, params, data, mask, rv, last,
                                   sums)
-        assert fusion.LAUNCHES["recon_metric_finish_cuda"] == before + 1
+        # one launch; on the mesh path the column sums, then the finish
+        assert fusion.LAUNCHES["recon_metric_cuda"] == \
+            before["recon_metric_cuda"] + 1
+        assert fusion.LAUNCHES["recon_metric_finish_cuda"] == \
+            before["recon_metric_finish_cuda"] + int(mesh)
         want = fusion.recon_metric_plain(lay, conv, params, data, mask, rv,
                                          last, sums)
         for a, b in zip(got, want):
             _hold(f"recon {last}", a, b)
+
+
+# ---- the staged reductions: heads_cat_bwd at the compiled sizes, the metric
+
+# the canonical batch, one row (one chunk), one row past it (a short last
+# chunk)
+STAGED_ROWS = [400, 1, 401]
+
+
+def _padded_rows(rows, dtype):
+    rv = torch.ones(rows, dtype=dtype, device="cuda")
+    if rows > 1:
+        rv[-max(rows // 5, 1):] = 0.0
+    return rv
+
+
+def _metric_params(model, y, data, mask, tmask):
+    from hlax_torch.ops import fusion
+
+    with torch.no_grad():
+        return fusion.heads_loglik_plain(model, y, tmask, data, mask,
+                                         _moments(model, data, mask))[2]
+
+
+def _in_float64(params):
+    return [tuple(t.double() for t in p) if isinstance(p, tuple)
+            else p.double() for p in params]
+
+
+@pytest.mark.parametrize("rows", STAGED_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_staged_reductions_against_plain_version(gen, dtype, rows):
+    """The cat head's backward at the compiled sizes (dy and every head
+    weight's gradient, under the row-sum and a random cotangent) and the
+    one-launch metric (the last rows padding, either surviving type) at
+    the canonical layout over 400, 1 and 401 rows: float64 to 1e-10,
+    float32 within 4x the plain version's own error against float64; one
+    launch of each, no finish."""
+    from hlax_torch.ops import fusion
+
+    model, y, data, mask, tmask = _fusion_case(rows, dtype, gen)
+    m64 = None
+    if dtype == torch.float32:
+        m64 = _fusion_case(rows, torch.float64, gen)[0]
+        m64.load_state_dict({k: v.double() for k, v in
+                             model.state_dict().items()})
+    for cot in ("row sums", "random"):
+        before = dict(fusion.LAUNCHES)
+        outs, grads = _heads_run(model, y, data, mask, tmask, False, cot)
+        assert fusion.LAUNCHES["heads_cat_bwd_cuda"] == \
+            before["heads_cat_bwd_cuda"] + 1
+        p_outs, p_grads = _heads_run(model, y, data, mask, tmask, True, cot)
+        r_grads = [None] * len(grads) if m64 is None else _heads_run(
+            m64, y.double(), data.double(), mask.double(), tmask.double(),
+            True, cot)[1]
+        for i, (a, b, r) in enumerate(zip(grads, p_grads, r_grads)):
+            _hold(f"{cot} gradient {i}", a, b, r)
+    params = _metric_params(model, y, data, mask, tmask)
+    rv = _padded_rows(rows, dtype)
+    lay = model.cfg.layout
+    for last in ("cat", "real"):
+        before = dict(fusion.LAUNCHES)
+        got = fusion.recon_metric(lay, True, params, data, mask, rv, last)
+        assert fusion.LAUNCHES["recon_metric_cuda"] == \
+            before["recon_metric_cuda"] + 1
+        assert fusion.LAUNCHES["recon_metric_finish_cuda"] == \
+            before["recon_metric_finish_cuda"]
+        plain = fusion.recon_metric_plain(lay, True, params, data, mask, rv,
+                                          last)
+        ref = [None, None] if m64 is None else fusion.recon_metric_plain(
+            lay, True, _in_float64(params), data.double(), mask.double(),
+            rv.double(), last)
+        for a, b, r in zip(got, plain, ref):
+            _hold(f"recon {last}", a, b, r)
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_staged_reductions_at_run_time_sizes(gen, dtype, mesh):
+    """y_dim 3 (the cat head's run-time backward) over cat groups of 3 and
+    7 classes beside the real group, and the metric's cat groups at run
+    time in the MLP model, alone and on the mesh path (the column sums,
+    then the finish): float64 to 1e-10, float32 within 4x the plain
+    version's own error against float64."""
+    import copy
+
+    from hlax_torch.ops import fusion
+
+    m64, y64, d64, k64, t64 = _layout_case(_mixed(97, 3), 37, False, 3,
+                                           False, 8)
+    model = m64 if dtype == torch.float64 else copy.deepcopy(m64).to(dtype)
+    y, data, mask, tmask = (t.to(dtype) for t in (y64, d64, k64, t64))
+    ref64 = dtype == torch.float32
+    res = {}
+    for who, m, args in (("kernel", model, (y, data, mask, tmask)),
+                         ("plain", model, (y, data, mask, tmask)),
+                         ("ref", m64, (y64, d64, k64, t64))):
+        if who == "ref" and not ref64:
+            continue
+        fn = fusion.heads_loglik if who == "kernel" else \
+            fusion.heads_loglik_plain
+        yy = args[0].clone().requires_grad_(True)
+        lp = fn(m, yy, args[3], args[1], args[2],
+                _moments(m, args[1], args[2]))[0]
+        w = torch.randn(lp.shape, generator=torch.Generator(
+            "cuda").manual_seed(5), device="cuda", dtype=torch.float64)
+        res[who] = list(torch.autograd.grad((lp * w.to(lp.dtype)).sum(),
+                                            [yy] + list(m.obs.values()),
+                                            allow_unused=True))
+    for i, (a, b) in enumerate(zip(res["kernel"], res["plain"])):
+        if a is not None:
+            _hold(f"gradient {i}", a, b,
+                  res["ref"][i] if ref64 else None)
+    sums = _OneRankSums() if mesh else None
+    rv = _padded_rows(37, dtype)
+    params = _metric_params(model, y, data, mask, tmask)
+    lay = model.cfg.layout
+    before = dict(fusion.LAUNCHES)
+    got = fusion.recon_metric(lay, False, params, data, mask, rv, "real",
+                              sums)
+    assert fusion.LAUNCHES["recon_metric_finish_cuda"] == \
+        before["recon_metric_finish_cuda"] + int(mesh)
+    plain = fusion.recon_metric_plain(lay, False, params, data, mask, rv,
+                                      "real", sums)
+    ref = [None, None]
+    if ref64:
+        ref = fusion.recon_metric_plain(
+            lay, False, _metric_params(m64, y64, d64, k64, t64), d64, k64,
+            rv.double(), "real", sums)
+    for a, b, r in zip(got, plain, ref):
+        _hold("recon", a, b, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_staged_reductions_replay_bit_for_bit(gen, dtype):
+    """The cat head's backward and the one-launch metric at the canonical
+    shape: two eager calls and two replays of a CUDA graph of a third,
+    all equal to the bit (the sums in a fixed order; the counters zero
+    again after every launch, none filled)."""
+    from hlax_torch.ops import fusion
+    from hlax_torch.ops.normalization import NormParams
+
+    model, y, data, mask, tmask = _fusion_case(400, dtype, gen)
+    params = _metric_params(model, y, data, mask, tmask)
+    rv = _padded_rows(400, dtype)
+    g = torch.Generator("cuda").manual_seed(5)
+    w1, w2 = (torch.randn((400, 1296), generator=g, device="cuda",
+                          dtype=dtype) for _ in range(2))
+    obs = list(model.obs.values())
+
+    def run():
+        yy = y.detach().requires_grad_(True)
+        lp, lpm = fusion.heads_loglik(model, yy, tmask, data, mask,
+                                      NormParams(None, None, None,
+                                                 None))[:2]
+        grads = torch.autograd.grad([lp, lpm], [yy] + obs, [w1, w2],
+                                    allow_unused=True)
+        rec = fusion.recon_metric(model.cfg.layout, True, params, data, mask,
+                                  rv, "cat")
+        return [t for t in grads if t is not None] + list(rec)
+
+    first, second = run(), run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for replay in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (a, b, c) in enumerate(zip(first, second, captured)):
+            assert torch.equal(a, b) and torch.equal(a, c), (
+                replay, i, (a - c).abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_metric_argmax_takes_nan_and_ties_as_the_plain_version(gen, dtype):
+    """log_pi with tied classes (the first wins), one NaN (largest) or
+    several (the first wins) in a cell, and data cells of all zeros or
+    ties: the one-launch metric's compiled C = 5 argmax against the plain
+    version's torch.argmax; float64 to 1e-10, float32 within 4x the plain
+    version's own error against the plain version in float64 on the same
+    values (an argmax taken otherwise moves a mean by a whole cell)."""
+    from hlax_torch.ops import fusion
+
+    model, y, data, mask, tmask = _fusion_case(400, dtype, gen)
+    params = _metric_params(model, y, data, mask, tmask)
+    lpi = params[0].clone()                  # the cat group's [400, 972, 5]
+    lpi[::3] = lpi[::3, :, :1]               # every class tied
+    lpi[1::7, ::5, 2] = float("nan")
+    lpi[2::11, ::3, 1] = float("nan")
+    lpi[2::11, ::3, 3] = float("nan")
+    lpi[4::13, 1::4, 2:] = lpi[4::13, 1::4, 2:3]      # classes 2-4 tied
+    data = data.clone()
+    cat = data[:, :972 * 5].reshape(400, 972, 5)
+    cat[5::9, ::2] = 0.0                     # all zeros: class 0
+    cat[6::9, 1::2, 1:3] = 1.0               # classes 1 and 2 tied
+    params = [lpi] + list(params[1:])
+    rv = _padded_rows(400, dtype)
+    lay = model.cfg.layout
+    for last in ("cat", "real"):
+        got = fusion.recon_metric(lay, True, params, data, mask, rv, last)
+        plain = fusion.recon_metric_plain(lay, True, params, data, mask, rv,
+                                          last)
+        ref = [None, None] if dtype == torch.float64 else \
+            fusion.recon_metric_plain(lay, True, _in_float64(params),
+                                      data.double(), mask.double(),
+                                      rv.double(), last)
+        for a, b, r in zip(got, plain, ref):
+            _hold(f"recon {last}", a, b, r)
+
+
+def test_captured_step_fills_no_counters(gen, monkeypatch,
+                                         cudnn_deterministic):
+    """make_train_epoch's captures of the toy conv model's steps: inside
+    the fused ops (the heads and their backward, the representation and
+    its backward, the metric, the GP kernel matrices' backward) no fill or
+    zero op is captured: their counters come from the stream's buffer,
+    which its warm-up steps allocated and zeroed."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from hlax_torch.ops import fusion
+
+    calls = {}
+    current = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if current:
+                calls[current[-1]][-1].append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def inside(name, fn):
+        def wrapped(*a, **k):
+            if not torch.cuda.is_current_stream_capturing():
+                return fn(*a, **k)
+            calls.setdefault(name, []).append([])
+            current.append(name)
+            try:
+                return fn(*a, **k)
+            finally:
+                current.pop()
+        return wrapped
+
+    for name in ("heads_loglik", "rep_image", "recon_metric",
+                 "gp_kernel_matrix"):
+        monkeypatch.setattr(fusion, name, inside(name,
+                                                 getattr(fusion, name)))
+    for cls in (fusion._Heads, fusion._RepImage, fusion._GpKernel):
+        monkeypatch.setattr(cls, "backward", staticmethod(inside(
+            f"{cls.__name__}.backward", cls.backward)))
+    with Record():
+        _graphs_against_eager(gen, "generator")
+    assert {"heads_loglik", "rep_image", "recon_metric", "_Heads.backward",
+            "_RepImage.backward", "_GpKernel.backward"} <= set(calls)
+    for name, runs in calls.items():
+        for ops in runs:
+            assert ops, name
+            fills = [op for op in ops if "fill" in op or "zero" in op]
+            assert not fills, (name, fills)
 
 
 def _gp_grads(fn, spec, params, x1, x2, kw, wrt):

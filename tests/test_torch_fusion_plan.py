@@ -1,0 +1,325 @@
+"""The staged column reductions' host-side plans (``hlax_torch.ops.fusion``):
+the cat head's backward at the compiled sizes and the recon metric.  Their
+grids cover every (row, column) once, their chunks come in a fixed order,
+their scratch and shared memory fit the H100, the row runs the kernels
+stage split into 16-byte copies and single elements as ``stage_run``
+(csrc/fusion.cu) splits them, and the wrappers launch what their plans say
+with the arguments the C entries take.  CPU only: no card, no JAX."""
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from hlax_torch.ops import fusion
+
+SMS = 132          # an H100's SMs
+SMEM_LIMIT = 232448   # shared bytes an H100's SM gives its blocks (227 KB)
+CSRC = Path(fusion.__file__).resolve().parents[1] / "csrc" / "fusion.cu"
+# (B, d): the canonical batch over the cat and the real group, one row, a
+# batch one row past it, a group of one variable and one past a tile
+CAT_SHAPES = [(400, 972), (400, 324), (1, 972), (401, 972), (400, 1),
+              (37, 33), (1, 1)]
+
+
+def _blocks(plan, B):
+    """The row range of each of the plan's chunks, as a block of the
+    kernel walks it: warp w takes rows w, w + WARPS, ... of [y rows,
+    min(B, (y + 1) rows))."""
+    out = []
+    for y in range(plan.chunks):
+        lo, hi = y * plan.rows, min(B, (y + 1) * plan.rows)
+        out.append([list(range(lo + w, hi, fusion.WARPS))
+                    for w in range(fusion.WARPS)])
+    return out
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("B,d", CAT_SHAPES)
+def test_cat_bwd_plan_covers_every_cell_once(B, d, itemsize):
+    """Every (row, variable) in exactly one block and warp; chunks within
+    MAX_CHUNKS, each warp a row where the batch allows; partials (index
+    (chunk d + v) NV + i) and counters (one a tile) within the scratch, or
+    none for one chunk; the shared bytes within 227 KB."""
+    plan = fusion.heads_cat_bwd_plan(B, d, fusion.HEAD_Y, fusion.NCLASS,
+                                     itemsize, SMS)
+    nv = (fusion.HEAD_Y + 1) * (fusion.NCLASS - 1)
+    assert plan.tiles == -(-d // fusion.TILE)
+    assert 1 <= plan.chunks <= fusion.MAX_CHUNKS
+    assert plan.chunks == -(-B // plan.rows)
+    seen = np.zeros((B, d), dtype=int)
+    for x in range(plan.tiles):
+        v0 = x * fusion.TILE
+        cols = range(v0, min(d, v0 + fusion.TILE))
+        for warps in _blocks(plan, B):
+            for rows in warps:
+                for r in rows:
+                    seen[r, cols] += 1
+    assert (seen == 1).all()
+    if plan.chunks > 1:
+        top = ((plan.chunks - 1) * d + d - 1) * nv + nv - 1
+        assert plan.part == top + 1 and plan.counters == plan.tiles
+        assert B >= fusion.WARPS * (plan.chunks - 1)
+    else:
+        assert plan.part == 0 and plan.counters == 0
+    assert plan.smem <= SMEM_LIMIT
+    assert plan.smem > 48 * 1024     # the C entry opts in to it
+    # as many blocks an SM fit the shared memory as the plan aims at
+    per_sm = fusion.CAT_BWD_PER_SM[itemsize]
+    assert per_sm * plan.smem <= SMEM_LIMIT
+
+
+def test_cat_bwd_plan_at_the_canonical_shape():
+    """31 tiles of the 972 cat variables by 8 chunks of 50 rows in float
+    (248 blocks, two an SM of 132 less a few), 4 of 100 in double (one an
+    SM): partials 3x and 6x fewer than 16-row chunks' 25."""
+    plan = fusion.heads_cat_bwd_plan(400, 972, 5, 5, 4, SMS)
+    assert (plan.tiles, plan.chunks, plan.rows) == (31, 8, 50)
+    assert plan.tiles * plan.chunks <= fusion.CAT_BWD_PER_SM[4] * SMS
+    assert plan.part == 8 * 972 * 24
+    f64 = fusion.heads_cat_bwd_plan(400, 972, 5, 5, 8, SMS)
+    assert (f64.tiles, f64.chunks, f64.rows) == (31, 4, 100)
+    assert f64.part == 4 * 972 * 24 and f64.smem > plan.smem
+
+
+@pytest.mark.parametrize("Y,C", [(3, 5), (5, 7), (5, 3), (1, 2)])
+def test_cat_bwd_plan_at_run_time_sizes(Y, C):
+    """Other Y and C keep the run-time kernel: ROWS-row chunks, ANY_NV sums
+    a z-slice, a counter a tile and slice, no dynamic shared memory."""
+    B, d = 37, 33
+    plan = fusion.heads_cat_bwd_plan(B, d, Y, C, 8, SMS)
+    z = -(-(Y + 1) * (C - 1) // fusion.ANY_NV)
+    assert plan.rows == fusion.ROWS and plan.chunks == -(-B // fusion.ROWS)
+    assert plan.counters == z * plan.tiles and plan.smem == 0
+    assert plan.part == z * plan.chunks * plan.tiles * fusion.TILE * \
+        fusion.ANY_NV
+
+
+def test_chunk_order_is_fixed():
+    """The chunks are consecutive row ranges in increasing order, a
+    function of the shapes and the SM count alone; the tile's last block
+    adds chunk k's partials at offset k d NV, in k's order, whichever
+    block arrives last."""
+    a = fusion.heads_cat_bwd_plan(401, 972, 5, 5, 4, SMS)
+    assert a == fusion.heads_cat_bwd_plan(401, 972, 5, 5, 4, SMS)
+    starts = [warps[0][0] for warps in _blocks(a, 401)]
+    assert starts == sorted(starts) == [k * a.rows for k in range(a.chunks)]
+    nv = 24
+    offsets = [k * 972 * nv for k in range(a.chunks)]
+    assert offsets == sorted(set(offsets))
+    assert offsets[-1] + 972 * nv == a.part
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 7, 8, 9, 400, 401, 4000])
+def test_row_chunks(B, per_sm):
+    """At most MAX_CHUNKS chunks, no more than a wave of per_sm blocks an
+    SM takes (but one), no more than leave every warp a row, the rows spread
+    evenly: no chunk but the last shorter, none empty."""
+    for tiles in (1, 11, 31, 42, 500):
+        n, rows = fusion.row_chunks(B, tiles, per_sm, SMS)
+        assert 1 <= n <= fusion.MAX_CHUNKS
+        assert n == 1 or n * tiles <= per_sm * SMS
+        assert n == 1 or B >= fusion.WARPS * (n - 1)
+        assert (n - 1) * rows < B <= n * rows
+
+
+def _metric_groups(n, d_each=(972, 324, 33, 1)):
+    return [d_each[k % len(d_each)] for k in range(n)]
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+@pytest.mark.parametrize("ngroups", [1, 2, 32])
+@pytest.mark.parametrize("B", [400, 1, 401])
+def test_metric_plan_covers_every_cell_once(B, ngroups, mesh):
+    """One grid over every group's tiles: each group's first tile after the
+    one before's last, every (row, raw column) of every group in one block;
+    partials within the scratch, a counter a tile and one over the tiles;
+    the shared bytes of the blocks an SM takes within 227 KB; one launch on
+    one process, the column sums and the finish apart on a mesh."""
+    ds = _metric_groups(ngroups)
+    n_raw = sum(ds) + 5        # columns of groups the metric does not take
+    plan = fusion.metric_plan(B, n_raw, ds, 8, SMS, mesh)
+    assert plan.tiles == sum(-(-d // fusion.TILE) for d in ds)
+    assert plan.tile0 == tuple(np.cumsum([0] + [-(-d // fusion.TILE)
+                                                for d in ds])[:-1])
+    seen = np.zeros((B, sum(ds)), dtype=int)
+    r0 = np.cumsum([0] + ds)[:-1]
+    for x in range(plan.tiles):
+        k = max(j for j in range(ngroups) if plan.tile0[j] <= x)
+        v0 = (x - plan.tile0[k]) * fusion.TILE
+        cols = range(r0[k] + v0, r0[k] + min(ds[k], v0 + fusion.TILE))
+        for warps in _blocks(plan, B):
+            for rows in warps:
+                for r in rows:
+                    seen[r, cols] += 1
+    assert (seen == 1).all()
+    assert plan.counters == plan.tiles + 1
+    # the column sums' and valid rows' partials over several chunks
+    # ((chunk n_raw + column) METRIC_NV + i, then chunk tiles + tile), the
+    # tiles' finish pairs on one process
+    cols = plan.chunks * (n_raw * fusion.METRIC_NV + plan.tiles)
+    want = (cols if plan.chunks > 1 else 0) + (0 if mesh else 2 * plan.tiles)
+    assert plan.part == want
+    for itemsize in (4, 8):    # as many blocks an SM as the plan aims at
+        assert fusion.METRIC_PER_SM * fusion._metric_smem(itemsize) <= \
+            SMEM_LIMIT
+    assert plan.launches == (("recon_metric", "recon_metric_finish")
+                             if mesh else ("recon_metric",))
+
+
+def test_metric_plan_at_the_canonical_shape():
+    """The cat group's 31 tiles and the real group's 11 by 6 chunks of 67
+    rows: 252 blocks, two an SM less a few, one wave."""
+    plan = fusion.metric_plan(400, 1296, [972, 324], 4, SMS, False)
+    assert (plan.tiles, plan.chunks, plan.rows) == (42, 6, 67)
+    assert plan.tiles * plan.chunks <= fusion.METRIC_PER_SM * SMS
+    assert plan.tile0 == (0, 31)
+
+
+def _stage_split(addr, n, itemsize):
+    """stage_run's split (csrc/fusion.cu) of a run of n elements at byte
+    address addr: (single elements, 16-byte vectors' first elements, the
+    run's shared offset mis)."""
+    v = 16 // itemsize
+    mis = addr % 16 // itemsize
+    head = min(n, v - mis) if mis else 0
+    nvec = (n - head) // v
+    singles = list(range(head)) + list(range(head + nvec * v, n))
+    return singles, [head + k * v for k in range(nvec)], mis
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [1, 3, 5, 33, 155, 160])
+def test_staged_runs_copy_every_element_once(n, itemsize):
+    """A run at every misalignment (a group's r0, e0 or t0 off a 16-byte
+    boundary, the ragged last tile): each element copied once, each vector
+    16-byte aligned in device and in shared memory (the run lands at mis),
+    nothing past the run read."""
+    v = 16 // itemsize
+    for shift in range(v):
+        addr = 4096 + shift * itemsize
+        singles, vecs, mis = _stage_split(addr, n, itemsize)
+        got = sorted(singles + [e + j for e in vecs for j in range(v)])
+        assert got == list(range(n))
+        for e in vecs:
+            assert (addr + e * itemsize) % 16 == 0
+            assert (mis + e) * itemsize % 16 == 0
+        assert mis + n <= fusion.TILE * 5 + v or n > fusion.TILE * 5
+
+
+# ---- the wrappers' launches, on the CPU with the launches recorded --------
+
+def _c_params():
+    """{entry: number of parameters} of csrc/fusion.cu's C entries."""
+    src = CSRC.read_text()
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        out[m.group(1)] = len([p for p in m.group(2).split(",") if p.strip()])
+    return out
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """The wrappers on CPU tensors as on the card: each launch recorded
+    (entry, args) and held to its C entry's parameter count (the stream
+    last), nothing run."""
+    params, calls = _c_params(), []
+
+    def launch(entry, like, *args):
+        assert len(args) + 1 == params[entry], (entry, len(args))
+        calls.append((entry, args))
+
+    monkeypatch.setattr(fusion, "_launch", launch)
+    monkeypatch.setattr(fusion, "_uses_kernel",
+                        lambda takes, t, name, *others: takes)
+    monkeypatch.setattr(fusion, "_sm_count", lambda index: SMS)
+    monkeypatch.setattr(fusion, "_counters",
+                        lambda like, n: torch.zeros(n, dtype=torch.int32))
+    return calls
+
+
+def _layout(n_cat, n_real, rows, y_dim=5, seed=0):
+    """A float64 MLP model of y_dim on a layout of n_cat cat(5) and n_real
+    real variables, its rows and decoder features."""
+    from hlax_torch.data.reader import encode_raw
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+
+    rng = np.random.default_rng(seed)
+    types = ([{"type": "cat", "dim": 1, "nclass": 5}] * n_cat
+             + [{"type": "real", "dim": 1, "nclass": 1}] * n_real)
+    raw = np.column_stack([rng.integers(0, 5, rows).astype(float)
+                           if t["type"] == "cat" else rng.random(rows) * 255
+                           for t in types])
+    het = encode_raw(raw, types, miss_mask=np.ones_like(raw))
+    model = HLVAE(HLVAEConfig(layout=het.layout, z_dim=4, h_dims=(8,),
+                              y_dim=y_dim, conv=False),
+                  torch.Generator().manual_seed(seed), "cpu").double()
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)
+    y = torch.randn((rows, het.layout.n_raw, y_dim), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(seed))
+    return model, y, t(het.data), t(het.mask), t(het.theta_mask)
+
+
+class _OneRankSums:
+    def subjects(self, x):
+        return x.clone()
+
+    def subjects_max(self, x):
+        return x.clone()
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_metric_wrapper_launches_what_its_plan_says(recorded, mesh):
+    """One process: one recon_metric launch with the output (the finish in
+    it); a mesh: the column sums without it, then recon_metric_finish with
+    the ranks' sums; the group table's tiles and the rows a chunk as the
+    plan has them."""
+    model, _, data, mask, _ = _layout(40, 9, 21)
+    lay = model.cfg.layout
+    params = [torch.zeros((21, 40, 5), dtype=torch.float64),
+              (torch.zeros((21, 9), dtype=torch.float64),
+               torch.ones((21, 9), dtype=torch.float64))]
+    rv = torch.ones(21, dtype=torch.float64)
+    fusion.recon_metric(lay, False, params, data, mask, rv, "cat",
+                        _OneRankSums() if mesh else None)
+    entries = [e for e, _ in recorded]
+    plan = fusion.metric_plan(21, lay.n_raw, [40, 9], 8, SMS, mesh)
+    assert tuple(entries) == plan.launches
+    args = recorded[0][1]
+    table = list(args[1])
+    assert table == [0, 0, 40, fusion.METRIC_KIND["cat"], 5, 1, 0,
+                     40, 200, 9, fusion.METRIC_KIND["real"], 0, 0, 2]
+    assert args[3] == 2 and args[-1] == plan.rows
+    assert (args[10] is None) == mesh      # out: the finish in the launch
+    assert (args[9] is None) != mesh       # cs: the mesh's column sums
+    assert args[7].numel() == plan.part
+    assert args[8].numel() == plan.counters
+    if mesh:
+        fin = recorded[1][1]
+        assert list(fin[1]) == table and fin[2] == 2
+
+
+@pytest.mark.parametrize("y_dim", [5, 3])
+def test_heads_backward_launches_with_its_plan(recorded, y_dim):
+    """The cat head's backward takes its plan's rows, partials and counters
+    (the staged kernel at y_dim 5, the run-time kernel at 3); the real
+    head's backward a counter a tile from the same stream buffer."""
+    from hlax_torch.ops.normalization import NormParams
+
+    model, y, data, mask, tmask = _layout(40, 9, 21, y_dim)
+    y = y.requires_grad_(True)
+    lp = fusion.heads_loglik(model, y, tmask, data, mask,
+                             NormParams(None, None, None, None))[0]
+    torch.autograd.grad(lp.sum(), [y] + list(model.obs.values()),
+                        allow_unused=True)
+    calls = dict(recorded)
+    assert {"heads_cat_fwd", "heads_real_fwd", "heads_cat_bwd",
+            "heads_real_bwd"} <= set(calls)
+    plan = fusion.heads_cat_bwd_plan(21, 40, y_dim, 5, 8, SMS)
+    cat = calls["heads_cat_bwd"]
+    assert cat[-1] == plan.rows and cat[-2] == 5 and cat[-3] == y_dim
+    assert cat[16].numel() == plan.part and cat[17].numel() == plan.counters
+    real = calls["heads_real_bwd"]
+    assert real[25].numel() == 1 and real[25].dtype == torch.int32

@@ -215,15 +215,15 @@ def test_gp_counters_are_shared_and_outgrown_ones_kept():
     dev = torch.device("cpu")
     keys = [(dev.index, 1), (dev.index, 2)]
     for k in keys:
-        fusion._GP_COUNTERS.pop(k, None)
-    a = fusion._gp_counters(dev, 1, 10)
+        fusion._STREAM_COUNTERS.pop(k, None)
+    a = fusion._stream_counters(dev, 1, 10)
     assert a.dtype == torch.int32 and not a.any()
-    assert fusion._gp_counters(dev, 1, 100) is a
-    other = fusion._gp_counters(dev, 2, 10)
+    assert fusion._stream_counters(dev, 1, 100) is a
+    other = fusion._stream_counters(dev, 2, 10)
     assert other is not a and not other.any()
-    b = fusion._gp_counters(dev, 1, a.numel() + 1)
+    b = fusion._stream_counters(dev, 1, a.numel() + 1)
     assert b is not a and b.numel() > a.numel()
-    assert fusion._GP_COUNTERS[keys[0]] == [a, b]
-    assert fusion._GP_COUNTERS[keys[1]] == [other]
+    assert fusion._STREAM_COUNTERS[keys[0]] == [a, b]
+    assert fusion._STREAM_COUNTERS[keys[1]] == [other]
     for k in keys:
-        fusion._GP_COUNTERS.pop(k)
+        fusion._STREAM_COUNTERS.pop(k)
