@@ -29,9 +29,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              prints each kernel's registers, stack frame and spill; a
              spill in the float64 blocked mid kernel, or a spill or a stack
              frame in any of the GP kernel matrix's instantiations
-             (GP_INSTANCES) or the staged reductions' (STAGED_INSTANCES:
-             the cat head's backward and the one-launch recon metric),
-             fails the run.
+             (GP_INSTANCES) or the staged kernels' (STAGED_INSTANCES: the
+             cat head's forward and backward, the representation's
+             backward and the one-launch recon metric), fails the run.
   2. kernels each kernel against its plain version, with the launch plan
              each shape took: the small kernel bit for bit at eleven shapes
              (both compiled sizes, padded and odd n, n up to 48) on random
@@ -96,10 +96,17 @@ Phases (each prints its own lines; any failure exits non-zero):
              of the largest entry; float32 within 4x the plain version's
              own error against float64 plus 1e-6), each kernel timed alone
              by CUDA events beside the op's plain chain and its bound (the
-             staged reductions and the mesh's finish also with the L2 cold,
-             COLD_BYTES written between launches); the metric's mesh path
+             staged kernels and the mesh's finish also with the L2 cold,
+             COLD_BYTES written between launches); first the staged
+             kernels' machine code ([sass]: instructions, and their row
+             loops' by opcode, by cuobjdump); each staged kernel swept
+             over the first B rows of the batch and over the rows a chunk
+             (a line through ms against bytes: the loop's rate and the
+             launch's fixed cost); the metric's mesh path
              (column sums, then the finish) at a [mesh] rank's 200 rows;
-             the MLP's heads and metric held to their plain versions too;
+             the MLP's heads and metric, and the heads and the
+             representation at a [mesh] rank's rows, held to their plain
+             versions too;
              with the parent tree under parent/, its fusion.cu built into
              build/parent/ (its GP kernels' registers, stack frame and
              spill printed) and its GP ops, on its own wrapper, held to
@@ -108,7 +115,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              and counters' memset where the parent's wrapper launches them
              besides its kernels), and the GP kernels' device ms of one
              canonical step of both; the same turns, warm and L2-cold, for
-             the cat head's backward and the recon metric (the parent's
+             the staged kernels: the cat head's forward (its results also
+             compared with the parent's bit for bit) and backward, the
+             representation's backward and the recon metric (a parent's
              column sums a group and its finish against one launch); with
              or without it, the canonical specs' compiled GP shapes against
              the table kernel (gp_compiled_shapes) the same way, in turns
@@ -426,14 +435,17 @@ GP_INSTANCES = tuple(
     + [f"gp_bwd_cols_kernel<{t},1,{sh}>" for t, _ in _GP_VEC
        for sh in (0, 1, 2)]
     + [f"gp_bwd_cols_kernel<{t},4,0>" for t, _ in _GP_VEC])
-# the staged reductions' instantiations (csrc/fusion.cu): the cat head's
-# backward and the one-launch metric at the compiled sizes
+# the staged kernels' instantiations (csrc/fusion.cu): the cat head's
+# forward and backward, the representation's backward and the one-launch
+# metric at the compiled sizes
 STAGED_INSTANCES = tuple(
-    [f"heads_cat_bwd_kernel<{t},5,5>" for t in ("float", "double")]
-    + [f"recon_metric_kernel<{t},5>" for t in ("float", "double")])
+    [f"heads_cat_{d}_kernel<{t},5,5>" for d in ("fwd", "bwd")
+     for t in ("float", "double")]
+    + [f"{k}<{t},5>" for k in ("rep_image_bwd_kernel", "recon_metric_kernel")
+       for t in ("float", "double")])
 # the kernels that must not spill, by library, and whether a stack frame
 # fails them too: the float64 blocked mid kernel, every GP kernel, the
-# staged reductions
+# staged kernels
 NO_SPILL = ([("chol_inv_mid", "chol_inv_mid_blocked64_kernel", False)]
             + [("fusion", k, True) for k in GP_INSTANCES + STAGED_INSTANCES])
 
@@ -484,7 +496,7 @@ def phase_build() -> None:
                  "bytes spill (stores and loads)")
     print(f"[build] no spill in {len(NO_SPILL)} kernels, no stack frame in "
           f"the {len(GP_INSTANCES)} GP kernels and the "
-          f"{len(STAGED_INSTANCES)} staged reductions", flush=True)
+          f"{len(STAGED_INSTANCES)} staged kernels", flush=True)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2344,20 +2356,23 @@ def _cotangent(shape, dtype):
         9), device="cuda", dtype=torch.float64).to(dtype)
 
 
-def _op_heads(c, plain, grads=True, mlp=False, fusion=None):
+def _op_heads(c, plain, grads=True, mlp=False, fusion=None, rows=None):
     """``fusion``: the module whose op runs (the parent tree's in
-    ``_staged_against_parent``), else hlax_torch.ops.fusion."""
+    ``_staged_against_parent``), else hlax_torch.ops.fusion; ``rows``: the
+    batch's first rows only (a mesh rank's batch)."""
     if fusion is None:
         from hlax_torch.ops import fusion
     from hlax_torch.ops.normalization import NormParams
 
     m, b = c["mlp" if mlp else "vae"], c["batch"]
-    y = c["y_mlp" if mlp else "y"].detach().clone().requires_grad_(grads)
+    cut = (lambda t: t[:rows]) if rows is not None else (lambda t: t)
+    y = cut(c["y_mlp" if mlp else "y"]).detach().clone().requires_grad_(
+        grads)
     norm = c["norm_mlp"] if mlp else NormParams(None, None, None, None)
     fn = fusion.heads_loglik_plain if plain else fusion.heads_loglik
     with torch.set_grad_enabled(grads):
-        lp, lpm, par, theta = fn(m, y, b["theta_mask"], b["data"],
-                                 b["mask"], norm)
+        lp, lpm, par, theta = fn(m, y, cut(b["theta_mask"]), cut(b["data"]),
+                                 cut(b["mask"]), norm)
         outs = [lp, lpm, theta] + [t for p in par for t in (
             p if isinstance(p, tuple) else (p,))]
         if not grads:
@@ -2368,13 +2383,16 @@ def _op_heads(c, plain, grads=True, mlp=False, fusion=None):
             [y] + list(m.obs.values()) + [m.log_vy_real]))
 
 
-def _op_rep(c, plain, grads=True):
-    from hlax_torch.ops import fusion
+def _op_rep(c, plain, grads=True, fusion=None, rows=None):
+    """``fusion`` and ``rows`` as ``_op_heads``'s."""
+    if fusion is None:
+        from hlax_torch.ops import fusion
 
     m, b = c["vae"], c["batch"]
+    cut = (lambda t: t[:rows]) if rows is not None else (lambda t: t)
     fn = fusion.rep_image_plain if plain else fusion.rep_image
     with torch.set_grad_enabled(grads):
-        img = fn(m, b["data"], b["mask"])
+        img = fn(m, cut(b["data"]), cut(b["mask"]))
         if not grads:
             return [img], []
         ps = list(m.rep_w.values()) + list(m.rep_b.values())
@@ -2470,17 +2488,21 @@ FUSION_OPS_RUN = {"heads": _op_heads, "rep_image": _op_rep,
 # the same kernels on the other main paths' inputs, held to their plain
 # versions but not timed again: the MLP's heads (the real head
 # de-normalized by the batch's moments) and metric, alone and on the mesh
-# path, and the conv model's metric's mesh path over the whole batch
+# path, the conv model's metric's mesh path over the whole batch, and the
+# heads and the representation at a [mesh] rank's rows
 FUSION_OPS_HELD = {
     "heads mlp": functools.partial(_op_heads, mlp=True),
+    "heads mesh": functools.partial(_op_heads, rows=MESH_RANK_ROWS),
+    "rep_image mesh": functools.partial(_op_rep, rows=MESH_RANK_ROWS),
     "recon_metric mlp": functools.partial(_op_recon, mlp=True),
     "recon_metric mesh 400": functools.partial(_op_recon,
                                                sums=_OneRankSums()),
     "recon_metric mlp mesh": functools.partial(_op_recon, mlp=True,
                                                sums=_OneRankSums())}
 # the kernels [fusion] also times with the L2 cold (COLD_BYTES written
-# between launches): the staged reductions and the mesh's finish
-COLD_ENTRIES = ("heads_cat_bwd", "recon_metric", "recon_metric_finish")
+# between launches): the staged kernels and the mesh's finish
+COLD_ENTRIES = ("heads_cat_fwd", "heads_cat_bwd", "rep_image_bwd",
+                "recon_metric", "recon_metric_finish")
 
 
 def _fusion_error(tag, got, plain, ref):
@@ -2748,21 +2770,39 @@ def _gp_against_parent(pf, c, c64, dtype) -> None:
           f"parent / change {p / ch:.2f}x on {card_line()}", flush=True)
 
 
-# the staged reductions' parent-against-change turns: each op and the
-# entries of its launches that are timed (the metric: every launch, the
-# parent's column sums a group and its finish against one)
-STAGED_OPS = (("heads", ("heads_cat_bwd",)),
+# the staged kernels' parent-against-change turns: each op and the entries
+# of its launches that are timed (the metric: every launch, a parent's
+# column sums a group and its finish against one)
+STAGED_OPS = (("heads", ("heads_cat_fwd",)), ("heads", ("heads_cat_bwd",)),
+              ("rep_image", ("rep_image_bwd",)),
               ("recon_metric", ("recon_metric", "recon_metric_finish")))
 
 
+def _bits_against_parent(tag, parent, change) -> None:
+    """Prints whether the change's forward results equal the parent's bit
+    for bit, and where they do not (the bars hold either way)."""
+    diff = []
+    for i, (a, b) in enumerate(zip(parent, change)):
+        if not torch.equal(a, b):
+            n = (a != b).sum().item()
+            err = (a.double() - b.double()).abs().max().item()
+            diff.append(f"result {i} {list(a.shape)}: {n} of {a.numel()} "
+                        f"entries differ, by {err:.3e} at most")
+    print(f"[fusion] {tag}: the change's results "
+          + ("equal the parent's bit for bit" if not diff else
+             "differ from the parent's: " + "; ".join(diff)), flush=True)
+
+
 def _staged_against_parent(pf, c, c64, dtype) -> None:
-    """The parent's cat-head backward and recon metric against the
-    change's at the canonical shapes: the parent's results and gradients
-    held to the change's bars; each op's timed launches together, with the
-    L2 warm and cold (time_ms, time_cold_ms), in turns parent, change,
-    change, parent.  A parent whose wrapper zeroes fresh counters for each
-    launch (``_reduction_scratch``'s fills, before the stream's buffer) has
-    their time printed beside its own."""
+    """The parent's staged kernels (the cat head's forward and backward, the
+    representation's backward, the recon metric) against the change's at
+    the canonical shapes: the parent's results and gradients held to the
+    change's bars, the cat head's forward results compared bit for bit;
+    each op's timed launches together, with the L2 warm and cold (time_ms,
+    time_cold_ms), in turns parent, change, change, parent.  A parent whose
+    wrapper zeroes fresh counters for each launch (``_reduction_scratch``'s
+    fills, before the stream's buffer) has their time printed beside its
+    own."""
     from hlax_torch.ops import fusion
 
     tag = str(dtype).removeprefix("torch.")
@@ -2774,7 +2814,7 @@ def _staged_against_parent(pf, c, c64, dtype) -> None:
         op = FUSION_OPS_RUN[name]
         plain = op(c, True)
         ref = op(c64, True) if c64 is not None else (None, None)
-        runs = {}
+        runs, results = {}, {}
         for who, mod in (("parent", pf), ("change", fusion)):
             calls, orig = [], mod._launch
 
@@ -2792,6 +2832,10 @@ def _staged_against_parent(pf, c, c64, dtype) -> None:
                 _fusion_error(f"{name} {tag} gradients ({who})", g_got,
                               plain[1], ref[1])
             runs[who] = [call for call in calls if call[0] in entries]
+            results[who] = got
+        if "heads_cat_fwd" in entries:
+            _bits_against_parent(f"heads_cat_fwd {tag}", results["parent"],
+                                 results["change"])
         ms = {"parent": [], "change": []}
         for who in ("parent", "change", "change", "parent"):
             mod = pf if who == "parent" else fusion
@@ -2816,6 +2860,178 @@ def _staged_against_parent(pf, c, c64, dtype) -> None:
               f"bars on {card_line()}", flush=True)
     for m, b in before.items():
         m._COUNTERS.take_since(b)
+
+
+# the staged kernels the sweeps time: each one's op and the index of its C
+# entry's batch argument B
+SWEEP_ENTRIES = {"heads_cat_fwd": ("heads", 10), "heads_cat_bwd": ("heads", 18),
+                 "rep_image_bwd": ("rep_image", 9),
+                 "recon_metric": ("recon_metric", 11)}
+# the first rows of the canonical batch the batch sweep takes, and the
+# chunks the chunk sweep cuts the canonical batch into
+SWEEP_ROWS = (50, 100, 200, 400)
+SWEEP_CHUNKS = (1, 2, 4, 8, 16)
+
+
+def _sweep_plan(entry, args, B, z, sms):
+    """The wrapper's plan of ``entry``'s launch ``args`` over ``B`` rows."""
+    from hlax_torch.ops import fusion
+
+    if entry == "heads_cat_fwd":
+        return fusion.heads_cat_fwd_plan(B, args[11], args[18], args[19], z,
+                                         sms)
+    if entry == "heads_cat_bwd":
+        return fusion.heads_cat_bwd_plan(B, args[19], args[26], args[27], z,
+                                         sms)
+    if entry == "rep_image_bwd":
+        return fusion.rep_image_bwd_plan(B, args[10], args[15], z, sms)
+    table = list(args[1])
+    return fusion.metric_plan(B, args[12], [table[7 * k + 2] for k in
+                                           range(args[3])], z, sms, False)
+
+
+def _staged_sweep(c, dtype) -> None:
+    """What bounds the staged kernels' row loops, at the canonical shapes:
+    each kernel's C entry over the first B rows of the canonical batch
+    (SWEEP_ROWS; the rows a chunk of the wrapper's plan for B), timed warm
+    and L2-cold, and a line ms = fixed + bytes / rate fitted through them
+    (bytes as the kernel table counts them: the loop's marginal rate and
+    the fixed cost of a launch: its fill, drain and finish); then the
+    canonical batch cut into SWEEP_CHUNKS chunks (one wave at the plan's,
+    more blocks than an SM takes at once past it).  The launches are not
+    counted."""
+    from hlax_torch.ops import fusion
+
+    tag = str(dtype).removeprefix("torch.")
+    sms = fusion._sm_count(torch.cuda.current_device())
+    calls, orig = {}, fusion._launch
+
+    def record(entry, like, *args):
+        calls.setdefault(entry, (like, args))
+        orig(entry, like, *args)
+
+    before = fusion._COUNTERS.snapshot()
+    fusion._launch = record
+    try:
+        for op in dict.fromkeys(o for o, _ in SWEEP_ENTRIES.values()):
+            FUSION_OPS_RUN[op](c, False)
+    finally:
+        fusion._launch = orig
+    big = torch.empty(1 << 22, dtype=torch.float64, device="cuda")
+    for entry, (_, b_at) in SWEEP_ENTRIES.items():
+        like, args = calls[entry]
+        z = like.element_size()
+
+        def with_rows(B, rows):
+            out = [big if torch.is_tensor(a) and a.dtype == torch.float64
+                   and getattr(a, "_scratch", False) else a for a in args]
+            out[b_at], out[-1] = B, rows
+            return out
+
+        def run(a):
+            return (time_ms(lambda: orig(entry, like, *a))[0],
+                    time_cold_ms(lambda: orig(entry, like, *a)))
+
+        pts, txt = [], []
+        for B in SWEEP_ROWS:
+            plan = _sweep_plan(entry, args, B, z, sms)
+            warm, cold = run(with_rows(B, plan.rows))
+            nbytes = _fusion_shape(entry, like[:B], args)[1]
+            pts.append((nbytes, warm, cold))
+            txt.append(f"B {B} ({plan.chunks} x {plan.rows} rows) {warm:.5f}"
+                       f" / {cold:.5f}")
+        x = np.array([p[0] for p in pts], dtype=np.float64)
+        fits = []
+        for k in (1, 2):
+            slope, icpt = np.polyfit(x, np.array([p[k] for p in pts]), 1)
+            fits.append(f"{1e-9 / slope:.3f} TB/s past a fixed "
+                        f"{icpt * 1e3:.2f} us" if slope > 0 else
+                        "no slope")
+        B = SWEEP_ROWS[-1]
+        chunks = []
+        for n in SWEEP_CHUNKS:
+            rows = -(-B // n)
+            warm, cold = run(with_rows(B, rows))
+            chunks.append(f"{-(-B // rows)} x {rows} rows {warm:.5f} / "
+                          f"{cold:.5f}")
+        print(f"[fusion] sweep {entry} {tag}, ms warm / L2-cold: "
+              + "; ".join(txt) + f"; a line through them: warm {fits[0]}, "
+              f"cold {fits[1]} (the table's bytes at B {B}: "
+              f"{pts[-1][0] / 1e6:.2f} MB, {PEAK_BYTES_PER_S / 1e12} TB/s "
+              f"the card's rate); B {B} in chunks: " + "; ".join(chunks)
+              + f" on {card_line()}", flush=True)
+    fusion._COUNTERS.take_since(before)
+
+
+def _sass_report() -> None:
+    """[sass]: the staged kernels' machine code (cuobjdump -sass of
+    build/libfusion.so): each one's instructions, and its row loops (a
+    backward branch whose body holds cp.async copies, LDGSTS, and no such
+    loop inside it): their instructions by opcode.  The code goes to
+    build/sass/<kernel>.sass.  Not measured without cuobjdump."""
+    import shutil
+
+    from hlax_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = cuda_build.BUILD_DIR / "libfusion.so"
+    if not (os.path.isfile(tool) and lib.is_file()):
+        print(f"[sass] not measured (no {tool} or {lib})", flush=True)
+        return
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode:
+        print(f"[sass] not measured: cuobjdump failed: {res.stderr[-500:]}",
+              flush=True)
+        return
+    out_dir = cuda_build.BUILD_DIR / "sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for part in res.stdout.split("Function : ")[1:]:
+        lines = part.splitlines()
+        name = _kernel_name(lines[0].strip())
+        if name not in STAGED_INSTANCES:
+            continue
+        (out_dir / f"{name.replace('<', '_').replace('>', '').replace(',', '_')}"
+         f".sass").write_text(part)
+        # (address, opcode, text) of each instruction; a branch's target
+        # as an address or a label (.L_x_N:, at the next instruction's)
+        ins, labels = [], {}
+        for line in lines[1:]:
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                labels[m.group(1)] = len(ins)
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                toks = m.group(2).split()
+                toks = toks[1:] if toks and toks[0].startswith("@") else toks
+                ins.append((int(m.group(1), 16),
+                            toks[0].split(".")[0] if toks else "?",
+                            m.group(2)))
+        at = {a: i for i, (a, _, _) in enumerate(ins)}
+        loops = []
+        for i, (_, op, text) in enumerate(ins):
+            if op != "BRA":
+                continue
+            m = re.search(r"`\((\.L_x_\d+)\)|BRA\S*\s+(0x[0-9a-f]+)", text)
+            lo = None if not m else labels.get(m.group(1)) if m.group(1) \
+                else at.get(int(m.group(2), 16))
+            if lo is not None and lo <= i and any(
+                    o == "LDGSTS" for _, o, _ in ins[lo:i + 1]):
+                loops.append((lo, i))
+        inner = [(lo, hi) for lo, hi in loops if not any(
+            (a, b) != (lo, hi) and lo <= a and b <= hi for a, b in loops)]
+        txt = []
+        for lo, hi in sorted(inner, key=lambda l: l[0] - l[1])[:2]:
+            ops = {}
+            for _, op, _ in ins[lo:hi + 1]:
+                ops[op] = ops.get(op, 0) + 1
+            mix = ", ".join(f"{o} {n}" for o, n in
+                            sorted(ops.items(), key=lambda kv: -kv[1]))
+            txt.append(f"a loop of {hi - lo + 1} instructions ({mix})")
+        print(f"[sass] {name}: {len(ins)} instructions; "
+              + ("; ".join(txt) or "no loop of cp.async copies"), flush=True)
 
 
 def _gp_shapes_against_table(c, c64, dtype) -> None:
@@ -2887,6 +3103,7 @@ def phase_fusion(data_dir: str, tmp: str):
 
     ds, spec0, spec1 = canonical_setup(data_dir)
     rows = []
+    _sass_report()
     parent = _parent_fusion()
     for dtype in (torch.float32, torch.float64):
         c = _fusion_case(ds, spec0, spec1, dtype)
@@ -2906,6 +3123,7 @@ def phase_fusion(data_dir: str, tmp: str):
                   flush=True)
             if name in FUSION_OPS_RUN:
                 rows += _time_fused(name, op, c, dtype, errs)
+        _staged_sweep(c, dtype)
         _gp_shapes_against_table(c, c64, dtype)
         if parent is not None:
             _gp_against_parent(parent, c, c64, dtype)

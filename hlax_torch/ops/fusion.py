@@ -51,15 +51,19 @@ KERNEL_DTYPES = (torch.float32, torch.float64)
 HEAD_Y, NCLASS, ANY_NV = 5, 5, 8
 # must match TILE, WARPS, ROWS and MAX_CHUNKS in csrc/fusion.cu: a block's
 # columns and warps, the rows a block of the kernels not redesigned takes,
-# the row chunks of a staged reduction (heads_cat_bwd at the compiled
-# sizes, recon_metric) at most
+# the row chunks of a staged kernel (heads_cat_fwd, heads_cat_bwd and
+# rep_image_bwd at the compiled sizes, recon_metric) at most
 TILE, WARPS, ROWS, MAX_CHUNKS = 32, 8, 16, 16
-# blocks an SM the staged reductions' plans aim at, as many as their
-# launch bounds give them: the heads' backward two in float and one in
-# double (cat_bwd_blocks: 24 double sums a thread in registers), the
-# metric two; a second wave measured slower than fewer, longer chunks.
-# The wrapper reads the card's SM count
+# blocks an SM the staged kernels' plans aim at, as many as their launch
+# bounds give them: the heads' forward and backward two in float and one in
+# double (cat_fwd_blocks: 24 weights a lane in registers; cat_bwd_blocks:
+# 24 double sums a thread), the representation's backward four
+# (REP_BWD_BLOCKS, within MAX_CHUNKS), the metric two; a second wave
+# measured slower than fewer, longer chunks.  The wrapper reads the card's
+# SM count
+CAT_FWD_PER_SM = {4: 2, 8: 1}
 CAT_BWD_PER_SM = {4: 2, 8: 1}
+REP_BWD_PER_SM = 4
 METRIC_PER_SM = 2
 # the GP kernel matrix's limits a launch: components, factors a component,
 # raw parameters, distinct rbf dims (MAX_COMP, MAX_FACT, MAX_PARAM,
@@ -211,10 +215,11 @@ def _reduction_scratch(nv: int, d: int, rows: int, like: torch.Tensor,
 
 
 class ReductionPlan(NamedTuple):
-    """A staged column reduction's grid and scratch: ``tiles`` column tiles
-    of TILE columns by ``chunks`` row chunks of ``rows`` rows (the last one
-    may be shorter), warp w of a block taking rows w, w + WARPS, ... of its
-    chunk; ``part`` doubles of the chunks' partials (none for one chunk),
+    """A staged kernel's grid and scratch: ``tiles`` column tiles of TILE
+    columns by ``chunks`` row chunks of ``rows`` rows (the last one may be
+    shorter), warp w of a block taking rows w, w + WARPS, ... of its chunk;
+    a column reduction's ``part`` doubles of the chunks' partials (none for
+    one chunk, or for the cat head's forward, a map),
     ``counters`` ints of the stream's counter buffer, ``smem`` shared bytes
     a block; for the metric, each group's first tile (``tile0``) and the
     entries the wrapper launches."""
@@ -238,9 +243,31 @@ def row_chunks(B: int, tiles: int, per_sm: int, sms: int) -> Tuple[int, int]:
     return -(-B // rows), rows
 
 
-# stages a warp of the staged reductions' row pipelines (NST in
-# CatBwdSmem and MetricSmem, csrc/fusion.cu)
-CAT_BWD_STAGES, METRIC_STAGES = 3, 4
+# stages a warp of the staged kernels' row pipelines (NST in CatFwdSmem,
+# CatBwdSmem, RepBwdSmem and MetricSmem, csrc/fusion.cu)
+CAT_FWD_STAGES, CAT_BWD_STAGES, REP_BWD_STAGES, METRIC_STAGES = 3, 3, 3, 4
+
+
+def _cat_fwd_smem(itemsize: int, Y: int, C: int) -> int:
+    """heads_cat_fwd_kernel's shared bytes (CatFwdSmem, csrc/fusion.cu):
+    each warp's CAT_FWD_STAGES stages of a row's runs of y, the data and
+    the mask, each with a 16-byte shift, then each warp's one buffer of a
+    row's theta and log_pi runs, each with a 16-byte shift."""
+    v = 16 // itemsize
+    stage = (TILE * Y + v) + (TILE * C + v) + (TILE + v)
+    return WARPS * (CAT_FWD_STAGES * stage + 2 * (TILE * C + v)) * itemsize
+
+
+def _rep_bwd_smem(itemsize: int, C: int) -> int:
+    """rep_image_bwd_kernel's shared bytes (RepBwdSmem, csrc/fusion.cu):
+    each warp's REP_BWD_STAGES stages of a row's runs of the data and the
+    mask, each with a 16-byte shift, and its lanes' image gradients; or
+    after the rows the warps' C + 1 double sums a column (one spare a
+    column)."""
+    v = 16 // itemsize
+    stage = (TILE * C + v) + (TILE + v) + TILE
+    return max(WARPS * REP_BWD_STAGES * stage * itemsize,
+               WARPS * TILE * (C + 2) * 8)
 
 
 def _cat_bwd_smem(itemsize: int, Y: int, C: int) -> int:
@@ -267,6 +294,20 @@ def _metric_smem(itemsize: int, C: int = NCLASS) -> int:
             + TILE * (METRIC_NV + 1) * 8)
 
 
+def heads_cat_fwd_plan(B: int, d: int, Y: int, C: int, itemsize: int,
+                       sms: int) -> ReductionPlan:
+    """The cat head's forward over ``B`` rows of a group of ``d``
+    variables: at the compiled sizes (Y = HEAD_Y, C = NCLASS) the staged
+    map's chunks (CAT_FWD_PER_SM blocks an SM), no scratch; else the
+    run-time kernel's ROWS-row chunks."""
+    tiles = -(-d // TILE)
+    if (Y, C) != (HEAD_Y, NCLASS):
+        return ReductionPlan(tiles, -(-B // ROWS), ROWS, 0, 0, 0)
+    chunks, rows = row_chunks(B, tiles, CAT_FWD_PER_SM[itemsize], sms)
+    return ReductionPlan(tiles, chunks, rows, 0, 0,
+                         _cat_fwd_smem(itemsize, Y, C))
+
+
 def heads_cat_bwd_plan(B: int, d: int, Y: int, C: int, itemsize: int,
                        sms: int) -> ReductionPlan:
     """The cat head's backward over ``B`` rows of a group of ``d``
@@ -284,6 +325,26 @@ def heads_cat_bwd_plan(B: int, d: int, Y: int, C: int, itemsize: int,
     many = chunks > 1
     return ReductionPlan(tiles, chunks, rows, chunks * d * nv if many else 0,
                          tiles if many else 0, _cat_bwd_smem(itemsize, Y, C))
+
+
+def rep_image_bwd_plan(B: int, d: int, C: int, itemsize: int,
+                       sms: int) -> ReductionPlan:
+    """The representation's backward over ``B`` rows of a cat group of
+    ``d`` variables of ``C`` classes: at the compiled C (NCLASS) the staged
+    kernel's chunks (REP_BWD_PER_SM blocks an SM, at most MAX_CHUNKS), the
+    C + 1 sums a variable's partials over several chunks and a counter a
+    tile; else the run-time kernel's ROWS-row chunks and ANY_NV sums a
+    z-slice."""
+    tiles, nv = -(-d // TILE), C + 1
+    if C != NCLASS:
+        z = -(-nv // ANY_NV)
+        chunks = -(-B // ROWS)
+        return ReductionPlan(tiles, chunks, ROWS,
+                             z * chunks * tiles * TILE * ANY_NV, z * tiles, 0)
+    chunks, rows = row_chunks(B, tiles, REP_BWD_PER_SM, sms)
+    many = chunks > 1
+    return ReductionPlan(tiles, chunks, rows, chunks * d * nv if many else 0,
+                         tiles if many else 0, _rep_bwd_smem(itemsize, C))
 
 
 def metric_plan(B: int, n_raw: int, ds, itemsize: int, sms: int,
@@ -373,9 +434,11 @@ class _Heads(torch.autograd.Function):
             w, b = params[2 * k:2 * k + 2]
             logpis.append(torch.empty((B, g.d, g.nclass), dtype=dt,
                                       device=dev))
+            plan = heads_cat_fwd_plan(B, g.d, Y, g.nclass, y.element_size(),
+                                      _sm_count(dev.index))
             _launch("heads_cat_fwd", y, y.element_size(), y, w, b, data,
                     mask, lp, lpm, logpis[-1], theta, B, *_cols(g, geo), Y,
-                    g.nclass)
+                    g.nclass, plan.rows)
         mean = var = None
         if geo.real is not None:
             w, b, *rest = params[2 * len(geo.cats):]
@@ -538,21 +601,23 @@ class _RepImage(torch.autograd.Function):
     def backward(ctx, g_img):
         geo = ctx.geo
         data, mask, perm = ctx.saved_tensors
-        B = data.shape[0]
+        B, dev = data.shape[0], data.device
         g_img = g_img.contiguous()
         grads = []
         for k, g in enumerate(geo.cats):
             if not any(ctx.needs_input_grad[4 + 2 * k:6 + 2 * k]):
                 grads += [None, None]
                 continue
-            dw = torch.empty((g.d, g.nclass), dtype=data.dtype,
-                             device=data.device)
-            db = torch.empty((g.d,), dtype=data.dtype, device=data.device)
-            part, cnt = _reduction_scratch(g.nclass + 1, g.d, B, data,
-                                           g.nclass == NCLASS)
+            dw = torch.empty((g.d, g.nclass), dtype=data.dtype, device=dev)
+            db = torch.empty((g.d,), dtype=data.dtype, device=dev)
+            plan = rep_image_bwd_plan(B, g.d, g.nclass, data.element_size(),
+                                      _sm_count(dev.index))
+            part = _scratch(torch.empty(plan.part, dtype=torch.float64,
+                                        device=dev))[0]
             _launch("rep_image_bwd", data, data.element_size(), data, mask,
-                    perm, g_img, dw, db, part, cnt, B, g.d, g.r0, g.e0,
-                    geo.n_raw, geo.n_exp, g.nclass)
+                    perm, g_img, dw, db, part,
+                    _counters(data, plan.counters), B, g.d, g.r0, g.e0,
+                    geo.n_raw, geo.n_exp, g.nclass, plan.rows)
             grads += [dw, db]
         return (None,) * 4 + tuple(grads)
 

@@ -1295,7 +1295,8 @@ def test_fused_recon_metric_takes_any_layout(gen, conv, mesh):
             _hold(f"recon {last}", a, b)
 
 
-# ---- the staged reductions: heads_cat_bwd at the compiled sizes, the metric
+# ---- the staged kernels: heads_cat_fwd, heads_cat_bwd and rep_image_bwd at
+# the compiled sizes, the metric
 
 # the canonical batch, one row (one chunk), one row past it (a short last
 # chunk)
@@ -1325,12 +1326,13 @@ def _in_float64(params):
 @pytest.mark.parametrize("rows", STAGED_ROWS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_staged_reductions_against_plain_version(gen, dtype, rows):
-    """The cat head's backward at the compiled sizes (dy and every head
-    weight's gradient, under the row-sum and a random cotangent) and the
-    one-launch metric (the last rows padding, either surviving type) at
-    the canonical layout over 400, 1 and 401 rows: float64 to 1e-10,
-    float32 within 4x the plain version's own error against float64; one
-    launch of each, no finish."""
+    """The cat head's forward and backward at the compiled sizes (lp, lpm,
+    theta, log_pi; dy and every head weight's gradient, under the row-sum
+    and a random cotangent), the one-launch metric (the last rows padding,
+    either surviving type) and the representation's backward at the
+    canonical layout over 400, 1 and 401 rows: float64 to 1e-10, float32
+    within 4x the plain version's own error against float64; one launch of
+    each, no finish."""
     from hlax_torch.ops import fusion
 
     model, y, data, mask, tmask = _fusion_case(rows, dtype, gen)
@@ -1344,10 +1346,15 @@ def test_staged_reductions_against_plain_version(gen, dtype, rows):
         outs, grads = _heads_run(model, y, data, mask, tmask, False, cot)
         assert fusion.LAUNCHES["heads_cat_bwd_cuda"] == \
             before["heads_cat_bwd_cuda"] + 1
+        assert fusion.LAUNCHES["heads_cat_fwd_cuda"] == \
+            before["heads_cat_fwd_cuda"] + 1
         p_outs, p_grads = _heads_run(model, y, data, mask, tmask, True, cot)
-        r_grads = [None] * len(grads) if m64 is None else _heads_run(
-            m64, y.double(), data.double(), mask.double(), tmask.double(),
-            True, cot)[1]
+        r_outs, r_grads = ([None] * len(outs), [None] * len(grads)) \
+            if m64 is None else _heads_run(
+                m64, y.double(), data.double(), mask.double(),
+                tmask.double(), True, cot)
+        for i, (a, b, r) in enumerate(zip(outs, p_outs, r_outs)):
+            _hold(f"{cot} output {i}", a, b, r)
         for i, (a, b, r) in enumerate(zip(grads, p_grads, r_grads)):
             _hold(f"{cot} gradient {i}", a, b, r)
     params = _metric_params(model, y, data, mask, tmask)
@@ -1367,6 +1374,23 @@ def test_staged_reductions_against_plain_version(gen, dtype, rows):
             rv.double(), last)
         for a, b, r in zip(got, plain, ref):
             _hold(f"recon {last}", a, b, r)
+    g = torch.randn((rows, 1, 36, 36), generator=gen, device="cuda",
+                    dtype=dtype)
+
+    def rep(m, fn, d, mk):
+        img = fn(m, d, mk)
+        ps = list(m.rep_w.values()) + list(m.rep_b.values())
+        return list(torch.autograd.grad((img * g.to(img.dtype)).sum(), ps))
+
+    before = dict(fusion.LAUNCHES)
+    got = rep(model, fusion.rep_image, data, mask)
+    assert fusion.LAUNCHES["rep_image_bwd_cuda"] == \
+        before["rep_image_bwd_cuda"] + 1
+    plain = rep(model, fusion.rep_image_plain, data, mask)
+    ref = [None] * len(got) if m64 is None else rep(
+        m64, fusion.rep_image_plain, data.double(), mask.double())
+    for i, (a, b, r) in enumerate(zip(got, plain, ref)):
+        _hold(f"representation gradient {i}", a, b, r)
 
 
 @pytest.mark.parametrize("mesh", [False, True])
@@ -1428,10 +1452,11 @@ def test_staged_reductions_at_run_time_sizes(gen, dtype, mesh):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_staged_reductions_replay_bit_for_bit(gen, dtype):
-    """The cat head's backward and the one-launch metric at the canonical
-    shape: two eager calls and two replays of a CUDA graph of a third,
-    all equal to the bit (the sums in a fixed order; the counters zero
-    again after every launch, none filled)."""
+    """The cat head's forward and backward, the representation's backward
+    and the one-launch metric at the canonical shape: two eager calls and
+    two replays of a CUDA graph of a third, all equal to the bit (the sums
+    in a fixed order; the counters zero again after every launch, none
+    filled)."""
     from hlax_torch.ops import fusion
     from hlax_torch.ops.normalization import NormParams
 
@@ -1442,17 +1467,23 @@ def test_staged_reductions_replay_bit_for_bit(gen, dtype):
     w1, w2 = (torch.randn((400, 1296), generator=g, device="cuda",
                           dtype=dtype) for _ in range(2))
     obs = list(model.obs.values())
+    reps = list(model.rep_w.values()) + list(model.rep_b.values())
+    w3 = torch.randn((400, 1, 36, 36), generator=g, device="cuda",
+                     dtype=dtype)
 
     def run():
         yy = y.detach().requires_grad_(True)
-        lp, lpm = fusion.heads_loglik(model, yy, tmask, data, mask,
-                                      NormParams(None, None, None,
-                                                 None))[:2]
+        lp, lpm, _, theta = fusion.heads_loglik(
+            model, yy, tmask, data, mask, NormParams(None, None, None, None))
         grads = torch.autograd.grad([lp, lpm], [yy] + obs, [w1, w2],
                                     allow_unused=True)
         rec = fusion.recon_metric(model.cfg.layout, True, params, data, mask,
                                   rv, "cat")
-        return [t for t in grads if t is not None] + list(rec)
+        img = fusion.rep_image(model, data, mask)
+        g_rep = torch.autograd.grad(img, reps, w3)
+        return ([lp.detach(), lpm.detach(), theta]
+                + [t for t in grads if t is not None] + list(rec)
+                + list(g_rep))
 
     first, second = run(), run()
     side = torch.cuda.Stream()

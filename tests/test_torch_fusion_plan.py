@@ -1,10 +1,12 @@
-"""The staged column reductions' host-side plans (``hlax_torch.ops.fusion``):
-the cat head's backward at the compiled sizes and the recon metric.  Their
-grids cover every (row, column) once, their chunks come in a fixed order,
-their scratch and shared memory fit the H100, the row runs the kernels
-stage split into 16-byte copies and single elements as ``stage_run``
-(csrc/fusion.cu) splits them, and the wrappers launch what their plans say
-with the arguments the C entries take.  CPU only: no card, no JAX."""
+"""The staged kernels' host-side plans (``hlax_torch.ops.fusion``): the cat
+head's forward and backward and the representation's backward at the
+compiled sizes, and the recon metric.  Their grids cover every (row,
+column) once, their chunks come in a fixed order, their scratch and shared
+memory fit the H100 (and mirror the kernels' own layouts in csrc/fusion.cu),
+the row runs the kernels stage split into 16-byte copies and single
+elements as ``stage_run`` (csrc/fusion.cu) splits them, and the wrappers
+launch what their plans say with the arguments the C entries take.  CPU
+only: no card, no JAX."""
 import re
 from pathlib import Path
 
@@ -21,6 +23,9 @@ CSRC = Path(fusion.__file__).resolve().parents[1] / "csrc" / "fusion.cu"
 # batch one row past it, a group of one variable and one past a tile
 CAT_SHAPES = [(400, 972), (400, 324), (1, 972), (401, 972), (400, 1),
               (37, 33), (1, 1)]
+# a rank's rows on [mesh]'s 2 x 2 mesh (10 subjects of 20) and on a 4 x 1
+# NCCL mesh (5 subjects)
+MESH_ROWS = (200, 100)
 
 
 def _blocks(plan, B):
@@ -48,15 +53,7 @@ def test_cat_bwd_plan_covers_every_cell_once(B, d, itemsize):
     assert plan.tiles == -(-d // fusion.TILE)
     assert 1 <= plan.chunks <= fusion.MAX_CHUNKS
     assert plan.chunks == -(-B // plan.rows)
-    seen = np.zeros((B, d), dtype=int)
-    for x in range(plan.tiles):
-        v0 = x * fusion.TILE
-        cols = range(v0, min(d, v0 + fusion.TILE))
-        for warps in _blocks(plan, B):
-            for rows in warps:
-                for r in rows:
-                    seen[r, cols] += 1
-    assert (seen == 1).all()
+    assert (_covered(plan, B, d) == 1).all()
     if plan.chunks > 1:
         top = ((plan.chunks - 1) * d + d - 1) * nv + nv - 1
         assert plan.part == top + 1 and plan.counters == plan.tiles
@@ -94,6 +91,156 @@ def test_cat_bwd_plan_at_run_time_sizes(Y, C):
     assert plan.counters == z * plan.tiles and plan.smem == 0
     assert plan.part == z * plan.chunks * plan.tiles * fusion.TILE * \
         fusion.ANY_NV
+
+
+def _covered(plan, B, d):
+    """How many times the plan's blocks and warps take each (row, variable)
+    of a B x d group."""
+    seen = np.zeros((B, d), dtype=int)
+    for x in range(plan.tiles):
+        v0 = x * fusion.TILE
+        cols = range(v0, min(d, v0 + fusion.TILE))
+        for warps in _blocks(plan, B):
+            for rows in warps:
+                for r in rows:
+                    seen[r, cols] += 1
+    return seen
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("B,d", CAT_SHAPES)
+def test_cat_fwd_plan_covers_every_cell_once(B, d, itemsize):
+    """The cat head's forward, a map: every (row, variable) in exactly one
+    block and warp; chunks within MAX_CHUNKS, each warp a row where the
+    batch allows; no scratch and no counter; the shared bytes of the blocks
+    an SM the plan aims at within 227 KB."""
+    plan = fusion.heads_cat_fwd_plan(B, d, fusion.HEAD_Y, fusion.NCLASS,
+                                     itemsize, SMS)
+    assert plan.tiles == -(-d // fusion.TILE)
+    assert 1 <= plan.chunks <= fusion.MAX_CHUNKS
+    assert plan.chunks == -(-B // plan.rows)
+    assert plan.chunks == 1 or B >= fusion.WARPS * (plan.chunks - 1)
+    assert (_covered(plan, B, d) == 1).all()
+    assert plan.part == 0 and plan.counters == 0
+    assert fusion.CAT_FWD_PER_SM[itemsize] * plan.smem <= SMEM_LIMIT
+    assert plan.launches == ()
+
+
+@pytest.mark.parametrize("B", (400,) + MESH_ROWS)
+def test_cat_fwd_plan_at_the_canonical_shape_and_a_mesh_rank(B):
+    """31 tiles of the 972 cat variables by as many chunks as one wave of
+    two blocks an SM takes in float (8: 248 blocks), one in double (4: 124
+    blocks), at the canonical batch and at a mesh rank's rows: each warp
+    at most ceil(rows / 8) rows; 45,440 and 89,472 shared bytes (the C
+    entry opts in to the double's)."""
+    f32 = fusion.heads_cat_fwd_plan(B, 972, 5, 5, 4, SMS)
+    f64 = fusion.heads_cat_fwd_plan(B, 972, 5, 5, 8, SMS)
+    assert (f32.tiles, f32.chunks, f32.rows) == (31, 8, -(-B // 8))
+    assert (f64.tiles, f64.chunks, f64.rows) == (31, 4, -(-B // 4))
+    assert f32.tiles * f32.chunks <= fusion.CAT_FWD_PER_SM[4] * SMS
+    assert f64.tiles * f64.chunks <= fusion.CAT_FWD_PER_SM[8] * SMS
+    assert (f32.smem, f64.smem) == (45440, 89472)
+
+
+@pytest.mark.parametrize("Y,C", [(3, 5), (5, 7), (5, 3), (1, 2)])
+def test_cat_fwd_plan_at_run_time_sizes(Y, C):
+    """Other Y and C keep the run-time kernel: ROWS-row chunks, no scratch,
+    no dynamic shared memory."""
+    plan = fusion.heads_cat_fwd_plan(37, 33, Y, C, 8, SMS)
+    assert (plan.rows, plan.chunks) == (fusion.ROWS, -(-37 // fusion.ROWS))
+    assert (plan.part, plan.counters, plan.smem) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("B,d", CAT_SHAPES)
+def test_rep_bwd_plan_covers_every_cell_once(B, d, itemsize):
+    """The representation's backward: every (row, variable) in exactly one
+    block and warp; chunks within MAX_CHUNKS; partials (index (chunk d +
+    v)(C + 1) + i) and counters (one a tile) within the scratch, or none
+    for one chunk; the shared bytes of the blocks an SM the plan aims at
+    within 227 KB, and within the 48 KB a block takes without opting in."""
+    C = fusion.NCLASS
+    plan = fusion.rep_image_bwd_plan(B, d, C, itemsize, SMS)
+    assert plan.tiles == -(-d // fusion.TILE)
+    assert 1 <= plan.chunks <= fusion.MAX_CHUNKS
+    assert plan.chunks == -(-B // plan.rows)
+    assert plan.chunks == 1 or B >= fusion.WARPS * (plan.chunks - 1)
+    assert (_covered(plan, B, d) == 1).all()
+    if plan.chunks > 1:
+        top = ((plan.chunks - 1) * d + d - 1) * (C + 1) + C
+        assert plan.part == top + 1 and plan.counters == plan.tiles
+    else:
+        assert plan.part == 0 and plan.counters == 0
+    assert fusion.REP_BWD_PER_SM * plan.smem <= SMEM_LIMIT
+    assert plan.smem <= 48 * 1024
+
+
+@pytest.mark.parametrize("B", (400,) + MESH_ROWS)
+def test_rep_bwd_plan_at_the_canonical_shape_and_a_mesh_rank(B):
+    """31 tiles by MAX_CHUNKS chunks (four blocks an SM would take 17), or
+    at a 4 x 1 rank's 100 rows 13 (a row a warp), the same in float and
+    double: partials of 16 x 972 x 6 doubles at the canonical batch, 0.75
+    MB, where 16-row chunks wrote 25 (1.17 MB); a counter a tile."""
+    chunks = min(fusion.MAX_CHUNKS, -(-B // fusion.WARPS))
+    for itemsize in (4, 8):
+        plan = fusion.rep_image_bwd_plan(B, 972, 5, itemsize, SMS)
+        assert (plan.tiles, plan.chunks) == (31, chunks)
+        assert plan.rows == -(-B // chunks)
+        assert plan.part == chunks * 972 * 6 and plan.counters == 31
+    assert fusion.rep_image_bwd_plan(400, 972, 5, 4, SMS).smem == 22272
+    assert fusion.rep_image_bwd_plan(400, 972, 5, 8, SMS).smem == 43776
+
+
+@pytest.mark.parametrize("C", [2, 3, 7, 8])
+def test_rep_bwd_plan_at_run_time_sizes(C):
+    """Other C keep the run-time kernel: ROWS-row chunks, ANY_NV sums a
+    z-slice, a counter a tile and slice, no dynamic shared memory."""
+    B, d = 37, 33
+    plan = fusion.rep_image_bwd_plan(B, d, C, 8, SMS)
+    z = -(-(C + 1) // fusion.ANY_NV)
+    assert plan.rows == fusion.ROWS and plan.chunks == -(-B // fusion.ROWS)
+    assert plan.counters == z * plan.tiles and plan.smem == 0
+    assert plan.part == z * plan.chunks * plan.tiles * fusion.TILE * \
+        fusion.ANY_NV
+
+
+def _struct_const(struct: str, name: str) -> int:
+    """The value of ``static constexpr int name = <int>;`` in csrc/fusion.cu's
+    struct ``struct``."""
+    body = CSRC.read_text().split(f"struct {struct} {{", 1)[1].split("};")[0]
+    return int(re.search(rf"int {name} = (\d+);", body).group(1))
+
+
+def test_plans_mirror_the_kernels_layouts():
+    """The stages the plans' shared bytes count are the kernels' (NST of
+    each staged kernel's shared-memory struct), and the blocks an SM the
+    plans aim at are what the launch bounds give."""
+    assert _struct_const("CatFwdSmem", "NST") == fusion.CAT_FWD_STAGES
+    assert _struct_const("CatBwdSmem", "NST") == fusion.CAT_BWD_STAGES
+    assert _struct_const("RepBwdSmem", "NST") == fusion.REP_BWD_STAGES
+    assert _struct_const("MetricSmem", "NST") == fusion.METRIC_STAGES
+    src = CSRC.read_text()
+    assert int(re.search(r"constexpr int REP_BWD_BLOCKS = (\d+);",
+                         src).group(1)) == fusion.REP_BWD_PER_SM
+    for fn, per_sm in (("cat_fwd_blocks", fusion.CAT_FWD_PER_SM),
+                       ("cat_bwd_blocks", fusion.CAT_BWD_PER_SM)):
+        body = src.split(f"constexpr int {fn}()", 1)[1].split("}", 1)[0]
+        f, d = re.search(r"sizeof\(T\) == 4 \? (\d+) : (\d+)",
+                         body).groups()
+        assert (int(f), int(d)) == (per_sm[4], per_sm[8])
+
+
+@pytest.mark.parametrize("plan_of", ["cat_fwd", "rep_bwd"])
+def test_new_plans_chunk_order_is_fixed(plan_of):
+    """The chunks are consecutive row ranges in increasing order, a
+    function of the shapes and the SM count alone."""
+    make = (lambda: fusion.heads_cat_fwd_plan(401, 972, 5, 5, 4, SMS)) \
+        if plan_of == "cat_fwd" else \
+        (lambda: fusion.rep_image_bwd_plan(401, 972, 5, 4, SMS))
+    a = make()
+    assert a == make()
+    starts = [warps[0][0] for warps in _blocks(a, 401)]
+    assert starts == sorted(starts) == [k * a.rows for k in range(a.chunks)]
 
 
 def test_chunk_order_is_fixed():
@@ -323,3 +470,61 @@ def test_heads_backward_launches_with_its_plan(recorded, y_dim):
     assert cat[16].numel() == plan.part and cat[17].numel() == plan.counters
     real = calls["heads_real_bwd"]
     assert real[25].numel() == 1 and real[25].dtype == torch.int32
+
+
+def _conv_layout(n_cat, n_real, rows, nclass=5, seed=0):
+    """A float64 conv model on a side x side image of n_cat cat(nclass) and
+    n_real real variables (n_cat + n_real = side^2), and its rows."""
+    from hlax_torch.data.reader import encode_raw
+    from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
+
+    side = int(round((n_cat + n_real) ** 0.5))
+    assert side * side == n_cat + n_real
+    rng = np.random.default_rng(seed)
+    types = ([{"type": "cat", "dim": 1, "nclass": nclass}] * n_cat
+             + [{"type": "real", "dim": 1, "nclass": 1}] * n_real)
+    raw = np.column_stack([rng.integers(0, nclass, rows).astype(float)
+                           if t["type"] == "cat" else rng.random(rows) * 255
+                           for t in types])
+    het = encode_raw(raw, types, miss_mask=np.ones_like(raw))
+    model = HLVAE(HLVAEConfig(layout=het.layout, z_dim=4, h_dims=(8,),
+                              y_dim=5, conv=True, image_side=side),
+                  torch.Generator().manual_seed(seed), "cpu").double()
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)
+    return model, t(het.data), t(het.mask)
+
+
+@pytest.mark.parametrize("y_dim", [5, 3])
+def test_heads_forward_launches_with_its_plan(recorded, y_dim):
+    """The cat head's forward takes its plan's rows (the staged map at
+    y_dim 5, the run-time kernel's ROWS at 3), one launch a cat group."""
+    from hlax_torch.ops.normalization import NormParams
+
+    model, y, data, mask, tmask = _layout(40, 9, 21, y_dim)
+    fusion.heads_loglik(model, y, tmask, data, mask,
+                        NormParams(None, None, None, None))
+    cats = [args for entry, args in recorded if entry == "heads_cat_fwd"]
+    assert len(cats) == 1
+    plan = fusion.heads_cat_fwd_plan(21, 40, y_dim, 5, 8, SMS)
+    assert cats[0][-1] == plan.rows and cats[0][-2] == 5
+    assert cats[0][-3] == y_dim
+    assert plan.rows == (fusion.ROWS if y_dim != 5 else
+                         fusion.row_chunks(21, 2, 1, SMS)[1])
+
+
+@pytest.mark.parametrize("nclass", [5, 3])
+def test_rep_image_backward_launches_with_its_plan(recorded, nclass):
+    """The representation's backward takes its plan's rows, partials and
+    counters (the staged kernel at 5 classes, the run-time kernel at 3),
+    one launch a cat group, after one forward launch a group."""
+    model, data, mask = _conv_layout(40, 24, 21, nclass)
+    img = fusion.rep_image(model, data, mask)
+    params = list(model.rep_w.values()) + list(model.rep_b.values())
+    torch.autograd.grad(img.sum(), params)
+    entries = [entry for entry, _ in recorded]
+    assert entries == ["rep_image_fwd", "rep_image_fwd", "rep_image_bwd"]
+    args = recorded[-1][1]
+    plan = fusion.rep_image_bwd_plan(21, 40, nclass, 8, SMS)
+    assert args[-1] == plan.rows and args[-2] == nclass
+    assert args[7].numel() == plan.part and args[8].numel() == plan.counters
+    assert args[9] == 21 and args[10] == 40
