@@ -30,8 +30,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              spill in the float64 blocked mid kernel, or a spill or a stack
              frame in any of the GP kernel matrix's instantiations
              (GP_INSTANCES) or the staged kernels' (STAGED_INSTANCES: the
-             cat head's forward and backward, the representation's
-             backward and the one-launch recon metric), fails the run.
+             cat and the real head's forward and backward, the
+             representation's backward and the one-launch recon metric),
+             fails the run.
   2. kernels each kernel against its plain version, with the launch plan
              each shape took: the small kernel bit for bit at eleven shapes
              (both compiled sizes, padded and odd n, n up to 48) on random
@@ -102,11 +103,13 @@ Phases (each prints its own lines; any failure exits non-zero):
              loops' by opcode, by cuobjdump); each staged kernel swept
              over the first B rows of the batch and over the rows a chunk
              (a line through ms against bytes: the loop's rate and the
-             launch's fixed cost); the metric's mesh path
-             (column sums, then the finish) at a [mesh] rank's 200 rows;
-             the MLP's heads and metric, and the heads and the
-             representation at a [mesh] rank's rows, held to their plain
-             versions too;
+             launch's fixed cost; the real head's backward from one chunk,
+             a cluster of one, to the portable cluster size, 8); the
+             metric's mesh path (column sums, then
+             the finish) at a [mesh] rank's 200 rows; the MLP's heads (with
+             and without the logvar network) and metric, and the heads and
+             the representation at a [mesh] rank's rows, held to their
+             plain versions too;
              with the parent tree under parent/, its fusion.cu built into
              build/parent/ (its GP kernels' registers, stack frame and
              spill printed) and its GP ops, on its own wrapper, held to
@@ -115,9 +118,10 @@ Phases (each prints its own lines; any failure exits non-zero):
              and counters' memset where the parent's wrapper launches them
              besides its kernels), and the GP kernels' device ms of one
              canonical step of both; the same turns, warm and L2-cold, for
-             the staged kernels: the cat head's forward (its results also
-             compared with the parent's bit for bit) and backward, the
-             representation's backward and the recon metric (a parent's
+             the staged kernels: the cat and the real head's forward (their
+             results also compared with the parent's bit for bit) and
+             backward, the representation's backward and the metric (a
+             parent's
              column sums a group and its finish against one launch); with
              or without it, the canonical specs' compiled GP shapes against
              the table kernel (gp_compiled_shapes) the same way, in turns
@@ -435,12 +439,15 @@ GP_INSTANCES = tuple(
     + [f"gp_bwd_cols_kernel<{t},1,{sh}>" for t, _ in _GP_VEC
        for sh in (0, 1, 2)]
     + [f"gp_bwd_cols_kernel<{t},4,0>" for t, _ in _GP_VEC])
-# the staged kernels' instantiations (csrc/fusion.cu): the cat head's
-# forward and backward, the representation's backward and the one-launch
-# metric at the compiled sizes
+# the staged kernels' instantiations (csrc/fusion.cu): the cat head's and
+# the real head's forward and backward (the real head with and without the
+# logvar network), the representation's backward and the one-launch metric
+# at the compiled sizes
 STAGED_INSTANCES = tuple(
     [f"heads_cat_{d}_kernel<{t},5,5>" for d in ("fwd", "bwd")
      for t in ("float", "double")]
+    + [f"heads_real_{d}_kernel<{t},5,{lv}>" for d in ("fwd", "bwd")
+       for t in ("float", "double") for lv in ("false", "true")]
     + [f"{k}<{t},5>" for k in ("rep_image_bwd_kernel", "recon_metric_kernel")
        for t in ("float", "double")])
 # the kernels that must not spill, by library, and whether a stack frame
@@ -2312,10 +2319,13 @@ FUSION_OPS = {"heads_cat_fwd": 70, "heads_cat_bwd": 175,
 def _fusion_case(ds, spec0, spec1, dtype):
     """The canonical state in ``dtype``, its first batch of 20 subjects and
     the decoder features of the batch's encoder means; the same of an MLP
-    model, with the batch's moments."""
+    model, with the batch's moments, and of an MLP model with the logvar
+    network (D4's types laid out for it: the real group's theta and theta
+    mask twice as wide)."""
     from hlax_torch.data.dataset import gather_batch, stage_dataset
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
     from hlax_torch.ops.normalization import batch_normalization
+    from hlax_torch.types import compile_layout
 
     st, _ = canonical_state(ds, spec0, spec1, dtype)
     staged = stage_dataset(ds, dtype, "cuda")
@@ -2326,15 +2336,27 @@ def _fusion_case(ds, spec0, spec1, dtype):
                             y_dim=5, conv=False),
                 torch.Generator(device="cuda").manual_seed(1),
                 "cuda").to(dtype)
+    lay_lv = compile_layout(ds.layout.types_dict, logvar_network=True)
+    mlp_lv = HLVAE(HLVAEConfig(layout=lay_lv, z_dim=32, h_dims=(500,),
+                               y_dim=5, conv=False, logvar_network=True),
+                   torch.Generator(device="cuda").manual_seed(2),
+                   "cuda").to(dtype)
+    # the theta mask of that layout: each theta column's raw column's mask
+    raw_of = lay_lv.expand_raw_to_theta(
+        np.arange(lay_lv.n_raw, dtype=np.float64)[None])[0]
+    tmask_lv = batch["mask"][:, torch.as_tensor(raw_of, dtype=torch.int64,
+                                                device="cuda")]
     with torch.no_grad():
         mu, _ = st.vae.encode(batch["data"], batch["mask"])
         y = st.vae.decode_y(mu)
         y_mlp = mlp.decode_y(mlp.encode(batch["data"], batch["mask"])[0])
+        y_lv = mlp_lv.decode_y(mlp_lv.encode(batch["data"],
+                                             batch["mask"])[0])
     _, norm = batch_normalization(batch["data"], batch["mask"], ds.layout,
                                   False)
     return dict(vae=st.vae, k0=st.k0, k1=st.k1, zt=st.zt, batch=batch, y=y,
                 specs=(spec0, spec1), mlp=mlp, y_mlp=y_mlp,
-                norm_mlp=norm)
+                norm_mlp=norm, mlp_lv=mlp_lv, y_lv=y_lv, tmask_lv=tmask_lv)
 
 
 def _case_in_float64(c):
@@ -2348,7 +2370,9 @@ def _case_in_float64(c):
                 batch={k: d(v) for k, v in c["batch"].items()},
                 specs=c["specs"], mlp=copy.deepcopy(c["mlp"]).double(),
                 y_mlp=d(c["y_mlp"]),
-                norm_mlp=type(c["norm_mlp"])(*map(d, c["norm_mlp"])))
+                norm_mlp=type(c["norm_mlp"])(*map(d, c["norm_mlp"])),
+                mlp_lv=copy.deepcopy(c["mlp_lv"]).double(),
+                y_lv=d(c["y_lv"]), tmask_lv=d(c["tmask_lv"]))
 
 
 def _cotangent(shape, dtype):
@@ -2357,30 +2381,36 @@ def _cotangent(shape, dtype):
 
 
 def _op_heads(c, plain, grads=True, mlp=False, fusion=None, rows=None):
-    """``fusion``: the module whose op runs (the parent tree's in
-    ``_staged_against_parent``), else hlax_torch.ops.fusion; ``rows``: the
-    batch's first rows only (a mesh rank's batch)."""
+    """``mlp``: the MLP model's heads, or "logvar" those of the MLP model
+    with the logvar network; ``fusion``: the module whose op runs (the
+    parent tree's in ``_staged_against_parent``), else
+    hlax_torch.ops.fusion; ``rows``: the batch's first rows only (a mesh
+    rank's batch)."""
     if fusion is None:
         from hlax_torch.ops import fusion
     from hlax_torch.ops.normalization import NormParams
 
-    m, b = c["mlp" if mlp else "vae"], c["batch"]
+    b = c["batch"]
+    m, y0, tmask = {False: (c["vae"], c["y"], b["theta_mask"]),
+                    True: (c["mlp"], c["y_mlp"], b["theta_mask"]),
+                    "logvar": (c["mlp_lv"], c["y_lv"], c["tmask_lv"])}[mlp]
     cut = (lambda t: t[:rows]) if rows is not None else (lambda t: t)
-    y = cut(c["y_mlp" if mlp else "y"]).detach().clone().requires_grad_(
-        grads)
+    y = cut(y0).detach().clone().requires_grad_(grads)
     norm = c["norm_mlp"] if mlp else NormParams(None, None, None, None)
     fn = fusion.heads_loglik_plain if plain else fusion.heads_loglik
     with torch.set_grad_enabled(grads):
-        lp, lpm, par, theta = fn(m, y, cut(b["theta_mask"]), cut(b["data"]),
+        lp, lpm, par, theta = fn(m, y, cut(tmask), cut(b["data"]),
                                  cut(b["mask"]), norm)
         outs = [lp, lpm, theta] + [t for p in par for t in (
             p if isinstance(p, tuple) else (p,))]
         if not grads:
             return outs, []
-        # the train step's cotangent: the row sums of the nll
+        # the train step's cotangent: the row sums of the nll (the logvar
+        # network's model has no log_vy)
         return outs, list(torch.autograd.grad(
             -lp.sum(dim=1).sum(),
-            [y] + list(m.obs.values()) + [m.log_vy_real]))
+            [y] + list(m.obs.values())
+            + [p for p in (m.log_vy_real,) if p is not None]))
 
 
 def _op_rep(c, plain, grads=True, fusion=None, rows=None):
@@ -2487,11 +2517,15 @@ FUSION_OPS_RUN = {"heads": _op_heads, "rep_image": _op_rep,
                      ("K0xz", "K0zz", "K1_st", "K0_st")}}
 # the same kernels on the other main paths' inputs, held to their plain
 # versions but not timed again: the MLP's heads (the real head
-# de-normalized by the batch's moments) and metric, alone and on the mesh
-# path, the conv model's metric's mesh path over the whole batch, and the
-# heads and the representation at a [mesh] rank's rows
+# de-normalized by the batch's moments; with and without the logvar
+# network) and metric, alone and on the mesh path, the conv model's
+# metric's mesh path over the whole batch, and the heads and the
+# representation at a [mesh] rank's rows
 FUSION_OPS_HELD = {
     "heads mlp": functools.partial(_op_heads, mlp=True),
+    # the real head's logvar-network kernels (LV = true) at the canonical
+    # width
+    "heads mlp logvar": functools.partial(_op_heads, mlp="logvar"),
     "heads mesh": functools.partial(_op_heads, rows=MESH_RANK_ROWS),
     "rep_image mesh": functools.partial(_op_rep, rows=MESH_RANK_ROWS),
     "recon_metric mlp": functools.partial(_op_recon, mlp=True),
@@ -2501,8 +2535,9 @@ FUSION_OPS_HELD = {
                                                sums=_OneRankSums())}
 # the kernels [fusion] also times with the L2 cold (COLD_BYTES written
 # between launches): the staged kernels and the mesh's finish
-COLD_ENTRIES = ("heads_cat_fwd", "heads_cat_bwd", "rep_image_bwd",
-                "recon_metric", "recon_metric_finish")
+COLD_ENTRIES = ("heads_cat_fwd", "heads_cat_bwd", "heads_real_fwd",
+                "heads_real_bwd", "rep_image_bwd", "recon_metric",
+                "recon_metric_finish")
 
 
 def _fusion_error(tag, got, plain, ref):
@@ -2774,6 +2809,7 @@ def _gp_against_parent(pf, c, c64, dtype) -> None:
 # of its launches that are timed (the metric: every launch, a parent's
 # column sums a group and its finish against one)
 STAGED_OPS = (("heads", ("heads_cat_fwd",)), ("heads", ("heads_cat_bwd",)),
+              ("heads", ("heads_real_fwd",)), ("heads", ("heads_real_bwd",)),
               ("rep_image", ("rep_image_bwd",)),
               ("recon_metric", ("recon_metric", "recon_metric_finish")))
 
@@ -2794,10 +2830,11 @@ def _bits_against_parent(tag, parent, change) -> None:
 
 
 def _staged_against_parent(pf, c, c64, dtype) -> None:
-    """The parent's staged kernels (the cat head's forward and backward, the
-    representation's backward, the recon metric) against the change's at
-    the canonical shapes: the parent's results and gradients held to the
-    change's bars, the cat head's forward results compared bit for bit;
+    """The parent's staged kernels (the cat and the real head's forward and
+    backward, the representation's backward, the recon metric) against the
+    change's at the canonical shapes: the parent's results and gradients
+    held to the change's bars, the heads' forward results (with the cat
+    head's or the real head's launches timed) compared bit for bit;
     each op's timed launches together, with the L2 warm and cold (time_ms,
     time_cold_ms), in turns parent, change, change, parent.  A parent whose
     wrapper zeroes fresh counters for each launch (``_reduction_scratch``'s
@@ -2833,8 +2870,8 @@ def _staged_against_parent(pf, c, c64, dtype) -> None:
                               plain[1], ref[1])
             runs[who] = [call for call in calls if call[0] in entries]
             results[who] = got
-        if "heads_cat_fwd" in entries:
-            _bits_against_parent(f"heads_cat_fwd {tag}", results["parent"],
+        if entries[0] in ("heads_cat_fwd", "heads_real_fwd"):
+            _bits_against_parent(f"{entries[0]} {tag}", results["parent"],
                                  results["change"])
         ms = {"parent": [], "change": []}
         for who in ("parent", "change", "change", "parent"):
@@ -2865,10 +2902,12 @@ def _staged_against_parent(pf, c, c64, dtype) -> None:
 # the staged kernels the sweeps time: each one's op and the index of its C
 # entry's batch argument B
 SWEEP_ENTRIES = {"heads_cat_fwd": ("heads", 10), "heads_cat_bwd": ("heads", 18),
+                 "heads_real_fwd": ("heads", 16),
+                 "heads_real_bwd": ("heads", 26),
                  "rep_image_bwd": ("rep_image", 9),
                  "recon_metric": ("recon_metric", 11)}
 # the first rows of the canonical batch the batch sweep takes, and the
-# chunks the chunk sweep cuts the canonical batch into
+# chunks the chunk sweep cuts the canonical batch into (and the plan's)
 SWEEP_ROWS = (50, 100, 200, 400)
 SWEEP_CHUNKS = (1, 2, 4, 8, 16)
 
@@ -2883,6 +2922,12 @@ def _sweep_plan(entry, args, B, z, sms):
     if entry == "heads_cat_bwd":
         return fusion.heads_cat_bwd_plan(B, args[19], args[26], args[27], z,
                                          sms)
+    if entry == "heads_real_fwd":
+        return fusion.heads_real_fwd_plan(B, args[17], args[24],
+                                          bool(args[25]), z, sms)
+    if entry == "heads_real_bwd":
+        return fusion.heads_real_bwd_plan(B, args[27], args[34],
+                                          bool(args[35]), z, sms)
     if entry == "rep_image_bwd":
         return fusion.rep_image_bwd_plan(B, args[10], args[15], z, sms)
     table = list(args[1])
@@ -2949,7 +2994,12 @@ def _staged_sweep(c, dtype) -> None:
                         "no slope")
         B = SWEEP_ROWS[-1]
         chunks = []
-        for n in SWEEP_CHUNKS:
+        # the sweep's counts and the plan's own (the real head's forward
+        # takes more chunks than MAX_CHUNKS, its backward's clusters at most
+        # MAX_CLUSTER)
+        most = fusion.MAX_CLUSTER if entry == "heads_real_bwd" else B
+        for n in sorted({n for n in SWEEP_CHUNKS if n <= most}
+                        | {_sweep_plan(entry, args, B, z, sms).chunks}):
             rows = -(-B // n)
             warm, cold = run(with_rows(B, rows))
             chunks.append(f"{-(-B // rows)} x {rows} rows {warm:.5f} / "

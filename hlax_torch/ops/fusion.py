@@ -50,19 +50,31 @@ KERNEL_DTYPES = (torch.float32, torch.float64)
 # sums go ANY_NV a block along the grid's z
 HEAD_Y, NCLASS, ANY_NV = 5, 5, 8
 # must match TILE, WARPS, ROWS and MAX_CHUNKS in csrc/fusion.cu: a block's
-# columns and warps, the rows a block of the kernels not redesigned takes,
-# the row chunks of a staged kernel (heads_cat_fwd, heads_cat_bwd and
+# columns and warps, the rows a block of the run-time-size kernels (and of
+# rep_image_fwd) takes, the row chunks of a staged kernel (the heads and
 # rep_image_bwd at the compiled sizes, recon_metric) at most
 TILE, WARPS, ROWS, MAX_CHUNKS = 32, 8, 16, 16
+# the row chunks of the real head's backward at most, a tile's chunks being
+# one thread-block cluster: the portable cluster size (MAX_CLUSTER in
+# csrc/fusion.cu)
+MAX_CLUSTER = 8
 # blocks an SM the staged kernels' plans aim at, as many as their launch
-# bounds give them: the heads' forward and backward two in float and one in
-# double (cat_fwd_blocks: 24 weights a lane in registers; cat_bwd_blocks:
+# bounds give them: the cat head's forward and backward two in float and one
+# in double (cat_fwd_blocks: 24 weights a lane in registers; cat_bwd_blocks:
 # 24 double sums a thread), the representation's backward four
 # (REP_BWD_BLOCKS, within MAX_CHUNKS), the metric two; a second wave
-# measured slower than fewer, longer chunks.  The wrapper reads the card's
-# SM count
+# measured slower than fewer, longer chunks.  The real head's forward four
+# in float, three with the logvar network and in double, two in double with
+# it (real_fwd_blocks), by (itemsize, logvar network), in as many chunks as
+# leave each warp a row (a map, its rows latency-bound), and its backward one
+# block of REAL_BWD_WARPS warps (real_bwd_warps).  The wrapper reads the
+# card's SM count
 CAT_FWD_PER_SM = {4: 2, 8: 1}
 CAT_BWD_PER_SM = {4: 2, 8: 1}
+REAL_FWD_PER_SM = {(4, False): 4, (4, True): 3, (8, False): 3, (8, True): 2}
+REAL_BWD_PER_SM = 1
+REAL_BWD_WARPS = {(4, False): 16, (4, True): 16, (8, False): 16,
+                  (8, True): 8}
 REP_BWD_PER_SM = 4
 METRIC_PER_SM = 2
 # the GP kernel matrix's limits a launch: components, factors a component,
@@ -200,29 +212,18 @@ def _scratch(*tensors):
     return tensors
 
 
-def _reduction_scratch(nv: int, d: int, rows: int, like: torch.Tensor,
-                       fixed: bool):
-    """(partials, counters) of a column reduction of the kernels not
-    redesigned: ``nv`` sums a column over ``d`` columns of ``rows`` rows,
-    in one block (``fixed``, the compiled sizes) or ANY_NV a block along z;
-    one double partial a chunk, column and sum, one counter a column tile
-    and z-slice, from the stream's counter buffer."""
-    na, z = (nv, 1) if fixed else (ANY_NV, -(-nv // ANY_NV))
-    chunks, tiles = -(-rows // ROWS), -(-d // TILE)
-    return (_scratch(torch.empty(z * chunks * tiles * TILE * na,
-                                 dtype=torch.float64, device=like.device))[0],
-            _counters(like, z * tiles))
-
-
 class ReductionPlan(NamedTuple):
     """A staged kernel's grid and scratch: ``tiles`` column tiles of TILE
     columns by ``chunks`` row chunks of ``rows`` rows (the last one may be
     shorter), warp w of a block taking rows w, w + WARPS, ... of its chunk;
-    a column reduction's ``part`` doubles of the chunks' partials (none for
-    one chunk, or for the cat head's forward, a map),
-    ``counters`` ints of the stream's counter buffer, ``smem`` shared bytes
-    a block; for the metric, each group's first tile (``tile0``) and the
-    entries the wrapper launches."""
+    a column reduction's ``part`` doubles of the chunks' partials in
+    global memory (none for one chunk, for a map, or for a reduction whose
+    chunks meet in a cluster), ``counters`` ints of the stream's counter
+    buffer, ``smem`` shared bytes a block; for the metric, each group's
+    first tile (``tile0``) and the entries the wrapper launches; for the
+    real head's backward, the blocks a thread-block cluster (``cluster``: a
+    tile's chunks; 0 for a launch without clusters); ``warps`` a block, warp
+    w taking rows w, w + warps, ... of its chunk."""
     tiles: int
     chunks: int
     rows: int
@@ -231,21 +232,26 @@ class ReductionPlan(NamedTuple):
     smem: int
     tile0: Tuple[int, ...] = ()
     launches: Tuple[str, ...] = ()
+    cluster: int = 0
+    warps: int = WARPS
 
 
-def row_chunks(B: int, tiles: int, per_sm: int, sms: int) -> Tuple[int, int]:
+def row_chunks(B: int, tiles: int, per_sm: int, sms: int,
+               most: int = MAX_CHUNKS) -> Tuple[int, int]:
     """(chunks, rows a chunk) of ``B`` rows for a grid of ``tiles`` column
     tiles: as many chunks as ``per_sm`` blocks an SM of ``sms`` take in one
-    wave, at most MAX_CHUNKS and no more than leave each warp a row, then
+    wave, at most ``most`` and no more than leave each warp a row, then
     the rows spread evenly over them."""
-    n = max(1, min(per_sm * sms // tiles, MAX_CHUNKS, -(-B // WARPS)))
+    n = max(1, min(per_sm * sms // tiles, most, -(-B // WARPS)))
     rows = -(-B // n)
     return -(-B // rows), rows
 
 
 # stages a warp of the staged kernels' row pipelines (NST in CatFwdSmem,
-# CatBwdSmem, RepBwdSmem and MetricSmem, csrc/fusion.cu)
+# CatBwdSmem, RealFwdSmem, RealBwdSmem, RepBwdSmem and MetricSmem,
+# csrc/fusion.cu)
 CAT_FWD_STAGES, CAT_BWD_STAGES, REP_BWD_STAGES, METRIC_STAGES = 3, 3, 3, 4
+REAL_FWD_STAGES, REAL_BWD_STAGES = 3, 4
 
 
 def _cat_fwd_smem(itemsize: int, Y: int, C: int) -> int:
@@ -256,6 +262,32 @@ def _cat_fwd_smem(itemsize: int, Y: int, C: int) -> int:
     v = 16 // itemsize
     stage = (TILE * Y + v) + (TILE * C + v) + (TILE + v)
     return WARPS * (CAT_FWD_STAGES * stage + 2 * (TILE * C + v)) * itemsize
+
+
+def _real_fwd_smem(itemsize: int, Y: int) -> int:
+    """heads_real_fwd_kernel's shared bytes (RealFwdSmem, csrc/fusion.cu):
+    each warp's REAL_FWD_STAGES stages of a row's runs of y, the data and
+    the mask, each with a 16-byte shift."""
+    v = 16 // itemsize
+    return WARPS * REAL_FWD_STAGES * ((TILE * Y + v) + 2 * (TILE + v)) \
+        * itemsize
+
+
+def _real_bwd_smem(itemsize: int, Y: int, logvar: bool) -> int:
+    """heads_real_bwd_kernel's shared bytes (RealBwdSmem, csrc/fusion.cu):
+    each of its REAL_BWD_WARPS warps' REAL_BWD_STAGES stages of a row's runs
+    of y, the data, the mask and the theta mask (two runs with the logvar
+    network), each with a 16-byte shift, and its lanes' two cotangents; or
+    after the rows the warps' NV double sums a column (one spare a
+    column), NV = 2 Y + 2 with the logvar network, else Y + 2; then, apart,
+    rank 0's slots for every rank's partials, MAX_CLUSTER x TILE x NV
+    doubles."""
+    v, nv = 16 // itemsize, (2 * Y + 2 if logvar else Y + 2)
+    w = REAL_BWD_WARPS[itemsize, logvar]
+    stage = (TILE * Y + v) + (4 if logvar else 3) * (TILE + v) + 2 * TILE
+    return (max(w * REAL_BWD_STAGES * stage * itemsize,
+                w * TILE * (nv + 1) * 8)
+            + MAX_CLUSTER * TILE * nv * 8)
 
 
 def _rep_bwd_smem(itemsize: int, C: int) -> int:
@@ -325,6 +357,44 @@ def heads_cat_bwd_plan(B: int, d: int, Y: int, C: int, itemsize: int,
     many = chunks > 1
     return ReductionPlan(tiles, chunks, rows, chunks * d * nv if many else 0,
                          tiles if many else 0, _cat_bwd_smem(itemsize, Y, C))
+
+
+def heads_real_fwd_plan(B: int, d: int, Y: int, logvar: bool, itemsize: int,
+                        sms: int) -> ReductionPlan:
+    """The real head's forward over ``B`` rows of a group of ``d``
+    variables (with the logvar network, ``logvar``): at the compiled Y
+    (HEAD_Y) the staged map's chunks (REAL_FWD_PER_SM blocks an SM, as many
+    chunks as leave each warp a row: a map has no partials to bound them),
+    no scratch; else the run-time kernel's ROWS-row chunks."""
+    tiles = -(-d // TILE)
+    if Y != HEAD_Y:
+        return ReductionPlan(tiles, -(-B // ROWS), ROWS, 0, 0, 0)
+    chunks, rows = row_chunks(B, tiles, REAL_FWD_PER_SM[itemsize, logvar],
+                              sms, B)
+    return ReductionPlan(tiles, chunks, rows, 0, 0,
+                         _real_fwd_smem(itemsize, Y))
+
+
+def heads_real_bwd_plan(B: int, d: int, Y: int, logvar: bool, itemsize: int,
+                        sms: int) -> ReductionPlan:
+    """The real head's backward over ``B`` rows of a group of ``d``
+    variables (NV sums a variable: Y + 2, or 2 Y + 2 with the logvar
+    network): at the compiled Y (HEAD_Y) the staged kernel's chunks (one
+    block of REAL_BWD_WARPS warps an SM, at most MAX_CLUSTER chunks), a
+    tile's chunks one cluster that adds their partials in its blocks'
+    shared memory: no scratch, no counter; else the run-time kernel's
+    ROWS-row chunks, ANY_NV sums a z-slice, their partials and a counter a
+    tile and slice."""
+    tiles, nv = -(-d // TILE), (2 * Y + 2 if logvar else Y + 2)
+    if Y != HEAD_Y:
+        z = -(-nv // ANY_NV)
+        chunks = -(-B // ROWS)
+        return ReductionPlan(tiles, chunks, ROWS,
+                             z * chunks * tiles * TILE * ANY_NV, z * tiles, 0)
+    chunks, rows = row_chunks(B, tiles, REAL_BWD_PER_SM, sms, MAX_CLUSTER)
+    return ReductionPlan(tiles, chunks, rows, 0, 0,
+                         _real_bwd_smem(itemsize, Y, logvar), cluster=chunks,
+                         warps=REAL_BWD_WARPS[itemsize, logvar])
 
 
 def rep_image_bwd_plan(B: int, d: int, C: int, itemsize: int,
@@ -448,10 +518,13 @@ class _Heads(torch.autograd.Function):
             mean = torch.empty((B, g.d), dtype=dt, device=dev)
             var = torch.empty((B, g.d) if hc.logvar else (g.d,), dtype=dt,
                               device=dev)
+            plan = heads_real_fwd_plan(B, g.d, Y, hc.logvar,
+                                       y.element_size(),
+                                       _sm_count(dev.index))
             _launch("heads_real_fwd", y, y.element_size(), y, w, b, wv, bv,
                     logvy, nmean, nvar, data, mask, lp, lpm, mean, var,
                     theta, B, *_cols(g, geo), Y, int(hc.logvar),
-                    int(hc.conv))
+                    int(hc.conv), plan.rows)
         ctx.hc = hc
         ctx.save_for_backward(y, data, mask, tmask, nmean, nvar, *params)
         ctx.set_materialize_grads(False)
@@ -493,13 +566,18 @@ class _Heads(torch.autograd.Function):
                 wv = bv = dwv = dbv = None
                 logvy, dlv = rest[0], drest[0]
             g = geo.real
-            part, cnt = _reduction_scratch(
-                (2 * Y + 2) if hc.logvar else (Y + 2), g.d, B, y,
-                Y == HEAD_Y)
+            plan = heads_real_bwd_plan(B, g.d, Y, hc.logvar,
+                                       y.element_size(), sms)
+            # the compiled Y's chunks meet in their cluster: no scratch
+            part = _scratch(torch.empty(plan.part, dtype=torch.float64,
+                                        device=y.device))[0] \
+                if plan.part else None
+            cnt = _counters(y, plan.counters) if plan.counters else None
             _launch("heads_real_bwd", y, y.element_size(), y, w, b, wv, bv,
                     logvy, nmean, nvar, data, mask, tmask, g_lp, g_lpm,
                     *strides, dy, dw, db, dwv, dbv, dlv, part, cnt, B,
-                    *_cols(g, geo), Y, int(hc.logvar), int(hc.conv))
+                    *_cols(g, geo), Y, int(hc.logvar), int(hc.conv),
+                    plan.rows)
         return (dy,) + (None,) * 6 + tuple(dparams)
 
 

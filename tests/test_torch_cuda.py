@@ -1230,6 +1230,74 @@ def test_fused_heads_take_any_layout(gen, conv, y_dim, logvar):
             _hold(f"gradient {i}", a, b)
 
 
+# the staged real head's cases: (cat variables before the real group, real
+# variables, rows, SMs the plans see, conv).  37 cat variables put the real
+# group's first column off a 16-byte boundary and 45 (1259) real ones leave
+# a ragged last tile; one SM makes the plans one chunk, a cluster of one
+# (the conv model on a 36 x 36 image); 5 rows leave most warps of a block
+# without a row; 40 and 64 are aligned whole tiles in clusters of the
+# plan's 8 chunks
+REAL_CASES = [(37, 45, 61, None, False), (37, 1259, 61, 1, True),
+              (40, 64, 5, None, False), (40, 64, 400, None, False)]
+
+
+@pytest.mark.parametrize("cot", ["row sums", "random"])
+@pytest.mark.parametrize("logvar", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", REAL_CASES)
+def test_staged_real_heads_against_plain_version(gen, monkeypatch, case,
+                                                 dtype, logvar, cot):
+    """The real head's staged forward and cluster-finished backward (y_dim
+    5) on a group off a 16-byte boundary with a ragged last tile, in one
+    chunk, on fewer rows than a block's warps and on aligned whole tiles,
+    with and without the logvar network (the MLP's batch moments; the conv
+    model's sigmoid): one launch each way, the plan's chunks; float64
+    against the plain version to 1e-10, float32 within 4x the plain
+    version's own error against float64."""
+    from hlax_torch.ops import fusion
+
+    n_cat, n_real, rows, sms, conv = case
+    if sms is not None:
+        monkeypatch.setattr(fusion, "_sm_count", lambda index: sms)
+    m64, y64, d64, k64, t64 = _layout_case(_cat(n_cat, 5) + _real(n_real),
+                                           rows, conv, 5, logvar, 7)
+    plan = fusion.heads_real_bwd_plan(rows, n_real, 5, logvar,
+                                      dtype.itemsize, fusion._sm_count(0))
+    assert plan.cluster == (1 if sms == 1 else min(8, -(-rows // 8)))
+
+    def run(model, y, data, mask, tmask, fn):
+        norm = _moments(model, data, mask)
+        yy = y.detach().clone().requires_grad_(True)
+        lp, lpm, par, theta = fn(model, yy, tmask, data, mask, norm)
+        if cot == "row sums":
+            loss = -lp.sum(dim=1).sum()
+        else:
+            w = torch.randn(lp.shape, generator=torch.Generator(
+                "cuda").manual_seed(5), device="cuda", dtype=torch.float64)
+            loss = (lp * w.to(lp.dtype)).sum() + (lpm * w.to(lp.dtype)).sum()
+        ps = [yy] + list(model.obs.values()) + (
+            [] if logvar else [model.log_vy_real])
+        grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        outs = [lp, lpm, theta] + list(par[-1])
+        return [t.detach() for t in outs] + [g for g in grads
+                                             if g is not None]
+
+    import copy
+    model = copy.deepcopy(m64).to(dtype)
+    args = [t.to(dtype) for t in (y64, d64, k64, t64)]
+    before = dict(fusion.LAUNCHES)
+    got = run(model, *args, fusion.heads_loglik)
+    torch.cuda.synchronize()
+    for k in ("heads_real_fwd_cuda", "heads_real_bwd_cuda"):
+        assert fusion.LAUNCHES[k] == before[k] + 1, k
+    plain = run(model, *args, fusion.heads_loglik_plain)
+    assert len(got) == len(plain)
+    ref = run(m64, y64, d64, k64, t64, fusion.heads_loglik_plain) \
+        if dtype == torch.float32 else [None] * len(got)
+    for i, (a, b, r) in enumerate(zip(got, plain, ref)):
+        _hold(f"result {i}", a, b, r)
+
+
 def test_fused_rep_image_takes_any_layout(gen):
     """The representation kernels on cat groups of 3 and 7 classes beside
     the real group: float64 against the plain version to 1e-10."""
@@ -1452,11 +1520,12 @@ def test_staged_reductions_at_run_time_sizes(gen, dtype, mesh):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_staged_reductions_replay_bit_for_bit(gen, dtype):
-    """The cat head's forward and backward, the representation's backward
-    and the one-launch metric at the canonical shape: two eager calls and
-    two replays of a CUDA graph of a third, all equal to the bit (the sums
-    in a fixed order; the counters zero again after every launch, none
-    filled)."""
+    """The cat and the real head's forward and backward (the real
+    backward's clusters captured as any launch), the representation's
+    backward and the one-launch metric at the canonical shape: two eager
+    calls and two replays of a CUDA graph of a third, all equal to the bit
+    (the sums in a fixed order; the counters zero again after every
+    launch, none filled)."""
     from hlax_torch.ops import fusion
     from hlax_torch.ops.normalization import NormParams
 

@@ -1,6 +1,6 @@
 """The staged kernels' host-side plans (``hlax_torch.ops.fusion``): the cat
-head's forward and backward and the representation's backward at the
-compiled sizes, and the recon metric.  Their grids cover every (row,
+and the real head's forward and backward and the representation's backward
+at the compiled sizes, and the recon metric.  Their grids cover every (row,
 column) once, their chunks come in a fixed order, their scratch and shared
 memory fit the H100 (and mirror the kernels' own layouts in csrc/fusion.cu),
 the row runs the kernels stage split into 16-byte copies and single
@@ -26,17 +26,22 @@ CAT_SHAPES = [(400, 972), (400, 324), (1, 972), (401, 972), (400, 1),
 # a rank's rows on [mesh]'s 2 x 2 mesh (10 subjects of 20) and on a 4 x 1
 # NCCL mesh (5 subjects)
 MESH_ROWS = (200, 100)
+# (B, d) of a real group: the canonical batch over D4's real quadrant, one
+# row, a batch one row past it, a group of one variable and one past a
+# tile, fewer rows than a block's warps, a wide group
+REAL_SHAPES = [(400, 324), (1, 324), (401, 324), (400, 1), (37, 33), (5, 45),
+               (1, 1), (400, 1296)]
 
 
 def _blocks(plan, B):
     """The row range of each of the plan's chunks, as a block of the
-    kernel walks it: warp w takes rows w, w + WARPS, ... of [y rows,
+    kernel walks it: warp w takes rows w, w + warps, ... of [y rows,
     min(B, (y + 1) rows))."""
     out = []
     for y in range(plan.chunks):
         lo, hi = y * plan.rows, min(B, (y + 1) * plan.rows)
-        out.append([list(range(lo + w, hi, fusion.WARPS))
-                    for w in range(fusion.WARPS)])
+        out.append([list(range(lo + w, hi, plan.warps))
+                    for w in range(plan.warps)])
     return out
 
 
@@ -204,6 +209,107 @@ def test_rep_bwd_plan_at_run_time_sizes(C):
         fusion.ANY_NV
 
 
+@pytest.mark.parametrize("logvar", [False, True])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("B,d", REAL_SHAPES)
+def test_real_fwd_plan_covers_every_cell_once(B, d, itemsize, logvar):
+    """The real head's forward, a map: every (row, variable) in exactly one
+    block and warp; no more chunks than one wave of the blocks an SM its
+    launch bounds give (but one) or than leave each warp a row; no scratch,
+    no counter, no cluster; the shared bytes of the blocks an SM the plan
+    aims at within 227 KB, and within the 48 KB a block takes without
+    opting in."""
+    plan = fusion.heads_real_fwd_plan(B, d, fusion.HEAD_Y, logvar, itemsize,
+                                      SMS)
+    per_sm = fusion.REAL_FWD_PER_SM[itemsize, logvar]
+    assert plan.tiles == -(-d // fusion.TILE)
+    assert 1 <= plan.chunks <= -(-B // fusion.WARPS)
+    assert plan.chunks == 1 or plan.tiles * plan.chunks <= per_sm * SMS
+    assert plan.chunks == -(-B // plan.rows)
+    assert plan.chunks == 1 or B >= fusion.WARPS * (plan.chunks - 1)
+    assert plan.warps == fusion.WARPS
+    assert (_covered(plan, B, d) == 1).all()
+    assert (plan.part, plan.counters, plan.cluster) == (0, 0, 0)
+    assert per_sm * plan.smem <= SMEM_LIMIT
+    assert plan.smem <= 48 * 1024
+
+
+@pytest.mark.parametrize("logvar", [False, True])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("B,d", REAL_SHAPES)
+def test_real_bwd_plan_covers_every_cell_once(B, d, itemsize, logvar):
+    """The real head's backward: every (row, variable) in exactly one block
+    and warp; a tile's chunks one thread-block cluster of at most the
+    portable size, each warp a row where the batch allows; no partials in
+    global memory and no counter, whatever the chunks; the shared bytes of
+    the blocks an SM the plan aims at within 227 KB."""
+    plan = fusion.heads_real_bwd_plan(B, d, fusion.HEAD_Y, logvar, itemsize,
+                                      SMS)
+    assert plan.tiles == -(-d // fusion.TILE)
+    assert 1 <= plan.chunks <= fusion.MAX_CLUSTER
+    assert plan.cluster == plan.chunks
+    assert plan.chunks == 1 or plan.tiles * plan.chunks <= \
+        fusion.REAL_BWD_PER_SM * SMS
+    assert plan.chunks == -(-B // plan.rows)
+    assert plan.chunks == 1 or B >= fusion.WARPS * (plan.chunks - 1)
+    assert plan.warps == fusion.REAL_BWD_WARPS[itemsize, logvar]
+    assert (_covered(plan, B, d) == 1).all()
+    assert plan.part == 0 and plan.counters == 0
+    assert fusion.REAL_BWD_PER_SM * plan.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B", (400,) + MESH_ROWS)
+def test_real_plans_at_the_canonical_shape_and_a_mesh_rank(B):
+    """D4's 324 real variables, 11 tiles: the forward in as many chunks as
+    one wave of its blocks an SM or a row a warp allow (at the canonical
+    batch in float 45 chunks of 9 rows, 495 blocks, four an SM; with the
+    logvar network in double 24 of 17, two an SM), the backward in clusters
+    of 8
+    chunks (88 blocks of 16 warps, 8 in double with the logvar network),
+    at the canonical batch and at a mesh rank's rows; the shared bytes of
+    each."""
+    for itemsize in (4, 8):
+        for logvar in (False, True):
+            fwd = fusion.heads_real_fwd_plan(B, 324, 5, logvar, itemsize,
+                                             SMS)
+            per_sm = fusion.REAL_FWD_PER_SM[itemsize, logvar]
+            n = min(per_sm * SMS // 11, -(-B // fusion.WARPS))
+            assert (fwd.tiles, fwd.rows) == (11, -(-B // n))
+            assert fwd.chunks == -(-B // fwd.rows)
+            assert fwd.tiles * fwd.chunks <= per_sm * SMS
+            bwd = fusion.heads_real_bwd_plan(B, 324, 5, logvar, itemsize, SMS)
+            assert (bwd.tiles, bwd.chunks, bwd.cluster) == (11, 8, 8)
+            assert bwd.rows == -(-B // 8)
+            assert bwd.warps == (8 if (itemsize, logvar) == (8, True) else 16)
+    assert fusion.heads_real_fwd_plan(400, 324, 5, False, 4, SMS)[:3] == (
+        11, 45, 9)
+    assert fusion.heads_real_fwd_plan(400, 324, 5, True, 8, SMS)[:3] == (
+        11, 24, 17)
+    assert [fusion.heads_real_fwd_plan(400, 324, 5, False, z, SMS).smem
+            for z in (4, 8)] == [22656, 44160]
+    assert [fusion.heads_real_bwd_plan(400, 324, 5, lv, z, SMS).smem
+            for z in (4, 8) for lv in (False, True)] == [100352, 119808,
+                                                         182272, 117248]
+
+
+@pytest.mark.parametrize("logvar", [False, True])
+@pytest.mark.parametrize("Y", [3, 1, 7])
+def test_real_plans_at_run_time_sizes(Y, logvar):
+    """Other y_dims keep the run-time kernels: ROWS-row chunks; the
+    backward's ANY_NV sums a z-slice with their partials and a counter a
+    tile and slice; no dynamic shared memory, no cluster."""
+    B, d = 37, 33
+    fwd = fusion.heads_real_fwd_plan(B, d, Y, logvar, 8, SMS)
+    assert (fwd.rows, fwd.chunks) == (fusion.ROWS, -(-B // fusion.ROWS))
+    assert (fwd.part, fwd.counters, fwd.smem, fwd.cluster) == (0, 0, 0, 0)
+    bwd = fusion.heads_real_bwd_plan(B, d, Y, logvar, 8, SMS)
+    z = -(-(2 * Y + 2 if logvar else Y + 2) // fusion.ANY_NV)
+    assert (bwd.rows, bwd.chunks) == (fusion.ROWS, -(-B // fusion.ROWS))
+    assert bwd.counters == z * bwd.tiles and bwd.smem == bwd.cluster == 0
+    assert bwd.part == z * bwd.chunks * bwd.tiles * fusion.TILE * \
+        fusion.ANY_NV
+
+
 def _struct_const(struct: str, name: str) -> int:
     """The value of ``static constexpr int name = <int>;`` in csrc/fusion.cu's
     struct ``struct``."""
@@ -219,9 +325,27 @@ def test_plans_mirror_the_kernels_layouts():
     assert _struct_const("CatBwdSmem", "NST") == fusion.CAT_BWD_STAGES
     assert _struct_const("RepBwdSmem", "NST") == fusion.REP_BWD_STAGES
     assert _struct_const("MetricSmem", "NST") == fusion.METRIC_STAGES
+    assert _struct_const("RealFwdSmem", "NST") == fusion.REAL_FWD_STAGES
+    assert _struct_const("RealBwdSmem", "NST") == fusion.REAL_BWD_STAGES
     src = CSRC.read_text()
     assert int(re.search(r"constexpr int REP_BWD_BLOCKS = (\d+);",
                          src).group(1)) == fusion.REP_BWD_PER_SM
+    # the real head's, by (itemsize, logvar network)
+    body = src.split("constexpr int real_fwd_blocks()", 1)[1].split("}")[0]
+    f4, f4lv, f8lv, f8 = map(int, re.search(
+        r"sizeof\(T\) == 4 \? \(LV \? (\d+) : (\d+)\) : "
+        r"\(LV \? (\d+) : (\d+)\)", body).groups())
+    assert fusion.REAL_FWD_PER_SM == {(4, False): f4lv, (4, True): f4,
+                                      (8, False): f8, (8, True): f8lv}
+    body = src.split("constexpr int real_bwd_warps()", 1)[1].split("}")[0]
+    lv, other = map(int, re.search(
+        r"sizeof\(T\) == 8 && LV \? (\d+) : (\d+)", body).groups())
+    assert fusion.REAL_BWD_WARPS == {(4, False): other, (4, True): other,
+                                     (8, False): other, (8, True): lv}
+    assert "__launch_bounds__(TILE * real_bwd_warps<T, LV>(), 1)" in src
+    assert fusion.REAL_BWD_PER_SM == 1
+    assert int(re.search(r"constexpr int MAX_CLUSTER = (\d+);",
+                         src).group(1)) == fusion.MAX_CLUSTER
     for fn, per_sm in (("cat_fwd_blocks", fusion.CAT_FWD_PER_SM),
                        ("cat_bwd_blocks", fusion.CAT_BWD_PER_SM)):
         body = src.split(f"constexpr int {fn}()", 1)[1].split("}", 1)[0]
@@ -230,13 +354,19 @@ def test_plans_mirror_the_kernels_layouts():
         assert (int(f), int(d)) == (per_sm[4], per_sm[8])
 
 
-@pytest.mark.parametrize("plan_of", ["cat_fwd", "rep_bwd"])
+@pytest.mark.parametrize("plan_of", ["cat_fwd", "rep_bwd", "real_fwd",
+                                     "real_bwd"])
 def test_new_plans_chunk_order_is_fixed(plan_of):
     """The chunks are consecutive row ranges in increasing order, a
-    function of the shapes and the SM count alone."""
-    make = (lambda: fusion.heads_cat_fwd_plan(401, 972, 5, 5, 4, SMS)) \
-        if plan_of == "cat_fwd" else \
-        (lambda: fusion.rep_image_bwd_plan(401, 972, 5, 4, SMS))
+    function of the shapes and the SM count alone (the real head's
+    backward: a tile's cluster, rank k chunk k)."""
+    make = {"cat_fwd": lambda: fusion.heads_cat_fwd_plan(401, 972, 5, 5, 4,
+                                                         SMS),
+            "rep_bwd": lambda: fusion.rep_image_bwd_plan(401, 972, 5, 4, SMS),
+            "real_fwd": lambda: fusion.heads_real_fwd_plan(401, 324, 5,
+                                                           False, 4, SMS),
+            "real_bwd": lambda: fusion.heads_real_bwd_plan(401, 324, 5, True,
+                                                           4, SMS)}[plan_of]
     a = make()
     assert a == make()
     starts = [warps[0][0] for warps in _blocks(a, 401)]
@@ -387,9 +517,10 @@ def recorded(monkeypatch):
     return calls
 
 
-def _layout(n_cat, n_real, rows, y_dim=5, seed=0):
-    """A float64 MLP model of y_dim on a layout of n_cat cat(5) and n_real
-    real variables, its rows and decoder features."""
+def _layout(n_cat, n_real, rows, y_dim=5, seed=0, logvar=False):
+    """A float64 MLP model of y_dim (with the logvar network, ``logvar``)
+    on a layout of n_cat cat(5) and n_real real variables, its rows and
+    decoder features."""
     from hlax_torch.data.reader import encode_raw
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
 
@@ -399,9 +530,10 @@ def _layout(n_cat, n_real, rows, y_dim=5, seed=0):
     raw = np.column_stack([rng.integers(0, 5, rows).astype(float)
                            if t["type"] == "cat" else rng.random(rows) * 255
                            for t in types])
-    het = encode_raw(raw, types, miss_mask=np.ones_like(raw))
+    het = encode_raw(raw, types, miss_mask=np.ones_like(raw),
+                     logvar_network=logvar)
     model = HLVAE(HLVAEConfig(layout=het.layout, z_dim=4, h_dims=(8,),
-                              y_dim=y_dim, conv=False),
+                              y_dim=y_dim, conv=False, logvar_network=logvar),
                   torch.Generator().manual_seed(seed), "cpu").double()
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)
     y = torch.randn((rows, het.layout.n_raw, y_dim), dtype=torch.float64,
@@ -452,7 +584,8 @@ def test_metric_wrapper_launches_what_its_plan_says(recorded, mesh):
 def test_heads_backward_launches_with_its_plan(recorded, y_dim):
     """The cat head's backward takes its plan's rows, partials and counters
     (the staged kernel at y_dim 5, the run-time kernel at 3); the real
-    head's backward a counter a tile from the same stream buffer."""
+    head's backward its plan's rows, and at y_dim 5 no partials and no
+    counter (its chunks meet in their cluster), at 3 the plan's."""
     from hlax_torch.ops.normalization import NormParams
 
     model, y, data, mask, tmask = _layout(40, 9, 21, y_dim)
@@ -469,7 +602,58 @@ def test_heads_backward_launches_with_its_plan(recorded, y_dim):
     assert cat[-1] == plan.rows and cat[-2] == 5 and cat[-3] == y_dim
     assert cat[16].numel() == plan.part and cat[17].numel() == plan.counters
     real = calls["heads_real_bwd"]
-    assert real[25].numel() == 1 and real[25].dtype == torch.int32
+    rplan = fusion.heads_real_bwd_plan(21, 9, y_dim, False, 8, SMS)
+    assert real[-1] == rplan.rows and real[-4] == y_dim
+    if y_dim == fusion.HEAD_Y:
+        assert real[24] is None and real[25] is None
+        assert rplan.part == rplan.counters == 0
+        assert rplan.cluster == rplan.chunks
+    else:
+        assert real[24].numel() == rplan.part
+        assert real[25].numel() == rplan.counters
+        assert real[25].dtype == torch.int32
+
+
+@pytest.mark.parametrize("logvar", [False, True])
+@pytest.mark.parametrize("y_dim", [5, 3])
+def test_real_heads_launch_with_their_plans(recorded, y_dim, logvar):
+    """The real head's forward and backward, one launch each, with their
+    plans' rows (the staged kernels at y_dim 5, the run-time kernels' ROWS
+    at 3), with and without the logvar network (its flag and the second
+    head's weights and their gradients handed over, log_vy not); the
+    backward's scratch as its plan has it: none at y_dim 5."""
+    from hlax_torch.ops.normalization import NormParams
+
+    B, n_real = 21, 45
+    model, y, data, mask, tmask = _layout(40, n_real, B, y_dim, 1, logvar)
+    y = y.requires_grad_(True)
+    lp = fusion.heads_loglik(model, y, tmask, data, mask,
+                             NormParams(None, None, None, None))[0]
+    torch.autograd.grad(lp.sum(), [y] + list(model.obs.values()),
+                        allow_unused=True)
+    fwd = [a for e, a in recorded if e == "heads_real_fwd"]
+    bwd = [a for e, a in recorded if e == "heads_real_bwd"]
+    assert len(fwd) == len(bwd) == 1
+    fwd, bwd = fwd[0], bwd[0]
+    fplan = fusion.heads_real_fwd_plan(B, n_real, y_dim, logvar, 8, SMS)
+    bplan = fusion.heads_real_bwd_plan(B, n_real, y_dim, logvar, 8, SMS)
+    assert fwd[16:18] == (B, n_real) and fwd[24:27] == (y_dim, int(logvar),
+                                                        0)
+    assert fwd[-1] == fplan.rows
+    assert bwd[26:28] == (B, n_real) and bwd[34:37] == (y_dim, int(logvar),
+                                                        0)
+    assert bwd[-1] == bplan.rows
+    for i in (4, 5):            # the logvar network's weights, or none
+        assert (fwd[i] is not None) == logvar
+        assert (bwd[i] is not None) == logvar
+    assert (fwd[6] is None) == logvar and (bwd[6] is None) == logvar
+    assert (bwd[21] is not None) == logvar and (bwd[23] is None) == logvar
+    assert fwd[14].shape == ((B, n_real) if logvar else (n_real,))
+    if bplan.part:
+        assert bwd[24].numel() == bplan.part
+        assert bwd[25].numel() == bplan.counters
+    else:
+        assert bwd[24] is None and bwd[25] is None
 
 
 def _conv_layout(n_cat, n_real, rows, nclass=5, seed=0):
