@@ -106,7 +106,16 @@ Phases (each prints its own lines; any failure exits non-zero):
              launch's fixed cost; the real head's backward from one chunk,
              a cluster of one, to the portable cluster size, 8); the
              metric's mesh path (column sums, then
-             the finish) at a [mesh] rank's 200 rows; the MLP's heads (with
+             the finish) at a [mesh] rank's 200 rows; the KL bound's four
+             kernels (hlax_torch/ops/gp_bound.py, csrc/gp_bound.cu; with
+             float32 inputs the terms' KziBK in double) on the
+             canonical batch's subject blocks with a padded and an
+             all-padding subject, with and without m's and H's gradients,
+             d KziBK's product by cuBLAS and by the subject kernel (float64
+             within 1e-10 of the largest entry or 4x the plain version's
+             own movement under a one-ulp change of its inputs), each
+             launch timed warm and L2-cold beside its bound and the plain
+             chain, and the two products' times; the MLP's heads (with
              and without the logvar network) and metric, and the heads and
              the representation at a [mesh] rank's rows, held to their
              plain versions too;
@@ -162,7 +171,11 @@ Phases (each prints its own lines; any failure exits non-zero):
              rounds, and the graph path's device time and idle share under
              torch.profiler, by region as the eager steps' profile splits
              each kernel name; the eager profile prints each fused
-             kernel's device ms and launches a step (FUSED_FOCUS).
+             kernel's device ms and launches a step (FUSED_FOCUS) and every
+             kernel of the KL bound's two regions (gp_bound and its
+             backward) with its launches and device ms a step, grouped as
+             GP matrices, Cholesky kernels, the bound's kernels, cuBLAS's
+             products and the rest (gp_attribution).
  11a. precision  hlax's split on the canonical float32 step: each
              convolution's and matmul's kernels by layer (operation and
              input shapes) and region in an eager step, marked TF32 where
@@ -181,7 +194,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              (git-ignored), both trees' canonical graph steps (float32,
              float64, --nat_grad_f64) in processes of their own, in turns
              parent, change, change, parent: steps/s, device ms and kernels
-             a step, idle share.
+             a step, idle share, and the kernels and device ms a step of
+             the bound's two regions.
  12. full    the canonical config's 300 epochs through the CLI on the graph
              path (--epochs_per_dispatch=5 --scan_unroll=10), validation
              every 5 epochs, the test battery: the final net loss, the last
@@ -422,8 +436,12 @@ FUSED_KERNELS = ("heads_cat_fwd_cuda", "heads_cat_bwd_cuda",
                  "rep_image_fwd_cuda", "rep_image_bwd_cuda",
                  "recon_metric_cuda", "gp_kernel_fwd_cuda",
                  "gp_kernel_bwd_cuda")
+# the KL bound's kernels (csrc/gp_bound.cu), each launched once a step
+GP_BOUND_KERNELS = ("gp_bound_fwd_subjects", "gp_bound_fwd_latents",
+                    "gp_bound_bwd_latents", "gp_bound_bwd_subjects")
 # every kernel library, one nvcc each, all started together
-LIBRARIES = ("chol_inv_small", "chol_inv_mid", "chol_inv_bwd", "fusion")
+LIBRARIES = ("chol_inv_small", "chol_inv_mid", "chol_inv_bwd", "fusion",
+             "gp_bound")
 # every instantiation of the GP kernel matrix's kernels (csrc/fusion.cu):
 # by scalar, vector width (the flat kernels), rbf factors a component may
 # have (the backwards) and compiled shape (0 any spec, 1 and 2 the
@@ -1162,11 +1180,15 @@ def write_canonical_data(dest: str) -> None:
 REFERENCE_BOUND = {torch.float32: 1e-3, torch.float64: 1e-8}
 
 
-def phase_reference(tmp: str, dtype=torch.float32) -> None:
+def phase_reference(tmp: str, dtype=torch.float32, seed: int = 0,
+                    gate: bool = True) -> float:
     """The same four train steps (toy widths: z=8, hidden 50, M=30 for the
     mid kernel, T=20 for the small one) from identical weights and noise on
     the card and with the plain versions on the CPU, both in ``dtype`` (the
-    model and the GP); the losses must agree to REFERENCE_BOUND."""
+    model and the GP); the losses must agree to REFERENCE_BOUND (with
+    ``gate``).  ``seed`` moves the data's, the weights' and the noise's
+    seeds together (0: the gate's own toy state).  Returns the worst
+    relative difference."""
     import copy
 
     from hlax_torch.config import ModelArgs
@@ -1176,9 +1198,9 @@ def phase_reference(tmp: str, dtype=torch.float32) -> None:
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
     from hlax_torch.train import step as tstep
 
-    d = os.path.join(tmp, "ref")
+    d = os.path.join(tmp, f"ref{seed}")
     gen.write_csvs(gen.generate(num_3=2, num_6=2, datatype_config="D4",
-                                seed=7), d, "D4")
+                                seed=7 + seed), d, "D4")
     data = ds.load_dataset(d, "data.csv", "labels.csv", "mask.csv",
                            "data_types_D4.csv")
     opt = ModelArgs().parse_options([f"--f={CONFIG}"])
@@ -1190,7 +1212,7 @@ def phase_reference(tmp: str, dtype=torch.float32) -> None:
                             N_tot=float(len(data)), id_covariate=2,
                             gp_dtype=dtype)
     model = HLVAE(HLVAEConfig(layout=data.layout, z_dim=8, h_dims=(50,)),
-                  torch.Generator().manual_seed(0), "cpu").to(dtype)
+                  torch.Generator().manual_seed(seed), "cpu").to(dtype)
     cpu = tstep.init_train_state(model, spec0, spec1,
                                  next(ds.subject_batches(data, 2)), cfg)
     to = lambda t: t.detach().to("cuda")
@@ -1201,7 +1223,7 @@ def phase_reference(tmp: str, dtype=torch.float32) -> None:
         raw_noise=to(cpu.raw_noise), zt=to(cpu.zt), m=to(cpu.m),
         H=to(cpu.H), optimizer=None, generator=torch.Generator("cuda"))
     gpu.optimizer = tstep.make_optimizer(gpu, cfg)
-    noise = torch.Generator().manual_seed(1)
+    noise = torch.Generator().manual_seed(1 + seed)
     worst = 0.0
     staged = {dev: ds.stage_dataset(data, dtype, dev)
               for dev in ("cpu", "cuda")}
@@ -1222,6 +1244,8 @@ def phase_reference(tmp: str, dtype=torch.float32) -> None:
         print(f"[reference] {dtype} step {i}: loss cuda "
               f"{losses['cuda']:.12g} cpu {losses['cpu']:.12g} rel "
               f"{rel:.2e}", flush=True)
+    if not gate:
+        return worst
     bound = REFERENCE_BOUND[dtype]
     print(f"[reference] {dtype}: worst rel {worst:.3e}, bound {bound:g}",
           flush=True)
@@ -1240,6 +1264,7 @@ def phase_reference(tmp: str, dtype=torch.float32) -> None:
             shape[-1], 1).path == "warp" for name, shape, _ in
                ls.LAUNCHES_BY_SHAPE):
         fail("the card's M=30 steps did not take the mid kernel's warp path")
+    return worst
 
 
 def phase_slice(tmp: str):
@@ -1283,7 +1308,7 @@ def phase_slice(tmp: str):
     if any(plain.values()):
         fail("a plain Cholesky version or a fused op's plain version ran on "
              "CUDA tensors on the main path")
-    for name in FUSED_KERNELS:
+    for name in FUSED_KERNELS + tuple(f"{k}_cuda" for k in GP_BOUND_KERNELS):
         if launches[name] < steps:
             fail(f"{name} launched {launches[name]} times in {steps} steps")
     results = out["results_path"]
@@ -1679,27 +1704,29 @@ def _profile_steps(tag: str, run, steps: int, calls: int = 5,
             "each kernel name split as in the eager steps' profile")
     return {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
             "kernels": n_kernels / steps, "idle": 1 - busy / wall_us,
-            "regions": regions}, own
+            "regions": regions, "by_name": by_name}, own
 
 
 def reset_all_counters() -> None:
     """The launch counters of every kernel module set to 0."""
-    from hlax_torch.ops import fusion
+    from hlax_torch.ops import fusion, gp_bound
     from hlax_torch.ops import linalg_small as ls
 
     ls.reset_counters()
     fusion.reset_counters()
+    gp_bound.reset_counters()
 
 
 def read_all_counters():
     """(launches, launches by shape, plain-version calls on CUDA tensors)
     of every kernel module, each one dict."""
-    from hlax_torch.ops import fusion
+    from hlax_torch.ops import fusion, gp_bound
     from hlax_torch.ops import linalg_small as ls
 
-    return ({**ls.LAUNCHES, **fusion.LAUNCHES},
-            {**ls.LAUNCHES_BY_SHAPE, **fusion.LAUNCHES_BY_SHAPE},
-            {**ls.PLAIN_CUDA_CALLS, **fusion.PLAIN_CUDA_CALLS})
+    mods = (ls, fusion, gp_bound)
+    return ({k: v for m in mods for k, v in m.LAUNCHES.items()},
+            {k: v for m in mods for k, v in m.LAUNCHES_BY_SHAPE.items()},
+            {k: v for m in mods for k, v in m.PLAIN_CUDA_CALLS.items()})
 
 
 def _run_cli(opt: dict, log: str):
@@ -1876,8 +1903,11 @@ def phase_long_t(tmp: str):
     blocked composition (2 x 100 and 4 x 125 on the mid kernel), then the
     DUBO and the predictor over the whole set (the n = 256 and 512 buckets,
     diagonal blocks of 128); then at T = 200 the graph steps against the
-    eager steps and both steps/s (``_graph_beside_eager``).  Returns the
-    launches by (kernel, shape, dtype)."""
+    eager steps and both steps/s (``_graph_beside_eager``).  At T = 200 the
+    bound's subject kernels, unstaged there with cuBLAS's products around
+    them, are held against the plain version and timed on that state's
+    first batch (``_gp_bound_fusion``).  Returns (the launches by (kernel,
+    shape, dtype), the kernel table's rows of those two kernels)."""
     from hlax_torch.data.dataset import (epoch_subject_batches, gather_batch,
                                          stage_dataset, subject_batches)
     from hlax_torch.eval import validate as val
@@ -1890,7 +1920,7 @@ def phase_long_t(tmp: str):
         [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2},
                        {"cont_covariate": 0, "cat_covariate": 3},
                        {"cont_covariate": 1, "cat_covariate": 4}], [], [], 2)
-    counts = {}
+    counts, rows = {}, []
     for T, P, S in LONG_T:
         t0 = time.perf_counter()
         ds = long_t_dataset(T, P)
@@ -1945,9 +1975,22 @@ def phase_long_t(tmp: str):
             ("chol_inv_mid_cuda", (32, S, sizes[0], sizes[0]), "float32"):
                 6 * len(sizes),
             ("chol_inv_mid_cuda", (32, sb, 128, 128), "float32"):
-                2 * nb // 128})
+                2 * nb // 128,
+            **{(f"gp_bound_{k}_subjects_cuda", (32, S, T, 120), "float32"): 6
+               for k in ("fwd", "bwd")}})
         for key, v in by_shape.items():
             counts[key] = counts.get(key, 0) + v
+        if (T, P, S) == LONG_T[0]:
+            batch = gather_batch(staged, batches[0])
+            with torch.no_grad():
+                mu_b, lv_b = state.vae.encode(batch["data"], batch["mask"])
+            rows += _gp_bound_fusion(
+                dict(batch=batch, specs=(spec0, spec1), k0=state.k0,
+                     k1=state.k1, noise=noise.detach(), zt=state.zt,
+                     eps=cfg.eps, H=state.H.detach(), m=state.m.detach(),
+                     mu=mu_b, log_var=lv_b),
+                torch.float32, tag, ("gp_bound_fwd_subjects",
+                                     "gp_bound_bwd_subjects"))
         print(f"[{tag}] {P} subjects, {S} a batch: data made in {made:.1f} "
               f"s; losses {losses}; {5 / train_s:.3f} steps/s, "
               f"{5 * S * T / train_s:.1f} rows/s (5 steps after a warm-up "
@@ -1961,7 +2004,7 @@ def phase_long_t(tmp: str):
     T, P, S = LONG_T[0]
     _graph_beside_eager(f"longT T={T}", long_t_dataset(T, P), spec0, spec1,
                         S, True, 5, tmp)
-    return counts
+    return counts, rows
 
 
 def _graph_beside_eager(tag, ds, spec0, spec1, subjects, conv, n_batches,
@@ -2327,7 +2370,9 @@ def _fusion_case(ds, spec0, spec1, dtype):
     from hlax_torch.ops.normalization import batch_normalization
     from hlax_torch.types import compile_layout
 
-    st, _ = canonical_state(ds, spec0, spec1, dtype)
+    from hlax_torch.gp import kernels as gp_kernels
+
+    st, cfg = canonical_state(ds, spec0, spec1, dtype)
     staged = stage_dataset(ds, dtype, "cuda")
     batch = gather_batch(staged, torch.arange(20, device="cuda"))
     # the MLP model ([mlp]'s, hidden [500]) on the same batch, and the
@@ -2347,16 +2392,19 @@ def _fusion_case(ds, spec0, spec1, dtype):
     tmask_lv = batch["mask"][:, torch.as_tensor(raw_of, dtype=torch.int64,
                                                 device="cuda")]
     with torch.no_grad():
-        mu, _ = st.vae.encode(batch["data"], batch["mask"])
+        mu, log_var = st.vae.encode(batch["data"], batch["mask"])
         y = st.vae.decode_y(mu)
         y_mlp = mlp.decode_y(mlp.encode(batch["data"], batch["mask"])[0])
         y_lv = mlp_lv.decode_y(mlp_lv.encode(batch["data"],
                                              batch["mask"])[0])
     _, norm = batch_normalization(batch["data"], batch["mask"], ds.layout,
                                   False)
+    noise = gp_kernels.noise_value(st.raw_noise, cfg.constrain_scales)
     return dict(vae=st.vae, k0=st.k0, k1=st.k1, zt=st.zt, batch=batch, y=y,
                 specs=(spec0, spec1), mlp=mlp, y_mlp=y_mlp,
-                norm_mlp=norm, mlp_lv=mlp_lv, y_lv=y_lv, tmask_lv=tmask_lv)
+                norm_mlp=norm, mlp_lv=mlp_lv, y_lv=y_lv, tmask_lv=tmask_lv,
+                m=st.m.detach(), H=st.H.detach(), noise=noise.detach(),
+                eps=cfg.eps, mu=mu, log_var=log_var)
 
 
 def _case_in_float64(c):
@@ -2372,7 +2420,9 @@ def _case_in_float64(c):
                 y_mlp=d(c["y_mlp"]),
                 norm_mlp=type(c["norm_mlp"])(*map(d, c["norm_mlp"])),
                 mlp_lv=copy.deepcopy(c["mlp_lv"]).double(),
-                y_lv=d(c["y_lv"]), tmask_lv=d(c["tmask_lv"]))
+                y_lv=d(c["y_lv"]), tmask_lv=d(c["tmask_lv"]),
+                **{k: d(c[k]) for k in ("m", "H", "noise", "mu", "log_var")},
+                eps=c["eps"])
 
 
 def _cotangent(shape, dtype):
@@ -2670,6 +2720,306 @@ def _time_fused(name, op, c, dtype, errs):
               f"{'backward' if bwd else 'forward'} {plain:.4f} ms, bound "
               f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB)", flush=True)
     fusion._COUNTERS.take_since(before)
+    return rows
+
+
+GP_BOUND_REPLACES = ("hlax/gp/elbo.py:154-235 kld_upper_bound's terms, "
+                     "their sums and kld_total (XLA fusion)")
+# which arguments (after the itemsize) of each bound kernel's C entry are
+# factors it reads only the diagonal of (LB; LK0zz and LH)
+GP_BOUND_DIAG_ARGS = {"gp_bound_fwd_subjects": (4,),
+                      "gp_bound_fwd_latents": (7, 8),
+                      "gp_bound_bwd_latents": (12, 13),
+                      "gp_bound_bwd_subjects": (9,)}
+
+
+def _gp_bound_ops(entry, L, S, T, M, staged=True) -> float:
+    """Operations of one launch of a bound kernel, counted from its source
+    (a multiply-add as two): K1 the fit, (iB + iB^T) r, u, the sums and,
+    staged, iB K0xz; K2 three products and sums an entry of the [M, M]
+    matrices; K4 about 16 an entry and d m's product; K3 w_A q iKm^T, the
+    elementwise rest and, staged, iB (K0xz G^T), iB^T (K0xz G), (K0xz G)
+    K0xz^T and iLB (d iB + d iB^T) (unstaged, those are cuBLAS's)."""
+    if entry == "gp_bound_fwd_subjects":
+        return L * S * (4 * T * M + 6 * T * T + 10 * T
+                        + staged * 2 * T * T * M)
+    if entry == "gp_bound_fwd_latents":
+        return L * (6 * M * M + 6 * M)
+    if entry == "gp_bound_bwd_latents":
+        return L * 18 * M * M
+    return L * S * (2 * T * M + 12 * T * T
+                    + staged * (6 * T * T * M + 2 * T ** 3))
+
+
+# the unstaged subject kernels' (subjects past TP rows) own traffic, by
+# argument of the C entry: what they leave to cuBLAS (K1: W and the double
+# copies; K3: K0xz [G | G^T] and the products with K0xz, iLB, d iLB) and
+# what they read and write (K3: cuBLAS's products in sym and d K0xz, which
+# they finish in place)
+GP_BOUND_UNSTAGED = {"gp_bound_fwd_subjects": ((9, 10, 11), ()),
+                     "gp_bound_bwd_subjects": ((5, 7, 15, 18), (16, 17))}
+# which arguments of a bound kernel's C entry are double copies of float32
+# inputs, made so the terms' sums cancel in double: the function itself
+# needs K1's copies of K0xz and iB K0xz (10, 11) not at all (K0xz and W
+# count already) and K2's KziBK (2) once at the inputs' width
+GP_BOUND_COPY_ARGS = {"gp_bound_fwd_subjects": (10, 11),
+                      "gp_bound_fwd_latents": (2,)}
+
+
+def _gp_bound_bytes(entry, args) -> int:
+    """Bytes of one launch of a bound kernel, the function's own traffic:
+    each tensor it is handed read or written once but its scratch, the
+    factors of GP_BOUND_DIAG_ARGS by their diagonal, the double copies of
+    GP_BOUND_COPY_ARGS as the function needs them (``args[0]``: the
+    inputs' itemsize); unstaged (``args[-2]`` 0), GP_BOUND_UNSTAGED's."""
+    skip, twice = ((), ())
+    if entry in GP_BOUND_UNSTAGED and not args[-2]:
+        skip, twice = GP_BOUND_UNSTAGED[entry]
+    n = 0
+    for i, a in enumerate(args):
+        if not torch.is_tensor(a) or i in skip:
+            continue
+        b = a.numel() * a.element_size()
+        if i in twice:
+            n += 2 * b
+            continue
+        if getattr(a, "_scratch", False):
+            continue
+        if i in GP_BOUND_COPY_ARGS.get(entry, ()):
+            b = 0 if entry == "gp_bound_fwd_subjects" else a.numel() * args[0]
+        n += b // a.shape[-1] if i in GP_BOUND_DIAG_ARGS[entry] else b
+    return n
+
+
+def _gp_bound_case(c):
+    """The bound's inputs on the case's batch, as the train step makes
+    them: ``subject_blocks`` of the case's GP (the kernels, no gradient),
+    the factor of H, m, the encoder's means and log-variances; subject 1
+    padded from row T / 2 and subject 2 all padding.  Returns (the 11
+    leaves of ``gp_bound._GpBound``, valid)."""
+    from hlax_torch.gp import elbo
+
+    b = c["batch"]
+    valid = b["valid"].clone()
+    S, T = valid.shape
+    valid[1, T // 2:] = 0
+    valid[2] = 0
+    spec0, spec1 = c["specs"]
+    x = b["labels"].reshape(S, T, -1) * valid[..., None]
+    with torch.no_grad():
+        blk, (LH, _) = elbo.subject_blocks(
+            spec0, c["k0"], spec1, c["k1"], c["noise"], c["zt"], x, valid,
+            c["eps"], extra_spd=c["H"], use_pallas_chol=True)
+    mu = c["mu"].reshape(S, T, -1) * valid[..., None]
+    leaves = [blk.K0xz, blk.iLB, blk.LB, blk.K0_st, blk.iK0zz, blk.LK0zz,
+              LH, c["H"], c["m"], mu, c["log_var"].reshape(S, T, -1)]
+    return [t.detach().contiguous() for t in leaves], valid
+
+
+# the seeds of the one-ulp perturbations whose largest movement of the
+# plain version sets the float64 bars beside 1e-10 of the largest entry
+SPREAD_SEEDS = (11, 12, 13)
+GP_BOUND_OUTS = ("terms", "P_batch", "kld_total")
+GP_BOUND_LEAVES = ("K0xz", "iLB", "LB", "K0_st", "iK0zz", "LK0zz", "LH", "H",
+                   "m", "mu", "log_v")
+
+
+def _one_ulp(case, seed: int):
+    """The case's leaves each moved by one unit in the last place (a random
+    sign an entry, from ``seed``): the plain version's float64 outputs move
+    by their own rounding scale (the bound's terms and its B blocks'
+    gradients cancel by up to 1e6-fold at the canonical float64 state,
+    jitter 1e-6)."""
+    leaves, valid = case
+    g = torch.Generator(leaves[0].device).manual_seed(seed)
+    ulp = lambda t: t * (1 + torch.finfo(t.dtype).eps * (2 * torch.randint(
+        0, 2, t.shape, generator=g, device=t.device).to(t.dtype) - 1))
+    return [ulp(t) for t in leaves], valid
+
+
+def _gp_bound_error(tag, names, got, plain, ref, spreads):
+    """The largest error of the bound kernels' results ``got`` (``names``),
+    each printed beside its bar; fails past a bar.  float32 (``ref``, the
+    plain version in float64): within 4x the float32 plain version's own
+    error + 1e-6 of the largest entry, ``_fusion_error``'s bar.  float64:
+    against the plain version, within 1e-10 of the largest entry or, where
+    larger, 4x the plain version's own movement under a one-ulp change of
+    its inputs, the largest over ``spreads`` (one a seed)."""
+    worst = 0.0
+    for i, name in enumerate(names):
+        a, b = got[i].double(), plain[i].double()
+        if ref is None:
+            scale = b.abs().max().item() or 1.0
+            err = (a - b).abs().max().item()
+            own = max((s[i].double() - b).abs().max().item()
+                      for s in spreads)
+            rel = FUSION_F64_REL * scale
+            bar = max(rel, FUSION_F32_FACTOR * own)
+            how = (f"against the plain version; 1e-10 of the largest entry "
+                   f"{rel:.3e} {'met' if err <= rel else 'NOT met'}; bar "
+                   f"{bar:.3e}, the larger of that and 4x the plain "
+                   f"version's movement {own:.3e} under a one-ulp change "
+                   f"of its inputs (largest of seeds {SPREAD_SEEDS})")
+        else:
+            r = ref[i].double()
+            scale = r.abs().max().item() or 1.0
+            err = (a - r).abs().max().item()
+            own = (b - r).abs().max().item()
+            bar = FUSION_F32_FACTOR * own + FUSION_F32_ABS * scale
+            how = (f"against float64; bar {bar:.3e} = 4x the float32 plain "
+                   f"version's {own:.3e} + 1e-6 x {scale:.3e}")
+        worst = max(worst, err)
+        print(f"[{tag} {name}: error {err:.3e} ({err / scale:.2e} of the "
+              f"largest entry) {how}", flush=True)
+        if not err <= bar:
+            fail(f"[{tag} {name}: kernel's error {err:.3e} past its bar "
+                 f"{bar:.3e}")
+    return worst
+
+
+def _gp_bound_run(kernel, case, need_hm=True, grads=True):
+    """(terms, P_batch, kld_total[, the leaves' gradients of kld_total + w
+    . terms]) through the bound's kernels (``kernel``) or its plain
+    version; H and m without gradients unless ``need_hm`` (the canonical
+    step's natural gradients need none)."""
+    from types import SimpleNamespace
+
+    from hlax_torch.ops import gp_bound as gb
+
+    base, valid = case
+    xs = [t.detach().clone().requires_grad_(grads and (
+        need_hm or i not in (7, 8))) for i, t in enumerate(base)]
+    K0xz, iLB, LB, K0st, iK, LK, LH, H, m, mu, lv = xs
+    totals = (200.0, 4000.0)
+    with torch.set_grad_enabled(grads):
+        iB = torch.einsum("lskt,lsku->lstu", iLB, iLB)
+        if kernel:
+            terms, pb, kld = gb._GpBound.apply(
+                K0xz, iLB, LB, K0st, iK, LK, LH, H, m, mu, lv, iB.detach(),
+                valid, totals)
+        else:
+            blk = SimpleNamespace(K0xz=K0xz, iB=iB, LB=LB, K0_st=K0st,
+                                  iK0zz=iK, LK0zz=LK)
+            terms, pb = gb.kld_terms_plain(blk, LH, H, m, mu, lv, valid)
+            kld = gb.assemble(terms, pb, *totals, K0xz.shape[0])
+        outs = [terms.detach(), pb, kld.detach()]
+        if not grads:
+            return outs
+        w = torch.linspace(-1.0, 1.0, 7, dtype=terms.dtype,
+                           device=terms.device)
+        return outs + list(torch.autograd.grad(
+            kld + (terms * w).sum(), [x for x in xs if x.requires_grad]))
+
+
+def _gp_bound_check(tag, case):
+    """The four kernels (through the op's autograd Function) against the
+    plain version, forward and every gradient, without and with H's and
+    m's, at ``_gp_bound_error``'s bars (float32 against the plain version
+    in float64 on the same inputs).  Returns the largest errors (forward,
+    gradients)."""
+    from hlax_torch.ops import gp_bound as gb
+
+    leaves, valid = case
+    f32 = leaves[0].dtype == torch.float32
+    case64 = ([t.double() for t in leaves], valid.double()) if f32 else None
+    errs = (0.0, 0.0)
+    for need_hm in (False, True):
+        before = gb._COUNTERS.snapshot()
+        got = _gp_bound_run(True, case, need_hm)
+        gb._COUNTERS.take_since(before)
+        plain = _gp_bound_run(False, case, need_hm)
+        ref = None if case64 is None else _gp_bound_run(False, case64,
+                                                        need_hm)
+        spreads = [] if f32 else [_gp_bound_run(False, _one_ulp(case, s),
+                                                need_hm)
+                                  for s in SPREAD_SEEDS]
+        how = f"{tag}{' with H and m' if need_hm else ''}"
+        names = GP_BOUND_OUTS + tuple(
+            f"d {n}" for i, n in enumerate(GP_BOUND_LEAVES)
+            if need_hm or i not in (7, 8))
+        e = tuple(_gp_bound_error(how, names[part], got[part], plain[part],
+                                  None if ref is None else ref[part],
+                                  [x[part] for x in spreads])
+                  for part in (slice(0, 3), slice(3, None)))
+        print(f"[{how}: P_batch {got[1].item():g}, largest error of the "
+              f"terms and kld_total {e[0]:.3e}, of the gradients "
+              f"{e[1]:.3e} (against "
+              f"{'float64' if f32 else 'the plain version'})", flush=True)
+        errs = tuple(max(a, b) for a, b in zip(errs, e))
+    return errs
+
+
+def _gp_bound_fusion(c, dtype, phase="fusion", entries=None):
+    """[fusion]'s bound (or ``phase``'s, on its case ``c``):
+    ``_gp_bound_check`` on the case's batch with a padded and an
+    all-padding subject; then every launch of one canonical step's bound
+    (natural gradients: no H or m gradient), each timed alone, L2-warm and
+    -cold, beside its bound and the op's plain chain; d KziBK's cuBLAS
+    product beside them.  Returns the kernel table's rows (of ``entries``,
+    None: all four)."""
+    from hlax_torch.ops import gp_bound as gb
+
+    tag = f"{phase}] gp_bound {str(dtype).removeprefix('torch.')}"
+    case = _gp_bound_case(c)
+    errs = _gp_bound_check(tag, case)
+    calls, orig = [], gb._launch
+
+    def record(entry, like, *args):
+        calls.append((entry, like, args))
+        orig(entry, like, *args)
+
+    before = gb._COUNTERS.snapshot()
+    gb._launch = record
+    try:
+        _gp_bound_run(True, case, False)
+    finally:
+        gb._launch = orig
+    fwd_ms = time_ms(lambda: _gp_bound_run(False, case, grads=False),
+                     reps=10)[0]
+    both_ms = time_ms(lambda: _gp_bound_run(False, case, False), reps=10)[0]
+    kernel_both = time_ms(lambda: _gp_bound_run(True, case, False),
+                          reps=10)[0]
+    rows = []
+    L, S, T, M = case[0][0].shape
+    for entry, like, args in calls:
+        if entries is not None and entry not in entries:
+            continue
+        ms, wall = time_ms(lambda: orig(entry, like, *args))
+        cold = time_cold_ms(lambda: orig(entry, like, *args))
+        nbytes = _gp_bound_bytes(entry, args)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops = _gp_bound_ops(entry, L, S, T, M, bool(args[-2]))
+        t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops else
+                     (t_ops, "operations"))
+        bwd = "_bwd_" in entry
+        plain_ms = max(both_ms - fwd_ms, 0.0) if bwd else fwd_ms
+        rows.append(dict(
+            name=f"{entry}_cuda", shape=list(like.shape),
+            dtype=str(dtype).removeprefix("torch."), route="cuda",
+            source="hlax_torch/csrc/gp_bound.cu",
+            replaces=GP_BOUND_REPLACES, launches=0,
+            max_abs_err=errs[1 if bwd else 0], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None))
+        print(f"[{phase}] {entry} {list(like.shape)} {rows[-1]['dtype']}: "
+              f"kernel {ms:.4f} ms, L2-cold {cold:.4f} ms ({wall:.4f} ms a "
+              f"call on the host clock), the op's plain chain "
+              f"{'backward' if bwd else 'forward'} {plain_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP), "
+              f"kernel / bound {ms / bound:.2f}", flush=True)
+    # d KziBK's product for the subject kernel (one canonical backward's)
+    G2 = calls[-2][2][17]
+    K0xz, Y2 = calls[-1][2][5], calls[-1][2][15]
+    with torch.no_grad():
+        cublas = time_ms(lambda: torch.bmm(K0xz.view(L, S * T, M), G2,
+                                           out=Y2))[0]
+    print(f"[{tag} d KziBK's product K0xz [G | G^T] [{L}, {S * T}, "
+          f"{2 * M}]: cuBLAS {cublas:.4f} ms; the bound forward + backward "
+          f"through the kernels {kernel_both:.4f} ms, its plain chain "
+          f"{both_ms:.4f} ms, on {card_line()}", flush=True)
+    gb._COUNTERS.take_since(before)
     return rows
 
 
@@ -3173,6 +3523,7 @@ def phase_fusion(data_dir: str, tmp: str):
                   flush=True)
             if name in FUSION_OPS_RUN:
                 rows += _time_fused(name, op, c, dtype, errs)
+        rows += _gp_bound_fusion(c, dtype)
         _staged_sweep(c, dtype)
         _gp_shapes_against_table(c, c64, dtype)
         if parent is not None:
@@ -3210,7 +3561,9 @@ def rate_run(tree: str, data_dir: str, what: str = "rate",
     source region, each kernel name split as an eager epoch's profile
     splits it); one JSON line.  With ``full``: [full]'s 300 canonical
     epochs through that tree's CLI from ``seed``, the final training net
-    loss and the last validation's.  The VAE's precision comes from
+    loss and the last validation's.  With ``reference``: [reference]'s
+    float32 worst relative difference at each of the comma-separated
+    ``seed``s of its toy state, not gated.  The VAE's precision comes from
     JAX_DEFAULT_MATMUL_PRECISION, as the CLI's does."""
     sys.path.insert(0, os.path.abspath(tree))
     import hlax_torch
@@ -3239,6 +3592,12 @@ def rate_run(tree: str, data_dir: str, what: str = "rate",
             "validation": float(out["last_validation"]["net_loss"]),
             "seconds": seconds}), flush=True)
         return
+    if what == "reference":
+        with tempfile.TemporaryDirectory() as tmp:
+            worst = {s: phase_reference(tmp, torch.float32, int(s), False)
+                     for s in seed.split(",")}
+        print("REFERENCE " + json.dumps(worst), flush=True)
+        return
     ds, spec0, spec1 = canonical_setup(data_dir)
     idx = np.stack(list(epoch_subject_batches(ds.P, 20,
                                               np.random.default_rng(0))))
@@ -3254,19 +3613,20 @@ def rate_run(tree: str, data_dir: str, what: str = "rate",
         run()
         run()
         rates = [_time_epochs(run, 3) for _ in range(2)]
-        table = None
-        if what == "ab":
-            step = tstep.make_train_step(st.vae, spec0, spec1, cfg)
-            with contextlib.redirect_stdout(io.StringIO()):
-                _, table = _profile_steps(
-                    "eager", lambda: tstep.train_epoch(step, st, staged, idx),
-                    GRAPH_STEPS, calls=1, top=0)
+        # an eager epoch's profile splits the graph's kernels by region
+        step = tstep.make_train_step(st.vae, spec0, spec1, cfg)
+        with contextlib.redirect_stdout(io.StringIO()):
+            eager, table = _profile_steps(
+                "eager", lambda: tstep.train_epoch(step, st, staged, idx),
+                GRAPH_STEPS, calls=1, top=0)
         prof, _ = _profile_steps(f"rate {name}", run, 3 * GRAPH_STEPS,
                                  calls=3, top=0, table=table)
         if not torch.isfinite(st.m).all():
             fail(f"[rate] {name}: m is not finite")
         out[name] = {"steps_per_s": rates, **{k: prof[k] for k in (
             "busy_ms", "kernels", "idle", "regions")}}
+        if name == "float32":
+            out[name]["gp"] = gp_rows(eager["by_name"], table, GRAPH_STEPS)
         if what == "ab" and name == "float32":
             out[name]["eval"] = eval_rate(st.vae, ds)
         del st, staged, epoch
@@ -3306,9 +3666,18 @@ def phase_parent(data_dir: str) -> None:
               f"{', '.join(f'{x['seconds']:.1f}' for x in r)} s (turns "
               f"parent, change, change, parent) on {card_line()}",
               flush=True)
+    for who in ("parent", "change"):
+        gp_attribution(f"parent {who}", runs[who][0]["float32"]["gp"])
+    reference_seeds()
     for name, *_ in RATE_CONFIGS:
         for who in ("parent", "change"):
             r = [x[name] for x in runs[who]]
+            gp = [sum((x["regions"] or {}).get(g, (0.0, 0.0))[k]
+                      for g in GP_REGIONS[:2]) for x in r for k in (0, 1)]
+            print(f"[parent] {name} {who}: the bound's regions (gp_bound "
+                  f"and its backward) {', '.join(f'{n:.1f}' for n in gp[::2])}"
+                  f" kernels a step, {', '.join(f'{t:.4f}' for t in gp[1::2])}"
+                  f" device ms a step", flush=True)
             print(f"[parent] {name} {who}: graph steps/s "
                   f"{', '.join(f'{v:.2f}' for x in r for v in x['steps_per_s'])}"
                   f"; device busy {', '.join(f'{x['busy_ms']:.3f}' for x in r)}"
@@ -3317,6 +3686,26 @@ def phase_parent(data_dir: str) -> None:
                   f"{', '.join(f'{x['idle']:.3f}' for x in r)} (processes "
                   f"in turns parent, change, change, parent: {who}'s two, 2 "
                   f"rounds of 3 epochs each) on {card_line()}", flush=True)
+
+
+# the toy states [reference]'s float32 gate is read at beside its own (0)
+REFERENCE_SEEDS = "0,1,2,3,4,5"
+
+
+def reference_seeds() -> None:
+    """[reference]'s float32 worst relative difference, card against CPU,
+    of the parent's tree and this one at each of REFERENCE_SEEDS' toy
+    states (``rate_run`` reference, a process a tree): whether the gate's
+    reading at its own state is the kernels' or the toy state's noise."""
+    got = {who: _subprocess_json(
+        ["rate", PARENT_ROOT if who == "parent" else ROOT, ROOT,
+         "reference", REFERENCE_SEEDS], "REFERENCE ", {}, "parent")
+        for who in ("parent", "change")}
+    for who, worst in got.items():
+        print(f"[parent] [reference] float32 {who}: worst rel by seed "
+              f"{', '.join(f'{s}: {v:.3e}' for s, v in worst.items())} "
+              f"(bound {REFERENCE_BOUND[torch.float32]:g} at seed 0) on "
+              f"{card_line()}", flush=True)
 
 
 def phase_graph(data_dir: str, tmp: str) -> None:
@@ -3371,9 +3760,11 @@ def phase_graph(data_dir: str, tmp: str) -> None:
         print(f"[graph] {name}: steps/s {', '.join(f'{x:.2f}' for x in r)} "
               f"(3 rounds of 3 epochs of {GRAPH_STEPS} steps, alternating) "
               f"on {card_line()}", flush=True)
-    _, table = _profile_steps("graph eager", paths["eager"],
-                              3 * GRAPH_STEPS, calls=3, top=40,
-                              focus=FUSED_FOCUS)
+    eager, table = _profile_steps("graph eager", paths["eager"],
+                                  3 * GRAPH_STEPS, calls=3, top=40,
+                                  focus=FUSED_FOCUS)
+    gp_attribution("graph", gp_rows(eager["by_name"], table,
+                                    3 * GRAPH_STEPS))
     for name in ("graph unroll 1", "graph unroll 10"):
         _profile_steps(name, paths[name], 3 * GRAPH_STEPS, calls=3,
                        table=table, top=40)
@@ -3398,6 +3789,62 @@ GP_REGIONS = ("gp_bound", "backward of gp_bound", "natural_gradient")
 LAYER_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
              "aten::convolution_backward", "aten::addmm", "aten::mm",
              "aten::bmm")
+
+
+# the GP bound's kernels by group ([graph]'s attribution): the GP kernel
+# matrices (csrc/fusion.cu), the Cholesky kernels (csrc/chol_inv_*.cu), the
+# bound's own kernels (csrc/gp_bound.cu), cuBLAS's products; the rest
+# elementwise, reduction or copy
+GP_GROUPS = (("GP matrices", re.compile(r"gp_fwd|gp_bwd_flat|gp_bwd_cols")),
+             ("Cholesky kernels", re.compile(r"chol_inv")),
+             ("bound kernels", re.compile(r"gp_bound_")),
+             ("cuBLAS GEMMs", re.compile(
+                 r"gemm|gemv|cublas|cutlass|xmma|splitK|dot_kernel", re.I)),
+             ("elementwise, reduction or copy", re.compile("")))
+
+
+def gp_rows(by_name: dict, table: dict, steps: int) -> dict:
+    """{region: [(kernel name, launches a step, device ms a step)]} of the
+    bound's two regions ("gp_bound" and its backward) in ``steps`` eager
+    steps under the profiler: each kernel name's launches and time
+    (``by_name``) split over the regions as ``table`` (``region_table``)
+    splits them, as ``_print_regions`` does."""
+    out = {}
+    for region in GP_REGIONS[:2]:
+        rows = out[region] = []
+        for name, (n, us) in by_name.items():
+            split = table.get(name, {})
+            if region not in split:
+                continue
+            rn, rus = split[region]
+            tot_n = sum(v[0] for v in split.values())
+            tot_us = sum(v[1] for v in split.values()) or 1.0
+            rows.append((name, n * rn / tot_n / steps,
+                         us * rus / tot_us / steps / 1e3))
+    return out
+
+
+def gp_attribution(tag: str, rows: dict) -> dict:
+    """Prints ``gp_rows``' kernels, grouped by GP_GROUPS; returns {region:
+    (kernels, ms) a step}."""
+    totals = {}
+    for region, kernels in rows.items():
+        totals[region] = (sum(r[1] for r in kernels),
+                          sum(r[2] for r in kernels))
+        print(f"[{tag}] {region}: {totals[region][0]:.1f} kernels, "
+              f"{totals[region][1]:.4f} ms a step (eager) on {card_line()}",
+              flush=True)
+        left = kernels
+        for group, pat in GP_GROUPS:
+            mine = [r for r in left if pat.search(r[0])]
+            left = [r for r in left if not pat.search(r[0])]
+            if not mine:
+                continue
+            print(f"[{tag}]   {group}: {sum(r[1] for r in mine):.1f} "
+                  f"kernels, {sum(r[2] for r in mine):.4f} ms", flush=True)
+            for name, n, ms in sorted(mine, key=lambda r: -r[2]):
+                print(f"[{tag}]     {n:5.2f} {ms:8.5f}  {name}", flush=True)
+    return totals
 
 
 def _launching_op(e):
@@ -4505,7 +4952,10 @@ def _count_canonical_epochs(data_dir: str) -> dict:
     return counts
 
 
-LONG_SHAPES = {batch + (n, n) for batch, n in LONG_T_MID_ROWS}
+# the mid kernel's blocks and the bound's subject kernels at T = 200 (M =
+# 120)
+LONG_SHAPES = ({batch + (n, n) for batch, n in LONG_T_MID_ROWS}
+               | {(32, S, T, 120) for T, _, S in LONG_T[:1]})
 MESH_SHAPES = ({batch + (n, n) for _, batch, n in MESH_ROWS}
                | {(MESH_RANK_ROWS, CANONICAL_N_EXP)})
 
@@ -4583,7 +5033,8 @@ def main() -> None:
             torch.cuda.empty_cache()
             rows += phase_fusion(data_dir, tmp)
             counts["f64"] = phase_f64(data_dir, tmp)
-            counts["longT"] = phase_long_t(tmp)
+            counts["longT"], long_rows = phase_long_t(tmp)
+            rows += long_rows
             counts["mlp"] = phase_mlp(data_dir, tmp)
             counts["options"] = phase_options(data_dir, tmp)
             phase_fused_stack(data_dir)

@@ -30,13 +30,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from hlax_torch.gp.kernels import KernelSpec
+from hlax_torch.ops import gp_bound
 from hlax_torch.ops.fusion import gp_kernel_matrix
 from hlax_torch.ops.linalg_small import chol_inv_blocked
 from hlax_torch.precision import highest
-
-
-def _logdet_from_chol(L):
-    return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
 
 
 def _gram(iL):
@@ -191,52 +188,21 @@ def kld_upper_bound(
                                     use_pallas_chol=use_pallas_chol)
     iH = _gram(iLH)
 
-    # number of real subjects in the batch (all-padding subjects don't count)
-    P_batch = (valid > 0).any(dim=1).to(x_st.dtype).sum()
+    # the terms and their sum (one op: the kernels of ops.gp_bound on the
+    # card); on a mesh the terms are summed over the ranks first
+    terms, P_batch, kld_total = gp_bound.kld_terms(
+        blk, LH, H, m, mu_st, log_v_st, valid,
+        None if sums is not None else (P_tot, N_tot))
     if sums is not None:
         P_batch = sums.subjects(P_batch)
-
-    v_mask = valid[:, :, None]
-    mu_m = mu_st * v_mask                                # [S, T, L]
-    v_m = torch.exp(log_v_st) * v_mask
-
-    # A: quadratic fit of K0xz iK0zz m - mu under iB
-    iKm = torch.einsum("lmn,lno->lmo", blk.iK0zz, m)     # [L, M, 1]
-    fit = torch.einsum("lstm,lmo->lst", blk.K0xz, iKm)   # [L, S, T]
-    r = fit - mu_m.permute(2, 0, 1)                      # [L, S, T]
-    A = torch.einsum("lst,lstu,lsu->", r, blk.iB, r)
-
-    diag_iB = torch.diagonal(blk.iB, dim1=-2, dim2=-1)   # [L, S, T]
-    Bt = torch.einsum("lst,stl->", diag_iB, v_m)
-    C = torch.log(torch.diagonal(blk.LB, dim1=-2, dim2=-1)).sum() * 2.0
-
-    iB_K0xz = torch.einsum("lstu,lsum->lstm", blk.iB, blk.K0xz)
-    KziBK = torch.einsum("lstm,lstn->lmn", blk.K0xz, iB_K0xz)   # [L, M, M]
-    D = (blk.iB * blk.K0_st).sum() - (KziBK * blk.iK0zz).sum()
-
-    E_mat = torch.einsum("lmn,lno,lop->lmp", blk.iK0zz, H, blk.iK0zz)
-    E = (E_mat * KziBK).sum()
-    F = (log_v_st * v_mask).sum()
-
-    # KL(q(u) || p(u))
-    tr1 = (blk.iK0zz * H.mT).sum()
-    qf1 = (m * torch.einsum("lmn,lno->lmo", blk.iK0zz, m)).sum()
-    logdetK = _logdet_from_chol(blk.LK0zz).sum()
-    logdetH = _logdet_from_chol(LH).sum()
-    kld_qu_pu = 0.5 * (tr1 + qf1 - Ldim * M + logdetK - logdetH)
-
-    L_tot = Ldim
-    if sums is not None:
-        A, Bt, C, D, E, F = sums.blocks(torch.stack([A, Bt, C, D, E, F]))
-        kld_qu_pu = sums.latents(kld_qu_pu)
-        L_tot = sums.L
-    kld_total = (P_tot / P_batch * 0.5 * (A + Bt + C + D + E - F)
-                 + kld_qu_pu - L_tot * N_tot / 2.0)
+        terms = torch.cat([sums.blocks(terms[:6]), sums.latents(terms[6:])])
+        kld_total = gp_bound.assemble(terms, P_batch, P_tot, N_tot, sums.L)
 
     if not natural_gradient:
         return kld_total, None, None, None
     with torch.no_grad():
         cdt = nat_grad_dtype or x_st.dtype
+        mu_m = mu_st * valid[:, :, None]                 # [S, T, L]
         iB_mu = torch.einsum("lstu,sul->lst", blk.iB, mu_m)
         ng_P1 = torch.einsum("lstm,lst->lm", blk.K0xz,
                              iB_mu)[:, :, None].to(cdt)
@@ -297,7 +263,8 @@ def _whitened_quadratic(blk, y_m):
     iLK, LWi, iLWi = whitened_w_factor(blk.iLK, blk.K0xz, blk.iLB)
     # logdet Sigma = -logdet K0zz + logdet B + logdet W and
     # logdet W = logdet K0zz + logdet(I + C): the K0zz terms cancel
-    logdet = _logdet_from_chol(blk.LB).sum(-1) + _logdet_from_chol(LWi)
+    logdet = (gp_bound.logdet_from_chol(blk.LB).sum(-1)
+              + gp_bound.logdet_from_chol(LWi))
     iB_y = torch.einsum("lstu,lsu->lst", blk.iB, y_m)
     qf1 = torch.einsum("lst,lst->l", y_m, iB_y)
     p = torch.einsum("lstm,lst->lm", blk.K0xz, iB_y)

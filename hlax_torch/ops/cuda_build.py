@@ -33,7 +33,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # float32 operations as its plain PyTorch version and the two agree to the
 # last bit.  The one-warp body both forward libraries share spells its
 # roundings out (__fmul_rn, __fsub_rn), so it is bit-equal under either flag.
-FMA_CONTRACTED = frozenset({"chol_inv_mid", "chol_inv_bwd", "fusion"})
+# The bound's kernels (``gp_bound``) sum in other orders than their plain
+# version (tiles, butterflies, double partials) and are held to it within a
+# float64 reference's bars: contracted too.
+FMA_CONTRACTED = frozenset({"chol_inv_mid", "chol_inv_bwd", "fusion",
+                            "gp_bound"})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -147,18 +147,18 @@ def geometry(layout) -> Optional[Geometry]:
 
 
 def _uses_kernel(takes: bool, t: torch.Tensor, plain_name: str,
-                 *others) -> bool:
+                 *others, plain: Dict[str, int] = PLAIN_CUDA_CALLS) -> bool:
     """Whether the kernel takes tensor ``t`` and the tensors ``others``
     (None skipped): on CUDA, in a kernel dtype, all of one dtype and
     device, where it ``takes`` the layout; a CUDA call that does not is
-    counted."""
+    counted in ``plain`` (a kernel module's plain-version counts)."""
     if not t.is_cuda:
         return False
     if takes and t.dtype in KERNEL_DTYPES and all(
             o.dtype == t.dtype and o.device == t.device
             for o in others if o is not None):
         return True
-    PLAIN_CUDA_CALLS[plain_name] += 1
+    plain[plain_name] += 1
     return False
 
 
@@ -175,12 +175,13 @@ class _LongLong(int):
     """An argument the C entry takes as ``long long`` (a stride)."""
 
 
-def _launch(entry: str, like: torch.Tensor, *args) -> None:
-    """Call C entry ``entry`` of libfusion.so: tensors (or None) and host
-    int arrays as pointers, floats as ``double``, ints as ``int``
+def launch(library: str, counters: Counters, entry: str,
+           like: torch.Tensor, *args) -> None:
+    """Call C entry ``entry`` of ``lib<library>.so``: tensors (or None) and
+    host int arrays as pointers, floats as ``double``, ints as ``int``
     (``_LongLong`` as ``long long``), then the current stream; count the
-    launch under ``like``'s shape and dtype."""
-    lib = load_library("fusion")
+    launch in ``counters`` under ``like``'s shape and dtype."""
+    lib = load_library(library)
     fn = getattr(lib, entry)
     types, vals = [], []
     for a in args:
@@ -203,7 +204,12 @@ def _launch(entry: str, like: torch.Tensor, *args) -> None:
     fn.restype = ctypes.c_int
     code = fn(*vals, torch.cuda.current_stream(like.device).cuda_stream)
     check_launch(lib, entry, code)
-    _COUNTERS.count(f"{entry}_cuda", like)
+    counters.count(f"{entry}_cuda", like)
+
+
+def _launch(entry: str, like: torch.Tensor, *args) -> None:
+    """``launch`` of a C entry of libfusion.so."""
+    launch("fusion", _COUNTERS, entry, like, *args)
 
 
 def _scratch(*tensors):

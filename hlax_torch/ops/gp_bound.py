@@ -1,0 +1,490 @@
+"""The KL bound's terms as hand-written CUDA kernels (``csrc/gp_bound.cu``).
+
+hlax jits ``kld_upper_bound`` (``hlax/gp/elbo.py:154-235``) and XLA folds
+its chains (masks, ``exp``, diagonals, ``log``, the per-subject [T, T]
+work, the sums to scalars, the assembly of ``kld_total``) into a few
+fusions around its dots; the port ran them op by op, some seventy kernels
+forward and backward.  ``kld_terms`` takes them in four kernels and
+leaves the large batched products to cuBLAS (``torch.bmm``, as hlax
+leaves its dots to XLA): iK0zz m, KziBK = sum_st K0xz^T iB K0xz,
+E_mat = (iK0zz H) iK0zz and their backward products.
+
+  * ``gp_bound_fwd_subjects`` (K1): a block a (latent, chunk of subjects):
+    the fit, its residual r and (iB + iB^T) r, iB K0xz (for KziBK's
+    product), and the partial sums of A, Bt, C, sum iB o K0_st and F.
+  * ``gp_bound_fwd_latents`` (K2): a block a (latent, part of the rows):
+    sum KziBK o iK0zz, sum E_mat o KziBK, tr1, qf1, the log-determinants;
+    the last block adds every partial in a fixed order, in double, into
+    the terms (A, Bt, C, D, E, F, the KL of the inducing points), P_batch
+    and, without a mesh, ``kld_total``.
+  * ``gp_bound_bwd_latents`` (K4) and ``gp_bound_bwd_subjects`` (K3): the
+    backward from the scalar cotangents, into the cotangents of K0xz, the
+    B blocks' factors (iLB, diag LB), K0_st, iK0zz, the factors of K0zz
+    and H (their diagonals), H, m, mu and log_v, which feed the Cholesky
+    kernels' and the GP kernel matrices' autograd Functions unchanged.
+
+On a mesh the terms are summed over the ranks (``MeshSums``) before
+``kld_total`` is formed (``assemble``), as ``recon_metric`` hands its
+column sums to ``recon_metric_finish``.  The plain version is the port's
+op-by-op code, which the CPU runs and the parity tests hold to hlax; on
+CUDA in float32 and float64 the kernels run, in another dtype the plain
+version, counted in ``PLAIN_CUDA_CALLS``.  A failed build or launch
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from hlax_torch.ops import fusion
+from hlax_torch.ops.counters import Counters
+from hlax_torch.precision import highest
+
+# must match NT, NSUB, NLAT, NTERM and MAX_M in csrc/gp_bound.cu: threads a
+# block, a subject block's and a latent block's scalar partials, the terms,
+# the inducing points a subject block's columns take at most; TP, the rows
+# of a subject the staged path takes at most
+THREADS, NSUB, NLAT, NTERM, MAX_M, TP = 256, 5, 6, 7, 512, 32
+# blocks an SM the plans aim at: the subject kernels a subject a block up
+# to 8 an SM (a few waves of the two or three their registers leave
+# resident), more subjects a block beyond; the latent kernels two, a
+# latent's rows split among them
+SUBJECT_BLOCKS_PER_SM, LATENT_BLOCKS_PER_SM = 8, 2
+SMEM_MAX = 227 * 1024
+
+_COUNTERS = Counters(("gp_bound_fwd_subjects_cuda",
+                      "gp_bound_fwd_latents_cuda",
+                      "gp_bound_bwd_latents_cuda",
+                      "gp_bound_bwd_subjects_cuda"), ("gp_bound_plain",))
+LAUNCHES = _COUNTERS.launches
+LAUNCHES_BY_SHAPE = _COUNTERS.by_shape
+PLAIN_CUDA_CALLS = _COUNTERS.plain
+reset_counters = _COUNTERS.reset
+
+
+class SubjectPlan(NamedTuple):
+    """K1's and K3's grid: ``chunks`` blocks a latent, ``chunk`` subjects
+    a block; ``staged``: a subject's matrices in shared memory (else the
+    tiled products); K1's and K3's dynamic shared bytes."""
+    chunk: int
+    chunks: int
+    staged: bool
+    smem_fwd: int
+    smem_bwd: int
+
+
+class LatentPlan(NamedTuple):
+    """K2's and K4's grid: ``parts`` blocks a latent, ``rows`` rows of the
+    M x M matrices a block; their dynamic shared bytes (the transposed rows
+    they stage)."""
+    rows: int
+    parts: int
+    smem_fwd: int
+    smem_bwd: int
+
+
+def _a16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def subject_smem(k: int, staged: bool, T: int, M: int, z: int) -> int:
+    """K1's (k = 1) or K3's (k = 3) dynamic shared bytes, as the kernels
+    carve them (subject_smem, csrc/gp_bound.cu): the staged path's K0xz,
+    (K3) K0xz [G | G^T], iB, (K3) iLB, K0_st, (K3) (K0xz G) K0xz^T and
+    d iB + d iB^T, r, q, iKm and the rows' scalars; none for longer
+    subjects."""
+    if not staged:
+        return 0
+    if k == 1:
+        return (_a16(T * M * z) + 2 * _a16(T * T * z) + 2 * _a16(T * z)
+                + _a16(M * z) + _a16(4 * T * z))
+    return (_a16(T * M * z) + _a16(2 * T * M * z) + 3 * _a16(T * T * z)
+            + 2 * _a16(T * (T + 1) * z) + 2 * _a16(T * z) + _a16(M * z)
+            + _a16(3 * T * z))
+
+
+def subject_plan(L: int, S: int, T: int, M: int, itemsize: int,
+                 sms: int) -> SubjectPlan:
+    """As many (latent, subject) blocks as fill the card once, a subject a
+    block while they do; the staged path for subjects of at most TP rows
+    whose matrices fit SMEM_MAX (else cuBLAS takes the subjects'
+    products)."""
+    chunk = max(1, -(-L * S // (SUBJECT_BLOCKS_PER_SM * sms)))
+    staged = T <= TP and subject_smem(3, True, T, M, itemsize) <= SMEM_MAX
+    return SubjectPlan(chunk, -(-S // chunk), staged,
+                       subject_smem(1, staged, T, M, itemsize),
+                       subject_smem(3, staged, T, M, itemsize))
+
+
+def _latent_smem(rows: int, M: int, itemsize: int) -> Tuple[int, int]:
+    """K2's (H^T's rows) and K4's (H^T's, iK0zz^T's and E_mat^T's rows, d
+    m's vector in double) dynamic shared bytes."""
+    one = rows * (M + 1) * itemsize
+    return one, _a16(3 * one) + 8 * M
+
+
+def latent_plan(L: int, M: int, itemsize: int, sms: int) -> LatentPlan:
+    """Each latent's rows split into as many parts as give the card
+    LATENT_BLOCKS_PER_SM blocks an SM, within SMEM_MAX shared bytes."""
+    parts = min(max(1, -(-LATENT_BLOCKS_PER_SM * sms // L)), M)
+    rows = -(-M // parts)
+    while _latent_smem(rows, M, itemsize)[1] > SMEM_MAX:
+        if rows == 1:
+            raise ValueError(f"gp_bound: M = {M} does not fit {SMEM_MAX} "
+                             "bytes of shared memory")
+        rows = -(-rows // 2)
+    return LatentPlan(rows, -(-M // rows), *_latent_smem(rows, M, itemsize))
+
+
+def _launch(entry: str, like: torch.Tensor, *args) -> None:
+    """``fusion.launch`` of a C entry of libgp_bound.so."""
+    fusion.launch("gp_bound", _COUNTERS, entry, like, *args)
+
+
+def p_batch(valid: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The batch's real subjects (a subject of all padding does not count)."""
+    return (valid > 0).any(dim=1).to(dtype).sum()
+
+
+def kld_terms_plain(blk, LH, H, m, mu_st, log_v_st, valid):
+    """The terms (A, Bt, C, D, E, F, kld_qu_pu) [7] and P_batch of the
+    bound (``hlax/gp/elbo.py:183-218``), op by op; ``blk`` the
+    ``SubjectBlocks``, LH the factor of H.  Differentiable through iB."""
+    Ldim, M = H.shape[0], H.shape[1]
+    P_batch = p_batch(valid, blk.K0xz.dtype)
+
+    v_mask = valid[:, :, None]
+    mu_m = mu_st * v_mask                                # [S, T, L]
+    v_m = torch.exp(log_v_st) * v_mask
+
+    # A: quadratic fit of K0xz iK0zz m - mu under iB
+    iKm = torch.einsum("lmn,lno->lmo", blk.iK0zz, m)     # [L, M, 1]
+    fit = torch.einsum("lstm,lmo->lst", blk.K0xz, iKm)   # [L, S, T]
+    r = fit - mu_m.permute(2, 0, 1)                      # [L, S, T]
+    A = torch.einsum("lst,lstu,lsu->", r, blk.iB, r)
+
+    diag_iB = torch.diagonal(blk.iB, dim1=-2, dim2=-1)   # [L, S, T]
+    Bt = torch.einsum("lst,stl->", diag_iB, v_m)
+    C = torch.log(torch.diagonal(blk.LB, dim1=-2, dim2=-1)).sum() * 2.0
+
+    iB_K0xz = torch.einsum("lstu,lsum->lstm", blk.iB, blk.K0xz)
+    KziBK = torch.einsum("lstm,lstn->lmn", blk.K0xz, iB_K0xz)   # [L, M, M]
+    D = (blk.iB * blk.K0_st).sum() - (KziBK * blk.iK0zz).sum()
+
+    E_mat = torch.einsum("lmn,lno,lop->lmp", blk.iK0zz, H, blk.iK0zz)
+    E = (E_mat * KziBK).sum()
+    F = (log_v_st * v_mask).sum()
+
+    # KL(q(u) || p(u))
+    tr1 = (blk.iK0zz * H.mT).sum()
+    qf1 = (m * torch.einsum("lmn,lno->lmo", blk.iK0zz, m)).sum()
+    logdetK = logdet_from_chol(blk.LK0zz).sum()
+    logdetH = logdet_from_chol(LH).sum()
+    kld_qu_pu = 0.5 * (tr1 + qf1 - Ldim * M + logdetK - logdetH)
+    return torch.stack([A, Bt, C, D, E, F, kld_qu_pu]), P_batch
+
+
+def logdet_from_chol(L):
+    """logdet A from the Cholesky factor L of A [..., n, n]."""
+    return 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+
+
+def assemble(terms: torch.Tensor, P_batch, P_tot, N_tot, L_tot):
+    """kld_total from the terms [7] and P_batch (global, on a mesh) of
+    ``L_tot`` latents."""
+    A, Bt, C, D, E, F, kld_qu_pu = terms.unbind()
+    return (P_tot / P_batch * 0.5 * (A + Bt + C + D + E - F)
+            + kld_qu_pu - L_tot * N_tot / 2.0)
+
+
+# ------------------------------------------------------------ the kernels
+#
+# Each wrapper allocates its kernel's outputs and launches it on a CUDA
+# tensor; on a CPU tensor it runs the kernel's plain version (the same
+# function in torch operations, partial sums and all), which the CPU tests
+# hold to autograd of ``kld_terms_plain`` and ``chip_smoke.py`` holds the
+# kernel to on the card.
+
+def _diag(x):
+    return torch.diagonal(x, dim1=-2, dim2=-1)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the kernel wrappers launch on ``t`` (else the kernels' plain
+    versions run)."""
+    return t.is_cuda
+
+
+def fwd_subjects(K0xz, iB, K0st, LB, iKm, mu, lv, valid, sp: SubjectPlan):
+    """K1: (W = iB K0xz, r, q = (iB + iB^T) r, the blocks' partials
+    [L, chunks, NSUB + M]: A, Bt, sum log diag LB, sum iB o K0_st, F, then
+    u = sum_st K0xz^T q; and for float inputs K0xz and W in double, else
+    None, None)."""
+    L, S, T, M = K0xz.shape
+    W = torch.empty_like(K0xz)
+    d = torch.float64
+    K64, W64 = ((torch.empty(K0xz.shape, dtype=d, device=K0xz.device)
+                 for _ in range(2)) if K0xz.dtype != d else (None, None))
+    r = torch.empty((L, S, T), dtype=K0xz.dtype, device=K0xz.device)
+    q = torch.empty_like(r)
+    part = torch.empty((L, sp.chunks, NSUB + M), dtype=d,
+                       device=K0xz.device)
+    if _on_card(K0xz):
+        _launch("gp_bound_fwd_subjects", K0xz, K0xz.element_size(), K0xz,
+                iB, K0st, LB, iKm, mu, lv, valid, W, K64, W64, r, q, part, L,
+                S, T, M, L, sp.chunk, int(sp.staged), sp.smem_fwd)
+        if not sp.staged:      # longer subjects: the products by cuBLAS
+            torch.matmul(iB, K0xz, out=W)
+            if K64 is not None:
+                K64.copy_(K0xz)
+                torch.matmul(iB.to(d), K64, out=W64)
+        return W, K64, W64, r, q, part
+    vm = valid[:, :, None]
+    r.copy_(torch.einsum("lstm,lm->lst", K0xz, iKm[..., 0])
+            - (mu * vm).permute(2, 0, 1))
+    row = torch.einsum("lstu,lsu->lst", iB, r)
+    q.copy_(row + torch.einsum("lsut,lsu->lst", iB, r))
+    W.copy_(iB.to(d) @ K0xz.to(d))
+    if K64 is not None:
+        K64.copy_(K0xz)
+        W64.copy_(iB.to(d) @ K0xz.to(d))
+    per = torch.stack([
+        (r.to(d) * row.to(d)).sum(-1),
+        (_diag(iB) * (torch.exp(lv) * vm).permute(2, 0, 1)).to(d).sum(-1),
+        torch.log(_diag(LB)).to(d).sum(-1),
+        (iB * K0st).to(d).sum((-1, -2)),
+        (lv * vm).permute(2, 0, 1).to(d).sum(-1)], dim=-1)    # [L, S, NSUB]
+    per = torch.cat([per, torch.einsum("lstm,lst->lsm", K0xz.to(d),
+                                       q.to(d))], dim=-1)
+    for c in range(sp.chunks):
+        part[:, c] = per[:, c * sp.chunk:(c + 1) * sp.chunk].sum(1)
+    return W, K64, W64, r, q, part
+
+
+def _terms(sums1, sums2, L: int, M: int):
+    """(A, Bt, C, D, E, F, kqu) in double from the subject blocks' five sums
+    and the latent blocks' six."""
+    A, Bt, C2, D1, F = sums1.unbind()
+    D2, E, tr1, qf1, lk, lh = sums2.unbind()
+    kqu = 0.5 * (tr1 + qf1 - float(L * M) + 2.0 * lk - 2.0 * lh)
+    return torch.stack([A, Bt, 2.0 * C2, D1 - D2, E, F, kqu])
+
+
+def fwd_latents(iK, Kz64, Em, H, m, iKm, LK, LH, valid, part1,
+                sp: SubjectPlan, lp: LatentPlan, totals):
+    """K2, from KziBK in double (``Kz64``): (u [L, M] in double, the terms
+    [7], P_batch, kld_total or None)."""
+    L, M = iK.shape[0], iK.shape[1]
+    S, T = valid.shape
+    dt, dev = iK.dtype, iK.device
+    u = torch.empty((L, M), dtype=torch.float64, device=dev)
+    terms = torch.empty(NTERM, dtype=dt, device=dev)
+    pb = torch.empty((), dtype=dt, device=dev)
+    kld = torch.empty((), dtype=dt, device=dev) if totals else None
+    p_tot, n_tot = totals or (0.0, 0.0)
+    if _on_card(iK):
+        part2 = torch.empty(L * lp.parts * NLAT, dtype=torch.float64,
+                            device=dev)
+        _launch("gp_bound_fwd_latents", iK, iK.element_size(), iK, Kz64,
+                Em, H, m, iKm, LK, LH, valid, part1, sp.chunks, part2, u, terms,
+                pb, kld, fusion._counters(iK, 1), L, S, T, M, lp.rows,
+                float(p_tot), float(n_tot), lp.smem_fwd)
+        return u, terms, pb, kld
+    d = torch.float64
+    u.copy_(part1[..., NSUB:].sum(1))
+    sums2 = torch.stack([(Kz64 * iK).sum(), (Em * Kz64).sum(),
+                         (iK * H.mT).to(d).sum(), (m * iKm).to(d).sum(),
+                         torch.log(_diag(LK)).to(d).sum(),
+                         torch.log(_diag(LH)).to(d).sum()])
+    t = _terms(part1[..., :NSUB].sum((0, 1)), sums2, L, M)
+    P = p_batch(valid, d)
+    terms.copy_(t)
+    pb.copy_(P)
+    if kld is not None:
+        A, Bt, C, D, E, F, kqu = t.unbind()
+        kld.copy_(p_tot / P * 0.5 * (A + Bt + C + D + E - F) + kqu
+                  - L * n_tot / 2.0)
+    return u, terms, pb, kld
+
+
+def term_weights(g_terms, g_kld, pb, p_tot: float) -> torch.Tensor:
+    """The cotangents [7] (double) of the terms, from the Function's: the
+    terms' own (None: zero) and kld_total's (None: zero)."""
+    d = torch.float64
+    half = p_tot / pb.to(d) * 0.5
+    w = torch.zeros(NTERM, dtype=d, device=pb.device)
+    if g_terms is not None:
+        w = w + g_terms.to(d)
+    if g_kld is not None:
+        coef = torch.stack([half] * 5 + [-half, torch.ones_like(half)])
+        w = w + g_kld.to(d) * coef
+    return w
+
+
+def bwd_latents(g_terms, g_kld, pb, p_tot, iK, Kz, Em, H, m, iKm, u, LK,
+                LH, R1, R2, R3, lp: LatentPlan, need_h: bool, need_m: bool,
+                need_l: bool):
+    """K4: (G2 = [G | G^T] with G = d KziBK, d iK0zz, d H, d m, d LK0zz,
+    d LH), the last four None where not needed (``need_h``: H and R3 =
+    iK^T KziBK iK^T; ``need_l``: the factors)."""
+    L, M = iK.shape[0], iK.shape[1]
+    G2 = torch.empty((L, M, 2 * M), dtype=iK.dtype, device=iK.device)
+    dIK = torch.empty_like(iK)
+    dH = torch.empty_like(H) if need_h else None
+    dm = torch.empty_like(m) if need_m else None
+    dLK = torch.empty_like(LK) if need_l else None
+    dLH = torch.empty_like(LH) if need_l else None
+    if _on_card(iK):
+        _launch("gp_bound_bwd_latents", iK, iK.element_size(), g_terms, g_kld,
+                pb, float(p_tot), iK, Kz, Em, H, m, iKm, u, LK, LH, R1, R2,
+                R3, G2, dIK, dH, dm, dLK, dLH, L, M, lp.rows, lp.smem_bwd)
+        return G2, dIK, dH, dm, dLK, dLH
+    w = term_weights(g_terms, g_kld, pb, p_tot)
+    a, wd, we, k = w[0], w[3], w[4], w[6]
+    d = torch.float64
+    v = a * u + 0.5 * k * m[..., 0].to(d)                          # [L, M]
+    G = -wd * iK.to(d) + we * Em.to(d)
+    G2.copy_(torch.cat([G, G.mT], dim=-1))
+    dIK.copy_(-wd * Kz.to(d) + 0.5 * k * H.mT.to(d)
+              + v[:, :, None] * m[:, None, :, 0].to(d)
+              + we * (R1.to(d) + R2.to(d)))
+    if need_h:
+        dH.copy_(0.5 * k * iK.mT.to(d) + we * R3.to(d))
+    if need_m:
+        dm.copy_((torch.einsum("lmn,lm->ln", iK.to(d), v)
+                  + 0.5 * k * iKm[..., 0].to(d))[..., None])
+    if need_l:
+        dLK.copy_(torch.diag_embed(k / _diag(LK).to(d)))
+        dLH.copy_(torch.diag_embed(-k / _diag(LH).to(d)))
+    return G2, dIK, dH, dm, dLK, dLH
+
+
+def bwd_subjects(g_terms, g_kld, pb, p_tot, K0xz, iB, iLB, K0st, LB, lv,
+                 valid, r, q, iKm, Y2, sp: SubjectPlan):
+    """K3: (d K0xz, d iLB, d K0_st, d LB, d mu, d log_v) from Y2 = K0xz
+    [G | G^T] [L, S T, 2 M]."""
+    L, S, T, M = K0xz.shape
+    dK0xz = torch.empty_like(K0xz)
+    diLB, dK0st, dLB = (torch.empty_like(iB) for _ in range(3))
+    dmu = torch.empty((S, T, L), dtype=K0xz.dtype, device=K0xz.device)
+    dlv = torch.empty_like(dmu)
+    if _on_card(K0xz):
+        sym = torch.empty_like(iB)
+        if not sp.staged:      # longer subjects: the products by cuBLAS
+            b = lambda t, n: t.reshape(L * S, T, n)
+            Y2s = b(Y2, 2 * M)
+            torch.bmm(b(iB, T), Y2s[..., M:], out=b(dK0xz, M))
+            b(dK0xz, M).baddbmm_(b(iB, T).mT, Y2s[..., :M])
+            torch.bmm(Y2s[..., :M], b(K0xz, M).mT, out=b(sym, T))
+        _launch("gp_bound_bwd_subjects", K0xz, K0xz.element_size(), g_terms,
+                g_kld, pb, float(p_tot), K0xz, iB, iLB, K0st, LB, lv, valid,
+                r, q, iKm, Y2, fusion._scratch(sym)[0], dK0xz, diLB, dK0st,
+                dLB, dmu, dlv, L, S, T, M, L, sp.chunk, int(sp.staged),
+                sp.smem_bwd)
+        if not sp.staged:
+            torch.bmm(b(iLB, T), b(sym, T), out=b(diLB, T))
+        return dK0xz, diLB, dK0st, dLB, dmu, dlv
+    w = term_weights(g_terms, g_kld, pb, p_tot).to(K0xz.dtype)
+    a, b, c, wd, f = w[0], w[1], w[2], w[3], w[5]
+    Y = Y2[..., :M].reshape(L, S, T, M)
+    Yt = Y2[..., M:].reshape(L, S, T, M)
+    dK0xz.copy_(a * q[..., None] * iKm[:, None, None, :, 0] + iB @ Yt
+                + iB.mT @ Y)
+    vm = valid[:, :, None]
+    v = (torch.exp(lv) * vm).permute(2, 0, 1)                     # [L, S, T]
+    dIB = (a * r[..., :, None] * r[..., None, :] + b * torch.diag_embed(v)
+           + wd * K0st + Y @ K0xz.mT)
+    diLB.copy_(iLB @ (dIB + dIB.mT))
+    dK0st.copy_(wd * iB)
+    dLB.copy_(torch.diag_embed(2.0 * c / _diag(LB)))
+    dmu.copy_((-a * q).permute(1, 2, 0) * vm)
+    dlv.copy_(f * vm + b * _diag(iB).permute(1, 2, 0) * vm * torch.exp(lv))
+    return dK0xz, diLB, dK0st, dLB, dmu, dlv
+
+
+class _GpBound(torch.autograd.Function):
+    """The kernels' terms, P_batch and (``totals``) kld_total; the
+    backward from the cotangents of the terms and kld_total."""
+
+    @staticmethod
+    @highest
+    def forward(ctx, K0xz, iLB, LB, K0st, iK, LK, LH, H, m, mu, lv, iB,
+                valid, totals):
+        ctx.set_materialize_grads(False)
+        L, S, T, M = K0xz.shape
+        sms = (fusion._sm_count(K0xz.device.index) if _on_card(K0xz)
+               else fusion.GP_SMS)
+        sp = subject_plan(L, S, T, M, K0xz.element_size(), sms)
+        lp = latent_plan(L, M, K0xz.element_size(), sms)
+        iKm = torch.bmm(iK, m)                                # [L, M, 1]
+        W, K64, W64, r, q, part1 = fwd_subjects(K0xz, iB, K0st, LB, iKm,
+                                                mu, lv, valid, sp)
+        Kz = torch.bmm(K0xz.view(L, S * T, M).mT,
+                       W.view(L, S * T, M))                   # KziBK
+        # the terms' KziBK in double (float inputs: see fwd_subjects)
+        Kz64 = Kz if K64 is None else torch.bmm(
+            K64.view(L, S * T, M).mT, W64.view(L, S * T, M))
+        # E_mat in the plain version's order, (iK0zz H) iK0zz
+        Em = torch.bmm(torch.bmm(iK, H), iK)
+        u, terms, pb, kld = fwd_latents(iK, Kz64, Em, H, m, iKm, LK, LH,
+                                        valid, part1, sp, lp, totals)
+        ctx.p_tot = float(totals[0]) if totals else 0.0
+        ctx.plans = (sp, lp)
+        ctx.mark_non_differentiable(pb)
+        ctx.save_for_backward(K0xz, iB, iLB, K0st, LB, iK, LK, LH, H, m,
+                              lv, valid, iKm, Kz, Em, r, q, u, pb)
+        return terms, pb, kld
+
+    @staticmethod
+    @highest
+    def backward(ctx, g_terms, g_pb, g_kld):
+        (K0xz, iB, iLB, K0st, LB, iK, LK, LH, H, m, lv, valid, iKm, Kz, Em,
+         r, q, u, pb) = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if g_terms is None and g_kld is None:
+            return (None,) * 14
+        L, S, T, M = K0xz.shape
+        sp, lp = ctx.plans
+        if g_terms is not None:
+            g_terms = g_terms.contiguous()
+        # E_mat's backward products: iK^T KziBK, KziBK (H iK)^T,
+        # H^T iK^T KziBK and (for H) iK^T KziBK iK^T
+        T1 = torch.bmm(iK.mT, Kz)
+        R1 = torch.bmm(Kz, torch.bmm(H, iK).mT)
+        R2 = torch.bmm(H.mT, T1)
+        R3 = torch.bmm(T1, iK.mT) if need[7] else None
+        G2, dIK, dH, dm, dLK, dLH = bwd_latents(
+            g_terms, g_kld, pb, ctx.p_tot, iK, Kz, Em, H, m, iKm, u, LK, LH,
+            R1, R2, R3, lp, need[7], need[8], need[5] or need[6])
+        # K0xz [G | G^T]: d KziBK's product for d K0xz and d iB
+        Y2 = torch.bmm(K0xz.view(L, S * T, M), G2)
+        dK0xz, diLB, dK0st, dLB, dmu, dlv = bwd_subjects(
+            g_terms, g_kld, pb, ctx.p_tot, K0xz, iB, iLB, K0st, LB, lv,
+            valid, r, q, iKm, Y2, sp)
+        grads = (dK0xz, diLB, dLB, dK0st, dIK, dLK, dLH, dH, dm, dmu, dlv)
+        return tuple(g if n else None for g, n in zip(grads, need)) + (
+            None, None, None)
+
+
+def kld_terms(blk, LH, H, m, mu_st, log_v_st, valid,
+              totals: Optional[Tuple[float, float]] = None):
+    """The bound's terms (A, Bt, C, D, E, F, kld_qu_pu) [7], P_batch and,
+    with ``totals`` = (P_tot, N_tot), kld_total (else None: a mesh sums the
+    terms first and then calls ``assemble``).  ``blk``: the
+    ``SubjectBlocks``; LH: the factor of H [L, M, M]; m [L, M, 1]; mu_st,
+    log_v_st [S, T, L]; valid [S, T].  The kernels on CUDA in float32 and
+    float64, else the plain version (``kld_terms_plain``)."""
+    args = (blk.K0xz, blk.iLB, blk.LB, blk.K0_st, blk.iK0zz, blk.LK0zz, LH,
+            H, m, mu_st, log_v_st)
+    if not fusion._uses_kernel(True, blk.K0xz, "gp_bound_plain", *args,
+                               blk.iB, valid, plain=PLAIN_CUDA_CALLS):
+        terms, P_batch = kld_terms_plain(blk, LH, H, m, mu_st, log_v_st,
+                                         valid)
+        kld = assemble(terms, P_batch, *totals, H.shape[0]) if totals \
+            else None
+        return terms, P_batch, kld
+    args = tuple(a.contiguous() for a in args)
+    return _GpBound.apply(*args, blk.iB.detach().contiguous(),
+                          valid.contiguous(), totals)

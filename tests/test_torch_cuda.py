@@ -1881,3 +1881,169 @@ def test_tf32_graph_steps_equal_eager_steps(gen, cudnn_deterministic):
     for x, y in [(a.m, b.m), (a.H, b.H)] + list(zip(a.vae.parameters(),
                                                     b.vae.parameters())):
         assert _rel(y, x) <= 1e-5
+
+
+# ---- the KL bound's terms (ops/gp_bound.py, csrc/gp_bound.cu) ----------------
+
+BOUND_LEAVES = ("K0xz", "iLB", "LB", "K0_st", "iK0zz", "LK0zz", "LH", "H",
+                "m", "mu", "log_v")
+
+
+def _bound_case(L, S, T, M, dtype, gen, pad=True):
+    """The bound's inputs on the card from one seed: rbf kernel matrices of
+    random covariates and inducing points, their factors, a random SPD H,
+    m, mu and log_v; with ``pad``, subject 1 padded from T // 2 and subject
+    2 all padding.  Returns (leaves in BOUND_LEAVES order, valid)."""
+    f64 = dict(dtype=torch.float64, device="cuda")
+    x = torch.randn((S, T, 1), generator=gen, **f64)
+    z = 1.5 * torch.randn((L, M, 1), generator=gen, **f64)
+    valid = torch.ones((S, T), **f64)
+    if pad:
+        valid[1, T // 2:] = 0
+        valid[2] = 0
+    vo = valid[:, :, None] * valid[:, None, :]
+    rbf = lambda a, b: torch.exp(-0.5 * (a - b.mT) ** 2)
+    K0xz = rbf(x[None], z[:, None]) * valid[None, :, :, None]
+    K0zz = rbf(z, z) + 1e-3 * torch.eye(M, **f64)
+    LK = torch.linalg.cholesky(K0zz)
+    iLK = torch.linalg.solve_triangular(LK, torch.eye(M, **f64), upper=False)
+    B = (0.5 * rbf(x, x) * vo).expand(L, S, T, T) + torch.eye(T, **f64) * (
+        0.3 * valid + (1 - valid))[None, :, :, None]
+    LB = torch.linalg.cholesky(B)
+    iLB = torch.linalg.solve_triangular(LB, torch.eye(T, **f64).expand_as(B),
+                                        upper=False)
+    K0st = (rbf(x, x) * vo).expand(L, S, T, T).contiguous()
+    a = 0.1 * torch.randn((L, M, M), generator=gen, **f64)
+    H = a @ a.mT + 0.5 * torch.eye(M, **f64)
+    leaves = [K0xz, iLB, LB, K0st, iLK.mT @ iLK, LK,
+              torch.linalg.cholesky(H), H,
+              torch.randn((L, M, 1), generator=gen, **f64),
+              torch.randn((S, T, L), generator=gen, **f64) * valid[..., None],
+              0.3 * torch.randn((S, T, L), generator=gen, **f64)]
+    return [t.to(dtype).contiguous() for t in leaves], valid.to(dtype)
+
+
+def _bound_run(kernel, case, need_hm=True, w=None):
+    """(terms, P_batch, kld_total, the 11 leaves' gradients of kld_total +
+    w . terms) by the kernels (``kernel``) or autograd of the plain
+    version; H and m without gradients unless ``need_hm``."""
+    from types import SimpleNamespace
+
+    from hlax_torch.ops import gp_bound as gb
+
+    base, valid = case
+    xs = [t.detach().clone().requires_grad_(need_hm or i not in (7, 8))
+          for i, t in enumerate(base)]
+    K0xz, iLB, LB, K0st, iK, LK, LH, H, m, mu, lv = xs
+    iB = torch.einsum("lskt,lsku->lstu", iLB, iLB)
+    totals = (200.0, 4000.0)
+    if kernel:
+        terms, pb, kld = gb._GpBound.apply(K0xz, iLB, LB, K0st, iK, LK, LH,
+                                           H, m, mu, lv, iB.detach(), valid,
+                                           totals)
+    else:
+        blk = SimpleNamespace(K0xz=K0xz, iB=iB, LB=LB, K0_st=K0st, iK0zz=iK,
+                              LK0zz=LK)
+        terms, pb = gb.kld_terms_plain(blk, LH, H, m, mu, lv, valid)
+        kld = gb.assemble(terms, pb, *totals, K0xz.shape[0])
+    if w is None:
+        w = torch.linspace(-1.0, 1.0, 7, dtype=terms.dtype, device="cuda")
+    wants = [x for x in xs if x.requires_grad]
+    grads = torch.autograd.grad(kld + (terms * w).sum(), wants)
+    return [terms.detach(), pb, kld.detach(), *grads]
+
+
+# [L, S, T, M]: the canonical shape with a padded and an all-padding
+# subject, ragged sizes (M = 37, T = 13: tiles cut at both edges), a
+# T = 200 block of long sequences and a mesh rank's latents
+BOUND_SHAPES = [(32, 20, 20, 120), (3, 7, 13, 37), (32, 4, 200, 120),
+                (16, 10, 20, 120)]
+
+
+@pytest.mark.parametrize("need_hm", [True, False])
+@pytest.mark.parametrize("shape", BOUND_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gp_bound_kernels_against_plain_version(gen, dtype, shape, need_hm):
+    """The bound's terms, P_batch, kld_total and every gradient (H and m
+    too where Adam trains them, ``need_hm``) through the four kernels,
+    against autograd of the plain version: float64 within 1e-10, float32
+    within 4x the plain version's own error against float64."""
+    from hlax_torch.ops import gp_bound as gb
+
+    case = _bound_case(*shape, dtype, gen)
+    before = dict(gb.LAUNCHES)
+    got = _bound_run(True, case, need_hm)
+    torch.cuda.synchronize()
+    for k in gb.LAUNCHES:
+        assert gb.LAUNCHES[k] == before[k] + 1, k
+    plain = _bound_run(False, case, need_hm)
+    assert got[1].item() == plain[1].item() == shape[1] - 1
+    if dtype == torch.float32:
+        ref = _bound_run(False, ([t.double() for t in case[0]],
+                                 case[1].double()), need_hm)
+        for i, (a, b, r) in enumerate(zip(got, plain, ref)):
+            _hold(f"output {i}", a, b, r)
+        return
+    g = torch.Generator("cuda").manual_seed(11)
+    moved = _bound_run(False, ([t * (1 + 2.0 ** -52 * (2 * torch.randint(
+        0, 2, t.shape, generator=g, device="cuda").double() - 1))
+        for t in case[0]], case[1]), need_hm)
+    for i, (a, b, c) in enumerate(zip(got, plain, moved)):
+        _hold_bound(f"output {i}", a, b, c)
+
+
+def _hold_bound(name, got, plain, moved):
+    """A float64 output of the bound within 1e-10 of the plain version's
+    largest entry, or within 4x how far the plain version itself moves
+    (``moved``) when every input moves by one unit in the last place,
+    where that is larger: the bound's B-block gradients reach their size
+    through ~1e6-fold cancellation, which both versions round in other
+    orders ([fusion]'s float64 bar)."""
+    scale = plain.abs().max().item()
+    err = (got - plain).abs().max().item()
+    own = (moved - plain).abs().max().item()
+    assert err <= max(1e-10 * scale, 4 * own), (name, err, scale, own)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gp_bound_graph_replays_eager_call(gen, dtype):
+    """The bound's forward and backward at the canonical shape captured in
+    a CUDA graph and replayed twice: equal to the eager call bit for bit
+    (every sum in a fixed order, the last block's counter zero again)."""
+    case = _bound_case(32, 20, 20, 120, dtype, gen)
+    eager = _bound_run(True, case)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _bound_run(True, case)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _bound_run(True, case)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(captured, eager)):
+            assert torch.equal(a, b), (i, (a - b).abs().max().item())
+
+
+def test_gp_bound_op_dispatch(gen):
+    """``kld_terms`` on the card launches the kernels in float32 and
+    float64 and counts a plain call in bfloat16; without ``totals`` (a
+    mesh) it returns no kld_total."""
+    from types import SimpleNamespace
+
+    from hlax_torch.ops import gp_bound as gb
+
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        (K0xz, iLB, LB, K0st, iK, LK, LH, H, m, mu, lv), valid = \
+            _bound_case(3, 7, 13, 37, dtype, gen)
+        iB = torch.einsum("lskt,lsku->lstu", iLB, iLB)
+        blk = SimpleNamespace(K0xz=K0xz, iB=iB, LB=LB, K0_st=K0st,
+                              iK0zz=iK, LK0zz=LK, iLB=iLB)
+        gb.reset_counters()
+        terms, pb, kld = gb.kld_terms(blk, LH, H, m, mu, lv, valid)
+        assert kld is None and terms.shape == (7,)
+        kernel = dtype != torch.bfloat16
+        assert gb.LAUNCHES["gp_bound_fwd_latents_cuda"] == int(kernel)
+        assert gb.PLAIN_CUDA_CALLS["gp_bound_plain"] == int(not kernel)
