@@ -118,8 +118,16 @@ Phases (each prints its own lines; any failure exits non-zero):
              chain, and the two products' times; the MLP's heads (with
              and without the logvar network) and metric, and the heads and
              the representation at a [mesh] rank's rows, held to their
-             plain versions too;
-             with the parent tree under parent/, its fusion.cu built into
+             plain versions too; the bound's subject kernels swept over
+             the subjects a launch takes (ms against 20..640 subjects at
+             [32, 20, 20, 120] and 4..128 at [32, 4, 200, 120], float32
+             and float64: the launch's fixed part and a subject's cost);
+             with the parent tree under parent/, its gp_bound.cu built
+             into build/parent/gp_bound/ and its subject kernels, through
+             its own wrapper, against the change's at the card tests'
+             bound shapes and T = 500 in both dtypes (every result compared
+             bit for bit; each launch timed warm and L2-cold in turns
+             parent, change, change, parent); its fusion.cu built into
              build/parent/ (its GP kernels' registers, stack frame and
              spill printed) and its GP ops, on its own wrapper, held to
              the same bars and timed against the current ones in turns
@@ -147,8 +155,10 @@ Phases (each prints its own lines; any failure exits non-zero):
              2 a batch) on synthetic D4-shaped data, L = 32, M = 120, conv,
              float32: 5 steps after a warm-up one, then the DUBO and the
              predictor over the n = 256 and 512 buckets, all through the
-             blocked composition on the mid kernel; at T = 200 graph steps
-             against eager steps (float64, [graph]'s bound) and both
+             blocked composition on the mid kernel; the bound's subject
+             kernels' launches a step, the kernels held to the plain
+             version and timed on each T's first batch; at T = 200 graph
+             steps against eager steps (float64, [graph]'s bound) and both
              steps/s.
  10. mlp     the canonical data with --conv_hivae=False (hidden [500],
              y_dim 5): 3 epochs through the fused heads and metric, no
@@ -468,11 +478,17 @@ STAGED_INSTANCES = tuple(
        for t in ("float", "double") for lv in ("false", "true")]
     + [f"{k}<{t},5>" for k in ("rep_image_bwd_kernel", "recon_metric_kernel")
        for t in ("float", "double")])
+# the KL bound's subject kernels (csrc/gp_bound.cu), float and double: K1
+# and K3 staged and their row-tile kernels
+SUBJECT_INSTANCES = tuple(f"gp_bound_{d}_{k}_kernel<{t}>"
+                          for k in ("subjects", "tiles")
+                          for d in ("fwd", "bwd") for t in ("float", "double"))
 # the kernels that must not spill, by library, and whether a stack frame
 # fails them too: the float64 blocked mid kernel, every GP kernel, the
-# staged kernels
+# staged kernels, the bound's subject kernels
 NO_SPILL = ([("chol_inv_mid", "chol_inv_mid_blocked64_kernel", False)]
-            + [("fusion", k, True) for k in GP_INSTANCES + STAGED_INSTANCES])
+            + [("fusion", k, True) for k in GP_INSTANCES + STAGED_INSTANCES]
+            + [("gp_bound", k, True) for k in SUBJECT_INSTANCES])
 
 
 def _ptxas_report(tag: str, name: str, log: str, only: str = "") -> dict:
@@ -520,8 +536,9 @@ def phase_build() -> None:
             fail(f"[build] {kernel}: {stack} bytes stack frame, {spill} "
                  "bytes spill (stores and loads)")
     print(f"[build] no spill in {len(NO_SPILL)} kernels, no stack frame in "
-          f"the {len(GP_INSTANCES)} GP kernels and the "
-          f"{len(STAGED_INSTANCES)} staged kernels", flush=True)
+          f"the {len(GP_INSTANCES)} GP kernels, the "
+          f"{len(STAGED_INSTANCES)} staged kernels and the "
+          f"{len(SUBJECT_INSTANCES)} bound's subject kernels", flush=True)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1897,29 +1914,36 @@ def long_t_dataset(T: int, P: int, seed: int = 0):
                                conv=True)
 
 
+def long_t_specs():
+    """The GP specs of [longT]'s synthetic D4-shaped data."""
+    from hlax_torch.gp.kernels import build_kernel_specs
+
+    return build_kernel_specs(
+        [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2},
+                       {"cont_covariate": 0, "cat_covariate": 3},
+                       {"cont_covariate": 1, "cat_covariate": 4}], [], [], 2)
+
+
 def phase_long_t(tmp: str):
     """T = 200 and T = 500 at L = 32, M = 120, conv, float32: a warm-up
     step and 5 timed steps, whose B blocks [32, S, T, T] go through the
     blocked composition (2 x 100 and 4 x 125 on the mid kernel), then the
     DUBO and the predictor over the whole set (the n = 256 and 512 buckets,
     diagonal blocks of 128); then at T = 200 the graph steps against the
-    eager steps and both steps/s (``_graph_beside_eager``).  At T = 200 the
-    bound's subject kernels, unstaged there with cuBLAS's products around
-    them, are held against the plain version and timed on that state's
-    first batch (``_gp_bound_fusion``).  Returns (the launches by (kernel,
+    eager steps and both steps/s (``_graph_beside_eager``).  At T = 200 and
+    500 the bound's subject kernels, in row tiles there with cuBLAS's
+    products around them, are counted a step, held against the plain
+    version and timed on each state's first batch (``_gp_bound_fusion``).  Returns (the launches by (kernel,
     shape, dtype), the kernel table's rows of those two kernels)."""
     from hlax_torch.data.dataset import (epoch_subject_batches, gather_batch,
                                          stage_dataset, subject_batches)
     from hlax_torch.eval import validate as val
-    from hlax_torch.gp.kernels import build_kernel_specs, noise_value
+    from hlax_torch.gp.kernels import noise_value
     from hlax_torch.models.hlvae import HLVAE, HLVAEConfig
     from hlax_torch.ops import linalg_small as ls
     from hlax_torch.train import step as tstep
 
-    spec0, spec1 = build_kernel_specs(
-        [2], [], [0], [{"cont_covariate": 0, "cat_covariate": 2},
-                       {"cont_covariate": 0, "cat_covariate": 3},
-                       {"cont_covariate": 1, "cat_covariate": 4}], [], [], 2)
+    spec0, spec1 = long_t_specs()
     counts, rows = {}, []
     for T, P, S in LONG_T:
         t0 = time.perf_counter()
@@ -1980,17 +2004,20 @@ def phase_long_t(tmp: str):
                for k in ("fwd", "bwd")}})
         for key, v in by_shape.items():
             counts[key] = counts.get(key, 0) + v
-        if (T, P, S) == LONG_T[0]:
-            batch = gather_batch(staged, batches[0])
-            with torch.no_grad():
-                mu_b, lv_b = state.vae.encode(batch["data"], batch["mask"])
-            rows += _gp_bound_fusion(
-                dict(batch=batch, specs=(spec0, spec1), k0=state.k0,
-                     k1=state.k1, noise=noise.detach(), zt=state.zt,
-                     eps=cfg.eps, H=state.H.detach(), m=state.m.detach(),
-                     mu=mu_b, log_var=lv_b),
-                torch.float32, tag, ("gp_bound_fwd_subjects",
-                                     "gp_bound_bwd_subjects"))
+        print(f"[{tag}] the bound's subject kernels' launches a step: "
+              + ", ".join(f"{k} " + str(by_shape.get(
+                  (f"{k}_cuda", (32, S, T, 120), "float32"), 0) / len(losses))
+                          for k in SUBJECT_ENTRIES)
+              + f" ({len(losses)} steps)", flush=True)
+        batch = gather_batch(staged, batches[0])
+        with torch.no_grad():
+            mu_b, lv_b = state.vae.encode(batch["data"], batch["mask"])
+        rows += _gp_bound_fusion(
+            dict(batch=batch, specs=(spec0, spec1), k0=state.k0, k1=state.k1,
+                 noise=noise.detach(), zt=state.zt, eps=cfg.eps,
+                 H=state.H.detach(), m=state.m.detach(), mu=mu_b,
+                 log_var=lv_b),
+            torch.float32, tag, SUBJECT_ENTRIES)
         print(f"[{tag}] {P} subjects, {S} a batch: data made in {made:.1f} "
               f"s; losses {losses}; {5 / train_s:.3f} steps/s, "
               f"{5 * S * T / train_s:.1f} rows/s (5 steps after a warm-up "
@@ -2753,25 +2780,27 @@ def _gp_bound_ops(entry, L, S, T, M, staged=True) -> float:
 
 # the unstaged subject kernels' (subjects past TP rows) own traffic, by
 # argument of the C entry: what they leave to cuBLAS (K1: W and the double
-# copies; K3: K0xz [G | G^T] and the products with K0xz, iLB, d iLB) and
-# what they read and write (K3: cuBLAS's products in sym and d K0xz, which
-# they finish in place)
+# copies; K3: K0xz, iLB and K0xz [G | G^T]) and what they read and write
+# (K3: cuBLAS's products in d K0xz, which it finishes in place; it reads
+# cuBLAS's (K0xz G) K0xz^T from d iLB's buffer and writes sym, each once)
 GP_BOUND_UNSTAGED = {"gp_bound_fwd_subjects": ((9, 10, 11), ()),
-                     "gp_bound_bwd_subjects": ((5, 7, 15, 18), (16, 17))}
+                     "gp_bound_bwd_subjects": ((5, 7, 15), (17,))}
 # which arguments of a bound kernel's C entry are double copies of float32
-# inputs, made so the terms' sums cancel in double: the function itself
-# needs K1's copies of K0xz and iB K0xz (10, 11) not at all (K0xz and W
-# count already) and K2's KziBK (2) once at the inputs' width
+# inputs, made so the terms' sums cancel in double: K1 writes K0xz and
+# iB K0xz in double (10, 11), which the function itself needs not at all
+# (``own``, what a bound counts: K0xz and W count already; without it, as
+# K1 writes them), and K2 reads KziBK (2) once at the inputs' width
 GP_BOUND_COPY_ARGS = {"gp_bound_fwd_subjects": (10, 11),
                       "gp_bound_fwd_latents": (2,)}
 
 
-def _gp_bound_bytes(entry, args) -> int:
-    """Bytes of one launch of a bound kernel, the function's own traffic:
-    each tensor it is handed read or written once but its scratch, the
-    factors of GP_BOUND_DIAG_ARGS by their diagonal, the double copies of
-    GP_BOUND_COPY_ARGS as the function needs them (``args[0]``: the
-    inputs' itemsize); unstaged (``args[-2]`` 0), GP_BOUND_UNSTAGED's."""
+def _gp_bound_bytes(entry, args, own: bool = False) -> int:
+    """Bytes of one launch of a bound kernel: each tensor it is handed read
+    or written once but its scratch, the factors of GP_BOUND_DIAG_ARGS by
+    their diagonal, K2's double KziBK at the inputs' width (``args[0]``:
+    their itemsize), K1's double copies as it writes them or, ``own``, not
+    at all (the function's own traffic); unstaged (``args[-2]`` 0),
+    GP_BOUND_UNSTAGED's."""
     skip, twice = ((), ())
     if entry in GP_BOUND_UNSTAGED and not args[-2]:
         skip, twice = GP_BOUND_UNSTAGED[entry]
@@ -2786,7 +2815,10 @@ def _gp_bound_bytes(entry, args) -> int:
         if getattr(a, "_scratch", False):
             continue
         if i in GP_BOUND_COPY_ARGS.get(entry, ()):
-            b = 0 if entry == "gp_bound_fwd_subjects" else a.numel() * args[0]
+            if entry == "gp_bound_fwd_latents":
+                b = a.numel() * args[0]
+            elif own:
+                b = 0
         n += b // a.shape[-1] if i in GP_BOUND_DIAG_ARGS[entry] else b
     return n
 
@@ -2794,16 +2826,14 @@ def _gp_bound_bytes(entry, args) -> int:
 def _gp_bound_case(c):
     """The bound's inputs on the case's batch, as the train step makes
     them: ``subject_blocks`` of the case's GP (the kernels, no gradient),
-    the factor of H, m, the encoder's means and log-variances; subject 1
-    padded from row T / 2 and subject 2 all padding.  Returns (the 11
-    leaves of ``gp_bound._GpBound``, valid)."""
+    the factor of H, m, the encoder's means and log-variances; padded by
+    ``pad_subjects``.  Returns (the 11 leaves of ``gp_bound._GpBound``,
+    valid)."""
     from hlax_torch.gp import elbo
 
     b = c["batch"]
-    valid = b["valid"].clone()
+    valid = pad_subjects(b["valid"].clone())
     S, T = valid.shape
-    valid[1, T // 2:] = 0
-    valid[2] = 0
     spec0, spec1 = c["specs"]
     x = b["labels"].reshape(S, T, -1) * valid[..., None]
     with torch.no_grad():
@@ -2877,14 +2907,253 @@ def _gp_bound_error(tag, names, got, plain, ref, spreads):
     return worst
 
 
-def _gp_bound_run(kernel, case, need_hm=True, grads=True):
-    """(terms, P_batch, kld_total[, the leaves' gradients of kld_total + w
-    . terms]) through the bound's kernels (``kernel``) or its plain
-    version; H and m without gradients unless ``need_hm`` (the canonical
-    step's natural gradients need none)."""
+def pad_subjects(valid):
+    """``valid`` [S, T] padded in place as the bound's checks pad it: one
+    subject from row T // 2 (inside a row tile at T = 13, 200 and 500) and
+    subject min(2, S - 1) all padding.  The partly padded subject is 1, or
+    0 where S = 2, so that two subjects keep both edges."""
+    S, T = valid.shape
+    valid[1 if S > 2 else 0, T // 2:] = 0
+    valid[min(2, S - 1)] = 0
+    return valid
+
+
+def bound_case(L, S, T, M, dtype, seed: int = 0):
+    """A synthetic state of the bound's inputs on the card from ``seed``
+    (what ``[fusion]``'s sweeps and parent turns, ``tools/gp_bound_phases.py``
+    and ``tests/test_torch_cuda.py``'s bound tests run on): rbf kernel
+    matrices of random covariates and inducing points, their factors, a
+    random SPD H, m, mu and log_v; padded by ``pad_subjects``.  Returns
+    (the 11 leaves of ``gp_bound._GpBound``, valid)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    x = torch.randn((S, T, 1), generator=gen, **f64)
+    z = 1.5 * torch.randn((L, M, 1), generator=gen, **f64)
+    valid = pad_subjects(torch.ones((S, T), **f64))
+    vo = valid[:, :, None] * valid[:, None, :]
+    rbf = lambda a, b: torch.exp(-0.5 * (a - b.mT) ** 2)
+    K0xz = rbf(x[None], z[:, None]) * valid[None, :, :, None]
+    K0zz = rbf(z, z) + 1e-3 * torch.eye(M, **f64)
+    LK = torch.linalg.cholesky(K0zz)
+    iLK = torch.linalg.solve_triangular(LK, torch.eye(M, **f64), upper=False)
+    B = (0.5 * rbf(x, x) * vo).expand(L, S, T, T) + torch.eye(T, **f64) * (
+        0.3 * valid + (1 - valid))[None, :, :, None]
+    LB = torch.linalg.cholesky(B)
+    iLB = torch.linalg.solve_triangular(LB, torch.eye(T, **f64).expand_as(B),
+                                        upper=False)
+    K0st = (rbf(x, x) * vo).expand(L, S, T, T).contiguous()
+    a = 0.1 * torch.randn((L, M, M), generator=gen, **f64)
+    H = a @ a.mT + 0.5 * torch.eye(M, **f64)
+    leaves = [K0xz, iLB, LB, K0st, iLK.mT @ iLK, LK,
+              torch.linalg.cholesky(H), H,
+              torch.randn((L, M, 1), generator=gen, **f64),
+              torch.randn((S, T, L), generator=gen, **f64) * valid[..., None],
+              0.3 * torch.randn((S, T, L), generator=gen, **f64)]
+    return [t.to(dtype).contiguous() for t in leaves], valid.to(dtype)
+
+
+def tree_gp_bound(tree: str, out_dir: str, defines=(), src=None):
+    """The KL bound's wrapper of the tree at ``tree`` (its
+    hlax_torch/ops/gp_bound.py) as a module of its own on the tree's
+    csrc/gp_bound.cu (or ``src``), built with the current flags (and
+    ``defines``, -D) into ``out_dir``: its launches counted in counters of
+    its own, through this tree's ``fusion.launch`` with that library.
+    Returns (the module, the library, ptxas's log)."""
+    import ctypes
+    import importlib.util
     from types import SimpleNamespace
 
+    from hlax_torch.ops import cuda_build, fusion
+
+    src = src or os.path.join(tree, "hlax_torch", "csrc", "gp_bound.cu")
+    py = os.path.join(tree, "hlax_torch", "ops", "gp_bound.py")
+    out = os.path.join(out_dir, "libgp_bound.so")
+    os.makedirs(out_dir, exist_ok=True)
+    res = subprocess.run([cuda_build._nvcc(),
+                          *cuda_build.nvcc_flags("gp_bound"),
+                          *(f"-D{d}" for d in defines), "-o", out, src],
+                         capture_output=True, text=True)
+    if res.returncode:
+        fail(f"{src} did not build:\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(out)
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+
+    def launch(library, counters, entry, like, *args):
+        saved = fusion.load_library
+        fusion.load_library = lambda name: lib
+        try:
+            fusion.launch(library, counters, entry, like, *args)
+        finally:
+            fusion.load_library = saved
+
+    shim = SimpleNamespace(**{k: getattr(fusion, k) for k in dir(fusion)
+                              if not k.startswith("__")})
+    shim.launch = launch
+    spec = importlib.util.spec_from_file_location(
+        f"gp_bound_{abs(hash(out))}", py)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.fusion = shim
+    return mod, lib, res.stdout + res.stderr
+
+
+def bound_launches(gb, case, need_hm=False):
+    """The launches (entry, like, args) of one forward and backward of the
+    bound through the wrapper module ``gb`` (not counted)."""
+    calls, orig = [], gb._launch
+
+    def record(entry, like, *args):
+        calls.append((entry, like, args))
+        orig(entry, like, *args)
+
+    before = gb._COUNTERS.snapshot()
+    gb._launch = record
+    try:
+        _gp_bound_run(True, case, need_hm, gb=gb)
+    finally:
+        gb._launch = orig
+    gb._COUNTERS.take_since(before)
+    return calls
+
+
+# the latents a launch takes in the subject kernels' sweep: 20 to 640
+# canonical subjects
+SWEEP_LATENTS = (1, 2, 4, 8, 16, 32)
+SUBJECT_ENTRIES = ("gp_bound_fwd_subjects", "gp_bound_bwd_subjects")
+
+
+def gp_bound_sweep(gb, case, tag: str) -> dict:
+    """The subject kernels' time against the subjects a launch takes: the
+    case's first n latents (SWEEP_LATENTS), each launch of ``gb``'s wrapper
+    (its own plan for those shapes) timed alone, L2-warm and -cold, and a
+    line ms = fixed + subjects x rate through each (the launch's fixed part
+    and a subject's marginal cost).  Prints one line a kernel; returns
+    {entry: [(subjects, warm, cold)]}."""
+    leaves, valid = case
+    L, S = leaves[0].shape[:2]
+    pts = {e: [] for e in SUBJECT_ENTRIES}
+    before = gb._COUNTERS.snapshot()
+    for n in (n for n in SWEEP_LATENTS if n <= L):
+        sub = [t[:n].contiguous() if i < 9 else t[..., :n].contiguous()
+               for i, t in enumerate(leaves)]
+        for entry, like, args in bound_launches(gb, (sub, valid)):
+            if entry in pts:
+                run = lambda: gb._launch(entry, like, *args)
+                pts[entry].append((n * S, time_ms(run)[0], time_cold_ms(run)))
+    gb._COUNTERS.take_since(before)
+    for entry, p in pts.items():
+        x = np.array([q[0] for q in p], dtype=np.float64)
+        fits = []
+        for k in (1, 2):
+            slope, icpt = np.polyfit(x, np.array([q[k] for q in p]), 1)
+            fits.append(f"{icpt * 1e3:.2f} us + {slope * 1e3:.4f} us a "
+                        "subject")
+        print(f"[{tag}] sweep {entry} {list(leaves[0].shape)} "
+              f"{str(leaves[0].dtype).removeprefix('torch.')}, ms warm / "
+              "L2-cold against subjects a launch: "
+              + "; ".join(f"{q[0]} {q[1]:.5f} / {q[2]:.5f}" for q in p)
+              + f"; a line through them: warm {fits[0]}, cold {fits[1]} on "
+              f"{card_line()}", flush=True)
+    return pts
+
+
+# the bound's shapes [L, S, T, M] the subject kernels' parent comparison
+# takes (tests/test_torch_cuda.py's BOUND_SHAPES: the canonical batch, the
+# card tests' ragged one, T = 200, a 2 x 2 mesh rank's, T = 500), and
+# those of the sweep (the canonical batch and T = 200)
+GP_BOUND_SHAPES = [(32, 20, 20, 120), (3, 7, 13, 37), (32, 4, 200, 120),
+                   (16, 10, 20, 120), (32, 2, 500, 120)]
+GP_SWEEP_SHAPES = [(32, 20, 20, 120), (32, 4, 200, 120)]
+
+
+def gp_bound_sweeps() -> None:
+    """[fusion]'s sweep of the subject kernels (``gp_bound_sweep``) at
+    GP_SWEEP_SHAPES in float32 and float64 on ``bound_case``'s state."""
     from hlax_torch.ops import gp_bound as gb
+
+    for dtype in (torch.float32, torch.float64):
+        for shape in GP_SWEEP_SHAPES:
+            gp_bound_sweep(gb, bound_case(*shape, dtype), "fusion")
+            torch.cuda.empty_cache()
+
+
+def gp_bound_against_parent() -> None:
+    """The parent tree's subject kernels (its csrc/gp_bound.cu built into
+    build/parent/gp_bound/, through its own wrapper) against the change's
+    at GP_BOUND_SHAPES in float32 and float64, on ``bound_case``'s state:
+    every result of the bound through each tree's kernels (terms,
+    P_batch, kld_total, every gradient with H's and m's) compared bit for
+    bit; each subject kernel's launch of one forward and backward (each
+    tree's own plan) timed alone, L2-warm and -cold, in turns parent,
+    change, change, parent.  Prints that it did not run without parent/."""
+    from hlax_torch.ops import cuda_build
+    from hlax_torch.ops import gp_bound as gb
+
+    if not os.path.isfile(os.path.join(PARENT_CSRC, "gp_bound.cu")):
+        print("[fusion] gp_bound parent against change: not measured (no "
+              f"{PARENT_CSRC}/gp_bound.cu)", flush=True)
+        return
+    pg, _, _ = tree_gp_bound(PARENT_ROOT, os.path.join(
+        cuda_build.BUILD_DIR, "parent", "gp_bound"))
+    slower = []
+    for dtype in (torch.float32, torch.float64):
+        for shape in GP_BOUND_SHAPES:
+            case = bound_case(*shape, dtype)
+            tag = f"{list(shape)} {str(dtype).removeprefix('torch.')}"
+            before = gb._COUNTERS.snapshot()
+            results = {who: _gp_bound_run(True, case, True, gb=mod)
+                       for who, mod in (("parent", pg), ("change", gb))}
+            _bits_against_parent(f"gp_bound {tag} (terms, P_batch, "
+                                 "kld_total, the 11 gradients)",
+                                 results["parent"], results["change"])
+            calls = {who: {e: (like, args) for e, like, args in
+                           bound_launches(mod, case)}
+                     for who, mod in (("parent", pg), ("change", gb))}
+            for entry in SUBJECT_ENTRIES:
+                ms = {"parent": [], "change": []}
+                for who in ("parent", "change", "change", "parent"):
+                    mod = pg if who == "parent" else gb
+                    like, args = calls[who][entry]
+                    run = lambda: mod._launch(entry, like, *args)
+                    ms[who].append((time_ms(run)[0], time_cold_ms(run)))
+                worse = [k for k in (0, 1) if min(t[k] for t in ms["change"])
+                         > max(t[k] for t in ms["parent"])]
+                ratio = [sum(t[k] for t in ms["parent"])
+                         / sum(t[k] for t in ms["change"]) for k in (0, 1)]
+                slower += [f"{entry} {tag} {('warm', 'cold')[k]}"
+                           for k in worse]
+                print(f"[fusion] parent against change {entry} {tag}: warm "
+                      + ", ".join(f"{who} {ms[who][j][0]:.5f}" for who, j in
+                                  (("parent", 0), ("change", 0),
+                                   ("change", 1), ("parent", 1)))
+                      + " ms; L2-cold "
+                      + ", ".join(f"{who} {ms[who][j][1]:.5f}" for who, j in
+                                  (("parent", 0), ("change", 0),
+                                   ("change", 1), ("parent", 1)))
+                      + f" ms (turns parent, change, change, parent); "
+                      f"parent / change warm {ratio[0]:.2f}x, cold "
+                      f"{ratio[1]:.2f}x on {card_line()}", flush=True)
+            gb._COUNTERS.take_since(before)
+            del case, results, calls
+            torch.cuda.empty_cache()
+    print("[fusion] gp_bound subject kernels against the parent's: "
+          + ("slower than the parent's in both its turns at "
+             + "; ".join(slower) if slower else
+             "none slower than the parent's at any shape, dtype, warm or "
+             "cold"), flush=True)
+
+
+def _gp_bound_run(kernel, case, need_hm=True, grads=True, gb=None):
+    """(terms, P_batch, kld_total[, the leaves' gradients of kld_total + w
+    . terms]) through the bound's kernels (``kernel``; the wrapper module
+    ``gb``, None: this tree's) or its plain version; H and m without
+    gradients unless ``need_hm`` (the canonical step's natural gradients
+    need none)."""
+    from types import SimpleNamespace
+
+    if gb is None:
+        from hlax_torch.ops import gp_bound as gb
 
     base, valid = case
     xs = [t.detach().clone().requires_grad_(grads and (
@@ -2986,7 +3255,8 @@ def _gp_bound_fusion(c, dtype, phase="fusion", entries=None):
             continue
         ms, wall = time_ms(lambda: orig(entry, like, *args))
         cold = time_cold_ms(lambda: orig(entry, like, *args))
-        nbytes = _gp_bound_bytes(entry, args)
+        nbytes = _gp_bound_bytes(entry, args, own=True)
+        copies = _gp_bound_bytes(entry, args) - nbytes
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         ops = _gp_bound_ops(entry, L, S, T, M, bool(args[-2]))
         t_ops = ops / PEAK_FLOPS[dtype] * 1e3
@@ -3007,8 +3277,11 @@ def _gp_bound_fusion(c, dtype, phase="fusion", entries=None):
               f"call on the host clock), the op's plain chain "
               f"{'backward' if bwd else 'forward'} {plain_ms:.4f} ms, bound "
               f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
-              f"{ops / 1e9:.3f} GFLOP), "
-              f"kernel / bound {ms / bound:.2f}", flush=True)
+              f"{ops / 1e9:.3f} GFLOP), kernel / bound {ms / bound:.2f}"
+              + (f"; not in the bound, its double copies of float32 "
+                 f"inputs {copies / 1e6:.2f} MB "
+                 f"({copies / PEAK_BYTES_PER_S * 1e3:.5f} ms at the memory "
+                 f"rate)" if copies else ""), flush=True)
     # d KziBK's product for the subject kernel (one canonical backward's)
     G2 = calls[-2][2][17]
     K0xz, Y2 = calls[-1][2][5], calls[-1][2][15]
@@ -3363,75 +3636,90 @@ def _staged_sweep(c, dtype) -> None:
     fusion._COUNTERS.take_since(before)
 
 
+# [sass]'s kernels by library: the staged kernels' row loops (the inner
+# loops that hold cp.async copies, LDGSTS) and the bound's subject
+# kernels' longest inner loops (their products' and tiles' loops), at most
+# this many a kernel
+SASS_KERNELS = (("fusion", STAGED_INSTANCES, "LDGSTS", 2),
+                ("gp_bound", SUBJECT_INSTANCES, None, 4))
+
+
 def _sass_report() -> None:
-    """[sass]: the staged kernels' machine code (cuobjdump -sass of
-    build/libfusion.so): each one's instructions, and its row loops (a
-    backward branch whose body holds cp.async copies, LDGSTS, and no such
-    loop inside it): their instructions by opcode.  The code goes to
-    build/sass/<kernel>.sass.  Not measured without cuobjdump."""
+    """[sass]: the staged kernels' and the bound's subject kernels' machine
+    code (cuobjdump -sass of build/libfusion.so, build/libgp_bound.so):
+    each one's instructions, and its loops (SASS_KERNELS: a backward branch
+    with no such loop inside it, whose body holds the given opcode): their
+    instructions by opcode.  The code goes to build/sass/<kernel>.sass.
+    Not measured without cuobjdump."""
     import shutil
 
     from hlax_torch.ops import cuda_build
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    lib = cuda_build.BUILD_DIR / "libfusion.so"
-    if not (os.path.isfile(tool) and lib.is_file()):
-        print(f"[sass] not measured (no {tool} or {lib})", flush=True)
-        return
-    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=600)
-    if res.returncode:
-        print(f"[sass] not measured: cuobjdump failed: {res.stderr[-500:]}",
-              flush=True)
-        return
-    out_dir = cuda_build.BUILD_DIR / "sass"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for part in res.stdout.split("Function : ")[1:]:
-        lines = part.splitlines()
-        name = _kernel_name(lines[0].strip())
-        if name not in STAGED_INSTANCES:
+    for lib_name, names, needs, top in SASS_KERNELS:
+        lib = cuda_build.BUILD_DIR / f"lib{lib_name}.so"
+        if not (os.path.isfile(tool) and lib.is_file()):
+            print(f"[sass] not measured (no {tool} or {lib})", flush=True)
             continue
-        (out_dir / f"{name.replace('<', '_').replace('>', '').replace(',', '_')}"
-         f".sass").write_text(part)
-        # (address, opcode, text) of each instruction; a branch's target
-        # as an address or a label (.L_x_N:, at the next instruction's)
-        ins, labels = [], {}
-        for line in lines[1:]:
-            m = re.match(r"\s*(\.L_x_\d+):", line)
-            if m:
-                labels[m.group(1)] = len(ins)
-                continue
-            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-            if m:
-                toks = m.group(2).split()
-                toks = toks[1:] if toks and toks[0].startswith("@") else toks
-                ins.append((int(m.group(1), 16),
-                            toks[0].split(".")[0] if toks else "?",
-                            m.group(2)))
-        at = {a: i for i, (a, _, _) in enumerate(ins)}
-        loops = []
-        for i, (_, op, text) in enumerate(ins):
-            if op != "BRA":
-                continue
-            m = re.search(r"`\((\.L_x_\d+)\)|BRA\S*\s+(0x[0-9a-f]+)", text)
-            lo = None if not m else labels.get(m.group(1)) if m.group(1) \
-                else at.get(int(m.group(2), 16))
-            if lo is not None and lo <= i and any(
-                    o == "LDGSTS" for _, o, _ in ins[lo:i + 1]):
-                loops.append((lo, i))
-        inner = [(lo, hi) for lo, hi in loops if not any(
-            (a, b) != (lo, hi) and lo <= a and b <= hi for a, b in loops)]
-        txt = []
-        for lo, hi in sorted(inner, key=lambda l: l[0] - l[1])[:2]:
-            ops = {}
-            for _, op, _ in ins[lo:hi + 1]:
-                ops[op] = ops.get(op, 0) + 1
-            mix = ", ".join(f"{o} {n}" for o, n in
-                            sorted(ops.items(), key=lambda kv: -kv[1]))
-            txt.append(f"a loop of {hi - lo + 1} instructions ({mix})")
-        print(f"[sass] {name}: {len(ins)} instructions; "
-              + ("; ".join(txt) or "no loop of cp.async copies"), flush=True)
+        res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode:
+            print(f"[sass] not measured: cuobjdump failed: "
+                  f"{res.stderr[-500:]}", flush=True)
+            continue
+        out_dir = cuda_build.BUILD_DIR / "sass"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for part in res.stdout.split("Function : ")[1:]:
+            lines = part.splitlines()
+            name = _kernel_name(lines[0].strip())
+            if name in names:
+                _sass_loops(name, part, lines, out_dir, needs, top)
+
+
+def _sass_loops(name, part, lines, out_dir, needs, top) -> None:
+    """Prints one kernel's instructions and its ``top`` largest inner
+    loops (holding opcode ``needs``, None: any) by opcode."""
+    (out_dir / f"{name.replace('<', '_').replace('>', '').replace(',', '_')}"
+     f".sass").write_text(part)
+    # (address, opcode, text) of each instruction; a branch's target
+    # as an address or a label (.L_x_N:, at the next instruction's)
+    ins, labels = [], {}
+    for line in lines[1:]:
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(ins)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            toks = m.group(2).split()
+            toks = toks[1:] if toks and toks[0].startswith("@") else toks
+            ins.append((int(m.group(1), 16),
+                        toks[0].split(".")[0] if toks else "?",
+                        m.group(2)))
+    at = {a: i for i, (a, _, _) in enumerate(ins)}
+    loops = []
+    for i, (_, op, text) in enumerate(ins):
+        if op != "BRA":
+            continue
+        m = re.search(r"`\((\.L_x_\d+)\)|BRA\S*\s+(0x[0-9a-f]+)", text)
+        lo = None if not m else labels.get(m.group(1)) if m.group(1) \
+            else at.get(int(m.group(2), 16))
+        if lo is not None and lo <= i and (needs is None or any(
+                o == needs for _, o, _ in ins[lo:i + 1])):
+            loops.append((lo, i))
+    inner = [(lo, hi) for lo, hi in loops if not any(
+        (a, b) != (lo, hi) and lo <= a and b <= hi for a, b in loops)]
+    txt = []
+    for lo, hi in sorted(inner, key=lambda l: l[0] - l[1])[:top]:
+        ops = {}
+        for _, op, _ in ins[lo:hi + 1]:
+            ops[op] = ops.get(op, 0) + 1
+        mix = ", ".join(f"{o} {n}" for o, n in
+                        sorted(ops.items(), key=lambda kv: -kv[1]))
+        txt.append(f"a loop of {hi - lo + 1} instructions ({mix})")
+    print(f"[sass] {name}: {len(ins)} instructions; "
+          + ("; ".join(txt) or f"no loop of {needs}"), flush=True)
 
 
 def _gp_shapes_against_table(c, c64, dtype) -> None:
@@ -3531,6 +3819,8 @@ def phase_fusion(data_dir: str, tmp: str):
             _staged_against_parent(parent, c, c64, dtype)
         del c, c64
         torch.cuda.empty_cache()
+    gp_bound_sweeps()
+    gp_bound_against_parent()
     phase_pallas_chol_false(data_dir, tmp)
     return rows
 
@@ -3559,7 +3849,8 @@ def rate_run(tree: str, data_dir: str, what: str = "rate",
     epochs after 2 warm-up epochs, then device ms, kernels a step and the
     idle share under the profiler (with ``ab`` also device ms a step by
     source region, each kernel name split as an eager epoch's profile
-    splits it); one JSON line.  With ``full``: [full]'s 300 canonical
+    splits it), and without ``ab`` the same of [longT]'s T = 200 cell
+    (``_rate_long_t``); one JSON line.  With ``full``: [full]'s 300 canonical
     epochs through that tree's CLI from ``seed``, the final training net
     loss and the last validation's.  With ``reference``: [reference]'s
     float32 worst relative difference at each of the comma-separated
@@ -3631,14 +3922,50 @@ def rate_run(tree: str, data_dir: str, what: str = "rate",
             out[name]["eval"] = eval_rate(st.vae, ds)
         del st, staged, epoch
         torch.cuda.empty_cache()
+    if what == "rate":
+        out["T200"] = _rate_long_t()
     print("RATE " + json.dumps(out), flush=True)
+
+
+def _rate_long_t() -> dict:
+    """[parent]'s T = 200 cell ([longT]'s first: 40 subjects, 4 a batch,
+    the conv model, float32): steps/s of 2 rounds of 3 epochs on the graph
+    path after 2 warm-up epochs, then device busy ms, kernels a step and
+    the idle share under the profiler."""
+    from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
+    from hlax_torch.train import step as tstep
+
+    T, P, S = LONG_T[0]
+    ds = long_t_dataset(T, P)
+    spec0, spec1 = long_t_specs()
+    st, cfg = canonical_state(ds, spec0, spec1, torch.float32, subjects=S)
+    staged = stage_dataset(ds, torch.float32, "cuda")
+    idx = np.stack(list(epoch_subject_batches(P, S,
+                                              np.random.default_rng(0))))
+    epoch = tstep.make_train_epoch(st.vae, spec0, spec1, cfg)
+
+    def run():
+        epoch(st, staged, idx)
+    run()
+    run()
+    rates = [_time_epochs(run, 3, steps=len(idx)) for _ in range(2)]
+    prof, _ = _profile_steps(f"rate T={T}", run, 3 * len(idx), calls=3,
+                             top=0)
+    if not torch.isfinite(st.m).all():
+        fail(f"[rate] T={T}: m is not finite")
+    out = {"steps_per_s": rates, **{k: prof[k] for k in (
+        "busy_ms", "kernels", "idle")}}
+    del st, staged, epoch
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_parent(data_dir: str) -> None:
     """The parent commit's tree (unpacked under parent/, git-ignored)
     against this one on the graph path, each in processes of its own
     (``rate_run``), in turns: parent, change, change, parent.  Prints each
-    configuration's steps/s, device ms and kernels a step of both trees,
+    configuration's steps/s, device ms and kernels a step of both trees
+    (RATE_CONFIGS and T = 200),
     then, in turns again, each tree's [full] final net loss (the spread of
     the float32 trajectory over 3000 steps); prints that it did not run
     without parent/."""
@@ -3678,14 +4005,23 @@ def phase_parent(data_dir: str) -> None:
                   f"and its backward) {', '.join(f'{n:.1f}' for n in gp[::2])}"
                   f" kernels a step, {', '.join(f'{t:.4f}' for t in gp[1::2])}"
                   f" device ms a step", flush=True)
-            print(f"[parent] {name} {who}: graph steps/s "
-                  f"{', '.join(f'{v:.2f}' for x in r for v in x['steps_per_s'])}"
-                  f"; device busy {', '.join(f'{x['busy_ms']:.3f}' for x in r)}"
-                  f" ms/step; kernels/step "
-                  f"{', '.join(f'{x['kernels']:.1f}' for x in r)}; idle share "
-                  f"{', '.join(f'{x['idle']:.3f}' for x in r)} (processes "
-                  f"in turns parent, change, change, parent: {who}'s two, 2 "
-                  f"rounds of 3 epochs each) on {card_line()}", flush=True)
+            _print_rate(name, who, r)
+    for who in ("parent", "change"):
+        r = [x["T200"] for x in runs[who] if "T200" in x]
+        if r:
+            _print_rate(f"T={LONG_T[0][0]}", who, r)
+
+
+def _print_rate(name: str, who: str, r) -> None:
+    """[parent]'s line of one configuration's rate runs of one tree."""
+    print(f"[parent] {name} {who}: graph steps/s "
+          f"{', '.join(f'{v:.2f}' for x in r for v in x['steps_per_s'])}"
+          f"; device busy {', '.join(f'{x['busy_ms']:.3f}' for x in r)}"
+          f" ms/step; kernels/step "
+          f"{', '.join(f'{x['kernels']:.1f}' for x in r)}; idle share "
+          f"{', '.join(f'{x['idle']:.3f}' for x in r)} (processes "
+          f"in turns parent, change, change, parent: {who}'s two, 2 "
+          f"rounds of 3 epochs each) on {card_line()}", flush=True)
 
 
 # the toy states [reference]'s float32 gate is read at beside its own (0)
@@ -4952,10 +5288,10 @@ def _count_canonical_epochs(data_dir: str) -> dict:
     return counts
 
 
-# the mid kernel's blocks and the bound's subject kernels at T = 200 (M =
-# 120)
+# the mid kernel's blocks and the bound's subject kernels at T = 200 and
+# 500 (M = 120)
 LONG_SHAPES = ({batch + (n, n) for batch, n in LONG_T_MID_ROWS}
-               | {(32, S, T, 120) for T, _, S in LONG_T[:1]})
+               | {(32, S, T, 120) for T, _, S in LONG_T})
 MESH_SHAPES = ({batch + (n, n) for _, batch, n in MESH_ROWS}
                | {(MESH_RANK_ROWS, CANONICAL_N_EXP)})
 

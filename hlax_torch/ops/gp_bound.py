@@ -9,9 +9,12 @@ leaves the large batched products to cuBLAS (``torch.bmm``, as hlax
 leaves its dots to XLA): iK0zz m, KziBK = sum_st K0xz^T iB K0xz,
 E_mat = (iK0zz H) iK0zz and their backward products.
 
-  * ``gp_bound_fwd_subjects`` (K1): a block a (latent, chunk of subjects):
-    the fit, its residual r and (iB + iB^T) r, iB K0xz (for KziBK's
-    product), and the partial sums of A, Bt, C, sum iB o K0_st and F.
+  * ``gp_bound_fwd_subjects`` (K1): the fit, its residual r and (iB +
+    iB^T) r, iB K0xz (for KziBK's product), and each subject's (or row
+    tile's) partial sums of A, Bt, C, sum iB o K0_st and F.  A training
+    batch's subjects (T <= TP) go through a ring of shared-memory stages,
+    a grid sized to the card taking them from a queue; a longer subject
+    is split into row tiles, one thread-block cluster.
   * ``gp_bound_fwd_latents`` (K2): a block a (latent, part of the rows):
     sum KziBK o iK0zz, sum E_mat o KziBK, tr1, qf1, the log-determinants;
     the last block adds every partial in a fixed order, in double, into
@@ -21,7 +24,8 @@ E_mat = (iK0zz H) iK0zz and their backward products.
     backward from the scalar cotangents, into the cotangents of K0xz, the
     B blocks' factors (iLB, diag LB), K0_st, iK0zz, the factors of K0zz
     and H (their diagonals), H, m, mu and log_v, which feed the Cholesky
-    kernels' and the GP kernel matrices' autograd Functions unchanged.
+    kernels' and the GP kernel matrices' autograd Functions unchanged; K3
+    on K1's ring, or a longer subject's pairs of 32 x 32 tiles.
 
 On a mesh the terms are summed over the ranks (``MeshSums``) before
 ``kld_total`` is formed (``assemble``), as ``recon_metric`` hands its
@@ -43,16 +47,22 @@ from hlax_torch.ops.counters import Counters
 from hlax_torch.precision import highest
 
 # must match NT, NSUB, NLAT, NTERM and MAX_M in csrc/gp_bound.cu: threads a
-# block, a subject block's and a latent block's scalar partials, the terms,
-# the inducing points a subject block's columns take at most; TP, the rows
-# of a subject the staged path takes at most
+# block, a subject's (or row tile's) and a latent block's scalar partials,
+# the terms, the inducing points the subject kernels' u columns take at
+# most; TP, the rows of a subject the staged path takes at most; NSTAGE,
+# the stages of the staged subject kernels' ring; MAX_TILES, the row tiles
+# of a longer subject (one cluster)
 THREADS, NSUB, NLAT, NTERM, MAX_M, TP = 256, 5, 6, 7, 512, 32
-# blocks an SM the plans aim at: the subject kernels a subject a block up
-# to 8 an SM (a few waves of the two or three their registers leave
-# resident), more subjects a block beyond; the latent kernels two, a
-# latent's rows split among them
-SUBJECT_BLOCKS_PER_SM, LATENT_BLOCKS_PER_SM = 8, 2
+NSTAGE, MAX_TILES = 2, 8
+# blocks an SM the staged subject kernels' launch bounds take
+# (FWD_SUBJECT_BLOCKS, BWD_SUBJECT_BLOCKS): two each; the latent kernels
+# two, a latent's rows split among them
+SUBJECT_BLOCKS_PER_SM = 2
+LATENT_BLOCKS_PER_SM = 2
 SMEM_MAX = 227 * 1024
+# an SM's shared memory and what each resident block takes of it beyond
+# its dynamic bytes (1 KB the card reserves, the kernels' static arrays)
+SMEM_SM, SMEM_BLOCK = 228 * 1024, 1536
 
 _COUNTERS = Counters(("gp_bound_fwd_subjects_cuda",
                       "gp_bound_fwd_latents_cuda",
@@ -65,12 +75,20 @@ reset_counters = _COUNTERS.reset
 
 
 class SubjectPlan(NamedTuple):
-    """K1's and K3's grid: ``chunks`` blocks a latent, ``chunk`` subjects
-    a block; ``staged``: a subject's matrices in shared memory (else the
-    tiled products); K1's and K3's dynamic shared bytes."""
-    chunk: int
-    chunks: int
+    """K1's and K3's grids.  ``staged`` (T <= TP): ``blocks_fwd`` and
+    ``blocks_bwd`` blocks, block b starting with (latent, subject) pair b
+    of n = L S and taking the next ones from the launch's queue through
+    its ring, ``rows`` = T; else K1 a block a (row tile of ``rows`` rows,
+    subject), ``tiles`` tiles a subject (a cluster), blocks_fwd =
+    blocks_bwd = tiles L S (K3 a pair of 32 x 32 tiles or a row tile of
+    32 a block).  ``parts``: K1's partial rows a latent (S tiles, in
+    subject then tile order); K1's and K3's dynamic shared bytes."""
     staged: bool
+    blocks_fwd: int
+    blocks_bwd: int
+    rows: int
+    tiles: int
+    parts: int
     smem_fwd: int
     smem_bwd: int
 
@@ -89,33 +107,71 @@ def _a16(b: int) -> int:
     return -(-b // 16) * 16
 
 
-def subject_smem(k: int, staged: bool, T: int, M: int, z: int) -> int:
+def fwd_stage(T: int, M: int, z: int) -> int:
+    """One stage of K1's ring (FwdStage, csrc/gp_bound.cu): a subject's
+    K0xz, iB, K0_st, iKm's row, its rows' mu, valid, log_v, LB diagonal."""
+    return (_a16(T * M * z) + 2 * _a16(T * T * z) + _a16(M * z)
+            + 4 * _a16(T * z))
+
+
+def bwd_stage(T: int, M: int, z: int) -> int:
+    """One stage of K3's ring (BwdStage): a subject's K0xz G, iB, iLB, K0_st,
+    iKm's row, r, q and its rows' valid, log_v, LB diagonal."""
+    return (_a16(T * M * z) + 3 * _a16(T * T * z) + _a16(M * z)
+            + 5 * _a16(T * z))
+
+
+def subject_smem(k: int, staged: bool, T: int, M: int, z: int,
+                 rows: int = 0) -> int:
     """K1's (k = 1) or K3's (k = 3) dynamic shared bytes, as the kernels
-    carve them (subject_smem, csrc/gp_bound.cu): the staged path's K0xz,
-    (K3) K0xz [G | G^T], iB, (K3) iLB, K0_st, (K3) (K0xz G) K0xz^T and
-    d iB + d iB^T, r, q, iKm and the rows' scalars; none for longer
-    subjects."""
-    if not staged:
-        return 0
+    carve them (subject_smem, csrc/gp_bound.cu): staged, NSTAGE stages and
+    the block's own (K1: r, q; K3: K0xz and K0xz G^T, a buffer each beside
+    the ring, (K0xz G) K0xz^T and d iB + d iB^T, rows padded); else the
+    row-tile kernels' (K1: the subject's r, q of its ``rows`` rows and a
+    part of iB^T r a thread; K3: five 32 x 32 tiles, padded)."""
+    if staged:
+        if k == 1:
+            return NSTAGE * fwd_stage(T, M, z) + 2 * _a16(T * z)
+        return (NSTAGE * bwd_stage(T, M, z) + 2 * _a16(T * M * z)
+                + 2 * _a16(T * (T + 1) * z))
     if k == 1:
-        return (_a16(T * M * z) + 2 * _a16(T * T * z) + 2 * _a16(T * z)
-                + _a16(M * z) + _a16(4 * T * z))
-    return (_a16(T * M * z) + _a16(2 * T * M * z) + 3 * _a16(T * T * z)
-            + 2 * _a16(T * (T + 1) * z) + 2 * _a16(T * z) + _a16(M * z)
-            + _a16(3 * T * z))
+        return _a16(T * z) + _a16(rows * z) + _a16(THREADS * z)
+    return 5 * _a16(32 * 33 * z)
+
+
+def ring_blocks(n: int, smem: int, sms: int) -> int:
+    """A staged subject kernel's blocks: as many as the SMs hold at once
+    (SUBJECT_BLOCKS_PER_SM, fewer where ``smem`` bytes a block leave room
+    for fewer), at most one a subject."""
+    fit = SMEM_SM // (smem + SMEM_BLOCK)
+    return min(n, max(1, min(SUBJECT_BLOCKS_PER_SM, fit)) * sms)
+
+
+def tile_rows(T: int) -> int:
+    """A longer subject's row tile: multiples of 32 rows, at most
+    MAX_TILES tiles."""
+    return 32 * -(-T // (32 * MAX_TILES))
 
 
 def subject_plan(L: int, S: int, T: int, M: int, itemsize: int,
                  sms: int) -> SubjectPlan:
-    """As many (latent, subject) blocks as fill the card once, a subject a
-    block while they do; the staged path for subjects of at most TP rows
-    whose matrices fit SMEM_MAX (else cuBLAS takes the subjects'
-    products)."""
-    chunk = max(1, -(-L * S // (SUBJECT_BLOCKS_PER_SM * sms)))
-    staged = T <= TP and subject_smem(3, True, T, M, itemsize) <= SMEM_MAX
-    return SubjectPlan(chunk, -(-S // chunk), staged,
-                       subject_smem(1, staged, T, M, itemsize),
-                       subject_smem(3, staged, T, M, itemsize))
+    """The staged path for subjects of at most TP rows whose rings fit
+    SMEM_MAX, its grids sized to the card (``ring_blocks``); else a subject
+    in row tiles of ``tile_rows`` rows, cuBLAS taking the subjects'
+    products."""
+    z, n = itemsize, L * S
+    f, b = subject_smem(1, True, T, M, z), subject_smem(3, True, T, M, z)
+    if T <= TP and max(f, b) <= SMEM_MAX:
+        return SubjectPlan(True, ring_blocks(n, f, sms),
+                           ring_blocks(n, b, sms), T, 1, S, f, b)
+    rows = tile_rows(T)
+    if rows > THREADS:
+        raise ValueError(f"gp_bound: T = {T} takes more than {MAX_TILES} "
+                         f"tiles of {THREADS} rows")
+    tiles = -(-T // rows)
+    return SubjectPlan(False, tiles * n, tiles * n, rows, tiles, S * tiles,
+                       subject_smem(1, False, T, M, z, rows),
+                       subject_smem(3, False, T, M, z, rows))
 
 
 def _latent_smem(rows: int, M: int, itemsize: int) -> Tuple[int, int]:
@@ -218,10 +274,10 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def fwd_subjects(K0xz, iB, K0st, LB, iKm, mu, lv, valid, sp: SubjectPlan):
-    """K1: (W = iB K0xz, r, q = (iB + iB^T) r, the blocks' partials
-    [L, chunks, NSUB + M]: A, Bt, sum log diag LB, sum iB o K0_st, F, then
-    u = sum_st K0xz^T q; and for float inputs K0xz and W in double, else
-    None, None)."""
+    """K1: (W = iB K0xz, r, q = (iB + iB^T) r, the partials [L, S tiles,
+    NSUB + M] of each subject's row tiles (staged: of each subject): A, Bt,
+    sum log diag LB, sum iB o K0_st, F, then u = sum_t K0xz^T q; and for
+    float inputs K0xz and W in double, else None, None)."""
     L, S, T, M = K0xz.shape
     W = torch.empty_like(K0xz)
     d = torch.float64
@@ -229,12 +285,13 @@ def fwd_subjects(K0xz, iB, K0st, LB, iKm, mu, lv, valid, sp: SubjectPlan):
                  for _ in range(2)) if K0xz.dtype != d else (None, None))
     r = torch.empty((L, S, T), dtype=K0xz.dtype, device=K0xz.device)
     q = torch.empty_like(r)
-    part = torch.empty((L, sp.chunks, NSUB + M), dtype=d,
+    part = torch.empty((L, sp.parts, NSUB + M), dtype=d,
                        device=K0xz.device)
     if _on_card(K0xz):
         _launch("gp_bound_fwd_subjects", K0xz, K0xz.element_size(), K0xz,
-                iB, K0st, LB, iKm, mu, lv, valid, W, K64, W64, r, q, part, L,
-                S, T, M, L, sp.chunk, int(sp.staged), sp.smem_fwd)
+                iB, K0st, LB, iKm, mu, lv, valid, W, K64, W64, r, q, part,
+                fusion._counters(K0xz, 2), L, S, T, M, L, sp.blocks_fwd,
+                sp.rows, int(sp.staged), sp.smem_fwd)
         if not sp.staged:      # longer subjects: the products by cuBLAS
             torch.matmul(iB, K0xz, out=W)
             if K64 is not None:
@@ -251,15 +308,15 @@ def fwd_subjects(K0xz, iB, K0st, LB, iKm, mu, lv, valid, sp: SubjectPlan):
         K64.copy_(K0xz)
         W64.copy_(iB.to(d) @ K0xz.to(d))
     per = torch.stack([
-        (r.to(d) * row.to(d)).sum(-1),
-        (_diag(iB) * (torch.exp(lv) * vm).permute(2, 0, 1)).to(d).sum(-1),
-        torch.log(_diag(LB)).to(d).sum(-1),
-        (iB * K0st).to(d).sum((-1, -2)),
-        (lv * vm).permute(2, 0, 1).to(d).sum(-1)], dim=-1)    # [L, S, NSUB]
-    per = torch.cat([per, torch.einsum("lstm,lst->lsm", K0xz.to(d),
-                                       q.to(d))], dim=-1)
-    for c in range(sp.chunks):
-        part[:, c] = per[:, c * sp.chunk:(c + 1) * sp.chunk].sum(1)
+        r.to(d) * row.to(d),
+        (_diag(iB) * (torch.exp(lv) * vm).permute(2, 0, 1)).to(d),
+        torch.log(_diag(LB)).to(d),
+        (iB * K0st).to(d).sum(-1),
+        (lv * vm).permute(2, 0, 1).to(d)], dim=-1)          # [L, S, T, NSUB]
+    per = torch.cat([per, K0xz.to(d) * q.to(d)[..., None]], dim=-1)
+    per = torch.nn.functional.pad(per, (0, 0, 0, sp.tiles * sp.rows - T))
+    part.copy_(per.view(L, S, sp.tiles, sp.rows, NSUB + M).sum(3)
+               .view(L, sp.parts, NSUB + M))
     return W, K64, W64, r, q, part
 
 
@@ -288,7 +345,7 @@ def fwd_latents(iK, Kz64, Em, H, m, iKm, LK, LH, valid, part1,
         part2 = torch.empty(L * lp.parts * NLAT, dtype=torch.float64,
                             device=dev)
         _launch("gp_bound_fwd_latents", iK, iK.element_size(), iK, Kz64,
-                Em, H, m, iKm, LK, LH, valid, part1, sp.chunks, part2, u, terms,
+                Em, H, m, iKm, LK, LH, valid, part1, sp.parts, part2, u, terms,
                 pb, kld, fusion._counters(iK, 1), L, S, T, M, lp.rows,
                 float(p_tot), float(n_tot), lp.smem_fwd)
         return u, terms, pb, kld
@@ -364,25 +421,28 @@ def bwd_latents(g_terms, g_kld, pb, p_tot, iK, Kz, Em, H, m, iKm, u, LK,
 def bwd_subjects(g_terms, g_kld, pb, p_tot, K0xz, iB, iLB, K0st, LB, lv,
                  valid, r, q, iKm, Y2, sp: SubjectPlan):
     """K3: (d K0xz, d iLB, d K0_st, d LB, d mu, d log_v) from Y2 = K0xz
-    [G | G^T] [L, S T, 2 M]."""
+    [G | G^T] [L, S T, 2 M].  Longer subjects: cuBLAS's products around the
+    kernel, P = (K0xz G) K0xz^T in d iLB's buffer before it, iLB (d iB +
+    d iB^T) from the kernel's ``sym`` after."""
     L, S, T, M = K0xz.shape
     dK0xz = torch.empty_like(K0xz)
     diLB, dK0st, dLB = (torch.empty_like(iB) for _ in range(3))
     dmu = torch.empty((S, T, L), dtype=K0xz.dtype, device=K0xz.device)
     dlv = torch.empty_like(dmu)
     if _on_card(K0xz):
-        sym = torch.empty_like(iB)
+        sym = None
         if not sp.staged:      # longer subjects: the products by cuBLAS
+            sym = torch.empty_like(iB)
             b = lambda t, n: t.reshape(L * S, T, n)
             Y2s = b(Y2, 2 * M)
             torch.bmm(b(iB, T), Y2s[..., M:], out=b(dK0xz, M))
             b(dK0xz, M).baddbmm_(b(iB, T).mT, Y2s[..., :M])
-            torch.bmm(Y2s[..., :M], b(K0xz, M).mT, out=b(sym, T))
+            torch.bmm(Y2s[..., :M], b(K0xz, M).mT, out=b(diLB, T))
         _launch("gp_bound_bwd_subjects", K0xz, K0xz.element_size(), g_terms,
                 g_kld, pb, float(p_tot), K0xz, iB, iLB, K0st, LB, lv, valid,
-                r, q, iKm, Y2, fusion._scratch(sym)[0], dK0xz, diLB, dK0st,
-                dLB, dmu, dlv, L, S, T, M, L, sp.chunk, int(sp.staged),
-                sp.smem_bwd)
+                r, q, iKm, Y2, sym, dK0xz, diLB, dK0st, dLB, dmu, dlv,
+                fusion._counters(K0xz, 2), L, S, T, M, L, sp.blocks_bwd,
+                sp.rows, int(sp.staged), sp.smem_bwd)
         if not sp.staged:
             torch.bmm(b(iLB, T), b(sym, T), out=b(diLB, T))
         return dK0xz, diLB, dK0st, dLB, dmu, dlv

@@ -6,6 +6,9 @@ Imports neither JAX nor hlax, so it runs on the GPU machine without them:
 
 Every test skips without a CUDA device.
 """
+import pathlib
+import sys
+
 import pytest
 import torch
 
@@ -1889,38 +1892,16 @@ BOUND_LEAVES = ("K0xz", "iLB", "LB", "K0_st", "iK0zz", "LK0zz", "LH", "H",
                 "m", "mu", "log_v")
 
 
-def _bound_case(L, S, T, M, dtype, gen, pad=True):
-    """The bound's inputs on the card from one seed: rbf kernel matrices of
-    random covariates and inducing points, their factors, a random SPD H,
-    m, mu and log_v; with ``pad``, subject 1 padded from T // 2 and subject
-    2 all padding.  Returns (leaves in BOUND_LEAVES order, valid)."""
-    f64 = dict(dtype=torch.float64, device="cuda")
-    x = torch.randn((S, T, 1), generator=gen, **f64)
-    z = 1.5 * torch.randn((L, M, 1), generator=gen, **f64)
-    valid = torch.ones((S, T), **f64)
-    if pad:
-        valid[1, T // 2:] = 0
-        valid[2] = 0
-    vo = valid[:, :, None] * valid[:, None, :]
-    rbf = lambda a, b: torch.exp(-0.5 * (a - b.mT) ** 2)
-    K0xz = rbf(x[None], z[:, None]) * valid[None, :, :, None]
-    K0zz = rbf(z, z) + 1e-3 * torch.eye(M, **f64)
-    LK = torch.linalg.cholesky(K0zz)
-    iLK = torch.linalg.solve_triangular(LK, torch.eye(M, **f64), upper=False)
-    B = (0.5 * rbf(x, x) * vo).expand(L, S, T, T) + torch.eye(T, **f64) * (
-        0.3 * valid + (1 - valid))[None, :, :, None]
-    LB = torch.linalg.cholesky(B)
-    iLB = torch.linalg.solve_triangular(LB, torch.eye(T, **f64).expand_as(B),
-                                        upper=False)
-    K0st = (rbf(x, x) * vo).expand(L, S, T, T).contiguous()
-    a = 0.1 * torch.randn((L, M, M), generator=gen, **f64)
-    H = a @ a.mT + 0.5 * torch.eye(M, **f64)
-    leaves = [K0xz, iLB, LB, K0st, iLK.mT @ iLK, LK,
-              torch.linalg.cholesky(H), H,
-              torch.randn((L, M, 1), generator=gen, **f64),
-              torch.randn((S, T, L), generator=gen, **f64) * valid[..., None],
-              0.3 * torch.randn((S, T, L), generator=gen, **f64)]
-    return [t.to(dtype).contiguous() for t in leaves], valid.to(dtype)
+def _bound_case(L, S, T, M, dtype):
+    """``chip_smoke.bound_case``'s synthetic state of the bound's inputs on
+    the card (seed 0; a subject padded from T // 2 and one all padding):
+    (leaves in BOUND_LEAVES order, valid)."""
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke.bound_case(L, S, T, M, dtype)
 
 
 def _bound_run(kernel, case, need_hm=True, w=None):
@@ -1954,10 +1935,10 @@ def _bound_run(kernel, case, need_hm=True, w=None):
 
 
 # [L, S, T, M]: the canonical shape with a padded and an all-padding
-# subject, ragged sizes (M = 37, T = 13: tiles cut at both edges), a
-# T = 200 block of long sequences and a mesh rank's latents
+# subject, ragged sizes (M = 37, T = 13: tiles cut at both edges), the
+# T = 200 and T = 500 blocks of long sequences and a mesh rank's latents
 BOUND_SHAPES = [(32, 20, 20, 120), (3, 7, 13, 37), (32, 4, 200, 120),
-                (16, 10, 20, 120)]
+                (16, 10, 20, 120), (32, 2, 500, 120)]
 
 
 @pytest.mark.parametrize("need_hm", [True, False])
@@ -1970,7 +1951,7 @@ def test_gp_bound_kernels_against_plain_version(gen, dtype, shape, need_hm):
     within 4x the plain version's own error against float64."""
     from hlax_torch.ops import gp_bound as gb
 
-    case = _bound_case(*shape, dtype, gen)
+    case = _bound_case(*shape, dtype)
     before = dict(gb.LAUNCHES)
     got = _bound_run(True, case, need_hm)
     torch.cuda.synchronize()
@@ -2010,7 +1991,7 @@ def test_gp_bound_graph_replays_eager_call(gen, dtype):
     """The bound's forward and backward at the canonical shape captured in
     a CUDA graph and replayed twice: equal to the eager call bit for bit
     (every sum in a fixed order, the last block's counter zero again)."""
-    case = _bound_case(32, 20, 20, 120, dtype, gen)
+    case = _bound_case(32, 20, 20, 120, dtype)
     eager = _bound_run(True, case)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2037,7 +2018,7 @@ def test_gp_bound_op_dispatch(gen):
 
     for dtype in (torch.float32, torch.float64, torch.bfloat16):
         (K0xz, iLB, LB, K0st, iK, LK, LH, H, m, mu, lv), valid = \
-            _bound_case(3, 7, 13, 37, dtype, gen)
+            _bound_case(3, 7, 13, 37, dtype)
         iB = torch.einsum("lskt,lsku->lstu", iLB, iLB)
         blk = SimpleNamespace(K0xz=K0xz, iB=iB, LB=LB, K0_st=K0st,
                               iK0zz=iK, LK0zz=LK, iLB=iLB)

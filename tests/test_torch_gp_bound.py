@@ -46,9 +46,10 @@ def _t(x):
     return torch.tensor(np.asarray(x, np.float64))
 
 
-def _setup(M, seed):
-    """hlax's and the port's bound inputs (numpy): subject 3 padded after
-    its third row, subject 4 all padding."""
+def _setup(M, seed, S=S, T=T, L=L, distinct=False):
+    """hlax's and the port's bound inputs (numpy): subject S - 2 padded
+    after its third row, subject S - 1 all padding; the inducing points
+    valid rows, ``distinct`` ones or drawn with repeats, each time moved."""
     rng = np.random.default_rng(seed)
     spec0, spec1 = jk.build_kernel_specs(*SPEC_ARGS)
     k0, k1 = ([{k: np.asarray(v) + 0.3 * rng.standard_normal(v.shape)
@@ -62,11 +63,12 @@ def _setup(M, seed):
     x[:, :, 3:5] = rng.integers(0, 2, (S, 1, 2))
     x[:, :, 5] = rng.integers(0, 2, (S, T))
     valid = np.ones((S, T))
-    valid[3, 3:] = 0.0
-    valid[4] = 0.0
+    valid[S - 2, 3:] = 0.0
+    valid[S - 1] = 0.0
     x = x * valid[:, :, None]
     rows = x.reshape(-1, Q)[valid.reshape(-1) > 0]
-    zt = np.stack([rows[rng.choice(len(rows), M)] for _ in range(L)])
+    zt = np.stack([rows[rng.choice(len(rows), M, replace=not distinct)]
+                   for _ in range(L)])
     zt[:, :, 0] += rng.uniform(-0.5, 0.5, (L, M))
     Hh = rng.standard_normal((L, M, M)) / 3.0 + 0.7 * np.eye(M)
     return dict(spec0=spec0, spec1=spec1, k0=k0, k1=k1, x=x, valid=valid,
@@ -77,14 +79,14 @@ def _setup(M, seed):
                 noise=np.ones(L))
 
 
-def _kld_j(s, natgrad, k0, k1, zt, mu, logv, m, Hh):
+def _kld_j(s, natgrad, k0, k1, zt, mu, logv, m, Hh, eps=EPS):
     # H as the train step makes it: Adam's factor (``train/step.py``)
     # without natural gradients, else the state's H
     H = Hh if natgrad else Hh @ jnp.swapaxes(Hh, -1, -2)
     return jelbo.kld_upper_bound(
         s["spec0"], k0, s["spec1"], k1, jnp.asarray(s["noise"]), m, H, zt,
         jnp.asarray(s["x"]), jnp.asarray(s["valid"]), mu, logv, P_TOT, N_TOT,
-        EPS, natural_gradient=natgrad, use_pallas_chol=True)[0]
+        eps, natural_gradient=natgrad, use_pallas_chol=True)[0]
 
 
 @pytest.mark.parametrize("natgrad", [True, False])
@@ -130,6 +132,84 @@ def test_bound_with_terms_op_matches_hlax(M, natgrad):
     for got, want in zip(flat_t, flat_j):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                    atol=1e-9 * gmax)
+
+
+# canonical conditioning (configs/hlvae_config_file.txt: M = 120, T = 20,
+# jitter 1e-6) on a few subjects (one padded, one all padding) and latents
+ULP_SHAPE, ULP_EPS, ULP_SEEDS = dict(S=8, T=20, L=3), 1e-6, (1, 2)
+
+
+def test_float64_one_ulp_sensitivity_of_hlax():
+    """How far hlax's own float64 bound and its ``jax.grad`` move when every
+    real input (the kernel parameters, the inducing points' real
+    covariates, mu, log_v, m and H) moves by one unit in the last place (a
+    random sign an entry, the
+    largest over ULP_SEEDS), at canonical conditioning; the port's plain
+    version against hlax's within 4x that movement, output by output (the
+    bar the card's float64 kernels are held to against the plain version).
+    Prints each output's movement and the port's difference."""
+    s = _setup(120, 5, **ULP_SHAPE, distinct=True)
+    rng = np.random.default_rng(0)
+    leaves = ([{k: np.asarray(v, np.float64) for k, v in p.items()}
+               for p in s["k0"]],
+              [{k: np.asarray(v, np.float64) for k, v in p.items()}
+               for p in s["k1"]],
+              *(np.asarray(s[k], np.float64)
+                for k in ("zt", "mu", "logv", "m", "H")))
+    f = jax.jit(jax.value_and_grad(
+        lambda *a: _kld_j(s, True, *a, eps=ULP_EPS), argnums=(0, 1, 2, 3, 4)))
+
+    def flat(out):
+        value, (g0, g1, *rest) = out
+        return [np.asarray(value)] + [np.asarray(p[k]) for p in g0 + g1
+                                      for k in sorted(p)] + \
+            [np.asarray(g) for g in rest]
+
+    def run(ls):
+        return flat(f(*jax.tree_util.tree_map(jnp.asarray, ls)))
+
+    base = run(leaves)
+    move = [0.0] * len(base)
+    # the inducing points' real covariates (time, the continuous one); their
+    # id and categorical columns are labels the kernels compare for equality
+    real = np.zeros(leaves[2].shape, bool)
+    real[..., :2] = True
+    for seed in ULP_SEEDS:
+        g = np.random.default_rng(seed)
+        ulp = lambda v: v * (1 + np.finfo(np.float64).eps
+                             * g.choice([-1.0, 1.0], np.shape(v)))
+        moved = jax.tree_util.tree_map(ulp, leaves)
+        moved[2][~real] = leaves[2][~real]
+        moved = run(moved)
+        assert all(np.isfinite(b).all() for b in moved)
+        move = [max(a, np.abs(b - c).max()) for a, b, c in
+                zip(move, moved, base)]
+    assert all(np.isfinite(b).all() for b in base)
+
+    t0, t1 = tk.build_kernel_specs(*SPEC_ARGS)
+    tk0, tk1 = ([{k: _t(v).requires_grad_(True) for k, v in p.items()}
+                 for p in lv] for lv in leaves[:2])
+    zt, mu, logv = (_t(v).requires_grad_(True) for v in leaves[2:5])
+    kld = telbo.kld_upper_bound(
+        t0, tk0, t1, tk1, _t(s["noise"]), _t(leaves[5]), _t(leaves[6]), zt,
+        _t(s["x"]), _t(s["valid"]), mu, logv, P_TOT, N_TOT, ULP_EPS,
+        natural_gradient=True, use_pallas_chol=True)[0]
+    kld.backward()
+    port = [kld.detach().numpy()] + [p[k].grad.numpy() for p in tk0 + tk1
+                                     for k in sorted(p)] + \
+        [zt.grad.numpy(), mu.grad.numpy(), logv.grad.numpy()]
+    names = ["kld"] + [f"d k{j}[{i}].{k}" for j, ps in enumerate(leaves[:2])
+                       for i, p in enumerate(ps) for k in sorted(p)] + \
+        ["d zt", "d mu", "d log_v"]
+    assert len(port) == len(base) == len(names)
+    for name, a, b, m in zip(names, port, base, move):
+        scale = np.abs(b).max()
+        err = np.abs(a - b).max()
+        print(f"hlax float64 one-ulp movement {name}: {m:.3e} "
+              f"({m / scale:.2e} of the largest entry {scale:.3e}); the "
+              f"port's plain version against hlax {err:.3e} "
+              f"({err / m if m else float('inf'):.2f}x the movement)")
+        assert err <= max(4 * m, 1e-13 * scale), (name, err, m, scale)
 
 
 # ---- the kernels' plain versions (the wrappers on a CPU tensor) -------------
@@ -253,31 +333,64 @@ def test_terms_then_assembly_equal_one_process(kernel):
 
 # ---- the launch plans and the wrappers' launches ------------------------------
 
+# [L, S, T, M]: the canonical batch, a 2 x 2 mesh rank's, the card tests'
+# ragged shape, the long sequences' T = 200 and T = 500 batches
+PLAN_SHAPES = [(32, 20, 20, 120), (16, 10, 20, 120), (3, 7, 13, 37),
+               (32, 4, 200, 120), (32, 2, 500, 120)]
+
+
 @pytest.mark.parametrize("sms", [132, 114])
 def test_launch_plans(sms):
-    """The plans as pure functions of the shapes and the SM count: a
-    subject a block while the (latent, subject) blocks fill the card once,
-    more a block past it, every subject in one chunk; each latent's rows in
+    """The plans as pure functions of the shapes and the SM count: staged,
+    as many blocks as the SMs hold at once (the launch bounds' blocks an SM
+    within the shared memory an SM has), at most one a subject; longer
+    subjects in row tiles (multiples of 32 rows, at most MAX_TILES, K1's
+    cluster), K1's partials S x tiles rows a latent; each latent's rows in
     parts covering every row once, about LATENT_BLOCKS_PER_SM blocks an SM,
     their shared bytes within SMEM_MAX (the canonical latents: 9 parts of
     14 rows, 288 blocks)."""
-    assert gb.subject_plan(32, 20, 20, 120, 4, sms)[:3] == (1, 20, True)
+    p = gb.subject_plan(32, 20, 20, 120, 4, sms)
+    assert p[:6] == (True, 2 * sms, 2 * sms, 20, 1, 20)
+    assert gb.subject_plan(32, 20, 20, 120, 8, sms)[:3] == (True, 2 * sms,
+                                                            2 * sms)
+    assert gb.subject_plan(16, 10, 20, 120, 4, sms)[1:3] == (160, 160)
+    assert gb.subject_plan(32, 4, 200, 120, 4, sms)[:6] == (
+        False, 7 * 128, 7 * 128, 32, 7, 28)
+    assert gb.subject_plan(32, 2, 500, 120, 8, sms)[:6] == (
+        False, 8 * 64, 8 * 64, 64, 8, 16)
     for Ls, Ss, Ts in ((32, 20, 20), (16, 10, 20), (32, 4, 200),
-                       (64, 200, 20), (1, 1, 33)):
+                       (64, 200, 20), (1, 1, 33), (32, 2, 500)):
         for z in (4, 8):
             p = gb.subject_plan(Ls, Ss, Ts, 120, z, sms)
-            assert (p.chunks - 1) * p.chunk < Ss <= p.chunks * p.chunk
-            assert p.chunk == 1 or Ls * p.chunks <= \
-                gb.SUBJECT_BLOCKS_PER_SM * sms + Ls
             assert p.staged == (Ts <= gb.TP)
-            assert p.smem_fwd < p.smem_bwd <= gb.SMEM_MAX or not p.staged
-            assert p.smem_bwd == gb.subject_smem(3, p.staged, Ts, 120, z)
-    # a staged K3 of [32, 120] in float: K0xz, K0xz [G | G^T], iB, iLB,
-    # K0_st, (K0xz G) K0xz^T and the symmetric cotangent, r, q, iKm, the
-    # rows' scalars
+            assert p.parts == Ss * p.tiles
+            assert p.smem_fwd == gb.subject_smem(1, p.staged, Ts, 120, z,
+                                                 p.rows)
+            assert p.smem_bwd == gb.subject_smem(3, p.staged, Ts, 120, z,
+                                                 p.rows)
+            assert max(p.smem_fwd, p.smem_bwd) <= gb.SMEM_MAX
+            if p.staged:
+                for blocks, smem in ((p.blocks_fwd, p.smem_fwd),
+                                     (p.blocks_bwd, p.smem_bwd)):
+                    on_sm = min(gb.SUBJECT_BLOCKS_PER_SM,
+                                gb.SMEM_SM // (smem + gb.SMEM_BLOCK))
+                    assert on_sm >= 1 and on_sm * (smem + 1024) <= \
+                        gb.SMEM_SM
+                    assert blocks == min(Ls * Ss, on_sm * sms)
+            else:
+                assert p.rows % 32 == 0 and p.tiles <= gb.MAX_TILES
+                assert (p.tiles - 1) * p.rows < Ts <= p.tiles * p.rows
+                assert p.blocks_fwd == p.blocks_bwd == p.tiles * Ls * Ss
+    # a staged K3 of [32, 120] in float: two stages of K0xz G, iB, iLB,
+    # K0_st, iKm's row, r, q and the rows' valid, log_v, LB diagonal; K0xz,
+    # K0xz G^T, (K0xz G) K0xz^T and the symmetric cotangent
     assert gb.subject_smem(3, True, 32, 120, 4) == 4 * (
-        32 * 120 * 3 + 3 * 32 * 32 + 2 * 32 * 33 + 64 + 120 + 96)
+        2 * (32 * 120 + 3 * 32 * 32 + 120 + 5 * 32) + 2 * 32 * 120
+        + 2 * 32 * 33)
     assert not gb.subject_plan(1, 1, 32, 512, 8, sms).staged
+    assert gb.subject_plan(1, 1, 32, 120, 8, sms).staged      # 189 KB
+    with pytest.raises(ValueError):
+        gb.subject_plan(1, 1, 8 * 256 + 1, 16, 4, sms)
     for Ls, M, z in ((32, 120, 4), (32, 120, 8), (16, 120, 4), (3, 37, 8),
                      (1, 512, 8), (264, 7, 4)):
         p = gb.latent_plan(Ls, M, z, sms)
@@ -287,6 +400,55 @@ def test_launch_plans(sms):
     assert gb.latent_plan(32, 120, 4, 132)[:2] == (14, 9)
     assert gb.latent_plan(264, 7, 4, 132)[:2] == (7, 1)
     assert gb.latent_plan(1, 512, 8, 132)[:2] == (2, 256)
+
+
+def _ring_takes(n, blocks, seed):
+    """The subjects each of ``blocks`` staged blocks computes, as csrc's
+    ``ring`` takes them, the blocks' turns in a random order from ``seed``:
+    block b starts with subject b, takes its next one from the queue (past
+    the grid's first) part way through each subject, and stops at the
+    first taken past n."""
+    rng, queue = np.random.default_rng(seed), blocks
+    held, done = [[b] for b in range(blocks)], [[] for _ in range(blocks)]
+    live = list(range(blocks))
+    while live:
+        b = live[rng.integers(len(live))]
+        i = held[b].pop(0)
+        if i >= n:
+            live.remove(b)
+            continue
+        done[b].append(i)
+        held[b].append(queue)
+        queue += 1
+    return done
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_subject_plans_take_every_subject_once(shape, sms):
+    """Every (latent, subject) computed by exactly one staged block, in
+    any order the blocks' turns come (the ring's queue), each block's in
+    rising order; the partials a subject's row each (row l S + s), so their
+    order depends only on the shapes; a longer subject's every row in
+    exactly one row tile, K1's partials S x tiles rows a latent; the rings'
+    and tiles' shared bytes within SMEM_MAX in float and double."""
+    L, S, T, M = shape
+    for z in (4, 8):
+        p = gb.subject_plan(L, S, T, M, z, sms)
+        assert max(p.smem_fwd, p.smem_bwd) <= gb.SMEM_MAX
+        if p.staged:
+            assert p.parts == S and p.tiles == 1 and p.rows == T
+            for blocks in (p.blocks_fwd, p.blocks_bwd):
+                for seed in range(3):
+                    done = _ring_takes(L * S, blocks, seed)
+                    assert sorted(i for d in done for i in d) == \
+                        list(range(L * S))
+                    assert all(d == sorted(d) for d in done)
+            continue
+        rows = [t for tile in range(p.tiles)
+                for t in range(tile * p.rows, min(T, (tile + 1) * p.rows))]
+        assert rows == list(range(T))
+        assert p.parts == S * p.tiles
 
 
 def _c_params():
@@ -306,19 +468,51 @@ def test_constants_match_the_kernels():
         assert re.search(rf"constexpr int {name} = {value};", src), name
     assert "MAX_M = 2 * NT;" in src and gb.MAX_M == 2 * gb.THREADS
     assert f"constexpr int TP = {gb.TP}," in src
+    assert (f"constexpr int NSTAGE = {gb.NSTAGE}, MAX_TILES = "
+            f"{gb.MAX_TILES}, TILE_BLOCKS = 3;") in src
+    n = gb.SUBJECT_BLOCKS_PER_SM
+    assert (f"constexpr int FWD_SUBJECT_BLOCKS = {n}, BWD_SUBJECT_BLOCKS = "
+            f"{n};") in src
+    assert "__launch_bounds__(NT, FWD_SUBJECT_BLOCKS)" in src
+    assert "__launch_bounds__(NT, BWD_SUBJECT_BLOCKS)" in src
+    assert src.count("__launch_bounds__(NT, TILE_BLOCKS)") == 2
 
 
-@pytest.mark.parametrize("Ts", [5, 40])
+def _c_stage_bytes(name, T, M, z):
+    """csrc/gp_bound.cu's ``name`` (fwd_stage, bwd_stage) at (T, M, z),
+    its a16 sums read from the source and evaluated."""
+    body = re.search(rf"inline int {name}\(int Tn, int M, int z\) {{\s*"
+                     r"return ([^;]*);", CSRC.read_text()).group(1)
+    expr = re.sub(r"\(long\)|L \*", lambda m: "" if m.group(0) == "(long)"
+                  else " *", body)
+    return eval(f"({expr})", {"a16": gb._a16, "Tn": T, "M": M, "z": z})
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_ring_bytes_match_the_kernels(shape):
+    """The stages' bytes (FwdStage, BwdStage) and every plan's shared bytes
+    are csrc/gp_bound.cu's, within SMEM_MAX, in float and double."""
+    L, S, T, M = shape
+    for z in (4, 8):
+        assert _c_stage_bytes("fwd_stage", T, M, z) == gb.fwd_stage(T, M, z)
+        assert _c_stage_bytes("bwd_stage", T, M, z) == gb.bwd_stage(T, M, z)
+        p = gb.subject_plan(L, S, T, M, z, 132)
+        assert max(p.smem_fwd, p.smem_bwd) <= gb.SMEM_MAX
+
+
+@pytest.mark.parametrize("Ts", [5, 40, 200])
 @pytest.mark.parametrize("need_hm", [True, False])
 @pytest.mark.parametrize("totals", [(P_TOT, N_TOT), None])
 def test_wrappers_launch_the_c_entries(monkeypatch, totals, need_hm, Ts):
     """The op's autograd Function on CPU tensors as on the card: four
     launches (forward: subjects, then latents; backward: latents, then
     subjects), each with its C entry's parameter count (the stream last),
-    the plans' grids and shared bytes, a null kld_total on a mesh (no
+    the plans' grids and shared bytes, K1's partials a subject's tiles
+    each and K2 reading that many, a null kld_total on a mesh (no
     ``totals``) and null H and m cotangents where they need none; at T = 40
-    (past TP) the subject kernels unstaged, the subjects' products by
-    cuBLAS around them."""
+    and 200 (past TP) the subject kernels in row tiles, the subjects'
+    products by cuBLAS around them (K3 writing ``sym``), staged no
+    ``sym``."""
     params, calls = _c_params(), []
     assert sorted(params) == sorted(k.removesuffix("_cuda")
                                     for k in gb.LAUNCHES)
@@ -347,18 +541,26 @@ def test_wrappers_launch_the_c_entries(monkeypatch, totals, need_hm, Ts):
     sp = gb.subject_plan(3, 4, Ts, 16, 8, 132)
     lp = gb.latent_plan(3, 16, 8, 132)
     assert sp.staged == (Ts <= gb.TP)
+    assert sp.tiles == {5: 1, 40: 2, 200: 7}[Ts]
     fwd_s, fwd_l, bwd_l, bwd_s = (c[1] for c in calls)
-    assert fwd_s[0] == 8 and fwd_s[-8:] == (3, 4, Ts, 16, 3, sp.chunk,
-                                            int(sp.staged), sp.smem_fwd)
+    assert fwd_s[0] == 8 and fwd_s[-9:] == (3, 4, Ts, 16, 3, sp.blocks_fwd,
+                                            sp.rows, int(sp.staged),
+                                            sp.smem_fwd)
+    assert fwd_s[15].shape == (2,)                  # the subject queue
     assert fwd_s[10] is None and fwd_s[11] is None    # float64: no copies
-    assert fwd_s[14].shape == (3, sp.chunks, gb.NSUB + 16)
-    assert fwd_l[11] == sp.chunks and fwd_l[-4] == lp.rows
+    assert fwd_s[14].shape == (3, 4 * sp.tiles, gb.NSUB + 16)
+    assert fwd_l[10] is fwd_s[14] and fwd_l[11] == sp.parts
+    assert fwd_l[-4] == lp.rows
     assert fwd_l[-1] == lp.smem_fwd and (fwd_l[16] is None) == (
         totals is None)
     assert bwd_l[2] is None if totals is None else bwd_l[1] is None
     assert bwd_l[-2:] == (lp.rows, lp.smem_bwd)
     assert (bwd_l[16] is None) == (bwd_l[19] is None) == (not need_hm)
     assert (bwd_l[20] is None) == (not need_hm)
-    assert bwd_s[-8:] == (3, 4, Ts, 16, 3, sp.chunk, int(sp.staged),
-                          sp.smem_bwd)
+    assert bwd_s[-9:] == (3, 4, Ts, 16, 3, sp.blocks_bwd, sp.rows,
+                          int(sp.staged), sp.smem_bwd)
     assert bwd_s[15].shape == (3, 4 * Ts, 32)       # K0xz [G | G^T]
+    assert (bwd_s[16] is None) == sp.staged          # sym, tiles only
+    assert bwd_s[23].shape == (2,)                  # the subject queue
+    if not sp.staged:
+        assert bwd_s[16].shape == (3, 4, Ts, Ts)
