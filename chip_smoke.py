@@ -483,12 +483,15 @@ STAGED_INSTANCES = tuple(
 SUBJECT_INSTANCES = tuple(f"gp_bound_{d}_{k}_kernel<{t}>"
                           for k in ("subjects", "tiles")
                           for d in ("fwd", "bwd") for t in ("float", "double"))
+LATENT_INSTANCES = tuple(f"gp_bound_{d}_latents_kernel<{t}>"
+                         for d in ("fwd", "bwd") for t in ("float", "double"))
 # the kernels that must not spill, by library, and whether a stack frame
 # fails them too: the float64 blocked mid kernel, every GP kernel, the
-# staged kernels, the bound's subject kernels
+# staged kernels, the bound's subject and latent kernels
 NO_SPILL = ([("chol_inv_mid", "chol_inv_mid_blocked64_kernel", False)]
             + [("fusion", k, True) for k in GP_INSTANCES + STAGED_INSTANCES]
-            + [("gp_bound", k, True) for k in SUBJECT_INSTANCES])
+            + [("gp_bound", k, True) for k in SUBJECT_INSTANCES
+               + LATENT_INSTANCES])
 
 
 def _ptxas_report(tag: str, name: str, log: str, only: str = "") -> dict:
@@ -538,7 +541,8 @@ def phase_build() -> None:
     print(f"[build] no spill in {len(NO_SPILL)} kernels, no stack frame in "
           f"the {len(GP_INSTANCES)} GP kernels, the "
           f"{len(STAGED_INSTANCES)} staged kernels and the "
-          f"{len(SUBJECT_INSTANCES)} bound's subject kernels", flush=True)
+          f"{len(SUBJECT_INSTANCES + LATENT_INSTANCES)} bound's subject and "
+          "latent kernels", flush=True)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -3021,6 +3025,15 @@ def bound_launches(gb, case, need_hm=False):
 # canonical subjects
 SWEEP_LATENTS = (1, 2, 4, 8, 16, 32)
 SUBJECT_ENTRIES = ("gp_bound_fwd_subjects", "gp_bound_bwd_subjects")
+# the bound's four C entries in a step's order, and the latent kernels'
+# outputs by argument of their C entries (after the itemsize)
+BOUND_ENTRIES = ("gp_bound_fwd_subjects", "gp_bound_fwd_latents",
+                 "gp_bound_bwd_latents", "gp_bound_bwd_subjects")
+LATENT_OUTS = {"gp_bound_fwd_latents": {13: "u", 14: "terms",
+                                        15: "P_batch", 16: "kld_total"},
+               "gp_bound_bwd_latents": {17: "G2", 18: "d iK0zz", 19: "d H",
+                                        20: "d m", 21: "d LK0zz",
+                                        22: "d LH"}}
 
 
 def gp_bound_sweep(gb, case, tag: str) -> dict:
@@ -3079,14 +3092,17 @@ def gp_bound_sweeps() -> None:
 
 
 def gp_bound_against_parent() -> None:
-    """The parent tree's subject kernels (its csrc/gp_bound.cu built into
+    """The parent tree's bound kernels (its csrc/gp_bound.cu built into
     build/parent/gp_bound/, through its own wrapper) against the change's
     at GP_BOUND_SHAPES in float32 and float64, on ``bound_case``'s state:
     every result of the bound through each tree's kernels (terms,
     P_batch, kld_total, every gradient with H's and m's) compared bit for
-    bit; each subject kernel's launch of one forward and backward (each
-    tree's own plan) timed alone, L2-warm and -cold, in turns parent,
-    change, change, parent.  Prints that it did not run without parent/."""
+    bit, and the latent kernels' own outputs (LATENT_OUTS) without and
+    with H's and m's gradients; each of the four kernels' launch of one
+    forward and backward (each tree's own plan) timed alone, L2-warm and
+    -cold, in turns parent, change, change, parent; then each kernel's
+    times at the canonical shape with the parent's in brackets.  Prints
+    that it did not run without parent/."""
     from hlax_torch.ops import cuda_build
     from hlax_torch.ops import gp_bound as gb
 
@@ -3096,7 +3112,7 @@ def gp_bound_against_parent() -> None:
         return
     pg, _, _ = tree_gp_bound(PARENT_ROOT, os.path.join(
         cuda_build.BUILD_DIR, "parent", "gp_bound"))
-    slower = []
+    slower, canonical = [], []
     for dtype in (torch.float32, torch.float64):
         for shape in GP_BOUND_SHAPES:
             case = bound_case(*shape, dtype)
@@ -3107,10 +3123,22 @@ def gp_bound_against_parent() -> None:
             _bits_against_parent(f"gp_bound {tag} (terms, P_batch, "
                                  "kld_total, the 11 gradients)",
                                  results["parent"], results["change"])
-            calls = {who: {e: (like, args) for e, like, args in
-                           bound_launches(mod, case)}
-                     for who, mod in (("parent", pg), ("change", gb))}
-            for entry in SUBJECT_ENTRIES:
+            for need_hm in (True, False):
+                calls = {who: {e: (like, args) for e, like, args in
+                               bound_launches(mod, case, need_hm)}
+                         for who, mod in (("parent", pg), ("change", gb))}
+                for entry, outs in LATENT_OUTS.items():
+                    got = [(name, calls["parent"][entry][1][i],
+                            calls["change"][entry][1][i])
+                           for i, name in outs.items()
+                           if calls["change"][entry][1][i] is not None]
+                    _bits_against_parent(
+                        f"gp_bound {tag} {entry}"
+                        f"{' with H and m' if need_hm else ''} "
+                        f"({', '.join(g[0] for g in got)})",
+                        [g[1] for g in got], [g[2] for g in got],
+                        [g[0] for g in got])
+            for entry in BOUND_ENTRIES:
                 ms = {"parent": [], "change": []}
                 for who in ("parent", "change", "change", "parent"):
                     mod = pg if who == "parent" else gb
@@ -3123,6 +3151,8 @@ def gp_bound_against_parent() -> None:
                          / sum(t[k] for t in ms["change"]) for k in (0, 1)]
                 slower += [f"{entry} {tag} {('warm', 'cold')[k]}"
                            for k in worse]
+                if shape == GP_BOUND_SHAPES[0]:
+                    canonical.append((entry, list(like.shape), tag, ms))
                 print(f"[fusion] parent against change {entry} {tag}: warm "
                       + ", ".join(f"{who} {ms[who][j][0]:.5f}" for who, j in
                                   (("parent", 0), ("change", 0),
@@ -3137,7 +3167,14 @@ def gp_bound_against_parent() -> None:
             gb._COUNTERS.take_since(before)
             del case, results, calls
             torch.cuda.empty_cache()
-    print("[fusion] gp_bound subject kernels against the parent's: "
+    mean = lambda ts, k: sum(t[k] for t in ts) / len(ts)
+    for entry, shape, tag, ms in canonical:
+        print(f"[fusion] {entry} {shape} {tag.split()[-1]}: kernel "
+              f"{mean(ms['change'], 0):.4f} ms, L2-cold "
+              f"{mean(ms['change'], 1):.4f} ms [parent "
+              f"{mean(ms['parent'], 0):.4f}; {mean(ms['parent'], 1):.4f}] "
+              f"(each tree's two turns' mean) on {card_line()}", flush=True)
+    print("[fusion] gp_bound kernels against the parent's: "
           + ("slower than the parent's in both its turns at "
              + "; ".join(slower) if slower else
              "none slower than the parent's at any shape, dtype, warm or "
@@ -3437,15 +3474,17 @@ STAGED_OPS = (("heads", ("heads_cat_fwd",)), ("heads", ("heads_cat_bwd",)),
               ("recon_metric", ("recon_metric", "recon_metric_finish")))
 
 
-def _bits_against_parent(tag, parent, change) -> None:
+def _bits_against_parent(tag, parent, change, names=None) -> None:
     """Prints whether the change's forward results equal the parent's bit
-    for bit, and where they do not (the bars hold either way)."""
+    for bit, and where they do not (the bars hold either way); ``names``
+    the results' (None: their indices)."""
     diff = []
     for i, (a, b) in enumerate(zip(parent, change)):
         if not torch.equal(a, b):
             n = (a != b).sum().item()
             err = (a.double() - b.double()).abs().max().item()
-            diff.append(f"result {i} {list(a.shape)}: {n} of {a.numel()} "
+            name = names[i] if names else f"result {i}"
+            diff.append(f"{name} {list(a.shape)}: {n} of {a.numel()} "
                         f"entries differ, by {err:.3e} at most")
     print(f"[fusion] {tag}: the change's results "
           + ("equal the parent's bit for bit" if not diff else

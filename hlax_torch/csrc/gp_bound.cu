@@ -30,16 +30,19 @@
 //     (iK0zz's entries reach ~1e4), so float32 rounding of KziBK makes E
 //     noise of +-100s; KziBK's product in double (the wrapper's) keeps it
 //     to the rounding of E_mat.
-//   gp_bound_fwd_latents (K2): a block a (latent, part of the rows of the
-//     M x M matrices); sum Kz o iK, sum E o Kz, tr(iK H^T), m . iKm and the
-//     log-diagonals of the factors; u from K1's partials; the grid's last
-//     block adds every partial in a fixed order, in double, into the terms
-//     (A, Bt, C, D, E, F, kqu), P_batch and, without a mesh, kld_total.
-//   gp_bound_bwd_latents (K4): from the terms' and kld_total's cotangents,
-//     G = dKz = -w_D iK + w_E E_mat with its transpose beside it (for the
-//     one cuBLAS product K0xz [G | G^T]), d iK's sum (its products' parts
-//     come from cuBLAS), d H, d m and the diagonal cotangents of the
-//     factors of K0zz and H.
+//   gp_bound_fwd_latents (K2): a block a pair of tiles of a latent's M x
+//     M matrices at a time (mirrored, or two diagonal ones); sum Kz o iK,
+//     sum E o Kz, tr(iK H^T), m . iKm and the log-diagonals of the
+//     factors; u and K1's five sums from its partials, P_batch; the
+//     grid's last block adds the blocks' partials in a fixed order, in
+//     double, into the terms (A, Bt, C, D, E, F, kqu), P_batch and,
+//     without a mesh, kld_total.
+//   gp_bound_bwd_latents (K4): the same walk of tile pairs, a pair's two
+//     teams of four warps; from the terms' and kld_total's cotangents, G =
+//     dKz = -w_D iK + w_E E_mat with its transpose beside it (for the one
+//     cuBLAS product K0xz [G | G^T]), d iK's sum (its products' parts come
+//     from cuBLAS), d H, d m (the tiles' column parts, added by the last
+//     block) and the diagonal cotangents of the factors of K0zz and H.
 //   gp_bound_bwd_subjects (K3): d K0xz = w_A q iKm^T + iB (K0xz G^T)
 //     + iB^T (K0xz G), d iB = w_A r r^T + w_Bt diag(v) + w_D K0_st
 //     + (K0xz G) K0xz^T, then d iLB = iLB (d iB + d iB^T) (iB = iLB^T
@@ -51,7 +54,9 @@
 // (0.5 MB each) and writes W (6.1 MB), and with float inputs K0xz and W in
 // double (24.6 MB): ~12 us at 3.35 TB/s against 0.13 GFLOP (~2 us at 67
 // TFLOP/s).  K3 reads K0xz and K0xz [G | G^T] (18 MB) and writes d K0xz:
-// ~8 us.  K2 and K4 read and write a few [L, M, M] matrices (1.8 MB each).
+// ~8 us.  K2 and K4 read and write a few [L, M, M] matrices (1.8 MB each
+// in float): K2 8.0 MB (KziBK counted at the inputs' width; it reads it in
+// double, 9.9 MB), ~2.4 us; K4 20.3 MB, ~6 us.
 // Measured (tools/gp_bound_phases.py), a subject a block was latency- and
 // wave-bound: K1 ran 640 blocks in three waves of two an SM, each waiting
 // ~2.4 us for its copies before ~6 us of compute; K3 1.6 waves, its
@@ -68,15 +73,29 @@
 // thread's in a fixed order, a warp's by a butterfly, a block's in warp
 // order, the partials (a subject's or a tile's) in order by the last
 // block, so a CUDA graph replays the eager call's bits and no float atomic
-// is used.  The latent kernels stage the transposed
-// rows they need (H^T, iK^T, E^T) in shared memory by cp.async element
-// copies.  The counter of K2's last block is zero between launches (that
-// block zeroes it), so the wrapper's per-stream buffer needs no fill.
+// is used.  Measured, the first latent kernels (a block a strip of a
+// latent's rows, 288 blocks) spent their time waiting: K2 ~1.2 us on the
+// transposed strip of H staged by 4-byte copies, ~4 us on its sums (u's
+// 20 parts, four loads in flight, by 14 threads a block), ~4 us from its
+// partials to its arrival at the counter, then a 4.6 us serial finish in
+// the last block; K4 3.2 us on three strips staged by 4-byte copies and 5
+// us on its entries, a round trip of loads for each of its seven loop
+// turns.  So each now takes a pair of tiles a block (the tiles
+// of a latent's matrices, see "the latent kernels' tiles" below): every
+// input read once by 16-byte copies, all of a block's in flight before
+// its first wait, the transposes in shared memory, the stores 16-byte
+// vectors; K2's sums of u and of K1's partials spread over the grid's
+// blocks with their loads in flight, its last block adding one round of
+// the blocks' partials.  The counter of K2's (and, with m's gradient,
+// K4's) last block is zero between launches (that block zeroes it), so
+// the wrapper's per-stream buffer needs no fill.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 // marks of the subject kernels' phases, read by tools/gp_bound_phases.py
 // (which defines them); nothing otherwise
@@ -108,6 +127,16 @@ constexpr int TP = 32, RR = 3, RC = 4;
 // subject takes at most (one thread-block cluster, the portable size); the
 // blocks an SM the longer subjects' kernels' launch bounds ask for
 constexpr int NSTAGE = 2, MAX_TILES = 8, TILE_BLOCKS = 3;
+// the latent kernels' square tiles (LW x LW entries of a latent's [M, M]
+// matrices, a staged one TILE_ELEMS entries), their blocks an SM (launch
+// bounds: two, every block two tiles, the canonical 256 pairs one wave),
+// and a latent block's scalar sums (K1's five, its own six, its count of
+// P_batch's subjects)
+constexpr int LW = 32, TILE_ELEMS = LW * (LW + 1);
+constexpr int LATENT_BLOCKS = 2;
+constexpr int NBLK = NSUB + NLAT + 1;
+// K4's two teams of four warps, each with its copies and outputs
+constexpr int TEAM = NT / 2;
 
 template <typename T> __device__ inline T warp_sum(T v) {
   // a butterfly: every lane ends with the same bits
@@ -121,10 +150,17 @@ template <typename T> __device__ inline T warp_sum(T v) {
 template <int NV>
 __device__ void block_sum(const double (&v)[NV], double* red, double* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = 0; j < NV; ++j) {
-    const double s = warp_sum(v[j]);
-    if (lane == 0) red[warp * NV + j] = s;
-  }
+  // warp_sum's butterfly of each value, the NV interleaved
+  double s[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) s[j] = v[j];
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < NV; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
+  if (lane == 0)
+#pragma unroll
+    for (int j = 0; j < NV; ++j) red[warp * NV + j] = s[j];
   __syncthreads();
   if (threadIdx.x < NV) {
     double s = red[threadIdx.x];
@@ -158,19 +194,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
-// dst[i (M + 1) + n] = src[n M + m0 + i] for i < nr, n < M: rows m0.. of
-// src^T, staged by cp.async (committed and waited by the caller); the
-// global reads run along i, the shared rows padded against bank conflicts
-template <typename T>
-__device__ void stage_transposed(T* dst, const T* src, int M, int m0,
-                                 int nr) {
-  for (int e = threadIdx.x; e < nr * M; e += NT) {
-    const int n = e / nr, i = e % nr;
-    cp_async_elem<sizeof(T)>(dst + i * (M + 1) + n,
-                             src + (size_t)n * M + m0 + i);
-  }
-}
-
 // The scalar cotangents of the terms (A, Bt, C, D, E, F, kqu) from the
 // Function's: gterms [NTERM] and gkld (kld_total's; null: zero), kld_total
 // = P_tot / P_batch (A + Bt + C + D + E - F) / 2 + kqu - L N_tot / 2.
@@ -186,40 +209,22 @@ __device__ void term_weights(const T* gterms, const T* gkld, const T* pbatch,
 }
 
 // Whether this block is the last of nblk to arrive at counter (each block
-// having written its partials first); the last zeroes the counter for the
-// next launch.  The same in every thread of the block.
+// having written its partials first: the barrier, then thread 0's fence
+// and arrival); the last zeroes the counter for the next launch.  The
+// same in every thread of the block.
 __device__ bool last_block(int* counter, int nblk) {
   __shared__ bool last;
-  __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == nblk - 1;
-  __syncthreads();
-  if (last) {
+  if (threadIdx.x == 0) {
     __threadfence();
-    if (threadIdx.x == 0) *counter = 0;
+    last = atomicAdd(counter, 1) == nblk - 1;
+    if (last) {
+      __threadfence();
+      *counter = 0;
+    }
   }
+  __syncthreads();
   return last;
-}
-
-// the sum of the n doubles src[j * step], j = j0, j0 + gap, ..., in a
-// fixed order: four running sums over consecutive entries (their loads in
-// flight together), then added pairwise
-__device__ double sum_fixed(const double* src, int j0, int n, int gap,
-                            size_t step) {
-  double a[4] = {0.0, 0.0, 0.0, 0.0};
-  int j = j0;
-  for (; j + 3 * gap < n; j += 4 * gap) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) a[k] += __ldcg(src + (j + k * gap) * step);
-  }
-  for (; j < n; j += gap) a[0] += __ldcg(src + j * step);
-  return (a[0] + a[1]) + (a[2] + a[3]);
-}
-
-// the sum of n doubles src[j * stride] in a fixed order: each lane of the
-// warp its entries (sum_fixed), then a butterfly (every lane the total)
-__device__ double warp_sum_strided(const double* src, int n, int stride) {
-  return warp_sum(sum_fixed(src, threadIdx.x & 31, n, 32, stride));
 }
 
 // ------------------------------------------------- the subject kernels' ring
@@ -695,77 +700,423 @@ __global__ void __launch_bounds__(NT, TILE_BLOCKS) gp_bound_fwd_tiles_kernel(
   GP_PHASE_END
 }
 
+// --------------------------------------------------- the latent kernels' tiles
+//
+// K2 and K4 take each latent's [M, M] matrices in square tiles of LW x LW
+// entries, a block a pair of tiles at a time: a mirrored pair (I, J) and
+// (J, I), I < J, or two diagonal tiles (latent_pairs), so every block has
+// two tiles of work, the transposed entries an output needs (H^T in tr1,
+// iK0zz^T, E_mat^T and H^T in K4) lie in its pair and every input tile is
+// read from global memory once, by 16-byte cp.async copies, all of a
+// pair's in flight before the first wait (K2: the second tile's own
+// inputs in a second group, landing while the first tile's sums run; K4:
+// two teams of four warps, each with its share of the copies, landing
+// while the other team stores).
+// Each thread takes chunks of CE = 16 / sizeof(T) entries of a row
+// (tile_chunk) and stores its outputs as 16-byte vectors.  The tiles
+// whose transposes are read are staged as tiles (tile_at: rows 16-byte
+// aligned, a warp's reads down a column in distinct banks); the others
+// each thread stages into slots of its own (stage's ``own``: consecutive
+// threads' 16 bytes side by side), which keeps registers free (two tiles'
+// chunks held in registers spilled).  Where M is not a multiple of CE, or
+// an array is not 16-byte aligned (M = 37, 7), each entry is copied and
+// stored alone.  The grid is sized to the card (latent_plan): block b
+// takes pairs b, b + grid, ... of the L pairs a latent.
+
+template <typename T> __host__ __device__ constexpr int chunk_elems() {
+  return 16 / (int)sizeof(T);
+}
+// the chunks of CE entries a thread takes of a tile
+template <typename T> __host__ __device__ constexpr int tile_chunks() {
+  return LW * LW / chunk_elems<T>() / NT;
+}
+
+// a staged tile's entry (s, c): row s at s LW + CE (s / CE), so the rows
+// are 16-byte aligned and a warp's reads down a column (the mirrored
+// tile's entries of its chunks, rows s = CE k + j) fall in distinct banks
+template <typename T> __device__ __forceinline__ int tile_at(int s, int c) {
+  return s * LW + chunk_elems<T>() * (s / chunk_elems<T>()) + c;
+}
+
+// chunk q of thread t: row r, columns c .. c + CE - 1 of the tile.  Float:
+// a warp four rows of eight chunks; double: each half of a warp two rows
+// of eight chunks (its 8-byte reads down a column then take 16 banks)
+template <typename T>
+__device__ __forceinline__ void tile_chunk(int t, int q, int& r, int& c) {
+  if (sizeof(T) == 4) {
+    r = t >> 3;
+    c = 4 * (t & 7);
+  } else {
+    const int lane = t & 31;
+    r = 4 * (t >> 5) + 2 * q + ((lane >> 3) & 1);
+    c = 2 * ((lane & 7) + 8 * (lane >> 4));
+  }
+}
+
+__device__ __forceinline__ void ld16(float* x, const float* s) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void ld16(double* x, const double* s) {
+  const double2 v = *reinterpret_cast<const double2*>(s);
+  x[0] = v.x;
+  x[1] = v.y;
+}
+__device__ __forceinline__ void st16(float* d, const float* x) {
+  *reinterpret_cast<float4*>(d) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void st16(double* d, const double* x) {
+  *reinterpret_cast<double2*>(d) = make_double2(x[0], x[1]);
+}
+
+// x[k] = src[k], k < N: 16-byte loads where vec (then n >= N), else each
+// entry, zero past n
+template <int N, typename U>
+__device__ __forceinline__ void load_run(U (&x)[N], const U* src, int n,
+                                         bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < N; k += chunk_elems<U>()) ld16(x + k, src + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) x[k] = k < n ? src[k] : U(0);
+  }
+}
+
+// dst[k] = x[k], k < min(n, N): 16-byte stores where vec, else each entry
+template <int N, typename U>
+__device__ __forceinline__ void store_run(U* dst, const U (&x)[N], int n,
+                                          bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < N; k += chunk_elems<U>()) st16(dst + k, x + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (k < n) dst[k] = x[k];
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)), "l"(src));
+}
+
+// A latent's pairs of tiles: its nt (nt - 1) / 2 mirrored pairs (I, J),
+// (J, I), I < J, row by row, then its diagonal tiles two at a time, each
+// its own mirror (nt (nt - 1) / 2 + (nt + 1) / 2 pairs, every one two
+// tiles of work but a last lone diagonal one)
+__host__ __device__ inline int latent_pairs(int nt) {
+  return nt * (nt - 1) / 2 + (nt + 1) / 2;
+}
+
+// Tile x (0, 1) of pair p of a latent's: its first row and column, its
+// rows and columns, whether it is there (a lone diagonal tile has no
+// second) and which of the pair's tiles holds its transpose (``mir``)
+struct PairTile {
+  int R0, C0, nr, nc, mir;
+  bool on;
+  __device__ PairTile(int x, int p, int nt, int M) {
+    const int noff = nt * (nt - 1) / 2;
+    int a, b;
+    if (p < noff) {
+      int I = 0;
+      while (p >= nt - 1 - I) {
+        p -= nt - 1 - I;
+        ++I;
+      }
+      const int J = I + 1 + p;
+      a = x ? J : I;
+      b = x ? I : J;
+      mir = 1 - x;
+      on = true;
+    } else {
+      a = b = 2 * (p - noff) + x;
+      mir = x;
+      on = a < nt;
+    }
+    R0 = a * LW;
+    C0 = b * LW;
+    nr = on ? min(LW, M - R0) : 0;
+    nc = on ? min(LW, M - C0) : 0;
+  }
+  // whether this thread's chunk (r, c) is in the tile
+  __device__ bool has(int r, int c) const { return on && r < nr && c < nc; }
+};
+
+// chunk q of thread th of a team of NTH threads (consecutive warps): the
+// chunk q / (NT / NTH) of thread th + NTH (q mod NT / NTH) in tile_chunk's
+// walk, so a team's warps read as a block's do; team_chunks of them
+template <typename T, int NTH>
+__device__ __forceinline__ void team_chunk(int th, int q, int& r, int& c) {
+  tile_chunk<T>(th + NTH * (q % (NT / NTH)), q / (NT / NTH), r, c);
+}
+template <typename T, int NTH> __host__ __device__ constexpr int team_chunks() {
+  return tile_chunks<T>() * (NT / NTH);
+}
+
+// Thread th's chunks (of a team of NTH) of tile tl of the [M, M] matrix
+// src (entries U, T's chunks: CE of T's entries, P 16-byte pieces of U),
+// by cp.async (committed by the caller): as a tile (tile_at, U = T) where
+// ``own`` is false, else into its own slots, piece h of chunk q at (q P +
+// h) NTH + th
+template <typename T, int NTH = NT, typename U>
+__device__ void stage(U* dst, const U* src, int M, const PairTile& tl,
+                      bool own, bool vec, int th = threadIdx.x) {
+  constexpr int CE = chunk_elems<T>(), PE = chunk_elems<U>(), P = CE / PE;
+#pragma unroll
+  for (int q = 0; q < team_chunks<T, NTH>(); ++q) {
+    int r, c;
+    team_chunk<T, NTH>(th, q, r, c);
+    if (!tl.has(r, c)) continue;
+    const U* g = src + (size_t)(tl.R0 + r) * M + tl.C0 + c;
+#pragma unroll
+    for (int h = 0; h < P; ++h) {
+      U* s = own ? dst + ((q * P + h) * NTH + th) * PE
+                 : dst + tile_at<T>(r, c) + h * PE;
+      if (vec) {
+        cp_async16(s, g + h * PE);
+      } else {
+        for (int k = 0; k < PE && c + h * PE + k < tl.nc; ++k)
+          cp_async_elem<sizeof(U)>(s + k, g + h * PE + k);
+      }
+    }
+  }
+}
+
+// thread th's chunk q from its own slots (stage's ``own``); entries a
+// copy of each did not fill are not read
+template <typename T, int NTH = NT, typename U>
+__device__ __forceinline__ void own_chunk(U (&x)[chunk_elems<T>()],
+                                          const U* src, int q,
+                                          int th = threadIdx.x) {
+  constexpr int PE = chunk_elems<U>(), P = chunk_elems<T>() / PE;
+#pragma unroll
+  for (int h = 0; h < P; ++h)
+    ld16(x + h * PE, src + ((q * P + h) * NTH + th) * PE);
+}
+
+// a barrier of the NTH threads of team k (1, 2, ...; 0 is __syncthreads')
+template <int NTH> __device__ __forceinline__ void team_sync(int k) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(k), "n"(NTH) : "memory");
+}
+
+// The sum of the n doubles src[j * step] in a fixed order, four running
+// sums a_k over the entries j = k mod 4 of the whole groups of four, the
+// rest into a_0, then (a_0 + a_1) + (a_2 + a_3): lane k of four
+// consecutive lanes its a_k, all its loads in flight, the total in lane
+// 0.  Every lane of the warp calls.
+__device__ double sum_quad(const double* src, int n, size_t step) {
+  const int k = threadIdx.x & 3, n4 = n & ~3;
+  double a = 0.0;
+  for (int j = k; j < n4; j += 32) {
+    double x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      x[i] = j + 4 * i < n4 ? __ldcg(src + (size_t)(j + 4 * i) * step) : 0.0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (j + 4 * i < n4) a += x[i];
+  }
+  if (k == 0)
+    for (int j = n4; j < n; ++j) a += __ldcg(src + (size_t)j * step);
+  const double a1 = __shfl_down_sync(0xffffffffu, a, 1);
+  const double a2 = __shfl_down_sync(0xffffffffu, a, 2);
+  const double a3 = __shfl_down_sync(0xffffffffu, a, 3);
+  return (a + a1) + (a2 + a3);
+}
+
 // ------------------------------------------------------------------ K2
+//
+// A block a pair of tiles at a time (the grid walking the L pairs a
+// latent): H's two tiles staged as tiles, iK0zz's, E_mat's and KziBK's
+// into the threads' slots, their products summed into sum KziBK o
+// iK0zz, sum E_mat o KziBK and tr(iK0zz H^T); pair p also takes rows p
+// rpp .. of its latent (u from K1's parts in sum_quad's order, four lanes
+// a row, m . iKm, the factors' log-diagonals) and its share of the
+// latent's subject partials (K1's five sums); block b counts subjects b,
+// b + grid, ... of P_batch.  Each block's twelve sums go to part2 (a
+// column a scalar); the last block adds each scalar's column, a warp a
+// column, and assembles the terms, P_batch and kld_total.
 
 template <typename T>
-__global__ void __launch_bounds__(NT) gp_bound_fwd_latents_kernel(
-    const T* __restrict__ iK, const double* __restrict__ Kz,
-    const T* __restrict__ Em, const T* __restrict__ H,
-    const T* __restrict__ m, const T* __restrict__ iKm,
-    const T* __restrict__ LK, const T* __restrict__ LH,
-    const T* __restrict__ valid, const double* __restrict__ part1,
-    int nchunks, double* __restrict__ part2, double* __restrict__ u,
-    T* __restrict__ terms, T* __restrict__ pbatch, T* __restrict__ kld,
-    int* counter, int L, int S, int Tn, int M, int rows, double ptot,
-    double ntot) {
+__global__ void __launch_bounds__(NT, LATENT_BLOCKS)
+    gp_bound_fwd_latents_kernel(
+        const T* __restrict__ iK, const double* __restrict__ Kz,
+        const T* __restrict__ Em, const T* __restrict__ H,
+        const T* __restrict__ m, const T* __restrict__ iKm,
+        const T* __restrict__ LK, const T* __restrict__ LH,
+        const T* __restrict__ valid, const double* __restrict__ part1,
+        int nchunks, double* __restrict__ part2, double* __restrict__ u,
+        T* __restrict__ terms, T* __restrict__ pbatch, T* __restrict__ kld,
+        int* counter, int L, int S, int Tn, int M, bool vec, double ptot,
+        double ntot) {
+  constexpr int CE = chunk_elems<T>(), Q = tile_chunks<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* HT = reinterpret_cast<T*>(smem_raw);          // rows x (M + 1)
-  __shared__ double red[NW * NLAT], tot[NLAT];
-  __shared__ double sums[NSUB + NLAT + 1];
-  const int l = blockIdx.y, tid = threadIdx.x;
-  if (tid == 0) sums[NSUB + NLAT] = 0.0;
-  const int m0 = (int)blockIdx.x * rows, nr = min(rows, M - m0);
-  const size_t mat = (size_t)l * M * M;
-  stage_transposed(HT, H + mat, M, m0, nr);
-  cp_async_wait_all();
+  // H's two tiles; iK0zz's and E_mat's slots of each; KziBK's
+  T* Hs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Hs + 2 * TILE_ELEMS;
+  T* Es = Ks + 2 * LW * LW;
+  double* Zs = reinterpret_cast<double*>(Es + 2 * LW * LW);
+  GP_PHASE_BEGIN(2)
+  const int tid = threadIdx.x;
+  const int nt = (M + LW - 1) / LW, np = latent_pairs(nt);
+  const int rpp = (M + np - 1) / np, cpp = (nchunks + np - 1) / np;
+  const size_t MM = (size_t)M * M, ld1 = NSUB + M;
+  // the subject blocks' five sums (A, Bt, C / 2, sum iB o K0_st, F), the
+  // latents' six (sum Kz o iK, sum E o Kz, tr1, m . iKm, log diag LK, log
+  // diag LH), then the subjects with a valid row
+  double acc[NBLK] = {};
+  for (long w = blockIdx.x; w < (long)L * np; w += gridDim.x) {
+    const int l = (int)(w / np), p = (int)(w % np);
+    const size_t mat = (size_t)l * MM;
+    // two groups of copies: H's tiles and the first tile's slots, then the
+    // second's, which land while the first tile's sums run
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const PairTile tl(x, p, nt, M);
+      stage<T>(Hs + x * TILE_ELEMS, H + mat, M, tl, false, vec);
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const PairTile tl(x, p, nt, M);
+      stage<T>(Ks + x * LW * LW, iK + mat, M, tl, true, vec);
+      stage<T>(Es + x * LW * LW, Em + mat, M, tl, true, vec);
+      stage<T>(Zs + x * LW * LW, Kz + mat, M, tl, true, vec);
+      cp_async_commit();
+    }
+    // K1's rows p cpp .. of latent l: their five sums
+    const int c0 = p * cpp, ncr = min(cpp, nchunks - c0);
+    for (int e = tid; e < NSUB * ncr; e += NT) {
+      const double x = __ldcg(part1 + ((size_t)l * nchunks + c0 + e / NSUB)
+                                          * ld1 + e % NSUB);
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j)
+        if (j == e % NSUB) acc[j] += x;
+    }
+    // rows p rpp .. of latent l, four lanes a row (whole warps)
+    // (rpp <= LW: 4 rpp threads at most)
+    if (tid < ((4 * rpp + 31) & ~31)) {
+      const int i = tid / 4, mm = p * rpp + i;
+      const bool row = i < rpp && mm < M;
+      const size_t y = (size_t)l * M + mm;
+      const bool lead = row && (tid & 3) == 0;
+      // the row's own loads first, in flight with u's
+      const T mv = lead ? m[y] : T(0), kv = lead ? iKm[y] : T(1);
+      const T lk = lead ? LK[mat + (size_t)mm * (M + 1)] : T(1);
+      const T lh = lead ? LH[mat + (size_t)mm * (M + 1)] : T(1);
+      const double s = sum_quad(part1 + (size_t)l * nchunks * ld1 + NSUB
+                                    + (row ? mm : 0),
+                                row ? nchunks : 0, ld1);
+      if (lead) {
+        u[y] = s;
+        acc[NSUB + 3] += (double)(mv * kv);
+        acc[NSUB + 4] += (double)log(lk);
+        acc[NSUB + 5] += (double)log(lh);
+      }
+    }
+    // P_batch's subjects, in each block's first pair: subjects b, b + grid,
+    // ... a warp each, their loads in flight with the copies
+    if (w == blockIdx.x) {
+      const int lane = tid & 31;
+      for (long s = blockIdx.x + (long)(tid >> 5) * gridDim.x; s < S;
+           s += (long)NW * gridDim.x) {
+        bool any = false;
+        for (int t = lane; t < Tn; t += 32) any |= valid[s * Tn + t] > T(0);
+        if (__any_sync(0xffffffffu, any) && lane == 0) acc[NBLK - 1] += 1.0;
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (x == 0)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      if (x == 0) {
+        GP_PHASE(1)
+      }
+      const PairTile tl(x, p, nt, M);
+      // the tile's transpose of H: the pair's other (a diagonal one's own)
+      const T* hm = Hs + tl.mir * TILE_ELEMS;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        int r, c;
+        tile_chunk<T>(tid, q, r, c);
+        if (!tl.has(r, c)) continue;
+        T kv[CE], ev[CE];
+        double zv[CE];
+        own_chunk<T>(kv, Ks + x * LW * LW, q);
+        own_chunk<T>(ev, Es + x * LW * LW, q);
+        own_chunk<T>(zv, Zs + x * LW * LW, q);
+#pragma unroll
+        for (int k = 0; k < CE; ++k) {
+          if (c + k >= tl.nc) break;
+          acc[NSUB] += zv[k] * kv[k];
+          acc[NSUB + 1] += ev[k] * zv[k];
+          acc[NSUB + 2] += (double)(kv[k] * hm[tile_at<T>(c + k, r)]);
+        }
+      }
+    }
+    __syncthreads();       // the tiles read: free for the next pair
+    GP_PHASE(2)
+  }
+  // the block's NBLK sums, a warp a sum: each thread's in shared memory
+  // (the tiles' room), a lane's eight in order, then warp_sum's butterfly
+  double* buf = reinterpret_cast<double*>(smem_raw);        // [NBLK][NT]
+#pragma unroll
+  for (int j = 0; j < NBLK; ++j) buf[j * NT + tid] = acc[j];
   __syncthreads();
-  // sum Kz o iK, sum E o Kz, tr(iK H^T), m . iKm, log diag LK, log diag LH
-  double acc[NLAT] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-#pragma unroll 4
-  for (int e = tid; e < nr * M; e += NT) {
-    const int i = e / M, n = e % M;
-    const size_t x = mat + (size_t)(m0 + i) * M + n;
-    const T k = iK[x];
-    const double z = Kz[x];
-    acc[0] += z * k;
-    acc[1] += Em[x] * z;
-    acc[2] += (double)(k * HT[i * (M + 1) + n]);
+  for (int j = tid >> 5; j < NBLK; j += NW) {
+    double s = 0.0;
+#pragma unroll
+    for (int i = 0; i < NT / 32; ++i) s += buf[j * NT + 32 * i + (tid & 31)];
+    s = warp_sum(s);
+    if ((tid & 31) == 0) part2[(size_t)j * gridDim.x + blockIdx.x] = s;
   }
-  for (int i = tid; i < nr; i += NT) {
-    const int mm = m0 + i;
-    acc[3] += (double)(m[(size_t)l * M + mm] * iKm[(size_t)l * M + mm]);
-    acc[4] += (double)log(LK[mat + (size_t)mm * (M + 1)]);
-    acc[5] += (double)log(LH[mat + (size_t)mm * (M + 1)]);
-    // u: the subjects' (or their row tiles') parts in a fixed order
-    u[(size_t)l * M + mm] = sum_fixed(
-        part1 + (size_t)l * nchunks * (NSUB + M) + NSUB + mm, 0, nchunks, 1,
-        NSUB + M);
+  GP_PHASE(3)
+  const bool last = last_block(counter, gridDim.x);
+  GP_PHASE(5)
+  if (!last) {
+    GP_PHASE_END
+    return;
   }
-  block_sum(acc, red, tot);
-  double* p = part2 + ((size_t)l * gridDim.x + blockIdx.x) * NLAT;
-  if (tid < NLAT) p[tid] = tot[tid];
-  if (!last_block(counter, gridDim.x * gridDim.y)) return;
-  // the last block: every partial, a sum a warp, in block order
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int j = warp; j < NSUB + NLAT; j += NW) {
-    const double s =
-        j < NSUB ? warp_sum_strided(part1 + j, L * nchunks, NSUB + M)
-                 : warp_sum_strided(part2 + (j - NSUB),
-                                    L * gridDim.x, NLAT);
-    if (lane == 0) sums[j] = s;
+  // the last block: each scalar's grid of partials a warp (warp w scalars
+  // w and w + NW), a lane's in order (all its loads in flight together),
+  // then warp_sum's butterfly
+  __shared__ double sums[NBLK];
+  {
+    const int G = gridDim.x, lane = tid & 31, warp = tid >> 5;
+    double t2[2] = {0.0, 0.0};
+    for (int b0 = 0; b0 < G; b0 += 256) {
+      double x[2][8];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int j = warp + NW * k, b = b0 + 32 * i + lane;
+          x[k][i] = j < NBLK && b < G ? __ldcg(part2 + (size_t)j * G + b)
+                                      : 0.0;
+        }
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (warp + NW * k < NBLK && b0 + 32 * i + lane < G)
+            t2[k] += x[k][i];
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const double t = warp_sum(t2[k]);
+      if (warp + NW * k < NBLK && lane == 0) sums[warp + NW * k] = t;
+    }
   }
-  // P_batch: the subjects with a valid row, a warp a subject at a time
-  __shared__ double count[NW];
-  double n = 0.0;
-  for (int s = warp; s < S; s += NW) {
-    bool any = false;
-    for (int t = lane; t < Tn; t += 32) any |= valid[(size_t)s * Tn + t] > T(0);
-    n += __any_sync(0xffffffffu, any) ? 1.0 : 0.0;
-  }
-  if (lane == 0) count[warp] = n;
   __syncthreads();
+  GP_PHASE(4)
   if (tid == 0) {
-    for (int w = 0; w < NW; ++w) sums[NSUB + NLAT] += count[w];
     const double* a = sums;
     const double* b = sums + NSUB;
     const double A = a[0], Bt = a[1], C = 2.0 * a[2], D = a[3] - b[0];
@@ -774,73 +1125,243 @@ __global__ void __launch_bounds__(NT) gp_bound_fwd_latents_kernel(
                               - 2.0 * b[5]);
     const double t[NTERM] = {A, Bt, C, D, E, F, kqu};
     for (int j = 0; j < NTERM; ++j) terms[j] = (T)t[j];
-    const double P = sums[NSUB + NLAT];
+    const double P = sums[NBLK - 1];
     *pbatch = (T)P;
     if (kld)
       *kld = (T)(ptot / P * 0.5 * (A + Bt + C + D + E - F) + kqu
                  - (double)L * ntot / 2.0);
   }
+  GP_PHASE(6)
+  GP_PHASE_END
 }
 
 // ------------------------------------------------------------------ K4
+//
+// The same walk of tile pairs: iK0zz's, E_mat's and H's two tiles staged
+// as tiles, KziBK's, R1's and R2's into the threads' slots, v = w_A u +
+// w_kqu m / 2 of the pair's rows and m of its columns in shared memory;
+// each entry of both tiles written with the expression of a row-a-block
+// kernel (G2's second half from the mirrored tile's iK0zz and E_mat, d
+// iK0zz's H^T, d H's iK0zz^T), by two teams of four warps that overlap
+// their copies with each other's stores: team 0 copies iK0zz's and
+// E_mat's tiles and writes G2 (and d H) and the factors' diagonal
+// cotangents, team 1 copies the rest and writes d iK0zz.  With m's
+// gradient each tile's column sums of iK0zz v go to dmpart (a latent's
+// row tile each), and the last block adds a column's row tiles in order
+// into d m.
 
 template <typename T>
-__global__ void __launch_bounds__(NT) gp_bound_bwd_latents_kernel(
-    const T* __restrict__ gterms, const T* __restrict__ gkld,
-    const T* __restrict__ pbatch, double ptot, const T* __restrict__ iK,
-    const T* __restrict__ Kz, const T* __restrict__ Em,
-    const T* __restrict__ H, const T* __restrict__ m,
-    const T* __restrict__ iKm, const double* __restrict__ u,
-    const T* __restrict__ LK, const T* __restrict__ LH,
-    const T* __restrict__ R1, const T* __restrict__ R2,
-    const T* __restrict__ R3, T* __restrict__ G2, T* __restrict__ dIK,
-    T* __restrict__ dH, T* __restrict__ dm, T* __restrict__ dLK,
-    T* __restrict__ dLH, int M, int rows) {
+__global__ void __launch_bounds__(NT, LATENT_BLOCKS)
+    gp_bound_bwd_latents_kernel(
+        const T* __restrict__ gterms, const T* __restrict__ gkld,
+        const T* __restrict__ pbatch, double ptot, const T* __restrict__ iK,
+        const T* __restrict__ Kz, const T* __restrict__ Em,
+        const T* __restrict__ H, const T* __restrict__ m,
+        const T* __restrict__ iKm, const double* __restrict__ u,
+        const T* __restrict__ LK, const T* __restrict__ LH,
+        const T* __restrict__ R1, const T* __restrict__ R2,
+        const T* __restrict__ R3, T* __restrict__ G2, T* __restrict__ dIK,
+        T* __restrict__ dH, T* __restrict__ dm, T* __restrict__ dLK,
+        T* __restrict__ dLH, double* __restrict__ dmpart, int* counter,
+        int L, int M, bool vec) {
+  constexpr int CE = chunk_elems<T>(), Q = tile_chunks<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int l = blockIdx.y, tid = threadIdx.x;
-  const int m0 = (int)blockIdx.x * rows, nr = min(rows, M - m0);
-  const int ld = M + 1;
-  T* HT = reinterpret_cast<T*>(smem_raw);           // rows x ld each
-  T* KT = HT + rows * ld;
-  T* ET = KT + rows * ld;
-  double* v = reinterpret_cast<double*>(
-      smem_raw + ((3 * rows * ld * sizeof(T) + 15) / 16) * 16);   // [M]
-  const size_t mat = (size_t)l * M * M;
-  stage_transposed(HT, H + mat, M, m0, nr);
-  stage_transposed(KT, iK + mat, M, m0, nr);
-  stage_transposed(ET, Em + mat, M, m0, nr);
+  // iK0zz's, E_mat's and H's tiles, the pair's first then second; then
+  // KziBK's, R1's and R2's slots of each
+  T* sh = reinterpret_cast<T*>(smem_raw);
+  T* so = sh + 6 * TILE_ELEMS;
+  __shared__ double vs[2 * LW];          // v of each tile's rows
+  __shared__ T ms[2 * LW];               // m of each tile's columns
+  // a diagonal tile's cotangents of the factors' diagonals
+  __shared__ T dks[2 * LW], dls[2 * LW];
+  GP_PHASE_BEGIN(3)
+  const int tid = threadIdx.x;
   double w[NTERM];
   term_weights(gterms, gkld, pbatch, ptot, w);
   const double wa = w[0], wd = w[3], we = w[4], wk = w[6];
-  // d iKm's share of d iK and d m: v = w_A u + w_kqu m / 2
-  for (int n = tid; n < M; n += NT)
-    v[n] = wa * u[(size_t)l * M + n] + 0.5 * wk * (double)m[(size_t)l * M + n];
-  cp_async_wait_all();
-  __syncthreads();
-  for (int e = tid; e < nr * M; e += NT) {
-    const int i = e / M, n = e % M, mm = m0 + i;
-    const size_t x = mat + (size_t)mm * M + n;
-    const double k = iK[x], kt = KT[i * ld + n];
-    const size_t g = ((size_t)l * M + mm) * 2 * M + n;
-    G2[g] = (T)(-wd * k + we * (double)Em[x]);
-    G2[g + M] = (T)(-wd * kt + we * (double)ET[i * ld + n]);
-    dIK[x] = (T)(-wd * (double)Kz[x] + 0.5 * wk * (double)HT[i * ld + n]
-                 + v[mm] * (double)m[(size_t)l * M + n]
-                 + we * ((double)R1[x] + (double)R2[x]));
-    if (dH) dH[x] = (T)(0.5 * wk * kt + we * (double)R3[x]);
-    if (dLK) {
-      const bool d = mm == n;
-      dLK[x] = d ? (T)(wk / (double)LK[x]) : T(0);
-      dLH[x] = d ? (T)(-wk / (double)LH[x]) : T(0);
+  const int nt = (M + LW - 1) / LW, np = latent_pairs(nt);
+  const size_t MM = (size_t)M * M;
+  for (long it = blockIdx.x; it < (long)L * np; it += gridDim.x) {
+    const int l = (int)(it / np), p = (int)(it % np);
+    const size_t mat = (size_t)l * MM;
+    // two teams of four warps, each its own copies, barrier and outputs:
+    // team 0 G2 (with d H) from iK0zz's and E_mat's tiles, and the
+    // factors' diagonal cotangents; team 1 d iK0zz from H's tiles and
+    // KziBK's, R1's and R2's slots; so each team's stores follow its own
+    // copies, G2's while team 1's copies are still landing
+    const int team = tid / TEAM, th = tid % TEAM, ti = th % LW;
+    // the loads of v's rows (u, m) and the columns' m (team 1), the
+    // diagonal tiles' factor diagonals (team 0) first: they land before
+    // the copies' burst
+    const PairTile tv(th / LW < 2 ? th / LW : 0, p, nt, M);
+    const bool in = th < 2 * LW && tv.on;
+    const bool rv = in && team == 1 && ti < tv.nr;
+    const bool cv = in && team == 1 && ti < tv.nc;
+    const bool dv = in && team == 0 && ti < tv.nr && dLK && tv.R0 == tv.C0;
+    const size_t yr = (size_t)l * M + tv.R0 + ti;
+    const double ur = rv ? u[yr] : 0.0;
+    const T mr = rv ? m[yr] : T(0);
+    const T mc = cv ? m[(size_t)l * M + tv.C0 + ti] : T(0);
+    const size_t od = mat + (size_t)(tv.R0 + ti) * (M + 1);
+    const T lk = dv ? LK[od] : T(1), lh = dv ? LH[od] : T(1);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const PairTile tl(x, p, nt, M);
+      if (team == 0) {
+        stage<T, TEAM>(sh + x * TILE_ELEMS, iK + mat, M, tl, false, vec, th);
+        stage<T, TEAM>(sh + (2 + x) * TILE_ELEMS, Em + mat, M, tl, false,
+                       vec, th);
+      } else {
+        stage<T, TEAM>(sh + (4 + x) * TILE_ELEMS, H + mat, M, tl, false,
+                       vec, th);
+        stage<T, TEAM>(so + x * LW * LW, Kz + mat, M, tl, true, vec, th);
+        stage<T, TEAM>(so + (2 + x) * LW * LW, R1 + mat, M, tl, true, vec,
+                       th);
+        stage<T, TEAM>(so + (4 + x) * LW * LW, R2 + mat, M, tl, true, vec,
+                       th);
+      }
     }
+    cp_async_commit();
+    // d iKm's share of d iK and d m, v = w_A u + w_kqu m / 2, of each
+    // tile's rows; m of its columns; the factors' diagonal cotangents
+    if (rv) vs[th] = wa * ur + 0.5 * wk * (double)mr;
+    if (cv) ms[th] = mc;
+    if (dv) {
+      dks[th] = (T)(wk / (double)lk);
+      dls[th] = (T)(-wk / (double)lh);
+    }
+    cp_async_wait<0>();
+    team_sync<TEAM>(1 + team);
+    GP_PHASE(1)
+    if (team == 0) {
+      // G2's two halves of both tiles (and H's cotangent, R3 read here: H
+      // needs a gradient only with Adam)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const PairTile tl(x, p, nt, M);
+        const T* ko = sh + x * TILE_ELEMS;
+        const T* eo = sh + (2 + x) * TILE_ELEMS;
+        const T* km = sh + tl.mir * TILE_ELEMS;     // the mirrored tile's
+        const T* em = sh + (2 + tl.mir) * TILE_ELEMS;
+#pragma unroll
+        for (int q = 0; q < team_chunks<T, TEAM>(); ++q) {
+          int r, c;
+          team_chunk<T, TEAM>(th, q, r, c);
+          if (!tl.has(r, c)) continue;
+          const int R = tl.R0 + r, n = tl.nc - c;
+          const size_t o = mat + (size_t)R * M + tl.C0 + c;
+          const size_t g = ((size_t)l * M + R) * 2 * M + tl.C0 + c;
+          T k0[CE], e0[CE], ga[CE], gb[CE];
+          ld16(k0, ko + tile_at<T>(r, c));
+          ld16(e0, eo + tile_at<T>(r, c));
+#pragma unroll
+          for (int j = 0; j < CE; ++j) {
+            // the mirrored entry (c + j, r)
+            const int at = tile_at<T>(c + j < tl.nc ? c + j : c, r);
+            const double k = k0[j], kt = km[at];
+            ga[j] = (T)(-wd * k + we * (double)e0[j]);
+            gb[j] = (T)(-wd * kt + we * (double)em[at]);
+          }
+          store_run(G2 + g, ga, n, vec);
+          store_run(G2 + g + M, gb, n, vec);
+          if (dH) {
+            T r3[CE], dh[CE];
+            load_run(r3, R3 + o, n, vec);
+#pragma unroll
+            for (int j = 0; j < CE; ++j) {
+              const double kt = km[tile_at<T>(c + j < tl.nc ? c + j : c, r)];
+              dh[j] = (T)(0.5 * wk * kt + we * (double)r3[j]);
+            }
+            store_run(dH + o, dh, n, vec);
+          }
+        }
+      }
+      GP_PHASE(2)
+      // the factors' diagonal cotangents, zero off the diagonal
+      if (dLK) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const PairTile tl(x, p, nt, M);
+#pragma unroll
+          for (int q = 0; q < team_chunks<T, TEAM>(); ++q) {
+            int r, c;
+            team_chunk<T, TEAM>(th, q, r, c);
+            if (!tl.has(r, c)) continue;
+            const int R = tl.R0 + r, n = tl.nc - c;
+            const size_t o = mat + (size_t)R * M + tl.C0 + c;
+            T dk[CE], dl[CE];
+#pragma unroll
+            for (int j = 0; j < CE; ++j) {
+              const bool d = R == tl.C0 + c + j;
+              dk[j] = d ? dks[x * LW + r] : T(0);
+              dl[j] = d ? dls[x * LW + r] : T(0);
+            }
+            store_run(dLK + o, dk, n, vec);
+            store_run(dLH + o, dl, n, vec);
+          }
+        }
+      }
+      GP_PHASE(5)
+    } else {
+      // d iK0zz of both tiles
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const PairTile tl(x, p, nt, M);
+        const T* hm = sh + (4 + tl.mir) * TILE_ELEMS;
+#pragma unroll
+        for (int q = 0; q < team_chunks<T, TEAM>(); ++q) {
+          int r, c;
+          team_chunk<T, TEAM>(th, q, r, c);
+          if (!tl.has(r, c)) continue;
+          const int R = tl.R0 + r, n = tl.nc - c;
+          const size_t o = mat + (size_t)R * M + tl.C0 + c;
+          T kz[CE], r1[CE], r2[CE], di[CE];
+          own_chunk<T, TEAM>(kz, so + x * LW * LW, q, th);
+          own_chunk<T, TEAM>(r1, so + (2 + x) * LW * LW, q, th);
+          own_chunk<T, TEAM>(r2, so + (4 + x) * LW * LW, q, th);
+          const double vr = vs[x * LW + r];
+#pragma unroll
+          for (int j = 0; j < CE; ++j) {
+            const int at = tile_at<T>(c + j < tl.nc ? c + j : c, r);
+            di[j] = (T)(-wd * (double)kz[j] + 0.5 * wk * (double)hm[at]
+                        + vr * (double)ms[x * LW + c + j]
+                        + we * ((double)r1[j] + (double)r2[j]));
+          }
+          store_run(dIK + o, di, n, vec);
+        }
+      }
+      GP_PHASE(6)
+    }
+    if (dm) __syncthreads();     // iK0zz's tiles (team 0's) and v (team 1's)
+    // d m's parts: each tile's column sums of iK0zz v over its rows
+    if (dm && tid < 2 * LW) {
+      const int x = tid / LW, c = tid % LW;
+      const PairTile tl(x, p, nt, M);
+      if (tl.on && c < tl.nc) {
+        const T* ko = sh + x * TILE_ELEMS;
+        double s = 0.0;
+        for (int r = 0; r < tl.nr; ++r)
+          s += (double)ko[tile_at<T>(r, c)] * vs[x * LW + r];
+        dmpart[((size_t)l * nt + tl.R0 / LW) * M + tl.C0 + c] = s;
+      }
+    }
+    __syncthreads();       // the tiles, v and m read: free for the next pair
+    GP_PHASE(3)
   }
-  if (dm)   // d m = iK^T v + w_kqu iKm / 2
-    for (int i = tid; i < nr; i += NT) {
-      double s = 0.0;
-      for (int n = 0; n < M; ++n) s += (double)KT[i * ld + n] * v[n];
-      const size_t y = (size_t)l * M + m0 + i;
-      dm[y] = (T)(s + 0.5 * wk * (double)iKm[y]);
-    }
+  if (dm) {
+    // d m = iK^T v + w_kqu iKm / 2: a column's row tiles in order
+    const bool last = last_block(counter, gridDim.x);
+    if (last)
+      for (int y = tid; y < L * M; y += NT) {
+        const int l = y / M, c = y % M;
+        double s = 0.0;
+        for (int R = 0; R < nt; ++R)
+          s += __ldcg(dmpart + ((size_t)l * nt + R) * M + c);
+        dm[y] = (T)(s + 0.5 * wk * (double)iKm[y]);
+      }
+    GP_PHASE(4)
+  }
+  GP_PHASE_END
 }
 
 // ------------------------------------------------------------------ K3
@@ -1149,6 +1670,38 @@ bool subject_plan_ok(int L, int S, int Tn, int M, int blocks, int rows,
 
 int invalid() { return (int)cudaErrorInvalidValue; }
 
+// K2's (k = 2: H's two tiles, iK0zz's and E_mat's slots, KziBK's in
+// double) and K4's (k = 4: iK0zz's, E_mat's and H's tiles, KziBK's, R1's
+// and R2's slots) dynamic shared bytes (latent_smem,
+// hlax_torch/ops/gp_bound.py)
+int latent_smem(int k, int z) {
+  const int tile = TILE_ELEMS * z, own = LW * LW * z;
+  return k == 2 ? 2 * tile + 4 * own + 2 * LW * LW * 8 : 6 * tile + 6 * own;
+}
+// K2's tiles' room takes its block's NBLK sums a thread after its pairs
+static_assert(2 * TILE_ELEMS * 4 + 6 * LW * LW * 4 >= NBLK * NT * 8 &&
+                  NBLK <= 2 * NW,
+              "K2's shared memory holds its block's sums, two a warp");
+
+// Whether K2's and K4's launch takes the plan: `blocks` blocks walking the
+// L latent_pairs(nt) pairs of tiles, at most one a pair
+bool latent_plan_ok(int L, int M, int blocks) {
+  const long pairs = (long)L * latent_pairs((M + LW - 1) / LW);
+  return L >= 1 && M >= 1 && pairs < (1L << 31) && blocks >= 1 &&
+         blocks <= pairs;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Whether the latent kernels take 16-byte chunks: M a multiple of a
+// chunk's entries and every array aligned (a null one is)
+bool vectors(int itemsize, int M, std::initializer_list<const void*> ps) {
+  if (itemsize < 1 || M % (16 / itemsize)) return false;
+  for (const void* p : ps)
+    if (!aligned16(p)) return false;
+  return true;
+}
+
 template <typename K> int set_smem(K kernel, int smem) {
   if (smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(
@@ -1248,48 +1801,53 @@ extern "C" int gp_bound_fwd_latents(
     const void* H, const void* m, const void* iKm, const void* LK,
     const void* LH, const void* valid, const void* part1, int nchunks,
     void* part2, void* u, void* terms, void* pbatch, void* kld, void* counter,
-    int L, int S, int Tn, int M, int rows, double ptot, double ntot, int smem,
-    void* stream) {
-  if (rows < 1 || smem < rows * (M + 1) * itemsize) return invalid();
-  const dim3 grid((M + rows - 1) / rows, L);
+    int L, int S, int Tn, int M, int blocks, double ptot, double ntot,
+    int smem, void* stream) {
+  if (!latent_plan_ok(L, M, blocks) || smem != latent_smem(2, itemsize) ||
+      nchunks < 1 || !counter)
+    return invalid();
+  const bool vec = vectors(itemsize, M, {iK, Kz64, Em, H});
   cudaStream_t st = (cudaStream_t)stream;
   GP_DISPATCH(itemsize, {
     auto kernel = gp_bound_fwd_latents_kernel<T>;
     const int err = set_smem(kernel, smem);
     if (err) return err;
-    kernel<<<grid, NT, smem, st>>>(
+    kernel<<<blocks, NT, smem, st>>>(
         (const T*)iK, (const double*)Kz64, (const T*)Em, (const T*)H,
         (const T*)m, (const T*)iKm, (const T*)LK, (const T*)LH,
         (const T*)valid, (const double*)part1, nchunks, (double*)part2,
-        (double*)u,
-        (T*)terms, (T*)pbatch, (T*)kld, (int*)counter, L, S, Tn, M, rows,
-        ptot, ntot);
+        (double*)u, (T*)terms, (T*)pbatch, (T*)kld, (int*)counter, L, S, Tn,
+        M, vec, ptot, ntot);
   })
   return (int)cudaGetLastError();
 }
 
+// dmpart: d m's parts, L x tiles x M doubles, and counter (zero between
+// launches) where m needs a gradient (dm), else null
 extern "C" int gp_bound_bwd_latents(
     int itemsize, const void* gterms, const void* gkld, const void* pbatch,
     double ptot, const void* iK, const void* Kz, const void* Em,
     const void* H, const void* m, const void* iKm, const void* u,
     const void* LK, const void* LH, const void* R1, const void* R2,
     const void* R3, void* G2, void* dIK, void* dH, void* dm, void* dLK,
-    void* dLH, int L, int M, int rows, int smem, void* stream) {
-  const int need = ((3 * rows * (M + 1) * itemsize + 15) / 16) * 16 + 8 * M;
-  if (rows < 1 || smem < need || (dH && !R3) || (!dLK != !dLH))
+    void* dLH, void* dmpart, void* counter, int L, int M, int blocks,
+    int smem, void* stream) {
+  if (!latent_plan_ok(L, M, blocks) || smem != latent_smem(4, itemsize) ||
+      (dH && !R3) || (!dLK != !dLH) || (dm && (!dmpart || !counter)))
     return invalid();
-  const dim3 grid((M + rows - 1) / rows, L);
+  const bool vec = vectors(itemsize, M, {iK, Kz, Em, H, m, R1, R2, R3, G2,
+                                         dIK, dH, dLK, dLH});
   cudaStream_t st = (cudaStream_t)stream;
   GP_DISPATCH(itemsize, {
     auto kernel = gp_bound_bwd_latents_kernel<T>;
     const int err = set_smem(kernel, smem);
     if (err) return err;
-    kernel<<<grid, NT, smem, st>>>(
+    kernel<<<blocks, NT, smem, st>>>(
         (const T*)gterms, (const T*)gkld, (const T*)pbatch, ptot,
         (const T*)iK, (const T*)Kz, (const T*)Em, (const T*)H, (const T*)m,
         (const T*)iKm, (const double*)u, (const T*)LK, (const T*)LH,
         (const T*)R1, (const T*)R2, (const T*)R3, (T*)G2, (T*)dIK, (T*)dH,
-        (T*)dm, (T*)dLK, (T*)dLH, M, rows);
+        (T*)dm, (T*)dLK, (T*)dLH, (double*)dmpart, (int*)counter, L, M, vec);
   })
   return (int)cudaGetLastError();
 }

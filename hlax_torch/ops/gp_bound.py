@@ -15,17 +15,19 @@ E_mat = (iK0zz H) iK0zz and their backward products.
     batch's subjects (T <= TP) go through a ring of shared-memory stages,
     a grid sized to the card taking them from a queue; a longer subject
     is split into row tiles, one thread-block cluster.
-  * ``gp_bound_fwd_latents`` (K2): a block a (latent, part of the rows):
-    sum KziBK o iK0zz, sum E_mat o KziBK, tr1, qf1, the log-determinants;
-    the last block adds every partial in a fixed order, in double, into
-    the terms (A, Bt, C, D, E, F, the KL of the inducing points), P_batch
-    and, without a mesh, ``kld_total``.
+  * ``gp_bound_fwd_latents`` (K2): a block a pair of mirrored tiles of a
+    latent's [M, M] matrices at a time: sum KziBK o iK0zz, sum E_mat o
+    KziBK, tr1, qf1, the log-determinants, u and K1's five sums; the last
+    block adds the blocks' partials in a fixed order, in double, into the
+    terms (A, Bt, C, D, E, F, the KL of the inducing points), P_batch and,
+    without a mesh, ``kld_total``.
   * ``gp_bound_bwd_latents`` (K4) and ``gp_bound_bwd_subjects`` (K3): the
     backward from the scalar cotangents, into the cotangents of K0xz, the
     B blocks' factors (iLB, diag LB), K0_st, iK0zz, the factors of K0zz
     and H (their diagonals), H, m, mu and log_v, which feed the Cholesky
     kernels' and the GP kernel matrices' autograd Functions unchanged; K3
-    on K1's ring, or a longer subject's pairs of 32 x 32 tiles.
+    on K1's ring, or a longer subject's pairs of 32 x 32 tiles; K4 on
+    K2's pairs of tiles.
 
 On a mesh the terms are summed over the ranks (``MeshSums``) before
 ``kld_total`` is formed (``assemble``), as ``recon_metric`` hands its
@@ -55,9 +57,11 @@ from hlax_torch.precision import highest
 THREADS, NSUB, NLAT, NTERM, MAX_M, TP = 256, 5, 6, 7, 512, 32
 NSTAGE, MAX_TILES = 2, 8
 # blocks an SM the staged subject kernels' launch bounds take
-# (FWD_SUBJECT_BLOCKS, BWD_SUBJECT_BLOCKS): two each; the latent kernels
-# two, a latent's rows split among them
+# (FWD_SUBJECT_BLOCKS, BWD_SUBJECT_BLOCKS): two each
 SUBJECT_BLOCKS_PER_SM = 2
+# must match LW and LATENT_BLOCKS: the latent kernels' square tiles
+# (LATENT_TILE rows and columns) and their blocks an SM (launch bounds)
+LATENT_TILE = 32
 LATENT_BLOCKS_PER_SM = 2
 SMEM_MAX = 227 * 1024
 # an SM's shared memory and what each resident block takes of it beyond
@@ -94,11 +98,14 @@ class SubjectPlan(NamedTuple):
 
 
 class LatentPlan(NamedTuple):
-    """K2's and K4's grid: ``parts`` blocks a latent, ``rows`` rows of the
-    M x M matrices a block; their dynamic shared bytes (the transposed rows
-    they stage)."""
-    rows: int
-    parts: int
+    """K2's and K4's grid: a latent's [M, M] matrices in ``tiles`` x
+    ``tiles`` square tiles of LATENT_TILE, ``pairs`` pairs of tiles a
+    latent (``latent_pairs``); ``blocks`` blocks, block b taking pairs b,
+    b + blocks, ... of the L ``pairs``; their dynamic shared bytes (the
+    tiles they stage)."""
+    tiles: int
+    pairs: int
+    blocks: int
     smem_fwd: int
     smem_bwd: int
 
@@ -174,24 +181,35 @@ def subject_plan(L: int, S: int, T: int, M: int, itemsize: int,
                        subject_smem(3, False, T, M, z, rows))
 
 
-def _latent_smem(rows: int, M: int, itemsize: int) -> Tuple[int, int]:
-    """K2's (H^T's rows) and K4's (H^T's, iK0zz^T's and E_mat^T's rows, d
-    m's vector in double) dynamic shared bytes."""
-    one = rows * (M + 1) * itemsize
-    return one, _a16(3 * one) + 8 * M
+def latent_smem(k: int, z: int) -> int:
+    """K2's (k = 2) or K4's (k = 4) dynamic shared bytes (latent_smem,
+    csrc/gp_bound.cu): two tiles of each input whose transposes it reads
+    (K2 H's, K4 iK0zz's, E_mat's and H's), a tile LATENT_TILE rows of
+    LATENT_TILE entries with a pad of 16 bytes after every 16 bytes of
+    rows, LATENT_TILE (LATENT_TILE + 1) entries; two tiles' slots of each
+    other input, LATENT_TILE ** 2 entries (K2 iK0zz's and E_mat's, and
+    KziBK's in double; K4 KziBK's, R1's and R2's)."""
+    tile, own = LATENT_TILE * (LATENT_TILE + 1) * z, LATENT_TILE ** 2 * z
+    if k == 2:
+        return 2 * tile + 4 * own + 2 * LATENT_TILE ** 2 * 8
+    return 6 * tile + 6 * own
+
+
+def latent_pairs(tiles: int) -> int:
+    """A latent's pairs of tiles (latent_pairs, csrc/gp_bound.cu): its
+    mirrored pairs (I, J), (J, I), I < J, then its diagonal tiles two at a
+    time (a last one alone where ``tiles`` is odd)."""
+    return tiles * (tiles - 1) // 2 + (tiles + 1) // 2
 
 
 def latent_plan(L: int, M: int, itemsize: int, sms: int) -> LatentPlan:
-    """Each latent's rows split into as many parts as give the card
-    LATENT_BLOCKS_PER_SM blocks an SM, within SMEM_MAX shared bytes."""
-    parts = min(max(1, -(-LATENT_BLOCKS_PER_SM * sms // L)), M)
-    rows = -(-M // parts)
-    while _latent_smem(rows, M, itemsize)[1] > SMEM_MAX:
-        if rows == 1:
-            raise ValueError(f"gp_bound: M = {M} does not fit {SMEM_MAX} "
-                             "bytes of shared memory")
-        rows = -(-rows // 2)
-    return LatentPlan(rows, -(-M // rows), *_latent_smem(rows, M, itemsize))
+    """The pairs of tiles of L latents' [M, M] matrices, as many blocks as
+    the SMs hold at once (LATENT_BLOCKS_PER_SM), at most one a pair."""
+    tiles = -(-M // LATENT_TILE)
+    pairs = latent_pairs(tiles)
+    blocks = min(L * pairs, LATENT_BLOCKS_PER_SM * sms)
+    return LatentPlan(tiles, pairs, blocks, latent_smem(2, itemsize),
+                      latent_smem(4, itemsize))
 
 
 def _launch(entry: str, like: torch.Tensor, *args) -> None:
@@ -342,11 +360,13 @@ def fwd_latents(iK, Kz64, Em, H, m, iKm, LK, LH, valid, part1,
     kld = torch.empty((), dtype=dt, device=dev) if totals else None
     p_tot, n_tot = totals or (0.0, 0.0)
     if _on_card(iK):
-        part2 = torch.empty(L * lp.parts * NLAT, dtype=torch.float64,
-                            device=dev)
+        # the blocks' sums, a column a scalar: K1's five, the latents' six,
+        # the subjects with a valid row
+        part2, = fusion._scratch(torch.empty(
+            (NSUB + NLAT + 1) * lp.blocks, dtype=torch.float64, device=dev))
         _launch("gp_bound_fwd_latents", iK, iK.element_size(), iK, Kz64,
                 Em, H, m, iKm, LK, LH, valid, part1, sp.parts, part2, u, terms,
-                pb, kld, fusion._counters(iK, 1), L, S, T, M, lp.rows,
+                pb, kld, fusion._counters(iK, 1), L, S, T, M, lp.blocks,
                 float(p_tot), float(n_tot), lp.smem_fwd)
         return u, terms, pb, kld
     d = torch.float64
@@ -394,9 +414,15 @@ def bwd_latents(g_terms, g_kld, pb, p_tot, iK, Kz, Em, H, m, iKm, u, LK,
     dLK = torch.empty_like(LK) if need_l else None
     dLH = torch.empty_like(LH) if need_l else None
     if _on_card(iK):
+        # d m's parts: each column's sums over a row tile
+        dmpart = fusion._scratch(torch.empty(
+            (L, lp.tiles, M), dtype=torch.float64,
+            device=iK.device))[0] if need_m else None
         _launch("gp_bound_bwd_latents", iK, iK.element_size(), g_terms, g_kld,
                 pb, float(p_tot), iK, Kz, Em, H, m, iKm, u, LK, LH, R1, R2,
-                R3, G2, dIK, dH, dm, dLK, dLH, L, M, lp.rows, lp.smem_bwd)
+                R3, G2, dIK, dH, dm, dLK, dLH, dmpart,
+                fusion._counters(iK, 1) if need_m else None, L, M, lp.blocks,
+                lp.smem_bwd)
         return G2, dIK, dH, dm, dLK, dLH
     w = term_weights(g_terms, g_kld, pb, p_tot)
     a, wd, we, k = w[0], w[3], w[4], w[6]

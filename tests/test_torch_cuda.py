@@ -1904,10 +1904,12 @@ def _bound_case(L, S, T, M, dtype):
     return chip_smoke.bound_case(L, S, T, M, dtype)
 
 
-def _bound_run(kernel, case, need_hm=True, w=None):
+def _bound_run(kernel, case, need_hm=True, w=None, totals=True):
     """(terms, P_batch, kld_total, the 11 leaves' gradients of kld_total +
     w . terms) by the kernels (``kernel``) or autograd of the plain
-    version; H and m without gradients unless ``need_hm``."""
+    version; H and m without gradients unless ``need_hm``; without
+    ``totals`` the kernels return no kld_total (a mesh's call) and
+    ``assemble`` forms it from their terms."""
     from types import SimpleNamespace
 
     from hlax_torch.ops import gp_bound as gb
@@ -1917,16 +1919,19 @@ def _bound_run(kernel, case, need_hm=True, w=None):
           for i, t in enumerate(base)]
     K0xz, iLB, LB, K0st, iK, LK, LH, H, m, mu, lv = xs
     iB = torch.einsum("lskt,lsku->lstu", iLB, iLB)
-    totals = (200.0, 4000.0)
+    sizes = (200.0, 4000.0)
     if kernel:
         terms, pb, kld = gb._GpBound.apply(K0xz, iLB, LB, K0st, iK, LK, LH,
                                            H, m, mu, lv, iB.detach(), valid,
-                                           totals)
+                                           sizes if totals else None)
+        if not totals:
+            assert kld is None
+            kld = gb.assemble(terms, pb, *sizes, K0xz.shape[0])
     else:
         blk = SimpleNamespace(K0xz=K0xz, iB=iB, LB=LB, K0_st=K0st, iK0zz=iK,
                               LK0zz=LK)
         terms, pb = gb.kld_terms_plain(blk, LH, H, m, mu, lv, valid)
-        kld = gb.assemble(terms, pb, *totals, K0xz.shape[0])
+        kld = gb.assemble(terms, pb, *sizes, K0xz.shape[0])
     if w is None:
         w = torch.linspace(-1.0, 1.0, 7, dtype=terms.dtype, device="cuda")
     wants = [x for x in xs if x.requires_grad]
@@ -1941,19 +1946,23 @@ BOUND_SHAPES = [(32, 20, 20, 120), (3, 7, 13, 37), (32, 4, 200, 120),
                 (16, 10, 20, 120), (32, 2, 500, 120)]
 
 
+@pytest.mark.parametrize("totals", [True, False])
 @pytest.mark.parametrize("need_hm", [True, False])
 @pytest.mark.parametrize("shape", BOUND_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_gp_bound_kernels_against_plain_version(gen, dtype, shape, need_hm):
+def test_gp_bound_kernels_against_plain_version(gen, dtype, shape, need_hm,
+                                                totals):
     """The bound's terms, P_batch, kld_total and every gradient (H and m
     too where Adam trains them, ``need_hm``) through the four kernels,
-    against autograd of the plain version: float64 within 1e-10, float32
-    within 4x the plain version's own error against float64."""
+    with kld_total from the kernels or (without ``totals``, a mesh's call)
+    from their terms, against autograd of the plain version: float64
+    within 1e-10, float32 within 4x the plain version's own error against
+    float64."""
     from hlax_torch.ops import gp_bound as gb
 
     case = _bound_case(*shape, dtype)
     before = dict(gb.LAUNCHES)
-    got = _bound_run(True, case, need_hm)
+    got = _bound_run(True, case, need_hm, totals=totals)
     torch.cuda.synchronize()
     for k in gb.LAUNCHES:
         assert gb.LAUNCHES[k] == before[k] + 1, k
@@ -1986,21 +1995,24 @@ def _hold_bound(name, got, plain, moved):
     assert err <= max(1e-10 * scale, 4 * own), (name, err, scale, own)
 
 
+@pytest.mark.parametrize("need_hm", [True, False])
+@pytest.mark.parametrize("shape", BOUND_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_gp_bound_graph_replays_eager_call(gen, dtype):
-    """The bound's forward and backward at the canonical shape captured in
-    a CUDA graph and replayed twice: equal to the eager call bit for bit
-    (every sum in a fixed order, the last block's counter zero again)."""
-    case = _bound_case(32, 20, 20, 120, dtype)
-    eager = _bound_run(True, case)
+def test_gp_bound_graph_replays_eager_call(gen, dtype, shape, need_hm):
+    """The bound's forward and backward (H's and m's gradients too where
+    ``need_hm``: K4's last block) captured in a CUDA graph and replayed
+    twice: equal to the eager call bit for bit (every sum in a fixed order,
+    the last blocks' counters zero again)."""
+    case = _bound_case(*shape, dtype)
+    eager = _bound_run(True, case, need_hm)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        _bound_run(True, case)
+        _bound_run(True, case, need_hm)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = _bound_run(True, case)
+        captured = _bound_run(True, case, need_hm)
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()

@@ -345,10 +345,12 @@ def test_launch_plans(sms):
     as many blocks as the SMs hold at once (the launch bounds' blocks an SM
     within the shared memory an SM has), at most one a subject; longer
     subjects in row tiles (multiples of 32 rows, at most MAX_TILES, K1's
-    cluster), K1's partials S x tiles rows a latent; each latent's rows in
-    parts covering every row once, about LATENT_BLOCKS_PER_SM blocks an SM,
-    their shared bytes within SMEM_MAX (the canonical latents: 9 parts of
-    14 rows, 288 blocks)."""
+    cluster), K1's partials S x tiles rows a latent; each latent's [M, M]
+    matrices in square tiles of LATENT_TILE, their pairs (mirrored ones,
+    then the diagonal tiles two at a time) walked by as many blocks as the
+    SMs hold at once (LATENT_BLOCKS_PER_SM), at most one a pair, their
+    shared bytes within SMEM_MAX (the canonical latents: 4 tiles a side, 8
+    pairs a latent, 256 blocks)."""
     p = gb.subject_plan(32, 20, 20, 120, 4, sms)
     assert p[:6] == (True, 2 * sms, 2 * sms, 20, 1, 20)
     assert gb.subject_plan(32, 20, 20, 120, 8, sms)[:3] == (True, 2 * sms,
@@ -391,15 +393,27 @@ def test_launch_plans(sms):
     assert gb.subject_plan(1, 1, 32, 120, 8, sms).staged      # 189 KB
     with pytest.raises(ValueError):
         gb.subject_plan(1, 1, 8 * 256 + 1, 16, 4, sms)
+    lt = gb.LATENT_TILE
     for Ls, M, z in ((32, 120, 4), (32, 120, 8), (16, 120, 4), (3, 37, 8),
                      (1, 512, 8), (264, 7, 4)):
         p = gb.latent_plan(Ls, M, z, sms)
-        assert (p.parts - 1) * p.rows < M <= p.parts * p.rows
-        assert p.smem_bwd <= gb.SMEM_MAX and p.smem_fwd < p.smem_bwd
-        assert p.smem_fwd == p.rows * (M + 1) * z
-    assert gb.latent_plan(32, 120, 4, 132)[:2] == (14, 9)
-    assert gb.latent_plan(264, 7, 4, 132)[:2] == (7, 1)
-    assert gb.latent_plan(1, 512, 8, 132)[:2] == (2, 256)
+        assert (p.tiles - 1) * lt < M <= p.tiles * lt
+        assert p.pairs == (p.tiles * (p.tiles - 1) // 2
+                           + (p.tiles + 1) // 2)
+        assert p.blocks == min(Ls * p.pairs, gb.LATENT_BLOCKS_PER_SM * sms)
+        assert p.smem_fwd == gb.latent_smem(2, z) == (
+            2 * lt * (lt + 1) * z + 4 * lt * lt * z + 2 * lt * lt * 8)
+        assert p.smem_bwd == gb.latent_smem(4, z) == (
+            6 * lt * (lt + 1) * z + 6 * lt * lt * z)
+        assert p.smem_bwd <= gb.SMEM_MAX
+        # the blocks an SM the plan counts on fit its shared memory
+        assert gb.LATENT_BLOCKS_PER_SM * (
+            max(p.smem_fwd, p.smem_bwd) + gb.SMEM_BLOCK) <= gb.SMEM_SM
+    assert gb.latent_plan(32, 120, 4, 132) == (4, 8, 256, 41216, 49920)
+    assert gb.latent_plan(32, 120, 8, 132) == (4, 8, 256, 66048, 99840)
+    assert gb.latent_plan(32, 120, 4, 114) == (4, 8, 228, 41216, 49920)
+    assert gb.latent_plan(264, 7, 4, 132)[:3] == (1, 1, 264)
+    assert gb.latent_plan(1, 512, 8, 132)[:3] == (16, 128, 128)
 
 
 def _ring_takes(n, blocks, seed):
@@ -451,6 +465,104 @@ def test_subject_plans_take_every_subject_once(shape, sms):
         assert p.parts == S * p.tiles
 
 
+def _tile_chunk(z, t, q):
+    """csrc's ``tile_chunk``: chunk q of thread t (numpy arrays) of a
+    latent tile, its row and first column (16 // z entries a chunk)."""
+    if z == 4:
+        return t >> 3, 4 * (t & 7)
+    lane = t & 31
+    return (4 * (t >> 5) + 2 * q + ((lane >> 3) & 1),
+            2 * ((lane & 7) + 8 * (lane >> 4)))
+
+
+def _tile_at(z, s, c):
+    """csrc's ``tile_at``: a staged tile's entry (s, c)."""
+    ce = 16 // z
+    return s * gb.LATENT_TILE + ce * (s // ce) + c
+
+
+def _pair_tiles(p, nt):
+    """csrc's ``PairTile``: the tiles (row tile, column tile) of pair p of
+    a latent's, mirrored pairs (I, J), (J, I), I < J, row by row, then the
+    diagonal tiles two at a time."""
+    noff = nt * (nt - 1) // 2
+    if p < noff:
+        i = 0
+        while p >= nt - 1 - i:
+            p -= nt - 1 - i
+            i += 1
+        return [(i, i + 1 + p), (i + 1 + p, i)]
+    d = 2 * (p - noff)
+    return [(a, a) for a in (d, d + 1) if a < nt]
+
+
+def _latent_walk(L, M, z, plan, nchunks):
+    """The entries of L latents' [M, M] matrices K2's and K4's blocks take
+    (counts [L, M, M]), as csrc's kernels walk them: block b the pairs b, b
+    + blocks, ... of the L pairs a latent, each pair's tiles
+    (``_pair_tiles``), each thread its chunks of 16 // z entries a row
+    (``tile_chunk``), cut at M; and the rows of u (counts [L, M]) and of
+    K1's partials (counts [L, nchunks]) K2's pairs take."""
+    lt, ce = gb.LATENT_TILE, 16 // z
+    t = np.arange(gb.THREADS)
+    chunks = [_tile_chunk(z, t, q) for q in range(lt * lt // ce
+                                                  // gb.THREADS)]
+    seen = np.zeros((L, M, M), int)
+    rows, parts = np.zeros((L, M), int), np.zeros((L, nchunks), int)
+    rpp, cpp = -(-M // plan.pairs), -(-nchunks // plan.pairs)
+    for b in range(plan.blocks):
+        for w in range(b, L * plan.pairs, plan.blocks):
+            l, p = divmod(w, plan.pairs)
+            for r0, c0 in _pair_tiles(p, plan.tiles):
+                nr, nc = min(lt, M - lt * r0), min(lt, M - lt * c0)
+                for r, c in chunks:
+                    on = (r < nr) & (c < nc)
+                    for k in range(ce):
+                        at = on & (c + k < nc)
+                        np.add.at(seen[l], (lt * r0 + r[at],
+                                            lt * c0 + c[at] + k), 1)
+            rows[l, p * rpp:(p + 1) * rpp] += 1
+            parts[l, p * cpp:(p + 1) * cpp] += 1
+    return seen, rows, parts
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("L, M, nchunks", [(32, 120, 20), (16, 120, 10),
+                                           (3, 37, 7), (1, 512, 3),
+                                           (264, 7, 28)])
+def test_latent_plans_take_every_entry_once(L, M, nchunks, sms):
+    """Every entry of each latent's [M, M] matrices taken by exactly one
+    block of K2's and K4's walk (a model of the kernels' tiles, pairs and
+    chunks), every row of u and of K1's partials by one pair, in float and
+    double, the shared bytes within SMEM_MAX; the staged tiles' rows
+    16-byte aligned, and a warp's reads down a mirrored tile's column
+    (each k-th entry of its chunks) in distinct banks: 32 four-byte banks
+    for the 32 lanes in float, a half-warp's 16 pairs of banks in
+    double."""
+    lt = gb.LATENT_TILE
+    for z in (4, 8):
+        p = gb.latent_plan(L, M, z, sms)
+        assert p.smem_bwd <= gb.SMEM_MAX
+        seen, rows, parts = _latent_walk(L, M, z, p, nchunks)
+        assert (seen == 1).all()
+        assert (rows[:, :M] == 1).all() and (parts == 1).all()
+        ce = 16 // z
+        t = np.arange(gb.THREADS)
+        for q in range(lt * lt // ce // gb.THREADS):
+            r, c = _tile_chunk(z, t, q)
+            assert (_tile_at(z, r, c) * z % 16 == 0).all()
+            for k in range(ce):
+                at = _tile_at(z, c + k, r)
+                for w in range(gb.THREADS // 32):
+                    lanes = at[32 * w:32 * (w + 1)]
+                    if z == 4:
+                        assert len(set(lanes % 32)) == 32
+                    else:
+                        for h in (lanes[:16], lanes[16:]):
+                            assert len(set(h % 16)) == 16
+        assert lt * (lt + 1) * z % 16 == 0
+
+
 def _c_params():
     """{entry: number of parameters} of csrc/gp_bound.cu's C entries."""
     out = {}
@@ -476,6 +588,14 @@ def test_constants_match_the_kernels():
     assert "__launch_bounds__(NT, FWD_SUBJECT_BLOCKS)" in src
     assert "__launch_bounds__(NT, BWD_SUBJECT_BLOCKS)" in src
     assert src.count("__launch_bounds__(NT, TILE_BLOCKS)") == 2
+    assert (f"constexpr int LW = {gb.LATENT_TILE}, TILE_ELEMS = LW * (LW + "
+            "1);") in src
+    assert (f"constexpr int LATENT_BLOCKS = {gb.LATENT_BLOCKS_PER_SM};"
+            in src)
+    assert src.count("__launch_bounds__(NT, LATENT_BLOCKS)") == 2
+    assert "constexpr int NBLK = NSUB + NLAT + 1;" in src
+    assert ("return k == 2 ? 2 * tile + 4 * own + 2 * LW * LW * 8 : 6 * "
+            "tile + 6 * own;") in src
 
 
 def _c_stage_bytes(name, T, M, z):
@@ -550,13 +670,18 @@ def test_wrappers_launch_the_c_entries(monkeypatch, totals, need_hm, Ts):
     assert fwd_s[10] is None and fwd_s[11] is None    # float64: no copies
     assert fwd_s[14].shape == (3, 4 * sp.tiles, gb.NSUB + 16)
     assert fwd_l[10] is fwd_s[14] and fwd_l[11] == sp.parts
-    assert fwd_l[-4] == lp.rows
+    assert fwd_l[12].shape == ((gb.NSUB + gb.NLAT + 1) * lp.blocks,)
+    assert fwd_l[-4] == lp.blocks
     assert fwd_l[-1] == lp.smem_fwd and (fwd_l[16] is None) == (
         totals is None)
     assert bwd_l[2] is None if totals is None else bwd_l[1] is None
-    assert bwd_l[-2:] == (lp.rows, lp.smem_bwd)
+    assert bwd_l[-3:] == (16, lp.blocks, lp.smem_bwd)
     assert (bwd_l[16] is None) == (bwd_l[19] is None) == (not need_hm)
     assert (bwd_l[20] is None) == (not need_hm)
+    # d m's parts (a column's sums over each row tile) and the counter
+    assert (bwd_l[23] is None) == (bwd_l[24] is None) == (not need_hm)
+    if need_hm:
+        assert bwd_l[23].shape == (3, lp.tiles, 16)
     assert bwd_s[-9:] == (3, 4, Ts, 16, 3, sp.blocks_bwd, sp.rows,
                           int(sp.staged), sp.smem_bwd)
     assert bwd_s[15].shape == (3, 4 * Ts, 32)       # K0xz [G | G^T]
