@@ -29,10 +29,11 @@ Phases (each prints its own lines; any failure exits non-zero):
              prints each kernel's registers, stack frame and spill; a
              spill in the float64 blocked mid kernel, or a spill or a stack
              frame in any of the GP kernel matrix's instantiations
-             (GP_INSTANCES) or the staged kernels' (STAGED_INSTANCES: the
+             (GP_INSTANCES), the staged kernels' (STAGED_INSTANCES: the
              cat and the real head's forward and backward, the
-             representation's backward and the one-launch recon metric),
-             fails the run.
+             representation's backward and the one-launch recon metric) or
+             the natural-gradient kernels' (NATGRAD_INSTANCES), fails the
+             run.
   2. kernels each kernel against its plain version, with the launch plan
              each shape took: the small kernel bit for bit at eleven shapes
              (both compiled sizes, padded and odd n, n up to 48) on random
@@ -58,7 +59,8 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. reference  four toy-width train steps on the card against the same
              steps on the CPU (plain versions), same weights and noise, in
              float32 and in float64; the toy M = 30 takes the mid kernel's
-             n <= 32 path.
+             n <= 32 path, and the natural-gradient kernels launch on
+             every card step.
   4. slice   generated D4 splits (prediction = training, test, validation;
              P=200, T=20, 25% missing) -> hlax_torch.cli.main.run with the
              canonical config file as it is (--generate_images=True), 3
@@ -68,9 +70,10 @@ Phases (each prints its own lines; any failure exits non-zero):
              final validation, the test battery and the reconstruction grid
              of the generation split; launch counters must show every
              Cholesky and every small backward went through the kernels,
-             every fused kernel launched at least once a step with no
-             plain version on the card, and each row of the kernel table's
-             shape was launched.  Without
+             every fused kernel, the bound's and the natural-gradient
+             chain's (K5-K8 at their canonical shapes) launched at least
+             once a step with no plain version on the card, and each row
+             of the kernel table's shape was launched.  Without
              matplotlib (the card's machine has none) the grid must be a
              finite [160, 1296] recon_complete.npz whose reconstruction is
              pixels in [0, 255], and training_curves.npz must hold every
@@ -118,7 +121,16 @@ Phases (each prints its own lines; any failure exits non-zero):
              chain, and the two products' times; the MLP's heads (with
              and without the logvar network) and metric, and the heads and
              the representation at a [mesh] rank's rows, held to their
-             plain versions too; the bound's subject kernels swept over
+             plain versions too; the natural-gradient kernels K5-K8
+             (hlax_torch/ops/natgrad.py, csrc/natgrad.cu) on a synthetic
+             state at the canonical batch in float32, float64 and float32
+             data with the float64 chain (--nat_grad_f64) and at a mesh
+             rank's in float32 (NATGRAD_CASES), each against its
+             plain version at the same bars, with and without K7's
+             jitter, K8's H_new exactly symmetric, each launch timed warm
+             and L2-cold beside its bound and its plain version (the
+             canonical shape's rows in the kernel table); the bound's
+             subject kernels swept over
              the subjects a launch takes (ms against 20..640 subjects at
              [32, 20, 20, 120] and 4..128 at [32, 4, 200, 120], float32
              and float64: the launch's fixed part and a subject's cost);
@@ -182,10 +194,12 @@ Phases (each prints its own lines; any failure exits non-zero):
              torch.profiler, by region as the eager steps' profile splits
              each kernel name; the eager profile prints each fused
              kernel's device ms and launches a step (FUSED_FOCUS) and every
-             kernel of the KL bound's two regions (gp_bound and its
-             backward) with its launches and device ms a step, grouped as
-             GP matrices, Cholesky kernels, the bound's kernels, cuBLAS's
-             products and the rest (gp_attribution).
+             kernel of the GP's regions (gp_bound, its backward, the
+             bound's natural-gradient quantities and the natural-gradient
+             update) with its launches and device ms a step, grouped as
+             GP matrices, Cholesky kernels, the bound's kernels, the
+             natural-gradient kernels, cuBLAS's products and the rest
+             (gp_attribution).
  11a. precision  hlax's split on the canonical float32 step: each
              convolution's and matmul's kernels by layer (operation and
              input shapes) and region in an eager step, marked TF32 where
@@ -205,7 +219,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              float64, --nat_grad_f64) in processes of their own, in turns
              parent, change, change, parent: steps/s, device ms and kernels
              a step, idle share, and the kernels and device ms a step of
-             the bound's two regions.
+             each GP region (GP_REGIONS), by kernel group in each
+             configuration.
  12. full    the canonical config's 300 epochs through the CLI on the graph
              path (--epochs_per_dispatch=5 --scan_unroll=10), validation
              every 5 epochs, the test battery: the final net loss, the last
@@ -251,10 +266,14 @@ Phases (each prints its own lines; any failure exits non-zero):
              and eager) in 3 alternating rounds, at 20 and at 200 subjects
              a step.  With one card it prints that it did not run.
 Phase 7b runs after [profile]; 13 and 14 after [mlp], before [graph]; 11a
-and 11b after [graph]; 15 and 16 after [full].
+and 11b after [graph]; 15 and 16 after [full].  A [time] line after each
+phase gives its seconds.  A comparison with parent/ does not run for a
+kernel source (and its wrapper) that parent/ holds byte for byte as this
+tree does (``parent_same``): it would time one build against itself.
 Every main path (slice, f64, longT, mlp, bf16, fused, full, and each rank
 of mesh and mesh4) runs with the launch counters set to 0 just before it
-and read just after.  The line
+and read just after, and each requires the natural-gradient kernels K5-K8
+launched on every step at its shapes (``natgrad_need``).  The line
 before the card's line is the kernel table as JSON, one row a kernel, shape
 and dtype; the last line is {"ok": true, "device": {...}}.  Imports nothing of JAX or of hlax.
 """
@@ -449,9 +468,13 @@ FUSED_KERNELS = ("heads_cat_fwd_cuda", "heads_cat_bwd_cuda",
 # the KL bound's kernels (csrc/gp_bound.cu), each launched once a step
 GP_BOUND_KERNELS = ("gp_bound_fwd_subjects", "gp_bound_fwd_latents",
                     "gp_bound_bwd_latents", "gp_bound_bwd_subjects")
+# the natural-gradient chain's kernels (csrc/natgrad.cu), each launched once
+# a step: K5 and K6 in the bound, K7 and K8 in the update
+NATGRAD_KERNELS = ("natgrad_fwd_subjects", "natgrad_fwd_latents",
+                   "natgrad_update_pre", "natgrad_update_finish")
 # every kernel library, one nvcc each, all started together
 LIBRARIES = ("chol_inv_small", "chol_inv_mid", "chol_inv_bwd", "fusion",
-             "gp_bound")
+             "gp_bound", "natgrad")
 # every instantiation of the GP kernel matrix's kernels (csrc/fusion.cu):
 # by scalar, vector width (the flat kernels), rbf factors a component may
 # have (the backwards) and compiled shape (0 any spec, 1 and 2 the
@@ -485,13 +508,22 @@ SUBJECT_INSTANCES = tuple(f"gp_bound_{d}_{k}_kernel<{t}>"
                           for d in ("fwd", "bwd") for t in ("float", "double"))
 LATENT_INSTANCES = tuple(f"gp_bound_{d}_latents_kernel<{t}>"
                          for d in ("fwd", "bwd") for t in ("float", "double"))
+# the natural-gradient kernels' instantiations: K5 on (inputs, ng_P1), K6-K8
+# on (the chain, the state), each pair of one dtype or the mixed one
+NATGRAD_INSTANCES = tuple(
+    [f"natgrad_fwd_subjects_kernel<{a},{b}>" for a, b in (
+        ("float", "float"), ("double", "double"), ("float", "double"))]
+    + [f"{k}_kernel<{a},{b}>" for k in NATGRAD_KERNELS[1:] for a, b in (
+        ("float", "float"), ("double", "double"), ("double", "float"))])
 # the kernels that must not spill, by library, and whether a stack frame
 # fails them too: the float64 blocked mid kernel, every GP kernel, the
-# staged kernels, the bound's subject and latent kernels
+# staged kernels, the bound's subject and latent kernels, the
+# natural-gradient kernels
 NO_SPILL = ([("chol_inv_mid", "chol_inv_mid_blocked64_kernel", False)]
             + [("fusion", k, True) for k in GP_INSTANCES + STAGED_INSTANCES]
             + [("gp_bound", k, True) for k in SUBJECT_INSTANCES
-               + LATENT_INSTANCES])
+               + LATENT_INSTANCES]
+            + [("natgrad", k, True) for k in NATGRAD_INSTANCES])
 
 
 def _ptxas_report(tag: str, name: str, log: str, only: str = "") -> dict:
@@ -540,9 +572,10 @@ def phase_build() -> None:
                  "bytes spill (stores and loads)")
     print(f"[build] no spill in {len(NO_SPILL)} kernels, no stack frame in "
           f"the {len(GP_INSTANCES)} GP kernels, the "
-          f"{len(STAGED_INSTANCES)} staged kernels and the "
+          f"{len(STAGED_INSTANCES)} staged kernels, the "
           f"{len(SUBJECT_INSTANCES + LATENT_INSTANCES)} bound's subject and "
-          "latent kernels", flush=True)
+          f"latent kernels and the {len(NATGRAD_INSTANCES)} natural-gradient "
+          "kernels", flush=True)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -1041,6 +1074,20 @@ def phase_mid_kernel_f64(gen):
 # and launch plan (those since the float64 redesign).  Without parent/ the
 # phase says so and moves on.
 PARENT_CSRC = os.path.join(ROOT, "parent", "hlax_torch", "csrc")
+
+
+def parent_same(*paths) -> bool:
+    """Whether parent/ holds each of ``paths`` (under the repo's root) as
+    this tree does, byte for byte: the parent's kernels are then this
+    tree's, and a comparison would time one build against itself."""
+    def read(root, p):
+        with open(os.path.join(root, p), "rb") as f:
+            return f.read()
+    try:
+        return all(read(os.path.join(ROOT, "parent"), p) == read(ROOT, p)
+                   for p in paths)
+    except OSError:
+        return False
 PARENT_ROWS = [((64,), 120, torch.float64), ((32,), 120, torch.float64),
                ((32, 256), 32, torch.float64), ((64,), 120, torch.float32),
                ((32,), 120, torch.float32), ((32, 256), 32, torch.float32)]
@@ -1063,6 +1110,10 @@ def phase_mid_parent(gen) -> None:
     if not os.path.isfile(src):
         print(f"[kernels] parent against change: not measured (no {src})",
               flush=True)
+        return
+    if parent_same("hlax_torch/csrc/chol_inv_mid.cu"):
+        print("[kernels] parent against change: not measured (the parent's "
+              "chol_inv_mid.cu is this tree's)", flush=True)
         return
     out = os.path.join(cuda_build.BUILD_DIR, "parent", "libchol_inv_mid.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -1252,6 +1303,8 @@ def phase_reference(tmp: str, dtype=torch.float32, seed: int = 0,
              for dev, st in (("cpu", cpu), ("cuda", gpu))}
     from hlax_torch.ops import linalg_small as ls
     ls.reset_counters()
+    if gate:
+        reset_all_counters()
     for i, idx in enumerate([[0, 1], [2, 3], [3, 0], [1, 2]]):
         eps = torch.randn((2 * data.T_max, 8), generator=noise, dtype=dtype)
         losses = {}
@@ -1285,6 +1338,12 @@ def phase_reference(tmp: str, dtype=torch.float32, seed: int = 0,
             shape[-1], 1).path == "warp" for name, shape, _ in
                ls.LAUNCHES_BY_SHAPE):
         fail("the card's M=30 steps did not take the mid kernel's warp path")
+    from hlax_torch.ops import natgrad
+    if any(natgrad.LAUNCHES[f"{k}_cuda"] < 4 for k in NATGRAD_KERNELS) or \
+            any(natgrad.PLAIN_CUDA_CALLS.values()):
+        fail(f"the card's {dtype} steps did not go through the "
+             f"natural-gradient kernels: {dict(natgrad.LAUNCHES)}, plain "
+             f"{dict(natgrad.PLAIN_CUDA_CALLS)}")
     return worst
 
 
@@ -1329,9 +1388,12 @@ def phase_slice(tmp: str):
     if any(plain.values()):
         fail("a plain Cholesky version or a fused op's plain version ran on "
              "CUDA tensors on the main path")
-    for name in FUSED_KERNELS + tuple(f"{k}_cuda" for k in GP_BOUND_KERNELS):
+    for name in FUSED_KERNELS + tuple(f"{k}_cuda" for k in GP_BOUND_KERNELS
+                                      + NATGRAD_KERNELS):
         if launches[name] < steps:
             fail(f"{name} launched {launches[name]} times in {steps} steps")
+    _need("slice", by_shape, natgrad_need(32, 20, 20, 120, "float32",
+                                          "float32", steps))
     results = out["results_path"]
     with open(os.path.join(results, "validation_results.csv")) as f:
         rows = [line.rstrip("\n").split(",") for line in f]
@@ -1730,24 +1792,17 @@ def _profile_steps(tag: str, run, steps: int, calls: int = 5,
 
 def reset_all_counters() -> None:
     """The launch counters of every kernel module set to 0."""
-    from hlax_torch.ops import fusion, gp_bound
-    from hlax_torch.ops import linalg_small as ls
+    from hlax_torch.ops import counters
 
-    ls.reset_counters()
-    fusion.reset_counters()
-    gp_bound.reset_counters()
+    counters.reset_every()
 
 
 def read_all_counters():
     """(launches, launches by shape, plain-version calls on CUDA tensors)
     of every kernel module, each one dict."""
-    from hlax_torch.ops import fusion, gp_bound
-    from hlax_torch.ops import linalg_small as ls
+    from hlax_torch.ops import counters
 
-    mods = (ls, fusion, gp_bound)
-    return ({k: v for m in mods for k, v in m.LAUNCHES.items()},
-            {k: v for m in mods for k, v in m.LAUNCHES_BY_SHAPE.items()},
-            {k: v for m in mods for k, v in m.PLAIN_CUDA_CALLS.items()})
+    return counters.read_every()
 
 
 def _run_cli(opt: dict, log: str):
@@ -1807,6 +1862,17 @@ def _steps_per_s(out, subjects: int, n_steps: int = 5) -> float:
     return n_steps / (time.perf_counter() - t0)
 
 
+def natgrad_need(L: int, S: int, T: int, M: int, data: str, chain: str,
+                 steps: int) -> dict:
+    """``_need``'s keys of the natural-gradient kernels' launches in
+    ``steps`` steps: K5 on the bound's [L, S, T, M] in the data's dtype, K6
+    to K8 on [L, M, M] in the chain's (``--nat_grad_f64``: float64 on
+    float32 data)."""
+    return {("natgrad_fwd_subjects_cuda", (L, S, T, M), data): steps,
+            **{(f"{k}_cuda", (L, M, M), chain): steps
+               for k in NATGRAD_KERNELS[1:]}}
+
+
 def _need(tag: str, by_shape, want) -> None:
     """Fail unless every (kernel, shape, dtype) of ``want`` was launched
     at least its count of times."""
@@ -1837,13 +1903,15 @@ def phase_f64(data_dir: str, tmp: str):
           ("chol_inv_bwd_cuda", b, "float64"): 10,
           ("chol_inv_mid_cuda", k2, "float64"): 10,
           ("chol_inv_mid_cuda", m, "float64"): 10,
-          ("chol_inv_mid_cuda", (32, 256, 32, 32), "float64"): 1}),
+          ("chol_inv_mid_cuda", (32, 256, 32, 32), "float64"): 1,
+          **natgrad_need(32, 20, 20, 120, "float64", "float64", 20)}),
         ("nat_grad_f64", dict(nat_grad_f64=True),
          {("chol_inv_small_cuda", b, "float32"): 10,
           ("chol_inv_bwd_cuda", b, "float32"): 10,
           ("chol_inv_mid_cuda", k2, "float32"): 10,
           ("chol_inv_mid_cuda", k2, "float64"): 10,
-          ("chol_inv_mid_cuda", m, "float64"): 10}),
+          ("chol_inv_mid_cuda", m, "float64"): 10,
+          **natgrad_need(32, 20, 20, 120, "float32", "float64", 20)}),
     ]
     counts = {}
     for name, over, want in variants:
@@ -2005,7 +2073,8 @@ def phase_long_t(tmp: str):
             ("chol_inv_mid_cuda", (32, sb, 128, 128), "float32"):
                 2 * nb // 128,
             **{(f"gp_bound_{k}_subjects_cuda", (32, S, T, 120), "float32"): 6
-               for k in ("fwd", "bwd")}})
+               for k in ("fwd", "bwd")},
+            **natgrad_need(32, S, T, 120, "float32", "float32", 6)})
         for key, v in by_shape.items():
             counts[key] = counts.get(key, 0) + v
         print(f"[{tag}] the bound's subject kernels' launches a step: "
@@ -2113,7 +2182,8 @@ def phase_mlp(data_dir: str, tmp: str):
         ("chol_inv_mid_cuda", (64, 120, 120), "float32"): 30,
         ("heads_cat_fwd_cuda", (400, 1296, 5), "float32"): 30,
         ("heads_real_bwd_cuda", (400, 1296, 5), "float32"): 30,
-        ("recon_metric_cuda", rows_mlp, "float32"): 30})
+        ("recon_metric_cuda", rows_mlp, "float32"): 30,
+        **natgrad_need(32, 20, 20, 120, "float32", "float32", 30)})
     ep, ev = out["epoch_seconds"], out["eval_seconds"]
     sps = _steps_per_s(out, 20)
     print(f"[mlp] losses per epoch {out['loss_arrs']['net']}; validation "
@@ -2321,9 +2391,11 @@ def phase_pallas_chol_false(data_dir: str, tmp: str) -> None:
     the graph steps against the eager steps at [graph]'s bound, with the
     noise injected; then one canonical float32 epoch through the graphs
     with the noise from the generator: finite losses.  Neither may launch a
-    Cholesky kernel."""
+    Cholesky kernel; the epoch launches the natural-gradient kernels every
+    step (the flag chooses the factorizations only)."""
     from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
     from hlax_torch.ops import linalg_small as ls
+    from hlax_torch.ops import natgrad
     from hlax_torch.train import step as tstep
 
     ds, spec0, spec1 = canonical_setup(data_dir)
@@ -2342,16 +2414,22 @@ def phase_pallas_chol_false(data_dir: str, tmp: str) -> None:
                               use_pallas_chol=False)
     staged = stage_dataset(ds, torch.float32, "cuda")
     epoch = tstep.make_train_epoch(st.vae, spec0, spec1, cfg)
+    natgrad.reset_counters()
     losses = epoch(st, staged, idx)["loss"]
     torch.cuda.synchronize()
     print(f"[fusion] use_pallas_chol=False: a canonical float32 epoch on "
           f"the graph path: losses {losses.tolist()}; Cholesky kernel "
-          f"launches {dict(ls.LAUNCHES)}", flush=True)
+          f"launches {dict(ls.LAUNCHES)}; natural-gradient kernel launches "
+          f"{dict(natgrad.LAUNCHES)}", flush=True)
+    _need("fusion use_pallas_chol=False", natgrad.LAUNCHES_BY_SHAPE,
+          natgrad_need(32, 20, 20, 120, "float32", "float32", GRAPH_STEPS))
     if not np.isfinite(losses).all():
         fail(f"[fusion] use_pallas_chol=False: non-finite loss {losses}")
-    if any(ls.LAUNCHES.values()) or any(ls.PLAIN_CUDA_CALLS.values()):
+    if any(ls.LAUNCHES.values()) or any(ls.PLAIN_CUDA_CALLS.values()) or \
+            any(natgrad.PLAIN_CUDA_CALLS.values()):
         fail(f"[fusion] use_pallas_chol=False launched a Cholesky kernel "
-             f"or its plain version: {ls.LAUNCHES} {ls.PLAIN_CUDA_CALLS}")
+             f"or a plain version: {ls.LAUNCHES} {ls.PLAIN_CUDA_CALLS} "
+             f"{natgrad.PLAIN_CUDA_CALLS}")
 
 
 # [fusion]: a float64 kernel's results against its plain version's,
@@ -2956,6 +3034,223 @@ def bound_case(L, S, T, M, dtype, seed: int = 0):
     return [t.to(dtype).contiguous() for t in leaves], valid.to(dtype)
 
 
+# the natural-gradient chain's kernels: the XLA fusions of hlax they stand
+# for, by C entry
+NATGRAD_REPLACES = {
+    "natgrad_fwd_subjects": "hlax/gp/elbo.py:241-243 ng_P1 = K0xz^T iB mu "
+                            "(XLA fusion)",
+    "natgrad_fwd_latents": "hlax/gp/elbo.py:272-282 B_mat, grad_m, grad_H "
+                           "(XLA fusion)",
+    "natgrad_update_pre": "hlax/gp/elbo.py:459-463,465-468 iH_new and the "
+                          "update's right-hand side (XLA fusion)",
+    "natgrad_update_finish": "hlax/gp/elbo.py:454,464-469 H_new = iLA^T iLA, "
+                             "m_new, the casts (XLA fusion)"}
+NATGRAD_LR, NATGRAD_JITTER = 0.01, 1e-3
+NATGRAD_OUTS = ("ng_P1", "grad_m", "grad_H", "iH_new", "rhs", "m_new",
+                "H_new")
+
+
+def natgrad_case(L, S, T, M, dtype, chain=None, seed: int = 0) -> dict:
+    """``bound_case``'s state with the natural-gradient chain's inputs on
+    the card, each kernel's made in float64 from the one before it by the
+    plain versions, then cast: K5's (iB, mu, valid, K0xz) in ``dtype``,
+    K6's (X = iLK^T (iLK + C_w iLK), as ``natgrad.fwd_latents`` forms it,
+    iK, iH, ng_P1) in the chain's dtype (``chain``, default ``dtype``) with the state's m in ``dtype``, K7's
+    (iH, grad_H, grad_m, m), K8's (iLA, the inverse factor of K7's iH_new,
+    and rhs); "state" the dtype of (m, H)."""
+    from hlax_torch.ops import natgrad as ng
+
+    d = torch.float64
+    (K0xz, iLB, _, _, iK, LK, LH, _, m, mu, _), valid = bound_case(
+        L, S, T, M, d, seed)
+    eye = torch.eye(M, dtype=d, device="cuda")
+    iB = torch.einsum("lskt,lsku->lstu", iLB, iLB)
+    iLK = torch.linalg.solve_triangular(LK, eye.expand_as(LK), upper=False)
+    iH = torch.cholesky_inverse(LH)
+    G = torch.einsum("lstu,lsun->lstn", iLB,
+                     torch.einsum("lstm,lnm->lstn", K0xz, iLK))
+    X = torch.bmm(iLK.mT, torch.baddbmm(
+        iLK, torch.einsum("lstm,lstn->lmn", G, G), iLK))
+    ngP1 = ng.fwd_subjects_plain(iB, mu, valid, K0xz, d)
+    gm, gH = ng.latents_plain(X, iK, iH, ngP1, m)
+    iHn, rhs = ng.update_pre_plain(iH, gH, gm, m, NATGRAD_LR, 0.0)
+    iLA = torch.linalg.solve_triangular(torch.linalg.cholesky(iHn),
+                                        eye.expand_as(iHn), upper=False)
+    c = chain or dtype
+    sub = lambda *ts: tuple(t.to(dtype).contiguous() for t in ts)
+    ch = lambda *ts: tuple(t.to(c).contiguous() for t in ts)
+    return dict(subjects=sub(iB, mu, valid, K0xz), chain=c, state=dtype,
+                latents=ch(X, iK, iH, ngP1) + sub(m),
+                pre=ch(iH, gH, gm) + sub(m), finish=ch(iLA, rhs))
+
+
+def natgrad_case64(case) -> dict:
+    """The case's inputs in float64 (the float32 kernels' reference)."""
+    d = lambda ts: tuple(t.double() for t in ts)
+    return dict(subjects=d(case["subjects"]), chain=torch.float64,
+                state=torch.float64, latents=d(case["latents"]),
+                pre=d(case["pre"]), finish=d(case["finish"]))
+
+
+def natgrad_run(case, kernel: bool, jitter: float = 0.0):
+    """The four kernels' results on ``case`` (NATGRAD_OUTS), each on its
+    own inputs: through the wrappers (``kernel``: one launch each) or their
+    plain versions."""
+    from hlax_torch.ops import natgrad as ng
+
+    c = case
+    if kernel:
+        out = [ng.fwd_subjects(*c["subjects"], c["chain"])]
+        out += ng.latents(*c["latents"])
+        out += ng.update_pre(*c["pre"], NATGRAD_LR, jitter)
+        return out + list(ng.update_finish(*c["finish"], c["state"]))
+    out = [ng.fwd_subjects_plain(*c["subjects"], c["chain"])]
+    out += ng.latents_plain(*c["latents"])
+    out += ng.update_pre_plain(*c["pre"], NATGRAD_LR, jitter)
+    return out + list(ng.update_finish_plain(*c["finish"], c["state"]))
+
+
+# which outputs (NATGRAD_OUTS) each natural-gradient kernel writes
+NATGRAD_OUT_OF = {"natgrad_fwd_subjects": slice(0, 1),
+                  "natgrad_fwd_latents": slice(1, 3),
+                  "natgrad_update_pre": slice(3, 5),
+                  "natgrad_update_finish": slice(5, 7)}
+
+
+def _natgrad_cost(entry, args):
+    """(bytes, operations) of one launch of a natural-gradient kernel: each
+    tensor it is handed read or written once (K8's iLA by its lower
+    triangle, the one the function needs), and its multiply-adds as two
+    (K5 K0xz^T times iB mu, and iB mu itself unless cuBLAS made it; K6 and
+    K7 a few an entry of the [M, M] matrices and their row sums; K8 the
+    triangle's products, M^3 / 3 multiply-adds a latent, and m_new)."""
+    n = 0
+    for i, a in enumerate(args):
+        if not torch.is_tensor(a):
+            continue
+        b = a.numel() * a.element_size()
+        if entry == "natgrad_update_finish" and i == 2:
+            M = a.shape[-1]
+            b = b * (M + 1) // (2 * M)
+        n += b
+    if entry == "natgrad_fwd_subjects":
+        L, S, T, M = args[8:12]
+        return n, 2 * L * S * T * (M + (T if args[2] is not None else 0))
+    # L and M by argument of the C entry (after the two itemsizes' pair)
+    L, M = args[{"natgrad_fwd_latents": slice(9, 11),
+                 "natgrad_update_pre": slice(8, 10),
+                 "natgrad_update_finish": slice(6, 8)}[entry]]
+    if entry == "natgrad_fwd_latents":
+        return n, 9 * L * M * M
+    if entry == "natgrad_update_pre":
+        return n, 7 * L * M * M
+    return n, L * (2 * M ** 3 // 3 + 2 * M * M)
+
+
+def _natgrad_fusion(shape, dtype, chain=None, rows: bool = True):
+    """[fusion]'s natural-gradient kernels on ``natgrad_case``'s state at
+    ``shape`` [L, S, T, M]: each kernel against its plain version
+    (``_fusion_error``: float64 within 1e-10 of the largest entry; float32
+    inputs within 4x the plain version's error against float64 + 1e-6),
+    without and with K7's jitter, H_new exactly symmetric; then each launch
+    timed alone, L2-warm and -cold, beside its bound and its plain
+    version.  Returns the kernel table's rows (none where ``rows`` is
+    false)."""
+    from hlax_torch.ops import natgrad as ng
+
+    case = natgrad_case(*shape, dtype, chain)
+    c = str(case["chain"]).removeprefix("torch.")
+    tag = (f"natgrad {str(dtype).removeprefix('torch.')}"
+           + (f" (chain {c})" if case["chain"] != dtype else "")
+           + f" {list(shape)}")
+    ref_case = None if case["chain"] == dtype == torch.float64 else \
+        natgrad_case64(case)
+    errs = {}
+    before = ng._COUNTERS.snapshot()
+    for jitter in (0.0, NATGRAD_JITTER):
+        got = natgrad_run(case, True, jitter)
+        plain = natgrad_run(case, False, jitter)
+        ref = None if ref_case is None else natgrad_run(ref_case, False,
+                                                         jitter)
+        if not torch.equal(got[-1], got[-1].mT):
+            fail(f"[fusion] {tag}: K8's H_new is not exactly symmetric")
+        for entry, part in NATGRAD_OUT_OF.items():
+            e = _fusion_error(f"{tag} {entry} jitter {jitter:g}", got[part],
+                              plain[part], None if ref is None else ref[part])
+            errs[entry] = max(errs.get(entry, 0.0), e)
+    print(f"[fusion] {tag}: largest error a kernel "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (against {'float64' if ref_case else 'the plain version'}); "
+          "H_new exactly symmetric", flush=True)
+    calls, orig = [], ng._launch
+
+    def record(entry, like, *args):
+        calls.append((entry, like, args))
+        orig(entry, like, *args)
+
+    ng._launch = record
+    try:
+        natgrad_run(case, True)
+    finally:
+        ng._launch = orig
+    plains = {
+        "natgrad_fwd_subjects": lambda: ng.fwd_subjects_plain(
+            *case["subjects"], case["chain"]),
+        "natgrad_fwd_latents": lambda: ng.latents_plain(*case["latents"]),
+        "natgrad_update_pre": lambda: ng.update_pre_plain(
+            *case["pre"], NATGRAD_LR, 0.0),
+        "natgrad_update_finish": lambda: ng.update_finish_plain(
+            *case["finish"], case["state"])}
+    out = []
+    for entry, like, args in calls:
+        ms, wall = time_ms(lambda: orig(entry, like, *args))
+        cold = time_cold_ms(lambda: orig(entry, like, *args))
+        plain_ms = time_ms(plains[entry], reps=20)[0]
+        nbytes, ops = _natgrad_cost(entry, args)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS[like.dtype] * 1e3
+        bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops else
+                     (t_ops, "operations"))
+        print(f"[fusion] {entry} {list(like.shape)} {tag}: kernel {ms:.4f} "
+              f"ms, L2-cold {cold:.4f} ms ({wall:.4f} ms a call on the host "
+              f"clock), its plain version {plain_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e6:.2f} MFLOP), kernel / bound {ms / bound:.2f} on "
+              f"{card_line()}", flush=True)
+        out.append(dict(
+            name=f"{entry}_cuda", shape=list(like.shape),
+            dtype=str(like.dtype).removeprefix("torch."), route="cuda",
+            source="hlax_torch/csrc/natgrad.cu",
+            replaces=NATGRAD_REPLACES[entry], launches=0,
+            max_abs_err=errs[entry], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None))
+    ng._COUNTERS.take_since(before)
+    return out if rows else []
+
+
+# [fusion]'s natural-gradient cases, (shape [L, S, T, M], data dtype, the
+# chain's): the canonical batch in float32 and float64 (its rows in the
+# kernel table) and with --nat_grad_f64's float64 chain on float32 data,
+# and a 2 x 2 mesh rank's in float32 (the card tests take every shape in
+# each dtype pair, the ragged toy and subjects past TP rows)
+NATGRAD_CASES = [((32, 20, 20, 120), torch.float32, None),
+                 ((32, 20, 20, 120), torch.float64, None),
+                 ((32, 20, 20, 120), torch.float32, torch.float64),
+                 ((16, 10, 20, 120), torch.float32, None)]
+
+
+def natgrad_fusion() -> list:
+    """``_natgrad_fusion`` at each of NATGRAD_CASES; the rows of the
+    canonical shape in one dtype."""
+    rows = []
+    for shape, dtype, chain in NATGRAD_CASES:
+        rows += _natgrad_fusion(shape, dtype, chain,
+                                shape == NATGRAD_CASES[0][0]
+                                and chain is None)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tree_gp_bound(tree: str, out_dir: str, defines=(), src=None):
     """The KL bound's wrapper of the tree at ``tree`` (its
     hlax_torch/ops/gp_bound.py) as a module of its own on the tree's
@@ -3109,6 +3404,12 @@ def gp_bound_against_parent() -> None:
     if not os.path.isfile(os.path.join(PARENT_CSRC, "gp_bound.cu")):
         print("[fusion] gp_bound parent against change: not measured (no "
               f"{PARENT_CSRC}/gp_bound.cu)", flush=True)
+        return
+    if parent_same("hlax_torch/csrc/gp_bound.cu",
+                   "hlax_torch/ops/gp_bound.py"):
+        print("[fusion] gp_bound parent against change: not measured (the "
+              "parent's gp_bound.cu and ops/gp_bound.py are this tree's)",
+              flush=True)
         return
     pg, _, _ = tree_gp_bound(PARENT_ROOT, os.path.join(
         cuda_build.BUILD_DIR, "parent", "gp_bound"))
@@ -3353,6 +3654,10 @@ def _parent_fusion():
     if not (os.path.isfile(src) and os.path.isfile(py)):
         print(f"[fusion] parent against change: not measured (no {src})",
               flush=True)
+        return None
+    if parent_same("hlax_torch/csrc/fusion.cu", "hlax_torch/ops/fusion.py"):
+        print("[fusion] parent against change: not measured (the parent's "
+              "fusion.cu and ops/fusion.py are this tree's)", flush=True)
         return None
     out = os.path.join(cuda_build.BUILD_DIR, "parent", "libfusion.so")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -3858,6 +4163,7 @@ def phase_fusion(data_dir: str, tmp: str):
             _staged_against_parent(parent, c, c64, dtype)
         del c, c64
         torch.cuda.empty_cache()
+    rows += natgrad_fusion()
     gp_bound_sweeps()
     gp_bound_against_parent()
     phase_pallas_chol_false(data_dir, tmp)
@@ -3955,7 +4261,7 @@ def rate_run(tree: str, data_dir: str, what: str = "rate",
             fail(f"[rate] {name}: m is not finite")
         out[name] = {"steps_per_s": rates, **{k: prof[k] for k in (
             "busy_ms", "kernels", "idle", "regions")}}
-        if name == "float32":
+        if what == "rate":
             out[name]["gp"] = gp_rows(eager["by_name"], table, GRAPH_STEPS)
         if what == "ab" and name == "float32":
             out[name]["eval"] = eval_rate(st.vae, ds)
@@ -4013,16 +4319,20 @@ def phase_parent(data_dir: str) -> None:
         print("[parent] no parent/ tree: the comparison did not run",
               flush=True)
         return
+    t0 = time.perf_counter()
     runs = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         tree = PARENT_ROOT if who == "parent" else ROOT
         runs[who].append(_subprocess_json(["rate", tree, data_dir], "RATE ",
                                           {}, "parent"))
+    t1 = time.perf_counter()
     fulls = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         tree = PARENT_ROOT if who == "parent" else ROOT
         fulls[who].append(_subprocess_json(["rate", tree, data_dir, "full"],
                                            "FULL ", {}, "parent"))
+    print(f"[time] [parent] rate processes {t1 - t0:.1f} s, full-run "
+          f"processes {time.perf_counter() - t1:.1f} s", flush=True)
     for who, r in fulls.items():
         print(f"[parent] {who}: {FULL_EPOCHS} canonical epochs through the "
               f"CLI, final net loss "
@@ -4032,18 +4342,19 @@ def phase_parent(data_dir: str) -> None:
               f"{', '.join(f'{x['seconds']:.1f}' for x in r)} s (turns "
               f"parent, change, change, parent) on {card_line()}",
               flush=True)
-    for who in ("parent", "change"):
-        gp_attribution(f"parent {who}", runs[who][0]["float32"]["gp"])
+    for name, *_ in RATE_CONFIGS:
+        for who in ("parent", "change"):
+            gp_attribution(f"parent {who} {name}", runs[who][0][name]["gp"])
     reference_seeds()
     for name, *_ in RATE_CONFIGS:
         for who in ("parent", "change"):
             r = [x[name] for x in runs[who]]
-            gp = [sum((x["regions"] or {}).get(g, (0.0, 0.0))[k]
-                      for g in GP_REGIONS[:2]) for x in r for k in (0, 1)]
-            print(f"[parent] {name} {who}: the bound's regions (gp_bound "
-                  f"and its backward) {', '.join(f'{n:.1f}' for n in gp[::2])}"
-                  f" kernels a step, {', '.join(f'{t:.4f}' for t in gp[1::2])}"
-                  f" device ms a step", flush=True)
+            for g in GP_REGIONS:
+                gp = [(x["regions"] or {}).get(g, (0.0, 0.0)) for x in r]
+                print(f"[parent] {name} {who}: {g} "
+                      f"{', '.join(f'{n:.1f}' for n, _ in gp)} kernels a "
+                      f"step, {', '.join(f'{t:.4f}' for _, t in gp)} device "
+                      "ms a step", flush=True)
             _print_rate(name, who, r)
     for who in ("parent", "change"):
         r = [x["T200"] for x in runs[who] if "T200" in x]
@@ -4159,34 +4470,40 @@ TF32_MARK = re.compile(r"tf32|tfloat32|tensorop_s|s1688|s16816", re.I)
 # and dense layers, and those that run the GP
 VAE_REGIONS = ("encoder", "decoder", "backward of encoder",
                "backward of decoder")
-GP_REGIONS = ("gp_bound", "backward of gp_bound", "natural_gradient")
+GP_REGIONS = ("gp_bound", "backward of gp_bound",
+              "natural_gradient_quantities", "natural_gradient")
 # the launching operations of [precision]'s per-layer list
 LAYER_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
              "aten::convolution_backward", "aten::addmm", "aten::mm",
              "aten::bmm")
 
 
-# the GP bound's kernels by group ([graph]'s attribution): the GP kernel
+# the GP's kernels by group ([graph]'s attribution): the GP kernel
 # matrices (csrc/fusion.cu), the Cholesky kernels (csrc/chol_inv_*.cu), the
-# bound's own kernels (csrc/gp_bound.cu), cuBLAS's products; the rest
-# elementwise, reduction or copy
+# bound's own kernels (csrc/gp_bound.cu), the natural-gradient chain's
+# (csrc/natgrad.cu), cuBLAS's products; the rest elementwise, reduction or
+# copy
 GP_GROUPS = (("GP matrices", re.compile(r"gp_fwd|gp_bwd_flat|gp_bwd_cols")),
              ("Cholesky kernels", re.compile(r"chol_inv")),
              ("bound kernels", re.compile(r"gp_bound_")),
+             ("natural-gradient kernels", re.compile(r"natgrad_")),
              ("cuBLAS GEMMs", re.compile(
                  r"gemm|gemv|cublas|cutlass|xmma|splitK|dot_kernel", re.I)),
              ("elementwise, reduction or copy", re.compile("")))
 
 
 def gp_rows(by_name: dict, table: dict, steps: int) -> dict:
-    """{region: [(kernel name, launches a step, device ms a step)]} of the
-    bound's two regions ("gp_bound" and its backward) in ``steps`` eager
-    steps under the profiler: each kernel name's launches and time
-    (``by_name``) split over the regions as ``table`` (``region_table``)
-    splits them, as ``_print_regions`` does."""
+    """{region: [(kernel name, launches a step, device ms a step, launches
+    a step the region's host events launched, launches a step of the name
+    in the profile)]} of the GP's regions (GP_REGIONS: the bound, its backward, the bound's
+    natural-gradient quantities inside it and the natural-gradient update)
+    in ``steps`` eager steps under the profiler: each kernel name's
+    launches and time (``by_name``) split over the regions as ``table``
+    (``region_table``) splits them, as ``_print_regions`` does; a tree
+    without a region (an earlier commit's) has no row of it."""
     out = {}
-    for region in GP_REGIONS[:2]:
-        rows = out[region] = []
+    for region in GP_REGIONS:
+        rows = []
         for name, (n, us) in by_name.items():
             split = table.get(name, {})
             if region not in split:
@@ -4195,13 +4512,19 @@ def gp_rows(by_name: dict, table: dict, steps: int) -> dict:
             tot_n = sum(v[0] for v in split.values())
             tot_us = sum(v[1] for v in split.values()) or 1.0
             rows.append((name, n * rn / tot_n / steps,
-                         us * rus / tot_us / steps / 1e3))
+                         us * rus / tot_us / steps / 1e3, rn / steps,
+                         n / steps))
+        if rows:
+            out[region] = rows
     return out
 
 
 def gp_attribution(tag: str, rows: dict) -> dict:
-    """Prints ``gp_rows``' kernels, grouped by GP_GROUPS; returns {region:
-    (kernels, ms) a step}."""
+    """Prints ``gp_rows``' kernels, grouped by GP_GROUPS, each with the
+    launches its region's host events launched and all of its name's in
+    brackets (the name's launches no host event or range takes are split
+    over the regions in proportion); returns {region: (kernels, ms) a
+    step}."""
     totals = {}
     for region, kernels in rows.items():
         totals[region] = (sum(r[1] for r in kernels),
@@ -4217,8 +4540,10 @@ def gp_attribution(tag: str, rows: dict) -> dict:
                 continue
             print(f"[{tag}]   {group}: {sum(r[1] for r in mine):.1f} "
                   f"kernels, {sum(r[2] for r in mine):.4f} ms", flush=True)
-            for name, n, ms in sorted(mine, key=lambda r: -r[2]):
-                print(f"[{tag}]     {n:5.2f} {ms:8.5f}  {name}", flush=True)
+            for name, n, ms, *raw in sorted(mine, key=lambda r: -r[2]):
+                print(f"[{tag}]     {n:5.2f} {ms:8.5f} "
+                      f"[{' of '.join(f'{x:.2f}' for x in raw)}]  {name}",
+                      flush=True)
     return totals
 
 
@@ -4701,7 +5026,8 @@ def _mesh_launches(n_data: int, n_latent: int, dtype: str = "float32"):
             ("rep_image_fwd_cuda", rows, dtype): 2,
             ("recon_metric_cuda", rows, dtype): 1,
             ("recon_metric_finish_cuda", rows, dtype): 1,
-            ("gp_kernel_fwd_cuda", (L, S, 20, 120), dtype): 1}
+            ("gp_kernel_fwd_cuda", (L, S, 20, 120), dtype): 1,
+            **natgrad_need(L, S, 20, 120, dtype, dtype, 1)}
 
 
 @contextlib.contextmanager
@@ -5386,8 +5712,18 @@ def main() -> None:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}; {torch.cuda.device_count()} card(s)",
           flush=True)
-    phase_build()
-    rows = [] if mesh_only else phase_kernels()
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {name} {time.perf_counter() - t:.1f} s, "
+              f"{time.perf_counter() - t0:.1f} s since the build began",
+              flush=True)
+        return out
+
+    timed("build", phase_build)
+    rows = [] if mesh_only else timed("kernels", phase_kernels)
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows += phase_mesh_kernels(gen)
     if torch.cuda.device_count() >= 4:        # [mesh4] runs 4 x 1
@@ -5398,28 +5734,30 @@ def main() -> None:
             data_dir = os.path.join(tmp, "data")
             write_canonical_data(data_dir)
         else:
-            phase_reference(tmp)
-            phase_reference(tmp, torch.float64)
-            counts["slice"], out, data_dir, save = phase_slice(tmp)
-            phase_impute(data_dir, save)
-            phase_eval(out)
-            phase_profile(out)
+            timed("reference", phase_reference, tmp)
+            timed("reference float64", phase_reference, tmp, torch.float64)
+            counts["slice"], out, data_dir, save = timed("slice",
+                                                         phase_slice, tmp)
+            timed("impute", phase_impute, data_dir, save)
+            timed("eval", phase_eval, out)
+            timed("profile", phase_profile, out)
             del out
             torch.cuda.empty_cache()
-            rows += phase_fusion(data_dir, tmp)
-            counts["f64"] = phase_f64(data_dir, tmp)
-            counts["longT"], long_rows = phase_long_t(tmp)
+            rows += timed("fusion", phase_fusion, data_dir, tmp)
+            counts["f64"] = timed("f64", phase_f64, data_dir, tmp)
+            counts["longT"], long_rows = timed("longT", phase_long_t, tmp)
             rows += long_rows
-            counts["mlp"] = phase_mlp(data_dir, tmp)
-            counts["options"] = phase_options(data_dir, tmp)
-            phase_fused_stack(data_dir)
-            phase_graph(data_dir, tmp)
-            phase_precision(data_dir)
-            phase_parent(data_dir)
-            phase_full(data_dir, tmp)
+            counts["mlp"] = timed("mlp", phase_mlp, data_dir, tmp)
+            counts["options"] = timed("options", phase_options, data_dir,
+                                      tmp)
+            timed("fused", phase_fused_stack, data_dir)
+            timed("graph", phase_graph, data_dir, tmp)
+            timed("precision", phase_precision, data_dir)
+            timed("parent", phase_parent, data_dir)
+            timed("full", phase_full, data_dir, tmp)
             torch.cuda.empty_cache()
-        counts["mesh"] = phase_mesh(data_dir)
-        counts["mesh4"] = phase_mesh4(data_dir, tmp)
+        counts["mesh"] = timed("mesh", phase_mesh, data_dir)
+        counts["mesh4"] = timed("mesh4", phase_mesh4, data_dir, tmp)
     # each row's launches come from the run of the path it belongs to: the
     # mesh ranks' local shapes from [mesh] (the metric's rows in both
     # dtypes) and the 4 x 1 rank's from [mesh4] (each summed over its

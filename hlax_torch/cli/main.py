@@ -575,17 +575,13 @@ def run(opt: dict) -> dict:
 def _summary(out: dict, rank: int) -> dict:
     """What a mesh rank's run sends back: its curves, evaluations, step
     count and kernel launches (the counters of its own process)."""
-    from hlax_torch.ops import fusion
-    from hlax_torch.ops import linalg_small as ls
+    from hlax_torch.ops import counters
 
     keep = ("loss_arrs", "steps", "epoch_seconds", "eval_seconds",
             "last_validation", "results_path")
-    return {**{k: out[k] for k in keep}, "rank": rank,
-            "launches": {**ls.LAUNCHES, **fusion.LAUNCHES},
-            "launches_by_shape": {**ls.LAUNCHES_BY_SHAPE,
-                                  **fusion.LAUNCHES_BY_SHAPE},
-            "plain_calls": {**ls.PLAIN_CUDA_CALLS,
-                            **fusion.PLAIN_CUDA_CALLS}}
+    launches, by_shape, plain = counters.read_every()
+    return {**{k: out[k] for k in keep}, "rank": rank, "launches": launches,
+            "launches_by_shape": by_shape, "plain_calls": plain}
 
 
 def _run_rank(rank: int, world_size: int, init_method, opt: dict) -> dict:

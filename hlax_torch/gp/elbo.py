@@ -30,10 +30,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from hlax_torch.gp.kernels import KernelSpec
-from hlax_torch.ops import gp_bound
+from hlax_torch.ops import gp_bound, natgrad
 from hlax_torch.ops.fusion import gp_kernel_matrix
 from hlax_torch.ops.linalg_small import chol_inv_blocked
 from hlax_torch.precision import highest
+from hlax_torch.profiling import region
 
 
 def _gram(iL):
@@ -181,7 +182,6 @@ def kld_upper_bound(
     then global; grad_m, grad_H and iH stay this rank's latents'.
     """
     Ldim = z.shape[0]
-    M = z.shape[1]
 
     blk, (LH, iLH) = subject_blocks(spec0, params0, spec1, params1, noise,
                                     z, x_st, valid, eps, extra_spd=H,
@@ -200,12 +200,11 @@ def kld_upper_bound(
 
     if not natural_gradient:
         return kld_total, None, None, None
-    with torch.no_grad():
+    with region("natural_gradient_quantities"), torch.no_grad():
         cdt = nat_grad_dtype or x_st.dtype
-        mu_m = mu_st * valid[:, :, None]                 # [S, T, L]
-        iB_mu = torch.einsum("lstu,sul->lst", blk.iB, mu_m)
-        ng_P1 = torch.einsum("lstm,lst->lm", blk.K0xz,
-                             iB_mu)[:, :, None].to(cdt)
+        # the chain's kernels on the card (ops.natgrad): K5 ng_P1, cuBLAS's
+        # whitened Gram, K6 grad_m and grad_H
+        ng_P1 = natgrad.fwd_subjects(blk.iB, mu_st, valid, blk.K0xz, cdt)
         if sums is not None:
             ng_P1 = sums.subjects(ng_P1)
         if cdt == blk.LK0zz.dtype:
@@ -225,12 +224,8 @@ def kld_upper_bound(
         C_w = torch.einsum("lstm,lstn->lmn", Gw, Gw)          # PSD Gram sum
         if sums is not None:
             C_w = sums.subjects(C_w)
-        IpC = C_w + torch.eye(M, dtype=cdt, device=C_w.device)
-        B_mat = torch.einsum("lpm,lpq,lqn->lmn", iLK_c, IpC, iLK_c)
-        B_mat = 0.5 * (B_mat + B_mat.mT)
-        grad_m = -torch.einsum("lmn,lno->lmo", iK_c, ng_P1) \
-            + torch.einsum("lmn,lno->lmo", B_mat, m.to(cdt))
-        grad_H = 0.5 * (-iH_c + B_mat)
+        grad_m, grad_H = natgrad.fwd_latents(iLK_c, C_w, iK_c, iH_c, ng_P1,
+                                             m)
     return kld_total, grad_m, grad_H, iH_c
 
 
@@ -324,7 +319,8 @@ def sample_elbo(spec0: KernelSpec, params0, spec1: KernelSpec, params1,
 
 @highest
 def natural_gradient_update(m, H, grad_m, grad_H, lr: float, iH=None,
-                            jitter: float = 0.0, use_pallas_chol: bool = True):
+                            jitter: float = 0.0, use_pallas_chol: bool = True,
+                            out=None):
     """Closed-form natural-gradient step on (m, H).
 
     Pass the ``iH`` returned by ``kld_upper_bound`` to skip refactorizing H.
@@ -333,20 +329,17 @@ def natural_gradient_update(m, H, grad_m, grad_H, lr: float, iH=None,
     is cast back to the dtype of (m, H).  ``jitter``: relative diagonal
     ridge on iH_new before its factorization (scaled by the mean diagonal).
     ``use_pallas_chol`` (True by default, as hlax's): the kernels for the
-    SPD inverses, else the library.  Called under ``torch.no_grad()`` by the train step."""
+    SPD inverses, else the library.  m and H share the state's dtype.  On
+    the card the chain around iH_new's
+    factorization is two kernels (``ops.natgrad``: K7 iH_new and the
+    right-hand side, K8 H_new and m_new).  ``out`` = (m, H): the result is
+    written there (by K8 itself on the card, where they must be contiguous
+    in the state's dtype; the train step passes the state's own m and H)
+    and returned.  Called under ``torch.no_grad()`` by
+    the train step."""
     cdt = grad_H.dtype
-    m_c, H_c = m.to(cdt), H.to(cdt)
     if iH is None:
-        iH = _gram(_chol_inv(H_c, use_pallas_chol)[1])
-    iH_new = iH + lr * (grad_H + grad_H.mT)
-    if jitter:
-        mean_diag = torch.diagonal(iH_new, dim1=-2, dim2=-1).mean(
-            -1)[:, None, None]
-        iH_new = iH_new + jitter * mean_diag * torch.eye(
-            H.shape[-1], dtype=cdt, device=H.device)
-    H_new = _gram(_chol_inv(iH_new, use_pallas_chol)[1])
-    m_new = torch.einsum(
-        "lmn,lno->lmo", H_new,
-        torch.einsum("lmn,lno->lmo", iH, m_c)
-        - lr * (grad_m - 2.0 * torch.einsum("lmn,lno->lmo", grad_H, m_c)))
-    return m_new.to(m.dtype), H_new.to(H.dtype)
+        iH = _gram(_chol_inv(H.to(cdt), use_pallas_chol)[1])
+    iH_new, rhs = natgrad.update_pre(iH, grad_H, grad_m, m, lr, jitter)
+    iLA = _chol_inv(iH_new, use_pallas_chol)[1]
+    return natgrad.update_finish(iLA, rhs, m.dtype, out)

@@ -10,6 +10,7 @@ capture, and the graph's runner takes the captured counts back out
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, Iterable, List, Tuple
 
 import torch
@@ -66,6 +67,8 @@ class Counters:
 
 # every module's counters, in import order
 _ALL: List[Counters] = []
+# the modules of the port's kernels (hlax_torch.ops.<name>), a Counters each
+KERNEL_MODULES = ("linalg_small", "fusion", "gp_bound", "natgrad")
 
 
 def snapshot_all():
@@ -79,3 +82,23 @@ def take_all_since(before):
 def add_all(gained, times: int = 1) -> None:
     for c, g in zip(_ALL, gained):
         c.add(g, times)
+
+
+def _every_module() -> List[Counters]:
+    """The counters of every kernel module (KERNEL_MODULES, imported)."""
+    for name in KERNEL_MODULES:
+        importlib.import_module(f"hlax_torch.ops.{name}")
+    return _ALL
+
+
+def reset_every() -> None:
+    """Every kernel module's counters set to 0."""
+    for c in _every_module():
+        c.reset()
+
+
+def read_every():
+    """(launches, launches by shape, plain-version calls on CUDA tensors)
+    of every kernel module, each one dict."""
+    return tuple({k: v for d in ds for k, v in d.items()}
+                 for ds in zip(*(c._dicts() for c in _every_module())))

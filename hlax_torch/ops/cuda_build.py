@@ -33,11 +33,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # float32 operations as its plain PyTorch version and the two agree to the
 # last bit.  The one-warp body both forward libraries share spells its
 # roundings out (__fmul_rn, __fsub_rn), so it is bit-equal under either flag.
-# The bound's kernels (``gp_bound``) sum in other orders than their plain
-# version (tiles, butterflies, double partials) and are held to it within a
+# The bound's kernels (``gp_bound``) and the natural-gradient chain's
+# (``natgrad``) sum in other orders than their plain versions (tiles,
+# butterflies, double partials, row strips) and are held to them within a
 # float64 reference's bars: contracted too.
 FMA_CONTRACTED = frozenset({"chol_inv_mid", "chol_inv_bwd", "fusion",
-                            "gp_bound"})
+                            "gp_bound", "natgrad"})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,309 @@
+"""The natural-gradient chain as hand-written CUDA kernels
+(``csrc/natgrad.cu``).
+
+hlax jits ``kld_upper_bound`` and ``natural_gradient_update``
+(``hlax/gp/elbo.py:237-285``, ``:425-469``) and XLA folds the chains
+between their dots into a few fusions; the port ran them op by op, some
+forty-five kernels a step.  Four kernels take them, and the large batched
+products stay cuBLAS's (``torch.bmm``, ``torch.baddbmm``; the whitened
+Gram's einsums), as hlax leaves them to XLA's dots:
+
+  * ``fwd_subjects`` (K5, ``natgrad_fwd_subjects``): ng_P1 = sum_s
+    K0xz_s^T iB_s (mu_s valid_s) (``hlax/gp/elbo.py:241-243``), a (32
+    columns, latent) a block; subjects longer than TP rows take iB mu from
+    cuBLAS, as the bound's row tiles take their products.
+  * ``fwd_latents`` (K6, ``natgrad_fwd_latents``): from X = iLK^T (I + C_w)
+    iLK (cuBLAS, ``baddbmm`` then ``bmm``), B = (X + X^T) / 2, grad_H =
+    (B - iH) / 2 and grad_m = B m - iK ng_P1 (``:272-282``).
+  * ``update_pre`` (K7, ``natgrad_update_pre``): iH_new = iH + lr (grad_H +
+    grad_H^T) (+ jitter mean(diag iH_new) I) and rhs = iH m - lr (grad_m -
+    2 grad_H m) (``:459-463`` and the bracket of ``:465-468``).
+  * ``update_finish`` (K8, ``natgrad_update_finish``): H_new = iLA^T iLA
+    from the inverse factor of iH_new (the mid Cholesky kernel's, or the
+    library's) and m_new = H_new rhs, in the state's dtype (``:454``,
+    ``:464-469``), written into the caller's (m, H) where given.
+
+K6-K8 take a (strip of rows, latent) a block, a thread a column
+(``strip_plan``, sized from the card's SM count).  Every sum is in double,
+in a fixed order.  The plain versions are the port's op-by-op code, which
+the CPU runs and the parity tests hold to hlax; on CUDA in float32 and
+float64 the kernels run (the chain in float64 on float32 inputs and state
+too: ``--nat_grad_f64``), else the plain version, counted in
+``PLAIN_CUDA_CALLS``.  A failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from hlax_torch.ops import fusion
+from hlax_torch.ops.counters import Counters
+
+# must match NT, CW, VROWS, TP, RMAX and MAX_M in csrc/natgrad.cu: K5's
+# threads and columns a block, the rows of iB mu it stages at once, the
+# subjects' rows past which cuBLAS takes iB mu; K6-K8's rows a block at most
+# and columns (a thread each) at most
+THREADS, COLS, VROWS, TP, RMAX, MAX_M = 1024, 32, 2048, 32, 8, 512
+# K8's chunks of iLA's rows at most (two in shared memory at once) and its
+# static shared bytes (the block sums)
+CHUNK = 32
+FINISH_STATIC = (RMAX * 32 + RMAX) * 8
+# K8's shared bytes a block the plan's chunks keep within where they can:
+# six blocks an SM, so a canonical launch's 480 blocks run in one wave
+FINISH_BUDGET = 36 * 1024
+SMEM_MAX = 227 * 1024
+# the (first, second) dtypes each kernel compiles beside the two equal
+# pairs: K5 float inputs with a float64 ng_P1, K6-K8 a float64 chain on a
+# float32 state
+MIXED_SUBJECTS = (torch.float32, torch.float64)
+MIXED_LATENTS = (torch.float64, torch.float32)
+
+KERNELS = ("natgrad_fwd_subjects", "natgrad_fwd_latents",
+           "natgrad_update_pre", "natgrad_update_finish")
+_COUNTERS = Counters(tuple(f"{k}_cuda" for k in KERNELS),
+                     tuple(f"{k}_plain" for k in KERNELS))
+LAUNCHES = _COUNTERS.launches
+LAUNCHES_BY_SHAPE = _COUNTERS.by_shape
+PLAIN_CUDA_CALLS = _COUNTERS.plain
+reset_counters = _COUNTERS.reset
+
+
+class StripPlan(NamedTuple):
+    """K6-K8's grid: ``strips`` strips of ``rows`` rows of each latent's
+    [M, M] matrices (the last one may be shorter), a block a (strip,
+    latent), ``threads`` threads a block (a column each, in whole warps),
+    ``blocks`` = strips L; K8's ``chunk`` rows of iLA a stage and its
+    dynamic shared bytes ``smem_finish``."""
+    rows: int
+    strips: int
+    threads: int
+    blocks: int
+    chunk: int
+    smem_finish: int
+
+
+def finish_smem(M: int, chunk: int, itemsize: int) -> int:
+    """K8's dynamic shared bytes (finish_smem, csrc/natgrad.cu): two
+    buffers of ``chunk`` rows of iLA's M entries (16-byte aligned), a float
+    chunk widened to double and RMAX doubles of room past it."""
+    return (-(-2 * chunk * M * itemsize // 16) * 16
+            + (chunk * M * 8 if itemsize == 4 else 0) + RMAX * 8)
+
+
+def strip_plan(L: int, M: int, itemsize: int, sms: int) -> StripPlan:
+    """The most rows a strip, at most RMAX and halving, whose L ceil(M /
+    rows) blocks still give each of ``sms`` SMs one (fewer where even one
+    row a strip does not); K8's chunks of CHUNK rows, halved until its
+    shared bytes fit FINISH_BUDGET (or are one row)."""
+    if not 1 <= M <= MAX_M:
+        raise ValueError(f"natgrad: M = {M} inducing points, the kernels "
+                         f"take 1 to {MAX_M}")
+    rows = RMAX
+    while rows > 1 and L * -(-M // rows) < sms:
+        rows //= 2
+    chunk = CHUNK
+    while chunk > 1 and finish_smem(M, chunk, itemsize) > FINISH_BUDGET:
+        chunk //= 2
+    strips = -(-M // rows)
+    return StripPlan(rows, strips, -(-M // 32) * 32, L * strips, chunk,
+                     finish_smem(M, chunk, itemsize))
+
+
+def _launch(entry: str, like: torch.Tensor, *args) -> None:
+    """``fusion.launch`` of a C entry of libnatgrad.so."""
+    fusion.launch("natgrad", _COUNTERS, entry, like, *args)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the kernel wrappers launch on ``t`` (else the kernels' plain
+    versions run)."""
+    return t.is_cuda
+
+
+def _takes(kernel: str, t: torch.Tensor, *same, other=None,
+           mixed=None) -> bool:
+    """Whether ``kernel`` takes ``t`` with the tensors ``same`` (its dtype
+    and device) and the dtype pair (t's, ``other``'s): on the card, equal
+    kernel dtypes or the ``mixed`` pair.  A card's call that it does not
+    take is counted in PLAIN_CUDA_CALLS."""
+    if not _on_card(t):
+        return False
+    pair = (t.dtype, t.dtype if other is None else other)
+    if (pair[0] in fusion.KERNEL_DTYPES
+            and (pair[0] == pair[1] or pair == mixed)
+            and all(o.dtype == t.dtype and o.device == t.device
+                    for o in same)):
+        return True
+    PLAIN_CUDA_CALLS[f"{kernel}_plain"] += 1
+    return False
+
+
+def _sms(t: torch.Tensor) -> int:
+    return fusion._sm_count(t.device.index) if t.is_cuda else fusion.GP_SMS
+
+
+def _rows_of(mu: torch.Tensor) -> Optional[int]:
+    """mu [S, T, L]'s row stride where its rows are laid out as K5 reads
+    them (entries of a row contiguous, rows at one stride), else None."""
+    S, T, L = mu.shape
+    ld = mu.stride(1)
+    if mu.stride(2) == 1 and ld >= L and (S == 1 or mu.stride(0) == T * ld):
+        return ld
+    return None
+
+
+# ------------------------------------------------------------ the kernels
+#
+# Each wrapper allocates its kernel's outputs and launches it on a CUDA
+# tensor; on a CPU tensor it runs the kernel's plain version (the port's
+# op-by-op code), which the CPU tests hold to hlax and ``chip_smoke.py``
+# holds the kernel to on the card.
+
+def fwd_subjects_plain(iB, mu, valid, K0xz, dtype):
+    """K5's plain version: ng_P1 [L, M, 1] in ``dtype``."""
+    mu_m = mu * valid[:, :, None]                        # [S, T, L]
+    iB_mu = torch.einsum("lstu,sul->lst", iB, mu_m)
+    return torch.einsum("lstm,lst->lm", K0xz, iB_mu)[:, :, None].to(dtype)
+
+
+def fwd_subjects(iB, mu, valid, K0xz, dtype: torch.dtype):
+    """K5: ng_P1 = sum_st K0xz^T (iB (mu valid)) [L, M, 1] in ``dtype``
+    (this rank's subjects' on a mesh).  iB [L, S, T, T], mu [S, T, L] (a
+    view of the latents' columns as the mesh slices them), valid [S, T],
+    K0xz [L, S, T, M]."""
+    kernel = "natgrad_fwd_subjects"
+    if not _takes(kernel, K0xz, iB, mu, valid, other=dtype,
+                  mixed=MIXED_SUBJECTS):
+        return fwd_subjects_plain(iB, mu, valid, K0xz, dtype)
+    L, S, T, M = K0xz.shape
+    fusion._check_shapes(kernel, iB=(iB, (L, S, T, T)), mu=(mu, (S, T, L)),
+                         valid=(valid, (S, T)))
+    ld = _rows_of(mu)
+    if ld is None:
+        mu, ld = mu.contiguous(), L
+    K0xz, iB, valid = K0xz.contiguous(), iB.contiguous(), valid.contiguous()
+    out = torch.empty((L, M, 1), dtype=dtype, device=K0xz.device)
+    iBmu = None
+    if T > TP:        # longer subjects: iB mu by cuBLAS
+        iBmu = torch.matmul(iB, (mu * valid[:, :, None]).permute(
+            2, 0, 1)[..., None])[..., 0]
+    _launch(kernel, K0xz, K0xz.element_size(), out.element_size(),
+            None if iBmu is not None else iB, iBmu, mu, valid, K0xz, out, L,
+            S, T, M, ld)
+    return out
+
+
+def latents_plain(X, iK, iH, ng_P1, m):
+    """K6's plain version from X = iLK^T (I + C_w) iLK: (grad_m, grad_H)."""
+    B_mat = 0.5 * (X + X.mT)
+    grad_m = -torch.einsum("lmn,lno->lmo", iK, ng_P1) \
+        + torch.einsum("lmn,lno->lmo", B_mat, m.to(X.dtype))
+    return grad_m, 0.5 * (-iH + B_mat)
+
+
+def fwd_latents(iLK, C_w, iK, iH, ng_P1, m):
+    """K6 after cuBLAS's triple product: (grad_m [L, M, 1], grad_H
+    [L, M, M]) in the chain's dtype (C_w's) from the whitened Gram sum C_w
+    (summed over the ranks on a mesh), the inverse factor iLK of K0zz, iK,
+    iH, ng_P1 and the state's m.  X = iLK^T (I + C_w) iLK is formed as
+    iLK^T (iLK + C_w iLK), a ``baddbmm`` and a ``bmm``, on every device and
+    dtype."""
+    X = torch.bmm(iLK.mT, torch.baddbmm(iLK, C_w, iLK))
+    if not _takes("natgrad_fwd_latents", C_w, iLK, iK, iH, ng_P1,
+                  other=m.dtype, mixed=MIXED_LATENTS):
+        return latents_plain(X, iK, iH, ng_P1, m)
+    return latents(X, iK, iH, ng_P1, m)
+
+
+def latents(X, iK, iH, ng_P1, m):
+    """K6 alone on X (what ``fwd_latents`` launches after its products)."""
+    L, M = X.shape[0], X.shape[1]
+    fusion._check_shapes("natgrad_fwd_latents", iK=(iK, (L, M, M)),
+                         iH=(iH, (L, M, M)), ng_P1=(ng_P1, (L, M, 1)),
+                         m=(m, (L, M, 1)))
+    plan = strip_plan(L, M, X.element_size(), _sms(X))
+    X, iK, iH, ng_P1, m = (t.contiguous() for t in (X, iK, iH, ng_P1, m))
+    grad_m = torch.empty_like(ng_P1)
+    grad_H = torch.empty_like(X)
+    _launch("natgrad_fwd_latents", X, X.element_size(), m.element_size(), X,
+            iK, iH, ng_P1, m, grad_m, grad_H, L, M, plan.rows)
+    return grad_m, grad_H
+
+
+def update_pre_plain(iH, grad_H, grad_m, m, lr: float, jitter: float):
+    """K7's plain version: (iH_new, rhs)."""
+    m_c = m.to(grad_H.dtype)
+    iH_new = iH + lr * (grad_H + grad_H.mT)
+    if jitter:
+        mean_diag = torch.diagonal(iH_new, dim1=-2, dim2=-1).mean(
+            -1)[:, None, None]
+        iH_new = iH_new + jitter * mean_diag * torch.eye(
+            iH.shape[-1], dtype=iH.dtype, device=iH.device)
+    rhs = torch.einsum("lmn,lno->lmo", iH, m_c) \
+        - lr * (grad_m - 2.0 * torch.einsum("lmn,lno->lmo", grad_H, m_c))
+    return iH_new, rhs
+
+
+def update_pre(iH, grad_H, grad_m, m, lr: float, jitter: float = 0.0):
+    """K7: (iH_new = iH + lr (grad_H + grad_H^T), with ``jitter`` + jitter
+    mean(diag iH_new) I, [L, M, M]; rhs = iH m - lr (grad_m - 2 grad_H m)
+    [L, M, 1]) in the chain's dtype (grad_H's), from the state's m."""
+    kernel = "natgrad_update_pre"
+    if not _takes(kernel, grad_H, iH, grad_m, other=m.dtype,
+                  mixed=MIXED_LATENTS):
+        return update_pre_plain(iH, grad_H, grad_m, m, lr, jitter)
+    L, M = grad_H.shape[0], grad_H.shape[1]
+    fusion._check_shapes(kernel, iH=(iH, (L, M, M)),
+                         grad_m=(grad_m, (L, M, 1)), m=(m, (L, M, 1)))
+    plan = strip_plan(L, M, grad_H.element_size(), _sms(grad_H))
+    iH, grad_H, grad_m, m = (t.contiguous() for t in (iH, grad_H, grad_m, m))
+    iH_new = torch.empty_like(iH)
+    rhs = torch.empty_like(grad_m)
+    _launch(kernel, iH, iH.element_size(), m.element_size(), iH, grad_H,
+            grad_m, m, iH_new, rhs, L, M, plan.rows, float(lr),
+            float(jitter))
+    return iH_new, rhs
+
+
+def update_finish_plain(iLA, rhs, dtype: torch.dtype):
+    """K8's plain version: (m_new, H_new) in ``dtype``."""
+    H_new = torch.einsum("lkm,lkn->lmn", iLA, iLA)
+    m_new = torch.einsum("lmn,lno->lmo", H_new, rhs)
+    return m_new.to(dtype), H_new.to(dtype)
+
+
+def update_finish(iLA, rhs, dtype: torch.dtype, out=None):
+    """K8: (m_new = H_new rhs [L, M, 1], H_new = iLA^T iLA [L, M, M]) in
+    ``dtype`` (the state's) from the inverse factor iLA of iH_new (lower
+    triangular: the sum over k starts at max(i, j)) and rhs, in the chain's
+    dtype.  The kernel writes both triangles of H_new, each entry from its
+    own sum; H_new[j, i] takes the same products in the same order as
+    H_new[i, j], so H_new is exactly symmetric.  ``out`` = (m, H): written
+    there and returned; on the card the kernel writes them in place (its
+    only reads are iLA and rhs), so they must be contiguous in ``dtype``."""
+    kernel = "natgrad_update_finish"
+    if not _takes(kernel, iLA, rhs, other=dtype, mixed=MIXED_LATENTS):
+        m_new, H_new = update_finish_plain(iLA, rhs, dtype)
+        if out is None:
+            return m_new, H_new
+        out[0].copy_(m_new)
+        out[1].copy_(H_new)
+        return out
+    L, M = iLA.shape[0], iLA.shape[1]
+    fusion._check_shapes(kernel, rhs=(rhs, (L, M, 1)))
+    plan = strip_plan(L, M, iLA.element_size(), _sms(iLA))
+    iLA, rhs = iLA.contiguous(), rhs.contiguous()
+    if out is None:
+        out = (torch.empty((L, M, 1), dtype=dtype, device=iLA.device),
+               torch.empty((L, M, M), dtype=dtype, device=iLA.device))
+    elif not all(t.is_contiguous() and t.dtype == dtype
+                 and t.device == iLA.device for t in out):
+        raise ValueError(f"{kernel}: out = (m, H) must be contiguous "
+                         f"{dtype} tensors on {iLA.device}")
+    m_new, H_new = out
+    fusion._check_shapes(kernel, m=(m_new, (L, M, 1)), H=(H_new, (L, M, M)))
+    _launch(kernel, iLA, iLA.element_size(), H_new.element_size(), iLA, rhs,
+            m_new, H_new, L, M, plan.rows, plan.chunk, plan.smem_finish)
+    return m_new, H_new

@@ -219,7 +219,8 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
                     mesh=None):
     """Returns ``step(state, batch, eps=None) -> metrics``; it updates
     ``state`` in place, every tensor at its storage (the natural-gradient
-    (m, H) are copied into m and H; ``.grad`` is written anew,
+    (m, H) are written into m and H, on the card by the update's last
+    kernel itself; ``.grad`` is written anew,
     ``write_grads``).  ``batch`` holds S*T_max flat rows (data, mask,
     theta_mask, labels) and valid [S, T_max]; ``eps`` [S*T_max, z_dim]
     injects the reparameterization noise (else drawn from
@@ -318,13 +319,12 @@ def make_train_step(model: HLVAE, spec0, spec1, cfg: TrainConfig,
                                            batch["mask"], row_valid)
             if cfg.natural_gradient:
                 with region("natural_gradient"):
-                    m_new, H_new = gp_elbo.natural_gradient_update(
+                    gp_elbo.natural_gradient_update(
                         state.m, state.H, gm.detach(), gH.detach(),
                         cfg.natural_gradient_lr, iH=iH.detach(),
                         jitter=cfg.nat_grad_jitter,
-                        use_pallas_chol=cfg.use_pallas_chol)
-                    state.m.copy_(m_new)
-                    state.H.copy_(H_new)
+                        use_pallas_chol=cfg.use_pallas_chol,
+                        out=(state.m, state.H))
         state.step += 1
         return {"loss": loss.detach(), "nll": nll_scaled.detach(),
                 "kld": kld.detach(), "recon": recon, "miss_recon": miss}

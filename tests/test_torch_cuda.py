@@ -2040,3 +2040,113 @@ def test_gp_bound_op_dispatch(gen):
         kernel = dtype != torch.bfloat16
         assert gb.LAUNCHES["gp_bound_fwd_latents_cuda"] == int(kernel)
         assert gb.PLAIN_CUDA_CALLS["gp_bound_plain"] == int(not kernel)
+
+
+# ---- the natural-gradient chain (ops/natgrad.py, csrc/natgrad.cu) ----------
+
+def _chip_smoke():
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+# [L, S, T, M]: the canonical batch, a 2 x 2 mesh rank's, the ragged toy
+# (M = 37: a last strip of 5 rows) and T = 40 (past TP: iB mu by cuBLAS)
+NATGRAD_SHAPES = [(32, 20, 20, 120), (16, 10, 20, 120), (3, 7, 13, 37),
+                  (4, 3, 40, 37)]
+# (data and state dtype, the chain's): float32, float64, --nat_grad_f64
+NATGRAD_DTYPES = [(torch.float32, None), (torch.float64, None),
+                  (torch.float32, torch.float64)]
+
+
+@pytest.mark.parametrize("jitter", [0.0, 1e-3])
+@pytest.mark.parametrize("shape", NATGRAD_SHAPES)
+@pytest.mark.parametrize("dtype, chain", NATGRAD_DTYPES)
+def test_natgrad_kernels_against_plain_version(gen, dtype, chain, shape,
+                                               jitter):
+    """K5-K8, each on its own inputs (``chip_smoke.natgrad_case``), one
+    launch each, against their plain versions: float64 within 1e-10 of the
+    largest entry; float32 inputs within 4x the plain version's own error
+    against float64, plus 1e-6 of it; K8's H_new exactly symmetric."""
+    from hlax_torch.ops import natgrad as ng
+
+    cs = _chip_smoke()
+    case = cs.natgrad_case(*shape, dtype, chain)
+    before = dict(ng.LAUNCHES)
+    got = cs.natgrad_run(case, True, jitter)
+    torch.cuda.synchronize()
+    for k in ng.LAUNCHES:
+        assert ng.LAUNCHES[k] == before[k] + 1, k
+    plain = cs.natgrad_run(case, False, jitter)
+    ref = None if dtype == torch.float64 else cs.natgrad_run(
+        cs.natgrad_case64(case), False, jitter)
+    assert torch.equal(got[-1], got[-1].mT)
+    for i, (a, b) in enumerate(zip(got, plain)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        if ref is None:
+            scale = b.abs().max().item()
+            assert (a - b).abs().max().item() <= 1e-10 * scale, i
+            continue
+        r = ref[i].double()
+        scale = r.abs().max().item()
+        own = (b.double() - r).abs().max().item()
+        err = (a.double() - r).abs().max().item()
+        assert err <= 4 * own + 1e-6 * scale, (i, err, own, scale)
+
+
+@pytest.mark.parametrize("dtype, chain", NATGRAD_DTYPES)
+def test_natgrad_graph_replays_eager_call(gen, dtype, chain):
+    """The four kernels captured in a CUDA graph and replayed twice: equal
+    to the eager calls bit for bit (every sum in a fixed order)."""
+    cs = _chip_smoke()
+    case = cs.natgrad_case(32, 20, 20, 120, dtype, chain)
+    eager = cs.natgrad_run(case, True, 1e-3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cs.natgrad_run(case, True, 1e-3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = cs.natgrad_run(case, True, 1e-3)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(captured, eager)):
+            assert torch.equal(a, b), (i, (a - b).abs().max().item())
+
+
+def test_natgrad_op_dispatch(gen):
+    """On the card bfloat16 takes each kernel's plain version, counted in
+    PLAIN_CUDA_CALLS, and launches nothing; the update written into the
+    given (m, H) in place by K8 in float32, which refuses an (m, H) that
+    is not contiguous."""
+    from hlax_torch.gp import elbo
+    from hlax_torch.ops import natgrad as ng
+
+    cs = _chip_smoke()
+    case = cs.natgrad_case(3, 7, 13, 37, torch.float32)
+    bf = lambda ts: tuple(t.bfloat16() for t in ts)
+    ng.reset_counters()
+    ng.fwd_subjects(*bf(case["subjects"]), torch.bfloat16)
+    ng.update_pre(*bf(case["pre"]), 0.01, 0.0)
+    assert not any(ng.LAUNCHES.values())
+    assert ng.PLAIN_CUDA_CALLS["natgrad_fwd_subjects_plain"] == 1
+    assert ng.PLAIN_CUDA_CALLS["natgrad_update_pre_plain"] == 1
+    iH, gH, gm, m = case["pre"]
+    H = torch.cholesky_inverse(torch.linalg.cholesky(iH)).contiguous()
+    out = (m.clone(), H.clone())
+    ptrs = [t.data_ptr() for t in out]
+    got = elbo.natural_gradient_update(m, H, gm, gH, 0.01, iH=iH, out=out)
+    want = elbo.natural_gradient_update(m, H, gm, gH, 0.01, iH=iH)
+    assert [t.data_ptr() for t in got] == ptrs
+    assert ng.LAUNCHES["natgrad_update_finish_cuda"] == 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        elbo.natural_gradient_update(m, H, gm, gH, 0.01, iH=iH,
+                                     out=(m.clone(), H.clone().mT))
+    ng.reset_counters()

@@ -1,0 +1,436 @@
+"""The natural-gradient chain's kernels (``hlax_torch/ops/natgrad.py``) on
+the CPU.
+
+float64 unless a test says otherwise, inputs made with numpy from a seed;
+S = 5 subjects, of which one padded from T // 2 and one all padding; the
+canonical kernel structure at the canonical conditioning (K0zz + 1e-6 I,
+inducing points drawn from the batch's rows and moved, H = R R^T / 100 +
+0.01 I as the train state draws it).  ``kld_upper_bound``'s
+natural-gradient quantities and ``natural_gradient_update`` against hlax's
+at ``test_torch_gp.py``'s bars (grad_m, grad_H and iH: rtol 1e-6, atol 1e-8
+of the largest entry; m and H: rtol 1e-8, atol 1e-10), both through the
+kernels' plain versions (what the wrappers run on a CPU tensor) and
+through the wrappers' kernel path, its four launches recorded and each
+done by its kernel's plain version (around them the cuBLAS products of
+both paths, X = iLK^T (iLK + C_w iLK), and the kernel path's long
+subjects' iB mu); the float64
+chain on float32 inputs (``nat_grad_dtype``) at ``test_torch_natgrad64.py``'s
+bar; the plans (every (latent, row) and (latent, column) in one block, K8's
+sums over k >= max(i, j) in one order for H_new[i, j] and H_new[j, i],
+shared bytes within 227 KB); the constants and the C entries' parameter
+counts of ``csrc/natgrad.cu``.
+"""
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hlax.gp import elbo as jelbo
+from hlax.gp import kernels as jk
+from hlax_torch.gp import elbo as telbo
+from hlax_torch.gp import kernels as tk
+from hlax_torch.ops import natgrad as ng
+
+torch.set_num_threads(1)
+
+S, L, Q = 5, 4, 6
+P_TOT, N_TOT, EPS, LR = 20.0, 100.0, 1e-6, 0.01
+CSRC = Path(ng.__file__).resolve().parents[1] / "csrc" / "natgrad.cu"
+# canonical structure (configs/hlvae_config_file.txt) plus a bin factor
+SPEC_ARGS = ([2], [5], [0],
+             [{"cat_covariate": 3, "cont_covariate": 0},
+              {"cat_covariate": 4, "cont_covariate": 1},
+              {"cat_covariate": 2, "cont_covariate": 0}], [], [], 2)
+# (M, T): every M of 16, 30, 120 and T of 5, 20, 33 (33: past TP, iB mu by
+# cuBLAS on the kernel path)
+BOUND_CASES = [(16, 5), (16, 33), (30, 20), (30, 33), (120, 20)]
+
+
+def _setup(M, T, seed):
+    """hlax's and the port's bound inputs (numpy, float64): subject S - 2
+    padded from row T // 2, subject S - 1 all padding."""
+    rng = np.random.default_rng(seed)
+    spec0, spec1 = jk.build_kernel_specs(*SPEC_ARGS)
+    k0, k1 = ([{k: np.asarray(v) + 0.3 * rng.standard_normal(v.shape)
+                for k, v in p.items()}
+               for p in jk.init_kernel_params(spec, L, jnp.float64)]
+              for spec in (spec0, spec1))
+    x = np.zeros((S, T, Q))
+    x[:, :, 0] = np.arange(T)[None]
+    x[:, :, 1] = rng.integers(-9, 11, S)[:, None]
+    x[:, :, 2] = np.arange(S)[:, None]
+    x[:, :, 3:5] = rng.integers(0, 2, (S, 1, 2))
+    x[:, :, 5] = rng.integers(0, 2, (S, T))
+    valid = np.ones((S, T))
+    valid[S - 2, T // 2:] = 0.0
+    valid[S - 1] = 0.0
+    x = x * valid[:, :, None]
+    rows = x.reshape(-1, Q)[valid.reshape(-1) > 0]
+    zt = np.stack([rows[rng.choice(len(rows), M)] for _ in range(L)])
+    zt[:, :, 0] += rng.uniform(-0.5, 0.5, (L, M))
+    R = rng.standard_normal((L, M, M))
+    return dict(spec0=spec0, spec1=spec1, k0=k0, k1=k1, x=x, valid=valid,
+                zt=zt, m=0.01 * rng.standard_normal((L, M, 1)),
+                H=R @ R.transpose(0, 2, 1) / 100.0 + 0.01 * np.eye(M),
+                mu=rng.standard_normal((S, T, L)) * valid[:, :, None],
+                logv=0.3 * rng.standard_normal((S, T, L)) * valid[:, :, None],
+                noise=np.ones(L))
+
+
+_HLAX = {}
+
+
+def _hlax_bound(M, T):
+    """hlax's (kld, grad_m, grad_H, iH) of ``_setup(M, T)``, once a case."""
+    if (M, T) not in _HLAX:
+        s = _setup(M, T, seed=M + T)
+        j = jnp.asarray
+        jp = lambda ps: [{k: j(v) for k, v in p.items()} for p in ps]
+        out = jelbo.kld_upper_bound(
+            s["spec0"], jp(s["k0"]), s["spec1"], jp(s["k1"]), j(s["noise"]),
+            j(s["m"]), j(s["H"]), j(s["zt"]), j(s["x"]), j(s["valid"]),
+            j(s["mu"]), j(s["logv"]), P_TOT, N_TOT, EPS,
+            natural_gradient=True, use_pallas_chol=True)
+        _HLAX[(M, T)] = (s, [np.asarray(o) for o in out])
+    return _HLAX[(M, T)]
+
+
+def _port_bound(s, dtype=torch.float64, nat_dtype=None, eps=EPS):
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    tp = lambda ps: [{k: t(v) for k, v in p.items()} for p in ps]
+    t0, t1 = tk.build_kernel_specs(*SPEC_ARGS)
+    with torch.no_grad():
+        return telbo.kld_upper_bound(
+            t0, tp(s["k0"]), t1, tp(s["k1"]), t(s["noise"]), t(s["m"]),
+            t(s["H"]), t(s["zt"]), t(s["x"]), t(s["valid"]), t(s["mu"]),
+            t(s["logv"]), P_TOT, N_TOT, eps, natural_gradient=True,
+            nat_grad_dtype=nat_dtype, use_pallas_chol=True)
+
+
+def _c_params():
+    """{entry: number of parameters} of csrc/natgrad.cu's C entries."""
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                         CSRC.read_text()):
+        out[m.group(1)] = len([p for p in m.group(2).split(",") if p.strip()])
+    return out
+
+
+def _emulate(calls):
+    """A ``_launch`` that records each launch (its entry, its arguments)
+    after checking the count against the C entry's (the stream last), and
+    does the kernel's work by its plain version on the arguments."""
+    params = _c_params()
+
+    def launch(entry, like, *args):
+        assert len(args) + 1 == params[entry], (entry, len(args))
+        calls.append((entry, like, args))
+        if entry == "natgrad_fwd_subjects":
+            _, _, iB, iBmu, mu, valid, K0xz, out = args[:8]
+            if iBmu is None:
+                got = ng.fwd_subjects_plain(iB, mu, valid, K0xz, out.dtype)
+            else:
+                got = torch.einsum("lstm,lst->lm", K0xz, iBmu)[:, :, None]
+            out.copy_(got)
+        elif entry == "natgrad_fwd_latents":
+            X, iK, iH, ngp, m, gm, gH = args[2:9]
+            for o, v in zip((gm, gH), ng.latents_plain(X, iK, iH, ngp, m)):
+                o.copy_(v)
+        elif entry == "natgrad_update_pre":
+            iH, gH, gm, m, iHn, rhs = args[2:8]
+            lr, jitter = args[11:13]
+            for o, v in zip((iHn, rhs), ng.update_pre_plain(iH, gH, gm, m,
+                                                            lr, jitter)):
+                o.copy_(v)
+        else:
+            iLA, rhs, m_out, H_out = args[2:6]
+            for o, v in zip((m_out, H_out), ng.update_finish_plain(
+                    iLA, rhs, m_out.dtype)):
+                o.copy_(v)
+
+    return launch
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """The wrappers' kernel path on CPU tensors: every launch recorded
+    (``_emulate``); yields the list of (entry, like, args)."""
+    calls = []
+    monkeypatch.setattr(ng, "_on_card", lambda t: True)
+    monkeypatch.setattr(ng, "_launch", _emulate(calls))
+    yield calls
+
+
+def _hold(got, want, rtol, atol_rel):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol,
+                               atol=atol_rel * np.abs(want).max())
+
+
+@pytest.mark.parametrize("path", ["plain", "kernels"])
+@pytest.mark.parametrize("M, T", BOUND_CASES)
+def test_bound_quantities_match_hlax(request, M, T, path):
+    """kld_upper_bound's grad_m, grad_H and iH (and the bound) against
+    hlax's, through the plain versions or the kernel path (K5, cuBLAS's
+    whitened Gram and triple product, K6: two launches)."""
+    s, (kld_j, gm_j, gH_j, iH_j) = _hlax_bound(M, T)
+    calls = request.getfixturevalue("card") if path == "kernels" else None
+    kld, gm, gH, iH = _port_bound(s)
+    if calls is not None:
+        assert [c[0] for c in calls] == ["natgrad_fwd_subjects",
+                                         "natgrad_fwd_latents"]
+        iB, iBmu = calls[0][2][2:4]
+        assert (iB is None) == (T > ng.TP) == (iBmu is not None)
+    # the bound itself at test_torch_pivot_floor.py's bar for the canonical
+    # conditioning (K0zz's condition number carries the factorizations'
+    # rounding into it: 5e-8 at M = 120)
+    np.testing.assert_allclose(kld.item(), float(kld_j), rtol=1e-7)
+    for got, want in ((gm, gm_j), (gH, gH_j), (iH, iH_j)):
+        _hold(got, want, 1e-6, 1e-8)
+
+
+def _update_inputs(M, seed):
+    s = _setup(M, 5, seed)
+    rng = np.random.default_rng(seed + 100)
+    gHs = rng.standard_normal((L, M, M)) / 10.0
+    return (s["m"], s["H"], rng.standard_normal((L, M, 1)),
+            0.4 * (gHs + gHs.transpose(0, 2, 1)), np.linalg.inv(s["H"]))
+
+
+@pytest.mark.parametrize("path", ["plain", "kernels"])
+@pytest.mark.parametrize("with_ih, jitter", [(True, 0.0), (False, 0.0),
+                                             (True, 1e-3)])
+@pytest.mark.parametrize("M", [16, 30, 120])
+def test_update_matches_hlax(request, M, with_ih, jitter, path):
+    """natural_gradient_update (K7, the inverse factor, K8: two launches)
+    against hlax's on the same inputs, with and without iH and jitter; on
+    the kernel path written into the given (m, H) in place."""
+    m, H, gm, gH, iH = _update_inputs(M, seed=M)
+    j = jnp.asarray
+    m_j, H_j = jelbo.natural_gradient_update(
+        j(m), j(H), j(gm), j(gH), LR, iH=j(iH) if with_ih else None,
+        jitter=jitter)
+    calls = request.getfixturevalue("card") if path == "kernels" else None
+    t = torch.tensor
+    out = (t(m), t(H))
+    m_t, H_t = telbo.natural_gradient_update(
+        t(m), t(H), t(gm), t(gH), LR, iH=t(iH) if with_ih else None,
+        jitter=jitter, out=out)
+    assert m_t is out[0] and H_t is out[1]
+    if calls is not None:
+        assert [c[0] for c in calls] == ["natgrad_update_pre",
+                                         "natgrad_update_finish"]
+        assert calls[1][2][4] is out[0] and calls[1][2][5] is out[1]
+        assert calls[0][2][-1] == jitter
+    np.testing.assert_allclose(H_t.numpy(), np.asarray(H_j), rtol=1e-8,
+                               atol=1e-10)
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), rtol=1e-8,
+                               atol=1e-10)
+
+
+def _f32_setup(seed):
+    """test_torch_natgrad64.py's well-conditioned float32 case (M = 8,
+    jitter 0.5, H = Hh Hh^T + 0.5 I) in this file's layout."""
+    s = _setup(8, 5, seed)
+    Hh = np.random.default_rng(seed).standard_normal((L, 8, 8)) / 3.0
+    s["H"] = Hh @ Hh.transpose(0, 2, 1) + 0.5 * np.eye(8)
+    s = {k: (np.asarray(v, np.float32) if isinstance(v, np.ndarray) else v)
+         for k, v in s.items()}
+    for k in ("k0", "k1"):
+        s[k] = [{n: np.asarray(v, np.float32) for n, v in p.items()}
+                for p in s[k]]
+    return s
+
+
+@pytest.mark.parametrize("path", ["plain", "kernels"])
+def test_float64_chain_on_float32_inputs_matches_hlax(request, path):
+    """nat_grad_dtype=float64 on a float32 bound and state: K5 reads float32
+    and writes a float64 ng_P1, K6-K8 run in float64 and K8 casts to the
+    float32 state; grad_m, grad_H, iH and the update within 1e-6 of hlax's
+    (the float32 inputs' bar, ``test_torch_natgrad64.py``)."""
+    s, eps = _f32_setup(4), 0.5
+    j = jnp.asarray
+    jp = lambda ps: [{k: j(v) for k, v in p.items()} for p in ps]
+    _, gm_j, gH_j, iH_j = jelbo.kld_upper_bound(
+        s["spec0"], jp(s["k0"]), s["spec1"], jp(s["k1"]), j(s["noise"]),
+        j(s["m"]), j(s["H"]), j(s["zt"]), j(s["x"]), j(s["valid"]),
+        j(s["mu"]), j(s["logv"]), P_TOT, N_TOT, eps, natural_gradient=True,
+        use_pallas_chol=True, nat_grad_dtype=jnp.float64)
+    calls = request.getfixturevalue("card") if path == "kernels" else None
+    _, gm, gH, iH = _port_bound(s, torch.float32, torch.float64, eps)
+    m_j, H_j = jelbo.natural_gradient_update(j(s["m"]), j(s["H"]), gm_j,
+                                             gH_j, LR, iH=iH_j)
+    m_t, H_t = telbo.natural_gradient_update(
+        torch.tensor(s["m"]), torch.tensor(s["H"]), gm, gH, LR, iH=iH)
+    assert gm.dtype == gH.dtype == iH.dtype == torch.float64
+    assert m_t.dtype == H_t.dtype == torch.float32
+    if calls is not None:
+        z = [(c[0], c[2][0], c[2][1]) for c in calls]
+        assert z == [("natgrad_fwd_subjects", 4, 8),
+                     ("natgrad_fwd_latents", 8, 4),
+                     ("natgrad_update_pre", 8, 4),
+                     ("natgrad_update_finish", 8, 4)]
+    for got, want in ((gm, gm_j), (gH, gH_j), (iH, iH_j), (m_t, m_j),
+                      (H_t, H_j)):
+        _hold(got, want, 1e-6, 1e-6)
+
+
+def test_wrappers_dispatch():
+    """A CPU tensor takes the plain version and counts nothing; a card's
+    tensor in another dtype (bfloat16), or a pair of dtypes no kernel
+    compiles, takes it and is counted in PLAIN_CUDA_CALLS."""
+    ng.reset_counters()
+    x = torch.zeros((2, 8, 8))
+    assert not ng._takes("natgrad_fwd_latents", x)
+    assert not any(ng.PLAIN_CUDA_CALLS.values())
+    orig = ng._on_card
+    ng._on_card = lambda t: True
+    try:
+        assert ng._takes("natgrad_fwd_latents", x)
+        assert ng._takes("natgrad_fwd_latents", x.double(), other=x.dtype,
+                         mixed=ng.MIXED_LATENTS)
+        assert not ng._takes("natgrad_fwd_latents", x, other=torch.float64,
+                             mixed=ng.MIXED_LATENTS)
+        assert not ng._takes("natgrad_update_pre", x.bfloat16())
+        assert not ng._takes("natgrad_update_finish", x, x.double())
+    finally:
+        ng._on_card = orig
+    assert ng.PLAIN_CUDA_CALLS == {"natgrad_fwd_subjects_plain": 0,
+                                   "natgrad_fwd_latents_plain": 1,
+                                   "natgrad_update_pre_plain": 1,
+                                   "natgrad_update_finish_plain": 1}
+    assert not any(ng.LAUNCHES.values())
+    ng.reset_counters()
+
+
+def test_wrappers_launch_the_c_entries(card):
+    """Each wrapper's launch: its C entry's parameter count (``card``), the
+    itemsizes, the plan's rows and K8's shared bytes; K5 reading a mesh's
+    slice of mu at its row stride, and iB mu from cuBLAS past TP rows; K8
+    writing the given (m, H), which must be contiguous in the state's
+    dtype."""
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
+    Ls, M = 3, 37
+    plan = ng.strip_plan(Ls, M, 8, ng.fusion.GP_SMS)
+    for T in (5, 40):
+        mu_all = r(S, T, 2 * Ls)
+        mu = mu_all[..., Ls:]                 # a mesh rank's latents
+        ng.fwd_subjects(r(Ls, S, T, T), mu, torch.ones(S, T).double(),
+                        r(Ls, S, T, M), torch.float64)
+        args = card[-1][2]
+        assert args[:2] == (8, 8) and args[4].data_ptr() == mu.data_ptr()
+        assert args[-5:] == (Ls, S, T, M, 2 * Ls)
+        assert (args[2] is None) == (T > ng.TP)
+        if T > ng.TP:
+            assert args[3].shape == (Ls, S, T)
+    X, iK, iH = r(Ls, M, M), r(Ls, M, M), r(Ls, M, M)
+    ng.latents(X, iK, iH, r(Ls, M, 1), r(Ls, M, 1).float())
+    assert card[-1][2][:2] == (8, 4)
+    assert card[-1][2][-3:] == (Ls, M, plan.rows)
+    ng.update_pre(iH, X, r(Ls, M, 1), r(Ls, M, 1), 0.01, 1e-3)
+    assert card[-1][2][-5:] == (Ls, M, plan.rows, 0.01, 1e-3)
+    iLA = torch.linalg.cholesky(X @ X.mT + M * torch.eye(M, dtype=X.dtype))
+    for out in ((torch.empty(Ls, M, 1), torch.empty(Ls, M, M)), None):
+        got = ng.update_finish(iLA, r(Ls, M, 1), torch.float32, out)
+        args = card[-1][2]
+        assert args[:2] == (8, 4)
+        assert args[-5:] == (Ls, M, plan.rows, plan.chunk, plan.smem_finish)
+        assert args[4] is got[0] and args[5] is got[1]
+        if out is not None:
+            assert got[0] is out[0] and got[1] is out[1]
+    with pytest.raises(ValueError, match="contiguous"):
+        ng.update_finish(iLA, r(Ls, M, 1), torch.float32,
+                         (torch.empty(Ls, M, 1), torch.empty(Ls, M, M).mT))
+
+
+def test_strip_plan_and_k5_grid_take_every_entry_once():
+    """K6-K8's blocks cover every (latent, row) of the [M, M] matrices once
+    and every column a thread; the plan gives each SM a block where one
+    row a strip can; K5's blocks every (latent, column) once."""
+    for L_, M in ((32, 120), (16, 120), (3, 37), (1, 1), (4, 512), (2, 33)):
+        for sms in (132, 114):
+            p = ng.strip_plan(L_, M, 4, sms)
+            assert 1 <= p.rows <= ng.RMAX and p.strips == -(-M // p.rows)
+            assert p.blocks == L_ * p.strips
+            assert p.blocks >= sms or p.rows == 1
+            assert p.rows == ng.RMAX or L_ * -(-M // (2 * p.rows)) < sms
+            assert p.threads % 32 == 0 and M <= p.threads <= ng.MAX_M
+            seen = np.zeros((L_, M), int)
+            for lat in range(L_):
+                for b in range(p.strips):
+                    seen[lat, b * p.rows:min(M, (b + 1) * p.rows)] += 1
+            assert (seen == 1).all()
+            cols = np.zeros((L_, M), int)       # K5: (32 columns, latent)
+            for lat in range(L_):
+                for c in range(-(-M // ng.COLS)):
+                    for lane in range(ng.COLS):
+                        if c * ng.COLS + lane < M:
+                            cols[lat, c * ng.COLS + lane] += 1
+            assert (cols == 1).all()
+    with pytest.raises(ValueError):
+        ng.strip_plan(2, ng.MAX_M + 1, 4, 132)
+
+
+def _finish_walk(M, R, KC):
+    """The k of each product K8 sums into H_new[i, j], in order: block
+    (strip i0), chunks of KC rows from i0, thread j walking a chunk's rows
+    from its warp's first column on, row i0 + r taking those with k >= i0 +
+    r, its products with k < j exact zeros (not recorded)
+    (``natgrad_update_finish_kernel``)."""
+    order = {}
+    for i0 in range(0, M, R):
+        rows = min(R, M - i0)
+        for k0 in range(i0, M, KC):
+            for j in range(M):
+                for k in range(max(k0, j - j % 32), min(M, k0 + KC)):
+                    for r in range(rows):
+                        if k >= i0 + r and k >= j:
+                            order.setdefault((i0 + r, j), []).append(k)
+    return order
+
+
+@pytest.mark.parametrize("M, R, KC", [(37, 8, 32), (120, 8, 16),
+                                      (16, 2, 8), (5, 1, 32)])
+def test_finish_sums_each_entry_over_its_k_once(M, R, KC):
+    """K8's walk sums H_new[i, j] over k = max(i, j) .. M - 1 once each,
+    ascending, and H_new[j, i] over the same k in the same order (so H_new
+    is exactly symmetric, the exact zeros it adds aside); its shared bytes,
+    two chunks of iLA's rows, a float chunk widened and the block sums, are
+    within 227 KB in both dtypes up to MAX_M."""
+    order = _finish_walk(M, R, KC)
+    assert len(order) == M * M
+    for (i, j), ks in order.items():
+        assert ks == list(range(max(i, j), M))
+        assert ks == order[(j, i)]
+    for z in (4, 8):
+        for m in (M, 300, ng.MAX_M):
+            p = ng.strip_plan(2, m, z, 132)
+            assert p.threads <= ng.MAX_M
+            assert p.smem_finish == ng.finish_smem(m, p.chunk, z)
+            assert p.smem_finish + ng.FINISH_STATIC <= ng.SMEM_MAX
+            assert p.chunk == ng.CHUNK or ng.finish_smem(
+                m, 2 * p.chunk, z) > ng.FINISH_BUDGET
+
+
+def test_constants_match_the_kernels():
+    """The wrapper's constants are csrc/natgrad.cu's, and its four kernels
+    its C entries."""
+    src = CSRC.read_text()
+    for name, value in (("NT", ng.THREADS), ("CW", ng.COLS),
+                        ("VROWS", ng.VROWS), ("TP", ng.TP),
+                        ("RMAX", ng.RMAX), ("MAX_M", ng.MAX_M)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert sorted(_c_params()) == sorted(ng.KERNELS)
+    assert sorted(ng.LAUNCHES) == sorted(f"{k}_cuda" for k in ng.KERNELS)
+    assert ("return finish_raw(M, KC, z) + (z == 4 ? KC * M * 8 : 0) + RMAX "
+            "* 8;") in src
+    assert "return (2 * KC * M * z + 15) / 16 * 16;" in src
+    assert src.count("__launch_bounds__(MAX_M)") == 3
+    assert "__launch_bounds__(NT)" in src
+    # K5's static shared memory (iB mu's stage and the warps' partials)
+    assert (ng.VROWS + ng.THREADS // 32 * ng.COLS) * 8 <= 48 * 1024
