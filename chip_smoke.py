@@ -129,7 +129,14 @@ Phases (each prints its own lines; any failure exits non-zero):
              plain version at the same bars, with and without K7's
              jitter, K8's H_new exactly symmetric, each launch timed warm
              and L2-cold beside its bound and its plain version (the
-             canonical shape's rows in the kernel table); the bound's
+             canonical shape's rows in the kernel table), K8 also beside
+             torch.bmm(iLA.mT, iLA) (its library_ms) and in its two
+             launch layouts (a cluster of blocks a latent, one block a
+             latent) in turns; with parent/, its natgrad.cu built into
+             build/parent/natgrad/ and its K5 and K8, through its own
+             wrapper, against the change's at the canonical batch in
+             float32 and float64 in turns (the output entries that differ
+             from the parent's counted); the bound's
              subject kernels swept over
              the subjects a launch takes (ms against 20..640 subjects at
              [32, 20, 20, 120] and 4..128 at [32, 4, 200, 120], float32
@@ -190,7 +197,10 @@ Phases (each prints its own lines; any failure exits non-zero):
              graph state restored into a third state takes the same next 10
              steps.  Then steps/s of the eager path and the graph path
              (--scan_unroll 1 and 10, and 10 pregathered) in alternating
-             rounds, and the graph path's device time and idle share under
+             rounds, the float32 graph step with K8's plain version
+             (cuBLAS's product) captured in K8's place in turns with K8's
+             (a switch of this script, not of the program), and the graph
+             path's device time and idle share under
              torch.profiler, by region as the eager steps' profile splits
              each kernel name; the eager profile prints each fused
              kernel's device ms and launches a step (FUSED_FOCUS) and every
@@ -3123,7 +3133,8 @@ def _natgrad_cost(entry, args):
     triangle, the one the function needs), and its multiply-adds as two
     (K5 K0xz^T times iB mu, and iB mu itself unless cuBLAS made it; K6 and
     K7 a few an entry of the [M, M] matrices and their row sums; K8 the
-    triangle's products, M^3 / 3 multiply-adds a latent, and m_new)."""
+    lower triangle's products, M^3 / 6 multiply-adds a latent (H_new is
+    symmetric), and m_new)."""
     n = 0
     for i, a in enumerate(args):
         if not torch.is_tensor(a):
@@ -3144,7 +3155,7 @@ def _natgrad_cost(entry, args):
         return n, 9 * L * M * M
     if entry == "natgrad_update_pre":
         return n, 7 * L * M * M
-    return n, L * (2 * M ** 3 // 3 + 2 * M * M)
+    return n, L * (M ** 3 // 3 + 2 * M * M)
 
 
 def _natgrad_fusion(shape, dtype, chain=None, rows: bool = True):
@@ -3182,17 +3193,8 @@ def _natgrad_fusion(shape, dtype, chain=None, rows: bool = True):
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (against {'float64' if ref_case else 'the plain version'}); "
           "H_new exactly symmetric", flush=True)
-    calls, orig = [], ng._launch
-
-    def record(entry, like, *args):
-        calls.append((entry, like, args))
-        orig(entry, like, *args)
-
-    ng._launch = record
-    try:
-        natgrad_run(case, True)
-    finally:
-        ng._launch = orig
+    calls = _launches_of(ng, lambda: natgrad_run(case, True))
+    orig = ng._launch
     plains = {
         "natgrad_fwd_subjects": lambda: ng.fwd_subjects_plain(
             *case["subjects"], case["chain"]),
@@ -3201,11 +3203,16 @@ def _natgrad_fusion(shape, dtype, chain=None, rows: bool = True):
             *case["pre"], NATGRAD_LR, 0.0),
         "natgrad_update_finish": lambda: ng.update_finish_plain(
             *case["finish"], case["state"])}
+    # the one PyTorch call of K8's product (its yardstick; no call computes
+    # the other three's functions)
+    iLA = case["finish"][0]
+    library = {"natgrad_update_finish": lambda: torch.bmm(iLA.mT, iLA)}
     out = []
     for entry, like, args in calls:
         ms, wall = time_ms(lambda: orig(entry, like, *args))
         cold = time_cold_ms(lambda: orig(entry, like, *args))
         plain_ms = time_ms(plains[entry], reps=20)[0]
+        lib_ms = (time_ms(library[entry])[0] if entry in library else None)
         nbytes, ops = _natgrad_cost(entry, args)
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_FLOPS[like.dtype] * 1e3
@@ -3215,15 +3222,19 @@ def _natgrad_fusion(shape, dtype, chain=None, rows: bool = True):
               f"ms, L2-cold {cold:.4f} ms ({wall:.4f} ms a call on the host "
               f"clock), its plain version {plain_ms:.4f} ms, bound "
               f"{bound:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
-              f"{ops / 1e6:.2f} MFLOP), kernel / bound {ms / bound:.2f} on "
-              f"{card_line()}", flush=True)
+              f"{ops / 1e6:.2f} MFLOP), kernel / bound {ms / bound:.2f}"
+              + ("" if lib_ms is None else
+                 f", torch.bmm(iLA.mT, iLA) {lib_ms:.4f} ms")
+              + f" on {card_line()}", flush=True)
         out.append(dict(
             name=f"{entry}_cuda", shape=list(like.shape),
             dtype=str(like.dtype).removeprefix("torch."), route="cuda",
             source="hlax_torch/csrc/natgrad.cu",
             replaces=NATGRAD_REPLACES[entry], launches=0,
             max_abs_err=errs[entry], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None))
+            bound_ms=bound, bound_by=by, library_ms=lib_ms))
+        if entry == "natgrad_update_finish" and shape == NATGRAD_CASES[0][0]:
+            natgrad_finish_layouts(like, args, tag)
     ng._COUNTERS.take_since(before)
     return out if rows else []
 
@@ -3239,6 +3250,110 @@ NATGRAD_CASES = [((32, 20, 20, 120), torch.float32, None),
                  ((16, 10, 20, 120), torch.float32, None)]
 
 
+def natgrad_finish_layouts(like, args, tag: str) -> None:
+    """K8's two launch layouts on one recorded launch's inputs (``args``,
+    its C entry's): a cluster of the latent's row tiles' blocks
+    (``finish_plan(cluster=True)``) against one block a latent, each into
+    outputs of its own, in turns (cluster, one block, one block, cluster)
+    warm and L2-cold; the entries of m_new and H_new where they differ."""
+    from hlax_torch.ops import natgrad as ng
+
+    L, M = args[6:8]
+    outs, runs = {}, {}
+    for layout in (True, False):
+        p = ng.finish_plan(L, M, args[0], ng._sms(like), layout)
+        m, H = torch.empty_like(args[4]), torch.empty_like(args[5])
+        a = args[:4] + (m, H, L, M, p.cluster, p.warps, p.chunk, p.smem)
+        runs[layout] = (lambda a=a: ng._launch("natgrad_update_finish", like,
+                                               *a))
+        runs[layout]()
+        outs[layout] = (m, H)
+    torch.cuda.synchronize()
+    diff = [int((x != y).sum()) for x, y in zip(outs[True], outs[False])]
+    ms = {True: [], False: []}
+    for layout in (True, False, False, True):
+        ms[layout].append((time_ms(runs[layout])[0],
+                           time_cold_ms(runs[layout])))
+    name = {True: "cluster", False: "one block a latent"}
+    print(f"[fusion] natgrad_update_finish layouts {tag}: "
+          + "; ".join(f"{name[k]} warm " + ", ".join(f"{t[0]:.5f}"
+                                                     for t in ms[k])
+                      + " ms, L2-cold " + ", ".join(f"{t[1]:.5f}"
+                                                    for t in ms[k]) + " ms"
+                      for k in (True, False))
+          + " (turns cluster, one block, one block, cluster; the plan's: "
+          f"cluster); entries that differ m_new {diff[0]}, "
+          f"H_new {diff[1]} on {card_line()}", flush=True)
+
+
+# the redesigned natural-gradient kernels the parent comparison takes, and
+# the outputs of each by argument of its C entry
+NATGRAD_PARENT_OUTS = {"natgrad_fwd_subjects": {7: "ng_P1"},
+                       "natgrad_update_finish": {4: "m_new", 5: "H_new"}}
+
+
+def natgrad_against_parent() -> None:
+    """The parent tree's K5 and K8 (its csrc/natgrad.cu built into
+    build/parent/natgrad/, through its own wrapper) against the change's
+    at the canonical batch in float32 and float64 (``natgrad_case``'s
+    state): the output entries that differ from the parent's (and the
+    largest difference against the largest entry); each launch timed
+    alone, L2-warm and -cold, in turns parent, change, change, parent.
+    Prints that it did not run without parent/."""
+    from hlax_torch.ops import cuda_build
+    from hlax_torch.ops import natgrad as ng
+
+    if not os.path.isfile(os.path.join(PARENT_CSRC, "natgrad.cu")):
+        print("[fusion] natgrad parent against change: not measured (no "
+              f"{PARENT_CSRC}/natgrad.cu)", flush=True)
+        return
+    if parent_same("hlax_torch/csrc/natgrad.cu",
+                   "hlax_torch/ops/natgrad.py"):
+        print("[fusion] natgrad parent against change: not measured (the "
+              "parent's natgrad.cu and ops/natgrad.py are this tree's)",
+              flush=True)
+        return
+    pn, _, _ = tree_ops(PARENT_ROOT, "natgrad", os.path.join(
+        cuda_build.BUILD_DIR, "parent", "natgrad"))
+    for shape, dtype, chain in NATGRAD_CASES[:2]:
+        case = natgrad_case(*shape, dtype, chain)
+        tag = f"{list(shape)} {str(dtype).removeprefix('torch.')}"
+        calls = {}
+        for who, mod in (("parent", pn), ("change", ng)):
+            calls[who] = {e: (like, args) for e, like, args in _launches_of(
+                mod, lambda: (mod.fwd_subjects(*case["subjects"],
+                                               case["chain"]),
+                              mod.update_finish(*case["finish"],
+                                                case["state"])))}
+        torch.cuda.synchronize()
+        for entry, outs in NATGRAD_PARENT_OUTS.items():
+            diffs = []
+            for i, name in outs.items():
+                a = calls["parent"][entry][1][i]
+                b = calls["change"][entry][1][i]
+                n = int((a != b).sum())
+                rel = ((a.double() - b.double()).abs().max()
+                       / b.double().abs().max()).item()
+                diffs.append(f"{name} {n} of {b.numel()} entries differ "
+                             f"(largest {rel:.3e} of the largest entry)")
+            ms = {"parent": [], "change": []}
+            for who in ("parent", "change", "change", "parent"):
+                mod = pn if who == "parent" else ng
+                like, args = calls[who][entry]
+                run = lambda: mod._launch(entry, like, *args)
+                ms[who].append((time_ms(run)[0], time_cold_ms(run)))
+            turns = (("parent", 0), ("change", 0), ("change", 1),
+                     ("parent", 1))
+            print(f"[fusion] parent against change {entry} {tag}: warm "
+                  + ", ".join(f"{w} {ms[w][j][0]:.5f}" for w, j in turns)
+                  + " ms; L2-cold "
+                  + ", ".join(f"{w} {ms[w][j][1]:.5f}" for w, j in turns)
+                  + " ms (turns parent, change, change, parent); "
+                  + "; ".join(diffs) + f" on {card_line()}", flush=True)
+        del case, calls
+        torch.cuda.empty_cache()
+
+
 def natgrad_fusion() -> list:
     """``_natgrad_fusion`` at each of NATGRAD_CASES; the rows of the
     canonical shape in one dtype."""
@@ -3251,10 +3366,10 @@ def natgrad_fusion() -> list:
     return rows
 
 
-def tree_gp_bound(tree: str, out_dir: str, defines=(), src=None):
-    """The KL bound's wrapper of the tree at ``tree`` (its
-    hlax_torch/ops/gp_bound.py) as a module of its own on the tree's
-    csrc/gp_bound.cu (or ``src``), built with the current flags (and
+def tree_ops(tree: str, name: str, out_dir: str, defines=(), src=None):
+    """The kernel wrapper ``name`` of the tree at ``tree`` (its
+    hlax_torch/ops/<name>.py) as a module of its own on the tree's
+    csrc/<name>.cu (or ``src``), built with the current flags (and
     ``defines``, -D) into ``out_dir``: its launches counted in counters of
     its own, through this tree's ``fusion.launch`` with that library.
     Returns (the module, the library, ptxas's log)."""
@@ -3264,12 +3379,12 @@ def tree_gp_bound(tree: str, out_dir: str, defines=(), src=None):
 
     from hlax_torch.ops import cuda_build, fusion
 
-    src = src or os.path.join(tree, "hlax_torch", "csrc", "gp_bound.cu")
-    py = os.path.join(tree, "hlax_torch", "ops", "gp_bound.py")
-    out = os.path.join(out_dir, "libgp_bound.so")
+    src = src or os.path.join(tree, "hlax_torch", "csrc", f"{name}.cu")
+    py = os.path.join(tree, "hlax_torch", "ops", f"{name}.py")
+    out = os.path.join(out_dir, f"lib{name}.so")
     os.makedirs(out_dir, exist_ok=True)
     res = subprocess.run([cuda_build._nvcc(),
-                          *cuda_build.nvcc_flags("gp_bound"),
+                          *cuda_build.nvcc_flags(name),
                           *(f"-D{d}" for d in defines), "-o", out, src],
                          capture_output=True, text=True)
     if res.returncode:
@@ -3290,30 +3405,36 @@ def tree_gp_bound(tree: str, out_dir: str, defines=(), src=None):
                               if not k.startswith("__")})
     shim.launch = launch
     spec = importlib.util.spec_from_file_location(
-        f"gp_bound_{abs(hash(out))}", py)
+        f"{name}_{abs(hash(out))}", py)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.fusion = shim
     return mod, lib, res.stdout + res.stderr
 
 
-def bound_launches(gb, case, need_hm=False):
-    """The launches (entry, like, args) of one forward and backward of the
-    bound through the wrapper module ``gb`` (not counted)."""
-    calls, orig = [], gb._launch
+def _launches_of(mod, fn):
+    """The launches (entry, like, args) ``fn`` makes through the wrapper
+    module ``mod`` (done, not counted)."""
+    calls, orig = [], mod._launch
 
     def record(entry, like, *args):
         calls.append((entry, like, args))
         orig(entry, like, *args)
 
-    before = gb._COUNTERS.snapshot()
-    gb._launch = record
+    before = mod._COUNTERS.snapshot()
+    mod._launch = record
     try:
-        _gp_bound_run(True, case, need_hm, gb=gb)
+        fn()
     finally:
-        gb._launch = orig
-    gb._COUNTERS.take_since(before)
+        mod._launch = orig
+    mod._COUNTERS.take_since(before)
     return calls
+
+
+def bound_launches(gb, case, need_hm=False):
+    """The launches (entry, like, args) of one forward and backward of the
+    bound through the wrapper module ``gb`` (not counted)."""
+    return _launches_of(gb, lambda: _gp_bound_run(True, case, need_hm, gb=gb))
 
 
 # the latents a launch takes in the subject kernels' sweep: 20 to 640
@@ -3411,7 +3532,7 @@ def gp_bound_against_parent() -> None:
               "parent's gp_bound.cu and ops/gp_bound.py are this tree's)",
               flush=True)
         return
-    pg, _, _ = tree_gp_bound(PARENT_ROOT, os.path.join(
+    pg, _, _ = tree_ops(PARENT_ROOT, "gp_bound", os.path.join(
         cuda_build.BUILD_DIR, "parent", "gp_bound"))
     slower, canonical = [], []
     for dtype in (torch.float32, torch.float64):
@@ -4166,6 +4287,7 @@ def phase_fusion(data_dir: str, tmp: str):
     rows += natgrad_fusion()
     gp_bound_sweeps()
     gp_bound_against_parent()
+    natgrad_against_parent()
     phase_pallas_chol_false(data_dir, tmp)
     return rows
 
@@ -4394,6 +4516,48 @@ def reference_seeds() -> None:
               f"{card_line()}", flush=True)
 
 
+def _plain_update_finish(iLA, rhs, dtype, out=None):
+    """K8's plain version (cuBLAS's product and m_new's, the casts) in
+    ``natgrad.update_finish``'s place: [graph]'s yardstick, never the
+    program's."""
+    from hlax_torch.ops import natgrad
+
+    m_new, H_new = natgrad.update_finish_plain(iLA, rhs, dtype)
+    if out is None:
+        return m_new, H_new
+    out[0].copy_(m_new)
+    out[1].copy_(H_new)
+    return out
+
+
+def _k8_plain_turns(state, spec0, spec1, cfg, staged, idx, kernel_run):
+    """The canonical float32 graph step (unroll 10) with K8 against the same
+    step captured with its plain version in K8's place (``natgrad.
+    update_finish`` swapped for ``_plain_update_finish`` while its graphs
+    are captured), in turns kernel, plain, plain, kernel of 3 epochs."""
+    from hlax_torch.ops import natgrad
+    from hlax_torch.train import step as tstep
+
+    saved = natgrad.update_finish
+    natgrad.update_finish = _plain_update_finish
+    try:
+        fn = tstep.make_train_epoch(state.vae, spec0, spec1, cfg, unroll=10)
+        fn(state, staged, idx)
+        fn(state, staged, idx)
+    finally:
+        natgrad.update_finish = saved
+    turns = {"K8": kernel_run, "plain": lambda: fn(state, staged, idx)}
+    rates = {k: [] for k in turns}
+    for k in ("K8", "plain", "plain", "K8"):
+        rates[k].append(_time_epochs(turns[k], 3))
+    print("[graph] graph unroll 10, float32, K8 against its plain version "
+          "(cuBLAS's product) in its place: steps/s "
+          + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in r)
+                      for k, r in rates.items())
+          + f" (turns K8, plain, plain, K8 of 3 epochs) on {card_line()}",
+          flush=True)
+
+
 def phase_graph(data_dir: str, tmp: str) -> None:
     """The CUDA graphs of ``make_train_epoch`` against the eager steps on
     the canonical config (``_graph_check``), in float64 and float32 with
@@ -4402,7 +4566,9 @@ def phase_graph(data_dir: str, tmp: str) -> None:
     default ones, whose weight gradients sum with atomics); then, in float32,
     steps/s of the eager path and of the graph path (unroll 1 and 10, and
     10 with the epoch pregathered), in alternating rounds of 3 epochs each,
-    and the graph path's device time and idle share under the profiler."""
+    the graph step with K8's plain version in its place in turns with K8's
+    (``_k8_plain_turns``), and the graph path's device time and idle share
+    under the profiler."""
     from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
     from hlax_torch.train import step as tstep
 
@@ -4446,6 +4612,8 @@ def phase_graph(data_dir: str, tmp: str) -> None:
         print(f"[graph] {name}: steps/s {', '.join(f'{x:.2f}' for x in r)} "
               f"(3 rounds of 3 epochs of {GRAPH_STEPS} steps, alternating) "
               f"on {card_line()}", flush=True)
+    _k8_plain_turns(b, spec0, spec1, cfg, staged, idx,
+                    paths["graph unroll 10"])
     eager, table = _profile_steps("graph eager", paths["eager"],
                                   3 * GRAPH_STEPS, calls=3, top=40,
                                   focus=FUSED_FOCUS)

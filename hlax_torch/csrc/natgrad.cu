@@ -32,67 +32,104 @@
 // double and float).
 //
 // What bounds them on an H100 at the canonical [L, S, T, M] = [32, 20, 20,
-// 120], float32: bytes.  K5 reads K0xz (6.1 MB), iB (1.0 MB), mu and valid
-// and writes ng_P1: ~2.1 us at 3.35 TB/s against 0.4 MFLOP a latent.  K6
-// reads X, iK and iH and writes grad_H (4 x 1.8 MB), K7 reads iH and
-// grad_H and writes iH_new (3 x 1.8 MB), K8 reads iLA and writes H_new (2
-// x 1.8 MB): 1.1-2.2 us each; K8's product, M^3 / 3 multiply-adds a latent
-// (18 MFLOP in all), is ~0.3 us at 67 TFLOP/s.  So each is a launch of a
-// few microseconds that replaces five to fifteen of the plain chain's, and
-// each is built to read its inputs once from device memory, coalesced, and
-// to need no pass or block after it:
-//   K5 takes a (32 columns, latent) a block, 128 blocks at the canonical
-//     shape, one an SM: a block of NT = 1024 threads (32 warps, so the lone
-//     block of an SM keeps enough loads in flight) stages iB mu of its
-//     latent's rows in shared memory (a thread a row; subjects longer than
-//     TP rows take it from cuBLAS), then each warp sums K0xz's rows times
-//     it, its lanes a row's 32 columns (128-byte reads), and the warps'
-//     partials are added in warp order.
-//   K6, K7 and K8 take a (strip of R rows, latent) a block, a thread a
-//     column of the [M, M] matrices (M <= MAX_M), so a row's reads and
-//     writes are coalesced, and the transposed entries a thread needs,
-//     X[j, i] and grad_H[j, i] for the strip's rows i, are R consecutive
-//     entries of its own column j's row.  Every row sum over j (grad_m,
-//     rhs, m_new) is the strip's own: a warp's butterfly, then the warps in
-//     order, in double.  R comes from the card's SM count (strip_plan,
+// 120], float32: bytes, and a launch's fixed cost.  K5 reads K0xz (6.1 MB),
+// iB (1.0 MB), mu and valid and writes ng_P1: ~2.1 us at 3.35 TB/s against
+// 0.4 MFLOP a latent.  K6 reads X, iK and iH and writes grad_H (4 x 1.8
+// MB), K7 reads iH and grad_H and writes iH_new (3 x 1.8 MB), K8 reads
+// iLA's lower triangle and writes H_new (1.5 x 1.8 MB): 0.8-2.2 us each;
+// K8's product, M^3 / 6 multiply-adds a latent (9 MFLOP in all), is ~0.3 us
+// on the FP64 tensor cores.  So each is a launch of a few microseconds
+// that replaces five to fifteen of the plain chain's, built to read its
+// inputs once from device memory and to need no pass or block after it:
+//   K5 splits a latent's S T rows over one thread-block cluster (the plan's
+//     cl blocks, subjects_plan: 3 at the canonical batch), a block a
+//     contiguous share of them.  At its start a block issues its rows' iB
+//     (one run) and then its rows of K0xz (one run of whole rows, 64 KB in
+//     float) as two bulk copies (Hopper's cp.async.bulk on mbarriers; the
+//     copies land in the order they are issued) and reads mu and valid;
+//     it makes iB mu of its rows (a thread a row, in double) while K0xz
+//     flies, so iB mu is made once a latent; then its threads, a column
+//     each in groups of rows, sum the rows' K0xz times iB mu from shared
+//     memory.  Each column's sum goes into the inbox of the block owning
+//     it (distributed shared memory), and after the cluster's one barrier
+//     the owner adds the blocks' sums in block order.  Rows past what
+//     shared memory holds go through a ring of two stages; subjects longer
+//     than TP rows take iB mu from cuBLAS.
+//   K6 and K7 take a (strip of R rows, latent) a block, a thread a column
+//     of the [M, M] matrices (M <= MAX_M), so a row's reads and writes are
+//     coalesced, and the transposed entries a thread needs, X[j, i] and
+//     grad_H[j, i] for the strip's rows i, are R consecutive entries of its
+//     own column j's row.  Every row sum over j (grad_m, rhs) is the
+//     strip's own: a warp's butterfly, then the warps in order, in double.
+//     R comes from the card's SM count (strip_plan,
 //     hlax_torch/ops/natgrad.py): the most rows, at most RMAX, that still
 //     give every SM a block.
-//   K8's H_new[i, j] = sum_k iLA[k, i] iLA[k, j] runs over k >= max(i, j)
-//     (iLA is lower triangular), k ascending, in double.  A block stages
-//     iLA's rows k >= i0 in shared memory, KC rows at a time in two
-//     buffers, the next chunk's bulk copies (cp.async, 16 bytes a copy) in
-//     flight while this one is summed; a chunk holds whole rows, so the
-//     strip's columns iLA[k, i] come from it too, one broadcast read a k
-//     (every lane of a warp walks the same k).  Both triangles are written,
-//     each entry from its own sum: H_new[j, i] takes the same products in
-//     the same order as H_new[i, j] (and exact zeros besides), so H_new is
-//     exactly symmetric.  m_new's row i is the strip's sum of H_new[i, j]
-//     rhs[j] over its columns, from H_new rounded to the chain's type as
-//     the plain version's is.  K8 reads neither m nor H, so it may write
-//     the state's (m, H) in place (K7 has read m before it).  Measured on
-//     the H100, a first form reading iLA[k, j] from device memory a k at a
-//     time was several times slower (each thread's walk a chain of round
-//     trips); staged in shared memory, with float chunks widened, one k a
-//     warp step and 16-row chunks, it is still about 1.6 times the plain
-//     version's cuBLAS product: its time follows its products, not its
-//     copies, and k-groups of threads, wider or narrower strips, other
-//     chunk sizes and register tiles of 4 columns a lane did not lower it
-//     (PERF.md).
+//   K8 sums each entry of H_new = iLA^T iLA once: only the tiles (I, J), I
+//     >= J, of 32 rows, over k >= 32 I (iLA is lower triangular; its
+//     entries above the diagonal and rows past M read as exact zeros),
+//     each tile as two tasks of 16 columns, on the FP64 tensor cores
+//     (mma.sync m16n8k8 f64: wgmma has no f64), float entries widened
+//     exactly to double on their way into the fragments.  Each entry is
+//     rounded to the chain's type once and written with its mirror from the
+//     same register, so H_new is exactly symmetric.  A latent's blocks are
+//     one cluster (finish_plan: 3 at the canonical shape), block c taking
+//     the row tiles I = c, c + cl, ...; where the latent's rows fit shared
+//     memory (M <= 128 in float and double, every path of the main
+//     program) a block stages its rows k >= 32 c by one bulk copy and
+//     splits its tasks' rows k over its spare warps (the row tiles with the
+//     longest parts first; the parts added in order), else it walks k
+//     through a ring of two stages of KC rows once a round of tasks.
+//     m_new = H_new rhs comes from the same registers, from H_new rounded
+//     to the chain's type: a task gives its rows H[I, J] rhs[J] and, below
+//     the diagonal, its columns H[I, J]^T rhs[I] (a butterfly each); the
+//     block adds them into its partial of each row in task order, pushes
+//     the partial into the inbox of the row's owner, and after the
+//     cluster's barrier the owner adds the blocks' partials in block order.
+//   Measured on the H100 (tools/natgrad_phases.py, chip_smoke.py; PERF.md),
+//   the forms before these spent their time elsewhere than their work: K5
+//   as a (32 columns, latent) block of 1024 threads made iB mu for all of
+//   its latent's rows (a thread a row at an 80-byte stride, four times a
+//   latent) and then read K0xz, two serial round trips to device memory;
+//   K8 as a strip of 8 rows a block re-read iLA's rows k >= i0 through two
+//   cp.async buffers and summed both triangles by DFMA, at 22x its bound.
+//   What the phases showed on the way, and what it changed: a bulk copy
+//   for each 128-byte row piece of a 32-column slab of K0xz took most of
+//   a block's time to issue (whole-row runs, one copy a block); clusters
+//   of 4 blocks at one block an SM did not all fit the GPCs at once and
+//   ran a second wave (the plan's cluster_blocks; tools/natgrad_phases.py
+//   times 1 to 4 blocks a cluster); the m8n8k4 f64 shape runs at half of
+//   the m16n8k8 one's rate (the tool's mma lines); reading the cluster's
+//   partials back after a barrier cost a second barrier (the push); one
+//   block a latent is slower (chip_smoke.py's layouts lines); staging
+//   K8's entries in shared memory for 16-byte stores cost more than the
+//   scattered stores it replaced (dropped).
 // Every sum is in double, in a fixed order, with no atomics, so a CUDA
 // graph replays the eager call's bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// marks of K5's phases, read by tools/natgrad_phases.py (which defines
+// them); nothing otherwise
+#ifndef NG_PHASE_BEGIN
+#define NG_PHASE_BEGIN(k)
+#define NG_PHASE(k)
+#define NG_PHASE_END
+#endif
+
 namespace {
 
-constexpr int NT = 1024;       // K5's threads a block
-constexpr int NW = NT / 32;    // K5's warps a block
-constexpr int CW = 32;         // K5's columns a block: a warp's lanes
-constexpr int VROWS = 2048;    // K5's rows of iB mu a block stages at once
+namespace cg = cooperative_groups;
+
+constexpr int NT = 512;        // K5's threads a block
 constexpr int TP = 32;         // K5 takes iB mu from cuBLAS past TP rows
-constexpr int RMAX = 8;        // K6-K8: a block's rows at most
-constexpr int MAX_M = 512;     // K6-K8: a thread a column
+constexpr int CLUSTER = 8;     // K5, K8: blocks a cluster at most (portable)
+constexpr int RMAX = 8;        // K6, K7: a block's rows at most
+constexpr int MAX_M = 512;     // K6-K8: columns at most
+constexpr int FT = 32;         // K8: a tile's rows
+constexpr int FH = 16;         // K8: a task's columns (half a tile)
+constexpr int FWMAX = 16;      // K8: warps a block at most
 
 // The block's totals of the NV doubles v (every thread's own), by warp
 // butterflies and then in warp order (nw warps); red: NV * 32 shared
@@ -120,62 +157,263 @@ __device__ void block_sum(const double (&v)[NV], int nw, double* red,
   __syncthreads();
 }
 
-// K8's two buffers of KC rows of M entries of the input's type, 16-byte
-// aligned
-__host__ __device__ constexpr int finish_raw(int M, int KC, int z) {
-  return (2 * KC * M * z + 15) / 16 * 16;
+__host__ __device__ constexpr long al16(long b) { return (b + 15) / 16 * 16; }
+
+// K5's dynamic shared bytes, in the order the kernel carves them: `stages`
+// stages of `chunk` whole rows of K0xz, the chunk's iB rows, mu valid of
+// the subjects they span (chunk + 2 T doubles) and its iB mu (where `iB`,
+// the kernel making iB mu; else its iB mu only), and the inbox of column
+// partials, the cluster's `cl` blocks' of every column (cl M doubles)
+// (subjects_smem, hlax_torch/ops/natgrad.py)
+__host__ __device__ constexpr long subjects_smem(int chunk, int stages,
+                                                 int M, int Tn, bool iB,
+                                                 int cl, int z) {
+  return al16((long)stages * chunk * M * z)
+         + (iB ? al16((long)chunk * Tn * z) + al16(((long)chunk + 2 * Tn) * 8)
+               : 0)
+         + al16((long)chunk * 8) + (long)cl * M * 8;
 }
 
-// K5: ng_P1[l, c] = sum_{s, t} K0xz[l, s, t, c] v[l, s, t], v = iB (mu
+// K8's rows a stage: all of them, rounded up to a k-step of 8, where the
+// chunk takes the whole latent (KC >= M), else KC
+__host__ __device__ constexpr int finish_rows(int M, int KC) {
+  return KC >= M ? (M + 7) / 8 * 8 : KC;
+}
+
+// K8's dynamic shared bytes: one stage of the whole latent's rows and a
+// warp's partial of a split task (FT x FH doubles) for each of `warps`, or
+// a ring of two stages of KC rows; then the inbox of m_new's partials, the
+// cluster's `cl` blocks' of every row (finish_smem,
+// hlax_torch/ops/natgrad.py)
+__host__ __device__ constexpr long finish_smem(int M, int KC, int warps,
+                                               int cl, int z) {
+  return (KC >= M ? al16((long)finish_rows(M, KC) * M * z)
+                        + (long)warps * FT * FH * 8
+                  : 2L * finish_rows(M, KC) * M * z)
+         + (long)cl * ((M + FT - 1) / FT * FT) * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(1u) : "memory");
+}
+
+// the barrier's one arrival, expecting `bytes` of bulk copies
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Hopper's 1-D bulk copy, global to shared, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// the cluster's barrier, its halves apart: a thread's arrivals and waits
+// alternate
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// an arrival that orders nothing: this block has started, so the others may
+// write its shared memory once they have waited for it
+__device__ __forceinline__ void cluster_arrive_started() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// K5: ng_P1[l, j] = sum_{s, t} K0xz[l, s, t, j] v[l, s, t], v = iB (mu
 // valid) per subject, computed here (iBmu null) or cuBLAS's (iBmu
-// [L, S, T]).  Grid (ceil(M / CW), L); mu [S, T, ldm] (this rank's latents
-// first).
+// [L, S, T]).  Grid (cl, L), a latent's cl blocks one cluster; block c
+// takes the latent's rows [c q, (c + 1) q), q = ceil(S T / cl), in chunks
+// of `chunk` rows (K0xz's rows and the chunk's iB rows each one contiguous
+// run: a bulk copy each where `bulk`), sums their columns (NT / Mp groups
+// of a thread a column, the groups' sums in order) and pushes each
+// column's sum into the inbox of its owner (a range of the columns a
+// block); after the cluster's barrier the owner adds the blocks' sums in
+// block order.  mu [S, T, ldm] (this rank's latents first).
 template <typename T, typename O>
 __global__ void __launch_bounds__(NT) natgrad_fwd_subjects_kernel(
     const T* __restrict__ iB, const T* __restrict__ iBmu,
     const T* __restrict__ mu, const T* __restrict__ valid,
     const T* __restrict__ K0xz, O* __restrict__ ngP1, int S, int Tn, int M,
-    int ldm) {
-  __shared__ double v[VROWS];
-  __shared__ double red[NW * CW];
-  const int l = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * CW + lane;
-  const long rows = (long)S * Tn;
-  const T* Kl = K0xz + (long)l * rows * M;
-  double acc = 0.0;
-  for (long r0 = 0; r0 < rows; r0 += VROWS) {
-    const int nr = (int)(rows - r0 < VROWS ? rows - r0 : VROWS);
-    for (int i = threadIdx.x; i < nr; i += NT) {
-      const long r = r0 + i;
-      double s = 0.0;
-      if (iBmu) {
-        s = (double)iBmu[(long)l * rows + r];
-      } else {
-        const long sub = r / Tn;
-        const T* row = iB + ((long)l * rows + r) * Tn;
-        const T* ms = mu + sub * Tn * ldm + l;
-        const T* vs = valid + sub * Tn;
-#pragma unroll 4
-        for (int u = 0; u < Tn; ++u)
-          s += (double)row[u] * ((double)ms[(long)u * ldm] * (double)vs[u]);
-      }
-      v[i] = s;
-    }
-    __syncthreads();
-    if (col < M) {
-      const T* Kc = Kl + r0 * M + col;
-#pragma unroll 8
-      for (int i = warp; i < nr; i += NW) acc += (double)Kc[(long)i * M] * v[i];
-    }
-    __syncthreads();
+    int ldm, int chunk, bool bulk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];    // the ring's stages, iB's
+  __shared__ double red[NT];
+  NG_PHASE_BEGIN(0)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = gridDim.x, c = blockIdx.x, l = blockIdx.y, tid = threadIdx.x;
+  const long R = (long)S * Tn, q = (R + cl - 1) / cl;
+  const long rbeg = min(R, c * q), rend = min(R, rbeg + q);
+  const int nchunks = (int)((rend - rbeg + chunk - 1) / chunk);
+  const int stages = chunk >= q ? 1 : 2;
+  const bool own_iB = iBmu == nullptr;
+  // a thread a column j of group g (NG groups of Mp threads)
+  const int Mp = (M + 31) / 32 * 32, NG = NT / Mp, g = tid / Mp,
+            j = tid % Mp;
+  const bool on = g < NG && j < M;
+  unsigned char* p = smem_raw;
+  T* ks = reinterpret_cast<T*>(p);
+  p += al16((long)stages * chunk * M * sizeof(T));
+  T* ibs = reinterpret_cast<T*>(p);
+  double* mvs = nullptr;
+  if (own_iB) {
+    p += al16((long)chunk * Tn * sizeof(T));
+    mvs = reinterpret_cast<double*>(p);
+    p += al16(((long)chunk + 2 * Tn) * 8);
   }
-  red[warp * CW + lane] = acc;
+  double* v = reinterpret_cast<double*>(p);
+  p += al16((long)chunk * 8);
+  double* inbox = reinterpret_cast<double*>(p);
+  const T* Kl = K0xz + (size_t)l * R * M;
+  if (tid == 0) {
+    for (int k = 0; k < 3; ++k) mbar_init(bars + k);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  if (warp == 0 && col < M) {
-    double s = red[lane];
-    for (int w = 1; w < NW; ++w) s += red[w * CW + lane];
-    ngP1[(long)l * M + col] = (O)s;
+  // `n` entries of a contiguous run into shared memory on `bar`: one bulk
+  // copy by thread 0 where `whole`, else element copies by every thread
+  auto run_copy = [&](T* dst, const T* src, long n, bool whole,
+                      uint64_t* bar) {
+    if (tid == 0) {
+      mbar_arrive_tx(bar, whole ? (uint32_t)(n * sizeof(T)) : 0u);
+      if (whole && n > 0) bulk_copy(dst, src, (uint32_t)(n * sizeof(T)), bar);
+    }
+    if (!whole)
+      for (long e = tid; e < n; e += NT)
+        cp_async_elem<sizeof(T)>(dst + e, src + e);
+    cp_async_commit();
+  };
+  // chunk ch's rows of K0xz into stage ch % stages
+  auto issue = [&](int ch) {
+    if (ch >= nchunks) return;
+    const long r0 = rbeg + (long)ch * chunk;
+    const long nr = min((long)chunk, rend - r0);
+    run_copy(ks + (size_t)(ch % stages) * chunk * M, Kl + r0 * M, nr * M,
+             bulk, bars + ch % stages);
+  };
+  // a chunk's iB rows (before its K0xz rows: the copies land in the order
+  // they are issued)
+  auto issue_iB = [&](int ch) {
+    const long r0 = rbeg + (long)ch * chunk;
+    const long nr = min((long)chunk, rend - r0);
+    const T* isrc = iB + ((size_t)l * R + r0) * Tn;
+    run_copy(ibs, isrc, nr * Tn,
+             ((uintptr_t)isrc & 15) == 0 && (nr * Tn * sizeof(T)) % 16 == 0,
+             bars + 2);
+  };
+  if (own_iB && nchunks > 0) issue_iB(0);
+  for (int ch = 0; ch < stages; ++ch) issue(ch);
+  cluster_arrive_started();     // waited for before the push
+  double acc[2] = {0.0, 0.0};
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const long r0 = rbeg + (long)ch * chunk;
+    const int nr = (int)min((long)chunk, rend - r0);
+    // iB mu of the chunk's rows
+    if (own_iB) {
+      if (ch > 0) issue_iB(ch);
+      // mu valid of the subjects the rows span
+      const long sa = r0 / Tn;
+      const int nmv = (int)(((r0 + nr - 1) / Tn - sa + 1) * Tn);
+      for (int i = tid; i < nmv; i += NT) {
+        const long r = sa * Tn + i;
+        mvs[i] = (double)mu[r * ldm + l] * (double)valid[r];
+      }
+      mbar_wait(bars + 2, (uint32_t)ch & 1u);
+      cp_async_wait_all();
+      __syncthreads();
+      for (int i = tid; i < nr; i += NT) {
+        const long r = r0 + i;
+        const T* row = ibs + (size_t)i * Tn;
+        const double* mv = mvs + (r / Tn - sa) * Tn;
+        double s = 0.0;
+        for (int u = 0; u < Tn; ++u) s += (double)row[u] * mv[u];
+        v[i] = s;
+      }
+    } else {
+      for (int i = tid; i < nr; i += NT)
+        v[i] = (double)iBmu[(size_t)l * R + r0 + i];
+    }
+    NG_PHASE(1)
+    mbar_wait(bars + ch % stages, (uint32_t)(ch / stages) & 1u);
+    cp_async_wait_all();
+    __syncthreads();
+    NG_PHASE(2)
+    if (on) {
+      // two sums, rows alternating (a shorter chain of dependent adds)
+      const T* kc = ks + (size_t)(ch % stages) * chunk * M + j;
+#pragma unroll 2
+      for (int i = g; i < nr; i += 2 * NG) {
+        acc[0] += (double)kc[(size_t)i * M] * v[i];
+        if (i + NG < nr)
+          acc[1] += (double)kc[(size_t)(i + NG) * M] * v[i + NG];
+      }
+    }
+    __syncthreads();      // the stage and v free
+    issue(ch + stages);
+    NG_PHASE(3)
   }
+  // the block's column sums (its groups' in group order), each into its
+  // owner's inbox at this block's place
+  if (g < NG) red[tid] = acc[0] + acc[1];
+  __syncthreads();
+  cluster_wait();         // every block of the cluster has started
+  const int per = (M + cl - 1) / cl;
+  for (int jj = tid; jj < M; jj += NT) {
+    double s = red[jj];
+    for (int k = 1; k < NG; ++k) s += red[k * Mp + jj];
+    const int owner = jj / per;
+    (owner == c ? inbox : cluster.map_shared_rank(inbox, owner))[
+        c * M + jj] = s;
+  }
+  // the owner's columns: the cluster's sums in block order
+  cluster_arrive();
+  cluster_wait();
+  for (int jj = c * per + tid; jj < min(M, (c + 1) * per); jj += NT) {
+    double s = 0.0;
+    for (int b = 0; b < cl; ++b) s += inbox[b * M + jj];
+    ngP1[(size_t)l * M + jj] = (O)s;
+  }
+  NG_PHASE(4)
+  NG_PHASE_END
 }
 
 // K6: grid (ceil(M / R), L), a thread a column j of rows i0 .. i0 + R.
@@ -256,143 +494,368 @@ __global__ void __launch_bounds__(MAX_M) natgrad_update_pre_kernel(
                             2.0 * sums[RMAX + j]));
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (unsigned)__cvta_generic_to_shared(dst)),
-                 "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                     (unsigned)__cvta_generic_to_shared(dst)),
-                 "l"(src), "n"(N));
+// K8's tasks of block c (of cl) of a latent: the row tiles I = c, c + cl,
+// ... of NI, each its tiles J = 0 .. I and halves h = 0, 1 of 16 columns,
+// in that order, leaving out a last half whose columns all lie past M.
+__device__ __forceinline__ int finish_ntasks(int I, int M) {
+  return 2 * (I + 1) - (FT * I + FH >= M ? 1 : 0);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// K8: grid (ceil(M / R), L), a thread a column j of rows i0 .. i0 + R.
-// iLA's rows k >= i0 pass through shared memory in chunks of KC rows, two
-// buffers, the next chunk's copies in flight (cp.async; 16 bytes a copy
-// where `vec`) while this one is summed; a float chunk is widened once to
-// double (a product then costs no conversion).  A chunk holds whole rows,
-// so the strip's own columns iLA[k, i] come from it too.
-template <typename T, typename S>
-__global__ void __launch_bounds__(MAX_M) natgrad_update_finish_kernel(
-    const T* __restrict__ iLA, const T* __restrict__ rhs,
-    S* __restrict__ m_out, S* __restrict__ H_out, int M, int R, int KC,
-    bool vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* buf = reinterpret_cast<T*>(smem_raw);
-  double* wide = reinterpret_cast<double*>(smem_raw +
-                                           finish_raw(M, KC, sizeof(T)));
-  __shared__ double red[RMAX * 32];
-  __shared__ double sums[RMAX];
-  const int l = blockIdx.y, i0 = blockIdx.x * R, j = threadIdx.x;
-  const long base = (long)l * M * M;
-  const bool on = j < M;
-  const int rows = M - i0 < R ? M - i0 : R;
-  const int nchunks = (M - i0 + KC - 1) / KC;
-  // the strip's entries two a load where rows and strips start on even
-  // columns
-  const bool pairs = R > 1 && !(M & 1);
-  // rows i0 + c KC .. of iLA, a contiguous range, into buffer c % 2
-  auto stage = [&](int c) {
-    const int k0 = i0 + c * KC, n = (M - k0 < KC ? M - k0 : KC) * M;
-    const T* src = iLA + base + (long)k0 * M;
-    T* dst = buf + (c & 1) * KC * M;
-    if (vec) {
-      constexpr int PER = 16 / sizeof(T);
-      for (int e = threadIdx.x * PER; e < n; e += blockDim.x * PER)
-        cp_async<16>(dst + e, src + e);
-    } else {
-      for (int e = threadIdx.x; e < n; e += blockDim.x)
-        cp_async<sizeof(T)>(dst + e, src + e);
+// The warp slot `slot` of block c: a task (I, J, h) and its part of P,
+// the u-th row tile's tasks each over parts[u] consecutive slots.  False
+// past the block's slots.
+__device__ __forceinline__ bool finish_slot(int slot, int c, int cl, int NI,
+                                            int M, const int* parts,
+                                            int& I, int& J, int& h,
+                                            int& part, int& P) {
+  for (int i = c, u = 0; i < NI; i += cl, ++u) {
+    const int n = finish_ntasks(i, M) * parts[u];
+    if (slot < n) {
+      const int t = slot / parts[u];
+      I = i;
+      J = t >> 1;
+      h = t & 1;
+      part = slot % parts[u];
+      P = parts[u];
+      return true;
     }
+    slot -= n;
+  }
+  return false;
+}
+
+// D += A B on the FP64 tensor cores: a 16 x 8 tile, k = 8 (Hopper's
+// shape; the m8n8k4 one runs at half the rate)
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4],
+                                     const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// iLA[k, col] of a stage whose first row is k0, as a double; zero above
+// the diagonal (k < col) and past M
+template <typename T>
+__device__ __forceinline__ double staged(const T* base, int k0, int ld,
+                                         int M, int k, int col) {
+  return k < M && k >= col ? (double)base[(size_t)(k - k0) * ld + col] : 0.0;
+}
+
+// A task's products over rows [kb, ke) of a stage whose first row is k0
+// (k-steps of 8): its two 16-row blocks of rows from column ca, its two
+// 8-column blocks from cb (the fragments' rows and columns: lane / 4 past
+// them), the row blocks below mb0 left out.
+template <typename T>
+__device__ __forceinline__ void finish_mma(double (&acc)[2][2][4],
+                                           const T* base, int k0, int kb,
+                                           int ke, int ld, int M, int ca,
+                                           int cb, int mb0, int qd) {
+#pragma unroll 2
+  for (int k = kb; k < ke; k += 8) {
+    const int k1 = k + qd, k2 = k1 + 4;
+    double a[2][4], b[2][2];
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      const int col = ca + 16 * mb;
+      a[mb][0] = staged(base, k0, ld, M, k1, col);
+      a[mb][1] = staged(base, k0, ld, M, k1, col + 8);
+      a[mb][2] = staged(base, k0, ld, M, k2, col);
+      a[mb][3] = staged(base, k0, ld, M, k2, col + 8);
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      b[nb][0] = staged(base, k0, ld, M, k1, cb + 8 * nb);
+      b[nb][1] = staged(base, k0, ld, M, k2, cb + 8 * nb);
+    }
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb)
+      if (mb >= mb0)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) dmma(acc[mb][nb], a[mb], b[nb]);
+  }
+}
+
+// K8: grid (cl, L), a latent's cl blocks one cluster; block c takes its
+// tasks (finish_slot) a task a warp, in rounds, or, where the latent is
+// resident and its tasks leave warps spare, each task of a row tile over
+// P warps, its parts of the rows k (added in order by the first), the
+// spare warps dealt to the row tiles with the longest parts first.  iLA's
+// rows k >= 32 c go through shared memory whole (one contiguous run: a bulk
+// copy where `bulk`, else element copies), in one stage where KC >= M, else
+// a ring of two stages of KC rows walked once a round; a task masks what
+// it reads above the diagonal and past M to zero.
+template <typename T, typename S>
+__global__ void __launch_bounds__(FT * FWMAX) natgrad_update_finish_kernel(
+    const T* __restrict__ iLA, const T* __restrict__ rhs,
+    S* __restrict__ m_out, S* __restrict__ H_out, int M, int KC, bool bulk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2];
+  __shared__ double rh[MAX_M], mpart[MAX_M];
+  __shared__ double rpart[FWMAX][FT], cpart[FWMAX][FH];
+  __shared__ int rtask[FWMAX], parts[FWMAX];
+  NG_PHASE_BEGIN(1)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = gridDim.x, c = blockIdx.x, l = blockIdx.y;
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5,
+            lane = threadIdx.x & 31, qd = lane & 3, gr = lane >> 2;
+  const int NI = (M + FT - 1) / FT, Mp = NI * FT, Mk = (M + 7) / 8 * 8;
+  const bool resident = KC >= M;
+  const int ns = resident ? 1 : 2, rows = finish_rows(M, KC);
+  T* stage0 = reinterpret_cast<T*>(smem_raw);
+  // the split tasks' parts, a warp's fragments (FT x FH doubles) each
+  double* spart = reinterpret_cast<double*>(
+      smem_raw + al16((long)rows * M * sizeof(T)));
+  // m_new's partials of every row from each of the cluster's blocks
+  double* inbox = reinterpret_cast<double*>(
+      smem_raw + finish_smem(M, KC, nw, 0, sizeof(T)));
+  const T* src = iLA + (size_t)l * M * M;
+  const int nrt = (NI - 1 - c) / cl + 1;    // the block's row tiles
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < 2; ++j) mbar_init(bars + j);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // each row tile's parts: one, then (resident, the tasks in one round)
+    // the spare warps to the tile whose parts are longest, a part for each
+    // of its tasks at a time, while they last
+    {
+      int spare = nw;
+      for (int u = 0; u < nrt; ++u) {
+        parts[u] = 1;
+        spare -= finish_ntasks(c + u * cl, M);
+      }
+      while (resident && spare > 0) {
+        int best = -1;
+        for (int u = 0; u < nrt; ++u) {
+          const int I = c + u * cl;
+          if (finish_ntasks(I, M) <= spare &&
+              (best < 0 || (long)(Mk - FT * I) * parts[best] >
+                               (long)(Mk - FT * (c + best * cl)) * parts[u]))
+            best = u;
+        }
+        if (best < 0) break;
+        spare -= finish_ntasks(c + best * cl, M);
+        ++parts[best];
+      }
+    }
+  }
+  __syncthreads();
+  int ntasks = 0, nslots = 0;
+  for (int u = 0; u < nrt; ++u) {
+    ntasks += finish_ntasks(c + u * cl, M);
+    nslots += finish_ntasks(c + u * cl, M) * parts[u];
+  }
+  const int nrounds = (nslots + nw - 1) / nw;
+  // the first row a round reads (a chunk boundary in the ring)
+  auto round_k0 = [&](int r) {
+    int I, J, h, part, P;
+    finish_slot(r * nw, c, cl, NI, M, parts, I, J, h, part, P);
+    return resident ? FT * c : FT * I / KC * KC;
+  };
+  // chunk g of the block's walk: its first row, -1 past the end
+  auto chunk_at = [&](int g) {
+    if (resident) return g == 0 ? FT * c : -1;
+    for (int r = 0; r < nrounds; ++r) {
+      const int k0 = round_k0(r), n = (M - k0 + KC - 1) / KC;
+      if (g < n) return k0 + g * KC;
+      g -= n;
+    }
+    return -1;
+  };
+  // chunk g's rows into stage g % ns: one bulk copy by thread 0, else
+  // element copies by every thread
+  auto issue = [&](int g) {
+    const int k0 = chunk_at(g);
+    if (k0 < 0) return;
+    const int k1 = resident ? M : min(M, k0 + KC);
+    T* dst = stage0 + (size_t)(g % ns) * rows * M;
+    const T* from = src + (size_t)k0 * M;
+    const long n = (long)(k1 - k0) * M;
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(bars + g % ns, bulk ? (uint32_t)(n * sizeof(T)) : 0u);
+      if (bulk) bulk_copy(dst, from, (uint32_t)(n * sizeof(T)), bars + g % ns);
+    }
+    if (!bulk)
+      for (long e = threadIdx.x; e < n; e += blockDim.x)
+        cp_async_elem<sizeof(T)>(dst + e, from + e);
     cp_async_commit();
   };
-  double acc[RMAX];
+  for (int g = 0; g < ns; ++g) issue(g);
+  if (cl > 1) cluster_arrive_started();   // waited for before the push
+  for (int t = threadIdx.x; t < Mp; t += blockDim.x) {
+    rh[t] = t < M ? (double)rhs[(size_t)l * M + t] : 0.0;
+    mpart[t] = 0.0;
+  }
+  int g = 0;    // chunks consumed
+  for (int r = 0; r < nrounds; ++r) {
+    int I = 0, J = 0, h = 0, part = 0, P = 1;
+    const bool has =
+        finish_slot(r * nw + warp, c, cl, NI, M, parts, I, J, h, part, P);
+    double acc[2][2][4];
 #pragma unroll
-  for (int r = 0; r < RMAX; ++r) acc[r] = 0.0;
-  stage(0);
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      stage(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = i0 + c * KC, nk = M - k0 < KC ? M - k0 : KC;
-    const double* ak;
-    if constexpr (sizeof(T) == 8) {
-      ak = reinterpret_cast<const double*>(buf + (c & 1) * KC * M);
-    } else {
-      const T* raw = buf + (c & 1) * KC * M;
-      for (int e = threadIdx.x; e < nk * M; e += blockDim.x)
-        wide[e] = (double)raw[e];
-      __syncthreads();
-      ak = wide;
-    }
-    // the chunk's rows from the warp's first column on, ascending, the same
-    // k in every lane (the strip's entries one broadcast read); a lane adds
-    // exact zeros for k < j
-    const int jw = j & ~31;
-    if (on)
-#pragma unroll 2
-      for (int k = jw > k0 ? jw : k0; k < k0 + nk; ++k) {
-        const double* row = ak + (k - k0) * M;
-        const double akj = k >= j ? row[j] : 0.0;
-        // the strip's entries of row k (past the strip's last row: inside
-        // the shared memory, and not used)
-        double a[RMAX];
-        if (pairs) {
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
-          for (int r = 0; r < RMAX; r += 2) {
-            const double2 v =
-                *reinterpret_cast<const double2*>(row + i0 + r);
-            a[r] = v.x;
-            a[r + 1] = v.y;
-          }
-        } else {
+      for (int b = 0; b < 2; ++b)
 #pragma unroll
-          for (int r = 0; r < RMAX; ++r) a[r] = row[i0 + r];
-        }
-        if (rows == RMAX && k >= i0 + RMAX - 1) {
-#pragma unroll
-          for (int r = 0; r < RMAX; ++r) acc[r] += a[r] * akj;
-        } else {
-#pragma unroll
-          for (int r = 0; r < RMAX; ++r)
-            acc[r] += (r < rows && k >= i0 + r ? a[r] : 0.0) * akj;
-        }
+        for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.0;
+    // the diagonal tile's second half: its rows 0..15 lie above it
+    const int mb0 = I == J && h == 1 ? 1 : 0;
+    const int ca = FT * I + gr, cb = FT * J + FH * h + gr;
+    if (resident) {
+      if (r == 0) {
+        mbar_wait(bars, 0u);
+        cp_async_wait_all();
+        __syncthreads();
+        NG_PHASE(1)
       }
-    __syncthreads();
-  }
-  const double rj = on ? (double)rhs[(long)l * M + j] : 0.0;
-  double p[RMAX];
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) {
-    p[r] = 0.0;
-    if (r < rows && on) {
-      const T h = (T)acc[r];
-      H_out[base + (long)(i0 + r) * M + j] = (S)h;
-      p[r] = (double)h * rj;
+      // the task's part of its rows k >= 32 I
+      const int len = (Mk - FT * I + 8 * P - 1) / (8 * P) * 8;
+      const int kb = FT * I + part * len, ke = min(Mk, kb + len);
+      if (has && kb < ke)
+        finish_mma(acc, stage0, FT * c, kb, ke, M, M, ca, cb, mb0, qd);
+    } else {
+      const int k0r = round_k0(r), n = (M - k0r + KC - 1) / KC;
+      for (int u = 0; u < n; ++u, ++g) {
+        const int k0 = k0r + u * KC, st = g % ns;
+        mbar_wait(bars + st, (uint32_t)(g / ns) & 1u);
+        cp_async_wait_all();
+        __syncthreads();
+        NG_PHASE(1)
+        const int kb = max(k0, FT * I), ke = min(k0 + KC, Mk);
+        if (has && kb < ke)
+          finish_mma(acc, stage0 + (size_t)st * rows * M, k0, kb, ke, M, M,
+                     ca, cb, mb0, qd);
+        __syncthreads();      // the stage free
+        issue(g + ns);
+      }
     }
+    NG_PHASE(2)
+    // a split task's parts, added in order by its first warp
+    const bool first = has && part == 0;
+    if (nslots > ntasks) {
+      double* mine = spart + (size_t)warp * FT * FH;
+      if (has && part > 0)
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              mine[((a * 2 + b) * 4 + e) * 32 + lane] = acc[a][b][e];
+      __syncthreads();
+      if (first)
+        for (int w = warp + 1; w < warp + P; ++w)
+#pragma unroll
+          for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[a][b][e] +=
+                    spart[(size_t)w * FT * FH + ((a * 2 + b) * 4 + e) * 32 +
+                          lane];
+    }
+    NG_PHASE(3)
+    // the task's entries: rounded to the chain's type once, written with
+    // their mirrors; its rows' and (below the diagonal) its columns' parts
+    // of m_new
+    double rp[2][2] = {{0.0, 0.0}, {0.0, 0.0}},
+           cp[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
+    if (first) {
+      const size_t base = (size_t)l * M * M;
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = ca + 16 * mb + 8 * (e >> 1),
+                      j = cb - gr + 8 * nb + 2 * qd + (e & 1);
+            if (i < M && j < M && i >= j) {
+              const T hv = (T)acc[mb][nb][e];
+              H_out[base + (size_t)i * M + j] = (S)hv;
+              rp[mb][e >> 1] += (double)hv * rh[j];
+              if (i != j) {
+                H_out[base + (size_t)j * M + i] = (S)hv;
+                cp[nb][e & 1] += (double)hv * rh[i];
+              }
+            }
+          }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1)
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            rp[mb][e] += __shfl_xor_sync(0xffffffffu, rp[mb][e], o);
+#pragma unroll
+      for (int o = 4; o <= 16; o <<= 1)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            cp[nb][e] += __shfl_xor_sync(0xffffffffu, cp[nb][e], o);
+      if (qd == 0)
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            rpart[warp][16 * mb + 8 * e + gr] = rp[mb][e];
+      if (gr == 0)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) cpart[warp][8 * nb + 2 * qd + e] = cp[nb][e];
+    }
+    if (lane == 0) rtask[warp] = first ? (I << 16) | (J << 1) | h : -1;
+    NG_PHASE(4)
+    __syncthreads();
+    // each row's partial: the round's tasks' parts, in task order; after
+    // the last round, into the inbox of the row's owner (row tile I's
+    // block, I mod cl), at this block's place
+    const bool last = r == nrounds - 1;
+    if (last && cl > 1) cluster_wait();   // every block has started
+    for (int i = threadIdx.x; i < Mp; i += blockDim.x) {
+      const int ti = i / FT, ri = i % FT;
+      double s = mpart[i];
+      for (int w = 0; w < nw; ++w) {
+        const int t = rtask[w];
+        if (t < 0) continue;
+        if ((t >> 16) == ti) s += rpart[w][ri];
+        if (((t >> 1) & 0x7fff) == ti && (ri >> 4) == (t & 1))
+          s += cpart[w][ri & 15];
+      }
+      if (!last) {
+        mpart[i] = s;
+      } else {
+        const int owner = ti % cl;
+        (owner == c ? inbox : cluster.map_shared_rank(inbox, owner))[
+            c * Mp + i] = s;
+      }
+    }
+    if (!last) __syncthreads();
+    NG_PHASE(5)
   }
-  block_sum(p, blockDim.x >> 5, red, sums);
-  if (j < rows) m_out[(long)l * M + i0 + j] = (S)(T)sums[j];
+  // m_new of the block's rows: the cluster's partials in block order,
+  // once every block has pushed its own (a thread reads its own row's
+  // place without the barrier)
+  if (cl > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+  for (int i = threadIdx.x; i < Mp; i += blockDim.x)
+    if ((i / FT) % cl == c && i < M) {
+      double s = 0.0;
+      for (int b = 0; b < cl; ++b) s += inbox[b * Mp + i];
+      m_out[(size_t)l * M + i] = (S)(T)s;
+    }
+  NG_PHASE(6)
+  NG_PHASE_END
 }
 
 int invalid() { return (int)cudaErrorInvalidValue; }
 
-// Whether K6-K8's launch takes the plan: M <= MAX_M columns, R <= RMAX rows
-// a block, L latents
+// Whether K6 and K7's launch takes the plan: M <= MAX_M columns, R <= RMAX
+// rows a block, L latents
 bool strip_ok(int L, int M, int R) {
   return L >= 1 && L <= 65535 && M >= 1 && M <= MAX_M && R >= 1 &&
          R <= RMAX;
@@ -401,21 +864,39 @@ bool strip_ok(int L, int M, int R) {
 // a thread a column, in whole warps
 int threads(int M) { return (M + 31) / 32 * 32; }
 
-// K8's dynamic shared bytes: two chunks of KC rows of M entries, a float
-// chunk widened to double and RMAX doubles of room past the last row (the
-// strip's entries are read past it) (finish_smem,
-// hlax_torch/ops/natgrad.py)
-int finish_smem(int M, int KC, int z) {
-  return finish_raw(M, KC, z) + (z == 4 ? KC * M * 8 : 0) + RMAX * 8;
-}
-
 // above 48 KB of dynamic and static shared bytes a kernel needs the
-// attribute (the static bytes here are at most 4 KB)
+// attribute (the static bytes here are at most 15 KB)
 template <typename K> int set_smem(K kernel, int smem) {
-  if (smem > 44 * 1024)
+  if (smem > 32 * 1024)
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return 0;
+}
+
+// `kernel` on a grid of clusters of `cl` blocks along x
+template <typename... P, typename... A>
+int launch_clusters(void (*kernel)(P...), dim3 grid, int threads, int cl,
+                    int smem, cudaStream_t st, A... args) {
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, (P)args...);
+  if (err) {
+    (void)cudaGetLastError();
+    return err;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -427,12 +908,13 @@ extern "C" const char* cuda_error_string(int code) {
 }
 
 // Each entry launches one kernel on `stream` and returns the launch's
-// cudaGetLastError() (cudaErrorInvalidValue for a pair of dtypes or a size
-// outside what is compiled).  Pointers are void*, the dtypes by itemsize (4
-// float, 8 double): K5's inputs' and ng_P1's, K6-K8's chain's and the
-// state's (m, H); [L, M, M] the latents' matrices, [L, M] their vectors
-// (m, ng_P1, grad_m, rhs); `rows` the strips' rows (strip_plan,
-// hlax_torch/ops/natgrad.py).
+// cudaGetLastError() (cudaErrorInvalidValue for a pair of dtypes, a size
+// or a plan outside what is compiled).  Pointers are void*, the dtypes by
+// itemsize (4 float, 8 double): K5's inputs' and ng_P1's, K6-K8's chain's
+// and the state's (m, H); [L, M, M] the latents' matrices, [L, M] their
+// vectors (m, ng_P1, grad_m, rhs); `rows` the strips' rows (strip_plan),
+// K5's and K8's plans subjects_plan and finish_plan
+// (hlax_torch/ops/natgrad.py).
 
 // T the first dtype, U the second: both float, both double, or the one
 // mixed pair an entry compiles (MA, MB, of itemsizes za0 and 12 - za0)
@@ -454,22 +936,32 @@ extern "C" const char* cuda_error_string(int code) {
   }
 
 // iB [L, S, T, T] (null where iBmu, [L, S, T], is cuBLAS's iB mu: T > TP);
-// mu [S, T, ldm]; valid [S, T]; K0xz [L, S, T, M]; ngP1 [L, M]
+// mu [S, T, ldm]; valid [S, T]; K0xz [L, S, T, M]; ngP1 [L, M]; a
+// latent's rows over one cluster of `cluster` blocks, a block's in chunks
+// of `chunk` rows, `smem` dynamic shared bytes; bulk copies where K0xz's
+// rows and pointer are 16-byte aligned
 extern "C" int natgrad_fwd_subjects(
     int itemsize, int out_itemsize, const void* iB, const void* iBmu,
     const void* mu, const void* valid, const void* K0xz, void* ngP1, int L,
-    int S, int Tn, int M, int ldm, void* stream) {
-  if (L < 1 || L > 65535 || S < 1 || Tn < 1 || M < 1 || ldm < L ||
-      !iB == !iBmu || (iB && Tn > TP))
+    int S, int Tn, int M, int ldm, int cluster, int chunk, int smem,
+    void* stream) {
+  const long R = (long)S * Tn, q = (R + cluster - 1) / max(cluster, 1);
+  if (L < 1 || L > 65535 || S < 1 || Tn < 1 || M < 1 || M > MAX_M ||
+      ldm < L || !iB == !iBmu || (iB && Tn > TP) || cluster < 1 ||
+      cluster > CLUSTER || chunk < 1 || chunk > q ||
+      smem != subjects_smem(chunk, chunk >= q ? 1 : 2, M, Tn, iB != nullptr,
+                            cluster, itemsize))
     return invalid();
+  const bool bulk = ((long)M * itemsize) % 16 == 0 &&
+                    ((uintptr_t)K0xz & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((M + CW - 1) / CW, L);
+  int err = 0;
   NG_DISPATCH(itemsize, out_itemsize, 4, float, double, {
-    natgrad_fwd_subjects_kernel<T, U><<<grid, NT, 0, st>>>(
-        (const T*)iB, (const T*)iBmu, (const T*)mu, (const T*)valid,
-        (const T*)K0xz, (U*)ngP1, S, Tn, M, ldm);
+    err = launch_clusters(natgrad_fwd_subjects_kernel<T, U>,
+                          dim3(cluster, L), NT, cluster, smem, st, iB, iBmu,
+                          mu, valid, K0xz, ngP1, S, Tn, M, ldm, chunk, bulk);
   })
-  return (int)cudaGetLastError();
+  return err;
 }
 
 // X = iLK^T (I + C_w) iLK, iK, iH [L, M, M], ngP1 [L, M] in the chain's
@@ -508,27 +1000,27 @@ extern "C" int natgrad_update_pre(
 
 // iLA [L, M, M] (lower triangular) and rhs [L, M] in the chain's type;
 // m_out [L, M] and H_out [L, M, M] in the state's, written (they may be the
-// state's own m and H); iLA's rows pass through shared memory `chunk` rows
-// at a time, by 16-byte copies where its rows and pointer are 16-byte
-// aligned
+// state's own m and H); a latent's `cluster` blocks one cluster of `warps`
+// warps each, iLA's rows in one stage (chunk >= M) or a ring of two of
+// `chunk` rows (a multiple of 8), `smem` dynamic shared bytes; bulk copies
+// where iLA's rows and pointer are 16-byte aligned
 extern "C" int natgrad_update_finish(
     int itemsize, int state_itemsize, const void* iLA, const void* rhs,
-    void* m_out, void* H_out, int L, int M, int rows, int chunk, int smem,
-    void* stream) {
-  if (!strip_ok(L, M, rows) || chunk < 1 ||
-      smem != finish_smem(M, chunk, itemsize))
+    void* m_out, void* H_out, int L, int M, int cluster, int warps,
+    int chunk, int smem, void* stream) {
+  if (L < 1 || L > 65535 || M < 1 || M > MAX_M || cluster < 1 ||
+      cluster > CLUSTER || cluster > (M + FT - 1) / FT || warps < 1 ||
+      warps > FWMAX || chunk < 1 || (chunk < M && chunk % 8) ||
+      smem != finish_smem(M, chunk, warps, cluster, itemsize))
     return invalid();
-  const bool vec = ((long)M * itemsize) % 16 == 0 &&
-                   ((uintptr_t)iLA & 15) == 0;
+  const bool bulk = ((long)M * itemsize) % 16 == 0 &&
+                    ((uintptr_t)iLA & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((M + rows - 1) / rows, L);
+  int err = 0;
   NG_DISPATCH(itemsize, state_itemsize, 8, double, float, {
-    auto kernel = natgrad_update_finish_kernel<T, U>;
-    const int err = set_smem(kernel, smem);
-    if (err) return err;
-    kernel<<<grid, threads(M), smem, st>>>((const T*)iLA, (const T*)rhs,
-                                           (U*)m_out, (U*)H_out, M, rows,
-                                           chunk, vec);
+    err = launch_clusters(natgrad_update_finish_kernel<T, U>,
+                          dim3(cluster, L), 32 * warps, cluster, smem, st,
+                          iLA, rhs, m_out, H_out, M, chunk, bulk);
   })
-  return (int)cudaGetLastError();
+  return err;
 }

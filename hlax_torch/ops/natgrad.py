@@ -9,9 +9,13 @@ products stay cuBLAS's (``torch.bmm``, ``torch.baddbmm``; the whitened
 Gram's einsums), as hlax leaves them to XLA's dots:
 
   * ``fwd_subjects`` (K5, ``natgrad_fwd_subjects``): ng_P1 = sum_s
-    K0xz_s^T iB_s (mu_s valid_s) (``hlax/gp/elbo.py:241-243``), a (32
-    columns, latent) a block; subjects longer than TP rows take iB mu from
-    cuBLAS, as the bound's row tiles take their products.
+    K0xz_s^T iB_s (mu_s valid_s) (``hlax/gp/elbo.py:241-243``), a latent's
+    rows split over one thread-block cluster (``subjects_plan``): each
+    block's rows of K0xz in flight (a bulk copy) while it makes their iB
+    mu, so iB mu is made once a latent; the blocks' column partials added
+    in block order through distributed shared memory; subjects longer than
+    TP rows take iB mu from cuBLAS, as the bound's row tiles take their
+    products.
   * ``fwd_latents`` (K6, ``natgrad_fwd_latents``): from X = iLK^T (I + C_w)
     iLK (cuBLAS, ``baddbmm`` then ``bmm``), B = (X + X^T) / 2, grad_H =
     (B - iH) / 2 and grad_m = B m - iK ng_P1 (``:272-282``).
@@ -21,9 +25,11 @@ Gram's einsums), as hlax leaves them to XLA's dots:
   * ``update_finish`` (K8, ``natgrad_update_finish``): H_new = iLA^T iLA
     from the inverse factor of iH_new (the mid Cholesky kernel's, or the
     library's) and m_new = H_new rhs, in the state's dtype (``:454``,
-    ``:464-469``), written into the caller's (m, H) where given.
+    ``:464-469``), written into the caller's (m, H) where given: only the
+    lower triangle's 32-row tiles, on the FP64 tensor cores, each written
+    with its mirror; a latent's blocks one cluster (``finish_plan``).
 
-K6-K8 take a (strip of rows, latent) a block, a thread a column
+K6 and K7 take a (strip of rows, latent) a block, a thread a column
 (``strip_plan``, sized from the card's SM count).  Every sum is in double,
 in a fixed order.  The plain versions are the port's op-by-op code, which
 the CPU runs and the parity tests hold to hlax; on CUDA in float32 and
@@ -41,19 +47,34 @@ import torch
 from hlax_torch.ops import fusion
 from hlax_torch.ops.counters import Counters
 
-# must match NT, CW, VROWS, TP, RMAX and MAX_M in csrc/natgrad.cu: K5's
-# threads and columns a block, the rows of iB mu it stages at once, the
-# subjects' rows past which cuBLAS takes iB mu; K6-K8's rows a block at most
-# and columns (a thread each) at most
-THREADS, COLS, VROWS, TP, RMAX, MAX_M = 1024, 32, 2048, 32, 8, 512
-# K8's chunks of iLA's rows at most (two in shared memory at once) and its
-# static shared bytes (the block sums)
-CHUNK = 32
-FINISH_STATIC = (RMAX * 32 + RMAX) * 8
-# K8's shared bytes a block the plan's chunks keep within where they can:
-# six blocks an SM, so a canonical launch's 480 blocks run in one wave
-FINISH_BUDGET = 36 * 1024
+# must match NT, TP, CLUSTER, RMAX, MAX_M, FT, FH and FWMAX in
+# csrc/natgrad.cu: K5's threads a block, the subjects' rows past which
+# cuBLAS takes iB mu; K5's and K8's blocks a cluster at most (the portable
+# size); K6 and K7's rows a block at most; K5-K8's columns at most; K8's
+# tile rows, a task's columns (half a tile) and warps a block at most
+THREADS, TP, CLUSTER, RMAX, MAX_M = 512, 32, 8, 8, 512
+TILE, HALF, FINISH_WARPS = 32, 16, 16
+# the kernels' static shared bytes: K5's column groups' sums and three
+# mbarriers; K8's rhs, row partials, a round's task parts, task ids and
+# row tiles' parts, two mbarriers
+SUBJECTS_STATIC = THREADS * 8 + 3 * 8
+FINISH_STATIC = ((2 * MAX_M + FINISH_WARPS * (TILE + HALF)) * 8
+                 + 2 * FINISH_WARPS * 4 + 2 * 8)
 SMEM_MAX = 227 * 1024
+# K8's rows a ring stage holds where a latent's rows do not fit one stage
+FINISH_CHUNK = 32
+
+
+# the H100's graphics processing clusters: a cluster's blocks share one
+GPCS = 8
+
+
+def cluster_blocks(L: int, sms: int, most: int = CLUSTER) -> int:
+    """Blocks a latent's cluster for L latents at one block an SM, between
+    1 and ``most``: the most whose L clusters fit the ``sms`` SMs at once
+    even where each of the GPCS GPCs leaves a cluster's size less one SM
+    idle (clusters of 4 for 32 latents at 132 SMs ran a second wave)."""
+    return max(1, min(most, CLUSTER, (sms + GPCS) // (L + GPCS)))
 # the (first, second) dtypes each kernel compiles beside the two equal
 # pairs: K5 float inputs with a float64 ng_P1, K6-K8 a float64 chain on a
 # float32 state
@@ -71,44 +92,162 @@ reset_counters = _COUNTERS.reset
 
 
 class StripPlan(NamedTuple):
-    """K6-K8's grid: ``strips`` strips of ``rows`` rows of each latent's
-    [M, M] matrices (the last one may be shorter), a block a (strip,
-    latent), ``threads`` threads a block (a column each, in whole warps),
-    ``blocks`` = strips L; K8's ``chunk`` rows of iLA a stage and its
-    dynamic shared bytes ``smem_finish``."""
+    """K6 and K7's grid: ``strips`` strips of ``rows`` rows of each
+    latent's [M, M] matrices (the last one may be shorter), a block a
+    (strip, latent), ``threads`` threads a block (a column each, in whole
+    warps), ``blocks`` = strips L."""
     rows: int
     strips: int
     threads: int
     blocks: int
-    chunk: int
-    smem_finish: int
 
 
-def finish_smem(M: int, chunk: int, itemsize: int) -> int:
-    """K8's dynamic shared bytes (finish_smem, csrc/natgrad.cu): two
-    buffers of ``chunk`` rows of iLA's M entries (16-byte aligned), a float
-    chunk widened to double and RMAX doubles of room past it."""
-    return (-(-2 * chunk * M * itemsize // 16) * 16
-            + (chunk * M * 8 if itemsize == 4 else 0) + RMAX * 8)
-
-
-def strip_plan(L: int, M: int, itemsize: int, sms: int) -> StripPlan:
+def strip_plan(L: int, M: int, sms: int) -> StripPlan:
     """The most rows a strip, at most RMAX and halving, whose L ceil(M /
     rows) blocks still give each of ``sms`` SMs one (fewer where even one
-    row a strip does not); K8's chunks of CHUNK rows, halved until its
-    shared bytes fit FINISH_BUDGET (or are one row)."""
+    row a strip does not)."""
     if not 1 <= M <= MAX_M:
         raise ValueError(f"natgrad: M = {M} inducing points, the kernels "
                          f"take 1 to {MAX_M}")
     rows = RMAX
     while rows > 1 and L * -(-M // rows) < sms:
         rows //= 2
-    chunk = CHUNK
-    while chunk > 1 and finish_smem(M, chunk, itemsize) > FINISH_BUDGET:
-        chunk //= 2
     strips = -(-M // rows)
-    return StripPlan(rows, strips, -(-M // 32) * 32, L * strips, chunk,
-                     finish_smem(M, chunk, itemsize))
+    return StripPlan(rows, strips, -(-M // 32) * 32, L * strips)
+
+
+def _al16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class SubjectsPlan(NamedTuple):
+    """K5's launch: a latent's S T rows split over ``cluster`` blocks (one
+    thread-block cluster), a block's in chunks of ``chunk`` rows through
+    ``stages`` shared stages (one where they all fit); ``smem`` dynamic
+    shared bytes."""
+    cluster: int
+    chunk: int
+    stages: int
+    smem: int
+
+
+def subjects_smem(chunk: int, stages: int, M: int, T: int, iB: bool,
+                  cluster: int, itemsize: int) -> int:
+    """K5's dynamic shared bytes (subjects_smem, csrc/natgrad.cu): the
+    stages of a chunk's rows of K0xz, the chunk's iB rows and mu valid of
+    the subjects they span (where ``iB``: the kernel makes iB mu), its iB
+    mu, and the inbox of the cluster's blocks' column sums."""
+    return (_al16(stages * chunk * M * itemsize)
+            + (_al16(chunk * T * itemsize) + _al16((chunk + 2 * T) * 8)
+               if iB else 0)
+            + _al16(chunk * 8) + cluster * M * 8)
+
+
+def subjects_plan(L: int, S: int, T: int, M: int, itemsize: int, iB: bool,
+                  sms: int) -> SubjectsPlan:
+    """A cluster of ``cluster_blocks`` blocks a latent, each a share of its
+    rows; a block's rows in one stage where their shared bytes fit beside
+    the static ones, else chunks halved until two stages fit."""
+    if not 1 <= M <= MAX_M:
+        raise ValueError(f"natgrad: M = {M} inducing points, the kernels "
+                         f"take 1 to {MAX_M}")
+    cl = cluster_blocks(L, sms)
+    q, budget = -(-S * T // cl), SMEM_MAX - SUBJECTS_STATIC
+    chunk, stages = q, 1
+    while subjects_smem(chunk, stages, M, T, iB, cl, itemsize) > budget:
+        chunk, stages = -(-chunk // 2), 2
+    return SubjectsPlan(cl, chunk, stages,
+                        subjects_smem(chunk, stages, M, T, iB, cl, itemsize))
+
+
+def finish_rows(M: int, chunk: int) -> int:
+    """K8's rows a stage: all of them (rounded up to a k-step of 8) where
+    the chunk takes the whole latent, else ``chunk``."""
+    return -(-M // 8) * 8 if chunk >= M else chunk
+
+
+def finish_smem(M: int, chunk: int, warps: int, cluster: int,
+                itemsize: int) -> int:
+    """K8's dynamic shared bytes (finish_smem, csrc/natgrad.cu): one stage
+    of the latent's whole rows and a split task's part for each warp, or a
+    ring of two stages of ``chunk`` rows; then the inbox of m_new's
+    partials, the cluster's blocks' of every row."""
+    inbox = cluster * -(-M // TILE) * TILE * 8
+    if chunk >= M:
+        return (_al16(finish_rows(M, chunk) * M * itemsize)
+                + warps * TILE * HALF * 8 + inbox)
+    return 2 * finish_rows(M, chunk) * M * itemsize + inbox
+
+
+def finish_tasks(c: int, cluster: int, M: int) -> list:
+    """Block ``c``'s (of ``cluster``) tasks (I, J, h) in order
+    (finish_task, csrc/natgrad.cu): its row tiles I = c, c + cluster, ...,
+    each tile J <= I and half h of 16 columns, less a last half whose
+    columns all lie past M."""
+    n_i = -(-M // TILE)
+    return [(I, J, h) for I in range(c, n_i, cluster) for J in range(I + 1)
+            for h in (0, 1) if TILE * J + HALF * h < M]
+
+
+def finish_parts(c: int, cluster: int, M: int, warps: int,
+                 resident: bool) -> list:
+    """The warps each of block ``c``'s row tiles' tasks are split over (the
+    kernel's greedy deal): one each, then, where the latent is resident,
+    the spare warps to the row tile whose parts of the rows k >= 32 I are
+    longest, a part for each of its tasks at a time, while they last."""
+    tiles = list(range(c, -(-M // TILE), cluster))
+    n = [len([t for t in finish_tasks(c, cluster, M) if t[0] == I])
+         for I in tiles]
+    mk = -(-M // 8) * 8
+    parts, spare = [1] * len(tiles), warps - sum(n)
+    while resident and spare > 0:
+        best = None
+        for u, I in enumerate(tiles):
+            if n[u] <= spare and (best is None or (mk - TILE * I) * parts[best]
+                                  > (mk - TILE * tiles[best]) * parts[u]):
+                best = u
+        if best is None:
+            break
+        spare -= n[best]
+        parts[best] += 1
+    return parts
+
+
+class FinishPlan(NamedTuple):
+    """K8's launch: ``cluster`` blocks a latent (one cluster), each of
+    ``warps`` warps taking its tasks in rounds of a task a warp (or a task
+    over several warps, ``finish_parts``); iLA's rows in one stage
+    (``chunk`` >= M) or a ring of ``stages`` stages of ``chunk`` rows;
+    ``smem`` dynamic shared bytes."""
+    cluster: int
+    warps: int
+    chunk: int
+    stages: int
+    smem: int
+
+
+def finish_plan(L: int, M: int, itemsize: int, sms: int,
+                cluster: bool = True) -> FinishPlan:
+    """A cluster of ``cluster_blocks`` blocks a latent, at most one a row
+    tile of 32 (one block a latent without ``cluster``), of FINISH_WARPS warps
+    (a split task's parts fill them) where the whole latent's rows and the
+    parts fit one stage beside the static shared bytes, else a ring of
+    FINISH_CHUNK rows, halved until two stages fit, and as many warps as
+    the busiest block's tasks (at most FINISH_WARPS)."""
+    if not 1 <= M <= MAX_M:
+        raise ValueError(f"natgrad: M = {M} inducing points, the kernels "
+                         f"take 1 to {MAX_M}")
+    cl = cluster_blocks(L, sms, -(-M // TILE)) if cluster else 1
+    budget = SMEM_MAX - FINISH_STATIC
+    warps, chunk = FINISH_WARPS, M
+    if finish_smem(M, chunk, warps, cl, itemsize) > budget:
+        warps = min(FINISH_WARPS,
+                    max(len(finish_tasks(c, cl, M)) for c in range(cl)))
+        chunk = FINISH_CHUNK
+        while finish_smem(M, chunk, warps, cl, itemsize) > budget:
+            chunk //= 2
+    return FinishPlan(cl, warps, chunk, 1 if chunk >= M else 2,
+                      finish_smem(M, chunk, warps, cl, itemsize))
 
 
 def _launch(entry: str, like: torch.Tensor, *args) -> None:
@@ -189,9 +328,11 @@ def fwd_subjects(iB, mu, valid, K0xz, dtype: torch.dtype):
     if T > TP:        # longer subjects: iB mu by cuBLAS
         iBmu = torch.matmul(iB, (mu * valid[:, :, None]).permute(
             2, 0, 1)[..., None])[..., 0]
+    plan = subjects_plan(L, S, T, M, K0xz.element_size(), iBmu is None,
+                         _sms(K0xz))
     _launch(kernel, K0xz, K0xz.element_size(), out.element_size(),
             None if iBmu is not None else iB, iBmu, mu, valid, K0xz, out, L,
-            S, T, M, ld)
+            S, T, M, ld, plan.cluster, plan.chunk, plan.smem)
     return out
 
 
@@ -223,7 +364,7 @@ def latents(X, iK, iH, ng_P1, m):
     fusion._check_shapes("natgrad_fwd_latents", iK=(iK, (L, M, M)),
                          iH=(iH, (L, M, M)), ng_P1=(ng_P1, (L, M, 1)),
                          m=(m, (L, M, 1)))
-    plan = strip_plan(L, M, X.element_size(), _sms(X))
+    plan = strip_plan(L, M, _sms(X))
     X, iK, iH, ng_P1, m = (t.contiguous() for t in (X, iK, iH, ng_P1, m))
     grad_m = torch.empty_like(ng_P1)
     grad_H = torch.empty_like(X)
@@ -257,7 +398,7 @@ def update_pre(iH, grad_H, grad_m, m, lr: float, jitter: float = 0.0):
     L, M = grad_H.shape[0], grad_H.shape[1]
     fusion._check_shapes(kernel, iH=(iH, (L, M, M)),
                          grad_m=(grad_m, (L, M, 1)), m=(m, (L, M, 1)))
-    plan = strip_plan(L, M, grad_H.element_size(), _sms(grad_H))
+    plan = strip_plan(L, M, _sms(grad_H))
     iH, grad_H, grad_m, m = (t.contiguous() for t in (iH, grad_H, grad_m, m))
     iH_new = torch.empty_like(iH)
     rhs = torch.empty_like(grad_m)
@@ -278,11 +419,11 @@ def update_finish(iLA, rhs, dtype: torch.dtype, out=None):
     """K8: (m_new = H_new rhs [L, M, 1], H_new = iLA^T iLA [L, M, M]) in
     ``dtype`` (the state's) from the inverse factor iLA of iH_new (lower
     triangular: the sum over k starts at max(i, j)) and rhs, in the chain's
-    dtype.  The kernel writes both triangles of H_new, each entry from its
-    own sum; H_new[j, i] takes the same products in the same order as
-    H_new[i, j], so H_new is exactly symmetric.  ``out`` = (m, H): written
-    there and returned; on the card the kernel writes them in place (its
-    only reads are iLA and rhs), so they must be contiguous in ``dtype``."""
+    dtype.  The kernel sums each entry of the lower triangle once and
+    writes it with its mirror, so H_new is exactly symmetric.  ``out`` =
+    (m, H): written there and returned; on the card the kernel writes them
+    in place (its only reads are iLA and rhs), so they must be contiguous
+    in ``dtype``."""
     kernel = "natgrad_update_finish"
     if not _takes(kernel, iLA, rhs, other=dtype, mixed=MIXED_LATENTS):
         m_new, H_new = update_finish_plain(iLA, rhs, dtype)
@@ -293,7 +434,7 @@ def update_finish(iLA, rhs, dtype: torch.dtype, out=None):
         return out
     L, M = iLA.shape[0], iLA.shape[1]
     fusion._check_shapes(kernel, rhs=(rhs, (L, M, 1)))
-    plan = strip_plan(L, M, iLA.element_size(), _sms(iLA))
+    plan = finish_plan(L, M, iLA.element_size(), _sms(iLA))
     iLA, rhs = iLA.contiguous(), rhs.contiguous()
     if out is None:
         out = (torch.empty((L, M, 1), dtype=dtype, device=iLA.device),
@@ -305,5 +446,6 @@ def update_finish(iLA, rhs, dtype: torch.dtype, out=None):
     m_new, H_new = out
     fusion._check_shapes(kernel, m=(m_new, (L, M, 1)), H=(H_new, (L, M, M)))
     _launch(kernel, iLA, iLA.element_size(), H_new.element_size(), iLA, rhs,
-            m_new, H_new, L, M, plan.rows, plan.chunk, plan.smem_finish)
+            m_new, H_new, L, M, plan.cluster, plan.warps, plan.chunk,
+            plan.smem)
     return m_new, H_new

@@ -2054,9 +2054,12 @@ def _chip_smoke():
 
 
 # [L, S, T, M]: the canonical batch, a 2 x 2 mesh rank's, the ragged toy
-# (M = 37: a last strip of 5 rows) and T = 40 (past TP: iB mu by cuBLAS)
+# (M = 37: a last strip of 5 rows, K8's half tile of 5 columns, element
+# copies in float), T = 40 (past TP: iB mu by cuBLAS), and K8's ring of two
+# stages (M = 300 and 512; K5's two clusters a latent, the second with
+# blocks past M's columns at 300)
 NATGRAD_SHAPES = [(32, 20, 20, 120), (16, 10, 20, 120), (3, 7, 13, 37),
-                  (4, 3, 40, 37)]
+                  (4, 3, 40, 37), (2, 3, 5, 300), (2, 2, 5, 512)]
 # (data and state dtype, the chain's): float32, float64, --nat_grad_f64
 NATGRAD_DTYPES = [(torch.float32, None), (torch.float64, None),
                   (torch.float32, torch.float64)]
@@ -2095,6 +2098,38 @@ def test_natgrad_kernels_against_plain_version(gen, dtype, chain, shape,
         own = (b.double() - r).abs().max().item()
         err = (a.double() - r).abs().max().item()
         assert err <= 4 * own + 1e-6 * scale, (i, err, own, scale)
+
+
+@pytest.mark.parametrize("T", [20, 40])
+@pytest.mark.parametrize("dtype, chain", NATGRAD_DTYPES)
+def test_natgrad_subjects_strided_mu(gen, dtype, chain, T):
+    """K5 on a mesh rank's latents: mu a view of the second half of a
+    [S, T, 2 L] tensor's columns (read at its row stride, not copied), the
+    rank's [16, 10, T, 120] slice; iB mu by the kernel (T = 20) or cuBLAS
+    (T = 40); against the plain version at the bars above."""
+    from hlax_torch.ops import natgrad as ng
+
+    cs = _chip_smoke()
+    case = cs.natgrad_case(16, 10, T, 120, dtype, chain)
+    iB, mu, valid, K0xz = case["subjects"]
+    wide = torch.cat([torch.randn_like(mu), mu], dim=2)
+    view = wide[..., mu.shape[2]:]
+    assert ng._rows_of(view) == 2 * mu.shape[2]
+    calls = cs._launches_of(ng, lambda: ng.fwd_subjects(
+        iB, view, valid, K0xz, case["chain"]))
+    assert calls[0][2][4].data_ptr() == view.data_ptr()
+    got = calls[0][2][7]
+    plain = ng.fwd_subjects_plain(iB, mu, valid, K0xz, case["chain"])
+    if dtype == torch.float64:
+        scale = plain.abs().max().item()
+        assert (got - plain).abs().max().item() <= 1e-10 * scale
+        return
+    ref = ng.fwd_subjects_plain(*(t.double() for t in case["subjects"]),
+                                torch.float64)
+    scale = ref.abs().max().item()
+    own = (plain.double() - ref).abs().max().item()
+    err = (got.double() - ref).abs().max().item()
+    assert err <= 4 * own + 1e-6 * scale, (err, own, scale)
 
 
 @pytest.mark.parametrize("dtype, chain", NATGRAD_DTYPES)

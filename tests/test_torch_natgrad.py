@@ -15,10 +15,12 @@ done by its kernel's plain version (around them the cuBLAS products of
 both paths, X = iLK^T (iLK + C_w iLK), and the kernel path's long
 subjects' iB mu); the float64
 chain on float32 inputs (``nat_grad_dtype``) at ``test_torch_natgrad64.py``'s
-bar; the plans (every (latent, row) and (latent, column) in one block, K8's
-sums over k >= max(i, j) in one order for H_new[i, j] and H_new[j, i],
-shared bytes within 227 KB); the constants and the C entries' parameter
-counts of ``csrc/natgrad.cu``.
+bar; the plans (K6 and K7's strips: every (latent, row) in one block; a
+model of K5's clusters: every (latent, column, row) summed once, iB mu made
+once a latent; a model of K8's tasks and k-walk: every entry of the lower
+triangle summed once over k >= max(i, j) and written with its mirror,
+m_new's terms each once; shared bytes within 227 KB); the constants and the
+C entries' parameter counts of ``csrc/natgrad.cu``.
 """
 import re
 from pathlib import Path
@@ -316,7 +318,8 @@ def test_wrappers_launch_the_c_entries(card):
     g = torch.Generator().manual_seed(0)
     r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
     Ls, M = 3, 37
-    plan = ng.strip_plan(Ls, M, 8, ng.fusion.GP_SMS)
+    plan = ng.strip_plan(Ls, M, ng.fusion.GP_SMS)
+    fplan = ng.finish_plan(Ls, M, 8, ng.fusion.GP_SMS)
     for T in (5, 40):
         mu_all = r(S, T, 2 * Ls)
         mu = mu_all[..., Ls:]                 # a mesh rank's latents
@@ -324,7 +327,9 @@ def test_wrappers_launch_the_c_entries(card):
                         r(Ls, S, T, M), torch.float64)
         args = card[-1][2]
         assert args[:2] == (8, 8) and args[4].data_ptr() == mu.data_ptr()
-        assert args[-5:] == (Ls, S, T, M, 2 * Ls)
+        assert args[-8:-3] == (Ls, S, T, M, 2 * Ls)
+        sp = ng.subjects_plan(Ls, S, T, M, 8, T <= ng.TP, ng.fusion.GP_SMS)
+        assert args[-3:] == (sp.cluster, sp.chunk, sp.smem)
         assert (args[2] is None) == (T > ng.TP)
         if T > ng.TP:
             assert args[3].shape == (Ls, S, T)
@@ -339,7 +344,8 @@ def test_wrappers_launch_the_c_entries(card):
         got = ng.update_finish(iLA, r(Ls, M, 1), torch.float32, out)
         args = card[-1][2]
         assert args[:2] == (8, 4)
-        assert args[-5:] == (Ls, M, plan.rows, plan.chunk, plan.smem_finish)
+        assert args[-6:] == (Ls, M, fplan.cluster, fplan.warps, fplan.chunk,
+                             fplan.smem)
         assert args[4] is got[0] and args[5] is got[1]
         if out is not None:
             assert got[0] is out[0] and got[1] is out[1]
@@ -349,12 +355,12 @@ def test_wrappers_launch_the_c_entries(card):
 
 
 def test_strip_plan_and_k5_grid_take_every_entry_once():
-    """K6-K8's blocks cover every (latent, row) of the [M, M] matrices once
-    and every column a thread; the plan gives each SM a block where one
-    row a strip can; K5's blocks every (latent, column) once."""
+    """K6 and K7's blocks cover every (latent, row) of the [M, M] matrices
+    once and every column a thread; the plan gives each SM a block where
+    one row a strip can; K5's blocks every (latent, subject row) once."""
     for L_, M in ((32, 120), (16, 120), (3, 37), (1, 1), (4, 512), (2, 33)):
         for sms in (132, 114):
-            p = ng.strip_plan(L_, M, 4, sms)
+            p = ng.strip_plan(L_, M, sms)
             assert 1 <= p.rows <= ng.RMAX and p.strips == -(-M // p.rows)
             assert p.blocks == L_ * p.strips
             assert p.blocks >= sms or p.rows == 1
@@ -365,72 +371,220 @@ def test_strip_plan_and_k5_grid_take_every_entry_once():
                 for b in range(p.strips):
                     seen[lat, b * p.rows:min(M, (b + 1) * p.rows)] += 1
             assert (seen == 1).all()
-            cols = np.zeros((L_, M), int)       # K5: (32 columns, latent)
+            sp = ng.subjects_plan(L_, 5, 20, M, 4, True, sms)
+            rows = np.zeros((L_, 100), int)     # K5: (row share, latent)
+            q = -(-100 // sp.cluster)
             for lat in range(L_):
-                for c in range(-(-M // ng.COLS)):
-                    for lane in range(ng.COLS):
-                        if c * ng.COLS + lane < M:
-                            cols[lat, c * ng.COLS + lane] += 1
-            assert (cols == 1).all()
+                for c in range(sp.cluster):
+                    rows[lat, c * q:(c + 1) * q] += 1
+            assert (rows == 1).all()
+            assert sp.cluster == max(1, min(ng.CLUSTER, (sms + ng.GPCS)
+                                            // (L_ + ng.GPCS)))
     with pytest.raises(ValueError):
-        ng.strip_plan(2, ng.MAX_M + 1, 4, 132)
+        ng.strip_plan(2, ng.MAX_M + 1, 132)
+    with pytest.raises(ValueError):
+        ng.finish_plan(2, ng.MAX_M + 1, 4, 132)
 
 
-def _finish_walk(M, R, KC):
-    """The k of each product K8 sums into H_new[i, j], in order: block
-    (strip i0), chunks of KC rows from i0, thread j walking a chunk's rows
-    from its warp's first column on, row i0 + r taking those with k >= i0 +
-    r, its products with k < j exact zeros (not recorded)
-    (``natgrad_update_finish_kernel``)."""
-    order = {}
-    for i0 in range(0, M, R):
-        rows = min(R, M - i0)
-        for k0 in range(i0, M, KC):
-            for j in range(M):
-                for k in range(max(k0, j - j % 32), min(M, k0 + KC)):
-                    for r in range(rows):
-                        if k >= i0 + r and k >= j:
-                            order.setdefault((i0 + r, j), []).append(k)
-    return order
+# [L, S, T, M, iB mu made by the kernel]: the canonical batch, a 2 x 2
+# mesh rank's, the ragged toy, subjects past TP (T = 40, 200, 500: iB mu
+# by cuBLAS), more rows than a stage holds, the largest M
+SUBJECT_PLANS = [(32, 20, 20, 120, True), (16, 10, 20, 120, True),
+                 (3, 7, 13, 37, True), (4, 3, 40, 37, False),
+                 (32, 4, 200, 120, False), (32, 2, 500, 120, False),
+                 (2, 400, 32, 120, True), (2, 5, 20, 512, True)]
 
 
-@pytest.mark.parametrize("M, R, KC", [(37, 8, 32), (120, 8, 16),
-                                      (16, 2, 8), (5, 1, 32)])
-def test_finish_sums_each_entry_over_its_k_once(M, R, KC):
-    """K8's walk sums H_new[i, j] over k = max(i, j) .. M - 1 once each,
-    ascending, and H_new[j, i] over the same k in the same order (so H_new
-    is exactly symmetric, the exact zeros it adds aside); its shared bytes,
-    two chunks of iLA's rows, a float chunk widened and the block sums, are
-    within 227 KB in both dtypes up to MAX_M."""
-    order = _finish_walk(M, R, KC)
-    assert len(order) == M * M
-    for (i, j), ks in order.items():
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("L_, S_, T, M, own", SUBJECT_PLANS)
+def test_subjects_plan_sums_each_entry_once(L_, S_, T, M, own, itemsize):
+    """K5's plan in a model of its walk (``natgrad_fwd_subjects_kernel``):
+    a latent's rows split over its cluster's blocks, q each; a block's rows
+    in chunks, each chunk's iB mu made by the block (or read from cuBLAS's)
+    and summed into every column; the blocks' column partials added by the
+    column's owner in block order.  Every (latent, row) has its iB mu made
+    once, every (latent, column, row) is summed once and every column
+    finished once; the shared bytes fit beside the static ones."""
+    p = ng.subjects_plan(L_, S_, T, M, itemsize, own, ng.fusion.GP_SMS)
+    R = S_ * T
+    assert 1 <= p.cluster <= ng.CLUSTER
+    assert p.cluster == 1 or (p.cluster * L_ + ng.GPCS * (p.cluster - 1)
+                              <= ng.fusion.GP_SMS)
+    q = -(-R // p.cluster)
+    assert p.stages == (1 if p.chunk >= q else 2) and 1 <= p.chunk <= q
+    assert p.smem == ng.subjects_smem(p.chunk, p.stages, M, T, own,
+                                      p.cluster, itemsize)
+    assert p.smem + ng.SUBJECTS_STATIC <= ng.SMEM_MAX
+    assert p.stages == 1 or ng.subjects_smem(
+        q, 1, M, T, own, p.cluster, itemsize) + ng.SUBJECTS_STATIC > \
+        ng.SMEM_MAX
+    made = np.zeros(R, int)            # one latent's
+    summed = np.zeros((M, R), int)
+    finished = np.zeros(M, int)
+    per = -(-M // p.cluster)
+    for c in range(p.cluster):
+        rbeg, rend = min(R, c * q), min(R, c * q + q)
+        for r0 in range(rbeg, rend, p.chunk):
+            nr = min(p.chunk, rend - r0)
+            made[r0:r0 + nr] += 1
+            summed[:, r0:r0 + nr] += 1
+        finished[c * per:min(M, (c + 1) * per)] += 1
+    assert (made == 1).all() and (summed == 1).all()
+    assert (finished == 1).all()
+
+
+def _finish_model(M, plan):
+    """A model of K8's walk (``natgrad_update_finish_kernel``) under
+    ``plan``: block c of the latent's cluster takes ``finish_tasks(c)`` in
+    rounds of a task a warp, or a task's rows over the warps its row tile
+    was dealt (its parts in order, k-steps of 8); a task's k run over its
+    stage (one resident stage from row 32 c, or the
+    ring's chunks of its round from row 32 I rounded down to a chunk),
+    masked to k < M.  Returns ({(i, j): (the
+    task, its k in order)} of the entries each task writes (i >= j, its
+    mirror from the same value), {row: the j of each of m_new's terms, in
+    the order they are added}, the tasks each block takes)."""
+    cl, nw, KC = plan.cluster, plan.warps, plan.chunk
+    Mk = -(-M // 8) * 8
+    parts = []
+    entries, terms = {}, {i: [[] for _ in range(cl)] for i in range(M)}
+    per_block = []
+    for c in range(cl):
+        tasks = ng.finish_tasks(c, cl, M)
+        per_block.append(len(tasks))
+        tile_parts = ng.finish_parts(c, cl, M, nw, KC >= M)
+        parts.append(tile_parts)
+        part_of = dict(zip(range(c, -(-M // ng.TILE), cl), tile_parts))
+        slots = [(t, q) for t in tasks for q in range(part_of[t[0]])]
+        assert len(slots) <= nw or tile_parts == [1] * len(tile_parts)
+        for r0 in range(0, len(slots), nw):
+            rnd = [t for t, q in slots[r0:r0 + nw] if q == 0]
+            k0r = ng.TILE * slots[r0][0][0] // KC * KC
+            for I, J, h in rnd:
+                P = part_of[I]
+                if KC >= M:       # one stage, rows 32 c .. M, P parts
+                    assert ng.TILE * I >= ng.TILE * c
+                    n = -(-(Mk - ng.TILE * I) // (8 * P)) * 8
+                    ks = []
+                    for part in range(P):     # added in part order
+                        kb = ng.TILE * I + part * n
+                        ks += list(range(kb, min(Mk, kb + n)))
+                else:
+                    ks = []
+                    for k0 in range(k0r, M, KC):
+                        ks += list(range(max(k0, ng.TILE * I),
+                                         min(k0 + KC, Mk)))
+                ks = [k for k in ks if k < M]
+                rows = range(ng.TILE * I, min(M, ng.TILE * I + ng.TILE))
+                cols = range(ng.TILE * J + ng.HALF * h,
+                             min(M, ng.TILE * J + ng.HALF * h + ng.HALF))
+                for i in rows:
+                    for j in cols:
+                        if i >= j:
+                            assert (i, j) not in entries
+                            entries[(i, j)] = ((I, J, h),
+                                               [k for k in ks if k >= i
+                                                and k >= j])
+                # the round's parts in task order: rows, then columns
+                for i in rows:
+                    terms[i][c] += [j for j in cols if j <= i]
+                for j in cols:
+                    terms[j][c] += [i for i in rows if i > j]
+    # each row's owner adds the blocks' partials in block order
+    return (entries, {i: sum(t, []) for i, t in terms.items()}, per_block,
+            parts)
+
+
+@pytest.mark.parametrize("L_, cluster", [(32, True), (4, True),
+                                         (32, False)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("M", [5, 16, 37, 120, 300, 512])
+def test_finish_plan_sums_each_entry_once(M, itemsize, L_, cluster):
+    """K8's plan in a model of its walk (``_finish_model``): each entry of
+    H_new's lower triangle is one task's, summed over k = max(i, j) .. M - 1
+    once each, ascending, and written with its mirror (so H_new is exactly
+    symmetric), and the lower-triangle tasks take M^3 / 6 products where
+    both triangles took M^3 / 3; each row of m_new adds H_new[i, j] rhs[j]
+    once for every j; a latent's blocks one legal cluster; shared bytes
+    within 227 KB, the whole latent in one stage where it fits (M <= 128),
+    every warp busy there (a task's rows split), else a ring of two
+    stages."""
+    p = ng.finish_plan(L_, M, itemsize, ng.fusion.GP_SMS, cluster)
+    NI = -(-M // ng.TILE)
+    assert p.cluster == (ng.cluster_blocks(L_, ng.fusion.GP_SMS, NI)
+                         if cluster else 1)
+    assert 1 <= p.cluster <= min(ng.CLUSTER, NI)
+    assert p.cluster == 1 or (p.cluster * L_ + ng.GPCS * (p.cluster - 1)
+                              <= ng.fusion.GP_SMS)
+    assert 1 <= p.warps <= ng.FINISH_WARPS
+    assert p.smem == ng.finish_smem(M, p.chunk, p.warps, p.cluster, itemsize)
+    assert p.smem + ng.FINISH_STATIC <= ng.SMEM_MAX
+    assert (p.chunk >= M) == (M <= 128 or ng.finish_smem(
+        M, M, ng.FINISH_WARPS, p.cluster, itemsize) + ng.FINISH_STATIC
+        <= ng.SMEM_MAX)
+    assert p.stages == (1 if p.chunk >= M else 2)
+    assert p.chunk >= M or (p.chunk % 8 == 0 and p.chunk <= ng.FINISH_CHUNK)
+    entries, terms, per_block, parts = _finish_model(M, p)
+    if p.chunk >= M:
+        # every block's tasks and their parts in one round, no part's
+        # tile left that a spare warp could split further
+        assert p.warps == ng.FINISH_WARPS
+        for c, (n, tp) in enumerate(zip(per_block, parts)):
+            tasks = ng.finish_tasks(c, p.cluster, M)
+            per_tile = [len([t for t in tasks if t[0] == I])
+                        for I in range(c, NI, p.cluster)]
+            used = sum(a * b for a, b in zip(per_tile, tp))
+            assert used <= p.warps or tp == [1] * len(tp)
+            assert used > p.warps or min(per_tile) > p.warps - used
+    else:
+        assert p.warps == min(ng.FINISH_WARPS, max(per_block))
+        assert all(tp == [1] * len(tp) for tp in parts)
+    assert len(entries) == M * (M + 1) // 2
+    for (i, j), (_, ks) in entries.items():
         assert ks == list(range(max(i, j), M))
-        assert ks == order[(j, i)]
-    for z in (4, 8):
-        for m in (M, 300, ng.MAX_M):
-            p = ng.strip_plan(2, m, z, 132)
-            assert p.threads <= ng.MAX_M
-            assert p.smem_finish == ng.finish_smem(m, p.chunk, z)
-            assert p.smem_finish + ng.FINISH_STATIC <= ng.SMEM_MAX
-            assert p.chunk == ng.CHUNK or ng.finish_smem(
-                m, 2 * p.chunk, z) > ng.FINISH_BUDGET
+    products = sum(len(ks) for _, ks in entries.values())
+    assert products == sum((M - i) * (i + 1) for i in range(M))
+    assert 6 * products <= M ** 3 + 6 * M * M
+    for i, js in terms.items():
+        assert sorted(js) == list(range(M)), i
 
 
 def test_constants_match_the_kernels():
-    """The wrapper's constants are csrc/natgrad.cu's, and its four kernels
-    its C entries."""
+    """The wrapper's constants are csrc/natgrad.cu's, its shared bytes the
+    kernels' (their formulas and static arrays), and its four kernels its C
+    entries."""
     src = CSRC.read_text()
-    for name, value in (("NT", ng.THREADS), ("CW", ng.COLS),
-                        ("VROWS", ng.VROWS), ("TP", ng.TP),
-                        ("RMAX", ng.RMAX), ("MAX_M", ng.MAX_M)):
+    for name, value in (("NT", ng.THREADS),
+                        ("TP", ng.TP), ("CLUSTER", ng.CLUSTER),
+                        ("RMAX", ng.RMAX), ("MAX_M", ng.MAX_M),
+                        ("FT", ng.TILE), ("FH", ng.HALF),
+                        ("FWMAX", ng.FINISH_WARPS)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
     assert sorted(_c_params()) == sorted(ng.KERNELS)
     assert sorted(ng.LAUNCHES) == sorted(f"{k}_cuda" for k in ng.KERNELS)
-    assert ("return finish_raw(M, KC, z) + (z == 4 ? KC * M * 8 : 0) + RMAX "
-            "* 8;") in src
-    assert "return (2 * KC * M * z + 15) / 16 * 16;" in src
-    assert src.count("__launch_bounds__(MAX_M)") == 3
-    assert "__launch_bounds__(NT)" in src
-    # K5's static shared memory (iB mu's stage and the warps' partials)
-    assert (ng.VROWS + ng.THREADS // 32 * ng.COLS) * 8 <= 48 * 1024
+    # the dynamic bytes' formulas
+    assert "return KC >= M ? (M + 7) / 8 * 8 : KC;" in src
+    assert "return (KC >= M ? al16((long)finish_rows(M, KC) * M * z)" in src
+    assert "+ (long)warps * FT * FH * 8" in src
+    assert ": 2L * finish_rows(M, KC) * M * z)" in src
+    assert "+ (long)cl * ((M + FT - 1) / FT * FT) * 8;" in src
+    assert "return al16((long)stages * chunk * M * z)" in src
+    assert ("+ (iB ? al16((long)chunk * Tn * z) + al16(((long)chunk + 2 * Tn)"
+            " * 8)") in src
+    assert "+ al16((long)chunk * 8) + (long)cl * M * 8;" in src
+    # the static bytes: K5's partials and barriers, K8's
+    for decl in ("__shared__ __align__(8) uint64_t bars[3];",
+                 "__shared__ double red[NT];",
+                 "__shared__ __align__(8) uint64_t bars[2];",
+                 "__shared__ double rh[MAX_M], mpart[MAX_M];",
+                 "__shared__ double rpart[FWMAX][FT], cpart[FWMAX][FH];",
+                 "__shared__ int rtask[FWMAX], parts[FWMAX];"):
+        assert src.count(decl) == 1, decl
+    assert ng.SUBJECTS_STATIC == (ng.THREADS + 3) * 8
+    assert ng.FINISH_STATIC == (2 * ng.MAX_M + ng.FINISH_WARPS * (
+        ng.TILE + ng.HALF)) * 8 + 2 * ng.FINISH_WARPS * 4 + 2 * 8
+    assert src.count("__launch_bounds__(MAX_M)") == 2
+    assert src.count("__launch_bounds__(NT)") == 1
+    assert src.count("__launch_bounds__(FT * FWMAX)") == 1
+    # K8's products on the FP64 tensor cores
+    assert "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64" in src

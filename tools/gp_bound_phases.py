@@ -183,9 +183,10 @@ def main():
     if not torch.cuda.is_available():
         print("FAIL: no card", flush=True)
         sys.exit(2)
-    gb, _, _ = cs.tree_gp_bound(TREE, os.path.join(DBG, "plain"))
-    gbp, lib, log = cs.tree_gp_bound(TREE, os.path.join(DBG, "phases"),
-                                     src=instrumented())
+    gb, _, _ = cs.tree_ops(TREE, "gp_bound", os.path.join(DBG, "plain"))
+    gbp, lib, log = cs.tree_ops(TREE, "gp_bound",
+                                os.path.join(DBG, "phases"),
+                                src=instrumented())
     lib.gp_phase_zero.restype = ctypes.c_int
     cs._ptxas_report("phases", "gp_bound (instrumented)", log,
                      only="gp_bound_")
