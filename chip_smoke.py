@@ -133,10 +133,10 @@ Phases (each prints its own lines; any failure exits non-zero):
              torch.bmm(iLA.mT, iLA) (its library_ms) and in its two
              launch layouts (a cluster of blocks a latent, one block a
              latent) in turns; with parent/, its natgrad.cu built into
-             build/parent/natgrad/ and its K5 and K8, through its own
-             wrapper, against the change's at the canonical batch in
-             float32 and float64 in turns (the output entries that differ
-             from the parent's counted); the bound's
+             build/parent/natgrad/ and its K5-K8 (K7 also with jitter),
+             through its own wrapper, against the change's at the
+             canonical batch in float32 and float64 in turns (the output
+             entries that differ from the parent's counted); the bound's
              subject kernels swept over
              the subjects a launch takes (ms against 20..640 subjects at
              [32, 20, 20, 120] and 4..128 at [32, 4, 200, 120], float32
@@ -3286,20 +3286,24 @@ def natgrad_finish_layouts(like, args, tag: str) -> None:
           f"H_new {diff[1]} on {card_line()}", flush=True)
 
 
-# the redesigned natural-gradient kernels the parent comparison takes, and
-# the outputs of each by argument of its C entry
+# the redesigned natural-gradient kernels the parent comparison takes (K7
+# also with jitter), and the outputs of each by argument of its C entry
 NATGRAD_PARENT_OUTS = {"natgrad_fwd_subjects": {7: "ng_P1"},
+                       "natgrad_fwd_latents": {7: "grad_m", 8: "grad_H"},
+                       "natgrad_update_pre": {6: "iH_new", 7: "rhs"},
+                       "natgrad_update_pre jitter": {6: "iH_new", 7: "rhs"},
                        "natgrad_update_finish": {4: "m_new", 5: "H_new"}}
 
 
 def natgrad_against_parent() -> None:
-    """The parent tree's K5 and K8 (its csrc/natgrad.cu built into
+    """The parent tree's K5-K8 (its csrc/natgrad.cu built into
     build/parent/natgrad/, through its own wrapper) against the change's
     at the canonical batch in float32 and float64 (``natgrad_case``'s
-    state): the output entries that differ from the parent's (and the
-    largest difference against the largest entry); each launch timed
-    alone, L2-warm and -cold, in turns parent, change, change, parent.
-    Prints that it did not run without parent/."""
+    state; K7 without and with jitter): the output entries that differ
+    from the parent's (and the largest difference against the largest
+    entry); each launch timed alone, L2-warm and -cold, in turns parent,
+    change, change, parent.  Prints that it did not run without
+    parent/."""
     from hlax_torch.ops import cuda_build
     from hlax_torch.ops import natgrad as ng
 
@@ -3320,31 +3324,40 @@ def natgrad_against_parent() -> None:
         tag = f"{list(shape)} {str(dtype).removeprefix('torch.')}"
         calls = {}
         for who, mod in (("parent", pn), ("change", ng)):
-            calls[who] = {e: (like, args) for e, like, args in _launches_of(
-                mod, lambda: (mod.fwd_subjects(*case["subjects"],
-                                               case["chain"]),
-                              mod.update_finish(*case["finish"],
-                                                case["state"])))}
+            got = _launches_of(mod, lambda: (
+                mod.fwd_subjects(*case["subjects"], case["chain"]),
+                mod.latents(*case["latents"]),
+                mod.update_pre(*case["pre"], NATGRAD_LR, 0.0),
+                mod.update_pre(*case["pre"], NATGRAD_LR, NATGRAD_JITTER),
+                mod.update_finish(*case["finish"], case["state"])))
+            names = [name.split()[0] for name in NATGRAD_PARENT_OUTS]
+            if [call[0] for call in got] != names:
+                fail(f"[fusion] natgrad parent against change {tag}: the "
+                     f"{who}'s launches {[call[0] for call in got]}, not "
+                     f"{names}")
+            calls[who] = {name: call[1:] for name, call in zip(
+                NATGRAD_PARENT_OUTS, got)}
         torch.cuda.synchronize()
-        for entry, outs in NATGRAD_PARENT_OUTS.items():
+        for name, outs in NATGRAD_PARENT_OUTS.items():
+            entry = name.split()[0]
             diffs = []
-            for i, name in outs.items():
-                a = calls["parent"][entry][1][i]
-                b = calls["change"][entry][1][i]
+            for i, out in outs.items():
+                a = calls["parent"][name][1][i]
+                b = calls["change"][name][1][i]
                 n = int((a != b).sum())
                 rel = ((a.double() - b.double()).abs().max()
                        / b.double().abs().max()).item()
-                diffs.append(f"{name} {n} of {b.numel()} entries differ "
+                diffs.append(f"{out} {n} of {b.numel()} entries differ "
                              f"(largest {rel:.3e} of the largest entry)")
             ms = {"parent": [], "change": []}
             for who in ("parent", "change", "change", "parent"):
                 mod = pn if who == "parent" else ng
-                like, args = calls[who][entry]
+                like, args = calls[who][name]
                 run = lambda: mod._launch(entry, like, *args)
                 ms[who].append((time_ms(run)[0], time_cold_ms(run)))
             turns = (("parent", 0), ("change", 0), ("change", 1),
                      ("parent", 1))
-            print(f"[fusion] parent against change {entry} {tag}: warm "
+            print(f"[fusion] parent against change {name} {tag}: warm "
                   + ", ".join(f"{w} {ms[w][j][0]:.5f}" for w, j in turns)
                   + " ms; L2-cold "
                   + ", ".join(f"{w} {ms[w][j][1]:.5f}" for w, j in turns)

@@ -32,7 +32,9 @@
 // double and float).
 //
 // What bounds them on an H100 at the canonical [L, S, T, M] = [32, 20, 20,
-// 120], float32: bytes, and a launch's fixed cost.  K5 reads K0xz (6.1 MB),
+// 120], float32: a launch's fixed part (about 2 us from the event before
+// a launch to the one after it, beyond its blocks' span), one round trip
+// to L2 or device memory, and the bytes.  K5 reads K0xz (6.1 MB),
 // iB (1.0 MB), mu and valid and writes ng_P1: ~2.1 us at 3.35 TB/s against
 // 0.4 MFLOP a latent.  K6 reads X, iK and iH and writes grad_H (4 x 1.8
 // MB), K7 reads iH and grad_H and writes iH_new (3 x 1.8 MB), K8 reads
@@ -55,15 +57,27 @@
 //     the owner adds the blocks' sums in block order.  Rows past what
 //     shared memory holds go through a ring of two stages; subjects longer
 //     than TP rows take iB mu from cuBLAS.
-//   K6 and K7 take a (strip of R rows, latent) a block, a thread a column
-//     of the [M, M] matrices (M <= MAX_M), so a row's reads and writes are
-//     coalesced, and the transposed entries a thread needs, X[j, i] and
-//     grad_H[j, i] for the strip's rows i, are R consecutive entries of its
-//     own column j's row.  Every row sum over j (grad_m, rhs) is the
-//     strip's own: a warp's butterfly, then the warps in order, in double.
-//     R comes from the card's SM count (strip_plan,
-//     hlax_torch/ops/natgrad.py): the most rows, at most RMAX, that still
-//     give every SM a block.
+//   K6 and K7 take a (strip of R rows, latent) a block and a warp a
+//     16-byte unit of its rows, V = 4 in float and 2 in double (strip_plan,
+//     hlax_torch/ops/natgrad.py: the most rows, at most 16, that still
+//     give half the SMs a block and fit shared memory: 16 at the canonical
+//     shape and a mesh rank's).  At its start every thread issues its share of the block's
+//     inputs as cp.async copies into shared memory, consecutive threads on
+//     consecutive 16-byte units: the strip's rows of each [M, M] input
+//     (one contiguous run each), the box of transposed entries X[0:M,
+//     i0:i0 + R] (K6) or grad_H's (K7) as M row pieces of R entries, the
+//     latent's vectors and, in K7 with jitter, the diagonals of iH and
+//     grad_H (element copies where a run or piece is off 16 bytes); then
+//     one block barrier.  A warp's lanes stride over the columns; a lane
+//     reads its V rows' transposed entries as one 16-byte unit of the box
+//     (an odd number of units a box row: no bank conflict) and m and ng_P1
+//     once a column, writes the rows' entries and adds their products in
+//     double, the rows unguarded but in a ragged last strip; a butterfly
+//     gives each row's sum (grad_m, or iH m and grad_H m) in a fixed
+//     order, with no block barrier after the loads.  K7's mean of diag
+//     iH_new is summed by every warp alike from the staged diagonals, so
+//     jitter adds no pass that waits for another; jitter 0 copies no
+//     diagonal.
 //   K8 sums each entry of H_new = iLA^T iLA once: only the tiles (I, J), I
 //     >= J, of 32 rows, over k >= 32 I (iLA is lower triangular; its
 //     entries above the diagonal and rows past M read as exact zeros),
@@ -91,7 +105,26 @@
 //   its latent's rows (a thread a row at an 80-byte stride, four times a
 //   latent) and then read K0xz, two serial round trips to device memory;
 //   K8 as a strip of 8 rows a block re-read iLA's rows k >= i0 through two
-//   cp.async buffers and summed both triangles by DFMA, at 22x its bound.
+//   cp.async buffers and summed both triangles by DFMA, at 22x its bound;
+//   K6 and K7 as a thread a column of a strip of 8 rows loaded their
+//   entries inline and ended with a block sum of R (K7: 2 R) doubles
+//   through shared memory and two barriers (0.9 and 1.5 us of a block
+//   that spans 4.4-5.4 us warm, float32), K7 with jitter after a serial
+//   pass over the diagonal (1.4 us warm, 1.9 cold).  Their transposed
+//   loads, R consecutive entries of a thread's row, were not what held
+//   them back: L1 serves a row's R entries after its first load, and a
+//   build reading the same bytes in order was slower (K6 6.9 against 6.2
+//   us, the tool's coalesced build).  Now, float32 warm at the canonical
+//   shape, K6 takes 0.0049-0.0051 ms and K7 0.0047-0.0048 (the earlier
+//   forms' 0.0065 and 0.0068); a block issues its copies and waits for
+//   them in 1.5 us, does its element work in 1.0-1.2 and its sums in
+//   0.2-0.3.  Dropped on
+//   the way: a warp a row (a box entry and two widenings of m and ng_P1 an
+//   entry: slower than the earlier K6); a row's work behind its own guard (a
+//   column's rows ran in series); the strip rows as one bulk copy each on
+//   an mbarrier, K5's pattern (0.2-0.4 us slower: K6 5.60 against 5.35
+//   us, K7 5.61 against 5.26 in the tool's instrumented builds); 32 rows
+//   a strip (no faster than 16 at the canonical shape and a mesh rank's).
 //   What the phases showed on the way, and what it changed: a bulk copy
 //   for each 128-byte row piece of a 32-column slab of K0xz took most of
 //   a block's time to issue (whole-row runs, one copy a block); clusters
@@ -110,8 +143,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// marks of K5's phases, read by tools/natgrad_phases.py (which defines
-// them); nothing otherwise
+// marks of the kernels' phases (K5, K6, K7, K8), read by
+// tools/natgrad_phases.py (which defines them); nothing otherwise
 #ifndef NG_PHASE_BEGIN
 #define NG_PHASE_BEGIN(k)
 #define NG_PHASE(k)
@@ -125,37 +158,12 @@ namespace cg = cooperative_groups;
 constexpr int NT = 512;        // K5's threads a block
 constexpr int TP = 32;         // K5 takes iB mu from cuBLAS past TP rows
 constexpr int CLUSTER = 8;     // K5, K8: blocks a cluster at most (portable)
-constexpr int RMAX = 8;        // K6, K7: a block's rows at most
+constexpr int RMAX = 16;       // K6, K7: a block's rows at most
+constexpr int SWMAX = 8;       // K6, K7: warps a block at most
 constexpr int MAX_M = 512;     // K6-K8: columns at most
 constexpr int FT = 32;         // K8: a tile's rows
 constexpr int FH = 16;         // K8: a task's columns (half a tile)
 constexpr int FWMAX = 16;      // K8: warps a block at most
-
-// The block's totals of the NV doubles v (every thread's own), by warp
-// butterflies and then in warp order (nw warps); red: NV * 32 shared
-// doubles, out: NV shared doubles, read after this returns.
-template <int NV>
-__device__ void block_sum(const double (&v)[NV], int nw, double* red,
-                          double* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  double s[NV];
-#pragma unroll
-  for (int j = 0; j < NV; ++j) s[j] = v[j];
-#pragma unroll
-  for (int o = 16; o; o >>= 1)
-#pragma unroll
-    for (int j = 0; j < NV; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], o);
-  if (lane == 0)
-#pragma unroll
-    for (int j = 0; j < NV; ++j) red[j * 32 + warp] = s[j];
-  __syncthreads();
-  if (threadIdx.x < NV) {
-    double t = red[threadIdx.x * 32];
-    for (int w = 1; w < nw; ++w) t += red[threadIdx.x * 32 + w];
-    out[threadIdx.x] = t;
-  }
-  __syncthreads();
-}
 
 __host__ __device__ constexpr long al16(long b) { return (b + 15) / 16 * 16; }
 
@@ -193,6 +201,24 @@ __host__ __device__ constexpr long finish_smem(int M, int KC, int warps,
          + (long)cl * ((M + FT - 1) / FT * FT) * 8;
 }
 
+// K6 and K7's staged box, grad_H[0:M, i0:i0 + R] (X's in K6): a row of
+// each of its M pieces, R entries rounded up to 16-byte units, an odd
+// number of them, so a quarter warp's 16-byte reads of eight rows fall in
+// distinct banks (box_stride, hlax_torch/ops/natgrad.py)
+__host__ __device__ constexpr int box_stride(int R, int z) {
+  return ((R * z + 15) / 16 | 1) * 16 / z;
+}
+
+// K6 and K7's dynamic shared bytes: `rows` arrays of a strip's R rows (K6
+// X, iK and iH; K7 iH and grad_H), the box, `vecs` vectors of M in the
+// chain's type (K6 ng_P1; K7 the diagonals of iH and grad_H) and m in the
+// state's (strip_smem, hlax_torch/ops/natgrad.py)
+__host__ __device__ constexpr long strip_smem(int R, int M, int z, int zs,
+                                              int rows, int vecs) {
+  return rows * al16((long)R * M * z) + al16((long)M * box_stride(R, z) * z)
+         + al16((long)vecs * M * z) + al16((long)M * zs);
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -202,6 +228,12 @@ __device__ __forceinline__ void cp_async_elem(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "n"(N));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -416,82 +448,284 @@ __global__ void __launch_bounds__(NT) natgrad_fwd_subjects_kernel(
   NG_PHASE_END
 }
 
-// K6: grid (ceil(M / R), L), a thread a column j of rows i0 .. i0 + R.
+// The sum of v over a warp's lanes, in every lane (a butterfly: each
+// level's two adds are the same, so every lane holds the same bits)
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The box src[0:M, 0:nr] (rows M entries apart) into rows of `bw` entries:
+// each row's piece as 16-byte copies where `aligned` (every piece's start
+// on 16 bytes), the piece's last entries past whole units and every entry
+// of an unaligned piece as element copies.  Consecutive threads take
+// consecutive units of a piece, then the next row's (a thread's unit and
+// first row found once), so a warp's copy requests each sector once.
+template <typename T>
+__device__ __forceinline__ void copy_box(T* box, int bw, const T* src, int M,
+                                         int nr, bool aligned) {
+  constexpr int V = 16 / sizeof(T);
+  const int units = aligned ? nr / V : 0, tail = nr - units * V;
+  if (units > 0) {
+    const int per = blockDim.x / units;      // rows a pass
+    if (threadIdx.x < per * units) {
+      const int u = threadIdx.x % units;
+      for (int j = threadIdx.x / units; j < M; j += per)
+        cp_async16(box + (size_t)j * bw + u * V, src + (size_t)j * M + u * V);
+    }
+  }
+  if (tail > 0) {
+    const int per = blockDim.x / tail;
+    if (threadIdx.x < per * tail) {
+      const int e = units * V + threadIdx.x % tail;
+      for (int j = threadIdx.x / tail; j < M; j += per)
+        cp_async_elem<sizeof(T)>(box + (size_t)j * bw + e,
+                                 src + (size_t)j * M + e);
+    }
+  }
+}
+
+// A warp's rows r0 .. r0 + V - 1 of the box's row j: one 16-byte read (a
+// quarter warp's eight rows j in distinct banks)
+template <typename T>
+union BoxUnit {
+  uint4 u;
+  T t[16 / sizeof(T)];
+};
+
+template <typename T>
+__device__ __forceinline__ BoxUnit<T> box_unit(const T* box, int bw, int j,
+                                               int r0) {
+  BoxUnit<T> x;
+  x.u = *reinterpret_cast<const uint4*>(box + (size_t)j * bw + r0);
+  return x;
+}
+
+// K6 and K7's start: every thread issues its copies of the strip's rows of
+// the N [M, M] inputs `src` (rows i0 .. i0 + nr, one contiguous run each)
+// into the `dst` arrays, 16-byte units where `aligned` (the rows and
+// pointers on 16 bytes), else entries, consecutive threads on consecutive
+// units, and its copies of the box (copy_box).  The caller adds its
+// vectors' copies, then strip_landed.
+template <typename T, int N>
+__device__ __forceinline__ void strip_issue(T* const (&dst)[N],
+                                            const T* const (&src)[N],
+                                            T* box, int bw, int M, int i0,
+                                            int nr, bool aligned) {
+  constexpr int V = 16 / sizeof(T);
+  const long run = (long)nr * M;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const T* from = src[k] + (size_t)i0 * M;
+    if (aligned)
+      for (long e = (long)threadIdx.x * V; e < run; e += (long)blockDim.x * V)
+        cp_async16(dst[k] + e, from + e);
+    else
+      for (long e = threadIdx.x; e < run; e += blockDim.x)
+        cp_async_elem<sizeof(T)>(dst[k] + e, from + e);
+  }
+  // the box is the last input's (X in K6, grad_H in K7)
+  copy_box(box, bw, src[N - 1] + i0, M, nr,
+           aligned && (i0 * sizeof(T)) % 16 == 0);
+}
+
+// Every copy of the block landed and seen by every thread
+__device__ __forceinline__ void strip_landed() {
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// K6's element work of a warp's nq rows r0 .. (of a 16-byte unit's V):
+// lane's columns j = lane, lane + 32, ...; grad_H written into `out` (the
+// strip's rows), the rows' parts of grad_m added into s.  FULL: nq = V,
+// the rows' work unguarded, so a column's V rows overlap.
+template <bool FULL, typename T, typename S, int V>
+__device__ __forceinline__ void latents_rows(
+    const T* xs, const T* ks, const T* hs, const T* box, int bw,
+    const T* nv, const S* ms, T* __restrict__ out, int M, int r0, int nq,
+    int lane, double (&s)[V]) {
+  for (int j = lane; j < M; j += 32) {
+    const double mj = (double)(T)ms[j], nj = (double)nv[j];
+    const BoxUnit<T> xt = box_unit(box, bw, j, r0);
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      if (FULL || q < nq) {
+        const int o = (r0 + q) * M + j;
+        const T b = (T)0.5 * (xs[o] + xt.t[q]);
+        out[o] = (T)0.5 * (b - hs[o]);
+        s[q] += (double)b * mj - (double)ks[o] * nj;
+      }
+  }
+}
+
+// K7's element work of a warp's nq rows r0 .. as K6's: iH_new written into
+// `out` (the strip's rows, the diagonal's shift added), the rows' parts of
+// iH m and grad_H m added into sh and sg.
+template <bool FULL, typename T, typename S, int V>
+__device__ __forceinline__ void pre_rows(
+    const T* hs, const T* gs, const T* box, int bw, const S* ms,
+    T* __restrict__ out, int M, int r0, int nq, int i0, T lrT, T shift,
+    int lane, double (&sh)[V], double (&sg)[V]) {
+  for (int j = lane; j < M; j += 32) {
+    const double mj = (double)(T)ms[j];
+    const BoxUnit<T> gt = box_unit(box, bw, j, r0);
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      if (FULL || q < nq) {
+        const int o = (r0 + q) * M + j;
+        const T h = hs[o], g = gs[o];
+        T n = h + lrT * (g + gt.t[q]);
+        if (i0 + r0 + q == j) n += shift;
+        out[o] = n;
+        sh[q] += (double)h * mj;
+        sg[q] += (double)g * mj;
+      }
+  }
+}
+
+// K6: grid (ceil(M / R), L), a block a (strip of R rows from i0, latent)
+// and a warp V rows (one 16-byte unit of the box: 4 in float, 2 in
+// double).  The block stages its rows of iK, iH and X, the box X[0:M,
+// i0:i0 + R], ng_P1 and m (strip_issue); then warp w's
+// lanes take the columns j = lane, lane + 32, ... of rows i0 + V w ..:
+// B[i, j] = (X[i, j] + X[j, i]) / 2 (so B is exactly symmetric), grad_H,
+// and the lane's parts of grad_m[i] in double (m and ng_P1 read once a
+// column), each row's added over the lanes by a butterfly.
 template <typename T, typename S>
-__global__ void __launch_bounds__(MAX_M) natgrad_fwd_latents_kernel(
+__global__ void __launch_bounds__(32 * SWMAX) natgrad_fwd_latents_kernel(
     const T* __restrict__ X, const T* __restrict__ iK,
     const T* __restrict__ iH, const T* __restrict__ ngP1,
     const S* __restrict__ m, T* __restrict__ gm, T* __restrict__ gH, int M,
-    int R) {
-  __shared__ double red[RMAX * 32];
-  __shared__ double sums[RMAX];
-  const int l = blockIdx.y, i0 = blockIdx.x * R, j = threadIdx.x;
-  const long base = (long)l * M * M;
-  const bool on = j < M;
-  const double mj = on ? (double)(T)m[(long)l * M + j] : 0.0;
-  const double nj = on ? (double)ngP1[(long)l * M + j] : 0.0;
-  double p[RMAX];
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) {
-    p[r] = 0.0;
-    const int i = i0 + r;
-    if (r < R && i < M && on) {
-      const long ij = base + (long)i * M + j;
-      const T b = (T)0.5 * (X[ij] + X[base + (long)j * M + i]);
-      gH[ij] = (T)0.5 * (b - iH[ij]);
-      p[r] = (double)b * mj - (double)iK[ij] * nj;
-    }
+    int R, bool aligned) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  NG_PHASE_BEGIN(2)
+  const int l = blockIdx.y, i0 = blockIdx.x * R, nr = min(R, M - i0);
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * V;
+  const int bw = box_stride(R, sizeof(T));
+  const size_t base = (size_t)l * M * M;
+  unsigned char* p = smem_raw;
+  T* ks = reinterpret_cast<T*>(p);
+  T* hs = reinterpret_cast<T*>(p += al16((long)R * M * sizeof(T)));
+  T* xs = reinterpret_cast<T*>(p += al16((long)R * M * sizeof(T)));
+  T* box = reinterpret_cast<T*>(p += al16((long)R * M * sizeof(T)));
+  T* nv = reinterpret_cast<T*>(p += al16((long)M * bw * sizeof(T)));
+  S* ms = reinterpret_cast<S*>(p + al16((long)M * sizeof(T)));
+  T* const dst[3] = {ks, hs, xs};
+  const T* const src[3] = {iK + base, iH + base, X + base};
+  strip_issue(dst, src, box, bw, M, i0, nr, aligned);
+  for (int e = threadIdx.x; e < M; e += blockDim.x) {
+    cp_async_elem<sizeof(T)>(nv + e, ngP1 + (size_t)l * M + e);
+    cp_async_elem<sizeof(S)>(ms + e, m + (size_t)l * M + e);
   }
-  block_sum(p, blockDim.x >> 5, red, sums);
-  if (j < R && i0 + j < M) gm[(long)l * M + i0 + j] = (T)sums[j];
+  NG_PHASE(1)
+  strip_landed();
+  NG_PHASE(2)
+  if (r0 < nr) {
+    double s[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) s[q] = 0.0;
+    T* out = gH + base + (size_t)i0 * M;
+    if (r0 + V <= nr)
+      latents_rows<true>(xs, ks, hs, box, bw, nv, ms, out, M, r0, V, lane, s);
+    else
+      latents_rows<false>(xs, ks, hs, box, bw, nv, ms, out, M, r0, nr - r0,
+                          lane, s);
+    NG_PHASE(3)
+#pragma unroll
+    for (int q = 0; q < V; ++q) s[q] = warp_sum(s[q]);
+    NG_PHASE(4)
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      if (lane == q && r0 + q < nr) gm[(size_t)l * M + i0 + r0 + q] = (T)s[q];
+    NG_PHASE(5)
+  }
+  NG_PHASE_END
 }
 
-// K7: grid (ceil(M / R), L), a thread a column j of rows i0 .. i0 + R;
-// jitter 0: none.
+// K7: grid (ceil(M / R), L), a block a (strip, latent) and a warp V rows,
+// as K6.  The block stages its rows of iH and grad_H, the box
+// grad_H[0:M, i0:i0 + R], m and, with jitter, the latent's diagonals of iH
+// and grad_H, all issued at its start; each warp
+// sums the diagonal of iH_new itself (the same bits in every warp), so no
+// pass waits for another; then warp w's lanes write its rows of iH_new
+// and make their parts of (iH m)[i] and (grad_H m)[i] in double (m read
+// once a column), each row's added over the lanes by a butterfly.
+// Jitter 0: none.
 template <typename T, typename S>
-__global__ void __launch_bounds__(MAX_M) natgrad_update_pre_kernel(
+__global__ void __launch_bounds__(32 * SWMAX) natgrad_update_pre_kernel(
     const T* __restrict__ iH, const T* __restrict__ gH,
     const T* __restrict__ gm, const S* __restrict__ m, T* __restrict__ iHn,
-    T* __restrict__ rhs, int M, int R, double lr, double jitter) {
-  __shared__ double red[2 * RMAX * 32];
-  __shared__ double sums[2 * RMAX];
-  const int l = blockIdx.y, i0 = blockIdx.x * R, j = threadIdx.x;
-  const int nw = blockDim.x >> 5;
-  const long base = (long)l * M * M;
-  const bool on = j < M;
+    T* __restrict__ rhs, int M, int R, double lr, double jitter,
+    bool aligned) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  NG_PHASE_BEGIN(3)
+  const int l = blockIdx.y, i0 = blockIdx.x * R, nr = min(R, M - i0);
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * V;
+  const int bw = box_stride(R, sizeof(T));
+  const size_t base = (size_t)l * M * M;
   const T lrT = (T)lr;
-  T shift = 0;
-  if (jitter != 0.0) {
-    // jitter mean(diag iH_new): every block its latent's whole diagonal
-    double d[1] = {0.0};
-    if (on) {
-      const long jj = base + (long)j * M + j;
-      d[0] = (double)(iH[jj] + lrT * (gH[jj] + gH[jj]));
+  unsigned char* p = smem_raw;
+  T* hs = reinterpret_cast<T*>(p);
+  T* gs = reinterpret_cast<T*>(p += al16((long)R * M * sizeof(T)));
+  T* box = reinterpret_cast<T*>(p += al16((long)R * M * sizeof(T)));
+  T* dg = reinterpret_cast<T*>(p += al16((long)M * bw * sizeof(T)));
+  S* ms = reinterpret_cast<S*>(p + al16(2L * M * sizeof(T)));
+  T* const dst[2] = {hs, gs};
+  const T* const src[2] = {iH + base, gH + base};
+  strip_issue(dst, src, box, bw, M, i0, nr, aligned);
+  for (int e = threadIdx.x; e < M; e += blockDim.x)
+    cp_async_elem<sizeof(S)>(ms + e, m + (size_t)l * M + e);
+  if (jitter != 0.0)
+    for (int t = threadIdx.x; t < M; t += blockDim.x) {
+      cp_async_elem<sizeof(T)>(dg + t, iH + base + (size_t)t * (M + 1));
+      cp_async_elem<sizeof(T)>(dg + M + t, gH + base + (size_t)t * (M + 1));
     }
-    block_sum(d, nw, red, sums);
-    shift = (T)jitter * (T)(sums[0] / M);
-  }
-  const double mj = on ? (double)(T)m[(long)l * M + j] : 0.0;
-  double p[2 * RMAX];
+  // this lane's row's grad_m (lanes q < V, row i0 + r0 + q)
+  const T gmi = lane < V && r0 + lane < nr
+                    ? gm[(size_t)l * M + i0 + r0 + lane]
+                    : (T)0;
+  NG_PHASE(1)
+  strip_landed();
+  NG_PHASE(2)
+  if (r0 < nr) {
+    // jitter mean(diag iH_new), summed by every warp in the same order
+    T shift = 0;
+    if (jitter != 0.0) {
+      double d = 0.0;
+      for (int j = lane; j < M; j += 32)
+        d += (double)(dg[j] + lrT * (dg[M + j] + dg[M + j]));
+      shift = (T)jitter * (T)(warp_sum(d) / M);
+    }
+    NG_PHASE(3)
+    double sh[V], sg[V];
 #pragma unroll
-  for (int r = 0; r < RMAX; ++r) {
-    p[r] = p[RMAX + r] = 0.0;
-    const int i = i0 + r;
-    if (r < R && i < M && on) {
-      const long ij = base + (long)i * M + j;
-      const T h = iH[ij], g = gH[ij];
-      T n = h + lrT * (g + gH[base + (long)j * M + i]);
-      if (i == j) n += shift;
-      iHn[ij] = n;
-      p[r] = (double)h * mj;
-      p[RMAX + r] = (double)g * mj;
+    for (int q = 0; q < V; ++q) sh[q] = sg[q] = 0.0;
+    T* out = iHn + base + (size_t)i0 * M;
+    if (r0 + V <= nr)
+      pre_rows<true>(hs, gs, box, bw, ms, out, M, r0, V, i0, lrT, shift,
+                     lane, sh, sg);
+    else
+      pre_rows<false>(hs, gs, box, bw, ms, out, M, r0, nr - r0, i0, lrT,
+                      shift, lane, sh, sg);
+    NG_PHASE(4)
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      sh[q] = warp_sum(sh[q]);
+      sg[q] = warp_sum(sg[q]);
     }
+    NG_PHASE(5)
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      if (lane == q && r0 + q < nr)
+        rhs[(size_t)l * M + i0 + r0 + q] =
+            (T)(sh[q] - lr * ((double)gmi - 2.0 * sg[q]));
+    NG_PHASE(6)
   }
-  block_sum(p, nw, red, sums);
-  if (j < R && i0 + j < M)
-    rhs[(long)l * M + i0 + j] =
-        (T)(sums[j] - lr * ((double)gm[(long)l * M + i0 + j] -
-                            2.0 * sums[RMAX + j]));
+  NG_PHASE_END
 }
 
 // K8's tasks of block c (of cl) of a latent: the row tiles I = c, c + cl,
@@ -854,15 +1088,15 @@ __global__ void __launch_bounds__(FT * FWMAX) natgrad_update_finish_kernel(
 
 int invalid() { return (int)cudaErrorInvalidValue; }
 
-// Whether K6 and K7's launch takes the plan: M <= MAX_M columns, R <= RMAX
-// rows a block, L latents
-bool strip_ok(int L, int M, int R) {
-  return L >= 1 && L <= 65535 && M >= 1 && M <= MAX_M && R >= 1 &&
-         R <= RMAX;
-}
+// K6 and K7's threads: a warp a 16-byte unit of a strip's R rows
+int strip_threads(int R, int z) { return 32 * ((R * z + 15) / 16); }
 
-// a thread a column, in whole warps
-int threads(int M) { return (M + 31) / 32 * 32; }
+// Whether K6 and K7's launch takes the plan: M <= MAX_M columns, R <= RMAX
+// rows a block, L latents, `smem` the strips' shared bytes
+bool strip_ok(int L, int M, int R, int smem, long want) {
+  return L >= 1 && L <= 65535 && M >= 1 && M <= MAX_M && R >= 1 &&
+         R <= RMAX && smem == want;
+}
 
 // above 48 KB of dynamic and static shared bytes a kernel needs the
 // attribute (the static bytes here are at most 15 KB)
@@ -965,35 +1199,53 @@ extern "C" int natgrad_fwd_subjects(
 }
 
 // X = iLK^T (I + C_w) iLK, iK, iH [L, M, M], ngP1 [L, M] in the chain's
-// type; m [L, M] in the state's; grad_m [L, M], grad_H [L, M, M] written
+// type; m [L, M] in the state's; grad_m [L, M], grad_H [L, M, M] written;
+// strips of `rows` rows, `smem` dynamic shared bytes; 16-byte copies where
+// the rows and pointers are 16-byte aligned
 extern "C" int natgrad_fwd_latents(
     int itemsize, int state_itemsize, const void* X, const void* iK,
     const void* iH, const void* ngP1, const void* m, void* gm, void* gH,
-    int L, int M, int rows, void* stream) {
-  if (!strip_ok(L, M, rows)) return invalid();
+    int L, int M, int rows, int smem, void* stream) {
+  if (!strip_ok(L, M, rows, smem,
+                strip_smem(rows, M, itemsize, state_itemsize, 3, 1)))
+    return invalid();
+  const bool aligned =
+      ((long)M * itemsize) % 16 == 0 &&
+      (((uintptr_t)X | (uintptr_t)iK | (uintptr_t)iH) & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((M + rows - 1) / rows, L);
   NG_DISPATCH(itemsize, state_itemsize, 8, double, float, {
-    natgrad_fwd_latents_kernel<T, U><<<grid, threads(M), 0, st>>>(
+    const int err = set_smem(natgrad_fwd_latents_kernel<T, U>, smem);
+    if (err) return err;
+    natgrad_fwd_latents_kernel<T, U><<<grid, strip_threads(rows, itemsize),
+                                       smem, st>>>(
         (const T*)X, (const T*)iK, (const T*)iH, (const T*)ngP1,
-        (const U*)m, (T*)gm, (T*)gH, M, rows);
+        (const U*)m, (T*)gm, (T*)gH, M, rows, aligned);
   })
   return (int)cudaGetLastError();
 }
 
 // iH, grad_H [L, M, M], grad_m [L, M] in the chain's type, m [L, M] in the
-// state's; iH_new [L, M, M] and rhs [L, M] written; jitter 0: none
+// state's; iH_new [L, M, M] and rhs [L, M] written; strips of `rows` rows,
+// `smem` dynamic shared bytes, 16-byte copies as K6's; jitter 0: none
 extern "C" int natgrad_update_pre(
     int itemsize, int state_itemsize, const void* iH, const void* gH,
     const void* gm, const void* m, void* iHn, void* rhs, int L, int M,
-    int rows, double lr, double jitter, void* stream) {
-  if (!strip_ok(L, M, rows)) return invalid();
+    int rows, int smem, double lr, double jitter, void* stream) {
+  if (!strip_ok(L, M, rows, smem,
+                strip_smem(rows, M, itemsize, state_itemsize, 2, 2)))
+    return invalid();
+  const bool aligned = ((long)M * itemsize) % 16 == 0 &&
+                       (((uintptr_t)iH | (uintptr_t)gH) & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((M + rows - 1) / rows, L);
   NG_DISPATCH(itemsize, state_itemsize, 8, double, float, {
-    natgrad_update_pre_kernel<T, U><<<grid, threads(M), 0, st>>>(
+    const int err = set_smem(natgrad_update_pre_kernel<T, U>, smem);
+    if (err) return err;
+    natgrad_update_pre_kernel<T, U><<<grid, strip_threads(rows, itemsize),
+                                      smem, st>>>(
         (const T*)iH, (const T*)gH, (const T*)gm, (const U*)m, (T*)iHn,
-        (T*)rhs, M, rows, lr, jitter);
+        (T*)rhs, M, rows, lr, jitter, aligned);
   })
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,15 @@ Gram's einsums), as hlax leaves them to XLA's dots:
   * ``update_pre`` (K7, ``natgrad_update_pre``): iH_new = iH + lr (grad_H +
     grad_H^T) (+ jitter mean(diag iH_new) I) and rhs = iH m - lr (grad_m -
     2 grad_H m) (``:459-463`` and the bracket of ``:465-468``).
+    K6 and K7 take a (strip of rows, latent) a block and a warp a 16-byte
+    unit of its rows (``strip_plan``, sized from the card's SM count and
+    shared memory): the block's strip rows, the box of its transposed
+    entries (X's or grad_H's columns i0 .. i0 + rows of every row), the
+    latent's vectors and, in K7 with jitter, the diagonals, all copied
+    into shared memory at its start (16-byte copies where aligned, element
+    copies elsewhere) before one block barrier; each row's sums in double
+    over the warp's lanes by a butterfly, K7's diagonal mean by every warp
+    alike.
   * ``update_finish`` (K8, ``natgrad_update_finish``): H_new = iLA^T iLA
     from the inverse factor of iH_new (the mid Cholesky kernel's, or the
     library's) and m_new = H_new rhs, in the state's dtype (``:454``,
@@ -29,13 +38,11 @@ Gram's einsums), as hlax leaves them to XLA's dots:
     lower triangle's 32-row tiles, on the FP64 tensor cores, each written
     with its mirror; a latent's blocks one cluster (``finish_plan``).
 
-K6 and K7 take a (strip of rows, latent) a block, a thread a column
-(``strip_plan``, sized from the card's SM count).  Every sum is in double,
-in a fixed order.  The plain versions are the port's op-by-op code, which
-the CPU runs and the parity tests hold to hlax; on CUDA in float32 and
-float64 the kernels run (the chain in float64 on float32 inputs and state
-too: ``--nat_grad_f64``), else the plain version, counted in
-``PLAIN_CUDA_CALLS``.  A failed build or launch raises.
+Every sum is in double, in a fixed order.  The plain versions are the
+port's op-by-op code, which the CPU runs and the parity tests hold to hlax;
+on CUDA in float32 and float64 the kernels run (the chain in float64 on
+float32 inputs and state too: ``--nat_grad_f64``), else the plain version,
+counted in ``PLAIN_CUDA_CALLS``.  A failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -47,16 +54,17 @@ import torch
 from hlax_torch.ops import fusion
 from hlax_torch.ops.counters import Counters
 
-# must match NT, TP, CLUSTER, RMAX, MAX_M, FT, FH and FWMAX in
+# must match NT, TP, CLUSTER, RMAX, SWMAX, MAX_M, FT, FH and FWMAX in
 # csrc/natgrad.cu: K5's threads a block, the subjects' rows past which
 # cuBLAS takes iB mu; K5's and K8's blocks a cluster at most (the portable
-# size); K6 and K7's rows a block at most; K5-K8's columns at most; K8's
-# tile rows, a task's columns (half a tile) and warps a block at most
-THREADS, TP, CLUSTER, RMAX, MAX_M = 512, 32, 8, 8, 512
+# size); K6 and K7's rows and warps a block at most; K5-K8's columns at
+# most; K8's tile rows, a task's columns (half a tile) and warps a block at
+# most
+THREADS, TP, CLUSTER, RMAX, STRIP_WARPS, MAX_M = 512, 32, 8, 16, 8, 512
 TILE, HALF, FINISH_WARPS = 32, 16, 16
-# the kernels' static shared bytes: K5's column groups' sums and three
-# mbarriers; K8's rhs, row partials, a round's task parts, task ids and
-# row tiles' parts, two mbarriers
+# the kernels' static shared bytes (K6 and K7 have none): K5's column
+# groups' sums and three mbarriers; K8's rhs, row partials, a round's task
+# parts, task ids and row tiles' parts, two mbarriers
 SUBJECTS_STATIC = THREADS * 8 + 3 * 8
 FINISH_STATIC = ((2 * MAX_M + FINISH_WARPS * (TILE + HALF)) * 8
                  + 2 * FINISH_WARPS * 4 + 2 * 8)
@@ -91,33 +99,71 @@ PLAIN_CUDA_CALLS = _COUNTERS.plain
 reset_counters = _COUNTERS.reset
 
 
+def _al16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+# K6's and K7's staged arrays (csrc/natgrad.cu): the strip's rows of how
+# many [M, M] inputs (K6 X, iK, iH; K7 iH, grad_H), and how many vectors of
+# M in the chain's type (K6 ng_P1; K7 the diagonals of iH and grad_H)
+STRIP_ARRAYS = {"natgrad_fwd_latents": (3, 1), "natgrad_update_pre": (2, 2)}
+
+
+def box_stride(rows: int, itemsize: int) -> int:
+    """Entries a row of K6's and K7's staged box (box_stride,
+    csrc/natgrad.cu): ``rows`` entries rounded up to 16-byte units, an odd
+    number of them, so a quarter warp's 16-byte reads of eight rows fall in
+    distinct banks."""
+    return (-(-rows * itemsize // 16) | 1) * 16 // itemsize
+
+
+def strip_smem(rows: int, M: int, itemsize: int, state_itemsize: int,
+               kernel: str) -> int:
+    """K6's or K7's dynamic shared bytes (strip_smem, csrc/natgrad.cu):
+    the strip's rows of each [M, M] input, the box of the transposed
+    entries (M rows of ``box_stride``), the vectors and m in the state's
+    dtype."""
+    arrays, vecs = STRIP_ARRAYS[kernel]
+    return (arrays * _al16(rows * M * itemsize)
+            + _al16(M * box_stride(rows, itemsize) * itemsize)
+            + _al16(vecs * M * itemsize) + _al16(M * state_itemsize))
+
+
+def strip_threads(rows: int, itemsize: int) -> int:
+    """K6's and K7's threads a block (strip_threads, csrc/natgrad.cu): a
+    warp a 16-byte unit of the strip's rows (4 rows in float, 2 in
+    double)."""
+    return 32 * -(-rows * itemsize // 16)
+
+
 class StripPlan(NamedTuple):
-    """K6 and K7's grid: ``strips`` strips of ``rows`` rows of each
+    """K6's or K7's grid: ``strips`` strips of ``rows`` rows of each
     latent's [M, M] matrices (the last one may be shorter), a block a
-    (strip, latent), ``threads`` threads a block (a column each, in whole
-    warps), ``blocks`` = strips L."""
+    (strip, latent) of ``threads`` threads (``strip_threads``), ``blocks``
+    = strips L, ``smem`` dynamic shared bytes."""
     rows: int
     strips: int
     threads: int
     blocks: int
+    smem: int
 
 
-def strip_plan(L: int, M: int, sms: int) -> StripPlan:
-    """The most rows a strip, at most RMAX and halving, whose L ceil(M /
-    rows) blocks still give each of ``sms`` SMs one (fewer where even one
-    row a strip does not)."""
+def strip_plan(L: int, M: int, itemsize: int, state_itemsize: int,
+               kernel: str, sms: int) -> StripPlan:
+    """The most rows a strip, at most RMAX and halving, whose L
+    ceil(M / rows) blocks still give half of ``sms`` SMs one and whose
+    shared bytes fit (fewer blocks where even one row a strip does not)."""
     if not 1 <= M <= MAX_M:
         raise ValueError(f"natgrad: M = {M} inducing points, the kernels "
                          f"take 1 to {MAX_M}")
+    smem = lambda r: strip_smem(r, M, itemsize, state_itemsize, kernel)
     rows = RMAX
-    while rows > 1 and L * -(-M // rows) < sms:
+    while rows > 1 and (2 * L * -(-M // rows) < sms
+                        or smem(rows) > SMEM_MAX):
         rows //= 2
     strips = -(-M // rows)
-    return StripPlan(rows, strips, -(-M // 32) * 32, L * strips)
-
-
-def _al16(n: int) -> int:
-    return -(-n // 16) * 16
+    return StripPlan(rows, strips, strip_threads(rows, itemsize),
+                     L * strips, smem(rows))
 
 
 class SubjectsPlan(NamedTuple):
@@ -364,12 +410,14 @@ def latents(X, iK, iH, ng_P1, m):
     fusion._check_shapes("natgrad_fwd_latents", iK=(iK, (L, M, M)),
                          iH=(iH, (L, M, M)), ng_P1=(ng_P1, (L, M, 1)),
                          m=(m, (L, M, 1)))
-    plan = strip_plan(L, M, _sms(X))
+    kernel = "natgrad_fwd_latents"
+    plan = strip_plan(L, M, X.element_size(), m.element_size(), kernel,
+                      _sms(X))
     X, iK, iH, ng_P1, m = (t.contiguous() for t in (X, iK, iH, ng_P1, m))
     grad_m = torch.empty_like(ng_P1)
     grad_H = torch.empty_like(X)
-    _launch("natgrad_fwd_latents", X, X.element_size(), m.element_size(), X,
-            iK, iH, ng_P1, m, grad_m, grad_H, L, M, plan.rows)
+    _launch(kernel, X, X.element_size(), m.element_size(), X, iK, iH, ng_P1,
+            m, grad_m, grad_H, L, M, plan.rows, plan.smem)
     return grad_m, grad_H
 
 
@@ -398,12 +446,13 @@ def update_pre(iH, grad_H, grad_m, m, lr: float, jitter: float = 0.0):
     L, M = grad_H.shape[0], grad_H.shape[1]
     fusion._check_shapes(kernel, iH=(iH, (L, M, M)),
                          grad_m=(grad_m, (L, M, 1)), m=(m, (L, M, 1)))
-    plan = strip_plan(L, M, _sms(grad_H))
+    plan = strip_plan(L, M, iH.element_size(), m.element_size(), kernel,
+                      _sms(grad_H))
     iH, grad_H, grad_m, m = (t.contiguous() for t in (iH, grad_H, grad_m, m))
     iH_new = torch.empty_like(iH)
     rhs = torch.empty_like(grad_m)
     _launch(kernel, iH, iH.element_size(), m.element_size(), iH, grad_H,
-            grad_m, m, iH_new, rhs, L, M, plan.rows, float(lr),
+            grad_m, m, iH_new, rhs, L, M, plan.rows, plan.smem, float(lr),
             float(jitter))
     return iH_new, rhs
 

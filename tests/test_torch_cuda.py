@@ -2100,6 +2100,64 @@ def test_natgrad_kernels_against_plain_version(gen, dtype, chain, shape,
         assert err <= 4 * own + 1e-6 * scale, (i, err, own, scale)
 
 
+# K6's and K7's strips [L, M]: the ragged M (element copies in float), M =
+# 300 (a last strip shorter than the plan's rows), the largest M (float64's
+# rows cut by shared bytes) and a 2 x 2 mesh rank's latents
+STRIP_SHAPES = [(3, 37), (2, 300), (2, 512), (16, 120)]
+
+
+def _off16(t):
+    """``t`` as a contiguous view one entry into a buffer of its own: its
+    rows off 16 bytes (the kernels' element copies)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("jitter", [0.0, 1e-3])
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+@pytest.mark.parametrize("dtype, chain", NATGRAD_DTYPES)
+def test_natgrad_strips_against_plain_version(gen, dtype, chain, shape,
+                                              jitter, shifted):
+    """K6 and K7 on ``chip_smoke.natgrad_case``'s inputs at [L, M, M], one
+    launch each, against their plain versions at the bars above; where
+    ``shifted``, every input a view whose rows lie off 16 bytes."""
+    from hlax_torch.ops import natgrad as ng
+
+    cs = _chip_smoke()
+    L, M = shape
+    case = cs.natgrad_case(L, 3, 5, M, dtype, chain)
+    lat, pre = case["latents"], case["pre"]
+    if shifted:
+        lat, pre = tuple(map(_off16, lat)), tuple(map(_off16, pre))
+        assert lat[0].data_ptr() % 16 and pre[0].data_ptr() % 16
+    before = dict(ng.LAUNCHES)
+    got = list(ng.latents(*lat)) + list(ng.update_pre(*pre, cs.NATGRAD_LR,
+                                                      jitter))
+    torch.cuda.synchronize()
+    for k in ("natgrad_fwd_latents_cuda", "natgrad_update_pre_cuda"):
+        assert ng.LAUNCHES[k] == before[k] + 1, k
+    plain = list(ng.latents_plain(*lat)) + list(ng.update_pre_plain(
+        *pre, cs.NATGRAD_LR, jitter))
+    ref = None
+    if dtype != torch.float64:
+        c64 = cs.natgrad_case64(case)
+        ref = list(ng.latents_plain(*c64["latents"])) + list(
+            ng.update_pre_plain(*c64["pre"], cs.NATGRAD_LR, jitter))
+    for i, (a, b) in enumerate(zip(got, plain)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        if ref is None:
+            scale = b.abs().max().item()
+            assert (a - b).abs().max().item() <= 1e-10 * scale, i
+            continue
+        r = ref[i].double()
+        scale = r.abs().max().item()
+        own = (b.double() - r).abs().max().item()
+        err = (a.double() - r).abs().max().item()
+        assert err <= 4 * own + 1e-6 * scale, (i, err, own, scale)
+
+
 @pytest.mark.parametrize("T", [20, 40])
 @pytest.mark.parametrize("dtype, chain", NATGRAD_DTYPES)
 def test_natgrad_subjects_strided_mu(gen, dtype, chain, T):

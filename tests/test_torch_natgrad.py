@@ -144,7 +144,7 @@ def _emulate(calls):
                 o.copy_(v)
         elif entry == "natgrad_update_pre":
             iH, gH, gm, m, iHn, rhs = args[2:8]
-            lr, jitter = args[11:13]
+            lr, jitter = args[12:14]
             for o, v in zip((iHn, rhs), ng.update_pre_plain(iH, gH, gm, m,
                                                             lr, jitter)):
                 o.copy_(v)
@@ -311,14 +311,13 @@ def test_wrappers_dispatch():
 
 def test_wrappers_launch_the_c_entries(card):
     """Each wrapper's launch: its C entry's parameter count (``card``), the
-    itemsizes, the plan's rows and K8's shared bytes; K5 reading a mesh's
-    slice of mu at its row stride, and iB mu from cuBLAS past TP rows; K8
-    writing the given (m, H), which must be contiguous in the state's
-    dtype."""
+    itemsizes, the strip plans' rows and shared bytes, K8's plan; K5
+    reading a mesh's slice of mu at its row stride, and iB mu from
+    cuBLAS past TP rows; K8 writing the given (m, H), which must be
+    contiguous in the state's dtype."""
     g = torch.Generator().manual_seed(0)
     r = lambda *shape: torch.randn(shape, generator=g, dtype=torch.float64)
     Ls, M = 3, 37
-    plan = ng.strip_plan(Ls, M, ng.fusion.GP_SMS)
     fplan = ng.finish_plan(Ls, M, 8, ng.fusion.GP_SMS)
     for T in (5, 40):
         mu_all = r(S, T, 2 * Ls)
@@ -335,10 +334,12 @@ def test_wrappers_launch_the_c_entries(card):
             assert args[3].shape == (Ls, S, T)
     X, iK, iH = r(Ls, M, M), r(Ls, M, M), r(Ls, M, M)
     ng.latents(X, iK, iH, r(Ls, M, 1), r(Ls, M, 1).float())
+    plan = ng.strip_plan(Ls, M, 8, 4, "natgrad_fwd_latents", ng.fusion.GP_SMS)
     assert card[-1][2][:2] == (8, 4)
-    assert card[-1][2][-3:] == (Ls, M, plan.rows)
+    assert card[-1][2][-4:] == (Ls, M, plan.rows, plan.smem)
     ng.update_pre(iH, X, r(Ls, M, 1), r(Ls, M, 1), 0.01, 1e-3)
-    assert card[-1][2][-5:] == (Ls, M, plan.rows, 0.01, 1e-3)
+    plan = ng.strip_plan(Ls, M, 8, 8, "natgrad_update_pre", ng.fusion.GP_SMS)
+    assert card[-1][2][-6:] == (Ls, M, plan.rows, plan.smem, 0.01, 1e-3)
     iLA = torch.linalg.cholesky(X @ X.mT + M * torch.eye(M, dtype=X.dtype))
     for out in ((torch.empty(Ls, M, 1), torch.empty(Ls, M, M)), None):
         got = ng.update_finish(iLA, r(Ls, M, 1), torch.float32, out)
@@ -356,21 +357,25 @@ def test_wrappers_launch_the_c_entries(card):
 
 def test_strip_plan_and_k5_grid_take_every_entry_once():
     """K6 and K7's blocks cover every (latent, row) of the [M, M] matrices
-    once and every column a thread; the plan gives each SM a block where
-    one row a strip can; K5's blocks every (latent, subject row) once."""
+    once, a warp a 16-byte unit of rows; the plan gives half the SMs a
+    block where one row a strip can; K5's blocks every (latent, subject
+    row) once."""
     for L_, M in ((32, 120), (16, 120), (3, 37), (1, 1), (4, 512), (2, 33)):
         for sms in (132, 114):
-            p = ng.strip_plan(L_, M, sms)
-            assert 1 <= p.rows <= ng.RMAX and p.strips == -(-M // p.rows)
-            assert p.blocks == L_ * p.strips
-            assert p.blocks >= sms or p.rows == 1
-            assert p.rows == ng.RMAX or L_ * -(-M // (2 * p.rows)) < sms
-            assert p.threads % 32 == 0 and M <= p.threads <= ng.MAX_M
-            seen = np.zeros((L_, M), int)
-            for lat in range(L_):
-                for b in range(p.strips):
-                    seen[lat, b * p.rows:min(M, (b + 1) * p.rows)] += 1
-            assert (seen == 1).all()
+            for kernel in ng.STRIP_ARRAYS:
+                p = ng.strip_plan(L_, M, 4, 4, kernel, sms)
+                assert 1 <= p.rows <= ng.RMAX and p.strips == -(-M // p.rows)
+                assert p.blocks == L_ * p.strips
+                assert 2 * p.blocks >= sms or p.rows == 1
+                assert p.rows == ng.RMAX or \
+                    2 * L_ * -(-M // (2 * p.rows)) < sms
+                assert p.threads == 32 * -(-p.rows // 4)
+                assert p.threads <= 32 * ng.STRIP_WARPS
+                seen = np.zeros((L_, M), int)
+                for lat in range(L_):
+                    for b in range(p.strips):
+                        seen[lat, b * p.rows:min(M, (b + 1) * p.rows)] += 1
+                assert (seen == 1).all()
             sp = ng.subjects_plan(L_, 5, 20, M, 4, True, sms)
             rows = np.zeros((L_, 100), int)     # K5: (row share, latent)
             q = -(-100 // sp.cluster)
@@ -381,9 +386,121 @@ def test_strip_plan_and_k5_grid_take_every_entry_once():
             assert sp.cluster == max(1, min(ng.CLUSTER, (sms + ng.GPCS)
                                             // (L_ + ng.GPCS)))
     with pytest.raises(ValueError):
-        ng.strip_plan(2, ng.MAX_M + 1, 132)
+        ng.strip_plan(2, ng.MAX_M + 1, 4, 4, "natgrad_update_pre", 132)
     with pytest.raises(ValueError):
         ng.finish_plan(2, ng.MAX_M + 1, 4, 132)
+
+
+def _butterfly(parts):
+    """The order a warp's butterfly (``warp_sum``, csrc/natgrad.cu) adds
+    its lanes' partials in: each lane's list of terms after the five
+    levels (lane a: its own, then lane a ^ o's, at o = 16 .. 1)."""
+    for o in (16, 8, 4, 2, 1):
+        parts = [parts[a] + parts[a ^ o] for a in range(32)]
+    return parts
+
+
+def _strip_model(M, p, itemsize, aligned):
+    """A model of K6's and K7's walk of one latent (the grid's y takes
+    each latent alike) under plan ``p``: each block (strip of ``p.rows``
+    rows from i0, ``p.threads`` threads) stages its box X[0:M, i0:i0 + nr]
+    (grad_H's in K7) by ``copy_box``'s copies, checked here: 16-byte copies
+    only where their source (a latent base on 16 bytes where ``aligned``)
+    and their place in the box start on 16 bytes, consecutive threads on
+    consecutive units of a piece, each of the box's entries once; warp w
+    takes rows V w .. V w + V - 1 (V a 16-byte unit's entries), its lanes
+    the columns lane, lane + 32, ..., each (row, column) once, each row's
+    sum over the lanes by the butterfly, and reads its rows' transposed
+    entries of box row j as one 16-byte unit, a quarter warp's eight rows
+    j in distinct banks.  Returns the count of each (row, column) written
+    and each row's sum order."""
+    V, bw = 16 // itemsize, ng.box_stride(p.rows, itemsize)
+    written = np.zeros((M, M), int)
+    order = {}
+    assert bw >= p.rows and (bw * itemsize) % 16 == 0
+    assert (bw * itemsize // 16) % 2 == 1
+    assert p.threads == 32 * -(-p.rows // V)
+    for b in range(p.strips):
+        i0 = b * p.rows
+        nr = min(p.rows, M - i0)
+        ok = aligned and (M * itemsize) % 16 == 0 and (i0 * itemsize) % 16 == 0
+        units = nr // V if ok else 0
+        tail = nr - units * V
+        box = np.zeros((M, nr), int)
+        if units:
+            per = p.threads // units
+            for t in range(per * units):
+                u = t % units
+                for j in range(t // units, M, per):
+                    src, dst = j * M + i0 + u * V, j * bw + u * V
+                    assert (src * itemsize) % 16 == 0
+                    assert (dst * itemsize) % 16 == 0
+                    box[j, u * V:(u + 1) * V] += 1
+        if tail:
+            per = p.threads // tail
+            for t in range(per * tail):
+                for j in range(t // tail, M, per):
+                    box[j, units * V + t % tail] += 1
+        assert (box == 1).all()
+        for w in range(p.threads // 32):
+            r0 = w * V
+            if r0 >= nr:
+                continue
+            assert r0 + V <= bw
+            # a quarter warp's 16-byte reads of its rows, eight rows j each
+            for j0 in range(0, M, 8):
+                units_read = [(j * bw + r0) * itemsize // 16 % 8
+                              for j in range(j0, min(M, j0 + 8))]
+                assert len(set(units_read)) == len(units_read)
+            for r in range(r0, min(nr, r0 + V)):
+                i = i0 + r
+                lanes = [list(range(lane, M, 32)) for lane in range(32)]
+                for js in lanes:
+                    written[i, js] += 1
+                sums = _butterfly(lanes)
+                assert all(sorted(t) == sorted(sums[0]) for t in sums)
+                order[i] = sums[0]
+    return written, order
+
+
+@pytest.mark.parametrize("itemsize, state_itemsize", [(4, 4), (8, 8),
+                                                      (8, 4)])
+@pytest.mark.parametrize("L_", [16, 32])
+@pytest.mark.parametrize("M", [5, 16, 37, 120, 300, 512])
+def test_strip_plans_write_each_entry_once(M, L_, itemsize, state_itemsize):
+    """K6's and K7's plans in a model of their walk (``_strip_model``),
+    their box's pieces aligned and not (a latent's base off 16 bytes):
+    every (row, column) of a latent written once, every row sum taking
+    each column once in the butterfly's fixed order, the box covering the
+    strip's columns of every row once with 16-byte copies only where both
+    ends are aligned, conflict-free reads of it; the threads a warp a
+    16-byte unit of rows; the shared bytes the kernel's layout and within
+    227 KB; the rows the most (at most RMAX) that give half the SMs
+    a block and fit."""
+    sms = ng.fusion.GP_SMS
+    for kernel, (arrays, vecs) in ng.STRIP_ARRAYS.items():
+        p = ng.strip_plan(L_, M, itemsize, state_itemsize, kernel, sms)
+        assert p.smem == ng.strip_smem(p.rows, M, itemsize, state_itemsize,
+                                       kernel)
+        assert p.smem == (arrays * -(-p.rows * M * itemsize // 16) * 16
+                          + -(-M * ng.box_stride(p.rows, itemsize)
+                              * itemsize // 16) * 16
+                          + -(-vecs * M * itemsize // 16) * 16
+                          + -(-M * state_itemsize // 16) * 16)
+        assert p.smem <= ng.SMEM_MAX
+        assert p.blocks == L_ * p.strips
+        assert p.threads == ng.strip_threads(p.rows, itemsize)
+        assert p.threads <= 32 * ng.STRIP_WARPS
+        wider = 2 * p.rows
+        assert p.rows == ng.RMAX or 2 * L_ * -(-M // wider) < sms or \
+            ng.strip_smem(wider, M, itemsize, state_itemsize, kernel) \
+            > ng.SMEM_MAX
+        for aligned in (True, False):
+            written, order = _strip_model(M, p, itemsize, aligned)
+            assert (written == 1).all()
+            assert sorted(order) == list(range(M))
+            for i, js in order.items():
+                assert sorted(js) == list(range(M)), i
 
 
 # [L, S, T, M, iB mu made by the kernel]: the canonical batch, a 2 x 2
@@ -556,7 +673,8 @@ def test_constants_match_the_kernels():
     src = CSRC.read_text()
     for name, value in (("NT", ng.THREADS),
                         ("TP", ng.TP), ("CLUSTER", ng.CLUSTER),
-                        ("RMAX", ng.RMAX), ("MAX_M", ng.MAX_M),
+                        ("RMAX", ng.RMAX), ("SWMAX", ng.STRIP_WARPS),
+                        ("MAX_M", ng.MAX_M),
                         ("FT", ng.TILE), ("FH", ng.HALF),
                         ("FWMAX", ng.FINISH_WARPS)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
@@ -583,7 +701,26 @@ def test_constants_match_the_kernels():
     assert ng.SUBJECTS_STATIC == (ng.THREADS + 3) * 8
     assert ng.FINISH_STATIC == (2 * ng.MAX_M + ng.FINISH_WARPS * (
         ng.TILE + ng.HALF)) * 8 + 2 * ng.FINISH_WARPS * 4 + 2 * 8
-    assert src.count("__launch_bounds__(MAX_M)") == 2
+    # K6's and K7's shared bytes and box
+    assert "return ((R * z + 15) / 16 | 1) * 16 / z;" in src
+    assert ("return rows * al16((long)R * M * z) + al16((long)M * "
+            "box_stride(R, z) * z)") in src
+    assert "+ al16((long)vecs * M * z) + al16((long)M * zs);" in src
+    assert "strip_smem(rows, M, itemsize, state_itemsize, 3, 1)" in src
+    assert "strip_smem(rows, M, itemsize, state_itemsize, 2, 2)" in src
+    assert ng.STRIP_ARRAYS == {"natgrad_fwd_latents": (3, 1),
+                               "natgrad_update_pre": (2, 2)}
+    for kernel in ng.STRIP_ARRAYS:   # dynamic shared bytes only
+        body = src[src.index(f"void __launch_bounds__(32 * SWMAX) {kernel}"
+                             "_kernel("):]
+        head = body[:body.index("NG_PHASE_BEGIN")]
+        assert head.count("__shared__") == 1
+        assert "extern __shared__ __align__(16) unsigned char smem_raw[];" \
+            in head
+    assert src.count("__launch_bounds__(32 * SWMAX)") == 2
+    assert ("int strip_threads(int R, int z) { return 32 * ((R * z + 15) "
+            "/ 16); }") in src
+    assert ng.STRIP_WARPS == ng.strip_threads(ng.RMAX, 8) // 32
     assert src.count("__launch_bounds__(NT)") == 1
     assert src.count("__launch_bounds__(FT * FWMAX)") == 1
     # K8's products on the FP64 tensor cores

@@ -1,25 +1,28 @@
-"""Where K5 (``natgrad_fwd_subjects``) and K8 (``natgrad_update_finish``)
-spend a launch, block by block: K5 alone and after the kernels that run
-before it in the train step, K8 alone.
+"""Where the natural-gradient kernels (``csrc/natgrad.cu``) spend a
+launch, block by block: K5 (``natgrad_fwd_subjects``) and K8
+(``natgrad_update_finish``), K6 (``natgrad_fwd_latents``) and K7
+(``natgrad_update_pre``), each alone and after the kernels that run before
+it in the train step.
 
-    python3 tools/natgrad_phases.py [tree ...]
+    python3 tools/natgrad_phases.py [--strips] [tree ...]
 
 ``tree``: checkouts whose ``hlax_torch/csrc/natgrad.cu`` and
 ``hlax_torch/ops/natgrad.py`` are measured (default: this one, and
-``parent/`` where an earlier commit is unpacked there).  Builds each
-tree's ``natgrad.cu`` into ``build/dbg/natgrad/`` as a copy whose kernels
-read the card's ``%globaltimer`` (ns) at each block's start and end and
-its SM's ``clock64`` cycles at the ends of their phases, in thread 0 (the
-``NG_PHASE`` marks of the source; the earlier K5 of a block of 32
-columns, which has none, gets them at the ends of its two loops), each
-phase summed over the chunks and rounds a block takes and read in
-microseconds at the SM's top clock (``nvidia-smi``'s ``clocks.max.sm``;
-under load the clock may be lower and a phase longer than printed).
-Loads the tree's wrapper as a module of its own on that library and, on
-``chip_smoke.bound_case``'s state (float32 and float64; [32,20,20,120]
-the canonical batch, [16,10,20,120] a 2 x 2 mesh rank's), launches K5 on
-the bound's own K0xz, iB (from its iLB), mu and valid three ways, RUNS
-launches each:
+``parent/`` where an earlier commit is unpacked there); ``--strips``: K6
+and K7 only.  Builds each tree's ``natgrad.cu`` into
+``build/dbg/natgrad/`` as a copy whose kernels read the card's
+``%globaltimer`` (ns) at each block's start and end and its SM's
+``clock64`` cycles at the ends of their phases, in thread 0 (the
+``NG_PHASE`` marks of the source; the earlier K6 and K7 of a thread a
+column, which have none, get marks at anchors of their source: the ends
+of their loops and block sums), each phase summed over the chunks and
+rounds a block takes and read in microseconds at the SM's top clock
+(``nvidia-smi``'s ``clocks.max.sm``; under load the clock may be lower and
+a phase longer than printed).  Loads the tree's wrapper as a module of
+its own on that library and, on ``chip_smoke.bound_case``'s state (float32
+and float64; [32,20,20,120] the canonical batch, [16,10,20,120] a 2 x 2
+mesh rank's), launches K5 on the bound's own K0xz, iB (from its iLB), mu
+and valid three ways, RUNS launches each:
 
 - ``warm``: K5 again and again (its inputs in L2);
 - ``cold``: 64 MB written before each launch (its inputs from HBM);
@@ -27,30 +30,50 @@ launches each:
   runs it (``chip_smoke._gp_bound_run``: K1, cuBLAS's products, K2), so
   the L2 holds what those kernels left;
 
-and K8 warm and cold on ``chip_smoke.natgrad_case``'s iLA and rhs of the
-same shape.  For each: the kernel's CUDA-event time (in step: events
-around K5 alone, the launches queued behind a spin kernel), its blocks,
-the spread of their starts, the time from the first start to the last
-end, and each phase's time a block (min / median / max).  K5's phases: 1
-its rows' iB mu (the barriers made, its two bulk copies issued, iB's
-first, mu and valid read, iB's rows landed, their products), 2 the wait
-for its rows of K0xz, 3 the column sums, 4 the sums pushed to their
-owners, the cluster's barrier and ng_P1 written; the earlier K5's: 1 iB
-mu of all the latent's rows (a thread a row), 4 the column sums with
-their K0xz loads, 5 the finish.  K8's: 1 its rows of iLA landed (the
-barriers made, the parts dealt, the copy issued), 2 the products, 3 a
-split task's parts added, 4 its entries written and m_new's parts made
-from them, 5 the parts added into each row's partial and pushed to the
-row's owner, 6 the cluster's barrier and m_new written; the earlier K8
-has none (its event time only).
+K8 warm and cold on ``chip_smoke.natgrad_case``'s iLA and rhs of the same
+shape; K6 on that case's inputs warm, cold and in the step (after
+cuBLAS's ``baddbmm`` and ``bmm`` that make X, writing the X it reads, as
+``natgrad.fwd_latents`` runs them); K7 warm, cold and in the step (after
+the bound's forward and backward, which run between K6 and K7 in the
+step), and with jitter warm and cold.  For each: the kernel's CUDA-event
+time (in step: events around the kernel alone, the launches queued behind
+a spin kernel), its blocks, the spread of their starts, the time from the
+first start to the last end, and each phase's time a block (min / median
+/ max).  K5's phases: 1 its rows' iB mu (the barriers made, its two bulk
+copies issued, iB's first, mu and valid read, iB's rows landed, their
+products), 2 the wait for its rows of K0xz, 3 the column sums, 4 the sums
+pushed to their owners, the cluster's barrier and ng_P1 written.  K8's:
+1 its rows of iLA landed (the barriers made, the parts dealt, the copy
+issued), 2 the products, 3 a split task's parts added, 4 its entries
+written and m_new's parts made from them, 5 the parts added into each
+row's partial and pushed to the row's owner, 6 the cluster's barrier and
+m_new written.  K6's: 1 the copies issued, 2
+landed, 3 the element work and its writes, 4 the row sums, 5 grad_m
+written; K7's: 1, 2 the same, 3 the diagonal's sum (jitter only), 4 the
+element work and writes, 5 the row sums, 6 rhs written.  The earlier K6
+and K7 (a thread a column, their loads inline) have 3 (K7: 4) their loads
+with the element work and writes, then the block sums and the write; K7
+3 its diagonal pre-pass.  For a tree with the earlier K6 and K7 the same
+is printed for a ``coalesced`` build of it, its transposed gathers
+(X[j, i], grad_H[j, i] over a thread's R rows) replaced by reads of the
+same box's bytes in order (eight threads a 32-byte piece; its results
+wrong, its time the point); for a tree with the staged ones, for a ``bulk
+copies`` build, its strip rows one bulk copy each on an mbarrier (thread
+0 makes it with fence.mbarrier_init and issues them; every thread waits
+on it after the block's barrier) in place of every thread's 16-byte
+copies.  A mark adds its cycles in registers; a block writes them once at
+its end.
 
-Then, for this tree only: ``clusters``, K5 and K8 on their plans for a
-cluster of 1 to 4 blocks a latent (the plans' SM count set to give each
-size; float32 and float64, canonical batch), each timed warm and cold in
-turns (1, 2, 3, 4, 4, 3, 2, 1); and ``mma``, the FP64 tensor cores'
-rate by ``mma.sync`` shape on Hopper (m8n8k4, m16n8k4, m16n8k8: 132
-blocks of 128 and 512 threads, each warp 8 chains of 2000 products; the
-m16n8k8 fragments' layout checked against a product on the card).
+Then, for this tree only: ``strips``, K6 and K7 for 4, 8 and 16 rows a
+strip (the most the kernels take; float32 and float64, both shapes),
+warm and cold in turns; ``clusters``, K5 and K8 on
+their plans for a cluster of 1 to 4 blocks a latent (the plans' SM count
+set to give each size; float32 and float64, canonical batch), each timed
+warm and cold in turns (1, 2, 3, 4, 4, 3, 2, 1); and ``mma``, the FP64
+tensor cores' rate by ``mma.sync`` shape on Hopper (m8n8k4, m16n8k4,
+m16n8k8: 132 blocks of 128 and 512 threads, each warp 8 chains of 2000
+products; the m16n8k8 fragments' layout checked against a product on the
+card).
 
 Needs a card and nvcc.
 """
@@ -58,6 +81,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -67,38 +91,59 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 PARENT = os.path.join(ROOT, "parent")
-TREES = ([os.path.abspath(t) for t in sys.argv[1:]] or
+ARGS = sys.argv[1:]
+STRIPS_ONLY = "--strips" in ARGS
+TREES = ([os.path.abspath(t) for t in ARGS if t != "--strips"] or
          [ROOT] + ([PARENT] if os.path.isfile(os.path.join(
              PARENT, "hlax_torch", "csrc", "natgrad.cu")) else []))
 DBG = os.path.join(ROOT, "build", "dbg", "natgrad")
 # the slots a block (its start, six phases, its end), a kernel's blocks'
 # slots, and the instrumented launches whose phases are averaged
 SLOTS, BLOCKS, RUNS = 8, 1 << 12, 5
-KERNELS = {"natgrad_fwd_subjects": 0, "natgrad_update_finish": 1}
+KERNELS = {"natgrad_fwd_subjects": 0, "natgrad_update_finish": 1,
+           "natgrad_fwd_latents": 2, "natgrad_update_pre": 3}
 # the SM clock the phases' cycle counts (clock64, thread 0 of a block) are
 # read at: the card's, by nvidia-smi, at the tool's start
 SM_MHZ = 1980.0
 
 HDR = """
-__device__ unsigned long long ng_phase[2 << 15];
+__device__ unsigned long long ng_phase[4 << 15];
+__shared__ __align__(8) uint64_t ng_bar;     // the bulk copies' variant
 __device__ __forceinline__ unsigned long long ng_gtime() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
+// the coalesced variant's read of box entry r * M + j (R entries a row of
+// rows 0 .. M - 1 from column i0), in place of a thread's gather: the
+// threads j < M of the R rows read each of the box's entries once
+template <typename T>
+__device__ __forceinline__ T ng_coal(const T* p, long base, int M, int R,
+                                     int i0, int r, int j) {
+  const int f = r * M + j, row = f / R, col = i0 + f % R;
+  return row < M && col < M ? p[base + (long)row * M + col] : (T)0;
+}
+// a phase's cycles add up in registers (a mark reads no memory, so it
+// stalls on nothing), written once at the block's end
 #define NG_PHASE_BEGIN(k)                                                  \\
   unsigned long long* ng_ph = ng_phase + (k) * (8 << 12) +                 \\
       ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 8;                   \\
-  long long ng_t = clock64();                                              \\
-  if (threadIdx.x == 0) ng_ph[0] = ng_gtime();
+  long long ng_acc[7] = {0, 0, 0, 0, 0, 0, 0};                             \\
+  const unsigned long long ng_t0 = threadIdx.x == 0 ? ng_gtime() : 0;      \\
+  long long ng_t = clock64();
 #define NG_PHASE(k)                                                        \\
   if (threadIdx.x == 0) {                                                  \\
     const long long ng_n = clock64();                                      \\
-    ng_ph[k] += ng_n - ng_t;                                               \\
+    ng_acc[k] += ng_n - ng_t;                                              \\
     ng_t = ng_n;                                                           \\
   }
 #define NG_PHASE_END                                                       \\
-  if (threadIdx.x == 0) ng_ph[7] = ng_gtime();
+  if (threadIdx.x == 0) {                                                  \\
+    ng_ph[0] = ng_t0;                                                      \\
+    _Pragma("unroll") for (int ng_k = 1; ng_k < 7; ++ng_k)                 \\
+        ng_ph[ng_k] += ng_acc[ng_k];                                       \\
+    ng_ph[7] = ng_gtime();                                                 \\
+  }
 """
 READERS = """
 extern "C" int ng_phase_read(void* dst, int n) {
@@ -110,30 +155,81 @@ extern "C" int ng_phase_zero() {
   return (int)(e ? e : cudaMemset(p, 0, sizeof(ng_phase)));
 }
 """
-# the earlier K5 (a block of 32 columns) has no marks: where they go (each
-# anchor once in its source)
-STRIP_K5_MARKS = [
-    ("  double acc = 0.0;\n", "  double acc = 0.0;\n  NG_PHASE_BEGIN(0)\n"),
-    ("      v[i] = s;\n    }\n    __syncthreads();\n",
-     "      v[i] = s;\n    }\n    __syncthreads();\n    NG_PHASE(1)\n"),
-    ("acc += (double)Kc[(long)i * M] * v[i];\n    }\n    __syncthreads();\n",
-     "acc += (double)Kc[(long)i * M] * v[i];\n    }\n    __syncthreads();\n"
-     "    NG_PHASE(4)\n"),
-    ("    ngP1[(long)l * M + col] = (O)s;\n  }\n}\n",
-     "    ngP1[(long)l * M + col] = (O)s;\n  }\n  NG_PHASE(5)\n"
-     "  NG_PHASE_END\n}\n")]
+# the earlier K6 and K7 (a thread a column) have no marks (a thread a column): the ends of the
+# loads with the element work, of the block sums and of the writes; K7's
+# diagonal pre-pass
+COLUMN_K67_MARKS = [
+    ("  __shared__ double sums[RMAX];\n",
+     "  __shared__ double sums[RMAX];\n  NG_PHASE_BEGIN(2)\n"),
+    ("  block_sum(p, blockDim.x >> 5, red, sums);\n",
+     "  NG_PHASE(3)\n  block_sum(p, blockDim.x >> 5, red, sums);\n"
+     "  NG_PHASE(4)\n"),
+    ("  if (j < R && i0 + j < M) gm[(long)l * M + i0 + j] = (T)sums[j];\n}\n",
+     "  if (j < R && i0 + j < M) gm[(long)l * M + i0 + j] = (T)sums[j];\n"
+     "  NG_PHASE(5)\n  NG_PHASE_END\n}\n"),
+    ("  __shared__ double sums[2 * RMAX];\n",
+     "  __shared__ double sums[2 * RMAX];\n  NG_PHASE_BEGIN(3)\n"),
+    ("    shift = (T)jitter * (T)(sums[0] / M);\n  }\n",
+     "    shift = (T)jitter * (T)(sums[0] / M);\n  }\n  NG_PHASE(3)\n"),
+    ("  block_sum(p, nw, red, sums);\n",
+     "  NG_PHASE(4)\n  block_sum(p, nw, red, sums);\n  NG_PHASE(5)\n"),
+    ("2.0 * sums[RMAX + j]));\n}\n",
+     "2.0 * sums[RMAX + j]));\n  NG_PHASE(6)\n  NG_PHASE_END\n}\n")]
+# the strip kernels' strip rows as one bulk copy each (thread 0, after
+# making an mbarrier with fence.mbarrier_init; every thread waits on it
+# after the block's barrier) in place of every thread's 16-byte copies:
+# the form before this one
+BULK_COPIES = [
+    ("#pragma unroll\n  for (int k = 0; k < N; ++k) {\n"
+     "    const T* from = src[k] + (size_t)i0 * M;\n    if (aligned)\n",
+     "  if (threadIdx.x == 0) {\n    mbar_init(&ng_bar);\n"
+     "    asm volatile(\"fence.mbarrier_init.release.cluster;\\n\" ::: "
+     "\"memory\");\n"
+     "    mbar_arrive_tx(&ng_bar, aligned ? (uint32_t)(N * run * sizeof(T))"
+     " : 0u);\n"
+     "    if (aligned)\n      for (int k = 0; k < N; ++k)\n"
+     "        bulk_copy(dst[k], src[k] + (size_t)i0 * M,\n"
+     "                  (uint32_t)(run * sizeof(T)), &ng_bar);\n  }\n"
+     "#pragma unroll\n  for (int k = 0; k < N; ++k) {\n"
+     "    const T* from = src[k] + (size_t)i0 * M;\n"
+     "    if (aligned) continue;\n    if (false)\n"),
+    ("  cp_async_wait_all();\n  __syncthreads();\n}\n",
+     "  cp_async_wait_all();\n  __syncthreads();\n"
+     "  mbar_wait(&ng_bar, 0u);\n}\n")]
+# the coalesced variant of the earlier K6 and K7: their gathers
+COALESCED = [("X[base + (long)j * M + i]", "ng_coal(X, base, M, R, i0, r, j)"),
+             ("gH[base + (long)j * M + i]",
+              "ng_coal(gH, base, M, R, i0, r, j)")]
 SHAPES = [(32, 20, 20, 120), (16, 10, 20, 120)]
 
 
-def instrumented(tree: str, out: str) -> str:
+def _anchor(src: str, path: str, marks) -> str:
+    for anchor, marked in marks:
+        if src.count(anchor) != 1:
+            sys.exit(f"FAIL: {path}: no NG_PHASE marks, and not the "
+                     f"earlier kernel ({anchor.strip()!r})")
+        src = src.replace(anchor, marked)
+    return src
+
+
+def column_k67(tree: str) -> bool:
+    """Whether the tree's K6 and K7 are the earlier ones, a thread a column
+    (no NG_PHASE marks of their own)."""
+    path = os.path.join(tree, "hlax_torch", "csrc", "natgrad.cu")
+    return "NG_PHASE_BEGIN(2)" not in open(path).read()
+
+
+def instrumented(tree: str, out: str, variant: str = "") -> str:
+    """The tree's natgrad.cu with the marks (and ``variant``: "coalesced",
+    the earlier K6 and K7's; "bulk copies", the strip kernels') in
+    ``out``."""
     path = os.path.join(tree, "hlax_torch", "csrc", "natgrad.cu")
     src = open(path).read()
-    if "NG_PHASE_BEGIN" not in src:
-        for anchor, marked in STRIP_K5_MARKS:
-            if src.count(anchor) != 1:
-                sys.exit(f"FAIL: {path}: no NG_PHASE marks, and not the "
-                         f"earlier K5 ({anchor.strip()!r})")
-            src = src.replace(anchor, marked)
+    if column_k67(tree):
+        src = _anchor(src, path, COLUMN_K67_MARKS)
+    if variant:
+        src = _anchor(src, path, {"coalesced": COALESCED,
+                                  "bulk copies": BULK_COPIES}[variant])
     src = src.replace("#include <stdint.h>\n", "#include <stdint.h>\n" + HDR,
                       1) + READERS
     os.makedirs(out, exist_ok=True)
@@ -153,9 +249,9 @@ def phases(lib, entry, run, prelude, ms, tag):
             prelude()
         run()
     torch.cuda.synchronize()
-    buf = np.zeros(2 * SLOTS * BLOCKS, dtype=np.uint64)
+    buf = np.zeros(len(KERNELS) * SLOTS * BLOCKS, dtype=np.uint64)
     assert lib.ng_phase_read(ctypes.c_void_p(buf.ctypes.data),
-                             2 * SLOTS * BLOCKS) == 0
+                             len(KERNELS) * SLOTS * BLOCKS) == 0
     base = KERNELS[entry] * SLOTS * BLOCKS
     ph = buf[base:base + SLOTS * BLOCKS].reshape(-1, SLOTS).astype(np.int64)
     ph = ph[ph[:, 0] > 0]
@@ -176,6 +272,39 @@ def phases(lib, entry, run, prelude, ms, tag):
           + f" on {cs.card_line()}", flush=True)
 
 
+def in_step_ms(run, prelude) -> float:
+    """``run``'s event time after ``prelude``, the median of 20: events
+    around the kernel alone, all queued behind a spin kernel that outlasts
+    their enqueueing (three times the host's time for it after a first
+    call, 2 to 200 ms), so no event waits on the host."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    prelude()               # first calls build and cache
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prelude()
+    run()
+    spin = min(0.2, max(2e-3, 3 * (time.perf_counter() - t0)))
+    torch.cuda.synchronize()
+    out = []
+    for i in range(23):
+        torch.cuda._sleep(int(spin * cs.SPIN_CYCLES_PER_S))
+        prelude()
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            out.append(start.elapsed_time(end))
+    return float(np.median(out))
+
+
+def _flush():
+    flush = torch.empty(cs.COLD_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    return flush, lambda: flush.fill_(1.0)
+
+
 def measure(ng, lib, shape, dtype):
     """K5 warm, cold and in the step on the bound case's inputs; K8 warm
     and cold on natgrad_case's."""
@@ -187,27 +316,12 @@ def measure(ng, lib, shape, dtype):
     (entry, like, args), = cs._launches_of(ng, lambda: ng.fwd_subjects(
         iB, mu, valid, K0xz, K0xz.dtype))
     run = lambda: ng._launch(entry, like, *args)
-    flush = torch.empty(cs.COLD_BYTES // 4, dtype=torch.float32,
-                        device="cuda")
-    cold = lambda: flush.fill_(1.0)
+    flush, cold = _flush()
     bound = lambda: cs._gp_bound_run(True, case, False, grads=False)
-    # K5's event time in the step: events around it alone, after the
-    # bound, all queued behind a spin kernel (no wait on the host between)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    step_ms = []
-    for i in range(23):
-        torch.cuda._sleep(int(2e-3 * cs.SPIN_CYCLES_PER_S))
-        bound()
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-        if i >= 3:
-            step_ms.append(start.elapsed_time(end))
     for how, prelude, ms in (
             ("warm", None, cs.time_ms(run)[0]),
             ("cold", cold, cs.time_cold_ms(run)),
-            ("in step", bound, float(np.mean(step_ms)))):
+            ("in step", bound, in_step_ms(run, bound))):
         phases(lib, entry, run, prelude, ms, f"{tag} {how}")
     nc = cs.natgrad_case(*shape, dtype)
     (entry, like, args), = cs._launches_of(ng, lambda: ng.update_finish(
@@ -217,6 +331,89 @@ def measure(ng, lib, shape, dtype):
                              ("cold", cold, cs.time_cold_ms(run))):
         phases(lib, entry, run, prelude, ms, f"{tag} {how}")
     del flush, case, nc
+
+
+def measure_strips(ng, lib, shape, dtype, label=""):
+    """K6 warm, cold and in the step (after the products that write its
+    X); K7 warm, cold and in the step (after the bound's forward and
+    backward), and with jitter warm and cold; on natgrad_case's inputs."""
+    L, _, _, M = shape
+    tag = f"[{L}, {M}, {M}] {str(dtype).removeprefix('torch.')}{label}"
+    nc = cs.natgrad_case(*shape, dtype)
+    flush, cold = _flush()
+    (e6, l6, a6), = cs._launches_of(ng, lambda: ng.latents(*nc["latents"]))
+    gen = torch.Generator("cuda").manual_seed(0)
+    A, C = (0.1 * torch.randn((L, M, M), generator=gen, dtype=dtype,
+                              device="cuda") for _ in range(2))
+    X = torch.empty_like(a6[2])
+    products = lambda: torch.bmm(A.mT, torch.baddbmm(A, C, A), out=X)
+    products()
+    args6 = a6[:2] + (X,) + a6[3:]
+    run = lambda: ng._launch(e6, l6, *args6)
+    for how, prelude, ms in (
+            ("warm", None, cs.time_ms(run)[0]),
+            ("cold", cold, cs.time_cold_ms(run)),
+            ("in step", products, in_step_ms(run, products))):
+        phases(lib, e6, run, prelude, ms, f"{tag} {how}")
+    case = cs.bound_case(*shape, dtype)
+    backward = lambda: cs._gp_bound_run(True, case, False)
+    for jitter in (0.0, cs.NATGRAD_JITTER):
+        (e7, l7, a7), = cs._launches_of(ng, lambda: ng.update_pre(
+            *nc["pre"], cs.NATGRAD_LR, jitter))
+        run = lambda: ng._launch(e7, l7, *a7)
+        conds = [("warm", None, cs.time_ms(run)[0]),
+                 ("cold", cold, cs.time_cold_ms(run))]
+        if not jitter:
+            conds.append(("in step", backward, in_step_ms(run, backward)))
+        for how, prelude, ms in conds:
+            phases(lib, e7, run, prelude, ms,
+                   f"{tag} jitter {jitter:g} {how}")
+    del flush, case, nc
+
+
+# the rows a strip the sweep takes (at most the kernels' RMAX)
+SWEEP_ROWS = (4, 8, 16)
+# the strips' rows and shared bytes by argument of K6's and K7's C entries
+PLAN_ARG = {"natgrad_fwd_latents": 11, "natgrad_update_pre": 10}
+
+
+def strip_sweep(ng, dtype):
+    """K6 and K7 for each strip of rows a block (SWEEP_ROWS, where the
+    shared bytes fit), warm and cold in turns (the rows ascending, then
+    descending)."""
+    for shape in SHAPES:
+        L, _, _, M = shape
+        nc = cs.natgrad_case(*shape, dtype)
+        calls = cs._launches_of(ng, lambda: (
+            ng.latents(*nc["latents"]),
+            ng.update_pre(*nc["pre"], cs.NATGRAD_LR, 0.0)))
+        for entry, like, args in calls:
+            runs, ms, i = {}, {}, PLAN_ARG[entry]
+            for rows in SWEEP_ROWS:
+                smem = ng.strip_smem(rows, M, args[0], args[1], entry)
+                if smem > ng.SMEM_MAX:
+                    continue
+                a = args[:i] + (rows, smem) + args[i + 2:]
+                runs[rows] = lambda a=a: ng._launch(entry, like, *a)
+                ms[rows] = []
+            order = sorted(runs) + sorted(runs, reverse=True)
+            for rows in order:
+                ms[rows].append((cs.time_ms(runs[rows])[0],
+                                 cs.time_cold_ms(runs[rows])))
+            plan = ng.strip_plan(L, M, args[0], args[1], entry,
+                                 ng._sms(like))
+            print(f"[strips] {entry} [{L}, {M}, {M}] "
+                  f"{str(dtype).removeprefix('torch.')}, ms warm; L2-cold by "
+                  "rows a block (turns ascending, descending): "
+                  + "; ".join(f"{r} ({-(-M // r) * L} blocks of "
+                              f"{ng.strip_threads(r, args[0])} threads): "
+                              + ", ".join(f"{w:.5f}" for w, _ in ms[r])
+                              + "; " + ", ".join(f"{c:.5f}" for _, c in ms[r])
+                              for r in sorted(runs))
+                  + f" (the plan's: {plan.rows}) on {cs.card_line()}",
+                  flush=True)
+        del nc
+        torch.cuda.empty_cache()
 
 
 MMA_SRC = r"""
@@ -375,19 +572,30 @@ def main():
     print(f"[phases] phases' cycles read at the SM clock's {SM_MHZ:.0f} MHz",
           flush=True)
     for i, tree in enumerate(TREES):
-        out = os.path.join(DBG, str(i))
-        ng, lib, log = cs.tree_ops(tree, "natgrad", out,
-                                   src=instrumented(tree, out))
-        lib.ng_phase_zero.restype = ctypes.c_int
-        cs._ptxas_report("phases", "natgrad (instrumented)", log,
-                         only="natgrad_")
-        print(f"[phases] tree {tree}", flush=True)
-        for dtype in (torch.float32, torch.float64):
-            for shape in SHAPES:
-                measure(ng, lib, shape, dtype)
-                torch.cuda.empty_cache()
+        variants = [""] + (["coalesced"] if column_k67(tree) else
+                           ["bulk copies"])
+        for k, variant in enumerate(variants):
+            label = f" {variant}" if variant else ""
+            out = os.path.join(DBG, f"{i}.{k}")
+            ng, lib, log = cs.tree_ops(tree, "natgrad", out,
+                                       src=instrumented(tree, out, variant))
+            lib.ng_phase_zero.restype = ctypes.c_int
+            cs._ptxas_report("phases", f"natgrad (instrumented{label})", log,
+                             only="natgrad_")
+            print(f"[phases] tree {tree}{label}", flush=True)
+            for dtype in (torch.float32, torch.float64):
+                for shape in SHAPES:
+                    if not (STRIPS_ONLY or variant):
+                        measure(ng, lib, shape, dtype)
+                    measure_strips(ng, lib, shape, dtype, label)
+                    torch.cuda.empty_cache()
     from hlax_torch.ops import natgrad as ng
 
+    if hasattr(ng, "strip_smem"):
+        for dtype in (torch.float32, torch.float64):
+            strip_sweep(ng, dtype)
+    if STRIPS_ONLY:
+        return
     for dtype in (torch.float32, torch.float64):
         cluster_sweep(ng, dtype)
     mma_rates()
