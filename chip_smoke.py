@@ -27,7 +27,8 @@ CLI's does (unset: "default", TF32 in the VAE, the GP in full float32).
 Phases (each prints its own lines; any failure exits non-zero):
   1. build   nvcc builds hlax_torch/csrc/*.cu for sm_90a, in parallel, and
              prints each kernel's registers, stack frame and spill; a
-             spill in the float64 blocked mid kernel, or a spill or a stack
+             spill in the float64 blocked mid kernel or in the mid
+             pullback's kernels (MID_BWD_INSTANCES), or a spill or a stack
              frame in any of the GP kernel matrix's instantiations
              (GP_INSTANCES), the staged kernels' (STAGED_INSTANCES: the
              cat and the real head's forward and backward, the
@@ -46,7 +47,13 @@ Phases (each prints its own lines; any failure exits non-zero):
              the small kernel and the mid kernel's n <= 32 path bit for bit,
              the mid kernel's blocked path (its float64 kernel, with its
              plan: threads, shared memory) and the backward kernel within
-             4x their plain versions' own error plus 1e-12.  With the
+             4x their plain versions' own error plus 1e-12.  The mid
+             pullback (csrc/chol_inv_mid_bwd.cu: three launches a call) at
+             MID_BWD_SHAPES in both dtypes on random and one-zero
+             cotangents, float32 against float64 (4x the plain version's
+             error), float64 within 1e-10 of the plain version's largest
+             entry, one launch captured in a CUDA graph, each shape timed
+             warm and L2-cold beside its bound and the plain chain.  With the
              kernel sources of an earlier commit unpacked under parent/
              (PARENT_CSRC), its mid kernel is built beside the current one
              and both are timed in turns (parent, change, change, parent),
@@ -312,10 +319,10 @@ CONFIG = os.path.join(ROOT, "configs", "hlvae_config_file.txt")
 # cat(5) ones (``hlax_torch.data.generate.quantized_regions("D4")``)
 CANONICAL_N_EXP = 324 + 5 * 972
 
-# H100 SXM data sheet peaks (dense, no sparsity; float64 outside the
-# tensor cores)
+# H100 SXM data sheet peaks (dense, no sparsity; float32 outside the
+# tensor cores, float64 on them: the GP runs no TF32)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 # H100 SXM boost clock: sizes the spin kernel that time_ms queues first
 SPIN_CYCLES_PER_S = 1.98e9
 
@@ -483,8 +490,8 @@ GP_BOUND_KERNELS = ("gp_bound_fwd_subjects", "gp_bound_fwd_latents",
 NATGRAD_KERNELS = ("natgrad_fwd_subjects", "natgrad_fwd_latents",
                    "natgrad_update_pre", "natgrad_update_finish")
 # every kernel library, one nvcc each, all started together
-LIBRARIES = ("chol_inv_small", "chol_inv_mid", "chol_inv_bwd", "fusion",
-             "gp_bound", "natgrad")
+LIBRARIES = ("chol_inv_small", "chol_inv_mid", "chol_inv_bwd",
+             "chol_inv_mid_bwd", "fusion", "gp_bound", "natgrad")
 # every instantiation of the GP kernel matrix's kernels (csrc/fusion.cu):
 # by scalar, vector width (the flat kernels), rbf factors a component may
 # have (the backwards) and compiled shape (0 any spec, 1 and 2 the
@@ -525,11 +532,16 @@ NATGRAD_INSTANCES = tuple(
         ("float", "float"), ("double", "double"), ("float", "double"))]
     + [f"{k}_kernel<{a},{b}>" for k in NATGRAD_KERNELS[1:] for a, b in (
         ("float", "float"), ("double", "double"), ("double", "float"))])
+# the mid pullback's three kernels in float and double
+MID_BWD_INSTANCES = tuple(f"chol_inv_mid_bwd_{k}_kernel<{t}>"
+                          for k in ("fold", "project", "sym")
+                          for t in ("float", "double"))
 # the kernels that must not spill, by library, and whether a stack frame
-# fails them too: the float64 blocked mid kernel, every GP kernel, the
-# staged kernels, the bound's subject and latent kernels, the
-# natural-gradient kernels
+# fails them too: the float64 blocked mid kernel, the mid pullback's
+# kernels, every GP kernel, the staged kernels, the bound's subject and
+# latent kernels, the natural-gradient kernels
 NO_SPILL = ([("chol_inv_mid", "chol_inv_mid_blocked64_kernel", False)]
+            + [("chol_inv_mid_bwd", k, False) for k in MID_BWD_INSTANCES]
             + [("fusion", k, True) for k in GP_INSTANCES + STAGED_INSTANCES]
             + [("gp_bound", k, True) for k in SUBJECT_INSTANCES
                + LATENT_INSTANCES]
@@ -638,7 +650,8 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [phase_small_kernel(gen), *phase_mid_kernel(gen),
             phase_bwd_kernel(gen), phase_small_kernel_f64(gen),
-            *phase_mid_kernel_f64(gen), phase_bwd_kernel_f64(gen)]
+            *phase_mid_kernel_f64(gen), phase_bwd_kernel_f64(gen),
+            *phase_mid_bwd_kernel(gen)]
     phase_mid_parent(gen)
     return rows
 
@@ -836,10 +849,20 @@ def phase_mid_kernel(gen):
     return rows
 
 
+def _bwd_flops(n: int) -> int:
+    """Flops of ``_bwd_reference`` on one n x n matrix, counting only the
+    products' terms that triangular L and L^-1 leave nonzero: S's lower
+    triangle, the tril fold, P's lower triangle, Y = P L^-1 (lower) and all
+    of X = L^-T Y, each multiply-add 2."""
+    tri = n * (n + 1) * (n + 2) // 6          # each of the four triangles
+    x = n * (n + 1) * (2 * n + 1) // 6        # X[i, j]: n - max(i, j) terms
+    return 2 * (4 * tri + x)
+
+
 def _bwd_bound_ms(batch: int, n: int, dtype=torch.float32):
     size = torch.finfo(dtype).bits // 8
     nbytes = 5 * batch * n * n * size         # L, L^-1, both cotangents, A_bar
-    flops = 10 * batch * n ** 3               # five n x n products
+    flops = batch * _bwd_flops(n)             # about 2 n^3 a matrix
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1242,6 +1265,123 @@ def phase_bwd_kernel_f64(gen):
                      worst, _bwd_bound_ms(int(np.prod(batch)), n, f64))
 
 
+# the mid pullback's shapes: K0zz with H (the canonical step's), the
+# natural-gradient inverse's batch (a 2 x 2 mesh rank's K0zz with H), the
+# long sequences' diagonal blocks at T = 200 and 500, [reference]'s toy
+# M = 30 (the mid kernel's warp path); the shapes a main path launches get
+# rows in the kernel table, by dtype
+MID_BWD_SHAPES = [((64,), 120), ((32,), 120), ((32, 4), 100), ((32, 2), 125),
+                  ((16,), 30)]
+MID_BWD_TABLE = {torch.float32: {((64,), 120), ((32, 4), 100),
+                                 ((32, 2), 125)},
+                 torch.float64: {((64,), 120)}}
+# the mid pullback's float64 bar: within F64_MID_BWD of the plain version's
+# largest entry
+F64_MID_BWD = 1e-10
+
+
+def phase_mid_bwd_kernel(gen):
+    """The mid pullback's kernels (csrc/chol_inv_mid_bwd.cu) at
+    MID_BWD_SHAPES in float32 and float64, on (L, L^-1) from the mid kernel
+    and its Newton step, with random cotangents and with each one zero:
+    float32 within ERR_FACTOR times the plain version's error against
+    float64 plus ERR_ABS of the largest entry, float64 within F64_MID_BWD
+    of the plain version's largest entry, exact zeros above the diagonal;
+    one launch captured in a CUDA graph replays the eager call bit for bit.
+    Each shape timed warm and L2-cold beside its bound and the plain
+    chain's time.  Returns the kernel table's rows (MID_BWD_TABLE); the
+    launches made here are not counted."""
+    from hlax_torch.ops import linalg_small as ls
+
+    before = ls._COUNTERS.snapshot()
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).removeprefix("torch.")
+        for batch, n in MID_BWD_SHAPES:
+            tag = f"{_tag('chol_inv_mid_bwd_cuda', batch, n)} {dname}"
+            b = int(np.prod(batch))
+            l, il = ls.chol_inv_mid_cuda(random_spd(batch, n, gen).to(dtype))
+            il = ls._refine_tri_inverse(l, il)
+            worst = 0.0
+            for kind in ("random", "L^-1_bar = 0", "L_bar = 0"):
+                lb = torch.randn(l.shape, generator=gen, device="cuda",
+                                 dtype=dtype)
+                ilb = torch.randn(l.shape, generator=gen, device="cuda",
+                                  dtype=dtype)
+                if kind == "L^-1_bar = 0":
+                    ilb.zero_()
+                elif kind == "L_bar = 0":
+                    lb.zero_()
+                got = ls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)
+                torch.cuda.synchronize()
+                plain = ls._chol_inv_bwd_plain(
+                    l, il, lb, ilb, "chol_inv_mid_bwd_plain")
+                if not torch.isfinite(got).all() or torch.triu(got, 1).any():
+                    fail(f"{tag} {kind}: non-finite A_bar or entries above "
+                         "the diagonal")
+                if dtype == torch.float64:
+                    err = (got - plain).abs().max().item()
+                    scale = plain.abs().max().item()
+                    bar = F64_MID_BWD * scale
+                    print(f"[kernels] {tag} {kind}: max|kernel-plain| "
+                          f"{err:.3e}, bar {bar:.3e} ({F64_MID_BWD:g} of "
+                          f"max|A_bar| {scale:.3e})", flush=True)
+                else:
+                    want = ls._bwd_reference(l.double(), il.double(),
+                                             lb.double(), ilb.double())
+                    err = (got.double() - want).abs().max().item()
+                    err_plain = (plain.double() - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    bar = ERR_FACTOR * err_plain + ERR_ABS * scale
+                    print(f"[kernels] {tag} {kind}: max|kernel-f64| "
+                          f"{err:.3e}, max|plain-f64| {err_plain:.3e}, bar "
+                          f"{bar:.3e}, max|A_bar| {scale:.3e}", flush=True)
+                if err > bar:
+                    fail(f"{tag} {kind}: error {err:.3e} exceeds its bar "
+                         f"{bar:.3e}")
+                worst = max(worst, err)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = ls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)
+            lb.copy_(torch.randn(l.shape, generator=gen, device="cuda",
+                                 dtype=dtype))
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(out, ls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)):
+                fail(f"{tag}: the captured launch's replay differs from the "
+                     "eager call")
+            del graph, out
+
+            def kernel():
+                ls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)
+
+            def plain_chain():
+                ls._chol_inv_bwd_plain(
+                    l, il, lb, ilb, "chol_inv_mid_bwd_plain")
+            ms, wall = time_ms(kernel)
+            cold = time_cold_ms(kernel)
+            plain_ms = time_ms(plain_chain, reps=20)[0]
+            bound, by = _bwd_bound_ms(b, n, dtype)
+            plan = ls.mid_bwd_launch_plan(n, b, l.element_size())
+            print(f"[kernels] {tag}: graph replay equals eager; kernel "
+                  f"{ms:.5f} ms warm, {cold:.5f} ms L2-cold ({wall:.4f} ms a "
+                  f"call on the host clock), plain {plain_ms:.5f} ms, "
+                  f"library none, bound {bound:.5f} ms ({by}); plan "
+                  f"{plan.grid_ab} + {plan.grid_ab} + {plan.grid_c} blocks, "
+                  f"{plan.smem_ab} and {plan.smem_c} bytes of shared memory "
+                  f"on {card_line()}", flush=True)
+            if (batch, n) in MID_BWD_TABLE[dtype]:
+                rows.append(dict(
+                    name="chol_inv_mid_bwd_cuda", shape=list(batch + (n, n)),
+                    dtype=dname, route="cuda",
+                    source="hlax_torch/csrc/chol_inv_mid_bwd.cu",
+                    replaces="hlax/ops/linalg_small.py:662", launches=0,
+                    max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None))
+    ls._COUNTERS.take_since(before)
+    return rows
+
+
 def write_canonical_data(dest: str) -> None:
     """Generated Health-MNIST D4 splits (200 subjects x 20 timepoints, 25%
     missing, seeds 100, 101, 102) under the canonical config's file names,
@@ -1348,6 +1488,10 @@ def phase_reference(tmp: str, dtype=torch.float32, seed: int = 0,
             shape[-1], 1).path == "warp" for name, shape, _ in
                ls.LAUNCHES_BY_SHAPE):
         fail("the card's M=30 steps did not take the mid kernel's warp path")
+    if ls.LAUNCHES_BY_SHAPE.get(("chol_inv_mid_bwd_cuda", (16, 30, 30),
+                                 want), 0) < 4:
+        fail(f"the card's M=30 {dtype} steps did not go through the mid "
+             "pullback's kernels")
     from hlax_torch.ops import natgrad
     if any(natgrad.LAUNCHES[f"{k}_cuda"] < 4 for k in NATGRAD_KERNELS) or \
             any(natgrad.PLAIN_CUDA_CALLS.values()):
@@ -1392,6 +1536,10 @@ def phase_slice(tmp: str):
         fail(f"small Cholesky kernel launched fewer than {steps} times")
     if launches["chol_inv_bwd_cuda"] < steps:
         fail(f"backward kernel launched fewer than {steps} times")
+    if by_shape.get(("chol_inv_mid_bwd_cuda", (64, 120, 120),
+                     "float32"), 0) < steps:
+        fail(f"the mid pullback launched fewer than {steps} times on K0zz "
+             "with H")
     eval_mid = launches["chol_inv_mid_cuda"] - MID_PER_STEP * steps
     if eval_mid <= 0:
         fail("the mid Cholesky kernel was not launched in validation/tests")
@@ -1650,13 +1798,23 @@ def _region_of(e, seq_region) -> str:
     return "other"
 
 
+# the CUDA API calls (cuda*, cu*) that launch a kernel or a copy outside a
+# graph (cudaLaunchKernel, cuLaunchKernelEx, cudaMemcpyAsync, cudaMemsetAsync,
+# ...); a graph launch and every other call (synchronizations, events,
+# queries) make no kernel of their own
+LAUNCH_CALL = re.compile(r"cu(da)?(Launch|Memcpy|Memset)(?!.*Graph).*")
+
+
 def region_table(prof) -> dict:
     """{kernel name: {region: [launches, device us]}} of a profile of eager
-    steps: each kernel goes to the region of the host operation that
-    launched it (``_region_of``); a kernel launched with no operation
-    around it (a ctypes launch outside an autograd Function: the recon
-    metric's) to the innermost region whose range holds its runtime
-    launch call on the host clock; {} for a tree without the regions (an
+    steps, each device kernel (and copy) counted once, by its correlation
+    id: the CUDA API call that launched it (``LAUNCH_CALL``) has
+    that id and is a host event in the profile's tree under the operation,
+    the autograd node or the range that made it, and the kernel goes to
+    that call's region (``_region_of``).  This also finds a launch outside
+    any operation, a ctypes launch such as the recon metric's.  A kernel
+    whose call the profile lacks, or a graph replay's (its host operations
+    ran at capture), is in no row.  {} for a tree without the regions (an
     earlier commit's, ``rate`` mode)."""
     try:
         from hlax_torch.profiling import REGIONS
@@ -1673,41 +1831,18 @@ def region_table(prof) -> dict:
             a = a.cpu_parent
         if a is not None and a.name not in ("backward", "adam"):
             seq_region.setdefault(e.sequence_nr, a.name)
+    calls = {e.id: e for e in events if str(e.device_type).endswith("CPU")
+             and e.id > 0 and LAUNCH_CALL.fullmatch(e.name)}
     table = {}
-
-    def add(name, region, us):
-        r = table.setdefault(name, {}).setdefault(region, [0, 0.0])
+    for e in events:
+        call = calls.get(e.id)
+        if call is None or not str(e.device_type).endswith("CUDA") or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        region = _region_of(call, seq_region)
+        r = table.setdefault(e.name, {}).setdefault(region, [0, 0.0])
         r[0] += 1
-        r[1] += us
-
-    linked = set()
-    for e in events:
-        for k in getattr(e, "kernels", ()):
-            add(k.name, _region_of(e, seq_region), k.duration)
-        if getattr(e, "kernels", ()):
-            linked.add(e.id)
-    # the rest: device kernels whose linked host operation is none of the
-    # profile's, through the runtime call (same correlation id) that
-    # launched them
-    cpu = [e for e in events if str(e.device_type).endswith("CPU")]
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in cpu if e.name in REGIONS
-                    and e.name not in ("backward", "adam"))
-    runtime = {e.id: e for e in cpu if e.name.startswith("cuda")
-               and "Launch" in e.name}
-    for e in events:
-        if not str(e.device_type).endswith("CUDA") or getattr(
-                e, "is_user_annotation", False):
-            continue
-        if getattr(e, "linked_correlation_id", 0) in linked:
-            continue
-        call = runtime.get(e.id)
-        if call is None:
-            continue
-        t = call.time_range.start
-        inner = [r for r in ranges if r[0] <= t <= r[1]]
-        if inner:     # the innermost: the latest to start
-            add(e.name, max(inner)[2], e.time_range.elapsed_us())
+        r[1] += e.time_range.elapsed_us()
     return table
 
 
@@ -1787,10 +1922,12 @@ def _profile_steps(tag: str, run, steps: int, calls: int = 5,
                   f"{t / busy:.2%} of the device time: {name}", flush=True)
     own = region_table(prof)
     regions = None
-    # graph replays launch no host operations: a profile of them alone
-    # reads its regions from an eager profile's table, or prints none
+    # graph replays launch no host operations: a profile of them reads its
+    # regions from an eager profile's table, or prints none
     own_us = sum(t for r in own.values() for _, t in r.values())
-    if table or own_us >= 0.5 * busy:
+    replays = any(str(e.device_type).endswith("CPU") and "GraphLaunch" in
+                  e.name for e in prof.events())
+    if table or (not replays and own_us >= 0.5 * busy):
         regions = _print_regions(
             tag, by_name, steps, own if table is None else table,
             "this profile's host events" if table is None else
@@ -1914,6 +2051,7 @@ def phase_f64(data_dir: str, tmp: str):
           ("chol_inv_mid_cuda", k2, "float64"): 10,
           ("chol_inv_mid_cuda", m, "float64"): 10,
           ("chol_inv_mid_cuda", (32, 256, 32, 32), "float64"): 1,
+          ("chol_inv_mid_bwd_cuda", k2, "float64"): 10,
           **natgrad_need(32, 20, 20, 120, "float64", "float64", 20)}),
         ("nat_grad_f64", dict(nat_grad_f64=True),
          {("chol_inv_small_cuda", b, "float32"): 10,
@@ -1921,6 +2059,7 @@ def phase_f64(data_dir: str, tmp: str):
           ("chol_inv_mid_cuda", k2, "float32"): 10,
           ("chol_inv_mid_cuda", k2, "float64"): 10,
           ("chol_inv_mid_cuda", m, "float64"): 10,
+          ("chol_inv_mid_bwd_cuda", k2, "float32"): 10,
           **natgrad_need(32, 20, 20, 120, "float32", "float64", 20)}),
     ]
     counts = {}
@@ -2080,6 +2219,8 @@ def phase_long_t(tmp: str):
         _need(tag, by_shape, {
             ("chol_inv_mid_cuda", (32, S, sizes[0], sizes[0]), "float32"):
                 6 * len(sizes),
+            ("chol_inv_mid_bwd_cuda", (32, S, sizes[0], sizes[0]),
+             "float32"): 6 * len(sizes),
             ("chol_inv_mid_cuda", (32, sb, 128, 128), "float32"):
                 2 * nb // 128,
             **{(f"gp_bound_{k}_subjects_cuda", (32, S, T, 120), "float32"): 6
@@ -2190,6 +2331,7 @@ def phase_mlp(data_dir: str, tmp: str):
         ("chol_inv_small_cuda", (32, 20, 20, 20), "float32"): 30,
         ("chol_inv_bwd_cuda", (32, 20, 20, 20), "float32"): 30,
         ("chol_inv_mid_cuda", (64, 120, 120), "float32"): 30,
+        ("chol_inv_mid_bwd_cuda", (64, 120, 120), "float32"): 30,
         ("heads_cat_fwd_cuda", (400, 1296, 5), "float32"): 30,
         ("heads_real_bwd_cuda", (400, 1296, 5), "float32"): 30,
         ("recon_metric_cuda", rows_mlp, "float32"): 30,
@@ -4411,7 +4553,8 @@ def _rate_long_t() -> dict:
     """[parent]'s T = 200 cell ([longT]'s first: 40 subjects, 4 a batch,
     the conv model, float32): steps/s of 2 rounds of 3 epochs on the graph
     path after 2 warm-up epochs, then device busy ms, kernels a step and
-    the idle share under the profiler."""
+    the idle share under the profiler, and an eager epoch's GP regions by
+    kernel (``gp_rows``)."""
     from hlax_torch.data.dataset import epoch_subject_batches, stage_dataset
     from hlax_torch.train import step as tstep
 
@@ -4431,10 +4574,16 @@ def _rate_long_t() -> dict:
     rates = [_time_epochs(run, 3, steps=len(idx)) for _ in range(2)]
     prof, _ = _profile_steps(f"rate T={T}", run, 3 * len(idx), calls=3,
                              top=0)
+    step = tstep.make_train_step(st.vae, spec0, spec1, cfg)
+    with contextlib.redirect_stdout(io.StringIO()):
+        eager, table = _profile_steps(
+            "eager", lambda: tstep.train_epoch(step, st, staged, idx),
+            len(idx), calls=1, top=0)
     if not torch.isfinite(st.m).all():
         fail(f"[rate] T={T}: m is not finite")
     out = {"steps_per_s": rates, **{k: prof[k] for k in (
-        "busy_ms", "kernels", "idle")}}
+        "busy_ms", "kernels", "idle")},
+        "gp": gp_rows(eager["by_name"], table, len(idx))}
     del st, staged, epoch
     torch.cuda.empty_cache()
     return out
@@ -4480,6 +4629,9 @@ def phase_parent(data_dir: str) -> None:
     for name, *_ in RATE_CONFIGS:
         for who in ("parent", "change"):
             gp_attribution(f"parent {who} {name}", runs[who][0][name]["gp"])
+    for who in ("parent", "change"):
+        gp_attribution(f"parent {who} T={LONG_T[0][0]}",
+                       runs[who][0]["T200"].get("gp", {}))
     reference_seeds()
     for name, *_ in RATE_CONFIGS:
         for who in ("parent", "change"):
@@ -4633,8 +4785,18 @@ def phase_graph(data_dir: str, tmp: str) -> None:
     gp_attribution("graph", gp_rows(eager["by_name"], table,
                                     3 * GRAPH_STEPS))
     for name in ("graph unroll 1", "graph unroll 10"):
-        _profile_steps(name, paths[name], 3 * GRAPH_STEPS, calls=3,
-                       table=table, top=40)
+        summary, own = _profile_steps(name, paths[name], 3 * GRAPH_STEPS,
+                                      calls=3, table=table, top=40)
+        # region_table on real events: a replayed kernel is in no row, only
+        # the epoch's few eager launches around the graphs are
+        own_n = sum(n for r in own.values() for n, _ in r.values())
+        total = summary["kernels"] * 3 * GRAPH_STEPS
+        print(f"[graph] {name}: region_table holds {own_n} of the "
+              f"profile's {total:.0f} kernels (the launches outside the "
+              "graphs)", flush=True)
+        if own_n > 0.1 * total:
+            fail(f"[graph] {name}: region_table gave {own_n} of {total:.0f} "
+                 f"kernels a region, replayed ones among them: {own}")
 
 
 # the fused step ops' kernels by name (csrc/fusion.cu), each printed with
@@ -4675,37 +4837,27 @@ GP_GROUPS = (("GP matrices", re.compile(r"gp_fwd|gp_bwd_flat|gp_bwd_cols")),
 
 def gp_rows(by_name: dict, table: dict, steps: int) -> dict:
     """{region: [(kernel name, launches a step, device ms a step, launches
-    a step the region's host events launched, launches a step of the name
-    in the profile)]} of the GP's regions (GP_REGIONS: the bound, its backward, the bound's
-    natural-gradient quantities inside it and the natural-gradient update)
-    in ``steps`` eager steps under the profiler: each kernel name's
-    launches and time (``by_name``) split over the regions as ``table``
-    (``region_table``) splits them, as ``_print_regions`` does; a tree
-    without a region (an earlier commit's) has no row of it."""
+    a step of the name in the whole profile)]} of the GP's regions
+    (GP_REGIONS: the bound, its backward, the bound's natural-gradient
+    quantities inside it and the natural-gradient update) in ``steps``
+    eager steps under the profiler: the launches and time ``table``
+    (``region_table``, each device kernel counted once) gives the region;
+    a tree without a region (an earlier commit's) has no row of it."""
     out = {}
     for region in GP_REGIONS:
-        rows = []
-        for name, (n, us) in by_name.items():
-            split = table.get(name, {})
-            if region not in split:
-                continue
-            rn, rus = split[region]
-            tot_n = sum(v[0] for v in split.values())
-            tot_us = sum(v[1] for v in split.values()) or 1.0
-            rows.append((name, n * rn / tot_n / steps,
-                         us * rus / tot_us / steps / 1e3, rn / steps,
-                         n / steps))
+        rows = [(name, split[region][0] / steps,
+                 split[region][1] / steps / 1e3, by_name[name][0] / steps)
+                for name, split in table.items()
+                if region in split and name in by_name]
         if rows:
             out[region] = rows
     return out
 
 
 def gp_attribution(tag: str, rows: dict) -> dict:
-    """Prints ``gp_rows``' kernels, grouped by GP_GROUPS, each with the
-    launches its region's host events launched and all of its name's in
-    brackets (the name's launches no host event or range takes are split
-    over the regions in proportion); returns {region: (kernels, ms) a
-    step}."""
+    """Prints ``gp_rows``' kernels, grouped by GP_GROUPS, each with its
+    name's launches a step in the whole profile in brackets; returns
+    {region: (kernels, ms) a step}."""
     totals = {}
     for region, kernels in rows.items():
         totals[region] = (sum(r[1] for r in kernels),
@@ -4721,10 +4873,9 @@ def gp_attribution(tag: str, rows: dict) -> dict:
                 continue
             print(f"[{tag}]   {group}: {sum(r[1] for r in mine):.1f} "
                   f"kernels, {sum(r[2] for r in mine):.4f} ms", flush=True)
-            for name, n, ms, *raw in sorted(mine, key=lambda r: -r[2]):
-                print(f"[{tag}]     {n:5.2f} {ms:8.5f} "
-                      f"[{' of '.join(f'{x:.2f}' for x in raw)}]  {name}",
-                      flush=True)
+            for name, n, ms, n_all in sorted(mine, key=lambda r: -r[2]):
+                print(f"[{tag}]     {n:5.2f} {ms:8.5f} [of {n_all:.2f}]  "
+                      f"{name}", flush=True)
     return totals
 
 
@@ -4979,7 +5130,8 @@ def phase_options(data_dir: str, tmp: str) -> dict:
         want = {("chol_inv_small_cuda", b, "float32"): steps,
                 ("chol_inv_bwd_cuda", b, "float32"): steps,
                 ("chol_inv_mid_cuda", k2, "float32"): steps,
-                ("chol_inv_mid_cuda", m, "float32"): steps}
+                ("chol_inv_mid_cuda", m, "float32"): steps,
+                ("chol_inv_mid_bwd_cuda", k2, "float32"): steps}
         if ev:
             want[("chol_inv_mid_cuda", (32, 256, 32, 32), "float32")] = 1
         _need(f"{tag} {name}", by_shape, want)
@@ -5144,7 +5296,8 @@ def phase_full(data_dir: str, tmp: str) -> None:
     _need("full", by_shape, {
         ("chol_inv_small_cuda", (32, 20, 20, 20), "float32"): steps,
         ("chol_inv_bwd_cuda", (32, 20, 20, 20), "float32"): steps,
-        ("chol_inv_mid_cuda", (64, 120, 120), "float32"): steps})
+        ("chol_inv_mid_cuda", (64, 120, 120), "float32"): steps,
+        ("chol_inv_mid_bwd_cuda", (64, 120, 120), "float32"): steps})
     with open(log) as f:
         text = f.read()
     validations = text.count("Validation Duration")
@@ -5202,6 +5355,7 @@ def _mesh_launches(n_data: int, n_latent: int, dtype: str = "float32"):
             ("chol_inv_bwd_cuda", (L, S, 20, 20), dtype): 1,
             ("chol_inv_mid_cuda", (2 * L, 120, 120), dtype): 1,
             ("chol_inv_mid_cuda", (L, 120, 120), dtype): 1,
+            ("chol_inv_mid_bwd_cuda", (2 * L, 120, 120), dtype): 1,
             ("heads_cat_fwd_cuda", (S * 20, 1296, 5), dtype): 1,
             ("heads_real_fwd_cuda", (S * 20, 1296, 5), dtype): 1,
             ("rep_image_fwd_cuda", rows, dtype): 2,

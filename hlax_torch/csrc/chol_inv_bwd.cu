@@ -67,24 +67,6 @@
 
 #define BWD_BUFS 6  // NP x NP buffers a matrix
 
-// one cp.async of 16 bytes, and one of a single value (4 or 8 bytes)
-__device__ __forceinline__ void cp_async16(void* s, const void* g) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
-               "l"(g));
-}
-__device__ __forceinline__ void cp_async1(float* s, const float* g) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(g));
-}
-__device__ __forceinline__ void cp_async1(double* s, const double* g) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(g));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // acc[r][c] = sum_k U[k][i0 + r] V[k][j0 + c] over the k-chunks [lo, hi) of
 // 4; U and V are NP x NP, row-major.
 template <typename Real, int NP>

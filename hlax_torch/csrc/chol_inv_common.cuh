@@ -1,7 +1,8 @@
 // What the Cholesky kernels share: the pivot guard's constant, the
-// IEEE-rounded scalar operations in float and double, the error message
-// entry, and the one-warp guarded Cholesky plus triangular inverse of one
-// matrix whose rows sit in the lanes' registers.
+// IEEE-rounded scalar operations in float and double, the cp.async copies
+// of the backward kernels, the error message entry, and the one-warp
+// guarded Cholesky plus triangular inverse of one matrix whose rows sit in
+// the lanes' registers.
 //
 // chol_inv_warp_rows<Real, NP> is the body of the small kernel (NP = 20, 32,
 // csrc/chol_inv_small.cu) and of the mid kernel's n <= 32 path (NP = 32,
@@ -126,6 +127,25 @@ template <typename Real>
 __device__ __forceinline__ void st4(Real* p, const Real (&u)[4]) {
 #pragma unroll
   for (int h = 0; h < 4; h += 16 / sizeof(Real)) st16(p + h, u + h);
+}
+
+// One cp.async of 16 bytes, and one of a single value (4 or 8 bytes),
+// and the wait for every copy in flight (the backward kernels' staging)
+__device__ __forceinline__ void cp_async16(void* s, const void* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async1(float* s, const float* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(g));
+}
+__device__ __forceinline__ void cp_async1(double* s, const double* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(a), "l"(g));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Message of a CUDA error code, for the Python wrapper's exception.  Each

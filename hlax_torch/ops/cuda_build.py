@@ -24,11 +24,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Libraries built with contraction of a*b+c into one fused multiply-add.
-# The mid kernel's blocked path, the backward kernel and the fused step ops
-# (``fusion``) sum in another order than their plain versions (blocked
-# panels; register subtiles; a row at a time) and are held to a float64
-# reference; the backward's five products are chains of multiply-adds,
-# which fusing halves.  The small kernel's library is built
+# The mid kernel's blocked path, the two backward kernels and the fused
+# step ops (``fusion``) sum in another order than their plain versions
+# (blocked panels; register subtiles; a row at a time) and are held to a
+# float64 reference; the backwards' five products are chains of
+# multiply-adds, which fusing halves.  The small kernel's library is built
 # with --fmad=false: its shared-memory path (n > 32) then does the same
 # float32 operations as its plain PyTorch version and the two agree to the
 # last bit.  The one-warp body both forward libraries share spells its
@@ -37,8 +37,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (``natgrad``) sum in other orders than their plain versions (tiles,
 # butterflies, double partials, row strips) and are held to them within a
 # float64 reference's bars: contracted too.
-FMA_CONTRACTED = frozenset({"chol_inv_mid", "chol_inv_bwd", "fusion",
-                            "gp_bound", "natgrad"})
+FMA_CONTRACTED = frozenset({"chol_inv_mid", "chol_inv_bwd",
+                            "chol_inv_mid_bwd", "fusion", "gp_bound",
+                            "natgrad"})
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

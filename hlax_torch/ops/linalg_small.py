@@ -3,8 +3,8 @@
 Port of ``hlax/ops/linalg_small.py``.  The GP bounds need ``(L, L^{-1})``
 of many small SPD matrices per train step: the per-subject B blocks
 [L, S, T, T] with T ~ 20, and the inducing-point matrices [*, M, M] with
-M ~ 120.  Three hand-written CUDA kernels compute them and the small
-factorization's backward, in float32 and float64, each on a launch plan
+M ~ 120.  Hand-written CUDA kernels compute them and both
+factorizations' backward, in float32 and float64, each on a launch plan
 worked out here and checked by its C entry:
 
   * ``chol_inv_small_cuda`` (``csrc/chol_inv_small.cu``, n <= 48): replaces
@@ -25,6 +25,11 @@ worked out here and checked by its C entry:
     One warp a matrix, zero-padded to a compiled size (20 for T = 20); each
     of its five products is a loop of fused multiply-adds on register
     subtiles of 4 x 4 a lane (``bwd_launch_plan``).
+  * ``chol_inv_mid_bwd_cuda`` (``csrc/chol_inv_mid_bwd.cu``, 24 < n <= 128):
+    the backward of the mid factorization, stands for XLA's fusion of
+    hlax's ``_mid_bwd`` (the matmul pullback ``_bwd_reference``).  Three
+    launches on 32-row panels and 32 x 32 tile pairs, Lb2 and Y through a
+    workspace of two [batch, n, n] (``mid_bwd_launch_plan``).
 
 ``chol_inv_blocked`` is hlax's dispatcher: the small kernel for n <= 24,
 the mid kernel up to 128, and above that hlax's blocked composition, with
@@ -44,16 +49,15 @@ float32's, so no pivot of an SPD matrix with a jitter of 1e-6 reaches it.
 Both read only the lower triangle of A.
 
 ``_chol_inv_plain`` is the plain PyTorch version of both forward kernels
-(the guarded column loop as tensor ops), ``_chol_inv_bwd_plain`` that of the
-backward kernel (``_bwd_reference``, the matmul-only Cholesky-plus-inverse
-pullback).  The small kernel and the mid kernel's one-warp path do the
-plain version's operations in its order and agree with it bit for bit, in
-either dtype; the mid kernel's blocked path and the backward kernel sum in
-another order with fused multiply-adds and are held to an error bar
-instead.  The autograd Functions use the plain versions for a CPU tensor
-only; for a CUDA tensor they launch the kernel or raise.  The mid
-factorization's backward is ``_bwd_reference`` on every device, as hlax's
-``_mid_bwd`` is plain matmuls outside any Pallas kernel.
+(the guarded column loop as tensor ops), ``_chol_inv_bwd_plain`` that of
+both backward kernels (``_bwd_reference``, the matmul-only
+Cholesky-plus-inverse pullback, counted under each kernel's key).  The
+small kernel and the mid kernel's one-warp path do the plain version's
+operations in its order and agree with it bit for bit, in either dtype; the
+mid kernel's blocked path and the backward kernels sum in another order
+with fused multiply-adds and are held to an error bar instead.  The
+autograd Functions use the plain versions for a CPU tensor only; for a CUDA
+tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -86,6 +90,12 @@ MID_PANEL = 8         # must match NB there
 SMALL_SIZES = (20, 32)
 BWD_SIZES = (20, 32, 48)
 BWD_BUFS = 6          # NP x NP buffers a matrix, BWD_BUFS in chol_inv_bwd.cu
+# the mid pullback's panel rows and tile width, and its launches' threads:
+# must match MB_ROWS, MB_AB_THREADS and MB_C_THREADS in
+# csrc/chol_inv_mid_bwd.cu
+MID_BWD_ROWS = 32
+MID_BWD_AB_THREADS = 256
+MID_BWD_C_THREADS = 128
 H100_SMS = 132
 SMEM_PER_BLOCK = 232_448  # an H100 block's dynamic shared memory, bytes
 DTYPES = (torch.float32, torch.float64)  # what the kernels take
@@ -95,8 +105,9 @@ DTYPES = (torch.float32, torch.float64)  # what the kernels take
 # {(kernel, shape, "float32" or "float64"): launches}: a run reads them to
 # show which path it took (``hlax_torch.ops.counters``).
 _COUNTERS = Counters(("chol_inv_small_cuda", "chol_inv_mid_cuda",
-                      "chol_inv_bwd_cuda"),
-                     ("chol_inv_plain", "chol_inv_bwd_plain"))
+                      "chol_inv_bwd_cuda", "chol_inv_mid_bwd_cuda"),
+                     ("chol_inv_plain", "chol_inv_bwd_plain",
+                      "chol_inv_mid_bwd_plain"))
 LAUNCHES = _COUNTERS.launches
 LAUNCHES_BY_SHAPE = _COUNTERS.by_shape
 PLAIN_CUDA_CALLS = _COUNTERS.plain
@@ -196,6 +207,47 @@ def bwd_launch_plan(n: int, batch: int, sms: int = H100_SMS,
     per_matrix = itemsize * BWD_BUFS * np_ * np_
     m = _per_block(batch, sms, per_matrix)
     return BwdPlan(np_, -(-batch // m), 32 * m, m * per_matrix, m)
+
+
+class MidBwdPlan(NamedTuple):
+    """Launches of the mid pullback for ``batch`` matrices of n x n."""
+    panels: int      # row panels of MID_BWD_ROWS a matrix
+    grid_ab: int     # blocks of the fold and project launches, (matrix, panel)
+    grid_c: int      # blocks of the symmetrize launch, (matrix, tile pair)
+    threads_ab: int
+    threads_c: int
+    smem_ab: int     # dynamic shared memory a block, bytes
+    smem_c: int
+
+
+@functools.lru_cache(maxsize=256)
+def mid_bwd_launch_plan(n: int, batch: int, itemsize: int = 4) -> MidBwdPlan:
+    """The plan ``chol_inv_mid_bwd_launch`` (``csrc/chol_inv_mid_bwd.cu``)
+    takes for values of ``itemsize`` bytes: its three launches a block a
+    (matrix, 32-row panel), a (matrix, panel) and a (matrix, lower pair of
+    32 x 32 tiles).  No SM count enters it: the grids are the batch's panels
+    and tile pairs.  A panel p (rows r0 = 32 p on, cw = min(r0 + 32, n)
+    columns of the leading block, cwp = cw rounded up to 4) takes its 32
+    columns of S^T or P^T (cwp x 32) beside the larger of the k-major
+    strips of its first product, (n - r0) x (cwp + 32), and the right
+    factor of its second, cw x (cwp + 4); a tile pair (I, J) two strips of
+    L^{-1} and two of Y of (n - 32 I) x 32 (one each where I = J) beside
+    the mirrored tile, 32 x 33.  At n = 120: 74,880 bytes for the panels
+    and 49,280 for the pairs in float32."""
+    rows = MID_BWD_ROWS
+    panels = -(-n // rows)
+    ab = 0
+    for p in range(panels):
+        r0 = rows * p
+        cw = min(r0 + rows, n)
+        cwp = -(-cw // 4) * 4
+        ab = max(ab, cwp * rows + max((n - r0) * (cwp + rows),
+                                      cw * (cwp + 4)))
+    c = max(2 * n, 4 * (n - rows)) * rows + rows * (rows + 1)
+    pairs = panels * (panels + 1) // 2
+    return MidBwdPlan(panels, batch * panels, batch * pairs,
+                      MID_BWD_AB_THREADS, MID_BWD_C_THREADS, itemsize * ab,
+                      itemsize * c)
 
 
 @functools.lru_cache(maxsize=None)
@@ -329,11 +381,30 @@ def _bwd_reference(l, il, l_bar, il_bar):
     return _phi(x + x.mT)
 
 
-def _chol_inv_bwd_plain(l, il, l_bar, il_bar):
-    """Plain PyTorch version of the backward kernel: ``_bwd_reference``."""
+def _chol_inv_bwd_plain(l, il, l_bar, il_bar, key="chol_inv_bwd_plain"):
+    """Plain PyTorch version of both backward kernels: ``_bwd_reference``,
+    counted under ``key`` (``"chol_inv_mid_bwd_plain"`` for the mid
+    pullback's) on CUDA tensors."""
     if l.is_cuda:
-        PLAIN_CUDA_CALLS["chol_inv_bwd_plain"] += 1
+        PLAIN_CUDA_CALLS[key] += 1
     return _bwd_reference(l, il, l_bar, il_bar)
+
+
+def _check_bwd(l, il, l_bar, il_bar, lo: int, hi: int, what: str):
+    """The pullbacks' inputs checked (CUDA, float32 or float64, one dtype,
+    four equal [..., n, n] shapes, lo < n <= hi, contiguous), with the
+    cotangents made contiguous first: autograd hands them over strided or
+    expanded.  Returns the cotangents."""
+    l_bar, il_bar = l_bar.contiguous(), il_bar.contiguous()
+    for t in (l, il, l_bar, il_bar):
+        _check(t, lo, hi, what)
+    if not l.shape == il.shape == l_bar.shape == il_bar.shape:
+        raise ValueError(f"{what}: needs four equal shapes, got "
+                         f"{[tuple(t.shape) for t in (l, il, l_bar, il_bar)]}")
+    if len({t.dtype for t in (l, il, l_bar, il_bar)}) != 1:
+        raise ValueError(f"{what}: needs one dtype, got "
+                         f"{[t.dtype for t in (l, il, l_bar, il_bar)]}")
+    return l_bar, il_bar
 
 
 def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
@@ -345,15 +416,8 @@ def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
     convention.  L and L^{-1} must be lower-triangular, as the forward
     kernel leaves them.  The cotangents may be strided or expanded
     (autograd hands them over so); they are made contiguous first."""
-    l_bar, il_bar = l_bar.contiguous(), il_bar.contiguous()
-    for t in (l, il, l_bar, il_bar):
-        _check(t, 0, MAX_SMALL_T, "chol_inv_bwd_cuda")
-    if not l.shape == il.shape == l_bar.shape == il_bar.shape:
-        raise ValueError("chol_inv_bwd_cuda: needs four equal shapes, got "
-                         f"{[tuple(t.shape) for t in (l, il, l_bar, il_bar)]}")
-    if len({t.dtype for t in (l, il, l_bar, il_bar)}) != 1:
-        raise ValueError("chol_inv_bwd_cuda: needs one dtype, got "
-                         f"{[t.dtype for t in (l, il, l_bar, il_bar)]}")
+    l_bar, il_bar = _check_bwd(l, il, l_bar, il_bar, 0, MAX_SMALL_T,
+                               "chol_inv_bwd_cuda")
     n = l.shape[-1]
     a_bar = torch.empty_like(l)
     batch = l.numel() // (n * n)
@@ -372,6 +436,43 @@ def chol_inv_bwd_cuda(l: torch.Tensor, il: torch.Tensor, l_bar: torch.Tensor,
               plan.grid, plan.threads, plan.smem, stream)
     check_launch(lib, "chol_inv_bwd_launch", code)
     _COUNTERS.count("chol_inv_bwd_cuda", l)
+    return a_bar
+
+
+def chol_inv_mid_bwd_cuda(l: torch.Tensor, il: torch.Tensor,
+                          l_bar: torch.Tensor,
+                          il_bar: torch.Tensor) -> torch.Tensor:
+    """A_bar of (L, L^{-1}) = chol_inv_mid(A), the mid factorization's
+    pullback, from the saved factors and the cotangents of both outputs,
+    float32 or float64 CUDA [..., n, n] of one dtype, 24 < n <= 128 (the
+    mid kernel's whole range: 24 < n <= 48 comes here too, not to
+    ``chol_inv_bwd_cuda``), by the kernels of ``csrc/chol_inv_mid_bwd.cu``
+    on the plan of ``mid_bwd_launch_plan``: three launches, one count;
+    ``_bwd_reference``'s lower convention.  L and L^{-1} must be
+    lower-triangular, as the mid kernel and its Newton step leave them.  The
+    cotangents may be strided or expanded; they are made contiguous first.
+    The workspace (Lb2 and Y) is allocated with ``torch.empty``, so a CUDA
+    graph can capture the launch."""
+    l_bar, il_bar = _check_bwd(l, il, l_bar, il_bar, MAX_DIAG_BLOCK,
+                               MAX_MID_M, "chol_inv_mid_bwd_cuda")
+    n = l.shape[-1]
+    a_bar = torch.empty_like(l)
+    batch = l.numel() // (n * n)
+    if batch == 0:
+        return a_bar
+    work = torch.empty((2,) + tuple(l.shape), dtype=l.dtype, device=l.device)
+    plan = mid_bwd_launch_plan(n, batch, l.element_size())
+    lib = load_library("chol_inv_mid_bwd")
+    fn = lib.chol_inv_mid_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(l.device).cuda_stream
+    code = fn(l.data_ptr(), il.data_ptr(), l_bar.data_ptr(), il_bar.data_ptr(),
+              a_bar.data_ptr(), work.data_ptr(), batch, n, l.element_size(),
+              *plan, stream)
+    check_launch(lib, "chol_inv_mid_bwd_launch", code)
+    _COUNTERS.count("chol_inv_mid_bwd_cuda", l)
     return a_bar
 
 
@@ -404,7 +505,11 @@ class _CholInvMid(torch.autograd.Function):
     def backward(ctx, l_bar, il_bar):
         # an output the loss does not use arrives as zeros (autograd
         # materializes undefined gradients)
-        return _bwd_reference(*ctx.saved_tensors, l_bar, il_bar)
+        l, il = ctx.saved_tensors
+        if l.is_cuda:
+            return chol_inv_mid_bwd_cuda(l, il, l_bar, il_bar)
+        return _chol_inv_bwd_plain(l, il, l_bar, il_bar,
+                                   "chol_inv_mid_bwd_plain")
 
 
 def chol_inv_small(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -67,7 +67,8 @@ def test_two_epoch_train_only_run(data_dir, tmp_path, capsys):
     assert not os.path.isfile(run / "results" / "validation_results.csv")
     # on the CPU the plain versions run, and nothing counts as a launch
     assert ls.LAUNCHES == {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
-                           "chol_inv_bwd_cuda": 0}
+                           "chol_inv_bwd_cuda": 0,
+                           "chol_inv_mid_bwd_cuda": 0}
 
 
 def test_two_epoch_run_writes_no_final_checkpoint(data_dir, tmp_path):

@@ -180,7 +180,8 @@ def test_bwd_kernel_takes_strided_cotangents(gen):
 
 def test_autograd_path_launches_the_kernels(gen):
     """``chol_inv_blocked`` on CUDA goes through the kernels, never the
-    plain versions, and the small factorization's backward is its kernel."""
+    plain versions, and both factorizations' backward are their kernels
+    (n = 30 and 120 through the mid pullback)."""
     tls.reset_counters()
     for n in (20, 30, 120):   # n = 30 takes the mid kernel's one-warp path
         a = _spd((4, n, n), gen).requires_grad_(True)
@@ -188,9 +189,11 @@ def test_autograd_path_launches_the_kernels(gen):
         (l.sum() + il.sum()).backward()
         assert torch.isfinite(a.grad).all()
     assert tls.LAUNCHES == {"chol_inv_small_cuda": 1, "chol_inv_mid_cuda": 2,
-                            "chol_inv_bwd_cuda": 1}
+                            "chol_inv_bwd_cuda": 1,
+                            "chol_inv_mid_bwd_cuda": 2}
     assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
-                                    "chol_inv_bwd_plain": 0}
+                                    "chol_inv_bwd_plain": 0,
+                                    "chol_inv_mid_bwd_plain": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -353,8 +356,10 @@ def test_composition_goes_through_the_kernels(gen, dtype):
         eye = torch.eye(n, device="cuda", dtype=torch.float64)
         assert (il.double() @ l64 - eye).abs().max().item() <= 10 * tol
     assert tls.LAUNCHES["chol_inv_mid_cuda"] == 6
+    assert tls.LAUNCHES["chol_inv_mid_bwd_cuda"] == 6
     assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
-                                    "chol_inv_bwd_plain": 0}
+                                    "chol_inv_bwd_plain": 0,
+                                    "chol_inv_mid_bwd_plain": 0}
     assert all(dt == str(dtype).removeprefix("torch.") and sh[-1] <= 128
                for (_, sh, dt) in tls.LAUNCHES_BY_SHAPE)
 
@@ -369,10 +374,173 @@ def test_float64_autograd_path_launches_the_kernels(gen):
         (l.sum() + il.sum()).backward()
         assert torch.isfinite(a.grad).all()
     assert tls.LAUNCHES == {"chol_inv_small_cuda": 1, "chol_inv_mid_cuda": 2,
-                            "chol_inv_bwd_cuda": 1}
+                            "chol_inv_bwd_cuda": 1,
+                            "chol_inv_mid_bwd_cuda": 2}
     assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
-                                    "chol_inv_bwd_plain": 0}
+                                    "chol_inv_bwd_plain": 0,
+                                    "chol_inv_mid_bwd_plain": 0}
     assert {dt for (_, _, dt) in tls.LAUNCHES_BY_SHAPE} == {"float64"}
+
+
+# ---- the mid factorization's pullback (csrc/chol_inv_mid_bwd.cu) ----------
+
+# the training path's K0zz with H and the natural-gradient inverse's batch,
+# the long sequences' diagonal blocks (T = 200 and 500), [reference]'s toy
+# M = 30; then the range's ends, one panel and a ragged last one, a single
+# matrix and odd batches
+MID_BWD_SHAPES = [(64, 120, 120), (32, 120, 120), (32, 4, 100, 100),
+                  (32, 2, 125, 125), (16, 30, 30), (3, 25, 25), (5, 33, 33),
+                  (2, 64, 64), (1, 128, 128), (7, 97, 97), (9, 127, 127)]
+
+
+def _mid_factors(shape, dtype, gen):
+    """(L, L^-1) as the training path saves them: the mid kernel, then its
+    Newton step."""
+    l, il = tls.chol_inv_mid_cuda(_spd(shape, gen).to(dtype))
+    return l, tls._refine_tri_inverse(l, il)
+
+
+def _hold_mid_bwd(got, l, il, lb, ilb):
+    """``test_mid_bwd_kernel_against_plain_version``'s bars."""
+    plain = tls._chol_inv_bwd_plain(l, il, lb, ilb, "chol_inv_mid_bwd_plain")
+    assert torch.isfinite(got).all() and not torch.triu(got, 1).any()
+    if got.dtype == torch.float64:
+        assert (got - plain).abs().max().item() <= \
+            1e-10 * plain.abs().max().item()
+        return
+    want = tls._bwd_reference(l.double(), il.double(), lb.double(),
+                              ilb.double())
+    err = (got.double() - want).abs().max().item()
+    err_plain = (plain.double() - want).abs().max().item()
+    assert err <= 4 * err_plain + 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("cotangents", ["both", "l_bar only", "il_bar only"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", MID_BWD_SHAPES)
+def test_mid_bwd_kernel_against_plain_version(gen, shape, dtype, cotangents):
+    """The mid pullback's kernels against its plain version
+    (``_bwd_reference``): in float32 the kernels and the plain version are
+    each held against ``_bwd_reference`` in float64 on the same inputs, the
+    kernels' error at most 4x the plain version's plus 1e-6 max|A_bar| (they
+    sum in another order, with fused multiply-adds); in float64 within
+    1e-10 of the plain version's largest entry.  Exact zeros above the
+    diagonal, one count a call."""
+    l, il = _mid_factors(shape, dtype, gen)
+    lb = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    ilb = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    if cotangents == "l_bar only":
+        ilb.zero_()
+    elif cotangents == "il_bar only":
+        lb.zero_()
+    before = tls.LAUNCHES["chol_inv_mid_bwd_cuda"]
+    got = tls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)
+    torch.cuda.synchronize()
+    assert tls.LAUNCHES["chol_inv_mid_bwd_cuda"] == before + 1
+    _hold_mid_bwd(got, l, il, lb, ilb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mid_bwd_kernel_takes_strided_and_misaligned_tensors(gen, dtype):
+    """Expanded and transposed cotangents, and contiguous views one value
+    past a 16-byte boundary (the kernels' one-value copies), give the
+    aligned contiguous inputs' result bit for bit; n = 122, whose float32
+    rows do not hold whole 16-byte copies, is held to the plain version."""
+    shape = (5, 120, 120)
+    l, il = _mid_factors(shape, dtype, gen)
+    lb = torch.randn(shape[1:], generator=gen, device="cuda",
+                     dtype=dtype).expand(shape)
+    ilb = torch.randn(shape, generator=gen, device="cuda", dtype=dtype).mT
+    want = tls.chol_inv_mid_bwd_cuda(l, il, lb.contiguous(),
+                                     ilb.contiguous())
+    got = tls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device="cuda", dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    got = tls.chol_inv_mid_bwd_cuda(*(shifted(t.contiguous()) for t in
+                                      (l, il, lb, ilb)))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    l, il = _mid_factors((3, 122, 122), dtype, gen)
+    lb = torch.randn(l.shape, generator=gen, device="cuda", dtype=dtype)
+    ilb = torch.randn(l.shape, generator=gen, device="cuda", dtype=dtype)
+    _hold_mid_bwd(tls.chol_inv_mid_bwd_cuda(l, il, lb, ilb), l, il, lb, ilb)
+
+
+def test_mid_bwd_wrapper_refuses_what_the_kernels_do_not_take(gen):
+    """n <= 24 (the small factorization's), n > 128 (the composition's
+    blocks), mixed dtypes or shapes, a CPU tensor: a ValueError, no
+    launch."""
+    before = tls.LAUNCHES["chol_inv_mid_bwd_cuda"]
+    for n in (24, 129):
+        a = _spd((2, n, n), gen)
+        with pytest.raises(ValueError, match="24 < n <= 128"):
+            tls.chol_inv_mid_bwd_cuda(a, a, a, a)
+    a = _spd((2, 40, 40), gen)
+    with pytest.raises(ValueError, match="one dtype"):
+        tls.chol_inv_mid_bwd_cuda(a, a, a.double(), a)
+    with pytest.raises(ValueError, match="four equal shapes"):
+        tls.chol_inv_mid_bwd_cuda(a, a, a[:1], a)
+    with pytest.raises(ValueError, match="CUDA"):
+        tls.chol_inv_mid_bwd_cuda(a.cpu(), a, a, a)
+    assert tls.LAUNCHES["chol_inv_mid_bwd_cuda"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mid_bwd_graph_replays_eager_call(gen, dtype):
+    """One call captured in a CUDA graph (its workspace from the graph's
+    pool) replays the eager call's result bit for bit on new inputs."""
+    shape = (64, 120, 120)
+    l, il = _mid_factors(shape, dtype, gen)
+    lb = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    ilb = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    tls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)      # warm: build, attribute
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)
+    for t in (lb, ilb):
+        t.copy_(torch.randn(shape, generator=gen, device="cuda", dtype=dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = tls.chol_inv_mid_bwd_cuda(l, il, lb, ilb)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+def test_canonical_step_takes_the_mid_pullback(gen):
+    """One float32 train step of the canonical widths (L = 32, M = 120, the
+    conv model, 20 subjects of T = 20) launches the mid pullback once, on
+    K0zz stacked with H, and never its plain version."""
+    chip_smoke = _chip_smoke()
+    from hlax_torch.config import ModelArgs
+    from hlax_torch.data import dataset as ds
+    from hlax_torch.gp.kernels import build_kernel_specs
+    from hlax_torch.ops import counters
+    from hlax_torch.train import step as tstep
+
+    opt = ModelArgs().parse_options([f"--f={chip_smoke.CONFIG}"])
+    spec0, spec1 = build_kernel_specs(
+        opt["cat_kernel"], opt["bin_kernel"], opt["sqexp_kernel"],
+        opt["cat_int_kernel"], opt["bin_int_kernel"],
+        opt["covariate_missing_val"], opt["id_covariate"])
+    data = _toy_d4(10, 10)
+    state, cfg = chip_smoke.canonical_state(data, spec0, spec1,
+                                            torch.float32)
+    step = tstep.make_train_step(state.vae, spec0, spec1, cfg)
+    staged = ds.stage_dataset(data, torch.float32, "cuda")
+    batch = ds.gather_batch(staged, torch.arange(20, device="cuda"))
+    counters.reset_every()
+    out = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out["loss"]).all()
+    assert tls.LAUNCHES["chol_inv_mid_bwd_cuda"] == 1
+    assert tls.LAUNCHES_BY_SHAPE[("chol_inv_mid_bwd_cuda", (64, 120, 120),
+                                  "float32")] == 1
+    assert tls.PLAIN_CUDA_CALLS["chol_inv_mid_bwd_plain"] == 0
+    assert not any(counters.read_every()[2].values())
 
 
 # ---- the train step as CUDA graphs ------------------------------------------

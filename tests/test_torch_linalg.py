@@ -117,37 +117,49 @@ def _sym(g):
     return g + np.swapaxes(g, -1, -2)
 
 
-@pytest.mark.parametrize("n", [8, 16, 18, 20, 56])
+@pytest.mark.parametrize("n", [8, 16, 18, 20, 56, 100, 120, 125])
 def test_gradients_match_hlax_vjps(n):
     """n=8, 16 and 18 reach hlax's Pallas backward kernel (``_bwd_kernel``,
     in interpret mode; hlax launches it for T <= 18), n=20 its
-    ``_bwd_reference``, n=56 the mid kernel's VJP.  On the CPU the port runs
-    its backward kernel's plain version, ``_bwd_reference``, for all of
-    them.  hlax's backward kernel returns the transpose of
-    ``_bwd_reference``'s lower-triangular convention (ROADMAP queue 3), so
-    up to n=18 the symmetrized gradients are compared; at n=20 and n=56 the
-    gradients themselves."""
+    ``_bwd_reference``, n=56, 100, 120 and 125 the mid kernel's VJP
+    (``_mid_bwd``; 120 is M, 100 and 125 the diagonal blocks of T = 200
+    and 500).  On the CPU the port runs its backward kernels' plain
+    versions, ``_bwd_reference``, for all of them.  hlax's backward kernel
+    returns the transpose of ``_bwd_reference``'s lower-triangular
+    convention (ROADMAP queue 3), so up to n=18 the symmetrized gradients
+    are compared; above, the gradients themselves, and for the mid sizes
+    also with one output unused (its cotangent zero).  hlax's factorization
+    runs once (``jax.vjp``); each loss's cotangents go through its
+    pullback."""
     rng = np.random.default_rng(100 + n)
     a = _spd(rng, (3,), n)
     wl, wi = _loss_weights(rng, (3,), n)
     jfact = ls.chol_inv_small if n <= ls.MAX_DIAG_BLOCK else ls._chol_inv_mid
-
-    def f_j(x):
-        l, il = jfact(x)
-        return jnp.sum(l * wl) + jnp.sum(il * wi) \
-            + jnp.sum(ls.logdet_from_chol(l))
-
-    gj = np.asarray(jax.grad(f_j)(jnp.asarray(a)))
-    at = torch.tensor(a, requires_grad=True)
-    l, il = tls.chol_inv_blocked(at)
-    f = (l * torch.tensor(wl)).sum() + (il * torch.tensor(wi)).sum() \
-        + 2 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum()
-    f.backward()
-    gt = at.grad.numpy()
-    if n <= 18:
-        gt, gj = _sym(gt), _sym(gj)
-    np.testing.assert_allclose(gt, gj, rtol=1e-8,
-                               atol=1e-10 * np.abs(gj).max())
+    (lj, _), pull = jax.vjp(jfact, jnp.asarray(a))
+    # the loss sum(l wl) + sum(il wi) + logdet: l's cotangent takes the
+    # logdet's gradient beside wl
+    gl = jax.grad(lambda l: jnp.sum(l * wl)
+                  + jnp.sum(ls.logdet_from_chol(l)))(lj)
+    cases = [("both", (gl, jnp.asarray(wi)))]
+    if n > ls.MAX_DIAG_BLOCK:
+        cases += [("L only", (jnp.asarray(wl), jnp.zeros_like(lj))),
+                  ("L^-1 only", (jnp.zeros_like(lj), jnp.asarray(wi)))]
+    for case, cot in cases:
+        gj = np.asarray(pull(cot)[0])
+        at = torch.tensor(a, requires_grad=True)
+        l, il = tls.chol_inv_blocked(at)
+        f = {"both": (l * torch.tensor(wl)).sum()
+             + (il * torch.tensor(wi)).sum()
+             + 2 * torch.log(torch.diagonal(l, dim1=-2, dim2=-1)).sum(),
+             "L only": (l * torch.tensor(wl)).sum(),
+             "L^-1 only": (il * torch.tensor(wi)).sum()}[case]
+        f.backward()
+        gt = at.grad.numpy()
+        if n <= 18:
+            gt, gj = _sym(gt), _sym(gj)
+        np.testing.assert_allclose(gt, gj, rtol=1e-8,
+                                   atol=1e-10 * np.abs(gj).max(),
+                                   err_msg=case)
 
 
 def test_gradient_with_one_output_unused():
@@ -175,14 +187,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tls.chol_inv_mid_cuda(torch.eye(120)[None].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         tls.chol_inv_bwd_cuda(a, a, a, a)
+    m = torch.eye(30).expand(2, 30, 30).contiguous()
+    with pytest.raises(ValueError, match="CUDA"):
+        tls.chol_inv_mid_bwd_cuda(m, m, m, m)
     tls.reset_counters()
-    a.requires_grad_(True)
-    l, il = tls.chol_inv_blocked(a)
-    (l.sum() + il.sum()).backward()
+    for x in (a, m):
+        x.requires_grad_(True)
+        l, il = tls.chol_inv_blocked(x)
+        (l.sum() + il.sum()).backward()
     assert tls.LAUNCHES == {"chol_inv_small_cuda": 0, "chol_inv_mid_cuda": 0,
-                            "chol_inv_bwd_cuda": 0}
+                            "chol_inv_bwd_cuda": 0,
+                            "chol_inv_mid_bwd_cuda": 0}
     assert tls.PLAIN_CUDA_CALLS == {"chol_inv_plain": 0,
-                                    "chol_inv_bwd_plain": 0}
+                                    "chol_inv_bwd_plain": 0,
+                                    "chol_inv_mid_bwd_plain": 0}
 
 
 # the mesh ranks' local batches: [16, 120, 120] (L_loc = 16 on 2 latent
@@ -351,3 +369,172 @@ def test_mid_launch_plan_in_float32_unchanged(batch):
                  1))
         assert tls.mid_launch_plan(n, batch) == want
         assert tls.mid_launch_plan(n, batch, 4) == want
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("batch", [1, 16, 64, 128, 8192])
+def test_mid_bwd_launch_plan(batch, itemsize):
+    """Every n the mid pullback takes gets three launches within a block's
+    227 KB of shared memory: a block a (matrix, 32-row panel) twice and a
+    (matrix, lower pair of 32 x 32 tiles), 256 and 128 threads, the shared
+    memory the largest panel's and the largest pair's (the layouts of
+    ``_mid_bwd_model``); at n = 120, 74,880 and 49,280 bytes in float32."""
+    for n in range(tls.MAX_DIAG_BLOCK + 1, tls.MAX_MID_M + 1):
+        plan = tls.mid_bwd_launch_plan(n, batch, itemsize)
+        panels = -(-n // 32)
+        assert plan.panels == panels
+        assert plan.grid_ab == batch * panels
+        assert plan.grid_c == batch * panels * (panels + 1) // 2
+        assert (plan.threads_ab, plan.threads_c) == (256, 128)
+        assert plan.smem_ab == itemsize * max(
+            _panel_values(n, p) for p in range(panels)) <= tls.SMEM_PER_BLOCK
+        assert plan.smem_c == itemsize * max(
+            _pair_values(n, i, j) for i in range(panels)
+            for j in range(i + 1)) <= tls.SMEM_PER_BLOCK
+    assert tls.mid_bwd_launch_plan(120, batch)[5:] == (74_880, 49_280)
+    assert tls.mid_bwd_launch_plan(128, batch, 8).smem_ab == 167_936
+
+
+def _panel_values(n, p):
+    """Values a (matrix, panel) block holds: the panel's 32 columns of S^T
+    (or P^T), then the first product's two k-major strips, or in their
+    place the second's right factor (L^-T at a stride of cwp + 4, or
+    L^-1)."""
+    r0, cw = 32 * p, min(32 * p + 32, n)
+    cwp = -(-cw // 4) * 4
+    return cwp * 32 + max((n - r0) * (cwp + 32), cw * (cwp + 4))
+
+
+def _pair_values(n, i, j):
+    """Values a (matrix, tile pair) block holds: strips of L^-1 and Y from
+    row 32 i, two on the diagonal and four off it, and the mirrored tile."""
+    return (2 if i == j else 4) * (n - 32 * i) * 32 + 32 * 33
+
+
+def _strip(m, n, row0, rows, col0, width):
+    """A k-major strip as ``load_strip`` stages it: m[row0 + r][col0 + c],
+    zero past column n."""
+    out = np.zeros((rows, width))
+    cols = min(width, n - col0)
+    out[:, :cols] = m[row0:row0 + rows, col0:col0 + cols]
+    return out
+
+
+def _mid_bwd_model(l, il, lb, ilb):
+    """A model of ``csrc/chol_inv_mid_bwd.cu``'s three launches on one
+    matrix, in float64: each block's shared memory a NaN-filled array of
+    the plan's size, every array at the kernel's offset, each warp's
+    product over its warp-uniform k-range where the kernel runs it, the
+    workspace NaN where nothing writes.  A range that missed a nonzero term,
+    a read of a value nothing wrote or an array past the plan's shared
+    memory shows in the result."""
+    n = l.shape[-1]
+    plan = tls.mid_bwd_launch_plan(n, 1, 8)
+    lb2, y, abar = (np.full((n, n), np.nan) for _ in range(3))
+    for launch in ("fold", "project"):
+        for p in range(plan.panels):
+            r0 = 32 * p
+            kn, cw = n - r0, min(r0 + 32, n)
+            cwp = -(-cw // 4) * 4
+            smem = np.full(plan.smem_ab // 8, np.nan)
+            first = smem[:cwp * 32].reshape(cwp, 32)       # S^T or P^T
+            region = smem[cwp * 32:]
+            u = region[:kn * cwp].reshape(kn, cwp)
+            v = region[kn * cwp:kn * (cwp + 32)].reshape(kn, 32)
+            u[:] = _strip(ilb if launch == "fold" else lb2, n, r0, kn, 0, cwp)
+            v[:] = _strip(il if launch == "fold" else l, n, r0, kn, r0, 32)
+            for w in range(8):          # tall: rows 16 w .. of S^T / P^T
+                rows = np.arange(16 * w, min(16 * w + 16, cwp))
+                if 16 * w >= cw:
+                    continue
+                acc = u[:, rows].T @ v
+                if launch == "project":     # Phi in P^T's coordinates
+                    i = r0 + np.arange(32)[None, :]
+                    j = rows[:, None]
+                    acc = np.where(i > j, acc, np.where(i == j, 0.5 * acc, 0))
+                first[rows] = acc
+            if launch == "fold":        # L^-T at a stride of cwp + 4
+                right = region[:cw * (cwp + 4)].reshape(cw, cwp + 4)
+                right[:, :cwp] = 0.0
+                right[:, :cw] = il[:cw, :cw].T
+            else:
+                right = region[:cw * cwp].reshape(cw, cwp)
+                right[:] = _strip(il, n, 0, cw, 0, cwp)
+            out = lb2 if launch == "fold" else y
+            for wr in range(2):         # wide: rows i, columns j
+                for wc in range(4):
+                    rmax = r0 + 16 * wr + 15
+                    lo = 0 if launch == "fold" else 32 * wc
+                    hi = min(rmax + 1, cw) if launch == "project" else \
+                        min(rmax + 1, cw, 32 * wc + 32)
+                    rows = np.arange(16 * wr, 16 * wr + 16)
+                    cols = np.arange(32 * wc, min(32 * wc + 32, cwp))
+                    acc = np.zeros((16, 32))
+                    if 32 * wc <= rmax and r0 + 16 * wr < n and len(cols):
+                        acc[:, :len(cols)] = (first[lo:hi, rows].T
+                                              @ right[lo:hi, cols])
+                    i = r0 + rows[:, None]
+                    j = np.arange(32 * wc, 32 * wc + 32)[None, :]
+                    keep = (i < n) & (j < n)
+                    val = (lb[np.minimum(i, n - 1), np.minimum(j, n - 1)]
+                           - acc if launch == "fold" else acc)
+                    val = np.where(j <= i, val, 0.0)
+                    out[i[keep[:, 0], 0][:, None],
+                        j[0, keep[0]][None, :]] = val[keep[:, 0]][
+                            :, keep[0]]
+    for ti in range(plan.panels):
+        for tj in range(ti + 1):
+            i0, j0, kn = 32 * ti, 32 * tj, n - 32 * ti
+            smem = np.full(plan.smem_c // 8, np.nan)
+            strips = [smem[s * kn * 32:(s + 1) * kn * 32].reshape(kn, 32)
+                      for s in range(2 if ti == tj else 4)]
+            strips[0][:] = _strip(il, n, i0, kn, i0, 32)
+            strips[1][:] = _strip(y, n, i0, kn, j0, 32)
+            if ti != tj:
+                strips[2][:] = _strip(il, n, i0, kn, j0, 32)
+                strips[3][:] = _strip(y, n, i0, kn, i0, 32)
+            xs_at = (2 if ti == tj else 4) * kn * 32
+            xs = smem[xs_at:xs_at + 32 * 33].reshape(32, 33)
+            x = np.zeros((32, 32))
+            for half in range(2):       # warps 0, 1: X(I, J)
+                r = slice(16 * half, 16 * half + 16)
+                x[r] = strips[0][16 * half:, r].T @ strips[1][16 * half:]
+            if ti == tj:
+                xs[:, :32] = x
+            else:                       # warps 2, 3: X(J, I)
+                xs[:, :32] = strips[2].T @ strips[3]
+            ii = i0 + np.arange(32)[:, None]
+            jj = j0 + np.arange(32)[None, :]
+            val = np.where(ii > jj, x + xs[:, :32].T,
+                           np.where(ii == jj, x, 0.0))
+            keep = (ii < n) & (jj < n)
+            abar[ii[keep[:, 0], 0][:, None], jj[0, keep[0]][None, :]] = \
+                val[keep[:, 0]][:, keep[0]]
+            if ti != tj:                # the mirror tile (J, I): zeros
+                abar[j0:j0 + 32, i0:min(i0 + 32, n)] = 0.0
+    return abar, lb2, y
+
+
+@pytest.mark.parametrize("n", [25, 30, 32, 33, 40, 64, 97, 100, 120, 125,
+                               128])
+def test_mid_bwd_model_matches_reference(n):
+    """The model of the mid pullback's launches (``_mid_bwd_model``: their
+    shared-memory layouts at the plan's sizes, the warps' products over
+    their k-ranges, the skipped warps, the epilogues) equals
+    ``_bwd_reference`` at 1e-12 on a float64 matrix with random
+    cotangents, and with each cotangent zero; every entry of Lb2, Y and
+    A_bar is written, Lb2 and Y with exact zeros above the diagonal."""
+    rng = np.random.default_rng(n)
+    a = torch.tensor(_spd(rng, (1,), n))
+    l, il = tls._chol_inv_plain(a)
+    il = tls._refine_tri_inverse(l, il)
+    lb, ilb = (torch.tensor(w) for w in _loss_weights(rng, (1,), n))
+    iu = np.triu_indices(n, 1)
+    for lbc, ilbc in ((lb, ilb), (lb, 0 * ilb), (0 * lb, ilb)):
+        want = tls._bwd_reference(l, il, lbc, ilbc)[0].numpy()
+        got, lb2, y = _mid_bwd_model(*(t[0].numpy() for t in
+                                       (l, il, lbc, ilbc)))
+        for t in (got, lb2, y):
+            assert np.isfinite(t).all() and not t[iu].any()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-12 * np.abs(want).max())

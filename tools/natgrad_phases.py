@@ -13,9 +13,9 @@ and K7 only.  Builds each tree's ``natgrad.cu`` into
 ``build/dbg/natgrad/`` as a copy whose kernels read the card's
 ``%globaltimer`` (ns) at each block's start and end and its SM's
 ``clock64`` cycles at the ends of their phases, in thread 0 (the
-``NG_PHASE`` marks of the source; the earlier K6 and K7 of a thread a
-column, which have none, get marks at anchors of their source: the ends
-of their loops and block sums), each phase summed over the chunks and
+``NG_PHASE`` marks of the source; a kernel without them, such as an
+older tree's K6 and K7 of a thread a column, prints its event time
+only), each phase summed over the chunks and
 rounds a block takes and read in microseconds at the SM's top clock
 (``nvidia-smi``'s ``clocks.max.sm``; under load the clock may be lower and
 a phase longer than printed).  Loads the tree's wrapper as a module of
@@ -50,19 +50,8 @@ row's partial and pushed to the row's owner, 6 the cluster's barrier and
 m_new written.  K6's: 1 the copies issued, 2
 landed, 3 the element work and its writes, 4 the row sums, 5 grad_m
 written; K7's: 1, 2 the same, 3 the diagonal's sum (jitter only), 4 the
-element work and writes, 5 the row sums, 6 rhs written.  The earlier K6
-and K7 (a thread a column, their loads inline) have 3 (K7: 4) their loads
-with the element work and writes, then the block sums and the write; K7
-3 its diagonal pre-pass.  For a tree with the earlier K6 and K7 the same
-is printed for a ``coalesced`` build of it, its transposed gathers
-(X[j, i], grad_H[j, i] over a thread's R rows) replaced by reads of the
-same box's bytes in order (eight threads a 32-byte piece; its results
-wrong, its time the point); for a tree with the staged ones, for a ``bulk
-copies`` build, its strip rows one bulk copy each on an mbarrier (thread
-0 makes it with fence.mbarrier_init and issues them; every thread waits
-on it after the block's barrier) in place of every thread's 16-byte
-copies.  A mark adds its cycles in registers; a block writes them once at
-its end.
+element work and writes, 5 the row sums, 6 rhs written.  A mark adds its
+cycles in registers; a block writes them once at its end.
 
 Then, for this tree only: ``strips``, K6 and K7 for 4, 8 and 16 rows a
 strip (the most the kernels take; float32 and float64, both shapes),
@@ -108,20 +97,10 @@ SM_MHZ = 1980.0
 
 HDR = """
 __device__ unsigned long long ng_phase[4 << 15];
-__shared__ __align__(8) uint64_t ng_bar;     // the bulk copies' variant
 __device__ __forceinline__ unsigned long long ng_gtime() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
-}
-// the coalesced variant's read of box entry r * M + j (R entries a row of
-// rows 0 .. M - 1 from column i0), in place of a thread's gather: the
-// threads j < M of the R rows read each of the box's entries once
-template <typename T>
-__device__ __forceinline__ T ng_coal(const T* p, long base, int M, int R,
-                                     int i0, int r, int j) {
-  const int f = r * M + j, row = f / R, col = i0 + f % R;
-  return row < M && col < M ? p[base + (long)row * M + col] : (T)0;
 }
 // a phase's cycles add up in registers (a mark reads no memory, so it
 // stalls on nothing), written once at the block's end
@@ -155,81 +134,13 @@ extern "C" int ng_phase_zero() {
   return (int)(e ? e : cudaMemset(p, 0, sizeof(ng_phase)));
 }
 """
-# the earlier K6 and K7 (a thread a column) have no marks (a thread a column): the ends of the
-# loads with the element work, of the block sums and of the writes; K7's
-# diagonal pre-pass
-COLUMN_K67_MARKS = [
-    ("  __shared__ double sums[RMAX];\n",
-     "  __shared__ double sums[RMAX];\n  NG_PHASE_BEGIN(2)\n"),
-    ("  block_sum(p, blockDim.x >> 5, red, sums);\n",
-     "  NG_PHASE(3)\n  block_sum(p, blockDim.x >> 5, red, sums);\n"
-     "  NG_PHASE(4)\n"),
-    ("  if (j < R && i0 + j < M) gm[(long)l * M + i0 + j] = (T)sums[j];\n}\n",
-     "  if (j < R && i0 + j < M) gm[(long)l * M + i0 + j] = (T)sums[j];\n"
-     "  NG_PHASE(5)\n  NG_PHASE_END\n}\n"),
-    ("  __shared__ double sums[2 * RMAX];\n",
-     "  __shared__ double sums[2 * RMAX];\n  NG_PHASE_BEGIN(3)\n"),
-    ("    shift = (T)jitter * (T)(sums[0] / M);\n  }\n",
-     "    shift = (T)jitter * (T)(sums[0] / M);\n  }\n  NG_PHASE(3)\n"),
-    ("  block_sum(p, nw, red, sums);\n",
-     "  NG_PHASE(4)\n  block_sum(p, nw, red, sums);\n  NG_PHASE(5)\n"),
-    ("2.0 * sums[RMAX + j]));\n}\n",
-     "2.0 * sums[RMAX + j]));\n  NG_PHASE(6)\n  NG_PHASE_END\n}\n")]
-# the strip kernels' strip rows as one bulk copy each (thread 0, after
-# making an mbarrier with fence.mbarrier_init; every thread waits on it
-# after the block's barrier) in place of every thread's 16-byte copies:
-# the form before this one
-BULK_COPIES = [
-    ("#pragma unroll\n  for (int k = 0; k < N; ++k) {\n"
-     "    const T* from = src[k] + (size_t)i0 * M;\n    if (aligned)\n",
-     "  if (threadIdx.x == 0) {\n    mbar_init(&ng_bar);\n"
-     "    asm volatile(\"fence.mbarrier_init.release.cluster;\\n\" ::: "
-     "\"memory\");\n"
-     "    mbar_arrive_tx(&ng_bar, aligned ? (uint32_t)(N * run * sizeof(T))"
-     " : 0u);\n"
-     "    if (aligned)\n      for (int k = 0; k < N; ++k)\n"
-     "        bulk_copy(dst[k], src[k] + (size_t)i0 * M,\n"
-     "                  (uint32_t)(run * sizeof(T)), &ng_bar);\n  }\n"
-     "#pragma unroll\n  for (int k = 0; k < N; ++k) {\n"
-     "    const T* from = src[k] + (size_t)i0 * M;\n"
-     "    if (aligned) continue;\n    if (false)\n"),
-    ("  cp_async_wait_all();\n  __syncthreads();\n}\n",
-     "  cp_async_wait_all();\n  __syncthreads();\n"
-     "  mbar_wait(&ng_bar, 0u);\n}\n")]
-# the coalesced variant of the earlier K6 and K7: their gathers
-COALESCED = [("X[base + (long)j * M + i]", "ng_coal(X, base, M, R, i0, r, j)"),
-             ("gH[base + (long)j * M + i]",
-              "ng_coal(gH, base, M, R, i0, r, j)")]
 SHAPES = [(32, 20, 20, 120), (16, 10, 20, 120)]
 
 
-def _anchor(src: str, path: str, marks) -> str:
-    for anchor, marked in marks:
-        if src.count(anchor) != 1:
-            sys.exit(f"FAIL: {path}: no NG_PHASE marks, and not the "
-                     f"earlier kernel ({anchor.strip()!r})")
-        src = src.replace(anchor, marked)
-    return src
-
-
-def column_k67(tree: str) -> bool:
-    """Whether the tree's K6 and K7 are the earlier ones, a thread a column
-    (no NG_PHASE marks of their own)."""
-    path = os.path.join(tree, "hlax_torch", "csrc", "natgrad.cu")
-    return "NG_PHASE_BEGIN(2)" not in open(path).read()
-
-
-def instrumented(tree: str, out: str, variant: str = "") -> str:
-    """The tree's natgrad.cu with the marks (and ``variant``: "coalesced",
-    the earlier K6 and K7's; "bulk copies", the strip kernels') in
-    ``out``."""
+def instrumented(tree: str, out: str) -> str:
+    """The tree's natgrad.cu with the marks compiled in, in ``out``."""
     path = os.path.join(tree, "hlax_torch", "csrc", "natgrad.cu")
     src = open(path).read()
-    if column_k67(tree):
-        src = _anchor(src, path, COLUMN_K67_MARKS)
-    if variant:
-        src = _anchor(src, path, {"coalesced": COALESCED,
-                                  "bulk copies": BULK_COPIES}[variant])
     src = src.replace("#include <stdint.h>\n", "#include <stdint.h>\n" + HDR,
                       1) + READERS
     os.makedirs(out, exist_ok=True)
@@ -333,12 +244,12 @@ def measure(ng, lib, shape, dtype):
     del flush, case, nc
 
 
-def measure_strips(ng, lib, shape, dtype, label=""):
+def measure_strips(ng, lib, shape, dtype):
     """K6 warm, cold and in the step (after the products that write its
     X); K7 warm, cold and in the step (after the bound's forward and
     backward), and with jitter warm and cold; on natgrad_case's inputs."""
     L, _, _, M = shape
-    tag = f"[{L}, {M}, {M}] {str(dtype).removeprefix('torch.')}{label}"
+    tag = f"[{L}, {M}, {M}] {str(dtype).removeprefix('torch.')}"
     nc = cs.natgrad_case(*shape, dtype)
     flush, cold = _flush()
     (e6, l6, a6), = cs._launches_of(ng, lambda: ng.latents(*nc["latents"]))
@@ -572,23 +483,19 @@ def main():
     print(f"[phases] phases' cycles read at the SM clock's {SM_MHZ:.0f} MHz",
           flush=True)
     for i, tree in enumerate(TREES):
-        variants = [""] + (["coalesced"] if column_k67(tree) else
-                           ["bulk copies"])
-        for k, variant in enumerate(variants):
-            label = f" {variant}" if variant else ""
-            out = os.path.join(DBG, f"{i}.{k}")
-            ng, lib, log = cs.tree_ops(tree, "natgrad", out,
-                                       src=instrumented(tree, out, variant))
-            lib.ng_phase_zero.restype = ctypes.c_int
-            cs._ptxas_report("phases", f"natgrad (instrumented{label})", log,
-                             only="natgrad_")
-            print(f"[phases] tree {tree}{label}", flush=True)
-            for dtype in (torch.float32, torch.float64):
-                for shape in SHAPES:
-                    if not (STRIPS_ONLY or variant):
-                        measure(ng, lib, shape, dtype)
-                    measure_strips(ng, lib, shape, dtype, label)
-                    torch.cuda.empty_cache()
+        out = os.path.join(DBG, str(i))
+        ng, lib, log = cs.tree_ops(tree, "natgrad", out,
+                                   src=instrumented(tree, out))
+        lib.ng_phase_zero.restype = ctypes.c_int
+        cs._ptxas_report("phases", "natgrad (instrumented)", log,
+                         only="natgrad_")
+        print(f"[phases] tree {tree}", flush=True)
+        for dtype in (torch.float32, torch.float64):
+            for shape in SHAPES:
+                if not STRIPS_ONLY:
+                    measure(ng, lib, shape, dtype)
+                measure_strips(ng, lib, shape, dtype)
+                torch.cuda.empty_cache()
     from hlax_torch.ops import natgrad as ng
 
     if hasattr(ng, "strip_smem"):
